@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from opticalflow_tpu_torch.io import images as imio
 from opticalflow_tpu_torch.models.pwcnet import FLOW_SCALE, PWCDCNet
 from opticalflow_tpu_torch.models.torch_import import reference_state_dict
-from opticalflow_tpu_torch.ops.resize import flow_resize
+from opticalflow_tpu_torch.ops.resize import (flow_resize,
+                                              resize_linear_antialiased)
 
 __all__ = ["FlowEngine", "resolve_device"]
 
@@ -181,23 +182,24 @@ class FlowEngine:
             return flow.permute(0, 2, 3, 1).cpu().numpy()
 
     def _flow_resize(self, im1s, im2s, preset, h, w) -> torch.Tensor:
-        if h < 16 or w < 16:
-            # the quarter-res flow of a /64 frame is at least 16 px a side:
-            # here it would be DOWNsampled, where the JAX engine's
-            # jax.image.resize antialiases and this engine's bilinear would
-            # not — refuse rather than silently differ
-            raise ValueError(f"size_mode='resize' needs frames of at least "
-                             f"16x16, got {h}x{w}; use size_mode='pad'")
         x = np.stack([np.concatenate(
             (imio.resize_to_multiple_of_64(a)[0],
              imio.resize_to_multiple_of_64(b)[0]), axis=-1)
             for a, b in zip(im1s, im2s)])
         h64, w64 = x.shape[1:3]
         q = self._quarter_flow_u8(x, preset)
-        # half-pixel bilinear upsampling, which is what jax.image.resize
-        # (method="linear") and cv2.resize compute when enlarging
-        flow = F.interpolate(q, size=(h, w), mode="bilinear",
-                             align_corners=False)
+        if h < q.shape[2] or w < q.shape[3]:
+            # a side under 16 px: the quarter-res flow shrinks there, and
+            # the JAX engine's jax.image.resize antialiases when it shrinks
+            flow = resize_linear_antialiased(q, h, w)
+        else:
+            # half-pixel bilinear upsampling, which is what jax.image.resize
+            # (method="linear") and cv2.resize compute when enlarging; one
+            # interpolation kernel, where resize_linear_antialiased would
+            # take dense products over whole axes (112x436 and 256x1024
+            # weights at Sintel size) for the same values
+            flow = F.interpolate(q, size=(h, w), mode="bilinear",
+                                 align_corners=False)
         scale = torch.tensor([np.float32(w / float(w64)),
                               np.float32(h / float(h64))],
                              dtype=torch.float32, device=flow.device)

@@ -6,13 +6,14 @@ levels, so inputs must be multiples of 64.  Two strategies, as in the
 reference:
 
   * :func:`resize_to_multiple_of_64` — distorting bilinear resize (canonical
-    CLI, ``script_pwc.py:47-54``; flow vectors rescaled back after);
+    CLI, ``script_pwc.py:47-54``; flow vectors rescaled back after), in
+    numpy, bit-exact to the reference's ``cv2.resize``;
   * :func:`pad_to_multiple_of_64` / :func:`unpad` — replicate pad bottom/right
     (``inference_kitti.py:53-71``).
 
 :func:`load_image` decodes 8-bit non-interlaced grey/RGB/RGBA PNG itself
 (stdlib ``zlib`` + numpy), so the single-pair path needs neither imageio,
-PIL nor cv2; other formats go through imageio or PIL, imported lazily.
+PIL nor OpenCV; other formats go through imageio or PIL, imported lazily.
 """
 
 from __future__ import annotations
@@ -127,18 +128,95 @@ def load_image(path: str) -> np.ndarray:
     return img[..., :3]
 
 
-def resize_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
-    """cv2-bilinear resize up to ceil(/64)*64 (``script_pwc.py:47-54``).
+_COEF_BITS = 11                 # cv2's INTER_RESIZE_COEF_BITS
+_COEF_ONE = np.float32(1 << _COEF_BITS)
 
-    /64-sized frames return early without importing cv2.
+
+def _linear_taps(n_src: int, n_dst: int):
+    """Source index and float32 fraction of each destination pixel, with
+    cv2's half-pixel rule computed in cv2's types: the position in double,
+    rounded to float32, then floor and fraction in float32."""
+    scale = 1.0 / (float(n_dst) / n_src)
+    pos = ((np.arange(n_dst, dtype=np.float64) + 0.5) * scale
+           - 0.5).astype(np.float32)
+    first = np.floor(pos)
+    return first.astype(np.int64), (pos - first).astype(np.float32)
+
+
+def _fixed_weights(frac: np.ndarray):
+    """The two 11-bit weights of each tap, rounded half to even as cv2's
+    ``saturate_cast<short>`` rounds them."""
+    w0 = np.rint((np.float32(1) - frac) * _COEF_ONE).astype(np.int32)
+    w1 = np.rint(frac * _COEF_ONE).astype(np.int32)
+    return w0, w1
+
+
+def _enlarge_bilinear_u8(img: np.ndarray, height: int,
+                        width: int) -> np.ndarray:
+    """uint8 (H, W, C) → (height, width, C) with height ≥ H and width ≥ W,
+    bit-exact to ``cv2.resize(img, (width, height))`` (INTER_LINEAR), in
+    numpy integer arithmetic.
+
+    cv2's fixed-point scheme: 11-bit weights; a horizontal pass into int32
+    (``src[x0]·a0 + src[x1]·a1``), where a tap left of the first column
+    takes column 0 whole and one at or right of the last column takes that
+    column whole; then a vertical pass over the two rows, clamped into the
+    image with the weights left as they are,
+    ``(((b0·(r0>>4))>>16) + ((b1·(r1>>4))>>16) + 2) >> 2``.  A side that
+    shrinks is refused: cv2 computes it otherwise (area averaging at
+    exactly half size)."""
+    h, w, c = img.shape
+    if height < h or width < w:
+        raise ValueError(f"only enlarges: {h}x{w} -> {height}x{width}")
+    src = img.reshape(h, w * c).astype(np.int32)
+    if width == w:
+        # every tap lands on its own column with weights (2048, 0), so the
+        # horizontal pass is src·2048, and >>4 of that is src·128 (Sintel's
+        # 1024 columns stay as they are)
+        rows = src << 7
+    else:
+        sx, fx = _linear_taps(w, width)
+        edge = (sx < 0) | (sx >= w - 1)
+        fx = np.where(edge, np.float32(0), fx)
+        sx = np.clip(sx, 0, w - 1)
+        a0, a1 = _fixed_weights(fx)
+        # flat (row, x·C + channel) indices, so each pass is one np.take
+        ch = np.arange(c)
+        i0 = (sx[:, None] * c + ch).ravel()
+        i1 = (np.minimum(sx + 1, w - 1)[:, None] * c + ch).ravel()
+        rows = np.take(src, i0, axis=1)
+        rows *= np.repeat(a0, c)
+        t = np.take(src, i1, axis=1)
+        t *= np.repeat(a1, c)
+        rows += t
+        rows >>= 4
+
+    sy, fy = _linear_taps(h, height)
+    b0, b1 = _fixed_weights(fy)
+    out = np.take(rows, np.clip(sy, 0, h - 1), axis=0)
+    out *= b0[:, None]
+    out >>= 16
+    t = np.take(rows, np.clip(sy + 1, 0, h - 1), axis=0)
+    t *= b1[:, None]
+    t >>= 16
+    out += t
+    out += 2
+    out >>= 2
+    return out.astype(np.uint8).reshape(height, width, c)
+
+
+def resize_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
+    """Bilinear resize up to ceil(/64)*64 (``script_pwc.py:47-54``), the
+    reference's ``cv2.resize`` reproduced bit for bit by
+    :func:`_enlarge_bilinear_u8` (the target never shrinks a side).
+
     Returns (resized, H_orig, W_orig)."""
     h, w = img.shape[:2]
     h64 = int(ceil(h / 64.0) * 64)
     w64 = int(ceil(w / 64.0) * 64)
     if (h64, w64) == (h, w):
         return img, h, w
-    import cv2
-    return cv2.resize(img, (w64, h64)), h, w
+    return _enlarge_bilinear_u8(img, h64, w64), h, w
 
 
 def pad_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:

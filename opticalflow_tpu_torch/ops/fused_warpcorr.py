@@ -1,0 +1,172 @@
+"""Fused masked warp + correlation, ``corr(f1, warp_with_mask(f2, flow))``:
+the plain PyTorch version, the wrapper of the hand-written CUDA kernel
+(``csrc/fused_warp_corr.cu``) and the dispatcher.
+
+The kernel is the port of the Pallas probe kernel
+``scripts/probe_fused_warpcorr.py::_fused_kernel``, and :func:`prep_gather`
+of its XLA-side precompute ``_prep_gather`` (without the md-row padding).
+Layouts are NCHW: f1, f2 (B, C, H, W) float32 or bfloat16, flow
+(B, 2, H, W) float32, out (B, 81, H, W) in f1's dtype with channel
+``tj·9 + ti``, as :func:`~opticalflow_tpu_torch.ops.correlation.correlation`.
+
+:func:`fused_warp_corr_plain` computes the kernel's formulation step by
+step (sample points, folded corner weights, a four-corner gather in
+float32, then :func:`correlation_plain`), so the CPU tests check the
+kernel's math against the JAX package.  :func:`fused_warp_corr` sends a CPU
+tensor to it and a CUDA tensor to :func:`fused_warp_corr_cuda`, which
+launches the kernel or raises; ``fused_warp_corr_cuda.launches`` counts
+launches.  The kernel is forward only, like the TPU kernel it replaces.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from opticalflow_tpu_torch.ops._build import load_library
+from opticalflow_tpu_torch.ops.correlation import correlation_plain
+
+__all__ = ["prep_gather", "fused_warp_corr", "fused_warp_corr_plain",
+           "fused_warp_corr_cuda", "MD"]
+
+MD = 4    # max displacement: the model's, and the kernel's only one
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load_library("fused_warp_corr").fused_warp_corr
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def prep_gather(flow: torch.Tensor, h: int, w: int,
+                mask_threshold: float = 0.9999):
+    """Sample points and folded bilinear weights of the masked warp.
+
+    flow (B, 2, h, w) → ``(x0, y0, wv)``: the int32 top-left corner
+    (B, h, w) of each sample point ``xs = (x+u)·(w/max(w-1,1)) - 0.5`` (and
+    likewise ys), and float32 weights (B, 4, h, w) of the corners (y0, x0),
+    (y0, x0+1), (y0+1, x0), (y0+1, x0+1), each zeroed where its corner lies
+    outside the image and all four zeroed where their sum is below
+    ``mask_threshold``.  Every step is one float32 operation in the order
+    the kernel does it."""
+    u = flow[:, 0].float()
+    v = flow[:, 1].float()
+    xx = torch.arange(w, dtype=torch.float32, device=flow.device)
+    yy = torch.arange(h, dtype=torch.float32, device=flow.device)
+    xs = (xx.view(1, 1, w) + u) * (w / max(w - 1, 1)) - 0.5
+    ys = (yy.view(1, h, 1) + v) * (h / max(h - 1, 1)) - 0.5
+    xf = torch.floor(xs)
+    yf = torch.floor(ys)
+    wx = xs - xf
+    wy = ys - yf
+    x0 = xf.int()
+    y0 = yf.int()
+    vx0 = (x0 >= 0) & (x0 <= w - 1)
+    vx1 = (x0 >= -1) & (x0 <= w - 2)
+    vy0 = (y0 >= 0) & (y0 <= h - 1)
+    vy1 = (y0 >= -1) & (y0 <= h - 2)
+    wv = torch.stack([(1 - wy) * (1 - wx) * (vy0 & vx0),
+                      (1 - wy) * wx * (vy0 & vx1),
+                      wy * (1 - wx) * (vy1 & vx0),
+                      wy * wx * (vy1 & vx1)], dim=1)
+    total = wv[:, 0] + wv[:, 1] + wv[:, 2] + wv[:, 3]
+    return x0, y0, wv * (total >= mask_threshold).unsqueeze(1)
+
+
+def _warp_gathered(f2: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                   wv: torch.Tensor) -> torch.Tensor:
+    """Four-corner gather of f2 (B, C, H, W) in float32, weighted by wv:
+    the warped tensor, float32 (B, C, H, W)."""
+    b, c, h, w = f2.shape
+    flat = f2.float().reshape(b, c, h * w)
+    x0 = x0.long()
+    y0 = y0.long()
+    # corners clamped into the image (their weight is 0 where clamped)
+    xs = (x0.clamp(0, w - 1), x0.clamp(-1, w - 2) + 1)
+    ys = (y0.clamp(0, h - 1), y0.clamp(-1, h - 2) + 1)
+    warped = None
+    for k, (yk, xk) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        lin = (ys[yk] * w + xs[xk]).reshape(b, 1, h * w).expand(b, c, h * w)
+        term = wv[:, k].reshape(b, 1, h * w) * flat.gather(2, lin)
+        warped = term if warped is None else warped + term
+    return warped.reshape(b, c, h, w)
+
+
+def fused_warp_corr_plain(f1: torch.Tensor, f2: torch.Tensor,
+                          flow: torch.Tensor, *,
+                          mask_threshold: float = 0.9999) -> torch.Tensor:
+    """Plain PyTorch ``corr(f1, warp_with_mask(f2, flow))`` in the kernel's
+    formulation; float32 throughout, the result cast to f1's dtype."""
+    _, _, h, w = f1.shape
+    x0, y0, wv = prep_gather(flow, h, w, mask_threshold)
+    warped = _warp_gathered(f2, x0, y0, wv)
+    out = correlation_plain(f1, warped, pad_size=MD, max_displacement=MD)
+    return out.to(f1.dtype)
+
+
+def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                         flow: torch.Tensor, *,
+                         mask_threshold: float = 0.9999) -> torch.Tensor:
+    """The CUDA kernel.  f1, f2: contiguous (B, C, H, W) CUDA tensors of one
+    dtype, float32 or bfloat16; flow: contiguous float32 (B, 2, H, W) on the
+    same device.  Returns (B, 81, H, W) in f1's dtype."""
+    tensors = (f1, f2, flow)
+    if not all(t.is_cuda for t in tensors) or len(
+            {t.device for t in tensors}) != 1:
+        raise ValueError("fused_warp_corr_cuda needs f1, f2 and flow on one "
+                         f"CUDA device, got {[t.device for t in tensors]}")
+    if f1.dtype not in _DTYPE_CODES or f2.dtype != f1.dtype:
+        raise TypeError("fused_warp_corr_cuda takes float32 or bfloat16 "
+                        f"features of one dtype, got {f1.dtype} and "
+                        f"{f2.dtype}")
+    if flow.dtype != torch.float32:
+        raise TypeError(f"fused_warp_corr_cuda takes a float32 flow, got "
+                        f"{flow.dtype}")
+    if f1.dim() != 4 or f1.shape != f2.shape or tuple(flow.shape) != (
+            f1.shape[0], 2) + tuple(f1.shape[2:]):
+        raise ValueError("fused_warp_corr_cuda needs f1, f2 (B, C, H, W) and "
+                         f"flow (B, 2, H, W), got {tuple(f1.shape)}, "
+                         f"{tuple(f2.shape)} and {tuple(flow.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_warp_corr_cuda needs contiguous NCHW inputs")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "fused_warp_corr_cuda is forward-only, like the TPU kernel it "
+            "replaces; run under torch.no_grad()/inference_mode()")
+    b, c, h, w = f1.shape
+    nd = 2 * MD + 1
+    out = torch.empty((b, nd * nd, h, w), dtype=f1.dtype, device=f1.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(),
+                 out.data_ptr(), b, c, h, w, MD, _DTYPE_CODES[f1.dtype],
+                 float(mask_threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_warp_corr launch failed: cudaError {err} "
+                           f"at shape {tuple(f1.shape)} {f1.dtype}")
+    fused_warp_corr_cuda.launches += 1
+    return out
+
+
+fused_warp_corr_cuda.launches = 0
+
+
+def fused_warp_corr(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                    *, mask_threshold: float = 0.9999) -> torch.Tensor:
+    """``corr(f1, warp_with_mask(f2, flow, mask_threshold))``: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    if f1.is_cuda:
+        return fused_warp_corr_cuda(f1, f2, flow,
+                                    mask_threshold=mask_threshold)
+    return fused_warp_corr_plain(f1, f2, flow, mask_threshold=mask_threshold)

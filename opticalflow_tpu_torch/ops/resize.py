@@ -17,8 +17,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_bilinear", "upsample_flow_to", "flow_resize",
-           "resize_nearest", "upsample_flow_2x"]
+__all__ = ["resize_bilinear", "resize_linear_antialiased",
+           "upsample_flow_to", "flow_resize", "resize_nearest",
+           "upsample_flow_2x"]
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int,
@@ -29,6 +30,38 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int,
         return x
     return F.interpolate(x, size=(height, width), mode="bilinear",
                          align_corners=align_corners)
+
+
+def _triangle_weights(n_in: int, n_out: int,
+                      device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of a half-pixel linear resize of one
+    axis: a triangle filter, widened by the shrink factor where the axis
+    shrinks, each column renormalised to sum 1 (so edges clamp)."""
+    inv_scale = n_in / n_out
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    dist = (pos[None, :] - src[:, None]).abs() / max(inv_scale, 1.0)
+    w = (1.0 - dist).clamp(min=0.0)
+    return w / w.sum(0, keepdim=True)
+
+
+def resize_linear_antialiased(x: torch.Tensor, height: int,
+                              width: int) -> torch.Tensor:
+    """Half-pixel linear resize of (B, C, H, W) that antialiases where it
+    shrinks a side, as ``jax.image.resize(method="linear")`` computes it:
+    one weight matrix per axis (:func:`_triangle_weights`), applied
+    separably in float32.  Where a side grows this is plain bilinear.
+
+    ``F.interpolate(..., antialias=True)`` computes the same function but
+    is not used: on the CPU it returns wrong values when the output width
+    is 1 and the height changes (torch 2.13, NCHW-contiguous input)."""
+    h, w = x.shape[-2:]
+    if (h, w) == (height, width):
+        return x
+    wy = _triangle_weights(h, height, x.device)
+    wx = _triangle_weights(w, width, x.device)
+    return torch.einsum("bchw,hy,wx->bcyx", x.float(), wy, wx)
 
 
 def _scale_vectors(out: torch.Tensor, sy: float, sx: float) -> torch.Tensor:

@@ -105,14 +105,40 @@ def test_engine_rejects_bad_input(fake_sd):
         engine.flow_from_pair(z, z, size_mode="resize_fixed")
     with pytest.raises(ValueError, match="common frame shape"):
         engine.flow_from_pairs([z, z[:32]], [z, z[:32]])
-    # the quarter-res flow would be downsampled, where the JAX engine
-    # antialiases: refused rather than silently different
-    small = np.zeros((12, 40, 3), np.uint8)
-    with pytest.raises(ValueError, match="16x16"):
-        engine.flow_from_pair(small, small, size_mode="resize")
     # pad_ref's quarter-by-full-pad slice would be empty here
+    small = np.zeros((12, 40, 3), np.uint8)
     with pytest.raises(ValueError, match="empty"):
         engine.flow_from_pair(small, small, size_mode="pad_ref")
+
+
+@pytest.mark.parametrize("h,w", [(12, 40), (9, 7), (30, 15)])
+def test_tiny_frame_resize_matches_jax_image_resize(fake_sd, monkeypatch, h,
+                                                    w):
+    """Under 16 px a side the quarter-res flow (16 px at least) shrinks on
+    its way back to the frame size: the engine antialiases there as the JAX
+    engine's ``jax.image.resize(method="linear")`` does, on the same
+    quarter-res flow."""
+    import jax
+    import jax.numpy as jnp
+    engine = FlowEngine(PWCDCNet(), fake_sd, device="cpu")
+    seen = {}
+    quarter = engine._quarter_flow_u8
+
+    def keep(x, preset):
+        seen["q"] = quarter(x, preset)
+        return seen["q"]
+
+    monkeypatch.setattr(engine, "_quarter_flow_u8", keep)
+    rng = np.random.RandomState(h * w)
+    im1, im2 = (rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                for _ in range(2))
+    flow = engine.flow_from_pair(im1, im2, size_mode="resize")
+    q = seen["q"].permute(0, 2, 3, 1).numpy()
+    h64, w64 = 4 * q.shape[1], 4 * q.shape[2]
+    ref = jax.image.resize(jnp.asarray(q), (1, h, w, 2), method="linear")
+    ref = np.asarray(ref * jnp.asarray([w / w64, h / h64], jnp.float32))
+    assert flow.shape == (h, w, 2)
+    np.testing.assert_allclose(flow, ref[0], atol=1e-5, rtol=1e-5)
 
 
 def test_warmup_and_exact_64_frames_skip_cv2(fake_sd, monkeypatch):
@@ -131,3 +157,21 @@ def test_warmup_and_exact_64_frames_skip_cv2(fake_sd, monkeypatch):
     engine.warmup(64, 128, size_modes=("resize", "pad"))
     z = np.full((64, 128, 3), 7, np.uint8)
     assert engine.flow_from_pair(z, z).shape == (64, 128, 2)
+
+
+def test_resize_mode_reproduces_golden_without_opencv(fake_sd, frames,
+                                                      monkeypatch):
+    """The default size mode on frames that are not /64 (180x318): the
+    numpy resize stands in for cv2, which is never imported."""
+    import builtins
+    real_import = builtins.__import__
+
+    def no_cv2(name, *a, **k):
+        if name == "cv2":
+            raise ImportError("cv2 blocked")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_cv2)
+    engine = FlowEngine(PWCDCNet(), fake_sd, device="cpu")
+    flow = engine.flow_from_pair(*frames)
+    assert _epe(flow, read_flo(os.path.join(GOLD, "real_pair.flo"))) <= 1e-6

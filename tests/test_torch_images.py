@@ -98,6 +98,49 @@ def test_other_png_flavours_are_handed_on():
     assert images.decode_png(b"GIF89a") is None
 
 
+@pytest.mark.parametrize("h,w", [(180, 318), (436, 1024), (375, 1242),
+                                 (1080, 1920)],
+                         ids=["goldens", "sintel", "kitti", "1080p"])
+def test_resize_bit_exact_to_cv2(h, w):
+    """The numpy resize against the OpenCV it replaces, at the sizes users
+    run: every byte equal."""
+    cv2 = pytest.importorskip("cv2")
+    img = np.random.RandomState(h + w).randint(0, 256, (h, w, 3)).astype(
+        np.uint8)
+    ours, oh, ow = images.resize_to_multiple_of_64(img)
+    assert (oh, ow) == (h, w)
+    ref = cv2.resize(img, ours.shape[1::-1])
+    assert ours.shape == ref.shape == (-(-h // 64) * 64, -(-w // 64) * 64, 3)
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("hs", [range(1, 71, 7), range(2, 71, 7),
+                                range(3, 71, 7), range(64, 71)],
+                         ids=["1mod7", "2mod7", "3mod7", "64-70"])
+def test_resize_bit_exact_to_cv2_small_sizes(hs):
+    """A cheap subset of 1..70 x 1..70: for each height, every width in a
+    stride-5 comb, edges and the identity (/64 sizes) included."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(len(hs))
+    for h in hs:
+        for w in (*range(1 + h % 5, 71, 5), 64):
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            ours = images.resize_to_multiple_of_64(img)[0]
+            np.testing.assert_array_equal(
+                ours, cv2.resize(img, ours.shape[1::-1]),
+                err_msg=f"{h}x{w}")
+
+
+def test_uint8_resize_refuses_to_shrink():
+    """Only enlarging matches cv2 (it averages areas when it shrinks), and
+    the /64 resize never shrinks; a shrinking call is refused."""
+    img = np.zeros((10, 12, 3), np.uint8)
+    assert images._enlarge_bilinear_u8(img, 10, 12).shape == (10, 12, 3)
+    for hw in ((9, 12), (10, 11)):
+        with pytest.raises(ValueError, match="only enlarges"):
+            images._enlarge_bilinear_u8(img, *hw)
+
+
 def test_geometry_helpers_match_jax_package():
     x = np.random.RandomState(1).randint(0, 256, (2, 180, 318, 6)).astype(
         np.uint8)

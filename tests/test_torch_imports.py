@@ -38,6 +38,31 @@ def test_every_module_imports_without_jax():
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
 
+def test_port_neither_imports_nor_names_opencv():
+    """The GPU machine has no OpenCV: importing every port module loads no
+    cv2, and no port source names it outside docstrings and comments."""
+    mods = _port_modules()
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('cv2' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "False", res.stdout
+    offenders = []
+    for dirpath, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(dirpath, n)) as f:
+                    code = re.sub(r'"""[\s\S]*?"""|#.*', "", f.read())
+                if re.search(r"\bcv2\b", code):
+                    offenders.append(n)
+    assert not offenders, offenders
+
+
 def test_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib)\b"
                          r"|opticalflow_tpu\.|opticalflow_tpu\s+import",

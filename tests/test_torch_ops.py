@@ -134,6 +134,22 @@ def test_engine_upsampling_matches_jax_image_resize(src, dst):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("src,dst", [((16, 16), (12, 40)),    # down, up
+                                     ((16, 16), (3, 5)),      # down both
+                                     ((16, 32), (15, 1)),
+                                     ((16, 48), (7, 130)),
+                                     ((48, 80), (180, 318))])  # up both
+def test_antialiased_flow_resize_matches_jax_image_resize(src, dst):
+    """What the engine's resize mode uses for frames under 16 px a side:
+    jax.image.resize (method="linear") antialiases where it shrinks."""
+    q = _rand((2,) + src + (2,), 18)
+    ref = jax.image.resize(jnp.asarray(q), (2,) + dst + (2,),
+                           method="linear")
+    out = resize.resize_linear_antialiased(_nchw(q), *dst)
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
 # ------------------------------------------------------------------ conv ops
 
 def test_deconv2d_matches_jax():
