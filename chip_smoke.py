@@ -12,9 +12,12 @@ non-zero, and no result line is printed):
      print the build time and the compiler's register/shared-memory report;
   2. hold the correlation kernel (K1/K2) against its plain PyTorch version
      on the card: every level of a 448x1024 input at B=1 and B=8, the
-     1088x1920 level-2 shape and a ragged shape, float32 and bfloat16; then
-     time it per level beside its bound and the plain version, at 448x1024
-     and at every level of 1088x1920;
+     1088x1920 level-2 shape and a ragged shape, float32 and bfloat16; then,
+     per level at 448x1024 (B=1, B=8) and at 1088x1920, in float32 and
+     bfloat16: two runs bit-equal, the tile, grid and channel split the
+     kernel chose, its time on the card alone, by CUDA events back to back
+     and the host's time to queue it, beside its bound and the plain
+     version;
   3. hold the fused warp+correlation kernel (K3) against its plain version:
      levels 2-5 of 448x1024 at B=1 and B=8, the ragged 9x45x20 and the
      1088x1920 level 2, float32 and bfloat16, both mask thresholds, flows
@@ -22,7 +25,7 @@ non-zero, and no result line is printed):
      it against the composed path (warp, then K1);
   4. hold the row gather kernel (K4) against its plain version, exactly and
      NaN rows included; then its probe entry point, beside
-     ``torch.index_select``;
+     ``torch.index_select``, with the wrapper's host time by piece;
   5. the main path through its entry points: the single-pair CLI on the
      real golden frames with fake reference weights, in pad mode against
      ``tests/goldens/real_pair_pad.flo`` and in its default resize mode
@@ -80,13 +83,17 @@ def epe(a, b) -> float:
     return float(np.mean(np.hypot(*(a - b).transpose(2, 0, 1))))
 
 
-def corr_bound(b: int, h: int, w: int, c: int):
-    """Least time for one correlation call on float32 features: f1 and f2
-    read once, the 81 maps written once, against the FMAs it must do at
-    the float32 rate.  Returns (bound_ms, "bytes" | "operations")."""
-    from opticalflow_tpu_torch.scripts._timing import bound
-    return bound((2 * b * c * h * w + b * ND2 * h * w) * 4,
-                 2.0 * b * ND2 * c * h * w)
+def corr_bound(b: int, h: int, w: int, c: int, itemsize: int = 4):
+    """Least time for one correlation call on features of ``itemsize``
+    bytes: f1 and f2 read once, the 81 maps written once, against the FMAs
+    it must do at the float32 rate (bfloat16 features at the tensor cores'
+    bfloat16 rate).  Returns (bound_ms, "bytes" | "operations")."""
+    from opticalflow_tpu_torch.scripts._timing import (BF16_FLOPS_PER_S,
+                                                       FP32_FLOPS_PER_S,
+                                                       bound)
+    return bound((2 * b * c * h * w + b * ND2 * h * w) * itemsize,
+                 2.0 * b * ND2 * c * h * w,
+                 FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S)
 
 
 def summed(rows, key_ms="ms"):
@@ -94,7 +101,9 @@ def summed(rows, key_ms="ms"):
     bounds, and what bounds the sum."""
     t_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     total = sum(r["bound_ms"] for r in rows)
-    return {"ms": sum(r[key_ms] for r in rows),
+    extra = {k: sum(r[k] for r in rows) for k in ("device_ms", "host_ms")
+             if all(k in r for r in rows)}
+    return {"ms": sum(r[key_ms] for r in rows), **extra,
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": total,
             "bound_by": "bytes" if t_bytes >= 0.5 * total else "operations"}
@@ -118,11 +127,13 @@ def phase_build():
 
 def phase_corr_vs_plain():
     """K1/K2 against the plain version, then timed.  Returns (max f32
-    error, 448x1024 rows, 1088x1920 rows)."""
+    error, 448x1024 rows, 1088x1920 rows, bfloat16 rows)."""
     import torch
-    from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+    from opticalflow_tpu_torch.ops.corr_cuda import (correlation_cuda,
+                                                     launch_plan)
     from opticalflow_tpu_torch.ops.correlation import correlation_plain
-    from opticalflow_tpu_torch.scripts._timing import cuda_ms
+    from opticalflow_tpu_torch.scripts._timing import (cuda_ms, device_ms,
+                                                       host_ms)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -154,31 +165,62 @@ def phase_corr_vs_plain():
                                                  f"  {bad} OVER TOLERANCE"))
             assert bad == 0, f"kernel disagrees with plain at {name} {dtype}"
 
-    def time_levels(levels, batches, frame):
+    def time_levels(levels, batches, frame, dtype=torch.float32):
         rows = []
         for b in batches:
             for name, h, w, c in levels:
-                f1 = torch.randn(b, c, h, w, generator=g, device="cuda")
-                f2 = torch.randn(b, c, h, w, generator=g, device="cuda")
-                k_ms = cuda_ms(lambda _: correlation_cuda(
-                    f1, f2, max_displacement=MD), 200)
+                f1 = torch.randn(b, c, h, w, generator=g,
+                                 device="cuda").to(dtype)
+                f2 = torch.randn(b, c, h, w, generator=g,
+                                 device="cuda").to(dtype)
+
+                def call(_):
+                    return correlation_cuda(f1, f2, max_displacement=MD)
+
+                # the channel split is reduced in a fixed order: two runs
+                # give the same bits
+                same_bits = torch.equal(call(0), call(1))
+                assert same_bits, f"two runs differ at {frame} {name} B={b}"
+                plan = launch_plan(b, c, h, w, dtype)
+                k_ms = cuda_ms(call, 200)       # back to back from Python
+                d_ms = device_ms(call, 200)     # the card alone
+                h_ms = host_ms(call, 200)       # the host's time to queue one
                 p_ms = cuda_ms(lambda _: correlation_plain(
                     f1, f2, pad_size=MD, max_displacement=MD), 10)
-                bound_ms, bound_by = corr_bound(b, h, w, c)
+                bound_ms, bound_by = corr_bound(b, h, w, c,
+                                                f1.element_size())
                 rows.append({"level": name, "frame": frame, "batch": b,
-                             "shape": [h, w, c], "ms": k_ms,
+                             "dtype": str(dtype)[6:], "shape": [h, w, c],
+                             "ms": k_ms, "device_ms": d_ms, "host_ms": h_ms,
                              "plain_ms": p_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by})
-                log(f"[2] time {frame} {name} B={b} f32: kernel "
-                    f"{k_ms * 1e3:.2f} us  plain {p_ms * 1e3:.2f} us  bound "
-                    f"{bound_ms * 1e3:.3f} us ({bound_by})")
+                             "bound_by": bound_by, "same_bits": same_bits,
+                             **plan})
+                log(f"[2] time {frame} {name} B={b} {str(dtype)[6:]}: card "
+                    f"alone {d_ms * 1e3:.2f} us  events {k_ms * 1e3:.2f} us  "
+                    f"host {h_ms * 1e3:.2f} us  plain {p_ms * 1e3:.2f} us  "
+                    f"bound {bound_ms * 1e3:.3f} us ({bound_by})  tile "
+                    f"{plan['tile'][0]}x{plan['tile'][1]} grid "
+                    f"{plan['grid']} split {plan['split']} "
+                    f"({plan['channels_per_split']} ch) smem "
+                    f"{plan['smem_bytes']} B  two runs bit-equal")
         return rows
 
     rows = time_levels(LEVELS, (1, 8), "448x1024")
     rows_1080 = time_levels(LEVELS_1080, (1,), "1088x1920")
+    rows_bf16 = (time_levels(LEVELS, (1, 8), "448x1024", torch.bfloat16)
+                 + time_levels(LEVELS_1080, (1,), "1088x1920",
+                               torch.bfloat16))
+    for what, sel in (("448x1024 B=1", [r for r in rows if r["batch"] == 1]),
+                      ("448x1024 B=8", [r for r in rows if r["batch"] == 8]),
+                      ("1088x1920 B=1", rows_1080)):
+        log(f"[2] one forward's 5 levels, {what} f32: card alone "
+            f"{sum(r['device_ms'] for r in sel) * 1e3:.2f} us, events "
+            f"{sum(r['ms'] for r in sel) * 1e3:.2f} us, host "
+            f"{sum(r['host_ms'] for r in sel) * 1e3:.2f} us, bound "
+            f"{sum(r['bound_ms'] for r in sel) * 1e3:.3f} us")
     log(f"[2] max abs error: float32 {worst[torch.float32]:.3e}, "
         f"bfloat16 {worst[torch.bfloat16]:.3e}")
-    return worst[torch.float32], rows, rows_1080
+    return worst[torch.float32], rows, rows_1080, rows_bf16
 
 
 def phase_fused_vs_plain():
@@ -466,7 +508,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    k1_err, k1_rows, k2_rows = phase_corr_vs_plain()
+    k1_err, k1_rows, k2_rows, k1_rows_bf16 = phase_corr_vs_plain()
     k3_err, k3_err_bf16, k3_excluded = phase_fused_vs_plain()
 
     zero_counts()                           # K3's path starts here
@@ -503,6 +545,7 @@ def main() -> int:
          "also_replaces": "opticalflow_tpu/ops/pallas_corr.py:138",
          "launches": k1_launches, "max_abs_err": k1_err, **k1,
          "library_ms": None, "per_level": k1_rows,
+         "per_level_bf16": k1_rows_bf16,
          # K2's domain: one forward's worth at 1088x1920, B=1, float32
          "at_1088x1920": {**k2, "per_level": k2_rows}},
         {"name": "fused_warp_corr", "route": "cuda",
@@ -532,6 +575,7 @@ def main() -> int:
          "library_host_ms": k4_rows["index_select"]["host_ms"],
          "device_ms": k4_rows["kernel"]["device_ms"],
          "library_device_ms": k4_rows["index_select"]["device_ms"],
+         "wrapper_pieces": k4_rows["wrapper_pieces"],
          "at_1M_rows": {"ms": k4_rows["kernel_large"]["ms"],
                         "library_ms": k4_rows["index_select_large"]["ms"],
                         "bound_ms": k4_rows["kernel_large"]["bound_ms"]}},

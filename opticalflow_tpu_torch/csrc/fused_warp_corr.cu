@@ -48,8 +48,10 @@
 // composed path warps each pixel once but writes the warped tensor out and
 // reads it back (plus its own 3.75x halo in the correlation).
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -192,17 +194,20 @@ int launch(const void* f1, const void* f2, const void* flow, void* out, int B,
 
 // f1, f2: (B, C, H, W) contiguous, one dtype; flow: (B, 2, H, W) float32
 // contiguous (u, v in pixels); out: (B, (2md+1)^2, H, W) contiguous in the
-// features' dtype.  md must be 4 (the model's max displacement).  dtype:
-// 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for an unsupported md, dtype or grid).
+// features' dtype, all on `device`.  md must be 4 (the model's max
+// displacement).  dtype: 0 = float32, 1 = bfloat16.  Launches on `stream` of
+// `device` and returns the cudaError_t of the launch (cudaErrorInvalidValue
+// for an unsupported md, dtype or grid).
 extern "C" int fused_warp_corr(const void* f1, const void* f2,
                                const void* flow, void* out, int B, int C,
                                int H, int W, int md, int dtype, float thr,
-                               void* stream) {
+                               int device, void* stream) {
   if (md != MD || B < 1 || C < 1 || H < 1 || W < 1 || B > 65535 ||
       (H + TR - 1) / TR > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(f1, f2, flow, out, B, C, H, W, thr, s);
   if (dtype == 1) {

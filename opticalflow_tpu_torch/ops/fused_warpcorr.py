@@ -24,7 +24,8 @@ import ctypes
 
 import torch
 
-from opticalflow_tpu_torch.ops._build import load_library
+from opticalflow_tpu_torch.ops._launch import (Kernel, needs_grad,
+                                               raw_stream)
 from opticalflow_tpu_torch.ops.correlation import correlation_plain
 
 __all__ = ["prep_gather", "fused_warp_corr", "fused_warp_corr_plain",
@@ -32,18 +33,9 @@ __all__ = ["prep_gather", "fused_warp_corr", "fused_warp_corr_plain",
 
 MD = 4    # max displacement: the model's, and the kernel's only one
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load_library("fused_warp_corr").fused_warp_corr
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_kernel = Kernel("fused_warp_corr", "fused_warp_corr",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 + [ctypes.c_float])
 
 
 def prep_gather(flow: torch.Tensor, h: int, w: int,
@@ -112,12 +104,9 @@ def fused_warp_corr_plain(f1: torch.Tensor, f2: torch.Tensor,
     return out.to(f1.dtype)
 
 
-def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                         flow: torch.Tensor, *,
-                         mask_threshold: float = 0.9999) -> torch.Tensor:
-    """The CUDA kernel.  f1, f2: contiguous (B, C, H, W) CUDA tensors of one
-    dtype, float32 or bfloat16; flow: contiguous float32 (B, 2, H, W) on the
-    same device.  Returns (B, 81, H, W) in f1's dtype."""
+def _refuse(f1, f2, flow) -> None:
+    """Raise for the first thing the kernel does not take; the message is
+    built here, off the passing path."""
     tensors = (f1, f2, flow)
     if not all(t.is_cuda for t in tensors) or len(
             {t.device for t in tensors}) != 1:
@@ -137,24 +126,41 @@ def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          f"{tuple(f2.shape)} and {tuple(flow.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_warp_corr_cuda needs contiguous NCHW inputs")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(
             "fused_warp_corr_cuda is forward-only, like the TPU kernel it "
             "replaces; run under torch.no_grad()/inference_mode()")
-    b, c, h, w = f1.shape
-    nd = 2 * MD + 1
-    out = torch.empty((b, nd * nd, h, w), dtype=f1.dtype, device=f1.device)
-    if out.numel() == 0:
+    raise AssertionError("fused_warp_corr_cuda refused inputs it should take")
+
+
+def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                         flow: torch.Tensor, *,
+                         mask_threshold: float = 0.9999) -> torch.Tensor:
+    """The CUDA kernel.  f1, f2: contiguous (B, C, H, W) CUDA tensors of one
+    dtype, float32 or bfloat16; flow: contiguous float32 (B, 2, H, W) on the
+    same device.  Returns (B, 81, H, W) in f1's dtype."""
+    dtype = f1.dtype
+    code = _DTYPE_CODES.get(dtype)
+    shape = f1.shape
+    device = f1.device
+    if not (code is not None and f2.dtype == dtype
+            and flow.dtype is torch.float32 and f1.is_cuda
+            and f2.device == device and flow.device == device
+            and len(shape) == 4 and f2.shape == shape
+            and flow.shape == (shape[0], 2, shape[2], shape[3])
+            and f1.is_contiguous() and f2.is_contiguous()
+            and flow.is_contiguous() and not needs_grad(f1, f2, flow)):
+        _refuse(f1, f2, flow)
+    b, c, h, w = shape
+    out = torch.empty(b, 81, h, w, dtype=dtype, device=device)
+    if b == 0 or c == 0 or h == 0 or w == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(),
-                 out.data_ptr(), b, c, h, w, MD, _DTYPE_CODES[f1.dtype],
-                 float(mask_threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_warp_corr launch failed: cudaError {err} "
-                           f"at shape {tuple(f1.shape)} {f1.dtype}")
+    index = device.index
+    fn = _kernel.fn or _kernel.load()
+    err = fn(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(), out.data_ptr(),
+             b, c, h, w, MD, code, mask_threshold, index, raw_stream(index))
+    if err:
+        _kernel.refused(err, index, f"shape {tuple(shape)} {dtype}")
     fused_warp_corr_cuda.launches += 1
     return out
 

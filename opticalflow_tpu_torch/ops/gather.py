@@ -17,22 +17,13 @@ import ctypes
 
 import torch
 
-from opticalflow_tpu_torch.ops._build import load_library
+from opticalflow_tpu_torch.ops._launch import (Kernel, needs_grad,
+                                               raw_stream)
 
 __all__ = ["row_gather", "row_gather_plain", "row_gather_cuda"]
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load_library("row_gather").row_gather
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_kernel = Kernel("row_gather", "row_gather",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
 
 
 def _flat_index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -58,30 +49,48 @@ def row_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                        torch.full_like(out, float("nan")))
 
 
-def row_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x (N, C) float32, idx (M,) or (M, 1) int32, both
-    contiguous on one CUDA device → (M, C) float32."""
+def _refuse(x, idx) -> None:
+    """Raise for the first thing the kernel does not take; the message is
+    built here, off the passing path."""
     if not (x.is_cuda and idx.is_cuda) or x.device != idx.device:
         raise ValueError("row_gather_cuda needs x and idx on one CUDA "
                          f"device, got {x.device} and {idx.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"row_gather_cuda takes float32 rows, got {x.dtype}")
-    flat = _flat_index(x, idx)
-    if not (x.is_contiguous() and flat.is_contiguous()):
+    _flat_index(x, idx)
+    if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("row_gather_cuda needs contiguous x and idx")
-    n, c = x.shape
-    m = flat.shape[0]
-    out = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    if needs_grad(x):
+        raise RuntimeError(
+            "row_gather_cuda is forward-only, like the TPU kernels it "
+            "replaces; run under torch.no_grad()/inference_mode()")
+    raise AssertionError("row_gather_cuda refused inputs it should take")
+
+
+def row_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: x (N, C) float32, idx (M,) or (M, 1) int32, both
+    contiguous on one CUDA device → (M, C) float32."""
+    device = x.device
+    xs = x.shape
+    ids = idx.shape
+    # a contiguous (M, 1) idx is its own flat view: no reshape on this path
+    if not (x.dtype is torch.float32 and idx.dtype is torch.int32
+            and x.is_cuda and idx.device == device and len(xs) == 2
+            and (len(ids) == 1 or (len(ids) == 2 and ids[1] == 1))
+            and x.is_contiguous() and idx.is_contiguous()
+            and not needs_grad(x)):
+        _refuse(x, idx)
+    n, c = xs
+    m = ids[0]
+    out = torch.empty(m, c, dtype=torch.float32, device=device)
+    if m == 0 or c == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), flat.data_ptr(), out.data_ptr(), n, m, c,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather launch failed: cudaError {err} at "
-                           f"x {tuple(x.shape)}, {m} indices")
+    index = device.index
+    fn = _kernel.fn or _kernel.load()
+    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m, c, index,
+             raw_stream(index))
+    if err:
+        _kernel.refused(err, index, f"x {tuple(xs)}, {m} indices")
     row_gather_cuda.launches += 1
     return out
 

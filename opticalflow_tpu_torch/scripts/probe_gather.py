@@ -10,9 +10,12 @@ and seeds: x (2048, 128) float32 from seed 0, idx (4096, 1) int32 in
 Prints, for the kernel (``ops/gather.py``) and for ``torch.index_select``,
 whether the rows equal numpy's ``x[idx]``, µs per call and M rows/s (CUDA
 events over back-to-back calls), the host's µs to issue one call and the
-card's µs alone (calls queued behind a spin kernel); then both at 2^20
-rows, where the card's time dominates.  With ``--device cpu``
-it checks the plain version and skips timing.
+card's µs alone (calls queued behind a spin kernel), each the median of five
+rounds in which the two functions alternate; then the wrapper's host
+time by piece (``torch.empty``, the three ``data_ptr`` calls, the raw stream
+handle, the ctypes call with its launch; the argument checks are the rest);
+then both at 2^20 rows, where the card's time dominates.  With
+``--device cpu`` it checks the plain version and skips timing.
 """
 
 from __future__ import annotations
@@ -23,13 +26,16 @@ import numpy as np
 import torch
 
 from opticalflow_tpu_torch.engine import resolve_device
+from opticalflow_tpu_torch.ops import gather
+from opticalflow_tpu_torch.ops._launch import raw_stream
 from opticalflow_tpu_torch.ops.gather import row_gather
 from opticalflow_tpu_torch.scripts._timing import (bound, cuda_ms, device_ms,
                                                    host_ms)
 
-__all__ = ["gather_bound", "main", "N", "M", "C"]
+__all__ = ["gather_bound", "wrapper_pieces", "main", "N", "M", "C"]
 
 N, M, C = 2048, 4096, 128
+ROUNDS = 5         # alternating timing rounds per function; medians reported
 LARGE = 1 << 20    # rows of the large run: 512 MiB written
 
 
@@ -38,6 +44,35 @@ def gather_bound(m: int, c: int, distinct: int):
     the indices name read once, m int32 indices read and m rows written.
     There are no operations to count."""
     return bound((distinct + m) * c * 4 + m * 4, 0.0)
+
+
+def wrapper_pieces(x: torch.Tensor, idx: torch.Tensor, iters: int = 2000):
+    """Host ms per call of the pieces of ``row_gather_cuda(x, idx)``: the
+    output's ``torch.empty``, three ``data_ptr`` calls, the raw stream
+    handle, the ctypes call (stream handle and ``cudaLaunchKernel``
+    included), the whole wrapper, and the rest (its argument checks and
+    Python's own call overhead)."""
+    m, c, n = idx.shape[0], x.shape[1], x.shape[0]
+    index = x.device.index
+    out = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), idx.data_ptr(), out.data_ptr())
+    fn = gather._kernel.load()
+    device = x.device
+    pieces = {
+        "empty_ms": host_ms(lambda _: torch.empty(
+            m, c, dtype=torch.float32, device=device), iters),
+        "data_ptr_x3_ms": host_ms(lambda _: (x.data_ptr(), idx.data_ptr(),
+                                             out.data_ptr()), iters),
+        "raw_stream_ms": host_ms(lambda _: raw_stream(index), iters),
+        "ctypes_launch_ms": host_ms(lambda _: fn(*ptrs, n, m, c, index,
+                                                 raw_stream(index)), iters),
+        "wrapper_ms": host_ms(lambda _: gather.row_gather_cuda(x, idx),
+                              iters),
+    }
+    pieces["checks_and_rest_ms"] = (
+        pieces["wrapper_ms"] - pieces["empty_ms"] - pieces["data_ptr_x3_ms"]
+        - pieces["ctypes_launch_ms"])
+    return pieces
 
 
 def main(argv=None) -> dict:
@@ -66,21 +101,35 @@ def main(argv=None) -> dict:
     rows = {}
     distinct = len(np.unique(idx_np))
     b_ms, b_by = gather_bound(M, C, distinct)
+    # the host's pace differs from one second to the next, so the two
+    # functions are timed in alternating rounds and each reports its median
+    samples = {name: {"ms": [], "host_ms": [], "device_ms": []}
+               for name in calls}
+    for _ in range(ROUNDS):
+        for name, fn in calls.items():
+            samples[name]["ms"].append(cuda_ms(lambda _: fn(), 200))
+            samples[name]["host_ms"].append(host_ms(lambda _: fn(), 200))
+            samples[name]["device_ms"].append(device_ms(lambda _: fn(), 200))
     for name, fn in calls.items():
         ok = np.array_equal(fn().cpu().numpy(), ref)
-        ms = cuda_ms(lambda _: fn(), 200)
-        rows[name] = {"correct": ok, "ms": ms, "rows_per_s": M / (ms * 1e-3),
-                      "host_ms": host_ms(lambda _: fn(), 200),
-                      "device_ms": device_ms(lambda _: fn(), 200),
+        med = {k: float(np.median(v)) for k, v in samples[name].items()}
+        rows[name] = {"correct": ok, **med,
+                      "rows_per_s": M / (med["ms"] * 1e-3),
+                      "host_ms_rounds": samples[name]["host_ms"],
                       "bound_ms": b_ms, "bound_by": b_by}
-        print(f"{name}: correct={ok}  {ms * 1e3:.2f} us/call "
-              f"({M / (ms * 1e-3) / 1e6:.1f} M rows/s)  host "
-              f"{rows[name]['host_ms'] * 1e3:.2f} us/call to issue, card "
-              f"alone {rows[name]['device_ms'] * 1e3:.2f} us  bound "
+        print(f"{name}: correct={ok}  {med['ms'] * 1e3:.2f} us/call "
+              f"({M / (med['ms'] * 1e-3) / 1e6:.1f} M rows/s)  host "
+              f"{med['host_ms'] * 1e3:.2f} us/call to queue (rounds: "
+              + " ".join(f"{h * 1e3:.2f}" for h in samples[name]["host_ms"])
+              + f"), card alone {med['device_ms'] * 1e3:.2f} us  bound "
               f"{b_ms * 1e3:.2f} us ({b_by}, {distinct} distinct rows)",
               flush=True)
         if not ok:
             raise AssertionError(f"{name} disagrees with numpy")
+    rows["wrapper_pieces"] = wrapper_pieces(x, idx)
+    print("row_gather_cuda host time by piece, us/call: " + "  ".join(
+        f"{k[:-3]} {v * 1e3:.2f}" for k, v in rows["wrapper_pieces"].items()),
+        flush=True)
     # the same indices 256 times over, where the card's time dominates the
     # host's
     big = torch.from_numpy(idx_np).to(device).repeat(LARGE // M, 1)

@@ -100,42 +100,81 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     assert correlation(f, f, use_cuda=True).shape == (1, 81, 8, 8)
 
 
-@pytest.mark.parametrize("bad", ["cpu", "dtype", "shape", "md"])
-def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+@pytest.mark.parametrize("bad", ["cpu", "dtype", "shape", "md",
+                                 "dtype_mismatch", "other_device", "rank",
+                                 "noncontiguous", "grad", "int_dtype"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, monkeypatch):
     """Checks run before any build or launch, so they hold on the CPU."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused input reached the library")
+    monkeypatch.setattr(corr_cuda._kernel, "load", no_build)
     f = torch.zeros(1, 3, 8, 8)
     kw = {}
+    fake = {}
+    expected = (ValueError, TypeError)
     if bad == "cpu":
         args = (f, f)
     elif bad == "dtype":
         args = (f.double(), f.double())
+    elif bad == "int_dtype":
+        args = (f.int(), f.int())
+    elif bad == "dtype_mismatch":
+        args = (f, f.bfloat16())
     elif bad == "shape":
         args = (f, f[:, :2])
+    elif bad == "rank":
+        args = (f[0], f[0])
+    elif bad == "other_device":
+        args, fake = (f, f), {"second_device": torch.device("cuda", 1)}
+    elif bad == "noncontiguous":
+        args, fake = (f, f), {"contiguous": False}
+    elif bad == "grad":
+        args, expected = (f.clone().requires_grad_(), f), RuntimeError
     else:
         args, kw = (f, f), {"max_displacement": 6}
     if bad != "cpu":
         # present the tensors as CUDA ones without a card: the device check
         # passes, the check under test must fire
-        args = tuple(_FakeCuda(a) for a in args)
+        args = (_FakeCuda(args[0], contiguous=fake.get("contiguous", True)),
+                _FakeCuda(args[1], device=fake.get("second_device")))
     before = corr_cuda.correlation_cuda.launches
-    with pytest.raises((ValueError, TypeError)):
+    with pytest.raises(expected):
         corr_cuda.correlation_cuda(*args, **kw)
     assert corr_cuda.correlation_cuda.launches == before
+
+
+def test_wrapper_takes_grad_inputs_where_autograd_is_off(monkeypatch):
+    """requires_grad is refused only where autograd would record: under
+    no_grad the checks pass and the call reaches the launch path."""
+    class Reached(Exception):
+        pass
+
+    def load():
+        raise Reached
+    monkeypatch.setattr(corr_cuda._kernel, "load", load)
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: None)
+    f = _FakeCuda(torch.zeros(1, 3, 8, 8).requires_grad_())
+    with torch.no_grad(), pytest.raises(Reached):
+        corr_cuda.correlation_cuda(f, f)
 
 
 class _FakeCuda:
     """Just enough of a CUDA tensor for the wrapper's argument checks."""
 
-    def __init__(self, t):
+    def __init__(self, t, device=None, contiguous=True):
         self._t = t
         self.is_cuda = True
-        self.device = torch.device("cuda", 0)
+        self.device = device or torch.device("cuda", 0)
         self.dtype = t.dtype
         self.shape = t.shape
-        self.requires_grad = False
+        self.requires_grad = t.requires_grad
+        self._contiguous = contiguous
 
     def dim(self):
         return self._t.dim()
 
     def is_contiguous(self):
-        return True
+        return self._contiguous
+
+    def data_ptr(self):
+        return 0

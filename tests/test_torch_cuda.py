@@ -47,6 +47,150 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape, dtype):
         assert bool((err <= ref.abs() * 2.0 ** -8 + 1e-6).all())
 
 
+def _corr_inputs(device, shape, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for _ in range(2))
+
+
+def _assert_corr_close(out, f1, f2):
+    ref = correlation_plain(f1, f2, pad_size=4, max_displacement=4)
+    assert out.dtype == f1.dtype and out.shape == ref.shape
+    if f1.dtype == torch.float32:
+        # float32 sums of <=196 products in another order
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:   # one bf16 rounding of the float32 sum, doubled for the order
+        err = (out.float() - ref).abs()
+        assert bool((err <= ref.abs() * 2.0 ** -8 + 1e-6).all())
+
+
+# C in {1, 17, 20, 196}: the channel split and the last chunk are ragged;
+# W in {30, 45}: no 16-byte copies; (8, 196, 7, 16): B=8 at level 6
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 9, 45), (2, 17, 9, 45),
+                                   (1, 20, 9, 45), (1, 196, 17, 30),
+                                   (1, 17, 28, 64), (1, 20, 14, 32),
+                                   (8, 196, 7, 16)])
+@pytest.mark.parametrize("tile,split", [(0, 0), (16, 1), (16, 8), (32, 3),
+                                        (32, 8)])
+def test_kernel_matches_plain_at_every_tile_and_split(cuda_device, shape,
+                                                      dtype, tile, split):
+    """The kernel's own choice, and tiles and splits forced on it: ranks
+    with no channel at all (C=1 split 8), an odd cluster size."""
+    f1, f2 = _corr_inputs(cuda_device, shape, dtype)
+    out = corr_cuda.correlation_cuda(f1, f2, tile=tile, split=split)
+    _assert_corr_close(out, f1, f2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_a_base_pointer_off_by_one_element(cuda_device, dtype):
+    """A tensor whose base is not 16-byte aligned takes the narrow path."""
+    shape = (1, 20, 16, 64)
+    n = 20 * 16 * 64
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    buf1 = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+    buf2 = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+    f1, f2 = buf1[1:].view(shape), buf2[1:].view(shape)
+    assert f1.data_ptr() % 16 != 0 and f1.is_contiguous()
+    out = corr_cuda.correlation_cuda(f1, f2)
+    _assert_corr_close(out, f1, f2)
+    # the aligned path on the same values gives the same bits
+    assert torch.equal(out, corr_cuda.correlation_cuda(f1.clone(),
+                                                       f2.clone()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 56, 128), (1, 196, 7, 16),
+                                   (8, 128, 14, 32)])
+def test_kernel_gives_the_same_bits_twice(cuda_device, shape, dtype):
+    """The channel split is reduced in a fixed order: no atomics."""
+    f1, f2 = _corr_inputs(cuda_device, shape, dtype, seed=6)
+    plan = corr_cuda.launch_plan(*shape, dtype)
+    assert plan["split"] > 1, plan
+    first = corr_cuda.correlation_cuda(f1, f2)
+    for _ in range(3):
+        assert torch.equal(first, corr_cuda.correlation_cuda(f1, f2))
+
+
+def test_kernel_launches_on_the_current_stream(cuda_device):
+    """The stream handle is read at every call: a launch inside
+    ``with torch.cuda.stream(side):`` runs on ``side``, behind the work
+    queued there."""
+    f1, f2 = _corr_inputs(cuda_device, (1, 96, 28, 64), torch.float32, 7)
+    eager = corr_cuda.correlation_cuda(f1, f2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a = torch.zeros_like(f1)
+        torch.cuda._sleep(20_000_000)     # ~10 ms before the copy lands
+        a.copy_(f1)
+        out = corr_cuda.correlation_cuda(a, f2)
+    side.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_kernel_is_captured_and_replayed_by_a_cuda_graph(cuda_device):
+    f1, f2 = _corr_inputs(cuda_device, (1, 128, 14, 32), torch.float32, 8)
+    eager = corr_cuda.correlation_cuda(f1, f2)      # built before capture
+    g1, g2 = _corr_inputs(cuda_device, (1, 128, 14, 32), torch.float32, 9)
+    other = corr_cuda.correlation_cuda(g1, g2)
+    assert not torch.equal(eager, other)
+    s1, s2 = f1.clone(), f2.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = corr_cuda.correlation_cuda(s1, s2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    s1.copy_(g1)
+    s2.copy_(g2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, other)
+
+
+def test_fused_and_gather_launch_on_a_side_stream(cuda_device):
+    """K3 and K4 through the same launch path, on a stream of the caller's."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    f1, f2 = _corr_inputs(cuda_device, (1, 20, 9, 45), torch.float32, 10)
+    flow = torch.randn((1, 2, 9, 45), generator=g, device=cuda_device) * 3
+    x = torch.randn((37, 21), generator=g, device=cuda_device)
+    idx = torch.randint(-74, 74, (300, 1), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    eager3 = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow)
+    eager4 = gather.row_gather_cuda(x, idx)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa, xa = torch.zeros_like(f1), torch.zeros_like(x)
+        torch.cuda._sleep(20_000_000)
+        fa.copy_(f1)
+        xa.copy_(x)
+        out3 = fused_warpcorr.fused_warp_corr_cuda(fa, f2, flow)
+        out4 = gather.row_gather_cuda(xa, idx)
+    side.synchronize()
+    assert torch.equal(out3, eager3)
+    assert torch.equal(torch.nan_to_num(out4), torch.nan_to_num(eager4))
+    assert torch.equal(torch.isnan(out4), torch.isnan(eager4))
+
+
+def test_launch_plan_fills_the_card_at_every_level(cuda_device):
+    """The tile and split the C entry point chooses cover C and the image
+    at every level; there is a block for every SM unless the channels
+    cannot be split further (8 splits at most, 16 channels each at least)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for h, w, c in ((112, 256, 32), (56, 128, 64), (28, 64, 96),
+                    (14, 32, 128), (7, 16, 196), (272, 480, 32),
+                    (17, 30, 196), (9, 45, 20)):
+        p = corr_cuda.launch_plan(1, c, h, w, torch.float32)
+        th, tw = p["tile"]
+        assert p["tiles"] == -(-h // th) * -(-w // tw), p
+        assert p["split"] * p["channels_per_split"] >= c, p
+        assert 1 <= p["split"] <= 8 and p["smem_bytes"] <= 232448, p
+        blocks = p["tiles"] * p["split"]
+        assert blocks >= sms or 2 * p["split"] > min(8, c // 16), p
+
+
 def test_kernel_refuses_autograd(cuda_device):
     f = torch.randn(1, 4, 8, 8, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):

@@ -133,26 +133,44 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "flow_dtype", "shape",
-                                 "ndim", "grad"])
-def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+                                 "ndim", "grad", "dtype_mismatch",
+                                 "f2_shape", "flow_channels", "other_device",
+                                 "noncontiguous", "flow_grad"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, monkeypatch):
     """Checks run before any build or launch, so they hold on the CPU."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused input reached the library")
+    monkeypatch.setattr(fused_warpcorr._kernel, "load", no_build)
     f = torch.zeros(1, 3, 8, 8)
     flow = torch.zeros(1, 2, 8, 8)
     args = (f, f, flow)
+    fake = [{}, {}, {}]
     if bad == "dtype":
         args = (f.double(), f.double(), flow)
+    elif bad == "dtype_mismatch":
+        args = (f, f.bfloat16(), flow)
     elif bad == "flow_dtype":
         args = (f, f, flow.double())
     elif bad == "shape":
         args = (f, f, flow[:, :, :4])
+    elif bad == "f2_shape":
+        args = (f, f[:, :2], flow)
+    elif bad == "flow_channels":
+        args = (f, f, torch.zeros(1, 3, 8, 8))
     elif bad == "ndim":
         args = (f[0], f[0], flow)
     elif bad == "grad":
-        args = (f.requires_grad_(), f, flow)
+        args = (f.clone().requires_grad_(), f, flow)
+    elif bad == "flow_grad":
+        args = (f, f, flow.clone().requires_grad_())
+    elif bad == "other_device":
+        fake[2] = {"device": torch.device("cuda", 1)}
+    elif bad == "noncontiguous":
+        fake[1] = {"contiguous": False}
     if bad != "cpu":
         # present the tensors as CUDA ones without a card: the device check
         # passes, the check under test must fire
-        args = tuple(_FakeCuda(a) for a in args)
+        args = tuple(_FakeCuda(a, **k) for a, k in zip(args, fake))
     before = fused_warpcorr.fused_warp_corr_cuda.launches
     with pytest.raises((ValueError, TypeError, RuntimeError)):
         fused_warpcorr.fused_warp_corr_cuda(*args)
@@ -184,16 +202,17 @@ def test_probe_bound_uses_the_peak_of_the_operands_type(dtype, rate):
 class _FakeCuda:
     """Just enough of a CUDA tensor for the wrapper's argument checks."""
 
-    def __init__(self, t):
+    def __init__(self, t, device=None, contiguous=True):
         self.is_cuda = True
-        self.device = torch.device("cuda", 0)
+        self.device = device or torch.device("cuda", 0)
         self.dtype = t.dtype
         self.shape = t.shape
         self.requires_grad = t.requires_grad
         self._dim = t.dim()
+        self._contiguous = contiguous
 
     def dim(self):
         return self._dim
 
     def is_contiguous(self):
-        return True
+        return self._contiguous

@@ -60,22 +60,42 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "idx_dtype", "x_shape",
-                                 "idx_shape"])
-def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+                                 "idx_shape", "idx_rank", "other_device",
+                                 "noncontiguous", "idx_noncontiguous",
+                                 "grad", "half"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, monkeypatch):
     """Checks run before any build or launch, so they hold on the CPU."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused input reached the library")
+    monkeypatch.setattr(gather._kernel, "load", no_build)
     x = torch.zeros(8, 4)
     idx = torch.zeros(5, 1, dtype=torch.int32)
+    fx, fi = {}, {}
+    expected = (ValueError, TypeError)
     if bad == "dtype":
         x = x.double()
+    elif bad == "half":
+        x = x.bfloat16()
     elif bad == "idx_dtype":
-        idx = idx.long()
+        idx = idx.long()       # int64 indices
     elif bad == "x_shape":
         x = x[None]
     elif bad == "idx_shape":
         idx = idx.reshape(1, 5)
-    args = (x, idx) if bad == "cpu" else (_FakeCuda(x), _FakeCuda(idx))
+    elif bad == "idx_rank":
+        idx = idx.reshape(5, 1, 1)
+    elif bad == "other_device":
+        fi = {"device": torch.device("cuda", 1)}
+    elif bad == "noncontiguous":
+        fx = {"contiguous": False}
+    elif bad == "idx_noncontiguous":
+        fi = {"contiguous": False}
+    elif bad == "grad":
+        x, expected = x.requires_grad_(), RuntimeError
+    args = (x, idx) if bad == "cpu" else (_FakeCuda(x, **fx),
+                                          _FakeCuda(idx, **fi))
     before = gather.row_gather_cuda.launches
-    with pytest.raises((ValueError, TypeError)):
+    with pytest.raises(expected):
         gather.row_gather_cuda(*args)
     assert gather.row_gather_cuda.launches == before
 
@@ -88,18 +108,21 @@ def test_probe_runs_on_the_cpu(capsys):
 class _FakeCuda:
     """Just enough of a CUDA tensor for the wrapper's argument checks."""
 
-    def __init__(self, t):
+    def __init__(self, t, device=None, contiguous=True):
         self._t = t
         self.is_cuda = True
-        self.device = torch.device("cuda", 0)
+        self.device = device or torch.device("cuda", 0)
         self.dtype = t.dtype
         self.shape = t.shape
+        self.requires_grad = t.requires_grad
+        self._contiguous = contiguous
 
     def dim(self):
         return self._t.dim()
 
     def reshape(self, *shape):
-        return _FakeCuda(self._t.reshape(*shape))
+        return _FakeCuda(self._t.reshape(*shape), self.device,
+                         self._contiguous)
 
     def is_contiguous(self):
-        return True
+        return self._contiguous

@@ -1,0 +1,115 @@
+"""The shared launch path of the port's CUDA kernels (``ops/_launch.py``):
+what it does before any library exists.  The launches themselves, on the
+caller's stream and under CUDA-graph capture, are held on the card in
+``tests/test_torch_cuda.py``."""
+
+import ctypes
+import inspect
+
+import pytest
+import torch
+
+from opticalflow_tpu_torch.ops import (_launch, corr_cuda, fused_warpcorr,
+                                       gather)
+from opticalflow_tpu_torch.ops._launch import Kernel, needs_grad
+
+WRAPPERS = {"corr_cuda": (corr_cuda, "correlation_cuda"),
+            "fused_warpcorr": (fused_warpcorr, "fused_warp_corr_cuda"),
+            "gather": (gather, "row_gather_cuda")}
+
+
+def test_kernel_binds_nothing_until_it_is_loaded(monkeypatch):
+    loaded = []
+
+    class Lib:
+        @staticmethod
+        def sym(*args):
+            return 0
+
+    def fake_load_library(name):
+        loaded.append(name)
+        return Lib
+
+    monkeypatch.setattr(_launch, "load_library", fake_load_library)
+    k = Kernel("some_source", "sym", [ctypes.c_void_p, ctypes.c_int])
+    assert k.fn is None and loaded == []
+    fn = k.load()
+    assert loaded == ["some_source"] and k.fn is fn
+    # the device index and the stream handle close every entry point
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    assert k.load() is fn and loaded == ["some_source"]   # bound once
+
+
+def test_refused_launch_raises_with_the_symbol_and_the_error():
+    k = Kernel("some_source", "sym", [])
+    with pytest.raises(RuntimeError, match=r"sym launch failed: cudaError 9 "
+                                           r"on cuda:1 at shape \(1, 2\)"):
+        k.refused(9, 1, "shape (1, 2)")
+
+
+@pytest.mark.parametrize("grad_enabled,requires,expected",
+                         [(True, (False, False), False),
+                          (True, (False, True), True),
+                          (False, (True, True), False),
+                          (True, (), False)])
+def test_needs_grad(grad_enabled, requires, expected):
+    tensors = [torch.zeros(2).requires_grad_(r) for r in requires]
+    with torch.set_grad_enabled(grad_enabled):
+        assert needs_grad(*tensors) is expected
+
+
+def test_raw_stream_prefers_pytorchs_own_accessor():
+    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if fast is not None:
+        assert _launch.raw_stream is fast
+    else:
+        assert _launch.raw_stream is _launch._raw_stream_through_object
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_every_wrapper_launches_through_the_shared_path(name):
+    """One ``Kernel`` per wrapper; the stream handle is fetched inside the
+    call, for the tensors' device, and nothing at module level keeps one."""
+    module, fn_name = WRAPPERS[name]
+    assert isinstance(module._kernel, Kernel)
+    assert module._kernel.fn is None, "a library was loaded on import"
+    src = inspect.getsource(getattr(module, fn_name))
+    assert "raw_stream(index)" in src and "index = device.index" in src
+    assert "torch.cuda.device(" not in src        # the guard lives in C
+    assert "current_stream" not in inspect.getsource(module)
+    module_level = [line for line in inspect.getsource(module).splitlines()
+                    if line and not line[0].isspace()]
+    assert not any("raw_stream(" in line for line in module_level)
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_every_entry_point_ends_with_device_and_stream(name):
+    """The C side of the contract: ``..., int device, void* stream)`` and a
+    device guard in every entry point the wrappers bind."""
+    from opticalflow_tpu_torch.ops._build import CSRC_DIR
+    k = WRAPPERS[name][0]._kernel
+    text = (CSRC_DIR / f"{k.library}.cu").read_text()
+    start = text.index(f'extern "C" int {k.symbol}(')
+    signature = " ".join(text[start:text.index("{", start)].split())
+    assert signature.endswith("int device, void* stream)"), signature
+    body = text[start:text.index("\n}\n", start)]
+    assert "DeviceGuard guard(device);" in body
+    assert k._argtypes[-2:] == [ctypes.c_int, ctypes.c_void_p]
+    # one ctypes type per C parameter
+    assert len(k._argtypes) == signature.count(",") + 1, signature
+
+
+def test_sweep_variants_still_match_the_kernel_source():
+    """``scripts/sweep_corr.py --variants`` edits constants of the
+    correlation kernel by their text; each must still be there, once."""
+    from opticalflow_tpu_torch.ops._build import CSRC_DIR
+    from opticalflow_tpu_torch.scripts import sweep_corr
+    text = (CSRC_DIR / "correlation_fwd.cu").read_text()
+    for name, subs in sweep_corr.VARIANTS.items():
+        for old, new in subs:
+            assert text.count(old) == 1, (name, old)
+            assert old != new
+    # the forced combinations are ones the C entry point accepts
+    assert all(t in (0, 16, 32) and 0 <= s <= 8 for t, s in sweep_corr.COMBOS)
