@@ -9,7 +9,8 @@ sources there.  Every phase fails loudly (an assertion or exception exits
 non-zero, and no result line is printed):
 
   1. build the three kernels (one ``nvcc`` each, started together) and
-     print the build time and the compiler's register/shared-memory report;
+     print the build time and the compiler's register/shared-memory report
+     (no instantiation may spill);
   2. hold the correlation kernel (K1/K2) against its plain PyTorch version
      on the card: every level of a 448x1024 input at B=1 and B=8, the
      1088x1920 level-2 shape and a ragged shape, float32 and bfloat16; then,
@@ -21,11 +22,17 @@ non-zero, and no result line is printed):
   3. hold the fused warp+correlation kernel (K3) against its plain version:
      levels 2-5 of 448x1024 at B=1 and B=8, the ragged 9x45x20 and the
      1088x1920 level 2, float32 and bfloat16, both mask thresholds, flows
-     of x3 and x20 px; then its probe entry point, which checks and times
-     it against the composed path (warp, then K1);
+     of x3 and x20 px; then its probe entry point, which checks it and, per
+     level 2-5 at B=1 and B=8 in float32 and bfloat16, prints the plan the
+     kernel chose, that two runs gave the same bits, and its time on the
+     card alone, by events and on the host beside the composed path's
+     (warp, then K1) and the bound, for noise flows of x3 and x20 px and a
+     smooth flow;
   4. hold the row gather kernel (K4) against its plain version, exactly and
      NaN rows included; then its probe entry point, beside
-     ``torch.index_select``, with the wrapper's host time by piece;
+     ``torch.index_select``, with the wrapper's host time by piece; and the
+     card's time for the smallest launch through the shared launch path
+     (one row), the floor under every B=1 time above;
   5. the main path through its entry points: the single-pair CLI on the
      real golden frames with fake reference weights, in pad mode against
      ``tests/goldens/real_pair_pad.flo`` and in its default resize mode
@@ -123,6 +130,9 @@ def phase_build():
         for line in lines:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+            if "spill" in line:
+                assert "0 bytes spill stores, 0 bytes spill loads" in line, \
+                    f"{name} spills: {line.strip()}"
 
 
 def phase_corr_vs_plain():
@@ -288,13 +298,13 @@ def phase_fused_vs_plain():
 
 def phase_gather_vs_plain():
     """K4 against its plain version, exact, NaN rows included; then timed
-    beside the plain version at the probe's shape.  Returns (max error,
-    plain ms)."""
+    beside the plain version at the probe's shape, and at one row.  Returns
+    (max error, plain ms, one-row ms on the card alone)."""
     import torch
     from opticalflow_tpu_torch.ops.gather import (row_gather_cuda,
                                                   row_gather_plain)
     from opticalflow_tpu_torch.scripts import probe_gather
-    from opticalflow_tpu_torch.scripts._timing import cuda_ms
+    from opticalflow_tpu_torch.scripts._timing import cuda_ms, device_ms
 
     g = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
@@ -320,7 +330,13 @@ def phase_gather_vs_plain():
                         device="cuda", dtype=torch.int32)
     plain_ms = cuda_ms(lambda _: row_gather_plain(x, idx), 50)
     log(f"[4] row_gather_plain at the probe's shape: {plain_ms * 1e3:.2f} us")
-    return worst, plain_ms
+    # what any launch through ops/_launch.py costs the card: one row
+    one = idx[:1].contiguous()
+    floor_ms = device_ms(lambda _: row_gather_cuda(x, one), 200)
+    log(f"[4] launch floor: row_gather_cuda of 1 row x {probe_gather.C} "
+        f"float32, card alone {floor_ms * 1e3:.2f} us (every B=1 time above "
+        f"contains one)")
+    return worst, plain_ms, floor_ms
 
 
 def fake_reference_checkpoint(path: str):
@@ -516,8 +532,18 @@ def main() -> int:
     k3_rows = probe_fused_warpcorr.main([])
     k3_launches = fused_warp_corr_cuda.launches   # ... and ends here
     assert k3_launches > 0 and k3_rows
+    for dtype in ("float32", "bfloat16"):
+        for b in (1, 8):
+            sel = [r for r in k3_rows
+                   if r["batch"] == b and r["dtype"] == dtype]
+            fused, comp = (sum(r[k] for r in sel) * 1e3 for k in
+                           ("fused_device_ms", "composed_device_ms"))
+            log(f"[3] levels 2-5 of 448x1024, B={b} {dtype}: card alone "
+                f"fused {fused:.2f} us, composed {comp:.2f} us "
+                f"({comp / fused:.2f}x), bound "
+                f"{sum(r['bound_ms'] for r in sel) * 1e3:.2f} us")
 
-    k4_err, k4_plain_ms = phase_gather_vs_plain()
+    k4_err, k4_plain_ms, launch_floor_ms = phase_gather_vs_plain()
     zero_counts()                           # K4's path starts here
     log("[4] probe_gather.main():")
     k4_rows = probe_gather.main([])
@@ -562,6 +588,9 @@ def main() -> int:
          "device_ms": sum(r["fused_device_ms"] for r in k3_f32_b1),
          "composed_device_ms": sum(r["composed_device_ms"]
                                    for r in k3_f32_b1),
+         # per level 2-5 (B=1, float32): the plan chosen and the card's time
+         "plan": [r["plan"] for r in k3_f32_b1],
+         "per_level_device_ms": [r["fused_device_ms"] for r in k3_f32_b1],
          "per_shape": k3_rows},
         {"name": "row_gather", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/row_gather.cu",
@@ -576,6 +605,8 @@ def main() -> int:
          "device_ms": k4_rows["kernel"]["device_ms"],
          "library_device_ms": k4_rows["index_select"]["device_ms"],
          "wrapper_pieces": k4_rows["wrapper_pieces"],
+         # the smallest launch through the shared launch path (one row)
+         "launch_floor_ms": launch_floor_ms,
          "at_1M_rows": {"ms": k4_rows["kernel_large"]["ms"],
                         "library_ms": k4_rows["index_select_large"]["ms"],
                         "bound_ms": k4_rows["kernel_large"]["bound_ms"]}},

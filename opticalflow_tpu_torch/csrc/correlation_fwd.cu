@@ -72,25 +72,10 @@
 // and channel, ~30 us of wavefronts at level 2, B=8) and its FMAs (~20 us)
 // overlap little at 12 warps per SM (167 registers a thread).
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "corr_tile.cuh"
 #include "device_guard.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
-
-constexpr int MD = 4;             // max displacement (the model's)
-constexpr int ND = 2 * MD + 1;    // displacements per axis
-constexpr int ND2 = ND * ND;      // output maps
-constexpr int TH = 8;             // output rows per tile
-constexpr int HR = TH + 2 * MD;   // halo rows per tile
-constexpr int PX = 4;             // adjacent pixels per thread
-constexpr int MAX_SPLIT = 8;      // portable cluster size
-constexpr int MAX_DEVICES = 64;
 
 // The wide tile (32 columns) is for launches that fill the card several
 // times over: a thread owns 3 dy rows (108 sums), which keeps shared-memory
@@ -121,64 +106,6 @@ struct Tile {
   static constexpr int MAX_BYTES =
       RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES;
 };
-
-// ---- element helpers -------------------------------------------------------
-
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(t.x << 16);
-  v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16);
-  v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 t;
-  t.x = *reinterpret_cast<const unsigned int*>(&lo);
-  t.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = t;
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void zero1(float* p) { *p = 0.f; }
-__device__ __forceinline__ void zero1(__nv_bfloat16* p) {
-  *p = __float2bfloat16(0.f);
-}
-
-// One asynchronous copy of BYTES (16 or 8) from global to shared memory; with
-// fill == false the destination is zero-filled and src is not read.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool fill) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = fill ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(n) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(d), "l"(src), "r"(n) : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // ---- the kernel ------------------------------------------------------------
 
@@ -288,132 +215,17 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
     const T* p2 = st + L::F1 + (ty + DJ * g) * L::WS + PX * tx;
 #pragma unroll 1
     for (int c = 0; c < cn; ++c, p1 += L::SL, p2 += L::SL) {
-      float a[PX];
-      load4(p1, a);
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        float v[PX + ND - 1];
-        load4(p2 + j * L::WS, v);
-        load4(p2 + j * L::WS + 4, v + 4);
-        load4(p2 + j * L::WS + 8, v + 8);
-#pragma unroll
-        for (int ti = 0; ti < ND; ++ti)
-#pragma unroll
-          for (int p = 0; p < PX; ++p)
-            acc[j][ti][p] = fmaf(a[p], v[p + ti], acc[j][ti][p]);
-      }
+      fma_channel<DJ, L::WS>(p1, p2, acc);
     }
   }
   cp_async_wait<0>();
 
-  if (nsplit == 1) {
-    const int y = y0 + ty, x = x0 + PX * tx;
-    if (y < H && x < W) {
-      T* o = out + ((long long)b * ND2 + DJ * g * ND) * plane +
-             (long long)y * W + x;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-#pragma unroll
-        for (int ti = 0; ti < ND; ++ti) {
-          T* q = o + (long long)(j * ND + ti) * plane;
-          const float* s = acc[j][ti];
-          if (vec) {
-            store4(q, s[0] * inv_c, s[1] * inv_c, s[2] * inv_c, s[3] * inv_c);
-          } else {
-#pragma unroll
-            for (int p = 0; p < PX; ++p)
-              if (x + p < W) store1(q + p, s[p] * inv_c);
-          }
-        }
-    }
-    return;
-  }
-
-  // The cluster's reduction.  Each block's partial sums take the ring's
-  // place in its shared memory; rank r then reads maps r, r + nsplit, ...
-  // from every rank through distributed shared memory and adds them in rank
-  // order, the fixed order that makes the bits repeat.  (Pushing the sums
-  // into the owner's memory instead was measured: no faster, and its
-  // separate inbox costs a block per SM.)
-  cg::cluster_group cluster = cg::this_cluster();
-  __syncthreads();   // the ring is consumed
-#pragma unroll
-  for (int j = 0; j < DJ; ++j)
-#pragma unroll
-    for (int ti = 0; ti < ND; ++ti) {
-      const float* s = acc[j][ti];
-      *reinterpret_cast<float4*>(red + ((DJ * g + j) * ND + ti) * L::F1 +
-                                 ty * TW + PX * tx) =
-          make_float4(s[0], s[1], s[2], s[3]);
-    }
-  cluster.sync();
-  constexpr int QT = TH * L::QX;   // pixel quads per map
-  const int nd = (ND2 - rank + nsplit - 1) / nsplit;
-  for (int it = tid; it < nd * QT; it += L::NT) {
-    const int d = rank + (it / QT) * nsplit;
-    const int qd = it % QT;
-    const int at = d * L::F1 + PX * qd;
-    // all the remote reads first, so that their latencies overlap
-    float4 t[MAX_SPLIT];
-#pragma unroll
-    for (int r = 0; r < MAX_SPLIT; ++r) {
-      if (r < nsplit) {
-        t[r] = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(red, r) + at);
-      }
-    }
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int r = 0; r < MAX_SPLIT; ++r) {
-      if (r < nsplit) {
-        s.x += t[r].x; s.y += t[r].y; s.z += t[r].z; s.w += t[r].w;
-      }
-    }
-    const int y = y0 + qd / L::QX, x = x0 + PX * (qd % L::QX);
-    if (y < H && x < W) {
-      T* o = out + ((long long)b * ND2 + d) * plane + (long long)y * W + x;
-      if (vec) {
-        store4(o, s.x * inv_c, s.y * inv_c, s.z * inv_c, s.w * inv_c);
-      } else {
-        const float sv[PX] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-        for (int p = 0; p < PX; ++p)
-          if (x + p < W) store1(o + p, sv[p] * inv_c);
-      }
-    }
-  }
-  cluster.sync();   // no block leaves while another still reads its sums
+  // the ring is consumed: the partial sums may take its place
+  store_or_reduce<T, TW, L::NG>(acc, red, out, H, W, x0, y0, nsplit, vec,
+                                inv_c);
 }
 
 // ---- the launch plan -------------------------------------------------------
-
-struct Plan {
-  int tile_w;   // 32 or 16
-  int tiles;    // image tiles per batch item
-  int tiles_x;
-  int split;    // channel splits = cluster size
-  int cper;     // channels per split
-  int threads;
-  int smem;     // dynamic shared memory per block, bytes
-};
-
-int sm_count(int device) {
-  static int cached[MAX_DEVICES] = {0};
-  if (device < 0 || device >= MAX_DEVICES) return 132;
-  if (cached[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-            cudaSuccess || n < 1) {
-      n = 132;
-    }
-    cached[device] = n;
-  }
-  return cached[device];
-}
-
-int tiles_of(int H, int W, int tw) {
-  return ((H + TH - 1) / TH) * ((W + tw - 1) / tw);
-}
 
 // tile, split: 0 lets the plan choose; else the tile width (16 or 32) and the
 // number of channel splits (1..8) to use (the card tests force them, to
@@ -421,37 +233,20 @@ int tiles_of(int H, int W, int tw) {
 template <typename T>
 bool make_plan(int B, int C, int H, int W, int tile, int split, int device,
                Plan* p) {
-  if (!(tile == 0 || tile == 16 || tile == 32) || split < 0 ||
-      split > MAX_SPLIT) {
+  // the wide tile where it gives three blocks to every two SMs, else the
+  // narrow one; the smallest power-of-two split that gives every SM a
+  // block, each split keeping at least 16 channels: more splits cost more
+  // in the reduction (split x the output's bytes cross the cluster) than
+  // they gain in parallel channels
+  if (!choose_tile_and_split(B, C, H, W, tile, split, device, 3, 2, 16, p)) {
     return false;
   }
-  const int sms = sm_count(device);
-  if (tile == 0) {
-    // the wide tile where it gives three blocks to every two SMs, else the
-    // narrow one
-    tile = (long long)tiles_of(H, W, 32) * B * 2 >= 3 * sms ? 32 : 16;
-  }
-  const int tiles = tiles_of(H, W, tile);
-  if (split == 0) {
-    // the smallest power of two that gives every SM a block, each split
-    // keeping at least 16 channels: more splits cost more in the reduction
-    // (split x the output's bytes cross the cluster) than they gain in
-    // parallel channels
-    const int most = C / 16 < MAX_SPLIT ? C / 16 : MAX_SPLIT;
-    split = 1;
-    while (split * 2 <= most && (long long)tiles * B * split < sms) split *= 2;
-  }
-  p->tile_w = tile;
-  p->tiles = tiles;
-  p->tiles_x = (W + tile - 1) / tile;
-  p->split = split;
-  p->cper = (C + split - 1) / split;
-  if (tile == 32) {
+  if (p->tile_w == 32) {
     p->threads = Tile<T, 32>::NT;
-    p->smem = split > 1 ? Tile<T, 32>::MAX_BYTES : Tile<T, 32>::RING_BYTES;
+    p->smem = p->split > 1 ? Tile<T, 32>::MAX_BYTES : Tile<T, 32>::RING_BYTES;
   } else {
     p->threads = Tile<T, 16>::NT;
-    p->smem = split > 1 ? Tile<T, 16>::MAX_BYTES : Tile<T, 16>::RING_BYTES;
+    p->smem = p->split > 1 ? Tile<T, 16>::MAX_BYTES : Tile<T, 16>::RING_BYTES;
   }
   return true;
 }
@@ -490,11 +285,6 @@ cudaError_t launch(const void* f1, const void* f2, void* out, int B, int C,
                             static_cast<const T*>(f2), static_cast<T*>(out),
                             C, H, W, p.tiles_x, p.split, p.cper, vec,
                             1.0f / C);
-}
-
-bool shape_ok(int B, int C, int H, int W, int md) {
-  return md == MD && B >= 1 && C >= 1 && H >= 1 && W >= 1 && B <= 65535 &&
-         (long long)H * W < (1LL << 31);
 }
 
 template <typename T>
@@ -548,7 +338,6 @@ extern "C" int corr_fwd_plan(int B, int C, int H, int W, int md, int dtype,
       ? make_plan<float>(B, C, H, W, tile, split, device, &p)
       : make_plan<__nv_bfloat16>(B, C, H, W, tile, split, device, &p);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  plan[0] = p.tile_w; plan[1] = p.tiles; plan[2] = p.split; plan[3] = p.cper;
-  plan[4] = p.threads; plan[5] = p.smem;
+  write_plan(p, plan);
   return 0;
 }

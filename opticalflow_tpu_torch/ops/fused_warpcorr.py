@@ -16,6 +16,11 @@ kernel's math against the JAX package.  :func:`fused_warp_corr` sends a CPU
 tensor to it and a CUDA tensor to :func:`fused_warp_corr_cuda`, which
 launches the kernel or raises; ``fused_warp_corr_cuda.launches`` counts
 launches.  The kernel is forward only, like the TPU kernel it replaces.
+
+The kernel's C entry point chooses the tile and the channel split per
+launch; :func:`launch_plan` reports that choice, and ``tile=``/``split=``
+force it.  They steer the kernel only: the plain version has neither, so
+:func:`fused_warp_corr` raises if they are given with CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,18 +29,24 @@ import ctypes
 
 import torch
 
+from opticalflow_tpu_torch.ops._build import load_library
 from opticalflow_tpu_torch.ops._launch import (Kernel, needs_grad,
                                                raw_stream)
 from opticalflow_tpu_torch.ops.correlation import correlation_plain
 
 __all__ = ["prep_gather", "fused_warp_corr", "fused_warp_corr_plain",
-           "fused_warp_corr_cuda", "MD"]
+           "fused_warp_corr_cuda", "launch_plan", "MD", "TILES",
+           "MAX_SPLIT"]
 
 MD = 4    # max displacement: the model's, and the kernel's only one
+TILES = (0, 16, 32)   # tile widths to force; 0: the kernel chooses
+MAX_SPLIT = 8         # most channel splits (the portable cluster size)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _kernel = Kernel("fused_warp_corr", "fused_warp_corr",
                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                 + [ctypes.c_float])
+                 + [ctypes.c_float] + [ctypes.c_int] * 2)
+_plan_fn = None
+_SPLITS = range(MAX_SPLIT + 1)
 
 
 def prep_gather(flow: torch.Tensor, h: int, w: int,
@@ -104,9 +115,17 @@ def fused_warp_corr_plain(f1: torch.Tensor, f2: torch.Tensor,
     return out.to(f1.dtype)
 
 
-def _refuse(f1, f2, flow) -> None:
+def _check_plan(tile, split) -> None:
+    if tile not in TILES or split not in _SPLITS:
+        raise ValueError(f"fused_warp_corr takes tile in {TILES} and split "
+                         f"in 0..{MAX_SPLIT} (0: the kernel chooses), got "
+                         f"tile={tile!r} split={split!r}")
+
+
+def _refuse(f1, f2, flow, tile, split) -> None:
     """Raise for the first thing the kernel does not take; the message is
     built here, off the passing path."""
+    _check_plan(tile, split)
     tensors = (f1, f2, flow)
     if not all(t.is_cuda for t in tensors) or len(
             {t.device for t in tensors}) != 1:
@@ -135,22 +154,26 @@ def _refuse(f1, f2, flow) -> None:
 
 def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          flow: torch.Tensor, *,
-                         mask_threshold: float = 0.9999) -> torch.Tensor:
+                         mask_threshold: float = 0.9999, tile: int = 0,
+                         split: int = 0) -> torch.Tensor:
     """The CUDA kernel.  f1, f2: contiguous (B, C, H, W) CUDA tensors of one
     dtype, float32 or bfloat16; flow: contiguous float32 (B, 2, H, W) on the
-    same device.  Returns (B, 81, H, W) in f1's dtype."""
+    same device.  Returns (B, 81, H, W) in f1's dtype.  ``tile`` (16 or 32
+    columns) and ``split`` (1..8 channel splits) override the kernel's own
+    choice; 0 leaves it to the kernel."""
     dtype = f1.dtype
     code = _DTYPE_CODES.get(dtype)
     shape = f1.shape
     device = f1.device
-    if not (code is not None and f2.dtype == dtype
+    if not (tile in TILES and split in _SPLITS
+            and code is not None and f2.dtype == dtype
             and flow.dtype is torch.float32 and f1.is_cuda
             and f2.device == device and flow.device == device
             and len(shape) == 4 and f2.shape == shape
             and flow.shape == (shape[0], 2, shape[2], shape[3])
             and f1.is_contiguous() and f2.is_contiguous()
             and flow.is_contiguous() and not needs_grad(f1, f2, flow)):
-        _refuse(f1, f2, flow)
+        _refuse(f1, f2, flow, tile, split)
     b, c, h, w = shape
     out = torch.empty(b, 81, h, w, dtype=dtype, device=device)
     if b == 0 or c == 0 or h == 0 or w == 0:
@@ -158,9 +181,11 @@ def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
     index = device.index
     fn = _kernel.fn or _kernel.load()
     err = fn(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(), out.data_ptr(),
-             b, c, h, w, MD, code, mask_threshold, index, raw_stream(index))
+             b, c, h, w, MD, code, mask_threshold, tile, split, index,
+             raw_stream(index))
     if err:
-        _kernel.refused(err, index, f"shape {tuple(shape)} {dtype}")
+        _kernel.refused(err, index, f"shape {tuple(shape)} {dtype} "
+                                    f"tile={tile} split={split}")
     fused_warp_corr_cuda.launches += 1
     return out
 
@@ -168,11 +193,45 @@ def fused_warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor,
 fused_warp_corr_cuda.launches = 0
 
 
+def launch_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, *,
+                tile: int = 0, split: int = 0, device_index: int = 0) -> dict:
+    """The kernel's choice for a (b, c, h, w) call on that device, without
+    launching: tile width, image tiles per batch item, channel split (the
+    cluster size), channels per split, threads per block, dynamic shared
+    memory per block, and the grid."""
+    global _plan_fn
+    _check_plan(tile, split)
+    if _plan_fn is None:
+        # built if need be
+        fn = load_library(_kernel.library).fused_warp_corr_plan
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _plan_fn = fn
+    plan = (ctypes.c_int * 6)()
+    err = _plan_fn(b, c, h, w, MD, _DTYPE_CODES[dtype], tile, split,
+                   device_index, plan)
+    if err:
+        raise ValueError(f"fused_warp_corr_plan refused ({b}, {c}, {h}, {w}) "
+                         f"{dtype} tile={tile} split={split}: cudaError {err}")
+    tile_w, tiles, nsplit, cper, threads, smem = plan
+    return {"tile": [8, tile_w], "tiles": tiles, "split": nsplit,
+            "channels_per_split": cper, "threads": threads,
+            "smem_bytes": smem, "grid": [tiles, nsplit, b]}
+
+
 def fused_warp_corr(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
-                    *, mask_threshold: float = 0.9999) -> torch.Tensor:
+                    *, mask_threshold: float = 0.9999, tile: int = 0,
+                    split: int = 0) -> torch.Tensor:
     """``corr(f1, warp_with_mask(f2, flow, mask_threshold))``: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor.  ``tile`` and ``split``
+    force the kernel's plan; the plain version has none, so with CPU tensors
+    anything but 0 raises rather than being dropped."""
     if f1.is_cuda:
         return fused_warp_corr_cuda(f1, f2, flow,
-                                    mask_threshold=mask_threshold)
+                                    mask_threshold=mask_threshold, tile=tile,
+                                    split=split)
+    if tile or split:
+        raise ValueError("tile= and split= steer the CUDA kernel only; the "
+                         f"tensors are on {f1.device} (got tile={tile!r} "
+                         f"split={split!r})")
     return fused_warp_corr_plain(f1, f2, flow, mask_threshold=mask_threshold)

@@ -15,9 +15,14 @@ with flows of ×2 px.  On the card it then times both by CUDA events, with
 the flow perturbed per iteration as the JAX probe does, in float32 and
 bfloat16: at B H W C if given, else at levels 2-5 of a 448×1024 frame
 (112×256×32, 56×128×64, 28×64×96, 14×32×128) at B=1 and B=8; beside each,
-the host's time to issue one call and the card's time alone (the calls
-queued behind a spin kernel, so the host cannot hold the card back).  With
-``--device cpu`` the check runs the plain version and timing is skipped.
+the plan the kernel chose (tile, grid, channel split), whether two runs
+gave the same bits, the host's time to issue one call and the card's time
+alone (the calls queued behind a spin kernel, so the host cannot hold the
+card back).  The flows are noise of ×3 px, every pixel its own, which
+scatters the gather's reads; the card-alone times are also taken with
+noise of ×20 px and with a smooth flow (noise of ×3 px at an eighth of the
+size, enlarged bilinearly, as a flow estimate is).  With ``--device cpu``
+the check runs the plain version and timing is skipped.
 """
 
 from __future__ import annotations
@@ -27,11 +32,13 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from opticalflow_tpu_torch.engine import resolve_device
 from opticalflow_tpu_torch.ops.correlation import correlation
 from opticalflow_tpu_torch.ops.fused_warpcorr import (MD, fused_warp_corr,
-                                                      fused_warp_corr_plain)
+                                                      fused_warp_corr_plain,
+                                                      launch_plan)
 from opticalflow_tpu_torch.ops.warp import warp_with_mask
 from opticalflow_tpu_torch.scripts._timing import (BF16_FLOPS_PER_S,
                                                    FP32_FLOPS_PER_S, bound,
@@ -77,8 +84,9 @@ def _time_shape(b, h, w, c, dtype, device, rng) -> dict:
     f1 = _nchw(rng.randn(b, h, w, c).astype(np.float32), device, dtype)
     f2 = _nchw(rng.randn(b, h, w, c).astype(np.float32), device, dtype)
     flow = _nchw((rng.randn(b, h, w, 2) * 3).astype(np.float32), device)
-    err = float((fused_warp_corr(f1, f2, flow).float()
-                 - composed(f1, f2, flow).float()).abs().max())
+    first = fused_warp_corr(f1, f2, flow)
+    same_bits = torch.equal(first, fused_warp_corr(f1, f2, flow))
+    err = float((first.float() - composed(f1, f2, flow).float()).abs().max())
     iters = 50
     # the flow perturbed per iteration, as the JAX probe does; made before
     # the timed loop, so only the functions are timed
@@ -90,8 +98,24 @@ def _time_shape(b, h, w, c, dtype, device, rng) -> dict:
     def comp(i):
         return composed(f1, f2, flows[i % iters])
 
+    # other flows, card alone: noise of x20 px, and a smooth field
+    coarse = _nchw((rng.randn(b, max(h // 8, 2), max(w // 8, 2), 2)
+                    * 3).astype(np.float32), device)
+    others = {"x20": flow * (20.0 / 3.0),
+              "smooth": F.interpolate(coarse, size=(h, w), mode="bilinear",
+                                      align_corners=True).contiguous()}
+    extra = {}
+    for name, fl in others.items():
+        extra[f"fused_device_ms_{name}"] = device_ms(
+            lambda _: fused_warp_corr(f1, f2, fl), 30)
+        extra[f"composed_device_ms_{name}"] = device_ms(
+            lambda _: composed(f1, f2, fl), 30)
+
     b_ms, b_by = fused_bound(b, h, w, c, dtype)
     return {"shape": [h, w, c], "batch": b, "dtype": str(dtype)[6:],
+            "plan": launch_plan(b, c, h, w, dtype,
+                                device_index=device.index or 0),
+            "same_bits": same_bits,
             "fused_ms": cuda_ms(fused, iters),
             "composed_ms": cuda_ms(comp, iters),
             "plain_ms": cuda_ms(lambda i: fused_warp_corr_plain(
@@ -100,6 +124,7 @@ def _time_shape(b, h, w, c, dtype, device, rng) -> dict:
             "composed_host_ms": host_ms(comp, iters),
             "fused_device_ms": device_ms(fused, 30),
             "composed_device_ms": device_ms(comp, 30),
+            **extra,
             "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err_vs_composed": err}
 
@@ -143,18 +168,30 @@ def main(argv=None) -> List[dict]:
             for dtype in (torch.float32, torch.bfloat16):
                 r = _time_shape(b, h, w, c, dtype, device, rng)
                 rows.append(r)
-                print(f"B={b} {h}x{w}x{c} {r['dtype']:8s} fused "
-                      f"{r['fused_ms'] * 1e3:9.2f} us  composed "
-                      f"{r['composed_ms'] * 1e3:9.2f} us  (composed/fused "
-                      f"{r['composed_ms'] / r['fused_ms']:.2f}x)  bound "
-                      f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  "
-                      f"plain {r['plain_ms'] * 1e3:.1f} us  host to issue: "
-                      f"fused {r['fused_host_ms'] * 1e3:.1f} us, composed "
-                      f"{r['composed_host_ms'] * 1e3:.1f} us  card alone: "
-                      f"fused {r['fused_device_ms'] * 1e3:.2f} us, composed "
+                if not r["same_bits"]:
+                    raise AssertionError(f"two runs differ at B={b} "
+                                         f"{h}x{w}x{c} {r['dtype']}")
+                plan = r["plan"]
+                print(f"B={b} {h}x{w}x{c} {r['dtype']:8s} tile "
+                      f"{plan['tile'][0]}x{plan['tile'][1]} grid "
+                      f"{plan['grid']} split {plan['split']} "
+                      f"({plan['channels_per_split']} ch)  two runs "
+                      f"bit-equal  card alone: fused "
+                      f"{r['fused_device_ms'] * 1e3:.2f} us, composed "
                       f"{r['composed_device_ms'] * 1e3:.2f} us "
                       f"({r['composed_device_ms'] / r['fused_device_ms']:.2f}"
-                      f"x)  max|fused-composed| "
+                      f"x); flows x20 px {r['fused_device_ms_x20'] * 1e3:.2f}"
+                      f" / {r['composed_device_ms_x20'] * 1e3:.2f}; smooth "
+                      f"{r['fused_device_ms_smooth'] * 1e3:.2f} / "
+                      f"{r['composed_device_ms_smooth'] * 1e3:.2f}  events: "
+                      f"fused {r['fused_ms'] * 1e3:.2f} us, composed "
+                      f"{r['composed_ms'] * 1e3:.2f} us "
+                      f"({r['composed_ms'] / r['fused_ms']:.2f}x)  host to "
+                      f"issue: fused {r['fused_host_ms'] * 1e3:.1f} us, "
+                      f"composed {r['composed_host_ms'] * 1e3:.1f} us  bound "
+                      f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  "
+                      f"plain {r['plain_ms'] * 1e3:.1f} us  "
+                      f"max|fused-composed| "
                       f"{r['max_abs_err_vs_composed']:.2e}", flush=True)
     return rows
 

@@ -1,20 +1,24 @@
-"""Sweep the correlation kernel's tile and channel split on the card.
+"""Sweep a correlation kernel's tile and channel split on the card.
 
-    python -m opticalflow_tpu_torch.scripts.sweep_corr [--variants] [--iters N]
+    python -m opticalflow_tpu_torch.scripts.sweep_corr [--fused] [--variants]
+        [--iters N] [--flow-px PX]
 
-For every correlation level of a 448×1024 frame (B=1 and, at levels 2-4,
+Without ``--fused`` the correlation kernel (``csrc/correlation_fwd.cu``):
+for every correlation level of a 448×1024 frame (B=1 and, at levels 2-4,
 B=8) and of a 1088×1920 frame, float32, it times the kernel with the card
 alone (``scripts/_timing.device_ms``: the calls queued behind a spin
 kernel) at the tile and split the C entry point chooses and at every forced
 tile (16, 32 columns) × split (1, 2, 4, 8), after checking each against the
-plain version.  The plan's rule in ``csrc/correlation_fwd.cu``
-(``make_plan``) was set from this table.
+plain version.  With ``--fused`` the fused warp⊕correlation kernel
+(``csrc/fused_warp_corr.cu``) the same way, at levels 2-5 (B=1, B=8) and
+level 2 of 1088×1920, with flows of ``--flow-px`` pixels (default 3).  The
+plan's rule in each source (``make_plan``) was set from these tables.
 
 ``--variants`` also builds, under ``_build/sweep/``, copies of the source
 with one constant changed each (rows of dy a thread owns, the ring's shape,
-the channel loop's unrolling) and sweeps them the same way, so a design
-choice can be re-examined on another card without editing the kernel.
-Needs a CUDA device and ``nvcc``.
+the channel loop's unrolling, blocks per SM) and sweeps them the same way,
+so a design choice can be re-examined on another card without editing the
+kernel.  Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,16 +26,20 @@ from __future__ import annotations
 import argparse
 import ctypes
 import subprocess
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from opticalflow_tpu_torch.ops import _build
 from opticalflow_tpu_torch.ops._launch import raw_stream
 from opticalflow_tpu_torch.ops.correlation import correlation_plain
+from opticalflow_tpu_torch.ops.fused_warpcorr import (fused_warp_corr_plain,
+                                                      prep_gather)
 from opticalflow_tpu_torch.scripts._timing import device_ms
 
-__all__ = ["SHAPES", "VARIANTS", "main"]
+__all__ = ["SHAPES", "VARIANTS", "FUSED_SHAPES", "FUSED_VARIANTS", "COMBOS",
+           "main"]
 
 # (name, B, C, H, W)
 SHAPES = (("L2", 1, 32, 112, 256), ("L3", 1, 64, 56, 128),
@@ -40,6 +48,11 @@ SHAPES = (("L2", 1, 32, 112, 256), ("L3", 1, 64, 56, 128),
           ("L3 B=8", 8, 64, 56, 128), ("L4 B=8", 8, 96, 28, 64),
           ("1088x1920 L2", 1, 32, 272, 480), ("1088x1920 L3", 1, 64, 136, 240),
           ("1088x1920 L4", 1, 96, 68, 120))
+FUSED_SHAPES = (("L2", 1, 32, 112, 256), ("L3", 1, 64, 56, 128),
+                ("L4", 1, 96, 28, 64), ("L5", 1, 128, 14, 32),
+                ("L2 B=8", 8, 32, 112, 256), ("L3 B=8", 8, 64, 56, 128),
+                ("L4 B=8", 8, 96, 28, 64), ("L5 B=8", 8, 128, 14, 32),
+                ("1088x1920 L2", 1, 32, 272, 480))
 COMBOS = ((0, 0),) + tuple((t, s) for t in (16, 32) for s in (1, 2, 4, 8))
 
 _NG = "static constexpr int NG = TW == 32 ? 3 : 9; "
@@ -59,31 +72,81 @@ VARIANTS = {
     "channel loop unrolled by 2": [
         (_UNROLL, _UNROLL.replace("unroll 1", "unroll 2"))],
 }
+# a variant whose name starts so computes something else: it is timed, not
+# checked
+DIAGNOSTIC = "diagnostic: "
+_FLOAD = "load_f(const float* p) { return __ldg(p); }"
+_FNG = "static constexpr int NG = 9; "
+_FCC = "static constexpr int CC = 4; "
+_FBOUNDS = "::NT, TW == 32 ? 1 : 2)\nfused_warp_corr_kernel"
+# name -> [(text in csrc/fused_warp_corr.cu, its replacement)]
+FUSED_VARIANTS = {
+    "3 dy rows a thread in the wide tile": [
+        (_FNG, "static constexpr int NG = TW == 32 ? 3 : 9; ")],
+    "2 channels a stage": [(_FCC, "static constexpr int CC = 2; ")],
+    "8 channels a stage": [(_FCC, "static constexpr int CC = 8; ")],
+    "narrow tile not held to two blocks an SM": [
+        (_FBOUNDS, _FBOUNDS.replace(", TW == 32 ? 1 : 2)", ")"))],
+    "channel loop unrolled by 2": [
+        (_UNROLL, _UNROLL.replace("unroll 1", "unroll 2"))],
+    # what the gather's loads cost: everything else, at a constant
+    DIAGNOSTIC + "corner loads replaced by a constant": [
+        (_FLOAD, "load_f(const float* p) { return 1.0f; }")],
+    DIAGNOSTIC + "corner loads past L1 (ld.global.cg)": [
+        (_FLOAD, "load_f(const float* p) { float r; asm volatile("
+                 "\"ld.global.cg.f32 %0, [%1];\" : \"=f\"(r) : \"l\"(p)); "
+                 "return r; }")],
+    DIAGNOSTIC + "one corner load a value instead of four": [
+        (f"v[k][c][{i}] = load_f({at});", f"v[k][c][{i}] = v[k][c][0];")
+        for i, at in ((1, "p + (INNER ? 1 : dx1)"), (2, "q"),
+                      (3, "q + (INNER ? 1 : dx1)"))],
+}
 
 
-def _bind(lib: ctypes.CDLL) -> Callable:
-    fn = lib.corr_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+class Target(NamedTuple):
+    """What the sweep needs to know of a kernel."""
+    source: str           # csrc/<source>.cu
+    symbol: str           # its C entry point
+    argtypes: list        # the entry point's ctypes, device and stream included
+    shapes: tuple
+    variants: dict
+    tol: float            # absolute, against the plain version, float32
+
+
+CORR = Target("correlation_fwd", "corr_fwd",
+              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+              SHAPES, VARIANTS, 1e-5)
+FUSED = Target("fused_warp_corr", "fused_warp_corr",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               FUSED_SHAPES, FUSED_VARIANTS, 1e-4)
+THR = 0.9999
+
+
+def _bind(lib: ctypes.CDLL, target: Target) -> Callable:
+    fn = getattr(lib, target.symbol)
+    fn.argtypes = target.argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def _build_variants() -> Dict[str, Callable]:
+def _build_variants(target: Target) -> Dict[str, Callable]:
     """One ``nvcc`` per variant, all started together."""
-    source = (_build.CSRC_DIR / "correlation_fwd.cu").read_text()
+    source = (_build.CSRC_DIR / f"{target.source}.cu").read_text()
     out = _build.BUILD_DIR / "sweep"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(target.variants.items()):
         text = source
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name!r}: {old!r} is no longer "
-                                   "in correlation_fwd.cu")
+                                   f"in {target.source}.cu")
             text = text.replace(old, new)
-        src, lib = out / f"variant{i}.cu", out / f"variant{i}.so"
+        src = out / f"{target.source}_variant{i}.cu"
+        lib = src.with_suffix(".so")
         src.write_text(text)
+        # the headers the source includes are found beside the original
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
              str(_build.CSRC_DIR), "-o", str(lib), str(src)],
@@ -95,28 +158,48 @@ def _build_variants() -> Dict[str, Callable]:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log}")
         regs = sorted({int(line.split("Used ")[1].split()[0])
                        for line in log.splitlines() if "Used " in line})
-        print(f"built variant {name!r}: registers {regs}", flush=True)
-        fns[name] = _bind(ctypes.CDLL(str(lib)))
+        spills = sorted({line.strip() for line in log.splitlines()
+                         if "spill" in line and "0 bytes spill stores, 0 "
+                         "bytes spill loads" not in line})
+        print(f"built variant {name!r}: registers {regs}"
+              + (f"  SPILLS {spills}" if spills else ""), flush=True)
+        fns[name] = _bind(ctypes.CDLL(str(lib)), target)
     return fns
 
 
 def main(argv=None) -> List[dict]:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--fused", action="store_true",
+                   help="sweep the fused warp+correlation kernel")
     p.add_argument("--variants", action="store_true",
                    help="also build and sweep the source variants")
     p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--flow-px", type=float, default=3.0,
+                   help="scale of the random flow (--fused)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_corr needs a CUDA device")
-    fns = {"as committed": _bind(_build.load_library("correlation_fwd"))}
+    target = FUSED if args.fused else CORR
+    fns = {"as committed": _bind(_build.load_library(target.source), target)}
     if args.variants:
-        fns.update(_build_variants())
+        fns.update(_build_variants(target))
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for shape_name, b, c, h, w in SHAPES:
+    for shape_name, b, c, h, w in target.shapes:
         f1 = torch.randn(b, c, h, w, generator=g, device="cuda")
         f2 = torch.randn(b, c, h, w, generator=g, device="cuda")
-        ref = correlation_plain(f1, f2, pad_size=4, max_displacement=4)
+        if args.fused:
+            flow = torch.randn(b, 2, h, w, generator=g,
+                               device="cuda") * args.flow_px
+            ref = fused_warp_corr_plain(f1, f2, flow, mask_threshold=THR)
+            # outputs reached by a warped pixel whose mask sum is within
+            # 1e-6 of the threshold are not compared
+            _, _, wv = prep_gather(flow, h, w, 0.0)
+            near = ((wv.sum(1, keepdim=True) - THR).abs() < 1e-6).float()
+            keep = (F.max_pool2d(near, 9, 1, 4) == 0).float()
+        else:
+            ref = correlation_plain(f1, f2, pad_size=4, max_displacement=4)
+            keep = 1.0
         out = torch.empty_like(ref)
         for name, fn in fns.items():
             cells = []
@@ -125,15 +208,21 @@ def main(argv=None) -> List[dict]:
                     continue     # a split the plan never takes at this size
 
                 def call(_):
-                    err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b,
-                             c, h, w, 4, 0, tile, split, 0, raw_stream(0))
+                    if args.fused:
+                        err = fn(f1.data_ptr(), f2.data_ptr(),
+                                 flow.data_ptr(), out.data_ptr(), b, c, h, w,
+                                 4, 0, THR, tile, split, 0, raw_stream(0))
+                    else:
+                        err = fn(f1.data_ptr(), f2.data_ptr(),
+                                 out.data_ptr(), b, c, h, w, 4, 0, tile,
+                                 split, 0, raw_stream(0))
                     if err:
                         raise RuntimeError(f"cudaError {err}")
 
                 call(0)
                 torch.cuda.synchronize()
-                worst = float((out - ref).abs().max())
-                if not worst <= 1e-5:
+                worst = float(((out - ref).abs() * keep).max())
+                if not (worst <= target.tol or name.startswith(DIAGNOSTIC)):
                     raise AssertionError(f"{shape_name} {name} tile {tile} "
                                          f"split {split}: off by {worst:.3e}")
                 us = device_ms(call, args.iters) * 1e3

@@ -233,6 +233,179 @@ def test_fused_warp_corr_refuses_autograd(cuda_device):
         fused_warpcorr.fused_warp_corr_cuda(f, f, flow)
 
 
+PLANS = [(0, 0), (16, 1), (16, 8), (32, 3), (32, 8)]
+
+
+def _fused_inputs(device, shape, dtype, flow_px, seed=0):
+    b, _, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn(shape, generator=g, device=device).to(dtype)
+    f2 = torch.randn(shape, generator=g, device=device).to(dtype)
+    flow = torch.randn((b, 2, h, w), generator=g, device=device) * flow_px
+    return f1, f2, flow
+
+
+def _assert_fused_close(out, f1, f2, flow, thr=0.9999):
+    """Against the plain version in float32, before the rounding to the
+    features' dtype.  A warped pixel whose mask sum is within 1e-6 of the
+    threshold may decide otherwise: the outputs it reaches are left out."""
+    b, _, h, w = f1.shape
+    assert out.dtype == f1.dtype and out.shape == (b, 81, h, w)
+    ref = fused_warpcorr.fused_warp_corr_plain(f1.float(), f2.float(), flow,
+                                               mask_threshold=thr)
+    _, _, wv = fused_warpcorr.prep_gather(flow, h, w, 0.0)
+    near = ((wv.sum(1, keepdim=True) - thr).abs() < 1e-6).float()
+    reach = torch.nn.functional.max_pool2d(near, 9, 1, 4) > 0
+    err = (out.float() - ref).abs() * (~reach).float()
+    if f1.dtype == torch.float32:
+        # float32 sums of <=196 products and of the corner terms, in
+        # another order
+        assert float(err.max()) <= 1e-4
+    else:   # one bf16 rounding of the float32 result, doubled for the order
+        assert bool((err <= ref.abs() * 2.0 ** -8 + 1e-5).all())
+    assert float(reach.float().mean()) < 0.25    # nearly all is compared
+
+
+# C in {1, 17, 20, 196}: the channel split and the last chunk are ragged;
+# W in {30, 45}: no 16-byte copies or stores; no H is a multiple of 8;
+# (8, 196, 7, 16): B=8 at level 6
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 9, 45), (2, 17, 9, 45),
+                                   (1, 20, 13, 30), (1, 196, 17, 30),
+                                   (1, 17, 28, 64), (1, 20, 14, 32),
+                                   (8, 196, 7, 16)])
+@pytest.mark.parametrize("tile,split", PLANS)
+def test_fused_matches_plain_at_every_tile_and_split(cuda_device, shape,
+                                                     dtype, tile, split):
+    """The kernel's own choice, and tiles and splits forced on it: ranks
+    with no channel at all (C=1 split 8), an odd cluster size."""
+    f1, f2, flow = _fused_inputs(cuda_device, shape, dtype, 3.0)
+    out = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile,
+                                              split=split)
+    _assert_fused_close(out, f1, f2, flow)
+
+
+@pytest.mark.parametrize("thr", [0.9999, 0.999])
+@pytest.mark.parametrize("flow_px", [3.0, 20.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,split", PLANS[1:])
+def test_fused_at_forced_plans_takes_flows_and_thresholds(
+        cuda_device, tile, split, dtype, flow_px, thr):
+    f1, f2, flow = _fused_inputs(cuda_device, (2, 40, 21, 52), dtype,
+                                 flow_px, seed=11)
+    out = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile,
+                                              split=split,
+                                              mask_threshold=thr)
+    _assert_fused_close(out, f1, f2, flow, thr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,split", PLANS)
+def test_fused_is_exactly_zero_where_every_sample_is_outside(
+        cuda_device, tile, split, dtype):
+    """A flow that throws every sample out of the image: every mask is 0,
+    nothing is gathered, and the output is 0 to the bit."""
+    f1, f2, flow = _fused_inputs(cuda_device, (2, 20, 13, 36), dtype, 1.0, 12)
+    flow = flow + 100.0
+    out = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile,
+                                              split=split)
+    assert int(torch.count_nonzero(out)) == 0
+    assert not bool(torch.signbit(out.float()).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 6, 11, 1), (2, 6, 1, 21),
+                                   (1, 5, 1, 1), (1, 9, 2, 2)])
+@pytest.mark.parametrize("tile,split", PLANS[:3])
+def test_fused_takes_images_one_pixel_wide_or_high(cuda_device, tile, split,
+                                                   shape, dtype):
+    """W or H of 1: the sampled patch has one column or row, and the gather
+    reads no neighbour.  A low threshold keeps half-inside samples alive
+    (at 0.9999 such an image is masked out nearly everywhere)."""
+    f1, f2, flow = _fused_inputs(cuda_device, shape, dtype, 0.4, seed=17)
+    out = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile,
+                                              split=split,
+                                              mask_threshold=0.25)
+    _assert_fused_close(out, f1, f2, flow, 0.25)
+    if (shape[2] == 1) != (shape[3] == 1):
+        # a line of pixels: many samples survive the mask (a 1x1 or 2x2
+        # image holds at most 0.25 of a sample's weight at zero flow)
+        assert int(torch.count_nonzero(out)) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_takes_a_base_pointer_off_by_one_element(cuda_device, dtype):
+    """f1 not 16-byte aligned: element loads and scalar stores."""
+    shape = (1, 20, 16, 64)
+    n = 20 * 16 * 64
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    buf1 = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+    buf2 = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+    flow = torch.randn((1, 2, 16, 64), generator=g, device=cuda_device) * 3
+    f1, f2 = buf1[1:].view(shape), buf2[1:].view(shape)
+    assert f1.data_ptr() % 16 != 0 and f1.is_contiguous()
+    for tile in (16, 32):
+        out = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile)
+        _assert_fused_close(out, f1, f2, flow)
+        # the aligned path on the same values gives the same bits
+        assert torch.equal(out, fused_warpcorr.fused_warp_corr_cuda(
+            f1.clone(), f2.clone(), flow, tile=tile))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 56, 128), (8, 128, 14, 32),
+                                   (1, 20, 13, 30)])
+@pytest.mark.parametrize("tile,split", PLANS)
+def test_fused_gives_the_same_bits_twice(cuda_device, tile, split, shape,
+                                         dtype):
+    """The channel split is reduced in a fixed order: no atomics."""
+    f1, f2, flow = _fused_inputs(cuda_device, shape, dtype, 3.0, seed=14)
+    first = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow, tile=tile,
+                                                split=split)
+    for _ in range(3):
+        assert torch.equal(first, fused_warpcorr.fused_warp_corr_cuda(
+            f1, f2, flow, tile=tile, split=split))
+
+
+def test_fused_is_captured_and_replayed_by_a_cuda_graph(cuda_device):
+    shape = (1, 128, 14, 32)
+    f1, f2, flow = _fused_inputs(cuda_device, shape, torch.float32, 3.0, 15)
+    eager = fused_warpcorr.fused_warp_corr_cuda(f1, f2, flow)   # built
+    g1, g2, gflow = _fused_inputs(cuda_device, shape, torch.float32, 3.0, 16)
+    other = fused_warpcorr.fused_warp_corr_cuda(g1, g2, gflow)
+    assert not torch.equal(eager, other)
+    s1, s2, sflow = f1.clone(), f2.clone(), flow.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_warpcorr.fused_warp_corr_cuda(s1, s2, sflow)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    s1.copy_(g1)
+    s2.copy_(g2)
+    sflow.copy_(gflow)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, other)
+
+
+def test_fused_launch_plan_covers_the_image_and_the_channels(cuda_device):
+    for h, w, c in ((112, 256, 32), (56, 128, 64), (28, 64, 96),
+                    (14, 32, 128), (272, 480, 32), (9, 45, 20)):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = fused_warpcorr.launch_plan(1, c, h, w, dtype)
+            th, tw = p["tile"]
+            assert th == 8 and tw in (16, 32), p
+            assert p["tiles"] == -(-h // th) * -(-w // tw), p
+            assert p["split"] * p["channels_per_split"] >= c, p
+            assert 1 <= p["split"] <= 8 and p["smem_bytes"] <= 232448, p
+            assert p["grid"] == [p["tiles"], p["split"], 1], p
+    forced = fused_warpcorr.launch_plan(2, 64, 56, 128, torch.float32,
+                                        tile=32, split=3)
+    assert forced["tile"] == [8, 32] and forced["split"] == 3
+    assert forced["channels_per_split"] == 22 and forced["threads"] == 576
+
+
 @pytest.mark.parametrize("n,m,c", [(2048, 4096, 128), (37, 300, 21),
                                    (5, 64, 3)])
 def test_row_gather_matches_plain_on_the_card(cuda_device, n, m, c):

@@ -177,11 +177,83 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, monkeypatch):
     assert fused_warpcorr.fused_warp_corr_cuda.launches == before
 
 
+@pytest.mark.parametrize("tile,split", [(8, 0), (-16, 0), (24, 1), (0, 9),
+                                        (16, -1), (32, 16), ("16", 0),
+                                        (0, None)])
+def test_wrapper_rejects_a_bad_tile_or_split_before_any_build(tile, split,
+                                                              monkeypatch):
+    """On tensors the kernel would take, a tile other than 0/16/32 or a
+    split outside 0..8 is refused in Python: nothing is built or launched."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused plan reached the library")
+    monkeypatch.setattr(fused_warpcorr._kernel, "load", no_build)
+    monkeypatch.setattr(fused_warpcorr, "load_library", no_build)
+    f = _FakeCuda(torch.zeros(1, 3, 8, 8))
+    flow = _FakeCuda(torch.zeros(1, 2, 8, 8))
+    before = fused_warpcorr.fused_warp_corr_cuda.launches
+    with pytest.raises(ValueError, match="tile in .* split"):
+        fused_warpcorr.fused_warp_corr_cuda(f, f, flow, tile=tile,
+                                            split=split)
+    with pytest.raises(ValueError, match="tile in .* split"):
+        fused_warpcorr.launch_plan(1, 3, 8, 8, torch.float32, tile=tile,
+                                   split=split)
+    assert fused_warpcorr.fused_warp_corr_cuda.launches == before
+
+
+@pytest.mark.parametrize("tile,split", [(16, 0), (0, 2), (32, 8)])
+def test_cpu_tensors_refuse_a_forced_plan(tile, split):
+    """tile= and split= steer the kernel only; the plain version has no
+    plan, so on CPU tensors they raise rather than being dropped."""
+    f1, f2, flow = _inputs(1, 8, 8, 3, 1.0, 6)
+    args = (_nchw(f1), _nchw(f2), _nchw(flow))
+    with pytest.raises(ValueError, match="steer the CUDA kernel only"):
+        fused_warp_corr(*args, tile=tile, split=split)
+    # 0, 0 is "the kernel's own choice": no plan is forced, the plain
+    # version runs
+    out = fused_warp_corr(*args, tile=0, split=0)
+    torch.testing.assert_close(out, fused_warp_corr_plain(*args), atol=0,
+                               rtol=0)
+
+
+def test_launch_plan_binds_the_plan_entry_point_once(monkeypatch):
+    """``launch_plan`` goes through ``fused_warp_corr_plan`` of the kernel's
+    own library and reports what it wrote."""
+    import ctypes
+    calls = []
+
+    def fake_plan(b, c, h, w, md, code, tile, split, device, plan):
+        calls.append((b, c, h, w, md, code, tile, split, device))
+        for i, v in enumerate((16, 7, 4, 16, 288, 41472)):
+            plan[i] = v
+        return 0 if tile != 32 else 1
+
+    class Lib:
+        fused_warp_corr_plan = staticmethod(fake_plan)
+
+    loaded = []
+    monkeypatch.setattr(fused_warpcorr, "_plan_fn", None)
+    monkeypatch.setattr(fused_warpcorr, "load_library",
+                        lambda name: loaded.append(name) or Lib)
+    p = fused_warpcorr.launch_plan(2, 64, 56, 16, torch.bfloat16, split=4)
+    assert loaded == ["fused_warp_corr"]
+    assert calls == [(2, 64, 56, 16, 4, 1, 0, 4, 0)]
+    assert p == {"tile": [8, 16], "tiles": 7, "split": 4,
+                 "channels_per_split": 16, "threads": 288,
+                 "smem_bytes": 41472, "grid": [7, 4, 2]}
+    with pytest.raises(ValueError, match="cudaError 1"):
+        fused_warpcorr.launch_plan(2, 64, 56, 16, torch.float32, tile=32)
+    assert loaded == ["fused_warp_corr"]          # bound once
+    assert fused_warpcorr._kernel._argtypes[-4:-2] == [ctypes.c_int] * 2
+
+
 def test_probe_runs_on_the_cpu(capsys):
     from opticalflow_tpu_torch.scripts import probe_fused_warpcorr
     assert probe_fused_warpcorr.main(["--device", "cpu"]) == []
     out = capsys.readouterr().out
     assert "correctness vs composed" in out and "timing skipped" in out
+    first = out.splitlines()[0]
+    assert first.startswith("correctness vs composed (2x16x32x8 f32, cpu)")
+    assert float(first.rsplit(" ", 1)[1]) < 1e-4
 
 
 @pytest.mark.parametrize("dtype,rate", [(torch.float32, 67e12),

@@ -113,3 +113,41 @@ def test_sweep_variants_still_match_the_kernel_source():
             assert old != new
     # the forced combinations are ones the C entry point accepts
     assert all(t in (0, 16, 32) and 0 <= s <= 8 for t, s in sweep_corr.COMBOS)
+
+
+def test_fused_sweep_variants_still_match_the_kernel_source():
+    """``scripts/sweep_corr.py --fused --variants`` edits the fused
+    kernel's constants by their text; the shared header is found beside
+    the original source and is part of every library's digest."""
+    from opticalflow_tpu_torch.ops import _build
+    from opticalflow_tpu_torch.scripts import sweep_corr
+    text = (_build.CSRC_DIR / "fused_warp_corr.cu").read_text()
+    for name, subs in sweep_corr.FUSED_VARIANTS.items():
+        for old, new in subs:
+            assert text.count(old) == 1, (name, old)
+            assert old != new
+    for target in (sweep_corr.CORR, sweep_corr.FUSED):
+        source = (_build.CSRC_DIR / f"{target.source}.cu").read_text()
+        assert '#include "corr_tile.cuh"' in source
+        assert f'extern "C" int {target.symbol}(' in source
+        start = source.index(f'extern "C" int {target.symbol}(')
+        signature = source[start:source.index("{", start)]
+        assert len(target.argtypes) == signature.count(",") + 1
+    assert (_build.CSRC_DIR / "corr_tile.cuh") in set(
+        _build.CSRC_DIR.glob("*.cu*"))
+
+
+def test_the_plan_entry_points_mirror_the_launch_entry_points():
+    """``corr_fwd_plan`` and ``fused_warp_corr_plan`` take the shape, md,
+    dtype, tile, split and device, and write six ints."""
+    from opticalflow_tpu_torch.ops._build import CSRC_DIR
+    for library, symbol in (("correlation_fwd", "corr_fwd_plan"),
+                            ("fused_warp_corr", "fused_warp_corr_plan")):
+        text = (CSRC_DIR / f"{library}.cu").read_text()
+        start = text.index(f'extern "C" int {symbol}(')
+        signature = " ".join(text[start:text.index("{", start)].split())
+        assert signature.endswith("int tile, int split, int device, "
+                                  "int* plan)"), signature
+        assert signature.count(",") + 1 == 10
+        body = text[start:text.index("\n}\n", start)]
+        assert "write_plan(p, plan);" in body
