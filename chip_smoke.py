@@ -8,7 +8,7 @@ Run from the root of a checkout; it builds the CUDA kernels from the
 sources there.  Every phase fails loudly (an assertion or exception exits
 non-zero, and no result line is printed):
 
-  1. build the three kernels (one ``nvcc`` each, started together) and
+  1. build the four kernels (one ``nvcc`` each, started together) and
      print the build time and the compiler's register/shared-memory report
      (no instantiation may spill);
   2. hold the correlation kernel (K1/K2) against its plain PyTorch version
@@ -42,12 +42,29 @@ non-zero, and no result line is printed):
   6. full width: ``FlowEngine`` in pad and resize mode at Sintel 436x1024,
      float32, B=1 and B=8 — pairs/s, latency, peak memory, and the host
      resize alone; the forward alone by CUDA events;
-  7. one JSON line listing every kernel with its launches on its path,
+  7. hold the correlation backward kernel (B1) against its plain version:
+     every level of a 320x896 training crop at B=4 and of a 448x1024 frame
+     at B=1, float32 and bfloat16, two runs bit-equal; per level its time
+     on the card alone and by events beside its bound and the plain
+     version;
+  8. the training step at full width (``train.trainer``, the multiscale
+     loss, AdamW lr 1e-4, wd 1e-4, clip 1.0, a seeded batch of 4 x 320x896):
+     in float32 parity mode one step's gradients through K1 and B1 against
+     the same step through the plain correlation; then 10 steps in the
+     fast mode, which must lower the loss, 5 K1 and 5 B1 launches each —
+     ms per step and pairs/s;
+  9. evaluation: synthetic KITTI 2015 (375x1242, 16-bit GT written by the
+     port from the engine's own flow, ~30% invalid) and Sintel (436x1024,
+     ``.flo`` GT) trees through ``cli/infer_kitti`` and ``cli/eval_sintel``
+     at batch 2 (the last chunk padded): EPE within the PNG's 1/64 px and
+     below 1e-3 — pairs/s;
+ 10. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
 Each kernel's launch count is set to 0 just before its path and read just
-after: the CLI and engine for K1, the probe entry points for K3 and K4.
+after: the CLI and engine for K1, the probe entry points for K3 and K4, the
+training steps for B1 (and K1 there), the eval CLIs (K1).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -79,6 +96,12 @@ LEVELS_1080 = (("L2", 272, 480, 32), ("L3", 136, 240, 64),
 # kernels' 32-column tile nor H of their 4-row tile
 EXTRA_SHAPES = (("L2@1088x1920", 272, 480, 32), ("ragged", 9, 45, 20))
 FULL_H, FULL_W = 436, 1024
+# the training crop and batch (the JAX cli/train.py defaults --crop 320 896,
+# --batch 4) and the correlation inputs at each of its pyramid levels
+TRAIN_B, TRAIN_H, TRAIN_W = 4, 320, 896
+TRAIN_LEVELS = (("L2", 80, 224, 32), ("L3", 40, 112, 64),
+                ("L4", 20, 56, 96), ("L5", 10, 28, 128), ("L6", 5, 14, 196))
+KITTI_H, KITTI_W = 375, 1242
 
 
 def log(msg: str) -> None:
@@ -103,6 +126,19 @@ def corr_bound(b: int, h: int, w: int, c: int, itemsize: int = 4):
                  FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S)
 
 
+def corr_bwd_bound(b: int, h: int, w: int, c: int, itemsize: int = 4):
+    """Least time for one backward call: f1, f2 and the volume's gradient
+    read once, d1 and d2 written once, against its 4·81·C·B·H·W operations
+    (float32 rate; bfloat16 at the tensor cores' rate, as for K1)."""
+    from opticalflow_tpu_torch.scripts._timing import (BF16_FLOPS_PER_S,
+                                                       FP32_FLOPS_PER_S,
+                                                       bound)
+    n = b * h * w
+    return bound(itemsize * n * (2 * c + ND2) + itemsize * n * 2 * c,
+                 4.0 * ND2 * c * n,
+                 FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S)
+
+
 def summed(rows, key_ms="ms"):
     """One forward's worth of per-level rows: the sums of the times and
     bounds, and what bounds the sum."""
@@ -122,8 +158,8 @@ def phase_build():
     paths = _build.build(_build.KERNEL_SOURCES)
     log(f"[1] built {len(paths)} kernel(s) in "
         f"{time.perf_counter() - t0:.1f} s")
-    assert set(paths) == {"correlation_fwd", "fused_warp_corr",
-                          "row_gather"}, sorted(paths)
+    assert set(paths) == {"correlation_fwd", "correlation_bwd",
+                          "fused_warp_corr", "row_gather"}, sorted(paths)
     for name, path in paths.items():
         report = path.with_name(path.name + ".ptxas.txt")
         lines = report.read_text().splitlines() if report.exists() else []
@@ -491,6 +527,390 @@ def phase_forward_time(engine):
     return out
 
 
+def phase_corr_bwd():
+    """B1 against its plain version at every training and 448x1024 level,
+    float32 and bfloat16, two runs bit-equal; then timed per level.
+    Returns (max float32 error, max bfloat16 error, rows)."""
+    import torch
+    from opticalflow_tpu_torch.ops.corr_cuda import (bwd_launch_plan,
+                                                     correlation_bwd_cuda)
+    from opticalflow_tpu_torch.ops.correlation import correlation_bwd_plain
+    from opticalflow_tpu_torch.scripts._timing import cuda_ms, device_ms
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    shapes = ([(TRAIN_B, s, "320x896") for s in TRAIN_LEVELS]
+              + [(1, s, "448x1024") for s in LEVELS])
+    for b, (name, h, w, c), frame in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            f1, f2 = (torch.randn(b, c, h, w, generator=g,
+                                  device="cuda").to(dtype) for _ in range(2))
+            gv = torch.randn(b, ND2, h, w, generator=g,
+                             device="cuda").to(dtype)
+
+            def call(_):
+                return correlation_bwd_cuda(f1, f2, gv, max_displacement=MD)
+
+            got = call(0)
+            ref = correlation_bwd_plain(f1, f2, gv, max_displacement=MD)
+            again = call(1)
+            torch.cuda.synchronize()
+            same_bits = all(torch.equal(a, r) for a, r in zip(got, again))
+            err = max(float((a.float() - r.float()).abs().max())
+                      for a, r in zip(got, ref))
+            scale = max(float(r.float().abs().max()) for r in ref)
+            # float32: sums of 81 products in another order (fma against a
+            # rounded product); bfloat16: one bf16 rounding of the float32
+            # sum in either version, 2^-8 relative
+            tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+            worst[dtype] = max(worst[dtype], err)
+            plan = bwd_launch_plan(b, c, h, w, dtype)
+            d_ms = device_ms(call, 100)
+            k_ms = cuda_ms(call, 100)
+            p_ms = cuda_ms(lambda _: correlation_bwd_plain(
+                f1, f2, gv, max_displacement=MD), 3)
+            bound_ms, bound_by = corr_bwd_bound(b, h, w, c,
+                                                f1.element_size())
+            dt = str(dtype)[6:]
+            rows.append({"level": name, "frame": frame, "batch": b,
+                         "dtype": dt, "shape": [h, w, c], "ms": k_ms,
+                         "device_ms": d_ms, "plain_ms": p_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": err, "max_abs_grad": scale,
+                         "same_bits": same_bits, **plan})
+            log(f"[7] {frame} {name} B={b} {dt:8s} ({h}x{w}x{c}) "
+                f"max|kernel-plain| {err:.3e} (max|grad| {scale:.3e}, "
+                f"bound {tol:.1e}); two runs bit-equal: {same_bits}; card "
+                f"alone {d_ms * 1e3:.2f} us  events {k_ms * 1e3:.2f} us  "
+                f"plain {p_ms * 1e3:.2f} us  bound {bound_ms * 1e3:.3f} us "
+                f"({bound_by})  grid {plan['grid']} split {plan['split']} "
+                f"({plan['channels_per_split']} ch)")
+            assert err <= tol, f"B1 disagrees with plain at {frame} {name} " \
+                               f"{dt}: {err:.3e} > {tol:.3e}"
+            assert same_bits, f"two B1 runs differ at {frame} {name} {dt}"
+    for frame, b in (("320x896", TRAIN_B), ("448x1024", 1)):
+        for dt in ("float32", "bfloat16"):
+            sel = [r for r in rows if r["frame"] == frame
+                   and r["dtype"] == dt]
+            log(f"[7] one step's 5 levels, {frame} B={b} {dt}: card alone "
+                f"{sum(r['device_ms'] for r in sel) * 1e3:.2f} us, events "
+                f"{sum(r['ms'] for r in sel) * 1e3:.2f} us, plain "
+                f"{sum(r['plain_ms'] for r in sel) * 1e3:.2f} us, bound "
+                f"{sum(r['bound_ms'] for r in sel) * 1e3:.3f} us")
+    log(f"[7] max abs error: float32 {worst[torch.float32]:.3e}, bfloat16 "
+        f"{worst[torch.bfloat16]:.3e}")
+    return worst[torch.float32], worst[torch.bfloat16], rows
+
+
+def train_batch(seed: int = 0):
+    """A seeded batch in the JAX layout: frame 2 is frame 1 (a smooth random
+    texture) moved by (5, 3) px plus noise, the GT flow that motion, ~20%
+    of the pixels invalid."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.RandomState(seed)
+    coarse = torch.from_numpy(rng.rand(TRAIN_B, 3, TRAIN_H // 8,
+                                       TRAIN_W // 8).astype(np.float32))
+    im1 = F.interpolate(coarse, size=(TRAIN_H, TRAIN_W), mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1).numpy()
+    im2 = np.roll(im1, (3, 5), axis=(1, 2))
+    im2 = np.clip(im2 + rng.randn(*im2.shape).astype(np.float32) * 0.02,
+                  0.0, 1.0)
+    flow = np.broadcast_to(np.array([5.0, 3.0], np.float32),
+                           (TRAIN_B, TRAIN_H, TRAIN_W, 2)).copy()
+    return {"images": np.concatenate([im1, im2], -1).astype(np.float32),
+            "flow": flow,
+            "valid": (rng.rand(TRAIN_B, TRAIN_H, TRAIN_W) > 0.2).astype(
+                np.float32)}
+
+
+def phase_train(sd, corr_fwd, corr_bwd):
+    """The training step at full width on the card.  Returns a dict of its
+    results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+    from opticalflow_tpu_torch.train import trainer as T
+
+    batch = train_batch()
+    sd = reference_state_dict(sd)
+
+    def grads_of(precision, use_cuda_corr):
+        """The raw gradients of one parity-mode step (clip off, SGD at lr 0:
+        the gradients stay on the parameters) and their launches."""
+        model = PWCDCNet(precision=precision, use_cuda_corr=use_cuda_corr)
+        model.load_state_dict(sd)
+        model = model.cuda()
+        cfg = T.TrainConfig(loss="multiscale", grad_clip=0.0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        state = T.TrainState(step=0, model=model, optimizer=opt)
+        f0, b0 = corr_fwd.launches, corr_bwd.launches
+        _, m = T.make_train_step(model, opt, cfg)(state, batch)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        return grads, float(m["loss"]), (corr_fwd.launches - f0,
+                                         corr_bwd.launches - b0)
+
+    def worst_ratio(ga, gb):
+        """max over parameters of max|a - b| / max|b|, and its name; a
+        parameter whose gradient vanishes (below a millionth of the model's
+        largest: rounding noise only) is measured against that millionth."""
+        top = max(float(g.abs().max()) for g in gb.values())
+        return max(((float((ga[n] - gb[n]).abs().max())
+                     / max(float(gb[n].abs().max()), 1e-6 * top)), n)
+                   for n in gb)
+
+    g_kernel, loss_k, launched_k = grads_of("highest", True)
+    g_again, _, _ = grads_of("highest", True)
+    g_plain, loss_p, launched_p = grads_of("highest", False)
+    assert launched_k == (5, 5), launched_k
+    assert launched_p == (0, 0), launched_p
+    ratio, name = worst_ratio(g_kernel, g_plain)
+    floor, fname = worst_ratio(g_again, g_kernel)
+    log(f"[8] parity mode, 4x320x896 multiscale: loss through K1+B1 "
+        f"{loss_k!r}, through the plain correlation {loss_p!r}; worst "
+        f"parameter max|grad(K1+B1) - grad(plain)| / max|grad| = "
+        f"{ratio:.3e} ({name}; bound 1e-3); the same step twice through "
+        f"K1+B1: {floor:.3e} ({fname})")
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    assert ratio <= 1e-3, f"K1+B1 gradients off the plain ones: {ratio:.3e}"
+
+    # 10 fast-mode steps overfitting the batch (the JAX CLI's precision)
+    model = PWCDCNet(precision="fast")
+    model.load_state_dict(sd)
+    model = model.cuda()
+    cfg = T.TrainConfig(loss="multiscale", optimizer="adamw", lr=1e-4,
+                        weight_decay=1e-4, grad_clip=1.0)
+    state, opt = T.create_train_state(model, cfg)
+    step = T.make_train_step(model, opt, cfg)
+    dev_batch = T.batch_to_device(batch, torch.device("cuda"))
+    dev_batch = {k: v.permute(0, 2, 3, 1).contiguous() if v.dim() == 4
+                 else v for k, v in dev_batch.items()}   # NHWC, on the card
+    corr_fwd.launches = corr_bwd.launches = 0   # the training path starts
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, dev_batch)
+        losses.append(float(m["loss"]))         # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = (corr_fwd.launches, corr_bwd.launches)  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = float(np.median(ms[1:]))
+    log(f"[8] fast mode, 10 steps: losses {[round(x, 6) for x in losses]}; "
+        f"K1/B1 launches {launched}; ms per step {[round(x, 2) for x in ms]}"
+        f" (median after the first {step_ms:.2f} ms, "
+        f"{TRAIN_B / step_ms * 1e3:.2f} pairs/s; batch already on the "
+        f"card); peak {peak:.0f} MiB")
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], losses
+    assert launched == (50, 50), launched
+    return {"grad_ratio_vs_plain": ratio, "grad_ratio_run_to_run": floor,
+            "loss_kernel": loss_k, "loss_plain": loss_p, "losses": losses,
+            "step_ms": ms, "step_ms_median": step_ms,
+            "pairs_per_s": TRAIN_B / step_ms * 1e3, "peak_mib": peak,
+            "launches": {"correlation_fwd": launched[0],
+                         "correlation_bwd": launched[1]}}
+
+
+def write_png(path: str, img) -> None:
+    from opticalflow_tpu_torch.io.images import encode_png
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def moving_pair(rng, h: int, w: int):
+    """A uint8 frame pair: a smooth random texture, then the same moved by
+    (3, 5) px plus noise."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    coarse = torch.from_numpy(rng.rand(1, 3, h // 8 + 1,
+                                       w // 8 + 1).astype(np.float32))
+    im1 = (F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0).numpy()
+           * 255).astype(np.uint8)
+    im2 = np.roll(im1, (3, 5), axis=(0, 1)).astype(np.int16)
+    im2 = np.clip(im2 + rng.randint(-6, 7, im2.shape), 0, 255)
+    return im1, im2.astype(np.uint8)
+
+
+def run_cli(main, argv):
+    """Run a CLI's main(argv); returns (rc, mean EPE it printed, wall s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    mean = [float(line.split(":")[1]) for line in text.splitlines()
+            if line.startswith("Mean EPE:")]
+    return rc, (mean[-1] if mean else float("nan")), wall
+
+
+# evaluation's timed window: the synthetic 3-pair trees read this many times
+# over, so the producer's start and the pipeline's fill are a small share
+EVAL_REPS = 16
+
+
+class Repeated:
+    """``dataset`` read ``reps`` times over (its samples decoded anew on
+    every read)."""
+
+    def __init__(self, dataset, reps: int):
+        self.dataset, self.reps = dataset, reps
+
+    def __len__(self):
+        return len(self.dataset) * self.reps
+
+    def __getitem__(self, i: int):
+        return self.dataset[i % len(self.dataset)]
+
+
+def eval_rate(engine, dataset, **kw):
+    """``evaluate_pairs`` at batch 2, warm, timed over ``EVAL_REPS`` reads
+    of ``dataset``; beside it the host's decode of one sample alone and the
+    engine's time a pair alone (B=2 calls on decoded frames), which say
+    whether decode overlaps the card.  Returns (result, rates)."""
+    import torch
+    from opticalflow_tpu_torch.evaluate import evaluate_pairs
+    evaluate_pairs(engine, dataset, batch=2, verbose=False, **kw)  # warm-up
+    window = Repeated(dataset, EVAL_REPS)
+    t0 = time.perf_counter()
+    res = evaluate_pairs(engine, window, batch=2, verbose=False, **kw)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = [dataset[i] for i in range(len(dataset))]
+    decode_ms = (time.perf_counter() - t0) / len(samples) * 1e3
+    ims = ([samples[0]["im1"], samples[1]["im1"]],
+           [samples[0]["im2"], samples[1]["im2"]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EVAL_REPS):
+        engine.flow_from_pairs(*ims, **kw)
+    engine_ms = (time.perf_counter() - t0) / (2 * EVAL_REPS) * 1e3
+    return res, {"pairs": len(window), "pairs_per_s": len(window) / wall,
+                 "decode_ms": decode_ms, "engine_ms": engine_ms}
+
+
+def phase_eval(sd, tmp, corr_fwd):
+    """Evaluation through both CLIs on synthetic KITTI and Sintel trees.
+    Returns a dict of its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import eval_sintel, infer_kitti
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.data.datasets import KittiPairsEval, SintelPairs
+    from opticalflow_tpu_torch.io.flo import read_flo, write_flo
+    from opticalflow_tpu_torch.io.kitti import write_flow_png
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    rng = np.random.RandomState(9)
+    out = {}
+
+    # KITTI 2015: 3 pairs, GT from the CLI's own settings at batch 1
+    kroot = os.path.join(tmp, "kitti")
+    for d in ("image_2", "flow_occ"):
+        os.makedirs(os.path.join(kroot, "training", d))
+    gt_engine = FlowEngine(PWCDCNet(), sd, flow_scale=1.0, device="cuda")
+    for i in range(3):
+        im1, im2 = moving_pair(rng, KITTI_H, KITTI_W)
+        for k, im in ((10, im1), (11, im2)):
+            write_png(os.path.join(kroot, "training", "image_2",
+                                   f"{i:06d}_{k}.png"), im)
+        flow = gt_engine.flow_from_pair(im1, im2, preset="rgb_imagenet",
+                                        size_mode="pad")
+        write_flow_png(os.path.join(kroot, "training", "flow_occ",
+                                    f"{i:06d}_10.png"), flow,
+                       rng.rand(KITTI_H, KITTI_W) > 0.3)
+    before = corr_fwd.launches
+    rc, printed, wall = run_cli(infer_kitti.main, [
+        "--root", kroot, "--ckpt", ckpt, "--size-mode", "pad", "--batch",
+        "2", "--device", "cuda"])
+    launched = corr_fwd.launches - before
+    assert rc == 0 and launched == 10, (rc, launched)
+    log(f"[9] cli/infer_kitti, 3 pairs 375x1242 at batch 2: mean EPE "
+        f"printed {printed} (bound 0.02, the PNG's 1/64 px); {wall:.2f} s "
+        f"wall, model load and first call included; K1 launches {launched}")
+    assert printed <= 0.02, printed
+    engine = FlowEngine(PWCDCNet(), sd, flow_scale=1.0, device="cuda")
+    res, rate = eval_rate(engine, KittiPairsEval(kroot), preset="rgb_imagenet",
+                          size_mode="pad")
+    log(f"[9] evaluate_pairs on KittiPairsEval, warm, {rate['pairs']} pairs "
+        f"(the 3 read {EVAL_REPS}x over) at batch 2: EPE {res['epe']!r}, "
+        f"Fl-all {res['fl_all']!r}%, {rate['pairs_per_s']!r} pairs/s (PNG "
+        f"decode, pad, forward, upsample, metrics); alone: host decode "
+        f"{rate['decode_ms']!r} ms a sample (two frames and the 16-bit GT), "
+        f"engine {rate['engine_ms']!r} ms a pair (B=2 flow_from_pairs on "
+        f"decoded frames)")
+    assert res["epe"] <= 0.02, res
+    out["kitti"] = {"epe_printed": printed, "epe": res["epe"],
+                    "fl_all": res["fl_all"], **rate}
+
+    # Sintel: two sequences (3 and 2 frames: 3 pairs), .flo GT at batch 1
+    sroot = os.path.join(tmp, "sintel")
+    gt20 = FlowEngine(PWCDCNet(), sd, flow_scale=20.0, device="cuda")
+    for seq, n in (("alley_1", 3), ("market_2", 2)):
+        os.makedirs(os.path.join(sroot, "training", "clean", seq))
+        os.makedirs(os.path.join(sroot, "training", "flow", seq))
+        frames = [moving_pair(rng, FULL_H, FULL_W)[0]]
+        for _ in range(n - 1):
+            nxt = np.roll(frames[-1], (3, 5), axis=(0, 1))
+            frames.append(nxt)
+        for k, im in enumerate(frames, start=1):
+            write_png(os.path.join(sroot, "training", "clean", seq,
+                                   f"frame_{k:04d}.png"), im)
+        for k in range(1, n):
+            write_flo(os.path.join(sroot, "training", "flow", seq,
+                                   f"frame_{k:04d}.flo"),
+                      gt20.flow_from_pair(frames[k - 1], frames[k],
+                                          preset="bgr_unit",
+                                          size_mode="pad"))
+    save = os.path.join(tmp, "sintel_out")
+    before = corr_fwd.launches
+    rc, printed, wall = run_cli(eval_sintel.main, [
+        "--root", sroot, "--ckpt", ckpt, "--batch", "2", "--save-dir", save,
+        "--device", "cuda"])
+    launched = corr_fwd.launches - before
+    assert rc == 0 and launched == 10, (rc, launched)
+    # the saved .flo files against the GT, unrounded
+    epes = []
+    for seq, n in (("alley_1", 3), ("market_2", 2)):
+        for k in range(1, n):
+            pred = read_flo(os.path.join(save, f"{seq}_frame_{k:04d}.flo"))
+            ref = read_flo(os.path.join(sroot, "training", "flow", seq,
+                                        f"frame_{k:04d}.flo"))
+            epes.append(epe(pred, ref))
+    log(f"[9] cli/eval_sintel, 3 pairs 436x1024 at batch 2: mean EPE "
+        f"printed {printed}, from its saved .flo files "
+        f"{float(np.mean(epes))!r} "
+        f"(bound 1e-3: GT from batch-1 calls); {wall:.2f} s wall; K1 "
+        f"launches {launched}")
+    assert max(epes) < 1e-3, epes
+    res, rate = eval_rate(gt20, SintelPairs(sroot), preset="bgr_unit",
+                          size_mode="pad")
+    log(f"[9] evaluate_pairs on SintelPairs, warm, {rate['pairs']} pairs at "
+        f"batch 2: EPE {res['epe']!r}, {rate['pairs_per_s']!r} pairs/s; "
+        f"alone: host decode {rate['decode_ms']!r} ms a sample (two frames "
+        f"and the .flo), engine {rate['engine_ms']!r} ms a pair")
+    assert res["epe"] < 1e-3, res
+    out["sintel"] = {"epe_printed": printed, "epe_saved": float(np.mean(epes)),
+                     "epe": res["epe"], **rate}
+    assert "cv2" not in sys.modules, "the port imported OpenCV"
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -509,12 +929,14 @@ def main() -> int:
               "(opticalflow_tpu_torch/ not found beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+    from opticalflow_tpu_torch.ops.corr_cuda import (correlation_bwd_cuda,
+                                                     correlation_cuda)
     from opticalflow_tpu_torch.ops.fused_warpcorr import fused_warp_corr_cuda
     from opticalflow_tpu_torch.ops.gather import row_gather_cuda
     from opticalflow_tpu_torch.scripts import (probe_fused_warpcorr,
                                                probe_gather)
-    counters = (correlation_cuda, fused_warp_corr_cuda, row_gather_cuda)
+    counters = (correlation_cuda, correlation_bwd_cuda, fused_warp_corr_cuda,
+                row_gather_cuda)
 
     def zero_counts():
         for k in counters:
@@ -558,12 +980,23 @@ def main() -> int:
     assert k1_launches > 0
     phase_forward_time(engine)
 
+    b1_err, b1_err_bf16, b1_rows = phase_corr_bwd()
+    train = phase_train(sd, correlation_cuda, correlation_bwd_cuda)
+    b1_launches = train["launches"]["correlation_bwd"]
+    zero_counts()                           # the eval path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        evals = phase_eval(sd, tmp, correlation_cuda)
+    eval_launches = correlation_cuda.launches  # ... and ends here
+    assert eval_launches > 0
+
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
     k2 = summed(k2_rows)
     k3_f32_b1 = [r for r in k3_rows
                  if r["batch"] == 1 and r["dtype"] == "float32"]
     k3 = summed(k3_f32_b1, "fused_ms")
+    b1 = summed([r for r in b1_rows if r["frame"] == "320x896"
+                 and r["dtype"] == "float32"])
     kernels = [
         {"name": "correlation_fwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_fwd.cu",
@@ -573,7 +1006,19 @@ def main() -> int:
          "library_ms": None, "per_level": k1_rows,
          "per_level_bf16": k1_rows_bf16,
          # K2's domain: one forward's worth at 1088x1920, B=1, float32
-         "at_1088x1920": {**k2, "per_level": k2_rows}},
+         "at_1088x1920": {**k2, "per_level": k2_rows},
+         # its launches on the training path (5 per step) and the eval path
+         "launches_train": train["launches"]["correlation_fwd"],
+         "launches_eval": eval_launches, "eval": evals},
+        {"name": "correlation_bwd", "route": "cuda",
+         "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
+         # no TPU kernel: the JAX custom_vjp's backward is lax
+         "replaces": "opticalflow_tpu/ops/pallas_corr.py:253",
+         "launches": b1_launches, "max_abs_err": b1_err,
+         "max_abs_err_bf16": b1_err_bf16,
+         # one training step's worth: the 5 levels of 320x896, B=4, float32
+         **b1, "library_ms": None, "per_level": b1_rows,
+         "train_step": train},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

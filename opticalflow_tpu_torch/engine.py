@@ -13,7 +13,7 @@ no explicit device it raises instead of quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -129,7 +129,9 @@ class FlowEngine:
 
     def flow_from_pair(self, im1: np.ndarray, im2: np.ndarray, *,
                        preset: str = "bgr_unit",
-                       size_mode: str = "resize") -> np.ndarray:
+                       size_mode: str = "resize",
+                       image_size: Optional[Tuple[int, int]] = None
+                       ) -> np.ndarray:
         """uint8 RGB frame pair → (H, W, 2) flow at the original resolution.
 
         ``size_mode="resize"`` follows the canonical CLI
@@ -146,12 +148,19 @@ class FlowEngine:
         by the FULL-res pad counts, then resized to (H, W) with an
         anisotropic vector rescale, for parity with metrics the reference
         computed.
+
+        ``image_size`` is the fixed input size of ``size_mode=
+        "resize_fixed"`` (the v1 script), which is not ported and raises;
+        the other modes take ``None``, as the JAX engine's signature does.
         """
         return self.flow_from_pairs([im1], [im2], preset=preset,
-                                    size_mode=size_mode)[0]
+                                    size_mode=size_mode,
+                                    image_size=image_size)[0]
 
     def flow_from_pairs(self, im1s, im2s, *, preset: str = "bgr_unit",
-                        size_mode: str = "resize") -> np.ndarray:
+                        size_mode: str = "resize",
+                        image_size: Optional[Tuple[int, int]] = None
+                        ) -> np.ndarray:
         """Batched :meth:`flow_from_pair`: N pairs of one common frame shape
         → (N, H, W, 2), one batched forward."""
         if len(im1s) != len(im2s) or not len(im1s):

@@ -11,9 +11,11 @@ reference:
   * :func:`pad_to_multiple_of_64` / :func:`unpad` — replicate pad bottom/right
     (``inference_kitti.py:53-71``).
 
-:func:`load_image` decodes 8-bit non-interlaced grey/RGB/RGBA PNG itself
-(stdlib ``zlib`` + numpy), so the single-pair path needs neither imageio,
-PIL nor OpenCV; other formats go through imageio or PIL, imported lazily.
+:func:`decode_png` decodes 8- and 16-bit non-interlaced grey/RGB/RGBA PNG
+itself (stdlib ``zlib`` + numpy), so the single-pair path and the KITTI
+flow files (16-bit RGB, ``io/kitti.py``) need neither imageio, PIL nor
+OpenCV; :func:`load_image` hands other formats to imageio or PIL, imported
+lazily.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["load_image", "decode_png", "resize_to_multiple_of_64",
+__all__ = ["load_image", "decode_png", "encode_png",
+           "resize_to_multiple_of_64",
            "pad_to_multiple_of_64", "unpad", "PREPROC_PRESETS",
            "IMAGENET_MEAN", "IMAGENET_STD"]
 
@@ -81,9 +84,10 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes):
-    """Decode an 8-bit, non-interlaced grey/RGB/RGBA PNG → uint8 array of
-    shape (H, W) or (H, W, C).  Returns None for any other PNG flavour (or
-    non-PNG bytes), so the caller can hand the file to a full decoder."""
+    """Decode an 8- or 16-bit, non-interlaced grey/RGB/RGBA PNG → uint8 or
+    uint16 array of shape (H, W) or (H, W, C).  Returns None for any other
+    PNG flavour (or non-PNG bytes), so the caller can hand the file to a
+    full decoder."""
     if not data.startswith(_PNG_SIG):
         return None
     pos = len(_PNG_SIG)
@@ -104,18 +108,54 @@ def decode_png(data: bytes):
     if header is None:
         raise ValueError("PNG without IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or interlace != 0 or color not in _PNG_CHANNELS:
+    if depth not in (8, 16) or interlace != 0 or color not in _PNG_CHANNELS:
         return None
     ch = _PNG_CHANNELS[color]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
+    nb = depth // 8                 # bytes per sample
+    # the filters work on bytes, a pixel's worth apart: 2·C for 16 bits
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch * nb, ch * nb)
+    if nb == 2:                     # big-endian samples
+        px = px.view(">u2").astype(np.uint16)
     return px.reshape(h, w) if ch == 1 else px.reshape(h, w, ch)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """Encode a uint8 or uint16 (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA
+    array as a non-interlaced PNG (filter 0 on every row, one zlib stream):
+    what :func:`decode_png` reads back bit for bit."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"encode_png takes uint8 or uint16, got {img.dtype}")
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    colour = {1: 0, 3: 2, 4: 6}.get(ch)
+    if colour is None or img.ndim not in (2, 3):
+        raise ValueError(f"encode_png takes (H, W), (H, W, 3) or (H, W, 4), "
+                         f"got {img.shape}")
+    h, w = img.shape[:2]
+    depth = 8 * img.dtype.itemsize
+    samples = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">")))
+    rows = np.zeros((h, 1 + w * ch * img.dtype.itemsize), np.uint8)
+    rows[:, 1:] = samples.view(np.uint8).reshape(h, -1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def load_image(path: str) -> np.ndarray:
     """Read an image file → (H, W, 3) uint8 RGB (alpha dropped, grey
-    replicated, like ``script_pwc.py:43-44``)."""
+    replicated, like ``script_pwc.py:43-44``; a 16-bit PNG keeps the high
+    byte of each sample)."""
     with open(path, "rb") as f:
         img = decode_png(f.read())
+    if img is not None and img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
     if img is None:
         try:
             import imageio.v2 as imageio

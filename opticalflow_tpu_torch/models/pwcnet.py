@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from opticalflow_tpu_torch.ops.convops import leaky_relu
 from opticalflow_tpu_torch.ops.correlation import correlation
@@ -116,7 +117,10 @@ class PWCDCNet(nn.Module):
     Input ``x``: (B, 6, H, W), im1 ‖ im2 stacked on channels; H and W must
     be multiples of 64.  Output: ``flow2`` (B, 2, H/4, W/4) float32, or the
     tuple ``(flow2, flow3, flow4, flow5, flow6)`` when ``train=True``
-    (``models/PWCNet.py:270-273``).
+    (``models/PWCNet.py:270-273``).  ``checkpoint_l2=True`` recomputes the
+    level-2 estimator and the context network in the backward instead of
+    keeping their activations (the largest of the forward): the trainer's
+    ``remat="l2"``.
     """
 
     def __init__(self, md: int = 4, variant: str = "new",
@@ -197,16 +201,34 @@ class PWCDCNet(nn.Module):
             x = torch.cat((y, x) if cf else (x, y), dim=1)
         return x
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def numerics(self):
+        """The TF32 switches of this model's precision, as a context
+        manager: the trainer holds it around the backward too, so that
+        ``precision="highest"`` gradients are full float32."""
+        return _tf32(self.precision == "fast")
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                checkpoint_l2: bool = False):
         if x.dim() != 4 or x.shape[1] != 6:
             raise ValueError(f"expected (B, 6, H, W), got {tuple(x.shape)}")
         if x.shape[2] % 64 or x.shape[3] % 64:
             raise ValueError(f"H and W must be multiples of 64, got "
                              f"{tuple(x.shape[2:])}")
-        with _tf32(self.precision == "fast"):
-            return self._forward(x, train)
+        with self.numerics():
+            return self._forward(x, train, checkpoint_l2)
 
-    def _forward(self, x, train):
+    def _head2(self, xin):
+        """Level 2's dense estimator, its flow and the context network's
+        residual: the refined flow2.  Sets its own numerics, since a
+        checkpoint recomputes it in the backward."""
+        with self.numerics():
+            xfeat = self._dense_block(xin, 2)
+            dc = xfeat
+            for i in range(1, len(_CONTEXT_SPECS) + 1):
+                dc = getattr(self, f"dc_conv{i}")(dc)
+            return self.predict_flow2(xfeat) + self.dc_conv7(dc)
+
+    def _forward(self, x, train, checkpoint_l2):
         dt = self.dtype
         mask_thr = 0.9999 if self.variant == "new" else 0.999
         bsz = x.shape[0]
@@ -229,16 +251,14 @@ class PWCDCNet(nn.Module):
                 corr = self._corr(c1[lvl], warped)
                 xin = torch.cat([corr, c1[lvl], up_flow.to(dt),
                                  up_feat.to(dt)], dim=1)
+            if lvl == 2:
+                flows[2] = (checkpoint(self._head2, xin, use_reentrant=False)
+                            if checkpoint_l2 else self._head2(xin))
+                break
             xfeat = self._dense_block(xin, lvl)
             flows[lvl] = getattr(self, f"predict_flow{lvl}")(xfeat)
-            if lvl > 2:
-                up_flow = getattr(self, f"deconv{lvl}")(flows[lvl].to(dt))
-                up_feat = getattr(self, f"upfeat{lvl}")(xfeat)
-
-        dc = xfeat
-        for i in range(1, len(_CONTEXT_SPECS) + 1):
-            dc = getattr(self, f"dc_conv{i}")(dc)
-        flows[2] = flows[2] + self.dc_conv7(dc)
+            up_flow = getattr(self, f"deconv{lvl}")(flows[lvl].to(dt))
+            up_feat = getattr(self, f"upfeat{lvl}")(xfeat)
         if train:
             return tuple(flows[lvl] for lvl in (2, 3, 4, 5, 6))
         return flows[2]

@@ -24,7 +24,8 @@ __all__ = ["KERNEL_SOURCES", "build", "load_library", "nvcc_path",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("correlation_fwd", "fused_warp_corr", "row_gather")
+KERNEL_SOURCES = ("correlation_fwd", "correlation_bwd", "fused_warp_corr",
+                  "row_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

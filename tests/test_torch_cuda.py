@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
-(correlation, fused warp⊕correlation, row gather) against their plain
-PyTorch versions, and the model on the GPU against the same model on the
-CPU.  They skip where ``torch.cuda.is_available()`` is False.  This file
+(correlation forward and backward, fused warp⊕correlation, row gather)
+against their plain PyTorch versions, the model on the GPU against the same
+model on the CPU, and a train step through the kernels against one through
+the plain correlation.  They skip where ``torch.cuda.is_available()`` is False.  This file
 imports neither JAX nor the JAX package, so the GPU machine (which has no
 JAX) runs it without the JAX test configuration:
 
@@ -457,3 +458,186 @@ def test_model_on_gpu_matches_cpu(cuda_device, variant):
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.cpu().numpy(), r.numpy(), atol=2e-4,
                                    rtol=1e-3)
+
+
+# ---- the correlation backward (B1) ----------------------------------------
+
+# every level of a 320x896 training crop at B=4, of a 448x1024 frame at
+# B=1, and images one pixel wide or high
+BWD_SHAPES = [(4, 32, 80, 224), (4, 64, 40, 112), (4, 96, 20, 56),
+              (4, 128, 10, 28), (4, 196, 5, 14),
+              (1, 32, 112, 256), (1, 64, 56, 128), (1, 96, 28, 64),
+              (1, 128, 14, 32), (1, 196, 7, 16),
+              (2, 6, 11, 1), (2, 6, 1, 21), (1, 3, 1, 1)]
+
+
+def _bwd_inputs(device, shape, dtype, seed=0):
+    b, _, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn(shape, generator=g, device=device).to(dtype)
+    f2 = torch.randn(shape, generator=g, device=device).to(dtype)
+    gv = torch.randn((b, 81, h, w), generator=g, device=device).to(dtype)
+    return f1, f2, gv
+
+
+def _assert_bwd_close(got, f1, f2, gv):
+    """Against the plain version on the same inputs: float32 within 1e-5 of
+    the largest gradient (sums of 81 products in another order, fma against
+    a rounded product), bfloat16 within 1e-2 of it (one bf16 rounding of
+    the float32 sum, 2^-8 relative, in either version)."""
+    ref = corr_cuda_plain_bwd(f1, f2, gv)
+    for d, r in zip(got, ref):
+        assert d.dtype == f1.dtype and d.shape == f1.shape
+        scale = float(r.float().abs().max())
+        tol = (1e-5 if f1.dtype == torch.float32 else 1e-2) * scale
+        assert float((d.float() - r.float()).abs().max()) <= tol
+
+
+def corr_cuda_plain_bwd(f1, f2, gv):
+    from opticalflow_tpu_torch.ops.correlation import correlation_bwd_plain
+    return correlation_bwd_plain(f1, f2, gv, max_displacement=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_kernel_matches_plain_on_the_card(cuda_device, shape, dtype):
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype)
+    before = corr_cuda.correlation_bwd_cuda.launches
+    got = corr_cuda.correlation_bwd_cuda(f1, f2, gv)
+    assert corr_cuda.correlation_bwd_cuda.launches == before + 1
+    _assert_bwd_close(got, f1, f2, gv)
+
+
+# C=17 in 3 splits: a ragged last split and stage; 64 splits of C=17 leave
+# most blocks without a channel
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 9, 45), (1, 196, 7, 16),
+                                   (1, 5, 3, 70)])
+@pytest.mark.parametrize("split", [1, 3, 64])
+def test_bwd_kernel_matches_plain_at_forced_splits(cuda_device, shape, dtype,
+                                                   split):
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype, seed=1)
+    _assert_bwd_close(corr_cuda.correlation_bwd_cuda(f1, f2, gv,
+                                                     split=split),
+                      f1, f2, gv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 32, 80, 224), (4, 196, 5, 14)])
+def test_bwd_kernel_gives_the_same_bits_twice(cuda_device, shape, dtype):
+    """The gather form: every output element is one thread's sum in a fixed
+    order, no atomics."""
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype, seed=2)
+    first = corr_cuda.correlation_bwd_cuda(f1, f2, gv)
+    for _ in range(3):
+        again = corr_cuda.correlation_bwd_cuda(f1, f2, gv)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bwd_kernel_launches_on_the_current_stream(cuda_device):
+    f1, f2, gv = _bwd_inputs(cuda_device, (2, 64, 40, 112), torch.float32, 3)
+    eager = corr_cuda.correlation_bwd_cuda(f1, f2, gv)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ga = torch.zeros_like(gv)
+        torch.cuda._sleep(20_000_000)     # ~10 ms before the copy lands
+        ga.copy_(gv)
+        out = corr_cuda.correlation_bwd_cuda(f1, f2, ga)
+    side.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_bwd_launch_plan_covers_the_image_and_the_channels(cuda_device):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, c, h, w in BWD_SHAPES:
+        p = corr_cuda.bwd_launch_plan(b, c, h, w, torch.float32)
+        th, tw = p["tile"]
+        assert p["tiles"] == -(-h // th) * -(-w // tw), p
+        assert p["split"] * p["channels_per_split"] >= c, p
+        assert p["grid"] == [p["tiles"], p["split"], 2 * b], p
+        blocks = 2 * b * p["tiles"] * p["split"]
+        assert blocks >= 2 * sms or c // (2 * p["split"]) < 8, p
+
+
+def test_bwd_kernel_refuses_autograd_and_a_bad_gradient(cuda_device):
+    f = torch.randn(1, 4, 8, 8, device=cuda_device)
+    gv = torch.randn(1, 81, 8, 8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        corr_cuda.correlation_bwd_cuda(f.requires_grad_(), f, gv)
+    with pytest.raises(ValueError):
+        corr_cuda.correlation_bwd_cuda(f.detach(), f.detach(), gv[:, :80])
+    with pytest.raises(TypeError):
+        corr_cuda.correlation_bwd_cuda(f.detach(), f.detach(),
+                                       gv.bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 40, 112), (4, 196, 5, 14),
+                                   (1, 7, 1, 13)])
+def test_correlation_fn_grads_match_plain_autograd_on_the_card(
+        cuda_device, shape, dtype):
+    """``correlation()`` under grad runs K1 forward and B1 backward; the
+    gradients equal autograd's through the plain version, on the card."""
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype, seed=4)
+    a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    fwd0 = corr_cuda.correlation_cuda.launches
+    bwd0 = corr_cuda.correlation_bwd_cuda.launches
+    out = correlation(a1, a2, pad_size=4, max_displacement=4)
+    got = torch.autograd.grad(out, (a1, a2), gv)
+    assert corr_cuda.correlation_cuda.launches == fwd0 + 1
+    assert corr_cuda.correlation_bwd_cuda.launches == bwd0 + 1
+    p1, p2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    ref_out = correlation_plain(p1, p2, pad_size=4, max_displacement=4)
+    ref = torch.autograd.grad(ref_out.to(dtype), (p1, p2), gv)
+    _assert_corr_close(out.detach(), f1, f2)
+    for d, r in zip(got, ref):
+        assert d.dtype == dtype
+        scale = float(r.float().abs().max())
+        tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+        assert float((d.float() - r.float()).abs().max()) <= tol
+
+
+def test_train_step_through_the_kernels_matches_plain(cuda_device):
+    """One parity-mode multiscale step's gradients through K1 and B1 against
+    the same step through the plain correlation (autograd of
+    ``correlation_plain``), 5 launches of each kernel, none without."""
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.train import trainer as T
+    rng = np.random.RandomState(0)
+    batch = {"images": rng.rand(2, 128, 192, 6).astype(np.float32),
+             "flow": (rng.randn(2, 128, 192, 2) * 2).astype(np.float32),
+             "valid": (rng.rand(2, 128, 192) > 0.2).astype(np.float32)}
+    cpu = PWCDCNet(generator=torch.Generator().manual_seed(0))
+    for p in cpu.parameters():
+        p.data *= 0.5
+
+    def grads(use_cuda_corr):
+        model = PWCDCNet(use_cuda_corr=use_cuda_corr)
+        model.load_state_dict(cpu.state_dict())
+        model = model.to(cuda_device)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        state = T.TrainState(step=0, model=model, optimizer=opt)
+        cfg = T.TrainConfig(loss="multiscale", grad_clip=0.0)
+        f0 = corr_cuda.correlation_cuda.launches
+        b0 = corr_cuda.correlation_bwd_cuda.launches
+        _, m = T.make_train_step(model, opt, cfg)(state, batch)
+        launched = (corr_cuda.correlation_cuda.launches - f0,
+                    corr_cuda.correlation_bwd_cuda.launches - b0)
+        return ({n: p.grad for n, p in model.named_parameters()},
+                float(m["loss"]), launched)
+
+    gk, loss_k, launched_k = grads(True)
+    gp, loss_p, launched_p = grads(False)
+    assert launched_k == (5, 5) and launched_p == (0, 0)
+    assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    top = max(float(g.abs().max()) for g in gp.values())
+    for n in gp:
+        # float32 throughout (TF32 off in the backward too); the kernels sum
+        # in another order than the plain version, and cuDNN's backward
+        # may too: within 1e-3 of each parameter's largest gradient, or of
+        # a millionth of the model's largest where a parameter's gradient
+        # vanishes (upfeat6.weight's is 1.6e-17 here: rounding noise only)
+        scale = max(float(gp[n].abs().max()), 1e-6 * top)
+        diff = float((gk[n] - gp[n]).abs().max())
+        assert diff <= 1e-3 * scale, (n, diff, scale)

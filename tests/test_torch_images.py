@@ -91,10 +91,13 @@ def test_all_five_row_filters(channels, colour):
 
 
 def test_other_png_flavours_are_handed_on():
-    """16-bit or interlaced PNGs go to a full decoder (None here)."""
-    ihdr = struct.pack(">IIBBBBB", 2, 2, 16, 2, 0, 0, 0)
-    png = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr) + _chunk(b"IEND", b"")
-    assert images.decode_png(png) is None
+    """Interlaced, palette or 4-bit PNGs go to a full decoder (None here);
+    16-bit ones are decoded (``tests/test_torch_kitti.py``)."""
+    for depth, colour, interlace in ((16, 2, 1), (8, 3, 0), (4, 0, 0)):
+        ihdr = struct.pack(">IIBBBBB", 2, 2, depth, colour, 0, 0, interlace)
+        png = (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
+               + _chunk(b"IEND", b""))
+        assert images.decode_png(png) is None
     assert images.decode_png(b"GIF89a") is None
 
 
