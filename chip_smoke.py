@@ -46,7 +46,7 @@ non-zero, and no result line is printed):
      every level of a 320x896 training crop at B=4 and of a 448x1024 frame
      at B=1, float32 and bfloat16, two runs bit-equal; per level its time
      on the card alone and by events beside its bound and the plain
-     version;
+     version, and its plan (tile, split, blocks an SM, registers);
   8. the training step at full width (``train.trainer``, the multiscale
      loss, AdamW lr 1e-4, wd 1e-4, clip 1.0, a seeded batch of 4 x 320x896):
      in float32 parity mode one step's gradients through K1 and B1 against
@@ -584,8 +584,11 @@ def phase_corr_bwd():
                 f"bound {tol:.1e}); two runs bit-equal: {same_bits}; card "
                 f"alone {d_ms * 1e3:.2f} us  events {k_ms * 1e3:.2f} us  "
                 f"plain {p_ms * 1e3:.2f} us  bound {bound_ms * 1e3:.3f} us "
-                f"({bound_by})  grid {plan['grid']} split {plan['split']} "
-                f"({plan['channels_per_split']} ch)")
+                f"({bound_by})  tile {plan['tile'][0]}x{plan['tile'][1]} "
+                f"grid {plan['grid']} split {plan['split']} "
+                f"({plan['channels_per_split']} ch) {plan['threads']} "
+                f"threads, {plan['blocks_per_sm']} blocks/SM, "
+                f"{plan['registers']} registers")
             assert err <= tol, f"B1 disagrees with plain at {frame} {name} " \
                                f"{dt}: {err:.3e} > {tol:.3e}"
             assert same_bits, f"two B1 runs differ at {frame} {name} {dt}"
@@ -1017,8 +1020,14 @@ def main() -> int:
          "launches": b1_launches, "max_abs_err": b1_err,
          "max_abs_err_bf16": b1_err_bf16,
          # one training step's worth: the 5 levels of 320x896, B=4, float32
-         **b1, "library_ms": None, "per_level": b1_rows,
-         "train_step": train},
+         **b1, "library_ms": None,
+         # per level of that step: the plan the kernel chose
+         "plan": [{k: r[k] for k in ("level", "tile", "split",
+                                     "channels_per_split", "threads",
+                                     "blocks_per_sm", "registers")}
+                  for r in b1_rows if r["frame"] == "320x896"
+                  and r["dtype"] == "float32"],
+         "per_level": b1_rows, "train_step": train},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

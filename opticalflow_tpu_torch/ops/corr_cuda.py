@@ -30,15 +30,25 @@ from opticalflow_tpu_torch.ops._launch import (Kernel, needs_grad,
                                                raw_stream)
 
 __all__ = ["correlation_cuda", "correlation_bwd_cuda", "launch_plan",
-           "bwd_launch_plan", "SUPPORTED_MD"]
+           "bwd_launch_plan", "SUPPORTED_MD", "BWD_TILES", "BWD_MAX_SPLIT"]
 
 SUPPORTED_MD = (4,)   # the model's max displacement; one instantiation
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _kernel = Kernel("correlation_fwd", "corr_fwd",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8)
 _bwd_kernel = Kernel("correlation_bwd", "corr_bwd",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7)
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
 _plan_fns = {}
+BWD_TILES = (0, 16, 32)           # the backward's tile widths (0: its choice)
+BWD_MAX_SPLIT = 64                # its most channel splits
+
+
+def _check_bwd_plan(tile, split) -> None:
+    """Range checks of a forced backward plan, before any build."""
+    if tile not in BWD_TILES or split not in range(BWD_MAX_SPLIT + 1):
+        raise ValueError(f"correlation_bwd_cuda takes tile in {BWD_TILES} "
+                         f"and split in 0..{BWD_MAX_SPLIT} (0: the kernel "
+                         f"chooses), got tile={tile!r} split={split!r}")
 
 
 def _refuse(name, f1, f2, max_displacement, g=None) -> None:
@@ -117,18 +127,20 @@ correlation_cuda.launches = 0
 
 def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          g: torch.Tensor, *, max_displacement: int = 4,
-                         split: int = 0):
+                         tile: int = 0, split: int = 0):
     """Gradients of the hot configuration's correlation volume on the GPU:
     given the forward's inputs f1, f2 and the volume's gradient g, returns
     (d1, d2) = (∂L/∂f1, ∂L/∂f2), the function ``_corr_bwd_lax`` computes.
 
     f1, f2: contiguous (B, C, H, W) CUDA tensors of one dtype, float32 or
     bfloat16; g: contiguous (B, 81, H, W) in that dtype.  The gradients are
-    in that dtype too (float32 accumulation).  ``split`` (1..64 channel
-    splits) overrides the kernel's own choice, and exists only so the card
-    tests can force a plan (every split count, ragged and empty splits) at
-    small shapes; ``CorrelationFn`` and the model pass 0, the kernel's
-    choice, which never leaves a split empty."""
+    in that dtype too (float32 accumulation).  ``tile`` (16 or 32 columns)
+    and ``split`` (1..64 channel splits) override the kernel's own choice,
+    and exist only so the card tests and the sweep can force a plan (both
+    tiles, every split count, ragged and empty splits) at small shapes;
+    ``CorrelationFn`` and the model pass 0, the kernel's choice, which never
+    leaves a split empty."""
+    _check_bwd_plan(tile, split)
     dtype = f1.dtype
     code = _DTYPE_CODES.get(dtype)
     shape = f1.shape
@@ -149,11 +161,11 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
     index = device.index
     fn = _bwd_kernel.fn or _bwd_kernel.load()
     err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), d1.data_ptr(),
-             d2.data_ptr(), b, c, h, w, max_displacement, code, split, index,
-             raw_stream(index))
+             d2.data_ptr(), b, c, h, w, max_displacement, code, tile, split,
+             index, raw_stream(index))
     if err:
         _bwd_kernel.refused(err, index, f"shape {tuple(shape)} {dtype} "
-                                        f"split={split}")
+                                        f"tile={tile} split={split}")
     correlation_bwd_cuda.launches += 1
     return d1, d2
 
@@ -192,20 +204,24 @@ def launch_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, *,
 
 
 def bwd_launch_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, *,
-                    split: int = 0, device_index: int = 0) -> dict:
+                    tile: int = 0, split: int = 0,
+                    device_index: int = 0) -> dict:
     """The backward kernel's choice for a (b, c, h, w) call on that device,
     without launching: tile, image tiles per batch item, channel splits,
-    channels per split, threads per block, static shared memory per block,
-    and the grid (its last axis is 2B: one block of each role per tile,
-    split and batch item).  ``split`` forces a split count, as in
-    ``correlation_bwd_cuda``."""
-    plan = (ctypes.c_int * 7)()
-    err = _plan_fn(_bwd_kernel, "corr_bwd_plan", 8)(
-        b, c, h, w, 4, _DTYPE_CODES[dtype], split, device_index, plan)
+    channels per split, threads per block, dynamic shared memory per block,
+    the blocks of that kernel an SM holds (the occupancy API's answer, which
+    the split rule fills), its registers a thread, and the grid (its last
+    axis is 2B: one block of each role per tile, split and batch item).
+    ``tile`` and ``split`` force a plan, as in ``correlation_bwd_cuda``."""
+    _check_bwd_plan(tile, split)
+    plan = (ctypes.c_int * 9)()
+    err = _plan_fn(_bwd_kernel, "corr_bwd_plan", 9)(
+        b, c, h, w, 4, _DTYPE_CODES[dtype], tile, split, device_index, plan)
     if err:
         raise ValueError(f"corr_bwd_plan refused ({b}, {c}, {h}, {w}) "
-                         f"{dtype} split={split}: cudaError {err}")
-    th, tw, tiles, nsplit, cper, threads, smem = plan
+                         f"{dtype} tile={tile} split={split}: cudaError {err}")
+    th, tw, tiles, nsplit, cper, threads, smem, per_sm, regs = plan
     return {"tile": [th, tw], "tiles": tiles, "split": nsplit,
             "channels_per_split": cper, "threads": threads,
-            "smem_bytes": smem, "grid": [tiles, nsplit, 2 * b]}
+            "smem_bytes": smem, "blocks_per_sm": per_sm, "registers": regs,
+            "grid": [tiles, nsplit, 2 * b]}

@@ -509,17 +509,54 @@ def test_bwd_kernel_matches_plain_on_the_card(cuda_device, shape, dtype):
 
 
 # C=17 in 3 splits: a ragged last split and stage; 64 splits of C=17 leave
-# most blocks without a channel
+# most blocks without a channel; both tiles forced on every shape
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 17, 9, 45), (1, 196, 7, 16),
                                    (1, 5, 3, 70)])
 @pytest.mark.parametrize("split", [1, 3, 64])
+@pytest.mark.parametrize("tile", [0, 16, 32])
 def test_bwd_kernel_matches_plain_at_forced_splits(cuda_device, shape, dtype,
-                                                   split):
+                                                   split, tile):
     f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype, seed=1)
-    _assert_bwd_close(corr_cuda.correlation_bwd_cuda(f1, f2, gv,
+    _assert_bwd_close(corr_cuda.correlation_bwd_cuda(f1, f2, gv, tile=tile,
                                                      split=split),
                       f1, f2, gv)
+
+
+# ragged against the tile (4 rows of 16 or 32 columns) and its 4-pixel
+# thread groups (W = 13, 30, 45, 70, 36; H = 9, 21, 11, 3, 17), and C
+# against the 4-channel ring stage (1, 5, 7, 13, 6) and the split rule's
+# 8-channel floor
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 9, 13), (3, 5, 21, 30),
+                                   (2, 7, 11, 70), (1, 13, 3, 45),
+                                   (2, 6, 17, 36)])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_bwd_kernel_matches_plain_on_ragged_tiles_and_channels(
+        cuda_device, shape, dtype, tile):
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, dtype, seed=11)
+    _assert_bwd_close(corr_cuda.correlation_bwd_cuda(f1, f2, gv, tile=tile),
+                      f1, f2, gv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_takes_a_base_pointer_off_by_one_element(cuda_device,
+                                                            dtype):
+    """Inputs whose base is not 16-byte aligned take the element-copy path
+    and scalar stores; the aligned path gives the same bits."""
+    b, c, h, w = 2, 12, 16, 64
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    bufs = [torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+            for n in (b * c * h * w, b * c * h * w, b * 81 * h * w)]
+    f1 = bufs[0][1:].view(b, c, h, w)
+    f2 = bufs[1][1:].view(b, c, h, w)
+    gv = bufs[2][1:].view(b, 81, h, w)
+    assert f1.data_ptr() % 16 != 0 and f1.is_contiguous()
+    got = corr_cuda.correlation_bwd_cuda(f1, f2, gv)
+    _assert_bwd_close(got, f1, f2, gv)
+    again = corr_cuda.correlation_bwd_cuda(f1.clone(), f2.clone(),
+                                           gv.clone())
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -548,16 +585,58 @@ def test_bwd_kernel_launches_on_the_current_stream(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
+def test_bwd_kernel_is_captured_and_replayed_by_a_cuda_graph(cuda_device):
+    """B1 reads the stream at every call, so a CUDA graph captures it (the
+    whole-step graph depends on that); a replay reads the new inputs."""
+    shape = (4, 196, 5, 14)
+    f1, f2, gv = _bwd_inputs(cuda_device, shape, torch.float32, 13)
+    eager = corr_cuda.correlation_bwd_cuda(f1, f2, gv)   # built before capture
+    o1, o2, ogv = _bwd_inputs(cuda_device, shape, torch.float32, 14)
+    other = corr_cuda.correlation_bwd_cuda(o1, o2, ogv)
+    assert not torch.equal(eager[0], other[0])
+    s1, s2, sg = f1.clone(), f2.clone(), gv.clone()
+    before = corr_cuda.correlation_bwd_cuda.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = corr_cuda.correlation_bwd_cuda(s1, s2, sg)
+    assert corr_cuda.correlation_bwd_cuda.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(out, eager))
+    s1.copy_(o1)
+    s2.copy_(o2)
+    sg.copy_(ogv)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(out, other))
+
+
 def test_bwd_launch_plan_covers_the_image_and_the_channels(cuda_device):
+    """The plan fills half the slots the occupancy API reports for the
+    kernel it launches (blocks an SM × SMs), unless the channels cannot be
+    split further (64 splits at most, 6 channels each at least)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, c, h, w in BWD_SHAPES:
-        p = corr_cuda.bwd_launch_plan(b, c, h, w, torch.float32)
-        th, tw = p["tile"]
-        assert p["tiles"] == -(-h // th) * -(-w // tw), p
-        assert p["split"] * p["channels_per_split"] >= c, p
-        assert p["grid"] == [p["tiles"], p["split"], 2 * b], p
-        blocks = 2 * b * p["tiles"] * p["split"]
-        assert blocks >= 2 * sms or c // (2 * p["split"]) < 8, p
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, c, h, w in BWD_SHAPES:
+            p = corr_cuda.bwd_launch_plan(b, c, h, w, dtype)
+            th, tw = p["tile"]
+            assert tw in (16, 32), p
+            assert p["tiles"] == -(-h // th) * -(-w // tw), p
+            assert p["split"] * p["channels_per_split"] >= c, p
+            assert p["grid"] == [p["tiles"], p["split"], 2 * b], p
+            per_sm = p["blocks_per_sm"]
+            assert per_sm >= 1 and 0 < p["registers"] <= 255, p
+            assert per_sm * p["threads"] * p["registers"] <= 65536, p
+            assert per_sm * p["smem_bytes"] <= 233472, p
+            blocks = 2 * b * p["tiles"] * p["split"]
+            assert (2 * blocks >= sms * per_sm or 2 * p["split"] > 64
+                    or c // (2 * p["split"]) < 6), p
+    forced = corr_cuda.bwd_launch_plan(2, 17, 9, 45, torch.float32,
+                                       tile=16, split=3)
+    th = forced["tile"][0]
+    assert forced["tile"] == [th, 16] and forced["split"] == 3
+    assert forced["channels_per_split"] == 6
+    assert forced["tiles"] == -(-9 // th) * 3
 
 
 def test_bwd_kernel_refuses_autograd_and_a_bad_gradient(cuda_device):

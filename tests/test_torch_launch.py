@@ -151,3 +151,98 @@ def test_the_plan_entry_points_mirror_the_launch_entry_points():
         assert signature.count(",") + 1 == 10
         body = text[start:text.index("\n}\n", start)]
         assert "write_plan(p, plan);" in body
+
+
+def test_bwd_sweep_variants_still_match_the_kernel_source():
+    """``scripts/sweep_corr.py --bwd --variants`` edits the backward
+    kernel's constants by their text; each must still be there, once, and
+    the sweep's ctypes must match the entry point."""
+    from opticalflow_tpu_torch.ops._build import CSRC_DIR
+    from opticalflow_tpu_torch.scripts import sweep_corr
+    text = (CSRC_DIR / "correlation_bwd.cu").read_text()
+    for name, subs in sweep_corr.BWD_VARIANTS.items():
+        for old, new in subs:
+            assert text.count(old) == 1, (name, old)
+            assert old != new
+    start = text.index('extern "C" int corr_bwd(')
+    signature = text[start:text.index("{", start)]
+    assert len(sweep_corr.BWD.argtypes) == signature.count(",") + 1
+    assert sweep_corr.BWD.argtypes == corr_cuda._bwd_kernel._argtypes
+    # the forced plans are ones the wrapper's range checks accept
+    for tile, split in sweep_corr.BWD_COMBOS:
+        corr_cuda._check_bwd_plan(tile, split)
+
+
+def test_bwd_entry_points_take_the_tile_and_the_split():
+    """``corr_bwd`` and ``corr_bwd_plan`` take the shape, md, dtype, tile,
+    split and device; the plan writes nine ints, the occupancy among them,
+    and both switch to the device first."""
+    from opticalflow_tpu_torch.ops._build import CSRC_DIR
+    text = (CSRC_DIR / "correlation_bwd.cu").read_text()
+    for symbol, tail, nargs in (
+            ("corr_bwd", "int tile, int split, int device, void* stream)",
+             15),
+            ("corr_bwd_plan", "int tile, int split, int device, int* plan)",
+             10)):
+        start = text.index(f'extern "C" int {symbol}(')
+        signature = " ".join(text[start:text.index("{", start)].split())
+        assert signature.endswith(tail), signature
+        assert signature.count(",") + 1 == nargs
+        body = text[start:text.index("\n}\n", start)]
+        assert "DeviceGuard guard(device);" in body
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in text
+    assert "plan[7] = p.per_sm; plan[8] = p.regs;" in text
+    assert len(corr_cuda._bwd_kernel._argtypes) == 15
+
+
+def test_bwd_launch_plan_binds_the_plan_entry_point_once(monkeypatch):
+    """``bwd_launch_plan`` goes through ``corr_bwd_plan`` of the kernel's
+    own library and reports what it wrote, the blocks an SM holds and the
+    registers included."""
+    calls = []
+
+    def fake_plan(b, c, h, w, md, code, tile, split, device, plan):
+        calls.append((b, c, h, w, md, code, tile, split, device))
+        for i, v in enumerate((4, 16, 9, 4, 5, 144, 32256, 4, 96)):
+            plan[i] = v
+        return 0 if split != 2 else 1
+
+    class Lib:
+        corr_bwd_plan = staticmethod(fake_plan)
+
+    loaded = []
+    monkeypatch.setattr(corr_cuda, "_plan_fns", {})
+    monkeypatch.setattr(corr_cuda, "load_library",
+                        lambda name: loaded.append(name) or Lib)
+    p = corr_cuda.bwd_launch_plan(3, 17, 9, 45, torch.bfloat16, tile=16,
+                                  split=4)
+    assert loaded == ["correlation_bwd"]
+    assert calls == [(3, 17, 9, 45, 4, 1, 16, 4, 0)]
+    assert p == {"tile": [4, 16], "tiles": 9, "split": 4,
+                 "channels_per_split": 5, "threads": 144,
+                 "smem_bytes": 32256, "blocks_per_sm": 4, "registers": 96,
+                 "grid": [9, 4, 6]}
+    with pytest.raises(ValueError, match="cudaError 1"):
+        corr_cuda.bwd_launch_plan(3, 17, 9, 45, torch.float32, split=2)
+    assert loaded == ["correlation_bwd"]          # bound once
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("tile,split", [(8, 0), (64, 0), (-16, 0), (0, -1),
+                                        (0, 65), (32, 1.5), (16, "2")])
+def test_bwd_forced_plan_is_range_checked_before_any_build(monkeypatch,
+                                                           tile, split):
+    """A tile or split the kernel does not take raises in Python, before a
+    library is built or loaded, in the wrapper and in the plan alike."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused plan reached the library")
+    monkeypatch.setattr(corr_cuda._bwd_kernel, "load", no_build)
+    monkeypatch.setattr(corr_cuda, "_plan_fns", {})
+    monkeypatch.setattr(corr_cuda, "load_library", no_build)
+    with pytest.raises(ValueError, match="tile in"):
+        corr_cuda.bwd_launch_plan(1, 8, 8, 8, torch.float32, tile=tile,
+                                  split=split)
+    f = torch.zeros(1, 8, 8, 8)
+    with pytest.raises(ValueError, match="tile in"):
+        corr_cuda.correlation_bwd_cuda(f, f, torch.zeros(1, 81, 8, 8),
+                                       tile=tile, split=split)
