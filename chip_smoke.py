@@ -58,13 +58,28 @@ non-zero, and no result line is printed):
      ``.flo`` GT) trees through ``cli/infer_kitti`` and ``cli/eval_sintel``
      at batch 2 (the last chunk padded): EPE within the PNG's 1/64 px and
      below 1e-3 — pairs/s;
- 10. one JSON line listing every kernel with its launches on its path,
+ 10. the training CLI (``cli/train.main`` with the fake weights as
+     ``--pretrained``): (a) the multiscale regime at 4x320x896 over 2
+     epochs on a synthetic KITTI training tree (16 pairs of 375x1242, a
+     smooth known motion, ~30% invalid; --val-frac 0.25): two
+     uninterrupted runs, and one preempted by SIGTERM after its first step
+     and resumed, which must log steps 1..N once each, see the same
+     batches (CRC-32 of their images) and end within 4x the uninterrupted
+     runs' spread in parameters and per-step losses; (b) the epipolar
+     regime (--epi-soft-w 0.1, 384x512) on frames of a moving camera:
+     finite losses and Sampson term, masks neither empty nor full, 10 K1
+     and 5 B1 launches a step; (c) the CLI's samples/s (its own print,
+     and its steady rate from the steps' start times in a 4-epoch run
+     without validation), the loader alone and the step alone on a batch
+     on the card;
+ 11. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
 Each kernel's launch count is set to 0 just before its path and read just
 after: the CLI and engine for K1, the probe entry points for K3 and K4, the
-training steps for B1 (and K1 there), the eval CLIs (K1).
+training steps for B1 (and K1 there), the eval CLIs (K1), the training
+CLI's runs (K1 and B1).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -914,6 +929,397 @@ def phase_eval(sd, tmp, corr_fwd):
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+# the training CLI's run: 16 temporal KITTI pairs (val 4, train 12: 3 steps
+# an epoch at batch 4) over 2 epochs; the epipolar run: 12 frame pairs
+TRAIN_PAIRS = 16
+STEADY_EPOCHS = 4
+EPI_FRAMES = 13
+
+
+def moving_frames(rng, n: int, h: int, w: int, step=(1.5, 2.5),
+                  zoom: float = 1.004):
+    """``n`` uint8 frames of one smooth random texture seen by a camera that
+    moves sideways by ``step`` px (rows, columns) a frame and forward (the
+    view shrinks by ``zoom`` a frame about its moving centre): each frame is
+    a window of the texture resized to (h, w) by the port's resize."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from opticalflow_tpu_torch.io.images import resize_bilinear_u8
+    bh, bw = h + 64 + int(n * step[0]), w + 64 + int(n * step[1])
+    coarse = torch.from_numpy(rng.rand(1, 3, bh // 10 + 2,
+                                       bw // 10 + 2).astype(np.float32))
+    base = (F.interpolate(coarse, size=(bh, bw), mode="bilinear",
+                          align_corners=False)[0].permute(1, 2, 0).numpy()
+            * 255).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        s = zoom ** -i
+        vh, vw = int(round(h * s)), int(round(w * s))
+        cy = 32 + h / 2 + i * step[0]
+        cx = 32 + w / 2 + i * step[1]
+        y0, x0 = int(round(cy - vh / 2)), int(round(cx - vw / 2))
+        frames.append(resize_bilinear_u8(base[y0:y0 + vh, x0:x0 + vw], h, w))
+    return frames
+
+
+def synth_kitti_train(root: str, rng) -> None:
+    """A KITTI training tree: ``image_2/`` 375x1242 frames of a moving
+    texture, and for each temporal pair a 16-bit ``flow_occ/`` PNG of a
+    smooth known motion with ~30% of the pixels invalid."""
+    import numpy as np
+    from opticalflow_tpu_torch.io.kitti import write_flow_png
+    for d in ("image_2", "flow_occ"):
+        os.makedirs(os.path.join(root, d))
+    frames = moving_frames(rng, TRAIN_PAIRS + 1, KITTI_H, KITTI_W)
+    yy, xx = np.mgrid[0:KITTI_H, 0:KITTI_W].astype(np.float32)
+    for i, im in enumerate(frames):
+        write_png(os.path.join(root, "image_2", f"{i:06d}_10.png"), im)
+        if i < TRAIN_PAIRS:
+            flow = np.stack([2.5 + (xx - KITTI_W / 2) * 0.004,
+                             1.5 + (yy - KITTI_H / 2) * 0.004], axis=-1)
+            write_flow_png(os.path.join(root, "flow_occ", f"{i:06d}_10.png"),
+                           flow, rng.rand(KITTI_H, KITTI_W) > 0.3)
+
+
+class Recorder:
+    """Wraps ``train.trainer.make_train_step`` while a CLI run lasts: the
+    CRC-32 of every batch's ``images`` bytes that reaches the step, in
+    order, and the host clock as each step starts (instrumentation of this
+    script; the CLI is unchanged)."""
+
+    def __init__(self, hashes: bool = True):
+        self.hashes = [] if hashes else None
+        self.starts = []
+
+    def __enter__(self):
+        from opticalflow_tpu_torch.train import trainer
+        self._real = real = trainer.make_train_step
+        rec = self
+
+        def make(model, opt, cfg, mesh=None):
+            step = real(model, opt, cfg, mesh)
+
+            def wrapped(state, batch):
+                rec.starts.append(time.perf_counter())
+                if rec.hashes is not None:
+                    import zlib
+                    rec.hashes.append(zlib.crc32(
+                        batch["images"].cpu().numpy().tobytes()))
+                return step(state, batch)
+            return wrapped
+
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from opticalflow_tpu_torch.train import trainer
+        trainer.make_train_step = self._real
+
+
+def train_cli_run(argv, preempt_after_first: bool = False):
+    """One ``cli/train.main`` run in this process.  With
+    ``preempt_after_first`` a thread sends this process SIGTERM once the
+    first step is logged.  Returns (rc, stdout, wall s)."""
+    import contextlib
+    import io
+    import signal
+    import threading
+    from opticalflow_tpu_torch.cli import train as train_cli
+    out_dir = argv[argv.index("--out-dir") + 1]
+    log_path = os.path.join(out_dir, "metrics.jsonl")
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            if os.path.exists(log_path) and os.path.getsize(log_path) > 0:
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    if preempt_after_first:
+        watcher.start()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+    finally:
+        stop.set()
+        if preempt_after_first:
+            watcher.join(timeout=30)
+    wall = time.perf_counter() - t0
+    sys.stdout.write(buf.getvalue())
+    return rc, buf.getvalue(), wall
+
+
+def jsonl(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def epoch_rates(text: str):
+    """The samples/s the CLI printed for each epoch."""
+    return [float(line.split("(")[1].split()[0]) for line in text.splitlines()
+            if line.startswith("epoch ") and "samples/s" in line]
+
+
+def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """The training CLI on the card: (a) multiscale with preemption and
+    resume against uninterrupted runs, (b) the epipolar regime, (c) its
+    numbers.  Returns a dict of its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.data.datasets import KittiFlowTrain
+    from opticalflow_tpu_torch.data.loader import Loader, Subset
+    from opticalflow_tpu_torch.train import checkpoints as ckpt
+    from opticalflow_tpu_torch.train import trainer as T
+
+    weights = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               weights)
+    rng = np.random.RandomState(10)
+    kroot = os.path.join(tmp, "kitti_train")
+    t0 = time.perf_counter()
+    synth_kitti_train(kroot, rng)
+    log(f"[10] synthetic KITTI training tree: {TRAIN_PAIRS} pairs of "
+        f"{KITTI_H}x{KITTI_W} written in {time.perf_counter() - t0:.1f} s")
+    base = ["--regime", "multiscale", "--data-root", kroot,
+            "--pretrained", weights, "--crop", str(TRAIN_H), str(TRAIN_W),
+            "--batch", str(TRAIN_B), "--epochs", "2", "--workers", "4",
+            "--val-frac", "0.25", "--log-every", "1", "--device", "cuda"]
+
+    # (a) two uninterrupted runs (their spread sets the tolerance), then a
+    # run preempted after its first step and its resume
+    corr_fwd.launches = corr_bwd.launches = 0   # the training CLI starts
+    runs = {}
+    for name in ("uninterrupted", "again"):
+        out = os.path.join(tmp, name)
+        # the repeat hashes nothing: its rate is the CLI's own
+        with Recorder(hashes=name == "uninterrupted") as rec:
+            rc, text, wall = train_cli_run(base + ["--out-dir", out])
+        assert rc == 0, rc
+        runs[name] = {"out": out, "hashes": rec.hashes, "text": text,
+                      "wall": wall}
+    out = os.path.join(tmp, "preempted")
+    with Recorder() as rec:
+        rc, text_p, _ = train_cli_run(base + ["--out-dir", out],
+                                      preempt_after_first=True)
+        assert rc == 0, rc
+        first = [r["step"] for r in jsonl(os.path.join(out, "metrics.jsonl"))
+                 if "step" in r]
+        # mid-epoch, or on an epoch's last batch after its validation
+        assert ("preempted: saved" in text_p
+                or "preempted after epoch" in text_p), "no preemption save"
+        rc, text_r, _ = train_cli_run(base + ["--out-dir", out, "--resume"])
+        assert rc == 0, rc
+    assert "resumed from step" in text_r
+    runs["resumed"] = {"out": out, "hashes": rec.hashes}
+    steps = {n: [r["step"] for r in jsonl(os.path.join(r_["out"],
+                                                        "metrics.jsonl"))
+                 if "step" in r] for n, r_ in runs.items()}
+    n_steps = 2 * ((TRAIN_PAIRS - TRAIN_PAIRS // 4) // TRAIN_B)
+    expect = list(range(1, n_steps + 1))
+    log(f"[10] (a) steps logged: uninterrupted {steps['uninterrupted']}, "
+        f"preempted at {first} then resumed: {steps['resumed']}")
+    for n in runs:
+        assert steps[n] == expect, (n, steps[n])
+    assert first and max(first) < n_steps, first
+    launched_a = (corr_fwd.launches, corr_bwd.launches)  # ... and ends here
+    # three runs' worth of steps (5 B1 each), K1 in the steps and in the
+    # validation forwards (one batch an epoch, two epochs a run)
+    assert launched_a[1] == 3 * 5 * n_steps, launched_a
+    assert launched_a[0] == 3 * 5 * n_steps + 3 * 2 * 5, launched_a
+    assert runs["resumed"]["hashes"] == runs["uninterrupted"]["hashes"], \
+        "the resumed run saw other batches"
+    losses = {n: np.array([r["loss"] for r in jsonl(os.path.join(
+        r_["out"], "metrics.jsonl")) if "step" in r]) for n, r_ in runs.items()}
+    params = {n: ckpt.restore_train_state(r_["out"])["params"]
+              for n, r_ in runs.items()}
+
+    def param_gap(a, b):
+        return max(float((params[a][k] - params[b][k]).abs().max())
+                   for k in params[b])
+
+    def loss_gap(a, b):
+        return float(np.abs(losses[a] - losses[b]).max())
+
+    # the card is not bit-deterministic (cuDNN's and grid_sample's
+    # backwards add with atomics): the resumed run is held to 4x the spread
+    # of two uninterrupted runs, plus a floor of float32 rounding
+    p_spread, l_spread = param_gap("again", "uninterrupted"), loss_gap(
+        "again", "uninterrupted")
+    p_top = max(float(v.abs().max()) for v in params["uninterrupted"].values())
+    p_tol = 4 * p_spread + 1e-6 * p_top
+    l_tol = 4 * l_spread + 1e-6 * float(np.abs(losses["uninterrupted"]).max())
+    p_gap, l_gap = param_gap("resumed", "uninterrupted"), loss_gap(
+        "resumed", "uninterrupted")
+    log(f"[10] (a) {len(runs['uninterrupted']['hashes'])} batches, the same "
+        f"CRC-32 of images in the uninterrupted, repeated and resumed runs; "
+        f"final parameters: resumed - uninterrupted max|d| {p_gap!r} "
+        f"(tolerance {p_tol!r} = 4 x the two uninterrupted runs' {p_spread!r}"
+        f" + 1e-6 x max|p|); per-step losses: {l_gap!r} (tolerance "
+        f"{l_tol!r}, spread {l_spread!r}); K1/B1 launches in the three runs "
+        f"{launched_a}")
+    assert p_gap <= p_tol, (p_gap, p_tol)
+    assert l_gap <= l_tol, (l_gap, l_tol)
+    assert np.isfinite(losses["uninterrupted"]).all()
+    rates = epoch_rates(runs["again"]["text"])
+    log(f"[10] (c) CLI training, multiscale 4x{TRAIN_H}x{TRAIN_W}, "
+        f"--workers 4, loader on the card: {rates} samples/s by epoch (the "
+        f"CLI's own print over 3-step epochs: each includes the producer's "
+        f"fill, epoch 0 the first step's warm-up); whole run "
+        f"{runs['again']['wall']:.2f} s wall with validation and saves; "
+        f"{card}")
+    # the CLI's steady rate over a longer window: all 16 pairs for 4 epochs
+    # (4 steps each), no validation; the clock at each step's start gives
+    # the batches' delivery intervals inside epochs 1-3 (no warm-up, no
+    # producer fill)
+    steady_argv = [a for a in base if a not in ("--val-frac", "0.25")]
+    steady_argv[steady_argv.index("--epochs") + 1] = str(STEADY_EPOCHS)
+    with Recorder(hashes=False) as rec:
+        rc, text_s, wall_s = train_cli_run(
+            steady_argv + ["--out-dir", os.path.join(tmp, "steady"),
+                           "--save-every", "100"])
+    assert rc == 0, rc
+    per = TRAIN_PAIRS // TRAIN_B
+    assert len(rec.starts) == STEADY_EPOCHS * per, len(rec.starts)
+    gaps = [b - a for e in range(1, STEADY_EPOCHS)
+            for a, b in zip(rec.starts[e * per:(e + 1) * per],
+                            rec.starts[e * per + 1:(e + 1) * per])]
+    steady_rate = len(gaps) * TRAIN_B / sum(gaps)
+    fills = [rec.starts[e * per] - rec.starts[e * per - 1]
+             for e in range(1, STEADY_EPOCHS)]
+    log(f"[10] (c) CLI steady state, {STEADY_EPOCHS} epochs of {per} steps, "
+        f"no validation: {steady_rate!r} samples/s over {len(gaps)} batch "
+        f"intervals inside epochs 1-{STEADY_EPOCHS - 1} "
+        f"({sum(gaps):.3f} s); step-to-step across an epoch boundary "
+        f"(save, new producer, fill) {[round(f, 3) for f in fills]} s; "
+        f"CLI prints {epoch_rates(text_s)} samples/s by epoch; whole run "
+        f"{wall_s:.2f} s wall; {card}")
+
+    # (b) the epipolar regime on frames moved by a known camera motion
+    froot = os.path.join(tmp, "frames")
+    os.makedirs(froot)
+    for i, im in enumerate(moving_frames(rng, EPI_FRAMES, KITTI_H, KITTI_W)):
+        write_png(os.path.join(froot, f"frame_{i:04d}.png"), im)
+    from opticalflow_tpu_torch.cli import train as train_cli
+    real_attach = train_cli._attach_epipolar
+    coverage = []
+
+    def attach(model, step, batch, args):
+        out = real_attach(model, step, batch, args)
+        coverage.extend(float(m) for m in out["photo_mask"].mean((1, 2)))
+        return out
+
+    epi_out = os.path.join(tmp, "epipolar")
+    train_cli._attach_epipolar = attach
+    corr_fwd.launches = corr_bwd.launches = 0   # the epipolar path starts
+    try:
+        rc, text_e, wall_e = train_cli_run([
+            "--regime", "epipolar", "--data-root", froot, "--pretrained",
+            weights, "--batch", str(TRAIN_B), "--epochs", "1", "--workers",
+            "4", "--log-every", "1", "--epi-soft-w", "0.1", "--device",
+            "cuda", "--out-dir", epi_out])
+    finally:
+        train_cli._attach_epipolar = real_attach
+    launched = (corr_fwd.launches, corr_bwd.launches)  # ... and ends here
+    assert rc == 0, rc
+    recs = [r for r in jsonl(os.path.join(epi_out, "metrics.jsonl"))
+            if "step" in r]
+    n_epi = (EPI_FRAMES - 1) // TRAIN_B
+    log(f"[10] (b) epipolar regime, {n_epi} steps at 4x384x512: losses "
+        f"{[r['loss'] for r in recs]}, sampson {[r['sampson'] for r in recs]}"
+        f"; mask coverage per sample {[round(c, 4) for c in coverage]}; K1/B1"
+        f" launches {launched} (10 and 5 a step); {wall_e:.2f} s wall; {card}")
+    assert [r["step"] for r in recs] == list(range(1, n_epi + 1))
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["sampson"])
+               for r in recs), recs
+    assert coverage and all(0.0 < c < 1.0 for c in coverage), coverage
+    assert launched == (10 * n_epi, 5 * n_epi), launched
+
+    # (c) the loader alone (decode, reduced_affine, crop; 4 threads, no
+    # card) and the step alone on a batch already on the card
+    ds = KittiFlowTrain(kroot, crop_hw=(TRAIN_H, TRAIN_W), seed=0)
+    t0 = time.perf_counter()
+    for i in range(4):
+        ds.get(i, epoch=0)
+    one_ms = (time.perf_counter() - t0) / 4 * 1e3
+    # one sample's pieces on one thread: decode (two frames and the
+    # 16-bit GT) and reduced_affine when it warps (60% of the samples)
+    from opticalflow_tpu_torch.data.augment import reduced_affine
+    from opticalflow_tpu_torch.io.images import load_image
+    from opticalflow_tpu_torch.io.kitti import read_flow_png
+    t0 = time.perf_counter()
+    for p1, p2, pf in ds.samples[:4]:
+        im1, im2 = (load_image(p).astype(np.float32) / 255.0
+                    for p in (p1, p2))
+        flow, valid = read_flow_png(pf)
+    decode_ms = (time.perf_counter() - t0) / 4 * 1e3
+    warping = [s_ for s_ in range(50)
+               if np.random.default_rng(s_).random() >= 0.4][:4]
+    t0 = time.perf_counter()
+    for s_ in warping:
+        reduced_affine(im1, im2, flow, valid, np.random.default_rng(s_))
+    affine_ms = (time.perf_counter() - t0) / len(warping) * 1e3
+    lo = Loader(ds, TRAIN_B, num_workers=4, seed=0)
+    t0 = time.perf_counter()
+    n = sum(b["images"].shape[0] for _ in range(2) for b in lo)
+    wall = time.perf_counter() - t0
+    loader_rate = n / wall
+    log(f"[10] (c) loader alone, --workers 4: {loader_rate!r} samples/s "
+        f"({wall / n * 1e3!r} ms a sample, {n} samples); one thread: "
+        f"{one_ms!r} ms a sample, of which decode {decode_ms!r} ms and, "
+        f"on the 60% of samples it warps, reduced_affine {affine_ms!r} ms; "
+        f"{card}")
+
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+    model = PWCDCNet(precision="fast").cuda()
+    cfg = T.TrainConfig(loss="multiscale", optimizer="adamw")
+    state, opt = T.create_train_state(model, cfg,
+                                      params=reference_state_dict(sd))
+    step = T.make_train_step(model, opt, cfg)
+    # one batch through the loader, its producer finished: a decode still
+    # running beside the step would hold the GIL the step's host work needs
+    batch, = list(Loader(Subset(ds, range(TRAIN_B)), TRAIN_B, num_workers=4,
+                         seed=0, device="cuda"))
+    ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(ms[1:]))
+    log(f"[10] (c) the step alone on a batch on the card: "
+        f"{[round(x, 2) for x in ms]} ms (median after the first "
+        f"{step_ms!r} ms, {TRAIN_B / step_ms * 1e3!r} samples/s); {card}")
+    return {"steps": steps["resumed"], "preempted_at": max(first),
+            "batches": len(runs["uninterrupted"]["hashes"]),
+            "param_gap": p_gap, "param_tol": p_tol, "param_spread": p_spread,
+            "loss_gap": l_gap, "loss_tol": l_tol, "loss_spread": l_spread,
+            "cli_samples_per_s": rates,
+            "cli_steady_samples_per_s": steady_rate,
+            "cli_steady_intervals_s": gaps,
+            "cli_wall_s": runs["again"]["wall"],
+            "epipolar": {"losses": [r["loss"] for r in recs],
+                         "sampson": [r["sampson"] for r in recs],
+                         "mask_coverage": coverage, "wall_s": wall_e},
+            "launches": {"correlation_fwd": launched_a[0] + launched[0],
+                         "correlation_bwd": launched_a[1] + launched[1]},
+            "launches_epipolar": {"correlation_fwd": launched[0],
+                                  "correlation_bwd": launched[1]},
+            "loader_samples_per_s": loader_rate,
+            "loader_ms_per_sample": wall / n * 1e3,
+            "sample_ms_one_thread": one_ms, "decode_ms": decode_ms,
+            "reduced_affine_ms": affine_ms,
+            "step_ms": ms, "step_ms_median": step_ms, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -991,6 +1397,9 @@ def main() -> int:
         evals = phase_eval(sd, tmp, correlation_cuda)
     eval_launches = correlation_cuda.launches  # ... and ends here
     assert eval_launches > 0
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli = phase_train_cli(sd, tmp, correlation_cuda,
+                                    correlation_bwd_cuda, card_line())
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -1012,7 +1421,9 @@ def main() -> int:
          "at_1088x1920": {**k2, "per_level": k2_rows},
          # its launches on the training path (5 per step) and the eval path
          "launches_train": train["launches"]["correlation_fwd"],
-         "launches_eval": eval_launches, "eval": evals},
+         "launches_eval": eval_launches, "eval": evals,
+         # the training CLI's runs (phase 10: steps, validation, masks)
+         "launches_train_cli": train_cli["launches"]["correlation_fwd"]},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -1027,7 +1438,9 @@ def main() -> int:
                                      "blocks_per_sm", "registers")}
                   for r in b1_rows if r["frame"] == "320x896"
                   and r["dtype"] == "float32"],
-         "per_level": b1_rows, "train_step": train},
+         "per_level": b1_rows, "train_step": train,
+         "launches_train_cli": train_cli["launches"]["correlation_bwd"],
+         "train_cli": train_cli},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

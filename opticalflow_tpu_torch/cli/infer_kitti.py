@@ -7,7 +7,7 @@ Counterpart of ``opticalflow_tpu.cli.infer_kitti`` with the same flags plus
         --ckpt ckpt.pth.tar --year 2015 --flow flow_occ --save-dir out/
 
 ``--data-parallel`` takes only 1 (multi-GPU evaluation is ROADMAP Queue 1
-item 11); ``--size-mode resize_fixed`` raises as the engine does.
+item 6); ``--size-mode resize_fixed`` raises as the engine does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def check_data_parallel(value: str) -> None:
     if str(value) != "1":
         raise SystemExit(
             f"--data-parallel {value}: the PyTorch port evaluates on one "
-            "GPU; multi-GPU runs are ROADMAP Queue 1 item 11")
+            "GPU; multi-GPU runs are ROADMAP Queue 1 item 6")
 
 
 def build_parser():

@@ -1,1 +1,1 @@
-"""Datasets."""
+"""Datasets, augmentation and the prefetching loader."""

@@ -171,7 +171,7 @@ class FlowEngine:
         if size_mode == "resize_fixed":
             raise NotImplementedError(
                 "size_mode='resize_fixed' (PIL resize to a fixed size) is not "
-                "ported yet (ROADMAP Queue 1 item 5)")
+                "ported yet (ROADMAP Queue 1 item 2)")
         if size_mode not in ("resize", "pad", "pad_ref"):
             raise ValueError("size_mode must be 'resize', 'pad' or "
                              f"'pad_ref', got {size_mode!r}")

@@ -27,7 +27,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["load_image", "decode_png", "encode_png",
+__all__ = ["load_image", "decode_png", "encode_png", "preprocess_pair",
+           "resize_bilinear_u8", "resize_bilinear_f32", "resize_nearest",
            "resize_to_multiple_of_64",
            "pad_to_multiple_of_64", "unpad", "PREPROC_PRESETS",
            "IMAGENET_MEAN", "IMAGENET_STD"]
@@ -161,24 +162,57 @@ def load_image(path: str) -> np.ndarray:
             import imageio.v2 as imageio
             img = np.asarray(imageio.imread(path))
         except ImportError:
-            from PIL import Image
+            try:
+                from PIL import Image
+            except ImportError:
+                raise ImportError(
+                    f"{path!r} is not a PNG that decode_png reads, and "
+                    "neither imageio nor PIL is installed to decode it") \
+                    from None
             img = np.asarray(Image.open(path).convert("RGB"))
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     return img[..., :3]
 
 
+def preprocess_pair(im1: np.ndarray, im2: np.ndarray,
+                    preset: str = "bgr_unit") -> np.ndarray:
+    """uint8 RGB pair → (1, H, W, 6) float32 network input.
+
+    ``bgr_unit`` reproduces the canonical CLI preprocessing exactly
+    (``script_pwc.py:56-58``: RGB→BGR flip then /255, nothing else);
+    ``rgb_unit`` is RGB /255; ``rgb_imagenet`` is RGB /255 normalised by the
+    ImageNet mean and std.
+    """
+    def one(im):
+        im = im.astype(np.float32)
+        if preset == "bgr_unit":
+            return im[..., ::-1] / 255.0
+        if preset == "rgb_unit":
+            return im / 255.0
+        if preset == "rgb_imagenet":
+            return (im / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        raise ValueError(f"unknown preprocessing preset {preset!r}; "
+                         f"choose from {PREPROC_PRESETS}")
+
+    x = np.concatenate([one(im1), one(im2)], axis=-1)
+    return x[None].astype(np.float32)
+
+
 _COEF_BITS = 11                 # cv2's INTER_RESIZE_COEF_BITS
 _COEF_ONE = np.float32(1 << _COEF_BITS)
 
 
-def _linear_taps(n_src: int, n_dst: int):
+def _linear_taps(n_src: int, n_dst: int, float_path: bool = False):
     """Source index and float32 fraction of each destination pixel, with
-    cv2's half-pixel rule computed in cv2's types: the position in double,
-    rounded to float32, then floor and fraction in float32."""
+    cv2's half-pixel rule computed in cv2's types.  Its uint8 path rounds
+    the position (taken in double) to float32, then takes floor and
+    fraction in float32; its float path (``float_path``) takes floor and
+    fraction in double and rounds the fraction to float32."""
     scale = 1.0 / (float(n_dst) / n_src)
-    pos = ((np.arange(n_dst, dtype=np.float64) + 0.5) * scale
-           - 0.5).astype(np.float32)
+    pos = (np.arange(n_dst, dtype=np.float64) + 0.5) * scale - 0.5
+    if not float_path:
+        pos = pos.astype(np.float32)
     first = np.floor(pos)
     return first.astype(np.int64), (pos - first).astype(np.float32)
 
@@ -191,23 +225,23 @@ def _fixed_weights(frac: np.ndarray):
     return w0, w1
 
 
-def _enlarge_bilinear_u8(img: np.ndarray, height: int,
-                        width: int) -> np.ndarray:
-    """uint8 (H, W, C) → (height, width, C) with height ≥ H and width ≥ W,
-    bit-exact to ``cv2.resize(img, (width, height))`` (INTER_LINEAR), in
-    numpy integer arithmetic.
+def resize_bilinear_u8(img: np.ndarray, height: int,
+                       width: int) -> np.ndarray:
+    """uint8 (H, W, C) → (height, width, C), enlarging or shrinking either
+    side, bit-exact to ``cv2.resize(img, (width, height))`` (INTER_LINEAR),
+    in numpy integer arithmetic.
 
     cv2's fixed-point scheme: 11-bit weights; a horizontal pass into int32
     (``src[x0]·a0 + src[x1]·a1``), where a tap left of the first column
     takes column 0 whole and one at or right of the last column takes that
     column whole; then a vertical pass over the two rows, clamped into the
     image with the weights left as they are,
-    ``(((b0·(r0>>4))>>16) + ((b1·(r1>>4))>>16) + 2) >> 2``.  A side that
-    shrinks is refused: cv2 computes it otherwise (area averaging at
-    exactly half size)."""
+    ``(((b0·(r0>>4))>>16) + ((b1·(r1>>4))>>16) + 2) >> 2``.  The same
+    formula holds when a side shrinks.  At exactly half size on both sides
+    cv2 averages 2×2 blocks instead, ``(a + b + c + d + 2) >> 2``, which is
+    what this formula gives there: every tap falls halfway between two
+    pixels, with weights (1024, 1024)."""
     h, w, c = img.shape
-    if height < h or width < w:
-        raise ValueError(f"only enlarges: {h}x{w} -> {height}x{width}")
     src = img.reshape(h, w * c).astype(np.int32)
     if width == w:
         # every tap lands on its own column with weights (2048, 0), so the
@@ -245,10 +279,50 @@ def _enlarge_bilinear_u8(img: np.ndarray, height: int,
     return out.astype(np.uint8).reshape(height, width, c)
 
 
+def resize_bilinear_f32(img: np.ndarray, height: int,
+                        width: int) -> np.ndarray:
+    """float32 (H, W[, C]) → (height, width[, C]), bilinear with the
+    half-pixel rule, as ``cv2.resize``'s float INTER_LINEAR computes it:
+    float32 weights ``1 - f, f``; along a row a tap left of the first
+    column or at or right of the last takes that column whole; down the
+    columns the two rows are clamped into the image with the weights left
+    as they are."""
+    h, w = img.shape[:2]
+    x = img.astype(np.float32, copy=False).reshape(h, w, -1)
+    if width != w:
+        sx, fx = _linear_taps(w, width, float_path=True)
+        edge = (sx < 0) | (sx >= w - 1)
+        fx = np.where(edge, np.float32(0), fx)[None, :, None]
+        sx = np.clip(sx, 0, w - 1)
+        x = (x[:, sx] * (np.float32(1) - fx)
+             + x[:, np.minimum(sx + 1, w - 1)] * fx)
+    if height != h:
+        sy, fy = _linear_taps(h, height, float_path=True)
+        fy = fy[:, None, None]
+        x = (x[np.clip(sy, 0, h - 1)] * (np.float32(1) - fy)
+             + x[np.clip(sy + 1, 0, h - 1)] * fy)
+    return x.reshape((height, width) + img.shape[2:])
+
+
+def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:
+    """cv2's INTER_NEAREST source index: floor(i · (1 / (dst / src))) in
+    double, clamped to the last pixel (not the half-pixel rule)."""
+    scale = 1.0 / (float(n_dst) / n_src)
+    idx = np.floor(np.arange(n_dst, dtype=np.float64) * scale)
+    return np.minimum(idx.astype(np.int64), n_src - 1)
+
+
+def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, ...) → (height, width, ...) as ``cv2.resize``'s
+    INTER_NEAREST picks its pixels."""
+    h, w = img.shape[:2]
+    return img[_nearest_index(h, height)][:, _nearest_index(w, width)]
+
+
 def resize_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
     """Bilinear resize up to ceil(/64)*64 (``script_pwc.py:47-54``), the
     reference's ``cv2.resize`` reproduced bit for bit by
-    :func:`_enlarge_bilinear_u8` (the target never shrinks a side).
+    :func:`resize_bilinear_u8` (the target never shrinks a side).
 
     Returns (resized, H_orig, W_orig)."""
     h, w = img.shape[:2]
@@ -256,7 +330,7 @@ def resize_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
     w64 = int(ceil(w / 64.0) * 64)
     if (h64, w64) == (h, w):
         return img, h, w
-    return _enlarge_bilinear_u8(img, h64, w64), h, w
+    return resize_bilinear_u8(img, h64, w64), h, w
 
 
 def pad_to_multiple_of_64(img: np.ndarray) -> Tuple[np.ndarray, int, int]:

@@ -52,9 +52,36 @@ def bilinear_warp(x: torch.Tensor, flow: torch.Tensor,
                   padding: str = "zeros") -> torch.Tensor:
     """Mask-free bilinear warp of the photometric losses: align_corners=True,
     so the sample point is exactly ``p = x + u`` (``train2.py:44-61``
-    "zeros", ``train_pseudo.py:128-164`` "border").  Returns float32."""
+    "zeros", ``train_pseudo.py:128-164`` "border").  Returns float32.
+
+    Sampled in pixel space as the JAX ``grid_sample`` does, not through
+    ``F.grid_sample``: "border" clamps the point with max/min, whose
+    gradient is 1/2 where the point lies exactly on the edge, as JAX's
+    ``jnp.clip``; ``F.grid_sample`` gives 0 there.  A near-zero flow at
+    the last row or column rounds onto the edge in float32, so the two
+    gradients differ there."""
     if padding not in ("zeros", "border"):
         raise ValueError(f"padding must be 'zeros' or 'border', got "
                          f"{padding!r}")
-    return F.grid_sample(x.float(), _normalised_grid(flow), mode="bilinear",
-                         padding_mode=padding, align_corners=True)
+    b, c, h, w = x.shape
+    flow = flow.float()
+    xs = torch.arange(w, dtype=torch.float32, device=x.device) + flow[:, 0]
+    ys = (torch.arange(h, dtype=torch.float32, device=x.device)[:, None]
+          + flow[:, 1])
+    if padding == "border":
+        zero = xs.new_zeros(())
+        xs = torch.minimum(torch.maximum(xs, zero), zero + (w - 1))
+        ys = torch.minimum(torch.maximum(ys, zero), zero + (h - 1))
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    wx, wy = xs - x0, ys - y0
+    x0, y0 = x0.long(), y0.long()
+    img = x.float().reshape(b, c, h * w)
+    out = 0.0
+    for dy, dx, wt in ((0, 0, (1 - wy) * (1 - wx)), (0, 1, (1 - wy) * wx),
+                       (1, 0, wy * (1 - wx)), (1, 1, wy * wx)):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, 1, -1)
+        v = img.gather(2, idx.expand(b, c, -1)).reshape(b, c, h, w)
+        out = out + v * (wt * inside)[:, None]
+    return out

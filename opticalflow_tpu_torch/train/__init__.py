@@ -1,1 +1,1 @@
-"""Checkpoint loading."""
+"""Training: losses, the train step, checkpoints and validation."""

@@ -11,19 +11,20 @@ defaults:
   * ``loss="proxy"``: self-supervised SSIM+L1 photometric + smoothness
     (``train_pseudo.py:65-164``);
   * ``loss="proxy_epipolar"``: the proxy loss under a per-sample epipolar
-    inlier mask (``photo_mask`` in the batch).  Its soft Sampson term
-    (``epi_soft_weight > 0``) needs ``geometry/epipolar.py``, which is not
-    ported yet (ROADMAP Queue 1 item 7), and raises.
+    inlier mask (``photo_mask`` in the batch), plus, for
+    ``epi_soft_weight > 0``, that weight times the soft Sampson penalty of
+    flow2 under the batch's per-sample ``fundamental`` matrices (reported
+    as ``metrics["sampson"]``).
 
 The step takes the JAX package's batch layout (NHWC ``images`` (B, H, W, 6),
-``flow`` (B, H, W, 2), ``valid`` (B, H, W), optional ``photo_mask``; numpy
-arrays or tensors) and moves it to the model's device.  PyTorch updates the
+``flow`` (B, H, W, 2), ``valid`` (B, H, W), optional ``photo_mask`` (B, H, W) and
+``fundamental`` (B, 3, 3); numpy arrays or tensors) and moves it to the model's device.  PyTorch updates the
 model and the optimizer in place, where the JAX step donates its state.
 Gradient clipping is optax's ``clip_by_global_norm`` written out
 (g·max/‖g‖ once ‖g‖ reaches max), not ``clip_grad_norm_``, which divides by
 ‖g‖ + 1e-6.  The correlation's gradient comes from the backward kernel
 through ``ops.correlation.CorrelationFn`` on the card.  Data parallelism
-(the JAX step's ``mesh``) is ROADMAP Queue 1 item 11 and raises.
+(the JAX step's ``mesh``) is ROADMAP Queue 1 item 6 and raises.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from opticalflow_tpu_torch.geometry.epipolar import sampson_penalty
 from opticalflow_tpu_torch.models.torch_import import (reference_state_dict,
                                                         state_dict_from_jax)
 from opticalflow_tpu_torch.ops.resize import upsample_flow_to
@@ -177,14 +179,9 @@ def _check_config(cfg: TrainConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training (the JAX step's mesh) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
+            "ROADMAP Queue 1 item 6")
     if cfg.loss not in _LOSSES:
         raise ValueError(f"unknown loss {cfg.loss!r}")
-    if cfg.loss == "proxy_epipolar" and cfg.epi_soft_weight > 0:
-        raise NotImplementedError(
-            "epi_soft_weight > 0 needs the Sampson penalty of "
-            "geometry/epipolar.py, which is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
     if cfg.remat not in (False, True, "l2"):
         raise ValueError(f"remat must be False, True or 'l2', got "
                          f"{cfg.remat!r}")
@@ -227,6 +224,10 @@ def _compute_loss(model, batch: Dict[str, torch.Tensor], cfg: TrainConfig):
             alpha_smooth=cfg.alpha_smooth, photo_mask=mask)
         metrics["photo"] = photo
         metrics["smooth"] = smooth
+        if cfg.loss == "proxy_epipolar" and cfg.epi_soft_weight > 0:
+            pen = sampson_penalty(flow2, batch["fundamental"])
+            loss = loss + cfg.epi_soft_weight * pen
+            metrics["sampson"] = pen
     metrics["loss"] = loss
     return loss, metrics
 

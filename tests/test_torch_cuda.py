@@ -720,3 +720,79 @@ def test_train_step_through_the_kernels_matches_plain(cuda_device):
         scale = max(float(gp[n].abs().max()), 1e-6 * top)
         diff = float((gk[n] - gp[n]).abs().max())
         assert diff <= 1e-3 * scale, (n, diff, scale)
+
+
+def _two_view_flow(h, w, seed=0):
+    """A moving camera's dense flow over a surface of varying depth, with
+    0.3 px of noise and 10% outliers (``test_torch_epipolar.two_view_flow``
+    without JAX), as (2, H, W)."""
+    rng = np.random.RandomState(seed)
+    k = np.array([[300.0, 0, w / 2], [0, 300.0, h / 2], [0, 0, 1]])
+    ang, t = 0.03, np.array([0.4, 0.1, 0.2])
+    r = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]])
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    depth = 5.0 + 2.0 * np.sin(xx / 40.0) * np.cos(yy / 25.0)
+    pts = (np.linalg.inv(k) @ np.stack([xx, yy, np.ones_like(xx)]).reshape(
+        3, -1)) * depth.reshape(1, -1)
+    p2 = k @ (r @ pts + t[:, None])
+    x2 = (p2[:2] / p2[2:]).reshape(2, h, w)
+    flow = np.stack([x2[0] - xx, x2[1] - yy]) + rng.randn(2, h, w) * 0.3
+    bad = rng.rand(h, w) < 0.1
+    flow[:, bad] += rng.randn(2, int(bad.sum())) * 8.0
+    return torch.from_numpy(flow.astype(np.float32))
+
+
+def test_epipolar_on_the_card_matches_the_cpu(cuda_device):
+    """The RANSAC mask and F of a 384x512 flow (the CLI's --size and
+    --epi-stride 6) on the card against the same call on the CPU with the
+    same hypotheses: masks equal on >= 99.5% of pixels, F within 5e-4 of
+    its largest entry (batched float32 SVDs from cuSOLVER and LAPACK), the
+    Sampson penalty 1e-4 relative."""
+    from opticalflow_tpu_torch.geometry import epipolar
+    flow = _two_view_flow(384, 512)
+    n = len(range(0, 384, 6)) * len(range(0, 512, 6))
+    idx = torch.stack([torch.randperm(n, generator=torch.Generator(
+        ).manual_seed(i))[:8] for i in range(256)])
+    cpu_mask, cpu_f = epipolar.epipolar_mask_and_f(flow, stride=6,
+                                                   sample_idx=idx)
+    mask, f = epipolar.epipolar_mask_and_f(flow.to(cuda_device), stride=6,
+                                           sample_idx=idx)
+    assert mask.device.type == f.device.type == "cuda"
+    assert (mask.cpu() == cpu_mask).float().mean() >= 0.995
+    assert 0.0 < float(mask.float().mean()) < 1.0
+    torch.testing.assert_close(f.cpu(), cpu_f, rtol=0,
+                               atol=5e-4 * float(cpu_f.abs().max()))
+    pen = epipolar.sampson_penalty(flow[None].to(cuda_device), f[None])
+    cpu_pen = epipolar.sampson_penalty(flow[None], cpu_f[None])
+    assert float(pen) == pytest.approx(float(cpu_pen), rel=1e-4)
+    # the generator's own draws run on the card too
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    m2, f2 = epipolar.epipolar_mask_and_f(flow.to(cuda_device), g, stride=6)
+    assert bool(torch.isfinite(f2).all()) and m2.shape == (384, 512)
+
+
+def test_loader_device_prefetch_returns_the_cpu_batch_bytes(cuda_device):
+    """``Loader(device="cuda")`` pins and copies each batch from its
+    producer thread: the tensors on the card hold the numpy batch's bytes,
+    batch after batch."""
+    from opticalflow_tpu_torch.data.loader import Loader
+
+    class Samples:
+        def __len__(self):
+            return 10
+
+        def get(self, idx, epoch=0):
+            rng = np.random.default_rng((epoch, idx))
+            return {"images": rng.random((64, 96, 6)).astype(np.float32),
+                    "valid": (rng.random((64, 96)) > 0.3).astype(
+                        np.float32)}
+
+    plain = list(Loader(Samples(), 2, seed=1, num_workers=2))
+    moved = list(Loader(Samples(), 2, seed=1, num_workers=2,
+                        device=cuda_device))
+    assert len(plain) == len(moved) == 5
+    for a, b in zip(plain, moved):
+        for k in a:
+            assert b[k].device.type == "cuda"
+            np.testing.assert_array_equal(b[k].cpu().numpy(), a[k])

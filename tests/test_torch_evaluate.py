@@ -210,7 +210,7 @@ def test_eval_sintel_cli_on_the_cpu(tmp_path, fake_ckpt):
 def test_cli_refuses_what_is_not_ported(tmp_path, fake_ckpt):
     _, ckpt = fake_ckpt
     for main in (infer_kitti.main, eval_sintel.main):
-        with pytest.raises(SystemExit, match="Queue 1 item 11"):
+        with pytest.raises(SystemExit, match="Queue 1 item 6"):
             main(["--root", str(tmp_path), "--ckpt", ckpt,
                   "--data-parallel", "all", "--device", "cpu"])
     base = tmp_path / "training" / "image_2"

@@ -135,13 +135,17 @@ def test_resize_bit_exact_to_cv2_small_sizes(hs):
 
 
 def test_uint8_resize_refuses_to_shrink():
-    """Only enlarging matches cv2 (it averages areas when it shrinks), and
-    the /64 resize never shrinks; a shrinking call is refused."""
-    img = np.zeros((10, 12, 3), np.uint8)
-    assert images._enlarge_bilinear_u8(img, 10, 12).shape == (10, 12, 3)
-    for hw in ((9, 12), (10, 11)):
-        with pytest.raises(ValueError, match="only enlarges"):
-            images._enlarge_bilinear_u8(img, *hw)
+    """The uint8 resize no longer refuses a shrinking side: it shrinks as
+    cv2 does, bit for bit (``tests/test_torch_train_data.py`` holds it at
+    the frame sizes training uses), and keeps an unchanged size as it is."""
+    cv2 = pytest.importorskip("cv2")
+    img = np.random.RandomState(4).randint(0, 256, (10, 12, 3)).astype(
+        np.uint8)
+    np.testing.assert_array_equal(images.resize_bilinear_u8(img, 10, 12),
+                                  img)
+    for hw in ((9, 12), (10, 11), (5, 6), (3, 17)):
+        np.testing.assert_array_equal(images.resize_bilinear_u8(img, *hw),
+                                      cv2.resize(img, hw[::-1]))
 
 
 def test_geometry_helpers_match_jax_package():

@@ -76,6 +76,27 @@ def test_bilinear_warp_matches_jax(padding):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_bilinear_warp_gradient_matches_jax(padding):
+    """The gradient with respect to the flow, with points on every edge:
+    a zero flow on the first and last rows and columns, and a v of -1.5e-6
+    on the last row, which float32 rounds onto the edge.  There JAX's clip
+    passes half the gradient; ``F.grid_sample``'s border mode passed none."""
+    b, h, w, c = 2, 9, 13, 3
+    x = _rand((b, h, w, c), 7)
+    flow = _rand((b, h, w, 2), 8) * 3.0
+    flow[:, [0, -1], :, :] = 0.0
+    flow[:, :, [0, -1], :] = 0.0
+    flow[:, -1, 2:6, 1] = -1.5e-6
+    cot = _rand((b, h, w, c), 9)
+    ref = jax.grad(lambda f: jnp.sum(jbilinear_warp(
+        jnp.asarray(x), f, padding=padding) * cot))(jnp.asarray(flow))
+    ft = _nchw(flow).requires_grad_()
+    (bilinear_warp(_nchw(x), ft, padding=padding) * _nchw(cot)).sum().backward()
+    np.testing.assert_allclose(_nhwc(ft.grad), np.asarray(ref), atol=1e-5,
+                               rtol=1e-4)
+
+
 def test_bilinear_warp_rejects_unknown_padding():
     x = torch.zeros(1, 1, 4, 4)
     with pytest.raises(ValueError):

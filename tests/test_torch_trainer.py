@@ -281,10 +281,7 @@ def test_proxy_steps_run(port_model, loss):
 
 def test_unported_options_raise(port_model):
     opt = torch.optim.SGD(port_model.parameters(), lr=0.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TT.make_train_step(port_model, opt, TT.TrainConfig(
-            loss="proxy_epipolar", epi_soft_weight=0.1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         TT.make_train_step(port_model, opt, TT.TrainConfig(), mesh=object())
     with pytest.raises(ValueError, match="unknown loss"):
         TT.make_train_step(port_model, opt, TT.TrainConfig(loss="l1"))
