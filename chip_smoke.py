@@ -72,14 +72,32 @@ non-zero, and no result line is printed):
      and its steady rate from the steps' start times in a 4-epoch run
      without validation), the loader alone and the step alone on a batch
      on the card;
- 11. one JSON line listing every kernel with its launches on its path,
+ 11. streaming video: on the card, K1/K2 against the plain correlation at
+     every level the video path gives it (768x1280 and 1088x1920, B=4,
+     float32 and bfloat16, phase 2's tolerances), the I420 unpack
+     bit-exact to ``io/yuv``, the grid decimation within 1e-4 of the
+     host's, and in float32 parity mode the i420 runner against the bgr
+     runner fed I420-round-tripped frames (1e-4); then
+     ``cli/extract_video`` with the fake weights on a 240-frame 720x1280
+     moving clip (.y4m, written by the port) at B=4 in bfloat16, in each
+     mode (arrows with both uploads, color, vanish --shrink 0.75, topview;
+     40-240 frames each) and in arrows on a 64-frame 1080x1920 clip: each
+     output's frame count and size (N-1 frames), 5 K1 launches a window,
+     (B+1) frames' bytes uploaded a window (I420: 1.5 bytes a pixel,
+     unpadded); each run's fps from its first frame read to its writer's
+     release, its fill, and the host's busy ms a frame and share of the
+     run by stage and thread (decode, warp, upload, issue, wait, draw,
+     encode); the forward alone; the engine's ``resize_fixed`` (engine
+     and ``cli/infer_kitti``) against the port on the CPU (1e-4) and
+     ``flow_from_batch`` against the pad path;
+ 12. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
 Each kernel's launch count is set to 0 just before its path and read just
 after: the CLI and engine for K1, the probe entry points for K3 and K4, the
 training steps for B1 (and K1 there), the eval CLIs (K1), the training
-CLI's runs (K1 and B1).
+CLI's runs (K1 and B1), the video CLIs' runs (K1).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -186,20 +204,15 @@ def phase_build():
                     f"{name} spills: {line.strip()}"
 
 
-def phase_corr_vs_plain():
-    """K1/K2 against the plain version, then timed.  Returns (max f32
-    error, 448x1024 rows, 1088x1920 rows, bfloat16 rows)."""
+def corr_check(shapes, g, tag: str):
+    """K1/K2 against the plain correlation on the card at each (batch,
+    (name, H, W, C)) of ``shapes``, float32 and bfloat16, on random inputs;
+    fails on any value over the tolerance.  Returns the max abs error by
+    dtype."""
     import torch
-    from opticalflow_tpu_torch.ops.corr_cuda import (correlation_cuda,
-                                                     launch_plan)
+    from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
     from opticalflow_tpu_torch.ops.correlation import correlation_plain
-    from opticalflow_tpu_torch.scripts._timing import (cuda_ms, device_ms,
-                                                       host_ms)
-
-    g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    shapes = [(b, s) for b in (1, 8) for s in LEVELS] + [
-        (1, s) for s in EXTRA_SHAPES]
     for b, (name, h, w, c) in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             f1 = torch.randn(b, c, h, w, generator=g, device="cuda").to(dtype)
@@ -221,10 +234,28 @@ def phase_corr_vs_plain():
             bad = int((err > tol).sum())
             e = float(err.max())
             worst[dtype] = max(worst[dtype], e)
-            log(f"[2] {name:13s} B={b} {str(dtype)[6:]:8s} ({h}x{w}x{c}) "
+            log(f"{tag} {name:13s} B={b} {str(dtype)[6:]:8s} ({h}x{w}x{c}) "
                 f"max|kernel-plain| {e:.3e}" + ("" if not bad else
                                                  f"  {bad} OVER TOLERANCE"))
             assert bad == 0, f"kernel disagrees with plain at {name} {dtype}"
+            del f1, f2, out, ref, err, tol
+    return worst
+
+
+def phase_corr_vs_plain():
+    """K1/K2 against the plain version, then timed.  Returns (max f32
+    error, 448x1024 rows, 1088x1920 rows, bfloat16 rows)."""
+    import torch
+    from opticalflow_tpu_torch.ops.corr_cuda import (correlation_cuda,
+                                                     launch_plan)
+    from opticalflow_tpu_torch.ops.correlation import correlation_plain
+    from opticalflow_tpu_torch.scripts._timing import (cuda_ms, device_ms,
+                                                       host_ms)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(b, s) for b in (1, 8) for s in LEVELS] + [
+        (1, s) for s in EXTRA_SHAPES]
+    worst = corr_check(shapes, g, "[2]")
 
     def time_levels(levels, batches, frame, dtype=torch.float32):
         rows = []
@@ -1320,6 +1351,401 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
             "step_ms": ms, "step_ms_median": step_ms, "card": card}
 
 
+
+# ------------------------------------------------------------ phase 11
+
+# the video path: a 720p clip at B=4 in each overlay mode, one 1080p pass
+# (the levels of K2's domain), bfloat16 (extract_video's default).  Each run
+# is timed whole, from its first frame read to its writer's release, over
+# enough pairs that the pipeline's fill (decoding and issuing the first
+# depth + 1 windows before the first result) is a small share of it.
+VIDEO_H, VIDEO_W, VIDEO_FRAMES = 720, 1280, 240
+HD_H, HD_W, HD_FRAMES = 1080, 1920, 64
+VIDEO_B = 4
+FIXED_SIZE = (384, 1280)        # resize_fixed's image size, the v1 default
+# (mode, flags, frames read): the modes whose draw is slow read fewer
+# frames, so that each run lasts 5-8 s
+VIDEO_RUNS = (("arrows", (), 240), ("arrows", ("--upload", "i420"), 160),
+              ("color", (), 80), ("vanish", ("--shrink", "0.75"), 160),
+              ("topview", (), 40))
+# the correlation inputs of the video path: the levels of a 720p frame
+# padded to 768x1280 (and LEVELS_1080 at 1080p), at B=VIDEO_B
+LEVELS_768 = (("L2", 192, 320, 32), ("L3", 96, 160, 64), ("L4", 48, 80, 96),
+              ("L5", 24, 40, 128), ("L6", 12, 20, 196))
+
+
+def write_clip(path: str, frames) -> float:
+    """``frames`` as a .y4m by the port's writer; host ms a frame."""
+    from opticalflow_tpu_torch.io.video import Y4MWriter
+    h, w = frames[0].shape[:2]
+    t0 = time.perf_counter()
+    wr = Y4MWriter(path, 30.0, (w, h))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    return (time.perf_counter() - t0) / len(frames) * 1e3
+
+
+class PipelineRecorder:
+    """Instruments the ``cli/extract_video`` runs made while the context
+    lasts (this script's instrumentation; the CLI is unchanged): keeps the
+    ``VideoFlowRunner`` each builds, the host's busy seconds by stage (the
+    decode thread inside ``io/video.read_frames``, the main thread's
+    top-view warps and draws, the encode thread's ``.y4m`` writes) and the
+    times of the first frame read, the first draw and the writer's
+    release."""
+
+    def __enter__(self):
+        from opticalflow_tpu_torch import video
+        from opticalflow_tpu_torch.cli import extract_video
+        from opticalflow_tpu_torch.io import video as vio
+        from opticalflow_tpu_torch.viz import topview
+        self.runners = runners = []
+        self.busy = busy = {"decode": 0.0, "warp": 0.0, "draw": 0.0,
+                            "encode": 0.0}
+        self.marks = marks = {}
+        self._saved = []
+
+        def timed(stage, real, mark=None):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                if mark:
+                    marks.setdefault(mark, t0)
+                try:
+                    return real(*a, **k)
+                finally:
+                    busy[stage] += time.perf_counter() - t0
+            return call
+
+        def reads(real):
+            def gen(*a, **k):
+                it = real(*a, **k)
+                step = timed("decode", lambda: next(it, None), "first_read")
+                while (frame := step()) is not None:
+                    yield frame
+            return gen
+
+        def released(real):
+            def call(*a, **k):
+                real(*a, **k)
+                marks["released"] = time.perf_counter()
+            return call
+
+        def recorded(real):
+            class Recorded(real):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    runners.append(self)
+            return Recorded
+
+        for owner, name, make in (
+                (video, "VideoFlowRunner", recorded),
+                (video, "read_frames", reads),
+                (topview, "warp_topview", lambda r: timed("warp", r)),
+                (extract_video.Overlay, "__call__",
+                 lambda r: timed("draw", r, "first_draw")),
+                (vio.Y4MWriter, "write", lambda r: timed("encode", r)),
+                (vio.AsyncVideoWriter, "release", released)):
+            real = getattr(owner, name)
+            self._saved.append((owner, name, real))
+            setattr(owner, name, make(real))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+
+
+class FlowRecorder:
+    """Keeps every flow ``FlowEngine.flow_from_pairs`` returns while the
+    context lasts (instrumentation of this script)."""
+
+    def __enter__(self):
+        from opticalflow_tpu_torch.engine import FlowEngine
+        self._real = real = FlowEngine.flow_from_pairs
+        self.flows = flows = []
+
+        def recorded(engine, *a, **k):
+            out = real(engine, *a, **k)
+            flows.append(out)
+            return out
+
+        FlowEngine.flow_from_pairs = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from opticalflow_tpu_torch.engine import FlowEngine
+        FlowEngine.flow_from_pairs = self._real
+
+
+def video_cli(argv, n_frames: int, h: int, w: int):
+    """``cli/extract_video.main(argv)`` in this process, instrumented, on
+    ``n_frames`` frames of (h, w); checks its output (the frame count and
+    size from the file's index, its first, middle and last frames decoded)
+    and returns its timings: the whole run's fps, the fill, each stage's
+    host ms a frame and its share of the run, and the fps the CLI printed
+    (timed from its first result, as the JAX CLI's)."""
+    import contextlib
+    import io
+    from opticalflow_tpu_torch.cli import extract_video
+    from opticalflow_tpu_torch.io.video import Y4MFile
+    buf = io.StringIO()
+    with PipelineRecorder() as rec, contextlib.redirect_stdout(buf):
+        rc = extract_video.main(argv)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    assert rc == 0 and len(rec.runners) == 1, (rc, len(rec.runners))
+    printed = [float(line.split("(")[1].split()[0])
+               for line in text.splitlines() if "fps steady-state" in line]
+    out = Y4MFile(argv[1])
+    ow = 2 * w if "color" in argv else w
+    assert len(out) == n_frames - 1, (len(out), n_frames)
+    assert (out.height, out.width) == (h, ow), (out.height, out.width)
+    for i in (0, len(out) // 2, len(out) - 1):
+        assert out.frame(i).shape == (h, ow, 3)
+    runner, marks, busy = rec.runners[0], rec.marks, rec.busy
+    pairs = n_frames - 1
+    run_s = marks["released"] - marks["first_read"]
+    st = runner.stats
+    row = {"frames": n_frames, "fps": pairs / run_s, "run_s": run_s,
+           "fill_s": marks["first_draw"] - marks["first_read"],
+           "cli_printed_fps": printed[-1], "runner": runner,
+           "windows": st["windows"], "bytes_uploaded": st["bytes_uploaded"]}
+    # host ms a frame (decode, warp: every frame read; the rest a pair)
+    # and the share of the run each thread was busy in that stage
+    for stage, sec, n in (("decode", busy["decode"], n_frames),
+                          ("warp", busy["warp"], n_frames),
+                          ("upload", st["upload_s"], pairs),
+                          ("issue", st["issue_s"], pairs),
+                          ("wait", st["wait_s"], pairs),
+                          ("draw", busy["draw"], pairs),
+                          ("encode", busy["encode"], pairs)):
+        row[f"{stage}_ms"] = sec / n * 1e3
+        row[f"{stage}_share"] = sec / run_s
+    return row
+
+
+def phase_video_checks(sd):
+    """The video path's device ops against their plain versions on the
+    card, before its counted run: K1/K2 at the shapes the path gives them,
+    the I420 unpack, the grid decimation, and in float32 parity mode the
+    i420 runner against the bgr runner fed I420-round-tripped frames."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io.yuv import i420_to_rgb, rgb_to_i420
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.scripts._timing import cuda_ms
+    from opticalflow_tpu_torch.video import (VideoFlowRunner, decimate_flow,
+                                             yuv_i420_to_rgb_u8)
+
+    worst = corr_check([(VIDEO_B, s) for s in LEVELS_768 + LEVELS_1080],
+                       torch.Generator(device="cuda").manual_seed(11),
+                       "[11] K1 at the video path's levels")
+    log(f"[11] K1 against the plain correlation at every level of 768x1280 "
+        f"and 1088x1920, B={VIDEO_B}: max abs float32 "
+        f"{worst[torch.float32]!r}, bfloat16 {worst[torch.bfloat16]!r} "
+        f"(phase 2's tolerances)")
+
+    rng = np.random.RandomState(12)
+    frames = moving_frames(rng, 6, VIDEO_H, VIDEO_W)
+    packed = np.stack([rgb_to_i420(f) for f in frames])
+    dev = torch.from_numpy(packed).cuda()
+    got = yuv_i420_to_rgb_u8(dev).cpu().numpy()
+    for g, p in zip(got, packed):
+        assert np.array_equal(g, i420_to_rgb(p)), "I420 unpack off io/yuv"
+    ms = cuda_ms(lambda _: yuv_i420_to_rgb_u8(dev), 20)
+    log(f"[11] yuv_i420_to_rgb_u8 on the card, 6 frames 720x1280: "
+        f"bit-exact to io/yuv's numpy; {ms:.3f} ms by CUDA events")
+
+    q = torch.from_numpy(rng.randn(VIDEO_B, 192, 320, 2).astype(np.float32)
+                         * 6)
+    host = decimate_flow(q, 16, VIDEO_H, VIDEO_W)
+    card = decimate_flow(q.cuda(), 16, VIDEO_H, VIDEO_W).cpu()
+    d_err = float((card - host).abs().max())
+    log(f"[11] decimate_flow on the card vs the host: max abs {d_err!r} "
+        f"(bound 1e-4)")
+    assert d_err <= 1e-4, d_err
+
+    def roundtrip(f):
+        return np.ascontiguousarray(i420_to_rgb(rgb_to_i420(
+            np.ascontiguousarray(f[..., ::-1])))[..., ::-1])
+
+    kw = dict(batch=VIDEO_B, device="cuda")
+    a = [f for _, _, f in VideoFlowRunner(PWCDCNet(), sd, upload="i420",
+                                          **kw).run(iter(frames))]
+    b = [f for _, _, f in VideoFlowRunner(PWCDCNet(), sd, upload="bgr",
+                                          **kw).run(roundtrip(f)
+                                                    for f in frames)]
+    r_err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    log(f"[11] float32 parity: the i420 runner against the bgr runner on "
+        f"I420-round-tripped frames, 5 pairs of 720x1280: max abs "
+        f"{r_err!r} (bound 1e-4)")
+    assert len(a) == len(b) == 5 and r_err <= 1e-4, (len(a), r_err)
+    return {"k1_err_f32": worst[torch.float32],
+            "k1_err_bf16": worst[torch.bfloat16],
+            "k1_shapes": [[VIDEO_B, *s[1:]] for s in LEVELS_768 + LEVELS_1080],
+            "i420_ms": ms, "decimate_err": d_err, "runner_i420_err": r_err}
+
+
+def log_video_row(what: str, row, card: str) -> None:
+    log(f"[11] extract_video {what} B={VIDEO_B} bf16, {row['frames']} "
+        f"frames: {row['fps']!r} fps over the whole run ({row['run_s']!r} s "
+        f"from the first frame read to the writer's release; the fill to "
+        f"the first result {row['fill_s']!r} s; the CLI printed "
+        f"{row['cli_printed_fps']} fps, timed from its first result); "
+        f"{row['windows']} windows, K1 {row['k1_launches']} launches; host "
+        f"ms a frame and share of the run busy: decode thread "
+        f"{row['decode_ms']:.2f} ({row['decode_share']:.0%}), warp "
+        f"{row['warp_ms']:.2f} ({row['warp_share']:.0%}), upload "
+        f"{row['upload_ms']:.2f} ({row['upload_share']:.0%}), issue "
+        f"{row['issue_ms']:.2f} ({row['issue_share']:.0%}), readback wait "
+        f"{row['wait_ms']:.2f} ({row['wait_share']:.0%}), draw "
+        f"{row['draw_ms']:.2f} ({row['draw_share']:.0%}), encode thread "
+        f"{row['encode_ms']:.2f} ({row['encode_share']:.0%}) [{card}]")
+
+
+def phase_video(sd, tmp, corr_fwd, card: str):
+    """The video CLIs on the card: every overlay mode on a 720p clip, one
+    1080p pass, their outputs checked; K1 launches and upload bytes per
+    window; each run's fps over the whole run and host ms a frame by
+    stage.  Returns its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io.video import read_frames
+
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    rng = np.random.RandomState(11)
+    clip = os.path.join(tmp, "clip720.y4m")
+    encode_ms = write_clip(clip, moving_frames(rng, VIDEO_FRAMES, VIDEO_H,
+                                               VIDEO_W))
+    t0 = time.perf_counter()
+    n_alone = len(list(read_frames(clip, max_frames=20)))
+    decode_ms = (time.perf_counter() - t0) / n_alone * 1e3
+    log(f"[11] clip: {VIDEO_FRAMES} frames {VIDEO_H}x{VIDEO_W} .y4m; host "
+        f"alone, one thread: encode {encode_ms:.2f} ms a frame (RGB->I420, "
+        f"write), decode {decode_ms:.2f} ms a frame (read, I420->RGB; "
+        f"{n_alone} frames) [{card}]")
+    h64, w64 = -(-VIDEO_H // 64) * 64, -(-VIDEO_W // 64) * 64
+    results = {"encode_ms": encode_ms, "decode_ms": decode_ms, "modes": {}}
+    for mode, extra, n in VIDEO_RUNS:
+        name = mode + ("_i420" if "i420" in extra else "")
+        before = corr_fwd.launches
+        row = video_cli([clip, os.path.join(tmp, f"out_{name}.y4m"), "--ckpt",
+                         ckpt, "--mode", mode, "--batch", str(VIDEO_B),
+                         "--device", "cuda", "--max-frames", str(n), *extra],
+                        n, VIDEO_H, VIDEO_W)
+        row["k1_launches"] = launched = corr_fwd.launches - before
+        windows = row["windows"]
+        assert windows == -(-(n - 1) // VIDEO_B), windows
+        assert launched == 5 * windows, (launched, windows)
+        row["bytes_per_window"] = per_window = \
+            row.pop("bytes_uploaded") / windows
+        want = (VIDEO_B + 1) * (VIDEO_H * VIDEO_W * 3 // 2 if "i420" in extra
+                                else h64 * w64 * 3)
+        assert per_window == want, (per_window, want)
+        del row["runner"]
+        results["modes"][name] = row
+        log_video_row(f"--mode {mode} {' '.join(extra)} {VIDEO_H}x{VIDEO_W}"
+                      f" ({per_window:.0f} bytes uploaded a window)", row,
+                      card)
+
+    # 1080p: the correlation levels of K2's domain
+    hd = os.path.join(tmp, "clip1080.y4m")
+    write_clip(hd, moving_frames(rng, HD_FRAMES, HD_H, HD_W))
+    before = corr_fwd.launches
+    row = video_cli([hd, os.path.join(tmp, "out1080.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B), "--device",
+                     "cuda"], HD_FRAMES, HD_H, HD_W)
+    row["k1_launches"] = launched = corr_fwd.launches - before
+    windows = row["windows"]
+    assert launched == 5 * windows == 5 * -(-(HD_FRAMES - 1) // VIDEO_B), \
+        (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    results["modes"]["arrows_1080"] = row
+    log_video_row(f"--mode arrows {HD_H}x{HD_W}", row, card)
+    assert "cv2" not in sys.modules, "the port imported OpenCV"
+    return results
+
+
+def phase_video_forward(sd, card: str):
+    """The video CLIs' forward alone (bf16 fast, B=4) by CUDA events."""
+    import torch
+    from opticalflow_tpu_torch.cli.extract_flow import build_model
+    from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+    from opticalflow_tpu_torch.scripts._timing import cuda_ms
+    model = build_model("new", "bfloat16")
+    model.load_state_dict(reference_state_dict(sd))
+    model = model.cuda().eval()
+    out = {}
+    for h, w in ((768, 1280), (1088, 1920)):
+        x = torch.rand(VIDEO_B, 6, h, w, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+        with torch.inference_mode():
+            out[f"{h}x{w}"] = ms = cuda_ms(lambda _: model(x), 10)
+        log(f"[11] forward alone {h}x{w} B={VIDEO_B} bf16 fast: {ms:.3f} ms "
+            f"({ms / VIDEO_B:.3f} ms a pair) [{card}]")
+    return out
+
+
+def phase_video_engine(sd, tmp):
+    """The engine's leftovers on the card: ``resize_fixed`` on the golden
+    pair through the engine and through ``cli/infer_kitti`` against the
+    port on the CPU, and ``flow_from_batch`` against the pad path."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import infer_kitti
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.io.images import (load_image,
+                                                 pad_to_multiple_of_64,
+                                                 preprocess_pair)
+    from opticalflow_tpu_torch.io.kitti import write_flow_png
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+
+    im1, im2 = (load_image(os.path.join(GOLD, f"real_im{i}.png"))
+                for i in (1, 2))
+    kw = dict(preset="rgb_imagenet", size_mode="resize_fixed",
+              image_size=FIXED_SIZE)
+    cpu = FlowEngine(PWCDCNet(), sd, flow_scale=1.0, device="cpu")
+    ref = cpu.flow_from_pair(im1, im2, **kw)
+    engine = FlowEngine(PWCDCNet(), sd, flow_scale=1.0, device="cuda")
+    d_engine = epe(engine.flow_from_pair(im1, im2, **kw), ref)
+
+    kroot = os.path.join(tmp, "kitti_fixed", "training")
+    for d in ("image_2", "flow_occ"):
+        os.makedirs(os.path.join(kroot, d))
+    write_png(os.path.join(kroot, "image_2", "000000_10.png"), im1)
+    write_png(os.path.join(kroot, "image_2", "000000_11.png"), im2)
+    write_flow_png(os.path.join(kroot, "flow_occ", "000000_10.png"), ref,
+                   np.ones(ref.shape[:2], bool))
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    with FlowRecorder() as rec:
+        rc, printed, _ = run_cli(infer_kitti.main, [
+            "--root", os.path.dirname(kroot), "--ckpt", ckpt, "--size-mode",
+            "resize_fixed", "--image-size", *map(str, FIXED_SIZE), "--batch",
+            "1", "--device", "cuda"])
+    assert rc == 0 and len(rec.flows) == 1, (rc, len(rec.flows))
+    d_cli = epe(rec.flows[0][0], ref)
+    log(f"[11] resize_fixed ({FIXED_SIZE[0]}x{FIXED_SIZE[1]}) on the golden pair, "
+        f"card against the port on the CPU: engine mean EPE {d_engine:.3e}, "
+        f"cli/infer_kitti {d_cli:.3e} (bound 1e-4); its printed EPE against "
+        f"that flow as a 16-bit PNG {printed} (the PNG's 1/64 px)")
+    assert d_engine <= 1e-4 and d_cli <= 1e-4 and printed <= 0.02
+
+    x, _, _ = pad_to_multiple_of_64(preprocess_pair(im1, im2,
+                                                    preset="rgb_imagenet"))
+    got = engine.flow_from_batch(x, align_corners=True)[0, :180, :318]
+    pad = engine.flow_from_pair(im1, im2, preset="rgb_imagenet",
+                                size_mode="pad")
+    d_batch = float(np.abs(got.cpu().numpy() - pad).max())
+    log(f"[11] flow_from_batch (align_corners) against the pad path on the "
+        f"same input: max abs {d_batch!r} (bound 1e-4)")
+    assert d_batch <= 1e-4
+    return {"resize_fixed_epe": d_engine, "infer_kitti_epe": d_cli,
+            "flow_from_batch_err": d_batch}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1401,6 +1827,20 @@ def main() -> int:
         train_cli = phase_train_cli(sd, tmp, correlation_cuda,
                                     correlation_bwd_cuda, card_line())
 
+    t_video = time.perf_counter()
+    video_checks = phase_video_checks(sd)
+    zero_counts()                           # the video path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        video = phase_video(sd, tmp, correlation_cuda, card_line())
+        video_launches = correlation_cuda.launches   # ... and ends here
+        assert video_launches > 0
+        video["forward_ms"] = phase_video_forward(sd, card_line())
+        video["engine"] = phase_video_engine(sd, tmp)
+    video["checks"] = video_checks
+    video["card"] = card_line()
+    video["phase_s"] = time.perf_counter() - t_video
+    log(f"[11] phase 11 took {video['phase_s']:.1f} s")
+
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
     k2 = summed(k2_rows)
@@ -1423,7 +1863,9 @@ def main() -> int:
          "launches_train": train["launches"]["correlation_fwd"],
          "launches_eval": eval_launches, "eval": evals,
          # the training CLI's runs (phase 10: steps, validation, masks)
-         "launches_train_cli": train_cli["launches"]["correlation_fwd"]},
+         "launches_train_cli": train_cli["launches"]["correlation_fwd"],
+         # the video CLIs' runs (phase 11: 5 a window, 720p and 1080p)
+         "launches_video": video_launches, "video": video},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax

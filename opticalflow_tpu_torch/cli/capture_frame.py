@@ -1,0 +1,43 @@
+"""Grab frame N of a video as a PNG (a fixture generator: the reference's
+``capture_frame.py`` capability), without OpenCV.
+
+Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is a
+``.y4m`` file or a directory of PNG frames (``io/video.py``)::
+
+    python -m opticalflow_tpu_torch.cli.capture_frame clip.y4m 10 frame.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Save one video frame as PNG")
+    p.add_argument("video", help=".y4m file or PNG frame directory")
+    p.add_argument("frame", type=int)
+    p.add_argument("out", nargs="?", default=None)
+    args = p.parse_args(argv)
+
+    from opticalflow_tpu_torch.io.images import encode_png
+    from opticalflow_tpu_torch.io.video import read_frame, video_info
+    try:
+        total = int(video_info(args.video)["frames"])
+    except (OSError, ValueError) as e:
+        print(f"error: cannot open {args.video}: {e}", file=sys.stderr)
+        return 1
+    if not 0 <= args.frame < total:
+        print(f"error: frame {args.frame} out of range (video has {total})",
+              file=sys.stderr)
+        return 1
+    frame = read_frame(args.video, args.frame)
+    out = args.out or f"{args.video}frame_{args.frame}.png"
+    with open(out, "wb") as f:
+        f.write(encode_png(frame[..., ::-1]))
+    print(f"wrote {out} ({frame.shape[1]}x{frame.shape[0]})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,8 @@ Counterpart of ``opticalflow_tpu.cli.infer_kitti`` with the same flags plus
         --ckpt ckpt.pth.tar --year 2015 --flow flow_occ --save-dir out/
 
 ``--data-parallel`` takes only 1 (multi-GPU evaluation is ROADMAP Queue 1
-item 6); ``--size-mode resize_fixed`` raises as the engine does.
+item 6).  ``--size-mode resize_fixed`` is the v1 script's PIL-bilinear
+resize to ``--image-size`` (default 384 1280), in numpy.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def build_parser():
                    choices=("pad", "pad_ref", "resize", "resize_fixed"),
                    help="pad = corrected v2 pipeline (default); pad_ref = "
                         "the reference's exact inference_kitti.py order; "
-                        "resize_fixed (the v1 script) is not ported")
+                        "resize_fixed = the v1 script's PIL resize to "
+                        "--image-size")
     p.add_argument("--image-size", type=int, nargs=2, metavar=("H", "W"),
                    default=None,
                    help="fixed /64 input size for --size-mode resize_fixed")

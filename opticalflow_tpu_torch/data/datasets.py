@@ -13,9 +13,9 @@ PNG reader; batching and prefetch live in ``data/loader.py``.
     16-bit GT flow (``inference_kitti.py:134-202``);
   * :class:`SintelPairs` — MPI-Sintel clean/final with ``.flo`` GT;
   * :class:`ConsecutiveFrames` — frame_t/frame_{t+stride} pairs from a
-    directory of frames for self-supervised training
-    (``train_pseudo.py:23-62``).  A video file is not read yet: the port
-    has no container reader (ROADMAP Queue 1 item 3).
+    directory of frames or a ``.y4m`` video for self-supervised training
+    (``train_pseudo.py:23-62``); other containers (mp4/H.264) are not read
+    (ROADMAP Queue 1 item 8).
 
 The JAX module resizes with OpenCV; here ``io.images`` does, with
 OpenCV's rules: the uint8 frames through ``resize_bilinear_u8``
@@ -38,6 +38,7 @@ from opticalflow_tpu_torch.io.images import (load_image, preprocess_pair,
                                              resize_bilinear_u8,
                                              resize_nearest)
 from opticalflow_tpu_torch.io.kitti import read_flow_png
+from opticalflow_tpu_torch.io.video import Y4MFile
 
 __all__ = ["KittiFlowTrain", "KittiPairsEval", "SintelPairs",
            "ConsecutiveFrames"]
@@ -208,25 +209,33 @@ class SintelPairs:
 
 class ConsecutiveFrames:
     """frame_t / frame_{t+stride} pairs for self-supervised training, from a
-    directory of ``*.png`` / ``*.jpg`` frames (``train_pseudo.py:23-62``),
-    each resized to ``size_hw`` and preprocessed with ``preset``.  PNG
-    frames need nothing beyond numpy; JPEG frames need imageio or PIL, and
-    ``load_image`` says so when neither is installed.  A video file raises:
-    the port has no container reader yet (ROADMAP Queue 1 item 3)."""
+    directory of ``*.png`` / ``*.jpg`` frames or a ``.y4m`` video
+    (``io/video.Y4MFile``, frames read by index) (``train_pseudo.py:23-62``),
+    each resized to ``size_hw`` and preprocessed with ``preset``.  PNG and
+    y4m frames need nothing beyond numpy; JPEG frames need imageio or PIL,
+    and ``load_image`` says so when neither is installed.  Another video
+    container (mp4/H.264) raises: the port has no decoder for it (ROADMAP
+    Queue 1 item 8)."""
 
     def __init__(self, source: str, size_hw: Tuple[int, int] = (384, 512),
                  stride: int = 1, preset: str = "rgb_imagenet"):
         self.size_hw = size_hw
         self.preset = preset
-        if not os.path.isdir(source):
-            if os.path.exists(source):
-                raise NotImplementedError(
-                    f"{source!r} is not a directory: reading frames from a "
-                    "video file is not ported yet (ROADMAP Queue 1 item 3); "
-                    "pass a directory of PNG frames")
+        self.video = None
+        if os.path.isdir(source):
+            self.frames = sorted(glob(os.path.join(source, "*.png"))
+                                 + glob(os.path.join(source, "*.jpg")))
+        elif source.lower().endswith(".y4m"):
+            self.video = Y4MFile(source)
+            self.frames = list(range(len(self.video)))
+        elif os.path.exists(source):
+            raise NotImplementedError(
+                f"{source!r}: the port reads frames from a directory of PNG "
+                "frames or a .y4m file; other video containers (mp4/H.264) "
+                "are ROADMAP Queue 1 item 8 (convert with `ffmpeg -i in.mp4 "
+                "-pix_fmt yuv420p out.y4m`)")
+        else:
             raise FileNotFoundError(source)
-        self.frames = sorted(glob(os.path.join(source, "*.png"))
-                             + glob(os.path.join(source, "*.jpg")))
         self.stride = stride
         self.index = [(i, i + stride)
                       for i in range(0, len(self.frames) - stride)]
@@ -236,9 +245,14 @@ class ConsecutiveFrames:
     def __len__(self):
         return len(self.index)
 
+    def _read(self, key) -> np.ndarray:
+        if self.video is None:
+            return load_image(self.frames[key])
+        return np.ascontiguousarray(self.video.frame(key)[..., ::-1])
+
     def __getitem__(self, idx: int):
         a, b = self.index[idx]
         h, w = self.size_hw
-        im1 = resize_bilinear_u8(load_image(self.frames[a]), h, w)
-        im2 = resize_bilinear_u8(load_image(self.frames[b]), h, w)
+        im1 = resize_bilinear_u8(self._read(a), h, w)
+        im2 = resize_bilinear_u8(self._read(b), h, w)
         return {"images": preprocess_pair(im1, im2, self.preset)[0]}

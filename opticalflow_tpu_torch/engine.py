@@ -21,10 +21,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opticalflow_tpu_torch.io import images as imio
+from opticalflow_tpu_torch.io.pil_resize import (resize_pil_bilinear_f32,
+                                                 resize_pil_bilinear_u8)
 from opticalflow_tpu_torch.models.pwcnet import FLOW_SCALE, PWCDCNet
 from opticalflow_tpu_torch.models.torch_import import reference_state_dict
 from opticalflow_tpu_torch.ops.resize import (flow_resize,
-                                              resize_linear_antialiased)
+                                              resize_linear_antialiased,
+                                              upsample_flow_to)
 
 __all__ = ["FlowEngine", "resolve_device"]
 
@@ -149,9 +152,13 @@ class FlowEngine:
         anisotropic vector rescale, for parity with metrics the reference
         computed.
 
-        ``image_size`` is the fixed input size of ``size_mode=
-        "resize_fixed"`` (the v1 script), which is not ported and raises;
-        the other modes take ``None``, as the JAX engine's signature does.
+        ``size_mode="resize_fixed"`` follows the v1 script
+        (``inference.py:296-324``): PIL-bilinear resize of the frames to
+        the fixed ``image_size`` (a multiple of 64; 384×1280 there), infer,
+        PIL-bilinear resize of each quarter-res flow channel straight to
+        (H, W) with the vector rescale (``inference.py:162-190``).  PIL's
+        resize is reproduced in numpy (``io/pil_resize.py``).  The other
+        modes take ``image_size=None``.
         """
         return self.flow_from_pairs([im1], [im2], preset=preset,
                                     size_mode=size_mode,
@@ -168,13 +175,9 @@ class FlowEngine:
         if preset not in imio.PREPROC_PRESETS:
             raise ValueError(f"unknown preprocessing preset {preset!r}; "
                              f"choose from {imio.PREPROC_PRESETS}")
-        if size_mode == "resize_fixed":
-            raise NotImplementedError(
-                "size_mode='resize_fixed' (PIL resize to a fixed size) is not "
-                "ported yet (ROADMAP Queue 1 item 2)")
-        if size_mode not in ("resize", "pad", "pad_ref"):
-            raise ValueError("size_mode must be 'resize', 'pad' or "
-                             f"'pad_ref', got {size_mode!r}")
+        if size_mode not in ("resize", "pad", "pad_ref", "resize_fixed"):
+            raise ValueError("size_mode must be 'resize', 'pad', 'pad_ref' "
+                             f"or 'resize_fixed', got {size_mode!r}")
         h, w = im1s[0].shape[:2]
         for im in (*im1s, *im2s):
             if im.shape[:2] != (h, w):
@@ -183,12 +186,57 @@ class FlowEngine:
                     f"got {im.shape[:2]} vs {(h, w)} — group by shape first")
         im1s = [_as_uint8_frame(im, "im1") for im in im1s]
         im2s = [_as_uint8_frame(im, "im2") for im in im2s]
+        if size_mode == "resize_fixed":
+            return self._flow_resize_fixed(im1s, im2s, preset, image_size,
+                                           h, w)
         with torch.inference_mode():
             if size_mode == "resize":
                 flow = self._flow_resize(im1s, im2s, preset, h, w)
             else:
                 flow = self._flow_pad(im1s, im2s, preset, size_mode, h, w)
             return flow.permute(0, 2, 3, 1).cpu().numpy()
+
+    def flow_from_batch(self, x, out_size: Optional[Tuple[int, int]] = None,
+                        align_corners: bool = False) -> torch.Tensor:
+        """x: (B, H64, W64, 6) preprocessed float input, the JAX engine's
+        layout (numpy or a tensor) → (B, h, w, 2) flow on the engine's
+        device at ``out_size`` (default (H64, W64)): the quarter-res flow
+        ×flow_scale, upsampled half-pixel (``upsample_flow_to``) or with
+        ``align_corners`` (``flow_resize``), vectors rescaled."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        h, w = out_size if out_size is not None else x.shape[1:3]
+        with torch.inference_mode():
+            q = self.model(x.permute(0, 3, 1, 2).contiguous()) \
+                * self.flow_scale
+            resize = flow_resize if align_corners else upsample_flow_to
+            return resize(q, int(h), int(w)).permute(0, 2, 3, 1)
+
+    def _flow_resize_fixed(self, im1s, im2s, preset, image_size, h, w):
+        """The v1 script's path: frames resized by PIL-bilinear to the
+        fixed /64 ``image_size`` on the host, one forward, then each
+        quarter-res flow channel PIL-bilinear-resized (mode ``F``) to the
+        original (H, W), u scaled by W/Wq and v by H/Hq."""
+        if image_size is None:
+            raise ValueError("size_mode='resize_fixed' needs image_size=(H, W)")
+        fh, fw = (int(v) for v in image_size)
+        if fh % 64 or fw % 64:
+            raise ValueError(
+                f"image_size must be a multiple of 64 (six stride-2 levels); "
+                f"got {(fh, fw)} — the reference crashes on non-/64 sizes")
+        x = np.stack([np.concatenate((resize_pil_bilinear_u8(a, fh, fw),
+                                      resize_pil_bilinear_u8(b, fh, fw)),
+                                     axis=-1) for a, b in zip(im1s, im2s)])
+        with torch.inference_mode():
+            q = self._quarter_flow_u8(x, preset).permute(0, 2, 3, 1)
+            q = q.cpu().numpy()
+        qh, qw = q.shape[1:3]
+        out = np.empty((q.shape[0], h, w, 2), np.float32)
+        for i in range(q.shape[0]):
+            out[i, :, :, 0] = resize_pil_bilinear_f32(q[i, :, :, 0], h, w) \
+                * (w / float(qw))
+            out[i, :, :, 1] = resize_pil_bilinear_f32(q[i, :, :, 1], h, w) \
+                * (h / float(qh))
+        return out
 
     def _flow_resize(self, im1s, im2s, preset, h, w) -> torch.Tensor:
         x = np.stack([np.concatenate(
@@ -232,12 +280,12 @@ class FlowEngine:
         return flow_resize(q, hp, wp)[:, :, :h, :w]
 
     def warmup(self, height: int, width: int, batch: int = 1,
-               size_modes=("resize", "pad"),
-               preset: str = "bgr_unit") -> None:
+               size_modes=("resize", "pad"), preset: str = "bgr_unit",
+               image_size: Optional[Tuple[int, int]] = None) -> None:
         """Run each size mode once on zero frames of this ORIGINAL size, so
         the first real request does not pay the kernel build and cuDNN's
         first-call set-up."""
         z = np.zeros((height, width, 3), np.uint8)
         for mode in size_modes:
             self.flow_from_pairs([z] * batch, [z] * batch, preset=preset,
-                                 size_mode=mode)
+                                 size_mode=mode, image_size=image_size)

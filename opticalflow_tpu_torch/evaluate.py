@@ -43,9 +43,9 @@ def evaluate_pairs(engine, dataset, *, preset: str = "bgr_unit",
     see the documented divergence in ``FlowEngine.flow_from_pair``);
     "pad_ref" is the reference's exact ``inference_kitti.py:216-224`` order
     (unpad-quarter-then-rescale); "resize" replicates the distorting-resize
-    convention of ``script_pwc.py``; "resize_fixed" (the v1
-    ``inference.py`` script's fixed input size ``image_size``) is not ported
-    and the engine raises.  Returns {"epe": mean, "fl_all": mean%}
+    convention of ``script_pwc.py``; "resize_fixed" is the v1
+    ``inference.py`` script's PIL resize to the fixed ``image_size``.
+    Returns {"epe": mean, "fl_all": mean%}
     (NaN-mean over pairs, like the reference).
 
     Samples STREAM through: a background thread fetches pairs into a

@@ -28,7 +28,7 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["load_image", "decode_png", "encode_png", "preprocess_pair",
-           "resize_bilinear_u8", "resize_bilinear_f32", "resize_nearest",
+           "resize_bilinear_u8", "resize_bilinear_f32", "resize_nearest", "fma32",
            "resize_to_multiple_of_64",
            "pad_to_multiple_of_64", "unpad", "PREPROC_PRESETS",
            "IMAGENET_MEAN", "IMAGENET_STD"]
@@ -203,16 +203,19 @@ _COEF_BITS = 11                 # cv2's INTER_RESIZE_COEF_BITS
 _COEF_ONE = np.float32(1 << _COEF_BITS)
 
 
-def _linear_taps(n_src: int, n_dst: int, float_path: bool = False):
+def _linear_taps(n_src: int, n_dst: int, ipp: bool = False):
     """Source index and float32 fraction of each destination pixel, with
-    cv2's half-pixel rule computed in cv2's types.  Its uint8 path rounds
-    the position (taken in double) to float32, then takes floor and
-    fraction in float32; its float path (``float_path``) takes floor and
-    fraction in double and rounds the fraction to float32."""
-    scale = 1.0 / (float(n_dst) / n_src)
-    pos = (np.arange(n_dst, dtype=np.float64) + 0.5) * scale - 0.5
-    if not float_path:
-        pos = pos.astype(np.float32)
+    cv2's half-pixel rule computed in cv2's types.  Its own code scales by
+    ``1 / (dst / src)``, rounds the position (taken in double) to float32,
+    then takes floor and fraction in float32; IPP's float path (``ipp``)
+    scales by ``src / dst`` and takes floor and fraction in double, the
+    fraction then rounded to float32."""
+    i = np.arange(n_dst, dtype=np.float64)
+    if ipp:
+        pos = (i + 0.5) * (n_src / float(n_dst)) - 0.5
+    else:
+        pos = ((i + 0.5) * (1.0 / (float(n_dst) / n_src)) - 0.5).astype(
+            np.float32)
     first = np.floor(pos)
     return first.astype(np.int64), (pos - first).astype(np.float32)
 
@@ -279,28 +282,61 @@ def resize_bilinear_u8(img: np.ndarray, height: int,
     return out.astype(np.uint8).reshape(height, width, c)
 
 
+def fma32(a, b, c) -> np.ndarray:
+    """float32 ``a*b + c`` rounded once (a fused multiply-add), in numpy:
+    the product is exact in double, the sum's rounding error is recovered
+    exactly (TwoSum) and decides the one case where rounding the double
+    sum to float32 would round twice, a sum on a float32 midpoint."""
+    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(
+        b, np.float32).astype(np.float64)
+    c = np.asarray(c, np.float32).astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    rd = r.astype(np.float64)
+    other = np.nextafter(r, np.where(s > rd, np.float32(np.inf),
+                                     np.float32(-np.inf)))
+    tie = (s != rd) & ((rd + other.astype(np.float64)) * 0.5 == s) & (err != 0)
+    if tie.any():
+        r = np.where(tie, np.where(err > 0, np.maximum(r, other),
+                                   np.minimum(r, other)), r)
+    return r
+
+
 def resize_bilinear_f32(img: np.ndarray, height: int,
                         width: int) -> np.ndarray:
-    """float32 (H, W[, C]) → (height, width[, C]), bilinear with the
-    half-pixel rule, as ``cv2.resize``'s float INTER_LINEAR computes it:
-    float32 weights ``1 - f, f``; along a row a tap left of the first
-    column or at or right of the last takes that column whole; down the
-    columns the two rows are clamped into the image with the weights left
-    as they are."""
+    """float32 (H, W[, C]) → (height, width[, C]), bit-exact to
+    ``cv2.resize``'s INTER_LINEAR on float32 as OpenCV 5 on x86 computes
+    it: through Intel IPP where both source sides exceed 1 px and the
+    image has 1, 3 or 4 channels, through its own code otherwise.
+
+    IPP: the half-pixel position in double, floor and a float32 fraction
+    ``t``; a tap left of the first pixel or at or right of the last takes
+    that pixel whole (``t = 0``), on both axes; rows first, then columns,
+    each ``fma(p1 - p0, t, p0)``.  OpenCV's own: the position rounded to
+    float32 first, float32 weights ``1 - t, t``; along a row the same edge
+    rule, down the columns the two rows clamped into the image with the
+    weights left as they are."""
     h, w = img.shape[:2]
     x = img.astype(np.float32, copy=False).reshape(h, w, -1)
+    ipp = h > 1 and w > 1 and x.shape[2] != 2
     if width != w:
-        sx, fx = _linear_taps(w, width, float_path=True)
+        sx, fx = _linear_taps(w, width, ipp)
         edge = (sx < 0) | (sx >= w - 1)
         fx = np.where(edge, np.float32(0), fx)[None, :, None]
         sx = np.clip(sx, 0, w - 1)
-        x = (x[:, sx] * (np.float32(1) - fx)
-             + x[:, np.minimum(sx + 1, w - 1)] * fx)
+        x0, x1 = x[:, sx], x[:, np.minimum(sx + 1, w - 1)]
+        x = (fma32(x1 - x0, fx, x0) if ipp
+             else x0 * (np.float32(1) - fx) + x1 * fx)
     if height != h:
-        sy, fy = _linear_taps(h, height, float_path=True)
+        sy, fy = _linear_taps(h, height, ipp)
+        if ipp:
+            fy = np.where((sy < 0) | (sy >= h - 1), np.float32(0), fy)
         fy = fy[:, None, None]
-        x = (x[np.clip(sy, 0, h - 1)] * (np.float32(1) - fy)
-             + x[np.clip(sy + 1, 0, h - 1)] * fy)
+        y0, y1 = x[np.clip(sy, 0, h - 1)], x[np.clip(sy + 1, 0, h - 1)]
+        x = (fma32(y1 - y0, fy, y0) if ipp
+             else y0 * (np.float32(1) - fy) + y1 * fy)
     return x.reshape((height, width) + img.shape[2:])
 
 

@@ -1,0 +1,322 @@
+"""Video frames in and out without OpenCV: ``.y4m`` and PNG directories.
+
+The JAX package reads and writes video through ``cv2.VideoCapture`` and
+``cv2.VideoWriter``; the GPU machine has neither OpenCV nor an H.264
+decoder or encoder.  The port reads and writes two raw containers
+instead, which ``ffmpeg`` converts to and from anything
+(``ffmpeg -i in.mp4 -pix_fmt yuv420p out.y4m``):
+
+  * **YUV4MPEG2** (``.y4m``): 8-bit 4:2:0, colour tags ``C420jpeg``,
+    ``C420mpeg2``, ``C420paldv``, ``C420`` or none; frames are converted
+    with ``io/yuv`` (OpenCV's BT.601 integer arithmetic, nearest chroma);
+    an odd side's last chroma row or column covers one pixel;
+  * **a directory of PNG frames**, read in sorted name order
+    (``io/images.decode_png``), written as ``000000.png``, ...
+
+Frames are BGR uint8 (H, W, 3), as OpenCV hands them over.
+:class:`AsyncVideoWriter` keeps the JAX class's encode thread, bounded
+queue and error surfacing.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from fractions import Fraction
+from glob import glob
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+
+from opticalflow_tpu_torch.io.images import decode_png, encode_png
+from opticalflow_tpu_torch.io.yuv import i420_to_rgb, pad_to_even, rgb_to_i420
+
+__all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter", "Y4MFile",
+           "Y4MWriter", "PngDirWriter", "FORMATS"]
+
+FORMATS = "a .y4m file (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG frames"
+_Y4M_MAGIC = b"YUV4MPEG2"
+_420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
+DEFAULT_FPS = 30.0
+
+
+def _unsupported(path: str) -> ValueError:
+    return ValueError(
+        f"cannot read or write {path!r}: the port handles {FORMATS}. It has "
+        "no H.264/MPEG decoder or encoder (the GPU machine has neither "
+        "OpenCV nor ffmpeg); convert elsewhere, e.g. `ffmpeg -i in.mp4 "
+        "-pix_fmt yuv420p out.y4m`, or `ffmpeg -i in.mp4 dir/%06d.png`")
+
+
+def _kind(path: str, writing: bool = False) -> str:
+    if path.lower().endswith(".y4m"):
+        return "y4m"
+    if os.path.isdir(path) or (writing and not os.path.splitext(path)[1]):
+        return "png"
+    if not writing and not os.path.exists(path):
+        raise FileNotFoundError(path)
+    raise _unsupported(path)
+
+
+# --------------------------------------------------------------- y4m
+
+def _y4m_header(f) -> Tuple[Dict[str, str], int]:
+    """(the header's parameters by tag letter, its length in bytes)."""
+    line = f.readline(4096)
+    if not line.startswith(_Y4M_MAGIC) or not line.endswith(b"\n"):
+        raise ValueError("not a YUV4MPEG2 stream (bad header)")
+    params = {}
+    for tok in line[len(_Y4M_MAGIC):].split():
+        params[chr(tok[0])] = tok[1:].decode("ascii")
+    if "W" not in params or "H" not in params:
+        raise ValueError("YUV4MPEG2 header without W or H")
+    colour = params.get("C", "420")
+    if colour not in _420_TAGS:
+        raise ValueError(f"YUV4MPEG2 colour space C{colour} is not read: the "
+                         "port reads 8-bit 4:2:0 (C420jpeg, C420mpeg2, "
+                         "C420paldv, C420 or no C tag)")
+    return params, len(line)
+
+
+def _y4m_geometry(params) -> Tuple[int, int, int]:
+    w, h = int(params["W"]), int(params["H"])
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    return w, h, w * h + 2 * cw * ch
+
+
+def _y4m_fps(params) -> float:
+    if "F" not in params:
+        return DEFAULT_FPS
+    num, den = params["F"].split(":")
+    return float(Fraction(int(num), int(den))) if int(den) else DEFAULT_FPS
+
+
+def _y4m_to_bgr(buf: bytes, w: int, h: int) -> np.ndarray:
+    """One 4:2:0 frame → BGR: the planes at even size (the last row and
+    column repeated where a side is odd), OpenCV's I420 conversion,
+    cropped."""
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    a = np.frombuffer(buf, np.uint8)
+    y = a[:w * h].reshape(h, w)
+    u = a[w * h:w * h + cw * ch].reshape(ch, cw)
+    v = a[w * h + cw * ch:].reshape(ch, cw)
+    if h % 2 or w % 2:
+        y = np.pad(y, ((0, h % 2), (0, w % 2)), mode="edge")
+    packed = np.concatenate([y.ravel(), u.ravel(), v.ravel()]).reshape(-1,
+                                                                        2 * cw)
+    return np.ascontiguousarray(i420_to_rgb(packed)[:h, :w, ::-1])
+
+
+class Y4MFile:
+    """A YUV4MPEG2 file's header and the byte offset of every frame, so a
+    frame can be read by its index (``ConsecutiveFrames`` reads pairs in
+    any order) or all of them in turn."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            params, pos = _y4m_header(f)
+            self.fps = _y4m_fps(params)
+            self.width, self.height, self._nbytes = _y4m_geometry(params)
+            size = os.path.getsize(path)
+            self.offsets = []
+            while pos < size:
+                f.seek(pos)
+                tag = f.readline(4096)
+                if not tag.startswith(b"FRAME"):
+                    raise ValueError(f"{path}: bad YUV4MPEG2 frame header "
+                                     f"{tag[:16]!r}")
+                pos += len(tag)
+                if pos + self._nbytes > size:
+                    raise ValueError(f"{path}: truncated frame "
+                                     f"{len(self.offsets)}")
+                self.offsets.append(pos)
+                pos += self._nbytes
+
+    def __len__(self) -> int:
+        return len(self.offsets)
+
+    def _convert(self, buf: bytes) -> np.ndarray:
+        return _y4m_to_bgr(buf, self.width, self.height)
+
+    def frame(self, index: int) -> np.ndarray:
+        """BGR uint8 frame ``index``."""
+        with open(self.path, "rb") as f:
+            f.seek(self.offsets[index])
+            return self._convert(f.read(self._nbytes))
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        with open(self.path, "rb") as f:
+            for off in self.offsets:
+                f.seek(off)
+                yield self._convert(f.read(self._nbytes))
+
+
+# --------------------------------------------------------------- PNG dir
+
+def _png_frames(path: str):
+    return sorted(glob(os.path.join(path, "*.png")))
+
+
+def _read_png_bgr(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if img is None:
+        raise ValueError(f"{path}: not an 8/16-bit non-interlaced PNG")
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return np.ascontiguousarray(img[..., 2::-1])
+
+
+# --------------------------------------------------------------- public
+
+def read_frames(path: str, max_frames: Optional[int] = None,
+                stride: int = 1) -> Iterator[np.ndarray]:
+    """Yield BGR uint8 frames of ``path``: every ``stride``-th of its first
+    ``max_frames`` (all when None)."""
+    if _kind(path) == "y4m":
+        frames = iter(Y4MFile(path))
+    else:
+        files = _png_frames(path)
+        if not files:
+            raise FileNotFoundError(f"no *.png frames in {path}")
+        frames = (_read_png_bgr(p) for p in files)
+    for n, frame in enumerate(frames):
+        if max_frames is not None and n >= max_frames:
+            return
+        if n % stride == 0:
+            yield frame
+
+
+def read_frame(path: str, index: int) -> np.ndarray:
+    """BGR uint8 frame ``index`` of a ``.y4m`` file or PNG directory."""
+    if _kind(path) == "y4m":
+        return Y4MFile(path).frame(index)
+    return _read_png_bgr(_png_frames(path)[index])
+
+
+def video_info(path: str) -> Dict[str, float]:
+    """{"fps", "width", "height", "frames"} of a ``.y4m`` file or a PNG
+    directory (which has no rate: 30 fps)."""
+    if _kind(path) == "y4m":
+        y4m = Y4MFile(path)
+        return {"fps": y4m.fps, "width": y4m.width, "height": y4m.height,
+                "frames": len(y4m)}
+    files = _png_frames(path)
+    if not files:
+        raise FileNotFoundError(f"no *.png frames in {path}")
+    h, w = _read_png_bgr(files[0]).shape[:2]
+    return {"fps": DEFAULT_FPS, "width": w, "height": h,
+            "frames": len(files)}
+
+
+class Y4MWriter:
+    """BGR frames → a ``C420jpeg`` YUV4MPEG2 file (``io/yuv``'s OpenCV
+    conversion; an odd side is edge-padded for the chroma and cropped)."""
+
+    def __init__(self, path: str, fps: float, frame_size: Tuple[int, int]):
+        self.w, self.h = frame_size
+        rate = Fraction(fps).limit_denominator(1001)
+        self._f = open(path, "wb")
+        self._f.write(f"YUV4MPEG2 W{self.w} H{self.h} F{rate.numerator}:"
+                      f"{rate.denominator} Ip A1:1 C420jpeg\n".encode())
+
+    def write(self, frame: np.ndarray) -> None:
+        if frame.shape[:2] != (self.h, self.w):
+            raise ValueError(f"frame {frame.shape[:2]} does not match the "
+                             f"stream's {(self.h, self.w)}")
+        yuv = rgb_to_i420(pad_to_even(np.ascontiguousarray(frame[..., ::-1])))
+        he, we = yuv.shape[0] * 2 // 3, yuv.shape[1]
+        flat = yuv.reshape(-1)
+        y = flat[:he * we].reshape(he, we)[:self.h, :self.w]
+        self._f.write(b"FRAME\n")
+        self._f.write(np.ascontiguousarray(y).tobytes())
+        self._f.write(flat[he * we:].tobytes())
+
+    def release(self) -> None:
+        self._f.close()
+
+
+class PngDirWriter:
+    """BGR frames → ``<dir>/000000.png``, ``000001.png``, ..."""
+
+    def __init__(self, path: str, fps: float, frame_size: Tuple[int, int]):
+        os.makedirs(path, exist_ok=True)
+        self.path, self.n = path, 0
+
+    def write(self, frame: np.ndarray) -> None:
+        with open(os.path.join(self.path, f"{self.n:06d}.png"), "wb") as f:
+            f.write(encode_png(np.ascontiguousarray(frame[..., ::-1])))
+        self.n += 1
+
+    def release(self) -> None:
+        pass
+
+
+class AsyncVideoWriter:
+    """A video writer behind a background encode thread.
+
+    ``path`` ending in ``.y4m`` writes YUV4MPEG2, a directory (or a path
+    without extension) PNG frames; anything else raises.  ``write``
+    enqueues, blocking only when ``queue_size`` frames are already
+    pending; ``release`` drains the queue, closes the file and re-raises
+    any encoder error.
+    """
+
+    def __init__(self, path: str, fps: float, frame_size: Tuple[int, int],
+                 *, queue_size: int = 32):
+        kind = _kind(path, writing=True)
+        self._wr = (Y4MWriter if kind == "y4m" else PngDirWriter)(
+            path, fps, frame_size)
+        self._q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(
+            maxsize=queue_size)
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._encode_loop, daemon=True)
+        self._thread.start()
+
+    def _encode_loop(self) -> None:
+        while True:
+            frame = self._q.get()
+            if frame is None:
+                break
+            try:
+                self._wr.write(frame)
+            except BaseException as e:  # surface on the caller's thread
+                self._exc = e
+                break
+        self._wr.release()
+
+    def isOpened(self) -> bool:  # noqa: N802 — cv2.VideoWriter's name
+        return self._exc is None
+
+    def _put(self, item: Optional[np.ndarray]) -> None:
+        # bounded-wait put: if the encoder thread died (its exception is in
+        # self._exc) nobody will drain the queue, and a plain blocking put
+        # would deadlock the producer with the error never surfacing
+        while True:
+            if self._exc is not None:
+                raise self._exc
+            if not self._thread.is_alive():
+                raise RuntimeError("encoder thread is not running "
+                                   "(write after release?)")
+            try:
+                self._q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    def write(self, frame: np.ndarray) -> None:
+        self._put(frame)
+
+    def release(self) -> None:
+        if self._thread.is_alive():
+            try:
+                self._put(None)
+            except Exception:
+                pass  # encoder died; its error is re-raised below
+            self._thread.join()
+        if self._exc is not None:
+            raise self._exc

@@ -57,11 +57,13 @@ def host_ms(fn: Callable[[int], object], iters: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn: Callable[[int], object], iters: int,
-              warmup: int = 3) -> float:
+              warmup: int = 3, attempts: int = 4) -> float:
     """Mean device time of ``fn(i)`` with the host out of the way: a spin
     kernel holds the stream until all ``iters`` calls are queued, so the
     card runs them back to back however slowly the host issues them.
-    Raises if the spin ended before the host had queued them all."""
+    A window where the spin ended before the host had queued every call
+    (a host stall longer than the margin) is measured again with a spin
+    four times as long; raises after ``attempts`` such windows."""
     import torch
     for i in range(warmup):
         fn(i)
@@ -74,17 +76,20 @@ def device_ms(fn: Callable[[int], object], iters: int,
     end = torch.cuda.Event(enable_timing=True)
     # spin for twice the time the host needs, counted at 2 GHz (the card's
     # clock is at most that, so the spin lasts at least as long)
-    torch.cuda._sleep(int(2e9 * (2 * iters * one_s + 1e-3)))
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    held = not start.query()
-    end.synchronize()
-    if not held:
-        raise RuntimeError("device_ms: the host did not queue every call "
-                           "before the card reached them")
-    return start.elapsed_time(end) / iters
+    spin_s = 2 * iters * one_s + 1e-3
+    for _ in range(attempts):
+        torch.cuda._sleep(int(2e9 * spin_s))
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        spin_s *= 4
+    raise RuntimeError("device_ms: the host did not queue every call "
+                       f"before the card reached them ({attempts} windows)")
 
 
 def bound(nbytes: float, flops: float,

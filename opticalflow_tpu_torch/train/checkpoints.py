@@ -129,7 +129,8 @@ def restore_train_state(path: str) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{base!r} holds no {STATE_FILE}: not a checkpoint of the "
             "PyTorch port (an Orbax checkpoint of the JAX package? reading "
-            "those needs orbax and JAX; ROADMAP Queue 1 item 2)")
+            "those needs orbax and JAX, which the port leaves out: ROADMAP "
+            "Queue 1 item 2)")
     out = dict(torch.load(state_file, map_location="cpu", weights_only=True))
     meta_path = base + ".meta.json"
     if os.path.isfile(meta_path):

@@ -796,3 +796,41 @@ def test_loader_device_prefetch_returns_the_cpu_batch_bytes(cuda_device):
         for k in a:
             assert b[k].device.type == "cuda"
             np.testing.assert_array_equal(b[k].cpu().numpy(), a[k])
+
+
+# ------------------------------------------------------------ video path
+
+@pytest.mark.parametrize("h,w", [(64, 128), (70, 64), (94, 130)])
+def test_i420_unpack_on_the_card_is_the_host_numpy(cuda_device, h, w):
+    from opticalflow_tpu_torch.io.yuv import i420_to_rgb
+    from opticalflow_tpu_torch.video import yuv_i420_to_rgb_u8
+    yuvs = np.random.RandomState(1).randint(0, 256, (3, h * 3 // 2, w),
+                                            np.uint8)
+    got = yuv_i420_to_rgb_u8(torch.from_numpy(yuvs).to(cuda_device)).cpu()
+    for k in range(3):
+        np.testing.assert_array_equal(got[k].numpy(), i420_to_rgb(yuvs[k]))
+
+
+def test_video_runner_on_the_card_matches_the_cpu(cuda_device):
+    """The runner in float32 parity mode, both uploads and a grid
+    readback, on the card against the same runner on the CPU (1e-4 mean
+    EPE): K1 five times a window."""
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.video import VideoFlowRunner
+    rng = np.random.RandomState(3)
+    frames = [rng.randint(0, 256, (60, 120, 3), np.uint8) for _ in range(5)]
+    model = PWCDCNet(generator=torch.Generator().manual_seed(0))
+    sd = {k: v * 0.5 for k, v in model.state_dict().items()}
+    for upload, grid in (("bgr", None), ("i420", 16)):
+        kw = dict(batch=2, upload=upload, grid_step=grid)
+        before = corr_cuda.correlation_cuda.launches
+        card = VideoFlowRunner(PWCDCNet(), sd, device=cuda_device, **kw)
+        got = [q for _, _, q in card.run(iter(frames))]
+        assert corr_cuda.correlation_cuda.launches - before == \
+            5 * card.stats["windows"] == 10
+        want = [q for _, _, q in VideoFlowRunner(
+            PWCDCNet(), sd, device="cpu", **kw).run(iter(frames))]
+        assert len(got) == len(want) == 4
+        for a, b in zip(got, want):     # the card limit of PERF.md §2
+            assert float(np.mean(np.hypot(*(a - b).transpose(2, 0, 1)))) \
+                <= 1e-4

@@ -101,8 +101,11 @@ def test_engine_rejects_bad_input(fake_sd):
         engine.flow_from_pair(z / 255.0 + 0.001, z)
     with pytest.raises(ValueError, match="preset"):
         engine.flow_from_pair(z, z, preset="bgr")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="image_size"):
         engine.flow_from_pair(z, z, size_mode="resize_fixed")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        engine.flow_from_pair(z, z, size_mode="resize_fixed",
+                              image_size=(100, 128))
     with pytest.raises(ValueError, match="common frame shape"):
         engine.flow_from_pairs([z, z[:32]], [z, z[:32]])
     # pad_ref's quarter-by-full-pad slice would be empty here
@@ -175,3 +178,97 @@ def test_resize_mode_reproduces_golden_without_opencv(fake_sd, frames,
     engine = FlowEngine(PWCDCNet(), fake_sd, device="cpu")
     flow = engine.flow_from_pair(*frames)
     assert _epe(flow, read_flo(os.path.join(GOLD, "real_pair.flo"))) <= 1e-6
+
+
+# ------------------------------------------------ PIL bilinear, resize_fixed
+
+def _pil_size_pairs():
+    """(src, dst) sizes: shrinking and enlarging, odd, and size 1."""
+    rng = np.random.RandomState(0)
+    sides = [1, 2, 3, 5, 7, 13, 31, 64, 97, 180, 318]
+    pairs = [((int(rng.choice(sides)), int(rng.choice(sides))),
+              (int(rng.choice(sides)), int(rng.choice(sides))))
+             for _ in range(200)]
+    return pairs + [((180, 318), (192, 320)), ((180, 318), (384, 1280)),
+                    ((48, 80), (180, 318)), ((96, 320), (375, 1242))]
+
+
+def test_pil_bilinear_u8_bit_exact_to_pil():
+    from PIL import Image
+    from opticalflow_tpu_torch.io.pil_resize import resize_pil_bilinear_u8
+    rng = np.random.RandomState(1)
+    for (h, w), (oh, ow) in _pil_size_pairs():
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        want = np.asarray(Image.fromarray(img).resize((ow, oh),
+                                                      Image.BILINEAR))
+        np.testing.assert_array_equal(resize_pil_bilinear_u8(img, oh, ow),
+                                      want, err_msg=f"{(h, w)}->{(oh, ow)}")
+
+
+def test_pil_bilinear_f32_within_one_ulp_of_pil():
+    """Mode ``F``: both passes sum in double and store float32; within one
+    float32 ulp of PIL (0 ulp measured against PIL 12)."""
+    from PIL import Image
+    from opticalflow_tpu_torch.io.pil_resize import resize_pil_bilinear_f32
+    rng = np.random.RandomState(2)
+    worst = 0
+    for (h, w), (oh, ow) in _pil_size_pairs():
+        f = (rng.randn(h, w) * 10).astype(np.float32)
+        want = np.asarray(Image.fromarray(f).resize((ow, oh), Image.BILINEAR))
+        got = resize_pil_bilinear_f32(f, oh, ow)
+        assert got.shape == want.shape and got.dtype == np.float32
+        ulp = np.abs(got.view(np.int32).astype(np.int64)
+                     - want.view(np.int32).astype(np.int64))
+        worst = max(worst, int(ulp.max()))
+    assert worst <= 1, worst
+
+
+@pytest.fixture(scope="module")
+def jax_engine(fake_sd):
+    from opticalflow_tpu.engine import FlowEngine as JaxFlowEngine
+    from opticalflow_tpu.models.pwcnet import PWCDCNet as JaxPWCDCNet
+    from opticalflow_tpu.models.torch_import import import_state_dict
+    params = import_state_dict({k: v.numpy() for k, v in fake_sd.items()},
+                               variant="new")
+    return JaxFlowEngine(JaxPWCDCNet(variant="new", precision="highest",
+                                     use_pallas_corr=False), params,
+                         flow_scale=1.0)
+
+
+def test_resize_fixed_matches_jax_engine(fake_sd, frames, jax_engine):
+    """The v1 path on the golden pair (180x318 through 192x320), the same
+    weights: ≤1e-6 mean EPE against the JAX engine (PIL there, numpy in
+    the port)."""
+    engine = FlowEngine(PWCDCNet(), fake_sd, flow_scale=1.0, device="cpu")
+    kw = dict(preset="rgb_imagenet", size_mode="resize_fixed",
+              image_size=(192, 320))
+    flow = engine.flow_from_pair(*frames, **kw)
+    ref = jax_engine.flow_from_pair(*frames, **kw)
+    assert flow.shape == ref.shape == (180, 318, 2)
+    assert _epe(flow, ref) <= 1e-6, _epe(flow, ref)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_flow_from_batch_matches_jax_engine(fake_sd, frames, jax_engine,
+                                            align_corners):
+    """(B, H64, W64, 6) preprocessed input in the JAX layout → flow at
+    out_size on the engine's device: ≤1e-6 mean EPE against the JAX
+    engine, and at the default size the pad path's flow before its crop."""
+    from opticalflow_tpu_torch.io.images import (pad_to_multiple_of_64,
+                                                 preprocess_pair)
+    x, _, _ = pad_to_multiple_of_64(preprocess_pair(*frames,
+                                                    preset="rgb_imagenet"))
+    engine = FlowEngine(PWCDCNet(), fake_sd, flow_scale=1.0, device="cpu")
+    for size in ((180, 318), None):
+        got = engine.flow_from_batch(x, out_size=size,
+                                     align_corners=align_corners)
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        want = np.asarray(jax_engine.flow_from_batch(
+            x, out_size=size, align_corners=align_corners))
+        assert got.shape == want.shape
+        assert _epe(got[0].numpy(), want[0]) <= 1e-6
+    if align_corners:       # the pad mode upsamples with align_corners
+        pad = engine.flow_from_pair(*frames, preset="rgb_imagenet",
+                                    size_mode="pad")
+        np.testing.assert_allclose(got[0, :180, :318].numpy(), pad,
+                                   atol=1e-5)

@@ -218,9 +218,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, fake_ckpt):
     z = np.zeros((40, 70, 3), np.uint8)
     _write_u8(str(base / "000000_10.png"), z)
     _write_u8(str(base / "000000_11.png"), z)
-    with pytest.raises(NotImplementedError, match="resize_fixed"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         infer_kitti.main(["--root", str(tmp_path), "--ckpt", ckpt,
-                          "--size-mode", "resize_fixed", "--device", "cpu"])
+                          "--size-mode", "resize_fixed", "--image-size",
+                          "100", "128", "--device", "cpu"])
 
 
 def test_engine_takes_image_size_none(fake_ckpt):
@@ -231,6 +232,6 @@ def test_engine_takes_image_size_none(fake_ckpt):
     a = engine.flow_from_pair(z, z, size_mode="pad", image_size=None)
     b = engine.flow_from_pairs([z], [z], size_mode="pad")[0]
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        engine.flow_from_pairs([z], [z], size_mode="resize_fixed",
+    c = engine.flow_from_pairs([z], [z], size_mode="resize_fixed",
                                image_size=(64, 128))
+    assert c.shape == (1, 40, 70, 2)

@@ -81,3 +81,20 @@ def test_sources_name_no_jax():
         if pattern.search(code):
             offenders.append(os.path.relpath(path, ROOT))
     assert not offenders, offenders
+
+
+def test_importing_the_port_loads_no_matplotlib_nor_pil():
+    """The GPU machine has neither: the quiver figure imports matplotlib
+    only when it is drawn, and PIL's resize is the port's own numpy."""
+    mods = _port_modules()
+    assert "opticalflow_tpu_torch.viz.overlay" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in ('matplotlib', 'PIL') if m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout

@@ -269,7 +269,7 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
                       str(tmp_path / "r"), *BASE, *extra])
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         cli.main(["--regime", "pseudo", "--data-root", str(video),
                   "--out-dir", str(tmp_path / "v"), *BASE])
 

@@ -225,7 +225,7 @@ def test_consecutive_frames_match_jax(tmp_path, stride):
 def test_consecutive_frames_refuses_video_files_and_missing_sources(tmp_path):
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\x00\x00\x00\x18ftypmp42")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         datasets.ConsecutiveFrames(str(video))
     with pytest.raises(FileNotFoundError):
         datasets.ConsecutiveFrames(str(tmp_path / "nowhere"))

@@ -1,0 +1,181 @@
+"""The port's frame I/O (``io/video.py``): ``.y4m`` and PNG directories in
+and out, without OpenCV, held against OpenCV's I420 conversion and the
+JAX package's ``AsyncVideoWriter`` behaviour and ``ConsecutiveFrames``.
+Tolerance: bit-exact throughout (a y4m round trip is lossy only by the
+4:2:0 chroma subsample, which OpenCV's own round trip reproduces)."""
+
+import os
+
+import numpy as np
+import pytest
+
+from opticalflow_tpu.data import datasets as jdatasets
+from opticalflow_tpu_torch.data import datasets
+from opticalflow_tpu_torch.io import video as vio
+from opticalflow_tpu_torch.io.images import encode_png
+
+cv2 = pytest.importorskip("cv2")
+
+
+def _frames(n, h, w, seed=0):
+    rng = np.random.RandomState(seed)
+    return [cv2.GaussianBlur((rng.rand(h, w, 3) * 255).astype(np.uint8),
+                             (0, 0), 1.5) for _ in range(n)]
+
+
+def _cv2_roundtrip(bgr):
+    """OpenCV's I420 round trip of a BGR frame with even sides."""
+    return cv2.cvtColor(cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420),
+                        cv2.COLOR_YUV2BGR_I420)
+
+
+def _write_y4m(path, frames, fps=25.0):
+    h, w = frames[0].shape[:2]
+    wr = vio.Y4MWriter(path, fps, (w, h))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+
+
+def test_y4m_round_trip_is_opencvs_i420(tmp_path):
+    path = str(tmp_path / "a.y4m")
+    frames = _frames(4, 36, 52)
+    _write_y4m(path, frames)
+    info = vio.video_info(path)
+    assert info == {"fps": 25.0, "width": 52, "height": 36, "frames": 4}
+    got = list(vio.read_frames(path))
+    assert len(got) == 4
+    for f, g in zip(frames, got):
+        np.testing.assert_array_equal(g, _cv2_roundtrip(f))
+    np.testing.assert_array_equal(vio.read_frame(path, 2), got[2])
+    # the planes on disk are OpenCV's I420, after a one-line header and
+    # a FRAME line
+    with open(path, "rb") as fh:
+        assert fh.readline() == b"YUV4MPEG2 W52 H36 F25:1 Ip A1:1 C420jpeg\n"
+        assert fh.readline() == b"FRAME\n"
+        plane = np.frombuffer(fh.read(36 * 52 * 3 // 2), np.uint8)
+    np.testing.assert_array_equal(
+        plane, cv2.cvtColor(frames[0], cv2.COLOR_BGR2YUV_I420).ravel())
+
+
+def test_y4m_odd_sides_and_frame_parameters(tmp_path):
+    """Odd sides (chroma planes of ceil(n/2)), colour tags the reader
+    takes, frame headers with parameters."""
+    h, w = 7, 9
+    rng = np.random.RandomState(2)
+    y = rng.randint(0, 256, (h, w), np.uint8)
+    u, v = (rng.randint(0, 256, (4, 5), np.uint8) for _ in range(2))
+    for tag in ("C420mpeg2", "C420paldv", "C420", ""):
+        path = str(tmp_path / f"odd{tag}.y4m")
+        with open(path, "wb") as fh:
+            fh.write(f"YUV4MPEG2 W{w} H{h} F30000:1001 {tag}\n".encode())
+            fh.write(b"FRAME Ixyz\n" + y.tobytes() + u.tobytes()
+                     + v.tobytes())
+        (got,) = list(vio.read_frames(path))
+        ye = np.pad(y, ((0, 1), (0, 1)), mode="edge")
+        packed = np.concatenate([ye.ravel(), u.ravel(), v.ravel()])
+        want = cv2.cvtColor(packed.reshape(12, 10), cv2.COLOR_YUV2BGR_I420)
+        np.testing.assert_array_equal(got, want[:h, :w])
+        assert vio.video_info(path)["fps"] == pytest.approx(30000 / 1001)
+    # an odd-sided stream written by the port reads back at its size
+    path = str(tmp_path / "w.y4m")
+    _write_y4m(path, _frames(2, 7, 9))
+    assert [f.shape for f in vio.read_frames(path)] == [(7, 9, 3)] * 2
+
+
+def test_y4m_refuses_what_it_does_not_read(tmp_path):
+    for header in (b"YUV4MPEG2 W8 H8 C444\n", b"YUV4MPEG2 W8 H8 C420p10\n",
+                   b"YUV4MPEG2 W8 H8 Cmono\n", b"YUV4MPEG2 H8\n",
+                   b"RIFF1234"):
+        path = str(tmp_path / "bad.y4m")
+        with open(path, "wb") as fh:
+            fh.write(header + b"FRAME\n" + b"\0" * 96)
+        with pytest.raises(ValueError):
+            list(vio.read_frames(path))
+
+
+def test_png_directory_in_and_out(tmp_path):
+    frames = _frames(3, 20, 30, seed=1)
+    out = str(tmp_path / "frames")
+    wr = vio.AsyncVideoWriter(out, 12.0, (30, 20))
+    assert wr.isOpened()
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    assert sorted(os.listdir(out)) == ["000000.png", "000001.png",
+                                       "000002.png"]
+    for f, name in zip(frames, sorted(os.listdir(out))):
+        np.testing.assert_array_equal(
+            cv2.imread(os.path.join(out, name), cv2.IMREAD_COLOR), f)
+    got = list(vio.read_frames(out, stride=2))
+    assert len(got) == 2
+    np.testing.assert_array_equal(got[1], frames[2])
+    assert vio.video_info(out) == {"fps": 30.0, "width": 30, "height": 20,
+                                   "frames": 3}
+
+
+def test_async_writer_y4m_and_max_frames(tmp_path):
+    frames = _frames(5, 16, 24, seed=3)
+    path = str(tmp_path / "o.y4m")
+    wr = vio.AsyncVideoWriter(path, 30.0, (24, 16), queue_size=2)
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    got = list(vio.read_frames(path, max_frames=3))
+    assert len(got) == 3
+    np.testing.assert_array_equal(got[2], _cv2_roundtrip(frames[2]))
+
+
+def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
+    """The JAX writer's behaviour: if the encoder thread dies mid-stream,
+    write() raises its error instead of blocking on the full queue."""
+    wr = vio.AsyncVideoWriter(str(tmp_path / "x.y4m"), 10, (32, 16),
+                              queue_size=2)
+
+    class _Boom:
+        def write(self, frame):
+            raise RuntimeError("encoder boom")
+
+        def release(self):
+            pass
+
+    wr._wr = _Boom()
+    frame = np.zeros((16, 32, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="encoder boom"):
+        for _ in range(50):
+            wr.write(frame)
+    with pytest.raises(RuntimeError, match="encoder boom"):
+        wr.release()
+
+
+def test_other_containers_raise_naming_the_two_formats(tmp_path):
+    mp4 = tmp_path / "clip.mp4"
+    mp4.write_bytes(b"\x00\x00\x00\x18ftypmp42")
+    for fn in (lambda: list(vio.read_frames(str(mp4))),
+               lambda: vio.video_info(str(mp4)),
+               lambda: vio.AsyncVideoWriter(str(tmp_path / "o.mp4"), 30,
+                                            (8, 8))):
+        with pytest.raises(ValueError, match=r"\.y4m.*PNG.*H\.264"):
+            fn()
+    with pytest.raises(FileNotFoundError):
+        vio.video_info(str(tmp_path / "missing.y4m"))
+    with pytest.raises(FileNotFoundError):
+        list(vio.read_frames(str(tmp_path)))       # a directory of no PNGs
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_consecutive_frames_from_y4m_match_jax(tmp_path, stride):
+    """``ConsecutiveFrames`` on a .y4m against the JAX dataset on the same
+    decoded frames written as PNGs (rgb_imagenet, resized 48x64 → 32x40)."""
+    path = str(tmp_path / "clip.y4m")
+    _write_y4m(path, _frames(5, 48, 64, seed=stride))
+    png_dir = tmp_path / "png"
+    png_dir.mkdir()
+    for i, f in enumerate(vio.read_frames(path)):
+        (png_dir / f"{i:04d}.png").write_bytes(encode_png(f[..., ::-1]))
+    ds = datasets.ConsecutiveFrames(path, size_hw=(32, 40), stride=stride)
+    jds = jdatasets.ConsecutiveFrames(str(png_dir), size_hw=(32, 40),
+                                      stride=stride)
+    assert ds.index == jds.index and len(ds) == 5 - stride
+    for i in range(len(ds)):
+        np.testing.assert_array_equal(ds[i]["images"], jds[i]["images"])
