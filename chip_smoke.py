@@ -61,11 +61,13 @@ non-zero, and no result line is printed):
  10. the training CLI (``cli/train.main`` with the fake weights as
      ``--pretrained``): (a) the multiscale regime at 4x320x896 over 2
      epochs on a synthetic KITTI training tree (16 pairs of 375x1242, a
-     smooth known motion, ~30% invalid; --val-frac 0.25): two
+     smooth known motion, ~30% invalid; --val-frac 0.25): three
      uninterrupted runs, and one preempted by SIGTERM after its first step
-     and resumed, which must log steps 1..N once each, see the same
-     batches (CRC-32 of their images) and end within 4x the uninterrupted
-     runs' spread in parameters and per-step losses; (b) the epipolar
+     and resumed, which must start from the state the preempted run saved,
+     bit for bit (parameters, AdamW's moments and step counts, learning
+     rates, step), log steps 1..N once each, see the same batches (CRC-32
+     of their images) and end within 4x the largest pairwise spread of the
+     uninterrupted runs in parameters and per-step losses; (b) the epipolar
      regime (--epi-soft-w 0.1, 384x512) on frames of a moving camera:
      finite losses and Sampson term, masks neither empty nor full, 10 K1
      and 5 B1 launches a step; (c) the CLI's samples/s (its own print,
@@ -90,14 +92,36 @@ non-zero, and no result line is printed):
      encode); the forward alone; the engine's ``resize_fixed`` (engine
      and ``cli/infer_kitti``) against the port on the CPU (1e-4) and
      ``flow_from_batch`` against the pad path;
- 12. one JSON line listing every kernel with its launches on its path,
+ 12. serving: ``cli/serve`` in a child process at its defaults (bfloat16
+     fast, --max-batch 8, --max-delay-ms 5, auto buckets, --warmup
+     436x1024) with the fake weights; 16 client threads send 128 raw
+     requests of moving 436x1024 pairs, then one client 16 in a row (the
+     B=1 bucket), then 4 JSON requests of the same frames as base64 PNGs,
+     which must return the raw route's bytes; /healthz and /metrics
+     (requests, errors, batches); a burst of 16 drained by SIGTERM (every
+     answer 200, exit code 0); K1 5 times a batch and a warm-up forward;
+     requests/s, p50/p90/p99 latency of both, mean occupancy, the dispatch
+     thread's share of the burst in the engine and in the host resize,
+     peak memory; a float32 parity-mode ``FlowServer`` in this process,
+     each response within 1e-4 mean EPE of ``flow_from_pair``; the engine
+     alone at B=8 and B=1 in the CLI's mode;
+ 13. export: the float32 parity model exported with the correlation
+     operator (``dynamic="all"``), loaded and run at 1x448x1024,
+     4x448x1024, 1x64x64 and 2x1088x1920 against the eager model
+     (epe_mean < 1e-5, agree@0.25 100%), 5 K1 launches a call; an
+     artifact of the plain correlation (static, 1x448x1024) against it;
+     ``cli/parity`` at 1x448x1024 (PARITY: PASS, its report PNG); export
+     time and each forward by CUDA events beside the eager model's;
+ 14. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
 Each kernel's launch count is set to 0 just before its path and read just
 after: the CLI and engine for K1, the probe entry points for K3 and K4, the
 training steps for B1 (and K1 there), the eval CLIs (K1), the training
-CLI's runs (K1 and B1), the video CLIs' runs (K1).
+CLI's runs (K1 and B1), the video CLIs' runs (K1), the serving CLI (K1,
+counted in its own process from 0) and the parity-mode server's burst, the
+loaded artifacts and the parity CLI (K1).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -966,6 +990,9 @@ def phase_eval(sd, tmp, corr_fwd):
 # an epoch at batch 4) over 2 epochs; the epipolar run: 12 frame pairs
 TRAIN_PAIRS = 16
 STEADY_EPOCHS = 4
+# the uninterrupted runs whose pairwise spread sets the resumed run's
+# trajectory tolerance (the first also hashes its batches)
+UNINTERRUPTED = ("uninterrupted", "again", "third")
 EPI_FRAMES = 13
 
 
@@ -1015,26 +1042,75 @@ def synth_kitti_train(root: str, rng) -> None:
                            flow, rng.rand(KITTI_H, KITTI_W) > 0.3)
 
 
+def on_cpu(obj):
+    """A copy of a state dict (nested dicts and lists of tensors and plain
+    values) with every tensor copied to the CPU."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: on_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(on_cpu(v) for v in obj)
+    return obj
+
+
+def state_diff(a, b, path="") -> list:
+    """Where two copies of :func:`on_cpu` differ: tensors bit for bit (dtype,
+    shape and every bit), everything else by ``==``."""
+    import torch
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and bool((a.view(-1).view(torch.uint8)
+                          == b.view(-1).view(torch.uint8)).all()))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in state_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in state_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
 class Recorder:
     """Wraps ``train.trainer.make_train_step`` while a CLI run lasts: the
     CRC-32 of every batch's ``images`` bytes that reaches the step, in
-    order, and the host clock as each step starts (instrumentation of this
+    order, the host clock as each step starts, and, for each run in the
+    block, the state its first step starts from (step, parameters, the
+    optimizer's state, on the CPU); and ``checkpoints.save_train_state``:
+    what each save wrote, as it was in memory (instrumentation of this
     script; the CLI is unchanged)."""
 
-    def __init__(self, hashes: bool = True):
+    def __init__(self, hashes: bool = True, states: bool = False):
         self.hashes = [] if hashes else None
         self.starts = []
+        self.states = states
+        self.first_states = []
+        self.saves = []
 
     def __enter__(self):
-        from opticalflow_tpu_torch.train import trainer
+        from opticalflow_tpu_torch.train import checkpoints, trainer
         self._real = real = trainer.make_train_step
+        self._real_save = real_save = checkpoints.save_train_state
         rec = self
 
         def make(model, opt, cfg, mesh=None):
             step = real(model, opt, cfg, mesh)
+            first = [True]
 
             def wrapped(state, batch):
                 rec.starts.append(time.perf_counter())
+                if rec.states and first[0]:
+                    first[0] = False
+                    rec.first_states.append({
+                        "step": state.step,
+                        "params": on_cpu(model.state_dict()),
+                        "opt_state": on_cpu(opt.state_dict())})
                 if rec.hashes is not None:
                     import zlib
                     rec.hashes.append(zlib.crc32(
@@ -1042,12 +1118,22 @@ class Recorder:
                 return step(state, batch)
             return wrapped
 
+        def save(directory, step, params, opt_state=None, metadata=None):
+            if rec.states:
+                rec.saves.append({"directory": directory, "step": step,
+                                  "params": on_cpu(params),
+                                  "opt_state": on_cpu(opt_state),
+                                  "metadata": metadata})
+            return real_save(directory, step, params, opt_state, metadata)
+
         trainer.make_train_step = make
+        checkpoints.save_train_state = save
         return self
 
     def __exit__(self, *exc):
-        from opticalflow_tpu_torch.train import trainer
+        from opticalflow_tpu_torch.train import checkpoints, trainer
         trainer.make_train_step = self._real
+        checkpoints.save_train_state = self._real_save
 
 
 def train_cli_run(argv, preempt_after_first: bool = False):
@@ -1123,20 +1209,20 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
             "--batch", str(TRAIN_B), "--epochs", "2", "--workers", "4",
             "--val-frac", "0.25", "--log-every", "1", "--device", "cuda"]
 
-    # (a) two uninterrupted runs (their spread sets the tolerance), then a
-    # run preempted after its first step and its resume
+    # (a) three uninterrupted runs (their spread sets the trajectory's
+    # tolerance), then a run preempted after its first step and its resume
     corr_fwd.launches = corr_bwd.launches = 0   # the training CLI starts
     runs = {}
-    for name in ("uninterrupted", "again"):
+    for name in UNINTERRUPTED:
         out = os.path.join(tmp, name)
-        # the repeat hashes nothing: its rate is the CLI's own
+        # the repeats hash nothing: their rate is the CLI's own
         with Recorder(hashes=name == "uninterrupted") as rec:
             rc, text, wall = train_cli_run(base + ["--out-dir", out])
         assert rc == 0, rc
         runs[name] = {"out": out, "hashes": rec.hashes, "text": text,
                       "wall": wall}
     out = os.path.join(tmp, "preempted")
-    with Recorder() as rec:
+    with Recorder(states=True) as rec:
         rc, text_p, _ = train_cli_run(base + ["--out-dir", out],
                                       preempt_after_first=True)
         assert rc == 0, rc
@@ -1145,10 +1231,34 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
         # mid-epoch, or on an epoch's last batch after its validation
         assert ("preempted: saved" in text_p
                 or "preempted after epoch" in text_p), "no preemption save"
+        saved = [sv for sv in rec.saves
+                 if os.path.abspath(sv["directory"]) == os.path.abspath(out)]
         rc, text_r, _ = train_cli_run(base + ["--out-dir", out, "--resume"])
         assert rc == 0, rc
     assert "resumed from step" in text_r
     runs["resumed"] = {"out": out, "hashes": rec.hashes}
+    # exact resume: the state the resumed run's first step starts from is,
+    # bit for bit, the state the preempted run saved last (its parameters,
+    # AdamW's moments and step counts, the learning rates, the step); the
+    # loader's position and its seeded draws show in the batches' CRC-32
+    # below
+    assert saved and len(rec.first_states) == 2, (len(saved),
+                                                  len(rec.first_states))
+    at_save, at_resume = saved[-1], rec.first_states[1]
+    assert at_resume["step"] == at_save["step"] == max(first), \
+        (at_resume["step"], at_save["step"], first)
+    diff = (state_diff(at_save["params"], at_resume["params"], "params")
+            + state_diff(at_save["opt_state"], at_resume["opt_state"],
+                         "opt_state"))
+    n_tensors = (len(at_save["params"])
+                 + sum(len(v) for v in at_save["opt_state"]["state"].values()))
+    log(f"[10] (a) exact resume: the resumed run starts from step "
+        f"{at_resume['step']}; its state against the one the preempted run "
+        f"saved, bit for bit ({n_tensors} tensors: parameters, AdamW's "
+        f"exp_avg, exp_avg_sq and step; "
+        f"{len(at_save['opt_state']['param_groups'])} param groups): "
+        f"differing {diff}")
+    assert not diff, f"the resumed state differs from the saved one: {diff}"
     steps = {n: [r["step"] for r in jsonl(os.path.join(r_["out"],
                                                         "metrics.jsonl"))
                  if "step" in r] for n, r_ in runs.items()}
@@ -1160,10 +1270,11 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
         assert steps[n] == expect, (n, steps[n])
     assert first and max(first) < n_steps, first
     launched_a = (corr_fwd.launches, corr_bwd.launches)  # ... and ends here
-    # three runs' worth of steps (5 B1 each), K1 in the steps and in the
+    # four runs' worth of steps (5 B1 each), K1 in the steps and in the
     # validation forwards (one batch an epoch, two epochs a run)
-    assert launched_a[1] == 3 * 5 * n_steps, launched_a
-    assert launched_a[0] == 3 * 5 * n_steps + 3 * 2 * 5, launched_a
+    n_runs = len(UNINTERRUPTED) + 1
+    assert launched_a[1] == n_runs * 5 * n_steps, launched_a
+    assert launched_a[0] == n_runs * 5 * n_steps + n_runs * 2 * 5, launched_a
     assert runs["resumed"]["hashes"] == runs["uninterrupted"]["hashes"], \
         "the resumed run saw other batches"
     losses = {n: np.array([r["loss"] for r in jsonl(os.path.join(
@@ -1179,22 +1290,27 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
         return float(np.abs(losses[a] - losses[b]).max())
 
     # the card is not bit-deterministic (cuDNN's and grid_sample's
-    # backwards add with atomics): the resumed run is held to 4x the spread
-    # of two uninterrupted runs, plus a floor of float32 rounding
-    p_spread, l_spread = param_gap("again", "uninterrupted"), loss_gap(
-        "again", "uninterrupted")
+    # backwards add with atomics), so the resumed run's trajectory is held
+    # to 4x the spread of the uninterrupted runs (the largest of their
+    # three pairs), plus a floor of float32 rounding; the resume itself is
+    # held bit for bit above
+    pairs = [(a, b) for i, a in enumerate(UNINTERRUPTED)
+             for b in UNINTERRUPTED[i + 1:]]
+    p_spreads = [param_gap(a, b) for a, b in pairs]
+    l_spreads = [loss_gap(a, b) for a, b in pairs]
+    p_spread, l_spread = max(p_spreads), max(l_spreads)
     p_top = max(float(v.abs().max()) for v in params["uninterrupted"].values())
     p_tol = 4 * p_spread + 1e-6 * p_top
     l_tol = 4 * l_spread + 1e-6 * float(np.abs(losses["uninterrupted"]).max())
     p_gap, l_gap = param_gap("resumed", "uninterrupted"), loss_gap(
         "resumed", "uninterrupted")
     log(f"[10] (a) {len(runs['uninterrupted']['hashes'])} batches, the same "
-        f"CRC-32 of images in the uninterrupted, repeated and resumed runs; "
-        f"final parameters: resumed - uninterrupted max|d| {p_gap!r} "
-        f"(tolerance {p_tol!r} = 4 x the two uninterrupted runs' {p_spread!r}"
-        f" + 1e-6 x max|p|); per-step losses: {l_gap!r} (tolerance "
-        f"{l_tol!r}, spread {l_spread!r}); K1/B1 launches in the three runs "
-        f"{launched_a}")
+        f"CRC-32 of images in the uninterrupted and resumed runs; final "
+        f"parameters: resumed - uninterrupted max|d| {p_gap!r} (tolerance "
+        f"{p_tol!r} = 4 x the largest of the uninterrupted runs' pairwise "
+        f"{p_spreads!r} + 1e-6 x max|p|); per-step losses: {l_gap!r} "
+        f"(tolerance {l_tol!r}, pairwise {l_spreads!r}); K1/B1 launches in "
+        f"the {len(runs)} runs {launched_a}")
     assert p_gap <= p_tol, (p_gap, p_tol)
     assert l_gap <= l_tol, (l_gap, l_tol)
     assert np.isfinite(losses["uninterrupted"]).all()
@@ -1332,7 +1448,9 @@ def phase_train_cli(sd, tmp, corr_fwd, corr_bwd, card: str):
     return {"steps": steps["resumed"], "preempted_at": max(first),
             "batches": len(runs["uninterrupted"]["hashes"]),
             "param_gap": p_gap, "param_tol": p_tol, "param_spread": p_spread,
+            "param_spreads": p_spreads, "loss_spreads": l_spreads,
             "loss_gap": l_gap, "loss_tol": l_tol, "loss_spread": l_spread,
+            "exact_resume_tensors": n_tensors,
             "cli_samples_per_s": rates,
             "cli_steady_samples_per_s": steady_rate,
             "cli_steady_intervals_s": gaps,
@@ -1746,6 +1864,554 @@ def phase_video_engine(sd, tmp):
             "flow_from_batch_err": d_batch}
 
 
+# ------------------------------------------------------------ phase 12
+
+# serving at Sintel size: 16 moving pairs; 16 client threads send 128 raw
+# requests, then one client 16 in a row (the B=1 bucket), then 4 JSON ones;
+# a burst of 16 is drained by SIGTERM
+SERVE_PAIRS = 16
+SERVE_CLIENTS = 16
+SERVE_CONCURRENT = 128
+SERVE_JSON = 4
+# the serving CLI, run in a child process by this script with its own
+# instrumentation (the CLI is unchanged): K1's count set to 0 before main
+# and read after it returns; the FlowServer's final metrics; every engine
+# call of the dispatch thread (start, end, batch, host /64 resize seconds
+# inside it); the card's peak memory.  One JSON line after main returns.
+SERVE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from opticalflow_tpu_torch import serve as S
+from opticalflow_tpu_torch.cli import serve as cli
+from opticalflow_tpu_torch.engine import FlowEngine
+from opticalflow_tpu_torch.io import images as imio
+from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+
+servers, calls, resize_s = [], [], [0.0]
+
+
+class Server(S.FlowServer):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        servers.append(self)
+
+
+def timed_pairs(self, im1s, im2s, _real=FlowEngine.flow_from_pairs, **kw):
+    r0, t0 = resize_s[0], time.perf_counter()
+    out = _real(self, im1s, im2s, **kw)
+    calls.append((t0, time.perf_counter(), len(im1s), resize_s[0] - r0))
+    return out
+
+
+def timed_resize(img, _real=imio.resize_to_multiple_of_64):
+    t0 = time.perf_counter()
+    out = _real(img)
+    resize_s[0] += time.perf_counter() - t0
+    return out
+
+
+S.FlowServer = Server
+FlowEngine.flow_from_pairs = timed_pairs
+imio.resize_to_multiple_of_64 = timed_resize
+correlation_cuda.launches = 0
+rc = cli.main(sys.argv[2:])
+print("SERVE_CHILD " + json.dumps({
+    "rc": rc, "launches": correlation_cuda.launches,
+    "metrics": servers[0].metrics.snapshot(),
+    "buckets": servers[0].bucket_sizes, "calls": calls,
+    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}), flush=True)
+sys.exit(rc)
+"""
+
+
+def post(conn, body, headers):
+    """One POST /v1/flow on a kept-alive connection: (status, body bytes,
+    seconds from the request's first byte to the response's last)."""
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/flow", body, headers)
+    resp = conn.getresponse()
+    data = resp.read()
+    return resp.status, data, time.perf_counter() - t0
+
+
+def get_json(port: int, path: str):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        assert resp.status == 200, (path, resp.status)
+        return json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def flo_array(data: bytes, h: int, w: int):
+    import struct
+    import numpy as np
+    tag, fw, fh = struct.unpack("<fii", data[:12])
+    assert abs(tag - 202021.25) < 1e-3 and (fh, fw) == (h, w), (tag, fh, fw)
+    return np.frombuffer(data[12:], "<f4").reshape(h, w, 2)
+
+
+def percentiles(seconds) -> dict:
+    """p50/p90/p99 in ms, by the same rule as ``ServerMetrics.snapshot``."""
+    s = sorted(seconds)
+    return {f"p{int(q * 100)}": s[min(len(s) - 1, int(q * len(s)))] * 1e3
+            for q in (0.50, 0.90, 0.99)}
+
+
+def burst(port: int, jobs, headers, clients: int):
+    """``jobs`` (pair index, body) sent by ``clients`` threads, each on its
+    own kept-alive connection, every thread's share in order.  Returns
+    [(pair index, status, body, seconds)] and the burst's wall seconds."""
+    import http.client
+    import threading
+    results = []
+    lock = threading.Lock()
+
+    def client(share):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i, body in share:
+                r = post(conn, body, headers)
+                with lock:
+                    results.append((i, *r))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(jobs[k::clients],))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    return results, wall
+
+
+def start_serving_cli(argv):
+    """The serving CLI in a child process (:data:`SERVE_CHILD`); returns
+    (process, its port, its output lines: a list the reader thread keeps
+    appending to until the child exits, the reader thread)."""
+    import queue
+    import subprocess
+    import threading
+    proc = subprocess.Popen([sys.executable, "-c", SERVE_CHILD, ROOT, *argv],
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, ports = [], queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                ports.put(int(line.split("http://")[1].split()[0]
+                              .rsplit(":", 1)[1]))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.perf_counter() + 300
+    while True:
+        try:
+            return proc, ports.get(timeout=1.0), lines, reader
+        except queue.Empty:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                proc.kill()
+                raise AssertionError("the serving CLI did not come up:\n"
+                                     + "".join(lines[-40:]))
+
+
+def dispatch_share(calls, t0: float, t1: float) -> dict:
+    """The dispatch thread's engine calls inside [t0, t1] (its clock and this
+    process's are both CLOCK_MONOTONIC): busy share of the window, the host
+    /64 resize's share, mean batch, ms a call."""
+    inside = [c for c in calls if c[0] >= t0 and c[1] <= t1]
+    busy = sum(c[1] - c[0] for c in inside)
+    return {"calls": len(inside), "busy_share": busy / (t1 - t0),
+            "resize_share": sum(c[3] for c in inside) / (t1 - t0),
+            "mean_batch": (sum(c[2] for c in inside) / len(inside)
+                           if inside else 0.0),
+            "ms_per_call": busy / len(inside) * 1e3 if inside else 0.0}
+
+
+def phase_serve(sd, tmp, counter, card: str):
+    """The serving CLI on the card at its defaults, then a float32
+    parity-mode server in this process and the engine alone.  Returns a
+    dict of its results."""
+    import base64
+    import http.client
+    import signal
+    import threading
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.io.images import encode_png
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.serve import FlowServer, make_http_server
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    frames = moving_frames(np.random.RandomState(12), SERVE_PAIRS + 1,
+                           FULL_H, FULL_W)
+    pairs = list(zip(frames[:-1], frames[1:]))
+    bodies = [a.tobytes() + b.tobytes() for a, b in pairs]
+    raw = {"Content-Type": "application/octet-stream",
+           "X-Frame-Shape": f"{FULL_H}x{FULL_W}x3", "X-Timeout": "120"}
+
+    # 1. the CLI at its defaults (bfloat16 fast, max batch 8, 5 ms, auto
+    # buckets), warmed up at Sintel size
+    t0 = time.perf_counter()
+    proc, port, lines, reader = start_serving_cli(
+        ["--ckpt", ckpt, "--port", "0", "--warmup", f"{FULL_H}x{FULL_W}",
+         "--device", "cuda"])
+    startup_s = time.perf_counter() - t0
+    try:
+        # 2. concurrent traffic, then one client in a row, then JSON
+        jobs = [(i % SERVE_PAIRS, bodies[i % SERVE_PAIRS])
+                for i in range(SERVE_CONCURRENT)]
+        t_c0 = time.perf_counter()
+        conc, wall_c = burst(port, jobs, raw, SERVE_CLIENTS)
+        t_c1 = time.perf_counter()
+        m_c = get_json(port, "/metrics")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        t_s0 = time.perf_counter()
+        seq = [post(conn, body, raw) for body in bodies]
+        t_s1 = time.perf_counter()
+        m_s = get_json(port, "/metrics")
+        json_resp = []
+        for i in range(SERVE_JSON):
+            req = json.dumps({k: base64.b64encode(encode_png(im)).decode()
+                              for k, im in zip(("im1", "im2"), pairs[i])})
+            json_resp.append(post(conn, req.encode(),
+                                  {"Content-Type": "application/json"}))
+        conn.close()
+        # 3. the probes
+        health = get_json(port, "/healthz")
+        m_all = get_json(port, "/metrics")
+        # 6. a burst of 16 on fresh connections, SIGTERM once the first
+        # answer is back (all 16 were accepted long before: a batch takes
+        # far longer than 16 connects)
+        drained, first = [], threading.Event()
+
+        def one(i):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            try:
+                drained.append((i, *post(c, bodies[i], raw)))
+            finally:
+                c.close()
+                first.set()
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(SERVE_PAIRS)]
+        for t in threads:
+            t.start()
+        assert first.wait(120), "no answer in the SIGTERM burst"
+        proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(timeout=300)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=60)                 # the child's last lines
+    child = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+             if ln.startswith("SERVE_CHILD ")]
+    assert rc == 0 and child, (rc, "".join(lines[-40:]))
+    child = child[0]
+    for (i, status, data, _) in conc + drained:
+        assert status == 200, (i, status, data[:200])
+        f = flo_array(data, FULL_H, FULL_W)
+        assert np.isfinite(f).all(), i
+    assert all(status == 200 for status, _, _ in seq + json_resp)
+    assert len(drained) == SERVE_PAIRS, len(drained)
+    # the JSON route decodes the same frames: the same bytes as the raw
+    # requests of the same pairs, which rode the same B=1 bucket
+    for i, (_, data, _) in enumerate(json_resp):
+        assert data == seq[i][1], f"JSON pair {i} differs from the raw one"
+    n_total = SERVE_CONCURRENT + 2 * SERVE_PAIRS + SERVE_JSON
+    assert health == {"ok": True}, health
+    assert m_c["requests"] == SERVE_CONCURRENT and m_c["errors"] == 0, m_c
+    assert m_s["batches"] - m_c["batches"] == SERVE_PAIRS, (m_s, m_c)
+    assert m_all["requests"] == n_total - SERVE_PAIRS, m_all
+    final = child["metrics"]
+    assert final["requests"] == n_total and final["errors"] == 0, final
+    # 5. K1: 5 launches a dispatched batch, and a warm-up forward per
+    # bucket and size mode
+    warm = len(child["buckets"]) * 2
+    assert child["launches"] == 5 * (final["batches"] + warm), \
+        (child["launches"], final["batches"], warm)
+    occupancy_c = SERVE_CONCURRENT / m_c["batches"]
+    lat_c = percentiles([r[3] for r in conc])
+    lat_s = percentiles([r[2] for r in seq])
+    share = dispatch_share(child["calls"], t_c0, t_c1)
+    share_s = dispatch_share(child["calls"], t_s0, t_s1)
+    rps = SERVE_CONCURRENT / wall_c
+    log(f"[12] serving CLI (bfloat16 fast, --max-batch 8, --max-delay-ms 5, "
+        f"buckets {child['buckets']}), {FULL_H}x{FULL_W} raw requests: "
+        f"startup with warm-up {startup_s:.1f} s; {SERVE_CONCURRENT} from "
+        f"{SERVE_CLIENTS} clients in {wall_c:.3f} s = {rps!r} requests/s, "
+        f"latency p50/p90/p99 {lat_c['p50']:.1f} / {lat_c['p90']:.1f} / "
+        f"{lat_c['p99']:.1f} ms, {m_c['batches']} batches, mean occupancy "
+        f"{occupancy_c:.2f}; dispatch thread in the engine "
+        f"{share['busy_share']:.1%} of the burst ({share['ms_per_call']:.1f}"
+        f" ms a call, host /64 resize {share['resize_share']:.1%} of the "
+        f"burst); {card}")
+    log(f"[12] one client, {SERVE_PAIRS} in a row (the B=1 bucket): "
+        f"latency p50/p90/p99 {lat_s['p50']:.1f} / {lat_s['p90']:.1f} / "
+        f"{lat_s['p99']:.1f} ms; dispatch in the engine "
+        f"{share_s['ms_per_call']:.1f} ms a call; {SERVE_JSON} JSON (base64 "
+        f"PNG) requests: the raw route's bytes; /healthz {health}; /metrics "
+        f"requests {m_all['requests']} errors {m_all['errors']}")
+    log(f"[12] SIGTERM during a burst of {SERVE_PAIRS}: {len(drained)} "
+        f"answered 200, exit code {rc}; the server's totals: {final}; K1 "
+        f"launches in the CLI {child['launches']} = 5 x ({final['batches']} "
+        f"batches + {warm} warm-up forwards); peak {child['peak_mib']:.0f} "
+        f"MiB")
+
+    # 4. fidelity: a float32 parity-mode server in this process, each
+    # response against the engine's own flow_from_pair
+    engine = FlowEngine(PWCDCNet(), sd, flow_scale=20.0, device="cuda")
+    server = FlowServer(engine, max_batch=8, max_delay_ms=5)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        engine.flow_from_pairs([pairs[0][0]] * 8, [pairs[0][1]] * 8)
+        before = counter.launches
+        parity, _ = burst(httpd.server_address[1],
+                          [(i, bodies[i]) for i in range(SERVE_PAIRS)], raw,
+                          8)
+        launched_p = counter.launches - before
+        batches_p = server.metrics.snapshot()["batches"]
+    finally:
+        httpd.shutdown()
+        server.close()
+        httpd.server_close()
+    assert launched_p == 5 * batches_p, (launched_p, batches_p)
+    epes = []
+    for i, status, data, _ in parity:
+        assert status == 200, (i, status)
+        epes.append(epe(flo_array(data, FULL_H, FULL_W),
+                        engine.flow_from_pair(*pairs[i])))
+    log(f"[12] float32 parity-mode server, {len(parity)} concurrent "
+        f"requests in {batches_p} batches: each response against "
+        f"flow_from_pair of its pair, mean EPE max {max(epes)!r} (bound "
+        f"1e-4); K1 {launched_p} launches")
+    assert max(epes) <= 1e-4, max(epes)
+
+    # 7. the engine alone, bfloat16 fast (the CLI's model), resize mode
+    fast = FlowEngine(PWCDCNet(dtype=torch.bfloat16, precision="fast"), sd,
+                      flow_scale=20.0, device="cuda")
+    im1s, im2s = [p[0] for p in pairs[:8]], [p[1] for p in pairs[:8]]
+    fast.flow_from_pairs(im1s, im2s)
+    fast.flow_from_pair(*pairs[0])
+    t0 = time.perf_counter()
+    for _ in range(4):
+        fast.flow_from_pairs(im1s, im2s)
+    alone_b8 = 32 / (time.perf_counter() - t0)
+    lat1 = []
+    for a, b in pairs:
+        t0 = time.perf_counter()
+        fast.flow_from_pair(a, b)
+        lat1.append(time.perf_counter() - t0)
+    alone_b1 = percentiles(lat1)
+    log(f"[12] FlowEngine.flow_from_pairs alone, bfloat16 fast, resize, "
+        f"{FULL_H}x{FULL_W}: B=8 {alone_b8!r} pairs/s (the server: "
+        f"{rps / alone_b8:.2f} of it); B=1 latency p50/p90/p99 "
+        f"{alone_b1['p50']:.1f} / {alone_b1['p90']:.1f} / "
+        f"{alone_b1['p99']:.1f} ms; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"requests_per_s": rps, "concurrent_wall_s": wall_c,
+            "latency_ms": lat_c, "sequential_latency_ms": lat_s,
+            "mean_occupancy": occupancy_c, "batches": m_c["batches"],
+            "dispatch": share, "dispatch_sequential": share_s,
+            "peak_mib": child["peak_mib"], "startup_s": startup_s,
+            "final_metrics": final, "drained": len(drained),
+            "launches_cli": child["launches"], "launches_parity": launched_p,
+            "parity_epe_max": max(epes),
+            "engine_alone_b8_pairs_per_s": alone_b8,
+            "engine_alone_b1_latency_ms": alone_b1,
+            "server_over_engine": rps / alone_b8, "card": card}
+
+
+# ------------------------------------------------------------ phase 13
+
+# the shapes an artifact of dynamic="all" runs at: Sintel padded (B=1 and
+# B=4), a 64-pixel side (level 6 is 1 pixel wide), 1080p (K2's domain)
+EXPORT_SHAPES = ((1, 448, 1024), (4, 448, 1024), (1, 64, 64),
+                 (2, 1088, 1920))
+
+
+def artifact_check(fn, model, b, h, w, counter, seed: int):
+    """``fn`` against the eager ``model`` ×20 on ``parity_check``'s input
+    (``RandomState(seed).rand`` of the NHWC shape, transposed): its
+    parity report and its K1 launches."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.utils.metrics import parity_report
+    x = np.random.RandomState(seed).rand(b, h, w, 6).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 3, 1, 2))).cuda()
+    before = counter.launches
+    got = fn(xt)
+    torch.cuda.synchronize()
+    launched = counter.launches - before
+    with torch.inference_mode():
+        want = model(xt) * 20.0
+    rep = parity_report(got.permute(0, 2, 3, 1).cpu().numpy(),
+                        want.permute(0, 2, 3, 1).cpu().numpy())
+    return xt, got, rep, launched
+
+
+def phase_export(sd, tmp, counter, card: str):
+    """Export and parity on the card.  Returns a dict of its results."""
+    import contextlib
+    import io
+    import torch
+    from opticalflow_tpu_torch.cli import parity as parity_cli
+    from opticalflow_tpu_torch.export import export_program, load_exported
+    from opticalflow_tpu_torch.io.images import decode_png
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+    from opticalflow_tpu_torch.scripts._timing import cuda_ms
+    from opticalflow_tpu_torch.utils.metrics import parity_report
+
+    t_phase = time.perf_counter()
+    weights = reference_state_dict(sd)
+
+    def parity_model(use_cuda_corr=True):
+        m = PWCDCNet(use_cuda_corr=use_cuda_corr)
+        m.load_state_dict(weights)
+        return m.cuda().eval()
+
+    # 1. the float32 parity model, with the kernel's operator, dynamic="all"
+    model = parity_model()
+    path = os.path.join(tmp, "kernel.pt2")
+    t0 = time.perf_counter()
+    export_program(model, path, dynamic="all")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_exported(path)
+    load_s = time.perf_counter() - t0
+    assert art.metadata["precision"] == "highest", art.metadata
+    # 3. the same model with the plain correlation, exported at the first
+    # shape (a dynamic export of its 405 shifted products traces for 95 s
+    # on a CPU core, a static one for 19 s)
+    plain_model = parity_model(use_cuda_corr=False)
+    plain_path = os.path.join(tmp, "plain.pt2")
+    b0, h0, w0 = EXPORT_SHAPES[0]
+    t0 = time.perf_counter()
+    export_program(plain_model, plain_path, input_shape=(b0, 6, h0, w0))
+    plain_export_s = time.perf_counter() - t0
+    plain = load_exported(plain_path)
+    log(f"[13] exported the float32 parity model (dynamic='all') in "
+        f"{export_s:.1f} s (loaded in {load_s:.1f} s), with the plain "
+        f"correlation at {b0}x6x{h0}x{w0} in {plain_export_s:.1f} s")
+
+    # 2. each shape: the eager model's flow, K1 5 times a call; at the
+    # first, the plain artifact against the kernel artifact
+    rows = []
+    for k, (b, h, w) in enumerate(EXPORT_SHAPES):
+        xt, got, rep, launched = artifact_check(art, model, b, h, w, counter,
+                                                seed=k)
+        n = 20 if b * h * w <= 448 * 1024 else 5
+        with torch.inference_mode():
+            ms = cuda_ms(lambda _: art(xt), n)
+            ms_eager = cuda_ms(lambda _: model(xt) * 20.0, n)
+        row = {"shape": [b, 6, h, w], "epe_mean": rep["epe_mean"],
+               "agree@0.25": rep["agree@0.25"], "launches": launched,
+               "ms": ms, "eager_ms": ms_eager}
+        rows.append(row)
+        log(f"[13] artifact at {b}x6x{h}x{w}: against the eager model epe_mean "
+            f"{rep['epe_mean']!r}, agree@0.25 {rep['agree@0.25']}% (bounds "
+            f"< 1e-5, 100); K1 {launched} launches; forward by CUDA events: "
+            f"artifact {ms:.3f} ms, eager {ms_eager:.3f} ms")
+        assert rep["epe_mean"] < 1e-5 and rep["agree@0.25"] == 100.0, rep
+        assert launched == 5, launched
+        if k:
+            continue
+        before = counter.launches
+        got_plain = plain(xt)
+        torch.cuda.synchronize()
+        plain_launched = counter.launches - before
+        rep_plain = parity_report(got_plain.permute(0, 2, 3, 1).cpu().numpy(),
+                                  got.permute(0, 2, 3, 1).cpu().numpy())
+        row.update({"plain_vs_kernel_epe_mean": rep_plain["epe_mean"],
+                    "plain_vs_kernel_agree@0.25": rep_plain["agree@0.25"],
+                    "plain_launches": plain_launched,
+                    "plain_ms": cuda_ms(lambda _: plain(xt), 5)})
+        log(f"[13] the plain artifact at {b}x6x{h}x{w} against the kernel "
+            f"artifact: epe_mean {rep_plain['epe_mean']!r}, agree@0.25 "
+            f"{rep_plain['agree@0.25']}% (the same bounds); K1 "
+            f"{plain_launched}; forward {row['plain_ms']:.3f} ms")
+        assert rep_plain["epe_mean"] < 1e-5, rep_plain
+        assert rep_plain["agree@0.25"] == 100.0, rep_plain
+        assert plain_launched == 0, plain_launched
+
+    # the host's cost of a call through the PyTorch operator (the node an
+    # artifact holds) beside the wrapper the eager model calls, at level 6
+    # of 448x1024 (the smallest launch of a forward), in turns
+    from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+    from opticalflow_tpu_torch.scripts._timing import host_ms
+    g = torch.Generator(device="cuda").manual_seed(13)
+    f1, f2 = (torch.randn(1, 196, 7, 16, generator=g, device="cuda")
+              for _ in range(2))
+    op = torch.ops.opticalflow_tpu_torch.correlation
+    issue_us = {"operator": [], "wrapper": []}
+    with torch.inference_mode():
+        for _ in range(2):
+            issue_us["wrapper"].append(host_ms(
+                lambda _: correlation_cuda(f1, f2), 2000) * 1e3)
+            issue_us["operator"].append(host_ms(
+                lambda _: op(f1, f2, 4), 2000) * 1e3)
+    log(f"[13] host time to issue one K1 call at 1x196x7x16 (2000 calls, "
+        f"twice each, in turns): through torch.ops.opticalflow_tpu_torch."
+        f"correlation {[round(v, 2) for v in issue_us['operator']]} us, the "
+        f"ctypes wrapper alone {[round(v, 2) for v in issue_us['wrapper']]} "
+        f"us")
+
+    # 4. the parity CLI at 1x448x1024: exports (static), checks, reports
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    png = os.path.join(tmp, "parity.png")
+    buf = io.StringIO()
+    before = counter.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = parity_cli.main(["--ckpt", ckpt, "--artifact",
+                              os.path.join(tmp, "model.pt2"), "--shape", "1",
+                              "448", "1024", "--report-image", png,
+                              "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    cli_launches = counter.launches - before
+    text = buf.getvalue()
+    rep_cli = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    with open(png, "rb") as f:
+        fig = decode_png(f.read())
+    log(f"[13] cli/parity --shape 1 448 1024: rc {rc}, "
+        f"{text.strip().splitlines()[-1]!r}, epe_mean "
+        f"{rep_cli['epe_mean']!r}, report {fig.shape}, {cli_s:.1f} s, K1 "
+        f"{cli_launches} launches; phase 13 took "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    assert rc == 0 and "PARITY: PASS" in text, text[-400:]
+    assert fig.ndim == 3 and fig.shape[2] == 3, fig.shape
+    assert cli_launches == 10, cli_launches    # the model's and the artifact's
+    return {"export_s": export_s, "load_s": load_s,
+            "plain_export_s": plain_export_s, "shapes": rows,
+            "issue_us": issue_us,
+            "launches": sum(r["launches"] for r in rows) + cli_launches,
+            "cli": {"rc": rc, "epe_mean": rep_cli["epe_mean"],
+                    "seconds": cli_s, "launches": cli_launches},
+            "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1841,6 +2507,20 @@ def main() -> int:
     video["phase_s"] = time.perf_counter() - t_video
     log(f"[11] phase 11 took {video['phase_s']:.1f} s")
 
+    zero_counts()                           # the serving path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = phase_serve(sd, tmp, correlation_cuda, card_line())
+    # ... and ends here: the CLI's launches (counted in its process from 0)
+    # and the parity-mode server's (this process, its burst alone)
+    serve_launches = serve["launches_cli"] + serve["launches_parity"]
+    assert serve_launches > 0
+    zero_counts()                           # the export path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        export = phase_export(sd, tmp, correlation_cuda, card_line())
+    export_launches = export["launches"]    # ... and ends here
+    assert export_launches > 0 and correlation_cuda.launches >= \
+        export_launches
+
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
     k2 = summed(k2_rows)
@@ -1865,7 +2545,11 @@ def main() -> int:
          # the training CLI's runs (phase 10: steps, validation, masks)
          "launches_train_cli": train_cli["launches"]["correlation_fwd"],
          # the video CLIs' runs (phase 11: 5 a window, 720p and 1080p)
-         "launches_video": video_launches, "video": video},
+         "launches_video": video_launches, "video": video,
+         # the serving CLI and a parity-mode server (phase 12: 5 a batch)
+         "launches_serve": serve_launches, "serve": serve,
+         # loaded artifacts and the parity CLI (phase 13: 5 a call)
+         "launches_export": export_launches, "export": export},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax

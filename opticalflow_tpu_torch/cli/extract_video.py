@@ -63,7 +63,9 @@ def build_parser():
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="bfloat16")
     p.add_argument("--complexity", action="store_true",
-                   help="per-layer params/FLOPs table: not ported")
+                   help="print the per-layer params/FLOPs table at model "
+                        "load (the reference's ptflops print; FLOPs of the "
+                        "convolutions at 1x6x384x512)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -112,9 +114,6 @@ class Overlay:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.complexity:
-        raise SystemExit("--complexity (the per-layer params/FLOPs table) is "
-                         "not ported yet: ROADMAP Queue 1 item 9")
     if args.mode == "compare":
         from opticalflow_tpu_torch.viz.overlay import opencv_flow
         opencv_flow(None, None, args.compare_method)   # not ported: raises
@@ -134,6 +133,14 @@ def main(argv=None) -> int:
                              flow_scale=args.flow_scale, batch=args.batch,
                              grid_step=gstep, upload=args.upload,
                              device=args.device)
+    if args.complexity:
+        from opticalflow_tpu_torch.utils.profiling import (
+            model_complexity, per_layer_complexity)
+        print(per_layer_complexity(runner.model))
+        rep = model_complexity(runner.model)
+        print(f"params: {rep['params_m']:.2f} M"
+              + (f"   {rep['gmacs']:.1f} GMac @ {rep['input_shape']}"
+                 if "gmacs" in rep else ""))
     print(f"model: PWCDCNet[{args.variant}] "
           f"{param_count(runner.model) / 1e6:.2f}M params, {args.dtype}")
 

@@ -2,12 +2,14 @@
 
     python -m opticalflow_tpu_torch.cli.profile_forward --batch 1 \\
         [--height 448 --width 1024 --dtype float32 --precision highest] \\
-        [--train] [--trace forward_trace.json]
+        [--train | --export] [--trace forward_trace.json]
 
 Random weights from a seed (timing does not depend on their values).  After
 warm-up, ``torch.profiler`` records ``--iters`` forwards, or with
 ``--train`` as many train steps (``train.trainer``: the multiscale loss,
-AdamW, clip 1.0, a random batch already on the card); the script prints
+AdamW, clip 1.0, a random batch already on the card), or with
+``--export`` as many calls of the model's ``torch.export`` artifact
+(``export.export_program``, ``dynamic="all"``, ×20); the script prints
 the device time by kernel group and by kernel, the wall time per call, and
 the summed kernel time over the wall time (below 1: the device idles,
 waiting on the host; above 1: kernels overlap on several streams).  Needs
@@ -61,6 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="highest")
     p.add_argument("--train", action="store_true",
                    help="profile train steps instead of forwards")
+    p.add_argument("--export", action="store_true",
+                   help="profile the model's exported artifact instead")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--trace", default=None,
@@ -93,6 +97,19 @@ def main(argv=None) -> int:
                  "valid": torch.ones(b, h, w, device=dev)}
         call, scope, what = (lambda: step(state, batch), torch.enable_grad,
                              "train step")
+    elif args.export:
+        import os
+        import tempfile
+        from opticalflow_tpu_torch.export import export_program, load_exported
+        x = torch.rand(b, 6, h, w, device=dev, generator=gen)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.pt2")
+            t0 = time.perf_counter()
+            export_program(model, path, dynamic="all")
+            print(f"exported in {time.perf_counter() - t0:.1f} s")
+            artifact = load_exported(path)
+        call, scope, what = (lambda: artifact(x), torch.inference_mode,
+                             "artifact call")
     else:
         x = torch.rand(b, 6, h, w, device=dev, generator=gen)
         call, scope, what = (lambda: model(x), torch.inference_mode,

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 __all__ = ["correlation", "correlation_plain", "correlation_bwd_plain",
-           "CorrelationFn"]
+           "CorrelationFn", "correlation_op"]
 
 
 def _out_dim(dim: int, pad: int, kernel_radius: int, md: int,
@@ -152,6 +152,31 @@ class CorrelationFn(torch.autograd.Function):
         return d1, d2, None
 
 
+@torch.library.custom_op("opticalflow_tpu_torch::correlation",
+                         mutates_args=())
+def correlation_op(f1: torch.Tensor, f2: torch.Tensor,
+                   max_displacement: int) -> torch.Tensor:
+    """The hot configuration's volume as a PyTorch operator, which
+    ``torch.export`` records in a graph as one node, where it cannot trace
+    the kernel's ctypes call: on a CUDA tensor it launches the kernel
+    (counted by ``correlation_cuda.launches``, from eager code and from a
+    loaded artifact alike) or raises, on a CPU tensor it runs
+    :func:`correlation_plain`.  Forward only."""
+    f1 = f1.contiguous()
+    f2 = f2.contiguous()
+    if f1.is_cuda:
+        from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+        return correlation_cuda(f1, f2, max_displacement=max_displacement)
+    return correlation_plain(f1, f2, pad_size=max_displacement,
+                             max_displacement=max_displacement).to(f1.dtype)
+
+
+@correlation_op.register_fake
+def _correlation_op_shape(f1, f2, max_displacement):
+    b, _, h, w = f1.shape
+    return f1.new_empty((b, (2 * max_displacement + 1) ** 2, h, w))
+
+
 def correlation(f1: torch.Tensor, f2: torch.Tensor, *, pad_size: int = 4,
                 kernel_size: int = 1, max_displacement: int = 4,
                 stride1: int = 1, stride2: int = 1,
@@ -163,13 +188,19 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor, *, pad_size: int = 4,
     autograd must record, the hot configuration goes through
     :class:`CorrelationFn` (the two kernels on a CUDA tensor when
     ``use_cuda``, the plain versions on the CPU); with ``use_cuda=False``
-    autograd differentiates :func:`correlation_plain` itself."""
+    autograd differentiates :func:`correlation_plain` itself.  While
+    ``torch.export`` traces, the hot configuration is the operator
+    :func:`correlation_op`, where ``use_cuda``."""
     hot = (kernel_size == 1 and stride1 == 1 and stride2 == 1
            and pad_size == max_displacement)
     if (hot and (use_cuda or not f1.is_cuda)
             and torch.is_grad_enabled()
             and (f1.requires_grad or f2.requires_grad)):
         return CorrelationFn.apply(f1, f2, max_displacement)
+    if use_cuda and hot and torch.compiler.is_compiling():
+        # traced (torch.export): one operator node, not the ctypes call
+        return torch.ops.opticalflow_tpu_torch.correlation(
+            f1, f2, max_displacement)
     if use_cuda and hot and f1.is_cuda:
         from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
         return correlation_cuda(f1.contiguous(), f2.contiguous(),

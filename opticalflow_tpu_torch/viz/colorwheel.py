@@ -7,14 +7,22 @@ bit-exact to it.  Behavioral clone of the reference's ``flow_to_color``
 ``fk = (ang/π + 1)/2 · 54 + 1`` with wrap-around lerp, and saturation
 attenuated toward white by the magnitude normalized to the per-image max.
 Also exposes the HSV variant used by the parity harness
-(``onnx_pth_compare.py:25-45``).
+(``onnx_pth_compare.py:25-45``), and :func:`magma_rgb`, matplotlib's
+``magma`` colour map from its table stored beside this module
+(``magma.npz``), for the export report's EPE map.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-__all__ = ["make_colorwheel", "flow_to_color", "flow_to_color_hsv"]
+__all__ = ["make_colorwheel", "flow_to_color", "flow_to_color_hsv",
+           "magma_rgb", "MAGMA_PATH"]
+
+MAGMA_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "magma.npz")
 
 _WHEEL_SEGMENTS = (("RY", 15), ("YG", 6), ("GC", 4), ("CB", 11),
                    ("BM", 13), ("MR", 6))
@@ -95,3 +103,18 @@ def flow_to_color_hsv(flow_uv: np.ndarray,
          ((val, t, p), (q, val, p), (p, val, t),
           (p, q, val), (t, p, val), (val, p, q))])
     return (rgb * 255).astype(np.uint8)
+
+
+def magma_rgb(x) -> np.ndarray:
+    """Values in [0, 1] → uint8 RGB by matplotlib's 256-entry ``magma``, as
+    ``matplotlib.colormaps["magma"](x, bytes=True)[..., :3]`` gives them:
+    entry ``int(256·x)`` (1.0 → the last), below 0 the first, above 1 the
+    last, NaN black."""
+    with np.load(MAGMA_PATH) as z:
+        lut = (z["magma"] * 255).astype(np.uint8)
+    xa = np.array(x, dtype=np.float64) * len(lut)
+    bad = np.isnan(xa)
+    idx = np.clip(np.where(bad, 0.0, xa), 0, len(lut) - 1).astype(np.int64)
+    out = lut[idx]
+    out[bad] = 0
+    return out

@@ -680,7 +680,18 @@ def test_correlation_fn_grads_match_plain_autograd_on_the_card(
 def test_train_step_through_the_kernels_matches_plain(cuda_device):
     """One parity-mode multiscale step's gradients through K1 and B1 against
     the same step through the plain correlation (autograd of
-    ``correlation_plain``), 5 launches of each kernel, none without."""
+    ``correlation_plain``), 5 launches of each kernel, none without.
+
+    Each parameter's gradient is held to 1e-3 of its largest value or to 4x
+    cuDNN's run-to-run spread of that gradient, whichever is larger, as
+    ``chip_smoke.py`` phase 8 measures it: cuDNN's backward algorithms add
+    with atomics, so a small gradient (dc_conv1's, ≈5.7e-7 at most) moves
+    by ≈1e-9 between two runs of the same step, over a fixed 1e-3 bound
+    about one run in three.  The spread is measured here: the largest
+    difference between repeats of the same step (the kernels' path twice,
+    the plain path three times)."""
+    from itertools import combinations
+
     from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
     from opticalflow_tpu_torch.train import trainer as T
     rng = np.random.RandomState(0)
@@ -703,23 +714,30 @@ def test_train_step_through_the_kernels_matches_plain(cuda_device):
         _, m = T.make_train_step(model, opt, cfg)(state, batch)
         launched = (corr_cuda.correlation_cuda.launches - f0,
                     corr_cuda.correlation_bwd_cuda.launches - b0)
-        return ({n: p.grad for n, p in model.named_parameters()},
+        return ({n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()},
                 float(m["loss"]), launched)
 
-    gk, loss_k, launched_k = grads(True)
-    gp, loss_p, launched_p = grads(False)
-    assert launched_k == (5, 5) and launched_p == (0, 0)
+    kernel = [grads(True) for _ in range(2)]
+    plain = [grads(False) for _ in range(3)]
+    (gk, loss_k, launched_k), (gp, loss_p, launched_p) = kernel[0], plain[0]
+    assert all(r[2] == (5, 5) for r in kernel)
+    assert all(r[2] == (0, 0) for r in plain)
     assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    pairs = (list(combinations([r[0] for r in kernel], 2))
+             + list(combinations([r[0] for r in plain], 2)))
     top = max(float(g.abs().max()) for g in gp.values())
     for n in gp:
-        # float32 throughout (TF32 off in the backward too); the kernels sum
-        # in another order than the plain version, and cuDNN's backward
-        # may too: within 1e-3 of each parameter's largest gradient, or of
-        # a millionth of the model's largest where a parameter's gradient
-        # vanishes (upfeat6.weight's is 1.6e-17 here: rounding noise only)
+        spread = max(float((a[n] - b[n]).abs().max()) for a, b in pairs)
+        # float32 throughout (TF32 off in the backward too); the kernels
+        # sum in another order than the plain version: within 1e-3 of the
+        # parameter's largest gradient, or of a millionth of the model's
+        # largest where the gradient vanishes (upfeat6.weight's is 1.6e-17:
+        # rounding noise only)
         scale = max(float(gp[n].abs().max()), 1e-6 * top)
         diff = float((gk[n] - gp[n]).abs().max())
-        assert diff <= 1e-3 * scale, (n, diff, scale)
+        assert diff <= max(1e-3 * scale, 4 * spread), (n, diff, scale,
+                                                       spread)
 
 
 def _two_view_flow(h, w, seed=0):
@@ -834,3 +852,87 @@ def test_video_runner_on_the_card_matches_the_cpu(cuda_device):
         for a, b in zip(got, want):     # the card limit of PERF.md §2
             assert float(np.mean(np.hypot(*(a - b).transpose(2, 0, 1)))) \
                 <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_correlation_operator_launches_the_kernel(cuda_device, dtype):
+    """``torch.ops.opticalflow_tpu_torch.correlation`` (the node an exported
+    program holds) on CUDA tensors is K1: one counted launch, the plain
+    version's values."""
+    f1, f2 = _corr_inputs(cuda_device, (2, 196, 7, 16), dtype, seed=11)
+    before = corr_cuda.correlation_cuda.launches
+    out = torch.ops.opticalflow_tpu_torch.correlation(f1, f2, 4)
+    assert corr_cuda.correlation_cuda.launches == before + 1
+    _assert_corr_close(out, f1, f2)
+
+
+def test_loaded_artifact_launches_the_kernel(cuda_device, tmp_path):
+    """A ``dynamic="all"`` artifact of the float32 parity model, exported
+    and loaded on the card: 5 K1 launches a call, counted from inside the
+    loaded program, at two shapes (a 64-pixel side among them); the eager
+    model's flow within 1e-5 mean EPE though cuDNN's TF32 switch is on
+    outside the call (the artifact runs under its stored precision), and
+    the switches as they were after it."""
+    from opticalflow_tpu_torch.export import export_program, load_exported
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    model = PWCDCNet(generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    model = model.to(cuda_device).eval()
+    path = str(tmp_path / "m.pt2")
+    export_program(model, path, dynamic="all")
+    fn = load_exported(path)
+    assert fn.device.type == "cuda" and fn.metadata["precision"] == "highest"
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for shape in ((1, 6, 64, 128), (2, 6, 192, 256)):
+            x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+            x = x.to(cuda_device)
+            before = corr_cuda.correlation_cuda.launches
+            got = fn(x)
+            assert corr_cuda.correlation_cuda.launches - before == 5
+            assert torch.backends.cudnn.allow_tf32
+            with torch.no_grad():
+                want = model(x) * 20.0
+            epe = (got - want).norm(dim=1).mean().item()
+            assert epe < 1e-5, (shape, epe)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_interpret_kernels_runs_the_plain_versions_on_the_card(cuda_device):
+    """Inside ``interpret_kernels(model)`` that model's forward launches no
+    K1 and gives the plain correlation's flow (within 1e-5 mean EPE, cuDNN's
+    run-to-run spread), while another model and the
+    dispatcher itself go on launching K1; after it the model launches K1
+    again (5 a forward)."""
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.utils.debugging import interpret_kernels
+    model = PWCDCNet(generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    model = model.to(cuda_device).eval()
+    plain = PWCDCNet(use_cuda_corr=False).to(cuda_device).eval()
+    plain.load_state_dict(model.state_dict())
+    other = PWCDCNet().to(cuda_device).eval()
+    x = torch.rand((1, 6, 128, 192),
+                   generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    f1, f2 = _corr_inputs(cuda_device, (1, 32, 14, 32), torch.float32, 12)
+    k1 = corr_cuda.correlation_cuda
+    with torch.no_grad():
+        with interpret_kernels(model):
+            before = k1.launches
+            got = model(x)
+            assert k1.launches == before
+            other(x)
+            assert k1.launches == before + 5
+            correlation(f1, f2, pad_size=4, max_displacement=4)
+            assert k1.launches == before + 6
+        want = plain(x)
+        assert (got - want).norm(dim=1).mean().item() < 1e-5
+        before = k1.launches
+        model(x)
+        assert k1.launches == before + 5

@@ -24,6 +24,10 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "opticalflow_tpu_torch.ops.corr_cuda" in mods
     assert "opticalflow_tpu_torch.cli.script_pwc" in mods
+    for m in ("serve", "export", "cli.serve", "cli.parity",
+              "cli.convert_ckpt", "models.prune", "utils.profiling",
+              "utils.debugging"):
+        assert f"opticalflow_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -98,3 +102,30 @@ def test_importing_the_port_loads_no_matplotlib_nor_pil():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+def test_package_data_holds_every_file_the_port_opens():
+    """An installed (non-editable) package can build its kernels, its host
+    library and draw text: every file that ``ops/_build.py`` (the kernels'
+    sources and headers), ``runtime/flowviz.py`` (its C++ source),
+    ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
+    table) read is matched by a ``package-data`` pattern of
+    ``pyproject.toml``."""
+    import fnmatch
+    import tomllib
+    from opticalflow_tpu_torch.ops import _build
+    from opticalflow_tpu_torch.runtime import flowviz
+    from opticalflow_tpu_torch.viz import colorwheel, text
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "opticalflow_tpu_torch"]
+    opened = [str(p) for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
+    opened += [str(flowviz._SRC), text.ATLAS_PATH, colorwheel.MAGMA_PATH]
+    assert any(p.endswith(".cuh") for p in opened)
+    assert {os.path.splitext(p)[1] for p in opened} == {
+        ".cu", ".cuh", ".cpp", ".npz"}
+    for path in opened:
+        assert os.path.isfile(path), path
+        rel = os.path.relpath(path, PKG)
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), \
+            (rel, patterns)

@@ -162,8 +162,6 @@ def test_what_is_not_ported_raises(setup):
             "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         extract_video.main(base + ["--mode", "compare"])
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
-        extract_video.main(base + ["--complexity"])
     mp4 = setup["tmp"] / "clip.mp4"
     mp4.write_bytes(b"\x00\x00\x00\x18ftypmp42")
     with pytest.raises(ValueError, match="H.264"):
