@@ -112,7 +112,31 @@ non-zero, and no result line is printed):
      artifact of the plain correlation (static, 1x448x1024) against it;
      ``cli/parity`` at 1x448x1024 (PARITY: PASS, its report PNG); export
      time and each forward by CUDA events beside the eager model's;
- 14. one JSON line listing every kernel with its launches on its path,
+ 14. data parallelism on the one card (``parallel/``; NCCL refuses two
+     ranks on one device, so two ranks share it, over gloo: the backend
+     the mesh picks when the launched ranks outnumber the cards, and its
+     device the card ``distributed_init`` selected): (a) two ranks
+     launched by ``torch.distributed.run``, each on its half of phase 8's
+     4x320x896 batch with KITTI-like valid masks that differ between the
+     halves, one float32 parity-mode AdamW step against the one-process
+     step on the whole batch (loss, grad norm, gradients and the update,
+     to 1e-3 of the largest or 4x cuDNN's run-to-run spread), K1 and B1 5
+     a step on every rank; then 5 fast-mode steps, ms per step per rank;
+     (b) a one-rank NCCL group (``--data-parallel all``): 3 fast-mode
+     steps against the mesh-less ones, the NCCL version; (c)
+     ``cli/infer_kitti --data-parallel 2`` under ``torch.distributed.run``
+     on phase 9's synthetic KITTI tree, within 1e-4 EPE of one process;
+     (d) a lockstep float32 ``FlowServer`` on each rank, a 436x1024
+     request within 1e-4 mean EPE of ``flow_from_pair``; (e) at
+     1x1024x1920 the halo exchange (halo 256, slab 512: the exact case)
+     against the monolithic forward, the halo exchange with halo 128
+     (slab 512 > 2 x halo: each rank's window a part of the frame)
+     against the one-process tiled path with the same windows (tile 512,
+     halo 256), and the tiled path (tile 512, halo 64) over 2 ranks
+     against one process, to 1e-4, and the tiled seams' deviation; then
+     what gloo's send/recv and an NCCL group of two ranks
+     on one card do (recorded);
+ 15. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -121,7 +145,8 @@ after: the CLI and engine for K1, the probe entry points for K3 and K4, the
 training steps for B1 (and K1 there), the eval CLIs (K1), the training
 CLI's runs (K1 and B1), the video CLIs' runs (K1), the serving CLI (K1,
 counted in its own process from 0) and the parity-mode server's burst, the
-loaded artifacts and the parity CLI (K1).
+loaded artifacts and the parity CLI (K1), and each rank's paths of phase 14
+(K1 and B1, counted in each rank's process from 0).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -874,26 +899,12 @@ def eval_rate(engine, dataset, **kw):
                  "decode_ms": decode_ms, "engine_ms": engine_ms}
 
 
-def phase_eval(sd, tmp, corr_fwd):
-    """Evaluation through both CLIs on synthetic KITTI and Sintel trees.
-    Returns a dict of its results."""
-    import numpy as np
-    import torch
-    from opticalflow_tpu_torch.cli import eval_sintel, infer_kitti
+def write_kitti_eval_tree(kroot: str, sd, rng) -> None:
+    """A KITTI 2015 tree of 3 moving pairs of 375x1242, its 16-bit GT from
+    the eval CLI's own settings at batch 1, ~30% of it invalid."""
     from opticalflow_tpu_torch.engine import FlowEngine
-    from opticalflow_tpu_torch.data.datasets import KittiPairsEval, SintelPairs
-    from opticalflow_tpu_torch.io.flo import read_flo, write_flo
     from opticalflow_tpu_torch.io.kitti import write_flow_png
     from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
-
-    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
-    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
-               ckpt)
-    rng = np.random.RandomState(9)
-    out = {}
-
-    # KITTI 2015: 3 pairs, GT from the CLI's own settings at batch 1
-    kroot = os.path.join(tmp, "kitti")
     for d in ("image_2", "flow_occ"):
         os.makedirs(os.path.join(kroot, "training", d))
     gt_engine = FlowEngine(PWCDCNet(), sd, flow_scale=1.0, device="cuda")
@@ -907,6 +918,27 @@ def phase_eval(sd, tmp, corr_fwd):
         write_flow_png(os.path.join(kroot, "training", "flow_occ",
                                     f"{i:06d}_10.png"), flow,
                        rng.rand(KITTI_H, KITTI_W) > 0.3)
+
+
+def phase_eval(sd, tmp, corr_fwd):
+    """Evaluation through both CLIs on synthetic KITTI and Sintel trees.
+    Returns a dict of its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import eval_sintel, infer_kitti
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.data.datasets import KittiPairsEval, SintelPairs
+    from opticalflow_tpu_torch.io.flo import read_flo, write_flo
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    rng = np.random.RandomState(9)
+    out = {}
+
+    kroot = os.path.join(tmp, "kitti")
+    write_kitti_eval_tree(kroot, sd, rng)
     before = corr_fwd.launches
     rc, printed, wall = run_cli(infer_kitti.main, [
         "--root", kroot, "--ckpt", ckpt, "--size-mode", "pad", "--batch",
@@ -1118,13 +1150,15 @@ class Recorder:
                 return step(state, batch)
             return wrapped
 
-        def save(directory, step, params, opt_state=None, metadata=None):
+        def save(directory, step, params, opt_state=None, metadata=None,
+                 **kw):
             if rec.states:
                 rec.saves.append({"directory": directory, "step": step,
                                   "params": on_cpu(params),
                                   "opt_state": on_cpu(opt_state),
                                   "metadata": metadata})
-            return real_save(directory, step, params, opt_state, metadata)
+            return real_save(directory, step, params, opt_state, metadata,
+                             **kw)
 
         trainer.make_train_step = make
         checkpoints.save_train_state = save
@@ -2412,6 +2446,608 @@ def phase_export(sd, tmp, counter, card: str):
             "card": card}
 
 
+# ------------------------------------------------------------ phase 14
+
+# data parallelism on the one card: two gloo ranks share cuda:0 (NCCL
+# refuses two ranks on one device), and a one-rank NCCL group; the global
+# training batch is phase 8's 4x320x896 with KITTI-like valid masks that
+# differ between the ranks' halves
+DP_RANKS = 2
+DP_FAST_STEPS = 5
+ONE_RANK_STEPS = 3
+SPATIAL_H, SPATIAL_W = 1024, 1920
+SPATIAL_HALO = 256              # slab 512 = 2 x halo: the exact case
+# slab 512 > 2 x halo: rank 0's window is rows 0-768, rank 1's 256-1024, the
+# windows of the one-process tiled path at tile 512, halo 2 x 128
+WIDE_HALO = 128
+TILE_H, TILE_HALO = 512, 64
+# one rank of the 2-rank world (launched by torch.distributed.run): the
+# parity step, fast steps, a lockstep server and both spatial paths, each
+# path's K1/B1 launches counted in this rank from 0; its numbers to
+# dp_rank{R}.json, its tensors to dp_rank{R}.pt
+DP_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+tmp, device = sys.argv[2], sys.argv[3]
+import torch
+from opticalflow_tpu_torch.engine import FlowEngine
+from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+from opticalflow_tpu_torch.ops.corr_cuda import (correlation_bwd_cuda,
+                                                 correlation_cuda)
+from opticalflow_tpu_torch.parallel import mesh as meshlib, spatial
+from opticalflow_tpu_torch.serve import FlowServer
+from opticalflow_tpu_torch.train import trainer as T
+
+# the backend and the mesh's device are the defaults: gloo, since the two
+# ranks outnumber the one card, and the card distributed_init selected
+rank, world = meshlib.distributed_init(device=device, timeout_s=600)
+mesh = meshlib.make_mesh()
+inp = torch.load(os.path.join(tmp, "dp_inputs.pt"), weights_only=False)
+out = {"rank": rank, "world": world, "backend": mesh.backend,
+       "device": str(mesh.device)}
+tensors = {}
+
+
+def sync():
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+
+
+def counted(fn):
+    sync()
+    correlation_cuda.launches = correlation_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    return res, (time.perf_counter() - t0) * 1e3, {
+        "correlation_fwd": correlation_cuda.launches,
+        "correlation_bwd": correlation_bwd_cuda.launches}
+
+
+def model_of(precision):
+    m = PWCDCNet(precision=precision)
+    m.load_state_dict(inp["sd"])
+    return meshlib.replicate(m.to(mesh.device), mesh)
+
+
+cfg = T.TrainConfig(loss="multiscale", optimizer="adamw", lr=1e-4,
+                    weight_decay=1e-4, grad_clip=1.0)
+local = meshlib.shard_batch(inp["batch"], mesh)
+# (a) one float32 parity-mode step on this rank's half
+model = model_of("highest")
+state, opt = T.create_train_state(model, cfg)
+step = T.make_train_step(model, opt, cfg, mesh=mesh)
+(state, m), ms, launches = counted(lambda: step(state, local))
+out["parity"] = {"metrics": {k: float(v) for k, v in m.items()}, "ms": ms,
+                 "launches": launches}
+tensors["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+tensors["params"] = {n: p.detach().cpu()
+                     for n, p in model.named_parameters()}
+# (a) fast-mode steps, the batch on the card (NHWC, as phase 8 feeds it)
+model = model_of("fast")
+state, opt = T.create_train_state(model, cfg)
+step = T.make_train_step(model, opt, cfg, mesh=mesh)
+dev = {k: v.permute(0, 2, 3, 1).contiguous() if v.dim() == 4 else v
+       for k, v in T.batch_to_device(local, mesh.device).items()}
+state, m = step(state, dev)                     # warm-up
+float(m["loss"])
+fast = []
+for _ in range(int(inp["fast_steps"])):
+    (state, m), ms, launches = counted(lambda: step(state, dev))
+    fast.append({"loss": float(m["loss"]), "ms": ms, **launches})
+out["fast"] = fast
+# the step's collectives alone: the gradients' one coalesced all-reduce
+# (every gradient in one float32 buffer) and a one-element all-reduce (the
+# masked means' counts, the stop flag)
+flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()
+                  if p.grad is not None])
+for name, t in (("allreduce_grads", flat),
+                ("allreduce_one", torch.zeros(1, device=mesh.device))):
+    meshlib.all_reduce_(t, mesh)                # warm-up
+    out[name] = {"bytes": t.numel() * t.element_size(), "ms": [
+        counted(lambda: meshlib.all_reduce_(t, mesh))[1] for _ in range(5)]}
+del model, state, opt, step, dev, flat
+# (d) a float32 parity-mode lockstep server: one request on every rank
+engine = FlowEngine(PWCDCNet(precision="highest"), inp["sd"],
+                    flow_scale=20.0, mesh=mesh)
+server = FlowServer(engine, max_batch=world, max_delay_ms=1)
+im1, im2 = inp["serve_pair"]
+server.flow(im1, im2, size_mode="pad")          # warm-up
+flow, ms, launches = counted(lambda: server.flow(im1, im2, size_mode="pad"))
+server.close()
+out["serve"] = {"ms": ms, "launches": launches,
+                "buckets": server.bucket_sizes}
+tensors["serve"] = flow
+# (e) spatial inference of one 1024x1920 frame
+sm = engine.model
+x = inp["x_spatial"].to(mesh.device)
+loc = x.shape[2] // world
+slab = x[:, :, rank * loc:(rank + 1) * loc].contiguous()
+halo = int(inp["halo"])
+for name, fn in (
+        ("halo", lambda: spatial.halo_exchange_quarter_flow(
+            sm, slab, halo=halo, mesh=mesh)),
+        ("halo_wide", lambda: spatial.halo_exchange_quarter_flow(
+            sm, slab, halo=int(inp["wide_halo"]), mesh=mesh)),
+        ("tiled", lambda: spatial.tiled_quarter_flow(
+            sm, x, tile_h=int(inp["tile_h"]), halo=int(inp["tile_halo"]),
+            mesh=mesh))):
+    fn()                                        # warm-up
+    q, ms, launches = counted(fn)
+    out[name] = {"ms": ms, "launches": launches}
+    tensors[name] = q.cpu()
+torch.save(tensors, os.path.join(tmp, f"dp_rank{rank}.pt"))
+with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+meshlib.shutdown()
+"""
+# the eval CLI as one rank of a torch.distributed.run launch: its K1 count
+# in this rank from 0 and what it printed, to eval_rank{R}.json in the
+# directory argv[2] (the ranks' prints would interleave on one pipe)
+EVAL_CHILD = r"""
+import contextlib, io, json, os, sys
+sys.path.insert(0, sys.argv[1])
+from opticalflow_tpu_torch.cli import infer_kitti
+from opticalflow_tpu_torch.ops.corr_cuda import correlation_cuda
+correlation_cuda.launches = 0
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    rc = infer_kitti.main(sys.argv[3:])
+rank = int(os.environ["RANK"])
+with open(os.path.join(sys.argv[2], f"eval_rank{rank}.json"), "w") as f:
+    json.dump({"rank": rank, "rc": rc, "printed": printed.getvalue(),
+               "launches": correlation_cuda.launches}, f)
+sys.exit(rc)
+"""
+# what the backends carry for two ranks on one card: gloo's point-to-point
+# send/recv of a card's tensor, and an NCCL group (expected to refuse)
+PROBE_CHILD = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from opticalflow_tpu_torch.parallel import mesh as meshlib
+what = sys.argv[2]
+rank, world = meshlib.distributed_init(
+    backend="gloo" if what == "gloo_p2p" else "nccl", device="cuda:0",
+    timeout_s=60)
+t = torch.full((4,), float(rank), device="cuda:0")
+if what == "gloo_p2p":
+    if rank == 0:
+        dist.send(t, dst=1)
+    else:
+        dist.recv(t, src=0)
+    torch.cuda.synchronize()
+    print(f"PROBE {what} rank {rank}: {t.tolist()}", flush=True)
+else:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"PROBE {what} rank {rank}: all_reduce {t.tolist()}", flush=True)
+meshlib.shutdown()
+"""
+
+
+def dp_batch():
+    """Phase 8's batch with KITTI-like valid masks: the first half ~80%
+    valid, the second a sparse lower band (KITTI's LiDAR GT: the top 40%
+    of the rows empty, ~35% of the rest valid), so the ranks' masked means
+    differ and only global denominators give the one-process step."""
+    import numpy as np
+    batch = train_batch()
+    rng = np.random.RandomState(14)
+    valid = (rng.rand(TRAIN_B, TRAIN_H, TRAIN_W) > 0.2).astype(np.float32)
+    half = TRAIN_B // 2
+    band = (rng.rand(TRAIN_B - half, TRAIN_H, TRAIN_W) < 0.35)
+    band[:, : int(TRAIN_H * 0.4)] = False
+    valid[half:] = band
+    batch["valid"] = valid
+    return batch
+
+
+def torchrun(tmp: str, name: str, nproc: int, script: str, args,
+             timeout: float):
+    """``python -m torch.distributed.run --standalone`` of ``script`` (a
+    source string, written to ``tmp/name.py``) on ``nproc`` ranks; returns
+    (exit code, output, seconds).  A run past ``timeout`` is killed with
+    its ranks."""
+    import signal
+    path = os.path.join(tmp, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(script)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={nproc}", path, *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        return 124, text, time.perf_counter() - t0
+    return proc.returncode, text, time.perf_counter() - t0
+
+
+def parity_step(sd_ref, batch, cfg):
+    """One float32 parity-mode step in this process: (metrics, gradients,
+    parameters after), on the host."""
+    import torch
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.train import trainer as T
+    model = PWCDCNet(precision="highest")
+    model.load_state_dict(sd_ref)
+    model = model.cuda()
+    state, opt = T.create_train_state(model, cfg)
+    _, m = T.make_train_step(model, opt, cfg)(state, batch)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def worst_rel(a, b, base=None):
+    """max over tensors of max|a - b| / max|base| (base defaults to b), a
+    tensor whose base vanishes measured against a millionth of the
+    largest; and its name."""
+    base = b if base is None else base
+    top = max(float(v.abs().max()) for v in base.values())
+    return max(((float((a[n] - b[n]).abs().max())
+                 / max(float(base[n].abs().max()), 1e-6 * top)), n)
+               for n in b)
+
+
+def ulps(p):
+    """One float32 ulp of each element of ``p``."""
+    import torch
+    a = p.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def worst_update(a, b, before):
+    """worst_rel of the updates ``a - before`` against ``b - before`` of
+    the parameters ``a``, ``b`` after one step, at the resolution at which
+    a float32 parameter holds its update: each element's difference less
+    one ulp of the updated parameter (a tensor whose largest update spans
+    a few hundred ulps reads one ulp of rounding as 1/hundreds); and the
+    name.  Beside it, for the tensor worst without that allowance, its
+    largest difference in ulps of that element, and its largest update in
+    the same ulps."""
+    upd = {n: b[n] - before[n] for n in b}
+    top = max(float(v.abs().max()) for v in upd.values())
+    ulp = {n: ulps(a[n]).maximum(ulps(b[n])) for n in b}
+    ratio, name = max(
+        (float(((a[n] - b[n]).abs() - ulp[n]).clamp(min=0).max())
+         / max(float(upd[n].abs().max()), 1e-6 * top), n) for n in b)
+    _, raw = worst_rel({n: a[n] - before[n] for n in b}, upd)
+    diff = (a[raw] - b[raw]).abs().reshape(-1)
+    at = int(diff.argmax())
+    u = float(ulp[raw].reshape(-1)[at])
+    in_ulps = (float(diff[at]) / u, float(upd[raw].abs().max()) / u)
+    return ratio, name, raw, in_ulps
+
+
+def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
+    """Data parallelism on the card: (a)-(e) of the docstring's phase 14.
+    Returns a dict of its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import infer_kitti
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.io.kitti import read_flow_png
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+    from opticalflow_tpu_torch.parallel import mesh as meshlib
+    from opticalflow_tpu_torch.parallel import spatial
+    from opticalflow_tpu_torch.train import trainer as T
+
+    corr_fwd, corr_bwd = counters
+    t_phase = time.perf_counter()
+    sd_ref = reference_state_dict(sd)
+    batch = dp_batch()
+    fractions = batch["valid"].reshape(TRAIN_B, -1).mean(1)
+    cfg = T.TrainConfig(loss="multiscale", optimizer="adamw", lr=1e-4,
+                        weight_decay=1e-4, grad_clip=1.0)
+    rng = np.random.RandomState(14)
+    serve_pair = moving_pair(rng, FULL_H, FULL_W)
+    s1, s2 = moving_pair(rng, SPATIAL_H, SPATIAL_W)
+    x = torch.from_numpy(np.concatenate([s1[..., ::-1], s2[..., ::-1]], -1)
+                         .astype(np.float32) / 255.0).permute(2, 0, 1)[None]
+    x = x.contiguous()
+    torch.save({"sd": sd_ref, "batch": batch, "serve_pair": serve_pair,
+                "x_spatial": x, "fast_steps": DP_FAST_STEPS,
+                "halo": SPATIAL_HALO, "wide_halo": WIDE_HALO,
+                "tile_h": TILE_H, "tile_halo": TILE_HALO},
+               os.path.join(tmp, "dp_inputs.pt"))
+
+    # the one-process references: the parity step twice (cuDNN's
+    # run-to-run spread), the served flow, the monolithic and tiled flows
+    m1, g1, p1 = parity_step(sd_ref, batch, cfg)
+    m2, g2, p2 = parity_step(sd_ref, batch, cfg)
+    before = {n: v.cpu() for n, v in sd_ref.items()}
+    upd = lambda p: {n: p[n] - before[n] for n in p}   # noqa: E731
+    spread_g, _ = worst_rel(g2, g1)
+    spread_u = worst_update(p2, p1, before)[0]
+    engine = FlowEngine(PWCDCNet(precision="highest"), sd, flow_scale=20.0,
+                        device="cuda")
+    serve_ref = engine.flow_from_pair(*serve_pair, size_mode="pad")
+    with torch.inference_mode():
+        xs = x.cuda()
+        mono = engine.model(xs).cpu()
+        tiled_one = spatial.tiled_quarter_flow(
+            engine.model, xs, tile_h=TILE_H, halo=TILE_HALO).cpu()
+        wide_one = spatial.tiled_quarter_flow(
+            engine.model, xs, tile_h=SPATIAL_H // DP_RANKS,
+            halo=2 * WIDE_HALO).cpu()
+    del engine, xs
+    torch.cuda.empty_cache()
+
+    # (a, d, e) the 2-rank gloo world, both ranks on cuda:0
+    rc, text, wall = torchrun(tmp, "dp_child", DP_RANKS, DP_CHILD, [ROOT, tmp, "cuda:0"],
+                              600)
+    assert rc == 0, f"the 2-rank world failed ({rc}):\n{text[-6000:]}"
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            res = json.load(f)
+        res["tensors"] = torch.load(os.path.join(tmp, f"dp_rank{r}.pt"),
+                                    weights_only=False)
+        ranks.append(res)
+    r0 = ranks[0]
+    assert all((r["backend"], r["device"]) == ("gloo", "cuda:0")
+               for r in ranks), [(r["backend"], r["device"]) for r in ranks]
+    log(f"[14] 2 ranks on {r0['device']} over {r0['backend']} (launched by "
+        f"torch.distributed.run, {wall:.1f} s with start-up); valid "
+        f"fractions of the 4 samples {[round(float(v), 4) for v in fractions]}")
+    for r in ranks[1:]:                  # one global step: the ranks agree
+        assert r["parity"]["metrics"] == r0["parity"]["metrics"]
+        for n, v in r0["tensors"]["params"].items():
+            assert torch.equal(v, r["tensors"]["params"][n]), n
+    pm = r0["parity"]["metrics"]
+    ratio_g, name_g = worst_rel(r0["tensors"]["grads"], g1)
+    raw_u, _ = worst_rel(upd(r0["tensors"]["params"]), upd(p1))
+    ratio_u, name_u, raw_name, raw_ulps = worst_update(
+        r0["tensors"]["params"], p1, before)
+    bound_g = max(1e-3, 4 * spread_g)
+    bound_u = max(1e-3, 4 * spread_u)
+    log(f"[14] (a) parity step, 2 ranks x 2x320x896 against 1 process x "
+        f"4x320x896: loss {pm['loss']!r} / {m1['loss']!r}, grad norm "
+        f"{pm['grad_norm']!r} / {m1['grad_norm']!r}, epe {pm['epe']!r} / "
+        f"{m1['epe']!r}; worst parameter max|grad - grad(1 process)| / "
+        f"max|grad| {ratio_g:.3e} ({name_g}; bound {bound_g:.3e} = max(1e-3, "
+        f"4 x the one process's run-to-run {spread_g:.3e})); the AdamW "
+        f"update {ratio_u:.3e} beyond one float32 ulp of the parameter "
+        f"({name_u}; bound {bound_u:.3e}, run-to-run {spread_u:.3e}; "
+        f"without the ulp {raw_u:.3e}, {raw_name}: its largest difference "
+        f"{raw_ulps[0]:.2f} ulps, its largest update {raw_ulps[1]:.1f} "
+        f"ulps); K1/B1 launches a rank "
+        f"{[r['parity']['launches'] for r in ranks]}")
+    assert abs(pm["loss"] - m1["loss"]) <= max(
+        1e-5 * abs(m1["loss"]), 4 * abs(m2["loss"] - m1["loss"])), (pm, m1)
+    assert abs(pm["grad_norm"] - m1["grad_norm"]) <= max(
+        1e-4 * m1["grad_norm"], 4 * abs(m2["grad_norm"] - m1["grad_norm"]))
+    assert ratio_g <= bound_g and ratio_u <= bound_u, (ratio_g, ratio_u)
+    for r in ranks:
+        assert r["parity"]["launches"] == {"correlation_fwd": 5,
+                                           "correlation_bwd": 5}, r
+    fast_ms = [[s["ms"] for s in r["fast"]] for r in ranks]
+    rank_ms = [float(np.median(v)) for v in fast_ms]
+    ar_ms = [float(np.median(r["allreduce_grads"]["ms"])) for r in ranks]
+    ar1_ms = [float(np.median(r["allreduce_one"]["ms"])) for r in ranks]
+    log(f"[14] (a) {DP_FAST_STEPS} fast steps a rank after a warm-up, 2 "
+        f"ranks x 2x320x896 sharing the card: ms per step per rank "
+        f"{[[round(v, 2) for v in ms] for ms in fast_ms]} (medians "
+        f"{[round(v, 2) for v in rank_ms]}), losses "
+        f"{[round(s['loss'], 6) for s in r0['fast']]}; one process x "
+        f"4x320x896 in phase 8: {single_step_ms:.2f} ms; alone, the "
+        f"gradients' all-reduce ({r0['allreduce_grads']['bytes']} bytes "
+        f"staged through the host) {[round(v, 2) for v in ar_ms]} ms a "
+        f"rank, a one-element all-reduce {[round(v, 3) for v in ar1_ms]} "
+        f"ms (medians of 5); {card}")
+    for r in ranks:
+        assert all(s["correlation_fwd"] == 5 and s["correlation_bwd"] == 5
+                   for s in r["fast"]), r["fast"]
+        assert np.isfinite([s["loss"] for s in r["fast"]]).all()
+    for r in ranks:
+        e = epe(r["tensors"]["serve"], serve_ref)
+        assert r["serve"]["buckets"] == [DP_RANKS], r["serve"]
+        assert r["serve"]["launches"]["correlation_fwd"] == 5, r["serve"]
+        assert e < 1e-4, e
+    log(f"[14] (d) lockstep FlowServer (float32 parity, max_batch 2: one "
+        f"436x1024 request a rank): mean EPE against flow_from_pair "
+        f"{[epe(r['tensors']['serve'], serve_ref) for r in ranks]} (bound "
+        f"1e-4), ms a request {[round(r['serve']['ms'], 2) for r in ranks]}"
+        f", K1 a rank {[r['serve']['launches']['correlation_fwd'] for r in ranks]}")
+    halo_err = max(float((r["tensors"]["halo"] - mono).abs().max())
+                   for r in ranks)
+    wide_err = max(float((r["tensors"]["halo_wide"] - wide_one).abs().max())
+                   for r in ranks)
+    tiled_err = max(float((r["tensors"]["tiled"] - tiled_one).abs().max())
+                    for r in ranks)
+    seam = (tiled_one - mono).abs().numpy()
+    log(f"[14] (e) 1x{SPATIAL_H}x{SPATIAL_W} (monolithic flow: mean "
+        f"|u|, |v| {[round(float(v), 6) for v in mono.abs().mean((0, 2, 3))]}"
+        f" network units; random weights): halo exchange (halo "
+        f"{SPATIAL_HALO}, slab {SPATIAL_H // DP_RANKS}) against the "
+        f"monolithic forward max|diff| {halo_err:.3e} (bound 1e-4); halo "
+        f"{WIDE_HALO} (slab {SPATIAL_H // DP_RANKS} > 2 x halo) against "
+        f"the one-process tiled path with its windows (tile_h "
+        f"{SPATIAL_H // DP_RANKS}, halo {2 * WIDE_HALO}) {wide_err:.3e} "
+        f"(bound 1e-4); tiled "
+        f"(tile_h {TILE_H}, halo {TILE_HALO}) over 2 ranks against 1 "
+        f"process {tiled_err:.3e} (bound 1e-4); the tiled result's seam "
+        f"deviation from the monolithic one: median "
+        f"{float(np.median(seam)):.3e}, mean {float(seam.mean()):.3e}, "
+        f"border rows (8 top/bottom) {float(seam[:, :, :8].mean()):.3e} / "
+        f"{float(seam[:, :, -8:].mean()):.3e} network units; ms halo "
+        f"{[round(r['halo']['ms'], 2) for r in ranks]}, halo {WIDE_HALO} "
+        f"{[round(r['halo_wide']['ms'], 2) for r in ranks]}, tiled "
+        f"{[round(r['tiled']['ms'], 2) for r in ranks]}; K1 a rank halo "
+        f"{[r['halo']['launches']['correlation_fwd'] for r in ranks]}, halo "
+        f"{WIDE_HALO} "
+        f"{[r['halo_wide']['launches']['correlation_fwd'] for r in ranks]}, "
+        f"tiled "
+        f"{[r['tiled']['launches']['correlation_fwd'] for r in ranks]}")
+    assert halo_err < 1e-4 and wide_err < 1e-4 and tiled_err < 1e-4, (
+        halo_err, wide_err, tiled_err)
+    for r in ranks:
+        assert r["halo"]["launches"]["correlation_fwd"] == 5
+        assert r["halo_wide"]["launches"]["correlation_fwd"] == 5
+        assert r["tiled"]["launches"]["correlation_fwd"] == 5
+
+    # (b) a one-rank NCCL group (--data-parallel all with nothing launched)
+    # against no mesh, three fast-mode steps each, in this process
+    def fast_steps(mesh):
+        model = PWCDCNet(precision="fast")
+        model.load_state_dict(sd_ref)
+        model = model.cuda()
+        state, opt = T.create_train_state(model, cfg)
+        step = T.make_train_step(model, opt, cfg, mesh=mesh)
+        dev = {k: v.permute(0, 2, 3, 1).contiguous() if v.dim() == 4 else v
+               for k, v in T.batch_to_device(batch, "cuda").items()}
+        losses, ms = [], []
+        f0, b0 = corr_fwd.launches, corr_bwd.launches
+        for _ in range(ONE_RANK_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, dev)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms, (corr_fwd.launches - f0, corr_bwd.launches - b0)
+
+    plain_a = fast_steps(None)
+    plain_b = fast_steps(None)
+    mesh = meshlib.resolve_data_parallel("all", device="cuda:0")
+    try:
+        assert (mesh.world, mesh.backend) == (1, "nccl"), mesh
+        nccl = fast_steps(mesh)
+        flat = torch.zeros(sum(v.numel() for v in g1.values()),
+                           device="cuda")
+        meshlib.all_reduce_(flat, mesh)             # warm-up
+        nccl_ar = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meshlib.all_reduce_(flat, mesh)
+            torch.cuda.synchronize()
+            nccl_ar.append((time.perf_counter() - t0) * 1e3)
+        del flat
+    finally:
+        meshlib.shutdown()
+    nccl_version = ".".join(map(str, torch.cuda.nccl.version()))
+    spread = max(abs(a - b) for a, b in zip(plain_a[0], plain_b[0]))
+    dev_nccl = max(abs(a - b) for a, b in zip(nccl[0], plain_a[0]))
+    log(f"[14] (b) one-rank NCCL {nccl_version} group, {ONE_RANK_STEPS} "
+        f"fast steps x 4x320x896: losses {nccl[0]} against no mesh "
+        f"{plain_a[0]} (max|diff| {dev_nccl:.3e}; no mesh twice "
+        f"{spread:.3e}); ms per step {[round(v, 2) for v in nccl[1]]} "
+        f"against {[round(v, 2) for v in plain_a[1]]}; the gradients' "
+        f"all-reduce alone {[round(v, 3) for v in nccl_ar]} ms; K1/B1 "
+        f"launches {nccl[2]}; {card}")
+    assert dev_nccl <= max(1e-6 * abs(plain_a[0][0]), 4 * spread), dev_nccl
+    assert nccl[2] == (5 * ONE_RANK_STEPS, 5 * ONE_RANK_STEPS), nccl[2]
+
+    # (c) cli/infer_kitti --data-parallel 2 on phase 9's synthetic tree
+    kroot = os.path.join(tmp, "kitti")
+    write_kitti_eval_tree(kroot, sd, np.random.RandomState(9))
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    argv = ["--root", kroot, "--ckpt", ckpt, "--size-mode", "pad",
+            "--batch", "2"]
+    one_dir, two_dir = (os.path.join(tmp, d) for d in ("eval1", "eval2"))
+    rc, printed1, wall1 = run_cli(infer_kitti.main, argv + [
+        "--save-dir", one_dir, "--device", "cuda"])
+    assert rc == 0, rc
+    rc, text, wall2 = torchrun(tmp, "eval_child", DP_RANKS, EVAL_CHILD, [
+        ROOT, tmp, *argv, "--save-dir", two_dir, "--device", "cuda:0",
+        "--data-parallel", str(DP_RANKS)], 600)
+    assert rc == 0, f"the 2-rank eval failed ({rc}):\n{text[-6000:]}"
+    children = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"eval_rank{r}.json")) as f:
+            children.append(json.load(f))
+    printed2 = [float(line.split(":")[1]) for c in children
+                for line in c["printed"].splitlines()
+                if line.startswith("Mean EPE:")]
+    gts = sorted(os.listdir(os.path.join(kroot, "training", "flow_occ")))
+
+    def saved_epe(d):
+        vals = []
+        for g in gts:
+            ref, valid = read_flow_png(os.path.join(kroot, "training",
+                                                    "flow_occ", g))
+            pred, _ = read_flow_png(os.path.join(d, g))
+            e = np.hypot(*(pred - ref).transpose(2, 0, 1))
+            vals.append(float(e[valid > 0].mean()))
+        return float(np.mean(vals))
+
+    epe1, epe2 = saved_epe(one_dir), saved_epe(two_dir)
+    log(f"[14] (c) cli/infer_kitti --data-parallel 2 under "
+        f"torch.distributed.run (gloo, both ranks on cuda:0), 3 pairs "
+        f"375x1242 at batch 2: mean EPE from the saved PNGs {epe2!r} "
+        f"against one process {epe1!r} (|diff| {abs(epe2 - epe1):.3e}, "
+        f"bound 1e-4); printed {printed2} (rank 0 only) against "
+        f"{printed1}; K1 a rank {[c['launches'] for c in children]}; wall "
+        f"{wall2:.1f} s (start-up included) against {wall1:.1f} s")
+    assert len(printed2) == 1 and "Mean EPE:" in children[0]["printed"]
+    assert [c["rank"] for c in children] == [0, 1]
+    assert all(c["rc"] == 0 and c["launches"] == 10 for c in children)
+    assert abs(epe2 - epe1) <= 1e-4, (epe1, epe2)
+
+    # what each backend carries for two ranks on one card (recorded, not
+    # required: the port's collectives are all-reduce, all-gather and
+    # broadcast, which gloo stages through the host)
+    probes = {}
+    for what in ("gloo_p2p", "nccl_two_ranks"):
+        rc, text, _ = torchrun(tmp, what, 2, PROBE_CHILD, [ROOT, what], 180)
+        lines = [ln.strip() for ln in text.splitlines()
+                 if ln.startswith("PROBE") or "Error" in ln
+                 or "Duplicate GPU" in ln or "exitcode" in ln
+                 or "Signal" in ln]
+        probes[what] = {"rc": rc, "lines": lines[:8]}
+        log(f"[14] probe {what}: exit {rc}; " + " | ".join(lines[:8]))
+        assert rc != 124, f"probe {what} hung:\n{text[-4000:]}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[14] phase 14 took {phase_s:.1f} s; {card}")
+    return {
+        "valid_fractions": [float(v) for v in fractions],
+        "parity": {"metrics": pm, "one_process": m1,
+                   "grad_ratio": ratio_g, "update_ratio": ratio_u,
+                   "update_ratio_raw": raw_u, "update_raw_ulps": raw_ulps,
+                   "grad_spread": spread_g, "update_spread": spread_u},
+        "fast_ms_per_rank": fast_ms, "fast_ms_median": rank_ms,
+        "allreduce_grads_ms": [r["allreduce_grads"]["ms"] for r in ranks],
+        "allreduce_one_ms": [r["allreduce_one"]["ms"] for r in ranks],
+        "single_step_ms": single_step_ms,
+        "one_rank_nccl": {"nccl": nccl_version, "losses": nccl[0],
+                          "ms": nccl[1], "plain_losses": plain_a[0],
+                          "allreduce_grads_ms": nccl_ar,
+                          "plain_ms": plain_a[1]},
+        "eval": {"epe_two_ranks": epe2, "epe_one_process": epe1,
+                 "wall_s": wall2},
+        "serve_ms": [r["serve"]["ms"] for r in ranks],
+        "spatial": {"halo_err": halo_err, "halo_wide_err": wide_err,
+                    "tiled_err": tiled_err,
+                    "halo_ms": [r["halo"]["ms"] for r in ranks],
+                    "halo_wide_ms": [r["halo_wide"]["ms"] for r in ranks],
+                    "tiled_ms": [r["tiled"]["ms"] for r in ranks],
+                    "seam_median": float(np.median(seam)),
+                    "seam_mean": float(seam.mean())},
+        "probes": probes, "phase_s": phase_s, "card": card,
+        # each path's launches, per rank
+        "launches": {
+            "ranks": [{"parity": r["parity"]["launches"],
+                       "fast": {k: sum(s[k] for s in r["fast"]) for k in
+                                ("correlation_fwd", "correlation_bwd")},
+                       "serve": r["serve"]["launches"],
+                       "halo": r["halo"]["launches"],
+                       "halo_wide": r["halo_wide"]["launches"],
+                       "tiled": r["tiled"]["launches"]} for r in ranks],
+            "one_rank_nccl": {"correlation_fwd": nccl[2][0],
+                              "correlation_bwd": nccl[2][1]},
+            "eval_cli": [c["launches"] for c in children]}}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2520,6 +3156,15 @@ def main() -> int:
     export_launches = export["launches"]    # ... and ends here
     assert export_launches > 0 and correlation_cuda.launches >= \
         export_launches
+    zero_counts()                # the data-parallel paths start here: each
+    with tempfile.TemporaryDirectory() as tmp:   # rank counts its own
+        dp = phase_data_parallel(sd, tmp, (correlation_cuda,
+                                           correlation_bwd_cuda),
+                                 card_line(), train["step_ms_median"])
+    # ... and end here: every rank launched K1 (and B1 on the train paths)
+    assert all(r["parity"]["correlation_bwd"] > 0
+               and r["fast"]["correlation_fwd"] > 0
+               for r in dp["launches"]["ranks"])
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -2549,7 +3194,11 @@ def main() -> int:
          # the serving CLI and a parity-mode server (phase 12: 5 a batch)
          "launches_serve": serve_launches, "serve": serve,
          # loaded artifacts and the parity CLI (phase 13: 5 a call)
-         "launches_export": export_launches, "export": export},
+         "launches_export": export_launches, "export": export,
+         # phase 14, per rank: 2 gloo ranks on the card (the parity step,
+         # fast steps, a lockstep server, halo and tiled spatial paths: 5 a
+         # forward), a one-rank NCCL group's steps, the 2-rank eval CLI
+         "launches_data_parallel": dp["launches"], "data_parallel": dp},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -2566,7 +3215,13 @@ def main() -> int:
                   and r["dtype"] == "float32"],
          "per_level": b1_rows, "train_step": train,
          "launches_train_cli": train_cli["launches"]["correlation_bwd"],
-         "train_cli": train_cli},
+         "train_cli": train_cli,
+         # phase 14, per rank: 5 a step on every rank
+         "launches_data_parallel": {
+             "ranks": [{k: v["correlation_bwd"] for k, v in r.items()}
+                       for r in dp["launches"]["ranks"]],
+             "one_rank_nccl":
+                 dp["launches"]["one_rank_nccl"]["correlation_bwd"]}},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

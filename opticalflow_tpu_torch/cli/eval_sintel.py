@@ -2,10 +2,12 @@
 clean 1.83 / final 2.31 with the canonical weights).
 
 Counterpart of ``opticalflow_tpu.cli.eval_sintel`` with the same flags plus
-``--device {cuda,cpu}`` (default ``cuda``)::
+``--device {cuda,cuda:N,cpu}`` (default ``cuda``)::
 
     python -m opticalflow_tpu_torch.cli.eval_sintel --root /data/sintel \\
         --ckpt pwc_net.pth.tar --render clean
+
+``--data-parallel N`` as in ``cli/infer_kitti``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from opticalflow_tpu_torch.cli.infer_kitti import check_data_parallel
+from opticalflow_tpu_torch.cli.infer_kitti import (add_data_parallel_args,
+                                                   data_parallel_mesh)
 
 
 def build_parser():
@@ -32,17 +35,19 @@ def build_parser():
                    help="pairs per batched forward")
     p.add_argument("--dispatch-chunk", type=int, default=None,
                    help="run each batch as consecutive forwards of this "
-                        "size (bounds activation memory)")
-    p.add_argument("--data-parallel", default="1", metavar="1",
-                   help="cards per batch; the port takes only 1")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+                        "size (bounds activation memory; mutually exclusive "
+                        "with --data-parallel)")
+    add_data_parallel_args(p, "each evaluation batch (--batch must divide "
+                              "by N)")
     p.add_argument("--limit", type=int, default=None)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_data_parallel(args.data_parallel)
+    from opticalflow_tpu_torch.parallel.mesh import check_eval_cli_mesh_args
+    mesh = data_parallel_mesh(args, "opticalflow_tpu_torch.cli.eval_sintel")
+    check_eval_cli_mesh_args(mesh, args.dispatch_chunk, args.batch)
     from opticalflow_tpu_torch.engine import FlowEngine
     from opticalflow_tpu_torch.evaluate import evaluate_sintel
     from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
@@ -50,8 +55,8 @@ def main(argv=None) -> int:
 
     engine = FlowEngine(PWCDCNet(variant=args.variant),
                         load_params(args.ckpt), flow_scale=args.flow_scale,
-                        device=args.device,
-                        dispatch_chunk=args.dispatch_chunk)
+                        device=args.device if mesh is None else None,
+                        dispatch_chunk=args.dispatch_chunk, mesh=mesh)
     res = evaluate_sintel(engine, args.root, render=args.render,
                           preset=args.preset, batch=args.batch,
                           save_dir=args.save_dir, limit=args.limit)

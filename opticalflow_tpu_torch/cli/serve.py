@@ -2,7 +2,7 @@
 batching.
 
 Counterpart of ``opticalflow_tpu.cli.serve`` with the same flags plus
-``--device {cuda,cpu}`` (default ``cuda``)::
+``--device {cuda,cuda:N,cpu}`` (default ``cuda``)::
 
     python -m opticalflow_tpu_torch.cli.serve --ckpt pwc_net.pth.tar --port 8080
 
@@ -14,8 +14,14 @@ and ``GET /metrics`` for probes.  ``--port 0`` takes a free port; the
 every request in flight and exits 0.
 
 ``--dtype bfloat16`` (the default) serves the bfloat16 fast model;
-``float32`` the float32 parity model (TF32 off).  ``--data-parallel``
-takes only 1 (multi-GPU serving is ROADMAP Queue 1 item 6).
+``float32`` the float32 parity model (TF32 off).
+
+``--data-parallel N`` shards each dispatched batch over N ranks launched by
+``python -m torch.distributed.run --nproc-per-node N``: every rank runs its
+own HTTP server (rank r on ``--port`` + r, or a free port with ``--port
+0``) and dispatch thread, and pads every launch to ``--max-batch`` (which
+must divide by N), so the ranks must be sent the same requests in the same
+order: their forwards meet in one all-gather.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from opticalflow_tpu_torch.cli.infer_kitti import check_data_parallel
+from opticalflow_tpu_torch.cli.infer_kitti import (add_data_parallel_args,
+                                                   data_parallel_mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,8 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "rides a B=1 forward instead of shipping max-batch "
                         "frames (default auto = powers of two up to "
                         "max-batch; none = always pad to max-batch)")
-    p.add_argument("--data-parallel", default="1", metavar="1",
-                   help="cards per batch; the port takes only 1")
     p.add_argument("--warmup", metavar="HxW", default=None,
                    help="run every bucket once at this frame size before "
                         "serving, e.g. 436x1024")
@@ -56,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated size modes --warmup runs (default "
                         "resize,pad); an unwarmed mode's first request pays "
                         "cuDNN's first-call set-up on the dispatch thread")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    add_data_parallel_args(p, "each dispatched batch (--max-batch must "
+                              "divide by N)")
     return p
 
 
@@ -85,7 +91,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     # flag-shaped mistakes fail before the checkpoint load
     buckets = parse_bucket_sizes(args.bucket_sizes, args.max_batch)
-    check_data_parallel(args.data_parallel)
+    mesh = data_parallel_mesh(args, "opticalflow_tpu_torch.cli.serve")
 
     import signal
     import threading
@@ -100,8 +106,15 @@ def main(argv=None) -> int:
     model = PWCDCNet(variant=args.variant,
                      dtype=torch.bfloat16 if bf16 else torch.float32,
                      precision="fast" if bf16 else "highest")
+    if mesh is not None:
+        print(f"data-parallel serving over {mesh.world} ranks (rank "
+              f"{mesh.rank}, {mesh.backend}; max "
+              f"{-(-args.max_batch // mesh.world)} pairs/rank/batch)",
+              flush=True)
     engine = FlowEngine(model, load_params(args.ckpt),
-                        flow_scale=args.flow_scale, device=args.device)
+                        flow_scale=args.flow_scale,
+                        device=args.device if mesh is None else None,
+                        mesh=mesh)
     try:
         server = FlowServer(engine, max_batch=args.max_batch,
                             max_delay_ms=args.max_delay_ms,
@@ -115,7 +128,9 @@ def main(argv=None) -> int:
         server.warmup(h, w, size_modes=modes)
         print(f"warmed up buckets={server.bucket_sizes} at {h}x{w} "
               f"(modes: {', '.join(modes)})", flush=True)
-    httpd = make_http_server(server, args.host, args.port)
+    port = args.port + mesh.rank if mesh is not None and args.port else \
+        args.port
+    httpd = make_http_server(server, args.host, port)
 
     def _shutdown(signum, frame):
         # serve_forever() returns after shutdown(), which must be called

@@ -10,14 +10,28 @@
                          optional Sampson penalty (``train_fundamental.py``)
 
 Counterpart of ``opticalflow_tpu.cli.train`` with the same flags and
-defaults plus ``--device {cuda,cpu}`` (default ``cuda``)::
+defaults plus ``--device {cuda,cuda:N,cpu}`` (default ``cuda``)::
 
     python -m opticalflow_tpu_torch.cli.train --regime multiscale \\
         --data-root KITTI/training --pretrained pwc_net.pth.tar
 
-One card: the batch is the card's; ``--distributed`` and the ``--dist-*``
-flags raise (multi-GPU training is ROADMAP Queue 1 item 6).  The loader
-prefetches batches onto the card; checkpoints are the port's torch format
+Data-parallel training, one process per card::
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m opticalflow_tpu_torch.cli.train --distributed ...
+
+(or ``--dist-coordinator HOST:PORT --dist-num-processes N
+--dist-process-id I`` in each process).  ``--batch`` is the GLOBAL batch
+and must divide by N; every rank loads a disjoint stride-slice of the
+dataset, cut to a common length, at ``batch / N`` samples a step, and the
+ranks average their gradients each step.  Only rank 0 logs, writes
+``metrics.jsonl`` and TensorBoard, and saves; every rank restores, and
+``--resume`` refuses ranks that see different latest steps.  A SIGTERM on
+any rank stops every rank after the same step (the ranks agree on the stop
+flag after each step).  ``--val-frac`` is refused with ``--distributed``,
+as in the JAX CLI.
+
+The loader prefetches batches onto the card; checkpoints are the port's torch format
 (``train/checkpoints.py``) with the loader's position, the best validation
 metric and the plateau's count, so ``--resume`` continues where a run
 stopped, mid-epoch after a SIGTERM: the run finishes its step (and, on an
@@ -34,6 +48,8 @@ import json
 import os
 import sys
 import time
+
+from opticalflow_tpu_torch.cli.infer_kitti import device_flag
 
 
 def build_parser():
@@ -84,8 +100,13 @@ def build_parser():
                         "(the largest activations), 'full' the whole "
                         "forward. Bare --remat = full")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training: not ported (one card)")
-    p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT")
+                   help="join the ranks' process group (from the variables "
+                        "torch.distributed.run sets, or the --dist-* "
+                        "flags); --batch is the GLOBAL batch; each rank "
+                        "loads and feeds its 1/num_processes share")
+    p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address (tcp://), without "
+                        "torch.distributed.run")
     p.add_argument("--dist-num-processes", type=int, default=None)
     p.add_argument("--dist-process-id", type=int, default=None)
     p.add_argument("--workers", type=int, default=4)
@@ -96,7 +117,11 @@ def build_parser():
                         "under <out-dir>/tb (JSONL metrics are always "
                         "written)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--device", type=device_flag, default="cuda",
+                   metavar="cuda|cuda:N|cpu",
+                   help="cuda = this rank's card (its LOCAL_RANK); ranks "
+                        "that outnumber the cards share one (cuda:0) over "
+                        "gloo")
     return p
 
 
@@ -109,30 +134,56 @@ def _make_dataset(args):
     return ConsecutiveFrames(args.data_root, size_hw=tuple(args.size))
 
 
-def _check_one_card(args) -> None:
-    if (args.distributed or args.dist_coordinator
-            or args.dist_num_processes is not None
-            or args.dist_process_id is not None):
+def _join(args):
+    """The data-parallel mesh of ``--distributed`` / ``--dist-*``, or None
+    for one process.  Refuses what the JAX CLI refuses."""
+    if not (args.distributed or args.dist_coordinator):
+        if args.dist_num_processes is not None \
+                or args.dist_process_id is not None:
+            raise SystemExit("--dist-num-processes / --dist-process-id "
+                             "need --distributed or --dist-coordinator")
+        return None
+    from opticalflow_tpu_torch.parallel import mesh as meshlib
+    if args.val_frac > 0:
         raise SystemExit(
-            "--distributed / --dist-*: the PyTorch port trains on one GPU; "
-            "multi-GPU training is ROADMAP Queue 1 item 6")
+            "--val-frac with --distributed is not supported (validation "
+            "would need collective batch scheduling); run a separate "
+            "single-host eval job over the saved checkpoints")
+    import torch.distributed as dist
+    try:
+        if not dist.is_initialized():   # a caller may have joined already
+            meshlib.distributed_init(
+                args.dist_coordinator, args.dist_num_processes,
+                args.dist_process_id, device=args.device)
+        mesh = meshlib.make_mesh(args.device)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(str(e))
+    print(f"distributed: rank {mesh.rank}/{mesh.world} on {mesh.device} "
+          f"({mesh.backend})", flush=True)
+    if args.batch % mesh.world:
+        raise SystemExit(f"--batch {args.batch} not divisible by "
+                         f"{mesh.world} processes")
+    return mesh
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_one_card(args)
     import signal
     import threading
 
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
                          "to train on the CPU)")
-    device = torch.device(args.device)
+    mesh = _join(args)
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    is_main = mesh is None or mesh.rank == 0
 
-    from opticalflow_tpu_torch.data.loader import Loader, train_val_split
+    from opticalflow_tpu_torch.data.loader import (Loader, process_shard,
+                                                   train_val_split)
     from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.parallel import mesh as meshlib
     from opticalflow_tpu_torch.train import checkpoints as ckpt
     from opticalflow_tpu_torch.train.trainer import (PlateauController,
                                                      TrainConfig,
@@ -161,7 +212,8 @@ def main(argv=None) -> int:
                      precision="fast", generator=gen).to(device)
     params = ckpt.load_params(args.pretrained) if args.pretrained else None
     state, opt = create_train_state(model, cfg, params=params)
-    print(f"device: {device} | regime: {args.regime}")
+    if is_main:
+        print(f"device: {device} | regime: {args.regime}")
 
     ds = _make_dataset(args)
     val_loader = None
@@ -174,14 +226,26 @@ def main(argv=None) -> int:
                                 shuffle=False, drop_last=False,
                                 num_workers=args.workers, seed=args.seed,
                                 device=device)
-    loader = Loader(ds, args.batch, num_workers=args.workers,
+    local_batch = args.batch
+    if mesh is not None:
+        # --batch is global: every rank loads a disjoint stride-slice of the
+        # dataset, cut to a common length so that every rank runs the same
+        # number of (collective) steps an epoch
+        local_batch = meshlib.local_batch_size(args.batch, mesh)
+        ds = process_shard(ds, mesh.rank, mesh.world)
+    loader = Loader(ds, local_batch, num_workers=args.workers,
                     seed=args.seed, device=device)
 
     start_epoch = 0
     best_metric = float("inf")
     plateau = PlateauController(cfg)
     os.makedirs(args.out_dir, exist_ok=True)
-    if args.resume and ckpt.latest_step(args.out_dir) is not None:
+    try:
+        resume_step = ckpt.latest_step(args.out_dir, mesh) if args.resume \
+            else None
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if resume_step is not None:
         restored = ckpt.restore_train_state(args.out_dir)
         model.load_state_dict(restored["params"])
         if "opt_state" in restored:
@@ -203,11 +267,17 @@ def main(argv=None) -> int:
         print(f"resumed from step {state.step} (epoch {start_epoch}"
               + (f", batch {loader.state()['batch']}"
                  if meta.get("mid_epoch") else "") + ")")
+    if mesh is not None:
+        # the weights and the optimizer's state: checked equal on every
+        # rank (a divergent checkpoint raises on all of them), then
+        # broadcast from rank 0
+        meshlib.replicate(model, mesh)
+        meshlib.replicate(opt.state_dict()["state"], mesh)
 
     def save(directory, metadata):
         return ckpt.save_train_state(directory, state.step,
                                      model.state_dict(), opt.state_dict(),
-                                     metadata=metadata)
+                                     metadata=metadata, mesh=mesh)
 
     def save_progress(epoch, mid_epoch):
         return save(args.out_dir, {
@@ -216,9 +286,17 @@ def main(argv=None) -> int:
             "best_metric": best_metric, "plateau_best": plateau.best,
             "plateau_bad_epochs": plateau.bad_epochs})
 
-    step_fn = make_train_step(model, opt, cfg)
+    step_fn = make_train_step(model, opt, cfg, mesh=mesh)
     eval_fn = make_eval_metrics_step(model, cfg) if val_loader else None
     log_path = os.path.join(args.out_dir, "metrics.jsonl")
+
+    def stopping() -> bool:
+        """The stop flag; under a mesh the ranks' agreement (every rank
+        reaches each call after the same step), so that no rank waits in a
+        gradient all-reduce that a stopped peer never joins."""
+        if mesh is None:
+            return preempt.is_set()
+        return meshlib.any_rank(preempt.is_set(), mesh)
 
     # Preemption: a SIGTERM (a managed machine's notice before eviction)
     # is flagged; the in-flight step finishes, a resumable checkpoint with
@@ -230,7 +308,7 @@ def main(argv=None) -> int:
                                     lambda s, f: preempt.set())
     except ValueError:      # not on the main thread (library/test use)
         old_handler = None
-    tb = _open_tensorboard(args)
+    tb = _open_tensorboard(args) if is_main else None
     # close (flush) the tb writer and put the signal handler back on every
     # exit path: normal return, preemption, and loader/step exceptions
     try:
@@ -248,7 +326,7 @@ def main(argv=None) -> int:
                 nsteps += 1
                 loss = float(metrics["loss"])
                 epoch_loss += loss
-                if nsteps % args.log_every == 0:
+                if nsteps % args.log_every == 0 and is_main:
                     rec = {"epoch": epoch, "step": state.step,
                            **{k: float(v) for k, v in metrics.items()}}
                     with open(log_path, "a") as f:
@@ -258,14 +336,15 @@ def main(argv=None) -> int:
                     print(f"e{epoch} s{state.step} "
                           + " ".join(f"{k}={float(v):.4f}"
                                      for k, v in metrics.items()))
-                if preempt.is_set():
+                if stopping():
                     break
-            if preempt.is_set():
+            if stopping():
                 done = skip + nsteps
                 if done < len(loader):
                     path = save_progress(epoch, mid_epoch=True)
-                    print(f"preempted: saved {path} (epoch {epoch}, "
-                          f"batch {done}/{len(loader)})")
+                    if is_main:
+                        print(f"preempted: saved {path} (epoch {epoch}, "
+                              f"batch {done}/{len(loader)})")
                     return 0
                 # the epoch's last batch ran: the loop left the loader
                 # before it closed the epoch, so close it here, then
@@ -273,7 +352,7 @@ def main(argv=None) -> int:
                 loader.restore({"epoch": epoch + 1, "batch": 0,
                                 "seed": loader.seed})
             dt = time.perf_counter() - t0
-            if nsteps:   # a zero-step epoch has no meaningful loss to log
+            if nsteps and is_main:   # a zero-step epoch has no loss to log
                 mean_loss = epoch_loss / nsteps
                 ips = nsteps * args.batch / max(dt, 1e-9)
                 print(f"epoch {epoch}: loss={mean_loss:.4f} "
@@ -316,13 +395,17 @@ def main(argv=None) -> int:
                     print(f"best model saved ({key_metric:.4f}) -> {path}")
 
             if ((epoch + 1) % args.save_every == 0
-                    or epoch == args.epochs - 1 or preempt.is_set()):
+                    or epoch == args.epochs - 1 or stopping()):
                 path = save_progress(epoch, mid_epoch=False)
-                print(f"saved {path}")
-            if preempt.is_set():
-                print(f"preempted after epoch {epoch}")
+                if is_main:
+                    print(f"saved {path}")
+            if stopping():
+                if is_main:
+                    print(f"preempted after epoch {epoch}")
                 return 0
-        _plot_history(history, os.path.join(args.out_dir, "loss_curve.png"))
+        if is_main:
+            _plot_history(history,
+                          os.path.join(args.out_dir, "loss_curve.png"))
     finally:
         if tb:
             tb.close()

@@ -9,6 +9,11 @@ the /64 resize or pad, and file I/O stay on the host.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and
 no explicit device it raises instead of quietly running on the CPU.
+
+With a ``mesh`` (``parallel.mesh``) every rank holds the engine and is fed
+the same pairs: each forward runs this rank's contiguous rows and an
+all-gather of the quarter-resolution flow hands every rank the whole
+batch's, which the rank finishes (upsampling, vector rescale) itself.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from opticalflow_tpu_torch.models.torch_import import reference_state_dict
 from opticalflow_tpu_torch.ops.resize import (flow_resize,
                                               resize_linear_antialiased,
                                               upsample_flow_to)
+from opticalflow_tpu_torch.parallel import mesh as meshlib
 
 __all__ = ["FlowEngine", "resolve_device"]
 
@@ -81,25 +87,46 @@ class FlowEngine:
       device: ``"cuda"`` (the default) or ``"cpu"``.
       dispatch_chunk: optional sub-batch size: a batch larger than and
         divisible by it runs as consecutive forwards of that size, which
-        bounds the activation memory.
+        bounds the activation memory.  Single-card only: mutually exclusive
+        with ``mesh``.
+      mesh: optional ``parallel.mesh.Mesh`` for data-parallel inference
+        over its ranks (the engine runs on ``mesh.device``; the weights
+        are checked equal on every rank and broadcast from rank 0 by
+        ``replicate``).  :meth:`flow_from_pairs` pads a ragged batch to a
+        multiple of the ranks; :meth:`flow_from_batch` needs a divisible
+        one.
     """
 
     def __init__(self, model: PWCDCNet, weights: Union[Mapping, nn.Module],
                  *, flow_scale: float = FLOW_SCALE,
                  device: Union[str, torch.device, None] = None,
-                 dispatch_chunk: Optional[int] = None):
+                 dispatch_chunk: Optional[int] = None,
+                 mesh: Optional[meshlib.Mesh] = None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         if dispatch_chunk is not None:
             dispatch_chunk = int(dispatch_chunk)
             if dispatch_chunk < 1:
                 raise ValueError(
                     f"dispatch_chunk must be >= 1, got {dispatch_chunk}")
+            if mesh is not None:
+                raise ValueError(
+                    "dispatch_chunk is a single-chip scheduling lever; with "
+                    "a mesh the data axis already splits each batch — use "
+                    "one or the other")
         self.dispatch_chunk = dispatch_chunk
         self.flow_scale = float(flow_scale)
         sd = (weights.state_dict() if isinstance(weights, nn.Module)
               else reference_state_dict(weights))
         model.load_state_dict(sd)
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            meshlib.replicate(self.model, mesh)
         self._mean6 = torch.from_numpy(
             np.tile(imio.IMAGENET_MEAN, 2)).to(self.device)
         self._std6 = torch.from_numpy(
@@ -119,14 +146,21 @@ class FlowEngine:
 
     def _quarter_flow_u8(self, xu8: np.ndarray, preset: str) -> torch.Tensor:
         """uint8 (B, H64, W64, 6) frames → scaled quarter-res flow
-        (B, 2, H64/4, W64/4) on the device."""
+        (B, 2, H64/4, W64/4) on the device (under a mesh: this rank's rows
+        run here, and the whole batch's is all-gathered)."""
+        if self.mesh is not None:
+            xu8 = meshlib.shard_batch(xu8, self.mesh)
         x = torch.from_numpy(np.ascontiguousarray(xu8)).to(self.device)
         b, chunk = x.shape[0], self.dispatch_chunk
         parts = (x.split(chunk) if chunk and b > chunk and b % chunk == 0
                  else [x])
         q = torch.cat([self.model(self._preprocess(p, preset))
                        for p in parts])
-        return q * self.flow_scale
+        return self._gathered(q * self.flow_scale)
+
+    def _gathered(self, q: torch.Tensor) -> torch.Tensor:
+        return q if self.mesh is None else meshlib.all_gather_rows(
+            q, self.mesh)
 
     # -------------------------------------------------------------- public API
 
@@ -169,9 +203,20 @@ class FlowEngine:
                         image_size: Optional[Tuple[int, int]] = None
                         ) -> np.ndarray:
         """Batched :meth:`flow_from_pair`: N pairs of one common frame shape
-        → (N, H, W, 2), one batched forward."""
+        → (N, H, W, 2), one batched forward.  With a mesh, N is padded up
+        to a multiple of the ranks (repeating the last pair) and the
+        padding rows are dropped from the output."""
         if len(im1s) != len(im2s) or not len(im1s):
             raise ValueError("im1s/im2s must be equal-length, non-empty")
+        n = len(im1s)
+        if self.mesh is not None:
+            pad = -n % self.mesh.world
+            if pad:
+                im1s = list(im1s) + [im1s[-1]] * pad
+                im2s = list(im2s) + [im2s[-1]] * pad
+                return self.flow_from_pairs(
+                    im1s, im2s, preset=preset, size_mode=size_mode,
+                    image_size=image_size)[:n]
         if preset not in imio.PREPROC_PRESETS:
             raise ValueError(f"unknown preprocessing preset {preset!r}; "
                              f"choose from {imio.PREPROC_PRESETS}")
@@ -202,12 +247,16 @@ class FlowEngine:
         layout (numpy or a tensor) → (B, h, w, 2) flow on the engine's
         device at ``out_size`` (default (H64, W64)): the quarter-res flow
         ×flow_scale, upsampled half-pixel (``upsample_flow_to``) or with
-        ``align_corners`` (``flow_resize``), vectors rescaled."""
+        ``align_corners`` (``flow_resize``), vectors rescaled.  With a mesh
+        the batch must divide by the ranks: each runs its rows, and every
+        rank gets the whole batch's flow."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         h, w = out_size if out_size is not None else x.shape[1:3]
+        if self.mesh is not None:
+            x = meshlib.shard_batch(x, self.mesh)
         with torch.inference_mode():
-            q = self.model(x.permute(0, 3, 1, 2).contiguous()) \
-                * self.flow_scale
+            q = self._gathered(self.model(x.permute(0, 3, 1, 2).contiguous())
+                               * self.flow_scale)
             resize = flow_resize if align_corners else upsample_flow_to
             return resize(q, int(h), int(w)).permute(0, 2, 3, 1)
 

@@ -37,7 +37,9 @@ def evaluate_pairs(engine, dataset, *, preset: str = "bgr_unit",
     outputs discarded), so every forward of a shape group has one shape.
     Per-pair metrics are unchanged from the reference semantics.  Build the
     engine with ``dispatch_chunk`` to bound the activation memory of a
-    large ``batch``.
+    large ``batch``.  With a sharded engine (``mesh``), every rank is fed
+    the same dataset, ``batch`` must be a multiple of the ranks, every rank
+    returns the same metrics, and only rank 0 saves files and prints.
 
     ``size_mode``: "pad" is the corrected v2 pipeline (upsample-then-crop;
     see the documented divergence in ``FlowEngine.flow_from_pair``);
@@ -60,6 +62,14 @@ def evaluate_pairs(engine, dataset, *, preset: str = "bgr_unit",
 
     batch = max(1, int(batch))
     n = len(dataset) if limit is None else min(limit, len(dataset))
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None:
+        if batch % mesh.world:
+            raise ValueError(
+                f"batch {batch} must be a multiple of the engine's "
+                f"data-parallel width {mesh.world}")
+        if mesh.rank:
+            save_dir, verbose = None, False
 
     # ---- producer: fetch samples into a bounded queue (≤ batch waiting)
     q: "_queue.Queue" = _queue.Queue(maxsize=batch)

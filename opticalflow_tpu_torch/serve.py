@@ -27,8 +27,15 @@ where it is not.
 
 Every bucket is a shape the engine has to set up once (the kernel build at
 the first call, cuDNN's first-call set-up per shape): :meth:`FlowServer.warmup`
-pays that before traffic arrives.  Data-parallel serving over several
-cards is ROADMAP Queue 1 item 6.
+pays that before traffic arrives.
+
+Data-parallel serving: with a sharded engine (``FlowEngine(mesh=...)``,
+``cli/serve.py --data-parallel N``) every rank runs its own server and
+dispatch thread, every launch divides over the ranks, and with more than
+one rank every launch pads to ``max_batch``: the ranks' forwards meet in
+one all-gather, so they must dispatch in lockstep (the same requests, in
+the same order, on every rank), as in the JAX package's multi-process
+serving.
 
 Run:  ``python -m opticalflow_tpu_torch.cli.serve --ckpt pwc_net.pth.tar``.
 """
@@ -104,7 +111,8 @@ class FlowServer:
 
     Args:
       engine: a ready :class:`~opticalflow_tpu_torch.engine.FlowEngine` (or
-        anything with its ``flow_from_pairs`` and ``warmup``).
+        anything with its ``flow_from_pairs`` and ``warmup``), sharded or
+        not (its ``mesh``).
       max_batch: the most requests one forward takes; the dispatcher never
         drains more.
       max_delay_ms: how long the dispatcher waits, from the oldest queued
@@ -116,7 +124,12 @@ class FlowServer:
         ``"auto"`` (default) = the powers of two below ``max_batch``, then
         ``max_batch``; ``None`` = always pad to ``max_batch``; an explicit
         sequence of ints in [1, max_batch] is sorted and gets ``max_batch``
-        appended.  Anything else raises ``ValueError``.
+        appended.  Anything else raises ``ValueError``.  With a sharded
+        engine every size must be a multiple of its ranks ("auto" keeps
+        those), and with more than one rank the sizes collapse to
+        ``[max_batch]`` once the spec is validated: rank-local queue depths
+        would pick different buckets, and ranks whose forwards differ in
+        size never meet in the all-gather.
     """
 
     def __init__(self, engine, *, max_batch: int = 8,
@@ -137,8 +150,18 @@ class FlowServer:
 
     def _resolve_buckets(self, spec) -> List[int]:
         """Validated ascending launch sizes, always ending in max_batch."""
-        if self.max_batch < 1:
-            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        mesh = getattr(self.engine, "mesh", None)
+        step = mesh.world if mesh is not None else 1
+        if self.max_batch < 1 or self.max_batch % step:
+            raise ValueError(
+                f"max_batch {self.max_batch} must be a positive multiple of "
+                f"the engine's data-parallel width {step}")
+        sizes = self._bucket_sizes(spec, step)
+        # validate the spec first (a bad spec fails on every topology),
+        # then collapse for lockstep (class docstring)
+        return [self.max_batch] if step > 1 else sizes
+
+    def _bucket_sizes(self, spec, step: int) -> List[int]:
         if spec is None:
             return [self.max_batch]
         if isinstance(spec, str):
@@ -148,7 +171,8 @@ class FlowServer:
                     f"ints, got {spec!r}")
             sizes, b = [], 1
             while b < self.max_batch:
-                sizes.append(b)
+                if b % step == 0:
+                    sizes.append(b)
                 b *= 2
             return sizes + [self.max_batch]
         if not isinstance(spec, collections.abc.Iterable):
@@ -164,6 +188,10 @@ class FlowServer:
             if b < 1 or b > self.max_batch:
                 raise ValueError(
                     f"bucket size {b} outside [1, max_batch={self.max_batch}]")
+            if b % step:
+                raise ValueError(
+                    f"bucket size {b} must divide over the engine's "
+                    f"data-parallel width {step}")
         if not sizes or sizes[-1] != self.max_batch:
             sizes.append(self.max_batch)
         return sizes

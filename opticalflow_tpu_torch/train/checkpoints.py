@@ -11,6 +11,11 @@ the previous checkpoint as the latest and no torn one: what Orbax's
 finalize-on-wait gives the JAX package.  Orbax directories need orbax and
 JAX, which the port does not import, and are refused (ROADMAP Queue 1
 item 2).
+
+Under data parallelism (``mesh=``, ``parallel.mesh``) the run directory is
+one shared filesystem: only rank 0 writes, every rank waits at a barrier
+until it has, and every rank restores; :func:`latest_step` checks that the
+ranks see the same latest step.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from opticalflow_tpu_torch.models.torch_import import (load_torch_state_dict,
                                                         reference_state_dict)
+from opticalflow_tpu_torch.parallel import mesh as meshlib
 
 __all__ = ["load_params", "save_train_state", "restore_train_state",
            "latest_step", "STATE_FILE"]
@@ -68,15 +74,23 @@ def _atomic_json(path: str, obj) -> None:
 def save_train_state(directory: str, step: int,
                      params: Mapping[str, torch.Tensor],
                      opt_state: Optional[Mapping[str, Any]] = None,
-                     metadata: Optional[Dict[str, Any]] = None) -> str:
+                     metadata: Optional[Dict[str, Any]] = None, *,
+                     mesh: Optional[meshlib.Mesh] = None) -> str:
     """Write ``{directory}/step_{step}`` holding the model's state dict
     ``params``, the optimizer's ``opt_state`` (optional) and the step, and
     ``metadata`` to the ``step_{step}.meta.json`` sidecar.  The sidecar is
     written first and the directory is renamed into place last, so the
-    checkpoint appears whole or not at all.  Returns the checkpoint path."""
+    checkpoint appears whole or not at all.  With a ``mesh`` only rank 0
+    writes (the state is the same on every rank) and every rank returns
+    after it has.  Returns the checkpoint path."""
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step_{step}")
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_train_state(directory, step, params, opt_state, metadata)
+        meshlib.barrier(mesh)
+        return path
+    os.makedirs(directory, exist_ok=True)
     if metadata:
         _atomic_json(path + ".meta.json", metadata)
     payload = {"params": {k: v.detach().cpu() for k, v in params.items()},
@@ -98,14 +112,28 @@ def save_train_state(directory: str, step: int,
     return path
 
 
-def latest_step(directory: str) -> Optional[int]:
-    """Largest step among ``step_*`` checkpoints in ``directory``."""
-    if not os.path.isdir(directory):
-        return None
-    steps = [int(n.split("_", 1)[1]) for n in os.listdir(directory)
-             if n.startswith("step_") and n.split("_", 1)[1].isdigit()
-             and os.path.isdir(os.path.join(directory, n))]
-    return max(steps) if steps else None
+def latest_step(directory: str,
+                mesh: Optional[meshlib.Mesh] = None) -> Optional[int]:
+    """Largest step among ``step_*`` checkpoints in ``directory``.  With a
+    ``mesh`` every rank gathers every rank's answer and raises if they
+    differ: ranks that restored different states would be stitched into
+    one corrupted model."""
+    step = None
+    if os.path.isdir(directory):
+        steps = [int(n.split("_", 1)[1]) for n in os.listdir(directory)
+                 if n.startswith("step_") and n.split("_", 1)[1].isdigit()
+                 and os.path.isdir(os.path.join(directory, n))]
+        step = max(steps) if steps else None
+    if mesh is not None:
+        mine = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                            device=mesh.device)
+        every = meshlib.all_gather_rows(mine, mesh).tolist()
+        if len(set(every)) != 1:
+            raise ValueError(
+                f"--resume sees different checkpoint steps per process "
+                f"({every}): out_dir must be one shared filesystem visible "
+                f"to all hosts")
+    return step
 
 
 def restore_train_state(path: str) -> Dict[str, Any]:

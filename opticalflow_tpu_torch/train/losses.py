@@ -15,11 +15,20 @@ flows are (B, 2, H, W) with channel 0 = u, images (B, 3, H, W), masks
     border-padded align_corners=True warp + 0.1 first-order smoothness
     (``train_pseudo.py:65-164``), with an optional photometric mask (the
     epipolar-filtered regime's hook).
+
+Under data parallelism each rank holds a shard of the batch, and the JAX
+step's masked means divide by the GLOBAL batch's count.  The masked losses
+take ``denominator``, a callable that turns this rank's count into
+(the global count, the number of ranks); the rank's term is then its
+numerator over the global count times the number of ranks, so that the
+mean over the ranks (the gradient average) is the global masked mean.
+Plain means need nothing: the shards are equal.  Without it the losses are
+the single-process ones, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +43,24 @@ __all__ = ["charbonnier_epe", "multiscale_supervised_loss", "ssim",
 
 MULTISCALE_WEIGHTS = (0.32, 0.08, 0.02, 0.01, 0.005)
 
+# this rank's count of a masked mean → (the global count, the number of ranks)
+Denominator = Callable[[torch.Tensor], Tuple[torch.Tensor, int]]
+
+
+def _masked_mean(num: torch.Tensor, count: torch.Tensor,
+                 denominator: Optional[Denominator], *,
+                 floor: Optional[float] = None,
+                 eps: float = 0.0) -> torch.Tensor:
+    """num / count, the count clamped at ``floor`` or offset by ``eps`` as
+    the single-process loss does it; with ``denominator``, over the global
+    count and scaled by the number of ranks (module docstring)."""
+    ranks = 1
+    if denominator is not None:
+        count, ranks = denominator(count)
+    out = num / (count.clamp(min=floor) if floor is not None
+                 else count + eps)
+    return out if denominator is None else out * ranks
+
 
 def _vec_scale(flow: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Scale u by sx and v by sy (channels 0 and 1)."""
@@ -43,24 +70,27 @@ def _vec_scale(flow: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
 
 def charbonnier_epe(pred: torch.Tensor, gt: torch.Tensor,
                     valid: Optional[torch.Tensor] = None,
-                    eps: float = 1e-3) -> torch.Tensor:
+                    eps: float = 1e-3,
+                    denominator: Optional[Denominator] = None
+                    ) -> torch.Tensor:
     """Masked Charbonnier endpoint error: mean over valid pixels of
     sqrt(‖pred−gt‖² + eps²)."""
     e = torch.sqrt(((pred - gt) ** 2).sum(dim=-3) + eps * eps)
     if valid is None:
         return e.mean()
     v = (valid > 0.5).to(e.dtype)
-    return (e * v).sum() / v.sum().clamp(min=1.0)
+    return _masked_mean((e * v).sum(), v.sum(), denominator, floor=1.0)
 
 
 def epe_loss(pred: torch.Tensor, gt: torch.Tensor,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             denominator: Optional[Denominator] = None) -> torch.Tensor:
     """Plain mean EPE (the train-time metric, ``train2.py:100-112``)."""
     e = torch.sqrt(((pred - gt) ** 2).sum(dim=-3))
     if valid is None:
         return e.mean()
     v = valid.to(e.dtype)
-    return (e * v).sum() / (v.sum() + 1e-8)
+    return _masked_mean((e * v).sum(), v.sum(), denominator, eps=1e-8)
 
 
 def smoothness_first_order(flow: torch.Tensor) -> torch.Tensor:
@@ -84,13 +114,16 @@ def edge_aware_smoothness(flow: torch.Tensor,
 
 
 def photometric_l1(im1: torch.Tensor, im2_warped: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   mask: Optional[torch.Tensor] = None,
+                   denominator: Optional[Denominator] = None
+                   ) -> torch.Tensor:
     """L1 photometric loss, optionally masked ((B, H, W) mask)."""
     diff = (im1 - im2_warped).abs()
     if mask is None:
         return diff.mean()
     m = mask.unsqueeze(-3)
-    return (diff * m).sum() / (mask.sum() * im1.shape[-3] + 1e-8)
+    return _masked_mean((diff * m).sum(), mask.sum() * im1.shape[-3],
+                        denominator, eps=1e-8)
 
 
 def _avg_pool3(x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +173,8 @@ def _flow_to_image_res(flow: torch.Tensor, height: int,
 def proxy_label_loss(flow: torch.Tensor, im1: torch.Tensor,
                      im2: torch.Tensor, alpha_photo: float = 1.0,
                      alpha_smooth: float = 0.1,
-                     photo_mask: Optional[torch.Tensor] = None):
+                     photo_mask: Optional[torch.Tensor] = None,
+                     denominator: Optional[Denominator] = None):
     """Self-supervised proxy-label loss (``train_pseudo.py:65-164``).
 
     ``flow`` may be at reduced resolution: it is upsampled to the image
@@ -156,10 +190,12 @@ def proxy_label_loss(flow: torch.Tensor, im1: torch.Tensor,
         photo = proxy_photometric_loss(im1, im2_warped)
     else:
         m = photo_mask.unsqueeze(-3)
-        denom = photo_mask.sum() * im1.shape[-3] + 1e-8
-        l1 = ((im2_warped - im1).abs() * m).sum() / denom
+        count = photo_mask.sum() * im1.shape[-3]
+        l1 = _masked_mean(((im2_warped - im1).abs() * m).sum(), count,
+                          denominator, eps=1e-8)
         # masked SSIM: weight the per-pixel SSIM map before the reduction
-        ssim_v = (_ssim_map(im1, im2_warped) * m).sum() / denom
+        ssim_v = _masked_mean((_ssim_map(im1, im2_warped) * m).sum(), count,
+                              denominator, eps=1e-8)
         photo = 0.85 * ssim_v + 0.15 * l1
     smooth = smoothness_first_order(flow_full)
     total = alpha_photo * photo + alpha_smooth * smooth
@@ -170,7 +206,8 @@ def multiscale_supervised_loss(
         flow_preds: Sequence[torch.Tensor], gt_flow: torch.Tensor,
         valid: torch.Tensor, *, weights: Sequence[float] = MULTISCALE_WEIGHTS,
         images: Optional[torch.Tensor] = None, lambda_photo: float = 0.0,
-        lambda_smooth: float = 0.0) -> torch.Tensor:
+        lambda_smooth: float = 0.0,
+        denominator: Optional[Denominator] = None) -> torch.Tensor:
     """Supervised multiscale loss (``train2.py:124-167``).
 
     flow_preds: (flow2..flow6) finest first, each (B, 2, h, w) in the
@@ -185,14 +222,14 @@ def multiscale_supervised_loss(
         gt_s = resize_bilinear(gt_flow, h, w, align_corners=False)
         gt_s = _vec_scale(gt_s, w / float(bw), h / float(bh))
         mask_s = resize_nearest(valid.unsqueeze(1).float(), h, w)[:, 0]
-        lvl = charbonnier_epe(pred, gt_s, mask_s)
+        lvl = charbonnier_epe(pred, gt_s, mask_s, denominator=denominator)
         if images is not None and (lambda_photo > 0.0 or lambda_smooth > 0.0):
             im1_s = resize_bilinear(images[:, :3], h, w)
             im2_s = resize_bilinear(images[:, 3:], h, w)
             if lambda_photo > 0.0:
                 warped = bilinear_warp(im2_s, pred)
-                lvl = lvl + lambda_photo * photometric_l1(im1_s, warped,
-                                                          mask_s)
+                lvl = lvl + lambda_photo * photometric_l1(
+                    im1_s, warped, mask_s, denominator=denominator)
             if lambda_smooth > 0.0:
                 lvl = lvl + lambda_smooth * edge_aware_smoothness(pred, im1_s)
         wi = weights[i] if i < len(weights) else weights[-1]

@@ -23,8 +23,22 @@ model and the optimizer in place, where the JAX step donates its state.
 Gradient clipping is optax's ``clip_by_global_norm`` written out
 (g·max/‖g‖ once ‖g‖ reaches max), not ``clip_grad_norm_``, which divides by
 ‖g‖ + 1e-6.  The correlation's gradient comes from the backward kernel
-through ``ops.correlation.CorrelationFn`` on the card.  Data parallelism
-(the JAX step's ``mesh``) is ROADMAP Queue 1 item 6 and raises.
+through ``ops.correlation.CorrelationFn`` on the card.
+
+Data parallelism (the JAX step's ``mesh``, a :class:`~opticalflow_tpu_torch.
+parallel.mesh.Mesh` here): each rank's step takes its own rows of the
+global batch (``parallel.mesh.shard_batch``; the CLI's loader feeds each
+rank its shard).  The masked means divide by the global batch's counts, as
+the JAX step's do on its one sharded batch (``losses.Denominator``); after
+the backward one all-reduce of all the gradients, coalesced into one
+buffer per dtype, averages them over the ranks, and only then come the
+global norm, the clip and the update, the same on every rank.  The metrics
+are averaged over the ranks too.  One all-reduce after the backward, not
+``DistributedDataParallel``: the step already holds the gradients for the
+clip, the model stays the unwrapped module (``numerics()``, state dicts
+without ``module.`` prefixes), nothing changes for ``grad_accum``, remat or
+parameters that get no gradient, and a 37.5 MB all-reduce a step gains
+little from DDP's overlap with the backward.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from opticalflow_tpu_torch.geometry.epipolar import sampson_penalty
 from opticalflow_tpu_torch.models.torch_import import (reference_state_dict,
                                                         state_dict_from_jax)
 from opticalflow_tpu_torch.ops.resize import upsample_flow_to
+from opticalflow_tpu_torch.parallel import mesh as meshlib
 from opticalflow_tpu_torch.train import losses as L
 
 __all__ = ["TrainConfig", "TrainState", "make_optimizer", "make_train_step",
@@ -176,10 +191,9 @@ def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
 
 
 def _check_config(cfg: TrainConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (the JAX step's mesh) is not ported yet: "
-            "ROADMAP Queue 1 item 6")
+    if mesh is not None and not isinstance(mesh, meshlib.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
     if cfg.loss not in _LOSSES:
         raise ValueError(f"unknown loss {cfg.loss!r}")
     if cfg.remat not in (False, True, "l2"):
@@ -187,9 +201,23 @@ def _check_config(cfg: TrainConfig, mesh) -> None:
                          f"{cfg.remat!r}")
 
 
-def _compute_loss(model, batch: Dict[str, torch.Tensor], cfg: TrainConfig):
+def _global_denominator(mesh) -> Optional[L.Denominator]:
+    """The masked means' denominators over the global batch: this rank's
+    count all-reduced (detached: a count carries no gradient)."""
+    if mesh is None:
+        return None
+
+    def total(count: torch.Tensor):
+        return meshlib.all_reduce_(count.detach().clone(), mesh), mesh.world
+
+    return total
+
+
+def _compute_loss(model, batch: Dict[str, torch.Tensor], cfg: TrainConfig,
+                  denominator: Optional[L.Denominator] = None):
     """The configured loss of one (device, NCHW) batch; returns (loss,
-    metrics dict)."""
+    metrics dict).  Under a mesh (``denominator``) the loss and metrics are
+    this rank's terms, whose mean over the ranks is the global batch's."""
     x = batch["images"]
     if cfg.remat == "l2":
         preds = model(x, train=True, checkpoint_l2=True)
@@ -205,23 +233,26 @@ def _compute_loss(model, batch: Dict[str, torch.Tensor], cfg: TrainConfig):
         gt, valid = batch["flow"], batch["valid"]
         h, w = gt.shape[-2:]
         pred_full = upsample_flow_to(flow2, h, w)
-        loss = L.charbonnier_epe(pred_full, gt, valid)
-        metrics["epe"] = L.epe_loss(pred_full, gt, valid)
+        loss = L.charbonnier_epe(pred_full, gt, valid,
+                                 denominator=denominator)
+        metrics["epe"] = L.epe_loss(pred_full, gt, valid, denominator)
     elif cfg.loss == "multiscale":
         gt, valid = batch["flow"], batch["valid"]
         scaled = tuple(p * cfg.flow_scale for p in preds)
         loss = L.multiscale_supervised_loss(
             scaled, gt, valid, weights=cfg.multiscale_weights, images=x,
-            lambda_photo=cfg.lambda_photo, lambda_smooth=cfg.lambda_smooth)
+            lambda_photo=cfg.lambda_photo, lambda_smooth=cfg.lambda_smooth,
+            denominator=denominator)
         h, w = gt.shape[-2:]
         metrics["epe"] = L.epe_loss(upsample_flow_to(scaled[0], h, w), gt,
-                                    valid)
+                                    valid, denominator)
     else:   # proxy, proxy_epipolar
         mask = batch.get("photo_mask") if cfg.loss == "proxy_epipolar" \
             else None
         loss, photo, smooth = L.proxy_label_loss(
             flow2, x[:, :3], x[:, 3:], alpha_photo=cfg.alpha_photo,
-            alpha_smooth=cfg.alpha_smooth, photo_mask=mask)
+            alpha_smooth=cfg.alpha_smooth, photo_mask=mask,
+            denominator=denominator)
         metrics["photo"] = photo
         metrics["smooth"] = smooth
         if cfg.loss == "proxy_epipolar" and cfg.epi_soft_weight > 0:
@@ -247,17 +278,47 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+@torch.no_grad()
+def _all_reduce_scaled_(tensors, mesh, scale: float) -> None:
+    """Sum ``tensors`` over the mesh in place, one all-reduce per dtype of
+    them all flattened into one buffer, then multiply by ``scale``."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = meshlib.all_reduce_(
+            torch.cat([t.reshape(-1) for t in group]), mesh)
+        flat.mul_(scale)
+        torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
+            flat.split([t.numel() for t in group]), group)])
+
+
+def _reduce_metrics(sums: Dict[str, torch.Tensor], mesh,
+                    scale: float) -> Dict[str, torch.Tensor]:
+    """The metrics' sums over the ranks (one all-reduce), times ``scale``."""
+    names = sorted(sums)
+    stacked = torch.stack([sums[n].float() for n in names])
+    _all_reduce_scaled_([stacked], mesh, scale)
+    return dict(zip(names, stacked.unbind()))
+
+
 def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                     cfg: TrainConfig, mesh=None) -> Callable:
     """The train step ``step(state, batch) -> (state, metrics)``: gradients
     of the configured loss (averaged over ``grad_accum`` micro-batches),
     their global norm, optax's global-norm clip, one optimizer update.
     ``metrics`` holds 0-d device tensors (``loss``, ``grad_norm``, and
-    ``epe`` or ``photo``/``smooth``); reading one waits for the card."""
+    ``epe`` or ``photo``/``smooth``); reading one waits for the card.
+
+    With a ``mesh`` the step takes this rank's rows of the global batch
+    (``shard_batch(batch, mesh, cfg.grad_accum)`` makes its micro-batches
+    this rank's shares of the global ones) and every rank comes out with
+    the same gradients, metrics and parameters (module docstring)."""
     _check_config(cfg, mesh)
     accum = max(1, int(cfg.grad_accum))
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
+    denominator = _global_denominator(mesh)
 
     def step(state: TrainState, batch: Mapping):
         b = batch_to_device(batch, device)
@@ -271,13 +332,17 @@ def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
             for k in range(accum):
                 micro = {n: t.chunk(accum)[k] for n, t in b.items()} \
                     if accum > 1 else b
-                loss, metrics = _compute_loss(model, micro, cfg)
+                loss, metrics = _compute_loss(model, micro, cfg, denominator)
                 loss.backward()
                 for n, v in metrics.items():
                     v = v.detach()
                     sums[n] = v if n not in sums else sums[n] + v
         grads = [p.grad for p in params if p.grad is not None]
-        if accum > 1:
+        if mesh is not None:
+            scale = 1.0 / (accum * mesh.world)
+            _all_reduce_scaled_(grads, mesh, scale)
+            sums = _reduce_metrics(sums, mesh, scale)
+        elif accum > 1:
             with torch.no_grad():
                 torch._foreach_mul_(grads, 1.0 / accum)
             sums = {n: v * (1.0 / accum) for n, v in sums.items()}
@@ -293,14 +358,18 @@ def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
 def make_eval_metrics_step(model: torch.nn.Module, cfg: TrainConfig,
                            mesh=None) -> Callable:
     """``eval_step(batch) -> metrics``: the train step's loss metrics, no
-    update, under ``torch.no_grad()``."""
+    update, under ``torch.no_grad()``; with a ``mesh``, of this rank's
+    rows, reduced over the global batch (the same on every rank)."""
     _check_config(cfg, mesh)
     device = next(model.parameters()).device
+    denominator = _global_denominator(mesh)
 
     def step(batch: Mapping):
         with torch.no_grad():
             _, metrics = _compute_loss(model, batch_to_device(batch, device),
-                                       cfg)
+                                       cfg, denominator)
+        if mesh is not None:
+            metrics = _reduce_metrics(metrics, mesh, 1.0 / mesh.world)
         return metrics
 
     return step

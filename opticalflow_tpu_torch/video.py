@@ -150,7 +150,9 @@ class VideoFlowRunner:
       flow_scale: 1.0 for the repo's self-trained checkpoints, 20.0 for the
         canonical Sintel weights.
       batch: frame pairs per forward.  depth: windows in flight.
-      mesh: multi-GPU runs are not ported (ROADMAP Queue 1 item 6).
+      mesh: not ported: the JAX runner shards one process's frames by H
+        over its local devices; with one process per card every rank would
+        have to read the stream (what is left of ROADMAP Queue 1 item 6).
       grid_step: decimate the flow on the card to that arrow grid.
       upload: "bgr" ships RGB uint8 windows padded to /64 on the host;
         "i420" ships each frame's planar YUV 4:2:0 at its (even) size, half
@@ -172,8 +174,8 @@ class VideoFlowRunner:
                  device: Union[str, torch.device, None] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "VideoFlowRunner(mesh=...): multi-GPU runs are not ported "
-                "yet (ROADMAP Queue 1 item 6)")
+                "VideoFlowRunner(mesh=...): sharding a video over ranks is "
+                "not ported yet (what is left of ROADMAP Queue 1 item 6)")
         if preset not in imio.PREPROC_PRESETS:
             raise ValueError(f"unknown preprocessing preset {preset!r}")
         if upload not in ("bgr", "i420"):

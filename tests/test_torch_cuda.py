@@ -936,3 +936,25 @@ def test_interpret_kernels_runs_the_plain_versions_on_the_card(cuda_device):
         before = k1.launches
         model(x)
         assert k1.launches == before + 5
+
+
+def test_make_mesh_after_a_gloo_init_on_a_card_is_on_that_card(cuda_device):
+    """A group joined over gloo with no device is on the rank's card, and
+    so is its mesh: nothing moves to the CPU unasked."""
+    import socket
+    from opticalflow_tpu_torch.parallel import mesh as meshlib
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        meshlib.distributed_init(f"127.0.0.1:{port}", 1, 0, backend="gloo",
+                                 timeout_s=60)
+        mesh = meshlib.make_mesh()
+        assert mesh.backend == "gloo"
+        assert mesh.device == torch.device("cuda",
+                                           torch.cuda.current_device())
+        t = torch.arange(4.0, device=mesh.device)
+        got = meshlib.all_gather_rows(t, mesh)
+        assert got.is_cuda and torch.equal(got, t)
+    finally:
+        meshlib.shutdown()

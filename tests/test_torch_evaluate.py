@@ -21,6 +21,7 @@ from opticalflow_tpu_torch.io import images
 from opticalflow_tpu_torch.io.flo import read_flo, write_flo
 from opticalflow_tpu_torch.io.kitti import write_flow_png
 from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+from opticalflow_tpu_torch.parallel import mesh
 from opticalflow_tpu_torch.utils import metrics
 from oracles.torch_pwcnet import OraclePWC
 from test_evaluate import LazyDataset, StubDataset, StubEngine
@@ -208,11 +209,26 @@ def test_eval_sintel_cli_on_the_cpu(tmp_path, fake_ckpt):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, fake_ckpt):
+    """--data-parallel N > 1 outside a launch names the command that would
+    launch N ranks; 0 is refused with JAX's message; --dispatch-chunk and
+    an indivisible --batch are refused on a mesh before the checkpoint
+    load (here a one-rank group of --data-parallel all)."""
     _, ckpt = fake_ckpt
-    for main in (infer_kitti.main, eval_sintel.main):
-        with pytest.raises(SystemExit, match="Queue 1 item 6"):
-            main(["--root", str(tmp_path), "--ckpt", ckpt,
-                  "--data-parallel", "all", "--device", "cpu"])
+    for name, main in (("infer_kitti", infer_kitti.main),
+                       ("eval_sintel", eval_sintel.main)):
+        base = ["--root", str(tmp_path), "--ckpt", ckpt, "--device", "cpu"]
+        with pytest.raises(SystemExit, match=(
+                r"torch.distributed.run --nproc-per-node 2 -m "
+                rf"opticalflow_tpu_torch.cli.{name} .* --data-parallel 2")):
+            main(base + ["--data-parallel", "2"])
+        with pytest.raises(SystemExit, match=r"must be >= 1 \(or 'all'\)"):
+            main(base + ["--data-parallel", "0"])
+        try:
+            with pytest.raises(SystemExit, match="mutually exclusive"):
+                main(base + ["--data-parallel", "all", "--dispatch-chunk",
+                             "2", "--ckpt", str(tmp_path / "none")])
+        finally:
+            mesh.shutdown()
     base = tmp_path / "training" / "image_2"
     base.mkdir(parents=True)
     z = np.zeros((40, 70, 3), np.uint8)

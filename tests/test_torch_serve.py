@@ -220,9 +220,17 @@ def test_cli_refuses_bad_bucket_flags_before_loading(flag, tmp_path):
 
 
 def test_cli_refuses_data_parallel(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+    """--data-parallel 2 outside a launch names the launch command, 0 is
+    refused with JAX's message; both before the checkpoint load (the
+    checkpoint here does not exist)."""
+    with pytest.raises(SystemExit, match=(
+            r"torch.distributed.run --nproc-per-node 2 -m "
+            r"opticalflow_tpu_torch.cli.serve .* --data-parallel 2")):
         serve_cli.main(["--ckpt", str(tmp_path / "none.pth.tar"),
                         "--data-parallel", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match=r"must be >= 1 \(or 'all'\)"):
+        serve_cli.main(["--ckpt", str(tmp_path / "none.pth.tar"),
+                        "--data-parallel", "0", "--device", "cpu"])
 
 
 def test_server_warmup_runs_every_bucket():

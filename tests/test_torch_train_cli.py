@@ -145,8 +145,8 @@ def _run_preempted_at(argv, at_step):
     """Run the CLI with a SIGTERM raised right after step ``at_step``."""
     real_step = TT.make_train_step
 
-    def step_then_signal(model, opt, cfg):
-        step = real_step(model, opt, cfg)
+    def step_then_signal(model, opt, cfg, **kw):
+        step = real_step(model, opt, cfg, **kw)
 
         def wrapped(state, batch):
             state, m = step(state, batch)
@@ -262,9 +262,18 @@ def test_attach_epipolar_is_reproducible_per_step():
 
 
 def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
-    for extra in (["--distributed"], ["--dist-coordinator", "h:1"],
-                  ["--dist-num-processes", "2"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 6"):
+    """The distributed flags that cannot join a group are refused before
+    any connection (no coordinator, no launch variables; a coordinator
+    without the world size; --dist-* without --distributed; --val-frac
+    with --distributed, as in the JAX CLI)."""
+    for extra, match in (
+            (["--distributed"], "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
+                                "not set"),
+            (["--dist-coordinator", "h:1"], "needs num_processes"),
+            (["--dist-num-processes", "2"], "need --distributed"),
+            (["--distributed", "--val-frac", "0.25"],
+             "--val-frac with --distributed is not supported")):
+        with pytest.raises(SystemExit, match=match):
             cli.main(["--data-root", kitti12, "--out-dir",
                       str(tmp_path / "r"), *BASE, *extra])
     video = tmp_path / "clip.mp4"
