@@ -136,7 +136,23 @@ non-zero, and no result line is printed):
      against one process, to 1e-4, and the tiled seams' deviation; then
      what gloo's send/recv and an NCCL group of two ranks
      on one card do (recorded);
- 15. one JSON line listing every kernel with its launches on its path,
+ 15. JPEG on the card machine, which has no PIL, imageio or OpenCV (the
+     port's own decoder, ``runtime/jpeg.cpp``, built by g++ at first use):
+     (a) every fixture of ``tests/goldens/jpeg/`` decodes to its manifest
+     digest through ``load_image`` (PIL's pixels) and ``decode_image``
+     (OpenCV's, EXIF orientation applied), none of the three imported;
+     (b) ``cli/script_pwc`` on the 436x1024 JPEG pair in resize and pad
+     mode, 5 K1 launches each, its ``.flo`` equal bit for bit to
+     ``FlowEngine.flow_from_pair`` on the decoded arrays; (c) ``cli/serve``
+     at its defaults answers a JSON request of the base64 JPEG pair with
+     the raw route's bytes for the same pixels, and requests/s from 16
+     clients on each route; (d) ``cli/train --regime pseudo`` for 2 steps
+     over a directory of the JPEG frames at 384x512: finite losses, 5 K1
+     and 5 B1 launches a step; (e) ``cli/extract_video --mode arrows`` over
+     a directory of 1080x1920 JPEG frames (K2's levels); (f) the host ms
+     to decode one 436x1024 and one 1080x1920 frame on 1 and 4 threads,
+     beside ``decode_png`` of the same pixels;
+ 16. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -145,8 +161,9 @@ after: the CLI and engine for K1, the probe entry points for K3 and K4, the
 training steps for B1 (and K1 there), the eval CLIs (K1), the training
 CLI's runs (K1 and B1), the video CLIs' runs (K1), the serving CLI (K1,
 counted in its own process from 0) and the parity-mode server's burst, the
-loaded artifacts and the parity CLI (K1), and each rank's paths of phase 14
-(K1 and B1, counted in each rank's process from 0).
+loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
+(K1 and B1, counted in each rank's process from 0), and phase 15's JPEG
+paths (K1, and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3048,6 +3065,299 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
             "eval_cli": [c["launches"] for c in children]}}
 
 
+# ------------------------------------------------------------ phase 15
+
+# JPEG on the card machine, which has no encoder: the committed fixtures
+# (tests/goldens/jpeg/, written by tests/make_jpeg_fixtures.py with PIL and
+# OpenCV, each file's pixel digests in its manifest.json)
+JPEG_DIR = os.path.join(GOLD, "jpeg")
+# the serving rate: this many requests a route (raw, then JSON-JPEG) from
+# SERVE_CLIENTS clients
+JPEG_REQUESTS = 64
+# the pseudo regime's frames: 9 make 8 pairs, 2 steps at batch 4
+JPEG_TRAIN_FRAMES = 9
+# the video CLI's frames: 9 make 8 pairs, 2 windows at VIDEO_B
+JPEG_VIDEO_FRAMES = 9
+# host decode timing: frames a thread
+JPEG_TIMED = 16
+
+
+def pixel_digest(img) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def decode_ms(fn, blob, threads: int) -> float:
+    """Host ms a frame of ``fn(blob)`` on ``threads`` threads at once, each
+    decoding JPEG_TIMED frames after one untimed call (wall time over all
+    the frames)."""
+    import threading
+    barrier = threading.Barrier(threads + 1)
+
+    def work():
+        fn(blob)                    # warm: first-call costs stay outside
+        barrier.wait()
+        for _ in range(JPEG_TIMED):
+            fn(blob)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in pool:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in pool), "a decode thread hung"
+    return (time.perf_counter() - t0) / (threads * JPEG_TIMED) * 1e3
+
+
+def phase_jpeg(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """JPEG through the port's entry points on the card machine: (a) the
+    fixtures decode to their digests, (b) the single-pair CLI, (c) the
+    serving CLI's JSON route, (d) the pseudo training regime over a JPEG
+    frame directory, (e) the video CLI over one, (f) the host decode cost.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import base64
+    import http.client
+    import shutil
+    import signal
+    import threading
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import script_pwc
+    from opticalflow_tpu_torch.engine import FlowEngine
+    from opticalflow_tpu_torch.io.flo import read_flo
+    from opticalflow_tpu_torch.io.images import (decode_png, encode_png,
+                                                 load_image)
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.runtime.jpeg import decode_jpeg
+    from opticalflow_tpu_torch.serve import decode_image
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) every fixture, through load_image (PIL's pixels) and the server's
+    # decode_image (OpenCV's: EXIF orientation applied)
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    for name, want in sorted(manifest["files"].items()):
+        path = os.path.join(JPEG_DIR, name)
+        img = load_image(path)
+        assert list(img.shape) == want["shape"], (name, img.shape)
+        assert pixel_digest(img) == want["sha256_pil"], name
+        with open(path, "rb") as f:
+            served = decode_image(f.read(), name)
+        assert list(served.shape) == want["cv2_shape"], (name, served.shape)
+        assert pixel_digest(served) == want["sha256_cv2"], name
+    present = [m for m in ("PIL", "imageio", "cv2") if m in sys.modules]
+    assert not present, f"a third-party decoder was imported: {present}"
+    import importlib.util
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("PIL", "imageio", "cv2")}
+    log(f"[15] (a) {len(manifest['files'])} JPEG fixtures (written by PIL "
+        f"{manifest['pil']}, libjpeg-turbo {manifest['pil_libjpeg_turbo']}, "
+        f"OpenCV {manifest['cv2']}) decoded to their digests through "
+        f"load_image and decode_image (EXIF 6 and 8 rotated) in "
+        f"{time.perf_counter() - t0:.2f} s, the decoder's g++ build "
+        f"included; PIL, imageio, cv2 not imported (installed here: "
+        f"{installed})")
+
+    # (b) the single-pair CLI on the 436x1024 JPEG pair, resize and pad,
+    # against the engine on the decoded arrays in this process, with
+    # cuDNN's deterministic algorithms on for both (with its default
+    # choice the CLI's model and this engine, the same weights twice,
+    # differed by 1.25e-08 mean EPE)
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    jp1, jp2 = (os.path.join(JPEG_DIR, f"sintel_im{i}.jpg") for i in (1, 2))
+    im1, im2 = load_image(jp1), load_image(jp2)
+    assert im1.shape == im2.shape == (FULL_H, FULL_W, 3)
+    engine = FlowEngine(PWCDCNet(), sd, flow_scale=20.0, device="cuda")
+    launches["cli"] = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for mode in ("resize", "pad"):
+        out = os.path.join(tmp, f"jpeg_{mode}.flo")
+        k0 = corr_fwd.launches
+        rc = script_pwc.main([jp1, jp2, out, "--ckpt", ckpt, "--size-mode",
+                              mode, "--device", "cuda"])
+        assert rc == 0, rc
+        launched = corr_fwd.launches - k0
+        assert launched == 5, (mode, launched)
+        launches["cli"] += launched
+        flow = read_flo(out)
+        want = engine.flow_from_pair(im1, im2, preset="bgr_unit",
+                                     size_mode=mode)
+        assert flow.shape == (FULL_H, FULL_W, 2) and np.isfinite(flow).all()
+        assert np.array_equal(flow, want), \
+            f"CLI {mode}: EPE {epe(flow, want)!r} against the engine"
+        log(f"[15] (b) cli/script_pwc on sintel_im1/2.jpg ({FULL_H}x{FULL_W}"
+            f" 4:2:0 q90), --size-mode {mode}: {launched} K1 launches, the "
+            f".flo equal bit for bit to FlowEngine.flow_from_pair on the "
+            f"decoded arrays (mean |flow| {np.abs(flow).mean()!r})")
+    torch.backends.cudnn.deterministic = deterministic
+
+    # (c) the serving CLI (its defaults) on JSON requests of the JPEG pair
+    with open(jp1, "rb") as f1, open(jp2, "rb") as f2:
+        blobs = (f1.read(), f2.read())
+    json_body = json.dumps({k: base64.b64encode(b).decode() for k, b in
+                            zip(("im1", "im2"), blobs)}).encode()
+    jhead = {"Content-Type": "application/json"}
+    pixels = [decode_image(b) for b in blobs]
+    raw_body = pixels[0].tobytes() + pixels[1].tobytes()
+    raw = {"Content-Type": "application/octet-stream",
+           "X-Frame-Shape": f"{FULL_H}x{FULL_W}x3", "X-Timeout": "120"}
+    proc, port, lines, reader = start_serving_cli(
+        ["--ckpt", ckpt, "--port", "0", "--warmup", f"{FULL_H}x{FULL_W}",
+         "--device", "cuda"])
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        one_json = post(conn, json_body, jhead)
+        one_raw = post(conn, raw_body, raw)
+        conn.close()
+        rates = {}
+        for route, body, head in (("raw", raw_body, raw),
+                                  ("json_jpeg", json_body, jhead)):
+            res, wall = burst(port, [(i, body) for i in range(JPEG_REQUESTS)],
+                              head, SERVE_CLIENTS)
+            assert all(r[1] == 200 for r in res), route
+            rates[route] = {"requests_per_s": JPEG_REQUESTS / wall,
+                            "latency_ms": percentiles([r[3] for r in res])}
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=60)
+    child = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+             if ln.startswith("SERVE_CHILD ")]
+    assert rc == 0 and child, (rc, "".join(lines[-40:]))
+    child = child[0]
+    assert one_json[0] == one_raw[0] == 200, (one_json[:2], one_raw[:2])
+    assert one_json[1] == one_raw[1], "JSON-JPEG and raw flows differ"
+    f = flo_array(one_json[1], FULL_H, FULL_W)
+    assert np.isfinite(f).all()
+    final = child["metrics"]
+    assert final["errors"] == 0 and final["requests"] == \
+        2 + 2 * JPEG_REQUESTS, final
+    warm = len(child["buckets"]) * 2
+    assert child["launches"] == 5 * (final["batches"] + warm), child
+    launches["serve"] = child["launches"]
+    log(f"[15] (c) cli/serve: a JSON request of the base64 JPEG pair "
+        f"answered 200 with the raw route's bytes for the decoded pixels; "
+        f"{JPEG_REQUESTS} requests from {SERVE_CLIENTS} clients: raw "
+        f"{rates['raw']['requests_per_s']!r} requests/s (p50 "
+        f"{rates['raw']['latency_ms']['p50']:.1f} ms), JSON-JPEG "
+        f"{rates['json_jpeg']['requests_per_s']!r} (p50 "
+        f"{rates['json_jpeg']['latency_ms']['p50']:.1f} ms); K1 "
+        f"{child['launches']} launches in the CLI = 5 x ({final['batches']} "
+        f"batches + {warm} warm-up forwards); {card}")
+
+    # (d) the pseudo regime over a directory of JPEG frames (the pair,
+    # alternating), resized to 384x512 by the loader
+    froot = os.path.join(tmp, "jpeg_frames")
+    os.makedirs(froot)
+    for i in range(JPEG_TRAIN_FRAMES):
+        shutil.copy(jp1 if i % 2 == 0 else jp2,
+                    os.path.join(froot, f"{i:06d}.jpg"))
+    out_dir = os.path.join(tmp, "jpeg_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", froot, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (JPEG_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[15] (d) cli/train --regime pseudo over {JPEG_TRAIN_FRAMES} JPEG "
+        f"frames (436x1024 -> 384x512), {steps} steps at batch {TRAIN_B}: "
+        f"losses {[r['loss'] for r in recs]}; K1/B1 launches "
+        f"{launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s wall")
+
+    # (e) the video CLI over a directory of 1080x1920 JPEG frames (one
+    # frame repeated): the levels of 1088x1920, K2's domain
+    vroot = os.path.join(tmp, "jpeg_video")
+    os.makedirs(vroot)
+    for i in range(JPEG_VIDEO_FRAMES):
+        shutil.copy(os.path.join(JPEG_DIR, "frame_1080p.jpg"),
+                    os.path.join(vroot, f"{i:06d}.jpg"))
+    k0 = corr_fwd.launches
+    row = video_cli([vroot, os.path.join(tmp, "jpeg_video.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--device", "cuda"], JPEG_VIDEO_FRAMES, HD_H, HD_W)
+    launches["video"] = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(JPEG_VIDEO_FRAMES - 1) // VIDEO_B), windows
+    assert launches["video"] == 5 * windows, (launches, windows)
+    del row["runner"], row["bytes_uploaded"]
+    log(f"[15] (e) cli/extract_video --mode arrows over {JPEG_VIDEO_FRAMES} "
+        f"JPEG frames of {HD_H}x{HD_W}: {windows} windows, "
+        f"{launches['video']} K1 launches; decode {row['decode_ms']:.2f} ms "
+        f"a frame on the decode thread ({row['decode_share']:.1%} of the "
+        f"run), {row['fps']:.2f} fps over the run")
+    assert "cv2" not in sys.modules, "the port imported OpenCV"
+
+    # (f) the host's cost to decode a frame: decode_jpeg on 1 and 4 threads
+    # (the C call releases the GIL; each call also takes a fresh output
+    # array from the allocator), the C call alone into a buffer each thread
+    # keeps, and the port's PNG decoder on the same pixels
+    import ctypes
+    from opticalflow_tpu_torch.runtime import jpeg as jpeg_lib
+    lib = jpeg_lib.load()
+    host = {}
+    for what, name in (("436x1024", "sintel_im1.jpg"),
+                       ("1080x1920", "frame_1080p.jpg")):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            blob = f.read()
+        pixels = decode_jpeg(blob, orient=False)
+        png = encode_png(pixels)
+        kept = {}
+
+        def c_call(b, shape=pixels.shape):
+            ident = threading.get_ident()
+            if ident not in kept:
+                kept[ident] = (np.empty(shape, np.uint8),
+                               ctypes.create_string_buffer(512))
+            out, msg = kept[ident]
+            rc = lib.ojpeg_decode(b, len(b), out.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint8)), shape[0], shape[1], msg, 512)
+            assert rc == 0, msg.value
+
+        row_h = {"jpeg_bytes": len(blob), "png_bytes": len(png)}
+        for threads in (1, 4):
+            row_h[f"jpeg_ms_{threads}_thread"] = decode_ms(
+                lambda b: decode_jpeg(b, orient=False), blob, threads)
+            row_h[f"c_call_ms_{threads}_thread"] = decode_ms(c_call, blob,
+                                                             threads)
+        row_h["png_ms_1_thread"] = decode_ms(decode_png, png, 1)
+        host[what] = row_h
+        log(f"[15] (f) host decode of one {what} frame ({len(blob)} bytes of "
+            f"JPEG): decode_jpeg {row_h['jpeg_ms_1_thread']:.2f} ms on 1 "
+            f"thread, {row_h['jpeg_ms_4_thread']:.2f} ms a frame on 4 "
+            f"threads at once; the C call alone "
+            f"{row_h['c_call_ms_1_thread']:.2f} / "
+            f"{row_h['c_call_ms_4_thread']:.2f} ms; decode_png of the same "
+            f"pixels ({len(png)} bytes) {row_h['png_ms_1_thread']:.2f} ms; "
+            f"{card}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[15] phase 15 took {phase_s:.1f} s; {card}")
+    return {"fixtures": len(manifest["files"]), "installed": installed,
+            "serve": rates,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "video": row, "host_decode": host, "launches": launches,
+            "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3165,6 +3475,17 @@ def main() -> int:
     assert all(r["parity"]["correlation_bwd"] > 0
                and r["fast"]["correlation_fwd"] > 0
                for r in dp["launches"]["ranks"])
+    zero_counts()                           # the JPEG paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        jpg = phase_jpeg(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                         card_line())
+    # ... and end here: the CLI's, the serving child's (counted in its
+    # process), the pseudo steps' and the video CLI's launches
+    jpeg_launches = (jpg["launches"]["cli"] + jpg["launches"]["serve"]
+                     + jpg["launches"]["pseudo"]["correlation_fwd"]
+                     + jpg["launches"]["video"])
+    assert jpeg_launches > 0 and \
+        jpg["launches"]["pseudo"]["correlation_bwd"] > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -3198,7 +3519,10 @@ def main() -> int:
          # phase 14, per rank: 2 gloo ranks on the card (the parity step,
          # fast steps, a lockstep server, halo and tiled spatial paths: 5 a
          # forward), a one-rank NCCL group's steps, the 2-rank eval CLI
-         "launches_data_parallel": dp["launches"], "data_parallel": dp},
+         "launches_data_parallel": dp["launches"], "data_parallel": dp,
+         # phase 15: the JPEG paths (CLI, serving CLI, pseudo steps, video
+         # CLI over a JPEG directory at 1080x1920: 5 a forward)
+         "launches_jpeg": jpeg_launches, "jpeg": jpg},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -3221,7 +3545,10 @@ def main() -> int:
              "ranks": [{k: v["correlation_bwd"] for k, v in r.items()}
                        for r in dp["launches"]["ranks"]],
              "one_rank_nccl":
-                 dp["launches"]["one_rank_nccl"]["correlation_bwd"]}},
+                 dp["launches"]["one_rank_nccl"]["correlation_bwd"]},
+         # phase 15: the pseudo regime's steps over JPEG frames, 5 a step
+         "launches_jpeg_pseudo":
+             jpg["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

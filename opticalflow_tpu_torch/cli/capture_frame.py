@@ -2,7 +2,7 @@
 ``capture_frame.py`` capability), without OpenCV.
 
 Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is a
-``.y4m`` file or a directory of PNG frames (``io/video.py``)::
+``.y4m`` file or a directory of PNG or JPEG frames (``io/video.py``)::
 
     python -m opticalflow_tpu_torch.cli.capture_frame clip.y4m 10 frame.png
 """
@@ -15,7 +15,7 @@ import sys
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
-    p.add_argument("video", help=".y4m file or PNG frame directory")
+    p.add_argument("video", help=".y4m file or PNG/JPEG frame directory")
     p.add_argument("frame", type=int)
     p.add_argument("out", nargs="?", default=None)
     args = p.parse_args(argv)

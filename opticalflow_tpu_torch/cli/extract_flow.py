@@ -23,8 +23,10 @@ def build_parser():
     p = argparse.ArgumentParser(
         description="Extract flow for one frame pair with visualizations "
                     "(PyTorch/CUDA)")
-    p.add_argument("im1")
-    p.add_argument("im2")
+    p.add_argument("im1", help="first frame: PNG or JPEG (read by the port's "
+                               "own decoders), or another format imageio or "
+                               "PIL reads")
+    p.add_argument("im2", help="second frame, as im1")
     p.add_argument("--out-dir", default="flow_out")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--variant", choices=("new", "old"), default="new")

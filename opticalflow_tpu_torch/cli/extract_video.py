@@ -3,9 +3,10 @@
 in, overlay video out.
 
 Counterpart of ``opticalflow_tpu.cli.extract_video`` with the same flags
-plus ``--device`` (default ``cuda``).  Video is read and written as
-``.y4m`` (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG frames
-(``io/video.py``): the GPU machine has no H.264 decoder or encoder.
+plus ``--device`` (default ``cuda``).  Video is read as ``.y4m``
+(YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG or JPEG frames, and
+written as ``.y4m`` or PNG frames (``io/video.py``): the GPU machine has
+no H.264 decoder or encoder.
 Overlay modes:
 
   * ``arrows``  — arrow quiver (default)
@@ -37,7 +38,8 @@ VANISH_TITLE = "PWC-Net VP (TPU)"
 def build_parser():
     p = argparse.ArgumentParser(
         description="Video optical-flow extraction (PyTorch/CUDA)")
-    p.add_argument("video", help="input .y4m file or PNG frame directory")
+    p.add_argument("video",
+                   help="input .y4m file or PNG/JPEG frame directory")
     p.add_argument("out", help="output .y4m file or PNG frame directory")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--variant", choices=("new", "old"), default="new")

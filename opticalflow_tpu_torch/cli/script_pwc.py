@@ -23,8 +23,11 @@ from opticalflow_tpu_torch.io.images import load_image
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="PWC-Net optical flow: frame pair -> .flo (PyTorch/CUDA)")
-    p.add_argument("im1", nargs="?", default="data/frame_0010.png")
-    p.add_argument("im2", nargs="?", default="data/frame_0011.png")
+    p.add_argument("im1", nargs="?", default="data/frame_0010.png",
+                   help="first frame: PNG or JPEG (read by the port's own "
+                        "decoders), or another format imageio or PIL reads")
+    p.add_argument("im2", nargs="?", default="data/frame_0011.png",
+                   help="second frame, as im1")
     p.add_argument("out", nargs="?", default="./tmp/frame_0010.flo")
     p.add_argument("--ckpt", default="./pwc_net.pth.tar",
                    help="reference torch .pth(.tar) checkpoint to load")

@@ -6,7 +6,7 @@ Counterpart of ``opticalflow_tpu.cli.serve`` with the same flags plus
 
     python -m opticalflow_tpu_torch.cli.serve --ckpt pwc_net.pth.tar --port 8080
 
-Then ``POST /v1/flow`` ``{"im1": <base64 PNG>, "im2": <base64 PNG>}`` (or
+Then ``POST /v1/flow`` ``{"im1": <base64 PNG or JPEG>, "im2": <...>}`` (or
 the two raw uint8 RGB frames as ``application/octet-stream`` with
 ``X-Frame-Shape: HxWx3``) → Middlebury ``.flo`` bytes; ``GET /healthz``
 and ``GET /metrics`` for probes.  ``--port 0`` takes a free port; the

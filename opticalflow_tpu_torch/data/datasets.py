@@ -209,11 +209,12 @@ class SintelPairs:
 
 class ConsecutiveFrames:
     """frame_t / frame_{t+stride} pairs for self-supervised training, from a
-    directory of ``*.png`` / ``*.jpg`` frames or a ``.y4m`` video
-    (``io/video.Y4MFile``, frames read by index) (``train_pseudo.py:23-62``),
-    each resized to ``size_hw`` and preprocessed with ``preset``.  PNG and
-    y4m frames need nothing beyond numpy; JPEG frames need imageio or PIL,
-    and ``load_image`` says so when neither is installed.  Another video
+    directory of ``*.png`` / ``*.jpg`` / ``*.jpeg`` frames or a ``.y4m``
+    video (``io/video.Y4MFile``, frames read by index)
+    (``train_pseudo.py:23-62``), each resized to ``size_hw`` and
+    preprocessed with ``preset``.  PNG, JPEG (the port's own decoders,
+    ``io/images.load_image``; no EXIF rotation, as imageio and PIL read
+    them) and y4m frames need nothing beyond numpy and g++.  Another video
     container (mp4/H.264) raises: the port has no decoder for it (ROADMAP
     Queue 1 item 8)."""
 
@@ -224,16 +225,17 @@ class ConsecutiveFrames:
         self.video = None
         if os.path.isdir(source):
             self.frames = sorted(glob(os.path.join(source, "*.png"))
-                                 + glob(os.path.join(source, "*.jpg")))
+                                 + glob(os.path.join(source, "*.jpg"))
+                                 + glob(os.path.join(source, "*.jpeg")))
         elif source.lower().endswith(".y4m"):
             self.video = Y4MFile(source)
             self.frames = list(range(len(self.video)))
         elif os.path.exists(source):
             raise NotImplementedError(
                 f"{source!r}: the port reads frames from a directory of PNG "
-                "frames or a .y4m file; other video containers (mp4/H.264) "
-                "are ROADMAP Queue 1 item 8 (convert with `ffmpeg -i in.mp4 "
-                "-pix_fmt yuv420p out.y4m`)")
+                "or JPEG frames or a .y4m file; other video containers "
+                "(mp4/H.264) are ROADMAP Queue 1 item 8 (convert with "
+                "`ffmpeg -i in.mp4 -pix_fmt yuv420p out.y4m`)")
         else:
             raise FileNotFoundError(source)
         self.stride = stride

@@ -11,11 +11,12 @@ reference:
   * :func:`pad_to_multiple_of_64` / :func:`unpad` — replicate pad bottom/right
     (``inference_kitti.py:53-71``).
 
-:func:`decode_png` decodes 8- and 16-bit non-interlaced grey/RGB/RGBA PNG
-itself (stdlib ``zlib`` + numpy), so the single-pair path and the KITTI
-flow files (16-bit RGB, ``io/kitti.py``) need neither imageio, PIL nor
-OpenCV; :func:`load_image` hands other formats to imageio or PIL, imported
-lazily.
+:func:`decode_png` decodes every PNG flavour itself (stdlib ``zlib`` +
+numpy), and :func:`load_image` JPEG through the port's own decoder
+(``runtime/jpeg``), so the single-pair path, frame directories and the
+KITTI flow files (16-bit RGB, ``io/kitti.py``) need neither imageio, PIL
+nor OpenCV; :func:`load_image` hands other formats to imageio or PIL,
+imported lazily.
 """
 
 from __future__ import annotations
@@ -27,7 +28,11 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["load_image", "decode_png", "encode_png", "preprocess_pair",
+from opticalflow_tpu_torch.runtime.jpeg import (declined_reason, decode_jpeg,
+                                                is_jpeg)
+
+__all__ = ["load_image", "decode_png", "decode_bytes", "encode_png", "rgb8",
+           "unread_format", "preprocess_pair",
            "resize_bilinear_u8", "resize_bilinear_f32", "resize_nearest", "fma32",
            "resize_to_multiple_of_64",
            "pad_to_multiple_of_64", "unpad", "PREPROC_PRESETS",
@@ -39,8 +44,13 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 PREPROC_PRESETS = ("bgr_unit", "rgb_imagenet", "rgb_unit")
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> samples per pixel, for the types decode_png handles
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+# PNG colour type -> samples per pixel, and the bit depths it allows
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+               6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -84,15 +94,32 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) → (h, w, ch) samples, uint8 (1-8 bits,
+    unscaled) or uint16."""
+    h = rows.shape[0]
+    if depth == 16:                 # big-endian samples
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    # 1, 2 or 4 bits (one channel), packed from the high bit of each byte
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
+
+
 def decode_png(data: bytes):
-    """Decode an 8- or 16-bit, non-interlaced grey/RGB/RGBA PNG → uint8 or
-    uint16 array of shape (H, W) or (H, W, C).  Returns None for any other
-    PNG flavour (or non-PNG bytes), so the caller can hand the file to a
-    full decoder."""
+    """Decode a PNG → uint8 or uint16 array of shape (H, W) or (H, W, C),
+    every flavour of the PNG spec: grey (1-16 bits, fewer than 8 scaled to
+    0-255 as PIL and libpng scale them), RGB, palette (expanded to (H, W, 3)
+    RGB through PLTE; tRNS is ignored, as ``convert("RGB")`` ignores it),
+    grey+alpha (H, W, 2) and RGBA, 8 or 16 bits, plain or Adam7-interlaced.
+    Returns None for bytes that are not a PNG; a corrupt PNG raises
+    ``ValueError`` (or ``zlib.error``, ``struct.error``)."""
     if not data.startswith(_PNG_SIG):
         return None
     pos = len(_PNG_SIG)
-    header = None
+    header = palette = None
     idat = []
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
@@ -102,6 +129,8 @@ def decode_png(data: bytes):
         pos += 12 + length          # length, type, body, CRC
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -109,15 +138,61 @@ def decode_png(data: bytes):
     if header is None:
         raise ValueError("PNG without IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth not in (8, 16) or interlace != 0 or color not in _PNG_CHANNELS:
-        return None
+    if depth not in _PNG_DEPTHS.get(color, ()) or interlace > 1:
+        raise ValueError(f"bad PNG header: colour type {color}, bit depth "
+                         f"{depth}, interlace {interlace}")
     ch = _PNG_CHANNELS[color]
-    nb = depth // 8                 # bytes per sample
-    # the filters work on bytes, a pixel's worth apart: 2·C for 16 bits
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch * nb, ch * nb)
-    if nb == 2:                     # big-endian samples
-        px = px.view(">u2").astype(np.uint16)
-    return px.reshape(h, w) if ch == 1 else px.reshape(h, w, ch)
+    bits = ch * depth               # per pixel
+    bpp = max(1, bits // 8)         # the filters' byte distance
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        px = _samples(_unfilter(raw, h, (w * bits + 7) // 8, bpp), w, ch,
+                      depth)
+    else:
+        px = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:  # an empty pass has no rows at all
+                continue
+            stride = (pw * bits + 7) // 8
+            n = ph * (stride + 1)
+            px[y0::dy, x0::dx] = _samples(
+                _unfilter(raw[off:off + n], ph, stride, bpp), pw, ch, depth)
+            off += n
+    if color == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE chunk")
+        # an index past the palette's end reads black, as PIL reads it
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette) // 3] = palette.reshape(-1, 3)[:256]
+        return lut[px[..., 0]]
+    if depth < 8:                   # 1, 2, 4 bits: 255, 85, 17 a step
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px[..., 0] if ch == 1 else px
+
+
+def decode_bytes(data: bytes, *, orient: bool):
+    """PNG or JPEG bytes → :func:`decode_png`'s array or
+    ``runtime.jpeg.decode_jpeg``'s (H, W, 3) RGB (``orient``: apply the
+    EXIF orientation, as ``cv2.imdecode`` does); None for other bytes and
+    for the JPEG flavours that decoder declines.  Corrupt data raises."""
+    img = decode_png(data)
+    return img if img is not None else decode_jpeg(data, orient=orient)
+
+
+def rgb8(img: np.ndarray) -> np.ndarray:
+    """A decoded image → (H, W, 3) uint8 RGB by ``convert("RGB")``'s rules
+    (and ``cv2.imdecode(..., IMREAD_COLOR)``'s, in RGB order): alpha
+    dropped, grey (with or without alpha) replicated, a 16-bit sample cut
+    to its high byte."""
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 3 and img.shape[2] == 2:
+        img = img[..., 0]
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -149,14 +224,38 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+# the leading bytes of formats the port does not decode, for its errors
+_MAGIC = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+          (b"MM\x00*", "TIFF"), (b"RIFF", "RIFF (WebP?)"))
+
+
+def unread_format(data: bytes) -> str:
+    """Names the format of bytes that neither :func:`decode_png` nor
+    ``runtime.jpeg.decode_jpeg`` decodes, for an error message: the JPEG
+    flavour the JPEG decoder declines (e.g. "arithmetic-coded JPEG
+    (SOF9)"), or the file type its first bytes announce."""
+    if is_jpeg(data):
+        return declined_reason(data) or "a JPEG"
+    for magic, name in _MAGIC:
+        if data.startswith(magic):
+            return name
+    return "an unknown format"
+
+
 def load_image(path: str) -> np.ndarray:
     """Read an image file → (H, W, 3) uint8 RGB (alpha dropped, grey
     replicated, like ``script_pwc.py:43-44``; a 16-bit PNG keeps the high
-    byte of each sample)."""
+    byte of each sample).
+
+    The port decodes PNG (:func:`decode_png`) and baseline, extended-
+    sequential and progressive Huffman JPEG (``runtime/jpeg``, the pixels
+    of PIL's ``convert("RGB")``; the EXIF orientation is not applied, as
+    imageio and PIL do not apply it) itself.  Anything else goes to imageio
+    or PIL, imported lazily; without either, ``ImportError`` names the
+    format."""
     with open(path, "rb") as f:
-        img = decode_png(f.read())
-    if img is not None and img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
+        data = f.read()
+    img = decode_bytes(data, orient=False)
     if img is None:
         try:
             import imageio.v2 as imageio
@@ -166,13 +265,12 @@ def load_image(path: str) -> np.ndarray:
                 from PIL import Image
             except ImportError:
                 raise ImportError(
-                    f"{path!r} is not a PNG that decode_png reads, and "
-                    "neither imageio nor PIL is installed to decode it") \
-                    from None
+                    f"{path!r} is {unread_format(data)}, which the port's "
+                    "own decoders (PNG, and baseline or progressive Huffman "
+                    "JPEG) do not read, and neither imageio nor PIL is "
+                    "installed to decode it") from None
             img = np.asarray(Image.open(path).convert("RGB"))
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    return img[..., :3]
+    return rgb8(img)
 
 
 def preprocess_pair(im1: np.ndarray, im2: np.ndarray,

@@ -1,4 +1,4 @@
-"""Video frames in and out without OpenCV: ``.y4m`` and PNG directories.
+"""Video frames in and out without OpenCV: ``.y4m`` and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter``; the GPU machine has neither OpenCV nor an H.264
@@ -10,8 +10,11 @@ instead, which ``ffmpeg`` converts to and from anything
     ``C420mpeg2``, ``C420paldv``, ``C420`` or none; frames are converted
     with ``io/yuv`` (OpenCV's BT.601 integer arithmetic, nearest chroma);
     an odd side's last chroma row or column covers one pixel;
-  * **a directory of PNG frames**, read in sorted name order
-    (``io/images.decode_png``), written as ``000000.png``, ...
+  * **a directory of PNG or JPEG frames** (``*.png``, ``*.jpg`` or
+    ``*.jpeg``, one kind a directory), read in sorted name order with the
+    port's own decoders (``io/images.decode_png``, ``runtime/jpeg``; no
+    EXIF rotation), the counterpart of ``cv2.VideoCapture`` over an image
+    sequence; written as PNG, ``000000.png``, ...
 
 Frames are BGR uint8 (H, W, 3), as OpenCV hands them over.
 :class:`AsyncVideoWriter` keeps the JAX class's encode thread, bounded
@@ -29,13 +32,15 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from opticalflow_tpu_torch.io.images import decode_png, encode_png
+from opticalflow_tpu_torch.io.images import (decode_bytes, encode_png, rgb8,
+                                             unread_format)
 from opticalflow_tpu_torch.io.yuv import i420_to_rgb, pad_to_even, rgb_to_i420
 
 __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter", "Y4MFile",
            "Y4MWriter", "PngDirWriter", "FORMATS"]
 
-FORMATS = "a .y4m file (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG frames"
+FORMATS = ("a .y4m file (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG or "
+           "JPEG frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
 DEFAULT_FPS = 30.0
@@ -46,7 +51,8 @@ def _unsupported(path: str) -> ValueError:
         f"cannot read or write {path!r}: the port handles {FORMATS}. It has "
         "no H.264/MPEG decoder or encoder (the GPU machine has neither "
         "OpenCV nor ffmpeg); convert elsewhere, e.g. `ffmpeg -i in.mp4 "
-        "-pix_fmt yuv420p out.y4m`, or `ffmpeg -i in.mp4 dir/%06d.png`")
+        "-pix_fmt yuv420p out.y4m`, or `ffmpeg -i in.mp4 dir/%06d.png` or "
+        "`dir/%06d.jpg`")
 
 
 def _kind(path: str, writing: bool = False) -> str:
@@ -153,22 +159,34 @@ class Y4MFile:
                 yield self._convert(f.read(self._nbytes))
 
 
-# --------------------------------------------------------------- PNG dir
+# --------------------------------------------------------------- frame dir
 
-def _png_frames(path: str):
-    return sorted(glob(os.path.join(path, "*.png")))
+_FRAME_EXTS = (".png", ".jpg", ".jpeg")
 
 
-def _read_png_bgr(path: str) -> np.ndarray:
+def _dir_frames(path: str):
+    """The frame files of a directory in name order: its ``*.png``,
+    ``*.jpg`` or ``*.jpeg`` files, of one kind."""
+    found = {ext: sorted(glob(os.path.join(path, "*" + ext)))
+             for ext in _FRAME_EXTS}
+    kinds = [ext for ext, files in found.items() if files]
+    if not kinds:
+        raise FileNotFoundError(f"no *.png or *.jpg frames in {path}")
+    if len(kinds) > 1:
+        raise ValueError(f"{path} holds frames of more than one kind ("
+                         + ", ".join("*" + k for k in kinds)
+                         + "): a frame directory holds one")
+    return found[kinds[0]]
+
+
+def _read_frame_bgr(path: str) -> np.ndarray:
     with open(path, "rb") as f:
-        img = decode_png(f.read())
+        data = f.read()
+    img = decode_bytes(data, orient=False)
     if img is None:
-        raise ValueError(f"{path}: not an 8/16-bit non-interlaced PNG")
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    return np.ascontiguousarray(img[..., 2::-1])
+        raise ValueError(f"{path}: {unread_format(data)}, which the frame "
+                         "reader does not decode")
+    return np.ascontiguousarray(rgb8(img)[..., ::-1])
 
 
 # --------------------------------------------------------------- public
@@ -180,10 +198,7 @@ def read_frames(path: str, max_frames: Optional[int] = None,
     if _kind(path) == "y4m":
         frames = iter(Y4MFile(path))
     else:
-        files = _png_frames(path)
-        if not files:
-            raise FileNotFoundError(f"no *.png frames in {path}")
-        frames = (_read_png_bgr(p) for p in files)
+        frames = (_read_frame_bgr(p) for p in _dir_frames(path))
     for n, frame in enumerate(frames):
         if max_frames is not None and n >= max_frames:
             return
@@ -192,23 +207,21 @@ def read_frames(path: str, max_frames: Optional[int] = None,
 
 
 def read_frame(path: str, index: int) -> np.ndarray:
-    """BGR uint8 frame ``index`` of a ``.y4m`` file or PNG directory."""
+    """BGR uint8 frame ``index`` of a ``.y4m`` file or frame directory."""
     if _kind(path) == "y4m":
         return Y4MFile(path).frame(index)
-    return _read_png_bgr(_png_frames(path)[index])
+    return _read_frame_bgr(_dir_frames(path)[index])
 
 
 def video_info(path: str) -> Dict[str, float]:
-    """{"fps", "width", "height", "frames"} of a ``.y4m`` file or a PNG
+    """{"fps", "width", "height", "frames"} of a ``.y4m`` file or a frame
     directory (which has no rate: 30 fps)."""
     if _kind(path) == "y4m":
         y4m = Y4MFile(path)
         return {"fps": y4m.fps, "width": y4m.width, "height": y4m.height,
                 "frames": len(y4m)}
-    files = _png_frames(path)
-    if not files:
-        raise FileNotFoundError(f"no *.png frames in {path}")
-    h, w = _read_png_bgr(files[0]).shape[:2]
+    files = _dir_frames(path)
+    h, w = _read_frame_bgr(files[0]).shape[:2]
     return {"fps": DEFAULT_FPS, "width": w, "height": h,
             "frames": len(files)}
 

@@ -1,26 +1,23 @@
 """ctypes binding of the port's host C++ drawing and colouring code.
 
 ``flowviz.cpp`` is compiled with ``g++ -O3`` at first use into
-``opticalflow_tpu_torch/_build/`` (git-ignored), beside the CUDA kernels,
-under a name that carries a digest of the source and flags, so an edited
-source is rebuilt.  A failed build raises with the compiler's output: the
-overlays have no second implementation to fall back to on a machine
-without OpenCV.  The numpy functions of ``viz/colorwheel.py`` and
-``io/images.resize_bilinear_f32`` stay as the plain versions the tests
-hold these against.
+``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``.  A failed
+build raises with the compiler's output: the overlays have no second
+implementation to fall back to on a machine without OpenCV.  The numpy
+functions of ``viz/colorwheel.py`` and ``io/images.resize_bilinear_f32``
+stay as the plain versions the tests hold these against.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
+
+from opticalflow_tpu_torch.runtime._native import build_and_load
 
 __all__ = ["load", "flow_to_color_native", "flow_max_rad",
            "resize_flow_native", "draw_segments_native",
@@ -28,7 +25,6 @@ __all__ = ["load", "flow_to_color_native", "flow_max_rad",
            "warp_perspective_native"]
 
 _SRC = Path(__file__).resolve().parent / "flowviz.cpp"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # no -march=native and no contraction into FMAs: the colour wheel's double
 # arithmetic then rounds as numpy's does
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
@@ -42,37 +38,13 @@ _I64 = ctypes.c_int64
 _U8 = ctypes.c_uint8
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return _BUILD_DIR / f"libflowviz-{h.hexdigest()[:16]}.so"
-
-
-def _build(path: Path) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except FileNotFoundError:
-        raise RuntimeError("g++ not found: the video overlays are host C++ "
-                           f"({_SRC.name}) built at first use") from None
-    if res.returncode != 0:
-        raise RuntimeError(f"building {_SRC.name} failed:\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, path)            # atomic: readers never see half a file
-
-
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library; raises if it cannot."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = build_and_load(_SRC, _FLAGS, "the video overlays")
         lib.ofv_flow_max_rad.restype = ctypes.c_double
         lib.ofv_flow_max_rad.argtypes = [_F32P, _I64]
         lib.ofv_flow_to_color.restype = None

@@ -11,19 +11,21 @@ occupancy, so concurrent requests ride one forward.
     ``max_batch`` by default, so a lone request rides a B=1 forward), and
     fans the results back out to the waiting callers.
   * :func:`make_http_server` is a stdlib ``ThreadingHTTPServer`` front:
-    ``POST /v1/flow`` with a JSON body ``{"im1": <b64 PNG>, "im2": <b64>,
-    "size_mode": "resize"}`` returns the flow as a Middlebury ``.flo``
+    ``POST /v1/flow`` with a JSON body ``{"im1": <b64 PNG or JPEG>,
+    "im2": <b64>, "size_mode": "resize"}`` returns the flow as a Middlebury ``.flo``
     body; ``GET /healthz`` and ``GET /metrics`` for probes.  For hot paths,
     POST ``Content-Type: application/octet-stream`` to the same route with
     the two raw uint8 RGB frames back to back and ``X-Frame-Shape: HxWx3``
     (plus optional ``X-Size-Mode`` / ``X-Timeout`` headers): no base64, no
-    PNG decode.
+    image decode.
 
-The JSON route decodes PNGs with the port's own decoder
-(``io/images.decode_png``) by ``cv2.imread(..., IMREAD_COLOR)``'s rules:
-alpha dropped, grey replicated, 16-bit samples cut to their high byte.
-Other formats (JPEG) go to PIL where it is installed, and are answered 400
-where it is not.
+The JSON route decodes PNG and JPEG with the port's own decoders
+(``io/images.decode_png``, ``runtime/jpeg.decode_jpeg``) by
+``cv2.imdecode(..., IMREAD_COLOR)``'s rules: alpha dropped, grey
+replicated, 16-bit samples cut to their high byte, a JPEG's EXIF
+orientation applied.  Other formats (and the JPEG flavours the decoder
+declines: arithmetic coding, CMYK, ...) go to PIL where it is installed,
+and are answered 400 where it is not.
 
 Every bucket is a shape the engine has to set up once (the kernel build at
 the first call, cuDNN's first-call set-up per shape): :meth:`FlowServer.warmup`
@@ -59,7 +61,7 @@ from typing import List, Optional
 import numpy as np
 
 from opticalflow_tpu_torch.io.flo import write_flo_bytes
-from opticalflow_tpu_torch.io.images import decode_png
+from opticalflow_tpu_torch.io.images import decode_bytes, rgb8, unread_format
 
 __all__ = ["FlowServer", "ServerMetrics", "make_http_server",
            "decode_image"]
@@ -324,12 +326,13 @@ class FlowServer:
 
 def decode_image(data: bytes, what: str = "image") -> np.ndarray:
     """Encoded image bytes → (H, W, 3) uint8 RGB, as ``cv2.imdecode(buf,
-    IMREAD_COLOR)[..., ::-1]`` gives it for a PNG: alpha dropped, grey
-    replicated, a 16-bit sample cut to its high byte.  A PNG flavour the
-    port's decoder does not read, or another format, goes to PIL where it
-    is installed; otherwise ``ValueError`` names the missing decoder."""
+    IMREAD_COLOR)[..., ::-1]`` gives it: alpha dropped, grey replicated, a
+    16-bit sample cut to its high byte, a JPEG's EXIF orientation applied.
+    PNG and JPEG are the port's own decoders'; a JPEG flavour the JPEG
+    decoder declines, or another format, goes to PIL where it is installed;
+    otherwise ``ValueError`` names the format."""
     try:
-        img = decode_png(data)
+        img = decode_bytes(data, orient=True)
     except (ValueError, zlib.error, struct.error) as e:
         raise ValueError(f"could not decode {what}: {e}") from None
     if img is None:
@@ -337,19 +340,16 @@ def decode_image(data: bytes, what: str = "image") -> np.ndarray:
             from PIL import Image
         except ImportError:
             raise ValueError(
-                f"{what} is not a PNG this server decodes (8- or 16-bit grey, "
-                "RGB or RGBA), and PIL is not installed to decode other "
-                "formats (no JPEG decoder here): send PNGs, or the raw "
-                "application/octet-stream body") from None
+                f"{what} is {unread_format(data)}, which this server's "
+                "decoders (PNG, and baseline or progressive Huffman JPEG) "
+                "do not read, and PIL is not installed to decode it: send "
+                "PNG or JPEG, or the raw application/octet-stream body") \
+                from None
         try:
             img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         except Exception as e:      # PIL raises many types on bad bytes
             raise ValueError(f"could not decode {what}: {e}") from None
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
+    return rgb8(img)
 
 
 def make_http_server(server: FlowServer, host: str = "127.0.0.1",
@@ -405,7 +405,7 @@ def make_http_server(server: FlowServer, host: str = "127.0.0.1",
             return size_mode, t
 
         def _parse_json(self, body: bytes):
-            """b64-PNG JSON body → (im1, im2, size_mode, timeout)."""
+            """b64 PNG/JPEG JSON body → (im1, im2, size_mode, timeout)."""
             req = json.loads(body)
             ims = [decode_image(base64.b64decode(req[k]), k)
                    for k in ("im1", "im2")]

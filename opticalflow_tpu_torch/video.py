@@ -112,7 +112,7 @@ def decimate_flow(flow: torch.Tensor, grid_step: int, frame_h: int,
 
 def frame_pairs_from_video(path: str, max_frames: Optional[int] = None,
                            stride: int = 1) -> Iterator[np.ndarray]:
-    """Yield BGR frames of a ``.y4m`` file or PNG directory, decoded by a
+    """Yield BGR frames of a ``.y4m`` file or frame directory, decoded by a
     thread that fills a bounded queue; a decode error is raised here."""
     q: "queue.Queue" = queue.Queue(maxsize=64)
     done = object()

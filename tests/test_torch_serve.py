@@ -394,12 +394,17 @@ def test_json_decode_matches_cv2_imdecode(case):
 
 
 def test_json_body_that_is_no_png_needs_pil(monkeypatch):
-    """A JPEG goes to PIL where it is installed; without PIL the request is
-    a ValueError (HTTP 400) that names the missing decoder."""
+    """Without PIL a JPEG decodes all the same, bit-exact to
+    ``cv2.imdecode`` (the port's own decoder); an arithmetic-coded JPEG,
+    which that decoder declines, is a ValueError (HTTP 400) naming its
+    format, and a corrupt PNG one naming the field."""
     rgb = np.random.RandomState(4).randint(0, 256, (16, 16, 3)).astype(
         np.uint8)
     jpg = cv2.imencode(".jpg", rgb[:, :, ::-1])[1].tobytes()
-    assert decode_image(jpg).shape == (16, 16, 3)
+    want = cv2.imdecode(np.frombuffer(jpg, np.uint8),
+                        cv2.IMREAD_COLOR)[:, :, ::-1]
+    sof = jpg.index(b"\xff\xc0") + 1
+    arith = jpg[:sof] + b"\xc9" + jpg[sof + 1:]
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -408,10 +413,42 @@ def test_json_body_that_is_no_png_needs_pil(monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ValueError, match="no JPEG decoder"):
-        decode_image(jpg, "im1")
+    np.testing.assert_array_equal(decode_image(jpg, "im1"), want)
+    with pytest.raises(ValueError, match="arithmetic-coded JPEG.*PIL is not "
+                                         "installed"):
+        decode_image(arith, "im1")
     with pytest.raises(ValueError, match="could not decode im2"):
         decode_image(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40, "im2")
+
+
+def test_http_json_jpeg_request_equals_raw():
+    """A JSON request of base64 JPEGs gets the flow the raw route gives for
+    the decoded pixels; a truncated JPEG is a 400."""
+    srv = FlowServer(_FakeEngine(), max_batch=2, max_delay_ms=1)
+    httpd, port = _serve(srv)
+    try:
+        im1, im2 = _img(5, h=10, w=14), _img(6, h=10, w=14)
+        jpgs = [cv2.imencode(".jpg", im[:, :, ::-1])[1].tobytes()
+                for im in (im1, im2)]
+        dec = [cv2.imdecode(np.frombuffer(j, np.uint8),
+                            cv2.IMREAD_COLOR)[:, :, ::-1] for j in jpgs]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        status, data = _post(conn, json.dumps(
+            {"im1": base64.b64encode(jpgs[0]).decode(),
+             "im2": base64.b64encode(jpgs[1]).decode()}).encode(),
+            {"Content-Type": "application/json"})
+        assert status == 200, data
+        status, raw = _post(conn, dec[0].tobytes() + dec[1].tobytes(), {
+            "Content-Type": "application/octet-stream",
+            "X-Frame-Shape": "10x14x3"})
+        assert status == 200 and data == raw
+        status, data = _post(conn, json.dumps(
+            {"im1": base64.b64encode(jpgs[0][:200]).decode(),
+             "im2": base64.b64encode(jpgs[1]).decode()}).encode(),
+            {"Content-Type": "application/json"})
+        assert status == 400 and b"im1" in data, data
+    finally:
+        _stop(httpd, srv)
 
 
 # ----------------------------------------------------------- HTTP, fake

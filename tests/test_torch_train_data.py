@@ -233,13 +233,41 @@ def test_consecutive_frames_refuses_video_files_and_missing_sources(tmp_path):
         datasets.ConsecutiveFrames(str(tmp_path))
 
 
+@pytest.mark.parametrize("stride", [1, 2])
+def test_consecutive_frames_of_jpeg_match_jax(tmp_path, stride):
+    """A directory of ``*.jpg`` frames (4:2:0 q90, as ``ffmpeg ...
+    %06d.jpg`` writes them) at 60x90, resized to 32x48: the port decodes
+    them itself, the JAX package through OpenCV's resize of imageio's
+    pixels; the same pairs and samples, exactly."""
+    from PIL import Image
+    rng = np.random.default_rng(10 + stride)
+    for i, im in enumerate(smooth_frames(rng, 5, 60, 90)):
+        Image.fromarray(im).save(str(tmp_path / f"{i:06d}.jpg"), quality=90)
+    ds = datasets.ConsecutiveFrames(str(tmp_path), size_hw=(32, 48),
+                                    stride=stride)
+    jds = jdatasets.ConsecutiveFrames(str(tmp_path), size_hw=(32, 48),
+                                      stride=stride)
+    assert ds.index == jds.index and len(ds) == 5 - stride
+    for i in range(len(ds)):
+        np.testing.assert_array_equal(ds[i]["images"], jds[i]["images"])
+
+
 def test_jpeg_frames_without_a_decoder_name_what_is_missing(tmp_path,
                                                             monkeypatch):
-    """A frame the port's PNG decoder does not read goes to imageio, then
-    PIL; with neither installed the error names both."""
+    """A JPEG flavour the port's decoder declines (arithmetic coding) goes
+    to imageio, then PIL; with neither installed the error names the
+    flavour and both.  A corrupt JPEG is a ValueError, with or without
+    them."""
     import builtins
+    from PIL import Image
+    good = tmp_path / "g.jpg"
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(str(good))
+    data = good.read_bytes()
+    sof = data.index(b"\xff\xc0") + 1
     path = tmp_path / "f.jpg"
-    path.write_bytes(b"\xff\xd8\xff\xe0 not really a jpeg")
+    path.write_bytes(data[:sof] + b"\xc9" + data[sof + 1:])
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(b"\xff\xd8\xff\xe0 not really a jpeg")
     real_import = builtins.__import__
 
     def no_decoders(name, *args, **kwargs):
@@ -248,8 +276,12 @@ def test_jpeg_frames_without_a_decoder_name_what_is_missing(tmp_path,
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_decoders)
-    with pytest.raises(ImportError, match="neither imageio nor PIL"):
+    with pytest.raises(ImportError, match="arithmetic-coded JPEG.*neither "
+                                          "imageio nor PIL"):
         images.load_image(str(path))
+    with pytest.raises(ValueError, match="corrupt JPEG"):
+        images.load_image(str(bad))
+    np.testing.assert_array_equal(images.load_image(str(good)), 0)
 
 
 # ---------------------------------------------------------------- loader

@@ -1,5 +1,5 @@
 """The port's frame I/O (``io/video.py``): ``.y4m`` and PNG directories in
-and out, without OpenCV, held against OpenCV's I420 conversion and the
+and out, JPEG directories in, without OpenCV, held against OpenCV's I420 conversion and the
 JAX package's ``AsyncVideoWriter`` behaviour and ``ConsecutiveFrames``.
 Tolerance: bit-exact throughout (a y4m round trip is lossy only by the
 4:2:0 chroma subsample, which OpenCV's own round trip reproduces)."""
@@ -112,6 +112,45 @@ def test_png_directory_in_and_out(tmp_path):
     np.testing.assert_array_equal(got[1], frames[2])
     assert vio.video_info(out) == {"fps": 30.0, "width": 30, "height": 20,
                                    "frames": 3}
+
+
+def test_jpeg_directory_reads_as_cv2_videocapture(tmp_path):
+    """A directory of ``%06d.jpg`` frames: each frame equals ``cv2.imread``
+    (libjpeg-turbo, BGR, no EXIF rotation) bit for bit.  The JAX package's
+    ``cv2.VideoCapture`` over the same sequence decodes through FFmpeg's
+    own JPEG decoder and colour conversion: the same frames within a mean
+    of 4 levels (2.93 on these frames; its largest difference 17).
+    ``*.jpeg`` reads too; a directory mixing kinds raises."""
+    frames = _frames(4, 21, 30, seed=4)
+    jdir = tmp_path / "jpg"
+    jdir.mkdir()
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(jdir / f"{i:06d}.jpg"), f)
+    want = [cv2.imread(str(jdir / f"{i:06d}.jpg"), cv2.IMREAD_COLOR)
+            for i in range(4)]
+    got = list(vio.read_frames(str(jdir)))
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    cap = cv2.VideoCapture(str(jdir / "%06d.jpg"))
+    try:
+        for g in got:
+            ok, fr = cap.read()
+            if not ok:               # no image-sequence backend here
+                break
+            assert np.abs(fr.astype(np.int64) - g).mean() < 4
+    finally:
+        cap.release()
+    np.testing.assert_array_equal(vio.read_frame(str(jdir), 2), want[2])
+    assert vio.video_info(str(jdir)) == {"fps": 30.0, "width": 30,
+                                         "height": 21, "frames": 4}
+    jpeg_dir = tmp_path / "jpeg"
+    jpeg_dir.mkdir()
+    (jpeg_dir / "a.jpeg").write_bytes((jdir / "000001.jpg").read_bytes())
+    np.testing.assert_array_equal(vio.read_frame(str(jpeg_dir), 0), want[1])
+    (jdir / "000009.png").write_bytes(encode_png(frames[0]))
+    with pytest.raises(ValueError, match="more than one kind"):
+        list(vio.read_frames(str(jdir)))
 
 
 def test_async_writer_y4m_and_max_frames(tmp_path):

@@ -375,8 +375,9 @@ def test_native_library_builds_into_build_dir():
 
 def test_a_failed_native_build_raises(monkeypatch, tmp_path):
     """No quiet numpy fallback: a g++ failure reaches the caller."""
+    from opticalflow_tpu_torch.runtime import _native
     monkeypatch.setattr(flowviz, "_lib", None)
-    monkeypatch.setattr(flowviz, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(flowviz, "_FLAGS",
                         flowviz._FLAGS + ("-fno-such-flag",))
     with pytest.raises(RuntimeError, match="failed"):
