@@ -133,9 +133,13 @@ non-zero, and no result line is printed):
      (slab 512 > 2 x halo: each rank's window a part of the frame)
      against the one-process tiled path with the same windows (tile 512,
      halo 256), and the tiled path (tile 512, halo 64) over 2 ranks
-     against one process, to 1e-4, and the tiled seams' deviation; then
-     what gloo's send/recv and an NCCL group of two ranks
-     on one card do (recorded);
+     against one process, to 1e-4, and the tiled seams' deviation; (f)
+     ``VideoFlowRunner(mesh=)`` over a 10-frame 436x1024 clip at B=4 (the
+     last window partial), rank 0 reading it, on both gloo ranks and on
+     the one-rank NCCL group: every rank's triples within 1e-4 mean EPE of
+     the one-process runner, their frames equal, K1 5 a window a rank;
+     then what gloo's send/recv and an NCCL group of two ranks on one card
+     do (recorded);
  15. JPEG on the card machine, which has no PIL, imageio or OpenCV (the
      port's own decoder, ``runtime/jpeg.cpp``, built by g++ at first use):
      (a) every fixture of ``tests/goldens/jpeg/`` decodes to its manifest
@@ -152,7 +156,16 @@ non-zero, and no result line is printed):
      a directory of 1080x1920 JPEG frames (K2's levels); (f) the host ms
      to decode one 436x1024 and one 1080x1920 frame on 1 and 4 threads,
      beside ``decode_png`` of the same pixels;
- 16. one JSON line listing every kernel with its launches on its path,
+ 16. compare mode (``viz/overlay.opencv_flow``: OpenCV's baselines
+     written without it; ``runtime/dis.cpp`` built by g++ first, outside
+     the runs): (b) Farneback on the card against the same
+     function on the CPU on one 720x1280 pair, both parameter sets, to
+     1e-4 mean EPE, and its ms a pair; (a) ``cli/extract_video --mode
+     compare`` for each of farneback, dis and lucaskanade_dense over a
+     moving 16-frame 720x1280 clip at B=4: 2w-wide output frames, K1 5 a
+     window, fps over the whole run, the baseline's ms a pair (Farneback
+     on the card, DIS on the host); (c) no cv2, PIL or imageio imported;
+ 17. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -162,8 +175,8 @@ training steps for B1 (and K1 there), the eval CLIs (K1), the training
 CLI's runs (K1 and B1), the video CLIs' runs (K1), the serving CLI (K1,
 counted in its own process from 0) and the parity-mode server's burst, the
 loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
-(K1 and B1, counted in each rank's process from 0), and phase 15's JPEG
-paths (K1, and B1 in the pseudo steps).
+(K1 and B1, counted in each rank's process from 0), phase 15's JPEG
+paths (K1, and B1 in the pseudo steps), and phase 16's compare runs (K1).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -1667,7 +1680,7 @@ def video_cli(argv, n_frames: int, h: int, w: int):
     printed = [float(line.split("(")[1].split()[0])
                for line in text.splitlines() if "fps steady-state" in line]
     out = Y4MFile(argv[1])
-    ow = 2 * w if "color" in argv else w
+    ow = 2 * w if "color" in argv or "compare" in argv else w
     assert len(out) == n_frames - 1, (len(out), n_frames)
     assert (out.height, out.width) == (h, ow), (out.height, out.width)
     for i in (0, len(out) // 2, len(out) - 1):
@@ -2478,6 +2491,9 @@ SPATIAL_HALO = 256              # slab 512 = 2 x halo: the exact case
 # windows of the one-process tiled path at tile 512, halo 2 x 128
 WIDE_HALO = 128
 TILE_H, TILE_HALO = 512, 64
+# the video runner over the mesh: a 448x1024 clip whose 9 pairs at B=4 make
+# windows of 4, 4 and 1 (a partial last window), 2 pairs a rank a window
+DP_VIDEO_FRAMES, DP_VIDEO_B = 10, 4
 # one rank of the 2-rank world (launched by torch.distributed.run): the
 # parity step, fast steps, a lockstep server and both spatial paths, each
 # path's K1/B1 launches counted in this rank from 0; its numbers to
@@ -2593,6 +2609,23 @@ for name, fn in (
     q, ms, launches = counted(fn)
     out[name] = {"ms": ms, "launches": launches}
     tensors[name] = q.cpu()
+# (f) the video runner over the mesh: rank 0 reads the clip, every rank
+# yields every pair's triple
+import hashlib
+import numpy as np
+from opticalflow_tpu_torch.video import VideoFlowRunner
+runner = VideoFlowRunner(model_of("highest"), None,
+                         batch=int(inp["video_b"]), mesh=mesh)
+frames = iter(inp["video_frames"]) if rank == 0 else None
+triples, ms, launches = counted(lambda: list(runner.run(frames)))
+digest = hashlib.sha256()
+for a, b, _ in triples:
+    digest.update(a.tobytes())
+    digest.update(b.tobytes())
+out["video"] = {"ms": ms, "launches": launches, "pairs": len(triples),
+                "frames_sha256": digest.hexdigest(),
+                "stats": dict(runner.stats)}
+tensors["video"] = torch.from_numpy(np.stack([f for _, _, f in triples]))
 torch.save(tensors, os.path.join(tmp, f"dp_rank{rank}.pt"))
 with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
     json.dump(out, f)
@@ -2756,6 +2789,8 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
     from opticalflow_tpu_torch.parallel import mesh as meshlib
     from opticalflow_tpu_torch.parallel import spatial
     from opticalflow_tpu_torch.train import trainer as T
+    from opticalflow_tpu_torch.video import VideoFlowRunner
+    import hashlib
 
     corr_fwd, corr_bwd = counters
     t_phase = time.perf_counter()
@@ -2770,10 +2805,12 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
     x = torch.from_numpy(np.concatenate([s1[..., ::-1], s2[..., ::-1]], -1)
                          .astype(np.float32) / 255.0).permute(2, 0, 1)[None]
     x = x.contiguous()
+    vframes = moving_frames(rng, DP_VIDEO_FRAMES, FULL_H, FULL_W)
     torch.save({"sd": sd_ref, "batch": batch, "serve_pair": serve_pair,
                 "x_spatial": x, "fast_steps": DP_FAST_STEPS,
                 "halo": SPATIAL_HALO, "wide_halo": WIDE_HALO,
-                "tile_h": TILE_H, "tile_halo": TILE_HALO},
+                "tile_h": TILE_H, "tile_halo": TILE_HALO,
+                "video_frames": vframes, "video_b": DP_VIDEO_B},
                os.path.join(tmp, "dp_inputs.pt"))
 
     # the one-process references: the parity step twice (cuDNN's
@@ -2795,6 +2832,17 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
         wide_one = spatial.tiled_quarter_flow(
             engine.model, xs, tile_h=SPATIAL_H // DP_RANKS,
             halo=2 * WIDE_HALO).cpu()
+    video_one = list(VideoFlowRunner(
+        PWCDCNet(precision="highest"), sd, batch=DP_VIDEO_B,
+        device="cuda").run(iter(vframes)))
+    digest = hashlib.sha256()
+    for a, b, _ in video_one:
+        digest.update(a.tobytes())
+        digest.update(b.tobytes())
+    video_sha = digest.hexdigest()
+
+    def video_epe(flows):
+        return max(epe(f, r) for f, (_, _, r) in zip(flows, video_one))
     del engine, xs
     torch.cuda.empty_cache()
 
@@ -2910,6 +2958,25 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
         assert r["halo"]["launches"]["correlation_fwd"] == 5
         assert r["halo_wide"]["launches"]["correlation_fwd"] == 5
         assert r["tiled"]["launches"]["correlation_fwd"] == 5
+    video_windows = -(-(DP_VIDEO_FRAMES - 1) // DP_VIDEO_B)
+    video_errs = [video_epe(r["tensors"]["video"].numpy()) for r in ranks]
+    log(f"[14] (f) VideoFlowRunner(mesh=) over {DP_VIDEO_FRAMES} frames "
+        f"{FULL_H}x{FULL_W} at B={DP_VIDEO_B} ({video_windows} windows, the "
+        f"last partial; {DP_VIDEO_B // DP_RANKS} pairs a rank a window), "
+        f"float32 parity: worst pair's mean EPE against the one-process "
+        f"runner a rank {video_errs} (bound 1e-4); the triples' frames "
+        f"equal to one process's on every rank "
+        f"{[r['video']['frames_sha256'] == video_sha for r in ranks]}; "
+        f"bytes broadcast a rank "
+        f"{[r['video']['stats']['bytes_broadcast'] for r in ranks]}; ms "
+        f"{[round(r['video']['ms'], 2) for r in ranks]}; K1 a rank "
+        f"{[r['video']['launches']['correlation_fwd'] for r in ranks]}")
+    for r, e in zip(ranks, video_errs):
+        assert r["video"]["pairs"] == DP_VIDEO_FRAMES - 1, r["video"]
+        assert r["video"]["frames_sha256"] == video_sha
+        assert e <= 1e-4, video_errs
+        assert r["video"]["launches"]["correlation_fwd"] == \
+            5 * video_windows, r["video"]
 
     # (b) a one-rank NCCL group (--data-parallel all with nothing launched)
     # against no mesh, three fast-mode steps each, in this process
@@ -2937,6 +3004,13 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
     try:
         assert (mesh.world, mesh.backend) == (1, "nccl"), mesh
         nccl = fast_steps(mesh)
+        vmodel = PWCDCNet(precision="highest")
+        vmodel.load_state_dict(sd_ref)
+        runner = VideoFlowRunner(vmodel, None, batch=DP_VIDEO_B, mesh=mesh)
+        f0 = corr_fwd.launches
+        nccl_video = list(runner.run(iter(vframes)))
+        nccl_video_k1 = corr_fwd.launches - f0
+        nccl_video_err = video_epe([f for _, _, f in nccl_video])
         flat = torch.zeros(sum(v.numel() for v in g1.values()),
                            device="cuda")
         meshlib.all_reduce_(flat, mesh)             # warm-up
@@ -2962,6 +3036,14 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
         f"launches {nccl[2]}; {card}")
     assert dev_nccl <= max(1e-6 * abs(plain_a[0][0]), 4 * spread), dev_nccl
     assert nccl[2] == (5 * ONE_RANK_STEPS, 5 * ONE_RANK_STEPS), nccl[2]
+    log(f"[14] (f) VideoFlowRunner(mesh=) on the one-rank NCCL group, the "
+        f"same clip: worst pair's mean EPE against the one-process runner "
+        f"{nccl_video_err!r} (bound 1e-4); K1 {nccl_video_k1}")
+    assert len(nccl_video) == DP_VIDEO_FRAMES - 1
+    assert all(np.array_equal(a, a1) and np.array_equal(b, b1) for
+               (a, b, _), (a1, b1, _) in zip(nccl_video, video_one))
+    assert nccl_video_err <= 1e-4, nccl_video_err
+    assert nccl_video_k1 == 5 * video_windows, nccl_video_k1
 
     # (c) cli/infer_kitti --data-parallel 2 on phase 9's synthetic tree
     kroot = os.path.join(tmp, "kitti")
@@ -3042,6 +3124,10 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
                           "plain_ms": plain_a[1]},
         "eval": {"epe_two_ranks": epe2, "epe_one_process": epe1,
                  "wall_s": wall2},
+        "video": {"epe_ranks": video_errs, "epe_one_rank_nccl":
+                  nccl_video_err, "ms": [r["video"]["ms"] for r in ranks],
+                  "bytes_broadcast": [r["video"]["stats"]["bytes_broadcast"]
+                                      for r in ranks]},
         "serve_ms": [r["serve"]["ms"] for r in ranks],
         "spatial": {"halo_err": halo_err, "halo_wide_err": wide_err,
                     "tiled_err": tiled_err,
@@ -3059,9 +3145,11 @@ def phase_data_parallel(sd, tmp, counters, card: str, single_step_ms):
                        "serve": r["serve"]["launches"],
                        "halo": r["halo"]["launches"],
                        "halo_wide": r["halo_wide"]["launches"],
-                       "tiled": r["tiled"]["launches"]} for r in ranks],
+                       "tiled": r["tiled"]["launches"],
+                       "video": r["video"]["launches"]} for r in ranks],
             "one_rank_nccl": {"correlation_fwd": nccl[2][0],
-                              "correlation_bwd": nccl[2][1]},
+                              "correlation_bwd": nccl[2][1],
+                              "video_correlation_fwd": nccl_video_k1},
             "eval_cli": [c["launches"] for c in children]}}
 
 
@@ -3358,6 +3446,122 @@ def phase_jpeg(sd, tmp, corr_fwd, corr_bwd, card: str):
             "phase_s": phase_s, "card": card}
 
 
+# ------------------------------------------------------------ phase 16
+
+# compare mode: the network's arrows beside a classical baseline's, on a
+# moving 720x1280 clip at B=4 (15 pairs: 4 windows, the last partial)
+COMPARE_FRAMES = 16
+COMPARE_METHODS = ("farneback", "dis", "lucaskanade_dense")
+FARNEBACK_REPS = 5
+
+
+def phase_compare(sd, tmp, corr_fwd, card: str):
+    """``cli/extract_video --mode compare`` on the card: (a)-(c) of the
+    docstring's phase 16.  Returns its results."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io.video import read_frames
+    from opticalflow_tpu_torch.io.yuv import bgr_to_gray
+    from opticalflow_tpu_torch.runtime import dis
+    from opticalflow_tpu_torch.viz import farneback as fb
+    from opticalflow_tpu_torch.viz import overlay as ov
+
+    t_phase = time.perf_counter()
+    dis.load()          # g++ at first use: built here, outside the runs
+    build_s = time.perf_counter() - t_phase
+    log(f"[16] runtime/dis.cpp built by g++ and loaded in {build_s:.1f} s")
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(tmp, "compare720.y4m")
+    write_clip(clip, moving_frames(np.random.RandomState(16), COMPARE_FRAMES,
+                                   VIDEO_H, VIDEO_W))
+    results = {"dis_build_s": build_s, "farneback_card_vs_cpu": {},
+               "modes": {}}
+
+    # (b) Farneback on the card against the same function on the CPU
+    f1, f2 = list(read_frames(clip, max_frames=2))
+    g1, g2 = bgr_to_gray(f1), bgr_to_gray(f2)
+    keys = ("pyr_scale", "levels", "winsize", "iterations", "poly_n",
+            "poly_sigma")
+    for method in ("farneback", "lucaskanade_dense"):
+        params = dict(zip(keys, fb.FARNEBACK_PARAMS[method]))
+        on_card = fb.farneback_flow(g1, g2, device="cuda", **params)
+        card_ms = []
+        for _ in range(FARNEBACK_REPS):       # the first call warmed up
+            t0 = time.perf_counter()
+            fb.farneback_flow(g1, g2, device="cuda", **params)
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        on_cpu = fb.farneback_flow(g1, g2, device="cpu", **params)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = epe(on_card, on_cpu)
+        e = np.hypot(*(on_card - on_cpu).transpose(2, 0, 1))
+        results["farneback_card_vs_cpu"][method] = {
+            "epe_mean": err, "epe_p99": float(np.percentile(e, 99)),
+            "epe_max": float(e.max()), "card_ms": card_ms,
+            "cpu_ms": cpu_ms, "mean_flow_px": float(np.abs(on_cpu).mean())}
+        log(f"[16] (b) {method} on one {VIDEO_H}x{VIDEO_W} pair, the card "
+            f"against the CPU: mean EPE {err!r} (bound 1e-4), p99 "
+            f"{float(np.percentile(e, 99))!r}, max {float(e.max())!r}; mean "
+            f"|flow| {float(np.abs(on_cpu).mean()):.4f} px; ms a pair on the "
+            f"card {[round(v, 2) for v in card_ms]} (host clock, the "
+            f"readback included), on the host's CPU {cpu_ms:.1f} [{card}]")
+        assert on_card.shape == (VIDEO_H, VIDEO_W, 2)
+        assert np.isfinite(on_card).all() and err <= 1e-4, err
+
+    # (a) the CLI for each method, the baseline's time a pair instrumented
+    real = ov.opencv_flow
+    base_ms = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    windows_want = -(-(COMPARE_FRAMES - 1) // VIDEO_B)
+    ov.opencv_flow = timed
+    try:
+        for method in COMPARE_METHODS:
+            base_ms.clear()
+            before = corr_fwd.launches
+            row = video_cli([clip, os.path.join(tmp, f"cmp_{method}.y4m"),
+                             "--ckpt", ckpt, "--mode", "compare",
+                             "--compare-method", method, "--batch",
+                             str(VIDEO_B), "--device", "cuda"],
+                            COMPARE_FRAMES, VIDEO_H, VIDEO_W)
+            row["k1_launches"] = launched = corr_fwd.launches - before
+            assert row["windows"] == windows_want, row["windows"]
+            assert launched == 5 * windows_want, launched
+            assert len(base_ms) == COMPARE_FRAMES - 1, len(base_ms)
+            row["baseline_ms"] = list(base_ms)
+            row["baseline_ms_median"] = float(np.median(base_ms))
+            row["baseline_on"] = "host" if method == "dis" else "card"
+            del row["runner"], row["bytes_uploaded"]
+            results["modes"][method] = row
+            log(f"[16] (a) extract_video --mode compare --compare-method "
+                f"{method}, {COMPARE_FRAMES} frames {VIDEO_H}x{VIDEO_W} "
+                f"B={VIDEO_B} bf16: {row['fps']!r} fps over the whole run "
+                f"({row['run_s']!r} s); the baseline {row['baseline_on']}'s "
+                f"ms a pair median {row['baseline_ms_median']:.2f} (first "
+                f"{base_ms[0]:.2f}); draw (baseline included) "
+                f"{row['draw_ms']:.2f} ms a frame ({row['draw_share']:.0%} "
+                f"of the run); {row['windows']} windows, K1 {launched} "
+                f"launches; output {VIDEO_H}x{2 * VIDEO_W} [{card}]")
+    finally:
+        ov.opencv_flow = real
+
+    # (c) none of the libraries the JAX package draws and reads with
+    loaded = [m for m in ("cv2", "PIL", "imageio") if m in sys.modules]
+    log(f"[16] (c) cv2, PIL, imageio in sys.modules: {loaded or 'none'}")
+    assert not loaded, loaded
+    results["phase_s"] = phase_s = time.perf_counter() - t_phase
+    results["card"] = card
+    log(f"[16] phase 16 took {phase_s:.1f} s; {card}")
+    return results
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3486,6 +3690,11 @@ def main() -> int:
                      + jpg["launches"]["video"])
     assert jpeg_launches > 0 and \
         jpg["launches"]["pseudo"]["correlation_bwd"] > 0
+    zero_counts()                           # the compare path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        compare = phase_compare(sd, tmp, correlation_cuda, card_line())
+    compare_launches = correlation_cuda.launches  # ... and ends here
+    assert compare_launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -3522,7 +3731,9 @@ def main() -> int:
          "launches_data_parallel": dp["launches"], "data_parallel": dp,
          # phase 15: the JPEG paths (CLI, serving CLI, pseudo steps, video
          # CLI over a JPEG directory at 1080x1920: 5 a forward)
-         "launches_jpeg": jpeg_launches, "jpeg": jpg},
+         "launches_jpeg": jpeg_launches, "jpeg": jpg,
+         # phase 16: compare mode, the three baselines (5 a window)
+         "launches_compare": compare_launches, "compare": compare},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax

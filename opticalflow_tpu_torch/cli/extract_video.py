@@ -13,8 +13,10 @@ Overlay modes:
   * ``color``   — Middlebury colour wheel beside the frame
   * ``vanish``  — arrows + vanishing-point marker
   * ``topview`` — perspective warp to a top view, dominant-direction arrows
-  * ``compare`` — beside an OpenCV flow baseline: not ported (it raises,
-    ROADMAP Queue 1 item 7)
+  * ``compare`` — the network's arrows beside those of a classical
+    baseline (``--compare-method``: OpenCV's Farneback, DIS-medium or dense
+    LK, computed without OpenCV by ``viz/overlay.opencv_flow``: Farneback
+    on ``--device``, DIS on the host), at twice the frame width
 
 ::
 
@@ -33,6 +35,7 @@ from opticalflow_tpu_torch.cli.extract_flow import build_model
 # the JAX CLI's titles, kept so both draw the same frames
 ARROWS_TITLE = "PWC-Net (TPU)"
 VANISH_TITLE = "PWC-Net VP (TPU)"
+COMPARE_TITLE = "PWC-Net"
 
 
 def build_parser():
@@ -73,7 +76,8 @@ def build_parser():
 
 
 class Overlay:
-    """Draws one output frame per (frame, flow) in the CLI's mode."""
+    """Draws one output frame per (frame, next frame, flow) in the CLI's
+    mode."""
 
     def __init__(self, args, h: int, w: int, gstep):
         from opticalflow_tpu_torch.viz import topview as tv
@@ -81,7 +85,7 @@ class Overlay:
         self.tv_matrix = (tv.perspective_matrix(w, h)
                           if args.mode == "topview" else None)
 
-    def __call__(self, frame, qflow):
+    def __call__(self, frame, frame2, qflow):
         from opticalflow_tpu_torch.runtime.flowviz import (
             flow_to_color_native, resize_flow_native)
         from opticalflow_tpu_torch.viz import overlay as ov
@@ -108,6 +112,15 @@ class Overlay:
                                    scale=a.arrow_scale, grid_step=gstep)
             return draw_vanishing_point(out, estimate_vanishing_point(
                 qflow, step=a.step, grid_step=gstep, frame_hw=(h, w)))
+        if a.mode == "compare":
+            left = ov.arrow_overlay(frame, qflow, step=a.step,
+                                    scale=a.arrow_scale, title=COMPARE_TITLE)
+            base = ov.opencv_flow(frame, frame2, a.compare_method,
+                                  device=a.device)
+            right = ov.arrow_overlay(frame, base, step=a.step,
+                                     scale=a.arrow_scale,
+                                     title=a.compare_method, color="lime")
+            return ov.side_by_side(left, right)
         # topview: the frames were warped before the runner saw them
         full = ov.resize_flow_np(qflow, h, w)
         return tv.draw_direction_arrows(frame, full, step=20, scale=5.0,
@@ -116,9 +129,6 @@ class Overlay:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode == "compare":
-        from opticalflow_tpu_torch.viz.overlay import opencv_flow
-        opencv_flow(None, None, args.compare_method)   # not ported: raises
     from opticalflow_tpu_torch.io.video import AsyncVideoWriter, video_info
     from opticalflow_tpu_torch.train.checkpoints import load_params
     from opticalflow_tpu_torch.utils.profiling import param_count
@@ -148,7 +158,7 @@ def main(argv=None) -> int:
 
     info = video_info(args.video)
     w, h = int(info["width"]), int(info["height"])
-    out_w = w * 2 if args.mode == "color" else w
+    out_w = w * 2 if args.mode in ("color", "compare") else w
     writer = AsyncVideoWriter(args.out, info["fps"], (out_w, h))
     draw = Overlay(args, h, w, gstep)
     frames = frame_pairs_from_video(args.video, max_frames=args.max_frames)
@@ -158,10 +168,10 @@ def main(argv=None) -> int:
     n = 0
     t0 = None  # start timing after the first (build- and warm-up-laden) result
     try:
-        for frame, _, qflow in runner.run(frames):
+        for frame, frame2, qflow in runner.run(frames):
             if t0 is None:
                 t0 = time.perf_counter()
-            writer.write(draw(frame, qflow)[:h, :out_w])
+            writer.write(draw(frame, frame2, qflow)[:h, :out_w])
             n += 1
     finally:
         writer.release()

@@ -9,7 +9,9 @@ two functions.  Both are bit-exact to OpenCV, which the GPU machine lacks:
     BT.601 video range at 20-bit fixed point, round half up; the chroma of
     each 2×2 block is the top-left pixel's (OpenCV does not average);
   * :func:`i420_to_rgb` = ``cv2.cvtColor(yuv, cv2.COLOR_YUV2RGB_I420)``:
-    nearest 2×2 chroma upsampling, the same constants as the card's op.
+    nearest 2×2 chroma upsampling, the same constants as the card's op;
+  * :func:`bgr_to_gray` = ``cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)``, the
+    grey the comparison baselines (``viz/overlay.opencv_flow``) start from.
 
 The packed layout is OpenCV's: (H·3/2, W) uint8, the Y plane, then the U
 plane and the V plane (H/2 × W/2 each) back to back.  H and W are even.
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["rgb_to_i420", "i420_to_rgb", "pad_to_even"]
+__all__ = ["rgb_to_i420", "i420_to_rgb", "pad_to_even", "bgr_to_gray"]
 
 _SHIFT = 20
 _HALF = 1 << (_SHIFT - 1)
@@ -29,6 +31,9 @@ _CRU, _CGU, _CBU = -155188, -305135, 460324
 _CGV, _CBV = -385875, -74448
 # YUV -> RGB
 _CY, _CVR, _CVG, _CUG, _CUB = 1220542, 1673527, -852492, -409993, 2116026
+# BGR -> grey: OpenCV 5's 15-bit weights of R, G, B (its older releases
+# used a 14-bit table, which differs by 1 on some pixels)
+_GR, _GG, _GB, _GSHIFT = 9798, 19235, 3735, 15
 
 
 def pad_to_even(frame: np.ndarray) -> np.ndarray:
@@ -80,3 +85,15 @@ def i420_to_rgb(yuv: np.ndarray) -> np.ndarray:
     g = (y + _CVG * v + _CUG * u + _HALF) >> _SHIFT
     b = (y + _CUB * u + _HALF) >> _SHIFT
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) BGR → (H, W) uint8 grey, bit-exact to
+    ``cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)`` in OpenCV 5:
+    ``(9798·R + 19235·G + 3735·B + 2^14) >> 15``."""
+    if bgr.dtype != np.uint8 or bgr.ndim != 3 or bgr.shape[2] != 3:
+        raise ValueError(f"bgr_to_gray takes uint8 (H, W, 3), got "
+                         f"{bgr.dtype} {bgr.shape}")
+    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    y = (_GR * r + _GG * g + _GB * b + (1 << (_GSHIFT - 1))) >> _GSHIFT
+    return y.astype(np.uint8)

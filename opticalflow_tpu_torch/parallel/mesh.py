@@ -39,7 +39,8 @@ import torch.distributed as dist
 __all__ = ["Mesh", "distributed_init", "barrier", "make_mesh",
            "resolve_data_parallel", "check_eval_cli_mesh_args",
            "batch_sharding", "shard_batch", "replicate", "local_batch_size",
-           "all_gather_rows", "all_reduce_", "any_rank", "rank_device",
+           "all_gather_rows", "all_reduce_", "broadcast_", "any_rank",
+           "rank_device",
            "launched", "shutdown", "DEFAULT_TIMEOUT_S"]
 
 # every collective's timeout (the JAX barrier's default): generous, since
@@ -319,6 +320,16 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh,
     """All-reduce ``t`` in place over the mesh; returns it."""
     w = _wire(t, mesh)
     dist.all_reduce(w, op=op, group=mesh.group)
+    if w is not t:
+        t.copy_(w)
+    return t
+
+
+def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
+    """Overwrite ``t`` on every rank with rank ``src``'s, in place;
+    returns it."""
+    w = _wire(t, mesh)
+    dist.broadcast(w, src=src, group=mesh.group)
     if w is not t:
         t.copy_(w)
     return t

@@ -19,7 +19,11 @@ pipelined runner:
     card computes window k+1;
   * one readback per window, quarter-resolution flow, or with
     ``grid_step`` the flow decimated on the card to the arrow grid
-    (:func:`decimate_flow`, ~16× fewer bytes again).
+    (:func:`decimate_flow`, ~16× fewer bytes again);
+  * with ``mesh`` (``parallel.mesh.Mesh``: one process a card) each
+    window's pairs are split over the ranks: rank 0 reads the stream and
+    broadcasts each window, every rank computes its share, and an
+    all-gather hands every rank every flow.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no GPU
 and no explicit device it raises.
@@ -43,6 +47,7 @@ from opticalflow_tpu_torch.io import images as imio
 from opticalflow_tpu_torch.io.video import read_frames
 from opticalflow_tpu_torch.io.yuv import pad_to_even, rgb_to_i420
 from opticalflow_tpu_torch.models.torch_import import reference_state_dict
+from opticalflow_tpu_torch.parallel import mesh as meshlib
 
 __all__ = ["VideoFlowRunner", "frame_pairs_from_video", "decimate_flow",
            "yuv_i420_to_rgb_u8"]
@@ -150,9 +155,20 @@ class VideoFlowRunner:
       flow_scale: 1.0 for the repo's self-trained checkpoints, 20.0 for the
         canonical Sintel weights.
       batch: frame pairs per forward.  depth: windows in flight.
-      mesh: not ported: the JAX runner shards one process's frames by H
-        over its local devices; with one process per card every rank would
-        have to read the stream (what is left of ROADMAP Queue 1 item 6).
+      mesh: a ``parallel.mesh.Mesh`` to split each window's pairs over its
+        ranks (JAX's ``mesh=``, one process a card here): ``batch`` must
+        divide by the ranks, the runner computes on ``mesh.device``, and
+        the weights are checked equal on every rank and broadcast from
+        rank 0 (``replicate``).  Rank 0 reads ``frames``; the others pass
+        None to :meth:`run` (what they pass is not read).  Before each
+        window rank 0 broadcasts a header (the window's real pairs and its
+        frame size; zero pairs end the stream), then the window's frames
+        as read, which every rank needs for its triples (host memory under
+        gloo, which cannot send card memory); each rank uploads and runs
+        its ``batch / world`` pairs (``batch / world + 1`` frames), a
+        partial last window padded as without a mesh, and
+        ``all_gather_rows`` hands every rank every flow, so every rank
+        yields the same triples.
       grid_step: decimate the flow on the card to that arrow grid.
       upload: "bgr" ships RGB uint8 windows padded to /64 on the host;
         "i420" ships each frame's planar YUV 4:2:0 at its (even) size, half
@@ -160,10 +176,10 @@ class VideoFlowRunner:
         (OpenCV's arithmetic) and unpacked and padded on the card.  The
         only fidelity cost is the 4:2:0 chroma subsample itself.
 
-    ``stats`` counts windows and bytes uploaded, and the host's seconds
-    spent forming windows and issuing their copies (``upload_s``), issuing
-    the forwards and readbacks (``issue_s``) and waiting on readbacks
-    (``wait_s``).
+    ``stats`` counts windows and bytes uploaded (and, with a mesh, the
+    bytes broadcast a rank), and the host's seconds spent forming windows
+    and issuing their copies (``upload_s``), issuing the forwards and
+    readbacks (``issue_s``) and waiting on readbacks (``wait_s``).
     """
 
     def __init__(self, model: nn.Module,
@@ -173,9 +189,16 @@ class VideoFlowRunner:
                  grid_step: Optional[int] = None, upload: str = "bgr",
                  device: Union[str, torch.device, None] = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "VideoFlowRunner(mesh=...): sharding a video over ranks is "
-                "not ported yet (what is left of ROADMAP Queue 1 item 6)")
+            if not isinstance(mesh, meshlib.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if batch % mesh.world:
+                raise ValueError(f"batch {batch} not divisible by mesh size "
+                                 f"{mesh.world}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         if preset not in imio.PREPROC_PRESETS:
             raise ValueError(f"unknown preprocessing preset {preset!r}")
         if upload not in ("bgr", "i420"):
@@ -186,6 +209,9 @@ class VideoFlowRunner:
                 weights.state_dict() if isinstance(weights, nn.Module)
                 else reference_state_dict(weights))
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            meshlib.replicate(self.model, mesh)
         self.preset = preset
         self.flow_scale = float(flow_scale)
         self.batch = int(batch)
@@ -199,6 +225,8 @@ class VideoFlowRunner:
                                  device=self.device).view(1, 3, 1, 1)
         self.stats = {"windows": 0, "bytes_uploaded": 0, "upload_s": 0.0,
                       "issue_s": 0.0, "wait_s": 0.0}
+        if mesh is not None:
+            self.stats["bytes_broadcast"] = 0
 
     # ------------------------------------------------------------ device side
 
@@ -233,6 +261,15 @@ class VideoFlowRunner:
             frame = np.pad(frame, ((0, ph), (0, pw), (0, 0)), mode="edge")
         return frame
 
+    def _pack(self, frame: np.ndarray, channel_order: str) -> np.ndarray:
+        """One frame as it is uploaded: RGB padded to /64, or I420 at its
+        even size (the /64 pad happens on the card, so no padding bytes
+        are uploaded)."""
+        rgb = frame[..., ::-1] if channel_order == "bgr" else frame
+        if self.upload == "i420":
+            return rgb_to_i420(pad_to_even(np.ascontiguousarray(rgb)))
+        return self._pad(rgb)
+
     def _to_device(self, window) -> torch.Tensor:
         """Stack a window into (pinned) host memory and queue its copy."""
         host = torch.empty((len(window),) + window[0].shape,
@@ -244,7 +281,7 @@ class VideoFlowRunner:
     def _readback(self, out: torch.Tensor):
         """Queue the result's copy into pinned host memory; the event says
         when it has landed."""
-        if not self._pinned:
+        if not out.is_cuda:
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
@@ -252,7 +289,79 @@ class VideoFlowRunner:
         event.record()
         return host, event
 
-    def run(self, frames: Iterator[np.ndarray],
+    def _windows(self, frames: Iterator[np.ndarray]):
+        """Lists of B+1 consecutive frames, each window's last frame the
+        next one's first (it opens that window's first pair), and a last
+        shorter window."""
+        window = []
+        for frame in frames:
+            window.append(frame)
+            if len(window) == self.batch + 1:
+                yield window
+                window = [frame]
+        if len(window) > 1:
+            yield window
+
+    def _mesh_windows(self, frames):
+        """:meth:`_windows` on rank 0, broadcast to every rank: a header
+        (real pairs, frame shape) and the window's frames; zero pairs end
+        the stream."""
+        mesh = self.mesh
+        source = self._windows(frames) if mesh.rank == 0 else None
+        while True:
+            window = next(source, None) if source is not None else None
+            header = torch.zeros(5, dtype=torch.int64)
+            if window is not None:
+                header[0] = len(window) - 1
+                header[1:1 + window[0].ndim] = torch.tensor(window[0].shape)
+            meshlib.broadcast_(header, mesh)
+            n_real, shape = int(header[0]), tuple(
+                int(v) for v in header[1:] if v)
+            if n_real == 0:
+                return
+            payload = torch.from_numpy(
+                np.stack(window) if window is not None
+                else np.empty((n_real + 1,) + shape, np.uint8))
+            meshlib.broadcast_(payload, mesh)
+            self.stats["bytes_broadcast"] += (header.numel() * 8
+                                              + payload.numel())
+            yield window if window is not None else list(payload.numpy())
+
+    def _submit(self, window, channel_order: str):
+        """Upload the window (this rank's share of it with a mesh) and queue
+        its forward and readback: (host result, event, real pairs, the
+        pairs' original frames)."""
+        t0 = time.perf_counter()
+        n_real = len(window) - 1
+        fh, fw = window[0].shape[:2]     # the real (unpadded) size
+        # a final partial window is padded up to B+1 frames: one shape for
+        # the whole stream
+        frames = window + [window[-1]] * (self.batch + 1 - len(window))
+        if self.mesh is not None:
+            per = self.batch // self.mesh.world
+            frames = frames[self.mesh.rank * per:(self.mesh.rank + 1) * per
+                            + 1]
+        packed, memo = [], {}
+        for f in frames:
+            if id(f) not in memo:
+                memo[id(f)] = self._pack(f, channel_order)
+            packed.append(memo[id(f)])
+        with torch.inference_mode():
+            dev_frames = self._to_device(packed)
+            t1 = time.perf_counter()
+            out = self._step(dev_frames, fh, fw)
+            if self.mesh is not None:
+                out = meshlib.all_gather_rows(
+                    out if self.mesh.backend == "nccl" else out.cpu(),
+                    self.mesh)
+            entry = (*self._readback(out), n_real,
+                     list(zip(window[:-1], window[1:])))
+        self.stats["windows"] += 1
+        self.stats["upload_s"] += t1 - t0
+        self.stats["issue_s"] += time.perf_counter() - t1
+        return entry
+
+    def run(self, frames: Optional[Iterator[np.ndarray]],
             channel_order: str = "bgr"
             ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Yield (frame_t, frame_t1, flow) per consecutive pair, both
@@ -261,56 +370,16 @@ class VideoFlowRunner:
         ``flow`` is the (H64/4, W64/4, 2) quarter-res field in pixel units at
         that scale (``viz.overlay.resize_flow_np`` draws it at frame size),
         or with ``grid_step`` the decimated (gh, gw, 2) grid in full-res
-        pixel units (see :func:`decimate_flow`).
+        pixel units (see :func:`decimate_flow`).  With a mesh, ranks other
+        than 0 pass ``frames=None`` and yield the same triples as rank 0.
         """
+        windows = (self._windows(frames) if self.mesh is None
+                   else self._mesh_windows(frames))
         inflight = collections.deque()
-        buf = []          # the current window's frames (B+1 of them)
-        metas = []        # original frames per pair, for the overlays
-        prev = None
-
-        def submit():
-            nonlocal buf, metas
-            if not metas:
-                return
-            t0 = time.perf_counter()
-            n_real = len(metas)
-            carry = buf[-1]
-            # pad a final partial window up to B+1 frames: one shape for
-            # the whole stream
-            while len(buf) < self.batch + 1:
-                buf.append(buf[-1])
-            fh, fw = metas[0][0].shape[:2]     # the real (unpadded) size
-            with torch.inference_mode():
-                frames = self._to_device(buf)
-                t1 = time.perf_counter()
-                out = self._step(frames, fh, fw)
-                entry = (*self._readback(out), n_real, metas)
-            inflight.append(entry)
-            self.stats["windows"] += 1
-            self.stats["upload_s"] += t1 - t0
-            self.stats["issue_s"] += time.perf_counter() - t1
-            # the window's last frame opens the next window (it is the
-            # first frame of that window's first pair): uploaded once per
-            # window, not once per pair
-            buf, metas = [carry], []
-
-        for frame in frames:
-            rgb = frame[..., ::-1] if channel_order == "bgr" else frame
-            if self.upload == "i420":
-                # even sides (at most 1 px of edge pad); the /64 pad
-                # happens on the card, so no padding bytes are uploaded
-                buf.append(rgb_to_i420(pad_to_even(
-                    np.ascontiguousarray(rgb))))
-            else:
-                buf.append(self._pad(rgb))
-            if prev is not None:
-                metas.append((prev, frame))
-                if len(metas) == self.batch:
-                    submit()
-            prev = frame
+        for window in windows:
+            inflight.append(self._submit(window, channel_order))
             while len(inflight) > self.depth:
                 yield from self._drain(inflight.popleft())
-        submit()
         while inflight:
             yield from self._drain(inflight.popleft())
 

@@ -8,20 +8,28 @@ same pixels on a machine that has no OpenCV:
     arrows through ``runtime/flowviz`` (cv2's rasteriser in C++), the chip
     through :func:`fill_rect` and ``viz/text.put_text`` (a glyph atlas);
   * :func:`side_by_side` — horizontal concat for comparison videos;
+  * :func:`opencv_flow` — the classical baselines of the comparison mode
+    (``pwc_extract_flow_video.py:49-92``), OpenCV's Farneback, DIS-medium
+    and "dense LK" (Farneback under other parameters), computed without
+    OpenCV: the grey conversion by ``io/yuv.bgr_to_gray``, Farneback as
+    torch ops on the caller's device (``viz/farneback.py``), DIS in host
+    C++ (``runtime/dis.cpp``), each rebuilt against OpenCV 5.0;
   * :func:`quiver_figure` — the matplotlib quiver figure of the single-pair
-    extractor, where matplotlib is installed (imported when called);
-  * :func:`opencv_flow` — the OpenCV Farneback/DIS baselines: not ported,
-    it raises (ROADMAP Queue 1 item 7).
+    extractor, where matplotlib is installed (imported when called).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from opticalflow_tpu_torch.io.images import resize_bilinear_f32
-from opticalflow_tpu_torch.runtime import flowviz
+from opticalflow_tpu_torch.io.yuv import bgr_to_gray
+from opticalflow_tpu_torch.runtime import dis, flowviz
+from opticalflow_tpu_torch.viz.farneback import (FARNEBACK_PARAMS,
+                                                 farneback_flow)
 from opticalflow_tpu_torch.viz.text import put_text
 
 __all__ = ["arrow_overlay", "draw_arrows_batch", "draw_title", "fill_rect",
@@ -157,13 +165,24 @@ def arrow_overlay(frame_bgr: np.ndarray, flow: np.ndarray, *, step: int = 16,
 
 
 def opencv_flow(frame1_bgr: np.ndarray, frame2_bgr: np.ndarray,
-                method: str = "farneback") -> np.ndarray:
-    """The OpenCV baselines (Farneback, DIS, dense LK) of the comparison
-    mode are OpenCV's own algorithms and are not ported."""
-    raise NotImplementedError(
-        f"the OpenCV flow baseline {method!r} (extract_video --mode compare) "
-        "needs OpenCV's Farneback/DIS, which the port does not have; a "
-        "baseline without OpenCV is ROADMAP Queue 1 item 7")
+                method: str = "farneback", *,
+                device: Union[str, torch.device, None] = None) -> np.ndarray:
+    """Classical flow baselines for side-by-side comparison: the (H, W, 2)
+    float32 flow of OpenCV's ``farneback``, ``dis`` (DIS-medium) or
+    ``lucaskanade_dense`` from ``frame1_bgr`` to ``frame2_bgr``, as the
+    JAX package computes them with OpenCV.  Farneback runs on ``device``
+    (the card unless the CPU is asked for; a failure there raises), DIS
+    on the host."""
+    if method != "dis" and method not in FARNEBACK_PARAMS:
+        raise ValueError(f"unknown OpenCV flow method {method!r}")
+    g1, g2 = bgr_to_gray(frame1_bgr), bgr_to_gray(frame2_bgr)
+    if method == "dis":
+        return dis.dis_flow(g1, g2)
+    pyr_scale, levels, winsize, iterations, poly_n, poly_sigma = (
+        FARNEBACK_PARAMS[method])
+    return farneback_flow(g1, g2, pyr_scale=pyr_scale, levels=levels,
+                          winsize=winsize, iterations=iterations,
+                          poly_n=poly_n, poly_sigma=poly_sigma, device=device)
 
 
 def side_by_side(left: np.ndarray, right: np.ndarray) -> np.ndarray:

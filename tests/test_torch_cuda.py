@@ -958,3 +958,27 @@ def test_make_mesh_after_a_gloo_init_on_a_card_is_on_that_card(cuda_device):
         assert got.is_cuda and torch.equal(got, t)
     finally:
         meshlib.shutdown()
+
+
+@pytest.mark.parametrize("method", ["farneback", "lucaskanade_dense"])
+def test_farneback_on_the_card_matches_the_cpu(cuda_device, method):
+    """Compare mode's Farneback baseline as torch ops on the card against
+    the same function on the CPU (elementwise float32/float64, no
+    convolution, so no TF32): within 1e-4 px mean EPE."""
+    from opticalflow_tpu_torch.viz import farneback as fb
+    rng = np.random.default_rng(0)
+    ys, xs = np.mgrid[0:96, 0:160].astype(np.float64)
+    waves = rng.uniform(-0.3, 0.3, (12, 2))
+
+    def img(dx, dy):
+        v = sum(np.sin(a * (xs - dx) + b * (ys - dy)) for a, b in waves)
+        return np.clip(128 + 10 * v, 0, 255).astype(np.uint8)
+
+    g1, g2 = img(0.0, 0.0), img(1.3, -0.7)
+    keys = ("pyr_scale", "levels", "winsize", "iterations", "poly_n",
+            "poly_sigma")
+    params = dict(zip(keys, fb.FARNEBACK_PARAMS[method]))
+    card = fb.farneback_flow(g1, g2, device="cuda", **params)
+    cpu = fb.farneback_flow(g1, g2, device="cpu", **params)
+    assert card.shape == cpu.shape == (96, 160, 2)
+    assert np.hypot(*(card - cpu).transpose(2, 0, 1)).mean() <= 1e-4

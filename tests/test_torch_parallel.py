@@ -10,6 +10,9 @@ single-process results and the JAX package's.
     mean as a negative control; grad_accum=2 and the eval step;
   * the engine (a ragged N), ``evaluate_pairs`` and a lockstep
     ``FlowServer`` against one process;
+  * ``VideoFlowRunner(mesh=)`` with a partial last window, in bgr and in
+    i420 with ``grid_step``: each rank's triples against one process (the
+    frames bit for bit, the flows to 1e-5);
   * ``replicate`` of divergent weights raises on every rank; a SIGTERM on
     one rank stops both after the same step; ``--resume`` refuses ranks
     that see different latest steps; a ``--distributed`` epoch loads
@@ -49,6 +52,14 @@ FRACTIONS_2 = (0.8, 0.3)
 FRACTIONS_4 = (0.8, 0.3, 0.6, 0.1)
 
 
+def _moving_frames(rng, n, h, w):
+    base = (rng.rand(h + 20, w + 20, 3) * 255).astype(np.uint8)
+    base = ((base.astype(np.uint16) + np.roll(base, 1, 0)
+             + np.roll(base, 1, 1)) // 3).astype(np.uint8)
+    return [np.ascontiguousarray(base[10 - i:10 - i + h, 10 - 2 * i:
+                                      10 - 2 * i + w]) for i in range(n)]
+
+
 def _batch(fractions, seed):
     rng = np.random.RandomState(seed)
     b = len(fractions)
@@ -78,6 +89,8 @@ def inputs(jax_params, tmp_path_factory):
         "im1s": [u8() for _ in range(4)], "im2s": [u8() for _ in range(4)],
         "gts": [rng.randn(60, 70, 2).astype(np.float32) for _ in range(4)],
         "x64": rng.rand(2, 64, 64, 6).astype(np.float32),
+        # a texture moving 2 px right and 1 down a frame (the video runner)
+        "video": _moving_frames(rng, 6, 64, 128),
         # 6 temporal pairs: 3 steps an epoch for each rank at batch 2
         "kitti": synth_kitti(str(tmp_path_factory.mktemp("kitti")),
                              n_images=7, h=72, w=96)}
@@ -88,7 +101,7 @@ def world(inputs, tmp_path_factory):
     """The 2-rank world, started here and read by the first test that
     needs it (the JAX references compile meanwhile)."""
     w = World(str(tmp_path_factory.mktemp("world")), inputs,
-              ["train", "infer", "replicate", "train_cli"])
+              ["train", "infer", "replicate", "video", "train_cli"])
     yield w
     w.kill()
 
@@ -273,6 +286,30 @@ def test_lockstep_server_matches_flow_from_pair(world, inputs, engine):
         np.testing.assert_allclose(r["serve"], ref, rtol=0, atol=1e-5)
         assert "positive multiple of the engine's data-parallel width 2" \
             in r["bad_max_batch"]
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("bgr", {}), ("i420", {"upload": "i420", "grid_step": 16})])
+def test_video_runner_over_the_mesh_matches_one_process(world, inputs, name,
+                                                        kw):
+    """Every rank yields the one-process runner's triples: the frames bit
+    for bit, the flows to 1e-5; a batch the ranks do not divide is JAX's
+    ValueError."""
+    from opticalflow_tpu_torch.video import VideoFlowRunner
+    one = list(VideoFlowRunner(_model(inputs), None, batch=2, device="cpu",
+                               **kw).run(iter(inputs["video"])))
+    assert len(one) == 5
+    for r in world.results():
+        got = r[f"video_{name}"]
+        assert len(got) == len(one)
+        for (a, b, f), (a1, b1, f1) in zip(got, one):
+            np.testing.assert_array_equal(a, a1)
+            np.testing.assert_array_equal(b, b1)
+            assert f.shape == f1.shape
+            np.testing.assert_allclose(f, f1, atol=1e-5, rtol=0)
+        stats = r[f"video_{name}_stats"]
+        assert stats["windows"] == 3 and stats["bytes_broadcast"] > 0
+        assert r["video_odd"] == "batch 3 not divisible by mesh size 2"
 
 
 def test_replicate_divergent_weights_raises_on_every_rank(world):

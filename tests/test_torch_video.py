@@ -28,6 +28,7 @@ from opticalflow_tpu_torch import video
 from opticalflow_tpu_torch.io import yuv
 from opticalflow_tpu_torch.io.video import Y4MWriter
 from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+from opticalflow_tpu_torch.parallel import mesh as meshlib
 from oracles.torch_pwcnet import OraclePWC
 
 cv2 = pytest.importorskip("cv2")
@@ -213,8 +214,20 @@ def test_refusals():
         video.VideoFlowRunner(StubFlow(), upload="nv12", device="cpu")
     with pytest.raises(ValueError, match="preset"):
         video.VideoFlowRunner(StubFlow(), preset="bgr", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # the mesh runner (once not ported): a mesh that is not a Mesh, a batch
+    # the ranks do not divide (JAX's message) and a device not the mesh's
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         video.VideoFlowRunner(StubFlow(), mesh=object(), device="cpu")
+    two = meshlib.Mesh(group=None, rank=0, world=2,
+                       device=torch.device("cpu"), backend="gloo")
+    jax_mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]), ("data",))
+    with pytest.raises(ValueError) as jax_err:
+        jvideo.VideoFlowRunner(JaxPWCDCNet(variant="new"), None, batch=3,
+                               mesh=jax_mesh)
+    with pytest.raises(ValueError, match=str(jax_err.value)):
+        video.VideoFlowRunner(StubFlow(), batch=3, mesh=two)
+    with pytest.raises(ValueError, match="not the mesh's"):
+        video.VideoFlowRunner(StubFlow(), batch=2, mesh=two, device="cuda")
 
 
 def test_no_gpu_raises_unless_cpu_is_asked(monkeypatch):

@@ -158,14 +158,55 @@ def test_i420_upload_close_to_bgr_upload(setup):
 
 
 def test_what_is_not_ported_raises(setup):
+    """Compare mode, once not ported, writes frames twice the clip's
+    width; mp4 input is still refused."""
     base = [setup["clip"], str(setup["tmp"] / "x"), "--ckpt", setup["ckpt"],
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        extract_video.main(base + ["--mode", "compare"])
+    got = _run_cli(setup, "compare")
+    assert len(got) == N_FRAMES - 1
+    assert all(g.shape == (H, 2 * W, 3) for g in got)
     mp4 = setup["tmp"] / "clip.mp4"
     mp4.write_bytes(b"\x00\x00\x00\x18ftypmp42")
     with pytest.raises(ValueError, match="H.264"):
         extract_video.main([str(mp4)] + base[1:])
+
+
+@pytest.fixture(scope="module")
+def port_flows(setup):
+    """The port's runner over the clip's frames (the CLI's defaults for
+    compare mode: no decimation), float32 on the CPU."""
+    from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
+    from opticalflow_tpu_torch.train.checkpoints import load_params
+    from opticalflow_tpu_torch.video import VideoFlowRunner
+    runner = VideoFlowRunner(PWCDCNet(variant="new"),
+                             load_params(setup["ckpt"]), batch=2,
+                             device="cpu")
+    return [q for _, _, q in runner.run(iter(setup["frames"]))]
+
+
+@pytest.mark.parametrize("method", ["farneback", "dis", "lucaskanade_dense"])
+def test_compare_mode_draws_both_flows(setup, port_flows, method):
+    """Each frame is the ``side_by_side`` of the network's arrows
+    (``title="PWC-Net"``) and the baseline's lime arrows, built from the
+    port's parts, pixel for pixel; and with cv2's own baseline flow the
+    right half is the JAX package's ``arrow_overlay(..., color="lime")``
+    pixel for pixel (the two baselines are within 1e-3 px)."""
+    from opticalflow_tpu_torch.viz import overlay as ov
+    got = _run_cli(setup, "compare", "--compare-method", method)
+    frames = setup["frames"]
+    assert len(got) == len(frames) - 1
+    for k, (f1, f2) in enumerate(zip(frames[:-1], frames[1:])):
+        assert got[k].shape == (H, 2 * W, 3)
+        base = ov.opencv_flow(f1, f2, method, device="cpu")
+        want = ov.side_by_side(
+            ov.arrow_overlay(f1, port_flows[k], title="PWC-Net"),
+            ov.arrow_overlay(f1, base, title=method, color="lime"))
+        np.testing.assert_array_equal(got[k], want, err_msg=f"frame {k}")
+        cv2_base = jov.opencv_flow(f1, f2, method)
+        np.testing.assert_array_equal(
+            ov.arrow_overlay(f1, cv2_base, title=method, color="lime"),
+            jov.arrow_overlay(f1, cv2_base, title=method, color="lime"))
+        assert np.hypot(*(base - cv2_base).transpose(2, 0, 1)).mean() <= 1e-3
 
 
 def test_no_gpu_raises_unless_cpu_is_asked(setup, monkeypatch):

@@ -347,11 +347,25 @@ def test_golden_vanish_frame_shrink():
 # ---------------------------------------------------------------- the rest
 
 def test_side_by_side_quiver_and_what_is_not_ported(tmp_path):
+    """``side_by_side`` is JAX's; ``opencv_flow`` (the comparison
+    baselines, once not ported) gives the JAX package's OpenCV flow within
+    1e-3 px mean EPE for each method (measured ≤ 2e-7, see
+    ``test_torch_classic_flow.py``), and an unknown method is JAX's
+    ``ValueError``."""
     a, b = _rand_frame(10, 12, 1), _rand_frame(10, 7, 2)
     np.testing.assert_array_equal(ov.side_by_side(a, b),
                                   jov.side_by_side(a, b))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ov.opencv_flow(a, a, "farneback")
+    f1 = cv2.GaussianBlur(_rand_frame(40, 48, 3), (0, 0), 2.0)
+    f2 = np.ascontiguousarray(np.roll(f1, (1, 2), axis=(0, 1)))
+    for method in ("farneback", "dis", "lucaskanade_dense"):
+        got = ov.opencv_flow(f1, f2, method, device="cpu")
+        want = jov.opencv_flow(f1, f2, method)
+        assert got.shape == want.shape == (40, 48, 2)
+        assert np.hypot(*(got - want).transpose(2, 0, 1)).mean() <= 1e-3
+    with pytest.raises(ValueError) as jax_err:
+        jov.opencv_flow(f1, f2, "horn_schunck")
+    with pytest.raises(ValueError, match=re.escape(str(jax_err.value))):
+        ov.opencv_flow(f1, f2, "horn_schunck")
     try:
         import matplotlib  # noqa: F401
     except ImportError:

@@ -98,6 +98,23 @@ def group_infer(inputs, mesh, out, workdir):
     out["bad_max_batch"] = _raises(lambda: FlowServer(engine, max_batch=3))
 
 
+def group_video(inputs, mesh, out):
+    """The video runner over the mesh: 6 frames at B=2 (windows of 2, 2
+    and 1 pairs) in bgr, and in i420 with grid_step; rank 0 reads the
+    frames, the other rank passes None."""
+    from opticalflow_tpu_torch.video import VideoFlowRunner
+    for name, kw in (("bgr", {}), ("i420", {"upload": "i420",
+                                             "grid_step": 16})):
+        runner = VideoFlowRunner(_model(inputs), None, batch=2, mesh=mesh,
+                                 **kw)
+        frames = iter(inputs["video"]) if mesh.rank == 0 else None
+        out[f"video_{name}"] = [(a.copy(), b.copy(), f.copy())
+                                for a, b, f in runner.run(frames)]
+        out[f"video_{name}_stats"] = dict(runner.stats)
+    out["video_odd"] = _raises(lambda: VideoFlowRunner(
+        _model(inputs), None, batch=3, mesh=mesh))
+
+
 def _slab(x, mesh):
     """This rank's contiguous slab of H."""
     loc = x.shape[2] // mesh.world
@@ -221,7 +238,7 @@ def group_train_cli(inputs, mesh, out, workdir):
 
 GROUPS = {"train": group_train, "infer": group_infer,
           "spatial": group_spatial, "halo3": group_halo3,
-          "replicate": group_replicate,
+          "replicate": group_replicate, "video": group_video,
           "train_cli": group_train_cli}
 
 
