@@ -165,7 +165,25 @@ non-zero, and no result line is printed):
      moving 16-frame 720x1280 clip at B=4: 2w-wide output frames, K1 5 a
      window, fps over the whole run, the baseline's ms a pair (Farneback
      on the card, DIS on the host); (c) no cv2, PIL or imageio imported;
- 17. one JSON line listing every kernel with its launches on its path,
+ 17. MPEG-4 Part 2 video on the card machine, through neither OpenCV nor
+     FFmpeg (the port's codec, ``runtime/mpeg4.cpp``, built by g++ in
+     phase 1): (a) every fixture of
+     ``tests/goldens/video/`` decodes to its manifest's frame digests and
+     cv2's fps, size and count, the Motion JPEG one refused naming ROADMAP
+     item 8, cv2 and PIL not imported; (b) the port's writer takes a moving
+     48-frame clip at 720x1280 and at 1080x1920 into ``.mp4``: every frame
+     read back equals the encoder's reconstruction, I-VOPs at 0, 12, 24,
+     36; bytes, PSNR against the source, host ms a frame to encode and to
+     decode on one thread, and of BGR->I420 in C (the writers') against
+     its numpy reference; (c) ``cli/extract_video --mode arrows --batch 4
+     --dtype bfloat16`` from the 720p ``.mp4`` to an ``.mp4``, from the
+     same frames as ``.y4m`` to ``.y4m``, and 16 frames of the 1080p
+     ``.mp4`` (K2's levels): fps over each run, the decode and encode
+     threads' busy shares, K1 5 a window; (d) ``cli/capture_frame`` at
+     frame 30 (third GOP) equals ``read_frames``' frame 30; (e) ``cli/train
+     --regime pseudo`` for 2 steps at 4x384x512 over an ``.mp4`` of the
+     clip's first 9 frames: finite losses, K1 and B1 5 a step;
+ 18. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -176,7 +194,9 @@ CLI's runs (K1 and B1), the video CLIs' runs (K1), the serving CLI (K1,
 counted in its own process from 0) and the parity-mode server's burst, the
 loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 (K1 and B1, counted in each rank's process from 0), phase 15's JPEG
-paths (K1, and B1 in the pseudo steps), and phase 16's compare runs (K1).
+paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
+phase 17's MPEG-4 paths (K1 in the video CLI's runs, K1 and B1 in the
+pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -272,6 +292,13 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
     assert set(paths) == {"correlation_fwd", "correlation_bwd",
                           "fused_warp_corr", "row_gather"}, sorted(paths)
+    # the host codec: phase 11's I420 writers and uploads convert through
+    # it, phase 17 encodes and decodes with it
+    from opticalflow_tpu_torch.runtime import mpeg4
+    t0 = time.perf_counter()
+    mpeg4.load()
+    log(f"[1] built runtime/mpeg4.cpp (g++) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         report = path.with_name(path.name + ".ptxas.txt")
         lines = report.read_text().splitlines() if report.exists() else []
@@ -1573,7 +1600,8 @@ class PipelineRecorder:
     lasts (this script's instrumentation; the CLI is unchanged): keeps the
     ``VideoFlowRunner`` each builds, the host's busy seconds by stage (the
     decode thread inside ``io/video.read_frames``, the main thread's
-    top-view warps and draws, the encode thread's ``.y4m`` writes) and the
+    top-view warps and draws, the encode thread's ``.y4m`` or ``.mp4``
+    writes) and the
     times of the first frame read, the first draw and the writer's
     release."""
 
@@ -1627,6 +1655,7 @@ class PipelineRecorder:
                 (extract_video.Overlay, "__call__",
                  lambda r: timed("draw", r, "first_draw")),
                 (vio.Y4MWriter, "write", lambda r: timed("encode", r)),
+                (vio.Mpeg4Writer, "write", lambda r: timed("encode", r)),
                 (vio.AsyncVideoWriter, "release", released)):
             real = getattr(owner, name)
             self._saved.append((owner, name, real))
@@ -1670,7 +1699,7 @@ def video_cli(argv, n_frames: int, h: int, w: int):
     import contextlib
     import io
     from opticalflow_tpu_torch.cli import extract_video
-    from opticalflow_tpu_torch.io.video import Y4MFile
+    from opticalflow_tpu_torch.io.video import read_frame, video_info
     buf = io.StringIO()
     with PipelineRecorder() as rec, contextlib.redirect_stdout(buf):
         rc = extract_video.main(argv)
@@ -1679,12 +1708,12 @@ def video_cli(argv, n_frames: int, h: int, w: int):
     assert rc == 0 and len(rec.runners) == 1, (rc, len(rec.runners))
     printed = [float(line.split("(")[1].split()[0])
                for line in text.splitlines() if "fps steady-state" in line]
-    out = Y4MFile(argv[1])
+    info = video_info(argv[1])
     ow = 2 * w if "color" in argv or "compare" in argv else w
-    assert len(out) == n_frames - 1, (len(out), n_frames)
-    assert (out.height, out.width) == (h, ow), (out.height, out.width)
-    for i in (0, len(out) // 2, len(out) - 1):
-        assert out.frame(i).shape == (h, ow, 3)
+    assert info["frames"] == n_frames - 1, (info, n_frames)
+    assert (info["height"], info["width"]) == (h, ow), info
+    for i in (0, info["frames"] // 2, info["frames"] - 1):
+        assert read_frame(argv[1], i).shape == (h, ow, 3)
     runner, marks, busy = rec.runners[0], rec.marks, rec.busy
     pairs = n_frames - 1
     run_s = marks["released"] - marks["first_read"]
@@ -3562,6 +3591,213 @@ def phase_compare(sd, tmp, corr_fwd, card: str):
     return results
 
 
+# ------------------------------------------------------------ phase 17
+
+# MPEG-4 Part 2 video on the card machine, which has neither OpenCV nor
+# FFmpeg: the committed fixtures (tests/goldens/video/, written by
+# tests/make_video_fixtures.py with OpenCV's FFmpeg, every frame's digest
+# in its manifest.json), the port's writer at 720p and 1080p, the video CLI
+# from .mp4 to .mp4, capture_frame and the pseudo regime on an .mp4
+MP4_DIR = os.path.join(GOLD, "video")
+MP4_FRAMES = 48          # four GOPs of 12
+MP4_HD_RUN = 16          # frames of the 1080p CLI run (K2's levels)
+MP4_TRAIN_FRAMES = 9     # 8 pairs: 2 pseudo steps at batch 4
+MP4_CAPTURE = 30         # a frame of the third GOP
+MP4_CONVERT_FRAMES = 8   # frames of the BGR->I420 timing
+
+
+def psnr(decoded, frames) -> float:
+    import numpy as np
+    mse = np.mean([(d.astype(np.float64) - f) ** 2
+                   for d, f in zip(decoded, frames)])
+    return float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """MPEG-4 Part 2 through the port's entry points on the card machine:
+    (a) the fixtures decode to their digests, (b) the writer and reader at
+    720p and 1080p, (c) the video CLI from .mp4 to .mp4 and from .y4m to
+    .y4m, (d) capture_frame, (e) the pseudo regime.  Returns its results,
+    each path's K1 (and B1) launches among them."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import capture_frame
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.images import decode_png
+    from opticalflow_tpu_torch.runtime import mpeg4
+
+    from opticalflow_tpu_torch.io.yuv import rgb_to_i420
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) every fixture: its frames' digests and cv2's CAP_PROP_* values
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, want in sorted(manifest["files"].items()):
+        path = os.path.join(MP4_DIR, name)
+        if name == "mjpg.avi":          # Motion JPEG: refused, item 8
+            try:
+                vio.video_info(path)
+            except mpeg4.Unsupported as e:
+                assert "Queue 1 item 8" in str(e), e
+            else:
+                raise AssertionError("the Motion JPEG fixture was read")
+            continue
+        frames = list(vio.read_frames(path))
+        n_frames += len(frames)
+        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in
+                                        ("fps", "width", "height", "frames")}
+    present = [m for m in ("cv2", "PIL") if m in sys.modules]
+    assert not present, f"the port imported {present}"
+    log(f"[17] (a) {len(manifest['files']) - 1} video fixtures (written by "
+        f"OpenCV {manifest['opencv']}, FFmpeg {manifest['ffmpeg']}; "
+        f"mp4v/XVID/FMP4, 52x36 cropped, a still, raw I420 at full range, "
+        f"packets/4MV/rounding/dquant/MPEG quantisation) decoded to their "
+        f"{n_frames} frame digests and cv2's fps/size/count in "
+        f"{time.perf_counter() - t0:.2f} s; the Motion JPEG one refused "
+        f"naming item 8; cv2, PIL not imported; {card}")
+
+    # (b) the writer and reader at 720p and 1080p: every frame read back
+    # equals the encoder's reconstruction
+    rng = np.random.RandomState(17)
+    codec, clips = {}, {}
+    for tag, h, w in (("720p", VIDEO_H, VIDEO_W), ("1080p", HD_H, HD_W)):
+        frames = moving_frames(rng, MP4_FRAMES, h, w)
+        path = os.path.join(tmp, f"clip_{tag}.mp4")
+        wr = vio.Mpeg4Writer(path, 30.0, (w, h), keep_recon=True)
+        t0 = time.perf_counter()
+        for fr in frames:
+            wr.write(fr)
+        wr.release()
+        enc_ms = (time.perf_counter() - t0) / MP4_FRAMES * 1e3
+        t0 = time.perf_counter()
+        decoded = list(vio.read_frames(path))
+        dec_ms = (time.perf_counter() - t0) / MP4_FRAMES * 1e3
+        assert len(decoded) == MP4_FRAMES, len(decoded)
+        for k, (d, r) in enumerate(zip(decoded, wr.recon)):
+            assert np.array_equal(d, mpeg4.i420_to_bgr(*r)), (tag, k)
+        row = {"bytes": os.path.getsize(path), "psnr_db": psnr(decoded,
+                                                               frames),
+               "encode_ms": enc_ms, "decode_ms": dec_ms,
+               "keyframes": vio.EncodedVideo(path).keyframes}
+        assert row["keyframes"] == [0, 12, 24, 36], row["keyframes"]
+        # BGR -> I420: the C conversion the writers use against its numpy
+        # reference, on the same frames, one thread
+        ms = {}
+        for name, fn in (("c", mpeg4.to_i420), ("numpy", lambda f: rgb_to_i420(
+                np.ascontiguousarray(f[..., ::-1])))):
+            t0 = time.perf_counter()
+            packed = [fn(fr) for fr in frames[:MP4_CONVERT_FRAMES]]
+            ms[name] = ((time.perf_counter() - t0) / MP4_CONVERT_FRAMES
+                        * 1e3)
+            if name == "c":
+                ref = packed
+        assert all(np.array_equal(a, b) for a, b in zip(ref, packed))
+        row["to_i420_ms"], row["rgb_to_i420_ms"] = ms["c"], ms["numpy"]
+        log(f"[17] (b) BGR->I420 {h}x{w}: runtime/mpeg4.to_i420 (C) "
+            f"{ms['c']:.2f} ms a frame, io/yuv.rgb_to_i420 (numpy) "
+            f"{ms['numpy']:.2f}, equal on {MP4_CONVERT_FRAMES} frames; "
+            f"{card}")
+        codec[tag] = row
+        clips[tag] = (path, frames, decoded)
+        log(f"[17] (b) {MP4_FRAMES} moving frames {h}x{w} -> .mp4 by the "
+            f"port's writer: {row['bytes']} bytes "
+            f"({row['bytes'] / MP4_FRAMES:.0f} a frame), PSNR "
+            f"{row['psnr_db']!r} dB against the source, host "
+            f"{enc_ms:.2f} ms a frame to encode (BGR->I420, VOP, mux) and "
+            f"{dec_ms:.2f} to decode (demux, VOP, I420->BGR), one thread; "
+            f"every frame read back equals the encoder's reconstruction; "
+            f"I-VOPs at {row['keyframes']}; {card}")
+
+    # (c) the video CLI: the 720p .mp4 to .mp4, the same frames as .y4m to
+    # .y4m, and one run at 1080p (K2's levels)
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    y4m = os.path.join(tmp, "clip_720p.y4m")
+    write_clip(y4m, clips["720p"][2])
+    cli_rows = {}
+    for tag, src, out, n, h, w, extra in (
+            ("mp4", clips["720p"][0], "out_720p.mp4", MP4_FRAMES, VIDEO_H,
+             VIDEO_W, ()),
+            ("y4m", y4m, "out_720p.y4m", MP4_FRAMES, VIDEO_H, VIDEO_W, ()),
+            ("mp4_1080p", clips["1080p"][0], "out_1080p.mp4", MP4_HD_RUN,
+             HD_H, HD_W, ("--max-frames", str(MP4_HD_RUN)))):
+        k0 = corr_fwd.launches
+        row = video_cli([src, os.path.join(tmp, out), "--ckpt", ckpt,
+                         "--mode", "arrows", "--batch", str(VIDEO_B),
+                         "--dtype", "bfloat16", "--device", "cuda", *extra],
+                        n, h, w)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(n - 1) // VIDEO_B), windows
+        assert launched == 5 * windows, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        cli_rows[tag] = row
+        log(f"[17] (c) extract_video --mode arrows B={VIDEO_B} bf16, "
+            f"{tag} ({n} frames {h}x{w}): {row['fps']!r} fps over the run "
+            f"({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode "
+            f"thread busy {row['decode_share']:.1%} ({row['decode_ms']:.2f} "
+            f"ms a frame), encode thread {row['encode_share']:.1%} "
+            f"({row['encode_ms']:.2f} ms a frame), draw "
+            f"{row['draw_share']:.1%}, wait {row['wait_share']:.1%}; "
+            f"{windows} windows, K1 {launched} launches; {card}")
+    launches["cli"] = sum(r["k1_launches"] for r in cli_rows.values())
+
+    # (d) capture_frame at a frame of the third GOP
+    png = os.path.join(tmp, "frame30.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert capture_frame.main([clips["720p"][0], str(MP4_CAPTURE),
+                                   png]) == 0
+    with open(png, "rb") as f:
+        got = decode_png(f.read())[..., ::-1]
+    assert np.array_equal(got, clips["720p"][2][MP4_CAPTURE])
+    log(f"[17] (d) capture_frame at frame {MP4_CAPTURE} (I-VOP 24, then 6 "
+        f"P-VOPs) equals read_frames' frame {MP4_CAPTURE}")
+
+    # (e) the pseudo regime over an .mp4 of the first frames (384x512)
+    train_mp4 = os.path.join(tmp, "train.mp4")
+    wr = vio.Mpeg4Writer(train_mp4, 30.0, (VIDEO_W, VIDEO_H))
+    for fr in clips["720p"][1][:MP4_TRAIN_FRAMES]:
+        wr.write(fr)
+    wr.release()
+    out_dir = os.path.join(tmp, "mp4_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_mp4, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (MP4_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[17] (e) cli/train --regime pseudo over an .mp4 of "
+        f"{MP4_TRAIN_FRAMES} frames ({VIDEO_H}x{VIDEO_W} -> 384x512), "
+        f"{steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+    # (the training CLI draws its loss curve with matplotlib where it is
+    # installed, which imports PIL; the card machine has neither)
+    assert "cv2" not in sys.modules, "the port imported OpenCV"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[17] phase 17 took {phase_s:.1f} s; {card}")
+    return {"fixtures": len(manifest["files"]), "codec": codec,
+            "cli": cli_rows, "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3695,6 +3931,16 @@ def main() -> int:
         compare = phase_compare(sd, tmp, correlation_cuda, card_line())
     compare_launches = correlation_cuda.launches  # ... and ends here
     assert compare_launches > 0
+    zero_counts()                           # the MPEG-4 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        mp4 = phase_mp4(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                        card_line())
+    # ... and end here: the video CLI's runs and the pseudo steps
+    mp4_launches = mp4["launches"]["cli"] + \
+        mp4["launches"]["pseudo"]["correlation_fwd"]
+    assert mp4_launches == correlation_cuda.launches > 0
+    assert mp4["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -3733,7 +3979,10 @@ def main() -> int:
          # CLI over a JPEG directory at 1080x1920: 5 a forward)
          "launches_jpeg": jpeg_launches, "jpeg": jpg,
          # phase 16: compare mode, the three baselines (5 a window)
-         "launches_compare": compare_launches, "compare": compare},
+         "launches_compare": compare_launches, "compare": compare,
+         # phase 17: the video CLI over .mp4 (720p, 1080p) and .y4m, and
+         # the pseudo steps over an .mp4 (5 a window, 5 a step)
+         "launches_mp4": mp4_launches, "mp4": mp4},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -3759,7 +4008,9 @@ def main() -> int:
                  dp["launches"]["one_rank_nccl"]["correlation_bwd"]},
          # phase 15: the pseudo regime's steps over JPEG frames, 5 a step
          "launches_jpeg_pseudo":
-             jpg["launches"]["pseudo"]["correlation_bwd"]},
+             jpg["launches"]["pseudo"]["correlation_bwd"],
+         # phase 17: the pseudo regime's steps over an .mp4, 5 a step
+         "launches_mp4": mp4["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -1,10 +1,12 @@
 """Grab frame N of a video as a PNG (a fixture generator: the reference's
 ``capture_frame.py`` capability), without OpenCV.
 
-Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is a
-``.y4m`` file or a directory of PNG or JPEG frames (``io/video.py``)::
+Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is an
+``.mp4`` or ``.avi`` file (MPEG-4 Part 2, decoded from the keyframe before
+the frame, as FFmpeg's seek does), a ``.y4m`` file or a directory of PNG or
+JPEG frames (``io/video.py``)::
 
-    python -m opticalflow_tpu_torch.cli.capture_frame clip.y4m 10 frame.png
+    python -m opticalflow_tpu_torch.cli.capture_frame clip.mp4 10 frame.png
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import sys
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
-    p.add_argument("video", help=".y4m file or PNG/JPEG frame directory")
+    p.add_argument("video", help=".mp4, .avi or .y4m file, or PNG/JPEG "
+                                 "frame directory")
     p.add_argument("frame", type=int)
     p.add_argument("out", nargs="?", default=None)
     args = p.parse_args(argv)

@@ -3,10 +3,12 @@
 in, overlay video out.
 
 Counterpart of ``opticalflow_tpu.cli.extract_video`` with the same flags
-plus ``--device`` (default ``cuda``).  Video is read as ``.y4m``
-(YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG or JPEG frames, and
-written as ``.y4m`` or PNG frames (``io/video.py``): the GPU machine has
-no H.264 decoder or encoder.
+plus ``--device`` (default ``cuda``).  Video is read from an ``.mp4`` or
+``.avi`` file (MPEG-4 Part 2, what ``cv2.VideoWriter`` writes with
+``mp4v``), a ``.y4m`` file (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG
+or JPEG frames, and written as ``.mp4`` (MPEG-4 Part 2, as the JAX CLI
+writes), ``.avi``, ``.y4m`` or PNG frames (``io/video.py``; no OpenCV or
+FFmpeg).
 Overlay modes:
 
   * ``arrows``  — arrow quiver (default)
@@ -20,7 +22,7 @@ Overlay modes:
 
 ::
 
-    python -m opticalflow_tpu_torch.cli.extract_video clip.y4m out.y4m \\
+    python -m opticalflow_tpu_torch.cli.extract_video clip.mp4 out.mp4 \\
         --ckpt pwc_net.pth.tar --mode arrows --upload i420
 """
 
@@ -41,9 +43,10 @@ COMPARE_TITLE = "PWC-Net"
 def build_parser():
     p = argparse.ArgumentParser(
         description="Video optical-flow extraction (PyTorch/CUDA)")
-    p.add_argument("video",
-                   help="input .y4m file or PNG/JPEG frame directory")
-    p.add_argument("out", help="output .y4m file or PNG frame directory")
+    p.add_argument("video", help="input .mp4, .avi or .y4m file, or PNG/JPEG "
+                                 "frame directory")
+    p.add_argument("out", help="output video path (.mp4, .avi or .y4m) or "
+                               "PNG frame directory")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--variant", choices=("new", "old"), default="new")
     p.add_argument("--mode", default="arrows",

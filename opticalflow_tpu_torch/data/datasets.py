@@ -13,9 +13,9 @@ PNG reader; batching and prefetch live in ``data/loader.py``.
     16-bit GT flow (``inference_kitti.py:134-202``);
   * :class:`SintelPairs` — MPI-Sintel clean/final with ``.flo`` GT;
   * :class:`ConsecutiveFrames` — frame_t/frame_{t+stride} pairs from a
-    directory of frames or a ``.y4m`` video for self-supervised training
-    (``train_pseudo.py:23-62``); other containers (mp4/H.264) are not read
-    (ROADMAP Queue 1 item 8).
+    directory of frames or a video file (``.mp4``/``.avi`` MPEG-4 Part 2,
+    ``.y4m``) for self-supervised training (``train_pseudo.py:23-62``);
+    H.264 and other codecs are not read (ROADMAP Queue 1 item 8).
 
 The JAX module resizes with OpenCV; here ``io.images`` does, with
 OpenCV's rules: the uint8 frames through ``resize_bilinear_u8``
@@ -26,6 +26,7 @@ OpenCV's rules: the uint8 frames through ``resize_bilinear_u8``
 from __future__ import annotations
 
 import os
+import threading
 from glob import glob
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,7 +39,7 @@ from opticalflow_tpu_torch.io.images import (load_image, preprocess_pair,
                                              resize_bilinear_u8,
                                              resize_nearest)
 from opticalflow_tpu_torch.io.kitti import read_flow_png
-from opticalflow_tpu_torch.io.video import Y4MFile
+from opticalflow_tpu_torch.io.video import EncodedVideo, Y4MFile
 
 __all__ = ["KittiFlowTrain", "KittiPairsEval", "SintelPairs",
            "ConsecutiveFrames"]
@@ -209,14 +210,16 @@ class SintelPairs:
 
 class ConsecutiveFrames:
     """frame_t / frame_{t+stride} pairs for self-supervised training, from a
-    directory of ``*.png`` / ``*.jpg`` / ``*.jpeg`` frames or a ``.y4m``
-    video (``io/video.Y4MFile``, frames read by index)
+    directory of ``*.png`` / ``*.jpg`` / ``*.jpeg`` frames or a video file
     (``train_pseudo.py:23-62``), each resized to ``size_hw`` and
-    preprocessed with ``preset``.  PNG, JPEG (the port's own decoders,
-    ``io/images.load_image``; no EXIF rotation, as imageio and PIL read
-    them) and y4m frames need nothing beyond numpy and g++.  Another video
-    container (mp4/H.264) raises: the port has no decoder for it (ROADMAP
-    Queue 1 item 8)."""
+    preprocessed with ``preset``.  PNG and JPEG frames go through the
+    port's own decoders (``io/images.load_image``; no EXIF rotation, as
+    imageio and PIL read them); a ``.y4m`` file is read by frame index; an
+    ``.mp4`` or ``.avi`` (MPEG-4 Part 2, ``io/video.EncodedVideo``) keeps one
+    open decoder and reads in order without seeking, with the last few
+    frames cached for the pairs' overlap, as the JAX class keeps one
+    ``cv2.VideoCapture``.  Other codecs (H.264, Motion JPEG, ...) raise,
+    naming ROADMAP Queue 1 item 8."""
 
     def __init__(self, source: str, size_hw: Tuple[int, int] = (384, 512),
                  stride: int = 1, preset: str = "rgb_imagenet"):
@@ -231,11 +234,8 @@ class ConsecutiveFrames:
             self.video = Y4MFile(source)
             self.frames = list(range(len(self.video)))
         elif os.path.exists(source):
-            raise NotImplementedError(
-                f"{source!r}: the port reads frames from a directory of PNG "
-                "or JPEG frames or a .y4m file; other video containers "
-                "(mp4/H.264) are ROADMAP Queue 1 item 8 (convert with "
-                "`ffmpeg -i in.mp4 -pix_fmt yuv420p out.y4m`)")
+            self.video = EncodedVideo(source)   # raises for other kinds
+            self.frames = list(range(len(self.video)))
         else:
             raise FileNotFoundError(source)
         self.stride = stride
@@ -243,6 +243,8 @@ class ConsecutiveFrames:
                       for i in range(0, len(self.frames) - stride)]
         if not self.index:
             raise FileNotFoundError(f"not enough frames in {source}")
+        self._cache: dict = {}           # the last few decoded frames
+        self._lock = threading.Lock()    # the loader reads from threads
 
     def __len__(self):
         return len(self.index)
@@ -250,7 +252,16 @@ class ConsecutiveFrames:
     def _read(self, key) -> np.ndarray:
         if self.video is None:
             return load_image(self.frames[key])
-        return np.ascontiguousarray(self.video.frame(key)[..., ::-1])
+        if isinstance(self.video, Y4MFile):
+            return np.ascontiguousarray(self.video.frame(key)[..., ::-1])
+        with self._lock:
+            hit = self._cache.get(key)
+            if hit is None:
+                hit = np.ascontiguousarray(self.video.read(key)[..., ::-1])
+                self._cache[key] = hit
+                while len(self._cache) > 4:
+                    self._cache.pop(next(iter(self._cache)))
+            return hit
 
     def __getitem__(self, idx: int):
         a, b = self.index[idx]

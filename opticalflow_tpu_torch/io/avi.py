@@ -1,0 +1,258 @@
+"""RIFF AVI video: the demuxer and muxer of the port's video path, in
+Python (no FFmpeg).
+
+:class:`AviFile` reads the first video stream: ``avih``, ``strh``/``strf``
+(``fccHandler``, ``biCompression`` and the extradata after the
+BITMAPINFOHEADER), the ``##dc``/``##db`` chunks of every ``movi`` list
+(``RIFF AVIX`` continuations included) and ``idx1`` with its keyframe
+flags.  It knows two kinds of payload, by ``biCompression`` as FFmpeg
+picks the codec:
+
+  * MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``, ``DX50``, ``mp4v``,
+    ``MP4V``): decoded by ``runtime/mpeg4``;
+  * raw I420 (``I420``, ``IYUV``): Y, U and V planes.
+
+Anything else (``MJPG``, ``H264``, ...) raises ``Unsupported``, naming
+ROADMAP Queue 1 item 8.  fps is ``rate / scale`` of the stream header, the
+frame count the number of the stream's chunks, as ``cv2.VideoCapture``
+reports them.
+
+:class:`AviWriter` writes MPEG-4 Part 2 samples under ``FMP4`` (FFmpeg's
+own fourcc, which selects no other decoder's workarounds), with ``idx1``.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import BinaryIO, List, Optional, Tuple
+
+from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+
+__all__ = ["AviFile", "AviWriter", "MPEG4_TAGS", "RAW_TAGS"]
+
+MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
+RAW_TAGS = {"I420", "IYUV"}
+_NAMES = {"MJPG": "Motion JPEG", "mjpg": "Motion JPEG", "H264": "H.264",
+          "h264": "H.264", "X264": "H.264", "x264": "H.264", "avc1": "H.264",
+          "HEVC": "HEVC", "hev1": "HEVC"}
+_KEYFRAME = 0x10   # AVIIF_KEYFRAME
+_RIFF_MAX = (1 << 32) - 1
+
+
+class AviFile:
+    """The first video stream of an AVI file."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.offsets: List[int] = []
+        self.sizes: List[int] = []
+        self.dsi = b""
+        self.scale = self.rate = 0
+        self.tag = ""
+        self._stream: Optional[int] = None
+        size = os.path.getsize(path)
+        idx1: Optional[List[Tuple[bytes, int, int, int]]] = None
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"AVI ":
+                raise ValueError(f"{path}: not an AVI file")
+            pos = 0
+            while pos + 12 <= size:
+                f.seek(pos)
+                riff, n, form = struct.unpack("<4sI4s", f.read(12))
+                if riff != b"RIFF" or form not in (b"AVI ", b"AVIX"):
+                    break
+                end = min(pos + 8 + n, size)
+                try:
+                    idx = self._riff(f, pos + 12, end)
+                except (struct.error, IndexError) as e:
+                    raise ValueError(f"{path}: malformed AVI ({e!r})") from e
+                if idx1 is None:
+                    idx1 = idx
+                pos = pos + 8 + n + (n & 1)
+        if self._stream is None:
+            raise ValueError(f"{path}: no video stream")
+        if not self.sizes:
+            raise ValueError(f"{path}: no video frames (truncated file?)")
+        self.keyframes = self._keys(idx1 or [])
+
+    def _riff(self, f, start: int, end: int):
+        """Read one RIFF chunk's lists; returns its idx1 entries."""
+        idx1 = []
+        pos = start
+        while pos + 8 <= end:
+            f.seek(pos)
+            fcc, n = struct.unpack("<4sI", f.read(8))
+            if fcc == b"LIST":
+                kind = f.read(4)
+                if kind == b"hdrl":
+                    self._hdrl(f, pos + 12, min(pos + 8 + n, end))
+                elif kind == b"movi":
+                    self._movi(f, pos + 12, min(pos + 8 + n, end))
+            elif fcc == b"idx1":
+                data = f.read(min(n, end - pos - 8))
+                idx1 = [struct.unpack("<4sIII", data[i:i + 16])
+                        for i in range(0, len(data) - 15, 16)]
+            pos += 8 + n + (n & 1)
+        return idx1
+
+    def _hdrl(self, f, start: int, end: int) -> None:
+        pos, stream = start, -1
+        while pos + 8 <= end:
+            f.seek(pos)
+            fcc, n = struct.unpack("<4sI", f.read(8))
+            if fcc == b"LIST" and f.read(4) == b"strl":
+                stream += 1
+                if self._stream is None:
+                    self._strl(f, pos + 12, min(pos + 8 + n, end), stream)
+            pos += 8 + n + (n & 1)
+
+    def _strl(self, f, start: int, end: int, stream: int) -> None:
+        pos, video = start, False
+        while pos + 8 <= end:
+            f.seek(pos)
+            fcc, n = struct.unpack("<4sI", f.read(8))
+            body = f.read(min(n, end - pos - 8))
+            if fcc == b"strh" and body[:4] == b"vids":
+                video = True
+                self.scale, self.rate = struct.unpack("<II", body[20:28])
+            elif fcc == b"strf" and video:
+                if len(body) < 40:
+                    raise ValueError(f"{self.path}: truncated strf")
+                self.width, h, _, _, comp = struct.unpack("<iiHH4s",
+                                                          body[4:20])
+                self.height = abs(h)
+                self.tag = comp.decode("latin1")
+                self.dsi = body[40:]
+            pos += 8 + n + (n & 1)
+        if video:
+            self._stream = stream
+            if self.tag not in MPEG4_TAGS | RAW_TAGS:
+                name = _NAMES.get(self.tag, f"the {self.tag!r} codec")
+                raise Unsupported(f"{self.path}: {name} video (fourcc "
+                                  f"{self.tag!r}): the port reads MPEG-4 "
+                                  f"Part 2 and raw I420 AVI only ({ITEM_8})")
+            self.codec = "mpeg4" if self.tag in MPEG4_TAGS else "i420"
+
+    def _movi(self, f, start: int, end: int) -> None:
+        want = (b"%02d" % self._stream) if self._stream is not None else None
+        pos = start
+        while pos + 8 <= end:
+            f.seek(pos)
+            fcc, n = struct.unpack("<4sI", f.read(8))
+            if fcc == b"LIST":   # rec lists hold the chunks
+                self._movi(f, pos + 12, min(pos + 8 + n, end))
+            elif fcc[:2] == want and fcc[2:] in (b"dc", b"db"):
+                if pos + 8 + n > end:
+                    raise ValueError(f"{self.path}: frame {len(self.sizes)} "
+                                     "is truncated")
+                self.offsets.append(pos + 8)
+                self.sizes.append(n)
+            pos += 8 + n + (n & 1)
+
+    def _keys(self, idx1) -> List[int]:
+        """Indices of the keyframes: idx1's flags for the frames it covers;
+        frames past it (AVIX parts) count as keyframes when they are
+        MPEG-4 I-VOPs, and all raw frames are."""
+        if self.codec == "i420":
+            return list(range(len(self.sizes)))
+        want = b"%02d" % self._stream
+        flags = [fl for fcc, fl, _, _ in idx1
+                 if fcc[:2] == want and fcc[2:] in (b"dc", b"db")]
+        keys = [i for i, fl in enumerate(flags[:len(self.sizes)])
+                if fl & _KEYFRAME]
+        if len(flags) < len(self.sizes):
+            with open(self.path, "rb") as f:
+                for i in range(len(flags), len(self.sizes)):
+                    f.seek(self.offsets[i])
+                    if _is_ivop(f.read(min(self.sizes[i], 4096))):
+                        keys.append(i)
+        return keys or [0]
+
+    @property
+    def frames(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def fps(self) -> float:
+        return self.rate / self.scale if self.scale else 0.0
+
+    def sample(self, f: BinaryIO, i: int) -> bytes:
+        f.seek(self.offsets[i])
+        data = f.read(self.sizes[i])
+        if len(data) != self.sizes[i]:
+            raise ValueError(f"{self.path}: frame {i} is truncated")
+        return data
+
+
+def _is_ivop(head: bytes) -> bool:
+    i = head.find(b"\x00\x00\x01\xb6")
+    return i >= 0 and i + 4 < len(head) and head[i + 4] >> 6 == 0
+
+
+class AviWriter:
+    """MPEG-4 Part 2 samples (with in-band VOL headers) → an AVI file
+    under fourcc ``FMP4``, with an ``idx1`` index."""
+
+    def __init__(self, path: str, size: Tuple[int, int],
+                 rate: Tuple[int, int]):
+        self.path = path
+        self.w, self.h = size
+        self.num, self.den = rate
+        self.index: List[Tuple[int, int, bool]] = []
+        self._f: Optional[BinaryIO] = open(path, "wb")
+        self._f.write(self._header(0, 0))
+        self._movi = self._f.tell() - 4   # the 'movi' fourcc
+
+    def _header(self, frames: int, maxsize: int) -> bytes:
+        usec = int(round(1e6 * self.den / self.num))
+        avih = struct.pack("<10I16x", usec, 0, 0, 0x10, frames, 0, 1,
+                           maxsize, self.w, self.h)
+        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"FMP4", 0, 0, 0,
+                           0, self.den, self.num, 0, frames, maxsize,
+                           0xFFFFFFFF, 0, 0, 0, self.w, self.h)
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.w, self.h, 1, 24,
+                           b"FMP4", self.w * self.h * 3, 0, 0, 0, 0)
+        strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
+        return b"RIFF\0\0\0\0AVI " + hdrl + b"LIST\0\0\0\0movi"
+
+    def write(self, sample: bytes, key: bool) -> None:
+        f = self._f
+        pos = f.tell()
+        if pos + 8 + len(sample) + 16 * (len(self.index) + 1) > _RIFF_MAX:
+            raise ValueError(f"{self.path}: AVI output past 4 GiB is not "
+                             "written (use .mp4)")
+        self.index.append((pos - self._movi, len(sample), key))
+        f.write(_chunk(b"00dc", sample))
+
+    def release(self) -> None:
+        f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            end = f.tell()
+            f.seek(self._movi - 4)
+            f.write(struct.pack("<I", end - self._movi))
+            f.seek(end)
+            f.write(_chunk(b"idx1", b"".join(
+                struct.pack("<4sIII", b"00dc", _KEYFRAME if k else 0, off, n)
+                for off, n, k in self.index)))
+            total = f.tell()
+            f.seek(0)
+            maxsize = max([n for _, n, _ in self.index] or [0])
+            head = self._header(len(self.index), maxsize)
+            f.write(head[:-12])   # the headers, now with counts and sizes
+            f.seek(4)
+            f.write(struct.pack("<I", total - 8))
+        finally:
+            f.close()
+
+
+def _chunk(fcc: bytes, data: bytes) -> bytes:
+    return struct.pack("<4sI", fcc, len(data)) + data + b"\0" * (len(data) & 1)
+
+
+def _list(kind: bytes, data: bytes) -> bytes:
+    return struct.pack("<4sI", b"LIST", len(data) + 4) + kind + data

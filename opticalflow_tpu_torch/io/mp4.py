@@ -1,0 +1,421 @@
+"""ISO BMFF (``.mp4``) video: the demuxer and muxer of the port's MPEG-4
+Part 2 path, in Python (no FFmpeg).
+
+:class:`Mp4File` reads the first video track: ``ftyp``, ``moov`` before or
+after ``mdat``, ``trak/mdia/minf/stbl`` (``stsd`` with its ``mp4v`` entry
+and the ``esds`` DecoderSpecificInfo, ``stts``, ``stss``, ``stsc``,
+``stsz``, ``stco``/``co64``), the ``mdhd`` timescale and the ``elst`` as
+FFmpeg applies it to these files (empty and zero-offset edits change no
+frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
+``timescale · samples / Σ durations`` (FFmpeg's ``avg_frame_rate``) and the
+sample count.  Other codecs' sample entries (``avc1``, ``hev1``, ...) raise
+``Unsupported``, naming ROADMAP Queue 1 item 8.
+
+:class:`Mp4Writer` writes what FFmpeg's mov muxer writes for ``mp4v``:
+``ftyp``, ``mdat``, and at :meth:`~Mp4Writer.release` a ``moov`` with
+``mvhd``, ``tkhd``, ``mdhd``, ``hdlr vide``, ``vmhd``, ``dinf``,
+``stsd mp4v + esds``, ``stts``, ``stss``, ``stsc``, ``stsz`` and
+``stco`` (``co64`` past 4 GiB).
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import BinaryIO, Dict, List, Optional, Tuple
+
+from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+
+__all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
+
+# sample entries of other video codecs, by what they are
+VIDEO_CODECS = {
+    "avc1": "H.264", "avc3": "H.264", "H264": "H.264", "h264": "H.264",
+    "hev1": "HEVC", "hvc1": "HEVC", "av01": "AV1", "vp08": "VP8",
+    "vp09": "VP9", "mjpa": "Motion JPEG", "mjpb": "Motion JPEG",
+    "jpeg": "Motion JPEG", "mp4v": "MPEG-4 Part 2",
+}
+# esds objectTypeIndication of MPEG-4 Visual
+_OTI_MPEG4_VISUAL = 0x20
+
+
+def _boxes(f: BinaryIO, start: int, end: int, what: str):
+    """(type, body offset, box end) of each box in [start, end)."""
+    off = start
+    while off + 8 <= end:
+        f.seek(off)
+        head = f.read(16)
+        if len(head) < 8:
+            raise ValueError(f"{what}: truncated box at byte {off}")
+        size, typ = struct.unpack(">I4s", head[:8])
+        hdr = 8
+        if size == 1:
+            if len(head) < 16:
+                raise ValueError(f"{what}: truncated box at byte {off}")
+            size = struct.unpack(">Q", head[8:16])[0]
+            hdr = 16
+        elif size == 0:
+            size = end - off
+        if size < hdr or off + size > end:
+            raise ValueError(f"{what}: box {typ!r} at byte {off} runs past "
+                             f"its parent (truncated file?)")
+        yield typ.decode("latin1"), off + hdr, off + size
+        off += size
+
+
+def _full(body: bytes) -> Tuple[int, bytes]:
+    """(version, rest) of a full box's body."""
+    if len(body) < 4:
+        raise ValueError("truncated full box")
+    return body[0], body[4:]
+
+
+def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
+    """(tag, payload start, payload end) of an MPEG-4 descriptor."""
+    tag = data[pos]
+    pos += 1
+    n = 0
+    for _ in range(4):
+        c = data[pos]
+        pos += 1
+        n = (n << 7) | (c & 0x7F)
+        if not c & 0x80:
+            break
+    if pos + n > len(data):
+        raise ValueError("truncated esds descriptor")
+    return tag, pos, pos + n
+
+
+def _esds_dsi(body: bytes, what: str) -> bytes:
+    """The DecoderSpecificInfo of an ``esds`` box (the VOS/VO/VOL headers)."""
+    _, es = _full(body)
+    tag, p, end = _descriptor(es, 0)
+    if tag != 3:
+        raise ValueError(f"{what}: esds without an ES_Descriptor")
+    flags = es[p + 2]
+    p += 3
+    if flags & 0x80:
+        p += 2
+    if flags & 0x40:
+        p += 1 + es[p]
+    if flags & 0x20:
+        p += 2
+    tag, p, dend = _descriptor(es, p)
+    if tag != 4:
+        raise ValueError(f"{what}: esds without a DecoderConfigDescriptor")
+    oti = es[p]
+    if oti != _OTI_MPEG4_VISUAL:
+        raise Unsupported(f"{what}: mp4v track of objectTypeIndication "
+                          f"0x{oti:02x}, not MPEG-4 Visual: the port decodes "
+                          f"MPEG-4 Part 2 only ({ITEM_8})")
+    p += 13
+    if p < dend:
+        tag, p, e = _descriptor(es, p)
+        if tag == 5:
+            return es[p:e]
+    return b""
+
+
+class Mp4File:
+    """The first video track of an ``.mp4``/``.mov`` file: its samples'
+    offsets and sizes, keyframes (sync samples), DecoderSpecificInfo and
+    timing."""
+
+    codec = "mpeg4"
+
+    def __init__(self, path: str):
+        self.path = path
+        self._size = size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            moov = None
+            for typ, body, end in _boxes(f, 0, size, path):
+                if typ == "moov":
+                    moov = (body, end)
+            if moov is None:
+                raise ValueError(f"{path}: no moov box (not an MP4 file, or "
+                                 "a truncated one)")
+            try:
+                self._read_trak(f, self._video_trak(f, *moov))
+            except (struct.error, KeyError, IndexError) as e:
+                raise ValueError(f"{path}: malformed MP4 track ({e!r})") \
+                    from e
+        for off, n in zip(self.offsets, self.sizes):
+            if off + n > size:
+                raise ValueError(f"{path}: sample at byte {off} runs past the "
+                                 "end of the file (truncated)")
+
+    # ---- parsing
+
+    def _children(self, f, body, end) -> Dict[str, Tuple[int, int]]:
+        out: Dict[str, Tuple[int, int]] = {}
+        for typ, b, e in _boxes(f, body, end, self.path):
+            out.setdefault(typ, (b, e))
+        return out
+
+    def _read(self, f, span) -> bytes:
+        f.seek(span[0])
+        return f.read(span[1] - span[0])
+
+    def _video_trak(self, f, body, end):
+        for typ, b, e in _boxes(f, body, end, self.path):
+            if typ != "trak":
+                continue
+            mdia = self._children(f, b, e).get("mdia")
+            if not mdia:
+                continue
+            hdlr = self._children(f, *mdia).get("hdlr")
+            if hdlr and self._read(f, hdlr)[8:12] == b"vide":
+                return b, e
+        raise ValueError(f"{self.path}: no video track")
+
+    def _read_trak(self, f, trak) -> None:
+        kids = self._children(f, *trak)
+        mdia = self._children(f, *kids["mdia"])
+        ver, mdhd = _full(self._read(f, mdia["mdhd"]))
+        self.timescale = struct.unpack(">I", mdhd[16:20] if ver else
+                                       mdhd[8:12])[0]
+        if not self.timescale:
+            raise ValueError(f"{self.path}: mdhd timescale 0")
+        if "edts" in kids:
+            elst = self._children(f, *kids["edts"]).get("elst")
+            if elst:
+                self._check_edits(self._read(f, elst))
+        stbl = self._children(f, *self._children(f, *mdia["minf"])["stbl"])
+        for need in ("stsd", "stts", "stsc", "stsz"):
+            if need not in stbl:
+                raise ValueError(f"{self.path}: no {need} box")
+        self._read_stsd(self._read(f, stbl["stsd"]))
+        self.sizes = self._stsz(self._read(f, stbl["stsz"]))
+        n = len(self.sizes)
+        if "stco" in stbl:
+            _, b = _full(self._read(f, stbl["stco"]))
+            cnt = struct.unpack(">I", b[:4])[0]
+            chunks = list(struct.unpack(f">{cnt}I", b[4:4 + 4 * cnt]))
+        elif "co64" in stbl:
+            _, b = _full(self._read(f, stbl["co64"]))
+            cnt = struct.unpack(">I", b[:4])[0]
+            chunks = list(struct.unpack(f">{cnt}Q", b[4:4 + 8 * cnt]))
+        else:
+            raise ValueError(f"{self.path}: no stco or co64 box")
+        self.offsets = self._sample_offsets(self._read(f, stbl["stsc"]),
+                                            chunks, n)
+        self.durations = self._stts(self._read(f, stbl["stts"]), n)
+        if "stss" in stbl:
+            _, b = _full(self._read(f, stbl["stss"]))
+            cnt = struct.unpack(">I", b[:4])[0]
+            self.keyframes = sorted(
+                i - 1 for i in struct.unpack(f">{cnt}I", b[4:4 + 4 * cnt]))
+        else:
+            self.keyframes = list(range(n))
+
+    def _check_edits(self, body: bytes) -> None:
+        ver, b = _full(body)
+        cnt = struct.unpack(">I", b[:4])[0]
+        step = 20 if ver else 12
+        fmt = ">QqI" if ver else ">IiI"
+        media = [struct.unpack(fmt, b[4 + i * step:4 + (i + 1) * step])[1]
+                 for i in range(cnt)]
+        if len([m for m in media if m != -1]) > 1 or any(m > 0 for m in media):
+            raise Unsupported(f"{self.path}: an edit list that starts the "
+                              "track past its first sample or splices it; "
+                              f"not read by the port ({ITEM_8})")
+
+    def _read_stsd(self, body: bytes) -> None:
+        _, b = _full(body)
+        if struct.unpack(">I", b[:4])[0] < 1:
+            raise ValueError(f"{self.path}: empty stsd")
+        size, fourcc = struct.unpack(">I4s", b[4:12])
+        fourcc = fourcc.decode("latin1")
+        entry = b[12:4 + size]
+        self.tag = fourcc
+        if fourcc != "mp4v":
+            name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
+            raise Unsupported(f"{self.path}: {name} video (sample entry "
+                              f"{fourcc!r}): the port decodes MPEG-4 Part 2 "
+                              f"only ({ITEM_8})")
+        self.dsi = b""
+        pos = 78   # VisualSampleEntry fields
+        while pos + 8 <= len(entry):
+            n, t = struct.unpack(">I4s", entry[pos:pos + 8])
+            if n < 8:
+                break
+            if t == b"esds":
+                self.dsi = _esds_dsi(entry[pos + 8:pos + n], self.path)
+            pos += n
+
+    def _stsz(self, body: bytes) -> List[int]:
+        _, b = _full(body)
+        fixed, cnt = struct.unpack(">II", b[:8])
+        if cnt > self._size or fixed * cnt > self._size:
+            raise ValueError(f"{self.path}: stsz counts {cnt} samples"
+                             + (f" of {fixed} bytes" if fixed else "")
+                             + f" in a file of {self._size} bytes")
+        if fixed:
+            return [fixed] * cnt
+        if len(b) < 8 + 4 * cnt:
+            raise ValueError(f"{self.path}: truncated stsz")
+        return list(struct.unpack(f">{cnt}I", b[8:8 + 4 * cnt]))
+
+    def _sample_offsets(self, body: bytes, chunks: List[int], n: int):
+        _, b = _full(body)
+        cnt = struct.unpack(">I", b[:4])[0]
+        runs = [struct.unpack(">III", b[4 + 12 * i:16 + 12 * i])
+                for i in range(cnt)]
+        offsets: List[int] = []
+        k = 0
+        for r, (first, per, _) in enumerate(runs):
+            last = runs[r + 1][0] - 1 if r + 1 < len(runs) else len(chunks)
+            for c in range(first - 1, last):
+                if c >= len(chunks):
+                    raise ValueError(f"{self.path}: stsc names chunk {c + 1} "
+                                     f"of {len(chunks)}")
+                off = chunks[c]
+                for _ in range(per):
+                    if k >= n:
+                        break
+                    offsets.append(off)
+                    off += self.sizes[k]
+                    k += 1
+        if k != n:
+            raise ValueError(f"{self.path}: stsc/stco cover {k} of {n} "
+                             "samples")
+        return offsets
+
+    def _stts(self, body: bytes, n: int) -> List[int]:
+        _, b = _full(body)
+        cnt = struct.unpack(">I", b[:4])[0]
+        out: List[int] = []
+        for i in range(cnt):
+            if len(out) >= n:
+                break
+            c, d = struct.unpack(">II", b[4 + 8 * i:12 + 8 * i])
+            out += [d] * min(c, n - len(out))   # a count past n is not kept
+        return (out + [out[-1] if out else 0] * n)[:n]
+
+    # ---- what the readers use
+
+    @property
+    def frames(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def fps(self) -> float:
+        """FFmpeg's avg_frame_rate: timescale · samples / Σ durations."""
+        total = sum(self.durations)
+        return self.timescale * len(self.sizes) / total if total else 0.0
+
+    def sample(self, f: BinaryIO, i: int) -> bytes:
+        f.seek(self.offsets[i])
+        data = f.read(self.sizes[i])
+        if len(data) != self.sizes[i]:
+            raise ValueError(f"{self.path}: sample {i} is truncated")
+        return data
+
+
+# ----------------------------------------------------------------- writer
+
+def _box(typ: bytes, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    return struct.pack(">I4s", 8 + len(body), typ) + body
+
+
+def _fullbox(typ: bytes, version: int, flags: int, *parts: bytes) -> bytes:
+    return _box(typ, struct.pack(">I", (version << 24) | flags), *parts)
+
+
+def _desc(tag: int, body: bytes) -> bytes:
+    n = len(body)
+    return bytes([tag, 0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F,
+                  0x80 | (n >> 7) & 0x7F, n & 0x7F]) + body
+
+
+_MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+class Mp4Writer:
+    """MPEG-4 Part 2 samples → an ``.mp4`` file.  ``rate`` is the frame
+    rate as (numerator, denominator); ``dsi`` the VOS/VO/VOL headers."""
+
+    def __init__(self, path: str, size: Tuple[int, int], rate: Tuple[int, int],
+                 dsi: bytes):
+        self.path = path
+        self.w, self.h = size
+        self.num, self.den = rate
+        self.dsi = dsi
+        self.sizes: List[int] = []
+        self.keys: List[int] = []
+        self._f: Optional[BinaryIO] = open(path, "wb")
+        ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200),
+                    b"isomiso2mp41")
+        self._f.write(ftyp)
+        self._mdat = len(ftyp)
+        # "free" then a 32-bit mdat header; a 64-bit mdat takes both
+        self._f.write(_box(b"free") + struct.pack(">I4s", 0, b"mdat"))
+        self._data = self._mdat + 16
+
+    def write(self, sample: bytes, key: bool) -> None:
+        if key:
+            self.keys.append(len(self.sizes) + 1)
+        self.sizes.append(len(sample))
+        self._f.write(sample)
+
+    def release(self) -> None:
+        f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            end = f.tell()
+            n = end - self._mdat - 8
+            f.seek(self._mdat)
+            if n < 1 << 32:
+                f.write(_box(b"free") + struct.pack(">I4s", n, b"mdat"))
+            else:
+                f.write(struct.pack(">I4sQ", 1, b"mdat", end - self._mdat))
+            f.seek(end)
+            f.write(self._moov())
+        finally:
+            f.close()
+
+    def _moov(self) -> bytes:
+        n = len(self.sizes)
+        ts, dur = self.num, self.den * n
+        ms = dur * 1000 // ts
+        mvhd = _fullbox(b"mvhd", 0, 0, struct.pack(
+            ">IIIIIH10x", 0, 0, 1000, ms, 0x10000, 0x100), _MATRIX,
+            b"\0" * 24, struct.pack(">I", 2))
+        tkhd = _fullbox(b"tkhd", 0, 3, struct.pack(
+            ">IIIII8xhhH2x", 0, 0, 1, 0, ms, 0, 0, 0), _MATRIX,
+            struct.pack(">II", self.w << 16, self.h << 16))
+        mdhd = _fullbox(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, ts, dur,
+                                                   0x55C4, 0))
+        hdlr = _fullbox(b"hdlr", 0, 0, struct.pack(">I4s12x", 0, b"vide"),
+                        b"VideoHandler\0")
+        vmhd = _fullbox(b"vmhd", 0, 1, b"\0" * 8)
+        dinf = _box(b"dinf", _fullbox(b"dref", 0, 0, struct.pack(">I", 1),
+                                      _fullbox(b"url ", 0, 1)))
+        bitrate = sum(self.sizes) * 8 * self.num // max(self.den * n, 1)
+        dcd = (bytes([0x20, 0x11]) + struct.pack(">I", max(self.sizes or [0])
+                                                 )[1:]
+               + struct.pack(">II", bitrate, bitrate) + _desc(5, self.dsi))
+        esd = _desc(3, struct.pack(">HB", 1, 0) + _desc(4, dcd)
+                    + _desc(6, b"\x02"))
+        esds = _fullbox(b"esds", 0, 0, esd)
+        entry = _box(b"mp4v", b"\0" * 6, struct.pack(">H", 1), b"\0" * 16,
+                     struct.pack(">HHIIIH", self.w, self.h, 0x480000,
+                                 0x480000, 0, 1), b"\0" * 32,
+                     struct.pack(">Hh", 0x18, -1), esds)
+        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1), entry)
+        stts = _fullbox(b"stts", 0, 0, struct.pack(">III", 1, n, self.den))
+        stss = _fullbox(b"stss", 0, 0, struct.pack(f">I{len(self.keys)}I",
+                                                   len(self.keys), *self.keys))
+        stsc = _fullbox(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, n, 1))
+        stsz = _fullbox(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n,
+                                                   *self.sizes))
+        if self._data < 1 << 32:
+            stco = _fullbox(b"stco", 0, 0, struct.pack(">II", 1, self._data))
+        else:
+            stco = _fullbox(b"co64", 0, 0, struct.pack(">IQ", 1, self._data))
+        stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
+        minf = _box(b"minf", vmhd, dinf, stbl)
+        mdia = _box(b"mdia", mdhd, hdlr, minf)
+        return _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))

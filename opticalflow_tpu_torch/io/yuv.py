@@ -2,8 +2,11 @@
 
 The video runner's ``upload="i420"`` ships each frame as I420, half the
 bytes of RGB, and unpacks it on the card (``video.yuv_i420_to_rgb_u8``);
-the ``.y4m`` reader and writer (``io/video.py``) convert through the same
-two functions.  Both are bit-exact to OpenCV, which the GPU machine lacks:
+the ``.y4m`` reader (``io/video.py``) converts back through
+:func:`i420_to_rgb`.  The writers and the runner pack frames with
+``runtime/mpeg4.to_i420``, a C copy of :func:`rgb_to_i420` that the tests
+hold to it bit for bit.  All are bit-exact to OpenCV, which the port does
+not use:
 
   * :func:`rgb_to_i420` = ``cv2.cvtColor(rgb, cv2.COLOR_RGB2YUV_I420)``:
     BT.601 video range at 20-bit fixed point, round half up; the chroma of
@@ -21,7 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["rgb_to_i420", "i420_to_rgb", "pad_to_even", "bgr_to_gray"]
+__all__ = ["rgb_to_i420", "i420_to_rgb", "i420_planes", "pad_to_even",
+           "bgr_to_gray"]
 
 _SHIFT = 20
 _HALF = 1 << (_SHIFT - 1)
@@ -63,6 +67,15 @@ def rgb_to_i420(rgb: np.ndarray) -> np.ndarray:
          + (128 << _SHIFT)) >> _SHIFT
     planes = [np.clip(p, 0, 255).astype(np.uint8).ravel() for p in (y, u, v)]
     return np.concatenate(planes).reshape(h * 3 // 2, w)
+
+
+def i420_planes(yuv: np.ndarray):
+    """(H·3/2, W) packed I420 → its (Y, U, V) planes, as views."""
+    h, w = yuv.shape[0] * 2 // 3, yuv.shape[1]
+    flat = yuv.reshape(-1)
+    n, c = h * w, (h // 2) * (w // 2)
+    return (flat[:n].reshape(h, w), flat[n:n + c].reshape(h // 2, w // 2),
+            flat[n + c:n + 2 * c].reshape(h // 2, w // 2))
 
 
 def i420_to_rgb(yuv: np.ndarray) -> np.ndarray:

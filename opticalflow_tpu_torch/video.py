@@ -45,9 +45,10 @@ import torch.nn.functional as F
 from opticalflow_tpu_torch.engine import resolve_device
 from opticalflow_tpu_torch.io import images as imio
 from opticalflow_tpu_torch.io.video import read_frames
-from opticalflow_tpu_torch.io.yuv import pad_to_even, rgb_to_i420
+from opticalflow_tpu_torch.io.yuv import pad_to_even
 from opticalflow_tpu_torch.models.torch_import import reference_state_dict
 from opticalflow_tpu_torch.parallel import mesh as meshlib
+from opticalflow_tpu_torch.runtime.mpeg4 import to_i420
 
 __all__ = ["VideoFlowRunner", "frame_pairs_from_video", "decimate_flow",
            "yuv_i420_to_rgb_u8"]
@@ -117,8 +118,9 @@ def decimate_flow(flow: torch.Tensor, grid_step: int, frame_h: int,
 
 def frame_pairs_from_video(path: str, max_frames: Optional[int] = None,
                            stride: int = 1) -> Iterator[np.ndarray]:
-    """Yield BGR frames of a ``.y4m`` file or frame directory, decoded by a
-    thread that fills a bounded queue; a decode error is raised here."""
+    """Yield BGR frames of a video file (``.mp4``, ``.avi``, ``.y4m``) or
+    frame directory, decoded by a thread that fills a bounded queue; a
+    decode error is raised here."""
     q: "queue.Queue" = queue.Queue(maxsize=64)
     done = object()
 
@@ -172,8 +174,8 @@ class VideoFlowRunner:
       grid_step: decimate the flow on the card to that arrow grid.
       upload: "bgr" ships RGB uint8 windows padded to /64 on the host;
         "i420" ships each frame's planar YUV 4:2:0 at its (even) size, half
-        the bytes, converted on the host by ``io.yuv.rgb_to_i420``
-        (OpenCV's arithmetic) and unpacked and padded on the card.  The
+        the bytes, converted on the host by ``runtime.mpeg4.to_i420``
+        (OpenCV's arithmetic, in C) and unpacked and padded on the card.  The
         only fidelity cost is the 4:2:0 chroma subsample itself.
 
     ``stats`` counts windows and bytes uploaded (and, with a mesh, the
@@ -265,9 +267,9 @@ class VideoFlowRunner:
         """One frame as it is uploaded: RGB padded to /64, or I420 at its
         even size (the /64 pad happens on the card, so no padding bytes
         are uploaded)."""
-        rgb = frame[..., ::-1] if channel_order == "bgr" else frame
         if self.upload == "i420":
-            return rgb_to_i420(pad_to_even(np.ascontiguousarray(rgb)))
+            return to_i420(pad_to_even(frame), channel_order)
+        rgb = frame[..., ::-1] if channel_order == "bgr" else frame
         return self._pad(rgb)
 
     def _to_device(self, window) -> torch.Tensor:

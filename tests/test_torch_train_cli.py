@@ -34,6 +34,8 @@ from opticalflow_tpu_torch.train import trainer as TT
 from test_torch_train_data import (smooth_frames, synth_kitti, write_png,
                                    MASK_AGREE)
 
+VIDEO_FIXTURES = os.path.join(os.path.dirname(__file__), "goldens",
+                              "video")
 BASE = ["--crop", "64", "64", "--batch", "2", "--workers", "2",
         "--log-every", "1", "--seed", "0", "--device", "cpu"]
 
@@ -265,7 +267,9 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
     """The distributed flags that cannot join a group are refused before
     any connection (no coordinator, no launch variables; a coordinator
     without the world size; --dist-* without --distributed; --val-frac
-    with --distributed, as in the JAX CLI)."""
+    with --distributed, as in the JAX CLI).  A video the port does not
+    decode (H.264 in MP4, Motion JPEG in AVI) names ROADMAP item 8, and a
+    truncated one says so."""
     for extra, match in (
             (["--distributed"], "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
                                 "not set"),
@@ -276,11 +280,40 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
         with pytest.raises(SystemExit, match=match):
             cli.main(["--data-root", kitti12, "--out-dir",
                       str(tmp_path / "r"), *BASE, *extra])
-    video = tmp_path / "clip.mp4"
-    video.write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(["--regime", "pseudo", "--data-root", str(video),
-                  "--out-dir", str(tmp_path / "v"), *BASE])
+    mp4 = open(os.path.join(VIDEO_FIXTURES, "moving_176x144.mp4"),
+               "rb").read()
+    mjpg = open(os.path.join(VIDEO_FIXTURES, "mjpg.avi"), "rb").read()
+    for name, data, match in (
+            ("h264.mp4", mp4.replace(b"mp4v", b"avc1"),
+             "H.264.*Queue 1 item 8"),
+            ("mjpg.avi", mjpg, "Motion JPEG.*Queue 1 item 8"),
+            ("cut.mp4", mp4[:2000], "truncated")):
+        video = tmp_path / name
+        video.write_bytes(data)
+        with pytest.raises(ValueError, match=match):
+            cli.main(["--regime", "pseudo", "--data-root", str(video),
+                      "--out-dir", str(tmp_path / "v"), *BASE])
+
+
+def test_train_cli_pseudo_regime_on_an_mp4(frames_dir, tmp_path):
+    """The pseudo regime reads an .mp4 (the frame directory's frames
+    through the port's MPEG-4 writer) with one open decoder: the same
+    steps and finite losses as on the directory."""
+    from opticalflow_tpu_torch.io.video import Mpeg4Writer, read_frames
+    frames = list(read_frames(frames_dir))
+    video = str(tmp_path / "clip.mp4")
+    wr = Mpeg4Writer(video, 25.0, (120, 90))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    out = str(tmp_path / "run")
+    assert cli.main(["--regime", "pseudo", "--data-root", video,
+                     "--out-dir", out, "--epochs", "1", "--size", "64",
+                     "128", *BASE]) == 0
+    recs = [r for r in _records(out) if "step" in r]
+    assert [r["step"] for r in recs] == [1, 2]
+    for r in recs:
+        assert all(np.isfinite(r[k]) for k in ("loss", "photo", "smooth"))
 
 
 def test_train_cli_starts_from_pretrained_weights(kitti12, tmp_path):

@@ -223,10 +223,24 @@ def test_consecutive_frames_match_jax(tmp_path, stride):
 
 
 def test_consecutive_frames_refuses_video_files_and_missing_sources(tmp_path):
-    video = tmp_path / "clip.mp4"
-    video.write_bytes(b"\x00\x00\x00\x18ftypmp42")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        datasets.ConsecutiveFrames(str(video))
+    """H.264 in MP4 and Motion JPEG in AVI name ROADMAP item 8, a truncated
+    MP4 says so, an MPEG-4 Part 2 .mp4 is read; a missing source or too few
+    frames raise FileNotFoundError."""
+    fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
+    mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
+    h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
+    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    cut.write_bytes(mp4[:len(mp4) - 50])
+    for path, match in ((h264, "H.264.*Queue 1 item 8"),
+                        (os.path.join(fixtures, "mjpg.avi"),
+                         "Motion JPEG.*Queue 1 item 8"),
+                        (cut, "truncated")):
+        with pytest.raises(ValueError, match=match):
+            datasets.ConsecutiveFrames(str(path))
+    ds = datasets.ConsecutiveFrames(os.path.join(fixtures,
+                                                 "moving_176x144.mp4"),
+                                    size_hw=(32, 48))
+    assert len(ds) == 25 and ds[24]["images"].shape == (32, 48, 6)
     with pytest.raises(FileNotFoundError):
         datasets.ConsecutiveFrames(str(tmp_path / "nowhere"))
     with pytest.raises(FileNotFoundError, match="not enough frames"):

@@ -2,7 +2,8 @@
 ``cli/capture_frame``) on the CPU against the JAX package's functions on
 the same decoded frames (the port decodes ``.y4m`` itself; OpenCV's FFmpeg
 decode of the same file differs by a few levels, so the JAX side is fed
-the port's frames, as its CLIs would feed their own).
+the port's frames, as its CLIs would feed their own; an ``.mp4`` the port
+decodes to cv2's frames exactly).
 
 Tolerances: the flows agree to 1e-6 mean EPE (float32 parity mode); the
 arrows, vanish and topview frames equal the JAX pipeline's (0 pixels of
@@ -159,16 +160,69 @@ def test_i420_upload_close_to_bgr_upload(setup):
 
 def test_what_is_not_ported_raises(setup):
     """Compare mode, once not ported, writes frames twice the clip's
-    width; mp4 input is still refused."""
+    width; H.264 in MP4 and Motion JPEG in AVI are refused naming ROADMAP
+    item 8, a truncated MP4 saying so."""
     base = [setup["clip"], str(setup["tmp"] / "x"), "--ckpt", setup["ckpt"],
             "--device", "cpu"]
     got = _run_cli(setup, "compare")
     assert len(got) == N_FRAMES - 1
     assert all(g.shape == (H, 2 * W, 3) for g in got)
-    mp4 = setup["tmp"] / "clip.mp4"
-    mp4.write_bytes(b"\x00\x00\x00\x18ftypmp42")
-    with pytest.raises(ValueError, match="H.264"):
-        extract_video.main([str(mp4)] + base[1:])
+    fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
+    mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
+    h264, cut = setup["tmp"] / "h264.mp4", setup["tmp"] / "cut.mp4"
+    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    cut.write_bytes(mp4[:len(mp4) - 50])
+    for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
+                        (os.path.join(fixtures, "mjpg.avi"),
+                         "Motion JPEG.*Queue 1 item 8"),
+                        (str(cut), "truncated")):
+        with pytest.raises(ValueError, match=match):
+            extract_video.main([path] + base[1:])
+
+
+def test_extract_video_mp4_in_and_out(setup, monkeypatch):
+    """A cv2-written mp4v .mp4 in, an .mp4 out: the overlay frames handed
+    to the encoder equal the JAX pipeline's on the same decoded frames, and
+    cv2 reads the output with the clip's frame count, fps and size."""
+    src = str(setup["tmp"] / "cv2_clip.mp4")
+    cw = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (W, H))
+    for f in _moving_frames(N_FRAMES, H, W):
+        cw.write(f)
+    cw.release()
+    frames = list(vio.read_frames(src))
+    cap = cv2.VideoCapture(src)
+    for f in frames:
+        ok, want = cap.read()
+        np.testing.assert_array_equal(f, want)
+    drawn = []
+    write = vio.Mpeg4Writer.write
+    monkeypatch.setattr(vio.Mpeg4Writer, "write",
+                        lambda self, frame: (drawn.append(frame.copy()),
+                                             write(self, frame)))
+    out = str(setup["tmp"] / "arrows.mp4")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert extract_video.main([src, out, "--ckpt", setup["ckpt"],
+                                   "--batch", "2", "--dtype", "float32",
+                                   "--device", "cpu"]) == 0
+    flows = _jax_flows(setup, frames)
+    assert len(drawn) == N_FRAMES - 1
+    for k, (frame, q) in enumerate(zip(frames, flows)):
+        want = jov.arrow_overlay(frame, q, step=16, title="PWC-Net (TPU)")
+        np.testing.assert_array_equal(drawn[k], want, err_msg=f"frame {k}")
+    cap = cv2.VideoCapture(out)
+    assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == N_FRAMES - 1
+    assert cap.get(cv2.CAP_PROP_FPS) == 25.0
+    assert (cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+            cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) == (W, H)
+    got = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        got.append(f)
+    assert len(got) == N_FRAMES - 1
+    for a, b in zip(got, vio.read_frames(out)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
 """The port's frame I/O (``io/video.py``): ``.y4m`` and PNG directories in
-and out, JPEG directories in, without OpenCV, held against OpenCV's I420 conversion and the
+and out, JPEG directories in (``.mp4``/``.avi`` in ``test_torch_mp4.py``),
+without OpenCV, held against OpenCV's I420 conversion and the
 JAX package's ``AsyncVideoWriter`` behaviour and ``ConsecutiveFrames``.
 Tolerance: bit-exact throughout (a y4m round trip is lossy only by the
 4:2:0 chroma subsample, which OpenCV's own round trip reproduces)."""
@@ -188,14 +189,38 @@ def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
 
 
 def test_other_containers_raise_naming_the_two_formats(tmp_path):
-    mp4 = tmp_path / "clip.mp4"
-    mp4.write_bytes(b"\x00\x00\x00\x18ftypmp42")
-    for fn in (lambda: list(vio.read_frames(str(mp4))),
-               lambda: vio.video_info(str(mp4)),
-               lambda: vio.AsyncVideoWriter(str(tmp_path / "o.mp4"), 30,
-                                            (8, 8))):
-        with pytest.raises(ValueError, match=r"\.y4m.*PNG.*H\.264"):
-            fn()
+    """H.264 in MP4 and Motion JPEG in AVI raise naming ROADMAP item 8; a
+    truncated MP4 says so; an unknown extension names the formats the port
+    handles; and AsyncVideoWriter now writes .mp4, which cv2 reads."""
+    fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
+    mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
+    h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
+    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    cut.write_bytes(mp4[:len(mp4) - 50])
+    mjpg = os.path.join(fixtures, "mjpg.avi")
+    for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
+                        (mjpg, "Motion JPEG.*Queue 1 item 8"),
+                        (str(cut), "truncated")):
+        for fn in (lambda: list(vio.read_frames(path)),
+                   lambda: vio.video_info(path)):
+            with pytest.raises(ValueError, match=match):
+                fn()
+    mkv = tmp_path / "clip.mkv"
+    mkv.write_bytes(b"\x1a\x45\xdf\xa3")
+    with pytest.raises(ValueError, match=r"\.mp4.*\.y4m.*PNG.*item 8"):
+        vio.video_info(str(mkv))
+    out = str(tmp_path / "o.mp4")
+    frames = _frames(3, 16, 32)
+    wr = vio.AsyncVideoWriter(out, 30, (32, 16))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    cap = cv2.VideoCapture(out)
+    assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 3
+    assert cap.get(cv2.CAP_PROP_FPS) == 30.0
+    ok, first = cap.read()
+    assert ok and first.shape == (16, 32, 3)
+    np.testing.assert_array_equal(first, vio.read_frame(out, 0))
     with pytest.raises(FileNotFoundError):
         vio.video_info(str(tmp_path / "missing.y4m"))
     with pytest.raises(FileNotFoundError):
