@@ -3,10 +3,13 @@
 
 Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is an
 ``.mp4`` or ``.avi`` file (MPEG-4 Part 2, decoded from the keyframe before
-the frame, as FFmpeg's seek does), a ``.y4m`` file or a directory of PNG or
-JPEG frames (``io/video.py``)::
+the frame, as FFmpeg's seek does; Motion JPEG), a ``.y4m`` file, an image
+sequence named by a pattern (``frames/%06d.jpg``, read as
+``cv2.VideoCapture`` reads it) or a directory of PNG or JPEG frames
+(``io/video.py``)::
 
     python -m opticalflow_tpu_torch.cli.capture_frame clip.mp4 10 frame.png
+    python -m opticalflow_tpu_torch.cli.capture_frame 'frames/%06d.jpg' 10 frame.png
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ import sys
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
-    p.add_argument("video", help=".mp4, .avi or .y4m file, or PNG/JPEG "
-                                 "frame directory")
+    p.add_argument("video", help=".mp4, .avi (MPEG-4 Part 2 or Motion JPEG) "
+                                 "or .y4m file, image sequence pattern "
+                                 "(frames/%%06d.jpg) or PNG/JPEG frame "
+                                 "directory")
     p.add_argument("frame", type=int)
     p.add_argument("out", nargs="?", default=None)
     args = p.parse_args(argv)

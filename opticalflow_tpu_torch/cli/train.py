@@ -57,8 +57,9 @@ def build_parser():
     p.add_argument("--regime", default="multiscale",
                    choices=("charbonnier", "multiscale", "pseudo", "epipolar"))
     p.add_argument("--data-root", required=True,
-                   help="KITTI training root (supervised) or a directory of "
-                        "frames (self-supervised)")
+                   help="KITTI training root (supervised), or a directory "
+                        "of frames, a video file or an image sequence "
+                        "pattern (frames/%%06d.jpg; self-supervised)")
     p.add_argument("--list-file", default=None)
     p.add_argument("--out-dir", default="runs/default")
     p.add_argument("--pretrained", default=None,

@@ -13,9 +13,10 @@ PNG reader; batching and prefetch live in ``data/loader.py``.
     16-bit GT flow (``inference_kitti.py:134-202``);
   * :class:`SintelPairs` — MPI-Sintel clean/final with ``.flo`` GT;
   * :class:`ConsecutiveFrames` — frame_t/frame_{t+stride} pairs from a
-    directory of frames or a video file (``.mp4``/``.avi`` MPEG-4 Part 2,
-    ``.y4m``) for self-supervised training (``train_pseudo.py:23-62``);
-    H.264 and other codecs are not read (ROADMAP Queue 1 item 8).
+    directory of frames or a video source (``.mp4``/``.avi`` MPEG-4 Part 2
+    or Motion JPEG, ``.y4m``, an image sequence pattern) for
+    self-supervised training (``train_pseudo.py:23-62``); H.264 and other
+    codecs are not read (ROADMAP Queue 1 item 8).
 
 The JAX module resizes with OpenCV; here ``io.images`` does, with
 OpenCV's rules: the uint8 frames through ``resize_bilinear_u8``
@@ -39,7 +40,8 @@ from opticalflow_tpu_torch.io.images import (load_image, preprocess_pair,
                                              resize_bilinear_u8,
                                              resize_nearest)
 from opticalflow_tpu_torch.io.kitti import read_flow_png
-from opticalflow_tpu_torch.io.video import EncodedVideo, Y4MFile
+from opticalflow_tpu_torch.io.video import (EncodedVideo, ImageSequence,
+                                            Y4MFile, is_sequence)
 
 __all__ = ["KittiFlowTrain", "KittiPairsEval", "SintelPairs",
            "ConsecutiveFrames"]
@@ -210,15 +212,18 @@ class SintelPairs:
 
 class ConsecutiveFrames:
     """frame_t / frame_{t+stride} pairs for self-supervised training, from a
-    directory of ``*.png`` / ``*.jpg`` / ``*.jpeg`` frames or a video file
+    directory of ``*.png`` / ``*.jpg`` frames or a video source
     (``train_pseudo.py:23-62``), each resized to ``size_hw`` and
-    preprocessed with ``preset``.  PNG and JPEG frames go through the
+    preprocessed with ``preset``.  A directory's frames go through the
     port's own decoders (``io/images.load_image``; no EXIF rotation, as
-    imageio and PIL read them); a ``.y4m`` file is read by frame index; an
-    ``.mp4`` or ``.avi`` (MPEG-4 Part 2, ``io/video.EncodedVideo``) keeps one
-    open decoder and reads in order without seeking, with the last few
-    frames cached for the pairs' overlap, as the JAX class keeps one
-    ``cv2.VideoCapture``.  Other codecs (H.264, Motion JPEG, ...) raise,
+    imageio and PIL read them; ``*.jpeg`` is not globbed, as in the JAX
+    class).  What the JAX class hands to ``cv2.VideoCapture`` is read as
+    that reads it: a ``.y4m`` file and an image sequence (a pattern such as
+    ``frames/%06d.jpg``, ``io/video.ImageSequence``) by frame index; an
+    ``.mp4`` or ``.avi`` (MPEG-4 Part 2 or Motion JPEG,
+    ``io/video.EncodedVideo``) with one open decoder, in order without
+    seeking, the last few frames cached for the pairs' overlap, as the JAX
+    class keeps one ``cv2.VideoCapture``.  Other codecs (H.264, ...) raise,
     naming ROADMAP Queue 1 item 8."""
 
     def __init__(self, source: str, size_hw: Tuple[int, int] = (384, 512),
@@ -228,10 +233,12 @@ class ConsecutiveFrames:
         self.video = None
         if os.path.isdir(source):
             self.frames = sorted(glob(os.path.join(source, "*.png"))
-                                 + glob(os.path.join(source, "*.jpg"))
-                                 + glob(os.path.join(source, "*.jpeg")))
+                                 + glob(os.path.join(source, "*.jpg")))
         elif source.lower().endswith(".y4m"):
             self.video = Y4MFile(source)
+            self.frames = list(range(len(self.video)))
+        elif is_sequence(source):
+            self.video = ImageSequence(source)
             self.frames = list(range(len(self.video)))
         elif os.path.exists(source):
             self.video = EncodedVideo(source)   # raises for other kinds
@@ -252,7 +259,7 @@ class ConsecutiveFrames:
     def _read(self, key) -> np.ndarray:
         if self.video is None:
             return load_image(self.frames[key])
-        if isinstance(self.video, Y4MFile):
+        if isinstance(self.video, (Y4MFile, ImageSequence)):
             return np.ascontiguousarray(self.video.frame(key)[..., ::-1])
         with self._lock:
             hit = self._cache.get(key)

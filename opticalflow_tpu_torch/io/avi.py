@@ -5,20 +5,24 @@ Python (no FFmpeg).
 (``fccHandler``, ``biCompression`` and the extradata after the
 BITMAPINFOHEADER), the ``##dc``/``##db`` chunks of every ``movi`` list
 (``RIFF AVIX`` continuations included) and ``idx1`` with its keyframe
-flags.  It knows two kinds of payload, by ``biCompression`` as FFmpeg
+flags.  It knows three kinds of payload, by ``biCompression`` as FFmpeg
 picks the codec:
 
   * MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``, ``DX50``, ``mp4v``,
     ``MP4V``): decoded by ``runtime/mpeg4``;
+  * Motion JPEG (``MJPG``, ``mjpg``): one JPEG a chunk, every frame a
+    keyframe, decoded by ``runtime/jpeg``'s FFmpeg flavour;
   * raw I420 (``I420``, ``IYUV``): Y, U and V planes.
 
-Anything else (``MJPG``, ``H264``, ...) raises ``Unsupported``, naming
-ROADMAP Queue 1 item 8.  fps is ``rate / scale`` of the stream header, the
-frame count the number of the stream's chunks, as ``cv2.VideoCapture``
-reports them.
+Anything else (``H264``, ...) raises ``Unsupported``, naming ROADMAP
+Queue 1 item 8.  fps is ``rate / scale`` of the stream header, the frame
+count the number of the stream's chunks, as ``cv2.VideoCapture`` reports
+them.
 
 :class:`AviWriter` writes MPEG-4 Part 2 samples under ``FMP4`` (FFmpeg's
-own fourcc, which selects no other decoder's workarounds), with ``idx1``.
+own fourcc, which selects no other decoder's workarounds), with ``idx1``;
+under ``fourcc="MJPG"`` it muxes JPEG files as Motion JPEG (the tests and
+``chip_smoke.py`` build MJPEG sources with it; the port encodes no JPEG).
 """
 
 from __future__ import annotations
@@ -29,13 +33,13 @@ from typing import BinaryIO, List, Optional, Tuple
 
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["AviFile", "AviWriter", "MPEG4_TAGS", "RAW_TAGS"]
+__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "RAW_TAGS"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
+MJPEG_TAGS = {"MJPG", "mjpg"}
 RAW_TAGS = {"I420", "IYUV"}
-_NAMES = {"MJPG": "Motion JPEG", "mjpg": "Motion JPEG", "H264": "H.264",
-          "h264": "H.264", "X264": "H.264", "x264": "H.264", "avc1": "H.264",
-          "HEVC": "HEVC", "hev1": "HEVC"}
+_NAMES = {"H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
+          "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
 
@@ -128,12 +132,14 @@ class AviFile:
             pos += 8 + n + (n & 1)
         if video:
             self._stream = stream
-            if self.tag not in MPEG4_TAGS | RAW_TAGS:
+            if self.tag not in MPEG4_TAGS | MJPEG_TAGS | RAW_TAGS:
                 name = _NAMES.get(self.tag, f"the {self.tag!r} codec")
                 raise Unsupported(f"{self.path}: {name} video (fourcc "
                                   f"{self.tag!r}): the port reads MPEG-4 "
-                                  f"Part 2 and raw I420 AVI only ({ITEM_8})")
-            self.codec = "mpeg4" if self.tag in MPEG4_TAGS else "i420"
+                                  f"Part 2, Motion JPEG and raw I420 AVI "
+                                  f"only ({ITEM_8})")
+            self.codec = ("mpeg4" if self.tag in MPEG4_TAGS else
+                          "mjpeg" if self.tag in MJPEG_TAGS else "i420")
 
     def _movi(self, f, start: int, end: int) -> None:
         want = (b"%02d" % self._stream) if self._stream is not None else None
@@ -154,8 +160,8 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs, and all raw frames are."""
-        if self.codec == "i420":
+        MPEG-4 I-VOPs; all raw and Motion JPEG frames are."""
+        if self.codec != "mpeg4":
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -193,13 +199,15 @@ def _is_ivop(head: bytes) -> bool:
 
 class AviWriter:
     """MPEG-4 Part 2 samples (with in-band VOL headers) → an AVI file
-    under fourcc ``FMP4``, with an ``idx1`` index."""
+    under fourcc ``FMP4``, with an ``idx1`` index; or other samples under
+    ``fourcc`` (``MJPG``: one JPEG file a frame)."""
 
     def __init__(self, path: str, size: Tuple[int, int],
-                 rate: Tuple[int, int]):
+                 rate: Tuple[int, int], fourcc: str = "FMP4"):
         self.path = path
         self.w, self.h = size
         self.num, self.den = rate
+        self.fourcc = fourcc.encode("latin1")
         self.index: List[Tuple[int, int, bool]] = []
         self._f: Optional[BinaryIO] = open(path, "wb")
         self._f.write(self._header(0, 0))
@@ -209,11 +217,11 @@ class AviWriter:
         usec = int(round(1e6 * self.den / self.num))
         avih = struct.pack("<10I16x", usec, 0, 0, 0x10, frames, 0, 1,
                            maxsize, self.w, self.h)
-        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"FMP4", 0, 0, 0,
-                           0, self.den, self.num, 0, frames, maxsize,
+        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", self.fourcc, 0,
+                           0, 0, 0, self.den, self.num, 0, frames, maxsize,
                            0xFFFFFFFF, 0, 0, 0, self.w, self.h)
         strf = struct.pack("<IiiHH4sIiiII", 40, self.w, self.h, 1, 24,
-                           b"FMP4", self.w * self.h * 3, 0, 0, 0, 0)
+                           self.fourcc, self.w * self.h * 3, 0, 0, 0, 0)
         strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
         return b"RIFF\0\0\0\0AVI " + hdrl + b"LIST\0\0\0\0movi"

@@ -1,9 +1,11 @@
 """ISO BMFF (``.mp4``) video: the demuxer and muxer of the port's MPEG-4
-Part 2 path, in Python (no FFmpeg).
+Part 2 and Motion JPEG paths, in Python (no FFmpeg).
 
 :class:`Mp4File` reads the first video track: ``ftyp``, ``moov`` before or
 after ``mdat``, ``trak/mdia/minf/stbl`` (``stsd`` with its ``mp4v`` entry
-and the ``esds`` DecoderSpecificInfo, ``stts``, ``stss``, ``stsc``,
+and the ``esds``: objectTypeIndication 0x20, MPEG-4 Visual, with its
+DecoderSpecificInfo, or 0x6C, Motion JPEG, what ``cv2.VideoWriter`` writes
+for fourcc ``MJPG`` in ``.mp4``; ``stts``, ``stss``, ``stsc``,
 ``stsz``, ``stco``/``co64``), the ``mdhd`` timescale and the ``elst`` as
 FFmpeg applies it to these files (empty and zero-offset edits change no
 frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
@@ -35,8 +37,8 @@ VIDEO_CODECS = {
     "vp09": "VP9", "mjpa": "Motion JPEG", "mjpb": "Motion JPEG",
     "jpeg": "Motion JPEG", "mp4v": "MPEG-4 Part 2",
 }
-# esds objectTypeIndication of MPEG-4 Visual
-_OTI_MPEG4_VISUAL = 0x20
+# esds objectTypeIndication → the codec it names
+_OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg"}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -86,8 +88,9 @@ def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
     return tag, pos, pos + n
 
 
-def _esds_dsi(body: bytes, what: str) -> bytes:
-    """The DecoderSpecificInfo of an ``esds`` box (the VOS/VO/VOL headers)."""
+def _esds(body: bytes, what: str) -> Tuple[str, bytes]:
+    """(codec, DecoderSpecificInfo) of an ``esds`` box: ``mpeg4`` with its
+    VOS/VO/VOL headers, or ``mjpeg``."""
     _, es = _full(body)
     tag, p, end = _descriptor(es, 0)
     if tag != 3:
@@ -104,24 +107,23 @@ def _esds_dsi(body: bytes, what: str) -> bytes:
     if tag != 4:
         raise ValueError(f"{what}: esds without a DecoderConfigDescriptor")
     oti = es[p]
-    if oti != _OTI_MPEG4_VISUAL:
+    codec = _OTI_CODECS.get(oti)
+    if codec is None:
         raise Unsupported(f"{what}: mp4v track of objectTypeIndication "
-                          f"0x{oti:02x}, not MPEG-4 Visual: the port decodes "
-                          f"MPEG-4 Part 2 only ({ITEM_8})")
+                          f"0x{oti:02x}: the port decodes MPEG-4 Part 2 "
+                          f"(0x20) and Motion JPEG (0x6c) only ({ITEM_8})")
     p += 13
     if p < dend:
         tag, p, e = _descriptor(es, p)
         if tag == 5:
-            return es[p:e]
-    return b""
+            return codec, es[p:e]
+    return codec, b""
 
 
 class Mp4File:
-    """The first video track of an ``.mp4``/``.mov`` file: its samples'
-    offsets and sizes, keyframes (sync samples), DecoderSpecificInfo and
-    timing."""
-
-    codec = "mpeg4"
+    """The first video track of an ``.mp4``/``.mov`` file: its codec
+    (``mpeg4`` or ``mjpeg``), size (the sample entry's), samples' offsets
+    and sizes, keyframes (sync samples), DecoderSpecificInfo and timing."""
 
     def __init__(self, path: str):
         self.path = path
@@ -231,16 +233,19 @@ class Mp4File:
         if fourcc != "mp4v":
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
-                              f"{fourcc!r}): the port decodes MPEG-4 Part 2 "
-                              f"only ({ITEM_8})")
-        self.dsi = b""
+                              f"{fourcc!r}): the port decodes the mp4v "
+                              f"entry only (MPEG-4 Part 2, Motion JPEG; "
+                              f"{ITEM_8})")
+        self.width, self.height = struct.unpack(">HH", entry[24:28])
+        self.codec, self.dsi = "mpeg4", b""
         pos = 78   # VisualSampleEntry fields
         while pos + 8 <= len(entry):
             n, t = struct.unpack(">I4s", entry[pos:pos + 8])
             if n < 8:
                 break
             if t == b"esds":
-                self.dsi = _esds_dsi(entry[pos + 8:pos + n], self.path)
+                self.codec, self.dsi = _esds(entry[pos + 8:pos + n],
+                                             self.path)
             pos += n
 
     def _stsz(self, body: bytes) -> List[int]:

@@ -1,28 +1,34 @@
-"""Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.y4m`` and
-frame directories.
+"""Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.y4m``,
+image sequences and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
-muxers and codec and reads what those write:
+muxers and codecs and reads what those read, frame for frame:
 
   * **MP4** (``.mp4``, ``.m4v``, ``.mov``; ``io/mp4``) and **AVI**
     (``.avi``; ``io/avi``) holding MPEG-4 Part 2 Simple Profile video, what
     ``cv2.VideoWriter`` writes with fourcc ``mp4v``, ``XVID`` or ``FMP4``:
     decoded by ``runtime/mpeg4`` bit-exactly to FFmpeg and converted to BGR
     in swscale's arithmetic, so every frame equals ``cv2.VideoCapture``'s;
-    raw I420 AVI too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames,
-    as cv2's writer does; an odd side cropped to even, as it does), ``.mp4``
-    or ``.avi`` (fourcc ``FMP4``).  H.264, HEVC, Motion JPEG and the like
-    raise, naming ROADMAP Queue 1 item 8;
+    Motion JPEG (fourcc ``MJPG`` in AVI, ``mp4v`` with objectTypeIndication
+    0x6C in MP4), decoded by ``runtime/jpeg``'s FFmpeg flavour; raw I420
+    AVI too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames, as cv2's
+    writer does; an odd side cropped to even, as it does), ``.mp4`` or
+    ``.avi`` (fourcc ``FMP4``).  H.264, HEVC and the like raise, naming
+    ROADMAP Queue 1 item 8;
+  * **image sequences** (:class:`ImageSequence`): a printf pattern such as
+    ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
+    as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
+    PNG through ``io/images.decode_png`` and swscale's conversion;
   * **YUV4MPEG2** (``.y4m``): 8-bit 4:2:0, colour tags ``C420jpeg``,
     ``C420mpeg2``, ``C420paldv``, ``C420`` or none; frames are converted
     with ``io/yuv`` (OpenCV's BT.601 integer arithmetic, nearest chroma);
     an odd side's last chroma row or column covers one pixel;
   * **a directory of PNG or JPEG frames** (``*.png``, ``*.jpg`` or
-    ``*.jpeg``, one kind a directory), read in sorted name order with the
-    port's own decoders (``io/images.decode_png``, ``runtime/jpeg``; no
-    EXIF rotation), the counterpart of ``cv2.VideoCapture`` over an image
-    sequence; written as PNG, ``000000.png``, ...
+    ``*.jpeg``, one kind a directory), read in sorted name order as the
+    JAX package loads images (``io/images.decode_png``, ``runtime/jpeg``'s
+    libjpeg flavour; no EXIF rotation); ``cv2.VideoCapture`` opens no
+    directory; written as PNG, ``000000.png``, ...
 
 Frames are BGR uint8 (H, W, 3), as OpenCV hands them over.
 :class:`AsyncVideoWriter` keeps the JAX class's encode thread, bounded
@@ -43,23 +49,29 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
-from opticalflow_tpu_torch.io.images import (decode_bytes, encode_png, rgb8,
-                                             unread_format)
+from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
+                                             encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
 from opticalflow_tpu_torch.io.yuv import i420_planes, i420_to_rgb, pad_to_even
+from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
+                                                jpeg_size)
 from opticalflow_tpu_torch.runtime.mpeg4 import (ITEM_8, Decoder, Encoder,
-                                                  i420_to_bgr, to_i420)
+                                                  Unsupported, i420_to_bgr,
+                                                  to_i420)
 
 __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
-           "EncodedVideo", "Mpeg4Writer", "Y4MFile", "Y4MWriter",
-           "PngDirWriter", "FORMATS"]
+           "EncodedVideo", "ImageSequence", "Mpeg4Writer", "Y4MFile",
+           "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
+           "is_sequence"]
 
-FORMATS = ("an .mp4 or .avi file (MPEG-4 Part 2; raw I420 in .avi), a .y4m "
-           "file (YUV4MPEG2, 8-bit 4:2:0) or a directory of PNG or JPEG "
-           "frames")
+FORMATS = ("an .mp4 or .avi file (MPEG-4 Part 2 or Motion JPEG; raw I420 in "
+           ".avi), a .y4m file (YUV4MPEG2, 8-bit 4:2:0), an image sequence "
+           "named by a pattern (frames/%06d.jpg; JPEG or PNG) or one image "
+           "file, or a directory of PNG or JPEG frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
 _MP4_EXTS = (".mp4", ".m4v", ".mov")
+_IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 DEFAULT_FPS = 30.0
 
 
@@ -71,8 +83,18 @@ def _unsupported(path: str) -> ValueError:
         "-pix_fmt yuv420p out.y4m`)")
 
 
+def is_sequence(path: str) -> bool:
+    """Whether ``cv2.VideoCapture`` would open ``path`` through FFmpeg's
+    image2 (:class:`ImageSequence`): an image file name that is a printf
+    pattern or names one file (image2 claims image extensions only)."""
+    return path.lower().endswith(_IMAGE_EXTS) and (
+        frame_filename(path, 0) is not None or os.path.isfile(path))
+
+
 def _kind(path: str, writing: bool = False) -> str:
     low = path.lower()
+    if not writing and is_sequence(path):
+        return "sequence"
     if low.endswith(".y4m"):
         return "y4m"
     if low.endswith(_MP4_EXTS):
@@ -190,8 +212,9 @@ class EncodedVideo:
 
     Iterating decodes every frame in turn (BGR); :meth:`frame` seeks: it
     decodes from the last keyframe at or before the index (``stss`` /
-    ``idx1``), as FFmpeg's seek does; :meth:`read` keeps one decoder open
-    and reads in order without seeking while the indices follow on."""
+    ``idx1``; every Motion JPEG frame is one), as FFmpeg's seek does;
+    :meth:`read` keeps one decoder open and reads in order without seeking
+    while the indices follow on."""
 
     def __init__(self, path: str):
         if not os.path.exists(path):
@@ -207,6 +230,17 @@ class EncodedVideo:
                 with open(path, "rb") as f:
                     dec.probe(self.box.sample(f, 0))
             self.width, self.height = dec.width, dec.height
+        elif box.codec == "mjpeg":
+            with open(path, "rb") as f:
+                self.height, self.width = jpeg_size(box.sample(f, 0),
+                                                    f"{path} frame 0")
+            # FFmpeg decodes a picture under 3/4 of the container's height
+            # as one field of an interlaced pair
+            if self.height < box.height * 3 // 4:
+                raise Unsupported(
+                    f"{path}: interlaced Motion JPEG ({self.height}-line "
+                    f"fields of a {box.height}-line frame), not read by the "
+                    f"port ({ITEM_8})")
         else:
             self.width, self.height = box.width, box.height
         self._gen = None
@@ -230,9 +264,10 @@ class EncodedVideo:
                 a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw))
 
     def planes(self, start: int = 0) -> Iterator[Tuple[int, tuple]]:
-        """(index, (Y, U, V)) of each picture from frame ``start`` on; a
-        sample that yields no picture (a not-coded VOP) is passed over, as
-        ``cv2.VideoCapture.read`` passes over it."""
+        """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2 or raw
+        stream from frame ``start`` on; a sample that yields no picture (a
+        not-coded VOP) is passed over, as ``cv2.VideoCapture.read`` passes
+        over it."""
         if not 0 <= start < self.frames:
             raise IndexError(f"frame {start} of {self.path}, which has "
                              f"{self.frames}")
@@ -248,15 +283,29 @@ class EncodedVideo:
                 if p is not None and i >= start:
                     yield i, p
 
+    def _decoded(self, start: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
+        """(index, BGR frame) of each picture from frame ``start`` on."""
+        if self.box.codec != "mjpeg":
+            for i, p in self.planes(start):
+                yield i, i420_to_bgr(*p)
+            return
+        if not 0 <= start < self.frames:
+            raise IndexError(f"frame {start} of {self.path}, which has "
+                             f"{self.frames}")
+        with open(self.path, "rb") as f:
+            for i in range(start, self.frames):
+                yield i, decode_jpeg_ffmpeg(self.box.sample(f, i),
+                                            f"{self.path} frame {i}")
+
     def __iter__(self) -> Iterator[np.ndarray]:
-        for _, p in self.planes():
-            yield i420_to_bgr(*p)
+        for _, frame in self._decoded():
+            yield frame
 
     def frame(self, index: int) -> np.ndarray:
         """BGR frame ``index``, decoded from the keyframe before it."""
-        with closing(self.planes(index)) as it:
-            for _, p in it:
-                return i420_to_bgr(*p)
+        with closing(self._decoded(index)) as it:
+            for _, frame in it:
+                return frame
         raise ValueError(f"{self.path}: frame {index} did not decode")
 
     def read(self, index: int) -> np.ndarray:
@@ -264,20 +313,141 @@ class EncodedVideo:
         order costs one decode; any other index seeks."""
         if self._gen is None or index != self._next:
             self.close()
-            self._gen = self.planes(index)
+            self._gen = self._decoded(index)
         try:
-            i, p = next(self._gen)
+            i, frame = next(self._gen)
         except StopIteration:
             self._gen = None
             raise ValueError(f"{self.path}: frame {index} did not decode")
         self._next = i + 1
-        return i420_to_bgr(*p)
+        return frame
 
     def close(self) -> None:
         """Close the file and decoder :meth:`read` keeps open."""
         if self._gen is not None:
             self._gen.close()
             self._gen = None
+
+
+# --------------------------------------------------------------- image2
+
+IMAGE2_FPS = 25.0      # image2's default frame rate
+_FIRST_INDICES = 5     # image2's start_number_range: the first index is 0-4
+
+
+def frame_filename(pattern: str, number: int) -> Optional[str]:
+    """FFmpeg's ``av_get_frame_filename``: ``pattern`` with its one ``%d``
+    (``%Nd`` and ``%0Nd`` pad with zeros to N digits) replaced by
+    ``number`` and ``%%`` by ``%``; None where ``pattern`` is not one (no
+    ``%d``, two, or another conversion)."""
+    out, i, found = [], 0, False
+    while i < len(pattern):
+        c = pattern[i]
+        i += 1
+        if c != "%":
+            out.append(c)
+            continue
+        width = ""
+        while i < len(pattern) and pattern[i].isdigit():
+            width += pattern[i]
+            i += 1
+        conv = pattern[i] if i < len(pattern) else ""
+        i += 1
+        if conv == "%" and not width:
+            out.append("%")
+        elif conv == "d" and not found:
+            found = True
+            out.append(str(number).zfill(int(width or 0)))
+        else:
+            return None
+    return "".join(out) if found else None
+
+
+def _image2_range(pattern: str) -> Tuple[int, int]:
+    """(first, last) index of image2's ``find_image_range``: the first in
+    0-4 that names a file, the last found by doubling steps from it (so a
+    gap can lie inside the range: reading stops there, as FFmpeg's does)."""
+    exists = lambda i: os.path.isfile(frame_filename(pattern, i))  # noqa: E731
+    first = next((i for i in range(_FIRST_INDICES) if exists(i)), None)
+    if first is None:
+        raise FileNotFoundError(
+            f"no file or sequence with path {pattern!r} and index in the "
+            f"range 0-{_FIRST_INDICES - 1} (OpenCV's VideoCapture does not "
+            "open it either)")
+    last = first
+    while True:
+        step = 0
+        while exists(last + (2 * step or 1)):
+            step = 2 * step or 1
+        if not step:
+            return first, last
+        last += step
+
+
+def _image_bgr(data: bytes, what: str) -> np.ndarray:
+    """One image file's bytes → the BGR frame ``cv2.VideoCapture`` reads
+    from it: JPEG through FFmpeg's decoder (``runtime/jpeg``'s FFmpeg
+    flavour), PNG through ``io/images.decode_png`` and swscale's
+    conversion to BGR24 (alpha dropped, grey replicated, a 16-bit grey
+    sample rounded to 8 bits)."""
+    if is_jpeg(data):
+        return decode_jpeg_ffmpeg(data, what)
+    img = decode_png(data)
+    if img is None:
+        raise Unsupported(f"{what}: {unread_format(data)}, which the port "
+                          f"does not read in an image sequence ({ITEM_8})")
+    if img.dtype == np.uint16:
+        if img.ndim == 3 and img.shape[2] >= 3:
+            raise Unsupported(f"{what}: 16-bit colour PNG, which swscale "
+                              "converts through YUV; not read by the port "
+                              f"({ITEM_8})")
+        img = np.minimum((img.astype(np.uint32) + 128) >> 8, 255).astype(
+            np.uint8)
+    return np.ascontiguousarray(rgb8(img)[..., ::-1])
+
+
+class ImageSequence:
+    """Image files read as ``cv2.VideoCapture`` reads them through
+    FFmpeg's image2 demuxer: ``path`` is a printf pattern
+    (``frames/%06d.jpg``; see :func:`frame_filename`) whose first index
+    lies in 0-4, or one image file (a one-frame video).  25 fps; the frame
+    count is image2's (``CAP_PROP_FRAME_COUNT``), and reading stops at the
+    first missing file, as ``cv2.VideoCapture.read`` does.  A frame is read
+    by its index, without seeking."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.fps = IMAGE2_FPS
+        if frame_filename(path, 0) is None:
+            if not os.path.isfile(path):
+                raise FileNotFoundError(path)
+            self.files = [path]
+        else:
+            first, last = _image2_range(path)
+            self.files = [frame_filename(path, i)
+                          for i in range(first, last + 1)]
+        self.readable = next((i for i, f in enumerate(self.files)
+                              if not os.path.isfile(f)), len(self.files))
+        self.height, self.width = self.frame(0).shape[:2]
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def frame(self, index: int) -> np.ndarray:
+        """BGR frame ``index``."""
+        if not 0 <= index < len(self.files):
+            raise IndexError(f"frame {index} of {self.path}, which has "
+                             f"{len(self.files)}")
+        if index >= self.readable:
+            raise ValueError(f"{self.path}: frame {index} is past the "
+                             f"missing {self.files[self.readable]!r}, where "
+                             "reading stops")
+        with open(self.files[index], "rb") as f:
+            return _image_bgr(f.read(), self.files[index])
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(self.readable):
+            yield self.frame(i)
 
 
 # --------------------------------------------------------------- frame dir
@@ -321,6 +491,8 @@ def read_frames(path: str, max_frames: Optional[int] = None,
         frames = iter(Y4MFile(path))
     elif kind in ("mp4", "avi"):
         frames = iter(EncodedVideo(path))
+    elif kind == "sequence":
+        frames = iter(ImageSequence(path))
     else:
         frames = (_read_frame_bgr(p) for p in _dir_frames(path))
     for n, frame in enumerate(frames):
@@ -331,25 +503,33 @@ def read_frames(path: str, max_frames: Optional[int] = None,
 
 
 def read_frame(path: str, index: int) -> np.ndarray:
-    """BGR uint8 frame ``index`` of a video file or frame directory (an
-    ``.mp4``/``.avi`` is decoded from the keyframe before it)."""
+    """BGR uint8 frame ``index`` of a video file, image sequence or frame
+    directory (an ``.mp4``/``.avi`` is decoded from the keyframe before
+    it)."""
     kind = _kind(path)
     if kind == "y4m":
         return Y4MFile(path).frame(index)
     if kind in ("mp4", "avi"):
         return EncodedVideo(path).frame(index)
+    if kind == "sequence":
+        return ImageSequence(path).frame(index)
     return _read_frame_bgr(_dir_frames(path)[index])
 
 
 def video_info(path: str) -> Dict[str, float]:
-    """{"fps", "width", "height", "frames"} of a video file, as
-    ``cv2.VideoCapture``'s ``CAP_PROP_*`` give them, or of a frame
+    """{"fps", "width", "height", "frames"} of a video file or image
+    sequence, as ``cv2.VideoCapture``'s ``CAP_PROP_*`` give them (one image
+    file: one frame, where cv2's count is undefined), or of a frame
     directory (which has no rate: 30 fps)."""
     kind = _kind(path)
     if kind in ("mp4", "avi"):
         v = EncodedVideo(path)
         return {"fps": v.fps, "width": v.width, "height": v.height,
                 "frames": v.frames}
+    if kind == "sequence":
+        seq = ImageSequence(path)
+        return {"fps": seq.fps, "width": seq.width, "height": seq.height,
+                "frames": len(seq)}
     if kind == "y4m":
         y4m = Y4MFile(path)
         return {"fps": y4m.fps, "width": y4m.width, "height": y4m.height,

@@ -2,7 +2,8 @@
 
 A source is compiled at first use into ``opticalflow_tpu_torch/_build/``
 (git-ignored), beside the CUDA kernels, under a name that carries a digest
-of the source and flags, so an edited source is rebuilt; the new file is
+of the flags, the source and the local headers it includes (``#include
+"..."``, followed through), so an edited source or header is rebuilt; the new file is
 renamed into place, so a concurrent reader never sees half of it.  A
 failed build raises with the compiler's output: nothing here falls back
 to another implementation.
@@ -13,19 +14,39 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Sequence
+from typing import List, Sequence
 
-__all__ = ["BUILD_DIR", "library_path", "build_and_load"]
+__all__ = ["BUILD_DIR", "library_path", "build_and_load", "sources"]
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(src: Path) -> List[Path]:
+    """``src`` and the local headers it includes, recursively, each once."""
+    seen: List[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / m.group(1).decode()).resolve()
+                 for m in _INCLUDE.finditer(path.read_bytes())]
+    return seen
+
+
 def library_path(src: Path, flags: Sequence[str]) -> Path:
-    """``_build/lib<stem>-<digest>.so`` for ``src`` built with ``flags``."""
+    """``_build/lib<stem>-<digest>.so`` for ``src`` built with ``flags``:
+    the digest covers the flags, the source and its local headers."""
     h = hashlib.sha256(" ".join(flags).encode())
-    h.update(src.read_bytes())
+    for path in sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,510 @@
+// FFmpeg's pixel arithmetic, shared by the port's host decoders (mpeg4.cpp,
+// jpeg.cpp): what cv2.VideoCapture's frames go through, bit for bit, as
+// OpenCV 5.0 runs FFmpeg 8 (libavcodec 62, libswscale 9) on x86-64.
+//
+//   * idct: FFmpeg's simple IDCT, 8-bit (simple_idct_template.c, int16 in),
+//     which libavcodec's MPEG-4 Part 2 and Motion JPEG decoders run;
+//   * yuv_to_bgr_nearest: swscale's unscaled x86 SIMD yuv2rgb
+//     (yuv2rgb.asm): 4:2:0 or 4:2:2 planes at an even height, nearest
+//     chroma, with video-range (yuv420p) or full-range (yuvj) coefficients;
+//   * yuvj_to_bgr: swscale's conversion of full-range planes (yuvj420p,
+//     yuvj422p, yuvj444p, yuvj440p, yuvj411p: what FFmpeg's MJPEG decoder
+//     hands over) to BGR24 at the same size with SWS_BICUBIC, as OpenCV's
+//     FFmpeg backend asks for it: the unscaled path above where swscale
+//     takes it, else its scaler (scaled_to_bgr).
+//
+// Header only; each including source is one shared library.
+
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <vector>
+
+namespace ffdsp {
+
+inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// ------------------------------------------------------------------ IDCT
+// FFmpeg's simple IDCT, 8-bit (simple_idct_template.c, int16 in).
+
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
+              W6 = 8867, W7 = 4520;
+constexpr int ROW_SHIFT = 11, COL_SHIFT = 20;
+
+inline void idct_row(int16_t* row) {
+    bool ac = false;
+    for (int i = 1; i < 8; i++) ac |= row[i] != 0;
+    if (!ac) {
+        int16_t v = (int16_t)(uint16_t)((uint32_t)row[0] << 3);
+        for (int i = 0; i < 8; i++) row[i] = v;
+        return;
+    }
+    uint32_t a0 = (uint32_t)W4 * row[0] + (1u << (ROW_SHIFT - 1));
+    uint32_t a1 = a0, a2 = a0, a3 = a0;
+    a0 += (uint32_t)W2 * row[2];
+    a1 += (uint32_t)W6 * row[2];
+    a2 -= (uint32_t)W6 * row[2];
+    a3 -= (uint32_t)W2 * row[2];
+    uint32_t b0 = (uint32_t)W1 * row[1] + (uint32_t)W3 * row[3];
+    uint32_t b1 = (uint32_t)W3 * row[1] - (uint32_t)W7 * row[3];
+    uint32_t b2 = (uint32_t)W5 * row[1] - (uint32_t)W1 * row[3];
+    uint32_t b3 = (uint32_t)W7 * row[1] - (uint32_t)W5 * row[3];
+    a0 += (uint32_t)W4 * row[4] + (uint32_t)W6 * row[6];
+    a1 += -(uint32_t)W4 * row[4] - (uint32_t)W2 * row[6];
+    a2 += -(uint32_t)W4 * row[4] + (uint32_t)W2 * row[6];
+    a3 += (uint32_t)W4 * row[4] - (uint32_t)W6 * row[6];
+    b0 += (uint32_t)W5 * row[5] + (uint32_t)W7 * row[7];
+    b1 += -(uint32_t)W1 * row[5] - (uint32_t)W5 * row[7];
+    b2 += (uint32_t)W7 * row[5] + (uint32_t)W3 * row[7];
+    b3 += (uint32_t)W3 * row[5] - (uint32_t)W1 * row[7];
+    row[0] = (int16_t)((int32_t)(a0 + b0) >> ROW_SHIFT);
+    row[7] = (int16_t)((int32_t)(a0 - b0) >> ROW_SHIFT);
+    row[1] = (int16_t)((int32_t)(a1 + b1) >> ROW_SHIFT);
+    row[6] = (int16_t)((int32_t)(a1 - b1) >> ROW_SHIFT);
+    row[2] = (int16_t)((int32_t)(a2 + b2) >> ROW_SHIFT);
+    row[5] = (int16_t)((int32_t)(a2 - b2) >> ROW_SHIFT);
+    row[3] = (int16_t)((int32_t)(a3 + b3) >> ROW_SHIFT);
+    row[4] = (int16_t)((int32_t)(a3 - b3) >> ROW_SHIFT);
+}
+
+// the column pass; ``add`` adds to dest instead of writing it
+inline void idct_col(const int16_t* col, uint8_t* dest, int stride, bool add) {
+    uint32_t a0 = (uint32_t)W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4));
+    uint32_t a1 = a0, a2 = a0, a3 = a0;
+    a0 += (uint32_t)W2 * col[16];
+    a1 += (uint32_t)W6 * col[16];
+    a2 += -(uint32_t)W6 * col[16];
+    a3 += -(uint32_t)W2 * col[16];
+    uint32_t b0 = (uint32_t)W1 * col[8] + (uint32_t)W3 * col[24];
+    uint32_t b1 = (uint32_t)W3 * col[8] - (uint32_t)W7 * col[24];
+    uint32_t b2 = (uint32_t)W5 * col[8] - (uint32_t)W1 * col[24];
+    uint32_t b3 = (uint32_t)W7 * col[8] - (uint32_t)W5 * col[24];
+    a0 += (uint32_t)W4 * col[32];
+    a1 += -(uint32_t)W4 * col[32];
+    a2 += -(uint32_t)W4 * col[32];
+    a3 += (uint32_t)W4 * col[32];
+    b0 += (uint32_t)W5 * col[40];
+    b1 += -(uint32_t)W1 * col[40];
+    b2 += (uint32_t)W7 * col[40];
+    b3 += (uint32_t)W3 * col[40];
+    a0 += (uint32_t)W6 * col[48];
+    a1 += -(uint32_t)W2 * col[48];
+    a2 += (uint32_t)W2 * col[48];
+    a3 += -(uint32_t)W6 * col[48];
+    b0 += (uint32_t)W7 * col[56];
+    b1 += -(uint32_t)W5 * col[56];
+    b2 += (uint32_t)W3 * col[56];
+    b3 += -(uint32_t)W1 * col[56];
+    int v[8] = {(int32_t)(a0 + b0) >> COL_SHIFT, (int32_t)(a1 + b1) >> COL_SHIFT,
+                (int32_t)(a2 + b2) >> COL_SHIFT, (int32_t)(a3 + b3) >> COL_SHIFT,
+                (int32_t)(a3 - b3) >> COL_SHIFT, (int32_t)(a2 - b2) >> COL_SHIFT,
+                (int32_t)(a1 - b1) >> COL_SHIFT, (int32_t)(a0 - b0) >> COL_SHIFT};
+    for (int i = 0; i < 8; i++, dest += stride)
+        *dest = clip8(add ? *dest + v[i] : v[i]);
+}
+
+// blk: 64 coefficients in raster order (row = vertical frequency), already
+// dequantised; the rows are transformed in place
+inline void idct(int16_t* blk, uint8_t* dest, int stride, bool add) {
+    for (int i = 0; i < 8; i++) idct_row(blk + 8 * i);
+    for (int i = 0; i < 8; i++) idct_col(blk + i, dest + i, stride, add);
+}
+
+// ------------------------------------------------- YUV -> BGR24, SIMD
+// swscale's x86 yuv2rgb arithmetic (yuv2rgb.asm, and the MMX packed
+// output functions of its scaler): Y, U, V as 16-bit words at 8x scale,
+// the offsets subtracted, pmulhw by 13-bit coefficients, saturating adds,
+// packuswb.  The coefficients are ff_yuv2rgb_c_init_tables' for BT.601:
+// video range (yuv420p), and full range (yuvj*, sws srcRange=1), where the
+// chroma ones are scaled by 224/255 and Y is neither scaled nor offset.
+
+struct YuvCoeffs {
+    int y, vr, ub, ug, vg, yoff;
+};
+constexpr YuvCoeffs kVideoRange{9539, 13075, 16525, -3209, -6660, 128};
+constexpr YuvCoeffs kFullRange{8192, 11485, 14516, -2819, -5850, 0};
+
+inline int mulhw(int a, int b) { return (a * b) >> 16; }
+inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+inline int wrap16(int v) { return (int16_t)(uint16_t)v; }
+
+// one pixel from Y, U, V at 8x scale (a sample << 3)
+inline void simd_pixel(int y8, int u8, int v8, const YuvCoeffs& k, uint8_t* bgr) {
+    int ys = mulhw(wrap16(y8 - k.yoff), k.y);
+    int uu = wrap16(u8 - 1024), vv = wrap16(v8 - 1024);
+    int g = sat16(mulhw(uu, k.ug) + mulhw(vv, k.vg));
+    bgr[0] = clip8(sat16(ys + mulhw(uu, k.ub)));
+    bgr[1] = clip8(sat16(ys + g));
+    bgr[2] = clip8(sat16(ys + mulhw(vv, k.vr)));
+}
+
+// swscale's unscaled yuv2rgb: chroma of 4:2:0 (vshift 1) or 4:2:2
+// (vshift 0) planes taken at (x >> 1, y >> vshift).  simd_pixel's terms,
+// hoisted: the luma one by sample value, the chroma ones once a chroma
+// row.
+inline void yuv_to_bgr_nearest(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                               int w, int h, int ystride, int cstride, int vshift,
+                               const YuvCoeffs& k, uint8_t* bgr) {
+    int ys[256];
+    for (int i = 0; i < 256; i++) ys[i] = mulhw(wrap16((i << 3) - k.yoff), k.y);
+    const int cw = (w + 1) >> 1;
+    std::vector<int> tb(cw), tg(cw), tr(cw);
+    for (int r = 0; r < h; r++) {
+        if (r == 0 || (r >> vshift) != ((r - 1) >> vshift)) {
+            const uint8_t* pu = u + (size_t)(r >> vshift) * cstride;
+            const uint8_t* pv = v + (size_t)(r >> vshift) * cstride;
+            for (int c = 0; c < cw; c++) {
+                int uu = wrap16((pu[c] << 3) - 1024), vv = wrap16((pv[c] << 3) - 1024);
+                tb[c] = mulhw(uu, k.ub);
+                tg[c] = sat16(mulhw(uu, k.ug) + mulhw(vv, k.vg));
+                tr[c] = mulhw(vv, k.vr);
+            }
+        }
+        const uint8_t* py = y + (size_t)r * ystride;
+        uint8_t* out = bgr + (size_t)r * w * 3;
+        for (int c = 0; c < w; c++) {
+            const int l = ys[py[c]];
+            out[3 * c + 0] = clip8(sat16(l + tb[c >> 1]));
+            out[3 * c + 1] = clip8(sat16(l + tg[c >> 1]));
+            out[3 * c + 2] = clip8(sat16(l + tr[c >> 1]));
+        }
+    }
+}
+
+// --------------------------------------------- swscale's scaler, BGR24
+// The path swscale takes for full-range YUV planes it cannot convert
+// unscaled (4:4:4, 4:4:0, 4:1:1, and 4:2:0 or 4:2:2 at an odd height):
+// luma is copied (identity filters), chroma goes through initFilter's
+// bicubic filters (B = 0, C = 0.6; 14-bit horizontal, 12-bit vertical,
+// x86 filter alignment 4 and 2), hScale8To15 and the vertical pass.  The
+// output chroma is full width (SWS_FULL_CHR_H_INT, which swscale forces
+// for an odd width and for unsubsampled chroma: yuv2bgr24_full_*_c) or
+// half width (yuv2bgr24_* of its x86 MMXEXT code, and the C versions with
+// their lookup tables for the last two rows, which swscale converts
+// without MMX).
+
+struct Filter {
+    int size = 0;
+    std::vector<int> pos;
+    std::vector<int> coef;  // size coefficients an output sample
+};
+
+inline int scale_inc(int src, int dst) {
+    return (int)((((int64_t)src << 16) + (dst >> 1)) / dst);
+}
+
+inline int64_t rounded_div(int64_t a, int64_t b) {
+    return a >= 0 ? (a + (b >> 1)) / b : (a - (b >> 1)) / b;
+}
+
+inline int av_log2(unsigned v) {
+    int n = 0;
+    while (v >>= 1) n++;
+    return n;
+}
+
+// libswscale's initFilter for SWS_BICUBIC, no source or destination filter,
+// at swscale's default chroma siting (get_local_pos gives 128 for source
+// and destination at every subsampling, so a filter scales only where the
+// sizes differ)
+inline Filter init_filter(int xInc, int srcW, int dstW, int filterAlign, int one) {
+    const int64_t fone = (int64_t)1 << (54 - std::min(av_log2(srcW / dstW), 8));
+    std::vector<int> pos(dstW);
+    std::vector<int64_t> filt;
+    int fsize;
+    if (std::abs(xInc - 0x10000) < 10) {
+        fsize = 1;
+        filt.assign(dstW, fone);
+        for (int i = 0; i < dstW; i++) pos[i] = i;
+    } else {
+        const int sizeFactor = 4;
+        fsize = xInc <= 1 << 16 ? 1 + sizeFactor
+                                : 1 + (sizeFactor * srcW + dstW - 1) / dstW;
+        fsize = std::max(std::min(fsize, srcW - 2), 1);
+        filt.assign((size_t)dstW * fsize, 0);
+        const int64_t B = 0, C = (int64_t)(0.6 * (1 << 24));
+        int64_t xDstInSrc = (int64_t)xInc - 0x10000;  // (128 xInc - 128 << 16) >> 7
+        for (int i = 0; i < dstW; i++) {
+            int xx = (int)((xDstInSrc - (int64_t)(fsize - 2) * (1 << 16)) / (1 << 17));
+            pos[i] = xx;
+            for (int j = 0; j < fsize; j++, xx++) {
+                int64_t d = std::abs((int64_t)xx * (1 << 17) - xDstInSrc) << 13;
+                if (xInc > 1 << 16) d = d * dstW / srcW;
+                int64_t coeff;
+                if (d >= (int64_t)1 << 31) {
+                    coeff = 0;
+                } else {
+                    int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+                    if (d < (int64_t)1 << 30)
+                        coeff = (12 * ((int64_t)1 << 24) - 9 * B - 6 * C) * ddd +
+                                (-18 * ((int64_t)1 << 24) + 12 * B + 6 * C) * dd +
+                                (6 * ((int64_t)1 << 24) - 2 * B) * ((int64_t)1 << 30);
+                    else
+                        coeff = (-B - 6 * C) * ddd + (6 * B + 30 * C) * dd +
+                                (-12 * B - 48 * C) * d + (8 * B + 24 * C) * ((int64_t)1 << 30);
+                }
+                filt[(size_t)i * fsize + j] = coeff / (((int64_t)1 << 54) / fone);
+            }
+            xDstInSrc += 2 * (int64_t)xInc;
+        }
+    }
+    // reduce: drop near-zero taps on the left (shifting), count them on the right
+    const double cut = 0.002 * (double)fone;
+    int minsize = 0;
+    for (int i = dstW - 1; i >= 0; i--) {
+        int64_t* f = filt.data() + (size_t)i * fsize;
+        int mn = fsize;
+        int64_t acc = 0;
+        for (int j = 0; j < fsize; j++) {
+            acc += std::abs(f[0]);
+            if ((double)acc > cut) break;
+            if (i < dstW - 1 && pos[i] >= pos[i + 1]) break;
+            for (int k = 1; k < fsize; k++) f[k - 1] = f[k];
+            f[fsize - 1] = 0;
+            pos[i]++;
+        }
+        acc = 0;
+        for (int j = fsize - 1; j > 0; j--) {
+            acc += std::abs(f[j]);
+            if ((double)acc > cut) break;
+            mn--;
+        }
+        minsize = std::max(minsize, mn);
+    }
+    if (minsize == 1 && filterAlign == 2) filterAlign = 1;  // unscaled vertical
+    const int size = (minsize + filterAlign - 1) & ~(filterAlign - 1);
+    std::vector<int64_t> g((size_t)dstW * size, 0);
+    for (int i = 0; i < dstW; i++)
+        for (int j = 0; j < std::min(size, fsize); j++)
+            g[(size_t)i * size + j] = filt[(size_t)i * fsize + j];
+    // borders: fold taps outside [0, srcW) onto the edge samples
+    for (int i = 0; i < dstW; i++) {
+        int64_t* f = g.data() + (size_t)i * size;
+        if (pos[i] < 0) {
+            for (int j = 1; j < size; j++) {
+                int left = std::max(j + pos[i], 0);
+                f[left] += f[j];
+                f[j] = 0;
+            }
+            pos[i] = 0;
+        }
+        if (pos[i] + size > srcW) {
+            int shift = pos[i] + std::min(size - srcW, 0);
+            int64_t acc = 0;
+            for (int j = size - 1; j >= 0; j--)
+                if (pos[i] + j >= srcW) {
+                    acc += f[j];
+                    f[j] = 0;
+                }
+            for (int j = size - 1; j >= 0; j--) f[j] = j < shift ? 0 : f[j - shift];
+            pos[i] -= shift;
+            f[srcW - 1 - pos[i]] += acc;
+        }
+    }
+    // normalise to ``one`` with error diffusion
+    Filter out;
+    out.size = size;
+    out.pos = pos;
+    out.coef.assign((size_t)dstW * size, 0);
+    for (int i = 0; i < dstW; i++) {
+        const int64_t* f = g.data() + (size_t)i * size;
+        int64_t sum = 0, err = 0;
+        for (int j = 0; j < size; j++) sum += f[j];
+        sum = (sum + one / 2) / one;
+        if (!sum) sum = 1;
+        for (int j = 0; j < size; j++) {
+            int64_t v = f[j] + err;
+            int64_t iv = rounded_div(v, sum);
+            out.coef[(size_t)i * size + j] = (int)iv;
+            err = v - iv * sum;
+        }
+    }
+    return out;
+}
+
+// hScale8To15: one row of 8-bit samples -> 15-bit
+inline void hscale8to15(const uint8_t* src, int srcW, const Filter& f, int dstW, int16_t* dst) {
+    for (int i = 0; i < dstW; i++) {
+        int val = 0;
+        const int* c = f.coef.data() + (size_t)i * f.size;
+        for (int j = 0; j < f.size; j++)
+            if (f.pos[i] + j < srcW) val += (int)src[f.pos[i] + j] * c[j];
+        dst[i] = (int16_t)std::min(val >> 7, (1 << 15) - 1);
+    }
+}
+
+// ff_yuv2rgb_c_init_tables' 24-bit lookup tables (BT.601, full range),
+// read by the C packed output functions
+struct RgbTables {
+    static constexpr int kHead = 512, kLumaHead = 512;
+    std::vector<uint8_t> y;              // y[base + offset + Y]
+    int base = 384 + kLumaHead;
+    std::vector<int> rv, gu, gv, bu;     // offsets into y, by chroma + kHead
+    RgbTables() {
+        // BT.601 at full range, 16.16 (the video-range coefficients times
+        // 224/255); cgu is one unit smaller in magnitude than 25675 * 224 /
+        // 255 truncates to, as swscale's C output measures
+        const int64_t cy = 1 << 16, oy = 0;
+        const int64_t crv = 91881, cbu = 116129, cgu = -22552, cgv = -46802;
+        y.resize(1024 + 2 * kLumaHead);
+        int64_t yb = -((int64_t)384 << 16) - kLumaHead * cy - oy;
+        for (size_t i = 0; i < y.size(); i++, yb += cy) y[i] = clip8((int)((yb + 0x8000) >> 16));
+        auto fill = [](std::vector<int>& t, int64_t inc) {
+            t.resize(256 + 2 * kHead);
+            for (int i = 0; i < 256 + 2 * kHead; i++) {
+                int64_t cb = (int64_t)std::min(std::max(i - kHead, 0), 255) * inc;
+                t[i] = (int)(-(inc >> 9) + (cb >> 16));
+            }
+        };
+        fill(rv, crv);
+        fill(gu, cgu);
+        fill(bu, cbu);
+        fill(gv, cgv);
+    }
+    void pixel(int Y, int U, int V, uint8_t* bgr) const {
+        U = std::min(std::max(U, -kHead), 255 + kHead) + kHead;
+        V = std::min(std::max(V, -kHead), 255 + kHead) + kHead;
+        bgr[0] = y[base + bu[U] + Y];
+        bgr[1] = y[base + gu[U] + gv[V] + Y];
+        bgr[2] = y[base + rv[V] + Y];
+    }
+};
+
+inline const RgbTables& rgb_tables() {
+    static const RgbTables t;
+    return t;
+}
+
+// yuv2rgb_write_full (BGR24) from Y, U, V at 2^10 fixed point (full range:
+// no luma offset)
+inline void full_pixel(int Y, int U, int V, const YuvCoeffs& k, uint8_t* bgr) {
+    uint32_t yv = (uint32_t)(Y * k.y + (1 << 21));
+    int32_t R = (int32_t)(yv + (uint32_t)V * (uint32_t)k.vr);
+    int32_t G = (int32_t)(yv + (uint32_t)V * (uint32_t)k.vg + (uint32_t)U * (uint32_t)k.ug);
+    int32_t B = (int32_t)(yv + (uint32_t)U * (uint32_t)k.ub);
+    auto clip30 = [](int32_t x) { return x < 0 ? 0 : x > (1 << 30) - 1 ? (1 << 30) - 1 : x; };
+    if ((R | G | B) & 0xC0000000) {
+        R = clip30(R);
+        G = clip30(G);
+        B = clip30(B);
+    }
+    bgr[0] = (uint8_t)(B >> 22);
+    bgr[1] = (uint8_t)(G >> 22);
+    bgr[2] = (uint8_t)(R >> 22);
+}
+
+// The scaler for full-range planes: Y (w x h) and U, V at
+// ceil(w >> hshift) x ceil(h >> vshift).
+inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
+                          int cstride, int w, int h, int hshift, int vshift, uint8_t* bgr) {
+    const YuvCoeffs& k = kFullRange;
+    const bool full = (w & 1) || (hshift == 0 && vshift == 0);
+    const int csw = (w + (1 << hshift) - 1) >> hshift, csh = (h + (1 << vshift) - 1) >> vshift;
+    const int cdw = full ? w : (w + 1) >> 1;
+    const Filter hf = init_filter(scale_inc(csw, cdw), csw, cdw, 4, 1 << 14);
+    const Filter vf = init_filter(scale_inc(csh, h), csh, h, 2, 1 << 12);
+    std::vector<int16_t> u15((size_t)csh * cdw), v15((size_t)csh * cdw);
+    for (int r = 0; r < csh; r++) {
+        hscale8to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw);
+        hscale8to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw);
+    }
+    const RgbTables& tab = rgb_tables();
+    const int fs = vf.size;
+    std::vector<int> U(cdw), V(cdw);
+    for (int r = 0; r < h; r++) {
+        const uint8_t* py = y + (size_t)r * ystride;
+        uint8_t* out = bgr + (size_t)r * w * 3;
+        const int* c = vf.coef.data() + (size_t)r * fs;
+        const int16_t* u0 = u15.data() + (size_t)vf.pos[r] * cdw;
+        const int16_t* v0 = v15.data() + (size_t)vf.pos[r] * cdw;
+        // packed_vscale: one tap, or two that blend (yuv2packed1's uvalpha),
+        // or the general filter (yuv2packedX)
+        const bool blend2 = fs == 2 && c[0] + c[1] == 4096 && (unsigned)c[1] <= 4096u;
+        const int alpha = fs == 1 ? 0 : c[1];
+        const int16_t* u1 = fs > 1 ? u0 + cdw : u0;
+        const int16_t* v1 = fs > 1 ? v0 + cdw : v0;
+        if (full) {  // yuv2bgr24_full_{1,X}_c
+            for (int i = 0; i < cdw; i++) {
+                if (fs == 1 || blend2) {
+                    U[i] = (u0[i] * (4096 - alpha) + u1[i] * alpha - (128 << 19)) >> 10;
+                    V[i] = (v0[i] * (4096 - alpha) + v1[i] * alpha - (128 << 19)) >> 10;
+                } else {
+                    int su = (1 << 9) - (128 << 19), sv = su;
+                    for (int j = 0; j < fs; j++) {
+                        su += u0[(size_t)j * cdw + i] * c[j];
+                        sv += v0[(size_t)j * cdw + i] * c[j];
+                    }
+                    U[i] = su >> 10;
+                    V[i] = sv >> 10;
+                }
+            }
+            for (int x = 0; x < w; x++) full_pixel(py[x] << 9, U[x], V[x], k, out + 3 * x);
+            continue;
+        }
+        if (r < h - 2) {  // the MMXEXT functions: 8x-scale words
+            for (int i = 0; i < cdw; i++) {
+                if (fs == 1 || blend2) {  // yuv2bgr24_1: nearest or average
+                    if (alpha < 2048) {
+                        U[i] = u0[i] >> 4;
+                        V[i] = v0[i] >> 4;
+                    } else {
+                        U[i] = (uint16_t)(u0[i] + u1[i]) >> 5;
+                        V[i] = (uint16_t)(v0[i] + v1[i]) >> 5;
+                    }
+                } else {  // yuv2bgr24_X: pmulhw taps onto the rounder
+                    int su = 4, sv = 4;
+                    for (int j = 0; j < fs; j++) {
+                        su = wrap16(su + mulhw(u0[(size_t)j * cdw + i], c[j]));
+                        sv = wrap16(sv + mulhw(v0[(size_t)j * cdw + i], c[j]));
+                    }
+                    U[i] = su;
+                    V[i] = sv;
+                }
+            }
+            const int yadd = (fs == 1 || blend2) ? 0 : 4;
+            for (int x = 0; x < w; x++) {
+                int y8 = (fs == 1 || blend2) ? (py[x] << 7) >> 4
+                                              : wrap16(yadd + mulhw(py[x] << 7, 4096));
+                simd_pixel(y8, U[x >> 1], V[x >> 1], k, out + 3 * x);
+            }
+            continue;
+        }
+        for (int i = 0; i < cdw; i++) {  // the C functions, through the tables
+            if (fs == 1) {
+                U[i] = (u0[i] + 64) >> 7;
+                V[i] = (v0[i] + 64) >> 7;
+            } else if (blend2) {
+                U[i] = (u0[i] * (4096 - alpha) + u1[i] * alpha + (128 << 11)) >> 19;
+                V[i] = (v0[i] * (4096 - alpha) + v1[i] * alpha + (128 << 11)) >> 19;
+            } else {
+                int su = 1 << 18, sv = 1 << 18;
+                for (int j = 0; j < fs; j++) {
+                    su += u0[(size_t)j * cdw + i] * c[j];
+                    sv += v0[(size_t)j * cdw + i] * c[j];
+                }
+                U[i] = su >> 19;
+                V[i] = sv >> 19;
+            }
+        }
+        for (int x = 0; x < w; x++) {
+            int Y = (fs == 1 || blend2) ? ((py[x] << 7) + 64) >> 7
+                                        : ((py[x] << 7) * 4096 + (1 << 18)) >> 19;
+            tab.pixel(Y, U[x >> 1], V[x >> 1], out + 3 * x);
+        }
+    }
+}
+
+// Full-range planes (FFmpeg's yuvj formats) -> BGR24 as swscale converts
+// them: 4:2:0 (hshift 1, vshift 1) and 4:2:2 (1, 0) at an even height
+// unscaled, everything else through the scaler.
+inline void yuvj_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
+                        int cstride, int w, int h, int hshift, int vshift, uint8_t* bgr) {
+    if (hshift == 1 && vshift <= 1 && !(h & 1))
+        yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, vshift, kFullRange, bgr);
+    else
+        scaled_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, bgr);
+}
+
+}  // namespace ffdsp

@@ -1,9 +1,12 @@
 // jpeg — the PyTorch port's JPEG decoder (C ABI, loaded with ctypes by
 // jpeg.py, built with g++ at first use into opticalflow_tpu_torch/_build/).
 //
-// The JAX package decodes JPEG through PIL, imageio or OpenCV, all of which
-// run libjpeg-turbo 3.1 at its defaults; the GPU machine has none of them.
-// This decodes the same pixels bit for bit:
+// The JAX package decodes JPEG images through PIL, imageio or OpenCV, all of
+// which run libjpeg-turbo 3.1 at its defaults, and JPEG video (Motion JPEG,
+// image sequences) through cv2.VideoCapture, that is FFmpeg's mjpeg decoder
+// and swscale; the GPU machine has none of them.  One entropy decoder
+// serves two flavours.  The libjpeg flavour decodes libjpeg-turbo's pixels
+// bit for bit:
 //   * markers SOI, APPn (APP1's EXIF orientation is read), COM, DQT (8- and
 //     16-bit tables), DHT, SOF0/SOF1 (8-bit sequential), SOF2 (8-bit
 //     progressive, Huffman), DRI and RSTn, SOS, EOI;
@@ -16,6 +19,17 @@
 //     filters; h2v1/h2v2 replicate where the chroma is 1-2 samples wide),
 //     replication for other integral factors (4:1:1);
 //   * jdcolor.c's fixed-point YCbCr -> RGB; grey replicated to RGB.
+// The FFmpeg flavour (ojpeg_decode_ff) decodes cv2.VideoCapture's pixels
+// bit for bit, as OpenCV 5.0 runs FFmpeg 8:
+//   * mjpegdec.c's dequantisation into int16 (the DC predictor starting at
+//     1024 = 4 << bits, the level shift), FFmpeg's simple IDCT, no block
+//     smoothing; a frame without DHT takes the standard tables (Annex K.3);
+//   * the planes at FFmpeg's sizes (yuvj420p, yuvj422p, yuvj444p, yuvj440p,
+//     yuvj411p, gray) converted to BGR24 as swscale converts them for
+//     OpenCV (ffmpeg_dsp.h's yuvj_to_bgr; grey is replicated, as swscale's
+//     gray8 -> bgr24 is);
+//   * declined besides what the libjpeg flavour declines: RGB (Adobe
+//     transform 0, components 'R' 'G' 'B') and other chroma layouts.
 // Everything else is declined ("not mine": the caller may hand the file to
 // another decoder): arithmetic coding, lossless and hierarchical JPEG,
 // samples of more than 8 bits, CMYK/YCCK, height given by DNL, fractional
@@ -26,8 +40,9 @@
 // to 2^30 pixels (OpenCV's CV_IO_MAX_IMAGE_PIXELS) and 65500 a side.
 //
 // Exposed functions (return 0 done, 1 declined, 2 corrupt; msg says why):
-//   ojpeg_info   : height, width, components, progressive, EXIF orientation
-//   ojpeg_decode : (H, W, 3) uint8 RGB into a caller's buffer
+//   ojpeg_info      : height, width, components, progressive, EXIF orientation
+//   ojpeg_decode    : (H, W, 3) uint8 RGB into a caller's buffer (libjpeg)
+//   ojpeg_decode_ff : (H, W, 3) uint8 BGR into a caller's buffer (FFmpeg)
 
 #include <cstdarg>
 #include <cstdint>
@@ -38,6 +53,8 @@
 #include <memory>
 #include <new>
 #include <string>
+
+#include "ffmpeg_dsp.h"
 
 namespace {
 
@@ -133,6 +150,39 @@ struct Huffman {
     defined = true;
   }
 };
+
+// ITU T.81 Annex K.3's tables, which FFmpeg's decoder starts every frame
+// with (camera Motion JPEG carries no DHT)
+constexpr uint8_t kStdDcCounts[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                         {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+constexpr uint8_t kStdDcValues[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdAcCounts[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+                                         {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+constexpr uint8_t kStdAcValues[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+     0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+     0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+     0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+     0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+     0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+     0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+     0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+     0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+     0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+     0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+     0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+     0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+     0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+     0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+     0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+     0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+     0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
 
 // Entropy-coded data, MSB first, FF00 unstuffed.  Reading stops at a
 // marker (or the end of the data) and supplies zero bits from there, as
@@ -371,6 +421,7 @@ struct Component {
 struct Decoder {
   const uint8_t* d;
   size_t n;
+  bool ff;  // the FFmpeg flavour
   int width = 0, height = 0, ncomp = 0;
   bool sof = false, progressive = false, scanned = false, direct = false;
   bool jfif = false, adobe = false, app1 = false;
@@ -382,7 +433,14 @@ struct Decoder {
   int restart_interval = 0;
   Component comp[3];
 
-  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, size_t size, bool ffmpeg = false)
+      : d(data), n(size), ff(ffmpeg) {
+    if (ff)
+      for (int t = 0; t < 2; t++) {
+        dc[t].build(kStdDcCounts[t], kStdDcValues, 12);
+        ac[t].build(kStdAcCounts[t], kStdAcValues[t], 162);
+      }
+  }
 
   // -------------------------------------------------------------- markers
 
@@ -695,7 +753,17 @@ struct Decoder {
   }
 
   void idct_block(Component& k, const int16_t* blk, int bx, int by) {
-    idct_islow(blk, k.q, k.plane.get() + size_t(by) * 8 * k.stride + size_t(bx) * 8, k.stride);
+    uint8_t* out = k.plane.get() + size_t(by) * 8 * k.stride + size_t(bx) * 8;
+    if (!ff) {
+      idct_islow(blk, k.q, out, k.stride);
+      return;
+    }
+    // mjpegdec.c: level * quant into int16, the DC on top of 4 << 8
+    int16_t deq[64];
+    for (int j = 1; j < 64; j++) deq[j] = int16_t(int32_t(blk[j]) * uint16_t(k.q[j]));
+    int32_t dc = 1024 + int32_t(blk[0]) * uint16_t(k.q[0]);
+    deq[0] = int16_t(dc < -32768 ? -32768 : dc > 32767 ? 32767 : dc);
+    ffdsp::idct(deq, out, int(k.stride), false);
   }
 
   // decodes the scan's entropy-coded data from p; returns where it ended
@@ -936,6 +1004,43 @@ struct Decoder {
   }
 };
 
+// the FFmpeg flavour's output: the planes as swscale converts them to BGR24
+void emit_ff(Decoder& dec, uint8_t* bgr) {
+  const Component* c = dec.comp;
+  if (dec.ncomp == 3) {
+    if ((dec.adobe && dec.adobe_transform == 0) ||
+        (c[0].id == 'R' && c[1].id == 'G' && c[2].id == 'B'))
+      decline("RGB JPEG (FFmpeg decodes it to planar GBR)");
+    int hf = dec.hmax / c[1].h, vf = dec.vmax / c[1].v;
+    bool layout = c[0].h == dec.hmax && c[0].v == dec.vmax && c[1].h == c[2].h &&
+                  c[1].v == c[2].v &&
+                  ((hf <= 2 && vf <= 2) || (hf == 4 && vf == 1));
+    if (!layout)
+      decline("JPEG chroma layout Y %dx%d, Cb %dx%d, Cr %dx%d (the FFmpeg flavour reads "
+              "4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1)",
+              c[0].h, c[0].v, c[1].h, c[1].v, c[2].h, c[2].v);
+  }
+  if (!dec.direct)
+    for (int i = 0; i < dec.ncomp; i++) {
+      Component& k = dec.comp[i];
+      for (int by = 0; by < k.hb; by++)
+        for (int bx = 0; bx < k.wb; bx++) dec.idct_block(k, k.block(bx, by), bx, by);
+    }
+  const int w = dec.width, h = dec.height;
+  if (dec.ncomp == 1) {  // gray8 -> bgr24 replicates the sample
+    for (int y = 0; y < h; y++) {
+      const uint8_t* g = c[0].plane.get() + size_t(y) * c[0].stride;
+      uint8_t* o = bgr + size_t(y) * w * 3;
+      for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
+    }
+    return;
+  }
+  int hshift = dec.hmax / c[1].h == 4 ? 2 : dec.hmax / c[1].h - 1;
+  int vshift = dec.vmax / c[1].v - 1;
+  ffdsp::yuvj_to_bgr(c[0].plane.get(), int(c[0].stride), c[1].plane.get(), c[2].plane.get(),
+                     int(c[1].stride), w, h, hshift, vshift, bgr);
+}
+
 int finish(const std::string& why, char* msg, int64_t msg_len, int code) {
   if (msg && msg_len > 0) snprintf(msg, size_t(msg_len), "%s", why.c_str());
   return code;
@@ -987,6 +1092,19 @@ int ojpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t height, i
       decline("progressive JPEG whose scans leave low coefficients unrefined (libjpeg "
               "would smooth its blocks)");
     dec.emit(out);
+  });
+}
+
+// out: height x width x 3 uint8 BGR, C order: cv2.VideoCapture's frame
+int ojpeg_decode_ff(const uint8_t* data, int64_t n, uint8_t* out, int64_t height,
+                    int64_t width, char* msg, int64_t msg_len) {
+  return guarded(msg, msg_len, [&] {
+    Decoder dec(data, size_t(n), true);
+    dec.run(false);
+    if (dec.height != height || dec.width != width)
+      fail("JPEG is %dx%d, not the %ldx%ld asked for", dec.height, dec.width, long(height),
+           long(width));
+    emit_ff(dec, out);
   });
 }
 

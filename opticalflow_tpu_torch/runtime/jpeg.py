@@ -1,9 +1,12 @@
 """ctypes binding of the port's JPEG decoder (``jpeg.cpp``).
 
 ``jpeg.cpp`` decodes baseline, extended-sequential and progressive Huffman
-JPEG to the pixels that libjpeg-turbo 3.1 gives at its defaults (what PIL,
-imageio and OpenCV decode with), bit for bit, so the GPU machine, which has
-none of them, reads the same frames.  It is built with ``g++`` at first use
+JPEG in two flavours, so the GPU machine, which has neither PIL nor
+OpenCV, reads the same pixels as the JAX package: :func:`decode_jpeg` gives
+what libjpeg-turbo 3.1 gives at its defaults (PIL, imageio,
+``cv2.imread``), :func:`decode_jpeg_ffmpeg` what ``cv2.VideoCapture`` gives
+for a Motion JPEG frame or an image-sequence frame (FFmpeg's mjpeg decoder
+and swscale), each bit for bit.  It is built with ``g++`` at first use
 into ``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a failed
 build raises with the compiler's output.  The call releases the GIL (a
 ``ctypes.CDLL`` call does), so loader and server threads decode in
@@ -20,8 +23,10 @@ from typing import Optional, Tuple
 import numpy as np
 
 from opticalflow_tpu_torch.runtime._native import build_and_load
+from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["decode_jpeg", "declined_reason", "is_jpeg", "load"]
+__all__ = ["decode_jpeg", "decode_jpeg_ffmpeg", "declined_reason", "is_jpeg",
+           "jpeg_size", "load"]
 
 _SRC = Path(__file__).resolve().parent / "jpeg.cpp"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -48,6 +53,8 @@ def load() -> ctypes.CDLL:
         lib.ojpeg_decode.restype = ctypes.c_int
         lib.ojpeg_decode.argtypes = [ctypes.c_char_p, _I64, _U8P, _I64, _I64,
                                      ctypes.c_char_p, _I64]
+        lib.ojpeg_decode_ff.restype = ctypes.c_int
+        lib.ojpeg_decode_ff.argtypes = lib.ojpeg_decode.argtypes
         _lib = lib
         return lib
 
@@ -107,3 +114,49 @@ def declined_reason(data: bytes) -> Optional[str]:
     not): e.g. "arithmetic-coded JPEG (SOF9)"."""
     img, why = _decode(data, False)
     return None if img is not None else why
+
+
+def jpeg_size(data: bytes, what: str = "JPEG") -> Tuple[int, int]:
+    """(height, width) from a JPEG's frame header; raises ``ValueError``
+    for bytes that are not a JPEG or whose headers are corrupt."""
+    if not is_jpeg(data):
+        raise ValueError(f"{what}: not a JPEG")
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(_MSG)
+    info = (_I64 * 5)()
+    if load().ojpeg_info(data, len(data), info, msg, _MSG) != _DONE:
+        raise ValueError(f"{what}: bad JPEG headers: "
+                         + msg.value.decode("utf-8", "replace"))
+    return int(info[0]), int(info[1])
+
+
+def decode_jpeg_ffmpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
+    """JPEG bytes → (H, W, 3) uint8 **BGR**: the frame ``cv2.VideoCapture``
+    reads from them (a Motion JPEG sample, or a file of an image sequence),
+    bit for bit: FFmpeg's mjpeg decoder (its dequantisation and simple
+    IDCT, no block smoothing, the standard Huffman tables where the data
+    has no DHT, no EXIF rotation) and swscale's full-range conversion.
+
+    A flavour it does not read (arithmetic coding, lossless, 12-bit, CMYK,
+    RGB, other chroma layouts) raises :class:`~runtime.mpeg4.Unsupported`
+    naming ROADMAP Queue 1 item 8; corrupt data raises ``ValueError``;
+    ``what`` names the source.  Nothing falls back to :func:`decode_jpeg`,
+    whose pixels differ."""
+    if not is_jpeg(data):
+        raise ValueError(f"{what}: not a JPEG")
+    lib = load()
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(_MSG)
+    info = (_I64 * 5)()
+    rc = lib.ojpeg_info(data, len(data), info, msg, _MSG)
+    if rc == _DONE:
+        img = np.empty((info[0], info[1], 3), np.uint8)
+        rc = lib.ojpeg_decode_ff(data, len(data), img.ctypes.data_as(_U8P),
+                                 info[0], info[1], msg, _MSG)
+    why = msg.value.decode("utf-8", "replace")
+    if rc == _DECLINED:
+        raise Unsupported(f"{what}: {why}: not read as OpenCV's "
+                          f"VideoCapture reads it ({ITEM_8})")
+    if rc != _DONE:
+        raise ValueError(f"{what}: corrupt JPEG: {why}")
+    return img

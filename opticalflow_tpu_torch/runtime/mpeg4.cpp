@@ -26,9 +26,9 @@
 // encoder's reconstruction bit for bit.
 //
 // Also here: YUV 4:2:0 -> BGR24 in swscale's arithmetic (its x86 SIMD
-// yuv2rgb path, which cv2.VideoCapture's frames go through), and BGR24 or
-// RGB24 -> I420 in OpenCV's cvtColor arithmetic (the port's io/yuv.rgb_to_i420,
-// its numpy reference).
+// yuv2rgb path, which cv2.VideoCapture's frames go through; ffmpeg_dsp.h,
+// with the IDCT), and BGR24 or RGB24 -> I420 in OpenCV's cvtColor
+// arithmetic (the port's io/yuv.rgb_to_i420, its numpy reference).
 //
 // Everything outside the Simple Profile (B-VOPs, interlace, quarter-pel,
 // GMC/sprites, shape coding, data partitioning, studio and N-bit profiles)
@@ -45,6 +45,8 @@
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "ffmpeg_dsp.h"
 
 namespace {
 
@@ -344,90 +346,10 @@ struct BitWriter {
 };
 
 // ------------------------------------------------------------------ IDCT
-// FFmpeg's simple IDCT, 8-bit (simple_idct_template.c, int16 in).
+// FFmpeg's simple IDCT (ffmpeg_dsp.h, shared with jpeg.cpp)
 
-const int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
-          W6 = 8867, W7 = 4520;
-const int ROW_SHIFT = 11, COL_SHIFT = 20;
-
-inline void idct_row(int16_t* row) {
-    bool ac = false;
-    for (int i = 1; i < 8; i++) ac |= row[i] != 0;
-    if (!ac) {
-        int16_t v = (int16_t)(uint16_t)((uint32_t)row[0] << 3);
-        for (int i = 0; i < 8; i++) row[i] = v;
-        return;
-    }
-    uint32_t a0 = (uint32_t)W4 * row[0] + (1u << (ROW_SHIFT - 1));
-    uint32_t a1 = a0, a2 = a0, a3 = a0;
-    a0 += (uint32_t)W2 * row[2];
-    a1 += (uint32_t)W6 * row[2];
-    a2 -= (uint32_t)W6 * row[2];
-    a3 -= (uint32_t)W2 * row[2];
-    uint32_t b0 = (uint32_t)W1 * row[1] + (uint32_t)W3 * row[3];
-    uint32_t b1 = (uint32_t)W3 * row[1] - (uint32_t)W7 * row[3];
-    uint32_t b2 = (uint32_t)W5 * row[1] - (uint32_t)W1 * row[3];
-    uint32_t b3 = (uint32_t)W7 * row[1] - (uint32_t)W5 * row[3];
-    a0 += (uint32_t)W4 * row[4] + (uint32_t)W6 * row[6];
-    a1 += -(uint32_t)W4 * row[4] - (uint32_t)W2 * row[6];
-    a2 += -(uint32_t)W4 * row[4] + (uint32_t)W2 * row[6];
-    a3 += (uint32_t)W4 * row[4] - (uint32_t)W6 * row[6];
-    b0 += (uint32_t)W5 * row[5] + (uint32_t)W7 * row[7];
-    b1 += -(uint32_t)W1 * row[5] - (uint32_t)W5 * row[7];
-    b2 += (uint32_t)W7 * row[5] + (uint32_t)W3 * row[7];
-    b3 += (uint32_t)W3 * row[5] - (uint32_t)W1 * row[7];
-    row[0] = (int16_t)((int32_t)(a0 + b0) >> ROW_SHIFT);
-    row[7] = (int16_t)((int32_t)(a0 - b0) >> ROW_SHIFT);
-    row[1] = (int16_t)((int32_t)(a1 + b1) >> ROW_SHIFT);
-    row[6] = (int16_t)((int32_t)(a1 - b1) >> ROW_SHIFT);
-    row[2] = (int16_t)((int32_t)(a2 + b2) >> ROW_SHIFT);
-    row[5] = (int16_t)((int32_t)(a2 - b2) >> ROW_SHIFT);
-    row[3] = (int16_t)((int32_t)(a3 + b3) >> ROW_SHIFT);
-    row[4] = (int16_t)((int32_t)(a3 - b3) >> ROW_SHIFT);
-}
-
-inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
-
-// the column pass; ``add`` adds to dest instead of writing it
-inline void idct_col(const int16_t* col, uint8_t* dest, int stride, bool add) {
-    uint32_t a0 = (uint32_t)W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4));
-    uint32_t a1 = a0, a2 = a0, a3 = a0;
-    a0 += (uint32_t)W2 * col[16];
-    a1 += (uint32_t)W6 * col[16];
-    a2 += -(uint32_t)W6 * col[16];
-    a3 += -(uint32_t)W2 * col[16];
-    uint32_t b0 = (uint32_t)W1 * col[8] + (uint32_t)W3 * col[24];
-    uint32_t b1 = (uint32_t)W3 * col[8] - (uint32_t)W7 * col[24];
-    uint32_t b2 = (uint32_t)W5 * col[8] - (uint32_t)W1 * col[24];
-    uint32_t b3 = (uint32_t)W7 * col[8] - (uint32_t)W5 * col[24];
-    a0 += (uint32_t)W4 * col[32];
-    a1 += -(uint32_t)W4 * col[32];
-    a2 += -(uint32_t)W4 * col[32];
-    a3 += (uint32_t)W4 * col[32];
-    b0 += (uint32_t)W5 * col[40];
-    b1 += -(uint32_t)W1 * col[40];
-    b2 += (uint32_t)W7 * col[40];
-    b3 += (uint32_t)W3 * col[40];
-    a0 += (uint32_t)W6 * col[48];
-    a1 += -(uint32_t)W2 * col[48];
-    a2 += (uint32_t)W2 * col[48];
-    a3 += -(uint32_t)W6 * col[48];
-    b0 += (uint32_t)W7 * col[56];
-    b1 += -(uint32_t)W5 * col[56];
-    b2 += (uint32_t)W3 * col[56];
-    b3 += -(uint32_t)W1 * col[56];
-    int v[8] = {(int32_t)(a0 + b0) >> COL_SHIFT, (int32_t)(a1 + b1) >> COL_SHIFT,
-                (int32_t)(a2 + b2) >> COL_SHIFT, (int32_t)(a3 + b3) >> COL_SHIFT,
-                (int32_t)(a3 - b3) >> COL_SHIFT, (int32_t)(a2 - b2) >> COL_SHIFT,
-                (int32_t)(a1 - b1) >> COL_SHIFT, (int32_t)(a0 - b0) >> COL_SHIFT};
-    for (int i = 0; i < 8; i++, dest += stride)
-        *dest = clip8(add ? *dest + v[i] : v[i]);
-}
-
-void idct(int16_t* blk, uint8_t* dest, int stride, bool add) {
-    for (int i = 0; i < 8; i++) idct_row(blk + 8 * i);
-    for (int i = 0; i < 8; i++) idct_col(blk + i, dest + i, stride, add);
-}
+using ffdsp::clip8;
+using ffdsp::idct;
 
 // --------------------------------------------------------------- planes
 
@@ -1303,38 +1225,6 @@ class Decoder {
     }
 };
 
-// --------------------------------------------------- YUV 4:2:0 -> BGR24
-// swscale's x86 SIMD yuv2rgb (yuv2rgb.asm) with the default BT.601
-// video-range coefficients: Y, U, V shifted left by 3, the offsets
-// subtracted (signed: Y below 16 goes negative), pmulhw by 13-bit
-// coefficients, saturating adds, packuswb.
-const int kYCoeff = 9539, kVrCoeff = 13075, kUbCoeff = 16525,
-          kUgCoeff = -3209, kVgCoeff = -6660;
-
-inline int mulhw(int a, int b) { return (a * b) >> 16; }
-inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
-
-void yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w,
-                   int h, int ystride, int cstride, uint8_t* bgr) {
-    for (int r = 0; r < h; r++) {
-        const uint8_t* py = y + (size_t)r * ystride;
-        const uint8_t* pu = u + (size_t)(r >> 1) * cstride;
-        const uint8_t* pv = v + (size_t)(r >> 1) * cstride;
-        uint8_t* out = bgr + (size_t)r * w * 3;
-        for (int c = 0; c < w; c++) {
-            int yy = (py[c] << 3) - 128;
-            int uu = (pu[c >> 1] << 3) - 1024, vv = (pv[c >> 1] << 3) - 1024;
-            int ys = mulhw(yy, kYCoeff);
-            int ub = mulhw(uu, kUbCoeff), vr = mulhw(vv, kVrCoeff);
-            int g = sat16(mulhw(uu, kUgCoeff) + mulhw(vv, kVgCoeff));
-            out[3 * c + 0] = clip8(sat16(ys + ub));
-            out[3 * c + 1] = clip8(sat16(ys + g));
-            out[3 * c + 2] = clip8(sat16(ys + vr));
-        }
-    }
-}
-
-
 // ------------------------------------------------------------- encoder
 
 constexpr int kGop = 12;   // the I-VOP period
@@ -2082,7 +1972,7 @@ void om4_to_i420(const uint8_t* px3, int w, int h, int rgb, uint8_t* y,
 
 void om4_yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                        int w, int h, int ystride, int cstride, uint8_t* bgr) {
-    yuv420_to_bgr(y, u, v, w, h, ystride, cstride, bgr);
+    ffdsp::yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, 1, ffdsp::kVideoRange, bgr);
 }
 
 // ---- encoder

@@ -2,7 +2,9 @@
 held to where no encoder exists (the GPU machine has neither PIL nor
 OpenCV), and ``manifest.json`` with each file's shape and the SHA-256 of
 the pixels PIL's ``convert("RGB")`` and ``cv2.imdecode(..., IMREAD_COLOR)``
-(as RGB, EXIF orientation applied) decode from it.
+(as RGB, EXIF orientation applied) decode from it, and of the BGR frame
+``cv2.VideoCapture`` reads from it as a one-file image sequence
+(``sha256_videocapture``: FFmpeg's decoder and swscale, no EXIF rotation).
 
     python tests/make_jpeg_fixtures.py
 
@@ -107,6 +109,25 @@ def fixtures():
     return files
 
 
+def videocapture_frame(data: bytes) -> np.ndarray:
+    """The BGR frame ``cv2.VideoCapture`` reads from JPEG bytes, as the one
+    file of a ``%06d.jpg`` sequence."""
+    import shutil
+    import tempfile
+    import cv2
+    tmp = tempfile.mkdtemp()
+    try:
+        with open(os.path.join(tmp, "000000.jpg"), "wb") as f:
+            f.write(data)
+        cap = cv2.VideoCapture(os.path.join(tmp, "%06d.jpg"))
+        ok, frame = cap.read()
+        cap.release()
+    finally:
+        shutil.rmtree(tmp)
+    assert ok
+    return frame
+
+
 def main() -> int:
     import cv2
     import PIL
@@ -124,7 +145,8 @@ def main() -> int:
                            cv2.IMREAD_COLOR)[..., ::-1]
         manifest["files"][name] = {
             "shape": list(pil.shape), "sha256_pil": pixel_digest(pil),
-            "cv2_shape": list(ocv.shape), "sha256_cv2": pixel_digest(ocv)}
+            "cv2_shape": list(ocv.shape), "sha256_cv2": pixel_digest(ocv),
+            "sha256_videocapture": pixel_digest(videocapture_frame(data))}
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -18,7 +18,13 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
   * ``raw_i420.avi``: ``I420`` rawvideo by cv2, its frames then overwritten
     with seeded full-range planes (Y below 16 and above 235, chroma at
     both ends): it holds the YUV → BGR conversion alone;
-  * ``mjpg.avi``: Motion JPEG, which the port refuses (ROADMAP item 8);
+  * ``mjpg.avi``: Motion JPEG by ``cv2.VideoWriter`` (fourcc ``MJPG``:
+    Lavc's encoder, its own DQT and optimised DHT, 4:2:0);
+  * ``mjpg_176x144.mp4``: fourcc ``MJPG`` into ``.mp4``, which cv2 writes
+    under the sample entry ``mp4v`` with objectTypeIndication 0x6C;
+  * ``mjpg_nodht_176x144.avi``: PIL's baseline JPEGs (the standard Huffman
+    tables) with their DHT segments cut, as camera Motion JPEG comes, muxed
+    by the port's ``AviWriter(fourcc="MJPG")``;
   * ``tools_h263.mp4`` and ``tools_mpegq.avi``: written by the port's own
     encoder with the coding tools FFmpeg's writer leaves off (video
     packets, 4MV, alternating rounding over planes full of zeros, a
@@ -141,6 +147,44 @@ def _port_write(path: str, planes: list, **codec) -> None:
     mux.release()
 
 
+def strip_dht(data: bytes) -> bytes:
+    """A JPEG file without its DHT segments (the standard tables apply)."""
+    out, p = bytearray(data[:2]), 2
+    while p < len(data):
+        marker = data[p + 1]
+        if marker == 0xDA:
+            return bytes(out + data[p:])
+        n = data[p + 2] << 8 | data[p + 3]
+        if marker != 0xC4:
+            out += data[p:p + 2 + n]
+        p += 2 + n
+    return bytes(out)
+
+
+def mjpeg_avi(path: str, jpegs: list, fps: int = 25) -> None:
+    """JPEG files → a Motion JPEG AVI through the port's RIFF muxer."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime.jpeg import jpeg_size
+    h, w = jpeg_size(jpegs[0])
+    mux = AviWriter(path, (w, h), (fps, 1), fourcc="MJPG")
+    for data in jpegs:
+        mux.write(data, True)
+    mux.release()
+
+
+def _pil_jpegs(frames: list, quality: int = 75) -> list:
+    import io
+    from PIL import Image
+    out = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(f[..., ::-1])).save(
+            buf, "JPEG", quality=quality)
+        out.append(buf.getvalue())
+    return out
+
+
 def _bgr_planes(frames: list) -> list:
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.yuv import i420_planes
@@ -163,6 +207,11 @@ def main() -> None:
     _cv2_write(raw, moving_clip(48, 64, 4, seed=4), "I420")
     _fill_raw_frames(raw, 64, 48)
     _cv2_write(os.path.join(OUT, "mjpg.avi"), moving_clip(24, 32, 2), "MJPG")
+    _cv2_write(os.path.join(OUT, "mjpg_176x144.mp4"),
+               moving_clip(144, 176, 3, seed=6), "MJPG")
+    mjpeg_avi(os.path.join(OUT, "mjpg_nodht_176x144.avi"),
+              [strip_dht(j) for j in _pil_jpegs(
+                  moving_clip(144, 176, 3, seed=7), quality=60)])
     _port_write(os.path.join(OUT, "tools_h263.mp4"), zero_planes(64, 96, 14),
                 packet_rows=2, mv4=True, rounding=1, dquant=1, qscale=2)
     iq = np.add.outer(np.arange(8), np.arange(8)) * 2 + 8

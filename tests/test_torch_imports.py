@@ -111,24 +111,27 @@ def test_package_data_holds_every_file_the_port_opens():
     library and draw text: every file that ``ops/_build.py`` (the kernels'
     sources and headers), ``runtime/flowviz.py``, ``runtime/jpeg.py`` and
     ``runtime/dis.py`` (their C++ sources),
-    ``runtime/mpeg4.py``, ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
+    ``runtime/mpeg4.py`` (with ``jpeg.py``, the header they include),
+    ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
     table) read is matched by a ``package-data`` pattern of
     ``pyproject.toml``."""
     import fnmatch
     import tomllib
     from opticalflow_tpu_torch.ops import _build
-    from opticalflow_tpu_torch.runtime import dis, flowviz, jpeg, mpeg4
+    from opticalflow_tpu_torch.runtime import _native, dis, flowviz, jpeg, \
+        mpeg4
     from opticalflow_tpu_torch.viz import colorwheel, text
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "opticalflow_tpu_torch"]
     opened = [str(p) for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
-    opened += [str(flowviz._SRC), str(jpeg._SRC), str(dis._SRC),
-               str(mpeg4._SRC),
+    opened += [str(flowviz._SRC), str(dis._SRC),
                text.ATLAS_PATH, colorwheel.MAGMA_PATH]
+    opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC)
+                      for p in _native.sources(src)})
     assert any(p.endswith(".cuh") for p in opened)
     assert {os.path.splitext(p)[1] for p in opened} == {
-        ".cu", ".cuh", ".cpp", ".npz"}
+        ".cu", ".cuh", ".cpp", ".h", ".npz"}
     for path in opened:
         assert os.path.isfile(path), path
         rel = os.path.relpath(path, PKG)

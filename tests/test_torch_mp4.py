@@ -376,16 +376,21 @@ def test_mp4_layouts_equal_cv2(moov_first, chunk, co64, tmp_path):
 # --------------------------------------------------------------- refusals
 
 def test_other_codecs_raise_naming_item_8(tmp_path):
+    """H.264 raises naming ROADMAP item 8 from every entry point; Motion
+    JPEG in AVI, once refused, reads as cv2.VideoCapture reads it."""
     h264 = tmp_path / "h264.mp4"
     h264.write_bytes(open(MOVING, "rb").read().replace(b"mp4v", b"avc1"))
+    for fn in (lambda p: list(vio.read_frames(p)), vio.video_info,
+               lambda p: vio.read_frame(p, 0), datasets.ConsecutiveFrames):
+        with pytest.raises(mpeg4.Unsupported, match="H.264.*Queue 1 item 8"):
+            fn(str(h264))
     mjpg = os.path.join(FIXTURES, "mjpg.avi")
-    for path, what in ((str(h264), "H.264"), (mjpg, "Motion JPEG")):
-        for fn in (lambda p: list(vio.read_frames(p)), vio.video_info,
-                   lambda p: vio.read_frame(p, 0),
-                   datasets.ConsecutiveFrames):
-            with pytest.raises(mpeg4.Unsupported,
-                               match=f"{what}.*Queue 1 item 8"):
-                fn(path)
+    ref = _cv2_frames(mjpg)
+    assert len(ref) == 2
+    _same(list(vio.read_frames(mjpg)), ref)
+    np.testing.assert_array_equal(vio.read_frame(mjpg, 1), ref[1])
+    assert vio.video_info(mjpg)["frames"] == 2
+    assert len(datasets.ConsecutiveFrames(mjpg, size_hw=(16, 24))) == 1
 
 
 def test_xvid_written_streams_raise(tmp_path):

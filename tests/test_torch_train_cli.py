@@ -268,8 +268,9 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
     any connection (no coordinator, no launch variables; a coordinator
     without the world size; --dist-* without --distributed; --val-frac
     with --distributed, as in the JAX CLI).  A video the port does not
-    decode (H.264 in MP4, Motion JPEG in AVI) names ROADMAP item 8, and a
-    truncated one says so."""
+    decode (H.264 in MP4) names ROADMAP item 8, and a truncated one says
+    so; Motion JPEG in AVI, once refused, makes the pseudo regime's
+    dataset, whose pair is the JAX class's (cv2.VideoCapture's frames)."""
     for extra, match in (
             (["--distributed"], "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
                                 "not set"),
@@ -282,17 +283,22 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
                       str(tmp_path / "r"), *BASE, *extra])
     mp4 = open(os.path.join(VIDEO_FIXTURES, "moving_176x144.mp4"),
                "rb").read()
-    mjpg = open(os.path.join(VIDEO_FIXTURES, "mjpg.avi"), "rb").read()
     for name, data, match in (
             ("h264.mp4", mp4.replace(b"mp4v", b"avc1"),
              "H.264.*Queue 1 item 8"),
-            ("mjpg.avi", mjpg, "Motion JPEG.*Queue 1 item 8"),
             ("cut.mp4", mp4[:2000], "truncated")):
         video = tmp_path / name
         video.write_bytes(data)
         with pytest.raises(ValueError, match=match):
             cli.main(["--regime", "pseudo", "--data-root", str(video),
                       "--out-dir", str(tmp_path / "v"), *BASE])
+    from opticalflow_tpu.data import datasets as jdatasets
+    mjpg = os.path.join(VIDEO_FIXTURES, "mjpg.avi")
+    ds = cli._make_dataset(cli.build_parser().parse_args(
+        ["--regime", "pseudo", "--data-root", mjpg, "--size", "16", "24"]))
+    jds = jdatasets.ConsecutiveFrames(mjpg, size_hw=(16, 24))
+    assert ds.index == jds.index == [(0, 1)]
+    np.testing.assert_array_equal(ds[0]["images"], jds[0]["images"])
 
 
 def test_train_cli_pseudo_regime_on_an_mp4(frames_dir, tmp_path):

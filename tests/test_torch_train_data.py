@@ -223,20 +223,24 @@ def test_consecutive_frames_match_jax(tmp_path, stride):
 
 
 def test_consecutive_frames_refuses_video_files_and_missing_sources(tmp_path):
-    """H.264 in MP4 and Motion JPEG in AVI name ROADMAP item 8, a truncated
-    MP4 says so, an MPEG-4 Part 2 .mp4 is read; a missing source or too few
-    frames raise FileNotFoundError."""
+    """H.264 in MP4 names ROADMAP item 8, a truncated MP4 says so, an
+    MPEG-4 Part 2 .mp4 is read, and Motion JPEG in AVI (once refused) gives
+    the JAX class's pair, read through cv2.VideoCapture there; a missing
+    source or too few frames raise FileNotFoundError."""
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
     h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
     h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
     cut.write_bytes(mp4[:len(mp4) - 50])
     for path, match in ((h264, "H.264.*Queue 1 item 8"),
-                        (os.path.join(fixtures, "mjpg.avi"),
-                         "Motion JPEG.*Queue 1 item 8"),
                         (cut, "truncated")):
         with pytest.raises(ValueError, match=match):
             datasets.ConsecutiveFrames(str(path))
+    mjpg = os.path.join(fixtures, "mjpg.avi")
+    ds = datasets.ConsecutiveFrames(mjpg, size_hw=(16, 24))
+    jds = jdatasets.ConsecutiveFrames(mjpg, size_hw=(16, 24))
+    assert ds.index == jds.index == [(0, 1)]
+    np.testing.assert_array_equal(ds[0]["images"], jds[0]["images"])
     ds = datasets.ConsecutiveFrames(os.path.join(fixtures,
                                                  "moving_176x144.mp4"),
                                     size_hw=(32, 48))

@@ -158,10 +158,11 @@ def test_i420_upload_close_to_bgr_upload(setup):
         np.testing.assert_array_equal(x, y)
 
 
-def test_what_is_not_ported_raises(setup):
+def test_what_is_not_ported_raises(setup, monkeypatch):
     """Compare mode, once not ported, writes frames twice the clip's
-    width; H.264 in MP4 and Motion JPEG in AVI are refused naming ROADMAP
-    item 8, a truncated MP4 saying so."""
+    width; H.264 in MP4 is refused naming ROADMAP item 8, a truncated MP4
+    saying so; Motion JPEG in AVI, once refused, runs: the frames the CLI
+    reads are cv2.VideoCapture's."""
     base = [setup["clip"], str(setup["tmp"] / "x"), "--ckpt", setup["ckpt"],
             "--device", "cpu"]
     got = _run_cli(setup, "compare")
@@ -173,11 +174,27 @@ def test_what_is_not_ported_raises(setup):
     h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
     cut.write_bytes(mp4[:len(mp4) - 50])
     for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
-                        (os.path.join(fixtures, "mjpg.avi"),
-                         "Motion JPEG.*Queue 1 item 8"),
                         (str(cut), "truncated")):
         with pytest.raises(ValueError, match=match):
             extract_video.main([path] + base[1:])
+    import opticalflow_tpu_torch.video as tvideo
+    mjpg, seen = os.path.join(fixtures, "mjpg.avi"), []
+    read = tvideo.read_frames
+
+    def recording(*args, **kwargs):
+        for frame in read(*args, **kwargs):
+            seen.append(frame)
+            yield frame
+    monkeypatch.setattr(tvideo, "read_frames", recording)
+    out = str(setup["tmp"] / "mjpg_arrows")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert extract_video.main([mjpg, out] + base[2:]) == 0
+    cap = cv2.VideoCapture(mjpg)
+    want = [cap.read()[1] for _ in range(2)]
+    cap.release()
+    assert len(seen) == 2 and len(os.listdir(out)) == 1
+    for g, w in zip(seen, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_extract_video_mp4_in_and_out(setup, monkeypatch):

@@ -189,22 +189,31 @@ def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
 
 
 def test_other_containers_raise_naming_the_two_formats(tmp_path):
-    """H.264 in MP4 and Motion JPEG in AVI raise naming ROADMAP item 8; a
-    truncated MP4 says so; an unknown extension names the formats the port
-    handles; and AsyncVideoWriter now writes .mp4, which cv2 reads."""
+    """H.264 in MP4 raises naming ROADMAP item 8; a truncated MP4 says so;
+    Motion JPEG in AVI, once refused, reads as cv2.VideoCapture reads it;
+    an unknown extension names the formats the port handles; and
+    AsyncVideoWriter now writes .mp4, which cv2 reads."""
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
     h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
     h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
     cut.write_bytes(mp4[:len(mp4) - 50])
-    mjpg = os.path.join(fixtures, "mjpg.avi")
     for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
-                        (mjpg, "Motion JPEG.*Queue 1 item 8"),
                         (str(cut), "truncated")):
         for fn in (lambda: list(vio.read_frames(path)),
                    lambda: vio.video_info(path)):
             with pytest.raises(ValueError, match=match):
                 fn()
+    mjpg = os.path.join(fixtures, "mjpg.avi")
+    cap = cv2.VideoCapture(mjpg)
+    want = [cap.read()[1] for _ in range(2)]
+    cap.release()
+    got = list(vio.read_frames(mjpg))
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert vio.video_info(mjpg) == {"fps": 25.0, "width": 32, "height": 24,
+                                    "frames": 2}
     mkv = tmp_path / "clip.mkv"
     mkv.write_bytes(b"\x1a\x45\xdf\xa3")
     with pytest.raises(ValueError, match=r"\.mp4.*\.y4m.*PNG.*item 8"):
