@@ -12,7 +12,8 @@ picks the codec:
     ``MP4V``): decoded by ``runtime/mpeg4``;
   * Motion JPEG (``MJPG``, ``mjpg``): one JPEG a chunk, every frame a
     keyframe, decoded by ``runtime/jpeg``'s FFmpeg flavour;
-  * raw I420 (``I420``, ``IYUV``): Y, U and V planes.
+  * raw I420 (``I420``, ``IYUV``): Y, U and V planes;
+  * VP8 (``VP80``): decoded by ``runtime/vp8``, a key frame a keyframe.
 
 Anything else (``H264``, ...) raises ``Unsupported``, naming ROADMAP
 Queue 1 item 8.  fps is ``rate / scale`` of the stream header, the frame
@@ -32,12 +33,15 @@ import struct
 from typing import BinaryIO, List, Optional, Tuple
 
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
-__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "RAW_TAGS"]
+__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "RAW_TAGS",
+           "VP8_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
 MJPEG_TAGS = {"MJPG", "mjpg"}
 RAW_TAGS = {"I420", "IYUV"}
+VP8_TAGS = {"VP80"}
 _NAMES = {"H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
@@ -132,14 +136,7 @@ class AviFile:
             pos += 8 + n + (n & 1)
         if video:
             self._stream = stream
-            if self.tag not in MPEG4_TAGS | MJPEG_TAGS | RAW_TAGS:
-                name = _NAMES.get(self.tag, f"the {self.tag!r} codec")
-                raise Unsupported(f"{self.path}: {name} video (fourcc "
-                                  f"{self.tag!r}): the port reads MPEG-4 "
-                                  f"Part 2, Motion JPEG and raw I420 AVI "
-                                  f"only ({ITEM_8})")
-            self.codec = ("mpeg4" if self.tag in MPEG4_TAGS else
-                          "mjpeg" if self.tag in MJPEG_TAGS else "i420")
+            self.codec = codec_of(self.tag, self.path)
 
     def _movi(self, f, start: int, end: int) -> None:
         want = (b"%02d" % self._stream) if self._stream is not None else None
@@ -160,8 +157,9 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs; all raw and Motion JPEG frames are."""
-        if self.codec != "mpeg4":
+        MPEG-4 I-VOPs or VP8 key frames; all raw and Motion JPEG frames
+        are."""
+        if self.codec not in ("mpeg4", "vp8"):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -172,7 +170,9 @@ class AviFile:
             with open(self.path, "rb") as f:
                 for i in range(len(flags), len(self.sizes)):
                     f.seek(self.offsets[i])
-                    if _is_ivop(f.read(min(self.sizes[i], 4096))):
+                    head = f.read(min(self.sizes[i], 4096))
+                    if (_is_ivop(head) if self.codec == "mpeg4" else
+                            is_keyframe(head)):
                         keys.append(i)
         return keys or [0]
 
@@ -190,6 +190,24 @@ class AviFile:
         if len(data) != self.sizes[i]:
             raise ValueError(f"{self.path}: frame {i} is truncated")
         return data
+
+
+def codec_of(tag: str, what: str) -> str:
+    """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
+    ``mpeg4``, ``mjpeg``, ``i420`` or ``vp8``; anything else raises
+    ``Unsupported`` naming ROADMAP Queue 1 item 8."""
+    if tag in MPEG4_TAGS:
+        return "mpeg4"
+    if tag in MJPEG_TAGS:
+        return "mjpeg"
+    if tag in RAW_TAGS:
+        return "i420"
+    if tag in VP8_TAGS:
+        return "vp8"
+    name = _NAMES.get(tag, f"the {tag!r} codec")
+    raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
+                      f"reads MPEG-4 Part 2, Motion JPEG, raw I420 and VP8 "
+                      f"only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

@@ -1,29 +1,32 @@
-"""Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.y4m``,
-image sequences and frame directories.
+"""Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.mkv``,
+``.webm``, ``.y4m``, image sequences and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
 muxers and codecs and reads what those read, frame for frame:
 
-  * **MP4** (``.mp4``, ``.m4v``, ``.mov``; ``io/mp4``) and **AVI**
-    (``.avi``; ``io/avi``) holding MPEG-4 Part 2 Simple Profile video, what
+  * **MP4** (``.mp4``, ``.m4v``, ``.mov``; ``io/mp4``), **AVI**
+    (``.avi``; ``io/avi``) and **Matroska/WebM** (``.mkv``, ``.webm``;
+    ``io/mkv``) holding MPEG-4 Part 2 Simple Profile video, what
     ``cv2.VideoWriter`` writes with fourcc ``mp4v``, ``XVID`` or ``FMP4``:
     decoded by ``runtime/mpeg4`` bit-exactly to FFmpeg and converted to BGR
     in swscale's arithmetic, so every frame equals ``cv2.VideoCapture``'s;
-    Motion JPEG (fourcc ``MJPG`` in AVI, ``mp4v`` with objectTypeIndication
-    0x6C in MP4), decoded by ``runtime/jpeg``'s FFmpeg flavour; raw I420
-    AVI too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames, as cv2's
-    writer does; an odd side cropped to even, as it does), ``.mp4`` or
-    ``.avi`` (fourcc ``FMP4``).  H.264, HEVC and the like raise, naming
-    ROADMAP Queue 1 item 8;
+    VP8 (``VP80`` in AVI, ``V_VP8`` in Matroska and WebM), decoded by
+    ``runtime/vp8`` bit-exactly to FFmpeg; Motion JPEG (fourcc ``MJPG`` in
+    AVI, ``V_MJPEG`` in Matroska, ``mp4v`` with objectTypeIndication 0x6C
+    in MP4), decoded by ``runtime/jpeg``'s FFmpeg flavour; raw I420 in AVI
+    and Matroska too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames,
+    as cv2's writer does; an odd side cropped to even, as it does),
+    ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, VP9 and
+    the like raise, naming ROADMAP Queue 1 item 8;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
     PNG through ``io/images.decode_png`` and swscale's conversion;
   * **YUV4MPEG2** (``.y4m``): 8-bit 4:2:0, colour tags ``C420jpeg``,
-    ``C420mpeg2``, ``C420paldv``, ``C420`` or none; frames are converted
-    with ``io/yuv`` (OpenCV's BT.601 integer arithmetic, nearest chroma);
-    an odd side's last chroma row or column covers one pixel;
+    ``C420mpeg2``, ``C420paldv``, ``C420`` or none, read as FFmpeg's
+    yuv4mpeg demuxer reads it (25 fps without an ``F`` tag,
+    ``XCOLORRANGE=FULL`` honoured) and converted as swscale converts it;
   * **a directory of PNG or JPEG frames** (``*.png``, ``*.jpg`` or
     ``*.jpeg``, one kind a directory), read in sorted name order as the
     JAX package loads images (``io/images.decode_png``, ``runtime/jpeg``'s
@@ -51,35 +54,48 @@ import numpy as np
 from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
 from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
+from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
-from opticalflow_tpu_torch.io.yuv import i420_planes, i420_to_rgb, pad_to_even
+from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
-from opticalflow_tpu_torch.runtime.mpeg4 import (ITEM_8, Decoder, Encoder,
+from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
+                                                  Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
                                                   to_i420)
+from opticalflow_tpu_torch.runtime.vp8 import Decoder as Vp8Decoder
+from opticalflow_tpu_torch.runtime.vp8 import frame_size as vp8_frame_size
 
 __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "EncodedVideo", "ImageSequence", "Mpeg4Writer", "Y4MFile",
            "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
            "is_sequence"]
 
-FORMATS = ("an .mp4 or .avi file (MPEG-4 Part 2 or Motion JPEG; raw I420 in "
-           ".avi), a .y4m file (YUV4MPEG2, 8-bit 4:2:0), an image sequence "
-           "named by a pattern (frames/%06d.jpg; JPEG or PNG) or one image "
-           "file, or a directory of PNG or JPEG frames")
+FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, VP8 or Motion "
+           "JPEG; raw I420 in .avi and .mkv), a .y4m file (YUV4MPEG2, 8-bit "
+           "4:2:0), an image sequence named by a pattern (frames/%06d.jpg; "
+           "JPEG or PNG) or one image file, or a directory of PNG or JPEG "
+           "frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
+# yuv4mpegdec's chroma location of each tag (none without a C tag)
+_Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
+              "420": CHROMA_SITES["center"],
+              "420mpeg2": CHROMA_SITES["left"],
+              "420paldv": CHROMA_SITES["topleft"]}
 _MP4_EXTS = (".mp4", ".m4v", ".mov")
+_MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-DEFAULT_FPS = 30.0
+_ENCODED = ("mp4", "avi", "mkv")
+DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
+Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
 
 def _unsupported(path: str) -> ValueError:
     return ValueError(
         f"cannot read or write {path!r}: the port handles {FORMATS}; other "
         f"containers and codecs are {ITEM_8} (convert elsewhere, e.g. "
-        "`ffmpeg -i in.mkv -c:v mpeg4 -q:v 3 out.mp4` or `ffmpeg -i in.mkv "
+        "`ffmpeg -i in.flv -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.flv "
         "-pix_fmt yuv420p out.y4m`)")
 
 
@@ -103,6 +119,13 @@ def _kind(path: str, writing: bool = False) -> str:
         return "mp4"
     if low.endswith(".avi"):
         return "avi"
+    if low.endswith(_MKV_EXTS):
+        if writing and low.endswith(".webm"):
+            raise ValueError(
+                f"cannot write {path!r}: WebM holds VP8, VP9 or AV1, which "
+                "the port does not encode (OpenCV's mp4v writer does not "
+                "open on .webm either); write .mkv, .mp4 or .avi")
+        return "mkv"
     if os.path.isdir(path) or (writing and not os.path.splitext(path)[1]):
         return "png"
     if not writing and not os.path.exists(path):
@@ -113,13 +136,18 @@ def _kind(path: str, writing: bool = False) -> str:
 # --------------------------------------------------------------- y4m
 
 def _y4m_header(f) -> Tuple[Dict[str, str], int]:
-    """(the header's parameters by tag letter, its length in bytes)."""
+    """(the header's parameters by tag letter, the ``X`` tags' values
+    under ``"X"`` as a list; its length in bytes)."""
     line = f.readline(4096)
     if not line.startswith(_Y4M_MAGIC) or not line.endswith(b"\n"):
         raise ValueError("not a YUV4MPEG2 stream (bad header)")
-    params = {}
+    params = {"X": []}
     for tok in line[len(_Y4M_MAGIC):].split():
-        params[chr(tok[0])] = tok[1:].decode("ascii")
+        val = tok[1:].decode("ascii")
+        if tok[:1] == b"X":
+            params["X"].append(val)
+        else:
+            params[chr(tok[0])] = val
     if "W" not in params or "H" not in params:
         raise ValueError("YUV4MPEG2 header without W or H")
     colour = params.get("C", "420")
@@ -137,32 +165,24 @@ def _y4m_geometry(params) -> Tuple[int, int, int]:
 
 
 def _y4m_fps(params) -> float:
+    """FFmpeg's yuv4mpeg demuxer: the ``F`` tag, else 25 fps."""
     if "F" not in params:
-        return DEFAULT_FPS
+        return Y4M_FPS
     num, den = params["F"].split(":")
-    return float(Fraction(int(num), int(den))) if int(den) else DEFAULT_FPS
-
-
-def _y4m_to_bgr(buf: bytes, w: int, h: int) -> np.ndarray:
-    """One 4:2:0 frame → BGR: the planes at even size (the last row and
-    column repeated where a side is odd), OpenCV's I420 conversion,
-    cropped."""
-    cw, ch = (w + 1) // 2, (h + 1) // 2
-    a = np.frombuffer(buf, np.uint8)
-    y = a[:w * h].reshape(h, w)
-    u = a[w * h:w * h + cw * ch].reshape(ch, cw)
-    v = a[w * h + cw * ch:].reshape(ch, cw)
-    if h % 2 or w % 2:
-        y = np.pad(y, ((0, h % 2), (0, w % 2)), mode="edge")
-    packed = np.concatenate([y.ravel(), u.ravel(), v.ravel()]).reshape(-1,
-                                                                        2 * cw)
-    return np.ascontiguousarray(i420_to_rgb(packed)[:h, :w, ::-1])
+    return float(Fraction(int(num), int(den))) if int(den) else Y4M_FPS
 
 
 class Y4MFile:
     """A YUV4MPEG2 file's header and the byte offset of every frame, so a
     frame can be read by its index (``ConsecutiveFrames`` reads pairs in
-    any order) or all of them in turn."""
+    any order) or all of them in turn.
+
+    Frames convert as ``cv2.VideoCapture`` converts them through FFmpeg's
+    yuv4mpeg demuxer and swscale (``runtime/mpeg4.i420_to_bgr``): every
+    4:2:0 tag is yuv420p, at video range unless an ``XCOLORRANGE=FULL``
+    tag says full range; an odd height goes through swscale's scaler,
+    which interpolates the chroma from the tag's site (``C420mpeg2``
+    left, ``C420paldv`` top left, ``C420jpeg`` and ``C420`` centred)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -170,6 +190,8 @@ class Y4MFile:
             params, pos = _y4m_header(f)
             self.fps = _y4m_fps(params)
             self.width, self.height, self._nbytes = _y4m_geometry(params)
+            self.full_range = "COLORRANGE=FULL" in params["X"]
+            self.chroma = _Y4M_SITES.get(params.get("C"))
             size = os.path.getsize(path)
             self.offsets = []
             while pos < size:
@@ -189,7 +211,13 @@ class Y4MFile:
         return len(self.offsets)
 
     def _convert(self, buf: bytes) -> np.ndarray:
-        return _y4m_to_bgr(buf, self.width, self.height)
+        w, h = self.width, self.height
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        a = np.frombuffer(buf, np.uint8)
+        return i420_to_bgr(a[:w * h].reshape(h, w),
+                           a[w * h:w * h + cw * ch].reshape(ch, cw),
+                           a[w * h + cw * ch:].reshape(ch, cw),
+                           self.full_range, self.chroma)
 
     def frame(self, index: int) -> np.ndarray:
         """BGR uint8 frame ``index``."""
@@ -207,12 +235,14 @@ class Y4MFile:
 # --------------------------------------------------------------- mp4 / avi
 
 class EncodedVideo:
-    """The video track of an ``.mp4`` or ``.avi`` file: its size, fps and
-    frame count as ``cv2.VideoCapture`` reports them, and its frames.
+    """The video track of an ``.mp4``, ``.avi``, ``.mkv`` or ``.webm``
+    file: its size, fps and frame count as ``cv2.VideoCapture`` reports
+    them, and its frames.
 
     Iterating decodes every frame in turn (BGR); :meth:`frame` seeks: it
     decodes from the last keyframe at or before the index (``stss`` /
-    ``idx1``; every Motion JPEG frame is one), as FFmpeg's seek does;
+    ``idx1`` / Matroska's block flags; every Motion JPEG frame is one), as
+    a ``CAP_PROP_POS_FRAMES`` seek does;
     :meth:`read` keeps one decoder open and reads in order without seeking
     while the indices follow on."""
 
@@ -220,16 +250,27 @@ class EncodedVideo:
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         self.path = path
-        self.box = box = (Mp4File(path) if _kind(path) == "mp4" else
-                          AviFile(path))
+        kind = _kind(path)
+        self.box = box = (Mp4File(path) if kind == "mp4" else
+                          MkvFile(path) if kind == "mkv" else AviFile(path))
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
+        # the samples decoding walks: all of them, as cv2.VideoCapture.read
+        # does, where Matroska's estimated count falls short of them
+        self.samples = len(box.sizes)
         if box.codec == "mpeg4":
             dec = self._decoder()
             if not dec.width:   # the VOL comes in band (AVI)
                 with open(path, "rb") as f:
                     dec.probe(self.box.sample(f, 0))
             self.width, self.height = dec.width, dec.height
+        elif box.codec == "vp8":
+            with open(path, "rb") as f:
+                size = vp8_frame_size(box.sample(f, box.keyframes[0]))
+            if size is None:
+                raise ValueError(f"{path}: the first VP8 keyframe has no "
+                                 "key frame header")
+            self.width, self.height = size
         elif box.codec == "mjpeg":
             with open(path, "rb") as f:
                 self.height, self.width = jpeg_size(box.sample(f, 0),
@@ -243,13 +284,23 @@ class EncodedVideo:
                     f"port ({ITEM_8})")
         else:
             self.width, self.height = box.width, box.height
+        # what FFmpeg's decoder hands swscale with the planes: the chroma
+        # site its scaler interpolates from at an odd height (MPEG-4 Part
+        # 2's own, left; else Matroska's Colour element's) and the range
+        # (VP8's decoder sets video range; else Matroska's Range)
+        self.chroma = (CHROMA_SITES["left"] if box.codec == "mpeg4" else
+                       getattr(box, "chroma_site", None))
+        self.full_range = box.codec != "vp8" and getattr(box, "full_range",
+                                                         False)
         self._gen = None
         self._next = -1
 
     def __len__(self) -> int:
         return self.frames
 
-    def _decoder(self) -> Decoder:
+    def _decoder(self):
+        if self.box.codec == "vp8":
+            return Vp8Decoder(what=self.path)
         return Decoder(self.box.dsi, what=self.path, tag=self.box.tag)
 
     def _raw(self, data: bytes):
@@ -264,21 +315,21 @@ class EncodedVideo:
                 a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw))
 
     def planes(self, start: int = 0) -> Iterator[Tuple[int, tuple]]:
-        """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2 or raw
-        stream from frame ``start`` on; a sample that yields no picture (a
-        not-coded VOP) is passed over, as ``cv2.VideoCapture.read`` passes
-        over it."""
-        if not 0 <= start < self.frames:
+        """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, VP8 or
+        raw stream from frame ``start`` on; a sample that yields no picture
+        (a not-coded VOP, a VP8 frame not shown) is passed over, as
+        ``cv2.VideoCapture.read`` passes over it."""
+        if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
-                             f"{self.frames}")
+                             f"{self.samples}")
         k = self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)]
         with open(self.path, "rb") as f:
             if self.box.codec == "i420":
-                for i in range(start, self.frames):
+                for i in range(start, self.samples):
                     yield i, self._raw(self.box.sample(f, i))
                 return
             dec = self._decoder()
-            for i in range(k, self.frames):
+            for i in range(k, self.samples):
                 p = dec.decode(self.box.sample(f, i))
                 if p is not None and i >= start:
                     yield i, p
@@ -287,13 +338,13 @@ class EncodedVideo:
         """(index, BGR frame) of each picture from frame ``start`` on."""
         if self.box.codec != "mjpeg":
             for i, p in self.planes(start):
-                yield i, i420_to_bgr(*p)
+                yield i, i420_to_bgr(*p, self.full_range, self.chroma)
             return
-        if not 0 <= start < self.frames:
+        if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
-                             f"{self.frames}")
+                             f"{self.samples}")
         with open(self.path, "rb") as f:
-            for i in range(start, self.frames):
+            for i in range(start, self.samples):
                 yield i, decode_jpeg_ffmpeg(self.box.sample(f, i),
                                             f"{self.path} frame {i}")
 
@@ -489,7 +540,7 @@ def read_frames(path: str, max_frames: Optional[int] = None,
     kind = _kind(path)
     if kind == "y4m":
         frames = iter(Y4MFile(path))
-    elif kind in ("mp4", "avi"):
+    elif kind in _ENCODED:
         frames = iter(EncodedVideo(path))
     elif kind == "sequence":
         frames = iter(ImageSequence(path))
@@ -509,7 +560,7 @@ def read_frame(path: str, index: int) -> np.ndarray:
     kind = _kind(path)
     if kind == "y4m":
         return Y4MFile(path).frame(index)
-    if kind in ("mp4", "avi"):
+    if kind in _ENCODED:
         return EncodedVideo(path).frame(index)
     if kind == "sequence":
         return ImageSequence(path).frame(index)
@@ -522,7 +573,7 @@ def video_info(path: str) -> Dict[str, float]:
     file: one frame, where cv2's count is undefined), or of a frame
     directory (which has no rate: 30 fps)."""
     kind = _kind(path)
-    if kind in ("mp4", "avi"):
+    if kind in _ENCODED:
         v = EncodedVideo(path)
         return {"fps": v.fps, "width": v.width, "height": v.height,
                 "frames": v.frames}
@@ -583,7 +634,8 @@ def _rate(fps: float) -> Tuple[int, int]:
 
 
 class Mpeg4Writer:
-    """BGR frames → MPEG-4 Part 2 Simple Profile in ``.mp4`` or ``.avi``
+    """BGR frames → MPEG-4 Part 2 Simple Profile in ``.mp4``, ``.avi`` or
+    ``.mkv``
     (``runtime/mpeg4``'s encoder: an I-VOP every 12 frames, P-VOPs between,
     quantiser 3, as ``cv2.VideoWriter`` with fourcc ``mp4v`` writes).
     An odd side is cropped to even (its last column or row dropped), as
@@ -599,10 +651,14 @@ class Mpeg4Writer:
         if self.w < 2 or self.h < 2:
             raise ValueError(f"frame size {frame_size} is too small to encode")
         rate = _rate(fps)
-        avi = _kind(path, writing=True) == "avi"
+        kind = _kind(path, writing=True)
+        avi = kind == "avi"
         self.enc = Encoder(self.w, self.h, *rate, inband=avi)
-        self.mux = (AviWriter(path, (self.w, self.h), rate) if avi else
-                    Mp4Writer(path, (self.w, self.h), rate, self.enc.headers))
+        size = (self.w, self.h)
+        self.mux = (AviWriter(path, size, rate) if avi else
+                    MkvWriter(path, size, rate, self.enc.headers)
+                    if kind == "mkv" else
+                    Mp4Writer(path, size, rate, self.enc.headers))
         self.recon = [] if keep_recon else None
 
     def write(self, frame: np.ndarray) -> None:
@@ -638,12 +694,12 @@ class PngDirWriter:
 class AsyncVideoWriter:
     """A video writer behind a background encode thread.
 
-    ``path`` ending in ``.mp4`` or ``.avi`` writes MPEG-4 Part 2
+    ``path`` ending in ``.mp4``, ``.avi`` or ``.mkv`` writes MPEG-4 Part 2
     (:class:`Mpeg4Writer`), ``.y4m`` YUV4MPEG2, a directory (or a path
-    without extension) PNG frames; anything else raises.  ``write``
-    enqueues, blocking only when ``queue_size`` frames are already
-    pending; ``release`` drains the queue, closes the file and re-raises
-    any encoder error.
+    without extension) PNG frames; anything else (``.webm`` too) raises.
+    ``write`` enqueues, blocking only when ``queue_size`` frames are
+    already pending; ``release`` drains the queue, closes the file and
+    re-raises any encoder error.
     """
 
     def __init__(self, path: str, fps: float, frame_size: Tuple[int, int],

@@ -1,11 +1,12 @@
 """Planar YUV 4:2:0 (I420) on the host, in OpenCV's integer arithmetic.
 
 The video runner's ``upload="i420"`` ships each frame as I420, half the
-bytes of RGB, and unpacks it on the card (``video.yuv_i420_to_rgb_u8``);
-the ``.y4m`` reader (``io/video.py``) converts back through
-:func:`i420_to_rgb`.  The writers and the runner pack frames with
-``runtime/mpeg4.to_i420``, a C copy of :func:`rgb_to_i420` that the tests
-hold to it bit for bit.  All are bit-exact to OpenCV, which the port does
+bytes of RGB, and unpacks it on the card (``video.yuv_i420_to_rgb_u8``,
+whose plain version is :func:`i420_to_rgb`; the ``.y4m`` reader converts
+as swscale does instead, ``runtime/mpeg4.i420_to_bgr``, since the JAX
+package reads a ``.y4m`` through FFmpeg).  The writers and the runner
+pack frames with ``runtime/mpeg4.to_i420``, a C copy of
+:func:`rgb_to_i420` that the tests hold to it bit for bit.  All are bit-exact to OpenCV, which the port does
 not use:
 
   * :func:`rgb_to_i420` = ``cv2.cvtColor(rgb, cv2.COLOR_RGB2YUV_I420)``:

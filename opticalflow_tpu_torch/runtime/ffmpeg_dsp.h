@@ -7,11 +7,12 @@
 //   * yuv_to_bgr_nearest: swscale's unscaled x86 SIMD yuv2rgb
 //     (yuv2rgb.asm): 4:2:0 or 4:2:2 planes at an even height, nearest
 //     chroma, with video-range (yuv420p) or full-range (yuvj) coefficients;
-//   * yuvj_to_bgr: swscale's conversion of full-range planes (yuvj420p,
-//     yuvj422p, yuvj444p, yuvj440p, yuvj411p: what FFmpeg's MJPEG decoder
-//     hands over) to BGR24 at the same size with SWS_BICUBIC, as OpenCV's
-//     FFmpeg backend asks for it: the unscaled path above where swscale
-//     takes it, else its scaler (scaled_to_bgr).
+//   * yuv_to_bgr: swscale's conversion of planes to BGR24 at the same size
+//     with SWS_BICUBIC, as OpenCV's FFmpeg backend asks for it, at video
+//     range (yuv420p: what the MPEG-4 Part 2, VP8, rawvideo and yuv4mpeg
+//     decoders hand over) or full range (yuvj420p, yuvj422p, yuvj444p,
+//     yuvj440p, yuvj411p: FFmpeg's MJPEG decoder): the unscaled path above
+//     where swscale takes it, else its scaler (scaled_to_bgr).
 //
 // Header only; each including source is one shared library.
 
@@ -174,8 +175,7 @@ inline void yuv_to_bgr_nearest(const uint8_t* y, const uint8_t* u, const uint8_t
 }
 
 // --------------------------------------------- swscale's scaler, BGR24
-// The path swscale takes for full-range YUV planes it cannot convert
-// unscaled (4:4:4, 4:4:0, 4:1:1, and 4:2:0 or 4:2:2 at an odd height):
+// The path swscale takes for YUV planes it cannot convert unscaled (4:4:4, 4:4:0, 4:1:1, and 4:2:0 or 4:2:2 at an odd height):
 // luma is copied (identity filters), chroma goes through initFilter's
 // bicubic filters (B = 0, C = 0.6; 14-bit horizontal, 12-bit vertical,
 // x86 filter alignment 4 and 2), hScale8To15 and the vertical pass.  The
@@ -205,16 +205,17 @@ inline int av_log2(unsigned v) {
     return n;
 }
 
-// libswscale's initFilter for SWS_BICUBIC, no source or destination filter,
-// at swscale's default chroma siting (get_local_pos gives 128 for source
-// and destination at every subsampling, so a filter scales only where the
-// sizes differ)
-inline Filter init_filter(int xInc, int srcW, int dstW, int filterAlign, int one) {
+// libswscale's initFilter for SWS_BICUBIC, no source or destination filter;
+// srcPos and dstPos are get_local_pos's sample sites (1/256 of a sample:
+// 128 at swscale's default siting, so the filter is the identity where the
+// sizes and the sites agree)
+inline Filter init_filter(int xInc, int srcW, int dstW, int filterAlign, int one,
+                          int srcPos = 128, int dstPos = 128) {
     const int64_t fone = (int64_t)1 << (54 - std::min(av_log2(srcW / dstW), 8));
     std::vector<int> pos(dstW);
     std::vector<int64_t> filt;
     int fsize;
-    if (std::abs(xInc - 0x10000) < 10) {
+    if (std::abs(xInc - 0x10000) < 10 && srcPos == dstPos) {
         fsize = 1;
         filt.assign(dstW, fone);
         for (int i = 0; i < dstW; i++) pos[i] = i;
@@ -225,7 +226,7 @@ inline Filter init_filter(int xInc, int srcW, int dstW, int filterAlign, int one
         fsize = std::max(std::min(fsize, srcW - 2), 1);
         filt.assign((size_t)dstW * fsize, 0);
         const int64_t B = 0, C = (int64_t)(0.6 * (1 << 24));
-        int64_t xDstInSrc = (int64_t)xInc - 0x10000;  // (128 xInc - 128 << 16) >> 7
+        int64_t xDstInSrc = ((dstPos * (int64_t)xInc) >> 7) - ((srcPos * 0x10000LL) >> 7);
         for (int i = 0; i < dstW; i++) {
             int xx = (int)((xDstInSrc - (int64_t)(fsize - 2) * (1 << 16)) / (1 << 17));
             pos[i] = xx;
@@ -335,19 +336,32 @@ inline void hscale8to15(const uint8_t* src, int srcW, const Filter& f, int dstW,
     }
 }
 
-// ff_yuv2rgb_c_init_tables' 24-bit lookup tables (BT.601, full range),
-// read by the C packed output functions
+// ff_yuv2rgb_c_init_tables' 24-bit lookup tables (BT.601), read by the C
+// packed output functions
 struct RgbTables {
     static constexpr int kHead = 512, kLumaHead = 512;
     std::vector<uint8_t> y;              // y[base + offset + Y]
-    int base = 384 + kLumaHead;
+    int base;                            // yoffs
     std::vector<int> rv, gu, gv, bu;     // offsets into y, by chroma + kHead
-    RgbTables() {
-        // BT.601 at full range, 16.16 (the video-range coefficients times
-        // 224/255); cgu is one unit smaller in magnitude than 25675 * 224 /
-        // 255 truncates to, as swscale's C output measures
-        const int64_t cy = 1 << 16, oy = 0;
-        const int64_t crv = 91881, cbu = 116129, cgu = -22552, cgv = -46802;
+    explicit RgbTables(bool video) {
+        // 16.16: at video range luma scaled by 255/219 and offset by 16, at
+        // full range the chroma coefficients times 224/255; then the chroma
+        // ones divided by the luma scale, since they index the luma table
+        int64_t cy = 1 << 16, oy = 0, crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+        if (video) {
+            cy = cy * 255 / 219;
+            oy = 16 << 16;
+        } else {
+            crv = crv * 224 / 255;
+            cbu = cbu * 224 / 255;
+            cgu = cgu * 224 / 255;
+            cgv = cgv * 224 / 255;
+        }
+        crv = (crv * 65536 + 0x8000) / cy;
+        cbu = (cbu * 65536 + 0x8000) / cy;
+        cgu = (cgu * 65536 + 0x8000) / cy;
+        cgv = (cgv * 65536 + 0x8000) / cy;
+        base = (video ? 326 : 384) + kLumaHead;
         y.resize(1024 + 2 * kLumaHead);
         int64_t yb = -((int64_t)384 << 16) - kLumaHead * cy - oy;
         for (size_t i = 0; i < y.size(); i++, yb += cy) y[i] = clip8((int)((yb + 0x8000) >> 16));
@@ -372,15 +386,15 @@ struct RgbTables {
     }
 };
 
-inline const RgbTables& rgb_tables() {
-    static const RgbTables t;
-    return t;
+inline const RgbTables& rgb_tables(bool video) {
+    static const RgbTables full(false), vid(true);
+    return video ? vid : full;
 }
 
-// yuv2rgb_write_full (BGR24) from Y, U, V at 2^10 fixed point (full range:
-// no luma offset)
+// yuv2rgb_write_full (BGR24) from Y, U, V at 2^10 fixed point; the luma
+// offset (yuv2rgb_y_offset, 16 << 9 at video range) at that scale
 inline void full_pixel(int Y, int U, int V, const YuvCoeffs& k, uint8_t* bgr) {
-    uint32_t yv = (uint32_t)(Y * k.y + (1 << 21));
+    uint32_t yv = (uint32_t)((Y - (k.yoff << 6)) * k.y + (1 << 21));
     int32_t R = (int32_t)(yv + (uint32_t)V * (uint32_t)k.vr);
     int32_t G = (int32_t)(yv + (uint32_t)V * (uint32_t)k.vg + (uint32_t)U * (uint32_t)k.ug);
     int32_t B = (int32_t)(yv + (uint32_t)U * (uint32_t)k.ub);
@@ -395,22 +409,33 @@ inline void full_pixel(int Y, int U, int V, const YuvCoeffs& k, uint8_t* bgr) {
     bgr[2] = (uint8_t)(R >> 22);
 }
 
-// The scaler for full-range planes: Y (w x h) and U, V at
-// ceil(w >> hshift) x ceil(h >> vshift).
+// get_local_pos: a chroma site (1/256 of a luma sample from the first
+// luma sample's, the default centred one where negative) at a subsampling
+inline int local_pos(int pos, int subsample) {
+    if (pos < 0) pos = (128 << subsample) - 128;
+    return (pos + 128) >> subsample;
+}
+
+// The scaler: Y (w x h) and U, V at ceil(w >> hshift) x ceil(h >> vshift),
+// with the coefficients of the planes' range; the chroma sited at (hpos,
+// vpos) (1/256 of a luma sample; -1: swscale's default, centred), as
+// FFmpeg 8's swscale takes the decoder's chroma location.
 inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
-                          int cstride, int w, int h, int hshift, int vshift, uint8_t* bgr) {
-    const YuvCoeffs& k = kFullRange;
+                          int cstride, int w, int h, int hshift, int vshift,
+                          const YuvCoeffs& k, uint8_t* bgr, int hpos = -1, int vpos = -1) {
     const bool full = (w & 1) || (hshift == 0 && vshift == 0);
     const int csw = (w + (1 << hshift) - 1) >> hshift, csh = (h + (1 << vshift) - 1) >> vshift;
     const int cdw = full ? w : (w + 1) >> 1;
-    const Filter hf = init_filter(scale_inc(csw, cdw), csw, cdw, 4, 1 << 14);
-    const Filter vf = init_filter(scale_inc(csh, h), csh, h, 2, 1 << 12);
+    const Filter hf = init_filter(scale_inc(csw, cdw), csw, cdw, 4, 1 << 14,
+                                  local_pos(hpos, hshift), local_pos(-1, full ? 0 : 1));
+    const Filter vf = init_filter(scale_inc(csh, h), csh, h, 2, 1 << 12,
+                                  local_pos(vpos, vshift), local_pos(-1, 0));
     std::vector<int16_t> u15((size_t)csh * cdw), v15((size_t)csh * cdw);
     for (int r = 0; r < csh; r++) {
         hscale8to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw);
         hscale8to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw);
     }
-    const RgbTables& tab = rgb_tables();
+    const RgbTables& tab = rgb_tables(k.yoff != 0);
     const int fs = vf.size;
     std::vector<int> U(cdw), V(cdw);
     for (int r = 0; r < h; r++) {
@@ -496,15 +521,18 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
     }
 }
 
-// Full-range planes (FFmpeg's yuvj formats) -> BGR24 as swscale converts
-// them: 4:2:0 (hshift 1, vshift 1) and 4:2:2 (1, 0) at an even height
-// unscaled, everything else through the scaler.
-inline void yuvj_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
-                        int cstride, int w, int h, int hshift, int vshift, uint8_t* bgr) {
+// Planes -> BGR24 as swscale converts them: 4:2:0 (hshift 1, vshift 1)
+// and 4:2:2 (1, 0) at an even height unscaled, everything else (an odd
+// height, other subsamplings) through the scaler, which takes full-width
+// chroma for an odd width and the chroma sites (hpos, vpos; see
+// scaled_to_bgr).  k: kVideoRange or kFullRange (FFmpeg's yuvj formats).
+inline void yuv_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
+                       int cstride, int w, int h, int hshift, int vshift,
+                       const YuvCoeffs& k, uint8_t* bgr, int hpos = -1, int vpos = -1) {
     if (hshift == 1 && vshift <= 1 && !(h & 1))
-        yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, vshift, kFullRange, bgr);
+        yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, vshift, k, bgr);
     else
-        scaled_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, bgr);
+        scaled_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, hpos, vpos);
 }
 
 }  // namespace ffdsp

@@ -26,7 +26,7 @@
 //     smoothing; a frame without DHT takes the standard tables (Annex K.3);
 //   * the planes at FFmpeg's sizes (yuvj420p, yuvj422p, yuvj444p, yuvj440p,
 //     yuvj411p, gray) converted to BGR24 as swscale converts them for
-//     OpenCV (ffmpeg_dsp.h's yuvj_to_bgr; grey is replicated, as swscale's
+//     OpenCV (ffmpeg_dsp.h's yuv_to_bgr at full range; grey is replicated, as swscale's
 //     gray8 -> bgr24 is);
 //   * declined besides what the libjpeg flavour declines: RGB (Adobe
 //     transform 0, components 'R' 'G' 'B') and other chroma layouts.
@@ -1037,8 +1037,8 @@ void emit_ff(Decoder& dec, uint8_t* bgr) {
   }
   int hshift = dec.hmax / c[1].h == 4 ? 2 : dec.hmax / c[1].h - 1;
   int vshift = dec.vmax / c[1].v - 1;
-  ffdsp::yuvj_to_bgr(c[0].plane.get(), int(c[0].stride), c[1].plane.get(), c[2].plane.get(),
-                     int(c[1].stride), w, h, hshift, vshift, bgr);
+  ffdsp::yuv_to_bgr(c[0].plane.get(), int(c[0].stride), c[1].plane.get(), c[2].plane.get(),
+                    int(c[1].stride), w, h, hshift, vshift, ffdsp::kFullRange, bgr);
 }
 
 int finish(const std::string& why, char* msg, int64_t msg_len, int code) {

@@ -1970,9 +1970,14 @@ void om4_to_i420(const uint8_t* px3, int w, int h, int rgb, uint8_t* y,
     to_i420(px3, w, h, rgb, y, u, v);
 }
 
+// yuv420p (full = 0) or yuvj420p (full = 1) planes -> BGR24, as swscale
+// converts them (its scaler at an odd height, the chroma sited at hpos,
+// vpos: 1/256 of a luma sample, -1 for the default centred site)
 void om4_yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
-                       int w, int h, int ystride, int cstride, uint8_t* bgr) {
-    ffdsp::yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, 1, ffdsp::kVideoRange, bgr);
+                       int w, int h, int ystride, int cstride, int full, int hpos, int vpos,
+                       uint8_t* bgr) {
+    ffdsp::yuv_to_bgr(y, ystride, u, v, cstride, w, h, 1, 1,
+                      full ? ffdsp::kFullRange : ffdsp::kVideoRange, bgr, hpos, vpos);
 }
 
 // ---- encoder

@@ -29,7 +29,34 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
     encoder with the coding tools FFmpeg's writer leaves off (video
     packets, 4MV, alternating rounding over planes full of zeros, a
     per-macroblock quantiser, AC prediction; MPEG quantisation with custom
-    matrices), so FFmpeg's decode of them is on record too.
+    matrices), so FFmpeg's decode of them is on record too;
+  * ``mpeg4_176x143.mp4`` and ``mpeg4_175x143.mp4``: ``moving_176x144.mp4``
+    with the VOL's 13-bit width and height and the ``mp4v`` sample entry's
+    patched (the same 11x9 macroblock grid): odd heights, which swscale
+    converts through its scaler;
+  * VP8 (fourcc ``VP80``, libvpx through cv2's FFmpeg): ``vp8_176x144``
+    as ``.webm``, ``.mkv`` and ``.avi``, the moving clip's 26 frames (key
+    frames at 0, 12, 24); ``vp8_still_64x48.webm`` (skipped macroblocks);
+    ``vp8_odd_53x37.webm`` (cv2 crops it to 52x36);
+    ``vp8_175x143.webm`` (the 176x144 WebM with every key frame's size and
+    the track's PixelWidth/PixelHeight patched: cropped from the same
+    macroblock grid, converted through swscale's scaler);
+    ``vp8_version{1,2,3}.webm`` (a 13-frame stream, key frames at 0 and
+    12, with every frame's version bits patched: bilinear prediction,
+    full-pel chroma at 3); the same stream unpatched but for its Segment's
+    and Clusters' sizes rewritten to unknown, as MediaRecorder leaves them
+    (``vp8_unknown_sizes.webm``), or its Cues overwritten by a Void
+    (``vp8_no_cues.webm``);
+    ``vp8_sintel_436x1024.webm``: 13 frames alternating the committed
+    Sintel JPEG pair (``tests/goldens/jpeg/sintel_im{1,2}.jpg``), key
+    frames at 0 and 12, which the card run decodes;
+  * ``mkv_mp4v_176x144.mkv``, ``mkv_mjpg_176x144.mkv`` and
+    ``mkv_i420_64x48.mkv``: fourccs ``mp4v``, ``MJPG`` and ``I420`` into
+    Matroska (``V_MPEG4/ISO/ASP`` with the VOL as CodecPrivate,
+    ``V_MJPEG``, ``V_UNCOMPRESSED``).
+
+Each VP8 file's manifest entry lists the header features and coding modes
+the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``).
 """
 
 from __future__ import annotations
@@ -192,6 +219,144 @@ def _bgr_planes(frames: list) -> list:
     return [i420_planes(to_i420(f)) for f in frames]
 
 
+class _BitPos:
+    """Reads an MPEG-4 VOL's fields, keeping the bit position."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def read(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | (self.data[self.pos >> 3] >> (7 - (self.pos & 7)) & 1)
+            self.pos += 1
+        return v
+
+
+def _vol_size_bits(data: bytes, start: int) -> int:
+    """The bit position of video_object_layer_width in the VOL whose start
+    code begins at ``start`` (a rectangular VOL, ISO 14496-2 6.2.3)."""
+    b = _BitPos(data, 8 * (start + 4))
+    b.read(1 + 8)                       # random access, object type
+    if b.read(1):                       # is_object_layer_identifier
+        b.read(4 + 3)
+    if b.read(4) == 15:                 # aspect_ratio_info: extended PAR
+        b.read(16)
+    if b.read(1):                       # vol_control_parameters
+        b.read(2 + 1)
+        if b.read(1):                   # vbv_parameters
+            b.read(79)
+    assert b.read(2) == 0, "not a rectangular VOL"
+    b.read(1)
+    res = b.read(16)
+    b.read(1)
+    if b.read(1):                       # fixed_vop_rate
+        b.read(max(1, (res - 1).bit_length()))
+    b.read(1)
+    return b.pos
+
+
+def _put_bits(data: bytearray, pos: int, n: int, v: int) -> None:
+    for k in range(n):
+        bit = v >> (n - 1 - k) & 1
+        byte, sh = (pos + k) >> 3, 7 - ((pos + k) & 7)
+        data[byte] = data[byte] & ~(1 << sh) | bit << sh
+
+
+def patch_mpeg4_size(src: str, dst: str, w: int, h: int) -> None:
+    """An ``mp4v`` MP4 whose VOL (in the esds) and sample entry say w x h."""
+    data = bytearray(open(src, "rb").read())
+    vol = data.find(b"\x00\x00\x01\x20")
+    assert vol >= 0
+    pos = _vol_size_bits(bytes(data), vol)
+    _put_bits(data, pos, 13, w)         # width, a marker, height
+    _put_bits(data, pos + 14, 13, h)
+    entry = data.find(b"mp4v", data.find(b"stsd")) - 4
+    data[entry + 32:entry + 36] = struct.pack(">HH", w, h)
+    open(dst, "wb").write(bytes(data))
+
+
+def _mkv_frames(path: str) -> list:
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    return MkvFile(path).offsets
+
+
+def patch_vp8_size(src: str, dst: str, w: int, h: int) -> None:
+    """A VP8 WebM whose key frames and PixelWidth/PixelHeight say w x h
+    (within the same macroblock grid)."""
+    data = bytearray(open(src, "rb").read())
+    for off in _mkv_frames(src):
+        if not data[off] & 1:           # a key frame
+            assert data[off + 3:off + 6] == b"\x9d\x01\x2a"
+            data[off + 6:off + 10] = struct.pack("<HH", w, h)
+    tracks = data.find(b"\x16\x54\xae\x6b")
+    for eid, v in ((b"\xb0\x81", w), (b"\xba\x81", h)):
+        at = data.find(eid, tracks)
+        data[at + 2] = v
+    open(dst, "wb").write(bytes(data))
+
+
+def patch_vp8_version(src: str, dst: str, version: int) -> None:
+    """Every frame's 3-bit version field set to ``version``."""
+    data = bytearray(open(src, "rb").read())
+    for off in _mkv_frames(src):
+        data[off] = data[off] & ~0x0E | version << 1
+    open(dst, "wb").write(bytes(data))
+
+
+def _ebml_sizes(data: bytes, eid: bytes) -> list:
+    """(offset of the size field, its length) of each top-level element
+    ``eid`` inside the Segment (Clusters, Cues) or of the Segment."""
+    out, at = [], data.find(eid)
+    while at >= 0:
+        first = data[at + len(eid)]
+        n = next(k for k in range(1, 9) if first & (0x80 >> (k - 1)))
+        out.append((at + len(eid), n))
+        at = data.find(eid, at + 1)
+    return out
+
+
+def unknown_sizes(src: str, dst: str) -> None:
+    """The Segment's and every Cluster's size rewritten to 'unknown' (all
+    ones, in the size field's own length)."""
+    data = bytearray(open(src, "rb").read())
+    for eid in (b"\x18\x53\x80\x67", b"\x1f\x43\xb6\x75"):
+        for at, n in _ebml_sizes(bytes(data), eid):
+            data[at:at + n] = ((1 << (7 * n + 1)) - 1).to_bytes(n, "big")
+    open(dst, "wb").write(bytes(data))
+
+
+def without_cues(src: str, dst: str) -> None:
+    """The Cues element (the last match: the SeekHead names it too)
+    overwritten by a Void of its length."""
+    data = bytearray(open(src, "rb").read())
+    at, n = _ebml_sizes(bytes(data), b"\x1c\x53\xbb\x6b")[-1]
+    size = int.from_bytes(data[at:at + n], "big") & ((1 << (7 * n)) - 1)
+    total = 4 + n + size
+    data[at - 4:at - 4 + total] = (b"\xec" + (1 << 56 | total - 9).to_bytes(
+        8, "big") + b"\0" * (total - 9))
+    open(dst, "wb").write(bytes(data))
+
+
+def _vp8_features(path: str) -> list:
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    with open(path, "rb") as f:
+        for i in range(len(v.box.sizes)):
+            dec.decode(v.box.sample(f, i))
+    return dec.features
+
+
+def sintel_pair() -> list:
+    import cv2
+    jpeg = os.path.join(HERE, "goldens", "jpeg")
+    return [cv2.imread(os.path.join(jpeg, f"sintel_im{k}.jpg"))
+            for k in (1, 2)]
+
+
 def main() -> None:
     import cv2
     os.makedirs(OUT, exist_ok=True)
@@ -221,6 +386,33 @@ def main() -> None:
                 mpeg_quant=(iq, pq), packet_rows=1, mv4=True, qscale=4,
                 rounding=1)
 
+    mp4 = os.path.join(OUT, "moving_176x144.mp4")
+    patch_mpeg4_size(mp4, os.path.join(OUT, "mpeg4_176x143.mp4"), 176, 143)
+    patch_mpeg4_size(mp4, os.path.join(OUT, "mpeg4_175x143.mp4"), 175, 143)
+    webm = os.path.join(OUT, "vp8_176x144.webm")
+    for ext in ("webm", "mkv", "avi"):
+        _cv2_write(os.path.join(OUT, f"vp8_176x144.{ext}"), moving, "VP80")
+    _cv2_write(os.path.join(OUT, "vp8_still_64x48.webm"),
+               moving_clip(48, 64, 1, seed=3) * 14, "VP80")
+    _cv2_write(os.path.join(OUT, "vp8_odd_53x37.webm"),
+               moving_clip(37, 53, 26, seed=1, speed=5.0), "VP80")
+    patch_vp8_size(webm, os.path.join(OUT, "vp8_175x143.webm"), 175, 143)
+    short = os.path.join(OUT, "vp8_version0.webm")
+    _cv2_write(short, moving_clip(144, 176, 13, seed=8, speed=3.5), "VP80")
+    for v in (1, 2, 3):
+        patch_vp8_version(short, os.path.join(OUT, f"vp8_version{v}.webm"), v)
+    unknown_sizes(short, os.path.join(OUT, "vp8_unknown_sizes.webm"))
+    without_cues(short, os.path.join(OUT, "vp8_no_cues.webm"))
+    os.remove(short)
+    im1, im2 = sintel_pair()
+    _cv2_write(os.path.join(OUT, "vp8_sintel_436x1024.webm"),
+               [im1 if i % 2 == 0 else im2 for i in range(13)], "VP80")
+    _cv2_write(os.path.join(OUT, "mkv_mp4v_176x144.mkv"), moving, "mp4v")
+    _cv2_write(os.path.join(OUT, "mkv_mjpg_176x144.mkv"),
+               moving_clip(144, 176, 4, seed=6), "MJPG")
+    _cv2_write(os.path.join(OUT, "mkv_i420_64x48.mkv"),
+               moving_clip(48, 64, 4, seed=4), "I420")
+
     manifest = {"opencv": cv2.__version__, "files": {}}
     for name in sorted(os.listdir(OUT)):
         if name == "manifest.json":
@@ -232,6 +424,8 @@ def main() -> None:
             "decoded": len(frames),
             "sha256": [frame_digest(f) for f in frames],
         }
+        if name.startswith("vp8_"):
+            manifest["files"][name]["vp8_features"] = _vp8_features(path)
     build = cv2.getBuildInformation()
     manifest["ffmpeg"] = " ".join(
         line.split(":", 1)[1].strip() for line in build.splitlines()

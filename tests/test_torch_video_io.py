@@ -1,9 +1,10 @@
 """The port's frame I/O (``io/video.py``): ``.y4m`` and PNG directories in
 and out, JPEG directories in (``.mp4``/``.avi`` in ``test_torch_mp4.py``),
-without OpenCV, held against OpenCV's I420 conversion and the
-JAX package's ``AsyncVideoWriter`` behaviour and ``ConsecutiveFrames``.
-Tolerance: bit-exact throughout (a y4m round trip is lossy only by the
-4:2:0 chroma subsample, which OpenCV's own round trip reproduces)."""
+without OpenCV, held against ``cv2.VideoCapture`` (a ``.y4m`` reads
+through FFmpeg's yuv4mpeg demuxer and swscale, as the JAX package reads
+it), OpenCV's I420 conversion (what the writer stores) and the JAX
+package's ``AsyncVideoWriter`` behaviour and ``ConsecutiveFrames``.
+Tolerance: bit-exact throughout."""
 
 import os
 
@@ -24,10 +25,17 @@ def _frames(n, h, w, seed=0):
                              (0, 0), 1.5) for _ in range(n)]
 
 
-def _cv2_roundtrip(bgr):
-    """OpenCV's I420 round trip of a BGR frame with even sides."""
-    return cv2.cvtColor(cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420),
-                        cv2.COLOR_YUV2BGR_I420)
+def _cv2_capture(path):
+    """Every frame ``cv2.VideoCapture`` reads from ``path``."""
+    cap = cv2.VideoCapture(path)
+    out = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        out.append(frame)
+    cap.release()
+    return out
 
 
 def _write_y4m(path, frames, fps=25.0):
@@ -39,15 +47,19 @@ def _write_y4m(path, frames, fps=25.0):
 
 
 def test_y4m_round_trip_is_opencvs_i420(tmp_path):
+    """The writer stores OpenCV's I420; the reader gives what
+    ``cv2.VideoCapture`` gives (swscale's conversion, not ``cvtColor``'s:
+    the JAX package reads a ``.y4m`` through FFmpeg)."""
     path = str(tmp_path / "a.y4m")
     frames = _frames(4, 36, 52)
     _write_y4m(path, frames)
     info = vio.video_info(path)
     assert info == {"fps": 25.0, "width": 52, "height": 36, "frames": 4}
     got = list(vio.read_frames(path))
-    assert len(got) == 4
-    for f, g in zip(frames, got):
-        np.testing.assert_array_equal(g, _cv2_roundtrip(f))
+    want = _cv2_capture(path)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(vio.read_frame(path, 2), got[2])
     # the planes on disk are OpenCV's I420, after a one-line header and
     # a FRAME line
@@ -59,25 +71,35 @@ def test_y4m_round_trip_is_opencvs_i420(tmp_path):
         plane, cv2.cvtColor(frames[0], cv2.COLOR_BGR2YUV_I420).ravel())
 
 
-def test_y4m_odd_sides_and_frame_parameters(tmp_path):
-    """Odd sides (chroma planes of ceil(n/2)), colour tags the reader
-    takes, frame headers with parameters."""
-    h, w = 7, 9
+@pytest.mark.parametrize("h,w", [(7, 9), (36, 53), (37, 52), (2, 2)])
+def test_y4m_odd_sides_and_frame_parameters(tmp_path, h, w):
+    """Odd sides (chroma planes of ceil(n/2); an odd height through
+    swscale's scaler), every colour tag the reader takes (each its chroma
+    site), full range, frame headers with parameters: each frame equals
+    ``cv2.VideoCapture``'s; without an F tag the rate is yuv4mpegdec's
+    25 fps."""
     rng = np.random.RandomState(2)
     y = rng.randint(0, 256, (h, w), np.uint8)
-    u, v = (rng.randint(0, 256, (4, 5), np.uint8) for _ in range(2))
-    for tag in ("C420mpeg2", "C420paldv", "C420", ""):
-        path = str(tmp_path / f"odd{tag}.y4m")
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    u, v = (rng.randint(0, 256, (ch, cw), np.uint8) for _ in range(2))
+    for tag in ("C420jpeg", "C420mpeg2", "C420paldv", "C420", "",
+                "C420mpeg2 XCOLORRANGE=FULL", "XYSCSS=420JPEG"):
+        path = str(tmp_path / f"odd{tag.replace(' ', '_')}.y4m")
         with open(path, "wb") as fh:
             fh.write(f"YUV4MPEG2 W{w} H{h} F30000:1001 {tag}\n".encode())
             fh.write(b"FRAME Ixyz\n" + y.tobytes() + u.tobytes()
                      + v.tobytes())
         (got,) = list(vio.read_frames(path))
-        ye = np.pad(y, ((0, 1), (0, 1)), mode="edge")
-        packed = np.concatenate([ye.ravel(), u.ravel(), v.ravel()])
-        want = cv2.cvtColor(packed.reshape(12, 10), cv2.COLOR_YUV2BGR_I420)
-        np.testing.assert_array_equal(got, want[:h, :w])
+        (want,) = _cv2_capture(path)
+        np.testing.assert_array_equal(got, want, err_msg=tag)
         assert vio.video_info(path)["fps"] == pytest.approx(30000 / 1001)
+    path = str(tmp_path / "norate.y4m")
+    with open(path, "wb") as fh:
+        fh.write(f"YUV4MPEG2 W{w} H{h}\n".encode())
+        fh.write(b"FRAME\n" + y.tobytes() + u.tobytes() + v.tobytes())
+    cap = cv2.VideoCapture(path)
+    assert vio.video_info(path)["fps"] == cap.get(cv2.CAP_PROP_FPS) == 25.0
+    cap.release()
     # an odd-sided stream written by the port reads back at its size
     path = str(tmp_path / "w.y4m")
     _write_y4m(path, _frames(2, 7, 9))
@@ -163,7 +185,7 @@ def test_async_writer_y4m_and_max_frames(tmp_path):
     wr.release()
     got = list(vio.read_frames(path, max_frames=3))
     assert len(got) == 3
-    np.testing.assert_array_equal(got[2], _cv2_roundtrip(frames[2]))
+    np.testing.assert_array_equal(got[2], _cv2_capture(path)[2])
 
 
 def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
@@ -214,9 +236,13 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
         np.testing.assert_array_equal(g, w)
     assert vio.video_info(mjpg) == {"fps": 25.0, "width": 32, "height": 24,
                                     "frames": 2}
-    mkv = tmp_path / "clip.mkv"
+    flv = tmp_path / "clip.flv"
+    flv.write_bytes(b"FLV\x01")
+    with pytest.raises(ValueError, match=r"\.mp4.*\.mkv.*\.y4m.*PNG.*item 8"):
+        vio.video_info(str(flv))
+    mkv = tmp_path / "clip.mkv"        # Matroska reads now: a cut one raises
     mkv.write_bytes(b"\x1a\x45\xdf\xa3")
-    with pytest.raises(ValueError, match=r"\.mp4.*\.y4m.*PNG.*item 8"):
+    with pytest.raises(ValueError, match="truncated Matroska"):
         vio.video_info(str(mkv))
     out = str(tmp_path / "o.mp4")
     frames = _frames(3, 16, 32)
@@ -238,17 +264,13 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_consecutive_frames_from_y4m_match_jax(tmp_path, stride):
-    """``ConsecutiveFrames`` on a .y4m against the JAX dataset on the same
-    decoded frames written as PNGs (rgb_imagenet, resized 48x64 → 32x40)."""
+    """``ConsecutiveFrames`` on a .y4m against the JAX dataset reading the
+    same .y4m through ``cv2.VideoCapture`` (rgb_imagenet, resized 48x64 →
+    32x40)."""
     path = str(tmp_path / "clip.y4m")
     _write_y4m(path, _frames(5, 48, 64, seed=stride))
-    png_dir = tmp_path / "png"
-    png_dir.mkdir()
-    for i, f in enumerate(vio.read_frames(path)):
-        (png_dir / f"{i:04d}.png").write_bytes(encode_png(f[..., ::-1]))
     ds = datasets.ConsecutiveFrames(path, size_hw=(32, 40), stride=stride)
-    jds = jdatasets.ConsecutiveFrames(str(png_dir), size_hw=(32, 40),
-                                      stride=stride)
+    jds = jdatasets.ConsecutiveFrames(path, size_hw=(32, 40), stride=stride)
     assert ds.index == jds.index and len(ds) == 5 - stride
     for i in range(len(ds)):
         np.testing.assert_array_equal(ds[i]["images"], jds[i]["images"])
