@@ -216,7 +216,23 @@ non-zero, and no result line is printed):
      K1 and B1 5 a step; (e) host ms to decode a 436x1024 frame on one
      thread, VP8 beside MPEG-4 Part 2 of the same frames; (f) no cv2, PIL
      or jax in ``sys.modules``;
- 20. one JSON line listing every kernel with its launches on its path,
+ 20. VP9 read as ``cv2.VideoCapture`` reads it (``runtime/vp9.cpp``, in
+     ``.webm``, ``.mkv``, ``.mp4`` and ``.avi``): (a) every ``vp9_*``
+     fixture the port reads (cv2's writer; libvpx's hidden alt-ref frames,
+     compound prediction, backward adaptation, segmentation, lossless,
+     tiles, error resilience, full range and BT.709; rewritten headers:
+     intra-only frames, show_existing_frame, segment features, sharpness,
+     delta quantisers, bilinear) and the VP8 clamping_type one decode to
+     their manifest's cv2 digests, fps, size and count, and the resize one
+     is refused; (b) ``cli/extract_video
+     --mode arrows --batch 4 --dtype bfloat16`` over the committed 13-frame
+     436x1024 VP9 WebM (4 tile columns), over a ``.y4m`` of its frames,
+     and from the WebM to ``.mkv``: K1 15 a run; (c) ``cli/capture_frame``
+     at frame 12; (d) ``cli/train --regime pseudo`` for 2 steps over a
+     9-frame VP9 ``.webm``: K1 and B1 5 a step; (e) host ms to decode a
+     436x1024 frame on one thread, VP9 beside VP8 and MPEG-4 Part 2 of the
+     same frames; (f) no cv2, PIL or jax in ``sys.modules``;
+ 21. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -229,8 +245,8 @@ loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 (K1 and B1, counted in each rank's process from 0), phase 15's JPEG
 paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
-paths and phase 19's VP8 and Matroska paths (K1 in the video CLI's runs,
-K1 and B1 in the pseudo steps).
+paths, phase 19's VP8 and Matroska paths and phase 20's VP9 paths (K1 in
+the video CLI's runs, K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3679,7 +3695,8 @@ def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
     n_frames = 0
     mpeg4_fixtures = {name: want for name, want in manifest["files"].items()
                       if not name.startswith(("mjpg",     # Motion JPEG: [18]
-                                              *NEW_VIDEO_FIXTURES))}  # [19]
+                                              *NEW_VIDEO_FIXTURES,   # [19]
+                                              "vp9_"))}              # [20]
     for name, want in sorted(mpeg4_fixtures.items()):
         path = os.path.join(MP4_DIR, name)
         frames = list(vio.read_frames(path))
@@ -4038,9 +4055,9 @@ VP8_TIMED = 4            # passes over the clip for the host decode times
 NEW_VIDEO_FIXTURES = ("vp8_", "mkv_", "mpeg4_")
 
 
-def webm_head(src: str, dst: str, n: int) -> None:
-    """The first ``n`` frames of a VP8 WebM remuxed by io/mkv's element
-    writers (one Cluster, SimpleBlocks, 40 ms apart)."""
+def webm_head(src: str, dst: str, n: int, codec: bytes = b"V_VP8") -> None:
+    """The first ``n`` frames of a VP8 (or ``codec``) WebM remuxed by
+    io/mkv's element writers (one Cluster, SimpleBlocks, 40 ms apart)."""
     import struct
     from opticalflow_tpu_torch.io import mkv
     box = mkv.MkvFile(src)
@@ -4052,7 +4069,7 @@ def webm_head(src: str, dst: str, n: int) -> None:
             blocks += el(mkv.SIMPLE_BLOCK, b"\x81" + struct.pack(
                 ">hB", 40 * i, key) + box.sample(f, i))
     track = el(mkv.TRACK_ENTRY, u(mkv.TRACK_NUMBER, 1) + u(mkv.TRACK_TYPE, 1)
-               + el(mkv.CODEC_ID, b"V_VP8")
+               + el(mkv.CODEC_ID, codec)
                + u(mkv.DEFAULT_DURATION, 40_000_000)
                + el(mkv.VIDEO, u(mkv.PIXEL_WIDTH, box.width)
                     + u(mkv.PIXEL_HEIGHT, box.height)))
@@ -4093,7 +4110,7 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
     with open(os.path.join(MP4_DIR, "manifest.json")) as f:
         manifest = json.load(f)
     new = {n: w for n, w in manifest["files"].items()
-           if n.startswith(NEW_VIDEO_FIXTURES)}
+           if n.startswith(NEW_VIDEO_FIXTURES) and n not in PHASE20_VP8}
     n_frames = 0
     for name, want in sorted(new.items()):
         path = os.path.join(MP4_DIR, name)
@@ -4219,6 +4236,196 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
     log(f"[19] (f) cv2, PIL, jax not imported; phase 19 took {phase_s:.1f} "
         f"s; {card}")
     return {"fixtures": len(new), "cli": cli_rows, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+# ------------------------------------------------------------ phase 20
+
+# VP9 on the card machine, read as cv2.VideoCapture reads it
+# (runtime/vp9.cpp: FFmpeg's vp9 decoder in host C++, behind io/mkv, io/mp4
+# and io/avi): the committed fixtures' cv2 digests, then the committed
+# 436x1024 VP9 WebM (the Sintel pair alternating, 13 frames, key frames at
+# 0 and 12, 4 tile columns; no VP9 encoder there) through the entry points
+VP9_CLIP = "vp9_sintel_436x1024.webm"
+# the VP8 fixture whose colour depends on FFmpeg's decoder threads (its
+# digests were taken with the manifest's ffmpeg_threads)
+PHASE20_VP8 = ("vp8_clamping.webm",)
+
+
+def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """VP9 through the port's entry points on the card machine: (a) the
+    VP9 fixtures (and the VP8 clamping_type one) equal cv2's digests, (b)
+    the video CLI over the 436x1024 WebM, over a .y4m of its frames and
+    with .mkv out, (c) capture_frame, (d) the pseudo regime over a VP9
+    .webm, (e) host ms to decode a frame, VP9 beside VP8 and MPEG-4 Part 2
+    on the same frames, (f) no cv2, PIL or jax imported.  Returns its
+    results, each path's K1 (and B1) launches among them."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import capture_frame
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.images import decode_png
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    from opticalflow_tpu_torch.runtime import vp8, vp9
+    from opticalflow_tpu_torch.runtime.mpeg4 import (Decoder, Unsupported,
+                                                      i420_to_bgr)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures: cv2's writer in four containers, the size patches,
+    # libvpx's settings, the colour ones; the resize one is refused
+    t0 = time.perf_counter()
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    os.environ["OPENCV_FFMPEG_THREADS"] = str(manifest["ffmpeg_threads"])
+    new = {n: w for n, w in manifest["files"].items()
+           if n.startswith("vp9_") or n in PHASE20_VP8}
+    n_frames, refused = 0, []
+    for name, want in sorted(new.items()):
+        path = os.path.join(MP4_DIR, name)
+        if "port_refuses" in want:
+            try:
+                list(vio.read_frames(path))
+            except Unsupported:
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name} was read")
+        frames = list(vio.read_frames(path))
+        n_frames += len(frames)
+        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in
+                                        ("fps", "width", "height", "frames")}
+    features = sorted({f for w in new.values()
+                       for f in w.get("vp9_features", [])})
+    log(f"[20] (a) {len(new) - len(refused)} fixtures (VP9 in .webm/.mkv/"
+        f".mp4/.avi, size patches, libvpx's alt-ref/compound/adaptive/"
+        f"segmented/lossless/tiled/error-resilient/colour streams, "
+        f"rewritten headers; the VP8 clamping_type one at "
+        f"{manifest['ffmpeg_threads']} FFmpeg threads) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count in {time.perf_counter() - t0:.2f} s; refused as "
+        f"item 8: {refused}; features reached: {features}; {card}")
+
+    # (b) the video CLI over the WebM, the same frames as a .y4m, and the
+    # WebM again with .mkv out
+    webm = os.path.join(MP4_DIR, VP9_CLIP)
+    frames = list(vio.read_frames(webm))
+    assert len(frames) == VP8_FRAMES and frames[0].shape == (FULL_H, FULL_W,
+                                                              3)
+    y4m = os.path.join(tmp, "vp9.y4m")
+    write_clip(y4m, frames)
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    cli_rows = {}
+    for tag, src, out in (("webm", webm, "out_webm.y4m"),
+                          ("y4m", y4m, "out_y4m.y4m"),
+                          ("webm_to_mkv", webm, "out_webm.mkv")):
+        k0 = corr_fwd.launches
+        row = video_cli([src, os.path.join(tmp, out), "--ckpt", ckpt,
+                         "--mode", "arrows", "--batch", str(VIDEO_B),
+                         "--dtype", "bfloat16", "--device", "cuda"],
+                        VP8_FRAMES, FULL_H, FULL_W)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(VP8_FRAMES - 1) // VIDEO_B), windows
+        assert launched == 5 * windows == 15, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        cli_rows[tag] = row
+        log(f"[20] (b) extract_video --mode arrows B={VIDEO_B} bf16, {tag} "
+            f"({VP8_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+            f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} "
+            f"s); decode thread busy {row['decode_ms']!r} ms a frame "
+            f"({row['decode_share']:.1%}), draw {row['draw_share']:.1%}, "
+            f"encode {row['encode_share']:.1%}; {windows} windows, K1 "
+            f"{launched} launches; {card}")
+    launches["cli"] = sum(r["k1_launches"] for r in cli_rows.values())
+
+    # (c) capture_frame at the second key frame
+    png = os.path.join(tmp, "vp9_frame.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert capture_frame.main([webm, str(VP8_CAPTURE), png]) == 0
+    with open(png, "rb") as f:
+        got = decode_png(f.read())[..., ::-1]
+    assert pixel_digest(got) == new[VP9_CLIP]["sha256"][VP8_CAPTURE]
+    log(f"[20] (c) capture_frame at frame {VP8_CAPTURE} of the WebM equals "
+        f"cv2.VideoCapture's digest")
+
+    # (d) the pseudo regime over a VP9 .webm of the first frames
+    train_webm = os.path.join(tmp, "train_vp9.webm")
+    webm_head(webm, train_webm, VP8_TRAIN_FRAMES, b"V_VP9")
+    out_dir = os.path.join(tmp, "vp9_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_webm, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (VP8_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[20] (d) cli/train --regime pseudo over a VP9 .webm of "
+        f"{VP8_TRAIN_FRAMES} frames ({FULL_H}x{FULL_W} -> 384x512), {steps} "
+        f"steps at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; "
+        f"K1/B1 launches {launches['pseudo']} (5 and 5 a step); "
+        f"{wall_t:.2f} s wall; {card}")
+
+    # (e) host ms a 436x1024 frame on one thread: VP9 decode beside VP8's
+    # (the committed VP8 WebM of the same Sintel frames) and MPEG-4 Part
+    # 2's (the port's encoder over the VP9 frames), each to planes, then
+    # swscale's conversion to BGR
+    mp4 = os.path.join(tmp, "vp9_frames.mp4")
+    wr = vio.Mpeg4Writer(mp4, 25.0, (FULL_W, FULL_H))
+    for fr in frames:
+        wr.write(fr)
+    wr.release()
+    host = {}
+    for codec, box, dec in (
+            ("vp9", MkvFile(webm), vp9.Decoder),
+            ("vp8", MkvFile(os.path.join(MP4_DIR, VP8_CLIP)), vp8.Decoder),
+            ("mpeg4", vio.EncodedVideo(mp4).box, None)):
+        with open(box.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
+        make = dec or (lambda b=box: Decoder(b.dsi, what=b.path))
+        make().decode(samples[0])                 # the library is loaded
+        t0 = time.perf_counter()
+        for _ in range(VP8_TIMED):
+            d = make()
+            planes = [d.decode(s) for s in samples]
+        t1 = time.perf_counter()
+        for _ in range(VP8_TIMED):
+            for p in planes:
+                i420_to_bgr(*p)
+        t2 = time.perf_counter()
+        n = VP8_TIMED * VP8_FRAMES
+        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
+                       "convert_ms": (t2 - t1) / n * 1e3,
+                       "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES}
+    v9, v8, m = host["vp9"], host["vp8"], host["mpeg4"]
+    log(f"[20] (e) host ms a {FULL_H}x{FULL_W} frame on one thread: VP9 "
+        f"decode {v9['decode_ms']!r} ({v9['bytes_a_frame']:.0f} bytes a "
+        f"frame), VP8 {v8['decode_ms']!r} ({v8['bytes_a_frame']:.0f} bytes), "
+        f"MPEG-4 Part 2 {m['decode_ms']!r} ({m['bytes_a_frame']:.0f} bytes); "
+        f"conversion to BGR {v9['convert_ms']!r}; {card}")
+
+    # (f) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[20] (f) cv2, PIL, jax not imported; phase 20 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new) - len(refused), "refused": refused,
+            "features": features, "cli": cli_rows, "host_decode": host,
             "pseudo_losses": [r["loss"] for r in recs],
             "launches": launches, "phase_s": phase_s, "card": card}
 
@@ -4386,6 +4593,16 @@ def main() -> int:
     assert vp8_launches == correlation_cuda.launches > 0
     assert vp8["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the VP9 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        vp9 = phase_vp9(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                        card_line())
+    # ... and end here: the video CLI's runs and the pseudo steps
+    vp9_launches = vp9["launches"]["cli"] + \
+        vp9["launches"]["pseudo"]["correlation_fwd"]
+    assert vp9_launches == correlation_cuda.launches > 0
+    assert vp9["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -4435,7 +4652,11 @@ def main() -> int:
          # phase 19: the video CLI over the 436x1024 VP8 WebM (to .y4m and
          # to .mkv) and a .y4m of its frames, and the pseudo steps over a
          # .webm (5 a window, 5 a step)
-         "launches_vp8": vp8_launches, "vp8": vp8},
+         "launches_vp8": vp8_launches, "vp8": vp8,
+         # phase 20: the video CLI over the 436x1024 VP9 WebM (to .y4m and
+         # to .mkv) and a .y4m of its frames, and the pseudo steps over a
+         # VP9 .webm (5 a window, 5 a step)
+         "launches_vp9": vp9_launches, "vp9": vp9},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -4467,7 +4688,9 @@ def main() -> int:
          # phase 18: the pseudo regime's steps over a %06d.jpg pattern
          "launches_mjpeg": seq["launches"]["pseudo"]["correlation_bwd"],
          # phase 19: the pseudo regime's steps over a .webm
-         "launches_vp8": vp8["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_vp8": vp8["launches"]["pseudo"]["correlation_bwd"],
+         # phase 20: the pseudo regime's steps over a VP9 .webm
+         "launches_vp9": vp9["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -36,12 +36,13 @@ from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
 __all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "RAW_TAGS",
-           "VP8_TAGS", "codec_of"]
+           "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
 MJPEG_TAGS = {"MJPG", "mjpg"}
 RAW_TAGS = {"I420", "IYUV"}
 VP8_TAGS = {"VP80"}
+VP9_TAGS = {"VP90"}
 _NAMES = {"H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
@@ -194,7 +195,7 @@ class AviFile:
 
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
-    ``mpeg4``, ``mjpeg``, ``i420`` or ``vp8``; anything else raises
+    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8`` or ``vp9``; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -204,9 +205,12 @@ def codec_of(tag: str, what: str) -> str:
         return "i420"
     if tag in VP8_TAGS:
         return "vp8"
+    if tag in VP9_TAGS:
+        return "vp9"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
-                      f"reads MPEG-4 Part 2, Motion JPEG, raw I420 and VP8 "
+                      f"reads MPEG-4 Part 2, Motion JPEG, raw I420, VP8 and "
+                      f"VP9 "
                       f"only ({ITEM_8})")
 
 

@@ -412,10 +412,11 @@ def resize_bilinear_f32(img: np.ndarray, height: int,
     IPP: the half-pixel position in double, floor and a float32 fraction
     ``t``; a tap left of the first pixel or at or right of the last takes
     that pixel whole (``t = 0``), on both axes; rows first, then columns,
-    each ``fma(p1 - p0, t, p0)``.  OpenCV's own: the position rounded to
-    float32 first, float32 weights ``1 - t, t``; along a row the same edge
-    rule, down the columns the two rows clamped into the image with the
-    weights left as they are."""
+    each ``fma(p1 - p0, t, p0)``, but for the columns of an edge run that
+    ``_ipp_unfused_columns`` names (3 and 4 channels).  OpenCV's own: the
+    position rounded to float32 first, float32 weights ``1 - t, t``; along
+    a row the same edge rule, down the columns the two rows clamped into
+    the image with the weights left as they are."""
     h, w = img.shape[:2]
     x = img.astype(np.float32, copy=False).reshape(h, w, -1)
     ipp = h > 1 and w > 1 and x.shape[2] != 2
@@ -433,9 +434,45 @@ def resize_bilinear_f32(img: np.ndarray, height: int,
             fy = np.where((sy < 0) | (sy >= h - 1), np.float32(0), fy)
         fy = fy[:, None, None]
         y0, y1 = x[np.clip(sy, 0, h - 1)], x[np.clip(sy + 1, 0, h - 1)]
-        x = (fma32(y1 - y0, fy, y0) if ipp
-             else y0 * (np.float32(1) - fy) + y1 * fy)
+        if not ipp:
+            x = y0 * (np.float32(1) - fy) + y1 * fy
+        else:
+            out = fma32(y1 - y0, fy, y0)
+            cols = _ipp_unfused_columns(w, width, x.shape[2])
+            if cols is not None:
+                ci, ch = cols
+                out[:, ci, ch] = (y0 + (y1 - y0) * fy)[:, ci, ch]
+            x = out
     return x.reshape((height, width) + img.shape[2:])
+
+
+def _ipp_unfused_columns(w: int, width: int, channels: int):
+    """Where IPP's vertical pass rounds the product and the sum apart
+    (``p0 + (p1 - p0)·t``, no fused multiply-add), as OpenCV 5's bundled
+    IPP does for 3- and 4-channel float32: the columns of a run of 5 to 16
+    output columns at either edge whose taps lie outside the image (an
+    upscale of 10× to 32×; 5 to 15 columns at 3 channels), all channels at
+    4, the first two at 3: (column indices (n, 1), channel indices), or
+    None.
+    Longer runs (above 32×) follow no rule found: they keep the fused
+    form."""
+    if channels not in (3, 4) or width == w:
+        return None
+    sx, _ = _linear_taps(w, width, True)
+    edge = (sx < 0) | (sx >= w - 1)
+    if edge.all():
+        return None
+    left = int(np.argmin(edge))
+    right = int(np.argmin(edge[::-1]))
+    top = 16 if channels == 4 else 15
+    mask = np.zeros(width, bool)
+    if 5 <= left <= top:
+        mask[:left] = True
+    if 5 <= right <= top:
+        mask[width - right:] = True
+    if not mask.any():
+        return None
+    return np.nonzero(mask)[0][:, None], np.arange(2 if channels == 3 else 4)
 
 
 def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:

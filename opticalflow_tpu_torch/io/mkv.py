@@ -15,6 +15,7 @@ without ``ReferenceBlock`` is one) gives the seek points, so Cues are not
 needed.  The codecs, by ``CodecID``:
 
   * ``V_VP8``: ``runtime/vp8``;
+  * ``V_VP9``: ``runtime/vp9`` (profile 0);
   * ``V_MPEG4/ISO/SP``, ``/ASP``, ``/AP``: ``runtime/mpeg4``, the VOL in
     ``CodecPrivate`` (what ``cv2.VideoWriter`` writes with ``mp4v``);
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
@@ -22,7 +23,7 @@ needed.  The codecs, by ``CodecID``:
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
     ``io/avi``'s fourcc rules.
 
-Other codecs (VP9, H.264, HEVC, AV1, MPEG-2, FFV1, ...), zlib-compressed
+Other codecs (H.264, HEVC, AV1, MPEG-2, FFV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
 ROADMAP Queue 1 item 8; header stripping is applied.
 
@@ -76,7 +77,7 @@ LANGUAGE = 0x22B59C
 # the Segment's children: where an unknown-size Cluster ends
 _TOP = {SEEKHEAD, INFO, TRACKS, CLUSTER, CUES, TAGS, CHAPTERS, ATTACHMENTS}
 _MPEG4_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
-_NAMES = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
+_NAMES = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
           "V_MPEGH/ISO/HEVC": "HEVC", "V_MPEG2": "MPEG-2", "V_MPEG1": "MPEG-1",
           "V_FFV1": "FFV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_REAL/RV40": "RealVideo"}
@@ -341,6 +342,8 @@ class MkvFile:
             self._encodings(kids[CONTENT_ENCODINGS])
         if codec == "V_VP8":
             self.codec, self.tag = "vp8", "VP80"
+        elif codec == "V_VP9":
+            self.codec, self.tag = "vp9", "VP90"
         elif codec in _MPEG4_IDS:
             self.codec, self.tag = "mpeg4", "mp4v"
         elif codec == "V_MJPEG":
@@ -364,8 +367,8 @@ class MkvFile:
         else:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
-                              f"{codec!r}): the port reads VP8, MPEG-4 Part "
-                              f"2, Motion JPEG and raw I420 in Matroska "
+                              f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
+                              f"Part 2, Motion JPEG and raw I420 in Matroska "
                               f"only ({ITEM_8})")
 
     def _colour(self, colour: Dict[int, bytes]) -> None:

@@ -10,8 +10,10 @@ for fourcc ``MJPG`` in ``.mp4``; ``stts``, ``stss``, ``stsc``,
 FFmpeg applies it to these files (empty and zero-offset edits change no
 frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
 ``timescale · samples / Σ durations`` (FFmpeg's ``avg_frame_rate``) and the
-sample count.  Other codecs' sample entries (``avc1``, ``hev1``, ...) raise
-``Unsupported``, naming ROADMAP Queue 1 item 8.
+sample count.  The ``vp09`` entry (VP9, what ``cv2.VideoWriter`` writes for
+fourcc ``VP90`` into ``.mp4``) is read with its ``vpcC``.  Other codecs'
+sample entries (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming
+ROADMAP Queue 1 item 8.
 
 :class:`Mp4Writer` writes what FFmpeg's mov muxer writes for ``mp4v``:
 ``ftyp``, ``mdat``, and at :meth:`~Mp4Writer.release` a ``moov`` with
@@ -230,23 +232,37 @@ class Mp4File:
         fourcc = fourcc.decode("latin1")
         entry = b[12:4 + size]
         self.tag = fourcc
-        if fourcc != "mp4v":
+        if fourcc not in ("mp4v", "vp09"):
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
                               f"{fourcc!r}): the port decodes the mp4v "
-                              f"entry only (MPEG-4 Part 2, Motion JPEG; "
-                              f"{ITEM_8})")
+                              f"entry (MPEG-4 Part 2, Motion JPEG) and "
+                              f"vp09 (VP9) only ({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
-        self.codec, self.dsi = "mpeg4", b""
+        self.codec, self.dsi = ("vp9" if fourcc == "vp09" else "mpeg4"), b""
         pos = 78   # VisualSampleEntry fields
         while pos + 8 <= len(entry):
             n, t = struct.unpack(">I4s", entry[pos:pos + 8])
             if n < 8:
                 break
-            if t == b"esds":
+            if t == b"esds" and fourcc == "mp4v":
                 self.codec, self.dsi = _esds(entry[pos + 8:pos + n],
                                              self.path)
+            elif t == b"vpcC":
+                self._vpcc(entry[pos + 8:pos + n])
             pos += n
+
+    def _vpcc(self, body: bytes) -> None:
+        """VP9's codec configuration (version 1): its profile, bit depth
+        and range flag."""
+        if len(body) < 8:
+            raise ValueError(f"{self.path}: truncated vpcC box")
+        profile, depth = body[4], body[6] >> 4
+        if profile or depth not in (0, 8):
+            raise Unsupported(f"{self.path}: VP9 profile {profile}, "
+                              f"{depth}-bit (vpcC), not read by the port "
+                              f"({ITEM_8})")
+        self.full_range = bool(body[6] & 1)
 
     def _stsz(self, body: bytes) -> List[int]:
         _, b = _full(body)

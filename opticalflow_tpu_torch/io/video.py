@@ -12,13 +12,16 @@ muxers and codecs and reads what those read, frame for frame:
     decoded by ``runtime/mpeg4`` bit-exactly to FFmpeg and converted to BGR
     in swscale's arithmetic, so every frame equals ``cv2.VideoCapture``'s;
     VP8 (``VP80`` in AVI, ``V_VP8`` in Matroska and WebM), decoded by
-    ``runtime/vp8`` bit-exactly to FFmpeg; Motion JPEG (fourcc ``MJPG`` in
+    ``runtime/vp8`` bit-exactly to FFmpeg; VP9 profile 0 (``VP90`` in AVI,
+    ``V_VP9`` in Matroska and WebM, ``vp09`` in MP4), decoded by
+    ``runtime/vp9`` bit-exactly to FFmpeg, converted with the range and
+    matrix its frame header names; Motion JPEG (fourcc ``MJPG`` in
     AVI, ``V_MJPEG`` in Matroska, ``mp4v`` with objectTypeIndication 0x6C
     in MP4), decoded by ``runtime/jpeg``'s FFmpeg flavour; raw I420 in AVI
     and Matroska too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames,
     as cv2's writer does; an odd side cropped to even, as it does),
-    ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, VP9 and
-    the like raise, naming ROADMAP Queue 1 item 8;
+    ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, AV1,
+    VP9 profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
@@ -65,17 +68,21 @@ from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   to_i420)
 from opticalflow_tpu_torch.runtime.vp8 import Decoder as Vp8Decoder
 from opticalflow_tpu_torch.runtime.vp8 import frame_size as vp8_frame_size
+from opticalflow_tpu_torch.runtime.vp9 import MATRICES as VP9_MATRICES
+from opticalflow_tpu_torch.runtime.vp9 import Decoder as Vp9Decoder
+from opticalflow_tpu_torch.runtime.vp9 import frame_size as vp9_frame_size
+from opticalflow_tpu_torch.runtime.vp9 import is_keyframe as vp9_is_keyframe
 
 __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "EncodedVideo", "ImageSequence", "Mpeg4Writer", "Y4MFile",
            "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
-           "is_sequence"]
+           "is_sequence", "ffmpeg_threads"]
 
-FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, VP8 or Motion "
-           "JPEG; raw I420 in .avi and .mkv), a .y4m file (YUV4MPEG2, 8-bit "
-           "4:2:0), an image sequence named by a pattern (frames/%06d.jpg; "
-           "JPEG or PNG) or one image file, or a directory of PNG or JPEG "
-           "frames")
+FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, VP8, VP9 or "
+           "Motion JPEG; raw I420 in .avi and .mkv), a .y4m file (YUV4MPEG2, "
+           "8-bit 4:2:0), an image sequence named by a pattern "
+           "(frames/%06d.jpg; JPEG or PNG) or one image file, or a directory "
+           "of PNG or JPEG frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
 # yuv4mpegdec's chroma location of each tag (none without a C tag)
@@ -89,6 +96,21 @@ _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 _ENCODED = ("mp4", "avi", "mkv")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
+
+
+def ffmpeg_threads() -> int:
+    """The decoder threads ``cv2.VideoCapture`` gives FFmpeg:
+    ``OPENCV_FFMPEG_THREADS`` where set, else one a CPU this process may
+    run on (``cv2.getNumberOfCPUs``).  A VP8 stream's colour range depends
+    on it: each of FFmpeg's frame threads keeps the range of the last key
+    frame it decoded itself, and frames go to the threads in turn."""
+    env = os.environ.get("OPENCV_FFMPEG_THREADS", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env)
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except AttributeError:
+        return max(1, os.cpu_count() or 1)
 
 
 def _unsupported(path: str) -> ValueError:
@@ -264,12 +286,20 @@ class EncodedVideo:
                 with open(path, "rb") as f:
                     dec.probe(self.box.sample(f, 0))
             self.width, self.height = dec.width, dec.height
-        elif box.codec == "vp8":
+        elif box.codec in ("vp8", "vp9"):
             with open(path, "rb") as f:
-                size = vp8_frame_size(box.sample(f, box.keyframes[0]))
+                if box.codec == "vp9":
+                    # cv2's AVI writer flags every VP9 frame a keyframe: a
+                    # seek starts from a key frame of the bitstream
+                    self.keyframes = [
+                        i for i in self.keyframes
+                        if vp9_is_keyframe(box.sample(f, i))] or [0]
+                first = box.sample(f, self.keyframes[0])
+            size = (vp8_frame_size if box.codec == "vp8" else
+                    vp9_frame_size)(first)
             if size is None:
-                raise ValueError(f"{path}: the first VP8 keyframe has no "
-                                 "key frame header")
+                raise ValueError(f"{path}: the first {box.codec.upper()} "
+                                 "keyframe has no key frame header")
             self.width, self.height = size
         elif box.codec == "mjpeg":
             with open(path, "rb") as f:
@@ -286,12 +316,15 @@ class EncodedVideo:
             self.width, self.height = box.width, box.height
         # what FFmpeg's decoder hands swscale with the planes: the chroma
         # site its scaler interpolates from at an odd height (MPEG-4 Part
-        # 2's own, left; else Matroska's Colour element's) and the range
-        # (VP8's decoder sets video range; else Matroska's Range)
+        # 2's own, left; else Matroska's Colour element's), the range and
+        # the matrix (VP8's and VP9's from their frame headers, as planes()
+        # decodes them; else Matroska's Range and BT.601)
         self.chroma = (CHROMA_SITES["left"] if box.codec == "mpeg4" else
                        getattr(box, "chroma_site", None))
         self.full_range = box.codec != "vp8" and getattr(box, "full_range",
                                                          False)
+        self.matrix = "bt601"
+        self.threads = ffmpeg_threads()
         self._gen = None
         self._next = -1
 
@@ -301,6 +334,8 @@ class EncodedVideo:
     def _decoder(self):
         if self.box.codec == "vp8":
             return Vp8Decoder(what=self.path)
+        if self.box.codec == "vp9":
+            return Vp9Decoder(what=self.path)
         return Decoder(self.box.dsi, what=self.path, tag=self.box.tag)
 
     def _raw(self, data: bytes):
@@ -329,8 +364,32 @@ class EncodedVideo:
                     yield i, self._raw(self.box.sample(f, i))
                 return
             dec = self._decoder()
+            ranges = [False] * self.threads
             for i in range(k, self.samples):
-                p = dec.decode(self.box.sample(f, i))
+                sample = self.box.sample(f, i)
+                if self.box.codec == "vp9":
+                    # a packet shows any number of pictures (a superframe);
+                    # FFmpeg hands swscale each frame's own range and matrix
+                    for p in dec.decode_all(sample):
+                        if p[0].shape != (self.height, self.width):
+                            raise Unsupported(
+                                f"{self.path}: frame {i} is {p[0].shape[1]}x"
+                                f"{p[0].shape[0]} in a {self.width}x"
+                                f"{self.height} stream (OpenCV scales it "
+                                f"back; not read by the port, {ITEM_8})")
+                        self.full_range = dec.full_range
+                        self.matrix = VP9_MATRICES[dec.color_space]
+                        if i >= start:
+                            yield i, p
+                    continue
+                p = dec.decode(sample)
+                if self.box.codec == "vp8":
+                    # FFmpeg's frame threads each keep the clamping_type
+                    # (full-range) bit of the last key frame they decoded
+                    slot = (i - k) % self.threads
+                    if dec.keyframe:
+                        ranges[slot] = dec.clamping
+                    self.full_range = ranges[slot]
                 if p is not None and i >= start:
                     yield i, p
 
@@ -338,7 +397,8 @@ class EncodedVideo:
         """(index, BGR frame) of each picture from frame ``start`` on."""
         if self.box.codec != "mjpeg":
             for i, p in self.planes(start):
-                yield i, i420_to_bgr(*p, self.full_range, self.chroma)
+                yield i, i420_to_bgr(*p, self.full_range, self.chroma,
+                                     self.matrix)
             return
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "

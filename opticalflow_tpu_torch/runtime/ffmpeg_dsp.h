@@ -123,9 +123,43 @@ inline void idct(int16_t* blk, uint8_t* dest, int stride, bool add) {
 
 struct YuvCoeffs {
     int y, vr, ub, ug, vg, yoff;
+    int matrix;   // kMatrices' index: 0 BT.601, 1 BT.709, 2 SMPTE 240M, 3 BT.2020
 };
-constexpr YuvCoeffs kVideoRange{9539, 13075, 16525, -3209, -6660, 128};
-constexpr YuvCoeffs kFullRange{8192, 11485, 14516, -2819, -5850, 0};
+constexpr YuvCoeffs kVideoRange{9539, 13075, 16525, -3209, -6660, 128, 0};
+constexpr YuvCoeffs kFullRange{8192, 11485, 14516, -2819, -5850, 0, 0};
+
+// sws_getCoefficients' inverse matrices (crv, cbu, cgu, cgv, 16.16): what
+// swscale converts a frame with when it is handed the frame's colour
+// space (FFmpeg's ff_yuv2rgb_coeffs; unspecified and SMPTE 170M are BT.601)
+struct InvMatrix {
+    int64_t crv, cbu, cgu, cgv;
+};
+constexpr InvMatrix kMatrices[4] = {{104597, 132201, 25675, 53279},
+                                    {117489, 138438, 13975, 34925},
+                                    {117579, 136230, 16907, 35559},
+                                    {110013, 140363, 12277, 42626}};
+
+// sws_setColorspaceDetails' coefficients (roundToInt16 of the 16.16
+// values at 2^13) for a matrix and a range
+inline YuvCoeffs yuv_coeffs(int matrix, bool full) {
+    const InvMatrix& m = kMatrices[matrix];
+    int64_t cy = 1 << 16, oy = 0, crv = m.crv, cbu = m.cbu, cgu = -m.cgu, cgv = -m.cgv;
+    if (!full) {
+        cy = cy * 255 / 219;
+        oy = (int64_t)16 << 16;
+    } else {
+        crv = crv * 224 / 255;
+        cbu = cbu * 224 / 255;
+        cgu = cgu * 224 / 255;
+        cgv = cgv * 224 / 255;
+    }
+    auto r16 = [](int64_t f) {
+        const int64_t r = (f + (1 << 15)) >> 16;
+        return (int)(r < -0x7FFF ? -0x8000 : r > 0x7FFF ? 0x7FFF : r);
+    };
+    return YuvCoeffs{r16(cy << 13), r16(crv << 13), r16(cbu << 13), r16(cgu << 13), r16(cgv << 13),
+                     r16(oy << 3), matrix};
+}
 
 inline int mulhw(int a, int b) { return (a * b) >> 16; }
 inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
@@ -343,11 +377,12 @@ struct RgbTables {
     std::vector<uint8_t> y;              // y[base + offset + Y]
     int base;                            // yoffs
     std::vector<int> rv, gu, gv, bu;     // offsets into y, by chroma + kHead
-    explicit RgbTables(bool video) {
+    RgbTables(bool video, int matrix) {
         // 16.16: at video range luma scaled by 255/219 and offset by 16, at
         // full range the chroma coefficients times 224/255; then the chroma
         // ones divided by the luma scale, since they index the luma table
-        int64_t cy = 1 << 16, oy = 0, crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+        const InvMatrix& m = kMatrices[matrix];
+        int64_t cy = 1 << 16, oy = 0, crv = m.crv, cbu = m.cbu, cgu = -m.cgu, cgv = -m.cgv;
         if (video) {
             cy = cy * 255 / 219;
             oy = 16 << 16;
@@ -386,9 +421,10 @@ struct RgbTables {
     }
 };
 
-inline const RgbTables& rgb_tables(bool video) {
-    static const RgbTables full(false), vid(true);
-    return video ? vid : full;
+inline const RgbTables& rgb_tables(bool video, int matrix) {
+    static const RgbTables tables[8] = {{false, 0}, {true, 0}, {false, 1}, {true, 1},
+                                        {false, 2}, {true, 2}, {false, 3}, {true, 3}};
+    return tables[2 * matrix + video];
 }
 
 // yuv2rgb_write_full (BGR24) from Y, U, V at 2^10 fixed point; the luma
@@ -435,7 +471,7 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
         hscale8to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw);
         hscale8to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw);
     }
-    const RgbTables& tab = rgb_tables(k.yoff != 0);
+    const RgbTables& tab = rgb_tables(k.yoff != 0, k.matrix);
     const int fs = vf.size;
     std::vector<int> U(cdw), V(cdw);
     for (int r = 0; r < h; r++) {
@@ -525,7 +561,8 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
 // and 4:2:2 (1, 0) at an even height unscaled, everything else (an odd
 // height, other subsamplings) through the scaler, which takes full-width
 // chroma for an odd width and the chroma sites (hpos, vpos; see
-// scaled_to_bgr).  k: kVideoRange or kFullRange (FFmpeg's yuvj formats).
+// scaled_to_bgr).  k: kVideoRange or kFullRange (FFmpeg's yuvj formats),
+// or yuv_coeffs' for another matrix or a range the decoder reports.
 inline void yuv_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
                        int cstride, int w, int h, int hshift, int vshift,
                        const YuvCoeffs& k, uint8_t* bgr, int hpos = -1, int vpos = -1) {

@@ -1975,9 +1975,9 @@ void om4_to_i420(const uint8_t* px3, int w, int h, int rgb, uint8_t* y,
 // vpos: 1/256 of a luma sample, -1 for the default centred site)
 void om4_yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                        int w, int h, int ystride, int cstride, int full, int hpos, int vpos,
-                       uint8_t* bgr) {
+                       int matrix, uint8_t* bgr) {
     ffdsp::yuv_to_bgr(y, ystride, u, v, cstride, w, h, 1, 1,
-                      full ? ffdsp::kFullRange : ffdsp::kVideoRange, bgr, hpos, vpos);
+                      ffdsp::yuv_coeffs(matrix, full != 0), bgr, hpos, vpos);
 }
 
 // ---- encoder

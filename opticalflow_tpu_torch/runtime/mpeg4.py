@@ -66,7 +66,7 @@ def load() -> ctypes.CDLL:
             "om4_dec_decode": (ctypes.c_int, [_P, ctypes.c_char_p, _I64, _I64P,
                                               ctypes.c_char_p, _I64]),
             "om4_dec_output": (None, [_P, _P, _P, _P]),
-            "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 7
+            "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
                                   + [_P]),
             "om4_to_i420": (None, [_P, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P, _P, _P]),
@@ -157,20 +157,24 @@ class Decoder:
 # FFmpeg's chroma locations as swscale sites (x, y) in 1/256 of a luma
 # sample from the first luma sample's: what the scaler interpolates from
 CHROMA_SITES = {"center": (128, 128), "left": (0, 128), "topleft": (0, 0)}
+# swscale's YUV -> RGB matrices (ffmpeg_dsp.h's kMatrices, in order)
+MATRICES = ("bt601", "bt709", "smpte240m", "bt2020")
 
 
 def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                 full_range: bool = False,
-                chroma: Optional[Tuple[int, int]] = None) -> np.ndarray:
+                chroma: Optional[Tuple[int, int]] = None,
+                matrix: str = "bt601") -> np.ndarray:
     """(H, W) Y and (⌈H/2⌉, ⌈W/2⌉) U, V uint8 planes → (H, W, 3) BGR as
     swscale converts them for ``cv2.VideoCapture`` (BT.601, video range, or
     full range where ``full_range``): its x86 yuv2rgb with nearest chroma at
     an even height, its bicubic scaler at an odd one (full-width chroma
     where the width is odd too), which interpolates the chroma from the
     site the decoder reports (``chroma``: an (x, y) site, one of
-    ``CHROMA_SITES``' values; None for none).  Every decoder of the port
-    that hands over 4:2:0 planes (MPEG-4 Part 2, VP8, raw I420, ``.y4m``)
-    converts here."""
+    ``CHROMA_SITES``' values; None for none), with the matrix swscale is
+    handed (``MATRICES``: BT.601 unless a VP9 stream names another).
+    Every decoder of the port that hands over 4:2:0 planes (MPEG-4 Part 2,
+    VP8, VP9, raw I420, ``.y4m``) converts here."""
     h, w = y.shape
     ys, us, vs = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     if us.shape != ((h + 1) // 2, (w + 1) // 2) or vs.shape != us.shape:
@@ -180,7 +184,7 @@ def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     hpos, vpos = chroma or (-1, -1)
     load().om4_yuv420_to_bgr(_ptr(ys), _ptr(us), _ptr(vs), w, h, w,
                              us.shape[1], int(full_range), hpos, vpos,
-                             _ptr(out))
+                             MATRICES.index(matrix), _ptr(out))
     return out
 
 

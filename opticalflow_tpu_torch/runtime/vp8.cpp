@@ -912,6 +912,7 @@ struct Decoder {
 
     // per frame
     bool keyframe = false, simple_filter = false, bilinear = false, fullpel = false;
+    bool clamping = false;   // the last key frame's clamping_type bit
     int filter_level = 0, sharpness = 0;
     int prob_skip = 0, prob_intra = 0, prob_last = 0, prob_golden = 0;
     bool skip_enabled = false;
@@ -981,7 +982,9 @@ struct Decoder {
 
         if (keyframe) {
             hdr.bit();  // colour space
-            hdr.bit();  // clamping type (FFmpeg always clamps)
+            // clamping type: FFmpeg reconstructs with clamping either way, but
+            // takes the bit as its full-range flag (the frame's colour range)
+            clamping = hdr.bit();
             reset_probs();
             seg_enabled = seg_abs = false;
             std::fill(seg_quant, seg_quant + 4, 0);
@@ -1687,11 +1690,14 @@ void* vp8_dec_new() { return new Decoder(); }
 void vp8_dec_free(void* h) { delete (Decoder*)h; }
 
 // one frame: OK (a picture; wh = its size), NO_FRAME (show_frame = 0) or
-// an error code with msg
+// an error code with msg; wh[2], wh[3]: the last key frame's clamping_type
+// bit, whether this frame is a key frame
 int vp8_dec_decode(void* h, const uint8_t* data, int64_t size, int64_t* wh, char* msg, int64_t cap) {
     Decoder* d = (Decoder*)h;
     try {
         const bool show = d->decode(data, (size_t)size);
+        wh[2] = d->clamping;
+        wh[3] = d->keyframe;
         if (!show) return NO_FRAME;
         d->shown = d->cur;
         wh[0] = d->width;

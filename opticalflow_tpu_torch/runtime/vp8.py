@@ -93,6 +93,9 @@ class Decoder:
         self._h = self._lib.vp8_dec_new()
         self.what = what
         self.width = self.height = 0
+        # the last key frame's clamping_type bit (FFmpeg's full-range flag)
+        # and whether the last frame was a key frame
+        self.clamping = self.keyframe = False
 
     def __del__(self):
         h, self._h = getattr(self, "_h", None), None
@@ -102,11 +105,13 @@ class Decoder:
     def decode(self, frame: bytes) -> Optional[Planes]:
         """One frame → its (Y, U, V) planes at the header's size, or None
         for a frame that is not shown (``show_frame`` = 0)."""
-        wh = (_I64 * 2)()
+        wh = (_I64 * 4)()
         msg = ctypes.create_string_buffer(_MSG)
         frame = bytes(frame)
         rc = self._lib.vp8_dec_decode(self._h, frame, len(frame), wh, msg,
                                       _MSG)
+        if rc in (_OK, _NO_FRAME):
+            self.clamping, self.keyframe = bool(wh[2]), bool(wh[3])
         if rc == _NO_FRAME:
             return None
         if rc != _OK:

@@ -5,9 +5,13 @@ SHA-256 of every frame ``cv2.VideoCapture`` decodes from it (BGR bytes) and
 its ``CAP_PROP_FPS``, ``_FRAME_WIDTH``, ``_FRAME_HEIGHT`` and
 ``_FRAME_COUNT``.
 
-    python tests/make_video_fixtures.py
+    python tests/make_video_fixtures.py              # the files and manifest
+    python tests/make_video_fixtures.py --manifest   # the manifest alone
 
-Needs OpenCV with FFmpeg (the manifest records the versions).  The frames
+Needs OpenCV with FFmpeg (the manifest records the versions).  cv2's
+Matroska muxer writes random UIDs, so rewriting the files changes the
+``.mkv``/``.webm`` bytes cv2 wrote (not their frames): to add a fixture,
+write it and restore the others from git before ``--manifest``.  The frames
 are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
 
   * ``moving_176x144.mp4``: 26 frames (three GOPs) by ``cv2.VideoWriter``
@@ -339,6 +343,242 @@ def without_cues(src: str, dst: str) -> None:
     open(dst, "wb").write(bytes(data))
 
 
+# ------------------------------------------------------------------- VP8
+# the clamping_type bit of a key frame: its first partition re-encoded with
+# the bit set, bool for bool (RFC 6386's boolean coder; the key-frame
+# header and mode syntax of section 19.2, the probabilities vp8.cpp holds)
+
+def _cpp_table(name: str) -> list:
+    """The integers of ``const ... name[...] = {...};`` in runtime/vp8.cpp."""
+    import re
+    src = open(os.path.join(os.path.dirname(HERE), "opticalflow_tpu_torch",
+                            "runtime", "vp8.cpp")).read()
+    body = re.search(name + r"(\[\d+\])+ = \{(.*?)\};", src, re.S).group(2)
+    return [int(x) for x in re.findall(r"-?\d+", body)]
+
+
+class _BoolReader:
+    """RFC 6386 section 7's decoder, recording every (probability, bit)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value = (data[0] << 8) | data[1]
+        self.range, self.count = 255, 0
+        self.log = []
+
+    def read(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        big = split << 8
+        if self.value >= big:
+            bit, self.range = 1, self.range - split
+            self.value -= big
+        else:
+            bit, self.range = 0, split
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.data[self.pos] if self.pos < len(
+                    self.data) else 0
+                self.pos += 1
+        self.log.append((prob, bit))
+        return bit
+
+    def literal(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.read(128)
+        return v
+
+    def tree(self, tree: list, probs: list) -> int:
+        i = 0
+        while True:
+            i = tree[i + self.read(probs[i >> 1])]
+            if i <= 0:
+                return -i
+
+
+def _bool_encode(log: list) -> bytes:
+    """RFC 6386 section 7.3's encoder over a list of (probability, bit)."""
+    out = bytearray()
+    rng, bottom, bit_count = 255, 0, 24
+
+    def carry():
+        i = len(out) - 1
+        while i >= 0 and out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, bit in log:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            bit_count -= 1
+            if not bit_count:
+                out.append((bottom >> 24) & 0xFF)
+                bottom &= (1 << 24) - 1
+                bit_count = 8
+    c, v = bit_count, bottom   # flush
+    if v & (1 << (32 - c)):
+        carry()
+    v = (v << (c & 7)) & 0xFFFFFFFF
+    for _ in range(c >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _vp8_key_partition(part: bytes, mbw: int, mbh: int) -> _BoolReader:
+    """Read a VP8 key frame's first partition through its macroblock
+    modes, logging every bool."""
+    r = _BoolReader(part)
+    r.read(128)                                      # colour space
+    r.read(128)                                      # clamping type
+    update_map = False
+    if r.read(128):                                  # segmentation
+        update_map = r.read(128)
+        if r.read(128):
+            r.read(128)
+            for bits in [7] * 4 + [6] * 4:
+                if r.read(128):
+                    r.literal(bits + 1)
+        seg_probs = [255, 255, 255]
+        if update_map:
+            for i in range(3):
+                if r.read(128):
+                    seg_probs[i] = r.literal(8)
+    r.literal(1 + 6 + 3)             # filter type, level, sharpness
+    if r.read(128) and r.read(128):                  # lf deltas
+        for _ in range(8):
+            if r.read(128):
+                r.literal(7)
+    r.literal(2)                                     # partitions
+    r.literal(7)                                     # y_ac_qi
+    for _ in range(5):
+        if r.read(128):
+            r.literal(5)
+    r.read(128)                                      # refresh_entropy_probs
+    for p in _cpp_table("kCoefUpdateProbs"):
+        if r.read(p):
+            r.literal(8)
+    skip_prob = r.literal(8) if r.read(128) else None
+    kf_y, kf_uv = _cpp_table("kKfYmodeProbs"), _cpp_table("kKfUvModeProbs")
+    bmode = _cpp_table("kKfBmodeProbs")
+    y_tree = [-4, 2, 4, 6, 0, -1, -2, -3]            # B_PRED = 4
+    uv_tree = [0, 2, -1, 4, -2, -3]
+    b_tree = [0, 2, -1, 4, -2, 6, 8, 12, -3, 10, -5, -6, -4, 14, -7, 16,
+              -8, -9]
+    implied = {0: 0, 1: 2, 2: 3, 3: 1}               # DC, V, H, TM -> B_*
+    above = [[0] * 4 for _ in range(mbw)]
+    for my in range(mbh):
+        left = [0] * 4
+        for mx in range(mbw):
+            if update_map:
+                r.tree([2, 4, 0, -1, -2, -3], seg_probs)
+            if skip_prob is not None:
+                r.read(skip_prob)
+            ymode = r.tree(y_tree, kf_y)
+            if ymode == 4:
+                modes = [0] * 16
+                for b in range(16):
+                    a = above[mx][b & 3] if b < 4 else modes[b - 4]
+                    lft = left[b >> 2] if b & 3 == 0 else modes[b - 1]
+                    k = (a * 10 + lft) * 9
+                    modes[b] = r.tree(b_tree, bmode[k:k + 9])
+            else:
+                modes = [implied[ymode]] * 16
+            above[mx] = modes[12:16]
+            left = [modes[3], modes[7], modes[11], modes[15]]
+            r.tree(uv_tree, kf_uv)
+    return r
+
+
+def set_vp8_clamping(src: str, dst: str) -> None:
+    """A VP8 stream whose key frames set clamping_type (their first
+    partitions re-encoded, the frame tags' partition sizes rewritten),
+    muxed anew into WebM."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    box = MkvFile(src)
+    packets = []
+    with open(src, "rb") as f:
+        for i in range(len(box.sizes)):
+            frame = box.sample(f, i)
+            key = not frame[0] & 1
+            if key:
+                tag = frame[0] | frame[1] << 8 | frame[2] << 16
+                first = tag >> 5
+                w, h = struct.unpack("<HH", frame[6:10])
+                mbw, mbh = ((w & 0x3FFF) + 15) // 16, ((h & 0x3FFF) + 15) // 16
+                log = _vp8_key_partition(frame[10:10 + first], mbw, mbh).log
+                part = _bool_encode(log[:1] + [(128, 1)] + log[2:])
+                tag = (tag & 0x1F) | len(part) << 5
+                frame = (bytes([tag & 0xFF, tag >> 8 & 0xFF, tag >> 16])
+                         + frame[3:10] + part + frame[10 + first:])
+            packets.append((frame, key))
+    _webm(dst, packets, box.width, box.height, b"V_VP8")
+
+
+def _webm(path: str, packets: list, w: int, h: int, codec: bytes = b"V_VP9",
+          fps: int = 25, colour_range=None) -> None:
+    """(frame, keyframe) packets → a minimal WebM: one track with
+    DefaultDuration and, if given, a Colour Range; a Cluster from each
+    keyframe; Duration; no Cues."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io import mkv
+    ebml = mkv._el(mkv.EBML, mkv._uint_el(0x4286, 1) + mkv._uint_el(0x42F7, 1)
+                   + mkv._uint_el(0x42F2, 4) + mkv._uint_el(0x42F3, 8)
+                   + mkv._el(mkv.DOCTYPE, b"webm") + mkv._uint_el(0x4287, 4)
+                   + mkv._uint_el(0x4285, 2))
+    info = mkv._el(mkv.INFO, mkv._uint_el(mkv.TIMECODE_SCALE, 1_000_000)
+                   + mkv._el(mkv.DURATION,
+                             struct.pack(">d", len(packets) * 1000.0 / fps)))
+    video = (mkv._uint_el(mkv.PIXEL_WIDTH, w)
+             + mkv._uint_el(mkv.PIXEL_HEIGHT, h))
+    if colour_range is not None:
+        video += mkv._el(mkv.COLOUR, mkv._uint_el(mkv.RANGE, colour_range))
+    track = mkv._el(mkv.TRACK_ENTRY, mkv._uint_el(mkv.TRACK_NUMBER, 1)
+                    + mkv._uint_el(mkv.TRACK_UID, 1)
+                    + mkv._uint_el(mkv.TRACK_TYPE, 1)
+                    + mkv._el(mkv.CODEC_ID, codec)
+                    + mkv._uint_el(mkv.DEFAULT_DURATION, 10 ** 9 // fps)
+                    + mkv._el(mkv.VIDEO, video))
+    clusters, cur = b"", []
+
+    def flush():
+        nonlocal clusters, cur
+        if cur:
+            base = cur[0][0] * 1000 // fps
+            body = mkv._uint_el(mkv.TIMECODE, base) + b"".join(
+                mkv._el(mkv.SIMPLE_BLOCK, b"\x81" + struct.pack(
+                    ">hB", i * 1000 // fps - base, 0x80 if key else 0) + data)
+                for i, data, key in cur)
+            clusters += mkv._el(mkv.CLUSTER, body)
+            cur = []
+
+    for i, (data, key) in enumerate(packets):
+        if key:
+            flush()
+        cur.append((i, data, key))
+    flush()
+    with open(path, "wb") as f:
+        f.write(ebml + mkv._el(mkv.SEGMENT, info + mkv._el(mkv.TRACKS, track)
+                               + clusters))
+
+
 def _vp8_features(path: str) -> list:
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import EncodedVideo
@@ -348,6 +588,455 @@ def _vp8_features(path: str) -> list:
         for i in range(len(v.box.sizes)):
             dec.decode(v.box.sample(f, i))
     return dec.features
+
+
+# ------------------------------------------------------------------- VP9
+class Vpx:
+    """libvpx's VP9 encoder (cv2's bundled ``libvpx``) through ctypes, for
+    the settings cv2's writer does not reach.  The configuration is
+    ``vpx_codec_enc_config_default``'s, its fields set at the public
+    ``vpx_codec_enc_cfg_t`` offsets (``OFF``); each setting is checked on
+    the stream by the port's decoder (``vp9_features`` in the manifest)."""
+
+    CTRL = {"cpu_used": 13, "auto_alt_ref": 14, "arnr_maxframes": 21,
+            "arnr_strength": 22, "lossless": 32, "tile_columns": 33,
+            "tile_rows": 34, "frame_parallel": 35, "aq_mode": 36,
+            "color_space": 46, "color_range": 51}
+    OFF = {"threads": 4, "w": 12, "h": 16, "tb_num": 28, "tb_den": 32,
+           "error_resilient": 36, "pass": 40, "lag": 44, "bitrate": 112,
+           "kf_min": 164, "kf_max": 168}
+
+    def __init__(self):
+        import ctypes
+        import glob
+        import cv2
+        libs = os.path.join(os.path.dirname(cv2.__file__), os.pardir,
+                            "opencv_python.libs")
+        L = ctypes.CDLL(sorted(glob.glob(os.path.join(libs, "libvpx*")))[0])
+        c, P = ctypes, ctypes.c_void_p
+        for name, res, args in (
+                ("vpx_codec_vp9_cx", P, []),
+                ("vpx_codec_enc_config_default", c.c_int, [P, P, c.c_uint]),
+                ("vpx_codec_enc_init_ver", c.c_int, [P, P, P, c.c_long, c.c_int]),
+                ("vpx_codec_enc_config_set", c.c_int, [P, P]),
+                ("vpx_img_alloc", P, [P, c.c_int, c.c_uint, c.c_uint, c.c_uint]),
+                ("vpx_img_free", None, [P]),
+                ("vpx_codec_encode", c.c_int, [P, P, c.c_int64, c.c_ulong,
+                                               c.c_long, c.c_ulong]),
+                ("vpx_codec_get_cx_data", P, [P, P]),
+                ("vpx_codec_destroy", c.c_int, [P])):
+            fn = getattr(L, name)
+            fn.restype, fn.argtypes = res, args
+        self.L, self.c = L, ctypes
+
+    def encode(self, planes: list, w: int, h: int, cfg=None, ctrls=None,
+               two_pass: bool = False, resize=None) -> list:
+        """I420 planes → [(packet, keyframe)], 25 fps, good quality."""
+        if two_pass:
+            stats = self._run(planes, w, h, dict(cfg or {}, **{"pass": 1}),
+                              ctrls, resize, None)
+            return self._run(planes, w, h, dict(cfg or {}, **{"pass": 2}),
+                             ctrls, resize, stats)
+        return self._run(planes, w, h, cfg or {}, ctrls, resize, None)
+
+    def _run(self, planes, w, h, cfg, ctrls, resize, stats_in):
+        L, c = self.L, self.c
+        iface = L.vpx_codec_vp9_cx()
+        buf = c.create_string_buffer(4096)
+        assert L.vpx_codec_enc_config_default(iface, buf, 0) == 0
+        settings = dict(w=w, h=h, tb_num=1, tb_den=25, threads=1,
+                        bitrate=400, kf_min=0, kf_max=12, lag=0)
+        settings.update(cfg)
+        for k, v in settings.items():
+            struct.pack_into("<I", buf, self.OFF[k], v)
+        if stats_in is not None:
+            sbuf = c.create_string_buffer(stats_in, len(stats_in))
+            struct.pack_into("<QQ", buf, 80, c.addressof(sbuf), len(stats_in))
+        ctx = c.create_string_buffer(1024)
+        for abi in range(1, 100):   # VPX_ENCODER_ABI_VERSION of this build
+            rc = L.vpx_codec_enc_init_ver(ctx, iface, buf, 0, abi)
+            if rc != 3:             # VPX_CODEC_ABI_MISMATCH
+                break
+        assert rc == 0, rc
+        for k, v in (ctrls or {}).items():
+            assert L.vpx_codec_control_(ctx, self.CTRL[k], c.c_int(v)) == 0, k
+        out, stats = [], []
+
+        def drain():
+            it = c.c_void_p(0)
+            while True:
+                pkt = L.vpx_codec_get_cx_data(ctx, c.byref(it))
+                if not pkt:
+                    return
+                kind = c.c_int.from_address(pkt).value
+                data = c.string_at(c.c_void_p.from_address(pkt + 8).value,
+                                   c.c_size_t.from_address(pkt + 16).value)
+                if kind == 1:       # first-pass statistics
+                    stats.append(data)
+                elif kind == 0:
+                    key = c.c_uint32.from_address(pkt + 40).value & 1
+                    out.append((data, bool(key)))
+
+        cw, ch = w, h
+        for i, (y, u, v) in enumerate(planes):
+            if resize and i == resize[0]:
+                cw, ch = resize[1]
+                struct.pack_into("<II", buf, self.OFF["w"], cw, ch)
+                assert L.vpx_codec_enc_config_set(ctx, buf) == 0
+                y, u, v = (_resize_plane(p, (cw + s) >> s, (ch + s) >> s)
+                           for p, s in ((y, 0), (u, 1), (v, 1)))
+            elif resize and i > resize[0]:
+                y, u, v = (_resize_plane(p, (cw + s) >> s, (ch + s) >> s)
+                           for p, s in ((y, 0), (u, 1), (v, 1)))
+            img = L.vpx_img_alloc(None, 0x102, cw, ch, 1)   # I420
+            ptrs = (c.c_void_p * 4).from_address(img + 48)
+            strides = (c.c_int * 4).from_address(img + 80)
+            for k, p in enumerate((y, u, v)):
+                p = np.ascontiguousarray(p)
+                for r in range(p.shape[0]):
+                    c.memmove(ptrs[k] + r * strides[k], p[r].ctypes.data,
+                              p.shape[1])
+            assert L.vpx_codec_encode(ctx, img, i, 1, 0, 1000000) == 0
+            L.vpx_img_free(img)
+            drain()
+        while True:                 # flush the lagged frames
+            n = len(out) + len(stats)
+            assert L.vpx_codec_encode(ctx, None, 0, 1, 0, 1000000) == 0
+            drain()
+            if len(out) + len(stats) == n:
+                break
+        L.vpx_codec_destroy(ctx)
+        return b"".join(stats) if cfg.get("pass") == 1 else out
+
+
+def _resize_plane(p: np.ndarray, w: int, h: int) -> np.ndarray:
+    import cv2
+    return cv2.resize(p, (w, h), interpolation=cv2.INTER_AREA)
+
+
+def bgr_i420(frame: np.ndarray) -> tuple:
+    """BGR → I420 planes (cv2's BT.601 conversion; an odd side padded by
+    replication, the planes cropped back: (H+1)//2 x (W+1)//2 chroma)."""
+    import cv2
+    h, w = frame.shape[:2]
+    pad = cv2.copyMakeBorder(frame, 0, h % 2, 0, w % 2, cv2.BORDER_REPLICATE)
+    H, W = pad.shape[:2]
+    flat = cv2.cvtColor(pad, cv2.COLOR_BGR2YUV_I420).ravel()
+    q = (H // 2) * (W // 2)
+    y = flat[:H * W].reshape(H, W)[:h, :w]
+    u = flat[H * W:H * W + q].reshape(H // 2, W // 2)
+    v = flat[H * W + q:].reshape(H // 2, W // 2)
+    return y.copy(), u.copy(), v.copy()
+
+
+def smooth_clip(n: int, h: int = 144, w: int = 176) -> list:
+    """n BGR frames of slow sinusoids, each channel drifting its own way:
+    content libvpx predicts from both sides of an alt-ref frame."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return [np.clip(np.stack([128 + 100 * np.sin((xx + 3 * t) / 17 + yy / 29),
+                              128 + 90 * np.cos((yy - 2 * t) / 13),
+                              128 + 80 * np.sin((xx + yy + 4 * t) / 23)], -1),
+                    0, 255).astype(np.uint8) for t in range(n)]
+
+
+def patch_vp9_size(src: str, dst: str, w: int, h: int) -> None:
+    """A VP9 WebM whose key frames and PixelWidth/PixelHeight say w x h
+    (within the same 8x8 grid): profile 0 key frames carry the size at
+    bits 36-67 after the sync code and colour bits."""
+    data = bytearray(open(src, "rb").read())
+    for off in _mkv_frames(src):
+        if data[off] >> 6 == 2 and not data[off] & 0x3C:   # profile 0 key
+            bits = int.from_bytes(data[off:off + 9], "big")
+            bits &= ~(((1 << 32) - 1) << 4)
+            bits |= ((w - 1) << 16 | (h - 1)) << 4
+            data[off:off + 9] = bits.to_bytes(9, "big")
+    tracks = data.find(b"\x16\x54\xae\x6b")
+    for eid, v in ((b"\xb0\x81", w), (b"\xba\x81", h)):
+        at = data.find(eid, tracks)
+        data[at + 2] = v
+    open(dst, "wb").write(bytes(data))
+
+
+def _vp9_features(path: str) -> tuple:
+    """(features the port's decoder met in a VP9 file, its refusal or
+    None)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    refused = None
+    with open(path, "rb") as f:
+        try:
+            for i in range(len(v.box.sizes)):
+                dec.decode_all(v.box.sample(f, i))
+        except Unsupported as e:
+            refused = str(e).split(": ", 1)[1]
+    return dec.features, refused
+
+
+class Vp9Header:
+    """A profile-0 VP9 frame's uncompressed header as a list of fields
+    ``[name, bits, value]`` in bitstream order, and the byte where the
+    compressed header starts; :meth:`bytes` writes it back (fields edited,
+    inserted or removed) followed by the rest of the frame.  ``sizes``
+    holds the 8 reference slots' (width, height), which an inter frame's
+    size may come from; parse a stream's frames in order."""
+
+    SEG_BITS = (8, 6, 2, 0)
+
+    def __init__(self, frame: bytes, sizes: list):
+        self.frame, self.fields, self.pos = frame, [], 0
+        self._parse(sizes)
+
+    def _f(self, name: str, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | (self.frame[self.pos >> 3] >> (7 - (self.pos & 7))) & 1
+            self.pos += 1
+        self.fields.append([name, n, v])
+        return v
+
+    def _parse(self, sizes: list) -> None:
+        f = self._f
+        f("marker", 2), f("profile_low", 1), f("profile_high", 1)
+        if f("show_existing", 1):
+            f("show_idx", 3)
+            self.end = None
+            return
+        key = f("frame_type", 1) == 0
+        show, er = f("show_frame", 1), f("error_res", 1)
+        intra_only = 0 if key or show else f("intra_only", 1)
+        if not key and not er:
+            f("reset_ctx", 2)
+        w = h = None
+        if key or intra_only:
+            f("sync", 24)
+            if key:
+                f("color_space", 3), f("color_range", 1)
+            refresh = 0xFF if key else f("refresh", 8)
+            w, h = f("w", 16) + 1, f("h", 16) + 1
+        else:
+            refresh = f("refresh", 8)
+            idx = []
+            for _ in range(3):
+                idx.append(f("ref_idx", 3))
+                f("sign_bias", 1)
+            for i in range(3):
+                if f("found_ref", 1):
+                    w, h = sizes[idx[i]]
+                    break
+            if w is None:
+                w, h = f("w", 16) + 1, f("h", 16) + 1
+        if f("render_diff", 1):
+            f("render_w", 16), f("render_h", 16)
+        if not key and not intra_only:
+            f("allow_hp", 1)
+            if not f("switchable", 1):
+                f("filter", 2)
+        if not er:
+            f("refresh_ctx", 1), f("parallel", 1)
+        f("ctx_idx", 2)
+        f("lf_level", 6), f("sharpness", 3)
+        if f("lf_delta_enabled", 1) and f("lf_delta_update", 1):
+            for i in range(6):
+                if f("lf_delta_coded", 1):
+                    f("lf_delta", 7)
+        f("base_q", 8)
+        for k in ("y_dc", "uv_dc", "uv_ac"):
+            if f(f"dq_{k}_coded", 1):
+                f(f"dq_{k}", 5)
+        if f("seg_enabled", 1):
+            if f("seg_update_map", 1):
+                for _ in range(7):
+                    if f("seg_tree_coded", 1):
+                        f("seg_tree", 8)
+                if f("seg_temporal", 1):
+                    for _ in range(3):
+                        if f("seg_pred_coded", 1):
+                            f("seg_pred", 8)
+            if f("seg_update_data", 1):
+                f("seg_abs", 1)
+                for i in range(8):
+                    for j in range(4):
+                        if f(f"seg_feature_{i}_{j}", 1) and j < 3:
+                            f(f"seg_value_{i}_{j}", self.SEG_BITS[j])
+                            if j < 2:
+                                f(f"seg_sign_{i}_{j}", 1)
+        sb = (w + 63) // 64
+        lo, hi = 0, 1
+        while (64 << lo) < sb:
+            lo += 1
+        while (sb >> hi) >= 4:
+            hi += 1
+        for _ in range(lo, hi - 1):
+            if not f("tile_col_inc", 1):
+                break
+        if f("tile_rows", 1):
+            f("tile_rows_inc", 1)
+        f("header_size", 16)
+        self.end = (self.pos + 7) >> 3
+        for i in range(8):
+            if refresh >> i & 1:
+                sizes[i] = (w, h)
+
+    def find(self, name: str) -> int:
+        return next(i for i, fl in enumerate(self.fields) if fl[0] == name)
+
+    def bytes(self) -> bytes:
+        bits = "".join(format(v, f"0{n}b") for _, n, v in self.fields if n)
+        bits += "0" * (-len(bits) % 8)
+        head = int(bits, 2).to_bytes(len(bits) // 8, "big")
+        return head + (self.frame[self.end:] if self.end else b"")
+
+
+def _superframe(frames: list) -> bytes:
+    """Frames joined with a superframe index (4-byte sizes)."""
+    marker = 0xC0 | 3 << 3 | (len(frames) - 1)
+    index = bytes([marker]) + b"".join(struct.pack("<I", len(f))
+                                       for f in frames) + bytes([marker])
+    return b"".join(frames) + index
+
+
+def vp9_header_fixtures() -> None:
+    """Streams whose uncompressed headers are rewritten to reach what
+    neither cv2's writer nor libvpx here sets; each decodes as FFmpeg
+    decodes the bits it is given (cv2 is the oracle):
+
+      * ``vp9_headers.webm``: cv2's 176x144 stream with loop-filter
+        sharpness 3, y/uv delta quantisers -3/+2/-2 on every frame and the
+        bilinear filter on frames that fix their filter;
+      * ``vp9_seg_lf.webm``: libvpx's aq stream with an alt-LF value on
+        every segment of the frames that update segment data;
+      * ``vp9_intra_only.webm``: cv2's stream with key frame 12 turned into
+        a hidden intra-only frame (refresh all slots, reset_frame_context
+        3) in a superframe with a show_existing_frame of slot 0;
+      * ``vp9_seg_ref_skip.webm``: the aq stream's inter frames that update
+        segment data given a reference feature (LAST) on segment 1 and the
+        skip feature on segment 2: the tiles are then read as other syntax
+        than was written, which FFmpeg decodes without complaint (reading
+        zeros past a tile's end) and the port decodes as it does."""
+    src = os.path.join(OUT, "vp9_176x144.webm")
+    box_frames = _mkv_samples(src)
+    out, sizes = [], [None] * 8
+    for data, key in box_frames:
+        hd = Vp9Header(data, sizes)
+        hd.fields[hd.find("sharpness")][2] = 3
+        for k, v in (("y_dc", -3), ("uv_dc", 2), ("uv_ac", -2)):
+            i = hd.find(f"dq_{k}_coded")
+            if hd.fields[i][2]:
+                hd.fields[i + 1][2] = abs(v) << 1 | (v < 0)
+            else:
+                hd.fields[i][2] = 1
+                hd.fields.insert(i + 1, [f"dq_{k}", 5, abs(v) << 1 | (v < 0)])
+        if any(fl[0] == "filter" for fl in hd.fields):
+            hd.fields[hd.find("filter")][2] = 3
+        out.append((hd.bytes(), key))
+    _webm(os.path.join(OUT, "vp9_headers.webm"), out, 176, 144)
+
+    out, sizes = [], [None] * 8
+    for data, key in _mkv_samples(os.path.join(OUT, "vp9_aq.webm")):
+        hd = Vp9Header(data, sizes)
+        for seg in range(8):
+            name = f"seg_feature_{seg}_1"
+            if any(fl[0] == name for fl in hd.fields):
+                i = hd.find(name)
+                v = 2 * seg - 7
+                hd.fields[i][2] = 1
+                rest = [[f"seg_value_{seg}_1", 6, abs(v)],
+                        [f"seg_sign_{seg}_1", 1, int(v < 0)]]
+                if i + 1 < len(hd.fields) and hd.fields[i + 1][0] == \
+                        f"seg_value_{seg}_1":
+                    hd.fields[i + 1:i + 3] = rest
+                else:
+                    hd.fields[i + 1:i + 1] = rest
+        out.append((hd.bytes(), key))
+    _webm(os.path.join(OUT, "vp9_seg_lf.webm"), out, 176, 144)
+
+    out, sizes = [], [None] * 8
+    for data, key in _mkv_samples(os.path.join(OUT, "vp9_aq.webm")):
+        hd = Vp9Header(data, sizes)
+        if not key and any(fl[0] == "seg_feature_1_2" for fl in hd.fields):
+            i = hd.find("seg_feature_1_2")
+            hd.fields[i][2] = 1
+            hd.fields.insert(i + 1, ["seg_value_1_2", 2, 1])
+            hd.fields[hd.find("seg_feature_2_3")][2] = 1
+        out.append((hd.bytes(), key))
+    _webm(os.path.join(OUT, "vp9_seg_ref_skip.webm"), out, 176, 144)
+
+    out, sizes = [], [None] * 8
+    for n, (data, key) in enumerate(box_frames):
+        if n == 12:
+            hd = Vp9Header(data, sizes)
+            f = hd.fields
+            f[hd.find("frame_type")][2] = 1
+            f[hd.find("show_frame")][2] = 0
+            at = hd.find("sync")
+            f[at:at] = [["intra_only", 1, 1], ["reset_ctx", 2, 3]]
+            del f[hd.find("color_space"):hd.find("color_range") + 1]
+            f.insert(hd.find("w"), ["refresh", 8, 0xFF])
+            show_slot0 = bytes([0b10001000])
+            data, key = _superframe([hd.bytes(), show_slot0]), False
+        out.append((data, key))
+    _webm(os.path.join(OUT, "vp9_intra_only.webm"), out, 176, 144)
+
+
+def _mkv_samples(path: str) -> list:
+    """(frame, keyframe) of each block of a Matroska file."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    box = MkvFile(path)
+    with open(path, "rb") as f:
+        return [(box.sample(f, i), i in box.keyframes)
+                for i in range(len(box.sizes))]
+
+
+def vp9_fixtures() -> None:
+    """The VP9 files: cv2's writer (fourcc VP90), then libvpx's encoder."""
+    moving = moving_clip(144, 176, 26)
+    for ext in ("webm", "mkv", "mp4", "avi"):
+        _cv2_write(os.path.join(OUT, f"vp9_176x144.{ext}"), moving, "VP90")
+    _cv2_write(os.path.join(OUT, "vp9_still_64x48.webm"),
+               moving_clip(48, 64, 1, seed=3) * 14, "VP90")
+    webm = os.path.join(OUT, "vp9_176x144.webm")
+    patch_vp9_size(webm, os.path.join(OUT, "vp9_175x143.webm"), 175, 143)
+    patch_vp9_size(webm, os.path.join(OUT, "vp9_176x143.webm"), 176, 143)
+    im1, im2 = sintel_pair()
+    _cv2_write(os.path.join(OUT, "vp9_sintel_436x1024.webm"),
+               [im1 if i % 2 == 0 else im2 for i in range(13)], "VP90")
+    vpx = Vpx()
+
+    def lib(name, frames, cfg=None, ctrls=None, **kw):
+        planes = [bgr_i420(f) for f in frames]
+        h, w = frames[0].shape[:2]
+        colour = kw.pop("colour_range", None)
+        packets = vpx.encode(planes, w, h, cfg, ctrls, **kw)
+        _webm(os.path.join(OUT, name), packets, w, h, colour_range=colour)
+
+    noise = moving_clip(144, 176, 26, seed=11, speed=3.0)
+    lib("vp9_odd_53x37.webm", moving_clip(37, 53, 26, seed=1, speed=5.0),
+        ctrls=dict(cpu_used=4))
+    lib("vp9_altref.webm", smooth_clip(26), dict(lag=25, kf_max=60,
+                                                 bitrate=200),
+        dict(cpu_used=1, auto_alt_ref=1, frame_parallel=0), two_pass=True)
+    lib("vp9_aq.webm", noise, ctrls=dict(cpu_used=4, aq_mode=3,
+                                         frame_parallel=0))
+    lib("vp9_lossless_64x48.webm", moving_clip(48, 64, 8, seed=14),
+        ctrls=dict(cpu_used=4, lossless=1))
+    lib("vp9_tiles_544x96.webm", moving_clip(96, 544, 14, seed=12),
+        ctrls=dict(cpu_used=4, tile_columns=2, tile_rows=2,
+                   frame_parallel=0))
+    lib("vp9_error_resilient.webm", noise[:13], dict(error_resilient=1),
+        dict(cpu_used=4))
+    short = smooth_clip(6)
+    lib("vp9_full_range.webm", short, ctrls=dict(cpu_used=4, color_space=1,
+                                                 color_range=1))
+    lib("vp9_bt709.webm", short, ctrls=dict(cpu_used=4, color_space=2))
+    lib("vp9_full_range_bt709.webm", short, ctrls=dict(
+        cpu_used=4, color_space=2, color_range=1), colour_range=1)
+    lib("vp9_resize.webm", noise[:12], dict(kf_max=60), dict(cpu_used=4),
+        resize=(6, (128, 96)))
+    vp9_header_fixtures()
 
 
 def sintel_pair() -> list:
@@ -360,6 +1049,12 @@ def sintel_pair() -> list:
 def main() -> None:
     import cv2
     os.makedirs(OUT, exist_ok=True)
+    if sys.argv[1:] != ["--manifest"]:
+        write_files()
+    write_manifest()
+
+
+def write_files() -> None:
     moving = moving_clip(144, 176, 26)
     _cv2_write(os.path.join(OUT, "moving_176x144.mp4"), moving, "mp4v")
     _cv2_write(os.path.join(OUT, "moving_176x144_xvid.avi"), moving, "XVID")
@@ -412,7 +1107,12 @@ def main() -> None:
                moving_clip(144, 176, 4, seed=6), "MJPG")
     _cv2_write(os.path.join(OUT, "mkv_i420_64x48.mkv"),
                moving_clip(48, 64, 4, seed=4), "I420")
+    set_vp8_clamping(webm, os.path.join(OUT, "vp8_clamping.webm"))
+    vp9_fixtures()
 
+
+def write_manifest() -> None:
+    import cv2
     manifest = {"opencv": cv2.__version__, "files": {}}
     for name in sorted(os.listdir(OUT)):
         if name == "manifest.json":
@@ -426,6 +1126,19 @@ def main() -> None:
         }
         if name.startswith("vp8_"):
             manifest["files"][name]["vp8_features"] = _vp8_features(path)
+        if name.startswith("vp9_"):
+            feats, refused = _vp9_features(path)
+            manifest["files"][name]["vp9_features"] = feats
+            if refused:
+                manifest["files"][name]["port_refuses"] = refused
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import ffmpeg_threads
+    from opticalflow_tpu_torch.runtime.vp9 import FEATURES
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("vp9_features", [])}
+    manifest["vp9_unreached"] = [f for f in FEATURES if f not in reached]
+    # cv2's decoder threads: vp8_clamping.webm's digests depend on them
+    manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()
     manifest["ffmpeg"] = " ".join(
         line.split(":", 1)[1].strip() for line in build.splitlines()

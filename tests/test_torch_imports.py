@@ -28,7 +28,7 @@ def test_every_module_imports_without_jax():
               "cli.convert_ckpt", "models.prune", "utils.profiling",
               "utils.debugging", "runtime.jpeg", "runtime._native",
               "runtime.dis", "viz.farneback", "runtime.mpeg4", "io.mp4",
-              "io.avi", "runtime.vp8", "io.mkv"):
+              "io.avi", "runtime.vp8", "io.mkv", "runtime.vp9"):
         assert f"opticalflow_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -110,7 +110,8 @@ def test_package_data_holds_every_file_the_port_opens():
     """An installed (non-editable) package can build its kernels, its host
     library and draw text: every file that ``ops/_build.py`` (the kernels'
     sources and headers), ``runtime/flowviz.py``, ``runtime/jpeg.py`` and
-    ``runtime/dis.py`` and ``runtime/vp8.py`` (their C++ sources),
+    ``runtime/dis.py``, ``runtime/vp8.py`` and ``runtime/vp9.py`` (their
+    C++ sources, and VP9's table header),
     ``runtime/mpeg4.py`` (with ``jpeg.py``, the header they include),
     ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
     table) read is matched by a ``package-data`` pattern of
@@ -119,7 +120,7 @@ def test_package_data_holds_every_file_the_port_opens():
     import tomllib
     from opticalflow_tpu_torch.ops import _build
     from opticalflow_tpu_torch.runtime import _native, dis, flowviz, jpeg, \
-        mpeg4, vp8
+        mpeg4, vp8, vp9
     from opticalflow_tpu_torch.viz import colorwheel, text
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
@@ -127,8 +128,9 @@ def test_package_data_holds_every_file_the_port_opens():
     opened = [str(p) for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
     opened += [str(flowviz._SRC), str(dis._SRC), str(vp8._SRC),
                text.ATLAS_PATH, colorwheel.MAGMA_PATH]
-    opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC)
+    opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC, vp9._SRC)
                       for p in _native.sources(src)})
+    assert any(p.endswith("vp9_tables.h") for p in opened)
     assert any(p.endswith(".cuh") for p in opened)
     assert {os.path.splitext(p)[1] for p in opened} == {
         ".cu", ".cuh", ".cpp", ".h", ".npz"}

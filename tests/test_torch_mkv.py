@@ -252,9 +252,15 @@ def test_blockgroups_and_header_stripping_read_as_cv2(tmp_path):
     (b"V_MPEGH/ISO/HEVC", "HEVC"), (b"V_MPEG2", "MPEG-2"),
     (b"V_FFV1", "FFV1")])
 def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
+    """Codecs the port does not decode, and VP9 in a profile it does not
+    read: a crafted profile-2 (10-bit) key frame."""
+    frames = _webm_frames(2)
+    if codec == b"V_VP9":
+        head = int("10" "01" "0010" + format(0x498342, "024b") + "0" * 8, 2)
+        frames = [head.to_bytes(5, "big") + bytes(16)] * 2
     path = str(tmp_path / "x.mkv")
     with open(path, "wb") as f:
-        f.write(_build(codec, _webm_frames(2)))
+        f.write(_build(codec, frames))
     with pytest.raises(Unsupported, match=f"{name}.*Queue 1 item 8"):
         vio.video_info(path)
 

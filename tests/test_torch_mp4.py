@@ -40,10 +40,12 @@ from make_video_fixtures import moving_clip, zero_planes
 FIXTURES = os.path.join(os.path.dirname(__file__), "goldens", "video")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)["files"]
-# the MP4 and AVI fixtures (VP8 and Matroska: test_torch_vp8.py and
-# test_torch_mkv.py)
+# the MP4 and AVI fixtures, and the VP9 ones the port reads (VP8 and
+# Matroska: test_torch_vp8.py and test_torch_mkv.py; VP9's own checks and
+# refusals: test_torch_vp9.py)
 DECODED = sorted(n for n in MANIFEST if n != "mjpg.avi"
-                 and not n.startswith(("vp8_", "mkv_")))
+                 and not n.startswith(("vp8_", "mkv_"))
+                 and "port_refuses" not in MANIFEST[n])
 MOVING = os.path.join(FIXTURES, "moving_176x144.mp4")
 
 

@@ -31,11 +31,13 @@ from opticalflow_tpu_torch.io import video as vio
 from opticalflow_tpu_torch.io.images import decode_png
 from opticalflow_tpu_torch.io.mkv import MkvFile
 from opticalflow_tpu_torch.runtime import vp8
+from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr
 from make_video_fixtures import moving_clip
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "goldens", "video")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
-    MANIFEST = json.load(_f)["files"]
+    _MANIFEST = json.load(_f)
+MANIFEST = _MANIFEST["files"]
 VP8 = sorted(n for n in MANIFEST if n.startswith("vp8_"))
 WEBM = os.path.join(FIXTURES, "vp8_176x144.webm")
 
@@ -85,7 +87,12 @@ def _samples(path):
 # ---------------------------------------------------------------- fixtures
 
 @pytest.mark.parametrize("name", VP8)
-def test_fixture_frames_equal_cv2_and_the_manifest(name):
+def test_fixture_frames_equal_cv2_and_the_manifest(name, monkeypatch):
+    # the digests were taken with the manifest's FFmpeg threads (the
+    # clamping_type stream's colour depends on them; cv2 and the port both
+    # read OPENCV_FFMPEG_THREADS)
+    monkeypatch.setenv("OPENCV_FFMPEG_THREADS",
+                       str(_MANIFEST["ffmpeg_threads"]))
     path = os.path.join(FIXTURES, name)
     got = list(vio.read_frames(path))
     _same(got, _cv2_frames(path))
@@ -129,6 +136,36 @@ def test_frame_header_sizes_and_keyframes():
     assert vp8.frame_size(frames[1]) is None
     patched = os.path.join(FIXTURES, "vp8_175x143.webm")
     assert vp8.frame_size(_samples(patched)[12]) == (175, 143)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8])
+def test_clamping_type_sets_the_range_of_each_ffmpeg_thread(threads,
+                                                            monkeypatch):
+    """``vp8_clamping.webm`` sets the key frames' clamping_type bit, which
+    FFmpeg takes for full range.  Each of its frame threads keeps the bit
+    of the last key frame it decoded itself, frames going to the threads in
+    turn: one thread converts every frame at full range, eight the key
+    frames' threads' only.  The port follows cv2 at each thread count; the
+    video range it converted at before is off on the full-range frames."""
+    monkeypatch.setenv("OPENCV_FFMPEG_THREADS", str(threads))
+    path = os.path.join(FIXTURES, "vp8_clamping.webm")
+    want = _cv2_frames(path)
+    video = vio.EncodedVideo(path)
+    assert video.threads == threads
+    full = []
+    got = []
+    for _, planes in video.planes():
+        full.append(video.full_range)
+        got.append(i420_to_bgr(*planes, video.full_range))
+    _same(got, want)
+    assert full == [(i % threads) in {k % threads for k in (0, 12, 24)
+                                       if k <= i} for i in range(26)]
+    for i in (i for i, f in enumerate(full) if f):
+        assert not np.array_equal(i420_to_bgr(*_planes(path)[i]), want[i])
+
+
+def _planes(path):
+    return [p for _, p in vio.EncodedVideo(path).planes()]
 
 
 # ------------------------------------------------- hidden and bad frames
