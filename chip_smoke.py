@@ -232,7 +232,26 @@ non-zero, and no result line is printed):
      9-frame VP9 ``.webm``: K1 and B1 5 a step; (e) host ms to decode a
      436x1024 frame on one thread, VP9 beside VP8 and MPEG-4 Part 2 of the
      same frames; (f) no cv2, PIL or jax in ``sys.modules``;
- 21. one JSON line listing every kernel with its launches on its path,
+ 21. MPEG-1 and MPEG-2 read as ``cv2.VideoCapture`` reads them
+     (``runtime/mpeg12.cpp`` behind ``io/mpegps`` and the AVI, Matroska and
+     MP4 demuxers): (a) every ``mpeg1_*``/``mpeg2_*`` fixture the port
+     reads (cv2's writer in four containers, odd-size patches, a still;
+     libavcodec's intra VLC, non-linear quantiser, 9-11-bit DC, BT.709,
+     closed GOPs and low delay; rewritten headers: alternate scan, custom
+     and chroma matrices, broken_link) decodes to its manifest's cv2
+     digests, fps, size and count, every seek the manifest records reads
+     cv2's frame (quirks included), and the interlaced one is refused; (b)
+     ``cli/extract_video --mode arrows --batch 4 --dtype bfloat16`` over
+     the committed 13-frame 436x1024 MPEG-2 ``.mpg``, over a ``.y4m`` of
+     its frames, and from the ``.mpg`` to ``.mkv``: K1 15 a run; (c)
+     ``cli/capture_frame`` at a B-picture (frame 13 of the 176x144
+     ``.mpg``); (d) ``cli/train --regime pseudo`` for 2 steps over the
+     committed 10-frame ``mpeg2_sintel_head_436x1024.mpg`` (the Sintel
+     one's first pictures, a PTS on each): K1 and B1 5 a step;
+     (e) host ms to decode a 436x1024 frame on one thread, MPEG-2 beside
+     MPEG-4 Part 2, VP8 and VP9 of the same frames; (f) no cv2, PIL or jax
+     in ``sys.modules``;
+ 22. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -245,8 +264,9 @@ loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 (K1 and B1, counted in each rank's process from 0), phase 15's JPEG
 paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
-paths, phase 19's VP8 and Matroska paths and phase 20's VP9 paths (K1 in
-the video CLI's runs, K1 and B1 in the pseudo steps).
+paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths and
+phase 21's MPEG-1/2 paths (K1 in the video CLI's runs, K1 and B1 in the
+pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3696,7 +3716,8 @@ def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
     mpeg4_fixtures = {name: want for name, want in manifest["files"].items()
                       if not name.startswith(("mjpg",     # Motion JPEG: [18]
                                               *NEW_VIDEO_FIXTURES,   # [19]
-                                              "vp9_"))}              # [20]
+                                              "vp9_",                # [20]
+                                              "mpeg1_", "mpeg2_"))}  # [21]
     for name, want in sorted(mpeg4_fixtures.items()):
         path = os.path.join(MP4_DIR, name)
         frames = list(vio.read_frames(path))
@@ -4430,6 +4451,220 @@ def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+MPEG12_CLIP = "mpeg2_sintel_436x1024.mpg"
+MPEG12_SEEKS = "mpeg2_176x144.mpg"   # capture_frame's clip: cv2 seeks it
+MPEG12_CAPTURE = 13      # a B-picture (display order I0 B1 B2 P3 ... B13)
+# the pseudo regime's clip: the Sintel clip's first 10 pictures with a PTS
+# on each (every seek exact; cv2's own muxer's seeks near the start read
+# nothing), 9 pairs: 2 pseudo steps at batch 4
+MPEG12_TRAIN = "mpeg2_sintel_head_436x1024.mpg"
+MPEG12_TRAIN_FRAMES = 10
+
+
+def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """MPEG-1 and MPEG-2 through the port's entry points on the card
+    machine: (a) the fixtures (.mpg, .avi, .mkv, .mp4) equal cv2's digests,
+    fps, size and count, and each recorded seek reads cv2's frame; (b) the
+    video CLI over the 436x1024 MPEG-2 .mpg, over a .y4m of its frames and
+    with .mkv out, (c) capture_frame at a B-picture, (d) the pseudo regime
+    over an .mpg, (e) host ms to decode a frame, MPEG-2 beside MPEG-4 Part
+    2, VP8 and VP9 on the same frames, (f) no cv2, PIL or jax imported.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.cli import capture_frame
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.images import decode_png
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    from opticalflow_tpu_torch.io.mpegps import MpegPsFile
+    from opticalflow_tpu_torch.runtime import mpeg12, vp8, vp9
+    from opticalflow_tpu_torch.runtime.mpeg4 import (Decoder, Unsupported,
+                                                      i420_to_bgr)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures: cv2's writer in four containers, the size patches,
+    # libavcodec's tools and the rewritten headers; the interlaced one is
+    # refused
+    t0 = time.perf_counter()
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    new = {n: w for n, w in manifest["files"].items()
+           if n.startswith(("mpeg1_", "mpeg2_"))}
+    n_frames, n_seeks, refused = 0, 0, []
+    for name, want in sorted(new.items()):
+        path = os.path.join(MP4_DIR, name)
+        if "port_refuses" in want:
+            try:
+                list(vio.read_frames(path))
+            except Unsupported:
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name} was read")
+        frames = list(vio.read_frames(path))
+        n_frames += len(frames)
+        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in
+                                        ("fps", "width", "height", "frames")}
+        video = vio.EncodedVideo(path)
+        for t, hit in want["seeks"].items():
+            n_seeks += 1
+            if hit is None:
+                try:
+                    video.frame(int(t))
+                except ValueError:
+                    continue
+                raise AssertionError(f"{name}: seek {t} read a frame")
+            assert pixel_digest(video.frame(int(t))) == \
+                want["sha256"][hit], (name, t)
+    features = sorted({f for w in new.values()
+                       for f in w.get("mpeg12_features", [])})
+    log(f"[21] (a) {len(new) - len(refused)} fixtures (MPEG-1 and MPEG-2 "
+        f"in .mpg/.avi/.mkv/.mp4, odd-size patches, a still, libavcodec's "
+        f"tools and rewritten headers) decoded to cv2.VideoCapture's "
+        f"{n_frames} frame digests and its fps/size/count, {n_seeks} seeks "
+        f"to the frames cv2's read (quirks included) in "
+        f"{time.perf_counter() - t0:.2f} s; refused as item 8: {refused}; "
+        f"features reached: {features}; {card}")
+
+    # (b) the video CLI over the .mpg, the same frames as a .y4m, and the
+    # .mpg again with .mkv out
+    mpg = os.path.join(MP4_DIR, MPEG12_CLIP)
+    frames = list(vio.read_frames(mpg))
+    assert len(frames) == VP8_FRAMES and frames[0].shape == (FULL_H, FULL_W,
+                                                              3)
+    y4m = os.path.join(tmp, "mpeg2.y4m")
+    write_clip(y4m, frames)
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    cli_rows = {}
+    for tag, src, out in (("mpg", mpg, "out_mpg.y4m"),
+                          ("y4m", y4m, "out_y4m.y4m"),
+                          ("mpg_to_mkv", mpg, "out_mpg.mkv")):
+        k0 = corr_fwd.launches
+        row = video_cli([src, os.path.join(tmp, out), "--ckpt", ckpt,
+                         "--mode", "arrows", "--batch", str(VIDEO_B),
+                         "--dtype", "bfloat16", "--device", "cuda"],
+                        VP8_FRAMES, FULL_H, FULL_W)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(VP8_FRAMES - 1) // VIDEO_B), windows
+        assert launched == 5 * windows == 15, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        cli_rows[tag] = row
+        log(f"[21] (b) extract_video --mode arrows B={VIDEO_B} bf16, {tag} "
+            f"({VP8_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+            f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} "
+            f"s); decode thread busy {row['decode_ms']!r} ms a frame "
+            f"({row['decode_share']:.1%}), draw {row['draw_share']:.1%}, "
+            f"encode {row['encode_share']:.1%}; {windows} windows, K1 "
+            f"{launched} launches; {card}")
+    launches["cli"] = sum(r["k1_launches"] for r in cli_rows.values())
+
+    # (c) capture_frame at a B-picture of the 176x144 MPEG-2 .mpg (cv2's
+    # seeks in the Sintel .mpg read nothing past frame 0)
+    seeks = os.path.join(MP4_DIR, MPEG12_SEEKS)
+    png = os.path.join(tmp, "mpeg2_frame.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert capture_frame.main([seeks, str(MPEG12_CAPTURE), png]) == 0
+    with open(png, "rb") as f:
+        got = decode_png(f.read())[..., ::-1]
+    box = MpegPsFile(seeks)
+    assert box.types[vio.EncodedVideo(seeks).display.index(
+        MPEG12_CAPTURE)] == 3
+    want = new[MPEG12_SEEKS]
+    assert pixel_digest(got) == want["sha256"][
+        want["seeks"][str(MPEG12_CAPTURE)]]
+    log(f"[21] (c) capture_frame at frame {MPEG12_CAPTURE} (a B-picture) of "
+        f"{MPEG12_SEEKS} equals cv2.VideoCapture's digest")
+
+    # (d) the pseudo regime over the Sintel clip's first 10 pictures
+    train_mpg = os.path.join(MP4_DIR, MPEG12_TRAIN)
+    assert vio.video_info(train_mpg)["frames"] == MPEG12_TRAIN_FRAMES
+    out_dir = os.path.join(tmp, "mpeg2_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_mpg, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (MPEG12_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[21] (d) cli/train --regime pseudo over an MPEG-2 .mpg of "
+        f"{MPEG12_TRAIN_FRAMES} frames ({FULL_H}x{FULL_W} -> 384x512), "
+        f"{steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+
+    # (e) host ms a 436x1024 frame on one thread: MPEG-2 decode beside
+    # MPEG-4 Part 2's (the port's encoder over the same frames), VP8's
+    # and VP9's (the committed WebMs of the Sintel pair), each to planes,
+    # then swscale's conversion to BGR
+    mp4 = os.path.join(tmp, "mpeg2_frames.mp4")
+    wr = vio.Mpeg4Writer(mp4, 25.0, (FULL_W, FULL_H))
+    for fr in frames:
+        wr.write(fr)
+    wr.release()
+    host = {}
+    for codec, box, dec in (
+            ("mpeg2", MpegPsFile(mpg), None),
+            ("mpeg4", vio.EncodedVideo(mp4).box, None),
+            ("vp8", MkvFile(os.path.join(MP4_DIR, VP8_CLIP)), vp8.Decoder),
+            ("vp9", MkvFile(os.path.join(MP4_DIR, VP9_CLIP)), vp9.Decoder)):
+        with open(box.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
+        make = dec or (mpeg12.Decoder if codec == "mpeg2" else
+                       (lambda b=box: Decoder(b.dsi, what=b.path)))
+        make().decode(samples[0])                 # the library is loaded
+        t0 = time.perf_counter()
+        for _ in range(VP8_TIMED):
+            d = make()
+            planes = [d.decode(s) for s in samples]
+            if codec == "mpeg2":               # pictures come a packet late
+                planes = [p[0] for p in planes if p] + d.flush()
+        t1 = time.perf_counter()
+        for _ in range(VP8_TIMED):
+            for p in planes:
+                i420_to_bgr(*p)
+        t2 = time.perf_counter()
+        n = VP8_TIMED * VP8_FRAMES
+        assert len(planes) == VP8_FRAMES, (codec, len(planes))
+        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
+                       "convert_ms": (t2 - t1) / n * 1e3,
+                       "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES}
+    m2, m4, v8, v9 = (host[c] for c in ("mpeg2", "mpeg4", "vp8", "vp9"))
+    log(f"[21] (e) host ms a {FULL_H}x{FULL_W} frame on one thread: MPEG-2 "
+        f"decode {m2['decode_ms']!r} ({m2['bytes_a_frame']:.0f} bytes a "
+        f"frame), MPEG-4 Part 2 {m4['decode_ms']!r} "
+        f"({m4['bytes_a_frame']:.0f} bytes), VP8 {v8['decode_ms']!r} "
+        f"({v8['bytes_a_frame']:.0f} bytes), VP9 {v9['decode_ms']!r} "
+        f"({v9['bytes_a_frame']:.0f} bytes); conversion to BGR "
+        f"{m2['convert_ms']!r}; {card}")
+
+    # (f) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[21] (f) cv2, PIL, jax not imported; phase 21 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new) - len(refused), "refused": refused,
+            "seeks": n_seeks, "features": features, "cli": cli_rows,
+            "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4603,6 +4838,16 @@ def main() -> int:
     assert vp9_launches == correlation_cuda.launches > 0
     assert vp9["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the MPEG-1/2 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        m12 = phase_mpeg12(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                           card_line())
+    # ... and end here: the video CLI's runs and the pseudo steps
+    m12_launches = m12["launches"]["cli"] + \
+        m12["launches"]["pseudo"]["correlation_fwd"]
+    assert m12_launches == correlation_cuda.launches > 0
+    assert m12["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -4656,7 +4901,11 @@ def main() -> int:
          # phase 20: the video CLI over the 436x1024 VP9 WebM (to .y4m and
          # to .mkv) and a .y4m of its frames, and the pseudo steps over a
          # VP9 .webm (5 a window, 5 a step)
-         "launches_vp9": vp9_launches, "vp9": vp9},
+         "launches_vp9": vp9_launches, "vp9": vp9,
+         # phase 21: the video CLI over the 436x1024 MPEG-2 .mpg (to .y4m
+         # and to .mkv) and a .y4m of its frames, and the pseudo steps over
+         # an MPEG-2 .mpg (5 a window, 5 a step)
+         "launches_mpeg12": m12_launches, "mpeg12": m12},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -4690,7 +4939,9 @@ def main() -> int:
          # phase 19: the pseudo regime's steps over a .webm
          "launches_vp8": vp8["launches"]["pseudo"]["correlation_bwd"],
          # phase 20: the pseudo regime's steps over a VP9 .webm
-         "launches_vp9": vp9["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_vp9": vp9["launches"]["pseudo"]["correlation_bwd"],
+         # phase 21: the pseudo regime's steps over an MPEG-2 .mpg
+         "launches_mpeg12": m12["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -2,9 +2,11 @@
 ``capture_frame.py`` capability), without OpenCV.
 
 Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is an
-``.mp4``, ``.avi``, ``.mkv`` or ``.webm`` file (MPEG-4 Part 2, VP8 or VP9,
-decoded from the keyframe before the frame, as FFmpeg's seek does; Motion
-JPEG), a ``.y4m`` file, an image
+``.mp4``, ``.avi``, ``.mkv`` or ``.webm`` file (MPEG-4 Part 2, MPEG-1/2,
+VP8 or VP9, decoded from the keyframe before the frame, as FFmpeg's seek
+does; Motion JPEG), an MPEG program stream (``.mpg``, ``.mpeg``, ``.vob``:
+the frame OpenCV's seek reads, its quirks included), a ``.y4m`` file, an
+image
 sequence named by a pattern (``frames/%06d.jpg``, read as
 ``cv2.VideoCapture`` reads it) or a directory of PNG or JPEG frames
 (``io/video.py``)::
@@ -22,8 +24,8 @@ import sys
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
     p.add_argument("video", help=".mp4, .avi, .mkv, .webm (MPEG-4 Part 2, "
-                                 "VP8, VP9 or Motion JPEG) or .y4m file, "
-                                 "image "
+                                 "MPEG-1/2, VP8, VP9 or Motion JPEG), "
+                                 ".mpg/.mpeg/.vob or .y4m file, image "
                                  "sequence pattern "
                                  "(frames/%%06d.jpg) or PNG/JPEG frame "
                                  "directory")

@@ -14,8 +14,8 @@ PNG reader; batching and prefetch live in ``data/loader.py``.
   * :class:`SintelPairs` — MPI-Sintel clean/final with ``.flo`` GT;
   * :class:`ConsecutiveFrames` — frame_t/frame_{t+stride} pairs from a
     directory of frames or a video source (``.mp4``/``.avi``/``.mkv``/
-    ``.webm``: MPEG-4 Part 2, VP8, VP9 or Motion JPEG; ``.y4m``, an image
-    sequence pattern) for
+    ``.webm``: MPEG-4 Part 2, MPEG-1/2, VP8, VP9 or Motion JPEG; ``.mpg``/
+    ``.mpeg``/``.vob``; ``.y4m``, an image sequence pattern) for
     self-supervised training (``train_pseudo.py:23-62``); H.264 and other
     codecs are not read (ROADMAP Queue 1 item 8).
 
@@ -221,10 +221,12 @@ class ConsecutiveFrames:
     class).  What the JAX class hands to ``cv2.VideoCapture`` is read as
     that reads it: a ``.y4m`` file and an image sequence (a pattern such as
     ``frames/%06d.jpg``, ``io/video.ImageSequence``) by frame index; an
-    ``.mp4``, ``.avi``, ``.mkv`` or ``.webm`` (MPEG-4 Part 2, VP8, VP9 or
-    Motion JPEG, ``io/video.EncodedVideo``) with one open decoder, in order without
-    seeking, the last few frames cached for the pairs' overlap, as the JAX
-    class keeps one ``cv2.VideoCapture``.  Other codecs (H.264, ...) raise,
+    ``.mp4``, ``.avi``, ``.mkv``, ``.webm`` (MPEG-4 Part 2, MPEG-1/2, VP8,
+    VP9 or Motion JPEG) or MPEG program stream (``io/video.EncodedVideo``)
+    with one open decoder, in order without seeking, the last few frames
+    cached for the pairs' overlap, as the JAX class keeps one
+    ``cv2.VideoCapture`` (a seek reads the frame OpenCV's would, quirks
+    included).  Other codecs (H.264, ...) raise,
     naming ROADMAP Queue 1 item 8."""
 
     def __init__(self, source: str, size_hw: Tuple[int, int] = (384, 512),

@@ -13,9 +13,13 @@ picks the codec:
   * Motion JPEG (``MJPG``, ``mjpg``): one JPEG a chunk, every frame a
     keyframe, decoded by ``runtime/jpeg``'s FFmpeg flavour;
   * raw I420 (``I420``, ``IYUV``): Y, U and V planes;
-  * VP8 (``VP80``): decoded by ``runtime/vp8``, a key frame a keyframe.
+  * VP8 (``VP80``): decoded by ``runtime/vp8``, a key frame a keyframe;
+  * MPEG-1 and MPEG-2 (``PIM1``, ``mpg1``, ``mpg2``, ``MPEG``, ...: the
+    tags FFmpeg's ``riff.c`` maps to ``mpeg1video``/``mpeg2video``, in any
+    case): decoded by ``runtime/mpeg12``.
 
-Anything else (``H264``, ...) raises ``Unsupported``, naming ROADMAP
+Anything else (``H264``, Matrox's intra-only ``M701``-``M705``,
+``slif``, ...) raises ``Unsupported``, naming ROADMAP
 Queue 1 item 8.  fps is ``rate / scale`` of the stream header, the frame
 count the number of the stream's chunks, as ``cv2.VideoCapture`` reports
 them.
@@ -35,14 +39,19 @@ from typing import BinaryIO, List, Optional, Tuple
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
-__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "RAW_TAGS",
-           "VP8_TAGS", "VP9_TAGS", "codec_of"]
+__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "MPEG12_TAGS",
+           "RAW_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
 MJPEG_TAGS = {"MJPG", "mjpg"}
 RAW_TAGS = {"I420", "IYUV"}
 VP8_TAGS = {"VP80"}
 VP9_TAGS = {"VP90"}
+# FFmpeg's BITMAPINFOHEADER tags of mpeg1video and mpeg2video (riff.c),
+# which it matches without regard to case
+MPEG12_TAGS = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2", "VCR2",
+               "\x01\x00\x00\x10", "\x02\x00\x00\x10", "DVR ", "MMES",
+               "LMP2", "EM2V", "MPGV", "BW10", "XMPG"}
 _NAMES = {"H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
@@ -195,7 +204,8 @@ class AviFile:
 
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
-    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8`` or ``vp9``; anything else raises
+    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9`` or ``mpeg12``; anything
+    else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -207,11 +217,12 @@ def codec_of(tag: str, what: str) -> str:
         return "vp8"
     if tag in VP9_TAGS:
         return "vp9"
+    if tag.upper() in MPEG12_TAGS:
+        return "mpeg12"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
-                      f"reads MPEG-4 Part 2, Motion JPEG, raw I420, VP8 and "
-                      f"VP9 "
-                      f"only ({ITEM_8})")
+                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, Motion JPEG, raw "
+                      f"I420, VP8 and VP9 only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

@@ -413,7 +413,7 @@ def resize_bilinear_f32(img: np.ndarray, height: int,
     ``t``; a tap left of the first pixel or at or right of the last takes
     that pixel whole (``t = 0``), on both axes; rows first, then columns,
     each ``fma(p1 - p0, t, p0)``, but for the columns of an edge run that
-    ``_ipp_unfused_columns`` names (3 and 4 channels).  OpenCV's own: the
+    ``_ipp_unfused_columns`` names (3 and 4 channels, every upscale).  OpenCV's own: the
     position rounded to float32 first, float32 weights ``1 - t, t``; along
     a row the same edge rule, down the columns the two rows clamped into
     the image with the weights left as they are."""
@@ -449,13 +449,13 @@ def resize_bilinear_f32(img: np.ndarray, height: int,
 def _ipp_unfused_columns(w: int, width: int, channels: int):
     """Where IPP's vertical pass rounds the product and the sum apart
     (``p0 + (p1 - p0)·t``, no fused multiply-add), as OpenCV 5's bundled
-    IPP does for 3- and 4-channel float32: the columns of a run of 5 to 16
-    output columns at either edge whose taps lie outside the image (an
-    upscale of 10× to 32×; 5 to 15 columns at 3 channels), all channels at
-    4, the first two at 3: (column indices (n, 1), channel indices), or
-    None.
-    Longer runs (above 32×) follow no rule found: they keep the fused
-    form."""
+    IPP does for 3- and 4-channel float32 in the runs of output columns at
+    either edge whose taps lie outside the image (an upscale above 10×).
+    IPP takes such a run in blocks of 16 columns from its left end: a full
+    block rounds apart at 4 channels and fuses at 3; the last, shorter
+    block of 5 to 15 columns rounds apart (all channels at 4, the first two
+    at 3), one of 1 to 4 fuses.  Returns (column indices (n, 1), channel
+    indices), or None."""
     if channels not in (3, 4) or width == w:
         return None
     sx, _ = _linear_taps(w, width, True)
@@ -464,12 +464,17 @@ def _ipp_unfused_columns(w: int, width: int, channels: int):
         return None
     left = int(np.argmin(edge))
     right = int(np.argmin(edge[::-1]))
-    top = 16 if channels == 4 else 15
+
+    def run(n: int) -> np.ndarray:
+        full = n // 16 * 16
+        m = np.zeros(n, bool)
+        m[:full] = channels == 4
+        m[full:] = n - full >= 5
+        return m
+
     mask = np.zeros(width, bool)
-    if 5 <= left <= top:
-        mask[:left] = True
-    if 5 <= right <= top:
-        mask[width - right:] = True
+    mask[:left] = run(left)
+    mask[width - right:] = run(right)
     if not mask.any():
         return None
     return np.nonzero(mask)[0][:, None], np.arange(2 if channels == 3 else 4)

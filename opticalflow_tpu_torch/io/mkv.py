@@ -18,12 +18,14 @@ needed.  The codecs, by ``CodecID``:
   * ``V_VP9``: ``runtime/vp9`` (profile 0);
   * ``V_MPEG4/ISO/SP``, ``/ASP``, ``/AP``: ``runtime/mpeg4``, the VOL in
     ``CodecPrivate`` (what ``cv2.VideoWriter`` writes with ``mp4v``);
+  * ``V_MPEG1``, ``V_MPEG2``: ``runtime/mpeg12``, the sequence header in
+    ``CodecPrivate``;
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
     ``io/avi``'s fourcc rules.
 
-Other codecs (H.264, HEVC, AV1, MPEG-2, FFV1, ...), zlib-compressed
+Other codecs (H.264, HEVC, AV1, FFV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
 ROADMAP Queue 1 item 8; header stripping is applied.
 
@@ -78,8 +80,7 @@ LANGUAGE = 0x22B59C
 _TOP = {SEEKHEAD, INFO, TRACKS, CLUSTER, CUES, TAGS, CHAPTERS, ATTACHMENTS}
 _MPEG4_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 _NAMES = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
-          "V_MPEGH/ISO/HEVC": "HEVC", "V_MPEG2": "MPEG-2", "V_MPEG1": "MPEG-1",
-          "V_FFV1": "FFV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
+          "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_REAL/RV40": "RealVideo"}
 
 
@@ -346,6 +347,8 @@ class MkvFile:
             self.codec, self.tag = "vp9", "VP90"
         elif codec in _MPEG4_IDS:
             self.codec, self.tag = "mpeg4", "mp4v"
+        elif codec in ("V_MPEG1", "V_MPEG2"):
+            self.codec, self.tag = "mpeg12", codec
         elif codec == "V_MJPEG":
             self.codec, self.tag = "mjpeg", "MJPG"
         elif codec == "V_UNCOMPRESSED":
@@ -368,8 +371,8 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, Motion JPEG and raw I420 in Matroska "
-                              f"only ({ITEM_8})")
+                              f"Part 2, MPEG-1, MPEG-2, Motion JPEG and raw "
+                              f"I420 in Matroska only ({ITEM_8})")
 
     def _colour(self, colour: Dict[int, bytes]) -> None:
         """The Colour element as FFmpeg hands it to the decoder: Range 2 is

@@ -4,8 +4,9 @@ Part 2 and Motion JPEG paths, in Python (no FFmpeg).
 :class:`Mp4File` reads the first video track: ``ftyp``, ``moov`` before or
 after ``mdat``, ``trak/mdia/minf/stbl`` (``stsd`` with its ``mp4v`` entry
 and the ``esds``: objectTypeIndication 0x20, MPEG-4 Visual, with its
-DecoderSpecificInfo, or 0x6C, Motion JPEG, what ``cv2.VideoWriter`` writes
-for fourcc ``MJPG`` in ``.mp4``; ``stts``, ``stss``, ``stsc``,
+DecoderSpecificInfo; 0x6C, Motion JPEG, what ``cv2.VideoWriter`` writes
+for fourcc ``MJPG`` in ``.mp4``; 0x6A, MPEG-1, and 0x60-0x65, MPEG-2,
+what it writes for ``PIM1`` and ``MPG2``; ``stts``, ``stss``, ``stsc``,
 ``stsz``, ``stco``/``co64``), the ``mdhd`` timescale and the ``elst`` as
 FFmpeg applies it to these files (empty and zero-offset edits change no
 frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
@@ -40,7 +41,10 @@ VIDEO_CODECS = {
     "jpeg": "Motion JPEG", "mp4v": "MPEG-4 Part 2",
 }
 # esds objectTypeIndication → the codec it names
-_OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg"}
+# objectTypeIndication: MPEG-4 Visual, Motion JPEG, MPEG-1 Visual and the
+# MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
+_OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6A: "mpeg12",
+               **{oti: "mpeg12" for oti in range(0x60, 0x66)}}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -113,7 +117,8 @@ def _esds(body: bytes, what: str) -> Tuple[str, bytes]:
     if codec is None:
         raise Unsupported(f"{what}: mp4v track of objectTypeIndication "
                           f"0x{oti:02x}: the port decodes MPEG-4 Part 2 "
-                          f"(0x20) and Motion JPEG (0x6c) only ({ITEM_8})")
+                          f"(0x20), MPEG-2 (0x60-0x65), MPEG-1 (0x6a) and "
+                          f"Motion JPEG (0x6c) only ({ITEM_8})")
     p += 13
     if p < dend:
         tag, p, e = _descriptor(es, p)
@@ -180,10 +185,8 @@ class Mp4File:
                                        mdhd[8:12])[0]
         if not self.timescale:
             raise ValueError(f"{self.path}: mdhd timescale 0")
-        if "edts" in kids:
-            elst = self._children(f, *kids["edts"]).get("elst")
-            if elst:
-                self._check_edits(self._read(f, elst))
+        elst = (self._children(f, *kids["edts"]).get("elst")
+                if "edts" in kids else None)
         stbl = self._children(f, *self._children(f, *mdia["minf"])["stbl"])
         for need in ("stsd", "stts", "stsc", "stsz"):
             if need not in stbl:
@@ -211,15 +214,42 @@ class Mp4File:
                 i - 1 for i in struct.unpack(f">{cnt}I", b[4:4 + 4 * cnt]))
         else:
             self.keyframes = list(range(n))
+        if elst:
+            self._check_edits(self._read(f, elst),
+                              self._first_shown(f, stbl.get("ctts")))
 
-    def _check_edits(self, body: bytes) -> None:
+    def _first_shown(self, f, ctts) -> int:
+        """The composition time of the first picture shown (0 without a
+        ``ctts``): where the mov muxer's edit list starts a track whose
+        pictures are reordered or delayed (MPEG-1/2)."""
+        if not ctts:
+            return 0
+        _, b = _full(self._read(f, ctts))
+        cnt = struct.unpack(">I", b[:4])[0]
+        dts, best = 0, None
+        k = 0
+        for j in range(cnt):
+            run, off = struct.unpack(">Ii", b[4 + 8 * j:12 + 8 * j])
+            for _ in range(run):
+                if k >= len(self.durations):
+                    break
+                t = dts + off
+                best = t if best is None else min(best, t)
+                dts += self.durations[k]
+                k += 1
+        return best or 0
+
+    def _check_edits(self, body: bytes, shown: int = 0) -> None:
         ver, b = _full(body)
         cnt = struct.unpack(">I", b[:4])[0]
         step = 20 if ver else 12
         fmt = ">QqI" if ver else ">IiI"
         media = [struct.unpack(fmt, b[4 + i * step:4 + (i + 1) * step])[1]
                  for i in range(cnt)]
-        if len([m for m in media if m != -1]) > 1 or any(m > 0 for m in media):
+        # an edit that starts at the first picture shown changes no frame
+        if len([m for m in media if m != -1]) > 1 or any(
+                m > 0 and not (self.codec == "mpeg12" and m == shown)
+                for m in media):
             raise Unsupported(f"{self.path}: an edit list that starts the "
                               "track past its first sample or splices it; "
                               f"not read by the port ({ITEM_8})")

@@ -1,5 +1,5 @@
 """Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.mkv``,
-``.webm``, ``.y4m``, image sequences and frame directories.
+``.webm``, ``.mpg``, ``.y4m``, image sequences and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -22,6 +22,15 @@ muxers and codecs and reads what those read, frame for frame:
     as cv2's writer does; an odd side cropped to even, as it does),
     ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, AV1,
     VP9 profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
+  * **MPEG-1 and MPEG-2** (``PIM1``, ``mpg1``, ``mpg2``, ... in AVI,
+    ``V_MPEG1``/``V_MPEG2`` in Matroska, ``mp4v`` with objectTypeIndication
+    0x6A or 0x60-0x65 in MP4, and **MPEG program streams**: ``.mpg``,
+    ``.mpeg``, ``.vob``; ``io/mpegps``), decoded by ``runtime/mpeg12``
+    bit-exactly to FFmpeg, pictures in display order; a seek reads the frame
+    ``cv2.VideoCapture``'s seek reads, its quirks included
+    (:meth:`EncodedVideo.seek_target`).  Interlaced coding, 4:2:2/4:4:4
+    and scalable streams raise, naming item 8; program streams are read,
+    not written;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
@@ -59,6 +68,8 @@ from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
+from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
+from opticalflow_tpu_torch.io.mpegps import MpegPsFile
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
@@ -66,6 +77,10 @@ from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
                                                   to_i420)
+from opticalflow_tpu_torch.runtime.mpeg12 import CHROMA_SITE as MPEG12_SITE
+from opticalflow_tpu_torch.runtime.mpeg12 import Decoder as Mpeg12Decoder
+from opticalflow_tpu_torch.runtime.mpeg12 import (display_order, output_order,
+                                                  picture_info, sequence_info)
 from opticalflow_tpu_torch.runtime.vp8 import Decoder as Vp8Decoder
 from opticalflow_tpu_torch.runtime.vp8 import frame_size as vp8_frame_size
 from opticalflow_tpu_torch.runtime.vp9 import MATRICES as VP9_MATRICES
@@ -78,11 +93,14 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
            "is_sequence", "ffmpeg_threads"]
 
-FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, VP8, VP9 or "
-           "Motion JPEG; raw I420 in .avi and .mkv), a .y4m file (YUV4MPEG2, "
-           "8-bit 4:2:0), an image sequence named by a pattern "
-           "(frames/%06d.jpg; JPEG or PNG) or one image file, or a directory "
-           "of PNG or JPEG frames")
+FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, MPEG-1, "
+           "MPEG-2, VP8, VP9 or Motion JPEG; raw I420 in .avi and .mkv), an "
+           "MPEG program stream (.mpg, .mpeg, .vob: MPEG-1 or MPEG-2), a .y4m "
+           "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
+           "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
+           "directory of PNG or JPEG frames")
+WRITES = (".mp4, .avi or .mkv (MPEG-4 Part 2), .y4m, or a directory of PNG "
+          "frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
 # yuv4mpegdec's chroma location of each tag (none without a C tag)
@@ -93,7 +111,7 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
 _MP4_EXTS = (".mp4", ".m4v", ".mov")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-_ENCODED = ("mp4", "avi", "mkv")
+_ENCODED = ("mp4", "avi", "mkv", "mpg")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
@@ -141,6 +159,11 @@ def _kind(path: str, writing: bool = False) -> str:
         return "mp4"
     if low.endswith(".avi"):
         return "avi"
+    if low.endswith(_MPG_EXTS):
+        if writing:
+            raise ValueError(f"cannot write {path!r}: the port writes "
+                             f"{WRITES}, not MPEG program streams")
+        return "mpg"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
             raise ValueError(
@@ -258,8 +281,10 @@ class Y4MFile:
 
 class EncodedVideo:
     """The video track of an ``.mp4``, ``.avi``, ``.mkv`` or ``.webm``
-    file: its size, fps and frame count as ``cv2.VideoCapture`` reports
-    them, and its frames.
+    file, or an MPEG program stream: its size, fps and frame count as
+    ``cv2.VideoCapture`` reports them, and its frames (in display order:
+    an MPEG-1/2 stream's pictures come out reordered, as FFmpeg hands them
+    over).
 
     Iterating decodes every frame in turn (BGR); :meth:`frame` seeks: it
     decodes from the last keyframe at or before the index (``stss`` /
@@ -274,7 +299,8 @@ class EncodedVideo:
         self.path = path
         kind = _kind(path)
         self.box = box = (Mp4File(path) if kind == "mp4" else
-                          MkvFile(path) if kind == "mkv" else AviFile(path))
+                          MkvFile(path) if kind == "mkv" else
+                          MpegPsFile(path) if kind == "mpg" else AviFile(path))
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
         # the samples decoding walks: all of them, as cv2.VideoCapture.read
@@ -301,6 +327,8 @@ class EncodedVideo:
                 raise ValueError(f"{path}: the first {box.codec.upper()} "
                                  "keyframe has no key frame header")
             self.width, self.height = size
+        elif box.codec == "mpeg12":
+            self._mpeg12_layout()
         elif box.codec == "mjpeg":
             with open(path, "rb") as f:
                 self.height, self.width = jpeg_size(box.sample(f, 0),
@@ -320,18 +348,104 @@ class EncodedVideo:
         # the matrix (VP8's and VP9's from their frame headers, as planes()
         # decodes them; else Matroska's Range and BT.601)
         self.chroma = (CHROMA_SITES["left"] if box.codec == "mpeg4" else
+                       MPEG12_SITE[self.mpeg2] if box.codec == "mpeg12" else
                        getattr(box, "chroma_site", None))
         self.full_range = box.codec != "vp8" and getattr(box, "full_range",
                                                          False)
         self.matrix = "bt601"
         self.threads = ffmpeg_threads()
         self._gen = None
-        self._next = -1
+        self._next = 0      # a capture just opened reads frame 0 unsought
 
     def __len__(self) -> int:
         return self.frames
 
+    def _mpeg12_layout(self) -> None:
+        """An MPEG-1/2 stream's size, and the display index of each sample
+        (pictures come out of FFmpeg's decoder in display order, B-pictures
+        before the reference decoded ahead of them): what frame indices,
+        keyframes and seeks are counted in."""
+        box = self.box
+        types, closed = [], []
+        with open(self.path, "rb") as f:
+            for i in range(self.samples):
+                t, c = picture_info(box.sample(f, i))
+                types.append(t)
+                closed.append(c)
+            first = box.sample(f, 0)
+        seq = sequence_info(box.dsi, self.path) or sequence_info(first,
+                                                                 self.path)
+        if seq is None:
+            raise ValueError(f"{self.path}: MPEG-1/2 video without a "
+                             "sequence header")
+        self.width, self.height, self.mpeg2 = seq.width, seq.height, seq.mpeg2
+        self.types, self.closed, self.low_delay = types, closed, seq.low_delay
+        self.display = display_order(types, closed, seq.low_delay)
+        self.shown = sum(d is not None for d in self.display)
+        # a seek decodes from the last I-picture at or before the frame
+        self.keyframes = [i for i, t in enumerate(types)
+                          if t == 1 and self.display[i] is not None] or [0]
+        self._key_display = [self.display[i] for i in self.keyframes]
+
+    def seek_target(self, index: int) -> Optional[int]:
+        """The frame ``cv2.VideoCapture`` returns after a
+        ``CAP_PROP_POS_FRAMES`` seek to ``index`` of an MPEG-1/2 stream:
+        OpenCV clamps the index to its frame count; in AVI, where FFmpeg
+        stamps an I- or P-picture with the packet that hands it over (one
+        late, without B-pictures to reorder around), every seek from frame
+        2 on lands one frame early; in a program stream the seek follows
+        FFmpeg's index of PES timestamps (:meth:`_ps_seek`).  Other codecs
+        seek exactly."""
+        if self.box.codec != "mpeg12":
+            return index
+        index = min(index, self.frames)
+        if isinstance(self.box, MpegPsFile):
+            return self._ps_seek(index)
+        if (isinstance(self.box, AviFile) and index >= 2
+                and 3 not in self.types):
+            index -= 1
+        return index
+
+    def _ps_seek(self, target: int) -> Optional[int]:
+        """OpenCV's seek (``CvCapture_FFMPEG::seek``) in a program stream:
+        it asks FFmpeg for the time ``delta`` frames before the target
+        (16, then more while it lands past it); FFmpeg goes to the last PES
+        packet whose DTS (else PTS) is at or before that time, and its
+        decoder, flushed, drops what it cannot decode until an I-picture
+        or GOP header; OpenCV numbers the first picture that comes out by
+        its time and reads on, one picture at a time, to the target.  None
+        where the read after the seek finds no picture."""
+        box = self.box
+        index = sorted((p.dts, p.es) for p in box.pes if p.dts is not None)
+        stamps = [d for d, _ in index]
+        start = box.start_time or 0
+        first = next((d for d in self.display if d is not None), 0)
+        delta = 16
+        while True:
+            temp = max(target - delta, 0)
+            ts = start + int(temp / box.fps * 90000 + 0.5)
+            j = bisect_right(stamps, ts) - 1
+            land = index[j][1] if j >= 0 else 0
+            s0 = next((i for i, o in enumerate(box.pictures) if o >= land),
+                      len(box.pictures))
+            closed = [c if box.starts[i] >= land else None
+                      for i, c in enumerate(self.closed[s0:], s0)]
+            out = [self.display[s0 + i] for i in output_order(
+                self.types[s0:], closed, self.low_delay)]
+            pick = (lambda n: out[n] if n < len(out) else None)  # noqa: E731
+            if target < 2 or not out:
+                return pick(target)
+            got = out[0] - first
+            if got < 0 or got > target - 1:
+                if temp == 0:
+                    return pick(1)
+                delta = delta * 2 if delta < 16 else delta * 3 // 2
+                continue
+            return pick(target - got)
+
     def _decoder(self):
+        if self.box.codec == "mpeg12":
+            return Mpeg12Decoder(what=self.path, extradata=self.box.dsi)
         if self.box.codec == "vp8":
             return Vp8Decoder(what=self.path)
         if self.box.codec == "vp9":
@@ -357,6 +471,9 @@ class EncodedVideo:
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
                              f"{self.samples}")
+        if self.box.codec == "mpeg12":
+            yield from self._mpeg12_planes(start)
+            return
         k = self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)]
         with open(self.path, "rb") as f:
             if self.box.codec == "i420":
@@ -393,6 +510,41 @@ class EncodedVideo:
                 if p is not None and i >= start:
                     yield i, p
 
+    def _mpeg12_planes(self, start: int) -> Iterator[Tuple[int, tuple]]:
+        """(display index, planes) of an MPEG-1/2 stream from display index
+        ``start`` on, decoded from the I-picture before it."""
+        if not 0 <= start < self.shown:
+            raise IndexError(f"frame {start} of {self.path}, which shows "
+                             f"{self.shown}")
+        j = max(bisect_right(self._key_display, start) - 1, 0)
+        k = self.keyframes[j]
+        # the pictures a decoder started at sample k hands over, as
+        # output_order plans them (open-GOP B-pictures before the first
+        # reference dropped): the decoder must hand over exactly these
+        plan = iter(output_order(self.types[k:], self.closed[k:],
+                                 self.low_delay))
+        dec = self._decoder()
+        with open(self.path, "rb") as f:
+            for i in range(k, self.samples + 1):
+                out = (dec.decode(self.box.sample(f, i)) if i < self.samples
+                       else dec.flush())
+                self.matrix = dec.matrix
+                for p, serial in zip(out, dec.serials):
+                    want = next(plan, None)
+                    d = None if want is None else self.display[k + want]
+                    if serial != want or d is None:
+                        raise ValueError(
+                            f"{self.path}: the decoder handed over picture "
+                            f"{k + serial} of decode order where FFmpeg's "
+                            f"output order has "
+                            f"{'none' if want is None else k + want}")
+                    if d >= start:
+                        yield d, p
+        left = next(plan, None)
+        if left is not None:
+            raise ValueError(f"{self.path}: the decoder never handed over "
+                             f"picture {k + left} of decode order")
+
     def _decoded(self, start: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, BGR frame) of each picture from frame ``start`` on."""
         if self.box.codec != "mjpeg":
@@ -413,31 +565,49 @@ class EncodedVideo:
             yield frame
 
     def frame(self, index: int) -> np.ndarray:
-        """BGR frame ``index``, decoded from the keyframe before it."""
-        with closing(self._decoded(index)) as it:
+        """BGR frame ``index``, decoded from the keyframe before it: the
+        frame a ``CAP_PROP_POS_FRAMES`` seek to ``index`` reads
+        (:meth:`seek_target`)."""
+        target = self.seek_target(index)
+        if target is None:
+            raise ValueError(f"{self.path}: a seek to frame {index} reads no "
+                             "frame (OpenCV's VideoCapture reads none either)")
+        with closing(self._decoded(target)) as it:
             for _, frame in it:
                 return frame
         raise ValueError(f"{self.path}: frame {index} did not decode")
 
     def read(self, index: int) -> np.ndarray:
         """BGR frame ``index`` through one open decoder: the next frame in
-        order costs one decode; any other index seeks."""
-        if self._gen is None or index != self._next:
+        order costs one decode, as does frame 0 of a capture just opened
+        (cv2 reads it without a seek, where an MPEG-1/2 seek to 0 may land
+        elsewhere); any other index seeks (as :meth:`frame`)."""
+        if self._gen is None and index == self._next == 0:
+            self._gen = self._decoded(0)
+        elif self._gen is None or index != self._next:
             self.close()
-            self._gen = self._decoded(index)
+            target = self.seek_target(index)
+            if target is None:
+                raise ValueError(f"{self.path}: a seek to frame {index} reads "
+                                 "no frame (OpenCV's VideoCapture reads none either)")
+            self._gen = self._decoded(target)
         try:
             i, frame = next(self._gen)
         except StopIteration:
             self._gen = None
             raise ValueError(f"{self.path}: frame {index} did not decode")
-        self._next = i + 1
+        # cv2 counts on from the index it was asked for, whatever frame a
+        # quirky MPEG-1/2 seek returned (seek_target)
+        self._next = (index if self.box.codec == "mpeg12" else i) + 1
         return frame
 
     def close(self) -> None:
-        """Close the file and decoder :meth:`read` keeps open."""
+        """Close the file and decoder :meth:`read` keeps open; the next
+        :meth:`read` starts as on a capture just opened."""
         if self._gen is not None:
             self._gen.close()
             self._gen = None
+        self._next = 0
 
 
 # --------------------------------------------------------------- image2

@@ -123,7 +123,7 @@ inline void idct(int16_t* blk, uint8_t* dest, int stride, bool add) {
 
 struct YuvCoeffs {
     int y, vr, ub, ug, vg, yoff;
-    int matrix;   // kMatrices' index: 0 BT.601, 1 BT.709, 2 SMPTE 240M, 3 BT.2020
+    int matrix;   // kMatrices' index: 0 BT.601, 1 BT.709, 2 SMPTE 240M, 3 BT.2020, 4 FCC
 };
 constexpr YuvCoeffs kVideoRange{9539, 13075, 16525, -3209, -6660, 128, 0};
 constexpr YuvCoeffs kFullRange{8192, 11485, 14516, -2819, -5850, 0, 0};
@@ -134,10 +134,11 @@ constexpr YuvCoeffs kFullRange{8192, 11485, 14516, -2819, -5850, 0, 0};
 struct InvMatrix {
     int64_t crv, cbu, cgu, cgv;
 };
-constexpr InvMatrix kMatrices[4] = {{104597, 132201, 25675, 53279},
+constexpr InvMatrix kMatrices[5] = {{104597, 132201, 25675, 53279},
                                     {117489, 138438, 13975, 34925},
                                     {117579, 136230, 16907, 35559},
-                                    {110013, 140363, 12277, 42626}};
+                                    {110013, 140363, 12277, 42626},
+                                    {104448, 132798, 24759, 53109}};
 
 // sws_setColorspaceDetails' coefficients (roundToInt16 of the 16.16
 // values at 2^13) for a matrix and a range
@@ -422,8 +423,9 @@ struct RgbTables {
 };
 
 inline const RgbTables& rgb_tables(bool video, int matrix) {
-    static const RgbTables tables[8] = {{false, 0}, {true, 0}, {false, 1}, {true, 1},
-                                        {false, 2}, {true, 2}, {false, 3}, {true, 3}};
+    static const RgbTables tables[10] = {{false, 0}, {true, 0}, {false, 1}, {true, 1},
+                                         {false, 2}, {true, 2}, {false, 3}, {true, 3},
+                                         {false, 4}, {true, 4}};
     return tables[2 * matrix + video];
 }
 

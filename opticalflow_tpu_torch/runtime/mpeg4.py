@@ -158,7 +158,7 @@ class Decoder:
 # sample from the first luma sample's: what the scaler interpolates from
 CHROMA_SITES = {"center": (128, 128), "left": (0, 128), "topleft": (0, 0)}
 # swscale's YUV -> RGB matrices (ffmpeg_dsp.h's kMatrices, in order)
-MATRICES = ("bt601", "bt709", "smpte240m", "bt2020")
+MATRICES = ("bt601", "bt709", "smpte240m", "bt2020", "fcc")
 
 
 def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,

@@ -59,8 +59,34 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
     Matroska (``V_MPEG4/ISO/ASP`` with the VOL as CodecPrivate,
     ``V_MJPEG``, ``V_UNCOMPRESSED``).
 
+  * MPEG-1 and MPEG-2 (fourccs ``PIM1`` and ``MPG2``): the moving clip's
+    40 frames as ``mpeg1_176x144`` and ``mpeg2_176x144`` in ``.mpg``
+    (cv2's program stream muxer), ``.avi``, ``.mkv`` and ``.mp4``; the
+    ``.mpg`` files with every sequence header's size patched to 175x143
+    (MPEG-1's centred and MPEG-2's left chroma site at an odd height);
+    ``mpeg2_53x37.mpg`` (cv2 crops it to 52x36, patched back);
+    ``mpeg2_still_64x48.mpg`` and ``mpeg1_still_176x144.mpg`` (skipped
+    macroblocks, address escapes); ``mpeg2_sintel_436x1024.mpg``, the
+    Sintel pair's 13 frames, which the card run decodes, and
+    ``mpeg2_sintel_head_436x1024.mpg``, its first 10 pictures remuxed by
+    ``ps_mux`` with a PTS on each (every seek exact), which the card run's
+    pseudo regime trains on; and, from cv2's
+    bundled libavcodec through ctypes (``Lavc``) muxed by ``ps_mux``:
+    ``mpeg2_tools.mpg`` (intra VLC table, non-linear quantiser, 10-bit DC,
+    a BT.709 colour description, closed GOPs, adaptive quantisation; its
+    headers rewritten with custom matrices, a quant matrix extension with
+    chroma matrices, alternate scan and broken_link), ``mpeg2_dc9.mpg``
+    and ``mpeg2_dc11.mpg``, ``mpeg2_low_delay.mpg``,
+    ``mpeg1_matrices.mpg`` (custom matrices at quantiser 1: FFmpeg's
+    oddification turns a 0 into -1) and ``mpeg2_interlaced.mpg``
+    (interlaced frames, which the port refuses).
+
 Each VP8 file's manifest entry lists the header features and coding modes
-the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``).
+the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
+each VP9 and MPEG-1/2 file's likewise (``vp9_features``,
+``mpeg12_features``), and each MPEG-1/2 file's the frame a
+``CAP_PROP_POS_FRAMES`` seek to each index reads (``seeks``: an index into
+its sequential frames, or null where cv2 reads none).
 """
 
 from __future__ import annotations
@@ -1039,6 +1065,327 @@ def vp9_fixtures() -> None:
     vp9_header_fixtures()
 
 
+# ------------------------------------------------------------- MPEG-1/2
+
+class Lavc:
+    """cv2's bundled libavcodec's ``mpeg1video``/``mpeg2video`` encoder
+    through ctypes, for the coding tools cv2's writer leaves off: the
+    encoder's options go in as an AVDictionary (``intra_vlc``,
+    ``non_linear_quant``, ``alternate_scan``, ``intra_dc_precision``,
+    ``colorspace`` with ``seq_disp_ext``, ``flags=+cgop``), the frame's
+    size, format and pts at AVFrame's public offsets, a packet's fields at
+    AVPacket's.  Each setting is checked on the stream by the port's
+    decoder (``mpeg12_features`` in the manifest)."""
+
+    def __init__(self):
+        import ctypes
+        import glob
+        import cv2
+        libs = os.path.join(os.path.dirname(cv2.__file__), os.pardir,
+                            "opencv_python.libs")
+        lib = lambda n: sorted(glob.glob(os.path.join(libs, f"lib{n}-*")))[0]  # noqa: E731
+        self.ct = c = ctypes
+        self.u = c.CDLL(lib("avutil"), mode=c.RTLD_GLOBAL)
+        self.a = c.CDLL(lib("avcodec"))
+        P, I = c.c_void_p, c.c_int
+        for L, name, res, args in (
+                (self.a, "avcodec_find_encoder_by_name", P, [c.c_char_p]),
+                (self.a, "avcodec_alloc_context3", P, [P]),
+                (self.a, "avcodec_open2", I, [P, P, P]),
+                (self.a, "avcodec_send_frame", I, [P, P]),
+                (self.a, "avcodec_receive_packet", I, [P, P]),
+                (self.a, "av_packet_alloc", P, []),
+                (self.a, "av_packet_unref", None, [P]),
+                (self.u, "av_opt_set", I, [P, c.c_char_p, c.c_char_p, I]),
+                (self.u, "av_dict_set", I, [P, c.c_char_p, c.c_char_p, I]),
+                (self.u, "av_frame_alloc", P, []),
+                (self.u, "av_frame_get_buffer", I, [P, I]),
+                (self.u, "av_frame_make_writable", I, [P])):
+            fn = getattr(L, name)
+            fn.restype, fn.argtypes = res, args
+
+    def encode(self, planes: list, codec: str = "mpeg2video",
+               fps: int = 25, **opts) -> list:
+        """I420 planes → (packet, pts, dts) in frames, in decode order."""
+        c, a, u = self.ct, self.a, self.u
+        h, w = planes[0][0].shape
+        enc = a.avcodec_find_encoder_by_name(codec.encode())
+        ctx = a.avcodec_alloc_context3(enc)
+        for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", "yuv420p"),
+                     ("time_base", f"1/{fps}"), ("g", "12"), ("b", "1000000"),
+                     ("bf", "2" if codec == "mpeg2video" else "0")):
+            assert u.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
+        d = c.c_void_p()
+        for k, v in opts.items():
+            u.av_dict_set(c.byref(d), k.encode(), str(v).encode(), 0)
+        assert a.avcodec_open2(ctx, enc, c.byref(d)) >= 0, opts
+        frame, pkt = u.av_frame_alloc(), a.av_packet_alloc()
+        ints = (c.c_int * 30).from_address(frame)
+        ints[26], ints[27], ints[29] = w, h, 0      # width, height, format
+        assert u.av_frame_get_buffer(frame, 0) >= 0
+        out = []
+
+        def drain():
+            while a.avcodec_receive_packet(ctx, pkt) == 0:
+                pts, dts = (c.c_int64.from_address(pkt + o).value
+                            for o in (8, 16))
+                data = c.c_void_p.from_address(pkt + 24).value
+                size = c.c_int.from_address(pkt + 32).value
+                out.append((c.string_at(data, size), pts, dts))
+                a.av_packet_unref(pkt)
+
+        for n, pl in enumerate(planes):
+            assert u.av_frame_make_writable(frame) >= 0
+            ptrs = (c.c_void_p * 8).from_address(frame)
+            strides = (c.c_int * 8).from_address(frame + 64)
+            for k, p in enumerate(pl):
+                p = np.ascontiguousarray(p)
+                for r in range(p.shape[0]):
+                    c.memmove(ptrs[k] + r * strides[k], p[r].ctypes.data,
+                              p.shape[1])
+            c.c_int64.from_address(frame + 136).value = n   # pts
+            assert a.avcodec_send_frame(ctx, frame) >= 0
+            drain()
+        a.avcodec_send_frame(ctx, None)
+        drain()
+        return out
+
+
+def _ts_bytes(prefix: int, t: int) -> bytes:
+    return bytes((prefix << 4 | (t >> 29 & 0xE) | 1, t >> 22 & 0xFF,
+                  (t >> 14 & 0xFE) | 1, t >> 7 & 0xFF, (t << 1 & 0xFE) | 1))
+
+
+def ps_mux(path: str, packets: list, fps: int = 25) -> None:
+    """(packet, pts, dts) in frames → an MPEG-2 program stream: a pack
+    header and a PES packet with PTS and DTS for each picture (continued in
+    PES packets without timestamps past 64 KiB), then the end code."""
+    tick = 90000 // fps
+    out = bytearray()
+    for data, pts, dts in packets:
+        p, d = 45000 + pts * tick, 45000 + dts * tick
+        scr = max(d - 9000, 0)
+        out += (b"\x00\x00\x01\xba" + bytes((
+            0x44 | (scr >> 27 & 0x38) | (scr >> 28 & 3), scr >> 20 & 0xFF,
+            (scr >> 12 & 0xF8) | 4 | (scr >> 13 & 3), scr >> 5 & 0xFF,
+            (scr << 3 & 0xF8) | 4, 1, 1, 0x89, 0xC3, 0xF8)))
+        first = True
+        for k in range(0, len(data), 60000):
+            chunk = data[k:k + 60000]
+            head = (bytes((0x81, 0xC0, 10)) + _ts_bytes(3, p) +
+                    _ts_bytes(1, d) if first and p != d else
+                    bytes((0x81, 0x80, 5)) + _ts_bytes(2, p) if first else
+                    bytes((0x81, 0, 0)))
+            out += (b"\x00\x00\x01\xe0" + struct.pack(">H", len(head) +
+                                                      len(chunk))
+                    + head + chunk)
+            first = False
+    out += b"\x00\x00\x01\xb9"
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def ps_head(src: str, dst: str, n: int) -> None:
+    """The first ``n`` pictures (decode order) of the program stream
+    ``src`` remuxed by ``ps_mux``, each PES packet stamped with its
+    picture's PTS alone.  cv2's muxer starts a picture in a PES packet
+    stamped with an earlier picture's DTS, so a seek near the start of
+    its file lands past the first GOP (and reads nothing); here each seek
+    reads the frame asked for, and a shuffled reader such as the pseudo
+    regime's can read the clip."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    v = EncodedVideo(src)
+    with open(src, "rb") as f:
+        ps_mux(dst, [(v.box.sample(f, i), v.display[i], v.display[i])
+                     for i in range(n)])
+
+
+def _bits(data: bytes) -> str:
+    return "".join(f"{b:08b}" for b in data)
+
+
+def _bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def _matrix_bits(m: np.ndarray) -> str:
+    """A quantiser matrix (raster order) as the stream holds it: 64 bytes
+    in zigzag order."""
+    zz = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26,
+          33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56,
+          57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38,
+          31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+    flat = np.asarray(m, np.uint8).reshape(64)
+    return "".join(f"{flat[z]:08b}" for z in zz)
+
+
+# custom matrices for the rewritten headers: small steps at low
+# frequencies (an MPEG-1 intra step under 8 dequantises a level 1 to 0, which
+# FFmpeg's oddification turns into -1)
+MATRIX_INTRA = np.add.outer(np.arange(8), np.arange(8)) * 3 + 4
+MATRIX_INTRA[0, 0] = 8
+MATRIX_INTER = 12 + np.add.outer(np.arange(8), 2 * np.arange(8))
+MATRIX_CHROMA_INTRA = 40 - np.add.outer(np.arange(8), np.arange(8)) * 2
+MATRIX_CHROMA_INTER = 20 + np.add.outer(2 * np.arange(8), np.arange(8))
+
+
+def with_matrices(packet: bytes) -> bytes:
+    """Every sequence header of ``packet`` with MATRIX_INTRA and
+    MATRIX_INTER loaded (both load flags were 0: an 8-byte body)."""
+    out, pos = bytearray(), 0
+    while True:
+        i = packet.find(b"\x00\x00\x01\xb3", pos)
+        if i < 0:
+            return bytes(out + packet[pos:])
+        body = packet[i + 4:i + 12]
+        bits = _bits(body)
+        assert bits[62:64] == "00", "the sequence header loads a matrix"
+        new = (bits[:62] + "1" + _matrix_bits(MATRIX_INTRA) + "1"
+               + _matrix_bits(MATRIX_INTER))
+        out += packet[pos:i + 4] + _bytes(new)
+        pos = i + 12
+
+
+def with_quant_extension(packet: bytes) -> bytes:
+    """A quant matrix extension (all four matrices, the chroma ones apart)
+    after ``packet``'s picture coding extension."""
+    i = next((k for k in range(len(packet) - 4)
+              if packet[k:k + 4] == b"\x00\x00\x01\xb5"
+              and packet[k + 4] >> 4 == 8), -1)
+    assert i >= 0
+    j = packet.find(b"\x00\x00\x01", i + 4)
+    ext = b"\x00\x00\x01\xb5" + _bytes(
+        "0011" + "1" + _matrix_bits(MATRIX_INTRA) + "1"
+        + _matrix_bits(MATRIX_INTER) + "1" + _matrix_bits(MATRIX_CHROMA_INTRA)
+        + "1" + _matrix_bits(MATRIX_CHROMA_INTER))
+    return packet[:j] + ext + packet[j:]
+
+
+def with_alternate_scan(packet: bytes) -> bytes:
+    """``packet`` with its picture coding extension's alternate_scan set
+    (cv2's encoder turns the sequence interlaced when asked for it)."""
+    i = next(k for k in range(len(packet) - 4)
+             if packet[k:k + 4] == b"\x00\x00\x01\xb5"
+             and packet[k + 4] >> 4 == 8)
+    b = bytearray(packet)
+    b[i + 7] |= 0x04
+    return bytes(b)
+
+
+def with_gop_flags(packet: bytes, closed=None, broken=None) -> bytes:
+    """``packet``'s GOP header with closed_gop / broken_link set."""
+    i = packet.find(b"\x00\x00\x01\xb8")
+    if i < 0:
+        return packet
+    b = bytearray(packet)
+    for bit, val in ((0x40, closed), (0x20, broken)):
+        if val is not None:
+            b[i + 7] = b[i + 7] | bit if val else b[i + 7] & ~bit
+    return bytes(b)
+
+
+def patch_mpeg12_size(src: str, dst: str, w: int, h: int) -> None:
+    """Copy ``src`` with every sequence header's 12-bit width and height
+    set to ``w``x``h`` (the same macroblock grid: a crop)."""
+    data = bytearray(open(src, "rb").read())
+    i = data.find(b"\x00\x00\x01\xb3")
+    n = 0
+    while i >= 0:
+        data[i + 4:i + 7] = bytes((w >> 4, (w & 15) << 4 | h >> 8, h & 255))
+        n += 1
+        i = data.find(b"\x00\x00\x01\xb3", i + 4)
+    assert n
+    open(dst, "wb").write(bytes(data))
+
+
+def _mpeg12_features(path: str) -> tuple:
+    """(the port's decoder's features over the file, what it refuses or
+    None)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    try:
+        with open(path, "rb") as f:
+            for i in range(v.samples):
+                dec.decode(v.box.sample(f, i))
+    except Unsupported as e:
+        return dec.features, str(e).split(": ", 1)[1]
+    return dec.features, None
+
+
+def _cv2_seeks(path: str, frames: list) -> dict:
+    """{index: the decoded frame (its index in ``frames``) a
+    CAP_PROP_POS_FRAMES seek to it reads, or None}, for every index."""
+    import cv2
+    out = {}
+    for t in range(len(frames)):
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, t)
+        ok, f = cap.read()
+        cap.release()
+        hits = [i for i, g in enumerate(frames) if ok and
+                np.array_equal(f, g)]
+        out[str(t)] = hits[0] if hits else (None if not ok else -1)
+    return out
+
+
+def mpeg12_fixtures() -> None:
+    """The MPEG-1/2 files: cv2's writer (fourccs PIM1 and MPG2) in four
+    containers, size patches, the Sintel clip; libavcodec's encoder with
+    the tools cv2's writer leaves off, and rewritten headers, muxed by
+    ``ps_mux``."""
+    moving = moving_clip(144, 176, 40)
+    for fcc, name in (("PIM1", "mpeg1"), ("MPG2", "mpeg2")):
+        for ext in ("mpg", "avi", "mkv", "mp4"):
+            _cv2_write(os.path.join(OUT, f"{name}_176x144.{ext}"), moving,
+                       fcc)
+        mpg = os.path.join(OUT, f"{name}_176x144.mpg")
+        patch_mpeg12_size(mpg, os.path.join(OUT, f"{name}_175x143.mpg"),
+                          175, 143)
+    small = os.path.join(OUT, "mpeg2_53x37.mpg")
+    _cv2_write(small, moving_clip(37, 53, 26, seed=1, speed=5.0), "MPG2")
+    patch_mpeg12_size(small, small, 53, 37)
+    _cv2_write(os.path.join(OUT, "mpeg2_still_64x48.mpg"),
+               moving_clip(48, 64, 1, seed=3) * 14, "MPG2")
+    # runs of more than 33 skipped macroblocks: the address escape
+    _cv2_write(os.path.join(OUT, "mpeg1_still_176x144.mpg"),
+               moving_clip(144, 176, 1, seed=3) * 5, "PIM1")
+    im1, im2 = sintel_pair()
+    sintel = os.path.join(OUT, "mpeg2_sintel_436x1024.mpg")
+    _cv2_write(sintel, [im1 if i % 2 == 0 else im2 for i in range(13)],
+               "MPG2")
+    ps_head(sintel, os.path.join(OUT, "mpeg2_sintel_head_436x1024.mpg"), 10)
+    lavc = Lavc()
+    planes = [bgr_i420(f) for f in moving_clip(144, 176, 13, seed=9,
+                                               speed=3.0)]
+    pk = lavc.encode(planes, intra_vlc=1, non_linear_quant=1, qmax=28,
+                     intra_dc_precision=2, colorspace="bt709",
+                     seq_disp_ext="always", flags="+cgop",
+                     sc_threshold=1000000000, scplx_mask=0.5)
+    pk = [(with_alternate_scan(with_gop_flags(with_matrices(p),
+                                              broken=True)), t, d)
+          for p, t, d in pk]
+    pk = [(with_quant_extension(p) if i % 3 == 1 else p, t, d)
+          for i, (p, t, d) in enumerate(pk)]
+    ps_mux(os.path.join(OUT, "mpeg2_tools.mpg"), pk)
+    # the encoder's alternate scan comes with interlaced frames, which
+    # swscale will not convert for cv2 and the port refuses
+    ps_mux(os.path.join(OUT, "mpeg2_interlaced.mpg"),
+           lavc.encode(planes[:4], alternate_scan=1))
+    for prec in (1, 3):
+        ps_mux(os.path.join(OUT, f"mpeg2_dc{8 + prec}.mpg"),
+               lavc.encode(planes[:7], intra_dc_precision=prec))
+    pk = lavc.encode(planes, codec="mpeg1video", qmin=1, qmax=1)
+    ps_mux(os.path.join(OUT, "mpeg1_matrices.mpg"),
+           [(with_matrices(p), t, d) for p, t, d in pk])
+    ps_mux(os.path.join(OUT, "mpeg2_low_delay.mpg"),
+           lavc.encode(planes[:7], bf=0, flags="+low_delay"))
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -1109,6 +1456,7 @@ def write_files() -> None:
                moving_clip(48, 64, 4, seed=4), "I420")
     set_vp8_clamping(webm, os.path.join(OUT, "vp8_clamping.webm"))
     vp9_fixtures()
+    mpeg12_fixtures()
 
 
 def write_manifest() -> None:
@@ -1126,6 +1474,13 @@ def write_manifest() -> None:
         }
         if name.startswith("vp8_"):
             manifest["files"][name]["vp8_features"] = _vp8_features(path)
+        if name.startswith(("mpeg1_", "mpeg2_")):
+            feats, refused = _mpeg12_features(path)
+            manifest["files"][name]["mpeg12_features"] = feats
+            if refused:
+                manifest["files"][name]["port_refuses"] = refused
+            else:
+                manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
         if name.startswith("vp9_"):
             feats, refused = _vp9_features(path)
             manifest["files"][name]["vp9_features"] = feats
@@ -1137,6 +1492,10 @@ def write_manifest() -> None:
     reached = {f for e in manifest["files"].values()
                for f in e.get("vp9_features", [])}
     manifest["vp9_unreached"] = [f for f in FEATURES if f not in reached]
+    from opticalflow_tpu_torch.runtime.mpeg12 import FEATURES as M12
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("mpeg12_features", [])}
+    manifest["mpeg12_unreached"] = [f for f in M12 if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()

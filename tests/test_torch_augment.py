@@ -14,6 +14,7 @@ coordinates with float32 weights):
     ≥ 99.9% of pixels (a value at the threshold can fall either side).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import cv2
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ learning rates), ``latest_step`` over the JAX layout, a save that is cut
 short leaving no checkpoint, and ``load_params`` on a port directory and on
 directories that are not the port's."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import json
 import os
 

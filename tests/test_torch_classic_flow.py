@@ -24,6 +24,7 @@ propagation runs in a fixed eight stripes), so no thread count is pinned:
 :func:`test_cv2_dis_does_not_depend_on_its_thread_count` checks it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 
 import numpy as np

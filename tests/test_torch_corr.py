@@ -4,6 +4,7 @@ latter in interpret mode as ``tests/test_pallas_corr.py`` runs it.  The
 kernel itself is held against the plain version on the card in
 ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

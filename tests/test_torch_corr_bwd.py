@@ -6,6 +6,7 @@ forward; the routing in ``correlation()``; and the backward kernel's
 wrapper checks, which hold before any build.  The kernel itself is held
 against the plain version on the card in ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ JAX) runs it without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

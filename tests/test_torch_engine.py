@@ -1,6 +1,7 @@
 """The port's FlowEngine and CLI on the CPU against the real-frame goldens
 that ``tests/test_real_golden.py`` holds the JAX engine to."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 
 import numpy as np

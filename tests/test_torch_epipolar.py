@@ -20,6 +20,7 @@ loss and metrics 1e-5 relative, and every gradient within 1e-3 relative
 tolerances).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

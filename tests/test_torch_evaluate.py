@@ -4,6 +4,7 @@ datasets of ``tests/test_evaluate.py`` (padding, shape groups, bounded
 residency, error forwarding, no-GT NaN), ``utils.metrics`` against the JAX
 package's, and both CLIs end to end on tiny synthetic trees."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import threading
 import time

@@ -5,6 +5,7 @@ cases and to the JAX package on the same weights and inputs.
 
 One ``dynamic="all"`` export (module fixture) serves every artifact test."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import io
 import json

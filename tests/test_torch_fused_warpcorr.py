@@ -5,6 +5,7 @@ composed reference ``warp_with_mask → correlation_lax``.  The kernel itself
 is held against the plain version on the card in
 ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import sys
 

@@ -3,6 +3,7 @@ against ``jnp.take(x, idx, axis=0)``, the function the JAX package's
 ``scripts/probe_gather.py`` kernels compute.  The kernel itself is held
 against the plain version on the card in ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,7 @@
 """The port's own PNG decoder (stdlib zlib + numpy) and host image helpers,
 bit-exact against imageio and the JAX package's numpy helpers."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import glob
 import os
 import struct

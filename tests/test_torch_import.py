@@ -7,6 +7,7 @@ The reference loads tolerantly and silently (``models/PWCNet.py:497-520``,
 ``strict=False`` as the escape hatch.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

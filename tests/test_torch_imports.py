@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX, flax nor any
 module of the JAX package, and its sources do not name them."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import pkgutil
 import re
@@ -28,7 +29,8 @@ def test_every_module_imports_without_jax():
               "cli.convert_ckpt", "models.prune", "utils.profiling",
               "utils.debugging", "runtime.jpeg", "runtime._native",
               "runtime.dis", "viz.farneback", "runtime.mpeg4", "io.mp4",
-              "io.avi", "runtime.vp8", "io.mkv", "runtime.vp9"):
+              "io.avi", "runtime.vp8", "io.mkv", "runtime.vp9",
+              "runtime.mpeg12", "io.mpegps"):
         assert f"opticalflow_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -112,7 +114,8 @@ def test_package_data_holds_every_file_the_port_opens():
     sources and headers), ``runtime/flowviz.py``, ``runtime/jpeg.py`` and
     ``runtime/dis.py``, ``runtime/vp8.py`` and ``runtime/vp9.py`` (their
     C++ sources, and VP9's table header),
-    ``runtime/mpeg4.py`` (with ``jpeg.py``, the header they include),
+    ``runtime/mpeg4.py`` and ``runtime/mpeg12.py`` (with ``jpeg.py``, the
+    headers they include),
     ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
     table) read is matched by a ``package-data`` pattern of
     ``pyproject.toml``."""
@@ -120,7 +123,7 @@ def test_package_data_holds_every_file_the_port_opens():
     import tomllib
     from opticalflow_tpu_torch.ops import _build
     from opticalflow_tpu_torch.runtime import _native, dis, flowviz, jpeg, \
-        mpeg4, vp8, vp9
+        mpeg4, mpeg12, vp8, vp9
     from opticalflow_tpu_torch.viz import colorwheel, text
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
@@ -128,9 +131,12 @@ def test_package_data_holds_every_file_the_port_opens():
     opened = [str(p) for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
     opened += [str(flowviz._SRC), str(dis._SRC), str(vp8._SRC),
                text.ATLAS_PATH, colorwheel.MAGMA_PATH]
-    opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC, vp9._SRC)
+    opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC, vp9._SRC,
+                                         mpeg12._SRC)
                       for p in _native.sources(src)})
     assert any(p.endswith("vp9_tables.h") for p in opened)
+    assert any(p.endswith("mpeg12.cpp") for p in opened)
+    assert any(p.endswith("mpeg_common.h") for p in opened)
     assert any(p.endswith(".cuh") for p in opened)
     assert {os.path.splitext(p)[1] for p in opened} == {
         ".cu", ".cuh", ".cpp", ".h", ".npz"}

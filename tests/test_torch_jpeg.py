@@ -7,6 +7,7 @@ committed fixtures against their manifest; the JAX package's
 blocked, as on the GPU machine; declined flavours, build failures and
 corrupt bytes."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import builtins
 import hashlib
 import io

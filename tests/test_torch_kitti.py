@@ -4,6 +4,7 @@ the port's encoder, ``read_flow_png`` against the JAX package's reader (cv2
 here) on files from both writers, and ``KittiPairsEval`` / ``SintelPairs``
 against the JAX package's on temporary trees."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import struct
 import zlib
 

@@ -3,6 +3,7 @@ what it does before any library exists.  The launches themselves, on the
 caller's stream and under CUDA-graph capture, are held on the card in
 ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import ctypes
 import inspect
 

@@ -1,6 +1,7 @@
 """The port's training losses (NCHW) against the JAX package's (NHWC) on
 the same seeded inputs, at 1e-5 (float32 sums in another order)."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ and count.  The JAX package's ``frame_pairs_from_video``,
 exactly.  Tolerance: none anywhere (every comparison is equality).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import hashlib
 import io
@@ -447,9 +448,10 @@ def test_consecutive_frames_globs_png_and_jpg_as_jax(tmp_path):
 def test_library_digest_covers_included_headers(tmp_path):
     """``runtime/_native.library_path`` hashes the local headers a source
     includes: an edited ``ffmpeg_dsp.h`` names a new library for both
-    sources that include it."""
+    sources that include it (``mpeg4.cpp`` includes ``mpeg_common.h``
+    too)."""
     runtime = os.path.dirname(jpeg.__file__)
-    for name in ("jpeg.cpp", "mpeg4.cpp", "ffmpeg_dsp.h"):
+    for name in ("jpeg.cpp", "mpeg4.cpp", "ffmpeg_dsp.h", "mpeg_common.h"):
         shutil.copy(os.path.join(runtime, name), tmp_path / name)
     from pathlib import Path
     srcs = [Path(tmp_path / "jpeg.cpp"), Path(tmp_path / "mpeg4.cpp")]

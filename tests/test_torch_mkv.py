@@ -13,6 +13,7 @@ reconstruction.  The codecs, compressions and lacings the port does not
 read raise, naming ROADMAP Queue 1 item 8.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import hashlib
 import io
@@ -249,11 +250,12 @@ def test_blockgroups_and_header_stripping_read_as_cv2(tmp_path):
 
 @pytest.mark.parametrize("codec,name", [
     (b"V_VP9", "VP9"), (b"V_AV1", "AV1"), (b"V_MPEG4/ISO/AVC", "H.264"),
-    (b"V_MPEGH/ISO/HEVC", "HEVC"), (b"V_MPEG2", "MPEG-2"),
+    (b"V_MPEGH/ISO/HEVC", "HEVC"), (b"V_THEORA", "Theora"),
     (b"V_FFV1", "FFV1")])
 def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
     """Codecs the port does not decode, and VP9 in a profile it does not
-    read: a crafted profile-2 (10-bit) key frame."""
+    read: a crafted profile-2 (10-bit) key frame.  MPEG-2 (``V_MPEG2``),
+    once among them, reads: test_mpeg1_and_mpeg2_in_matroska_read."""
     frames = _webm_frames(2)
     if codec == b"V_VP9":
         head = int("10" "01" "0010" + format(0x498342, "024b") + "0" * 8, 2)
@@ -263,6 +265,18 @@ def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
         f.write(_build(codec, frames))
     with pytest.raises(Unsupported, match=f"{name}.*Queue 1 item 8"):
         vio.video_info(path)
+
+
+def test_mpeg1_and_mpeg2_in_matroska_read():
+    """cv2's writer's MPEG-1 and MPEG-2 in Matroska (``V_MPEG1``,
+    ``V_MPEG2``; the sequence headers in band), once refused, read as
+    cv2.VideoCapture reads them."""
+    fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
+    for v in (1, 2):
+        path = os.path.join(fixtures, f"mpeg{v}_176x144.mkv")
+        box = mkv.MkvFile(path)
+        assert (box.codec, box.tag) == ("mpeg12", f"V_MPEG{v}")
+        _same(list(vio.read_frames(path)), _cv2_frames(path))
 
 
 @pytest.mark.parametrize("what,match", [

@@ -2,6 +2,7 @@
 carried across by ``state_dict_from_jax``, and the port's loading of
 reference-format checkpoints."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

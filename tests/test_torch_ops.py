@@ -1,5 +1,6 @@
 """The port's warp, resize and conv helpers against the JAX package's."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ single-process results and the JAX package's.
 The spatial paths have their own world (``tests/test_torch_spatial.py``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import dataclasses
 import json
 import os

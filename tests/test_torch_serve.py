@@ -5,6 +5,7 @@ round trips through a real port ``FlowEngine`` held to the JAX engine on
 the same pair and weights, the three ``ADVICE.md`` fixes, and the JSON
 route's PNG decode against ``cv2.imdecode(..., IMREAD_COLOR)``."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import base64
 import builtins
 import http.client

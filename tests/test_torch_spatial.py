@@ -8,6 +8,7 @@ runs the halo exchange with an interior rank at 576x64 against JAX's on
 three; the tile plan and the geometry errors against JAX's.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ may not name it); the first test rebuilds it and asserts it equals
 change with ``python tests/test_torch_text.py``.  Tolerance: bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import sys
 

@@ -7,6 +7,7 @@ the port loader's first batch against the JAX step on the JAX loader's
 first batch from the same weights (one JAX gradient compile).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import dataclasses
 import json
 import os

@@ -11,6 +11,7 @@ side); the upsize step's float32 resize two float32 ulps of 1.0; uint8
 resizes, ``ConsecutiveFrames`` samples and everything else equal.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import threading
 
@@ -156,6 +157,25 @@ def test_upsize_resizes_match_opencv():
     np.testing.assert_allclose(datasets._resize_flow(flow, 64, 96),
                                jdatasets._resize_flow(flow, 64, 96),
                                rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_float32_resize_edge_runs_match_opencv_to_64x(channels):
+    """Upscales of 17× to 64× (and non-integer ones) bit-exact to
+    ``cv2.resize``: IPP's edge runs of more than 16 output columns, taken
+    in blocks of 16 (a full block unfused at 4 channels, fused at 3; the
+    remainder unfused from 5 columns), at both edges."""
+    rng = np.random.default_rng(channels)
+    sizes = [(w, w * k) for k in range(17, 65) for w in (2, 3, 5)]
+    sizes += [(int(w), int(rng.integers(17 * w, 64 * w)))
+              for w in rng.integers(2, 9, 24)]
+    for w, nw in sizes:
+        h = int(rng.integers(2, 6))
+        nh = h * int(rng.integers(1, 40))
+        x = rng.random((h, w, channels)).astype(np.float32)
+        np.testing.assert_array_equal(images.resize_bilinear_f32(x, nh, nw),
+                                      cv2.resize(x, (nw, nh)),
+                                      err_msg=f"{h}x{w} -> {nh}x{nw}")
 
 
 @pytest.mark.parametrize("src,dst", [

@@ -6,6 +6,7 @@ Two JAX gradient compiles in all (module-scoped fixtures), one per loss,
 one JAX forward compile for the validation metrics, and small optax ones.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,7 @@ presets, upload-once) with a torch twin of
 Two full-model JAX compiles: the bgr and the i420 runner.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

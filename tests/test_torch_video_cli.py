@@ -15,6 +15,7 @@ value of one frame, 2.8e-5 of its 36000, and one of the 18000 of
 within a level).  One JAX runner compile and one engine compile.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import io
 import os
@@ -160,9 +161,11 @@ def test_i420_upload_close_to_bgr_upload(setup):
 
 def test_what_is_not_ported_raises(setup, monkeypatch):
     """Compare mode, once not ported, writes frames twice the clip's
-    width; H.264 in MP4 is refused naming ROADMAP item 8, a truncated MP4
-    saying so; Motion JPEG in AVI, once refused, runs: the frames the CLI
-    reads are cv2.VideoCapture's."""
+    width; H.264 in MP4 and an MPEG transport stream are refused naming
+    ROADMAP item 8, a truncated MP4 saying so, an .mpg output naming what
+    the port writes; Motion JPEG in AVI, once refused, runs: the frames
+    the CLI reads are cv2.VideoCapture's (MPEG-2 in an .mpg runs too:
+    test_torch_mpeg12.py)."""
     base = [setup["clip"], str(setup["tmp"] / "x"), "--ckpt", setup["ckpt"],
             "--device", "cpu"]
     got = _run_cli(setup, "compare")
@@ -173,10 +176,19 @@ def test_what_is_not_ported_raises(setup, monkeypatch):
     h264, cut = setup["tmp"] / "h264.mp4", setup["tmp"] / "cut.mp4"
     h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
     cut.write_bytes(mp4[:len(mp4) - 50])
+    ts = setup["tmp"] / "clip.ts"
+    ts.write_bytes(open(os.path.join(fixtures, "mpeg2_176x144.mpg"),
+                        "rb").read())
     for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
-                        (str(cut), "truncated")):
+                        (str(cut), "truncated"),
+                        (str(ts), r"\.mpg.*item 8")):
         with pytest.raises(ValueError, match=match):
             extract_video.main([path] + base[1:])
+    # MPEG-2 in a program stream, once refused, is read; the CLI does not
+    # write one
+    with pytest.raises(ValueError, match="not MPEG program streams"):
+        extract_video.main([setup["clip"], str(setup["tmp"] / "o.mpg")]
+                           + base[2:])
     import opticalflow_tpu_torch.video as tvideo
     mjpg, seen = os.path.join(fixtures, "mjpg.avi"), []
     read = tvideo.read_frames

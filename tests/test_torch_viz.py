@@ -9,6 +9,7 @@ perspective matrix to 1e-9; the five visual goldens to
 ``tests/test_goldens._check``'s 1% of pixels.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import os
 import re
 

@@ -11,6 +11,7 @@ manifest, which the GPU machine checks without cv2), through seeking, and
 on frames patched to be hidden or damaged.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import hashlib
 import io

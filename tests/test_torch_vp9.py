@@ -12,6 +12,7 @@ machine checks without cv2), through seeking, and in the CLIs.  The
 library is built once for the module (g++, a few seconds).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads per xdist worker)
 import contextlib
 import hashlib
 import io
