@@ -251,7 +251,23 @@ non-zero, and no result line is printed):
      (e) host ms to decode a 436x1024 frame on one thread, MPEG-2 beside
      MPEG-4 Part 2, VP8 and VP9 of the same frames; (f) no cv2, PIL or jax
      in ``sys.modules``;
- 22. one JSON line listing every kernel with its launches on its path,
+ 22. VP9 size changes and H.263 (host C++: ``runtime/vp9.cpp``'s scaled
+     prediction, ``runtime/h263.cpp``, swscale's scaler between sizes in
+     ``runtime/ffmpeg_dsp.h``): (a) every H.263 fixture (cv2's writer in
+     ``.avi``/``.3gp``/``.mov``/``.mkv``; libavcodec's Annex F, 8x8
+     vectors, GOB headers with PSUPP, a size change, the 4CIF Sintel clip),
+     the MPEG-4 Part 2 ``.3gp`` and every stream that changes size (VP9 in
+     WebM and AVI, VP8, MPEG-4 Part 2, MPEG-2) decodes to its manifest's
+     cv2 digests, fps, size and count, and every recorded seek reads cv2's
+     frame; (b) ``cli/extract_video --mode arrows --batch 4 --dtype
+     bfloat16`` over ``h263_sintel_704x576.avi`` and
+     ``vp9_resize_sintel_436x1024.webm`` (218x512 from frame 5, scaled
+     back): K1 15 a run; (c) ``cli/train --regime pseudo`` for 2 steps over
+     the resizing WebM's first 9 frames: K1 and B1 5 a step; (d) host ms to
+     decode a frame, H.263 beside MPEG-4 Part 2 and the resizing VP9
+     beside the unscaled one, and to convert a scaled picture; (e) no cv2,
+     PIL or jax in ``sys.modules``;
+ 23. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -264,9 +280,9 @@ loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 (K1 and B1, counted in each rank's process from 0), phase 15's JPEG
 paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
-paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths and
-phase 21's MPEG-1/2 paths (K1 in the video CLI's runs, K1 and B1 in the
-pseudo steps).
+paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
+phase 21's MPEG-1/2 paths and phase 22's H.263 and size-change paths (K1
+in the video CLI's runs, K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -4665,6 +4681,195 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+H263_CLIP = "h263_sintel_704x576.avi"     # 4CIF, libavcodec's h263
+H263_H, H263_W = 576, 704
+RESIZE_CLIP = "vp9_resize_sintel_436x1024.webm"   # 218x512 from frame 5
+H263_TIMED = 4           # passes over each clip for the host decode times
+
+
+def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """VP9 size changes and H.263 through the port's entry points on the
+    card machine: (a) the fixtures (H.263 in .avi/.3gp/.mov/.mkv, MPEG-4
+    Part 2 in .3gp, and every stream that changes size: VP9, VP8, MPEG-4
+    Part 2, MPEG-2, H.263) equal cv2's digests, fps, size and count, and
+    each recorded seek reads cv2's frame; (b) the video CLI over the 4CIF
+    H.263 AVI and the resizing 436x1024 VP9 WebM, K1 on the card, bf16;
+    (c) the pseudo regime over the resizing WebM's first 9 frames (K1 and
+    B1); (d) host ms to decode a frame, H.263 beside MPEG-4 Part 2 of the
+    same 4CIF frames and the resizing VP9 beside the unscaled VP9 of the
+    same pair, and to convert a scaled picture; (e) no cv2, PIL or jax
+    imported.  Returns its results, each path's K1 (and B1) launches among
+    them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    from opticalflow_tpu_torch.runtime import h263, vp9
+    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder, i420_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    new = {n: w for n, w in manifest["files"].items()
+           if n.startswith("h263_") or "resize" in n or n.endswith(".3gp")}
+    n_frames = n_seeks = 0
+    for name, want in sorted(new.items()):
+        path = os.path.join(MP4_DIR, name)
+        assert "port_refuses" not in want, name
+        frames = list(vio.read_frames(path))
+        n_frames += len(frames)
+        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in
+                                        ("fps", "width", "height", "frames")}
+        video = vio.EncodedVideo(path)
+        for t, hit in want["seeks"].items():
+            n_seeks += 1
+            assert pixel_digest(video.frame(int(t))) == \
+                want["sha256"][hit], (name, t)
+    features = {k: sorted({f for w in new.values()
+                           for f in w.get(f"{k}_features", [])})
+                for k in ("h263", "vp9")}
+    log(f"[22] (a) {len(new)} fixtures (H.263 in .avi/.3gp/.mov/.mkv at "
+        f"three sizes and 4CIF, Annex F, 8x8 vectors, GOB headers, PSUPP; "
+        f"MPEG-4 Part 2 in .3gp; size changes in VP9, VP8, MPEG-4 Part 2, "
+        f"MPEG-2 and H.263) decoded to cv2.VideoCapture's {n_frames} frame "
+        f"digests and its fps/size/count, {n_seeks} seeks to the frames "
+        f"cv2's read, in {time.perf_counter() - t0:.2f} s; features "
+        f"reached: {features}; {card}")
+    assert {"advanced_prediction", "gob_headers", "size_change"} <= set(
+        features["h263"]) and "scaled_reference" in features["vp9"]
+
+    # (b) the video CLI over the 4CIF H.263 AVI and the resizing WebM
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    cli_rows = {}
+    for tag, src, h, w in (("h263_avi", H263_CLIP, H263_H, H263_W),
+                           ("vp9_resize_webm", RESIZE_CLIP, FULL_H, FULL_W)):
+        src = os.path.join(MP4_DIR, src)
+        k0 = corr_fwd.launches
+        row = video_cli([src, os.path.join(tmp, f"out_{tag}.y4m"), "--ckpt",
+                         ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                         "--dtype", "bfloat16", "--device", "cuda"],
+                        VP8_FRAMES, h, w)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(VP8_FRAMES - 1) // VIDEO_B), windows
+        assert launched == 5 * windows == 15, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        cli_rows[tag] = row
+        log(f"[22] (b) extract_video --mode arrows B={VIDEO_B} bf16, {tag} "
+            f"({VP8_FRAMES} frames {h}x{w}): {row['fps']!r} fps over the "
+            f"run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode "
+            f"thread busy {row['decode_ms']!r} ms a frame "
+            f"({row['decode_share']:.1%}), draw {row['draw_share']:.1%}, "
+            f"encode {row['encode_share']:.1%}; {windows} windows, K1 "
+            f"{launched} launches; {card}")
+    launches["cli"] = sum(r["k1_launches"] for r in cli_rows.values())
+
+    # (c) the pseudo regime over the resizing WebM's first 9 frames (the
+    # size change at frame 5 inside): 8 pairs, 2 steps at batch 4
+    train_webm = os.path.join(tmp, "vp9_resize_head.webm")
+    webm_head(os.path.join(MP4_DIR, RESIZE_CLIP), train_webm,
+              VP8_TRAIN_FRAMES, b"V_VP9")
+    head = vio.EncodedVideo(train_webm)
+    assert [p[0].shape for _, p in head.planes()] == \
+        [(FULL_H, FULL_W)] * 5 + [(FULL_H // 2, FULL_W // 2)] * 4
+    out_dir = os.path.join(tmp, "resize_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_webm, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (VP8_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[22] (c) cli/train --regime pseudo over the resizing VP9 WebM's "
+        f"first {VP8_TRAIN_FRAMES} frames ({FULL_H}x{FULL_W}, 218x512 from "
+        f"frame 5, scaled back), {steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a frame on one thread: H.263 beside MPEG-4 Part 2 (the
+    # port's encoder over the same 4CIF frames), the resizing VP9 (scaled
+    # prediction on its 218x512 frames) beside the committed unscaled VP9
+    # of the same pair; then the conversion to BGR, a scaled picture's too
+    frames = list(vio.read_frames(os.path.join(MP4_DIR, H263_CLIP)))
+    mp4 = os.path.join(tmp, "h263_frames.mp4")
+    wr = vio.Mpeg4Writer(mp4, 25.0, (H263_W, H263_H))
+    for fr in frames:
+        wr.write(fr)
+    wr.release()
+    host, decoded = {}, {}
+    for codec, path, make in (
+            ("h263", os.path.join(MP4_DIR, H263_CLIP), h263.Decoder),
+            ("mpeg4", mp4, None),
+            ("vp9_resize", os.path.join(MP4_DIR, RESIZE_CLIP), vp9.Decoder),
+            ("vp9", os.path.join(MP4_DIR, VP9_CLIP), vp9.Decoder)):
+        box = vio.EncodedVideo(path).box
+        with open(path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
+        make = make or (lambda b=box: Decoder(b.dsi, what=b.path))
+        make().decode(samples[0])                 # the library is loaded
+        t0 = time.perf_counter()
+        for _ in range(H263_TIMED):
+            d = make()
+            planes = [d.decode(s) for s in samples]
+        t1 = time.perf_counter()
+        size = (box.width, box.height)
+        for _ in range(H263_TIMED):
+            for p in planes:
+                i420_to_bgr(*p, size=size)
+        t2 = time.perf_counter()
+        n = H263_TIMED * VP8_FRAMES
+        assert len(planes) == VP8_FRAMES, (codec, len(planes))
+        decoded[codec] = planes
+        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
+                       "convert_ms": (t2 - t1) / n * 1e3,
+                       "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES,
+                       "scaled_pictures": sum(p[0].shape != size[::-1]
+                                              for p in planes)}
+    small = decoded["vp9_resize"][-1]
+    assert small[0].shape == (FULL_H // 2, FULL_W // 2)
+    t0 = time.perf_counter()
+    for _ in range(VP8_FRAMES):
+        i420_to_bgr(*small, size=(FULL_W, FULL_H))
+    host["scaled_convert_ms"] = (time.perf_counter() - t0) / VP8_FRAMES * 1e3
+    hh, m4, vr, v9 = (host[c] for c in ("h263", "mpeg4", "vp9_resize",
+                                        "vp9"))
+    log(f"[22] (d) host ms a frame on one thread: H.263 {H263_H}x{H263_W} "
+        f"decode {hh['decode_ms']!r} ({hh['bytes_a_frame']:.0f} bytes a "
+        f"frame), MPEG-4 Part 2 of the same frames {m4['decode_ms']!r} "
+        f"({m4['bytes_a_frame']:.0f} bytes); VP9 {FULL_H}x{FULL_W} with "
+        f"{vr['scaled_pictures']} of {VP8_FRAMES} pictures at 218x512 "
+        f"{vr['decode_ms']!r} ({vr['bytes_a_frame']:.0f} bytes), unscaled "
+        f"{v9['decode_ms']!r} ({v9['bytes_a_frame']:.0f} bytes); a 218x512 "
+        f"picture converted at {FULL_H}x{FULL_W} {host['scaled_convert_ms']!r} "
+        f"ms; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[22] (e) cv2, PIL, jax not imported; phase 22 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
+            "features": features, "cli": cli_rows, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4848,6 +5053,16 @@ def main() -> int:
     assert m12_launches == correlation_cuda.launches > 0
     assert m12["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the H.263 / size-change paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        h263 = phase_h263(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                          card_line())
+    # ... and end here: the video CLI's runs and the pseudo steps
+    h263_launches = h263["launches"]["cli"] + \
+        h263["launches"]["pseudo"]["correlation_fwd"]
+    assert h263_launches == correlation_cuda.launches > 0
+    assert h263["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -4905,7 +5120,11 @@ def main() -> int:
          # phase 21: the video CLI over the 436x1024 MPEG-2 .mpg (to .y4m
          # and to .mkv) and a .y4m of its frames, and the pseudo steps over
          # an MPEG-2 .mpg (5 a window, 5 a step)
-         "launches_mpeg12": m12_launches, "mpeg12": m12},
+         "launches_mpeg12": m12_launches, "mpeg12": m12,
+         # phase 22: the video CLI over the 4CIF H.263 AVI and the resizing
+         # 436x1024 VP9 WebM, and the pseudo steps over the WebM's head (5
+         # a window, 5 a step)
+         "launches_h263": h263_launches, "h263": h263},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -4941,7 +5160,9 @@ def main() -> int:
          # phase 20: the pseudo regime's steps over a VP9 .webm
          "launches_vp9": vp9["launches"]["pseudo"]["correlation_bwd"],
          # phase 21: the pseudo regime's steps over an MPEG-2 .mpg
-         "launches_mpeg12": m12["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_mpeg12": m12["launches"]["pseudo"]["correlation_bwd"],
+         # phase 22: the pseudo regime's steps over the resizing VP9 WebM
+         "launches_h263": h263["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -16,7 +16,10 @@ picks the codec:
   * VP8 (``VP80``): decoded by ``runtime/vp8``, a key frame a keyframe;
   * MPEG-1 and MPEG-2 (``PIM1``, ``mpg1``, ``mpg2``, ``MPEG``, ...: the
     tags FFmpeg's ``riff.c`` maps to ``mpeg1video``/``mpeg2video``, in any
-    case): decoded by ``runtime/mpeg12``.
+    case): decoded by ``runtime/mpeg12``;
+  * H.263 (``H263``, ``U263``, ``X263``, ...: the tags ``riff.c`` maps to
+    ``h263``, in any case): decoded by ``runtime/h263``, keyframes from
+    ``idx1``.
 
 Anything else (``H264``, Matrox's intra-only ``M701``-``M705``,
 ``slif``, ...) raises ``Unsupported``, naming ROADMAP
@@ -36,11 +39,12 @@ import os
 import struct
 from typing import BinaryIO, List, Optional, Tuple
 
+from opticalflow_tpu_torch.runtime.h263 import is_intra as is_h263_intra
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
-__all__ = ["AviFile", "AviWriter", "MJPEG_TAGS", "MPEG4_TAGS", "MPEG12_TAGS",
-           "RAW_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
+__all__ = ["AviFile", "AviWriter", "H263_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
+           "MPEG12_TAGS", "RAW_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
 MJPEG_TAGS = {"MJPG", "mjpg"}
@@ -52,7 +56,12 @@ VP9_TAGS = {"VP90"}
 MPEG12_TAGS = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2", "VCR2",
                "\x01\x00\x00\x10", "\x02\x00\x00\x10", "DVR ", "MMES",
                "LMP2", "EM2V", "MPGV", "BW10", "XMPG"}
-_NAMES = {"H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
+# riff.c's tags of h263, matched without regard to case (ZyGo's pictures
+# carry data FFmpeg reads past, which the port does not)
+H263_TAGS = {"H263", "X263", "T263", "L263", "VX1K", "M263", "LSVM", "U263",
+             "VSM4"}
+_NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
+          "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
@@ -167,9 +176,9 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs or VP8 key frames; all raw and Motion JPEG frames
-        are."""
-        if self.codec not in ("mpeg4", "vp8"):
+        MPEG-4 I-VOPs, H.263 I-pictures or VP8 key frames; all raw and
+        Motion JPEG frames are."""
+        if self.codec not in ("mpeg4", "vp8", "h263"):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -182,6 +191,7 @@ class AviFile:
                     f.seek(self.offsets[i])
                     head = f.read(min(self.sizes[i], 4096))
                     if (_is_ivop(head) if self.codec == "mpeg4" else
+                            is_h263_intra(head) if self.codec == "h263" else
                             is_keyframe(head)):
                         keys.append(i)
         return keys or [0]
@@ -204,8 +214,8 @@ class AviFile:
 
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
-    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9`` or ``mpeg12``; anything
-    else raises
+    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9``, ``mpeg12`` or ``h263``;
+    anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -219,10 +229,12 @@ def codec_of(tag: str, what: str) -> str:
         return "vp9"
     if tag.upper() in MPEG12_TAGS:
         return "mpeg12"
+    if tag.upper() in H263_TAGS:
+        return "h263"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
-                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, Motion JPEG, raw "
-                      f"I420, VP8 and VP9 only ({ITEM_8})")
+                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Motion "
+                      f"JPEG, raw I420, VP8 and VP9 only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

@@ -23,7 +23,8 @@ needed.  The codecs, by ``CodecID``:
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
-    ``io/avi``'s fourcc rules.
+    ``io/avi``'s fourcc rules (H.263 under ``H263``, as ``cv2.VideoWriter``
+    writes it into ``.mkv``: ``runtime/h263``).
 
 Other codecs (H.264, HEVC, AV1, FFV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
@@ -371,8 +372,9 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, MPEG-1, MPEG-2, Motion JPEG and raw "
-                              f"I420 in Matroska only ({ITEM_8})")
+                              f"Part 2, MPEG-1, MPEG-2, Motion JPEG, raw I420 "
+                              f"and the AVI fourccs of V_MS/VFW/FOURCC "
+                              f"(H.263, ...) in Matroska only ({ITEM_8})")
 
     def _colour(self, colour: Dict[int, bytes]) -> None:
         """The Colour element as FFmpeg hands it to the decoder: Range 2 is

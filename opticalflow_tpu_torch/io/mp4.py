@@ -1,5 +1,6 @@
-"""ISO BMFF (``.mp4``) video: the demuxer and muxer of the port's MPEG-4
-Part 2 and Motion JPEG paths, in Python (no FFmpeg).
+"""ISO BMFF (``.mp4``, ``.mov``, and ``.3gp``/``.3g2`` of the ``3gp*`` and
+``3g2*`` brands) video: the demuxer and muxer of the port's MPEG-4 Part 2
+and Motion JPEG paths, in Python (no FFmpeg).
 
 :class:`Mp4File` reads the first video track: ``ftyp``, ``moov`` before or
 after ``mdat``, ``trak/mdia/minf/stbl`` (``stsd`` with its ``mp4v`` entry
@@ -12,7 +13,9 @@ FFmpeg applies it to these files (empty and zero-offset edits change no
 frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
 ``timescale · samples / Σ durations`` (FFmpeg's ``avg_frame_rate``) and the
 sample count.  The ``vp09`` entry (VP9, what ``cv2.VideoWriter`` writes for
-fourcc ``VP90`` into ``.mp4``) is read with its ``vpcC``.  Other codecs'
+fourcc ``VP90`` into ``.mp4``) is read with its ``vpcC``; the ``s263``
+(with its ``d263``), ``h263`` and ``H263`` entries, H.263, what it writes for
+fourccs ``s263`` and ``H263`` into ``.3gp`` and ``.mov``.  Other codecs'
 sample entries (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming
 ROADMAP Queue 1 item 8.
 
@@ -40,6 +43,8 @@ VIDEO_CODECS = {
     "vp09": "VP9", "mjpa": "Motion JPEG", "mjpb": "Motion JPEG",
     "jpeg": "Motion JPEG", "mp4v": "MPEG-4 Part 2",
 }
+# the mov demuxer's sample entries of FFmpeg's h263 decoder
+H263_ENTRIES = ("s263", "h263", "H263")
 # esds objectTypeIndication → the codec it names
 # objectTypeIndication: MPEG-4 Visual, Motion JPEG, MPEG-1 Visual and the
 # MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
@@ -128,8 +133,9 @@ def _esds(body: bytes, what: str) -> Tuple[str, bytes]:
 
 
 class Mp4File:
-    """The first video track of an ``.mp4``/``.mov`` file: its codec
-    (``mpeg4`` or ``mjpeg``), size (the sample entry's), samples' offsets
+    """The first video track of an ``.mp4``/``.mov``/``.3gp`` file: its
+    codec (``mpeg4``, ``mjpeg``, ``mpeg12``, ``vp9`` or ``h263``), size
+    (the sample entry's), samples' offsets
     and sizes, keyframes (sync samples), DecoderSpecificInfo and timing."""
 
     def __init__(self, path: str):
@@ -262,14 +268,17 @@ class Mp4File:
         fourcc = fourcc.decode("latin1")
         entry = b[12:4 + size]
         self.tag = fourcc
-        if fourcc not in ("mp4v", "vp09"):
+        if fourcc not in ("mp4v", "vp09") + H263_ENTRIES:
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
                               f"{fourcc!r}): the port decodes the mp4v "
-                              f"entry (MPEG-4 Part 2, Motion JPEG) and "
-                              f"vp09 (VP9) only ({ITEM_8})")
+                              f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG), "
+                              f"vp09 (VP9) and s263/h263 (H.263) only "
+                              f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
-        self.codec, self.dsi = ("vp9" if fourcc == "vp09" else "mpeg4"), b""
+        self.codec = ("vp9" if fourcc == "vp09" else
+                      "h263" if fourcc in H263_ENTRIES else "mpeg4")
+        self.dsi = b""
         pos = 78   # VisualSampleEntry fields
         while pos + 8 <= len(entry):
             n, t = struct.unpack(">I4s", entry[pos:pos + 8])

@@ -1,5 +1,6 @@
-"""Video frames in and out without OpenCV: ``.mp4``, ``.avi``, ``.mkv``,
-``.webm``, ``.mpg``, ``.y4m``, image sequences and frame directories.
+"""Video frames in and out without OpenCV: ``.mp4``, ``.mov``, ``.3gp``,
+``.avi``, ``.mkv``, ``.webm``, ``.mpg``, ``.y4m``, image sequences and
+frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -22,6 +23,15 @@ muxers and codecs and reads what those read, frame for frame:
     as cv2's writer does; an odd side cropped to even, as it does),
     ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, AV1,
     VP9 profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
+  * **H.263** baseline with Annex F (``H263``, ``U263``, ... in AVI,
+    ``s263``/``h263`` in ``.3gp``, ``.3g2`` and ``.mov``, ``H263`` under
+    ``V_MS/VFW/FOURCC`` in Matroska: what ``cv2.VideoWriter`` writes for
+    fourccs ``H263`` and ``s263``), decoded by ``runtime/h263`` bit-exactly
+    to FFmpeg; H.263+ (PLUSPTYPE), Annexes D, E and G raise, naming item 8;
+  * a picture of another size than its stream's first (a VP9 frame that
+    changed size, a VP8 key frame, an H.263 picture header) is scaled back
+    to the first size through swscale's bicubic scaler, as
+    ``cv2.VideoCapture`` hands every frame to swscale at that size;
   * **MPEG-1 and MPEG-2** (``PIM1``, ``mpg1``, ``mpg2``, ... in AVI,
     ``V_MPEG1``/``V_MPEG2`` in Matroska, ``mp4v`` with objectTypeIndication
     0x6A or 0x60-0x65 in MP4, and **MPEG program streams**: ``.mpg``,
@@ -71,6 +81,8 @@ from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
 from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
 from opticalflow_tpu_torch.io.mpegps import MpegPsFile
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
+from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
+from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
 from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
@@ -93,8 +105,9 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
            "is_sequence", "ffmpeg_threads"]
 
-FORMATS = ("an .mp4, .avi, .mkv or .webm file (MPEG-4 Part 2, MPEG-1, "
-           "MPEG-2, VP8, VP9 or Motion JPEG; raw I420 in .avi and .mkv), an "
+FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
+           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9 or Motion JPEG; raw I420 "
+           "in .avi and .mkv), an "
            "MPEG program stream (.mpg, .mpeg, .vob: MPEG-1 or MPEG-2), a .y4m "
            "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
            "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
@@ -108,7 +121,7 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
               "420": CHROMA_SITES["center"],
               "420mpeg2": CHROMA_SITES["left"],
               "420paldv": CHROMA_SITES["topleft"]}
-_MP4_EXTS = (".mp4", ".m4v", ".mov")
+_MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 _ENCODED = ("mp4", "avi", "mkv", "mpg")
@@ -329,6 +342,13 @@ class EncodedVideo:
             self.width, self.height = size
         elif box.codec == "mpeg12":
             self._mpeg12_layout()
+        elif box.codec == "h263":
+            with open(path, "rb") as f:
+                size = h263_size(box.sample(f, self.keyframes[0]))
+            if size is None:
+                raise ValueError(f"{path}: the first H.263 keyframe has no "
+                                 "picture header")
+            self.width, self.height = size
         elif box.codec == "mjpeg":
             with open(path, "rb") as f:
                 self.height, self.width = jpeg_size(box.sample(f, 0),
@@ -366,12 +386,15 @@ class EncodedVideo:
         before the reference decoded ahead of them): what frame indices,
         keyframes and seeks are counted in."""
         box = self.box
-        types, closed = [], []
+        types, closed, sizes = [], [], []
         with open(self.path, "rb") as f:
             for i in range(self.samples):
-                t, c = picture_info(box.sample(f, i))
+                sample = box.sample(f, i)
+                t, c = picture_info(sample)
                 types.append(t)
                 closed.append(c)
+                s = sequence_info(sample, self.path)
+                sizes.append(s and (s.width, s.height))
             first = box.sample(f, 0)
         seq = sequence_info(box.dsi, self.path) or sequence_info(first,
                                                                  self.path)
@@ -380,7 +403,15 @@ class EncodedVideo:
                              "sequence header")
         self.width, self.height, self.mpeg2 = seq.width, seq.height, seq.mpeg2
         self.types, self.closed, self.low_delay = types, closed, seq.low_delay
-        self.display = display_order(types, closed, seq.low_delay)
+        # the samples whose sequence header changes the size: FFmpeg drops
+        # its references there (output_order)
+        self.resets, size = [], (seq.width, seq.height)
+        for i, s in enumerate(sizes):
+            if s and s != size:
+                self.resets.append(i)
+                size = s
+        self.display = display_order(types, closed, seq.low_delay,
+                                     self.resets)
         self.shown = sum(d is not None for d in self.display)
         # a seek decodes from the last I-picture at or before the frame
         self.keyframes = [i for i, t in enumerate(types)
@@ -431,7 +462,8 @@ class EncodedVideo:
             closed = [c if box.starts[i] >= land else None
                       for i, c in enumerate(self.closed[s0:], s0)]
             out = [self.display[s0 + i] for i in output_order(
-                self.types[s0:], closed, self.low_delay)]
+                self.types[s0:], closed, self.low_delay,
+                [r - s0 for r in self.resets if r > s0])]
             pick = (lambda n: out[n] if n < len(out) else None)  # noqa: E731
             if target < 2 or not out:
                 return pick(target)
@@ -450,6 +482,8 @@ class EncodedVideo:
             return Vp8Decoder(what=self.path)
         if self.box.codec == "vp9":
             return Vp9Decoder(what=self.path)
+        if self.box.codec == "h263":
+            return H263Decoder(what=self.path)
         return Decoder(self.box.dsi, what=self.path, tag=self.box.tag)
 
     def _raw(self, data: bytes):
@@ -464,10 +498,10 @@ class EncodedVideo:
                 a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw))
 
     def planes(self, start: int = 0) -> Iterator[Tuple[int, tuple]]:
-        """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, VP8 or
-        raw stream from frame ``start`` on; a sample that yields no picture
-        (a not-coded VOP, a VP8 frame not shown) is passed over, as
-        ``cv2.VideoCapture.read`` passes over it."""
+        """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, H.263,
+        VP8, VP9 or raw stream from frame ``start`` on; a sample that
+        yields no picture (a not-coded VOP, a VP8 frame not shown) is
+        passed over, as ``cv2.VideoCapture.read`` passes over it."""
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
                              f"{self.samples}")
@@ -488,12 +522,6 @@ class EncodedVideo:
                     # a packet shows any number of pictures (a superframe);
                     # FFmpeg hands swscale each frame's own range and matrix
                     for p in dec.decode_all(sample):
-                        if p[0].shape != (self.height, self.width):
-                            raise Unsupported(
-                                f"{self.path}: frame {i} is {p[0].shape[1]}x"
-                                f"{p[0].shape[0]} in a {self.width}x"
-                                f"{self.height} stream (OpenCV scales it "
-                                f"back; not read by the port, {ITEM_8})")
                         self.full_range = dec.full_range
                         self.matrix = VP9_MATRICES[dec.color_space]
                         if i >= start:
@@ -522,7 +550,8 @@ class EncodedVideo:
         # output_order plans them (open-GOP B-pictures before the first
         # reference dropped): the decoder must hand over exactly these
         plan = iter(output_order(self.types[k:], self.closed[k:],
-                                 self.low_delay))
+                                 self.low_delay,
+                                 [r - k for r in self.resets if r > k]))
         dec = self._decoder()
         with open(self.path, "rb") as f:
             for i in range(k, self.samples + 1):
@@ -546,11 +575,15 @@ class EncodedVideo:
                              f"picture {k + left} of decode order")
 
     def _decoded(self, start: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
-        """(index, BGR frame) of each picture from frame ``start`` on."""
+        """(index, BGR frame) of each picture from frame ``start`` on.  A
+        picture of another size than the stream's (a VP9 frame that changed
+        size, a VP8 key frame, an H.263 picture header) is scaled to it, as
+        cv2 hands every frame to swscale at its stream's size."""
         if self.box.codec != "mjpeg":
+            size = (self.width, self.height)
             for i, p in self.planes(start):
                 yield i, i420_to_bgr(*p, self.full_range, self.chroma,
-                                     self.matrix)
+                                     self.matrix, size)
             return
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "

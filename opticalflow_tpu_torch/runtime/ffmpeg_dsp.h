@@ -12,7 +12,9 @@
 //     range (yuv420p: what the MPEG-4 Part 2, VP8, rawvideo and yuv4mpeg
 //     decoders hand over) or full range (yuvj420p, yuvj422p, yuvj444p,
 //     yuvj440p, yuvj411p: FFmpeg's MJPEG decoder): the unscaled path above
-//     where swscale takes it, else its scaler (scaled_to_bgr).
+//     where swscale takes it, else its scaler (scale_to_bgr), which also
+//     takes planes from one size to another, luma and chroma, as cv2
+//     converts a picture of another size than its stream's first.
 //
 // Header only; each including source is one shared library.
 
@@ -210,8 +212,10 @@ inline void yuv_to_bgr_nearest(const uint8_t* y, const uint8_t* u, const uint8_t
 }
 
 // --------------------------------------------- swscale's scaler, BGR24
-// The path swscale takes for YUV planes it cannot convert unscaled (4:4:4, 4:4:0, 4:1:1, and 4:2:0 or 4:2:2 at an odd height):
-// luma is copied (identity filters), chroma goes through initFilter's
+// The path swscale takes for YUV planes it cannot convert unscaled (4:4:4,
+// 4:4:0, 4:1:1, 4:2:0 or 4:2:2 at an odd height, and planes of another
+// size than the output): luma is copied (identity filters) where the sizes
+// agree and scaled where they differ; chroma goes through initFilter's
 // bicubic filters (B = 0, C = 0.6; 14-bit horizontal, 12-bit vertical,
 // x86 filter alignment 4 and 2), hScale8To15 and the vertical pass.  The
 // output chroma is full width (SWS_FULL_CHR_H_INT, which swscale forces
@@ -454,43 +458,63 @@ inline int local_pos(int pos, int subsample) {
     return (pos + 128) >> subsample;
 }
 
-// The scaler: Y (w x h) and U, V at ceil(w >> hshift) x ceil(h >> vshift),
-// with the coefficients of the planes' range; the chroma sited at (hpos,
-// vpos) (1/256 of a luma sample; -1: swscale's default, centred), as
-// FFmpeg 8's swscale takes the decoder's chroma location.
-inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
-                          int cstride, int w, int h, int hshift, int vshift,
-                          const YuvCoeffs& k, uint8_t* bgr, int hpos = -1, int vpos = -1) {
+// The scaler: Y (sw x sh) and U, V at ceil(sw >> hshift) x ceil(sh >>
+// vshift), with the coefficients of the planes' range, to BGR24 at dw x dh;
+// the chroma sited at (hpos, vpos) (1/256 of a luma sample; -1: swscale's
+// default, centred), as FFmpeg 8's swscale takes the decoder's chroma
+// location.  Luma goes through its own bicubic filters, the identity where
+// the sizes agree.  The vertical pass is packed_vscale's choice: one tap
+// (or two that blend) of luma and chroma, yuv2packed1; else the general
+// yuv2packedX.  Returns false where swscale would take yuv2packed2 (two
+// blending luma taps, which no bicubic filter between two real sizes has),
+// which this header does not reproduce.
+inline bool scale_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
+                         int cstride, int sw, int sh, int hshift, int vshift, const YuvCoeffs& k,
+                         uint8_t* bgr, int dw, int dh, int hpos = -1, int vpos = -1) {
+    const int w = dw, h = dh;
     const bool full = (w & 1) || (hshift == 0 && vshift == 0);
-    const int csw = (w + (1 << hshift) - 1) >> hshift, csh = (h + (1 << vshift) - 1) >> vshift;
+    const int csw = (sw + (1 << hshift) - 1) >> hshift, csh = (sh + (1 << vshift) - 1) >> vshift;
     const int cdw = full ? w : (w + 1) >> 1;
+    const Filter lhf = init_filter(scale_inc(sw, w), sw, w, 4, 1 << 14);
+    const Filter lvf = init_filter(scale_inc(sh, h), sh, h, 2, 1 << 12);
     const Filter hf = init_filter(scale_inc(csw, cdw), csw, cdw, 4, 1 << 14,
                                   local_pos(hpos, hshift), local_pos(-1, full ? 0 : 1));
     const Filter vf = init_filter(scale_inc(csh, h), csh, h, 2, 1 << 12,
                                   local_pos(vpos, vshift), local_pos(-1, 0));
-    std::vector<int16_t> u15((size_t)csh * cdw), v15((size_t)csh * cdw);
+    const int lfs = lvf.size, fs = vf.size;
+    const bool lblend2 = lfs == 2 && [&] {
+        for (int r = 0; r < h; r++) {
+            const int* c = lvf.coef.data() + (size_t)r * 2;
+            if (c[0] + c[1] != 4096 || (unsigned)c[1] > 4096u) return false;
+        }
+        return true;
+    }();
+    std::vector<int16_t> y15((size_t)sh * w), u15((size_t)csh * cdw), v15((size_t)csh * cdw);
+    for (int r = 0; r < sh; r++) hscale8to15(y + (size_t)r * ystride, sw, lhf, w, y15.data() + (size_t)r * w);
     for (int r = 0; r < csh; r++) {
         hscale8to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw);
         hscale8to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw);
     }
     const RgbTables& tab = rgb_tables(k.yoff != 0, k.matrix);
-    const int fs = vf.size;
-    std::vector<int> U(cdw), V(cdw);
+    std::vector<int> U(cdw), V(cdw), Y(w);
     for (int r = 0; r < h; r++) {
-        const uint8_t* py = y + (size_t)r * ystride;
         uint8_t* out = bgr + (size_t)r * w * 3;
         const int* c = vf.coef.data() + (size_t)r * fs;
+        const int* lc = lvf.coef.data() + (size_t)r * lfs;
+        const int16_t* y0 = y15.data() + (size_t)lvf.pos[r] * w;
         const int16_t* u0 = u15.data() + (size_t)vf.pos[r] * cdw;
         const int16_t* v0 = v15.data() + (size_t)vf.pos[r] * cdw;
         // packed_vscale: one tap, or two that blend (yuv2packed1's uvalpha),
         // or the general filter (yuv2packedX)
         const bool blend2 = fs == 2 && c[0] + c[1] == 4096 && (unsigned)c[1] <= 4096u;
+        if (lfs == 2 && lblend2 && blend2) return false;   // yuv2packed2
+        const bool one = lfs == 1 && (fs == 1 || blend2);
         const int alpha = fs == 1 ? 0 : c[1];
         const int16_t* u1 = fs > 1 ? u0 + cdw : u0;
         const int16_t* v1 = fs > 1 ? v0 + cdw : v0;
         if (full) {  // yuv2bgr24_full_{1,X}_c
             for (int i = 0; i < cdw; i++) {
-                if (fs == 1 || blend2) {
+                if (one) {
                     U[i] = (u0[i] * (4096 - alpha) + u1[i] * alpha - (128 << 19)) >> 10;
                     V[i] = (v0[i] * (4096 - alpha) + v1[i] * alpha - (128 << 19)) >> 10;
                 } else {
@@ -503,12 +527,16 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
                     V[i] = sv >> 10;
                 }
             }
-            for (int x = 0; x < w; x++) full_pixel(py[x] << 9, U[x], V[x], k, out + 3 * x);
+            for (int x = 0; x < w; x++) {
+                int yy = 1 << 9;
+                for (int j = 0; j < lfs; j++) yy += y0[(size_t)j * w + x] * lc[j];
+                full_pixel(one ? y0[x] * 4 : yy >> 10, U[x], V[x], k, out + 3 * x);
+            }
             continue;
         }
         if (r < h - 2) {  // the MMXEXT functions: 8x-scale words
             for (int i = 0; i < cdw; i++) {
-                if (fs == 1 || blend2) {  // yuv2bgr24_1: nearest or average
+                if (one) {  // yuv2bgr24_1: nearest or average
                     if (alpha < 2048) {
                         U[i] = u0[i] >> 4;
                         V[i] = v0[i] >> 4;
@@ -526,19 +554,21 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
                     V[i] = sv;
                 }
             }
-            const int yadd = (fs == 1 || blend2) ? 0 : 4;
             for (int x = 0; x < w; x++) {
-                int y8 = (fs == 1 || blend2) ? (py[x] << 7) >> 4
-                                              : wrap16(yadd + mulhw(py[x] << 7, 4096));
+                int y8 = y0[x] >> 4;
+                if (!one) {
+                    y8 = 4;
+                    for (int j = 0; j < lfs; j++) y8 = wrap16(y8 + mulhw(y0[(size_t)j * w + x], lc[j]));
+                }
                 simd_pixel(y8, U[x >> 1], V[x >> 1], k, out + 3 * x);
             }
             continue;
         }
         for (int i = 0; i < cdw; i++) {  // the C functions, through the tables
-            if (fs == 1) {
+            if (fs == 1 && one) {
                 U[i] = (u0[i] + 64) >> 7;
                 V[i] = (v0[i] + 64) >> 7;
-            } else if (blend2) {
+            } else if (one) {
                 U[i] = (u0[i] * (4096 - alpha) + u1[i] * alpha + (128 << 11)) >> 19;
                 V[i] = (v0[i] * (4096 - alpha) + v1[i] * alpha + (128 << 11)) >> 19;
             } else {
@@ -552,18 +582,19 @@ inline void scaled_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const
             }
         }
         for (int x = 0; x < w; x++) {
-            int Y = (fs == 1 || blend2) ? ((py[x] << 7) + 64) >> 7
-                                        : ((py[x] << 7) * 4096 + (1 << 18)) >> 19;
-            tab.pixel(Y, U[x >> 1], V[x >> 1], out + 3 * x);
+            int yy = 1 << 18;
+            for (int j = 0; j < lfs; j++) yy += y0[(size_t)j * w + x] * lc[j];
+            tab.pixel(one ? (y0[x] + 64) >> 7 : yy >> 19, U[x >> 1], V[x >> 1], out + 3 * x);
         }
     }
+    return true;
 }
 
 // Planes -> BGR24 as swscale converts them: 4:2:0 (hshift 1, vshift 1)
 // and 4:2:2 (1, 0) at an even height unscaled, everything else (an odd
 // height, other subsamplings) through the scaler, which takes full-width
 // chroma for an odd width and the chroma sites (hpos, vpos; see
-// scaled_to_bgr).  k: kVideoRange or kFullRange (FFmpeg's yuvj formats),
+// scale_to_bgr).  k: kVideoRange or kFullRange (FFmpeg's yuvj formats),
 // or yuv_coeffs' for another matrix or a range the decoder reports.
 inline void yuv_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
                        int cstride, int w, int h, int hshift, int vshift,
@@ -571,7 +602,7 @@ inline void yuv_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const ui
     if (hshift == 1 && vshift <= 1 && !(h & 1))
         yuv_to_bgr_nearest(y, u, v, w, h, ystride, cstride, vshift, k, bgr);
     else
-        scaled_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, hpos, vpos);
+        scale_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, w, h, hpos, vpos);
 }
 
 }  // namespace ffdsp

@@ -63,7 +63,7 @@ enum Feature {
     F_BROKEN_LINK, F_LOW_DELAY, F_FULL_PEL, F_ESCAPE, F_ESCAPE_LONG,
     F_MB_QUANT, F_MB_ESCAPE, F_MB_STUFFING, F_FORWARD, F_BACKWARD,
     F_BIDIRECTIONAL, F_NO_MC, F_FRAME_MOTION_TYPE, F_INTERLACED_SEQUENCE,
-    F_ODDIFY_ZERO, F_MISMATCH
+    F_ODDIFY_ZERO, F_MISMATCH, F_SIZE_CHANGE
 };
 
 // ------------------------------------------------------------------ tables
@@ -283,9 +283,14 @@ struct Decoder {
         }
         br.check();
         if (!width || !height) CORRUPT("sequence header of size %dx%d", width, height);
-        if (have_seq && (width != (seq.width & 0xfff) || height != (seq.height & 0xfff)))
-            UNSUPPORTED("a size change from %dx%d to %dx%d within the stream", seq.width,
-                        seq.height, width, height);
+        if (have_seq && (width != (seq.width & 0xfff) || height != (seq.height & 0xfff))) {
+            // FFmpeg reinitialises its context at the new size: the
+            // reference pictures go, the one held back for display too
+            feature(F_SIZE_CHANGE);
+            last.reset();
+            next.reset();
+            last_dummy = false;
+        }
         s.width = width;
         s.height = height;
         s.mpeg2 = false;                // until a sequence extension follows

@@ -23,7 +23,7 @@ import ctypes
 import threading
 from fractions import Fraction
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -59,7 +59,7 @@ FEATURES = ("mpeg1", "mpeg2", "p_pictures", "b_pictures", "skipped_p",
             "full_pel", "escape", "escape_long", "mb_quant", "mb_escape",
             "mb_stuffing", "forward", "backward", "bidirectional", "no_mc",
             "frame_motion_type", "interlaced_sequence", "oddify_zero",
-            "mismatch")
+            "mismatch", "size_change")
 
 # the chroma site FFmpeg reports to swscale: centred for MPEG-1, left (co-
 # sited with the even luma columns) for MPEG-2
@@ -243,17 +243,24 @@ def picture_info(sample: bytes) -> Tuple[int, Optional[bool]]:
 
 
 def output_order(types: List[int], closed: List[Optional[bool]],
-                 low_delay: bool = False) -> List[int]:
+                 low_delay: bool = False,
+                 resets: Iterable[int] = ()) -> List[int]:
     """The pictures FFmpeg's decoder hands over, in order, for a stream (or
     what follows a seek: the decoder starts flushed) fed from its first
     picture on (types and GOP flags in decode order): a B-picture is handed
     over when decoded (as is any picture of a low_delay stream), an I- or
     P-picture when the next one comes, the last at the end; a B-picture
     without a forward reference in an open GOP, and a P-picture before any
-    sync point (an I-picture or GOP header), are dropped."""
+    sync point (an I-picture or GOP header), are dropped.  At each picture
+    of ``resets`` (a sequence header of another size before it) FFmpeg
+    reinitialises: the reference pictures are dropped, the one held back
+    for display among them."""
     out: List[int] = []
     refs, prev, gop_closed, synced = 0, None, False, False
+    resets = set(resets)
     for i, (t, c) in enumerate(zip(types, closed)):
+        if i in resets:
+            refs, prev = 0, None
         if c is not None:
             gop_closed, synced = c, True
         if t == 1:
@@ -274,10 +281,11 @@ def output_order(types: List[int], closed: List[Optional[bool]],
 
 
 def display_order(types: List[int], closed: List[Optional[bool]],
-                  low_delay: bool = False) -> List[Optional[int]]:
+                  low_delay: bool = False,
+                  resets: Iterable[int] = ()) -> List[Optional[int]]:
     """The display index of each picture of a stream decoded from its start
     (``output_order``), None for a picture the decoder drops."""
     disp: List[Optional[int]] = [None] * len(types)
-    for d, i in enumerate(output_order(types, closed, low_delay)):
+    for d, i in enumerate(output_order(types, closed, low_delay, resets)):
         disp[i] = d
     return disp

@@ -58,24 +58,6 @@ enum { OM4_OK = kOk, OM4_NO_FRAME = kNoFrame, OM4_UNSUPPORTED = kUnsupported,
 
 // ------------------------------------------------------------------ tables
 
-// MCBPC of I-VOPs: index = cbpc | 4 * (intra+q); 8 = stuffing
-const Code kIntraMcbpc[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
-                             {1, 6}, {2, 6}, {3, 6}, {1, 9}};
-// MCBPC of P-VOPs: index = cbpc | 4 * type, type 0 inter, 1 intra,
-// 2 inter+q, 3 intra+q, 4 inter4v; 20 = stuffing (FFmpeg's order)
-const Code kInterMcbpc[21] = {
-    {1, 1}, {3, 4}, {2, 4}, {5, 6}, {3, 5}, {4, 8}, {3, 8},
-    {3, 7}, {3, 3}, {7, 7}, {6, 7}, {5, 9}, {4, 6}, {4, 9},
-    {3, 9}, {2, 9}, {2, 3}, {5, 7}, {4, 7}, {5, 8}, {1, 9}};
-const Code kCbpy[16] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
-                        {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
-                        {4, 4}, {8, 4}, {6, 4}, {3, 2}};
-const Code kMvd[33] = {
-    {1, 1},   {1, 2},   {1, 3},   {1, 4},   {3, 6},   {5, 7},   {4, 7},
-    {3, 7},   {11, 9},  {10, 9},  {9, 9},   {17, 10}, {16, 10}, {15, 10},
-    {14, 10}, {13, 10}, {12, 10}, {11, 10}, {10, 10}, {9, 10},  {8, 10},
-    {7, 10},  {6, 10},  {5, 10},  {4, 10},  {7, 11},  {6, 11},  {5, 11},
-    {4, 11},  {3, 11},  {2, 11},  {3, 12},  {2, 12}};
 const Code kDcLum[13] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3},
                          {1, 4}, {1, 5}, {1, 6}, {1, 7}, {1, 8},
                          {1, 9}, {1, 10}, {1, 11}};
@@ -83,34 +65,7 @@ const Code kDcChrom[13] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},
                            {1, 5}, {1, 6}, {1, 7}, {1, 8}, {1, 9},
                            {1, 10}, {1, 11}, {1, 12}};
 
-// TCOEF: 102 (last, run, level) codes in (last, run, level) order, then
-// the escape.  The run/level of each code follow from the largest level
-// of each (last, run), listed per table below.
-const Code kInterTcoef[103] = {
-    {0x2, 2},   {0xf, 4},   {0x15, 6},  {0x17, 7},  {0x1f, 8},  {0x25, 9},
-    {0x24, 9},  {0x21, 10}, {0x20, 10}, {0x7, 11},  {0x6, 11},  {0x20, 11},
-    {0x6, 3},   {0x14, 6},  {0x1e, 8},  {0xf, 10},  {0x21, 11}, {0x50, 12},
-    {0xe, 4},   {0x1d, 8},  {0xe, 10},  {0x51, 12}, {0xd, 5},   {0x23, 9},
-    {0xd, 10},  {0xc, 5},   {0x22, 9},  {0x52, 12}, {0xb, 5},   {0xc, 10},
-    {0x53, 12}, {0x13, 6},  {0xb, 10},  {0x54, 12}, {0x12, 6},  {0xa, 10},
-    {0x11, 6},  {0x9, 10},  {0x10, 6},  {0x8, 10},  {0x16, 7},  {0x55, 12},
-    {0x15, 7},  {0x14, 7},  {0x1c, 8},  {0x1b, 8},  {0x21, 9},  {0x20, 9},
-    {0x1f, 9},  {0x1e, 9},  {0x1d, 9},  {0x1c, 9},  {0x1b, 9},  {0x1a, 9},
-    {0x22, 11}, {0x23, 11}, {0x56, 12}, {0x57, 12}, {0x7, 4},   {0x19, 9},
-    {0x5, 11},  {0xf, 6},   {0x4, 11},  {0xe, 6},   {0xd, 6},   {0xc, 6},
-    {0x13, 7},  {0x12, 7},  {0x11, 7},  {0x10, 7},  {0x1a, 8},  {0x19, 8},
-    {0x18, 8},  {0x17, 8},  {0x16, 8},  {0x15, 8},  {0x14, 8},  {0x13, 8},
-    {0x18, 9},  {0x17, 9},  {0x16, 9},  {0x15, 9},  {0x14, 9},  {0x13, 9},
-    {0x12, 9},  {0x11, 9},  {0x7, 10},  {0x6, 10},  {0x5, 10},  {0x4, 10},
-    {0x24, 11}, {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12},
-    {0x5a, 12}, {0x5b, 12}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12},
-    {0x3, 7}};
-const int kInterMaxLevel0[] = {12, 6, 4, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1,
-                               1,  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
-const int kInterMaxLevel1[] = {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-                               1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-                               1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
-
+// MPEG-4's intra TCOEF (the inter one, H.263's, is in mpeg_common.h)
 const Code kIntraTcoef[103] = {
     {0x2, 2},   {0x6, 3},   {0xf, 4},   {0xd, 5},   {0xc, 5},   {0x15, 6},
     {0x13, 6},  {0x12, 6},  {0x17, 7},  {0x1f, 8},  {0x1e, 8},  {0x1d, 8},
@@ -151,7 +106,6 @@ const uint8_t kDefaultInterMatrix[64] = {
     20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
     22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
 
-const int kDquant[4] = {-1, -2, 1, 2};
 const int kDcThreshold[8] = {32, 13, 15, 17, 19, 21, 23, 0};
 
 int y_dc_scale(int q) {
@@ -159,49 +113,12 @@ int y_dc_scale(int q) {
 }
 int c_dc_scale(int q) { return q < 5 ? 8 : q < 25 ? (q + 13) / 2 : q - 6; }
 
-// A TCOEF table with its run/level bookkeeping (for the escapes).
-struct RunLevel {
-    Vlc vlc;
-    const Code* codes;
-    uint8_t last[102], run[102], level[102];
-    int max_level[2][64];     // by run
-    int max_run[2][64];       // by level
-    int index[2][64][28];     // (last, run, level) -> code, -1 if none
-    void build(const Code* c, const int* ml0, int n0, const int* ml1, int n1) {
-        codes = c;
-        vlc.build(c, 103, 12);
-        memset(max_level, 0, sizeof max_level);
-        memset(max_run, 0, sizeof max_run);
-        memset(index, -1, sizeof index);
-        int k = 0;
-        for (int l = 0; l < 2; l++) {
-            const int* ml = l ? ml1 : ml0;
-            int n = l ? n1 : n0;
-            for (int r = 0; r < n; r++) {
-                max_level[l][r] = ml[r];
-                for (int v = 1; v <= ml[r]; v++) {
-                    last[k] = (uint8_t)l;
-                    run[k] = (uint8_t)r;
-                    level[k] = (uint8_t)v;
-                    index[l][r][v] = k;
-                    max_run[l][v] = std::max(max_run[l][v], r);
-                    k++;
-                }
-            }
-        }
-        if (k != 102) {
-            fprintf(stderr, "mpeg4: TCOEF table has %d codes\n", k);
-            abort();
-        }
-    }
-};
-
 struct Tables {
     Vlc intra_mcbpc, inter_mcbpc, cbpy, mvd, dc_lum, dc_chrom;
     RunLevel inter, intra;
     Tables() {
         intra_mcbpc.build(kIntraMcbpc, 9, 9);
-        inter_mcbpc.build(kInterMcbpc, 21, 9);
+        inter_mcbpc.build(kInterMcbpc, 28, 13);
         cbpy.build(kCbpy, 16, 6);
         mvd.build(kMvd, 33, 12);
         dc_lum.build(kDcLum, 13, 11);
@@ -348,19 +265,14 @@ Vol parse_vol(BitReader& br) {
 // are addressed on an 8x8 grid with a border row on top and a border
 // column on either side that is never written: DC 1024, AC and MVs 0.
 
-struct Pred {
-    int mb_w = 0, mb_h = 0, ls = 0, cs = 0;
+struct Pred : MvPred {
+    int cs = 0;
     std::vector<int> dc[3];
     std::vector<int16_t> ac[3];     // 16 a block: [1..7] column 0, [9..15] row 0
-    std::vector<int16_t> mv;        // 2 a luma block
     std::vector<uint8_t> qs;        // a macroblock's quantiser
-    int resync_x = 0, resync_y = 0;
-    bool first_line = true;
 
     void init(int w, int h) {
-        mb_w = w;
-        mb_h = h;
-        ls = 2 * w + 2;
+        init_mv(w, h);
         cs = w + 2;
         size_t ln = (size_t)ls * (2 * h + 1), cn = (size_t)cs * (h + 1);
         dc[0].assign(ln, 1024);
@@ -369,13 +281,12 @@ struct Pred {
         ac[0].assign(ln * 16, 0);
         ac[1].assign(cn * 16, 0);
         ac[2].assign(cn * 16, 0);
-        mv.assign(ln * 2, 0);
         qs.assign((size_t)w * h, 1);
     }
     // (plane, grid index, grid stride) of block n of macroblock (x, y)
     int plane(int n) const { return n < 4 ? 0 : n - 3; }
     int index(int n, int x, int y) const {
-        if (n < 4) return (2 * y + (n >> 1) + 1) * ls + 2 * x + (n & 1) + 1;
+        if (n < 4) return block(n, x, y);
         return (y + 1) * cs + x + 1;
     }
     int wrap(int n) const { return n < 4 ? ls : cs; }
@@ -468,63 +379,6 @@ struct Pred {
         }
     }
 
-    int16_t* mv_at(int n, int x, int y) { return &mv[(size_t)index(n, x, y) * 2]; }
-    // ff_h263_pred_motion (h263_pred set, as for MPEG-4)
-    void pred_mv(int n, int x, int y, int* px, int* py) {
-        static const int off[4] = {2, 1, 1, -1};
-        int16_t* m = mv_at(n, x, y);
-        const int w2 = ls * 2;
-        int16_t* A = m - 2;
-        if (first_line && n < 3) {
-            if (n == 0) {
-                if (x == resync_x) {
-                    *px = *py = 0;
-                } else if (x + 1 == resync_x) {
-                    const int16_t* C = m + off[n] * 2 - w2;
-                    if (x == 0) {
-                        *px = C[0];
-                        *py = C[1];
-                    } else {
-                        *px = mid(A[0], 0, C[0]);
-                        *py = mid(A[1], 0, C[1]);
-                    }
-                } else {
-                    *px = A[0];
-                    *py = A[1];
-                }
-            } else if (n == 1) {
-                if (x + 1 == resync_x) {
-                    const int16_t* C = m + off[n] * 2 - w2;
-                    *px = mid(A[0], 0, C[0]);
-                    *py = mid(A[1], 0, C[1]);
-                } else {
-                    *px = A[0];
-                    *py = A[1];
-                }
-            } else {
-                const int16_t* B = m - w2;
-                const int16_t* C = m + off[n] * 2 - w2;
-                if (x == resync_x) A[0] = A[1] = 0;
-                *px = mid(A[0], B[0], C[0]);
-                *py = mid(A[1], B[1], C[1]);
-            }
-        } else {
-            const int16_t* B = m - w2;
-            const int16_t* C = m + off[n] * 2 - w2;
-            *px = mid(A[0], B[0], C[0]);
-            *py = mid(A[1], B[1], C[1]);
-        }
-    }
-    static int mid(int a, int b, int c) {
-        return std::max(std::min(a, b), std::min(std::max(a, b), c));
-    }
-    void set_mv16(int x, int y, int mx, int my) {
-        for (int n = 0; n < 4; n++) {
-            int16_t* m = mv_at(n, x, y);
-            m[0] = (int16_t)mx;
-            m[1] = (int16_t)my;
-        }
-    }
 };
 
 // ------------------------------------------------------------- decoder
@@ -792,23 +646,7 @@ class Decoder {
         br.check();
     }
 
-    int read_mv(int pred_v) {
-        int code = br.vlc(tables().mvd);
-        if (code == 0) return pred_v;
-        int sign = br.get1();
-        int shift = fcode - 1;
-        int val = code;
-        if (shift) {
-            val = (val - 1) << shift;
-            val |= (int)br.get(shift);
-            val++;
-        }
-        if (sign) val = -val;
-        val += pred_v;
-        int bits = 5 + fcode;   // sign_extend(val, 5 + f_code)
-        val = (int)((uint32_t)val << (32 - bits)) >> (32 - bits);
-        return val;
-    }
+    int read_mv(int pred_v) { return read_motion(br, tables().mvd, pred_v, fcode); }
 
     // one TCOEF event: (last, run, level) with the escapes resolved
     void read_tcoef(const RunLevel& rl, int* last, int* run, int* level, bool* esc3) {
@@ -982,49 +820,20 @@ class Decoder {
     void motion(MbData& mb, int x, int y, uint8_t* dy, uint8_t* du, uint8_t* dv) {
         // FFmpeg's reference edges: the macroblock-aligned size, not the
         // display size (the padding macroblocks' pixels are read)
-        const Plane* r = ref.p;
-        const int ew = vol.mb_w * 16, eh = vol.mb_h * 16;
+        const Edges e{vol.mb_w * 16, vol.mb_h * 16, vol.width, vol.height};
         const int ls = cur.p[0].w, cs = cur.p[1].w;
-        if (!mb.mv4) {   // mpeg_motion_internal, 16x16
-            int mx = mb.mv[0][0], my = mb.mv[0][1];
-            int dxy = ((my & 1) << 1) | (mx & 1);
-            int sx = x * 16 + (mx >> 1), sy = y * 16 + (my >> 1);
-            mc_block(r[0], ew, eh, sx, sy, dxy, 16, 16, no_rnd, dy, ls);
-            int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-            int ux = sx >> 1, uy = sy >> 1;
-            mc_block(r[1], ew >> 1, eh >> 1, ux, uy, uvdxy, 8, 8, no_rnd, du, cs);
-            mc_block(r[2], ew >> 1, eh >> 1, ux, uy, uvdxy, 8, 8, no_rnd, dv, cs);
+        if (!mb.mv4) {
+            mpeg_motion(ref, e, x, y, mb.mv[0][0], mb.mv[0][1], no_rnd, dy, du, dv, ls, cs);
             return;
         }
         int sumx = 0, sumy = 0;
-        for (int i = 0; i < 4; i++) {   // hpel_motion, 8x8
-            int mx = mb.mv[i][0], my = mb.mv[i][1];
-            int sx = x * 16 + (i & 1) * 8 + (mx >> 1);
-            int sy = y * 16 + (i >> 1) * 8 + (my >> 1);
-            int dxy = 0;
-            sx = std::min(std::max(sx, -16), vol.width);
-            if (sx != vol.width) dxy |= mx & 1;
-            sy = std::min(std::max(sy, -16), vol.height);
-            if (sy != vol.height) dxy |= (my & 1) << 1;
-            mc_block(r[0], ew, eh, sx, sy, dxy, 8, 8, no_rnd,
-                     dy + (i & 1) * 8 + (i >> 1) * 8 * ls, ls);
-            sumx += mx;
-            sumy += my;
+        for (int i = 0; i < 4; i++) {
+            hpel_motion(ref.p[0], e, x * 16 + (i & 1) * 8, y * 16 + (i >> 1) * 8, mb.mv[i][0],
+                        mb.mv[i][1], no_rnd, dy + (i & 1) * 8 + (i >> 1) * 8 * ls, ls);
+            sumx += mb.mv[i][0];
+            sumy += mb.mv[i][1];
         }
-        // chroma_4mv_motion
-        static const int round16[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
-        int mx = 2 * (sumx >> 4) + round16[sumx & 15];
-        int my = 2 * (sumy >> 4) + round16[sumy & 15];
-        int dxy = ((my & 1) << 1) | (mx & 1);
-        mx >>= 1;
-        my >>= 1;
-        int sx = x * 8 + mx, sy = y * 8 + my;
-        sx = std::min(std::max(sx, -8), vol.width >> 1);
-        if (sx == (vol.width >> 1)) dxy &= ~1;
-        sy = std::min(std::max(sy, -8), vol.height >> 1);
-        if (sy == (vol.height >> 1)) dxy &= ~2;
-        mc_block(r[1], ew >> 1, eh >> 1, sx, sy, dxy, 8, 8, no_rnd, du, cs);
-        mc_block(r[2], ew >> 1, eh >> 1, sx, sy, dxy, 8, 8, no_rnd, dv, cs);
+        chroma_4mv_motion(ref, e, x, y, sumx, sumy, no_rnd, du, dv, cs);
     }
 
     // the last decoded picture's planes at the display size
@@ -1791,6 +1600,17 @@ void om4_yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                        int matrix, uint8_t* bgr) {
     ffdsp::yuv_to_bgr(y, ystride, u, v, cstride, w, h, 1, 1,
                       ffdsp::yuv_coeffs(matrix, full != 0), bgr, hpos, vpos);
+}
+
+// The same planes (sw x sh) -> BGR24 at dw x dh, scaled as swscale scales
+// them; 0, or -1 where swscale would take a path ffmpeg_dsp.h lacks
+int om4_yuv420_scale_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                            int sw, int sh, int ystride, int cstride, int full, int hpos,
+                            int vpos, int matrix, int dw, int dh, uint8_t* bgr) {
+    return ffdsp::scale_to_bgr(y, ystride, u, v, cstride, sw, sh, 1, 1,
+                               ffdsp::yuv_coeffs(matrix, full != 0), bgr, dw, dh, hpos, vpos)
+               ? 0
+               : -1;
 }
 
 // ---- encoder

@@ -66,6 +66,8 @@ def load() -> ctypes.CDLL:
             "om4_dec_decode": (ctypes.c_int, [_P, ctypes.c_char_p, _I64, _I64P,
                                               ctypes.c_char_p, _I64]),
             "om4_dec_output": (None, [_P, _P, _P, _P]),
+            "om4_yuv420_scale_to_bgr": (ctypes.c_int, [_P, _P, _P]
+                                        + [ctypes.c_int] * 10 + [_P]),
             "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
                                   + [_P]),
             "om4_to_i420": (None, [_P, ctypes.c_int, ctypes.c_int,
@@ -164,7 +166,8 @@ MATRICES = ("bt601", "bt709", "smpte240m", "bt2020", "fcc")
 def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                 full_range: bool = False,
                 chroma: Optional[Tuple[int, int]] = None,
-                matrix: str = "bt601") -> np.ndarray:
+                matrix: str = "bt601",
+                size: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """(H, W) Y and (⌈H/2⌉, ⌈W/2⌉) U, V uint8 planes → (H, W, 3) BGR as
     swscale converts them for ``cv2.VideoCapture`` (BT.601, video range, or
     full range where ``full_range``): its x86 yuv2rgb with nearest chroma at
@@ -173,18 +176,30 @@ def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     site the decoder reports (``chroma``: an (x, y) site, one of
     ``CHROMA_SITES``' values; None for none), with the matrix swscale is
     handed (``MATRICES``: BT.601 unless a VP9 stream names another).
-    Every decoder of the port that hands over 4:2:0 planes (MPEG-4 Part 2,
-    VP8, VP9, raw I420, ``.y4m``) converts here."""
+    ``size`` (width, height) other than the planes' scales them there,
+    luma and chroma through swscale's bicubic filters, as cv2 converts a
+    picture of another size than its stream's first.  Every decoder of the
+    port that hands over 4:2:0 planes (MPEG-4 Part 2, VP8, VP9, H.263, raw
+    I420, ``.y4m``) converts here."""
     h, w = y.shape
     ys, us, vs = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     if us.shape != ((h + 1) // 2, (w + 1) // 2) or vs.shape != us.shape:
         raise ValueError(f"chroma planes {us.shape}, {vs.shape} do not match "
                          f"a {h}x{w} luma plane")
-    out = np.empty((h, w, 3), np.uint8)
     hpos, vpos = chroma or (-1, -1)
-    load().om4_yuv420_to_bgr(_ptr(ys), _ptr(us), _ptr(vs), w, h, w,
-                             us.shape[1], int(full_range), hpos, vpos,
-                             MATRICES.index(matrix), _ptr(out))
+    dw, dh = size or (w, h)
+    out = np.empty((dh, dw, 3), np.uint8)
+    if (dw, dh) == (w, h):
+        load().om4_yuv420_to_bgr(_ptr(ys), _ptr(us), _ptr(vs), w, h, w,
+                                 us.shape[1], int(full_range), hpos, vpos,
+                                 MATRICES.index(matrix), _ptr(out))
+    elif load().om4_yuv420_scale_to_bgr(
+            _ptr(ys), _ptr(us), _ptr(vs), w, h, w, us.shape[1],
+            int(full_range), hpos, vpos, MATRICES.index(matrix), dw, dh,
+            _ptr(out)):
+        raise Unsupported(f"a {w}x{h} picture scaled to {dw}x{dh} through "
+                          "swscale's two-tap luma path, not read by the port "
+                          f"({ITEM_8})")
     return out
 
 

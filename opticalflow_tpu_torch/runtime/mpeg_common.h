@@ -1,7 +1,11 @@
-// The parts of an MPEG video decoder that MPEG-1/2 (mpeg12.cpp) and
-// MPEG-4 Part 2 (mpeg4.cpp) share, as FFmpeg 8's decoders run them: errors
-// as C++ exceptions with a message, VLC tables over a bit reader, the scans,
-// macroblock-aligned planes and half-pel block prediction.
+// The parts of an MPEG video decoder that MPEG-1/2 (mpeg12.cpp), MPEG-4
+// Part 2 (mpeg4.cpp) and H.263 (h263.cpp) share, as FFmpeg 8's decoders run
+// them: errors as C++ exceptions with a message, VLC tables over a bit
+// reader, the scans, macroblock-aligned planes and half-pel block
+// prediction; and what MPEG-4 Part 2 took from H.263: the MCBPC, CBPY, MVD
+// and inter TCOEF codes, motion-vector prediction (ff_h263_pred_motion) and
+// decoding, and 16x16 and 8x8 half-pel motion compensation with H.263's
+// chroma vector.
 //
 // Header only; each including source is one shared library.
 
@@ -215,6 +219,249 @@ inline void mc_block(const Plane& ref, int ew, int eh, int sx, int sy, int dxy,
                 }
         }
     }
+}
+
+// ------------------------------------------- H.263's macroblock layer
+
+// MCBPC of I-VOPs: index = cbpc | 4 * (intra+q); 8 = stuffing
+inline const Code kIntraMcbpc[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
+                             {1, 6}, {2, 6}, {3, 6}, {1, 9}};
+// MCBPC of P-VOPs: index = cbpc | 4 * type, type 0 inter, 1 intra,
+// 2 inter+q, 3 intra+q, 4 inter4v, 6 inter4v+q; 20 = stuffing, 21-23
+// unused (FFmpeg's order and its 28 codes: the inter4v+q ones come from
+// H.263's Annex F with DQUANT, which FFmpeg's VLC reads for both codecs)
+inline const Code kInterMcbpc[28] = {
+    {1, 1},   {3, 4},   {2, 4},   {5, 6},   {3, 5},   {4, 8},   {3, 8},
+    {3, 7},   {3, 3},   {7, 7},   {6, 7},   {5, 9},   {4, 6},   {4, 9},
+    {3, 9},   {2, 9},   {2, 3},   {5, 7},   {4, 7},   {5, 8},   {1, 9},
+    {0, 0},   {0, 0},   {0, 0},   {2, 11},  {12, 13}, {14, 13}, {15, 13}};
+inline const Code kCbpy[16] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
+                        {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
+                        {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+inline const Code kMvd[33] = {
+    {1, 1},   {1, 2},   {1, 3},   {1, 4},   {3, 6},   {5, 7},   {4, 7},
+    {3, 7},   {11, 9},  {10, 9},  {9, 9},   {17, 10}, {16, 10}, {15, 10},
+    {14, 10}, {13, 10}, {12, 10}, {11, 10}, {10, 10}, {9, 10},  {8, 10},
+    {7, 10},  {6, 10},  {5, 10},  {4, 10},  {7, 11},  {6, 11},  {5, 11},
+    {4, 11},  {3, 11},  {2, 11},  {3, 12},  {2, 12}};
+
+// TCOEF: 102 (last, run, level) codes in (last, run, level) order, then
+// the escape.  The run/level of each code follow from the largest level
+// of each (last, run), listed per table below.
+inline const Code kInterTcoef[103] = {
+    {0x2, 2},   {0xf, 4},   {0x15, 6},  {0x17, 7},  {0x1f, 8},  {0x25, 9},
+    {0x24, 9},  {0x21, 10}, {0x20, 10}, {0x7, 11},  {0x6, 11},  {0x20, 11},
+    {0x6, 3},   {0x14, 6},  {0x1e, 8},  {0xf, 10},  {0x21, 11}, {0x50, 12},
+    {0xe, 4},   {0x1d, 8},  {0xe, 10},  {0x51, 12}, {0xd, 5},   {0x23, 9},
+    {0xd, 10},  {0xc, 5},   {0x22, 9},  {0x52, 12}, {0xb, 5},   {0xc, 10},
+    {0x53, 12}, {0x13, 6},  {0xb, 10},  {0x54, 12}, {0x12, 6},  {0xa, 10},
+    {0x11, 6},  {0x9, 10},  {0x10, 6},  {0x8, 10},  {0x16, 7},  {0x55, 12},
+    {0x15, 7},  {0x14, 7},  {0x1c, 8},  {0x1b, 8},  {0x21, 9},  {0x20, 9},
+    {0x1f, 9},  {0x1e, 9},  {0x1d, 9},  {0x1c, 9},  {0x1b, 9},  {0x1a, 9},
+    {0x22, 11}, {0x23, 11}, {0x56, 12}, {0x57, 12}, {0x7, 4},   {0x19, 9},
+    {0x5, 11},  {0xf, 6},   {0x4, 11},  {0xe, 6},   {0xd, 6},   {0xc, 6},
+    {0x13, 7},  {0x12, 7},  {0x11, 7},  {0x10, 7},  {0x1a, 8},  {0x19, 8},
+    {0x18, 8},  {0x17, 8},  {0x16, 8},  {0x15, 8},  {0x14, 8},  {0x13, 8},
+    {0x18, 9},  {0x17, 9},  {0x16, 9},  {0x15, 9},  {0x14, 9},  {0x13, 9},
+    {0x12, 9},  {0x11, 9},  {0x7, 10},  {0x6, 10},  {0x5, 10},  {0x4, 10},
+    {0x24, 11}, {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12},
+    {0x5a, 12}, {0x5b, 12}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12},
+    {0x3, 7}};
+inline const int kInterMaxLevel0[] = {12, 6, 4, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1,
+                               1,  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+inline const int kInterMaxLevel1[] = {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                               1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                               1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+
+
+inline constexpr int kDquant[4] = {-1, -2, 1, 2};
+
+// A TCOEF table with its run/level bookkeeping (for the escapes).
+struct RunLevel {
+    Vlc vlc;
+    const Code* codes;
+    uint8_t last[102], run[102], level[102];
+    int max_level[2][64];     // by run
+    int max_run[2][64];       // by level
+    int index[2][64][28];     // (last, run, level) -> code, -1 if none
+    void build(const Code* c, const int* ml0, int n0, const int* ml1, int n1) {
+        codes = c;
+        vlc.build(c, 103, 12);
+        memset(max_level, 0, sizeof max_level);
+        memset(max_run, 0, sizeof max_run);
+        memset(index, -1, sizeof index);
+        int k = 0;
+        for (int l = 0; l < 2; l++) {
+            const int* ml = l ? ml1 : ml0;
+            int n = l ? n1 : n0;
+            for (int r = 0; r < n; r++) {
+                max_level[l][r] = ml[r];
+                for (int v = 1; v <= ml[r]; v++) {
+                    last[k] = (uint8_t)l;
+                    run[k] = (uint8_t)r;
+                    level[k] = (uint8_t)v;
+                    index[l][r][v] = k;
+                    max_run[l][v] = std::max(max_run[l][v], r);
+                    k++;
+                }
+            }
+        }
+        if (k != 102) {
+            fprintf(stderr, "TCOEF table has %d codes\n", k);
+            abort();
+        }
+    }
+};
+
+
+inline int mid_pred(int a, int b, int c) {
+    return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+
+// ff_h263_decode_motion: one vector component from its MVD code and the
+// prediction, wrapped to 5 + fcode bits (no long vectors)
+inline int read_motion(BitReader& br, const Vlc& mvd, int pred, int fcode) {
+    int code = br.vlc(mvd);
+    if (code == 0) return pred;
+    int sign = br.get1();
+    int shift = fcode - 1;
+    int val = code;
+    if (shift) {
+        val = (val - 1) << shift;
+        val |= (int)br.get(shift);
+        val++;
+    }
+    if (sign) val = -val;
+    val += pred;
+    int bits = 5 + fcode;   // sign_extend(val, 5 + f_code)
+    return (int)((uint32_t)val << (32 - bits)) >> (32 - bits);
+}
+
+// The motion vectors of a picture's luma blocks, on an 8x8 grid with a
+// border row on top and a border column on either side that is never
+// written (0), and the slice the current macroblock belongs to.
+struct MvPred {
+    int mb_w = 0, mb_h = 0, ls = 0;
+    std::vector<int16_t> mv;        // 2 a luma block
+    int resync_x = 0, resync_y = 0;
+    bool first_line = true;
+
+    void init_mv(int w, int h) {
+        mb_w = w;
+        mb_h = h;
+        ls = 2 * w + 2;
+        mv.assign((size_t)ls * (2 * h + 1) * 2, 0);
+    }
+    // the grid index of luma block n of macroblock (x, y)
+    int block(int n, int x, int y) const { return (2 * y + (n >> 1) + 1) * ls + 2 * x + (n & 1) + 1; }
+    int16_t* mv_at(int n, int x, int y) { return &mv[(size_t)block(n, x, y) * 2]; }
+    // ff_h263_pred_motion; h263_pred (MPEG-4's, not H.263's) takes the
+    // above-right vector into the first line's prediction before a resync
+    void pred_mv(int n, int x, int y, int* px, int* py, bool h263_pred = true) {
+        static const int off[4] = {2, 1, 1, -1};
+        int16_t* m = mv_at(n, x, y);
+        const int w2 = ls * 2;
+        int16_t* A = m - 2;
+        auto mid = mid_pred;
+        if (first_line && n < 3) {
+            if (n == 0) {
+                if (x == resync_x) {
+                    *px = *py = 0;
+                } else if (x + 1 == resync_x && h263_pred) {
+                    const int16_t* C = m + off[n] * 2 - w2;
+                    if (x == 0) {
+                        *px = C[0];
+                        *py = C[1];
+                    } else {
+                        *px = mid(A[0], 0, C[0]);
+                        *py = mid(A[1], 0, C[1]);
+                    }
+                } else {
+                    *px = A[0];
+                    *py = A[1];
+                }
+            } else if (n == 1) {
+                if (x + 1 == resync_x && h263_pred) {
+                    const int16_t* C = m + off[n] * 2 - w2;
+                    *px = mid(A[0], 0, C[0]);
+                    *py = mid(A[1], 0, C[1]);
+                } else {
+                    *px = A[0];
+                    *py = A[1];
+                }
+            } else {
+                const int16_t* B = m - w2;
+                const int16_t* C = m + off[n] * 2 - w2;
+                if (x == resync_x) A[0] = A[1] = 0;
+                *px = mid(A[0], B[0], C[0]);
+                *py = mid(A[1], B[1], C[1]);
+            }
+        } else {
+            const int16_t* B = m - w2;
+            const int16_t* C = m + off[n] * 2 - w2;
+            *px = mid(A[0], B[0], C[0]);
+            *py = mid(A[1], B[1], C[1]);
+        }
+    }
+    void set_mv16(int x, int y, int mx, int my) {
+        for (int n = 0; n < 4; n++) {
+            int16_t* m = mv_at(n, x, y);
+            m[0] = (int16_t)mx;
+            m[1] = (int16_t)my;
+        }
+    }
+};
+
+// ----------------------------------------- H.263-family motion compensation
+// FFmpeg's mpegvideo_motion.c for progressive H.263-family pictures: the
+// reference's edges (ew x eh, FFmpeg's h_edge_pos/v_edge_pos) and the
+// coded size (w x h), which 8x8 vectors are clipped to.
+
+struct Edges {
+    int ew, eh, w, h;
+};
+
+// mpeg_motion_internal, 16x16: luma, and chroma at the halved vector with
+// H.263's rounding of its half-pel bit
+inline void mpeg_motion(const Picture& ref, const Edges& e, int x, int y, int mx, int my, bool no_rnd,
+                        uint8_t* dy, uint8_t* du, uint8_t* dv, int ls, int cs) {
+    const int dxy = ((my & 1) << 1) | (mx & 1);
+    const int sx = x * 16 + (mx >> 1), sy = y * 16 + (my >> 1);
+    mc_block(ref.p[0], e.ew, e.eh, sx, sy, dxy, 16, 16, no_rnd, dy, ls);
+    const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+    const int ux = sx >> 1, uy = sy >> 1;
+    mc_block(ref.p[1], e.ew >> 1, e.eh >> 1, ux, uy, uvdxy, 8, 8, no_rnd, du, cs);
+    mc_block(ref.p[2], e.ew >> 1, e.eh >> 1, ux, uy, uvdxy, 8, 8, no_rnd, dv, cs);
+}
+
+// hpel_motion: an 8x8 luma block at (x0, y0) moved by (mx, my)
+inline void hpel_motion(const Plane& ref, const Edges& e, int x0, int y0, int mx, int my, bool no_rnd,
+                        uint8_t* dst, int stride) {
+    int sx = x0 + (mx >> 1), sy = y0 + (my >> 1), dxy = 0;
+    sx = std::min(std::max(sx, -16), e.w);
+    if (sx != e.w) dxy |= mx & 1;
+    sy = std::min(std::max(sy, -16), e.h);
+    if (sy != e.h) dxy |= (my & 1) << 1;
+    mc_block(ref, e.ew, e.eh, sx, sy, dxy, 8, 8, no_rnd, dst, stride);
+}
+
+// chroma_4mv_motion: macroblock (x, y)'s chroma from the sum of its four
+// luma vectors, rounded as H.263 rounds it (ff_h263_round_chroma)
+inline void chroma_4mv_motion(const Picture& ref, const Edges& e, int x, int y, int sumx, int sumy,
+                              bool no_rnd, uint8_t* du, uint8_t* dv, int cs) {
+    static const int round16[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+    int mx = 2 * (sumx >> 4) + round16[sumx & 15];
+    int my = 2 * (sumy >> 4) + round16[sumy & 15];
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    mx >>= 1;
+    my >>= 1;
+    int sx = x * 8 + mx, sy = y * 8 + my;
+    sx = std::min(std::max(sx, -8), e.w >> 1);
+    if (sx == (e.w >> 1)) dxy &= ~1;
+    sy = std::min(std::max(sy, -8), e.h >> 1);
+    if (sy == (e.h >> 1)) dxy &= ~2;
+    mc_block(ref.p[1], e.ew >> 1, e.eh >> 1, sx, sy, dxy, 8, 8, no_rnd, du, cs);
+    mc_block(ref.p[2], e.ew >> 1, e.eh >> 1, sx, sy, dxy, 8, 8, no_rnd, dv, cs);
 }
 
 }  // namespace mpegc

@@ -24,7 +24,8 @@
 //     vectors on inter frames) unless error_resilient_mode or
 //     frame_parallel_decoding_mode is set.
 //
-// Profiles 1-3, references of another size and frames FFmpeg refuses raise
+// A reference of another size is read through FFmpeg's scaled motion
+// compensation (mc_scaled).  Profiles 1-3 and frames FFmpeg refuses raise
 // (vp9_dec_decode's codes).  Output: yuv420p planes at the frame size.
 
 #include <algorithm>
@@ -1023,6 +1024,40 @@ void convolve(const uint8_t* src, int ss, uint8_t* dst, int ds, int w, int h, co
             uint8_t* o = dst + r * ds + c;
             *o = avg ? (uint8_t)((*o + v + 1) >> 1) : v;
         }
+}
+
+// do_scaled_8tap_c: a bw x bh block from the reference plane (pw x ph,
+// read edge-extended) at integer position (X, Y) and phase (fx, fy) in
+// 1/16 pel, stepping dx, dy sixteenths a pixel; rows filtered first, each
+// pass rounded and clipped to 8 bits; ``avg`` averages with dst
+void scaled_8tap(const uint8_t* ref, int rs, int pw, int ph, int X, int Y, int fx, int fy, int dx,
+                 int dy, int bw, int bh, const int16_t (*F)[8], uint8_t* dst, int ds, bool avg) {
+    const int th = (((bh - 1) * dy + fy) >> 4) + 8;
+    uint8_t tmp[135 * 64];
+    for (int r = 0; r < th; r++) {
+        const uint8_t* row = ref + (size_t)clampi(Y - 3 + r, 0, ph - 1) * rs;
+        int imx = fx, ioff = 0;
+        for (int c = 0; c < bw; c++) {
+            int sum = 0;
+            for (int k = 0; k < 8; k++) sum += F[imx][k] * row[clampi(X + ioff - 3 + k, 0, pw - 1)];
+            tmp[r * 64 + c] = clip8((sum + 64) >> 7);
+            imx += dx;
+            ioff += imx >> 4;
+            imx &= 15;
+        }
+    }
+    const uint8_t* t = tmp;
+    for (int r = 0; r < bh; r++, dst += ds) {
+        for (int c = 0; c < bw; c++) {
+            int sum = 0;
+            for (int k = 0; k < 8; k++) sum += F[fy][k] * t[k * 64 + c];
+            const uint8_t v = clip8((sum + 64) >> 7);
+            dst[c] = avg ? (uint8_t)((dst[c] + v + 1) >> 1) : v;
+        }
+        fy += dy;
+        t += (fy >> 4) * 64;
+        fy &= 15;
+    }
 }
 
 // ------------------------------------------------------------ loop filter
@@ -2240,14 +2275,49 @@ struct Decoder {
                  kFilters[b.filter][mrow & 15], avg);
     }
 
+    // Scaled motion compensation, as FFmpeg's vp9recon.c (mc_luma_scaled,
+    // mc_chroma_scaled) and vp9dsp_template.c (do_scaled_8tap_c) run it: the
+    // vector clamped around the block, the block's position and the vector
+    // scaled to the reference by 14-bit factors (libvpx scales chroma's x
+    // and y apart, and FFmpeg reproduces the rounding that follows), then
+    // one filter phase a pixel, stepping 1/16 pel by ``step``; reads are
+    // edge-extended at the reference's visible size.  (x, y) is the block's
+    // position in the plane, (px, py) a sub-8x8 block's offset in its 8x8
+    // and (pw, ph) the size the vector is clamped around.
+    void mc_scaled(int plane, const Frame& rf, int x, int y, int bw, int bh, MV mv, int px, int py,
+                   int pw, int ph, const Block& b, bool avg) {
+        const int64_t sx = ((int64_t)rf.w << 14) / width, sy = ((int64_t)rf.h << 14) / height;
+        const int dx = (int)((16 * sx) >> 14), dy = (int)((16 * sy) >> 14);
+        auto scale = [](int64_t n, int64_t s) { return (n * s) >> 14; };
+        int64_t mx, my;
+        if (plane == 0) {
+            const int vx = clampi(mv.col, -(x + pw - px + 4) * 8, (mi_cols * 8 - x + px + 3) * 8);
+            const int vy = clampi(mv.row, -(y + ph - py + 4) * 8, (mi_rows * 8 - y + py + 3) * 8);
+            mx = scale(vx * 2, sx) + scale(x * 16, sx);
+            my = scale(vy * 2, sy) + scale(y * 16, sy);
+        } else {
+            const int vx = clampi(mv.col, -(x + pw - px + 4) * 16, (mi_cols * 4 - x + px + 3) * 16);
+            const int vy = clampi(mv.row, -(y + ph - py + 4) * 16, (mi_rows * 4 - y + py + 3) * 16);
+            mx = scale(vx, sx) + (scale(x * 16, sx) & ~15) + (scale(x * 32, sx) & 15);
+            my = scale(vy, sy) + (scale(y * 16, sy) & ~15) + (scale(y * 32, sy) & 15);
+        }
+        scaled_8tap(rf.p[plane].data(), rf.stride[plane], rf.pw(plane), rf.ph(plane), (int)(mx >> 4),
+                    (int)(my >> 4), (int)(mx & 15), (int)(my & 15), dx, dy, bw, bh, kFilters[b.filter],
+                    cur->at(plane, x, y), cur->stride[plane], avg);
+    }
+
+    // A block's prediction from each of its references.  A reference of
+    // another size goes through mc_scaled; one of this frame's size through
+    // mc, whose pixels equal FFmpeg's whichever way it splits the block.
     void inter_predict(const Block& b) {
         for (int k = 0; k < 1 + b.compound(); k++) {
             const Frame& rf = *refs[ref_idx[b.ref[k] - 1]];
-            if (rf.w != width || rf.h != height) {
-                feature(F_SCALED);
-                throw Error(UNSUPPORTED, "prediction from a reference of another size (scaled motion "
-                                         "compensation) is not read by the port");
-            }
+            const bool scaled = rf.w != width || rf.h != height;
+            if (scaled) feature(F_SCALED);
+            auto pred = [&](int plane, int x, int y, int w, int h, MV mv, int px, int py, int pw, int ph) {
+                if (scaled) mc_scaled(plane, rf, x, y, w, h, mv, px, py, pw, ph, b, k > 0);
+                else mc(plane, rf, x, y, w, h, mv, pw, ph, b, k > 0);
+            };
             for (int plane = 0; plane < 3; plane++) {
                 const int ss = plane > 0;
                 const int x0 = (cur_col * 8) >> ss, y0 = (cur_row * 8) >> ss;
@@ -2255,7 +2325,7 @@ struct Decoder {
                     if (plane == 0) {
                         for (int y = 0; y < 2; y++)
                             for (int x = 0; x < 2; x++)
-                                mc(0, rf, x0 + 4 * x, y0 + 4 * y, 4, 4, b.bmv[y * 2 + x][k], 8, 8, b, k > 0);
+                                pred(0, x0 + 4 * x, y0 + 4 * y, 4, 4, b.bmv[y * 2 + x][k], 4 * x, 4 * y, 8, 8);
                     } else {
                         int sr = 0, sc = 0;
                         for (int j = 0; j < 4; j++) {
@@ -2265,11 +2335,11 @@ struct Decoder {
                         MV m;
                         m.row = (int16_t)((sr < 0 ? sr - 2 : sr + 2) / 4);
                         m.col = (int16_t)((sc < 0 ? sc - 2 : sc + 2) / 4);
-                        mc(plane, rf, x0, y0, 4, 4, m, 4, 4, b, k > 0);
+                        pred(plane, x0, y0, 4, 4, m, 0, 0, 4, 4);
                     }
                 } else {
                     const int w = (kBw8[b.sb_type] * 8) >> ss, h = (kBh8[b.sb_type] * 8) >> ss;
-                    mc(plane, rf, x0, y0, w, h, b.mv[k], w, h, b, k > 0);
+                    pred(plane, x0, y0, w, h, b.mv[k], 0, 0, w, h);
                 }
             }
         }
@@ -2705,6 +2775,15 @@ int fail(const Error& e, char* msg, int64_t cap) {
 }  // namespace
 
 extern "C" {
+
+// do_scaled_8tap_c alone (the tests hold it to a numpy version): filter
+// 0-3 in libvpx's numbering (regular, smooth, sharp, bilinear)
+void vp9_scaled_8tap(const uint8_t* ref, int64_t rs, int64_t pw, int64_t ph, int64_t x, int64_t y,
+                     int64_t fx, int64_t fy, int64_t dx, int64_t dy, int64_t bw, int64_t bh,
+                     int64_t filter, uint8_t* dst, int64_t ds, int64_t avg) {
+    scaled_8tap(ref, (int)rs, (int)pw, (int)ph, (int)x, (int)y, (int)fx, (int)fy, (int)dx, (int)dy,
+                (int)bw, (int)bh, kFilters[filter], dst, (int)ds, avg != 0);
+}
 
 void* vp9_dec_new() { return new Decoder(); }
 

@@ -9,10 +9,12 @@ packet may be a superframe (a hidden alt-ref frame and a shown one): each
 of its frames is decoded, and the shown ones are handed over.  The library
 is built with ``g++`` at first use into ``opticalflow_tpu_torch/_build/`` by
 ``runtime/_native.py``; a failed build raises with the compiler's output.
-Its calls release the GIL.  A frame FFmpeg refuses raises ``ValueError``;
-profiles 1-3 (4:4:4, 4:2:2, 4:4:0, 10/12-bit) and prediction from a
-reference of another size raise ``Unsupported``, naming ROADMAP Queue 1
-item 8.
+Its calls release the GIL.  A frame that changes size predicts from
+references of the old size through FFmpeg's scaled motion compensation
+(:func:`scaled_8tap`, libvpx's 8-tap filters stepped across the reference),
+and hands over planes of its own size.  A frame FFmpeg refuses raises
+``ValueError``; profiles 1-3 (4:4:4, 4:2:2, 4:4:0, 10/12-bit) raise
+``Unsupported``, naming ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from opticalflow_tpu_torch.runtime._native import build_and_load
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Decoder", "FEATURES", "MATRICES", "frame_size", "is_keyframe",
-           "load"]
+           "load", "scaled_8tap"]
 
 _SRC = Path(__file__).resolve().parent / "vp9.cpp"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -78,6 +80,7 @@ def load() -> ctypes.CDLL:
                                               _I64P, ctypes.c_char_p, _I64]),
             "vp9_dec_output": (None, [_P, _I64, _P, _P, _P]),
             "vp9_dec_features": (_I64, [_P]),
+            "vp9_scaled_8tap": (None, [_P] + [_I64] * 12 + [_P, _I64, _I64]),
         }
         for name, (res, args) in sig.items():
             fn = getattr(lib, name)
@@ -85,6 +88,25 @@ def load() -> ctypes.CDLL:
             fn.argtypes = args
         _lib = lib
         return lib
+
+
+def scaled_8tap(ref: np.ndarray, x: int, y: int, fx: int, fy: int, dx: int,
+                dy: int, bw: int, bh: int, filt: int,
+                dst: Optional[np.ndarray] = None) -> np.ndarray:
+    """The decoder's scaled prediction of a ``bh`` x ``bw`` block (FFmpeg's
+    ``do_scaled_8tap_c``): from the uint8 plane ``ref`` (read with its
+    coordinates clamped to it) at integer position (x, y) and phase (fx,
+    fy) in sixteenths of a pixel, each output pixel ``dx`` (``dy``)
+    sixteenths on; ``filt`` is libvpx's filter (0 regular, 1 smooth, 2
+    sharp, 3 bilinear).  Given ``dst`` (a block of the same size), the
+    prediction is averaged into it, as a compound block's second one is."""
+    ref = np.ascontiguousarray(ref, np.uint8)
+    out = (np.zeros((bh, bw), np.uint8) if dst is None else
+           np.ascontiguousarray(dst, np.uint8).copy())
+    load().vp9_scaled_8tap(ref.ctypes.data, ref.shape[1], ref.shape[1],
+                           ref.shape[0], x, y, fx, fy, dx, dy, bw, bh, filt,
+                           out.ctypes.data, bw, int(dst is not None))
+    return out
 
 
 class _Bits:

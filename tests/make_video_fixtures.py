@@ -81,12 +81,35 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
     oddification turns a 0 into -1) and ``mpeg2_interlaced.mpg``
     (interlaced frames, which the port refuses).
 
+  * pictures that change size (cv2 scales them back to the stream's
+    first size): ``vp9_resize_grow.webm`` (libvpx shrinks at frame 4 and
+    grows back at 9, both mid-GOP), ``vp9_resize_small_first.webm`` (the
+    first frames the smaller), ``vp9_resize_176x144.avi`` (fourcc ``VP90``,
+    the port's AVI muxer), ``vp9_resize_sintel_436x1024.webm`` (the Sintel
+    pair's 13 frames, 218x512 from frame 5 on), which the card run decodes;
+    ``vp8_resize.webm`` (a key frame at the new size); ``mpeg4_resize.avi``
+    and ``mpeg2_resize.mpg`` (two libavcodec streams one after the other: a
+    new VOL or sequence header; FFmpeg drops the MPEG-2 picture it held
+    back for display there);
+  * H.263 (fourccs ``H263`` and ``s263``): ``h263_{128x96,176x144,352x288}``
+    ``.avi`` by cv2's writer, ``h263_176x144`` as ``.3gp``, ``.mov`` and
+    ``.mkv``, and ``mpeg4_176x144.3gp`` (``mp4v`` into 3GP); from cv2's
+    bundled libavcodec through ``Lavc``, muxed by the port's AVI muxer:
+    ``h263_sintel_704x576.avi`` (the Sintel pair at 4CIF, which the card
+    run decodes), ``h263_obmc_176x144.avi`` (advanced prediction: 8x8
+    vectors and overlapped motion compensation, DQUANT),
+    ``h263_mv4_176x144.avi`` (8x8 vectors with DQUANT, no OBMC),
+    ``h263_gob_352x288.avi`` (GOB headers, eight PSUPP bytes in each
+    picture header, MCBPC stuffing before each I-picture's first
+    macroblock) and ``h263_resize.avi`` (QCIF, then sub-QCIF).
+
 Each VP8 file's manifest entry lists the header features and coding modes
 the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
 each VP9 and MPEG-1/2 file's likewise (``vp9_features``,
-``mpeg12_features``), and each MPEG-1/2 file's the frame a
-``CAP_PROP_POS_FRAMES`` seek to each index reads (``seeks``: an index into
-its sequential frames, or null where cv2 reads none).
+``mpeg12_features``, ``h263_features``), and each MPEG-1/2, H.263,
+``.3gp`` and size-changing file's the frame a ``CAP_PROP_POS_FRAMES`` seek
+to each index reads (``seeks``: an index into its sequential frames, or
+null where cv2 reads none).
 """
 
 from __future__ import annotations
@@ -618,11 +641,12 @@ def _vp8_features(path: str) -> list:
 
 # ------------------------------------------------------------------- VP9
 class Vpx:
-    """libvpx's VP9 encoder (cv2's bundled ``libvpx``) through ctypes, for
-    the settings cv2's writer does not reach.  The configuration is
-    ``vpx_codec_enc_config_default``'s, its fields set at the public
-    ``vpx_codec_enc_cfg_t`` offsets (``OFF``); each setting is checked on
-    the stream by the port's decoder (``vp9_features`` in the manifest)."""
+    """libvpx's VP9 encoder (or its VP8 one, ``codec="vp8"``; cv2's bundled
+    ``libvpx``) through ctypes, for the settings cv2's writer does not
+    reach.  The configuration is ``vpx_codec_enc_config_default``'s, its
+    fields set at the public ``vpx_codec_enc_cfg_t`` offsets (``OFF``); each
+    setting is checked on the stream by the port's decoder (``vp9_features``
+    in the manifest)."""
 
     CTRL = {"cpu_used": 13, "auto_alt_ref": 14, "arnr_maxframes": 21,
             "arnr_strength": 22, "lossless": 32, "tile_columns": 33,
@@ -632,7 +656,7 @@ class Vpx:
            "error_resilient": 36, "pass": 40, "lag": 44, "bitrate": 112,
            "kf_min": 164, "kf_max": 168}
 
-    def __init__(self):
+    def __init__(self, codec: str = "vp9"):
         import ctypes
         import glob
         import cv2
@@ -640,8 +664,9 @@ class Vpx:
                             "opencv_python.libs")
         L = ctypes.CDLL(sorted(glob.glob(os.path.join(libs, "libvpx*")))[0])
         c, P = ctypes, ctypes.c_void_p
+        self.iface = f"vpx_codec_{codec}_cx"
         for name, res, args in (
-                ("vpx_codec_vp9_cx", P, []),
+                (self.iface, P, []),
                 ("vpx_codec_enc_config_default", c.c_int, [P, P, c.c_uint]),
                 ("vpx_codec_enc_init_ver", c.c_int, [P, P, P, c.c_long, c.c_int]),
                 ("vpx_codec_enc_config_set", c.c_int, [P, P]),
@@ -657,7 +682,9 @@ class Vpx:
 
     def encode(self, planes: list, w: int, h: int, cfg=None, ctrls=None,
                two_pass: bool = False, resize=None) -> list:
-        """I420 planes → [(packet, keyframe)], 25 fps, good quality."""
+        """I420 planes → [(packet, keyframe)], 25 fps, good quality;
+        ``resize``: (frame, (w, h)), or a list of them, where the encoder's
+        size changes (the planes scaled to it by ``_resize_plane``)."""
         if two_pass:
             stats = self._run(planes, w, h, dict(cfg or {}, **{"pass": 1}),
                               ctrls, resize, None)
@@ -667,7 +694,7 @@ class Vpx:
 
     def _run(self, planes, w, h, cfg, ctrls, resize, stats_in):
         L, c = self.L, self.c
-        iface = L.vpx_codec_vp9_cx()
+        iface = getattr(L, self.iface)()
         buf = c.create_string_buffer(4096)
         assert L.vpx_codec_enc_config_default(iface, buf, 0) == 0
         settings = dict(w=w, h=h, tb_num=1, tb_den=25, threads=1,
@@ -704,14 +731,14 @@ class Vpx:
                     out.append((data, bool(key)))
 
         cw, ch = w, h
+        changes = dict([resize] if resize and isinstance(resize[0], int)
+                       else resize or [])
         for i, (y, u, v) in enumerate(planes):
-            if resize and i == resize[0]:
-                cw, ch = resize[1]
+            if i in changes:
+                cw, ch = changes[i]
                 struct.pack_into("<II", buf, self.OFF["w"], cw, ch)
                 assert L.vpx_codec_enc_config_set(ctx, buf) == 0
-                y, u, v = (_resize_plane(p, (cw + s) >> s, (ch + s) >> s)
-                           for p, s in ((y, 0), (u, 1), (v, 1)))
-            elif resize and i > resize[0]:
+            if (cw, ch) != (w, h):
                 y, u, v = (_resize_plane(p, (cw + s) >> s, (ch + s) >> s)
                            for p, s in ((y, 0), (u, 1), (v, 1)))
             img = L.vpx_img_alloc(None, 0x102, cw, ch, 1)   # I420
@@ -1065,6 +1092,62 @@ def vp9_fixtures() -> None:
     vp9_header_fixtures()
 
 
+def resize_fixtures() -> None:
+    """Streams whose pictures change size, which cv2 hands to swscale at
+    the stream's first size: VP9 from libvpx (scaled references mid-GOP),
+    VP8 (a key frame at the new size), and MPEG-4 Part 2 and MPEG-2 as two
+    libavcodec streams one after the other (a new VOL or sequence header)."""
+    vpx = Vpx()
+    noise = moving_clip(144, 176, 26, seed=11, speed=3.0)
+    planes = [bgr_i420(f) for f in noise[:14]]
+    # shrinks at 4, grows back to the first size at 9 (no key frame)
+    _webm(os.path.join(OUT, "vp9_resize_grow.webm"),
+          vpx.encode(planes, 176, 144, dict(kf_max=60), dict(cpu_used=4),
+                     resize=[(4, (128, 96)), (9, (176, 144))]), 176, 144)
+    # starts at 128x96; libvpx takes a key frame to grow past it
+    small = [tuple(_resize_plane(p, (s + 1) // (1 + k), (t + 1) // (1 + k))
+                   for p, (s, t), k in zip(pl, ((128, 96),) * 3, (0, 1, 1)))
+             for pl in planes[:12]]
+    _webm(os.path.join(OUT, "vp9_resize_small_first.webm"),
+          vpx.encode(small, 128, 96, dict(kf_max=60), dict(cpu_used=4),
+                     resize=(6, (176, 144))), 128, 96)
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    mux = AviWriter(os.path.join(OUT, "vp9_resize_176x144.avi"), (176, 144),
+                    (25, 1), fourcc="VP90")
+    for data, key in vpx.encode(planes[:12], 176, 144, dict(kf_max=60),
+                                dict(cpu_used=4), resize=(5, (88, 72))):
+        mux.write(data, key)
+    mux.release()
+    im1, im2 = sintel_pair()
+    sintel = [bgr_i420(im1 if i % 2 == 0 else im2) for i in range(13)]
+    _webm(os.path.join(OUT, "vp9_resize_sintel_436x1024.webm"),
+          vpx.encode(sintel, 1024, 436, dict(kf_max=60, bitrate=1500),
+                     dict(cpu_used=4), resize=(5, (512, 218))), 1024, 436)
+    _webm(os.path.join(OUT, "vp8_resize.webm"),
+          Vpx("vp8").encode(planes[:12], 176, 144, dict(kf_max=60),
+                            dict(cpu_used=4), resize=(6, (128, 96))),
+          176, 144, b"V_VP8")
+    lavc = Lavc()
+    big = [bgr_i420(f) for f in noise[:7]]
+    little = [bgr_i420(cv2_resize(f, 128, 96)) for f in noise[7:13]]
+    mux = AviWriter(os.path.join(OUT, "mpeg4_resize.avi"), (176, 144),
+                    (25, 1))
+    for part in (big, little):
+        for i, (data, _, _) in enumerate(lavc.encode(part, codec="mpeg4")):
+            mux.write(data, i == 0)
+    mux.release()
+    pk = [(d, t, t) for d, t, _ in lavc.encode(big, bf=0)]
+    pk += [(d, t + len(big), t + len(big))
+           for d, t, _ in lavc.encode(little, bf=0)]
+    ps_mux(os.path.join(OUT, "mpeg2_resize.mpg"), pk)
+
+
+def cv2_resize(frame: np.ndarray, w: int, h: int) -> np.ndarray:
+    import cv2
+    return cv2.resize(frame, (w, h), interpolation=cv2.INTER_AREA)
+
+
 # ------------------------------------------------------------- MPEG-1/2
 
 class Lavc:
@@ -1317,6 +1400,23 @@ def _mpeg12_features(path: str) -> tuple:
     return dec.features, None
 
 
+def _h263_features(path: str) -> tuple:
+    """(the port's H.263 decoder's features over the file, what it refuses
+    or None)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    try:
+        with open(path, "rb") as f:
+            for i in range(v.samples):
+                dec.decode(v.box.sample(f, i))
+    except Unsupported as e:
+        return dec.features, str(e).split(": ", 1)[1]
+    return dec.features, None
+
+
 def _cv2_seeks(path: str, frames: list) -> dict:
     """{index: the decoded frame (its index in ``frames``) a
     CAP_PROP_POS_FRAMES seek to it reads, or None}, for every index."""
@@ -1384,6 +1484,92 @@ def mpeg12_fixtures() -> None:
            [(with_matrices(p), t, d) for p, t, d in pk])
     ps_mux(os.path.join(OUT, "mpeg2_low_delay.mpg"),
            lavc.encode(planes[:7], bf=0, flags="+low_delay"))
+
+
+# ------------------------------------------------------------------ H.263
+
+def objects_clip(h: int, w: int, n: int, seed: int = 5) -> list:
+    """n BGR frames: three blurred-noise patches moving each its own way
+    over a still background (skipped macroblocks, 8x8 vectors at their
+    edges)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    bg = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8), (0, 0), 2)
+    obj = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8), (0, 0),
+                           1.5)
+    out = []
+    for t in range(n):
+        f = bg.copy()
+        for k, (y0, x0, sh, sw, vy, vx) in enumerate((
+                (20, 10, 40, 50, 1.5, 2.5), (70, 90, 50, 60, -1.0, -3.5),
+                (30, 120, 24, 24, 3.0, -1.0))):
+            y = int(y0 + vy * t) % (h - sh)
+            x = int(x0 + vx * t) % (w - sw)
+            f[y:y + sh, x:x + sw] = obj[k * 10:k * 10 + sh, k * 20:k * 20 + sw]
+        out.append(f)
+    return out
+
+
+def with_psupp(packet: bytes, psupp: bytes = b"PSUPP-8b") -> bytes:
+    """An H.263 picture with ``psupp`` (8 bytes, which keeps the rest of the
+    picture byte-aligned) in its header, PEI set before each byte; an
+    I-picture's first macroblock behind 8 MCBPC stuffing codes (72 bits)."""
+    bits = _bits(packet)
+    assert bits[:22] == "0" * 16 + "100000" and bits[49] == "0"
+    extra = "".join("1" + f"{b:08b}" for b in psupp)
+    stuffing = "000000001" * 8 if bits[38] == "0" else ""
+    return _bytes(bits[:49] + extra + bits[49] + stuffing + bits[50:])
+
+
+def h263_avi(path: str, parts: list, psupp: bool = False, **opts) -> list:
+    """Lists of BGR frames → one AVI (fourcc ``H263``) of libavcodec's h263
+    streams one after another (a part of another size changes the picture
+    size); keyframes flagged at the I-pictures.  Returns the packets."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime.h263 import is_intra
+    lavc = Lavc()
+    h, w = parts[0][0].shape[:2]
+    mux = AviWriter(path, (w, h), (25, 1), fourcc="H263")
+    out = []
+    for frames in parts:
+        for data, _, _ in lavc.encode([bgr_i420(f) for f in frames],
+                                      codec="h263", **opts):
+            data = with_psupp(data) if psupp else data
+            mux.write(data, is_intra(data))
+            out.append(data)
+    mux.release()
+    return out
+
+
+def h263_fixtures() -> None:
+    """The H.263 files: cv2's writer (fourccs H263 and s263) at three sizes
+    and in four containers; libavcodec's encoder for the Sintel clip at
+    4CIF, advanced prediction (Annex F), 8x8 vectors with DQUANT, GOB
+    headers (with PSUPP bytes in every picture header) and a size change;
+    and MPEG-4 Part 2 in .3gp."""
+    for w, h in ((128, 96), (176, 144), (352, 288)):
+        _cv2_write(os.path.join(OUT, f"h263_{w}x{h}.avi"),
+                   moving_clip(h, w, 14, seed=21), "H263")
+    moving = moving_clip(144, 176, 14, seed=22)
+    _cv2_write(os.path.join(OUT, "h263_176x144.3gp"), moving, "s263")
+    for ext in ("mov", "mkv"):
+        _cv2_write(os.path.join(OUT, f"h263_176x144.{ext}"), moving, "H263")
+    _cv2_write(os.path.join(OUT, "mpeg4_176x144.3gp"), moving, "mp4v")
+    # (libavcodec at 1 Mb/s: cv2's writer makes 600 KB of it)
+    im1, im2 = (cv2_resize(im, 704, 576) for im in sintel_pair())
+    h263_avi(os.path.join(OUT, "h263_sintel_704x576.avi"),
+             [[im1 if i % 2 == 0 else im2 for i in range(13)]], b=1000000)
+    objects = objects_clip(144, 176, 14)
+    h263_avi(os.path.join(OUT, "h263_obmc_176x144.avi"), [objects], obmc=1,
+             flags="+mv4", b=200000, scplx_mask=0.5, lumi_mask=0.3)
+    h263_avi(os.path.join(OUT, "h263_mv4_176x144.avi"), [objects],
+             flags="+mv4", b=150000, scplx_mask=0.8, p_mask=0.5)
+    h263_avi(os.path.join(OUT, "h263_gob_352x288.avi"),
+             [objects_clip(288, 352, 8, seed=23)], psupp=True, ps=400,
+             b=400000)
+    h263_avi(os.path.join(OUT, "h263_resize.avi"),
+             [moving[:7], [cv2_resize(f, 128, 96) for f in moving[7:]]])
 
 
 def sintel_pair() -> list:
@@ -1457,6 +1643,8 @@ def write_files() -> None:
     set_vp8_clamping(webm, os.path.join(OUT, "vp8_clamping.webm"))
     vp9_fixtures()
     mpeg12_fixtures()
+    resize_fixtures()
+    h263_fixtures()
 
 
 def write_manifest() -> None:
@@ -1486,6 +1674,14 @@ def write_manifest() -> None:
             manifest["files"][name]["vp9_features"] = feats
             if refused:
                 manifest["files"][name]["port_refuses"] = refused
+        if name.startswith("h263_"):
+            feats, refused = _h263_features(path)
+            manifest["files"][name]["h263_features"] = feats
+            if refused:
+                manifest["files"][name]["port_refuses"] = refused
+        if (name.startswith("h263_") or "resize" in name
+                or name.endswith(".3gp")):
+            manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import ffmpeg_threads
     from opticalflow_tpu_torch.runtime.vp9 import FEATURES
@@ -1496,6 +1692,10 @@ def write_manifest() -> None:
     reached = {f for e in manifest["files"].values()
                for f in e.get("mpeg12_features", [])}
     manifest["mpeg12_unreached"] = [f for f in M12 if f not in reached]
+    from opticalflow_tpu_torch.runtime.h263 import FEATURES as H263
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("h263_features", [])}
+    manifest["h263_unreached"] = [f for f in H263 if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()

@@ -413,3 +413,22 @@ def test_colour_siting_and_range_reach_the_conversion(tmp_path, codec, horz,
         f.write(body.replace(b"\xb0\x81\xb0\xba\x81\x90", size))
     assert vio.video_info(path)["height"] % 2
     _same(list(vio.read_frames(path)), _cv2_frames(path))
+
+
+def test_h263_under_vfw_fourcc_reads_as_cv2():
+    """cv2 writes H.263 into Matroska as V_MS/VFW/FOURCC with an H263
+    BITMAPINFOHEADER: the AVI rules pick the H.263 decoder; frames, count
+    and every seek are cv2's."""
+    name = "h263_176x144.mkv"
+    path = os.path.join(FIXTURES, name)
+    box = mkv.MkvFile(path)
+    assert (box.codec, box.tag) == ("h263", "H263")
+    want = MANIFEST[name]
+    assert vio.video_info(path) == {k: want[k] for k in
+                                    ("fps", "width", "height", "frames")}
+    assert [hashlib.sha256(f.tobytes()).hexdigest()
+            for f in vio.read_frames(path)] == want["sha256"]
+    video = vio.EncodedVideo(path)
+    for t, hit in want["seeks"].items():
+        assert hashlib.sha256(video.frame(int(t)).tobytes()).hexdigest() == \
+            want["sha256"][hit], t

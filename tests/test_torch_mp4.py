@@ -527,3 +527,45 @@ def test_writer_refuses_what_it_cannot_write(tmp_path):
     wr.release()
     with pytest.raises(ValueError, match="Queue 1 item 8"):
         vio.AsyncVideoWriter(str(tmp_path / "a.mov"), 25.0, (16, 16))
+
+
+# ------------------------------------------------------- 3GP, size changes
+
+def _manifest_seeks(path, name):
+    video = vio.EncodedVideo(path)
+    want = MANIFEST[name]
+    for t, hit in want["seeks"].items():
+        assert hashlib.sha256(video.frame(int(t)).tobytes()).hexdigest() == \
+            want["sha256"][hit], t
+
+
+@pytest.mark.parametrize("name,codec,entry", [
+    ("mpeg4_176x144.3gp", "mpeg4", "mp4v"),
+    ("h263_176x144.3gp", "h263", "s263")])
+def test_3gp_reads_as_cv2(name, codec, entry):
+    """ISO BMFF of the 3GPP brands: what cv2 writes for fourccs mp4v and
+    s263 into .3gp reads through the MP4 demuxer, every seek as cv2's."""
+    path = os.path.join(FIXTURES, name)
+    box = Mp4File(path)
+    assert (box.codec, box.tag) == (codec, entry)
+    with open(path, "rb") as f:
+        assert f.read(12)[4:11] == b"ftyp3gp"
+    assert [hashlib.sha256(f.tobytes()).hexdigest()
+            for f in vio.read_frames(path)] == MANIFEST[name]["sha256"]
+    _manifest_seeks(path, name)
+
+
+def test_vol_of_another_size_is_scaled_back_as_cv2_does():
+    """Two libavcodec streams in one AVI, the second's VOL 128x96: cv2
+    scales its pictures back to the stream's first size, 176x144, through
+    swscale's bicubic scaler; the port converts them the same way."""
+    name = "mpeg4_resize.avi"
+    path = os.path.join(FIXTURES, name)
+    video = vio.EncodedVideo(path)
+    sizes = [p[0].shape for _, p in video.planes()]
+    assert sizes == [(144, 176)] * 7 + [(96, 128)] * 6
+    frames = list(video)
+    assert all(f.shape == (144, 176, 3) for f in frames)
+    assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] == \
+        MANIFEST[name]["sha256"]
+    _manifest_seeks(path, name)

@@ -615,3 +615,22 @@ def test_train_pseudo_regime_on_an_mpg(tmp_path):
         recs = [r for r in map(json.loads, f) if "step" in r]
     assert [r["step"] for r in recs] == [1, 2]
     assert all(np.isfinite(r["loss"]) for r in recs)
+
+
+def test_sequence_of_another_size_drops_the_held_picture_as_ffmpeg():
+    """Two libavcodec MPEG-2 streams in one program stream, the second's
+    sequence header 128x96: FFmpeg reinitialises at the new size and the
+    reference picture it held back for display (the first stream's last)
+    is never handed over, so cv2 reads 12 of the 13 pictures; the rest
+    come out at the first size, scaled as swscale scales them."""
+    name = "mpeg2_resize.mpg"
+    path = os.path.join(FIXTURES, name)
+    video = vio.EncodedVideo(path)
+    assert video.resets == [7]
+    assert video.display == list(range(6)) + [None] + list(range(6, 12))
+    assert mpeg12.output_order([1, 2, 2, 1, 2], [True] + [None] * 4,
+                               resets=[3]) == [0, 1, 3, 4]
+    frames = list(vio.read_frames(path))
+    _same(frames, _cv2_frames(path))
+    assert len(frames) == 12 and MANIFEST[name]["frames"] == 13
+    assert "size_change" in MANIFEST[name]["mpeg12_features"]

@@ -276,3 +276,24 @@ def test_extract_video_webm_in_mkv_out(tmp_path, monkeypatch):
     assert _cv2_info(out) == vio.video_info(out) == {
         "fps": 25.0, "width": 96, "height": 64, "frames": 4}
     _same(_cv2_frames(out), list(vio.read_frames(out)))
+
+
+def test_key_frame_of_another_size_is_scaled_back_as_cv2_does():
+    """libvpx's VP8 encoder takes a key frame to shrink a stream (frame 6,
+    to 128x96): cv2 scales those frames back to the first size through
+    swscale's bicubic scaler, luma and chroma; so does the port, and every
+    seek reads cv2's frame."""
+    name = "vp8_resize.webm"
+    path = os.path.join(FIXTURES, name)
+    video = vio.EncodedVideo(path)
+    assert [p[0].shape for _, p in video.planes()] == \
+        [(144, 176)] * 6 + [(96, 128)] * 6
+    assert video.keyframes == [0, 6]
+    want = MANIFEST[name]
+    frames = list(video)
+    _same(frames, _cv2_frames(path))
+    assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] == \
+        want["sha256"]
+    for t, hit in want["seeks"].items():
+        assert hashlib.sha256(video.frame(int(t)).tobytes()).hexdigest() == \
+            want["sha256"][hit], t

@@ -219,15 +219,306 @@ def test_profiles_1_to_3_raise_naming_item_8(profile):
 def test_reference_of_another_size_raises_naming_item_8():
     """libvpx's stream that shrinks mid-GOP predicts from references of
     the old size (scaled motion compensation), which cv2 then scales back
-    to the first size: the port refuses it at that frame."""
+    to the first size: the port reads all 12 frames at cv2's digests (it
+    refused frame 6 before scaled prediction was read; the test keeps its
+    name)."""
     path = os.path.join(FIXTURES, "vp9_resize.webm")
     assert "scaled_reference" in MANIFEST["vp9_resize.webm"]["vp9_features"]
-    frames = []
-    with pytest.raises(Unsupported, match="another size.*item 8"):
-        for f in vio.read_frames(path):
-            frames.append(f)
-    _same(frames, _cv2_frames(path)[:len(frames)])
-    assert len(frames) == 6
+    frames = list(vio.read_frames(path))
+    _same(frames, _cv2_frames(path))
+    assert len(frames) == 12
+    assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] == \
+        MANIFEST["vp9_resize.webm"]["sha256"]
+    sizes = [p[0].shape for _, p in vio.EncodedVideo(path).planes()]
+    assert sizes == [(144, 176)] * 6 + [(96, 128)] * 6
+
+
+@pytest.mark.parametrize("name", [n for n in VP9 if "resize" in n])
+def test_size_changes_read_every_seek_as_cv2(name):
+    """Each resizing stream, in WebM and AVI: the frames after a size
+    change come out at the stream's first size, every seek reads the frame
+    the manifest records cv2 reading.  libvpx grows a stream past its
+    first size only at a key frame (``vp9_resize_small_first.webm``);
+    shrinking, and growing back, it predicts from references of the other
+    size."""
+    path = os.path.join(FIXTURES, name)
+    want = MANIFEST[name]
+    assert vio.video_info(path) == {k: want[k] for k in
+                                    ("fps", "width", "height", "frames")}
+    video = vio.EncodedVideo(path)
+    for t, hit in want["seeks"].items():
+        assert hashlib.sha256(video.frame(int(t)).tobytes()).hexdigest() == \
+            want["sha256"][hit], t
+    assert "size_change" in want["vp9_features"]
+    assert ("scaled_reference" in want["vp9_features"]) == (
+        "small_first" not in name)
+
+
+# the plain versions the C is held to
+
+def _scaled_8tap_np(ref, x, y, fx, fy, dx, dy, bw, bh, filt):
+    """FFmpeg's do_scaled_8tap_c in numpy, reads clamped to the plane."""
+    taps = FILTERS[filt].astype(np.int64)
+    ph, pw = ref.shape
+    th = (((bh - 1) * dy + fy) >> 4) + 8
+    rows = ref[np.clip(np.arange(y - 3, y - 3 + th), 0, ph - 1)].astype(
+        np.int64)
+    pos = fx + dx * np.arange(bw)
+    cols = x + (pos >> 4)[:, None] + np.arange(-3, 5)[None, :]
+    tmp = (rows[:, np.clip(cols, 0, pw - 1)] * taps[pos & 15][None]).sum(-1)
+    tmp = np.clip((tmp + 64) >> 7, 0, 255)
+    pos = fy + dy * np.arange(bh)
+    win = (pos >> 4)[:, None] + np.arange(8)[None, :]
+    out = (tmp[win] * taps[pos & 15][:, :, None]).sum(1)
+    return np.clip((out + 64) >> 7, 0, 255).astype(np.uint8)
+
+
+# libvpx's 8-tap kernels (vp9_filter.c): regular, smooth, sharp, bilinear
+FILTERS = np.array([
+    [[0, 0, 0, 128, 0, 0, 0, 0], [0, 1, -5, 126, 8, -3, 1, 0],
+     [-1, 3, -10, 122, 18, -6, 2, 0], [-1, 4, -13, 118, 27, -9, 3, -1],
+     [-1, 4, -16, 112, 37, -11, 4, -1], [-1, 5, -18, 105, 48, -14, 4, -1],
+     [-1, 5, -19, 97, 58, -16, 5, -1], [-1, 6, -19, 88, 68, -18, 5, -1],
+     [-1, 6, -19, 78, 78, -19, 6, -1], [-1, 5, -18, 68, 88, -19, 6, -1],
+     [-1, 5, -16, 58, 97, -19, 5, -1], [-1, 4, -14, 48, 105, -18, 5, -1],
+     [-1, 4, -11, 37, 112, -16, 4, -1], [-1, 3, -9, 27, 118, -13, 4, -1],
+     [0, 2, -6, 18, 122, -10, 3, -1], [0, 1, -3, 8, 126, -5, 1, 0]],
+    [[0, 0, 0, 128, 0, 0, 0, 0], [-3, -1, 32, 64, 38, 1, -3, 0],
+     [-2, -2, 29, 63, 41, 2, -3, 0], [-2, -2, 26, 63, 43, 4, -4, 0],
+     [-2, -3, 24, 62, 46, 5, -4, 0], [-2, -3, 21, 60, 49, 7, -4, 0],
+     [-1, -4, 18, 59, 51, 9, -4, 0], [-1, -4, 16, 57, 53, 12, -4, -1],
+     [-1, -4, 14, 55, 55, 14, -4, -1], [-1, -4, 12, 53, 57, 16, -4, -1],
+     [0, -4, 9, 51, 59, 18, -4, -1], [0, -4, 7, 49, 60, 21, -3, -2],
+     [0, -4, 5, 46, 62, 24, -3, -2], [0, -4, 4, 43, 63, 26, -2, -2],
+     [0, -3, 2, 41, 63, 29, -2, -2], [0, -3, 1, 38, 64, 32, -1, -3]],
+    [[0, 0, 0, 128, 0, 0, 0, 0], [-1, 3, -7, 127, 8, -3, 1, 0],
+     [-2, 5, -13, 125, 17, -6, 3, -1], [-3, 7, -17, 121, 27, -10, 5, -2],
+     [-4, 9, -20, 115, 37, -13, 6, -2], [-4, 10, -23, 108, 48, -16, 8, -3],
+     [-4, 10, -24, 100, 59, -19, 9, -3], [-4, 11, -24, 90, 70, -21, 10, -4],
+     [-4, 11, -23, 80, 80, -23, 11, -4], [-4, 10, -21, 70, 90, -24, 11, -4],
+     [-3, 9, -19, 59, 100, -24, 10, -4], [-3, 8, -16, 48, 108, -23, 10, -4],
+     [-2, 6, -13, 37, 115, -20, 9, -4], [-2, 5, -10, 27, 121, -17, 7, -3],
+     [-1, 3, -6, 17, 125, -13, 5, -2], [0, 1, -3, 8, 127, -7, 3, -1]],
+    [[0, 0, 0, 128 - 8 * k, 8 * k, 0, 0, 0] for k in range(16)]])
+
+
+def test_scaled_8tap_equals_numpy():
+    """The C filter of scaled prediction against the numpy version above:
+    every filter, steps of a reference twice as large (32) down to one
+    half as large (8) and between, phases, positions that reach past each
+    edge of the plane, and a second prediction averaged in."""
+    rng = np.random.default_rng(7)
+    ref = rng.integers(0, 256, (40, 56), np.uint8)
+    n = 0
+    for filt in range(4):
+        for dx, dy in ((32, 32), (16, 16), (8, 8), (23, 11), (21, 29)):
+            for bw, bh in ((4, 4), (8, 4), (16, 16), (64, 64)):
+                x, y = (int(v) for v in rng.integers(-12, 60, 2))
+                fx, fy = (int(v) for v in rng.integers(0, 16, 2))
+                got = vp9.scaled_8tap(ref, x, y, fx, fy, dx, dy, bw, bh, filt)
+                want = _scaled_8tap_np(ref, x, y, fx, fy, dx, dy, bw, bh, filt)
+                np.testing.assert_array_equal(got, want, err_msg=str(
+                    (filt, dx, dy, bw, bh, x, y, fx, fy)))
+                first = rng.integers(0, 256, (bh, bw), np.uint8)
+                avg = vp9.scaled_8tap(ref, x, y, fx, fy, dx, dy, bw, bh,
+                                      filt, dst=first)
+                np.testing.assert_array_equal(
+                    avg, ((first.astype(int) + want + 1) >> 1).astype(
+                        np.uint8))
+                n += 1
+    assert n == 80
+
+
+# swscale's bicubic scaler to BGR24 at video range, BT.601, in numpy: what
+# cv2 runs on a picture of another size than its stream's first
+
+def _tdiv(a, b):
+    """C's integer division (toward zero)."""
+    return -(-a // b) if a < 0 else a // b
+
+
+def _init_filter(src, dst, align, one, src_pos=128, dst_pos=128):
+    """libswscale's initFilter for SWS_BICUBIC (B 0, C 0.6)."""
+    inc = ((src << 16) + (dst >> 1)) // dst
+    fone = 1 << (54 - min(int(np.log2(max(src // dst, 1))), 8))
+    if abs(inc - 0x10000) < 10 and src_pos == dst_pos:
+        size, pos, filt = 1, list(range(dst)), [[fone] for _ in range(dst)]
+    else:
+        size = 5 if inc <= 1 << 16 else 1 + (4 * src + dst - 1) // dst
+        size = max(min(size, src - 2), 1)
+        c_ = int(0.6 * (1 << 24))
+        x_dst = ((dst_pos * inc) >> 7) - ((src_pos * 0x10000) >> 7)
+        pos, filt = [], []
+        for _ in range(dst):
+            xx = _tdiv(x_dst - (size - 2) * (1 << 16), 1 << 17)
+            pos.append(xx)
+            row = []
+            for j in range(size):
+                d = abs((xx + j) * (1 << 17) - x_dst) << 13
+                if inc > 1 << 16:
+                    d = d * dst // src
+                if d >= 1 << 31:
+                    co = 0
+                else:
+                    dd, ddd = (d * d) >> 30, (((d * d) >> 30) * d) >> 30
+                    if d < 1 << 30:
+                        co = ((12 * (1 << 24) - 6 * c_) * ddd
+                              + (-18 * (1 << 24) + 6 * c_) * dd
+                              + 6 * (1 << 24) * (1 << 30))
+                    else:
+                        co = (-6 * c_ * ddd + 30 * c_ * dd - 48 * c_ * d
+                              + 24 * c_ * (1 << 30))
+                row.append(_tdiv(co, (1 << 54) // fone))
+            filt.append(row)
+            x_dst += 2 * inc
+    cut = 0.002 * fone
+    minsize = 0
+    for i in range(dst - 1, -1, -1):
+        f = filt[i]
+        acc = 0
+        for _ in range(size):
+            acc += abs(f[0])
+            if acc > cut or (i < dst - 1 and pos[i] >= pos[i + 1]):
+                break
+            f[:] = f[1:] + [0]
+            pos[i] += 1
+        acc, mn = 0, size
+        for j in range(size - 1, 0, -1):
+            acc += abs(f[j])
+            if acc > cut:
+                break
+            mn -= 1
+        minsize = max(minsize, mn)
+    if minsize == 1 and align == 2:
+        align = 1
+    out = (minsize + align - 1) & ~(align - 1)
+    filt = [(f + [0] * out)[:out] for f in filt]
+    for i in range(dst):
+        f = filt[i]
+        if pos[i] < 0:
+            for j in range(1, out):
+                left = max(j + pos[i], 0)
+                f[left] += f[j]
+                f[j] = 0
+            pos[i] = 0
+        if pos[i] + out > src:
+            shift = pos[i] + min(out - src, 0)
+            acc = 0
+            for j in range(out - 1, -1, -1):
+                if pos[i] + j >= src:
+                    acc += f[j]
+                    f[j] = 0
+            f[:] = [0 if j < shift else f[j - shift] for j in range(out)]
+            pos[i] -= shift
+            f[src - 1 - pos[i]] += acc
+    coef = np.zeros((dst, out), np.int64)
+    for i in range(dst):
+        total = max((sum(filt[i]) + one // 2) // one, 1)
+        err = 0
+        for j in range(out):
+            v = filt[i][j] + err
+            iv = (v + total // 2) // total if v >= 0 else -((-v + total // 2)
+                                                           // total)
+            coef[i, j] = iv
+            err = v - iv * total
+    return np.array(pos), coef
+
+
+def _hscale(plane, pos, coef):
+    src = plane.astype(np.int64)
+    idx = pos[:, None] + np.arange(coef.shape[1])[None, :]
+    ok = idx < src.shape[1]
+    val = (src[:, np.minimum(idx, src.shape[1] - 1)] * np.where(ok, coef, 0)
+           ).sum(-1)
+    return np.minimum(val >> 7, (1 << 15) - 1)
+
+
+def _tables():
+    """ff_yuv2rgb_c_init_tables' BT.601 video-range tables (the C output
+    rows)."""
+    cy = (1 << 16) * 255 // 219
+    inv = {"crv": 104597, "cbu": 132201, "cgu": -25675, "cgv": -53279}
+    k = {n: _tdiv(c * 65536 + 0x8000, cy) for n, c in inv.items()}
+    yb = -(384 << 16) - 512 * cy - (16 << 16) + cy * np.arange(2048)
+    ytab = np.clip((yb + 0x8000) >> 16, 0, 255)
+    head = np.clip(np.arange(256 + 1024) - 512, 0, 255)
+    t = {n: -(c >> 9) + ((head * c) >> 16) for n, c in k.items()}
+    return ytab, t, 326 + 512
+
+
+def _simd(y8, u8, v8):
+    """swscale's x86 yuv2rgb on 8x-scale words (BT.601, video range)."""
+    def mulhw(a, b):
+        return (a * b) >> 16
+
+    def wrap(a):
+        return ((a + 32768) & 0xFFFF) - 32768
+    ys = mulhw(wrap(y8 - 128), 9539)
+    uu, vv = wrap(u8 - 1024), wrap(v8 - 1024)
+    g = np.clip(mulhw(uu, -3209) + mulhw(vv, -6660), -32768, 32767)
+    out = [ys + mulhw(uu, 16525), ys + g, ys + mulhw(vv, 13075)]
+    return np.stack([np.clip(np.clip(c, -32768, 32767), 0, 255)
+                     for c in out], -1)
+
+
+def _scale_np(y, u, v, dw, dh):
+    """Planes (Y at sw x sh) → BGR24 at dw x dh (dw even), swscale's way."""
+    sh, sw = y.shape
+    csh, csw = u.shape
+    cdw = (dw + 1) >> 1
+    lp, lc = _init_filter(sw, dw, 4, 1 << 14)
+    lvp, lvc = _init_filter(sh, dh, 2, 1 << 12)
+    cp, cc = _init_filter(csw, cdw, 4, 1 << 14)
+    cvp, cvc = _init_filter(csh, dh, 2, 1 << 12)
+    y15, u15, v15 = (_hscale(y, lp, lc), _hscale(u, cp, cc),
+                     _hscale(v, cp, cc))
+    ytab, tab, base = _tables()
+    out = np.zeros((dh, dw, 3), np.int64)
+    cols = np.arange(dw) >> 1
+    for r in range(dh):
+        lrows = y15[lvp[r]:lvp[r] + lvc.shape[1]]
+        urows = u15[cvp[r]:cvp[r] + cvc.shape[1]]
+        vrows = v15[cvp[r]:cvp[r] + cvc.shape[1]]
+        assert lvc.shape[1] > 2    # the general vertical filter
+        if r < dh - 2:
+            def acc(rows, c):
+                s = np.full(rows.shape[1], 4, np.int64)
+                for j in range(len(c)):
+                    s = ((s + ((rows[j] * c[j]) >> 16) + 32768) & 0xFFFF) \
+                        - 32768
+                return s
+            out[r] = _simd(acc(lrows, lvc[r]), acc(urows, cvc[r])[cols],
+                           acc(vrows, cvc[r])[cols])
+        else:
+            yy = ((1 << 18) + (lrows * lvc[r][:, None]).sum(0)) >> 19
+            uu = ((1 << 18) + (urows * cvc[r][:, None]).sum(0)) >> 19
+            vv = ((1 << 18) + (vrows * cvc[r][:, None]).sum(0)) >> 19
+            uu = np.clip(uu, -512, 767)[cols] + 512
+            vv = np.clip(vv, -512, 767)[cols] + 512
+            out[r] = np.stack([ytab[base + tab["cbu"][uu] + yy],
+                               ytab[base + tab["cgu"][uu] + tab["cgv"][vv]
+                                    + yy],
+                               ytab[base + tab["crv"][vv] + yy]], -1)
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize("src,dst", [((128, 96), (176, 144)),
+                                     ((176, 144), (128, 96)),
+                                     ((88, 72), (176, 144)),
+                                     ((512, 218), (1024, 436)),
+                                     ((130, 98), (176, 144))])
+def test_scaler_at_unequal_sizes_equals_numpy(src, dst):
+    """``i420_to_bgr(..., size=)``, the conversion of a picture of another
+    size than its stream's, against the numpy version of swscale's scaler
+    above: luma and chroma scaled, the x86 rows and the last two rows'
+    lookup tables."""
+    rng = np.random.default_rng(sum(src + dst))
+    (sw, sh), (dw, dh) = src, dst
+    y = rng.integers(0, 256, (sh, sw), np.uint8)
+    u = rng.integers(0, 256, ((sh + 1) // 2, (sw + 1) // 2), np.uint8)
+    v = rng.integers(0, 256, u.shape, np.uint8)
+    np.testing.assert_array_equal(i420_to_bgr(y, u, v, size=dst),
+                                  _scale_np(y, u, v, dw, dh))
 
 
 def test_truncated_file_raises_value_error(tmp_path):
