@@ -267,7 +267,24 @@ non-zero, and no result line is printed):
      decode a frame, H.263 beside MPEG-4 Part 2 and the resizing VP9
      beside the unscaled one, and to convert a scaled picture; (e) no cv2,
      PIL or jax in ``sys.modules``;
- 23. one JSON line listing every kernel with its launches on its path,
+ 23. transport streams, elementary streams and FFV1 (``io/mpegts``,
+     ``io/elementary``, MPEG-4 Part 2 in ``io/mpegps``, host C++
+     ``runtime/ffv1.cpp`` behind the Matroska, AVI and MP4 demuxers): (a)
+     every such fixture (MPEG-1/2 and MPEG-4 Part 2 in .ts/.m2ts/.mts,
+     split PES packets and continuity gaps, .m1v/.m2v/.mpv/.h263/.263,
+     MPEG-4 Part 2 in .mpg; FFV1 from cv2's writer in .mkv/.avi/.mp4/.mov
+     and libavcodec's versions 0-3, range and Golomb coders, slice counts,
+     grey, 4:2:0 and odd sizes) decodes to its manifest's cv2 digests, fps,
+     size and count, every recorded seek reads cv2's frame (or nothing,
+     as cv2's), H.263 and FFV1 muxed into .ts are refused; (b)
+     ``cli/extract_video --mode arrows --batch 4 --dtype bfloat16`` over
+     the 13-frame 436x1024 MPEG-2 ``.ts`` (K1 15 a run) and the 3-frame
+     FFV1 ``.mkv`` (K1 5); (c) ``cli/train --regime pseudo`` for 2 steps
+     over a 10-frame low-delay 436x1024 MPEG-2 ``.ts``: K1 and B1 5 a step;
+     (d) host ms to open (demux) and decode a 436x1024 frame, MPEG-2 in
+     .mpg, .ts and .m2v, FFV1 in .mkv; (e) no cv2, PIL or jax in
+     ``sys.modules``;
+ 24. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -281,8 +298,9 @@ loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
 paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
-phase 21's MPEG-1/2 paths and phase 22's H.263 and size-change paths (K1
-in the video CLI's runs, K1 and B1 in the pseudo steps).
+phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths and
+phase 23's transport stream and FFV1 paths (K1 in the video CLI's runs,
+K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3733,7 +3751,8 @@ def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
                       if not name.startswith(("mjpg",     # Motion JPEG: [18]
                                               *NEW_VIDEO_FIXTURES,   # [19]
                                               "vp9_",                # [20]
-                                              "mpeg1_", "mpeg2_"))}  # [21]
+                                              "mpeg1_", "mpeg2_"))   # [21]
+                      and not streams_fixture(name)}                 # [23]
     for name, want in sorted(mpeg4_fixtures.items()):
         path = os.path.join(MP4_DIR, name)
         frames = list(vio.read_frames(path))
@@ -4147,7 +4166,8 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
     with open(os.path.join(MP4_DIR, "manifest.json")) as f:
         manifest = json.load(f)
     new = {n: w for n, w in manifest["files"].items()
-           if n.startswith(NEW_VIDEO_FIXTURES) and n not in PHASE20_VP8}
+           if n.startswith(NEW_VIDEO_FIXTURES) and n not in PHASE20_VP8
+           and not streams_fixture(n)}
     n_frames = 0
     for name, want in sorted(new.items()):
         path = os.path.join(MP4_DIR, name)
@@ -4509,7 +4529,7 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
     with open(os.path.join(MP4_DIR, "manifest.json")) as f:
         manifest = json.load(f)
     new = {n: w for n, w in manifest["files"].items()
-           if n.startswith(("mpeg1_", "mpeg2_"))}
+           if n.startswith(("mpeg1_", "mpeg2_")) and not streams_fixture(n)}
     n_frames, n_seeks, refused = 0, 0, []
     for name, want in sorted(new.items()):
         path = os.path.join(MP4_DIR, name)
@@ -4715,7 +4735,8 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
     with open(os.path.join(MP4_DIR, "manifest.json")) as f:
         manifest = json.load(f)
     new = {n: w for n, w in manifest["files"].items()
-           if n.startswith("h263_") or "resize" in n or n.endswith(".3gp")}
+           if (n.startswith("h263_") or "resize" in n or n.endswith(".3gp"))
+           and not streams_fixture(n)}
     n_frames = n_seeks = 0
     for name, want in sorted(new.items()):
         path = os.path.join(MP4_DIR, name)
@@ -4866,6 +4887,213 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
         f"s; {card}")
     return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
             "features": features, "cli": cli_rows, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+# phase 23: transport streams, elementary streams, MPEG-4 in program
+# streams and FFV1
+STREAM_EXTS = (".ts", ".m2ts", ".mts", ".m2t", ".m1v", ".m2v", ".mpv",
+               ".h263", ".263")
+TS_CLIP = "mpeg2_sintel_436x1024.ts"       # cv2's MPG2 writer, 13 frames
+FFV1_CLIP = "ffv1_sintel_436x1024.mkv"     # cv2's FFV1 writer, 3 frames
+FFV1_FRAMES = 3
+TS_TRAIN = "mpeg2_sintel_low_delay_436x1024.ts"   # seeks exactly
+TS_TRAIN_FRAMES = 10      # 9 pairs: 2 pseudo steps at batch 4
+GENERIC_SEEK = ("mpeg2_cbr_176x144.m2v",)  # FFmpeg's generic index seek
+STREAMS_TIMED = 4         # passes over each clip for the host times
+
+
+def streams_fixture(name: str) -> bool:
+    """Whether a fixture is phase 23's: a transport or elementary stream
+    (H.263 and FFV1 muxed into ``ts_*.ts`` among them), MPEG-4 Part 2 in a
+    program stream, or FFV1."""
+    return (name.endswith(STREAM_EXTS) or name.startswith(("ffv1_", "ts_"))
+            or (name.startswith("mpeg4_") and name.endswith(".mpg")))
+
+
+def phase_streams(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """Transport streams, elementary streams and FFV1 through the port's
+    entry points on the card machine: (a) the fixtures (MPEG-1/2 and
+    MPEG-4 Part 2 in .ts/.m2ts/.mts, split PES packets and continuity gaps,
+    .m1v/.m2v/.mpv/.h263/.263, MPEG-4 Part 2 in .mpg, FFV1 in
+    .mkv/.avi/.mp4/.mov in every version, coder and colour space a fixture
+    reaches) equal cv2's digests, fps, size and count, each recorded seek
+    reads cv2's frame (or nothing where cv2 reads nothing), and H.263 and
+    FFV1 muxed into .ts are refused; (b) the video CLI over the 436x1024
+    MPEG-2 .ts and the FFV1 .mkv, K1 on the card, bf16; (c) the pseudo
+    regime over a low-delay 436x1024 MPEG-2 .ts (K1 and B1); (d) host ms a
+    frame to demux and decode each new kind beside MPEG-2 in .mpg on the
+    same frames; (e) no cv2, PIL or jax imported.  Returns its results,
+    each path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.elementary import ElementaryFile
+    from opticalflow_tpu_torch.io.mkv import MkvFile
+    from opticalflow_tpu_torch.io.mpegps import MpegPsFile
+    from opticalflow_tpu_torch.io.mpegts import MpegTsFile
+    from opticalflow_tpu_torch.runtime import ffv1, mpeg12
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    new = {n: w for n, w in manifest["files"].items() if streams_fixture(n)}
+    n_frames = n_seeks = n_none = 0
+    refused = []
+    for name, want in sorted(new.items()):
+        path = os.path.join(MP4_DIR, name)
+        if "port_refuses" in want:
+            try:
+                vio.EncodedVideo(path)
+            except Unsupported:
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name} was read")
+        frames = list(vio.read_frames(path))
+        n_frames += len(frames)
+        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in
+                                        ("fps", "width", "height", "frames")}
+        video = vio.EncodedVideo(path)
+        for t, hit in want["seeks"].items():
+            n_seeks += 1
+            if name in GENERIC_SEEK or hit is None:
+                n_none += 1
+                try:
+                    video.frame(int(t))
+                except (Unsupported if name in GENERIC_SEEK else ValueError):
+                    continue
+                raise AssertionError(f"{name}: seek {t} read a frame")
+            assert pixel_digest(video.frame(int(t))) == \
+                want["sha256"][hit], (name, t)
+    features = sorted({f for w in new.values()
+                       for f in w.get("ffv1_features", [])})
+    log(f"[23] (a) {len(new) - len(refused)} fixtures (MPEG-1/2 and MPEG-4 "
+        f"Part 2 in .ts/.m2ts/.mts, elementary .m1v/.m2v/.mpv/.h263/.263, "
+        f"MPEG-4 Part 2 in .mpg, FFV1 in .mkv/.avi/.mp4/.mov) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count, {n_seeks} seeks to the frames cv2's read "
+        f"({n_none} reading nothing, as cv2's, or refused) in "
+        f"{time.perf_counter() - t0:.2f} s; refused: {refused}; FFV1 "
+        f"features reached: {features}; {card}")
+    assert len(refused) == 2 and {"version_0_1", "version_2", "version_3",
+                                  "golomb", "range_custom", "rgb",
+                                  "yuv420", "grey"} <= set(features)
+
+    # (b) the video CLI over the MPEG-2 .ts and the FFV1 .mkv
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    cli_rows = {}
+    for tag, src, n in (("mpeg2_ts", TS_CLIP, VP8_FRAMES),
+                        ("ffv1_mkv", FFV1_CLIP, FFV1_FRAMES)):
+        k0 = corr_fwd.launches
+        row = video_cli([os.path.join(MP4_DIR, src),
+                         os.path.join(tmp, f"out_{tag}.y4m"), "--ckpt", ckpt,
+                         "--mode", "arrows", "--batch", str(VIDEO_B),
+                         "--dtype", "bfloat16", "--device", "cuda"],
+                        n, FULL_H, FULL_W)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(n - 1) // VIDEO_B), windows
+        assert launched == 5 * windows, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        cli_rows[tag] = row
+        log(f"[23] (b) extract_video --mode arrows B={VIDEO_B} bf16, {tag} "
+            f"({n} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps over the "
+            f"run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode "
+            f"thread busy {row['decode_ms']!r} ms a frame "
+            f"({row['decode_share']:.1%}), draw {row['draw_share']:.1%}, "
+            f"encode {row['encode_share']:.1%}; {windows} windows, K1 "
+            f"{launched} launches; {card}")
+    launches["cli"] = sum(r["k1_launches"] for r in cli_rows.values())
+    assert launches["cli"] == 15 + 5, launches
+
+    # (c) the pseudo regime over the low-delay MPEG-2 .ts
+    train_ts = os.path.join(MP4_DIR, TS_TRAIN)
+    assert vio.video_info(train_ts)["frames"] == TS_TRAIN_FRAMES
+    out_dir = os.path.join(tmp, "ts_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_ts, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (TS_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[23] (c) cli/train --regime pseudo over a low-delay MPEG-2 .ts "
+        f"of {TS_TRAIN_FRAMES} frames ({FULL_H}x{FULL_W} -> 384x512), "
+        f"{steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: open (demux: the file
+    # walked, pictures split) and decode, MPEG-2 in .mpg beside the same
+    # frames in .ts (cv2's writer), as an elementary .m2v (the .mpg's
+    # pictures one after another) and FFV1 in .mkv (its 3 frames)
+    m2v = os.path.join(tmp, "sintel.m2v")
+    mpg = os.path.join(MP4_DIR, MPEG12_CLIP)
+    with open(mpg, "rb") as f, open(m2v, "wb") as out:
+        box = MpegPsFile(mpg)
+        for i in range(len(box.sizes)):
+            out.write(box.sample(f, i))
+    host = {}
+    for kind, path, opener in (("mpg", mpg, MpegPsFile),
+                               ("ts", os.path.join(MP4_DIR, TS_CLIP),
+                                MpegTsFile),
+                               ("m2v", m2v, ElementaryFile),
+                               ("ffv1_mkv", os.path.join(MP4_DIR, FFV1_CLIP),
+                                MkvFile)):
+        t0 = time.perf_counter()
+        for _ in range(STREAMS_TIMED):
+            box = opener(path)
+        t1 = time.perf_counter()
+        n = len(box.sizes)
+        with open(path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(n)]
+        make = ((lambda b=box: ffv1.Decoder(FULL_W, FULL_H, b.dsi))
+                if kind == "ffv1_mkv" else mpeg12.Decoder)
+        make().decode(samples[0])                 # the library is loaded
+        t2 = time.perf_counter()
+        for _ in range(STREAMS_TIMED):
+            d = make()
+            got = [d.decode(s) for s in samples]
+        t3 = time.perf_counter()
+        if kind != "ffv1_mkv":                # pictures come a packet late
+            got = [q for p in got for q in p] + d.flush()
+        assert len(got) == n, (kind, len(got))
+        host[kind] = {"open_ms": (t1 - t0) / STREAMS_TIMED / n * 1e3,
+                      "decode_ms": (t3 - t2) / STREAMS_TIMED / n * 1e3,
+                      "bytes_a_frame": sum(map(len, samples)) / n,
+                      "frames": n}
+    log("[23] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (open: the demuxer's walk and split; decode): " + "; ".join(
+            f"{k} open {v['open_ms']!r}, decode {v['decode_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame)"
+            for k, v in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[23] (e) cv2, PIL, jax not imported; phase 23 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new) - len(refused), "refused": refused,
+            "frames": n_frames, "seeks": n_seeks, "features": features,
+            "cli": cli_rows, "host_decode": host,
             "pseudo_losses": [r["loss"] for r in recs],
             "launches": launches, "phase_s": phase_s, "card": card}
 
@@ -5063,6 +5291,16 @@ def main() -> int:
     assert h263_launches == correlation_cuda.launches > 0
     assert h263["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the transport stream / FFV1 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        streams = phase_streams(sd, tmp, correlation_cuda,
+                                correlation_bwd_cuda, card_line())
+    # ... and end here: the video CLI's runs and the pseudo steps
+    streams_launches = streams["launches"]["cli"] + \
+        streams["launches"]["pseudo"]["correlation_fwd"]
+    assert streams_launches == correlation_cuda.launches > 0
+    assert streams["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -5124,7 +5362,11 @@ def main() -> int:
          # phase 22: the video CLI over the 4CIF H.263 AVI and the resizing
          # 436x1024 VP9 WebM, and the pseudo steps over the WebM's head (5
          # a window, 5 a step)
-         "launches_h263": h263_launches, "h263": h263},
+         "launches_h263": h263_launches, "h263": h263,
+         # phase 23: the video CLI over the 436x1024 MPEG-2 .ts and FFV1
+         # .mkv, and the pseudo steps over a low-delay MPEG-2 .ts (5 a
+         # window, 5 a step)
+         "launches_streams": streams_launches, "streams": streams},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -5162,7 +5404,10 @@ def main() -> int:
          # phase 21: the pseudo regime's steps over an MPEG-2 .mpg
          "launches_mpeg12": m12["launches"]["pseudo"]["correlation_bwd"],
          # phase 22: the pseudo regime's steps over the resizing VP9 WebM
-         "launches_h263": h263["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_h263": h263["launches"]["pseudo"]["correlation_bwd"],
+         # phase 23: the pseudo regime's steps over an MPEG-2 .ts
+         "launches_streams":
+             streams["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -3,9 +3,11 @@
 
 Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is an
 ``.mp4``, ``.avi``, ``.mkv`` or ``.webm`` file (MPEG-4 Part 2, MPEG-1/2,
-VP8 or VP9, decoded from the keyframe before the frame, as FFmpeg's seek
-does; Motion JPEG), an MPEG program stream (``.mpg``, ``.mpeg``, ``.vob``:
-the frame OpenCV's seek reads, its quirks included), a ``.y4m`` file, an
+VP8, VP9 or FFV1, decoded from the keyframe before the frame, as FFmpeg's
+seek does; Motion JPEG), an MPEG program or transport stream (``.mpg``,
+``.mpeg``, ``.vob``, ``.ts``, ``.m2ts``, ``.mts``: the frame OpenCV's seek
+reads, its quirks included; a seek that reads nothing exits 1, as the JAX
+CLI does), an elementary stream (``.m2v``, ``.h263``, ...), a ``.y4m`` file, an
 image
 sequence named by a pattern (``frames/%06d.jpg``, read as
 ``cv2.VideoCapture`` reads it) or a directory of PNG or JPEG frames
@@ -24,8 +26,9 @@ import sys
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
     p.add_argument("video", help=".mp4, .avi, .mkv, .webm (MPEG-4 Part 2, "
-                                 "MPEG-1/2, VP8, VP9 or Motion JPEG), "
-                                 ".mpg/.mpeg/.vob or .y4m file, image "
+                                 "MPEG-1/2, VP8, VP9, FFV1 or Motion JPEG), "
+                                 ".mpg/.ts/.m2ts/.m2v/.h263 or .y4m file, "
+                                 "image "
                                  "sequence pattern "
                                  "(frames/%%06d.jpg) or PNG/JPEG frame "
                                  "directory")
@@ -44,7 +47,12 @@ def main(argv=None) -> int:
         print(f"error: frame {args.frame} out of range (video has {total})",
               file=sys.stderr)
         return 1
-    frame = read_frame(args.video, args.frame)
+    try:
+        frame = read_frame(args.video, args.frame)
+    except ValueError as e:     # a seek that reads nothing, as cv2's may
+        print(f"error: failed to decode frame {args.frame}: {e}",
+              file=sys.stderr)
+        return 1
     out = args.out or f"{args.video}frame_{args.frame}.png"
     with open(out, "wb") as f:
         f.write(encode_png(frame[..., ::-1]))

@@ -6,9 +6,12 @@ Counterpart of ``opticalflow_tpu.cli.extract_video`` with the same flags
 plus ``--device`` (default ``cuda``).  Video is read from an ``.mp4``,
 ``.avi``, ``.mkv`` or ``.webm`` file (MPEG-4 Part 2, what
 ``cv2.VideoWriter`` writes with ``mp4v``; VP8 and VP9, what browsers'
-recorders and YouTube's downloads put into WebM; MPEG-1/2; Motion JPEG),
-an MPEG program stream (``.mpg``, ``.mpeg``, ``.vob``: DVDs, broadcast
-captures), a ``.y4m`` file (YUV4MPEG2, 8-bit 4:2:0), an
+recorders and YouTube's downloads put into WebM; MPEG-1/2; FFV1, the
+lossless archive codec; Motion JPEG), an MPEG program stream (``.mpg``,
+``.mpeg``, ``.vob``: DVDs) or transport stream (``.ts``, ``.m2ts``,
+``.mts``: broadcast and camcorder captures), an elementary stream
+(``.m1v``, ``.m2v``, ``.mpv``, ``.h263``), a ``.y4m`` file (YUV4MPEG2,
+8-bit 4:2:0), an
 image sequence named by a pattern (``frames/%06d.jpg``, read as
 ``cv2.VideoCapture`` reads it) or a directory of PNG or JPEG frames, and
 written as ``.mp4`` (MPEG-4 Part 2, as the JAX CLI writes), ``.avi``,
@@ -48,8 +51,9 @@ def build_parser():
     p = argparse.ArgumentParser(
         description="Video optical-flow extraction (PyTorch/CUDA)")
     p.add_argument("video", help="input .mp4, .avi, .mkv, .webm (MPEG-4 "
-                                 "Part 2, MPEG-1/2, VP8, VP9 or Motion "
-                                 "JPEG), .mpg/.mpeg/.vob or .y4m file, "
+                                 "Part 2, MPEG-1/2, VP8, VP9, FFV1 or Motion "
+                                 "JPEG), .mpg/.ts/.m2ts/.mts, .m2v/.h263 or "
+                                 ".y4m file, "
                                  "image sequence pattern "
                                  "(frames/%%06d.jpg) or PNG/JPEG frame "
                                  "directory")

@@ -14,8 +14,9 @@ PNG reader; batching and prefetch live in ``data/loader.py``.
   * :class:`SintelPairs` — MPI-Sintel clean/final with ``.flo`` GT;
   * :class:`ConsecutiveFrames` — frame_t/frame_{t+stride} pairs from a
     directory of frames or a video source (``.mp4``/``.avi``/``.mkv``/
-    ``.webm``: MPEG-4 Part 2, MPEG-1/2, VP8, VP9 or Motion JPEG; ``.mpg``/
-    ``.mpeg``/``.vob``; ``.y4m``, an image sequence pattern) for
+    ``.webm``: MPEG-4 Part 2, MPEG-1/2, VP8, VP9, FFV1 or Motion JPEG;
+    ``.mpg``/``.mpeg``/``.vob``; ``.ts``/``.m2ts``/``.mts``; ``.y4m``, an
+    image sequence pattern) for
     self-supervised training (``train_pseudo.py:23-62``); H.264 and other
     codecs are not read (ROADMAP Queue 1 item 8).
 

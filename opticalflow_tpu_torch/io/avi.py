@@ -19,7 +19,9 @@ picks the codec:
     case): decoded by ``runtime/mpeg12``;
   * H.263 (``H263``, ``U263``, ``X263``, ...: the tags ``riff.c`` maps to
     ``h263``, in any case): decoded by ``runtime/h263``, keyframes from
-    ``idx1``.
+    ``idx1``;
+  * FFV1 (``FFV1``): decoded by ``runtime/ffv1``, its extradata after the
+    BITMAPINFOHEADER, keyframes from ``idx1``.
 
 Anything else (``H264``, Matrox's intra-only ``M701``-``M705``,
 ``slif``, ...) raises ``Unsupported``, naming ROADMAP
@@ -39,6 +41,7 @@ import os
 import struct
 from typing import BinaryIO, List, Optional, Tuple
 
+from opticalflow_tpu_torch.runtime.ffv1 import is_keyframe as ffv1_is_keyframe
 from opticalflow_tpu_torch.runtime.h263 import is_intra as is_h263_intra
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
@@ -51,6 +54,7 @@ MJPEG_TAGS = {"MJPG", "mjpg"}
 RAW_TAGS = {"I420", "IYUV"}
 VP8_TAGS = {"VP80"}
 VP9_TAGS = {"VP90"}
+FFV1_TAGS = {"FFV1"}
 # FFmpeg's BITMAPINFOHEADER tags of mpeg1video and mpeg2video (riff.c),
 # which it matches without regard to case
 MPEG12_TAGS = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2", "VCR2",
@@ -176,9 +180,9 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs, H.263 I-pictures or VP8 key frames; all raw and
+        MPEG-4 I-VOPs, H.263 I-pictures, FFV1 or VP8 key frames; all raw and
         Motion JPEG frames are."""
-        if self.codec not in ("mpeg4", "vp8", "h263"):
+        if self.codec not in ("mpeg4", "vp8", "h263", "ffv1"):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -192,7 +196,8 @@ class AviFile:
                     head = f.read(min(self.sizes[i], 4096))
                     if (_is_ivop(head) if self.codec == "mpeg4" else
                             is_h263_intra(head) if self.codec == "h263" else
-                            is_keyframe(head)):
+                            ffv1_is_keyframe(head) if self.codec == "ffv1"
+                            else is_keyframe(head)):
                         keys.append(i)
         return keys or [0]
 
@@ -214,7 +219,8 @@ class AviFile:
 
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
-    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9``, ``mpeg12`` or ``h263``;
+    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9``, ``mpeg12``, ``h263`` or
+    ``ffv1``;
     anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
@@ -231,10 +237,12 @@ def codec_of(tag: str, what: str) -> str:
         return "mpeg12"
     if tag.upper() in H263_TAGS:
         return "h263"
+    if tag in FFV1_TAGS:
+        return "ffv1"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
-                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Motion "
-                      f"JPEG, raw I420, VP8 and VP9 only ({ITEM_8})")
+                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, FFV1, "
+                      f"Motion JPEG, raw I420, VP8 and VP9 only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

@@ -21,12 +21,13 @@ needed.  The codecs, by ``CodecID``:
   * ``V_MPEG1``, ``V_MPEG2``: ``runtime/mpeg12``, the sequence header in
     ``CodecPrivate``;
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
+  * ``V_FFV1``: ``runtime/ffv1``, ``CodecPrivate`` as its extradata;
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
     ``io/avi``'s fourcc rules (H.263 under ``H263``, as ``cv2.VideoWriter``
     writes it into ``.mkv``: ``runtime/h263``).
 
-Other codecs (H.264, HEVC, AV1, FFV1, ...), zlib-compressed
+Other codecs (H.264, HEVC, AV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
 ROADMAP Queue 1 item 8; header stripping is applied.
 
@@ -81,7 +82,7 @@ LANGUAGE = 0x22B59C
 _TOP = {SEEKHEAD, INFO, TRACKS, CLUSTER, CUES, TAGS, CHAPTERS, ATTACHMENTS}
 _MPEG4_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 _NAMES = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
-          "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
+          "V_MPEGH/ISO/HEVC": "HEVC", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_REAL/RV40": "RealVideo"}
 
 
@@ -352,6 +353,8 @@ class MkvFile:
             self.codec, self.tag = "mpeg12", codec
         elif codec == "V_MJPEG":
             self.codec, self.tag = "mjpeg", "MJPG"
+        elif codec == "V_FFV1":
+            self.codec, self.tag = "ffv1", "FFV1"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
             if self.tag not in ("I420", "IYUV"):
@@ -372,7 +375,8 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, MPEG-1, MPEG-2, Motion JPEG, raw I420 "
+                              f"Part 2, MPEG-1, MPEG-2, FFV1, Motion JPEG, "
+                              f"raw I420 "
                               f"and the AVI fourccs of V_MS/VFW/FOURCC "
                               f"(H.263, ...) in Matroska only ({ITEM_8})")
 

@@ -15,7 +15,9 @@ frame).  Its fps and frame count are what ``cv2.VideoCapture`` reports:
 sample count.  The ``vp09`` entry (VP9, what ``cv2.VideoWriter`` writes for
 fourcc ``VP90`` into ``.mp4``) is read with its ``vpcC``; the ``s263``
 (with its ``d263``), ``h263`` and ``H263`` entries, H.263, what it writes for
-fourccs ``s263`` and ``H263`` into ``.3gp`` and ``.mov``.  Other codecs'
+fourccs ``s263`` and ``H263`` into ``.3gp`` and ``.mov``; the ``FFV1``
+entry with its ``glbl`` box (the extradata), what it writes for fourcc
+``FFV1`` into ``.mp4`` and ``.mov``.  Other codecs'
 sample entries (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming
 ROADMAP Queue 1 item 8.
 
@@ -268,15 +270,16 @@ class Mp4File:
         fourcc = fourcc.decode("latin1")
         entry = b[12:4 + size]
         self.tag = fourcc
-        if fourcc not in ("mp4v", "vp09") + H263_ENTRIES:
+        if fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES:
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
                               f"{fourcc!r}): the port decodes the mp4v "
                               f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG), "
-                              f"vp09 (VP9) and s263/h263 (H.263) only "
+                              f"vp09 (VP9), FFV1 and s263/h263 (H.263) only "
                               f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.codec = ("vp9" if fourcc == "vp09" else
+                      "ffv1" if fourcc == "FFV1" else
                       "h263" if fourcc in H263_ENTRIES else "mpeg4")
         self.dsi = b""
         pos = 78   # VisualSampleEntry fields
@@ -287,6 +290,8 @@ class Mp4File:
             if t == b"esds" and fourcc == "mp4v":
                 self.codec, self.dsi = _esds(entry[pos + 8:pos + n],
                                              self.path)
+            elif t == b"glbl" and fourcc == "FFV1":   # the extradata
+                self.dsi = entry[pos + 8:pos + n]
             elif t == b"vpcC":
                 self._vpcc(entry[pos + 8:pos + n])
             pos += n

@@ -1,6 +1,6 @@
 """Video frames in and out without OpenCV: ``.mp4``, ``.mov``, ``.3gp``,
-``.avi``, ``.mkv``, ``.webm``, ``.mpg``, ``.y4m``, image sequences and
-frame directories.
+``.avi``, ``.mkv``, ``.webm``, ``.mpg``, ``.ts``, ``.m2v``, ``.h263``,
+``.y4m``, image sequences and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -40,7 +40,17 @@ muxers and codecs and reads what those read, frame for frame:
     ``cv2.VideoCapture``'s seek reads, its quirks included
     (:meth:`EncodedVideo.seek_target`).  Interlaced coding, 4:2:2/4:4:4
     and scalable streams raise, naming item 8; program streams are read,
-    not written;
+    not written.  MPEG-4 Part 2 in a program stream is read too;
+  * **MPEG transport streams** (``.ts``, ``.m2ts``, ``.mts``, ``.m2t``;
+    ``io/mpegts``): MPEG-1, MPEG-2 and MPEG-4 Part 2, with cv2's count,
+    fps (MPEG-1 at twice its rate) and FFmpeg's seek search; and
+    **elementary streams** (``.m1v``, ``.m2v``, ``.mpv``, ``.h263``,
+    ``.263``; ``io/elementary``) at the raw demuxers' 25 fps and cv2's
+    count; neither is written;
+  * **FFV1** (``FFV1`` in AVI, ``V_FFV1`` in Matroska, the ``FFV1`` entry
+    in MP4 and QuickTime: what ``cv2.VideoWriter`` writes for fourcc
+    ``FFV1``), decoded by ``runtime/ffv1`` bit-exactly to FFmpeg, RGB handed
+    over packed as swscale copies it;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
@@ -65,7 +75,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from bisect import bisect_right
+from bisect import bisect_left, bisect_right
 from contextlib import closing
 from fractions import Fraction
 from glob import glob
@@ -78,9 +88,15 @@ from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
+from opticalflow_tpu_torch.io.elementary import (H263_EXTENSIONS,
+                                                 MPEG_EXTENSIONS,
+                                                 ElementaryFile)
 from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
 from opticalflow_tpu_torch.io.mpegps import MpegPsFile
+from opticalflow_tpu_torch.io.mpegts import EXTENSIONS as _TS_EXTS
+from opticalflow_tpu_torch.io.mpegts import MpegTsFile
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
+from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
@@ -106,9 +122,11 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "is_sequence", "ffmpeg_threads"]
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
-           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9 or Motion JPEG; raw I420 "
-           "in .avi and .mkv), an "
-           "MPEG program stream (.mpg, .mpeg, .vob: MPEG-1 or MPEG-2), a .y4m "
+           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9, FFV1 or Motion JPEG; raw "
+           "I420 in .avi and .mkv), an MPEG program stream (.mpg, .mpeg, "
+           ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
+           "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
+           ".h263, .263), a .y4m "
            "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
            "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
            "directory of PNG or JPEG frames")
@@ -124,7 +142,8 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
 _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-_ENCODED = ("mp4", "avi", "mkv", "mpg")
+_ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS
+_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
@@ -172,11 +191,14 @@ def _kind(path: str, writing: bool = False) -> str:
         return "mp4"
     if low.endswith(".avi"):
         return "avi"
-    if low.endswith(_MPG_EXTS):
-        if writing:
-            raise ValueError(f"cannot write {path!r}: the port writes "
-                             f"{WRITES}, not MPEG program streams")
-        return "mpg"
+    for exts, kind, what in ((_MPG_EXTS, "mpg", "MPEG program streams"),
+                             (_TS_EXTS, "ts", "MPEG transport streams"),
+                             (_ES_EXTS, "es", "elementary streams")):
+        if low.endswith(exts):
+            if writing:
+                raise ValueError(f"cannot write {path!r}: the port writes "
+                                 f"{WRITES}, not {what}")
+            return kind
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
             raise ValueError(
@@ -294,7 +316,8 @@ class Y4MFile:
 
 class EncodedVideo:
     """The video track of an ``.mp4``, ``.avi``, ``.mkv`` or ``.webm``
-    file, or an MPEG program stream: its size, fps and frame count as
+    file, an MPEG program or transport stream or an elementary stream: its
+    size, fps and frame count as
     ``cv2.VideoCapture`` reports them, and its frames (in display order:
     an MPEG-1/2 stream's pictures come out reordered, as FFmpeg hands them
     over).
@@ -311,9 +334,9 @@ class EncodedVideo:
             raise FileNotFoundError(path)
         self.path = path
         kind = _kind(path)
-        self.box = box = (Mp4File(path) if kind == "mp4" else
-                          MkvFile(path) if kind == "mkv" else
-                          MpegPsFile(path) if kind == "mpg" else AviFile(path))
+        self.box = box = {"mp4": Mp4File, "mkv": MkvFile, "mpg": MpegPsFile,
+                          "ts": MpegTsFile, "es": ElementaryFile,
+                          "avi": AviFile}[kind](path)
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
         # the samples decoding walks: all of them, as cv2.VideoCapture.read
@@ -376,6 +399,7 @@ class EncodedVideo:
         self.threads = ffmpeg_threads()
         self._gen = None
         self._next = 0      # a capture just opened reads frame 0 unsought
+        self._index: dict = {}      # FFmpeg's seek index in a capture
 
     def __len__(self) -> int:
         return self.frames
@@ -418,56 +442,107 @@ class EncodedVideo:
                           if t == 1 and self.display[i] is not None] or [0]
         self._key_display = [self.display[i] for i in self.keyframes]
 
-    def seek_target(self, index: int) -> Optional[int]:
+    def seek_target(self, index: int, capture: Optional[dict] = None
+                    ) -> Optional[int]:
         """The frame ``cv2.VideoCapture`` returns after a
-        ``CAP_PROP_POS_FRAMES`` seek to ``index`` of an MPEG-1/2 stream:
+        ``CAP_PROP_POS_FRAMES`` seek to ``index`` on a capture just opened:
         OpenCV clamps the index to its frame count; in AVI, where FFmpeg
-        stamps an I- or P-picture with the packet that hands it over (one
-        late, without B-pictures to reorder around), every seek from frame
-        2 on lands one frame early; in a program stream the seek follows
-        FFmpeg's index of PES timestamps (:meth:`_ps_seek`).  Other codecs
-        seek exactly."""
-        if self.box.codec != "mpeg12":
+        stamps an MPEG-1/2 I- or P-picture with the packet that hands it
+        over (one late, without B-pictures to reorder around), every seek
+        from frame 2 on lands one frame early; in a program or transport
+        stream the seek follows FFmpeg's search (:meth:`_pes_seek`); in an
+        elementary stream ``ElementaryFile.seek_target``'s rule.  Other
+        codecs and containers seek exactly.  ``capture`` is the index
+        FFmpeg's transport stream demuxer keeps through one capture's seeks
+        (:meth:`read` passes its own; None: a capture just opened)."""
+        box = self.box
+        if isinstance(box, ElementaryFile):
+            return box.seek_target(index)
+        if isinstance(box, (MpegPsFile, MpegTsFile)):
+            return self._pes_seek(min(index, self.frames),
+                                  {} if capture is None else capture)
+        if box.codec != "mpeg12":
             return index
         index = min(index, self.frames)
-        if isinstance(self.box, MpegPsFile):
-            return self._ps_seek(index)
-        if (isinstance(self.box, AviFile) and index >= 2
+        if (isinstance(box, AviFile) and index >= 2
                 and 3 not in self.types):
             index -= 1
         return index
 
-    def _ps_seek(self, target: int) -> Optional[int]:
-        """OpenCV's seek (``CvCapture_FFMPEG::seek``) in a program stream:
-        it asks FFmpeg for the time ``delta`` frames before the target
-        (16, then more while it lands past it); FFmpeg goes to the last PES
-        packet whose DTS (else PTS) is at or before that time, and its
-        decoder, flushed, drops what it cannot decode until an I-picture
-        or GOP header; OpenCV numbers the first picture that comes out by
-        its time and reads on, one picture at a time, to the target.  None
-        where the read after the seek finds no picture."""
+    def _landing(self, ts: int, index: dict) -> Optional[int]:
+        """The stream offset FFmpeg reads from after seeking to the 90 kHz
+        time ``ts``: in a transport stream ``MpegTsFile.seek``'s search (None
+        where it fails); in a program stream the last PES packet whose DTS
+        (else PTS) is at or before ``ts``."""
         box = self.box
-        index = sorted((p.dts, p.es) for p in box.pes if p.dts is not None)
-        stamps = [d for d, _ in index]
+        if isinstance(box, MpegTsFile):
+            return box.seek(ts, index)
+        stamps = sorted((p.dts, p.es) for p in box.pes if p.dts is not None)
+        j = bisect_right([d for d, _ in stamps], ts) - 1
+        return stamps[j][1] if j >= 0 else 0
+
+    def _pes_seek(self, target: int, index: dict) -> Optional[int]:
+        """OpenCV's seek (``CvCapture_FFMPEG::seek``) in a program or
+        transport stream: it asks FFmpeg for the time ``delta`` frames
+        before the target (16, then more while it lands past it); FFmpeg
+        lands (:meth:`_landing`) and its decoder, flushed, drops what it
+        cannot decode until an I-picture or GOP header; OpenCV numbers the
+        first picture that comes out by its time (at its fps: an MPEG-1
+        transport stream's 50 makes two numbers a picture) and reads on,
+        one picture at a time, to the target.  None where the read after
+        the seek finds no picture.  MPEG-4 pictures decoded after landing
+        on a P-VOP and before the next I-VOP, which FFmpeg decodes over a
+        grey picture, are not reproduced: a seek that reads one raises
+        ``Unsupported``."""
+        box = self.box
         start = box.start_time or 0
-        first = next((d for d in self.display if d is not None), 0)
+        ts_box = isinstance(box, MpegTsFile)
+        mpeg12 = box.codec == "mpeg12"
+        samples = ({d: i for i, d in enumerate(self.display) if d is not None}
+                   if mpeg12 else None)
+
+        def number(d: int) -> int:
+            """OpenCV's dts_to_frame_number of display frame ``d``."""
+            pts = box.pts[samples[d] if mpeg12 else d]
+            if not ts_box or pts is None:
+                return d
+            return int(box.fps * ((pts - start) * (1.0 / 90000)) + 0.5)
+
+        first = number(0)
         delta = 16
         while True:
             temp = max(target - delta, 0)
-            ts = start + int(temp / box.fps * 90000 + 0.5)
-            j = bisect_right(stamps, ts) - 1
-            land = index[j][1] if j >= 0 else 0
-            s0 = next((i for i, o in enumerate(box.pictures) if o >= land),
-                      len(box.pictures))
-            closed = [c if box.starts[i] >= land else None
-                      for i, c in enumerate(self.closed[s0:], s0)]
-            out = [self.display[s0 + i] for i in output_order(
-                self.types[s0:], closed, self.low_delay,
-                [r - s0 for r in self.resets if r > s0])]
-            pick = (lambda n: out[n] if n < len(out) else None)  # noqa: E731
+            ts = start + int(temp / box.fps / (1.0 / 90000) + 0.5)
+            land = self._landing(ts, index)
+            if land is None:
+                return None
+            s0 = bisect_left(box.pictures, land)
+            if mpeg12:
+                closed = [c if box.starts[i] >= land else None
+                          for i, c in enumerate(self.closed[s0:], s0)]
+                out = [self.display[s0 + i] for i in output_order(
+                    self.types[s0:], closed, self.low_delay,
+                    [r - s0 for r in self.resets if r > s0])]
+            else:
+                out = list(range(s0, self.samples))
+            # MPEG-4 from a P-VOP: FFmpeg decodes over a grey picture until
+            # the next I-VOP, frames the port does not reproduce
+            grey = (0 if mpeg12 else
+                    next((i for i in range(s0, self.samples)
+                          if box.types[i] == 1), self.samples) - s0)
+
+            def pick(n: int) -> Optional[int]:
+                if n < grey:
+                    raise Unsupported(
+                        f"{self.path}: a seek to frame {target} reads a "
+                        f"picture FFmpeg decodes from a P-VOP over a grey "
+                        f"one (after landing on picture {s0}); not "
+                        f"reproduced by the port ({ITEM_8})")
+                return out[n] if n < len(out) else None
+
             if target < 2 or not out:
                 return pick(target)
-            got = out[0] - first
+            got = number(out[0]) - first
             if got < 0 or got > target - 1:
                 if temp == 0:
                     return pick(1)
@@ -484,6 +559,9 @@ class EncodedVideo:
             return Vp9Decoder(what=self.path)
         if self.box.codec == "h263":
             return H263Decoder(what=self.path)
+        if self.box.codec == "ffv1":
+            return Ffv1Decoder(self.width, self.height, self.box.dsi,
+                               what=self.path)
         return Decoder(self.box.dsi, what=self.path, tag=self.box.tag)
 
     def _raw(self, data: bytes):
@@ -582,6 +660,12 @@ class EncodedVideo:
         if self.box.codec != "mjpeg":
             size = (self.width, self.height)
             for i, p in self.planes(start):
+                if self.box.codec == "ffv1" and len(p) != 3:
+                    # FFV1's RGB comes packed (BGR0 → BGR24 is a copy in
+                    # swscale), its grey replicated
+                    yield i, (p if isinstance(p, np.ndarray) else
+                              np.repeat(p[0][..., None], 3, axis=2))
+                    continue
                 yield i, i420_to_bgr(*p, self.full_range, self.chroma,
                                      self.matrix, size)
             return
@@ -618,8 +702,10 @@ class EncodedVideo:
         if self._gen is None and index == self._next == 0:
             self._gen = self._decoded(0)
         elif self._gen is None or index != self._next:
-            self.close()
-            target = self.seek_target(index)
+            if self._gen is not None:
+                self._gen.close()
+                self._gen = None
+            target = self.seek_target(index, self._index)
             if target is None:
                 raise ValueError(f"{self.path}: a seek to frame {index} reads "
                                  "no frame (OpenCV's VideoCapture reads none either)")
@@ -641,6 +727,7 @@ class EncodedVideo:
             self._gen.close()
             self._gen = None
         self._next = 0
+        self._index = {}
 
 
 # --------------------------------------------------------------- image2

@@ -119,8 +119,9 @@ def decimate_flow(flow: torch.Tensor, grid_step: int, frame_h: int,
 def frame_pairs_from_video(path: str, max_frames: Optional[int] = None,
                            stride: int = 1) -> Iterator[np.ndarray]:
     """Yield BGR frames of a video file (``.mp4``, ``.avi``, ``.mkv``,
-    ``.webm`` of MPEG-4 Part 2, MPEG-1/2, VP8, VP9 or Motion JPEG;
-    ``.mpg``/``.mpeg``/``.vob``; ``.y4m``),
+    ``.webm`` of MPEG-4 Part 2, MPEG-1/2, VP8, VP9, FFV1 or Motion JPEG;
+    ``.mpg``/``.mpeg``/``.vob``; ``.ts``/``.m2ts``/``.mts``; ``.m2v``/
+    ``.h263``; ``.y4m``),
     image sequence (``frames/%06d.jpg``) or frame directory, decoded by a
     thread that fills a bounded queue; a decode error is raised here."""
     q: "queue.Queue" = queue.Queue(maxsize=64)

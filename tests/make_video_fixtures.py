@@ -101,7 +101,20 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
     ``h263_mv4_176x144.avi`` (8x8 vectors with DQUANT, no OBMC),
     ``h263_gob_352x288.avi`` (GOB headers, eight PSUPP bytes in each
     picture header, MCBPC stuffing before each I-picture's first
-    macroblock) and ``h263_resize.avi`` (QCIF, then sub-QCIF).
+    macroblock) and ``h263_resize.avi`` (QCIF, then sub-QCIF);
+  * transport streams, elementary streams and FFV1 (``stream_fixtures``;
+    ``--new`` writes these alone and adds their manifest entries):
+    ``mpeg2_176x144.{ts,m2ts,mts}``, ``mpeg1_176x144.ts`` (read at 50
+    fps), ``mpeg4_176x144.{ts,mpg}``, ``mpeg2_sintel_436x1024.ts`` and a
+    low-delay one (``ts_mux``) the card run's pseudo regime reads;
+    libavcodec's MPEG-2 with split PES packets and continuity gaps, MPEG-1
+    under stream type 0x01; H.263 and FFV1 muxed into ``ts_*.ts`` (neither
+    cv2 nor the port reads them); ``.m1v``, ``.m2v``, ``.mpv``, ``.h263``,
+    ``.263`` and a constant-bit-rate ``.m2v``; FFV1 from cv2's writer in
+    ``.mkv``/``.avi``/``.mp4``/``.mov``, grey, the Sintel pair's 3 frames,
+    and from libavcodec (``Lavc.encode_ffv1``) in Matroska: versions 0-2,
+    both range-coder tables, 6 and 12 slices, grey, 4:2:0 with and without
+    alpha, odd sizes.
 
 Each VP8 file's manifest entry lists the header features and coding modes
 the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
@@ -183,10 +196,12 @@ def cv2_info(path: str) -> dict:
     return info
 
 
-def _cv2_write(path: str, frames: list, fourcc: str, fps: float = 25.0):
+def _cv2_write(path: str, frames: list, fourcc: str, fps: float = 25.0,
+               color: bool = True):
     import cv2
     h, w = frames[0].shape[:2]
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h),
+                         isColor=color)
     assert wr.isOpened(), path
     for f in frames:
         wr.write(f)
@@ -582,15 +597,17 @@ def set_vp8_clamping(src: str, dst: str) -> None:
 
 
 def _webm(path: str, packets: list, w: int, h: int, codec: bytes = b"V_VP9",
-          fps: int = 25, colour_range=None) -> None:
-    """(frame, keyframe) packets → a minimal WebM: one track with
-    DefaultDuration and, if given, a Colour Range; a Cluster from each
+          fps: int = 25, colour_range=None, private: bytes = b"",
+          doctype: bytes = b"webm") -> None:
+    """(frame, keyframe) packets → a minimal WebM (or Matroska, by
+    ``doctype``): one track with DefaultDuration, ``private`` as its
+    CodecPrivate and, if given, a Colour Range; a Cluster from each
     keyframe; Duration; no Cues."""
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io import mkv
     ebml = mkv._el(mkv.EBML, mkv._uint_el(0x4286, 1) + mkv._uint_el(0x42F7, 1)
                    + mkv._uint_el(0x42F2, 4) + mkv._uint_el(0x42F3, 8)
-                   + mkv._el(mkv.DOCTYPE, b"webm") + mkv._uint_el(0x4287, 4)
+                   + mkv._el(mkv.DOCTYPE, doctype) + mkv._uint_el(0x4287, 4)
                    + mkv._uint_el(0x4285, 2))
     info = mkv._el(mkv.INFO, mkv._uint_el(mkv.TIMECODE_SCALE, 1_000_000)
                    + mkv._el(mkv.DURATION,
@@ -603,6 +620,7 @@ def _webm(path: str, packets: list, w: int, h: int, codec: bytes = b"V_VP9",
                     + mkv._uint_el(mkv.TRACK_UID, 1)
                     + mkv._uint_el(mkv.TRACK_TYPE, 1)
                     + mkv._el(mkv.CODEC_ID, codec)
+                    + (mkv._el(mkv.CODEC_PRIVATE, private) if private else b"")
                     + mkv._uint_el(mkv.DEFAULT_DURATION, 10 ** 9 // fps)
                     + mkv._el(mkv.VIDEO, video))
     clusters, cur = b"", []
@@ -1234,6 +1252,70 @@ class Lavc:
         return out
 
 
+    def encode_ffv1(self, frames: list, pix: str = "bgr0", gop: int = 12,
+                    **opts) -> tuple:
+        """BGR frames → (extradata, [(packet, keyframe)]) from libavcodec's
+        ``ffv1`` encoder in pixel format ``pix`` (``bgr0``, ``gray``,
+        ``yuv420p``, ``yuva420p``); ``opts`` are its options (``level``,
+        ``coder``, ``slices``, ``context``, ``threads``, ``strict``)."""
+        c, a, u = self.ct, self.a, self.u
+        u.av_get_pix_fmt.restype, u.av_get_pix_fmt.argtypes = c.c_int, [
+            c.c_char_p]
+        a.avcodec_parameters_alloc.restype = c.c_void_p
+        a.avcodec_parameters_from_context.argtypes = [c.c_void_p, c.c_void_p]
+        h, w = frames[0].shape[:2]
+        enc = a.avcodec_find_encoder_by_name(b"ffv1")
+        ctx = a.avcodec_alloc_context3(enc)
+        for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", pix),
+                     ("time_base", "1/25"), ("g", str(gop)),
+                     *((k, str(v)) for k, v in opts.items())):
+            assert u.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
+        assert a.avcodec_open2(ctx, enc, None) >= 0, opts
+        par = a.avcodec_parameters_alloc()
+        a.avcodec_parameters_from_context(par, ctx)
+        ext = c.string_at(c.c_void_p.from_address(par + 16).value,
+                          c.c_int.from_address(par + 24).value)
+        frame, pkt = u.av_frame_alloc(), a.av_packet_alloc()
+        ints = (c.c_int * 30).from_address(frame)
+        ints[26], ints[27], ints[29] = w, h, u.av_get_pix_fmt(pix.encode())
+        assert u.av_frame_get_buffer(frame, 0) >= 0
+        out = []
+
+        def drain():
+            while a.avcodec_receive_packet(ctx, pkt) == 0:
+                data = c.c_void_p.from_address(pkt + 24).value
+                size = c.c_int.from_address(pkt + 32).value
+                key = c.c_int.from_address(pkt + 40).value & 1
+                out.append((c.string_at(data, size), bool(key)))
+                a.av_packet_unref(pkt)
+
+        for n, f in enumerate(frames):
+            assert u.av_frame_make_writable(frame) >= 0
+            if pix == "bgr0":
+                planes = [np.concatenate(
+                    [f, np.zeros(f.shape[:2] + (1,), np.uint8)], 2
+                ).reshape(h, w * 4)]
+            elif pix == "gray":
+                planes = [f[..., 1]]
+            else:
+                planes = list(bgr_i420(f))
+                if pix == "yuva420p":
+                    planes.append(f[..., 2])
+            ptrs = (c.c_void_p * 8).from_address(frame)
+            strides = (c.c_int * 8).from_address(frame + 64)
+            for k, pl in enumerate(planes):
+                pl = np.ascontiguousarray(pl)
+                for r in range(pl.shape[0]):
+                    c.memmove(ptrs[k] + r * strides[k], pl[r].ctypes.data,
+                              pl.shape[1])
+            c.c_int64.from_address(frame + 136).value = n
+            assert a.avcodec_send_frame(ctx, frame) >= 0
+            drain()
+        a.avcodec_send_frame(ctx, None)
+        drain()
+        return ext, out
+
+
 def _ts_bytes(prefix: int, t: int) -> bytes:
     return bytes((prefix << 4 | (t >> 29 & 0xE) | 1, t >> 22 & 0xFF,
                   (t >> 14 & 0xFE) | 1, t >> 7 & 0xFF, (t << 1 & 0xFE) | 1))
@@ -1572,6 +1654,182 @@ def h263_fixtures() -> None:
              [moving[:7], [cv2_resize(f, 128, 96) for f in moving[7:]]])
 
 
+# -------------------------------------- transport, elementary streams, FFV1
+
+def _crc32_mpeg(data: bytes) -> int:
+    """The CRC-32 of MPEG-2 sections (polynomial 0x04C11DB7, MSB first)."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b << 24
+        for _ in range(8):
+            crc = (crc << 1 ^ (0x04C11DB7 if crc & 0x80000000 else 0)
+                   ) & 0xFFFFFFFF
+    return crc
+
+
+def psi_section(table_id: int, ext: int, body: bytes) -> bytes:
+    """A PSI section (PAT, PMT) with its header and CRC."""
+    n = 5 + len(body) + 4
+    sec = bytes((table_id, 0xB0 | n >> 8, n & 0xFF, ext >> 8, ext & 0xFF,
+                 0xC1, 0, 0)) + body
+    return sec + struct.pack(">I", _crc32_mpeg(sec))
+
+
+def ts_mux(path: str, packets: list, stream_type: int = 2, fps: int = 25,
+           split=(), gaps=(), bounded: bool = False) -> None:
+    """(packet, pts, dts) in frames → an MPEG transport stream (PAT, a PMT
+    on PID 0x1000, the video on PID 0x100, stuffing in adaptation fields):
+    the pictures whose index is in ``split`` go in two PES packets, the
+    second without timestamps and starting in the middle of the picture;
+    the video packets whose number is in ``gaps`` jump their continuity
+    counter by 3 (their bytes kept); ``bounded`` writes each PES packet's
+    length (else 0, unbounded, as FFmpeg's muxer writes video)."""
+    tick = 90000 // fps
+    cc: dict = {}
+    out = bytearray()
+
+    def packet(pid, payload, start):
+        c = cc.get(pid, 0)
+        cc[pid] = (c + 1) & 15
+        hdr = bytes((0x47, (0x40 if start else 0) | pid >> 8, pid & 0xFF,
+                     (0x30 if len(payload) < 184 else 0x10) | c))
+        if len(payload) < 184:
+            room = 183 - len(payload)
+            hdr += bytes((room,)) + (b"\x00" + b"\xff" * (room - 1)
+                                     if room else b"")
+        out.extend(hdr + payload)
+
+    pat = psi_section(0, 1, struct.pack(">HH", 1, 0xF000))
+    pmt = psi_section(2, 1, struct.pack(">HH", 0xE100, 0xF000)
+                      + bytes((stream_type,)) + struct.pack(">HH", 0xE100,
+                                                            0xF000))
+    for pid, sec in ((0, pat), (0x1000, pmt)):
+        packet(pid, b"\x00" + sec + b"\xff" * (183 - len(sec)), True)
+    count = 0
+    for k, (data, pts, dts) in enumerate(packets):
+        p, d = 126000 + pts * tick, 126000 + dts * tick
+        parts = ([data[:len(data) // 2], data[len(data) // 2:]]
+                 if k in split else [data])
+        for j, part in enumerate(parts):
+            head = (bytes((0x81, 0xC0, 10)) + _ts_bytes(3, p) +
+                    _ts_bytes(1, d) if j == 0 and p != d else
+                    bytes((0x81, 0x80, 5)) + _ts_bytes(2, p) if j == 0 else
+                    bytes((0x81, 0, 0)))
+            n = len(head) + len(part) if bounded else 0
+            pes = (b"\x00\x00\x01\xe0" + struct.pack(">H", n) + head
+                   + part)
+            for at in range(0, len(pes), 184):
+                count += 1
+                if count in gaps:
+                    cc[0x100] = (cc.get(0x100, 0) + 3) & 15
+                packet(0x100, pes[at:at + 184], at == 0)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def _ffv1_features(path: str) -> tuple:
+    """(the port's FFV1 decoder's features over the file, what it refuses
+    or None)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    try:
+        with open(path, "rb") as f:
+            for i in range(v.samples):
+                dec.decode(v.box.sample(f, i))
+    except Unsupported as e:
+        return dec.features, str(e).split(": ", 1)[1]
+    return dec.features, None
+
+
+def stream_fixtures() -> None:
+    """This slice's files: MPEG transport streams (cv2's writer in .ts,
+    .m2ts and .mts; libavcodec's low-delay MPEG-2 of the Sintel pair,
+    MPEG-2 with split PES packets and
+    continuity gaps, MPEG-1 under stream type 0x01 in bounded PES packets,
+    both muxed by ``ts_mux``; H.263 and FFV1 muxed as private data, which
+    neither cv2 nor the port reads), elementary streams (.m1v, .m2v, .mpv,
+    .h263, .263; a constant-bit-rate .m2v from libavcodec), MPEG-4 Part 2
+    in a program stream, and FFV1 (cv2's writer in four containers, colour
+    and grey; libavcodec's versions 0-3, range coders, slice counts,
+    4:2:0, alpha and odd sizes in Matroska)."""
+    moving = moving_clip(144, 176, 30, seed=12)
+    for ext in ("ts", "m2ts", "mts"):
+        _cv2_write(os.path.join(OUT, f"mpeg2_176x144.{ext}"),
+                   moving if ext != "mts" else moving[:14], "MPG2")
+    _cv2_write(os.path.join(OUT, "mpeg1_176x144.ts"), moving, "PIM1")
+    _cv2_write(os.path.join(OUT, "mpeg4_176x144.ts"), moving, "mp4v")
+    _cv2_write(os.path.join(OUT, "mpeg4_176x144.mpg"), moving, "mp4v")
+    im1, im2 = sintel_pair()
+    sintel = [im1 if i % 2 == 0 else im2 for i in range(13)]
+    _cv2_write(os.path.join(OUT, "mpeg2_sintel_436x1024.ts"), sintel, "MPG2")
+    lavc = Lavc()
+    # cv2's MPEG-2 .ts lands a picture late on any seek (its I-picture's DTS
+    # is before the start time) and reads nothing after a seek into the
+    # Sintel one; a low-delay stream (no B-pictures, DTS = PTS) seeks
+    # exactly: what the card run's pseudo regime trains on
+    ts_mux(os.path.join(OUT, "mpeg2_sintel_low_delay_436x1024.ts"),
+           lavc.encode([bgr_i420(f) for f in sintel[:10]], bf=0,
+                       flags="+low_delay"))
+    planes = [bgr_i420(f) for f in moving_clip(144, 176, 26, seed=13,
+                                               speed=3.0)]
+    ts_mux(os.path.join(OUT, "mpeg2_split_gaps_176x144.ts"),
+           lavc.encode(planes), split=set(range(0, 26, 3)),
+           gaps={4, 9, 31, 32, 70})
+    ts_mux(os.path.join(OUT, "mpeg1_type1_176x144.ts"),
+           lavc.encode(planes[:14], codec="mpeg1video"), stream_type=1,
+           bounded=True)
+    small = moving_clip(96, 128, 8, seed=14)
+    _cv2_write(os.path.join(OUT, "ts_h263_128x96.ts"), small, "H263")
+    _cv2_write(os.path.join(OUT, "ts_ffv1_48x32.ts"),
+               moving_clip(32, 48, 3, seed=14), "FFV1")
+    # elementary streams
+    _cv2_write(os.path.join(OUT, "mpeg2_176x144.m2v"), moving, "MPG2")
+    _cv2_write(os.path.join(OUT, "mpeg1_176x144.m1v"), moving, "PIM1")
+    _cv2_write(os.path.join(OUT, "h263_176x144.h263"), moving, "H263")
+    # cv2 picks the raw muxer by .m2v and .h263 alone: renamed after
+    for name, ext, frames, fcc in (
+            ("mpeg2_64x48.mpv", ".m2v", moving_clip(48, 64, 14, seed=15),
+             "MPG2"), ("h263_128x96.263", ".h263", small, "H263")):
+        tmp = os.path.join(OUT, name + ext)
+        _cv2_write(tmp, frames, fcc)
+        os.replace(tmp, os.path.join(OUT, name))
+    cbr = lavc.encode([bgr_i420(f) for f in moving_clip(144, 176, 7,
+                                                         seed=16)],
+                      maxrate=1000000, minrate=1000000, bufsize=400000)
+    with open(os.path.join(OUT, "mpeg2_cbr_176x144.m2v"), "wb") as f:
+        f.write(b"".join(p for p, _, _ in cbr))
+    # FFV1
+    clip = moving_clip(32, 48, 14, seed=11)
+    for ext in ("mkv", "avi", "mp4", "mov"):
+        _cv2_write(os.path.join(OUT, f"ffv1_48x32.{ext}"), clip, "FFV1")
+    _cv2_write(os.path.join(OUT, "ffv1_grey_48x32.mkv"),
+               [f[..., 1].copy() for f in clip], "FFV1", color=False)
+    _cv2_write(os.path.join(OUT, "ffv1_sintel_436x1024.mkv"), sintel[:3],
+               "FFV1")
+    tiny = moving_clip(24, 32, 14, seed=17)
+    odd = moving_clip(37, 53, 4, seed=18)
+    for name, frames, opts in (
+            ("ffv1_range_32x24", tiny, dict(coder=1, slices=6, context=1)),
+            ("ffv1_range_default_32x24", tiny, dict(coder=-2)),
+            ("ffv1_slices12_48x32", clip, dict(coder=0, slices=12)),
+            ("ffv1_v0_yuv420_32x24", tiny, dict(pix="yuv420p", level=0,
+                                                coder=0)),
+            ("ffv1_v1_32x24", tiny, dict(level=1, coder=2)),
+            ("ffv1_v2_yuv420_32x24", tiny, dict(pix="yuv420p", level=2,
+                                                coder=1, strict=-2)),
+            ("ffv1_grey_range_32x24", tiny, dict(pix="gray", coder=1)),
+            ("ffv1_yuva420_32x24", tiny, dict(pix="yuva420p", coder=1)),
+            ("ffv1_rgb_53x37", odd, dict(coder=1, slices=4)),
+            ("ffv1_yuv420_53x37", odd, dict(pix="yuv420p", coder=0))):
+        ext, pk = lavc.encode_ffv1(frames, **opts)
+        h, w = frames[0].shape[:2]
+        _webm(os.path.join(OUT, name + ".mkv"), pk, w, h, codec=b"V_FFV1",
+              private=ext, doctype=b"matroska")
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -1582,6 +1840,10 @@ def sintel_pair() -> list:
 def main() -> None:
     import cv2
     os.makedirs(OUT, exist_ok=True)
+    if sys.argv[1:] == ["--new"]:
+        stream_fixtures()
+        write_manifest(keep=True)
+        return
     if sys.argv[1:] != ["--manifest"]:
         write_files()
     write_manifest()
@@ -1645,13 +1907,31 @@ def write_files() -> None:
     mpeg12_fixtures()
     resize_fixtures()
     h263_fixtures()
+    stream_fixtures()
 
 
-def write_manifest() -> None:
+def _port_refuses(path: str):
+    """What the port raises opening ``path`` (None where it opens it)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    try:
+        EncodedVideo(path)
+    except ValueError as e:
+        return str(e).split(": ", 1)[1]
+    return None
+
+
+def write_manifest(keep: bool = False) -> None:
+    """The manifest of every file; ``keep`` keeps the entries already there
+    and adds the new files' alone."""
     import cv2
     manifest = {"opencv": cv2.__version__, "files": {}}
+    old = os.path.join(OUT, "manifest.json")
+    if keep and os.path.exists(old):
+        with open(old) as f:
+            manifest["files"] = json.load(f)["files"]
     for name in sorted(os.listdir(OUT)):
-        if name == "manifest.json":
+        if name == "manifest.json" or name in manifest["files"]:
             continue
         path = os.path.join(OUT, name)
         frames = cv2_frames(path)
@@ -1660,6 +1940,10 @@ def write_manifest() -> None:
             "decoded": len(frames),
             "sha256": [frame_digest(f) for f in frames],
         }
+        refused = _port_refuses(path) if name.startswith("ts_") else None
+        if refused:
+            manifest["files"][name]["port_refuses"] = refused
+            continue
         if name.startswith("vp8_"):
             manifest["files"][name]["vp8_features"] = _vp8_features(path)
         if name.startswith(("mpeg1_", "mpeg2_")):
@@ -1679,7 +1963,12 @@ def write_manifest() -> None:
             manifest["files"][name]["h263_features"] = feats
             if refused:
                 manifest["files"][name]["port_refuses"] = refused
-        if (name.startswith("h263_") or "resize" in name
+        if name.startswith("ffv1_"):
+            feats, refused = _ffv1_features(path)
+            manifest["files"][name]["ffv1_features"] = feats
+            if refused:
+                manifest["files"][name]["port_refuses"] = refused
+        if (name.startswith(("h263_", "ffv1_", "mpeg4_")) or "resize" in name
                 or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
     sys.path.insert(0, os.path.dirname(HERE))
@@ -1696,6 +1985,10 @@ def write_manifest() -> None:
     reached = {f for e in manifest["files"].values()
                for f in e.get("h263_features", [])}
     manifest["h263_unreached"] = [f for f in H263 if f not in reached]
+    from opticalflow_tpu_torch.runtime.ffv1 import FEATURES as FFV1
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("ffv1_features", [])}
+    manifest["ffv1_unreached"] = [f for f in FFV1 if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()

@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax():
               "utils.debugging", "runtime.jpeg", "runtime._native",
               "runtime.dis", "viz.farneback", "runtime.mpeg4", "io.mp4",
               "io.avi", "runtime.vp8", "io.mkv", "runtime.vp9",
-              "runtime.mpeg12", "io.mpegps"):
+              "runtime.mpeg12", "io.mpegps", "runtime.h263", "runtime.ffv1",
+              "io.mpegpes", "io.mpegts", "io.elementary"):
         assert f"opticalflow_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -115,21 +116,22 @@ def test_package_data_holds_every_file_the_port_opens():
     ``runtime/dis.py``, ``runtime/vp8.py`` and ``runtime/vp9.py`` (their
     C++ sources, and VP9's table header),
     ``runtime/mpeg4.py`` and ``runtime/mpeg12.py`` (with ``jpeg.py``, the
-    headers they include),
+    headers they include), ``runtime/ffv1.py`` (its C++ source),
     ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
     table) read is matched by a ``package-data`` pattern of
     ``pyproject.toml``."""
     import fnmatch
     import tomllib
     from opticalflow_tpu_torch.ops import _build
-    from opticalflow_tpu_torch.runtime import _native, dis, flowviz, jpeg, \
-        mpeg4, mpeg12, vp8, vp9
+    from opticalflow_tpu_torch.runtime import _native, dis, ffv1, flowviz, \
+        jpeg, mpeg4, mpeg12, vp8, vp9
     from opticalflow_tpu_torch.viz import colorwheel, text
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "opticalflow_tpu_torch"]
     opened = [str(p) for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
     opened += [str(flowviz._SRC), str(dis._SRC), str(vp8._SRC),
+               str(ffv1._SRC),
                text.ATLAS_PATH, colorwheel.MAGMA_PATH]
     opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC, vp9._SRC,
                                          mpeg12._SRC)

@@ -255,7 +255,10 @@ def test_blockgroups_and_header_stripping_read_as_cv2(tmp_path):
 def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
     """Codecs the port does not decode, and VP9 in a profile it does not
     read: a crafted profile-2 (10-bit) key frame.  MPEG-2 (``V_MPEG2``),
-    once among them, reads: test_mpeg1_and_mpeg2_in_matroska_read."""
+    once among them, reads: test_mpeg1_and_mpeg2_in_matroska_read; so does
+    FFV1 (``V_FFV1``, tests/test_torch_ffv1.py): its track here opens, and
+    its VP8 payloads raise as a corrupt FFV1 stream, not as a codec the
+    port does not read."""
     frames = _webm_frames(2)
     if codec == b"V_VP9":
         head = int("10" "01" "0010" + format(0x498342, "024b") + "0" * 8, 2)
@@ -263,6 +266,12 @@ def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
     path = str(tmp_path / "x.mkv")
     with open(path, "wb") as f:
         f.write(_build(codec, frames))
+    if codec == b"V_FFV1":
+        assert mkv.MkvFile(path).codec == "ffv1"
+        with pytest.raises(ValueError, match="corrupt FFV1") as err:
+            list(vio.read_frames(path))
+        assert not isinstance(err.value, Unsupported)
+        return
     with pytest.raises(Unsupported, match=f"{name}.*Queue 1 item 8"):
         vio.video_info(path)
 

@@ -214,9 +214,11 @@ def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
 def test_other_containers_raise_naming_the_two_formats(tmp_path):
     """H.264 in MP4 raises naming ROADMAP item 8; a truncated MP4 says so;
     Motion JPEG in AVI and MPEG-2 in a program stream, once refused, read
-    as cv2.VideoCapture reads them; an unknown extension (.flv, an MPEG
-    transport stream, an elementary stream) names the formats the port
-    handles; and
+    as cv2.VideoCapture reads them; an unknown extension (.flv) names the
+    formats the port handles; a program stream's bytes under a transport
+    or elementary stream's extension (which the port reads now, by
+    extension, where FFmpeg probes the content) are refused saying what
+    they are not; and
     AsyncVideoWriter now writes .mp4, which cv2 reads."""
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
@@ -244,16 +246,18 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
     with pytest.raises(ValueError, match=r"\.mp4.*\.mkv.*\.y4m.*PNG.*item 8"):
         vio.video_info(str(flv))
     # an MPEG-2 program stream, once refused as the .flv is, reads as cv2
-    # reads it; a transport stream and an elementary stream stay refused
+    # reads it; under a transport or elementary stream's name it is
+    # refused
     mpg = os.path.join(fixtures, "mpeg2_176x144.mpg")
     got, want = list(vio.read_frames(mpg)), _cv2_capture(mpg)
     assert len(got) == len(want) == 40
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    for ext in (".ts", ".m2v"):
+    for ext, match in ((".ts", "not an MPEG transport stream"),
+                       (".m2v", r"a program stream.*\.mpg")):
         other = tmp_path / f"clip{ext}"
         other.write_bytes(open(mpg, "rb").read())
-        with pytest.raises(ValueError, match=r"\.mpg.*item 8"):
+        with pytest.raises(ValueError, match=match):
             vio.video_info(str(other))
     mkv = tmp_path / "clip.mkv"        # Matroska reads now: a cut one raises
     mkv.write_bytes(b"\x1a\x45\xdf\xa3")
