@@ -3722,6 +3722,92 @@ def psnr(decoded, frames) -> float:
     return float(10 * np.log10(255.0 ** 2 / mse))
 
 
+HOST_TIMED = 4           # passes over each clip for the host decode times
+
+
+def video_manifest() -> dict:
+    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
+        return json.load(f)
+
+
+def fixtures_of(manifest: dict, *groups: str) -> dict:
+    """The manifest's entries for the files that the named fixture
+    functions of tests/make_video_fixtures.py wrote (each entry's
+    ``group``: the function's name without ``_fixtures``)."""
+    return {n: w for n, w in manifest["files"].items() if w["group"] in groups}
+
+
+def check_fixtures(fixtures: dict, seek_refused=()) -> dict:
+    """Every fixture read through the port as cv2.VideoCapture reads it:
+    its frames' digests, its fps/size/count, and each recorded seek's
+    frame, or a ValueError where cv2's seek reads nothing (Unsupported for
+    the files in ``seek_refused``: FFmpeg's generic index seek).  A fixture
+    the manifest records as refused raises Unsupported.  Returns the counts
+    of frames, seeks and seeks reading nothing, and the refused names."""
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+    frames = seeks = none = 0
+    refused = []
+    for name, want in sorted(fixtures.items()):
+        path = os.path.join(MP4_DIR, name)
+        if "port_refuses" in want:
+            try:
+                list(vio.read_frames(path))
+            except Unsupported:
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name} was read")
+        got = list(vio.read_frames(path))
+        frames += len(got)
+        assert [pixel_digest(fr) for fr in got] == want["sha256"], name
+        assert vio.video_info(path) == {k: want[k] for k in (
+            "fps", "width", "height", "frames")}, name
+        video = vio.EncodedVideo(path) if "seeks" in want else None
+        for t, hit in want.get("seeks", {}).items():
+            seeks += 1
+            if hit is None or name in seek_refused:
+                none += 1
+                try:
+                    video.frame(int(t))
+                except (Unsupported if name in seek_refused else ValueError):
+                    continue
+                raise AssertionError(f"{name}: seek {t} read a frame")
+            assert pixel_digest(video.frame(int(t))) == \
+                want["sha256"][hit], (name, t)
+    return {"frames": frames, "seeks": seeks, "seeks_none": none,
+            "refused": refused}
+
+
+def host_decode(make, samples) -> tuple:
+    """Host ms a frame to decode ``samples`` on one thread, with a fresh
+    decoder from ``make`` on each of HOST_TIMED passes after one untimed
+    call (the library is loaded), and the last pass's pictures (MPEG-1/2's
+    decoder hands them over in lists, a packet late, the last at its
+    flush)."""
+    from opticalflow_tpu_torch.runtime import mpeg12
+    make().decode(samples[0])
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        d = make()
+        got = [d.decode(s) for s in samples]
+        if isinstance(d, mpeg12.Decoder):
+            got = [q for p in got for q in p] + d.flush()
+    ms = (time.perf_counter() - t0) / HOST_TIMED / len(samples) * 1e3
+    assert len(got) == len(samples), (len(got), len(samples))
+    return ms, got
+
+
+def convert_ms(planes, size=None) -> float:
+    """Host ms a picture for swscale's conversion of ``planes`` to BGR
+    (at ``size``: scaled), HOST_TIMED passes."""
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        for p in planes:
+            i420_to_bgr(*p, size=size)
+    return (time.perf_counter() - t0) / HOST_TIMED / len(planes) * 1e3
+
+
 def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
     """MPEG-4 Part 2 through the port's entry points on the card machine:
     (a) the fixtures decode to their digests, (b) the writer and reader at
@@ -3743,23 +3829,10 @@ def phase_mp4(sd, tmp, corr_fwd, corr_bwd, card: str):
     launches = {}
 
     # (a) every fixture: its frames' digests and cv2's CAP_PROP_* values
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
+    manifest = video_manifest()
     t0 = time.perf_counter()
-    n_frames = 0
-    mpeg4_fixtures = {name: want for name, want in manifest["files"].items()
-                      if not name.startswith(("mjpg",     # Motion JPEG: [18]
-                                              *NEW_VIDEO_FIXTURES,   # [19]
-                                              "vp9_",                # [20]
-                                              "mpeg1_", "mpeg2_"))   # [21]
-                      and not streams_fixture(name)}                 # [23]
-    for name, want in sorted(mpeg4_fixtures.items()):
-        path = os.path.join(MP4_DIR, name)
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
+    mpeg4_fixtures = fixtures_of(manifest, "mpeg4")
+    n_frames = check_fixtures(mpeg4_fixtures)["frames"]
     present = [m for m in ("cv2", "PIL") if m in sys.modules]
     assert not present, f"the port imported {present}"
     log(f"[17] (a) {len(mpeg4_fixtures)} video fixtures (written by "
@@ -3951,23 +4024,14 @@ def phase_mjpeg(sd, tmp, corr_fwd, corr_bwd, card: str):
         with open(os.path.join(JPEG_DIR, name), "rb") as f:
             got = decode_jpeg_ffmpeg(f.read(), name)
         assert pixel_digest(got) == want["sha256_videocapture"], name
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        video_manifest = json.load(f)
-    mjpeg = {n: w for n, w in video_manifest["files"].items()
-             if n.startswith("mjpg")}
-    n_frames = 0
-    for name, want in sorted(mjpeg.items()):
-        path = os.path.join(MP4_DIR, name)
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
+    vman = video_manifest()
+    mjpeg = fixtures_of(vman, "mjpeg")
+    n_frames = check_fixtures(mjpeg)["frames"]
     log(f"[18] (a) {len(jpeg_manifest['files'])} JPEG fixtures and "
         f"{len(mjpeg)} Motion JPEG ones ({n_frames} frames: cv2's MJPG in "
         f".avi and .mp4, DHT-less frames) decoded to cv2.VideoCapture's "
-        f"digests (OpenCV {video_manifest['opencv']}, FFmpeg "
-        f"{video_manifest['ffmpeg']}) and its fps/size/count in "
+        f"digests (OpenCV {vman['opencv']}, FFmpeg "
+        f"{vman['ffmpeg']}) and its fps/size/count in "
         f"{time.perf_counter() - t0:.2f} s; {card}")
 
     # (b) the sources: the committed JPEG bytes, never re-encoded
@@ -4107,8 +4171,6 @@ VP8_CLIP = "vp8_sintel_436x1024.webm"
 VP8_FRAMES = 13
 VP8_CAPTURE = 12         # the second key frame
 VP8_TRAIN_FRAMES = 9     # 8 pairs: 2 pseudo steps at batch 4
-VP8_TIMED = 4            # passes over the clip for the host decode times
-NEW_VIDEO_FIXTURES = ("vp8_", "mkv_", "mpeg4_")
 
 
 def webm_head(src: str, dst: str, n: int, codec: bytes = b"V_VP8") -> None:
@@ -4154,7 +4216,7 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
     from opticalflow_tpu_torch.io.images import decode_png
     from opticalflow_tpu_torch.io.mkv import MkvFile
     from opticalflow_tpu_torch.runtime import vp8
-    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder, i420_to_bgr
+    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder
 
     t_phase = time.perf_counter()
     launches = {}
@@ -4163,19 +4225,9 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
     # version-, size- and container-patched ones too), mp4v/MJPG/I420 in
     # Matroska, the odd-height MPEG-4 patches
     t0 = time.perf_counter()
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    new = {n: w for n, w in manifest["files"].items()
-           if n.startswith(NEW_VIDEO_FIXTURES) and n not in PHASE20_VP8
-           and not streams_fixture(n)}
-    n_frames = 0
-    for name, want in sorted(new.items()):
-        path = os.path.join(MP4_DIR, name)
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "vp8")
+    n_frames = check_fixtures(new)["frames"]
     log(f"[19] (a) {len(new)} fixtures (VP8 in .webm/.mkv/.avi, version-, "
         f"size- and container-patched; mp4v/MJPG/I420 in .mkv; odd-height "
         f"MPEG-4) decoded to cv2.VideoCapture's {n_frames} frame digests "
@@ -4265,20 +4317,9 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
                             ("mpeg4", vio.EncodedVideo(mp4).box, None)):
         with open(box.path, "rb") as f:
             samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
-        make = dec or (lambda b=box: Decoder(b.dsi, what=b.path))
-        make().decode(samples[0])                 # the library is loaded
-        t0 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            d = make()
-            planes = [d.decode(s) for s in samples]
-        t1 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            for p in planes:
-                i420_to_bgr(*p)
-        t2 = time.perf_counter()
-        n = VP8_TIMED * VP8_FRAMES
-        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
-                       "convert_ms": (t2 - t1) / n * 1e3,
+        ms, planes = host_decode(
+            dec or (lambda b=box: Decoder(b.dsi, what=b.path)), samples)
+        host[codec] = {"decode_ms": ms, "convert_ms": convert_ms(planes),
                        "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES}
     v, m = host["vp8"], host["mpeg4"]
     log(f"[19] (e) host ms a {FULL_H}x{FULL_W} frame on one thread: VP8 "
@@ -4305,9 +4346,6 @@ def phase_vp8(sd, tmp, corr_fwd, corr_bwd, card: str):
 # 436x1024 VP9 WebM (the Sintel pair alternating, 13 frames, key frames at
 # 0 and 12, 4 tile columns; no VP9 encoder there) through the entry points
 VP9_CLIP = "vp9_sintel_436x1024.webm"
-# the VP8 fixture whose colour depends on FFmpeg's decoder threads (its
-# digests were taken with the manifest's ffmpeg_threads)
-PHASE20_VP8 = ("vp8_clamping.webm",)
 
 
 def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
@@ -4327,35 +4365,19 @@ def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
     from opticalflow_tpu_torch.io.images import decode_png
     from opticalflow_tpu_torch.io.mkv import MkvFile
     from opticalflow_tpu_torch.runtime import vp8, vp9
-    from opticalflow_tpu_torch.runtime.mpeg4 import (Decoder, Unsupported,
-                                                      i420_to_bgr)
+    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder
 
     t_phase = time.perf_counter()
     launches = {}
 
     # (a) the fixtures: cv2's writer in four containers, the size patches,
-    # libvpx's settings, the colour ones; the resize one is refused
+    # libvpx's settings (a size change among them), the colour ones
     t0 = time.perf_counter()
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
+    manifest = video_manifest()
     os.environ["OPENCV_FFMPEG_THREADS"] = str(manifest["ffmpeg_threads"])
-    new = {n: w for n, w in manifest["files"].items()
-           if n.startswith("vp9_") or n in PHASE20_VP8}
-    n_frames, refused = 0, []
-    for name, want in sorted(new.items()):
-        path = os.path.join(MP4_DIR, name)
-        if "port_refuses" in want:
-            try:
-                list(vio.read_frames(path))
-            except Unsupported:
-                refused.append(name)
-                continue
-            raise AssertionError(f"{name} was read")
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
+    new = fixtures_of(manifest, "vp9")
+    checked = check_fixtures(new)
+    n_frames, refused = checked["frames"], checked["refused"]
     features = sorted({f for w in new.values()
                        for f in w.get("vp9_features", [])})
     log(f"[20] (a) {len(new) - len(refused)} fixtures (VP9 in .webm/.mkv/"
@@ -4364,7 +4386,8 @@ def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
         f"rewritten headers; the VP8 clamping_type one at "
         f"{manifest['ffmpeg_threads']} FFmpeg threads) decoded to "
         f"cv2.VideoCapture's {n_frames} frame digests and its "
-        f"fps/size/count in {time.perf_counter() - t0:.2f} s; refused as "
+        f"fps/size/count, {checked['seeks']} seeks to the frames cv2's "
+        f"read, in {time.perf_counter() - t0:.2f} s; refused as "
         f"item 8: {refused}; features reached: {features}; {card}")
 
     # (b) the video CLI over the WebM, the same frames as a .y4m, and the
@@ -4453,20 +4476,9 @@ def phase_vp9(sd, tmp, corr_fwd, corr_bwd, card: str):
             ("mpeg4", vio.EncodedVideo(mp4).box, None)):
         with open(box.path, "rb") as f:
             samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
-        make = dec or (lambda b=box: Decoder(b.dsi, what=b.path))
-        make().decode(samples[0])                 # the library is loaded
-        t0 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            d = make()
-            planes = [d.decode(s) for s in samples]
-        t1 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            for p in planes:
-                i420_to_bgr(*p)
-        t2 = time.perf_counter()
-        n = VP8_TIMED * VP8_FRAMES
-        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
-                       "convert_ms": (t2 - t1) / n * 1e3,
+        ms, planes = host_decode(
+            dec or (lambda b=box: Decoder(b.dsi, what=b.path)), samples)
+        host[codec] = {"decode_ms": ms, "convert_ms": convert_ms(planes),
                        "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES}
     v9, v8, m = host["vp9"], host["vp8"], host["mpeg4"]
     log(f"[20] (e) host ms a {FULL_H}x{FULL_W} frame on one thread: VP9 "
@@ -4516,8 +4528,7 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
     from opticalflow_tpu_torch.io.mkv import MkvFile
     from opticalflow_tpu_torch.io.mpegps import MpegPsFile
     from opticalflow_tpu_torch.runtime import mpeg12, vp8, vp9
-    from opticalflow_tpu_torch.runtime.mpeg4 import (Decoder, Unsupported,
-                                                      i420_to_bgr)
+    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder
 
     t_phase = time.perf_counter()
     launches = {}
@@ -4526,36 +4537,10 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
     # libavcodec's tools and the rewritten headers; the interlaced one is
     # refused
     t0 = time.perf_counter()
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    new = {n: w for n, w in manifest["files"].items()
-           if n.startswith(("mpeg1_", "mpeg2_")) and not streams_fixture(n)}
-    n_frames, n_seeks, refused = 0, 0, []
-    for name, want in sorted(new.items()):
-        path = os.path.join(MP4_DIR, name)
-        if "port_refuses" in want:
-            try:
-                list(vio.read_frames(path))
-            except Unsupported:
-                refused.append(name)
-                continue
-            raise AssertionError(f"{name} was read")
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
-        video = vio.EncodedVideo(path)
-        for t, hit in want["seeks"].items():
-            n_seeks += 1
-            if hit is None:
-                try:
-                    video.frame(int(t))
-                except ValueError:
-                    continue
-                raise AssertionError(f"{name}: seek {t} read a frame")
-            assert pixel_digest(video.frame(int(t))) == \
-                want["sha256"][hit], (name, t)
+    new = fixtures_of(video_manifest(), "mpeg12")
+    checked = check_fixtures(new)
+    n_frames, n_seeks, refused = (checked[k] for k in ("frames", "seeks",
+                                                       "refused"))
     features = sorted({f for w in new.values()
                        for f in w.get("mpeg12_features", [])})
     log(f"[21] (a) {len(new) - len(refused)} fixtures (MPEG-1 and MPEG-2 "
@@ -4662,22 +4647,8 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
             samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
         make = dec or (mpeg12.Decoder if codec == "mpeg2" else
                        (lambda b=box: Decoder(b.dsi, what=b.path)))
-        make().decode(samples[0])                 # the library is loaded
-        t0 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            d = make()
-            planes = [d.decode(s) for s in samples]
-            if codec == "mpeg2":               # pictures come a packet late
-                planes = [p[0] for p in planes if p] + d.flush()
-        t1 = time.perf_counter()
-        for _ in range(VP8_TIMED):
-            for p in planes:
-                i420_to_bgr(*p)
-        t2 = time.perf_counter()
-        n = VP8_TIMED * VP8_FRAMES
-        assert len(planes) == VP8_FRAMES, (codec, len(planes))
-        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
-                       "convert_ms": (t2 - t1) / n * 1e3,
+        ms, planes = host_decode(make, samples)
+        host[codec] = {"decode_ms": ms, "convert_ms": convert_ms(planes),
                        "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES}
     m2, m4, v8, v9 = (host[c] for c in ("mpeg2", "mpeg4", "vp8", "vp9"))
     log(f"[21] (e) host ms a {FULL_H}x{FULL_W} frame on one thread: MPEG-2 "
@@ -4704,14 +4675,13 @@ def phase_mpeg12(sd, tmp, corr_fwd, corr_bwd, card: str):
 H263_CLIP = "h263_sintel_704x576.avi"     # 4CIF, libavcodec's h263
 H263_H, H263_W = 576, 704
 RESIZE_CLIP = "vp9_resize_sintel_436x1024.webm"   # 218x512 from frame 5
-H263_TIMED = 4           # passes over each clip for the host decode times
 
 
 def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
     """VP9 size changes and H.263 through the port's entry points on the
     card machine: (a) the fixtures (H.263 in .avi/.3gp/.mov/.mkv, MPEG-4
-    Part 2 in .3gp, and every stream that changes size: VP9, VP8, MPEG-4
-    Part 2, MPEG-2, H.263) equal cv2's digests, fps, size and count, and
+    Part 2 in .3gp, and streams that change size: VP9, VP8, MPEG-4 Part 2,
+    MPEG-2, H.263) equal cv2's digests, fps, size and count, and
     each recorded seek reads cv2's frame; (b) the video CLI over the 4CIF
     H.263 AVI and the resizing 436x1024 VP9 WebM, K1 on the card, bf16;
     (c) the pseudo regime over the resizing WebM's first 9 frames (K1 and
@@ -4723,7 +4693,6 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
     import numpy as np
     import torch
     from opticalflow_tpu_torch.io import video as vio
-    from opticalflow_tpu_torch.io.mkv import MkvFile
     from opticalflow_tpu_torch.runtime import h263, vp9
     from opticalflow_tpu_torch.runtime.mpeg4 import Decoder, i420_to_bgr
 
@@ -4732,25 +4701,10 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
 
     # (a) the fixtures
     t0 = time.perf_counter()
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    new = {n: w for n, w in manifest["files"].items()
-           if (n.startswith("h263_") or "resize" in n or n.endswith(".3gp"))
-           and not streams_fixture(n)}
-    n_frames = n_seeks = 0
-    for name, want in sorted(new.items()):
-        path = os.path.join(MP4_DIR, name)
-        assert "port_refuses" not in want, name
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
-        video = vio.EncodedVideo(path)
-        for t, hit in want["seeks"].items():
-            n_seeks += 1
-            assert pixel_digest(video.frame(int(t))) == \
-                want["sha256"][hit], (name, t)
+    new = fixtures_of(video_manifest(), "h263", "resize")
+    checked = check_fixtures(new)
+    assert not checked["refused"] and not checked["seeks_none"], checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
     features = {k: sorted({f for w in new.values()
                            for f in w.get(f"{k}_features", [])})
                 for k in ("h263", "vp9")}
@@ -4841,23 +4795,12 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
         box = vio.EncodedVideo(path).box
         with open(path, "rb") as f:
             samples = [box.sample(f, i) for i in range(VP8_FRAMES)]
-        make = make or (lambda b=box: Decoder(b.dsi, what=b.path))
-        make().decode(samples[0])                 # the library is loaded
-        t0 = time.perf_counter()
-        for _ in range(H263_TIMED):
-            d = make()
-            planes = [d.decode(s) for s in samples]
-        t1 = time.perf_counter()
+        ms, planes = host_decode(
+            make or (lambda b=box: Decoder(b.dsi, what=b.path)), samples)
         size = (box.width, box.height)
-        for _ in range(H263_TIMED):
-            for p in planes:
-                i420_to_bgr(*p, size=size)
-        t2 = time.perf_counter()
-        n = H263_TIMED * VP8_FRAMES
-        assert len(planes) == VP8_FRAMES, (codec, len(planes))
         decoded[codec] = planes
-        host[codec] = {"decode_ms": (t1 - t0) / n * 1e3,
-                       "convert_ms": (t2 - t1) / n * 1e3,
+        host[codec] = {"decode_ms": ms,
+                       "convert_ms": convert_ms(planes, size),
                        "bytes_a_frame": sum(map(len, samples)) / VP8_FRAMES,
                        "scaled_pictures": sum(p[0].shape != size[::-1]
                                               for p in planes)}
@@ -4893,23 +4836,12 @@ def phase_h263(sd, tmp, corr_fwd, corr_bwd, card: str):
 
 # phase 23: transport streams, elementary streams, MPEG-4 in program
 # streams and FFV1
-STREAM_EXTS = (".ts", ".m2ts", ".mts", ".m2t", ".m1v", ".m2v", ".mpv",
-               ".h263", ".263")
 TS_CLIP = "mpeg2_sintel_436x1024.ts"       # cv2's MPG2 writer, 13 frames
 FFV1_CLIP = "ffv1_sintel_436x1024.mkv"     # cv2's FFV1 writer, 3 frames
 FFV1_FRAMES = 3
 TS_TRAIN = "mpeg2_sintel_low_delay_436x1024.ts"   # seeks exactly
 TS_TRAIN_FRAMES = 10      # 9 pairs: 2 pseudo steps at batch 4
 GENERIC_SEEK = ("mpeg2_cbr_176x144.m2v",)  # FFmpeg's generic index seek
-STREAMS_TIMED = 4         # passes over each clip for the host times
-
-
-def streams_fixture(name: str) -> bool:
-    """Whether a fixture is phase 23's: a transport or elementary stream
-    (H.263 and FFV1 muxed into ``ts_*.ts`` among them), MPEG-4 Part 2 in a
-    program stream, or FFV1."""
-    return (name.endswith(STREAM_EXTS) or name.startswith(("ffv1_", "ts_"))
-            or (name.startswith("mpeg4_") and name.endswith(".mpg")))
 
 
 def phase_streams(sd, tmp, corr_fwd, corr_bwd, card: str):
@@ -4934,44 +4866,16 @@ def phase_streams(sd, tmp, corr_fwd, corr_bwd, card: str):
     from opticalflow_tpu_torch.io.mpegps import MpegPsFile
     from opticalflow_tpu_torch.io.mpegts import MpegTsFile
     from opticalflow_tpu_torch.runtime import ffv1, mpeg12
-    from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
 
     t_phase = time.perf_counter()
     launches = {}
 
     # (a) the fixtures
     t0 = time.perf_counter()
-    with open(os.path.join(MP4_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    new = {n: w for n, w in manifest["files"].items() if streams_fixture(n)}
-    n_frames = n_seeks = n_none = 0
-    refused = []
-    for name, want in sorted(new.items()):
-        path = os.path.join(MP4_DIR, name)
-        if "port_refuses" in want:
-            try:
-                vio.EncodedVideo(path)
-            except Unsupported:
-                refused.append(name)
-                continue
-            raise AssertionError(f"{name} was read")
-        frames = list(vio.read_frames(path))
-        n_frames += len(frames)
-        assert [pixel_digest(fr) for fr in frames] == want["sha256"], name
-        assert vio.video_info(path) == {k: want[k] for k in
-                                        ("fps", "width", "height", "frames")}
-        video = vio.EncodedVideo(path)
-        for t, hit in want["seeks"].items():
-            n_seeks += 1
-            if name in GENERIC_SEEK or hit is None:
-                n_none += 1
-                try:
-                    video.frame(int(t))
-                except (Unsupported if name in GENERIC_SEEK else ValueError):
-                    continue
-                raise AssertionError(f"{name}: seek {t} read a frame")
-            assert pixel_digest(video.frame(int(t))) == \
-                want["sha256"][hit], (name, t)
+    new = fixtures_of(video_manifest(), "stream")
+    checked = check_fixtures(new, seek_refused=GENERIC_SEEK)
+    n_frames, n_seeks, n_none, refused = (checked[k] for k in (
+        "frames", "seeks", "seeks_none", "refused"))
     features = sorted({f for w in new.values()
                        for f in w.get("ffv1_features", [])})
     log(f"[23] (a) {len(new) - len(refused)} fixtures (MPEG-1/2 and MPEG-4 "
@@ -5058,25 +4962,17 @@ def phase_streams(sd, tmp, corr_fwd, corr_bwd, card: str):
                                ("ffv1_mkv", os.path.join(MP4_DIR, FFV1_CLIP),
                                 MkvFile)):
         t0 = time.perf_counter()
-        for _ in range(STREAMS_TIMED):
+        for _ in range(HOST_TIMED):
             box = opener(path)
         t1 = time.perf_counter()
         n = len(box.sizes)
         with open(path, "rb") as f:
             samples = [box.sample(f, i) for i in range(n)]
-        make = ((lambda b=box: ffv1.Decoder(FULL_W, FULL_H, b.dsi))
-                if kind == "ffv1_mkv" else mpeg12.Decoder)
-        make().decode(samples[0])                 # the library is loaded
-        t2 = time.perf_counter()
-        for _ in range(STREAMS_TIMED):
-            d = make()
-            got = [d.decode(s) for s in samples]
-        t3 = time.perf_counter()
-        if kind != "ffv1_mkv":                # pictures come a packet late
-            got = [q for p in got for q in p] + d.flush()
-        assert len(got) == n, (kind, len(got))
-        host[kind] = {"open_ms": (t1 - t0) / STREAMS_TIMED / n * 1e3,
-                      "decode_ms": (t3 - t2) / STREAMS_TIMED / n * 1e3,
+        ms, _ = host_decode(
+            (lambda b=box: ffv1.Decoder(FULL_W, FULL_H, b.dsi))
+            if kind == "ffv1_mkv" else mpeg12.Decoder, samples)
+        host[kind] = {"open_ms": (t1 - t0) / HOST_TIMED / n * 1e3,
+                      "decode_ms": ms,
                       "bytes_a_frame": sum(map(len, samples)) / n,
                       "frames": n}
     log("[23] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
@@ -5094,6 +4990,201 @@ def phase_streams(sd, tmp, corr_fwd, corr_bwd, card: str):
     return {"fixtures": len(new) - len(refused), "refused": refused,
             "frames": n_frames, "seeks": n_seeks, "features": features,
             "cli": cli_rows, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+# phase 24: H.263+, 16-bit colour PNG sequences, and transport streams
+# whose PES headers carry a PTS alone
+PLUS_CLIP = "h263_plus_sintel_436x1024.avi"   # libavcodec's h263p, 13 frames
+# crafted H.263+ header bits (counted from the PSC) and the annex each
+# names, which the port refuses: OPPTYPE's SAC, RPS and ISD, MPPTYPE's
+# picture types 2 and 3, RPR and RRU
+PLUS_REFUSED = ((46, "1", "Annex E"), (51, "1", "Annex N"),
+                (52, "1", "Annex R"), (59, "010", "Annex M"),
+                (59, "011", "Annex O"), (62, "1", "Annex P"),
+                (63, "1", "Annex Q"))
+
+
+def avi_head(src: str, dst: str, n: int) -> None:
+    """The first ``n`` samples of an AVI remuxed by the port's AVI writer
+    (same fourcc, keyframes flagged as in ``src``'s index)."""
+    from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
+    box = AviFile(src)
+    mux = AviWriter(dst, (box.width, box.height), (box.rate, box.scale),
+                    fourcc=box.tag)
+    keys = set(box.keyframes)
+    with open(src, "rb") as f:
+        for i in range(n):
+            mux.write(box.sample(f, i), i in keys)
+    mux.release()
+
+
+def phase_plus(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """H.263+, 16-bit colour PNG sequences and PTS-only transport streams
+    through the port's entry points on the card machine: (a) the fixtures
+    (H.263+ with Annexes D, F, I, J, K, S and T, custom formats and clocks,
+    a size change, in .avi/.h263/.mkv/.3gp; the PTS-only .ts/.m2ts/.mpg;
+    16-bit RGB, RGBA and the 65,536-triple sheet) equal cv2's digests,
+    fps, size and count, each recorded seek reads cv2's frame, and crafted
+    headers of the refused annexes raise; (b) the video CLI over the
+    436x1024 H.263+ AVI, K1 on the card, bf16; (c) the pseudo regime over
+    its first 9 frames (K1 and B1); (d) host ms a 436x1024 frame to decode
+    H.263+, beside baseline H.263 at 4CIF and MPEG-2 of the same pictures,
+    and to convert a 16-bit frame; (e) no cv2, PIL or jax imported.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.images import encode_png
+    from opticalflow_tpu_torch.runtime import h263, mpeg12
+    from opticalflow_tpu_torch.runtime.mpeg4 import (ITEM_8, Unsupported,
+                                                      rgb48_to_bgr)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    new = fixtures_of(video_manifest(), "h263p", "pts_only", "png16")
+    checked = check_fixtures(new)
+    assert not checked["refused"] and not checked["seeks_none"], checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    features = sorted({f for w in new.values()
+                       for f in w.get("h263_features", [])})
+    late = sum(w["seeks"][str(t)] != t for n, w in new.items()
+               if n.endswith(".ts") or n.endswith(".m2ts") for t in range(13))
+    plus = vio.EncodedVideo(os.path.join(MP4_DIR, "h263_plus_176x144.avi"))
+    with open(plus.path, "rb") as f:
+        packet = plus.box.sample(f, 0)
+    bits = "".join(f"{b:08b}" for b in packet)
+    refused = []
+    for pos, value, annex in PLUS_REFUSED:
+        crafted = bits[:pos] + value + bits[pos + len(value):]
+        data = int(crafted, 2).to_bytes(len(packet), "big")
+        try:
+            h263.Decoder("crafted").decode(data)
+        except Unsupported as e:
+            assert annex in str(e) and ITEM_8 in str(e), (annex, str(e))
+            refused.append(annex)
+            continue
+        raise AssertionError(f"{annex} was decoded")
+    log(f"[24] (a) {len(new)} fixtures (H.263+ in .avi/.h263/.mkv/.3gp, "
+        f"PTS-only MPEG-1/2 in .ts/.m2ts/.mpg, 16-bit RGB/RGBA PNG "
+        f"sequences and the 65,536-triple sheet) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count, {n_seeks} seeks to the frames cv2's read ({late} "
+        f"of the PTS-only transport streams' seeks to 0-12 a GOP late, as "
+        f"cv2's) in {time.perf_counter() - t0:.2f} s; crafted headers "
+        f"refused: {refused}; H.263 features reached: {features}; {card}")
+    assert len(refused) == len(PLUS_REFUSED) and late == 3 * 13
+    assert {"umv", "advanced_prediction", "aic", "aic_vertical",
+            "aic_horizontal", "loop_filter", "slices", "alt_inter_vlc",
+            "alt_inter_retry", "modified_quant", "custom_format",
+            "custom_clock", "rounding_type"} <= set(features)
+
+    # (b) the video CLI over the 436x1024 H.263+ AVI
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    k0 = corr_fwd.launches
+    row = video_cli([os.path.join(MP4_DIR, PLUS_CLIP),
+                     os.path.join(tmp, "out_h263p.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    VP8_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(VP8_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows == 15, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[24] (b) extract_video --mode arrows B={VIDEO_B} bf16, H.263+ "
+        f"AVI ({VP8_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+        f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); "
+        f"decode thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}), draw {row['draw_share']:.1%}, "
+        f"encode {row['encode_share']:.1%}; {windows} windows, K1 "
+        f"{launched} launches; {card}")
+
+    # (c) the pseudo regime over the H.263+ AVI's first 9 frames
+    train_avi = os.path.join(tmp, "h263p_head.avi")
+    avi_head(os.path.join(MP4_DIR, PLUS_CLIP), train_avi, VP8_TRAIN_FRAMES)
+    assert vio.video_info(train_avi)["frames"] == VP8_TRAIN_FRAMES
+    out_dir = os.path.join(tmp, "h263p_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_avi, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (VP8_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[24] (c) cli/train --regime pseudo over the H.263+ AVI's first "
+        f"{VP8_TRAIN_FRAMES} frames ({FULL_H}x{FULL_W} -> 384x512), {steps} "
+        f"steps at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; "
+        f"K1/B1 launches {launches['pseudo']} (5 and 5 a step); "
+        f"{wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a frame on one thread: H.263+ at 436x1024 beside
+    # baseline H.263 at 4CIF and MPEG-2 of the same pair at 436x1024; the
+    # conversion of a 16-bit 436x1024 RGB frame, alone and behind the PNG
+    # decode of an image sequence
+    host = {}
+    for codec, path, make in (
+            ("h263p", os.path.join(MP4_DIR, PLUS_CLIP), h263.Decoder),
+            ("h263_4cif", os.path.join(MP4_DIR, H263_CLIP), h263.Decoder),
+            ("mpeg2", os.path.join(MP4_DIR, MPEG12_CLIP), mpeg12.Decoder)):
+        box = vio.EncodedVideo(path).box
+        n = len(box.sizes)
+        with open(path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(n)]
+        host[codec] = {"decode_ms": host_decode(make, samples)[0],
+                       "bytes_a_frame": sum(map(len, samples)) / n,
+                       "frames": n, "size": [box.width, box.height]}
+    pair = vio.read_frames(os.path.join(MP4_DIR, PLUS_CLIP), max_frames=1)
+    rgb16 = next(iter(pair))[..., ::-1].astype(np.uint16) * 257
+    rgb48_to_bgr(rgb16)
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        rgb48_to_bgr(rgb16)
+    host["rgb48_convert_ms"] = (time.perf_counter() - t0) / HOST_TIMED * 1e3
+    seq = os.path.join(tmp, "deep")
+    os.makedirs(seq)
+    with open(os.path.join(seq, "0.png"), "wb") as f:
+        f.write(encode_png(rgb16))
+    pattern = os.path.join(seq, "%d.png")
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        frame = vio.read_frame(pattern, 0)
+    host["png16_read_ms"] = (time.perf_counter() - t0) / HOST_TIMED * 1e3
+    assert frame.shape == (FULL_H, FULL_W, 3)
+    hp, hb, m2 = (host[c] for c in ("h263p", "h263_4cif", "mpeg2"))
+    log(f"[24] (d) host ms a frame on one thread: H.263+ {FULL_H}x{FULL_W} "
+        f"decode {hp['decode_ms']!r} ({hp['bytes_a_frame']:.0f} bytes a "
+        f"frame), baseline H.263 {H263_H}x{H263_W} {hb['decode_ms']!r} "
+        f"({hb['bytes_a_frame']:.0f} bytes), MPEG-2 {FULL_H}x{FULL_W} of "
+        f"the same pair {m2['decode_ms']!r} ({m2['bytes_a_frame']:.0f} "
+        f"bytes); a 16-bit {FULL_H}x{FULL_W} RGB frame converted "
+        f"{host['rgb48_convert_ms']!r} ms, read from a PNG sequence "
+        f"{host['png16_read_ms']!r} ms; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[24] (e) cv2, PIL, jax not imported; phase 24 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
+            "late_seeks": late, "refused": refused, "features": features,
+            "cli": row, "host_decode": host,
             "pseudo_losses": [r["loss"] for r in recs],
             "launches": launches, "phase_s": phase_s, "card": card}
 
@@ -5301,6 +5392,16 @@ def main() -> int:
     assert streams_launches == correlation_cuda.launches > 0
     assert streams["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()         # the H.263+ / 16-bit PNG / PTS-only paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        plus = phase_plus(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                          card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    plus_launches = plus["launches"]["cli"] + \
+        plus["launches"]["pseudo"]["correlation_fwd"]
+    assert plus_launches == correlation_cuda.launches > 0
+    assert plus["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -5366,7 +5467,10 @@ def main() -> int:
          # phase 23: the video CLI over the 436x1024 MPEG-2 .ts and FFV1
          # .mkv, and the pseudo steps over a low-delay MPEG-2 .ts (5 a
          # window, 5 a step)
-         "launches_streams": streams_launches, "streams": streams},
+         "launches_streams": streams_launches, "streams": streams,
+         # phase 24: the video CLI over the 436x1024 H.263+ AVI, and the
+         # pseudo steps over its first 9 frames (5 a window, 5 a step)
+         "launches_plus": plus_launches, "plus": plus},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -5407,7 +5511,9 @@ def main() -> int:
          "launches_h263": h263["launches"]["pseudo"]["correlation_bwd"],
          # phase 23: the pseudo regime's steps over an MPEG-2 .ts
          "launches_streams":
-             streams["launches"]["pseudo"]["correlation_bwd"]},
+             streams["launches"]["pseudo"]["correlation_bwd"],
+         # phase 24: the pseudo regime's steps over an H.263+ AVI
+         "launches_plus": plus["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

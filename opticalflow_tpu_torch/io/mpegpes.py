@@ -248,7 +248,7 @@ class PesVideo:
         self.dts: List[Optional[int]] = []
         self.owner: List[Optional[int]] = []    # the PES each stamp came from
         for o in self.pictures:
-            head = self._es(f, o, 6)
+            head = self._es(f, o, 12 if self.codec == "h263" else 6)
             if self.codec == "mpeg12":
                 t = picture_types(head)
                 self.types.append(t[0] if t else 0)

@@ -31,8 +31,9 @@ the packets and ``r_frame_rate`` is the codec's rate, doubled for MPEG-1
 count is FFmpeg's PTS duration estimate (``mpegpes.duration_frames``) times
 that rate.  A ``CAP_PROP_POS_FRAMES`` seek goes through
 ``ff_seek_frame_binary``: :meth:`MpegTsFile.seek` reproduces its search
-(``ff_gen_search`` over ``mpegts_get_dts``, the index it builds) for
-``io/video``'s seek.
+(``ff_gen_search`` over ``mpegts_get_dts``, the index it builds, the DTS
+``compute_pkt_fields`` leaves a picture whose PES header carries a PTS
+alone) for ``io/video``'s seek.
 """
 
 from __future__ import annotations
@@ -139,11 +140,19 @@ class MpegTsFile(PesVideo):
                 raise ValueError(f"{path}: MPEG-4 video without a VOL")
             self.rate = rate
         self.keyframes = [i for i, t in enumerate(self.types) if t == 1] or [0]
-        # the parsed packets mpegts_get_dts sees: (pos, DTS) of each sample
-        # whose PES packet stamped it, in file order
-        self._seekable = [(self.pes[j].pos, self.dts[i], i)
-                          for i, j in enumerate(self.owner) if j is not None]
-        self._seek_pos = [p for p, _, _ in self._seekable]
+        # compute_pkt_fields' delay: the decoder's has_b_frames (MPEG-1/2:
+        # the sequence is not low delay; MPEG-4: the parser saw a B-VOP)
+        self.delay = (not seq.low_delay if self.codec == "mpeg12"
+                      else 3 in self.types)
+        # the parsed packets mpegts_get_dts reads, in file order: (pos of
+        # the PES packet the picture starts in, PTS, DTS, B-picture)
+        starts = self._es_starts
+        self._parsed = [
+            (self.pes[j if j is not None else
+                      bisect_right(starts, self.pictures[i]) - 1].pos,
+             self.pts[i], self.dts[i], self.types[i] == 3)
+            for i, j in enumerate(self.owner)]
+        self._seek_pos = [p for p, _, _, _ in self._parsed]
 
     # ------------------------------------------------------------ packets
 
@@ -327,17 +336,34 @@ class MpegTsFile(PesVideo):
                  index: Dict[int, Tuple[int, int]]) -> Optional[Tuple[int, int]]:
         """``mpegts_get_dts``: from ``pos`` rounded up to a packet, the first
         parsed packet with a DTS (its (pos, DTS)), added to ``index``; None
-        at the end, or where the packet boundary is at ``limit`` or past."""
+        at the end, or where the packet boundary is at ``limit`` or past.
+
+        The DTS is the one ``compute_pkt_fields`` leaves after the flush
+        each call starts with: with a decoding delay, an I- or P-picture
+        whose PES header carries a PTS alone (DTS = PTS) has its DTS taken
+        away and replaced by the PTS of the last I- or P-picture read
+        since the flush (none for the first: that picture is passed over);
+        a B-picture's DTS is its PTS."""
         raw = self.raw
         aligned = (pos + raw - 1 - self.pos47) // raw * raw + self.pos47
         if limit is not None and aligned >= limit:
             return None
-        k = bisect_left(self._seek_pos, aligned)
-        if k == len(self._seekable):
-            return None
-        p, dts, _ = self._seekable[k]
-        index[dts] = p            # av_add_index_entry: one entry a timestamp
-        return p, dts
+        last_ip = None
+        for p, pts, dts, b in self._parsed[bisect_left(self._seek_pos,
+                                                       aligned):]:
+            delayed = self.delay and not b
+            if delayed and dts is not None and dts == pts:
+                dts = None
+            if delayed or (pts is not None and dts is not None and pts > dts):
+                if dts is None:
+                    dts = last_ip
+                last_ip = pts
+            else:
+                dts = pts if pts is not None else dts
+            if dts is not None:
+                index[dts] = p    # av_add_index_entry: one entry a timestamp
+                return p, dts
+        return None
 
     def _last_ts(self, index) -> Optional[Tuple[int, int]]:
         """``ff_find_last_ts``: (pos, DTS) of the last parsed packet."""
@@ -374,7 +400,7 @@ class MpegTsFile(PesVideo):
         if index:
             stamps = sorted(index)
             j = max(bisect_right(stamps, target) - 1, 0)
-            if stamps[j] <= target:
+            if stamps[j] <= target or index[stamps[j]] == 0:
                 pos_min, ts_min = index[stamps[j]], stamps[j]
             j = bisect_left(stamps, target)
             if j < len(stamps):

@@ -26,8 +26,10 @@ muxers and codecs and reads what those read, frame for frame:
   * **H.263** baseline with Annex F (``H263``, ``U263``, ... in AVI,
     ``s263``/``h263`` in ``.3gp``, ``.3g2`` and ``.mov``, ``H263`` under
     ``V_MS/VFW/FOURCC`` in Matroska: what ``cv2.VideoWriter`` writes for
-    fourccs ``H263`` and ``s263``), decoded by ``runtime/h263`` bit-exactly
-    to FFmpeg; H.263+ (PLUSPTYPE), Annexes D, E and G raise, naming item 8;
+    fourccs ``H263`` and ``s263``) and **H.263+** (PLUSPTYPE: custom sizes
+    and clocks, Annexes D, F, I, J, K, S and T, as libavcodec's ``h263p``
+    writes them), decoded by ``runtime/h263`` bit-exactly to FFmpeg;
+    Annexes E, G, M, N, O, P, Q and R raise, naming item 8;
   * a picture of another size than its stream's first (a VP9 frame that
     changed size, a VP8 key frame, an H.263 picture header) is scaled back
     to the first size through swscale's bicubic scaler, as
@@ -54,7 +56,8 @@ muxers and codecs and reads what those read, frame for frame:
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
-    PNG through ``io/images.decode_png`` and swscale's conversion;
+    PNG through ``io/images.decode_png`` and swscale's conversion (16-bit
+    colour through its YUV, ``runtime/mpeg4.rgb48_to_bgr``);
   * **YUV4MPEG2** (``.y4m``): 8-bit 4:2:0, colour tags ``C420jpeg``,
     ``C420mpeg2``, ``C420paldv``, ``C420`` or none, read as FFmpeg's
     yuv4mpeg demuxer reads it (25 fps without an ``F`` tag,
@@ -104,7 +107,7 @@ from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
 from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
-                                                  to_i420)
+                                                  rgb48_to_bgr, to_i420)
 from opticalflow_tpu_torch.runtime.mpeg12 import CHROMA_SITE as MPEG12_SITE
 from opticalflow_tpu_torch.runtime.mpeg12 import Decoder as Mpeg12Decoder
 from opticalflow_tpu_torch.runtime.mpeg12 import (display_order, output_order,
@@ -790,7 +793,8 @@ def _image_bgr(data: bytes, what: str) -> np.ndarray:
     from it: JPEG through FFmpeg's decoder (``runtime/jpeg``'s FFmpeg
     flavour), PNG through ``io/images.decode_png`` and swscale's
     conversion to BGR24 (alpha dropped, grey replicated, a 16-bit grey
-    sample rounded to 8 bits)."""
+    sample rounded to 8 bits, 16-bit colour through swscale's YUV:
+    ``runtime/mpeg4.rgb48_to_bgr``)."""
     if is_jpeg(data):
         return decode_jpeg_ffmpeg(data, what)
     img = decode_png(data)
@@ -799,9 +803,7 @@ def _image_bgr(data: bytes, what: str) -> np.ndarray:
                           f"does not read in an image sequence ({ITEM_8})")
     if img.dtype == np.uint16:
         if img.ndim == 3 and img.shape[2] >= 3:
-            raise Unsupported(f"{what}: 16-bit colour PNG, which swscale "
-                              "converts through YUV; not read by the port "
-                              f"({ITEM_8})")
+            return rgb48_to_bgr(img)
         img = np.minimum((img.astype(np.uint32) + 128) >> 8, 255).astype(
             np.uint8)
     return np.ascontiguousarray(rgb8(img)[..., ::-1])

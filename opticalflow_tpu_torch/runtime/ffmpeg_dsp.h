@@ -14,7 +14,10 @@
 //     yuvj440p, yuvj411p: FFmpeg's MJPEG decoder): the unscaled path above
 //     where swscale takes it, else its scaler (scale_to_bgr), which also
 //     takes planes from one size to another, luma and chroma, as cv2
-//     converts a picture of another size than its stream's first.
+//     converts a picture of another size than its stream's first;
+//   * rgb48_to_bgr: swscale's conversion of 16-bit RGB (rgb48be, and
+//     rgba64be with its alpha dropped: FFmpeg's PNG decoder's 16-bit
+//     colour) to BGR24, through its internal video-range YUV.
 //
 // Header only; each including source is one shared library.
 
@@ -588,6 +591,31 @@ inline bool scale_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const 
         }
     }
     return true;
+}
+
+// --------------------------------------------- 16-bit RGB -> BGR24
+// swscale's path for rgb48be/rgba64be -> BGR24 at the same size
+// (SWS_BICUBIC): rgb48ToY_c/rgb48ToUV_c with fill_rgb2yuv_table's BT.601
+// video-range coefficients (its special case for the default matrix:
+// (int)(0.299 * 219 / 255 * 2^15 + 0.5), ...; RGB2YUV_SHIFT 15) into
+// 16-bit Y, U, V; hScale16To15's identity filter (16384, >> 15: the
+// sample halved); yuv2bgr24_full_1_c (full chroma, which swscale forces
+// for unsubsampled input) with the video-range BT.601 coefficients.
+// ``rgb``: n pixels of ``channels`` (3 or 4, the fourth ignored) native
+// 16-bit samples in R, G, B order.
+inline void rgb48_to_bgr(const uint16_t* rgb, int channels, int64_t n, uint8_t* bgr) {
+    constexpr int64_t ry = 8414, gy = 16519, by = 3208;
+    constexpr int64_t ru = -4865, gu = -9528, bu = 14392;
+    constexpr int64_t rv = 14392, gv = -12061, bv = -2332;
+    for (int64_t i = 0; i < n; i++, rgb += channels, bgr += 3) {
+        const int64_t r = rgb[0], g = rgb[1], b = rgb[2];
+        const int y16 = (int)((ry * r + gy * g + by * b + ((int64_t)0x2001 << 14)) >> 15);
+        const int u16 = (int)((ru * r + gu * g + bu * b + ((int64_t)0x10001 << 14)) >> 15);
+        const int v16 = (int)((rv * r + gv * g + bv * b + ((int64_t)0x10001 << 14)) >> 15);
+        const int y15 = std::min(y16 >> 1, 32767), u15 = std::min(u16 >> 1, 32767),
+                  v15 = std::min(v16 >> 1, 32767);
+        full_pixel(y15 * 4, (u15 - (128 << 7)) * 4, (v15 - (128 << 7)) * 4, kVideoRange, bgr);
+    }
 }
 
 // Planes -> BGR24 as swscale converts them: 4:2:0 (hshift 1, vshift 1)

@@ -1,18 +1,23 @@
 """ctypes binding of the port's H.263 decoder (``h263.cpp``).
 
-:class:`Decoder` turns H.263 baseline packets (one picture each: what
+:class:`Decoder` turns H.263 packets (one picture each: what
 ``cv2.VideoWriter`` writes with fourcc ``H263`` into ``.avi``, ``.mkv`` and
-``.mov`` or ``s263`` into ``.3gp``, old phones' video and early AVI
-captures) into yuv420p planes, bit-exact to FFmpeg's ``h263`` decoder,
-which ``cv2.VideoCapture`` runs; ``runtime/mpeg4.i420_to_bgr`` converts them
-in swscale's arithmetic.  Annex F (advanced prediction: 8x8 vectors and
-overlapped block motion compensation) is read.  The library is built with
-``g++`` at first use into ``opticalflow_tpu_torch/_build/`` by
-``runtime/_native.py``; a failed build raises with the compiler's output.
-Its calls release the GIL.  Damaged data raises ``ValueError``; H.263+
-(PLUSPTYPE), syntax-based arithmetic coding (Annex E), PB-frames (Annex G)
-and unrestricted vectors (Annex D) raise ``Unsupported``, naming ROADMAP
-Queue 1 item 8.
+``.mov`` or ``s263`` into ``.3gp``, libavcodec's ``h263p`` encoder's H.263+,
+old phones' video and early AVI captures) into yuv420p planes, bit-exact to
+FFmpeg's ``h263`` decoder, which ``cv2.VideoCapture`` runs;
+``runtime/mpeg4.i420_to_bgr`` converts them in swscale's arithmetic.
+Baseline H.263 with Annex F (advanced prediction: 8x8 vectors and
+overlapped block motion compensation) is read, and H.263+ (PLUSPTYPE
+headers: custom picture formats and clocks, the rounding type) with
+Annexes D (unrestricted vectors), F, I (advanced intra coding), J
+(deblocking filter), K (slice-structured mode), S (alternative inter VLC)
+and T (modified quantisation).  The library is built with ``g++`` at first
+use into ``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a
+failed build raises with the compiler's output.  Its calls release the
+GIL.  Damaged data raises ``ValueError``; syntax-based arithmetic coding
+(Annex E), PB-frames (Annexes G and M), B-pictures (Annex O), Annexes N,
+P, Q and R, rectangular or unordered slices and unrestricted vectors
+outside PLUSPTYPE raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -48,9 +53,16 @@ FEATURES = ("sub_qcif", "qcif", "cif", "4cif", "16cif", "p_pictures",
             "skipped_mb", "intra_mb_in_p", "dquant", "mv4",
             "advanced_prediction", "gob_headers", "escape",
             "escape_extended", "pei", "size_change", "mcbpc_stuffing",
-            "dc_128")
+            "dc_128",
+            # H.263+ (PLUSPTYPE)
+            "plusptype", "custom_format", "extended_par", "custom_clock",
+            "rounding_type", "ufep_0", "umv", "umv_long", "umv_stuffing",
+            "aic", "aic_vertical", "aic_horizontal", "loop_filter",
+            "slices", "alt_inter_vlc", "alt_inter_retry", "modified_quant",
+            "dquant_escape")
 
-# the source formats' sizes (PTYPE bits 6-8; 6 and 7 are PLUSPTYPE's)
+# the source formats' sizes (PTYPE bits 6-8 or OPPTYPE bits 1-3; 6 is the
+# custom format, 7 in PTYPE PLUSPTYPE)
 SIZES = {1: (128, 96), 2: (176, 144), 3: (352, 288), 4: (704, 576),
          5: (1408, 1152)}
 
@@ -78,33 +90,65 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def _ptype(packet: bytes) -> Optional[int]:
-    """The 13 PTYPE bits of the picture a packet starts (its PSC found
-    byte-aligned, as FFmpeg finds it), or None without a PSC."""
+class _Bits:
+    """MSB-first bits of a picture header."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.v = int.from_bytes(data, "big")
+        self.n = 8 * len(data)
+        self.pos = pos
+
+    def get(self, n: int) -> int:
+        self.pos += n
+        if self.pos > self.n:
+            raise ValueError("truncated H.263 picture header")
+        return self.v >> (self.n - self.pos) & ((1 << n) - 1)
+
+
+def _header(packet: bytes) -> Optional[dict]:
+    """What the picture header of the picture a packet starts (its PSC
+    found byte-aligned, as FFmpeg finds it) says of the picture's type and
+    size: {"intra": bool, "size": (width, height) or None where a
+    PLUSPTYPE header without UFEP keeps the last one}; None without a PSC.
+    """
     for i in range(len(packet) - 4):
         if not packet[i] and not packet[i + 1] and packet[i + 2] >> 2 == 0x20:
-            bits = int.from_bytes(packet[i + 2:i + 6].ljust(4, b"\0"), "big")
-            return bits >> 5 & 0x1FFF      # after 6 PSC bits and the 8 of TR
-    return None
+            break
+    else:
+        return None
+    b = _Bits(packet[i:i + 24], 22 + 8)     # after the PSC and TR
+    b.get(5)                                # marker, id, three flags
+    fmt = b.get(3)
+    if fmt not in (6, 7):
+        return {"intra": not b.get(1), "size": SIZES.get(fmt)}
+    ufep = b.get(3)
+    if ufep == 1:
+        fmt = b.get(3)
+        b.get(15)
+    ptype = b.get(3)
+    b.get(7)                                # RPR, RRU, RTYPE, ..., CPM
+    size = None
+    if ufep == 1:
+        size = SIZES.get(fmt)
+        if fmt == 6:                        # CPFMT
+            b.get(4)
+            w = (b.get(9) + 1) * 4
+            b.get(1)
+            size = (w, b.get(9) * 4)
+    return {"intra": ptype in (0, 7), "size": size}
 
 
 def picture_size(packet: bytes) -> Optional[Tuple[int, int]]:
     """The (width, height) a packet's picture header names; None without a
-    picture header.  A PLUSPTYPE header raises ``Unsupported``."""
-    ptype = _ptype(packet)
-    if ptype is None:
-        return None
-    fmt = ptype >> 5 & 7
-    if fmt >= 6:
-        raise Unsupported(f"H.263+ picture headers (PLUSPTYPE), not read by "
-                          f"the port ({ITEM_8})")
-    return SIZES.get(fmt)
+    picture header or where a PLUSPTYPE header does not name one."""
+    head = _header(packet)
+    return None if head is None else head["size"]
 
 
 def is_intra(packet: bytes) -> bool:
     """Whether a packet holds an I-picture (a seek can start there)."""
-    ptype = _ptype(packet)
-    return ptype is not None and ptype >> 5 & 7 < 6 and not ptype >> 4 & 1
+    head = _header(packet)
+    return head is not None and head["intra"]
 
 
 class Decoder:
@@ -132,7 +176,9 @@ class Decoder:
         text = msg.value.decode("utf-8", "replace")
         if rc == _UNSUPPORTED:
             raise Unsupported(f"{self.what}: {text}: the port decodes H.263 "
-                              f"baseline with Annex F only ({ITEM_8})")
+                              f"baseline with Annex F and H.263+ with "
+                              f"Annexes D, F, I, J, K, S and T only "
+                              f"({ITEM_8})")
         if rc == _NO_FRAME:
             return None
         if rc != _OK:

@@ -89,12 +89,6 @@ const int kIntraMaxLevel0[] = {27, 10, 5, 4, 3, 3, 3, 3, 2, 2, 1, 1, 1, 1, 1};
 const int kIntraMaxLevel1[] = {8, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1,
                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
 
-const uint8_t kAltHorizontal[64] = {
-    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14,
-    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
-    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
-    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
-
 const uint8_t kDefaultIntraMatrix[64] = {
     8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
     20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
@@ -1590,6 +1584,12 @@ void om4_dec_output(void* h, uint8_t* y, uint8_t* u, uint8_t* v) {
 void om4_to_i420(const uint8_t* px3, int w, int h, int rgb, uint8_t* y,
                  uint8_t* u, uint8_t* v) {
     to_i420(px3, w, h, rgb, y, u, v);
+}
+
+// 16-bit RGB or RGBA (native samples, alpha dropped) -> BGR24, as swscale
+// converts rgb48be/rgba64be (ffmpeg_dsp.h's rgb48_to_bgr)
+void om4_rgb48_to_bgr(const uint16_t* rgb, int channels, int64_t n, uint8_t* bgr) {
+    ffdsp::rgb48_to_bgr(rgb, channels, n, bgr);
 }
 
 // yuv420p (full = 0) or yuvj420p (full = 1) planes -> BGR24, as swscale

@@ -28,7 +28,8 @@ import numpy as np
 
 from opticalflow_tpu_torch.runtime._native import build_and_load
 
-__all__ = ["Decoder", "Encoder", "Unsupported", "i420_to_bgr", "to_i420",
+__all__ = ["Decoder", "Encoder", "Unsupported", "i420_to_bgr",
+           "rgb48_to_bgr", "to_i420",
            "ITEM_8", "load"]
 
 ITEM_8 = "ROADMAP Queue 1 item 8"
@@ -70,6 +71,7 @@ def load() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 10 + [_P]),
             "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
                                   + [_P]),
+            "om4_rgb48_to_bgr": (None, [_P, ctypes.c_int, _I64, _P]),
             "om4_to_i420": (None, [_P, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P, _P, _P]),
             "om4_enc_new": (_P, [_I64P, ctypes.c_char_p, ctypes.c_char_p, _I64]),
@@ -200,6 +202,20 @@ def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         raise Unsupported(f"a {w}x{h} picture scaled to {dw}x{dh} through "
                           "swscale's two-tap luma path, not read by the port "
                           f"({ITEM_8})")
+    return out
+
+
+def rgb48_to_bgr(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3 or 4) uint16 RGB or RGBA → (H, W, 3) uint8 BGR as swscale
+    converts FFmpeg's 16-bit colour PNG pictures (rgb48be, rgba64be) for
+    ``cv2.VideoCapture``: through its video-range BT.601 YUV at 15 bits,
+    full chroma, alpha dropped (``ffmpeg_dsp.h``'s ``rgb48_to_bgr``)."""
+    if rgb.ndim != 3 or rgb.shape[2] not in (3, 4):
+        raise ValueError(f"16-bit RGB or RGBA expected, got {rgb.shape}")
+    src = np.ascontiguousarray(rgb, np.uint16)
+    out = np.empty(rgb.shape[:2] + (3,), np.uint8)
+    load().om4_rgb48_to_bgr(_ptr(src), rgb.shape[2],
+                            rgb.shape[0] * rgb.shape[1], _ptr(out))
     return out
 
 

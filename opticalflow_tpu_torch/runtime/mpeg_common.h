@@ -54,8 +54,9 @@ struct Code {
     uint8_t bits;
 };
 
-// the scans: zigzag, and the alternate vertical scan (MPEG-2's
-// alternate_scan, MPEG-4's AC prediction from above)
+// the scans: zigzag, the alternate vertical scan (MPEG-2's alternate_scan,
+// MPEG-4's AC prediction from the left, H.263's Annex I from the left) and
+// the alternate horizontal scan (prediction from above)
 inline const uint8_t kZigzag[64] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
@@ -66,6 +67,11 @@ inline const uint8_t kAltVertical[64] = {
     41, 33, 26, 18, 3,  11, 4,  12, 19, 27, 34, 42, 50, 58, 35, 43,
     51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44, 52, 60, 37, 45,
     53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
+inline const uint8_t kAltHorizontal[64] = {
+    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14,
+    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
+    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
+    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
 
 // A VLC as a table over the next ``bits`` bits of the stream.
 struct Vlc {

@@ -7,11 +7,15 @@ its ``CAP_PROP_FPS``, ``_FRAME_WIDTH``, ``_FRAME_HEIGHT`` and
 
     python tests/make_video_fixtures.py              # the files and manifest
     python tests/make_video_fixtures.py --manifest   # the manifest alone
+    python tests/make_video_fixtures.py --new h263p_fixtures ...
+        # only the named fixture functions' files (stream_fixtures if none
+        # is named), their manifest entries added to the others
 
 Needs OpenCV with FFmpeg (the manifest records the versions).  cv2's
 Matroska muxer writes random UIDs, so rewriting the files changes the
 ``.mkv``/``.webm`` bytes cv2 wrote (not their frames): to add a fixture,
-write it and restore the others from git before ``--manifest``.  The frames
+write it from a fixture function through ``--new`` (``--manifest`` keeps
+each file's recorded group and refuses a file no function wrote).  The frames
 are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
 
   * ``moving_176x144.mp4``: 26 frames (three GOPs) by ``cv2.VideoWriter``
@@ -114,7 +118,26 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
     ``.mkv``/``.avi``/``.mp4``/``.mov``, grey, the Sintel pair's 3 frames,
     and from libavcodec (``Lavc.encode_ffv1``) in Matroska: versions 0-2,
     both range-coder tables, 6 and 12 slices, grey, 4:2:0 with and without
-    alpha, odd sizes.
+    alpha, odd sizes;
+  * H.263+ (``h263p_fixtures``): libavcodec's ``h263p`` (PLUSPTYPE
+    headers, alternating rounding) with Annexes D (``umv``), F (``obmc``,
+    ``+mv4``), I and T (``+aic``), J (``+loop``), K (``structured_slices``
+    with ``ps=400``) and S (``aiv``) alone and combined
+    (``h263_plus_*_176x144.avi``, ``h263_plus_*_352x288.avi``), the
+    standard clock (``h263_plus_176x144``, also as ``.h263``, ``.mkv``
+    under V_MS/VFW/FOURCC and ``.3gp`` under ``s263``), custom formats at
+    100x60 and 320x240 and a custom clock (1/25), a size change, an
+    intra-only stream with INTRA_MODE and DQUANT rewritten
+    (``rewrite_aic_intra``: AC prediction, Annex T's DQUANT codes) and
+    the Sintel pair at 436x1024, which the card run decodes;
+  * transport and program streams whose PES headers carry a PTS alone
+    over B-pictures (``pts_only_fixtures``: ``mpeg2_pts_only_176x144``
+    as ``.ts``, ``.m2ts`` and ``.mpg``, ``mpeg1_pts_only_176x144.ts``;
+    cv2's seeks to 0-12 in the transport streams land a GOP late);
+  * 16-bit colour PNG sequences by ``cv2.imwrite`` (``png16_fixtures``:
+    ``png16_rgb_53x37_%d.png``, ``png16_rgba_53x37_%d.png`` and
+    ``png16_triples_256x256_%d.png``, 65,536 random triples), one manifest
+    entry a pattern.
 
 Each VP8 file's manifest entry lists the header features and coding modes
 the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
@@ -122,7 +145,9 @@ each VP9 and MPEG-1/2 file's likewise (``vp9_features``,
 ``mpeg12_features``, ``h263_features``), and each MPEG-1/2, H.263,
 ``.3gp`` and size-changing file's the frame a ``CAP_PROP_POS_FRAMES`` seek
 to each index reads (``seeks``: an index into its sequential frames, or
-null where cv2 reads none).
+null where cv2 reads none).  Every entry names the fixture function that
+wrote its file (``group``: ``h263p`` for ``h263p_fixtures``), by which
+each phase of ``chip_smoke.py`` takes its fixtures.
 """
 
 from __future__ import annotations
@@ -412,13 +437,14 @@ def without_cues(src: str, dst: str) -> None:
 # the bit set, bool for bool (RFC 6386's boolean coder; the key-frame
 # header and mode syntax of section 19.2, the probabilities vp8.cpp holds)
 
-def _cpp_table(name: str) -> list:
-    """The integers of ``const ... name[...] = {...};`` in runtime/vp8.cpp."""
+def _cpp_table(name: str, source: str = "vp8.cpp") -> list:
+    """The integers of ``const ... name[...] = {...};`` in a runtime
+    source (runtime/vp8.cpp unless named)."""
     import re
     src = open(os.path.join(os.path.dirname(HERE), "opticalflow_tpu_torch",
-                            "runtime", "vp8.cpp")).read()
+                            "runtime", source)).read()
     body = re.search(name + r"(\[\d+\])+ = \{(.*?)\};", src, re.S).group(2)
-    return [int(x) for x in re.findall(r"-?\d+", body)]
+    return [int(x, 0) for x in re.findall(r"-?(?:0x[0-9a-fA-F]+|\d+)", body)]
 
 
 class _BoolReader:
@@ -1063,7 +1089,11 @@ def _mkv_samples(path: str) -> list:
 
 
 def vp9_fixtures() -> None:
-    """The VP9 files: cv2's writer (fourcc VP90), then libvpx's encoder."""
+    """The VP9 files: cv2's writer (fourcc VP90), then libvpx's encoder;
+    and the VP8 WebM with clamping_type set, whose colour, like theirs,
+    depends on FFmpeg's decoder threads."""
+    set_vp8_clamping(os.path.join(OUT, "vp8_176x144.webm"),
+                     os.path.join(OUT, "vp8_clamping.webm"))
     moving = moving_clip(144, 176, 26)
     for ext in ("webm", "mkv", "mp4", "avi"):
         _cv2_write(os.path.join(OUT, f"vp9_176x144.{ext}"), moving, "VP90")
@@ -1206,14 +1236,17 @@ class Lavc:
             fn.restype, fn.argtypes = res, args
 
     def encode(self, planes: list, codec: str = "mpeg2video",
-               fps: int = 25, **opts) -> list:
-        """I420 planes → (packet, pts, dts) in frames, in decode order."""
+               fps=25, **opts) -> list:
+        """I420 planes → (packet, pts, dts) in frames, in decode order;
+        ``fps`` a number or a time base's reciprocal as ``"30000/1001"``."""
         c, a, u = self.ct, self.a, self.u
         h, w = planes[0][0].shape
         enc = a.avcodec_find_encoder_by_name(codec.encode())
         ctx = a.avcodec_alloc_context3(enc)
         for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", "yuv420p"),
-                     ("time_base", f"1/{fps}"), ("g", "12"), ("b", "1000000"),
+                     ("time_base", "/".join(str(fps).split("/")[::-1])
+                      if "/" in str(fps) else f"1/{fps}"),
+                     ("g", "12"), ("b", "1000000"),
                      ("bf", "2" if codec == "mpeg2video" else "0")):
             assert u.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
         d = c.c_void_p()
@@ -1603,20 +1636,25 @@ def with_psupp(packet: bytes, psupp: bytes = b"PSUPP-8b") -> bytes:
     return _bytes(bits[:49] + extra + bits[49] + stuffing + bits[50:])
 
 
-def h263_avi(path: str, parts: list, psupp: bool = False, **opts) -> list:
-    """Lists of BGR frames → one AVI (fourcc ``H263``) of libavcodec's h263
-    streams one after another (a part of another size changes the picture
-    size); keyframes flagged at the I-pictures.  Returns the packets."""
+def h263_avi(path: str, parts: list, psupp: bool = False,
+             codec: str = "h263", fps: int = 25, **opts) -> list:
+    """Lists of BGR frames → one AVI (fourcc ``H263``) of libavcodec's
+    ``codec`` (``h263``, or ``h263p`` for H.263+) streams one after another
+    (a part of another size changes the picture size), encoded at a time
+    base of 1/``fps``; keyframes flagged at the I-pictures.  Returns the
+    packets."""
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.avi import AviWriter
     from opticalflow_tpu_torch.runtime.h263 import is_intra
     lavc = Lavc()
     h, w = parts[0][0].shape[:2]
-    mux = AviWriter(path, (w, h), (25, 1), fourcc="H263")
+    rate = tuple(int(x) for x in str(fps).split("/")) if "/" in str(fps) \
+        else (fps, 1)
+    mux = AviWriter(path, (w, h), rate, fourcc="H263")
     out = []
     for frames in parts:
         for data, _, _ in lavc.encode([bgr_i420(f) for f in frames],
-                                      codec="h263", **opts):
+                                      codec=codec, fps=fps, **opts):
             data = with_psupp(data) if psupp else data
             mux.write(data, is_intra(data))
             out.append(data)
@@ -1654,6 +1692,221 @@ def h263_fixtures() -> None:
              [moving[:7], [cv2_resize(f, 128, 96) for f in moving[7:]]])
 
 
+# ----------------------------------------------------------------- H.263+
+
+def _vlc_codes(name: str, source: str) -> dict:
+    """{bit string: index} of a ``Code`` table in a runtime source."""
+    v = _cpp_table(name, source)
+    return {format(c, f"0{n}b"): i for i, (c, n) in
+            enumerate(zip(v[::2], v[1::2])) if n}
+
+
+def _read_vlc(bits: str, pos: int, codes: dict) -> tuple:
+    for n in range(1, 14):
+        if bits[pos:pos + n] in codes:
+            return codes[bits[pos:pos + n]], pos + n
+    raise ValueError(f"no code at bit {pos}")
+
+
+def _plus_header_end(bits: str) -> tuple:
+    """(the bit after an H.263+ I-picture header as libavcodec's h263p
+    writes it, with UFEP 1 and no slices; the OPPTYPE flags)"""
+    pos = 22 + 8 + 5
+    assert bits[pos:pos + 3] == "111" and bits[pos + 3:pos + 6] == "001"
+    fmt = int(bits[pos + 6:pos + 9], 2)
+    flags = bits[pos + 9:pos + 20]
+    pcf, umv, ss = flags[0] == "1", flags[1] == "1", flags[6] == "1"
+    pos += 6 + 18 + 9 + 1
+    if fmt == 6:
+        pos += 4 + 9 + 1 + 9 + (16 if bits[pos:pos + 4] == "1111" else 0)
+    if pcf:
+        pos += 8 + 2
+    if umv:
+        pos += 1 if bits[pos] == "1" else 2
+    if ss:
+        pos += 2
+    assert not ss, "slice-structured headers are not walked"
+    pos += 5
+    while bits[pos] == "1":     # PEI, PSUPP
+        pos += 9
+    return pos + 1, flags
+
+
+def rewrite_aic_intra(packet: bytes, mbs: int) -> bytes:
+    """An Annex I I-picture of libavcodec's h263p with two fields rewritten
+    macroblock by macroblock: INTRA_MODE (the encoder writes 0, DC
+    prediction only) to 0, 10 (AC prediction from above, the alternate
+    horizontal scan) and 11 (from the left, the vertical scan), the same
+    levels read with AC prediction and another scan; and DQUANT, which the
+    encoder writes in the baseline's 2-bit code although Annex T is on
+    (FFmpeg's decoder misreads it), to Annex T's code for the same QUANT:
+    its table's two codes where one reaches it, else every other time the
+    5-bit value.  ``mbs``: the picture's macroblocks (one slice)."""
+    mcbpc = _vlc_codes("kIntraMcbpc", "mpeg_common.h")
+    cbpy = _vlc_codes("kCbpy", "mpeg_common.h")
+    tcoef = _vlc_codes("kAicTcoef", "h263.cpp")
+    table = np.array(_cpp_table("kModifiedQuant", "h263.cpp")).reshape(2, 32)
+    bits = _bits(packet)
+    pos, flags = _plus_header_end(bits)
+    assert flags[4] == "1" and flags[10] == "1", "Annexes I and T"
+    q = int(bits[pos - 6:pos - 1], 2)      # PQUANT (no PSUPP here)
+    out = [bits[:pos]]
+    for k in range(mbs):
+        start = pos
+        while True:
+            c, pos = _read_vlc(bits, pos, mcbpc)
+            if c != 8:
+                break
+        assert bits[pos] == "0"
+        out.append(bits[start:pos] + ("0", "10", "11")[k % 3])
+        start = pos = pos + 1
+        y, pos = _read_vlc(bits, pos, cbpy)
+        out.append(bits[start:pos])
+        if c & 4:
+            prev = q
+            q = min(max(q + (-1, -2, 1, 2)[int(bits[pos:pos + 2], 2)], 1), 31)
+            pos += 2
+            short = [b for b in (0, 1) if table[b][prev] == q]
+            out.append("1" + str(short[0]) if short and k % 2 else
+                       "0" + format(q, "05b"))
+        start = pos
+        cbp = (c & 3) | y << 2
+        for n in range(6):
+            if not cbp >> (5 - n) & 1:
+                continue
+            while True:
+                i, pos = _read_vlc(bits, pos, tcoef)
+                if i == 102:
+                    last = bits[pos] == "1"
+                    pos += 1 + 6 + 8 + (11 if bits[pos + 7:pos + 15]
+                                        == "10000000" else 0)
+                else:
+                    last = i >= 58
+                    pos += 1
+                if last:
+                    break
+        out.append(bits[start:pos])
+    out.append(bits[pos:])
+    return _bytes("".join(out))
+
+
+def _bih(w: int, h: int, fourcc: bytes) -> bytes:
+    """A BITMAPINFOHEADER (Matroska's V_MS/VFW/FOURCC CodecPrivate)."""
+    return struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
+                       0, 0, 0, 0)
+
+
+def _box_tree(data: bytes, path: list, new: bytes) -> bytes:
+    """ISO BMFF boxes ``data`` with the box at ``path`` (types, from the
+    top) replaced by ``new``, the sizes of its parents mended."""
+    out, at = b"", 0
+    while at < len(data):
+        size, kind = struct.unpack(">I4s", data[at:at + 8])
+        box = data[at:at + size]
+        if kind == path[0]:
+            if len(path) == 1:
+                box = new
+            else:
+                skip = 16 if kind == b"stsd" else 8
+                body = _box_tree(box[skip:], path[1:], new)
+                box = struct.pack(">I", skip + len(body)) + box[4:skip] + body
+        out += box
+        at += size
+    return out
+
+
+def s263_3gp(path: str, packets: list, w: int, h: int, fps: int = 25) -> None:
+    """H.263 packets → a .3gp: the port's ISO BMFF writer with its sample
+    entry an ``s263`` with a ``d263`` box, as FFmpeg's mov muxer writes
+    H.263 into 3GP."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.mp4 import Mp4Writer
+    from opticalflow_tpu_torch.runtime.h263 import is_intra
+    mux = Mp4Writer(path, (w, h), (fps, 1), b"")
+    for data in packets:
+        mux.write(data, is_intra(data))
+    mux.release()
+    d263 = struct.pack(">I4s4sBBB", 15, b"d263", b"FFMP", 0, 10, 0)
+    entry = (b"s263" + b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16
+             + struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1)
+             + b"\0" * 32 + struct.pack(">Hh", 0x18, -1) + d263)
+    entry = struct.pack(">I", 4 + len(entry)) + entry
+    data = open(path, "rb").read()
+    at = data.rfind(b"moov") - 4
+    moov = _box_tree(data[at:], [b"moov", b"trak", b"mdia", b"minf", b"stbl",
+                                 b"stsd", b"mp4v"], entry)
+    with open(path, "wb") as f:
+        f.write(data[:at] + moov)
+
+
+def h263p_fixtures() -> None:
+    """The H.263+ files: libavcodec's ``h263p`` encoder (PLUSPTYPE
+    headers; P-pictures alternate the rounding type), each annex alone
+    and combined at 176x144 and 352x288 — Annex D (``umv``), F (``obmc``
+    with ``+mv4``), I with T (``+aic``; the encoder writes INTRA_MODE 0
+    only, and DQUANT in a code Annex T does not have, so an intra-only
+    stream has both rewritten: ``rewrite_aic_intra``), J (``+loop``), K
+    (``structured_slices`` with ``ps``), S (``aiv``); custom formats (100x60, 320x240 and the Sintel pair at
+    436x1024) and clocks (1/25; 1001/30000 is the standard clock); a size
+    change; in AVI (``H263``), raw ``.h263``, Matroska (V_MS/VFW/FOURCC)
+    and 3GP (``s263``)."""
+    objects = objects_clip(144, 176, 14)
+    cif = objects_clip(288, 352, 8, seed=23)
+    low = dict(b=120000)
+    out = lambda n: os.path.join(OUT, n)  # noqa: E731
+    plain = h263_avi(out("h263_plus_176x144.avi"), [objects], codec="h263p",
+                     fps="30000/1001", **low)
+    for name, frames, opts in (
+            ("umv", objects, dict(umv=1)),
+            ("aiv", objects, dict(aiv=1, b=120000)),
+            ("loop", objects, dict(flags="+loop", b=100000)),
+            ("obmc", objects, dict(obmc=1, flags="+mv4")),
+            ("aic", objects, dict(flags="+aic")),
+            ("umv_aiv", objects, dict(umv=1, aiv=1)),
+            ("aic_loop_ss_obmc", objects, dict(flags="+aic+loop",
+                                               structured_slices=1, obmc=1)),
+            ("slices_352x288", cif, dict(structured_slices=1, ps=400)),
+            ("aic_352x288", cif, dict(flags="+aic", b=300000)),
+            ("all_352x288", cif, dict(structured_slices=1, ps=400, umv=1,
+                                      aiv=1, obmc=1, flags="+aic+loop+mv4",
+                                      b=400000))):
+        size = "" if "x" in name else "_176x144"
+        h263_avi(out(f"h263_plus_{name}{size}.avi"), [frames[:10]],
+                 codec="h263p", **{**low, **opts})
+    h263_avi(out("h263_plus_100x60.avi"), [moving_clip(60, 100, 14, seed=24)],
+             codec="h263p", umv=1, flags="+aic+loop", b=100000)
+    h263_avi(out("h263_plus_320x240.avi"), [moving_clip(240, 320, 8,
+                                                         seed=25)],
+             codec="h263p", flags="+aic", b=300000)
+    h263_avi(out("h263_plus_resize.avi"),
+             [objects[:7], [cv2_resize(f, 128, 96) for f in objects[7:]]],
+             codec="h263p", flags="+aic+loop", **low)
+    # Annex I's AC prediction and Annex T's DQUANT: I-pictures alone
+    # (adaptive quantisation), INTRA_MODE and DQUANT rewritten
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime.h263 import is_intra
+    mux = AviWriter(out("h263_plus_aic_intra_176x144.avi"), (176, 144),
+                    (25, 1), fourcc="H263")
+    for data, _, _ in Lavc().encode([bgr_i420(f) for f in objects[:6]],
+                                    codec="h263p", flags="+aic", g=1,
+                                    scplx_mask=0.5, lumi_mask=0.3, b=400000):
+        mux.write(rewrite_aic_intra(data, 99), True)
+    mux.release()
+    # containers
+    with open(out("h263_plus_176x144.h263"), "wb") as f:
+        f.write(b"".join(plain))
+    _webm(out("h263_plus_176x144.mkv"), [(p, is_intra(p)) for p in plain],
+          176, 144, codec=b"V_MS/VFW/FOURCC", private=_bih(176, 144, b"H263"),
+          doctype=b"matroska")
+    s263_3gp(out("h263_plus_176x144.3gp"), plain, 176, 144)
+    # the Sintel pair for the card (13 pictures, the pair alternating)
+    im1, im2 = sintel_pair()
+    h263_avi(out("h263_plus_sintel_436x1024.avi"),
+             [[im1 if i % 2 == 0 else im2 for i in range(13)]],
+             codec="h263p", umv=1, flags="+aic+loop", b=300000, qmin=8)
+
+
 # -------------------------------------- transport, elementary streams, FFV1
 
 def _crc32_mpeg(data: bytes) -> int:
@@ -1676,14 +1929,18 @@ def psi_section(table_id: int, ext: int, body: bytes) -> bytes:
 
 
 def ts_mux(path: str, packets: list, stream_type: int = 2, fps: int = 25,
-           split=(), gaps=(), bounded: bool = False) -> None:
+           split=(), gaps=(), bounded: bool = False, m2ts: bool = False,
+           pts_only: bool = False) -> None:
     """(packet, pts, dts) in frames → an MPEG transport stream (PAT, a PMT
     on PID 0x1000, the video on PID 0x100, stuffing in adaptation fields):
     the pictures whose index is in ``split`` go in two PES packets, the
     second without timestamps and starting in the middle of the picture;
     the video packets whose number is in ``gaps`` jump their continuity
     counter by 3 (their bytes kept); ``bounded`` writes each PES packet's
-    length (else 0, unbounded, as FFmpeg's muxer writes video)."""
+    length (else 0, unbounded, as FFmpeg's muxer writes video); ``m2ts``
+    puts a 4-byte arrival timestamp before each packet (192-byte packets);
+    ``pts_only`` stamps every picture with its PTS alone (DTS = PTS, as
+    some muxers and broadcast captures write it)."""
     tick = 90000 // fps
     cc: dict = {}
     out = bytearray()
@@ -1697,6 +1954,8 @@ def ts_mux(path: str, packets: list, stream_type: int = 2, fps: int = 25,
             room = 183 - len(payload)
             hdr += bytes((room,)) + (b"\x00" + b"\xff" * (room - 1)
                                      if room else b"")
+        if m2ts:
+            out.extend(struct.pack(">I", (len(out) // 192 * 1200) & 0x3FFFFFFF))
         out.extend(hdr + payload)
 
     pat = psi_section(0, 1, struct.pack(">HH", 1, 0xF000))
@@ -1708,6 +1967,7 @@ def ts_mux(path: str, packets: list, stream_type: int = 2, fps: int = 25,
     count = 0
     for k, (data, pts, dts) in enumerate(packets):
         p, d = 126000 + pts * tick, 126000 + dts * tick
+        d = p if pts_only else d
         parts = ([data[:len(data) // 2], data[len(data) // 2:]]
                  if k in split else [data])
         for j, part in enumerate(parts):
@@ -1830,6 +2090,43 @@ def stream_fixtures() -> None:
               private=ext, doctype=b"matroska")
 
 
+def pts_only_fixtures() -> None:
+    """Transport streams whose PES headers carry a PTS alone (DTS = PTS,
+    as some muxers and broadcast captures write them) over B-pictures:
+    MPEG-2 in 188- and 192-byte packets, MPEG-1 under stream type 0x01;
+    and the same MPEG-2 pictures in a program stream."""
+    lavc = Lavc()
+    planes = [bgr_i420(f) for f in moving_clip(144, 176, 30, seed=31)]
+    mpeg2 = lavc.encode(planes)
+    ts_mux(os.path.join(OUT, "mpeg2_pts_only_176x144.ts"), mpeg2,
+           pts_only=True)
+    ts_mux(os.path.join(OUT, "mpeg2_pts_only_176x144.m2ts"), mpeg2,
+           pts_only=True, m2ts=True)
+    ts_mux(os.path.join(OUT, "mpeg1_pts_only_176x144.ts"),
+           lavc.encode(planes, codec="mpeg1video", bf=2), stream_type=1,
+           pts_only=True)
+    ps_mux(os.path.join(OUT, "mpeg2_pts_only_176x144.mpg"),
+           [(d, p, p) for d, p, _ in mpeg2])
+
+
+PNG16 = ("png16_rgb_53x37_%d.png", "png16_rgba_53x37_%d.png",
+         "png16_triples_256x256_%d.png")
+
+
+def png16_fixtures() -> None:
+    """16-bit colour PNG sequences as ``cv2.imwrite`` writes them: RGB and
+    RGBA at 53x37 (two frames each), and one 256x256 RGB picture of
+    65,536 random triples (swscale's conversion is pixel-local, so the
+    sheet pins it triple by triple)."""
+    import cv2
+    rng = np.random.default_rng(20)
+    for pattern, shape, n in zip(PNG16, ((37, 53, 3), (37, 53, 4),
+                                         (256, 256, 3)), (2, 2, 1)):
+        for i in range(n):
+            cv2.imwrite(os.path.join(OUT, pattern % i),
+                        rng.integers(0, 65536, shape, dtype=np.uint16))
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -1838,18 +2135,42 @@ def sintel_pair() -> list:
 
 
 def main() -> None:
-    import cv2
     os.makedirs(OUT, exist_ok=True)
-    if sys.argv[1:] == ["--new"]:
-        stream_fixtures()
+    if sys.argv[1:2] == ["--new"]:
+        # only the named fixture functions' files (stream_fixtures if none)
+        for name in sys.argv[2:] or ["stream_fixtures"]:
+            run_group(globals()[name])
         write_manifest(keep=True)
         return
     if sys.argv[1:] != ["--manifest"]:
-        write_files()
+        for fn in GROUPS:
+            run_group(fn)
     write_manifest()
 
 
-def write_files() -> None:
+WRITTEN: dict = {}      # file (a PNG sequence's pattern) -> its group
+
+
+def run_group(fn) -> None:
+    """Run one fixture function and record it as the writer of every file
+    it wrote: each manifest entry's ``group`` is the function's name
+    without ``_fixtures``, which is how the card run's phases select their
+    fixtures."""
+    def stamps():
+        return {n: os.stat(os.path.join(OUT, n)).st_mtime_ns
+                for n in os.listdir(OUT)}
+    before = stamps()
+    fn()
+    for name, t in stamps().items():
+        if before.get(name) != t:
+            if name.startswith("png16_"):
+                name = name.rsplit("_", 1)[0] + "_%d.png"
+            WRITTEN[name] = fn.__name__.removesuffix("_fixtures")
+
+
+def mpeg4_fixtures() -> None:
+    """MPEG-4 Part 2 by cv2's writer (mp4v, XVID, FMP4), raw I420, and the
+    port's own encoder with the tools FFmpeg's writer leaves off."""
     moving = moving_clip(144, 176, 26)
     _cv2_write(os.path.join(OUT, "moving_176x144.mp4"), moving, "mp4v")
     _cv2_write(os.path.join(OUT, "moving_176x144_xvid.avi"), moving, "XVID")
@@ -1861,12 +2182,6 @@ def write_files() -> None:
     raw = os.path.join(OUT, "raw_i420.avi")
     _cv2_write(raw, moving_clip(48, 64, 4, seed=4), "I420")
     _fill_raw_frames(raw, 64, 48)
-    _cv2_write(os.path.join(OUT, "mjpg.avi"), moving_clip(24, 32, 2), "MJPG")
-    _cv2_write(os.path.join(OUT, "mjpg_176x144.mp4"),
-               moving_clip(144, 176, 3, seed=6), "MJPG")
-    mjpeg_avi(os.path.join(OUT, "mjpg_nodht_176x144.avi"),
-              [strip_dht(j) for j in _pil_jpegs(
-                  moving_clip(144, 176, 3, seed=7), quality=60)])
     _port_write(os.path.join(OUT, "tools_h263.mp4"), zero_planes(64, 96, 14),
                 packet_rows=2, mv4=True, rounding=1, dquant=1, qscale=2)
     iq = np.add.outer(np.arange(8), np.arange(8)) * 2 + 8
@@ -1876,9 +2191,26 @@ def write_files() -> None:
                 mpeg_quant=(iq, pq), packet_rows=1, mv4=True, qscale=4,
                 rounding=1)
 
+
+def mjpeg_fixtures() -> None:
+    """Motion JPEG: cv2's writer into .avi and .mp4, PIL's JPEGs without
+    their DHT in the port's AVI muxer."""
+    _cv2_write(os.path.join(OUT, "mjpg.avi"), moving_clip(24, 32, 2), "MJPG")
+    _cv2_write(os.path.join(OUT, "mjpg_176x144.mp4"),
+               moving_clip(144, 176, 3, seed=6), "MJPG")
+    mjpeg_avi(os.path.join(OUT, "mjpg_nodht_176x144.avi"),
+              [strip_dht(j) for j in _pil_jpegs(
+                  moving_clip(144, 176, 3, seed=7), quality=60)])
+
+
+def vp8_fixtures() -> None:
+    """VP8 in WebM, Matroska and AVI (patched sizes and versions, unknown
+    element sizes, no Cues, the Sintel pair), the other codecs cv2 writes
+    into Matroska, and MPEG-4 Part 2 patched to odd heights."""
     mp4 = os.path.join(OUT, "moving_176x144.mp4")
     patch_mpeg4_size(mp4, os.path.join(OUT, "mpeg4_176x143.mp4"), 176, 143)
     patch_mpeg4_size(mp4, os.path.join(OUT, "mpeg4_175x143.mp4"), 175, 143)
+    moving = moving_clip(144, 176, 26)
     webm = os.path.join(OUT, "vp8_176x144.webm")
     for ext in ("webm", "mkv", "avi"):
         _cv2_write(os.path.join(OUT, f"vp8_176x144.{ext}"), moving, "VP80")
@@ -1902,12 +2234,6 @@ def write_files() -> None:
                moving_clip(144, 176, 4, seed=6), "MJPG")
     _cv2_write(os.path.join(OUT, "mkv_i420_64x48.mkv"),
                moving_clip(48, 64, 4, seed=4), "I420")
-    set_vp8_clamping(webm, os.path.join(OUT, "vp8_clamping.webm"))
-    vp9_fixtures()
-    mpeg12_fixtures()
-    resize_fixtures()
-    h263_fixtures()
-    stream_fixtures()
 
 
 def _port_refuses(path: str):
@@ -1926,11 +2252,15 @@ def write_manifest(keep: bool = False) -> None:
     and adds the new files' alone."""
     import cv2
     manifest = {"opencv": cv2.__version__, "files": {}}
-    old = os.path.join(OUT, "manifest.json")
-    if keep and os.path.exists(old):
+    old, groups = os.path.join(OUT, "manifest.json"), {}
+    if os.path.exists(old):
         with open(old) as f:
-            manifest["files"] = json.load(f)["files"]
-    for name in sorted(os.listdir(OUT)):
+            files = json.load(f)["files"]
+        groups = {n: e["group"] for n, e in files.items()}
+        if keep:
+            manifest["files"] = files
+    names = [n for n in os.listdir(OUT) if not n.startswith("png16_")]
+    for name in sorted(names + list(PNG16)):
         if name == "manifest.json" or name in manifest["files"]:
             continue
         path = os.path.join(OUT, name)
@@ -1939,7 +2269,9 @@ def write_manifest(keep: bool = False) -> None:
             **cv2_info(path),
             "decoded": len(frames),
             "sha256": [frame_digest(f) for f in frames],
+            "group": WRITTEN.get(name, groups.get(name)),
         }
+        assert manifest["files"][name]["group"], f"{name}: no group wrote it"
         refused = _port_refuses(path) if name.startswith("ts_") else None
         if refused:
             manifest["files"][name]["port_refuses"] = refused
@@ -2000,6 +2332,13 @@ def write_manifest(keep: bool = False) -> None:
         f.write("\n")
     total = sum(os.path.getsize(os.path.join(OUT, n)) for n in os.listdir(OUT))
     print(f"wrote {len(manifest['files'])} files, {total} bytes, to {OUT}")
+
+
+# the fixture functions in the order they write (later ones read files
+# that earlier ones wrote)
+GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
+          mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
+          h263p_fixtures, pts_only_fixtures, png16_fixtures)
 
 
 if __name__ == "__main__":

@@ -173,7 +173,7 @@ def test_what_each_fixture_reaches_and_what_none_does():
     assert _MANIFEST["h263_unreached"] == [f for f in h263.FEATURES
                                            if f not in reached]
     assert set(_MANIFEST["h263_unreached"]) == {
-        "16cif", "escape_extended"}
+        "16cif", "escape_extended", "extended_par", "ufep_0"}
 
 
 def test_picture_header_helpers():
@@ -248,15 +248,25 @@ def test_crafted_ptype_raises_unsupported_naming_item_8(what, bit, match):
 
 @pytest.mark.parametrize("fmt", [6, 7])
 def test_plusptype_raises_unsupported_naming_item_8(fmt):
-    """Source format 7 announces PLUSPTYPE (H.263+), 6 is FFmpeg's too."""
+    """Source format 7 announces PLUSPTYPE (H.263+), 6 is FFmpeg's too: a
+    baseline picture's bits read as one are damaged (ValueError, no UFEP
+    before), an H.263+ picture decodes, and its OPPTYPE's arithmetic
+    coding bit (Annex E) raises Unsupported naming item 8."""
     packet = bytearray(_packets(AVI)[0])
     for k in range(3):
         packet = bytearray(_ptype_patched(bytes(packet), 6 + k,
                                           fmt >> (2 - k) & 1))
-    with pytest.raises(Unsupported, match="PLUSPTYPE.*item 8"):
+    with pytest.raises(ValueError):
         h263.Decoder("plus").decode(bytes(packet))
-    with pytest.raises(Unsupported, match="PLUSPTYPE.*item 8"):
-        h263.picture_size(bytes(packet))
+    plus = _packets(os.path.join(FIXTURES, "h263_plus_176x144.avi"))[0]
+    as_fmt = _ptype_patched(plus, 8, fmt & 1)
+    want = h263.Decoder("plus").decode(plus)
+    for a, b in zip(h263.Decoder(f"format {fmt}").decode(as_fmt), want):
+        np.testing.assert_array_equal(a, b)
+    assert h263.picture_size(as_fmt) == (176, 144)
+    sac = _ptype_patched(as_fmt, 17)     # after UFEP, the format, CPCF, UMV
+    with pytest.raises(Unsupported, match="Annex E.*item 8"):
+        h263.Decoder("sac").decode(sac)
 
 
 def test_a_p_picture_without_a_reference_raises_value_error():

@@ -285,6 +285,67 @@ def test_a_seek_search_builds_ffmpegs_index():
     assert box.seek(box.start_time - 1, {}) == box.pes[0].es
 
 
+# ------------------------------------ PES headers with a PTS alone
+
+PTS_ONLY = ("mpeg2_pts_only_176x144.ts", "mpeg2_pts_only_176x144.m2ts",
+            "mpeg1_pts_only_176x144.ts")
+
+
+@pytest.mark.parametrize("name", PTS_ONLY)
+def test_pts_only_headers_seek_where_cv2_does(name):
+    """B-pictures muxed with a PTS alone in each PES header (DTS = PTS):
+    FFmpeg's ``compute_pkt_fields`` takes an I- or P-picture's DTS away
+    (a decoding delay and DTS = PTS) and gives it the PTS of the last I- or
+    P-picture read since the search's flush, so ``ff_gen_search`` lands a
+    GOP late and seeks to 0-12 read frames 12 and 13 in cv2.  The port
+    reads cv2's frame at every seek; it read frames 0-12 before it
+    followed FFmpeg here."""
+    want = MANIFEST[name]["seeks"]
+    assert [want[str(t)] for t in range(13)] == [12] + [13] * 12
+    video = vio.EncodedVideo(_path(name))
+    assert {t: video.seek_target(int(t)) for t in want} == want
+
+
+@pytest.mark.parametrize("name", PTS_ONLY[:2])
+def test_pts_only_seeks_equal_live_cv2(name):
+    path = _path(name)
+    for i in (0, 5, 12, 14, 21):
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, i)
+        ok, want = cap.read()
+        cap.release()
+        assert ok
+        np.testing.assert_array_equal(vio.read_frame(path, i), want,
+                                      err_msg=f"{i}")
+
+
+def test_pts_only_read_timestamp_passes_over_the_first_picture():
+    """``mpegts_get_dts`` from the file's start: the I-picture's DTS is
+    taken away and no I- or P-picture came before it, so it is passed
+    over; the P-picture after it carries the I-picture's PTS.  With the
+    DTS written (the same pictures in ``mpeg2_split_gaps_176x144.ts``'s
+    muxing) the I-picture's own DTS is read."""
+    box = MpegTsFile(_path("mpeg2_pts_only_176x144.ts"))
+    assert box.delay and box.types[:2] == [1, 2]
+    index: dict = {}
+    pos, dts = box._read_ts(0, None, index)
+    assert (pos, dts) == (box._parsed[1][0], box.pts[0])
+    assert index == {box.pts[0]: pos}
+    real = MpegTsFile(_path("mpeg2_split_gaps_176x144.ts"))
+    assert real._read_ts(0, None, {}) == (real.pes[0].pos, real.dts[0])
+
+
+def test_pts_only_program_stream_stays_exact():
+    """The same pictures with a PTS alone in a program stream: FFmpeg's
+    PES index lands on each picture asked for (every seek exact, in cv2 and
+    the port)."""
+    name = "mpeg2_pts_only_176x144.mpg"
+    want = MANIFEST[name]["seeks"]
+    assert want == {str(t): t for t in range(30)}
+    video = vio.EncodedVideo(_path(name))
+    assert {t: video.seek_target(int(t)) for t in want} == want
+
+
 # ---------------------------------------------------- pictures and timing
 
 def test_mpeg4_split_and_vol_rate():
