@@ -284,7 +284,28 @@ non-zero, and no result line is printed):
      (d) host ms to open (demux) and decode a 436x1024 frame, MPEG-2 in
      .mpg, .ts and .m2v, FFV1 in .mkv; (e) no cv2, PIL or jax in
      ``sys.modules``;
- 24. one JSON line listing every kernel with its launches on its path,
+ 24. H.263+, 16-bit colour PNG sequences and PTS-only transport streams
+     (``phase_plus``): (a) those fixtures against cv2's digests, counts
+     and seeks, crafted headers of the annexes left out refused; (b) the
+     video CLI over the 436x1024 H.263+ AVI: K1 15; (c) 2 pseudo steps
+     over its first 9 frames: K1 and B1 5 a step; (d) host ms to decode
+     and convert; (e) no cv2, PIL or jax in ``sys.modules``;
+ 25. lossless intra video (host C++ ``runtime/huffyuv.cpp`` and
+     ``runtime/utvideo.cpp``, PNG, raw layouts and Motion JPEG in
+     QuickTime; ``phase_lossless``): (a) every fixture of the ``lossless``
+     group (HuffYUV, FFVHuff, Ut Video and PNG from cv2's writer in
+     .avi/.mkv/.mov, PNG in .mp4, MJPG in .mov, raw Y800/GREY/YV12/RGBA;
+     libavcodec's predictors, layouts, classic tables, interlaced lines,
+     per-frame tables, slices and BT.709; PNG's flavours; BI_RGB) decodes
+     to its manifest's cv2 digests, fps, size and count, every recorded
+     seek reads cv2's frame, and crafted headers of the layouts left out
+     raise naming item 8; (b) ``cli/extract_video --mode arrows --batch 4
+     --dtype bfloat16`` over the 2-frame 436x1024 HuffYUV AVI: K1 5; (c)
+     ``cli/train --regime pseudo`` for 2 steps over 9 frames of its
+     packets: K1 and B1 5 a step; (d) host ms to decode and to convert a
+     436x1024 frame, HuffYUV, Ut Video and PNG in AVI beside FFV1 of the
+     same pictures; (e) no cv2, PIL or jax in ``sys.modules``;
+ 26. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -298,9 +319,10 @@ loaded artifacts and the parity CLI (K1), each rank's paths of phase 14
 paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
 paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
-phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths and
-phase 23's transport stream and FFV1 paths (K1 in the video CLI's runs,
-K1 and B1 in the pseudo steps).
+phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
+phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths and
+phase 25's lossless paths (K1 in the video CLI's runs, K1 and B1 in the
+pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -5189,6 +5211,252 @@ def phase_plus(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# phase 25: lossless intra video
+LOSSLESS_CLIP = "hfyu_sintel_436x1024.avi"   # libavcodec's 4:2:2 median
+UT_CLIP = "ut_sintel_436x1024.avi"           # cv2's Ut Video writer (ULY0)
+LOSSLESS_FRAMES = 2      # the Sintel pair
+LOSSLESS_TRAIN_FRAMES = 9     # the pair's packets in turn: 2 pseudo steps
+
+
+class PngPackets:
+    """PNG-in-AVI packets decoded one at a time as ``EncodedVideo`` decodes
+    them (``host_decode``'s decoder interface)."""
+
+    def __init__(self, video):
+        self.video = video
+
+    def decode(self, packet: bytes):
+        return self.video._png(packet, self.video.path)
+
+
+def avi_repeat(src: str, dst: str, n: int) -> None:
+    """An AVI of ``n`` frames: ``src``'s packets in turn (the same fourcc,
+    extradata and bit count), every frame a keyframe, by the port's AVI
+    writer."""
+    from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
+    box = AviFile(src)
+    with open(src, "rb") as f:
+        packets = [box.sample(f, i) for i in range(box.frames)]
+    mux = AviWriter(dst, (box.width, box.height), (box.rate, box.scale),
+                    fourcc=box.tag, extradata=box.dsi, bpc=box.bpc)
+    for i in range(n):
+        mux.write(packets[i % len(packets)], True)
+    mux.release()
+
+
+def lossless_refusals() -> list:
+    """Crafted headers of the lossless layouts the port leaves out, each
+    of which must raise Unsupported naming ROADMAP Queue 1 item 8: FFVHuff
+    at 10 bits, HuffYUV's median predictor on RGB, Ut Video's 10-bit and
+    packed families and its interlaced flag, an APNG-style PNG packet and
+    24-bit BI_RGB.  Returns what each refusal named."""
+    import struct
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime import huffyuv, utvideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+    gbrp = vio.EncodedVideo(os.path.join(MP4_DIR,
+                                         "ffvh_gbrp_plane_53x37.avi")).box.dsi
+    rgb = vio.EncodedVideo(os.path.join(MP4_DIR,
+                                        "hfyu_rgb24_left_48x32.avi")).box.dsi
+    ut = vio.EncodedVideo(os.path.join(MP4_DIR,
+                                       "ut_uly2_left_48x32.avi")).box.dsi
+    flags = struct.unpack("<I", ut[12:16])[0]
+    cases = [
+        ("10-bit", lambda: huffyuv.Decoder(
+            53, 37, 24, gbrp[:1] + bytes([0x90]) + gbrp[2:])),
+        ("median predictor", lambda: huffyuv.Decoder(
+            48, 32, 24, bytes([2 | rgb[0] & 64]) + rgb[1:])),
+        ("10-bit Ut Video", lambda: utvideo.Decoder(48, 32, "UQY2", ut)),
+        ("packed Ut Video", lambda: utvideo.Decoder(48, 32, "UMY2", ut)),
+        ("interlaced", lambda: utvideo.Decoder(
+            48, 32, "ULY2", ut[:12] + struct.pack("<I", flags | 0x800)))]
+    png = vio.EncodedVideo(os.path.join(MP4_DIR, "png_96x64.avi"))
+    with open(png.path, "rb") as f:
+        first = png.box.sample(f, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        apng, dib = os.path.join(tmp, "apng.avi"), os.path.join(tmp, "dib.avi")
+        mux = AviWriter(apng, (96, 64), (25, 1), fourcc="MPNG")
+        mux.write(first, True)
+        mux.write(first[8:].replace(b"IDAT", b"fdAT"), True)
+        mux.release()
+        mux = AviWriter(dib, (48, 32), (25, 1), fourcc="\0\0\0\0", bpc=24)
+        mux.write(bytes(48 * 32 * 3), True)
+        mux.release()
+        cases += [("APNG", lambda: list(vio.read_frames(apng))),
+                  ("24-bit BI_RGB", lambda: list(vio.read_frames(dib)))]
+        named = []
+        for what, make in cases:
+            try:
+                make()
+            except Unsupported as e:
+                assert what in str(e) and ITEM_8 in str(e), (what, str(e))
+                named.append(what)
+                continue
+            raise AssertionError(f"{what} was read")
+    return named
+
+
+def phase_lossless(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """Lossless intra video through the port's entry points on the card
+    machine (host C++ ``runtime/huffyuv.cpp`` and ``runtime/utvideo.cpp``,
+    PNG, raw layouts and Motion JPEG in QuickTime behind the AVI, Matroska
+    and MP4 demuxers): (a) every fixture of the ``lossless`` group (cv2's
+    writer: HFYU, FFVH, ULY0 and MPNG in .avi/.mkv/.mov, MPNG in .mp4,
+    MJPG in .mov, Y800/GREY/YV12/RGBA; libavcodec's HuffYUV and FFVHuff
+    predictors, layouts, classic tables, interlaced lines and per-frame
+    tables, Ut Video's layouts, predictors, slices and BT.709, PNG's
+    flavours, BI_RGB) equals cv2's digests, fps, size and count, each
+    recorded seek reads cv2's frame, and crafted headers of the layouts
+    left out raise; (b) the video CLI over the 436x1024 HuffYUV AVI, K1 on
+    the card, bf16; (c) the pseudo regime over 9 frames of its packets (K1
+    and B1); (d) host ms to decode a 436x1024 frame of HuffYUV, Ut Video
+    and PNG in AVI beside FFV1 on the same pictures, and to convert each to
+    BGR; (e) no cv2, PIL or jax imported.  Returns its results, each
+    path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.io.images import encode_png
+    from opticalflow_tpu_torch.runtime import ffv1, huffyuv, utvideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr, yuv_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    new = fixtures_of(video_manifest(), "lossless")
+    checked = check_fixtures(new)
+    assert not checked["refused"] and not checked["seeks_none"], checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    features = {k: sorted({f for w in new.values()
+                           for f in w.get(f"{k}_features", [])})
+                for k in ("huffyuv", "utvideo")}
+    assert set(features["huffyuv"]) == set(huffyuv.FEATURES), features
+    assert set(features["utvideo"]) == set(utvideo.FEATURES), features
+    refused = lossless_refusals()
+    log(f"[25] (a) {len(new)} fixtures (HuffYUV, FFVHuff, Ut Video and PNG "
+        f"in .avi/.mkv/.mov, PNG in .mp4, Motion JPEG in .mov, raw "
+        f"Y800/GREY/YV12/RGBA/BI_RGB) decoded to cv2.VideoCapture's "
+        f"{n_frames} frame digests and its fps/size/count, {n_seeks} seeks "
+        f"to the frames cv2's read, in {time.perf_counter() - t0:.2f} s; "
+        f"crafted headers refused: {refused}; every HuffYUV and Ut Video "
+        f"feature reached; {card}")
+
+    # (b) the video CLI over the 436x1024 HuffYUV AVI
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, LOSSLESS_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_hfyu.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    LOSSLESS_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == 1 and launched == 5, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[25] (b) extract_video --mode arrows B={VIDEO_B} bf16, HuffYUV "
+        f"4:2:2 AVI ({LOSSLESS_FRAMES} frames {FULL_H}x{FULL_W}): "
+        f"{row['fps']!r} fps over the run ({row['run_s']!r} s, fill "
+        f"{row['fill_s']:.2f} s); decode thread busy {row['decode_ms']!r} ms "
+        f"a frame ({row['decode_share']:.1%}); {windows} window, K1 "
+        f"{launched} launches; {card}")
+
+    # (c) the pseudo regime over 9 frames of the pair's packets
+    train_avi = os.path.join(tmp, "hfyu_train.avi")
+    avi_repeat(clip, train_avi, LOSSLESS_TRAIN_FRAMES)
+    pair = list(vio.read_frames(clip))
+    assert all(np.array_equal(f, pair[i % 2]) for i, f in
+               enumerate(vio.read_frames(train_avi)))
+    out_dir = os.path.join(tmp, "hfyu_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", train_avi, "--pretrained",
+        ckpt, "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (LOSSLESS_TRAIN_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[25] (c) cli/train --regime pseudo over {LOSSLESS_TRAIN_FRAMES} "
+        f"frames of the HuffYUV pair ({FULL_H}x{FULL_W} -> 384x512), "
+        f"{steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: decode, then convert to
+    # BGR; HuffYUV 4:2:2, Ut Video 4:2:0 and PNG in AVI (the pair encoded
+    # by the port's PNG encoder) beside FFV1 of the same pictures
+    host = {}
+    png_avi = os.path.join(tmp, "png_pair.avi")
+    mux = AviWriter(png_avi, (FULL_W, FULL_H), (25, 1), fourcc="MPNG")
+    for f in pair:
+        mux.write(encode_png(np.ascontiguousarray(f[..., ::-1])), True)
+    mux.release()
+    assert all(np.array_equal(a, b) for a, b in
+               zip(vio.read_frames(png_avi), pair))
+    for codec, path in (("huffyuv", clip),
+                        ("utvideo", os.path.join(MP4_DIR, UT_CLIP)),
+                        ("ffv1", os.path.join(MP4_DIR, FFV1_CLIP)),
+                        ("png", png_avi)):
+        video = vio.EncodedVideo(path)
+        box = video.box
+        with open(path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(box.frames)]
+        make = {"huffyuv": lambda b=box: huffyuv.Decoder(
+                    FULL_W, FULL_H, b.bpc, b.dsi),
+                "utvideo": lambda b=box: utvideo.Decoder(
+                    FULL_W, FULL_H, b.tag, b.dsi),
+                "ffv1": lambda b=box: ffv1.Decoder(FULL_W, FULL_H, b.dsi),
+                "png": lambda v=video: PngPackets(v)}[codec]
+        ms, got = host_decode(make, samples)
+        if codec == "huffyuv":
+            convert = lambda p: yuv_to_bgr(*p, (1, 0))  # noqa: E731
+        elif codec in ("utvideo", "ffv1") and isinstance(got[0], tuple):
+            convert = lambda p: i420_to_bgr(*p)  # noqa: E731
+        else:
+            convert = None      # BGR already (PNG; FFV1's RGB: a copy)
+        conv_ms = 0.0
+        if convert is not None:
+            convert(got[0])
+            t0 = time.perf_counter()
+            for _ in range(HOST_TIMED):
+                for p in got:
+                    convert(p)
+            conv_ms = (time.perf_counter() - t0) / HOST_TIMED / len(got) * 1e3
+        host[codec] = {"decode_ms": ms, "convert_ms": conv_ms,
+                       "bytes_a_frame": sum(map(len, samples)) / len(samples),
+                       "frames": len(samples)}
+    log("[25] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (decode, convert to BGR): " + "; ".join(
+            f"{k} {v['decode_ms']!r} + {v['convert_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame)"
+            for k, v in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[25] (e) cv2, PIL, jax not imported; phase 25 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
+            "refused": refused, "features": features, "cli": row,
+            "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5402,6 +5670,16 @@ def main() -> int:
     assert plus_launches == correlation_cuda.launches > 0
     assert plus["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the lossless video paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        lossless = phase_lossless(sd, tmp, correlation_cuda,
+                                  correlation_bwd_cuda, card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    lossless_launches = lossless["launches"]["cli"] + \
+        lossless["launches"]["pseudo"]["correlation_fwd"]
+    assert lossless_launches == correlation_cuda.launches > 0
+    assert lossless["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -5470,7 +5748,10 @@ def main() -> int:
          "launches_streams": streams_launches, "streams": streams,
          # phase 24: the video CLI over the 436x1024 H.263+ AVI, and the
          # pseudo steps over its first 9 frames (5 a window, 5 a step)
-         "launches_plus": plus_launches, "plus": plus},
+         "launches_plus": plus_launches, "plus": plus,
+         # phase 25: the video CLI over the 436x1024 HuffYUV AVI, and the
+         # pseudo steps over 9 frames of its packets (5 a window, 5 a step)
+         "launches_lossless": lossless_launches, "lossless": lossless},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -5513,7 +5794,10 @@ def main() -> int:
          "launches_streams":
              streams["launches"]["pseudo"]["correlation_bwd"],
          # phase 24: the pseudo regime's steps over an H.263+ AVI
-         "launches_plus": plus["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_plus": plus["launches"]["pseudo"]["correlation_bwd"],
+         # phase 25: the pseudo regime's steps over a HuffYUV AVI
+         "launches_lossless":
+             lossless["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -5,8 +5,8 @@ Python (no FFmpeg).
 (``fccHandler``, ``biCompression`` and the extradata after the
 BITMAPINFOHEADER), the ``##dc``/``##db`` chunks of every ``movi`` list
 (``RIFF AVIX`` continuations included) and ``idx1`` with its keyframe
-flags.  It knows three kinds of payload, by ``biCompression`` as FFmpeg
-picks the codec:
+flags.  It knows these payloads, by ``biCompression`` as FFmpeg picks the
+codec:
 
   * MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``, ``DX50``, ``mp4v``,
     ``MP4V``): decoded by ``runtime/mpeg4``;
@@ -21,7 +21,17 @@ picks the codec:
     ``h263``, in any case): decoded by ``runtime/h263``, keyframes from
     ``idx1``;
   * FFV1 (``FFV1``): decoded by ``runtime/ffv1``, its extradata after the
-    BITMAPINFOHEADER, keyframes from ``idx1``.
+    BITMAPINFOHEADER, keyframes from ``idx1``;
+  * HuffYUV and FFVHuff (``HFYU``, ``FFVH``, in any case): decoded by
+    ``runtime/huffyuv`` from the extradata and ``biBitCount``; Ut Video
+    (``ULRG``, ``ULRA``, ``ULY0``, ``ULY2``, ``ULY4``, ``ULH0``, ``ULH2``,
+    ``ULH4``; ``UQ**`` and ``UM**`` raise there): ``runtime/utvideo``;
+    PNG (``MPNG``, ``PNG1``, ``png ``): one PNG file a chunk, decoded by
+    ``io/images.decode_png``;
+  * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
+    swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
+    FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
+    ``tag``).
 
 Anything else (``H264``, Matrox's intra-only ``M701``-``M705``,
 ``slif``, ...) raises ``Unsupported``, naming ROADMAP
@@ -46,12 +56,25 @@ from opticalflow_tpu_torch.runtime.h263 import is_intra as is_h263_intra
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
-__all__ = ["AviFile", "AviWriter", "H263_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
-           "MPEG12_TAGS", "RAW_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
+__all__ = ["AviFile", "AviWriter", "H263_TAGS", "HUFFYUV_TAGS", "MJPEG_TAGS",
+           "MPEG4_TAGS", "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
+           "UTVIDEO_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
-MJPEG_TAGS = {"MJPG", "mjpg"}
+MJPEG_TAGS = {"MJPG", "mjpg", "JPEG", "jpeg"}
 RAW_TAGS = {"I420", "IYUV"}
+# the other rawvideo layouts cv2's writer names (riff.c's tags, raw.c's
+# pixel formats): grey, I420 with V before U, and RGBA; and BI_RGB (tag 0;
+# 32 bits, BGR0, bottom-up where biHeight is positive; 24 bits refused)
+RAW_LAYOUTS = {"Y800": "gray", "GREY": "gray", "YV12": "yv12",
+               "RGBA": "rgba", "\0\0\0\0": "dib"}
+# riff.c's tags of huffyuv/ffvhuff, utvideo and png, matched without
+# regard to case (Ut Video's decoder takes its own tags in upper case)
+HUFFYUV_TAGS = {"HFYU", "FFVH"}
+UTVIDEO_TAGS = {"ULRA", "ULRG", "ULY0", "ULY2", "ULY4", "ULH0", "ULH2",
+                "ULH4", "UQY0", "UQY2", "UQY4", "UQRA", "UQRG", "UMY2",
+                "UMH2", "UMY4", "UMH4", "UMRA", "UMRG"}
+PNG_TAGS = {"MPNG", "PNG1", "PNG "}
 VP8_TAGS = {"VP80"}
 VP9_TAGS = {"VP90"}
 FFV1_TAGS = {"FFV1"}
@@ -66,7 +89,12 @@ H263_TAGS = {"H263", "X263", "T263", "L263", "VX1K", "M263", "LSVM", "U263",
              "VSM4"}
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
           "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
-          "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC"}
+          "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
+          "M8Y0": "MagicYUV", "M8RG": "MagicYUV", "MAGY": "MagicYUV",
+          "FLV1": "Sorenson H.263", "MP42": "MS-MPEG4 v2",
+          "DIV3": "MS-MPEG4 v3", "MP43": "MS-MPEG4 v3", "WMV1": "WMV7",
+          "WMV2": "WMV8", "ASV1": "ASUS V1", "ASV2": "ASUS V2",
+          "SNOW": "Snow", "drac": "Dirac"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
 
@@ -80,6 +108,8 @@ class AviFile:
         self.sizes: List[int] = []
         self.dsi = b""
         self.scale = self.rate = 0
+        self.bpc = 0    # biBitCount, FFmpeg's bits_per_coded_sample
+        self.bottom_up = False
         self.tag = ""
         self._stream: Optional[int] = None
         size = os.path.getsize(path)
@@ -151,10 +181,12 @@ class AviFile:
             elif fcc == b"strf" and video:
                 if len(body) < 40:
                     raise ValueError(f"{self.path}: truncated strf")
-                self.width, h, _, _, comp = struct.unpack("<iiHH4s",
-                                                          body[4:20])
+                self.width, h, _, self.bpc, comp = struct.unpack(
+                    "<iiHH4s", body[4:20])
                 self.height = abs(h)
                 self.tag = comp.decode("latin1")
+                # avidec flags BI_RGB bottom-up ("BottomUp" extradata)
+                self.bottom_up = self.tag == "\0\0\0\0" and h > 0
                 self.dsi = body[40:]
             pos += 8 + n + (n & 1)
         if video:
@@ -219,9 +251,9 @@ class AviFile:
 
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
-    ``mpeg4``, ``mjpeg``, ``i420``, ``vp8``, ``vp9``, ``mpeg12``, ``h263`` or
-    ``ffv1``;
-    anything else raises
+    ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
+    ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``ffv1``,
+    ``huffyuv``, ``utvideo`` or ``png``; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -239,10 +271,20 @@ def codec_of(tag: str, what: str) -> str:
         return "h263"
     if tag in FFV1_TAGS:
         return "ffv1"
+    if tag in RAW_LAYOUTS:
+        return "raw"
+    if tag.upper() in HUFFYUV_TAGS:
+        return "huffyuv"
+    if tag.upper() in UTVIDEO_TAGS:
+        return "utvideo"
+    if tag.upper() in PNG_TAGS:
+        return "png"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, FFV1, "
-                      f"Motion JPEG, raw I420, VP8 and VP9 only ({ITEM_8})")
+                      f"HuffYUV, FFVHuff, Ut Video, PNG, Motion JPEG, raw "
+                      f"I420, YV12, Y800 and RGBA, VP8 and VP9 only "
+                      f"({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:
@@ -253,14 +295,17 @@ def _is_ivop(head: bytes) -> bool:
 class AviWriter:
     """MPEG-4 Part 2 samples (with in-band VOL headers) → an AVI file
     under fourcc ``FMP4``, with an ``idx1`` index; or other samples under
-    ``fourcc`` (``MJPG``: one JPEG file a frame)."""
+    ``fourcc`` (``MJPG``: one JPEG file a frame), with ``extradata`` after
+    the BITMAPINFOHEADER and ``bpc`` as its ``biBitCount``."""
 
     def __init__(self, path: str, size: Tuple[int, int],
-                 rate: Tuple[int, int], fourcc: str = "FMP4"):
+                 rate: Tuple[int, int], fourcc: str = "FMP4",
+                 extradata: bytes = b"", bpc: int = 24):
         self.path = path
         self.w, self.h = size
         self.num, self.den = rate
         self.fourcc = fourcc.encode("latin1")
+        self.extradata, self.bpc = bytes(extradata), bpc
         self.index: List[Tuple[int, int, bool]] = []
         self._f: Optional[BinaryIO] = open(path, "wb")
         self._f.write(self._header(0, 0))
@@ -273,8 +318,9 @@ class AviWriter:
         strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", self.fourcc, 0,
                            0, 0, 0, self.den, self.num, 0, frames, maxsize,
                            0xFFFFFFFF, 0, 0, 0, self.w, self.h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, self.w, self.h, 1, 24,
-                           self.fourcc, self.w * self.h * 3, 0, 0, 0, 0)
+        strf = struct.pack("<IiiHH4sIiiII", 40 + len(self.extradata),
+                           self.w, self.h, 1, self.bpc, self.fourcc,
+                           self.w * self.h * 3, 0, 0, 0, 0) + self.extradata
         strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
         return b"RIFF\0\0\0\0AVI " + hdrl + b"LIST\0\0\0\0movi"

@@ -22,10 +22,13 @@ needed.  The codecs, by ``CodecID``:
     ``CodecPrivate``;
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
   * ``V_FFV1``: ``runtime/ffv1``, ``CodecPrivate`` as its extradata;
-  * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes;
+  * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
+    ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
-    ``io/avi``'s fourcc rules (H.263 under ``H263``, as ``cv2.VideoWriter``
-    writes it into ``.mkv``: ``runtime/h263``).
+    ``io/avi``'s fourcc rules (H.263 under ``H263``, HuffYUV, FFVHuff, Ut
+    Video and PNG under ``HFYU``, ``FFVH``, ``UL**`` and ``MPNG``, as
+    ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
+    ``bpc``.
 
 Other codecs (H.264, HEVC, AV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
@@ -51,7 +54,7 @@ import os
 import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
-from opticalflow_tpu_torch.io.avi import codec_of
+from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, codec_of
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["MkvFile", "MkvWriter", "av_reduce", "std_rate"]
@@ -228,6 +231,7 @@ class MkvFile:
         self.keyframes: List[int] = []
         self.dsi = b""
         self.tag = ""
+        self.bpc = 0
         self.codec = ""
         self.width = self.height = 0
         self.full_range = False
@@ -357,16 +361,21 @@ class MkvFile:
             self.codec, self.tag = "ffv1", "FFV1"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
-            if self.tag not in ("I420", "IYUV"):
+            if self.tag in ("I420", "IYUV"):
+                self.codec = "i420"
+            elif self.tag in RAW_LAYOUTS:
+                self.codec = "raw"
+            else:
                 raise Unsupported(f"{self.path}: uncompressed video with "
                                   f"FourCC {self.tag!r}: the port reads raw "
-                                  f"I420 only ({ITEM_8})")
-            self.codec = "i420"
+                                  f"I420, YV12, Y800, GREY and RGBA only "
+                                  f"({ITEM_8})")
         elif codec == "V_MS/VFW/FOURCC":
             if len(self.dsi) < 40:
                 raise ValueError(f"{self.path}: V_MS/VFW/FOURCC without a "
                                  "BITMAPINFOHEADER")
-            w, h, _, _, comp = struct.unpack("<iiHH4s", self.dsi[4:20])
+            w, h, _, self.bpc, comp = struct.unpack("<iiHH4s",
+                                                    self.dsi[4:20])
             self.tag = comp.decode("latin1")
             self.codec = codec_of(self.tag, self.path)
             self.width, self.height = self.width or w, self.height or abs(h)
@@ -376,7 +385,7 @@ class MkvFile:
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
                               f"Part 2, MPEG-1, MPEG-2, FFV1, Motion JPEG, "
-                              f"raw I420 "
+                              f"raw video "
                               f"and the AVI fourccs of V_MS/VFW/FOURCC "
                               f"(H.263, ...) in Matroska only ({ITEM_8})")
 

@@ -17,9 +17,14 @@ fourcc ``VP90`` into ``.mp4``) is read with its ``vpcC``; the ``s263``
 (with its ``d263``), ``h263`` and ``H263`` entries, H.263, what it writes for
 fourccs ``s263`` and ``H263`` into ``.3gp`` and ``.mov``; the ``FFV1``
 entry with its ``glbl`` box (the extradata), what it writes for fourcc
-``FFV1`` into ``.mp4`` and ``.mov``.  Other codecs'
-sample entries (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming
-ROADMAP Queue 1 item 8.
+``FFV1`` into ``.mp4`` and ``.mov``; in QuickTime the ``jpeg`` entry
+(Motion JPEG, what it writes for ``MJPG`` into ``.mov``), ``png `` (PNG,
+also ``mp4v`` with objectTypeIndication 0x6D in ``.mp4``), ``RGBA`` (raw),
+and the AVI fourccs FFmpeg's mov demuxer takes from riff.c: ``HFYU``,
+``FFVH`` and ``UL**`` with their ``glbl`` extradata and the entry's depth
+as ``bpc`` (HuffYUV, FFVHuff, Ut Video).  Other codecs' sample entries
+(``avc1``, ``hev1``, ...) raise ``Unsupported``, naming ROADMAP Queue 1
+item 8.
 
 :class:`Mp4Writer` writes what FFmpeg's mov muxer writes for ``mp4v``:
 ``ftyp``, ``mdat``, and at :meth:`~Mp4Writer.release` a ``moov`` with
@@ -34,6 +39,7 @@ import os
 import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
+from opticalflow_tpu_torch.io.avi import HUFFYUV_TAGS, UTVIDEO_TAGS
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
@@ -48,10 +54,15 @@ VIDEO_CODECS = {
 # the mov demuxer's sample entries of FFmpeg's h263 decoder
 H263_ENTRIES = ("s263", "h263", "H263")
 # esds objectTypeIndication → the codec it names
-# objectTypeIndication: MPEG-4 Visual, Motion JPEG, MPEG-1 Visual and the
-# MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
-_OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6A: "mpeg12",
+# objectTypeIndication: MPEG-4 Visual, Motion JPEG, PNG, MPEG-1 Visual and
+# the MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
+_OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6D: "png", 0x6A: "mpeg12",
                **{oti: "mpeg12" for oti in range(0x60, 0x66)}}
+# QuickTime sample entries of intra-only codecs: the entry → the codec
+# (the AVI fourccs the mov demuxer looks up in riff.c's table too)
+_INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
+                  **{t: "huffyuv" for t in HUFFYUV_TAGS},
+                  **{t: "utvideo" for t in UTVIDEO_TAGS}}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -124,8 +135,9 @@ def _esds(body: bytes, what: str) -> Tuple[str, bytes]:
     if codec is None:
         raise Unsupported(f"{what}: mp4v track of objectTypeIndication "
                           f"0x{oti:02x}: the port decodes MPEG-4 Part 2 "
-                          f"(0x20), MPEG-2 (0x60-0x65), MPEG-1 (0x6a) and "
-                          f"Motion JPEG (0x6c) only ({ITEM_8})")
+                          f"(0x20), MPEG-2 (0x60-0x65), MPEG-1 (0x6a), "
+                          f"Motion JPEG (0x6c) and PNG (0x6d) only "
+                          f"({ITEM_8})")
     p += 13
     if p < dend:
         tag, p, e = _descriptor(es, p)
@@ -270,17 +282,21 @@ class Mp4File:
         fourcc = fourcc.decode("latin1")
         entry = b[12:4 + size]
         self.tag = fourcc
-        if fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES:
+        if (fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES
+                and fourcc not in _INTRA_ENTRIES):
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
                               f"{fourcc!r}): the port decodes the mp4v "
-                              f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG), "
-                              f"vp09 (VP9), FFV1 and s263/h263 (H.263) only "
+                              f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG, "
+                              f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
+                              f"jpeg, png, RGBA, HFYU, FFVH and UL** only "
                               f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
+        self.bpc = struct.unpack(">H", entry[74:76])[0]
         self.codec = ("vp9" if fourcc == "vp09" else
                       "ffv1" if fourcc == "FFV1" else
-                      "h263" if fourcc in H263_ENTRIES else "mpeg4")
+                      "h263" if fourcc in H263_ENTRIES else
+                      _INTRA_ENTRIES.get(fourcc, "mpeg4"))
         self.dsi = b""
         pos = 78   # VisualSampleEntry fields
         while pos + 8 <= len(entry):
@@ -290,7 +306,7 @@ class Mp4File:
             if t == b"esds" and fourcc == "mp4v":
                 self.codec, self.dsi = _esds(entry[pos + 8:pos + n],
                                              self.path)
-            elif t == b"glbl" and fourcc == "FFV1":   # the extradata
+            elif t == b"glbl" and fourcc != "mp4v":   # the extradata
                 self.dsi = entry[pos + 8:pos + n]
             elif t == b"vpcC":
                 self._vpcc(entry[pos + 8:pos + n])

@@ -53,6 +53,24 @@ muxers and codecs and reads what those read, frame for frame:
     in MP4 and QuickTime: what ``cv2.VideoWriter`` writes for fourcc
     ``FFV1``), decoded by ``runtime/ffv1`` bit-exactly to FFmpeg, RGB handed
     over packed as swscale copies it;
+  * **lossless intra video** in AVI, Matroska (``V_MS/VFW/FOURCC``) and
+    QuickTime, what ``cv2.VideoWriter`` writes for these fourccs:
+    **HuffYUV** and **FFVHuff** (``HFYU``, ``FFVH``; ``runtime/huffyuv``:
+    4:2:2, 4:2:0, RGB24/RGB32 and version 3's 8-bit planar layouts, every
+    predictor, the classic and the extradata's tables), **Ut Video**
+    (``ULRG``, ``ULRA``, ``ULY0``/``ULY2``/``ULY4`` and the BT.709
+    ``ULH*``; ``runtime/utvideo``), **PNG** (``MPNG``, ``png ``, ``mp4v``
+    with objectTypeIndication 0x6D in MP4: one PNG a packet, converted as
+    an image sequence's PNG is), each bit-exact to FFmpeg and converted
+    as swscale converts the decoder's pixel format (``runtime/mpeg4``'s
+    ``yuv_to_bgr``: 4:2:2, 4:4:4, 4:1:1, 4:4:0, 4:1:0, BT.709); **Motion
+    JPEG** in QuickTime (the ``jpeg`` entry); **raw** ``Y800``/``GREY``
+    (rows 4-byte aligned where the packet allows, as FFmpeg's rawvideo
+    decoder reads them), ``YV12`` and ``RGBA`` in AVI and Matroska,
+    ``RGBA`` in QuickTime and 32-bit ``BI_RGB`` (bottom-up) in AVI.
+    MagicYUV, Sorenson H.263, MS-MPEG4, WMV7/8, ASUS V1/V2, Snow, Dirac,
+    Ut Video's 10-bit and packed families, FFVHuff above 8 bits, APNG-style
+    packets and 24-bit BI_RGB raise, naming item 8;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
@@ -86,7 +104,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
+from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, AviFile, AviWriter
 from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
@@ -102,16 +120,19 @@ from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
 from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
+from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
 from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
-                                                  rgb48_to_bgr, to_i420)
+                                                  rgb48_to_bgr, to_i420,
+                                                  yuv_to_bgr)
 from opticalflow_tpu_torch.runtime.mpeg12 import CHROMA_SITE as MPEG12_SITE
 from opticalflow_tpu_torch.runtime.mpeg12 import Decoder as Mpeg12Decoder
 from opticalflow_tpu_torch.runtime.mpeg12 import (display_order, output_order,
                                                   picture_info, sequence_info)
+from opticalflow_tpu_torch.runtime.utvideo import Decoder as UtvideoDecoder
 from opticalflow_tpu_torch.runtime.vp8 import Decoder as Vp8Decoder
 from opticalflow_tpu_torch.runtime.vp8 import frame_size as vp8_frame_size
 from opticalflow_tpu_torch.runtime.vp9 import MATRICES as VP9_MATRICES
@@ -125,8 +146,9 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "is_sequence", "ffmpeg_threads"]
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
-           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9, FFV1 or Motion JPEG; raw "
-           "I420 in .avi and .mkv), an MPEG program stream (.mpg, .mpeg, "
+           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9, FFV1, HuffYUV, FFVHuff, "
+           "Ut Video, PNG or Motion JPEG; raw I420, YV12, Y800 and RGBA in "
+           ".avi and .mkv), an MPEG program stream (.mpg, .mpeg, "
            ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
            "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
            ".h263, .263), a .y4m "
@@ -136,6 +158,7 @@ FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
 WRITES = (".mp4, .avi or .mkv (MPEG-4 Part 2), .y4m, or a directory of PNG "
           "frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
 # yuv4mpegdec's chroma location of each tag (none without a C tag)
 _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
@@ -565,18 +588,54 @@ class EncodedVideo:
         if self.box.codec == "ffv1":
             return Ffv1Decoder(self.width, self.height, self.box.dsi,
                                what=self.path)
+        if self.box.codec == "huffyuv":
+            return HuffyuvDecoder(self.width, self.height, self.box.bpc,
+                                  self.box.dsi, what=self.path)
+        if self.box.codec == "utvideo":
+            return UtvideoDecoder(self.width, self.height, self.box.tag,
+                                  self.box.dsi, what=self.path)
         return Decoder(self.box.dsi, what=self.path, tag=self.box.tag)
 
     def _raw(self, data: bytes):
+        """One raw frame as FFmpeg's rawvideo decoder lays it out: I420
+        (and YV12, V before U) as its three planes; grey (``Y800``,
+        ``GREY``) as its plane, its rows 4-byte aligned where the packet
+        holds that many (cv2 writes I420-sized packets under ``Y800``);
+        RGBA, and AVI's 32-bit ``BI_RGB`` (BGR0, bottom-up where the
+        height is positive), as packed BGR."""
         w, h = self.width, self.height
-        cw, ch = (w + 1) // 2, (h + 1) // 2
-        if len(data) < w * h + 2 * cw * ch:
-            raise ValueError(f"{self.path}: a raw I420 frame of {len(data)} "
-                             f"bytes, {w}x{h} needs {w * h + 2 * cw * ch}")
+        layout = ("i420" if self.box.codec == "i420"
+                  else RAW_LAYOUTS[self.box.tag])
         a = np.frombuffer(data, np.uint8)
-        return (a[:w * h].reshape(h, w),
-                a[w * h:w * h + cw * ch].reshape(ch, cw),
-                a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw))
+        if layout == "dib":
+            # BI_RGB at 32 bits (BGR0); OpenCV 5.0 aborts on the 24-bit kind
+            if self.box.bpc != 32:
+                raise Unsupported(f"{self.path}: {self.box.bpc}-bit BI_RGB "
+                                  f"video, not read by the port ({ITEM_8})")
+            need = 4 * w * h
+        elif layout == "gray":
+            line = -(-w // 4) * 4 if -(-w // 4) * 4 * h <= len(a) else w
+            need = w * h
+        elif layout == "rgba":
+            need = 4 * w * h
+        else:
+            cw, ch = (w + 1) // 2, (h + 1) // 2
+            need = w * h + 2 * cw * ch
+        if len(a) < need:
+            raise ValueError(f"{self.path}: a raw {self.box.tag} frame of "
+                             f"{len(a)} bytes, {w}x{h} needs {need}")
+        if layout in ("i420", "yv12"):
+            y = a[:w * h].reshape(h, w)
+            c1 = a[w * h:w * h + cw * ch].reshape(ch, cw)
+            c2 = a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
+            return (y, c1, c2) if layout == "i420" else (y, c2, c1)
+        if layout == "gray":
+            return (np.lib.stride_tricks.as_strided(a, (h, w), (line, 1)),)
+        if layout == "rgba":
+            return np.ascontiguousarray(a[:need].reshape(h, w, 4)[..., 2::-1])
+        rows = a[:need].reshape(h, w, 4)[..., :3]
+        return np.ascontiguousarray(
+            rows[::-1] if getattr(self.box, "bottom_up", False) else rows)
 
     def planes(self, start: int = 0) -> Iterator[Tuple[int, tuple]]:
         """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, H.263,
@@ -591,11 +650,16 @@ class EncodedVideo:
             return
         k = self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)]
         with open(self.path, "rb") as f:
-            if self.box.codec == "i420":
+            if self.box.codec in ("i420", "raw"):
                 for i in range(start, self.samples):
                     yield i, self._raw(self.box.sample(f, i))
                 return
             dec = self._decoder()
+            # how the frames convert: the chroma subsampling, an alpha
+            # plane, and Ut Video's matrix
+            self.shifts = getattr(dec, "shifts", (1, 1))
+            self.alpha = getattr(dec, "alpha", False)
+            self.matrix = getattr(dec, "matrix", self.matrix)
             ranges = [False] * self.threads
             for i in range(k, self.samples):
                 sample = self.box.sample(f, i)
@@ -660,25 +724,50 @@ class EncodedVideo:
         picture of another size than the stream's (a VP9 frame that changed
         size, a VP8 key frame, an H.263 picture header) is scaled to it, as
         cv2 hands every frame to swscale at its stream's size."""
-        if self.box.codec != "mjpeg":
+        if self.box.codec not in ("mjpeg", "png"):
             size = (self.width, self.height)
+            self.shifts, self.alpha = (1, 1), False
             for i, p in self.planes(start):
-                if self.box.codec == "ffv1" and len(p) != 3:
-                    # FFV1's RGB comes packed (BGR0 → BGR24 is a copy in
-                    # swscale), its grey replicated
-                    yield i, (p if isinstance(p, np.ndarray) else
-                              np.repeat(p[0][..., None], 3, axis=2))
-                    continue
-                yield i, i420_to_bgr(*p, self.full_range, self.chroma,
-                                     self.matrix, size)
+                if isinstance(p, np.ndarray):
+                    # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
+                    # swscale)
+                    yield i, p
+                elif len(p) == 1:               # grey, replicated
+                    yield i, np.repeat(p[0][..., None], 3, axis=2)
+                elif self.shifts != (1, 1) or self.alpha:
+                    yield i, yuv_to_bgr(*p, self.shifts, self.full_range,
+                                        self.matrix, self.chroma, self.alpha)
+                else:
+                    yield i, i420_to_bgr(*p, self.full_range, self.chroma,
+                                         self.matrix, size)
             return
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
                              f"{self.samples}")
         with open(self.path, "rb") as f:
             for i in range(start, self.samples):
-                yield i, decode_jpeg_ffmpeg(self.box.sample(f, i),
-                                            f"{self.path} frame {i}")
+                what = f"{self.path} frame {i}"
+                data = self.box.sample(f, i)
+                yield i, (decode_jpeg_ffmpeg(data, what)
+                          if self.box.codec == "mjpeg" else
+                          self._png(data, what))
+
+    def _png(self, data: bytes, what: str) -> np.ndarray:
+        """One PNG packet (``MPNG``, ``png ``) → BGR, as FFmpeg's png
+        decoder and swscale hand it to cv2 (``_image_bgr``)."""
+        if not data.startswith(_PNG_MAGIC):
+            if b"fcTL" in data or b"fdAT" in data:
+                raise Unsupported(f"{what}: an APNG-style packet (frame "
+                                  f"control and data without a PNG "
+                                  f"signature), not read by the port "
+                                  f"({ITEM_8})")
+            raise ValueError(f"{what}: not a PNG picture")
+        frame = _image_bgr(data, what)
+        if frame.shape[:2] != (self.height, self.width):
+            raise Unsupported(f"{what}: a {frame.shape[1]}x{frame.shape[0]} "
+                              f"picture in a {self.width}x{self.height} "
+                              f"stream, not read by the port ({ITEM_8})")
+        return frame
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for _, frame in self._decoded():

@@ -1602,6 +1602,20 @@ void om4_yuv420_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                       ffdsp::yuv_coeffs(matrix, full != 0), bgr, hpos, vpos);
 }
 
+// Planes of any subsampling (Y w x h, U and V at ceil(w >> hshift) x
+// ceil(h >> vshift)) -> BGR24 at the same size, as swscale converts them;
+// through its scaler alone where ``scaler`` (a format its unscaled
+// yuv2rgb does not take, such as yuva422p)
+void om4_yuv_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w, int h,
+                    int ystride, int cstride, int hshift, int vshift, int full, int hpos,
+                    int vpos, int matrix, int scaler, uint8_t* bgr) {
+    const ffdsp::YuvCoeffs k = ffdsp::yuv_coeffs(matrix, full != 0);
+    if (scaler)
+        ffdsp::scale_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, w, h, hpos, vpos);
+    else
+        ffdsp::yuv_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, hpos, vpos);
+}
+
 // The same planes (sw x sh) -> BGR24 at dw x dh, scaled as swscale scales
 // them; 0, or -1 where swscale would take a path ffmpeg_dsp.h lacks
 int om4_yuv420_scale_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v,

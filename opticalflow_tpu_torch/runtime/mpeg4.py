@@ -29,7 +29,7 @@ import numpy as np
 from opticalflow_tpu_torch.runtime._native import build_and_load
 
 __all__ = ["Decoder", "Encoder", "Unsupported", "i420_to_bgr",
-           "rgb48_to_bgr", "to_i420",
+           "rgb48_to_bgr", "to_i420", "yuv_to_bgr",
            "ITEM_8", "load"]
 
 ITEM_8 = "ROADMAP Queue 1 item 8"
@@ -71,6 +71,8 @@ def load() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 10 + [_P]),
             "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
                                   + [_P]),
+            "om4_yuv_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 11
+                               + [_P]),
             "om4_rgb48_to_bgr": (None, [_P, ctypes.c_int, _I64, _P]),
             "om4_to_i420": (None, [_P, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P, _P, _P]),
@@ -202,6 +204,37 @@ def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         raise Unsupported(f"a {w}x{h} picture scaled to {dw}x{dh} through "
                           "swscale's two-tap luma path, not read by the port "
                           f"({ITEM_8})")
+    return out
+
+
+def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               shifts: Tuple[int, int], full_range: bool = False,
+               matrix: str = "bt601",
+               chroma: Optional[Tuple[int, int]] = None,
+               alpha: bool = False) -> np.ndarray:
+    """(H, W) Y and (⌈H >> vshift⌉, ⌈W >> hshift⌉) U, V uint8 planes, the
+    chroma subsampled by ``shifts`` (hshift, vshift: 4:4:4 (0, 0), 4:2:2
+    (1, 0), 4:2:0 (1, 1), 4:1:1 (2, 0), 4:4:0 (0, 1), 4:1:0 (2, 2)), →
+    (H, W, 3) BGR as swscale converts them for ``cv2.VideoCapture``: 4:2:0
+    and 4:2:2 at an even height through its x86 yuv2rgb, the rest through
+    its bicubic scaler (``ffmpeg_dsp.h``'s ``yuv_to_bgr``), with the matrix
+    and range the decoder reports and ``chroma``'s site as in
+    :func:`i420_to_bgr`.  ``alpha``: the planes come from a format with
+    an alpha plane (dropped), which swscale's unscaled yuv2rgb takes only at
+    4:2:0 (yuva422p goes through its scaler)."""
+    h, w = y.shape
+    hs, vs = shifts
+    ys, us, vs_ = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
+    want = (-(-h >> vs), -(-w >> hs))
+    if us.shape != want or vs_.shape != want:
+        raise ValueError(f"chroma planes {us.shape}, {vs_.shape} do not match "
+                         f"a {h}x{w} luma plane subsampled by {shifts}")
+    hpos, vpos = chroma or (-1, -1)
+    out = np.empty((h, w, 3), np.uint8)
+    load().om4_yuv_to_bgr(_ptr(ys), _ptr(us), _ptr(vs_), w, h, w, want[1],
+                          hs, vs, int(full_range), hpos, vpos,
+                          MATRICES.index(matrix),
+                          int(alpha and shifts != (1, 1)), _ptr(out))
     return out
 
 

@@ -1291,19 +1291,29 @@ class Lavc:
         ``ffv1`` encoder in pixel format ``pix`` (``bgr0``, ``gray``,
         ``yuv420p``, ``yuva420p``); ``opts`` are its options (``level``,
         ``coder``, ``slices``, ``context``, ``threads``, ``strict``)."""
+        return self.encode_intra(frames, "ffv1", pix, g=gop, **opts)
+
+    def encode_intra(self, frames: list, codec: str, pix: str,
+                     **opts) -> tuple:
+        """BGR frames → (extradata, [(packet, keyframe)]) from libavcodec's
+        encoder ``codec`` (``ffv1``, ``huffyuv``, ``ffvhuff``, ``utvideo``,
+        ...) in pixel format ``pix`` (``lavc_planes``' formats); ``opts``
+        are its options (``pred``, ``context``, ``slices``, ``flags``,
+        ...), set on the context before it opens."""
         c, a, u = self.ct, self.a, self.u
         u.av_get_pix_fmt.restype, u.av_get_pix_fmt.argtypes = c.c_int, [
             c.c_char_p]
         a.avcodec_parameters_alloc.restype = c.c_void_p
         a.avcodec_parameters_from_context.argtypes = [c.c_void_p, c.c_void_p]
         h, w = frames[0].shape[:2]
-        enc = a.avcodec_find_encoder_by_name(b"ffv1")
+        enc = a.avcodec_find_encoder_by_name(codec.encode())
+        assert enc, codec
         ctx = a.avcodec_alloc_context3(enc)
         for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", pix),
-                     ("time_base", "1/25"), ("g", str(gop)),
+                     ("time_base", "1/25"),
                      *((k, str(v)) for k, v in opts.items())):
             assert u.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
-        assert a.avcodec_open2(ctx, enc, None) >= 0, opts
+        assert a.avcodec_open2(ctx, enc, None) >= 0, (codec, pix, opts)
         par = a.avcodec_parameters_alloc()
         a.avcodec_parameters_from_context(par, ctx)
         ext = c.string_at(c.c_void_p.from_address(par + 16).value,
@@ -1324,29 +1334,152 @@ class Lavc:
 
         for n, f in enumerate(frames):
             assert u.av_frame_make_writable(frame) >= 0
-            if pix == "bgr0":
-                planes = [np.concatenate(
-                    [f, np.zeros(f.shape[:2] + (1,), np.uint8)], 2
-                ).reshape(h, w * 4)]
-            elif pix == "gray":
-                planes = [f[..., 1]]
-            else:
-                planes = list(bgr_i420(f))
-                if pix == "yuva420p":
-                    planes.append(f[..., 2])
             ptrs = (c.c_void_p * 8).from_address(frame)
             strides = (c.c_int * 8).from_address(frame + 64)
-            for k, pl in enumerate(planes):
+            for k, pl in enumerate(lavc_planes(f, pix)):
                 pl = np.ascontiguousarray(pl)
                 for r in range(pl.shape[0]):
                     c.memmove(ptrs[k] + r * strides[k], pl[r].ctypes.data,
-                              pl.shape[1])
+                              pl[r].nbytes)
             c.c_int64.from_address(frame + 136).value = n
             assert a.avcodec_send_frame(ctx, frame) >= 0
             drain()
         a.avcodec_send_frame(ctx, None)
         drain()
         return ext, out
+
+
+# the chroma subsampling (horizontal, vertical shift) of lavc_planes' YUV
+# formats
+YUV_SHIFTS = {"yuv444p": (0, 0), "yuv422p": (1, 0), "yuv420p": (1, 1),
+              "yuv411p": (2, 0), "yuv440p": (0, 1), "yuv410p": (2, 2),
+              "yuva444p": (0, 0), "yuva422p": (1, 0), "yuva420p": (1, 1)}
+
+
+def lavc_planes(f: np.ndarray, pix: str) -> list:
+    """A BGR frame as the planes of libavcodec pixel format ``pix``: packed
+    ``bgr0``/``bgra``/``rgb24``/``rgba`` (alpha from the red channel),
+    ``gray`` (the green channel), planar ``gbrp``/``gbrap``, and the
+    ``YUV_SHIFTS`` formats (cv2's BT.601 YUV, chroma taken at every
+    (1 << shift)-th sample; the alpha of ``yuva*`` from the red channel);
+    ``yuv420p``, ``yuva420p`` and any other format through ``bgr_i420``
+    (a 10-bit format fed 8-bit rows: its samples do not matter, its header
+    does)."""
+    import cv2
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    if pix in ("bgr0", "bgra"):
+        x = np.zeros_like(b) if pix == "bgr0" else r[:, ::-1]
+        return [np.stack([b, g, r, x], 2).reshape(f.shape[0], -1)]
+    if pix in ("rgb24", "rgba"):
+        chans = [r, g, b] + ([b[::-1]] if pix == "rgba" else [])
+        return [np.stack(chans, 2).reshape(f.shape[0], -1)]
+    if pix == "gray":
+        return [g]
+    if pix in ("gbrp", "gbrap"):
+        return [g, b, r] + ([r[:, ::-1]] if pix == "gbrap" else [])
+    hs, vs = YUV_SHIFTS.get(pix, (1, 1))
+    if (hs, vs) == (1, 1):
+        planes = list(bgr_i420(f))
+    else:
+        y, cr, cb = cv2.split(cv2.cvtColor(f, cv2.COLOR_BGR2YCrCb))
+        planes = [y, cb[::1 << vs, ::1 << hs], cr[::1 << vs, ::1 << hs]]
+    return planes + ([r] if pix.startswith("yuva") else [])
+
+
+def _cpp_bytes(name: str, source: str) -> list:
+    """The integers of ``const uint8_t name[...] = {...};`` in a runtime
+    source."""
+    import re
+    with open(os.path.join(os.path.dirname(HERE), "opticalflow_tpu_torch",
+                           "runtime", source)) as f:
+        body = re.search(name + r"\[\d+\] = \{(.*?)\};", f.read(), re.S)
+    return [int(v) for v in body.group(1).replace("\n", " ").split(",")
+            if v.strip()]
+
+
+def _classic_code(shift: list, add: list) -> list:
+    """(code, length) of each symbol of a HuffYUV 2.1.1 table: the lengths
+    run-length coded as read_len_table reads them, the codes as given."""
+    bits = "".join(f"{b:08b}" for b in shift)
+    lens, pos = [], 0
+    while len(lens) < 256:
+        rep, val = int(bits[pos:pos + 3], 2), int(bits[pos + 3:pos + 8], 2)
+        pos += 8
+        if rep == 0:
+            rep = int(bits[pos:pos + 8], 2)
+            pos += 8
+        lens += [val] * rep
+    return list(zip(add, lens))
+
+
+def huffyuv_classic(frames: list, kind: str) -> tuple:
+    """BGR frames → (biBitCount, packets) of HuffYUV 2.1.1 without
+    extradata, which FFmpeg decodes with its fixed tables (huffyuv.cpp's
+    kClassic*): ``kind`` ``"yuv422_left"`` (bit count 16), ``"rgb24_left"``
+    (26: left prediction, G, B-G, R-G) or ``"yuv422_plane"`` (19), each
+    symbol coded as decode_slice reads it back."""
+    luma = _classic_code(_cpp_bytes("kClassicShiftLuma", "huffyuv.cpp"),
+                         _cpp_bytes("kClassicAddLuma", "huffyuv.cpp"))
+    chroma = _classic_code(_cpp_bytes("kClassicShiftChroma", "huffyuv.cpp"),
+                           _cpp_bytes("kClassicAddChroma", "huffyuv.cpp"))
+    out = []
+    for f in frames:
+        h, w = f.shape[:2]
+        bits = []
+
+        def put(table, v):
+            code, n = table[v & 255]
+            bits.append(format(code, f"0{n}b"))
+
+        if kind.startswith("yuv422"):
+            y, cr, cb = (p.astype(int) for p in
+                         cv2_split_ycrcb(f))
+            u, v = cb[:, ::2], cr[:, ::2]
+            plane = kind.endswith("plane")
+            bits.append("".join(f"{x:08b}" for x in
+                                (v[0, 0], y[0, 1], u[0, 0], y[0, 0])))
+            ly, lu, lv = y[0, 1], u[0, 0], v[0, 0]
+            for r in range(h):
+                x0 = 2 if r == 0 else 0
+                ry, ru, rv = y[r].copy(), u[r].copy(), v[r].copy()
+                if plane and r > 0:   # the line above added after the left
+                    ry, ru, rv = ry - y[r - 1], ru - u[r - 1], rv - v[r - 1]
+                for x in range(x0, w, 2):
+                    c = x // 2
+                    put(luma, ry[x] - ly)
+                    ly = ry[x]
+                    put(chroma, ru[c] - lu)
+                    lu = ru[c]
+                    put(luma, ry[x + 1] - ly)
+                    ly = ry[x + 1]
+                    put(chroma, rv[c] - lv)
+                    lv = rv[c]
+        else:
+            bgr = f.astype(int)
+            last = bgr[h - 1, 0]
+            bits.append("".join(f"{x:08b}" for x in
+                                (last[2], last[1], last[0], 0)))
+            left = last.copy()
+            for r in range(h - 1, -1, -1):
+                for x in range(1 if r == h - 1 else 0, w):
+                    d = (bgr[r, x] - left) & 255
+                    left = bgr[r, x]
+                    put(luma, d[1])
+                    put(luma, d[0] - d[1])
+                    put(luma, d[2] - d[1])
+        stream = "".join(bits)
+        stream += "0" * (-len(stream) % 32)
+        words = int(stream, 2).to_bytes(len(stream) // 8, "big")
+        out.append(b"".join(words[i:i + 4][::-1]
+                            for i in range(0, len(words), 4)))
+    bpc = {"yuv422_left": 16, "yuv422_plane": 19, "rgb24_left": 26}[kind]
+    return bpc, out
+
+
+def cv2_split_ycrcb(f: np.ndarray) -> tuple:
+    """cv2's BT.601 Y, Cr, Cb planes of a BGR frame."""
+    import cv2
+    return cv2.split(cv2.cvtColor(f, cv2.COLOR_BGR2YCrCb))
 
 
 def _ts_bytes(prefix: int, t: int) -> bytes:
@@ -2004,6 +2137,21 @@ def _ffv1_features(path: str) -> tuple:
     return dec.features, None
 
 
+LOSSLESS = ("hfyu_", "ffvh_", "ut_", "png_", "raw_", "mjpg_96x64")
+
+
+def _lossless_features(path: str) -> list:
+    """The port's HuffYUV or Ut Video decoder's features over the file."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    with open(path, "rb") as f:
+        for i in range(v.samples):
+            dec.decode(v.box.sample(f, i))
+    return dec.features
+
+
 def stream_fixtures() -> None:
     """This slice's files: MPEG transport streams (cv2's writer in .ts,
     .m2ts and .mts; libavcodec's low-delay MPEG-2 of the Sintel pair,
@@ -2125,6 +2273,208 @@ def png16_fixtures() -> None:
         for i in range(n):
             cv2.imwrite(os.path.join(OUT, pattern % i),
                         rng.integers(0, 65536, shape, dtype=np.uint16))
+
+
+def lossless_avi(path: str, packets: list, w: int, h: int, fourcc: str,
+                 extradata: bytes = b"", bpc: int = 24) -> None:
+    """Intra packets → an AVI by the port's muxer: ``fourcc`` with
+    ``extradata`` after the BITMAPINFOHEADER and ``bpc`` as its
+    ``biBitCount``, every frame a keyframe."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    mux = AviWriter(path, (w, h), (25, 1), fourcc=fourcc,
+                    extradata=extradata, bpc=bpc)
+    for data in packets:
+        mux.write(data, True)
+    mux.release()
+
+
+def lossless_mkv(path: str, packets: list, w: int, h: int, fourcc: str,
+                 extradata: bytes = b"", bpc: int = 24) -> None:
+    """Intra packets → Matroska under ``V_MS/VFW/FOURCC``: a
+    BITMAPINFOHEADER with ``fourcc`` and ``bpc``, then ``extradata``, as
+    FFmpeg's matroska muxer writes AVI-only codecs."""
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, bpc,
+                      fourcc.encode("latin1"), w * h * 3, 0, 0, 0, 0)
+    _webm(path, [(p, True) for p in packets], w, h,
+          codec=b"V_MS/VFW/FOURCC", private=bih + extradata,
+          doctype=b"matroska")
+
+
+def with_frame_pred(packet: bytes, pred: int) -> bytes:
+    """A Ut Video packet with its frame information's predictor (bits 8-9
+    of the last 4 bytes) set to ``pred``: a packet coded with none (the
+    samples themselves) read as gradient (2) or median (3) residuals, which
+    FFmpeg's decoder restores as it restores any."""
+    info = struct.unpack("<I", packet[-4:])[0] & ~0x300 | pred << 8
+    return packet[:-4] + struct.pack("<I", info)
+
+
+HUFFYUV_BPC = {"yuv422p": 16, "yuv420p": 12, "rgb24": 24, "bgra": 32}
+UT_FOURCC = {"gbrp": "ULRG", "gbrap": "ULRA", "yuv420p": "ULY0",
+             "yuv422p": "ULY2", "yuv444p": "ULY4"}
+
+
+def png_flavour(f: np.ndarray, kind: str) -> bytes:
+    """A BGR frame as a PNG file of one flavour: cv2's ``rgb``, ``rgba``,
+    ``gray``, ``gray16``, ``rgb48`` and ``rgba64``; PIL's ``palette`` (64
+    colours), ``graya`` (grey and alpha), ``mono`` (1 bit) and ``gray4``
+    (a 16-colour palette at 4 bits)."""
+    import io
+    import cv2
+    from PIL import Image
+    a = np.concatenate([f, f[..., :1]], 2)
+    if kind in ("rgb", "rgba", "gray", "gray16", "rgb48", "rgba64"):
+        img = {"rgb": f, "rgba": a, "gray": f[..., 1],
+               "gray16": f[..., 1].astype(np.uint16) * 257 + 3,
+               "rgb48": f.astype(np.uint16) * 251,
+               "rgba64": a.astype(np.uint16) * 255}[kind]
+        return cv2.imencode(".png", img)[1].tobytes()
+    b = io.BytesIO()
+    if kind == "palette":
+        Image.fromarray(f[..., ::-1]).quantize(64).save(b, "PNG")
+    elif kind == "graya":
+        Image.fromarray(np.stack([f[..., 1], f[..., 2]], 2), "LA").save(
+            b, "PNG")
+    elif kind == "mono":
+        Image.fromarray(f[..., 1] > 128).save(b, "PNG")
+    else:
+        Image.fromarray(f[..., 1]).convert(
+            "P", palette=Image.ADAPTIVE, colors=16).save(b, "PNG", bits=4)
+    return b.getvalue()
+
+
+def lossless_fixtures() -> None:
+    """Lossless intra video as cv2 writes and reads it (HuffYUV, FFVHuff,
+    Ut Video and PNG in .avi, .mkv and .mov, PNG in .mp4, Motion JPEG in
+    .mov, raw Y800/GREY/YV12/RGBA), and from libavcodec's encoders
+    (``Lavc.encode_intra``) what cv2's writer leaves out: HuffYUV's
+    predictors over 4:2:2, RGB24 and RGB32, its classic tables
+    (``huffyuv_classic``) and interlaced lines; FFVHuff's 4:2:0
+    predictors, per-frame tables and version-3 layouts at odd sizes; Ut
+    Video's layouts, predictors (gradient by ``with_frame_pred``), slices,
+    BT.709 and one-symbol planes; PNG's flavours; 32-bit BI_RGB; and the
+    Sintel pair at 436x1024 (HuffYUV 4:2:2, cv2's Ut Video), which the
+    card run decodes."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 3, seed=21)
+    for fcc, stem in (("HFYU", "hfyu"), ("FFVH", "ffvh"), ("ULY0", "ut_uly0"),
+                      ("MPNG", "png")):
+        for ext in ("avi", "mkv", "mov") + (("mp4",) if fcc == "MPNG" else ()):
+            _cv2_write(out(f"{stem}_96x64.{ext}"), clip, fcc)
+    _cv2_write(out("mjpg_96x64.mov"), clip, "MJPG")
+    small = moving_clip(32, 48, 3, seed=22)
+    for fcc in ("Y800", "YV12", "RGBA"):
+        for ext in ("avi", "mkv") + (("mov",) if fcc == "RGBA" else ()):
+            _cv2_write(out(f"raw_{fcc.lower()}_48x32.{ext}"), small, fcc)
+    _cv2_write(out("raw_grey_48x32.avi"), small, "GREY")
+    # I420-sized packets: a 50-wide grey row is read 52 apart
+    _cv2_write(out("raw_y800_50x36.avi"), moving_clip(36, 50, 3, seed=23),
+               "Y800")
+    odd = moving_clip(37, 53, 3, seed=24)
+    lossless_avi(out("raw_bgr0_53x37.avi"), [
+        np.concatenate([f, np.zeros_like(f[..., :1])], 2)[::-1].tobytes()
+        for f in odd], 53, 37, "\0\0\0\0", bpc=32)
+    lavc = Lavc()
+    tiny = moving_clip(32, 48, 3, seed=25)
+    # HuffYUV: each predictor over 4:2:2, RGB24 and RGB32 (the median is
+    # refused on RGB by the encoder, as FFmpeg's decoder decodes none)
+    for pix, tag in (("yuv422p", "yuv422"), ("rgb24", "rgb24"),
+                     ("bgra", "rgb32")):
+        for pred in ("left", "plane", "median"):
+            if pred == "median" and pix != "yuv422p":
+                continue
+            ext, pk = lavc.encode_intra(tiny, "huffyuv", pix, pred=pred)
+            lossless_avi(out(f"hfyu_{tag}_{pred}_48x32.avi"),
+                         [p for p, _ in pk], 48, 32, "HFYU", ext,
+                         HUFFYUV_BPC[pix])
+    ext, pk = lavc.encode_intra(tiny, "huffyuv", "yuv422p", pred="median")
+    lossless_mkv(out("hfyu_yuv422_median_48x32.mkv"), [p for p, _ in pk],
+                 48, 32, "HFYU", ext, 16)
+    for kind in ("yuv422_left", "yuv422_plane", "rgb24_left"):
+        bpc, pk = huffyuv_classic(tiny, kind)
+        lossless_avi(out(f"hfyu_classic_{kind}_48x32.avi"), pk, 48, 32,
+                     "HFYU", bpc=bpc)
+    for codec, pix, pred in (("huffyuv", "yuv422p", "median"),
+                             ("huffyuv", "rgb24", "plane"),
+                             ("ffvhuff", "yuv420p", "median"),
+                             ("ffvhuff", "yuv444p", "plane")):
+        ext, pk = lavc.encode_intra(tiny, codec, pix, pred=pred,
+                                    flags="+ilme")
+        stem = "hfyu" if codec == "huffyuv" else "ffvh"
+        lossless_avi(out(f"{stem}_interlaced_{pix}_{pred}_48x32.avi"),
+                     [p for p, _ in pk], 48, 32, stem.upper(), ext,
+                     HUFFYUV_BPC.get(pix, 24))
+    # FFVHuff: 4:2:0's predictors, per-frame tables, version 3 at 8 bits
+    for pix, pred, opts, size in (
+            ("yuv420p", "plane", {}, (48, 32)),
+            ("yuv420p", "median", {}, (52, 37)),
+            ("yuv420p", "median", {"context": 1}, (48, 32)),
+            ("yuv422p", "left", {"context": 1}, (48, 32)),
+            ("gray", "median", {}, (53, 37)),
+            ("gbrp", "plane", {}, (53, 37)),
+            ("gbrap", "median", {}, (48, 32)),
+            ("yuv444p", "median", {}, (53, 37)),
+            ("yuv411p", "left", {}, (48, 32)),
+            ("yuv440p", "plane", {}, (48, 32)),
+            ("yuv410p", "median", {}, (48, 32)),
+            ("yuva444p", "left", {}, (48, 32)),
+            ("yuva422p", "median", {}, (48, 32)),
+            ("yuva420p", "plane", {}, (48, 32))):
+        w, h = size
+        frames = tiny if size == (48, 32) else moving_clip(h, w, 3, seed=26)
+        ext, pk = lavc.encode_intra(frames, "ffvhuff", pix, pred=pred,
+                                    **opts)
+        ctx = "_context" if opts else ""
+        lossless_avi(out(f"ffvh_{pix}_{pred}{ctx}_{w}x{h}.avi"),
+                     [p for p, _ in pk], w, h, "FFVH", ext,
+                     HUFFYUV_BPC.get(pix, 24))
+    # Ut Video: each layout and predictor, slices, BT.709, odd sizes, a
+    # grey picture's one-symbol planes, gradient read from a none packet
+    for pix in UT_FOURCC:
+        for pred in ("none", "left", "median"):
+            ext, pk = lavc.encode_intra(tiny, "utvideo", pix, pred=pred)
+            packets = [p for p, _ in pk]
+            fcc = UT_FOURCC[pix]
+            lossless_avi(out(f"ut_{fcc.lower()}_{pred}_48x32.avi"), packets,
+                         48, 32, fcc, ext)
+            if pred == "none":
+                lossless_avi(out(f"ut_{fcc.lower()}_gradient_48x32.avi"),
+                             [with_frame_pred(p, 2) for p in packets], 48,
+                             32, fcc, ext)
+    for pix, pred, slices, size, bt709 in (
+            ("yuv420p", "median", 5, (48, 32), True),
+            ("yuv422p", "left", 7, (52, 37), True),
+            ("yuv444p", "median", 4, (53, 37), True),
+            ("gbrap", "median", 3, (53, 37), False),
+            ("gbrp", "left", 4, (48, 32), False)):
+        w, h = size
+        frames = tiny if size == (48, 32) else moving_clip(h, w, 3, seed=27)
+        opts = {"colorspace": "bt709"} if bt709 else {}
+        ext, pk = lavc.encode_intra(frames, "utvideo", pix, pred=pred,
+                                    slices=slices, **opts)
+        fcc = UT_FOURCC[pix].replace("Y", "H") if bt709 else UT_FOURCC[pix]
+        lossless_avi(out(f"ut_{fcc.lower()}_{pred}_slices{slices}_{w}x{h}"
+                         ".avi"), [p for p, _ in pk], w, h, fcc, ext)
+        if pix == "yuv422p":
+            lossless_mkv(out(f"ut_{fcc.lower()}_{pred}_{w}x{h}.mkv"),
+                         [p for p, _ in pk], w, h, fcc, ext)
+    grey = [np.repeat(f[..., 1:2], 3, 2) for f in tiny]
+    ext, pk = lavc.encode_intra(grey, "utvideo", "gbrp", pred="median")
+    lossless_avi(out("ut_ulrg_grey_48x32.avi"), [p for p, _ in pk], 48, 32,
+                 "ULRG", ext)
+    # PNG's flavours, one PNG file a chunk
+    for kind in ("rgba", "gray", "gray16", "rgb48", "rgba64", "palette",
+                 "graya", "mono", "gray4"):
+        lossless_avi(out(f"png_{kind}_53x37.avi"),
+                     [png_flavour(f, kind) for f in odd], 53, 37, "MPNG")
+    # the Sintel pair at full width
+    pair = sintel_pair()
+    ext, pk = lavc.encode_intra(pair, "huffyuv", "yuv422p", pred="median")
+    lossless_avi(out("hfyu_sintel_436x1024.avi"), [p for p, _ in pk], 1024,
+                 436, "HFYU", ext, 16)
+    _cv2_write(out("ut_sintel_436x1024.avi"), pair, "ULY0")
 
 
 def sintel_pair() -> list:
@@ -2300,8 +2650,14 @@ def write_manifest(keep: bool = False) -> None:
             manifest["files"][name]["ffv1_features"] = feats
             if refused:
                 manifest["files"][name]["port_refuses"] = refused
-        if (name.startswith(("h263_", "ffv1_", "mpeg4_")) or "resize" in name
-                or name.endswith(".3gp")):
+        if name.startswith(("hfyu_", "ffvh_")):
+            manifest["files"][name]["huffyuv_features"] = \
+                _lossless_features(path)
+        if name.startswith("ut_"):
+            manifest["files"][name]["utvideo_features"] = \
+                _lossless_features(path)
+        if (name.startswith(("h263_", "ffv1_", "mpeg4_") + LOSSLESS)
+                or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import ffmpeg_threads
@@ -2321,6 +2677,14 @@ def write_manifest(keep: bool = False) -> None:
     reached = {f for e in manifest["files"].values()
                for f in e.get("ffv1_features", [])}
     manifest["ffv1_unreached"] = [f for f in FFV1 if f not in reached]
+    from opticalflow_tpu_torch.runtime.huffyuv import FEATURES as HYUV
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("huffyuv_features", [])}
+    manifest["huffyuv_unreached"] = [f for f in HYUV if f not in reached]
+    from opticalflow_tpu_torch.runtime.utvideo import FEATURES as UT
+    reached = {f for e in manifest["files"].values()
+               for f in e.get("utvideo_features", [])}
+    manifest["utvideo_unreached"] = [f for f in UT if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()
@@ -2338,7 +2702,8 @@ def write_manifest(keep: bool = False) -> None:
 # that earlier ones wrote)
 GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
-          h263p_fixtures, pts_only_fixtures, png16_fixtures)
+          h263p_fixtures, pts_only_fixtures, png16_fixtures,
+          lossless_fixtures)
 
 
 if __name__ == "__main__":

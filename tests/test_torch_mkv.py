@@ -290,7 +290,7 @@ def test_mpeg1_and_mpeg2_in_matroska_read():
 
 @pytest.mark.parametrize("what,match", [
     ("zlib", "zlib-compressed"), ("encrypted", "encrypted"),
-    ("laced", "laced video block"), ("raw", "FourCC 'YV12'")])
+    ("laced", "laced video block"), ("raw", "FourCC 'UYVY'")])
 def test_what_the_port_does_not_read_raises_naming_item_8(tmp_path, what,
                                                           match):
     el, u = mkv._el, mkv._uint_el
@@ -306,7 +306,7 @@ def test_what_the_port_does_not_read_raises_naming_item_8(tmp_path, what,
         kw["laced"] = True
     else:
         codec = b"V_UNCOMPRESSED"
-        kw["extra_video"] = el(mkv.COLOUR_SPACE, b"YV12")
+        kw["extra_video"] = el(mkv.COLOUR_SPACE, b"UYVY")
     path = str(tmp_path / "x.mkv")
     with open(path, "wb") as f:
         f.write(_build(codec, _webm_frames(2), **kw))
