@@ -305,7 +305,22 @@ non-zero, and no result line is printed):
      packets: K1 and B1 5 a step; (d) host ms to decode and to convert a
      436x1024 frame, HuffYUV, Ut Video and PNG in AVI beside FFV1 of the
      same pictures; (e) no cv2, PIL or jax in ``sys.modules``;
- 26. one JSON line listing every kernel with its launches on its path,
+ 26. MagicYUV, Sorenson H.263 and ASUS V1/V2 (host C++
+     ``runtime/magicyuv.cpp``, ``runtime/asv.cpp`` and ``runtime/h263.cpp``'s
+     Sorenson reading behind ``io/flv.py`` and the other demuxers;
+     ``phase_magy_flv_asv``): (a) every fixture of the ``magicyuv``,
+     ``sorenson`` and ``asv`` groups (cv2's writer: M8Y0, ASV1 and ASV2 in
+     .avi/.mkv/.mov, FLV1 in .flv/.avi/.mkv/.mov; libavcodec's layouts,
+     predictors, escapes and quantisers; rewritten headers) decodes to its
+     manifest's cv2 digests, fps, size and count, every recorded seek
+     reads cv2's frame, and crafted headers of what is left out raise
+     naming item 8; (b) ``cli/extract_video --mode arrows --batch 4
+     --dtype bfloat16`` over the 13-frame 436x1024 Sorenson ``.flv``: K1
+     15; (c) ``cli/train --regime pseudo`` for 3 steps over the same
+     ``.flv``: K1 and B1 5 a step; (d) host ms to decode and to convert a 436x1024 frame of
+     MagicYUV, Sorenson and ASV2 beside Ut Video and H.263+; (e) no cv2,
+     PIL or jax in ``sys.modules``;
+ 27. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -320,9 +335,9 @@ paths (K1, and B1 in the pseudo steps), phase 16's compare runs (K1) and
 phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
 paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
 phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
-phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths and
-phase 25's lossless paths (K1 in the video CLI's runs, K1 and B1 in the
-pseudo steps).
+phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
+phase 25's lossless paths and phase 26's MagicYUV, Sorenson and ASV paths
+(K1 in the video CLI's runs, K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3762,8 +3777,10 @@ def fixtures_of(manifest: dict, *groups: str) -> dict:
 def check_fixtures(fixtures: dict, seek_refused=()) -> dict:
     """Every fixture read through the port as cv2.VideoCapture reads it:
     its frames' digests, its fps/size/count, and each recorded seek's
-    frame, or a ValueError where cv2's seek reads nothing (Unsupported for
-    the files in ``seek_refused``: FFmpeg's generic index seek).  A fixture
+    frame (a frame the sequential read never shows by the manifest's
+    ``seek_sha256``), or a ValueError where cv2's seek reads nothing
+    (Unsupported for the files in ``seek_refused``: FFmpeg's generic index
+    seek).  A fixture
     the manifest records as refused raises Unsupported.  Returns the counts
     of frames, seeks and seeks reading nothing, and the refused names."""
     from opticalflow_tpu_torch.io import video as vio
@@ -3794,8 +3811,9 @@ def check_fixtures(fixtures: dict, seek_refused=()) -> dict:
                 except (Unsupported if name in seek_refused else ValueError):
                     continue
                 raise AssertionError(f"{name}: seek {t} read a frame")
-            assert pixel_digest(video.frame(int(t))) == \
-                want["sha256"][hit], (name, t)
+            digest = (want["seek_sha256"][t] if hit == -1 else
+                      want["sha256"][hit])
+            assert pixel_digest(video.frame(int(t))) == digest, (name, t)
     return {"frames": frames, "seeks": seeks, "seeks_none": none,
             "refused": refused}
 
@@ -5457,6 +5475,225 @@ def phase_lossless(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# phase 26: MagicYUV, Sorenson H.263 and ASUS V1/V2
+FLV_CLIP = "flv_sintel_436x1024.flv"     # libavcodec's flv, 13 frames
+# a disposable picture right after the first key frame, skipped in order
+FLV_SKIPPED = "flv_disposable_key_96x64.flv"
+MAGY_CLIP = "magy_sintel_436x1024.avi"   # cv2's MagicYUV writer (4:2:0)
+ASV_CLIP = "asv_sintel_436x1024.avi"     # cv2's ASV2 writer
+FLV_FRAMES = 13
+
+
+def magy_flv_refusals() -> list:
+    """Crafted headers of what this slice leaves out, each of which must
+    raise Unsupported naming ROADMAP Queue 1 item 8: MagicYUV at 10, 12
+    and 14 bits and interlaced, FLV video of another codec (H.264) or
+    with an enhanced-FLV header, an FLV whose metadata lacks its frame
+    rate or duration, and a seek in an FLV whose timestamps OpenCV numbers
+    otherwise than its frames.  Returns what each refusal named."""
+    import struct
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime import magicyuv
+    from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+    magy = vio.EncodedVideo(os.path.join(MP4_DIR,
+                                         "magy_yuv422p_left_48x32.avi"))
+    with open(magy.path, "rb") as f:
+        p = magy.box.sample(f, 0)
+    cases = [(what, lambda q=q: magicyuv.Decoder("crafted").decode(q))
+             for what, q in (("10-bit", p[:9] + b"\x6c" + p[10:]),
+                             ("12-bit", p[:9] + b"\x6f" + p[10:]),
+                             ("14-bit", p[:9] + b"\x71" + p[10:]),
+                             ("interlaced", p[:12] + bytes([p[12] | 2])
+                              + p[13:]))]
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, flags in (("H.264", 0x17), ("enhanced FLV", 0x90)):
+            path = os.path.join(tmp, f"{flags}.flv")
+            body = bytes([flags]) + bytes(8)
+            tag = bytes([9]) + len(body).to_bytes(3, "big") + bytes(7) + body
+            with open(path, "wb") as f:
+                f.write(b"FLV\x01\x01" + struct.pack(">I", 9) + bytes(4) + tag
+                        + struct.pack(">I", 11 + len(body)))
+            cases.append((what, lambda q=path: vio.EncodedVideo(q)))
+        src = os.path.join(MP4_DIR, "flv_96x64.flv")
+        with open(src, "rb") as f:
+            data = bytearray(f.read())
+        for key in (b"framerate", b"duration"):
+            path = os.path.join(tmp, f"no_{key.decode()}.flv")
+            with open(path, "wb") as f:
+                f.write(data.replace(key, key[:-1] + b"X"))
+            cases.append((key.decode(), lambda q=path: vio.EncodedVideo(q)))
+        # timestamps 80 ms apart at 25 fps: OpenCV numbers them 0, 2, 4...
+        for offset in vio.EncodedVideo(src).box.offsets:
+            ms = int.from_bytes(data[offset - 8:offset - 5], "big")
+            data[offset - 8:offset - 5] = (2 * ms).to_bytes(3, "big")
+        path = os.path.join(tmp, "numbered.flv")
+        with open(path, "wb") as f:
+            f.write(data)
+        cases.append(("numbers otherwise",
+                      lambda q=path: vio.EncodedVideo(q).frame(3)))
+        named = []
+        for what, make in cases:
+            try:
+                make()
+            except Unsupported as e:
+                assert what in str(e) and ITEM_8 in str(e), (what, str(e))
+                named.append(what)
+                continue
+            raise AssertionError(f"{what} was read")
+    return named
+
+
+def phase_magy_flv_asv(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """MagicYUV, Sorenson H.263 and ASUS V1/V2 through the port's entry
+    points on the card machine (host C++ ``runtime/magicyuv.cpp``,
+    ``runtime/asv.cpp`` and ``runtime/h263.cpp``'s Sorenson reading behind
+    the FLV, AVI, Matroska and MP4 demuxers): (a) every fixture of the
+    ``magicyuv``, ``sorenson`` and ``asv`` groups (cv2's writer: M8Y0,
+    ASV1 and ASV2 in .avi/.mkv/.mov, FLV1 in .flv/.avi/.mkv/.mov;
+    libavcodec's MagicYUV layouts, predictors and slices, Sorenson's
+    escapes and version 0, ASV's quantisers and partial macroblocks;
+    rewritten headers) equals cv2's digests, fps, size and count, each
+    recorded seek reads cv2's frame, and crafted headers of what is left
+    out raise; (b) the video
+    CLI over the 436x1024 Sorenson .flv, K1 on the card, bf16; (c) the
+    pseudo regime over the same .flv (K1 and B1); (d) host ms to decode
+    and to convert a 436x1024 frame of MagicYUV, Sorenson and ASV2, beside
+    Ut Video and H.263+; (e) no cv2, PIL or jax imported.  Returns its
+    results, each path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime import asv, h263, magicyuv, utvideo
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr, yuv_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    new = fixtures_of(video_manifest(), "magicyuv", "sorenson", "asv")
+    checked = check_fixtures(new)
+    assert not checked["refused"] and not checked["seeks_none"], checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    features = {k: sorted({f for w in new.values()
+                           for f in w.get(f"{k}_features", [])})
+                for k in ("magicyuv", "flv", "asv")}
+    assert set(features["magicyuv"]) == set(magicyuv.FEATURES), features
+    assert set(h263.SORENSON_FEATURES) <= set(features["flv"]), features
+    assert set(features["asv"]) == set(asv.FEATURES), features
+    # reading on in order past the disposable picture FFmpeg skips in a
+    # capture just opened: cv2's t-th read, with no seek between
+    want = new[FLV_SKIPPED]
+    video = vio.EncodedVideo(os.path.join(MP4_DIR, FLV_SKIPPED))
+    assert [pixel_digest(video.read(t)) for t in range(want["decoded"])
+            ] == want["sha256"], FLV_SKIPPED
+    refused = magy_flv_refusals()
+    log(f"[26] (a) {len(new)} fixtures (MagicYUV, ASV1 and ASV2 in "
+        f".avi/.mkv/.mov, Sorenson H.263 in .flv/.avi/.mkv/.mov) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count, {n_seeks} seeks to the frames cv2's read, "
+        f"{want['decoded']} reads in order past a skipped disposable "
+        f"picture in {time.perf_counter() - t0:.2f} s; crafted headers "
+        f"refused: {refused}; every MagicYUV, Sorenson and ASV feature "
+        f"reached; {card}")
+
+    # (b) the video CLI over the 436x1024 Sorenson .flv
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, FLV_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_flv.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    FLV_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(FLV_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows == 15, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[26] (b) extract_video --mode arrows B={VIDEO_B} bf16, Sorenson "
+        f".flv ({FLV_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+        f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); "
+        f"decode thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} windows, K1 {launched} "
+        f"launches; {card}")
+
+    # (c) the pseudo regime over the .flv (pairs read in any order: seeks)
+    out_dir = os.path.join(tmp, "flv_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", clip, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (FLV_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[26] (c) cli/train --regime pseudo over the Sorenson .flv "
+        f"({FLV_FRAMES} frames {FULL_H}x{FULL_W} -> 384x512), {steps} steps "
+        f"at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; K1/B1 "
+        f"launches {launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s "
+        f"wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: decode, then convert to
+    # BGR; MagicYUV 4:2:0, Sorenson and ASV2 beside Ut Video 4:2:0 and
+    # H.263+ of the same pair
+    host = {}
+    for codec, name in (("magicyuv", MAGY_CLIP), ("sorenson", FLV_CLIP),
+                        ("asv2", ASV_CLIP), ("utvideo", UT_CLIP),
+                        ("h263p", PLUS_CLIP)):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        box = video.box
+        with open(video.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(len(box.sizes))]
+        make = {"magicyuv": magicyuv.Decoder,
+                "sorenson": lambda: h263.Decoder(sorenson=True),
+                "asv2": lambda b=box: asv.Decoder(FULL_W, FULL_H, b.tag,
+                                                  b.dsi),
+                "utvideo": lambda b=box: utvideo.Decoder(FULL_W, FULL_H,
+                                                         b.tag, b.dsi),
+                "h263p": h263.Decoder}[codec]
+        ms, got = host_decode(make, samples)
+        conv = (lambda p: yuv_to_bgr(*p, (1, 1))) if codec == "magicyuv" \
+            else (lambda p: i420_to_bgr(*p))
+        conv(got[0])
+        t0 = time.perf_counter()
+        for _ in range(HOST_TIMED):
+            for p in got:
+                conv(p)
+        host[codec] = {
+            "decode_ms": ms,
+            "convert_ms": (time.perf_counter() - t0) / HOST_TIMED / len(got)
+            * 1e3,
+            "bytes_a_frame": sum(map(len, samples)) / len(samples),
+            "frames": len(samples)}
+    log("[26] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (decode, convert to BGR): " + "; ".join(
+            f"{k} {v['decode_ms']!r} + {v['convert_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame)"
+            for k, v in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[26] (e) cv2, PIL, jax not imported; phase 26 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
+            "refused": refused,
+            "features": features, "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5680,6 +5917,16 @@ def main() -> int:
     assert lossless_launches == correlation_cuda.launches > 0
     assert lossless["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()     # the MagicYUV / Sorenson / ASV paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        mfa = phase_magy_flv_asv(sd, tmp, correlation_cuda,
+                                 correlation_bwd_cuda, card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    magy_flv_asv_launches = mfa["launches"]["cli"] + \
+        mfa["launches"]["pseudo"]["correlation_fwd"]
+    assert magy_flv_asv_launches == correlation_cuda.launches > 0
+    assert mfa["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -5751,7 +5998,11 @@ def main() -> int:
          "launches_plus": plus_launches, "plus": plus,
          # phase 25: the video CLI over the 436x1024 HuffYUV AVI, and the
          # pseudo steps over 9 frames of its packets (5 a window, 5 a step)
-         "launches_lossless": lossless_launches, "lossless": lossless},
+         "launches_lossless": lossless_launches, "lossless": lossless,
+         # phase 26: the video CLI over the 436x1024 Sorenson .flv, and the
+         # pseudo steps over the same .flv (5 a window, 5 a step)
+         "launches_magy_flv_asv": magy_flv_asv_launches,
+         "magy_flv_asv": mfa},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -5797,7 +6048,10 @@ def main() -> int:
          "launches_plus": plus["launches"]["pseudo"]["correlation_bwd"],
          # phase 25: the pseudo regime's steps over a HuffYUV AVI
          "launches_lossless":
-             lossless["launches"]["pseudo"]["correlation_bwd"]},
+             lossless["launches"]["pseudo"]["correlation_bwd"],
+         # phase 26: the pseudo regime's steps over a Sorenson .flv
+         "launches_magy_flv_asv":
+             mfa["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

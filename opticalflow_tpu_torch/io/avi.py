@@ -28,6 +28,11 @@ codec:
     ``ULH4``; ``UQ**`` and ``UM**`` raise there): ``runtime/utvideo``;
     PNG (``MPNG``, ``PNG1``, ``png ``): one PNG file a chunk, decoded by
     ``io/images.decode_png``;
+  * MagicYUV (``M8Y0``, ``M8RG``, ``MAGY``, ...: riff.c's tags, in any
+    case): decoded by ``runtime/magicyuv``, its layout in each packet;
+    Sorenson H.263 (``FLV1``): ``runtime/h263``'s Sorenson reading,
+    keyframes from ``idx1``; ASUS V1/V2 (``ASV1``, ``ASV2``):
+    ``runtime/asv``, its quantiser in the extradata;
   * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
     swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
     FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
@@ -56,8 +61,9 @@ from opticalflow_tpu_torch.runtime.h263 import is_intra as is_h263_intra
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
-__all__ = ["AviFile", "AviWriter", "H263_TAGS", "HUFFYUV_TAGS", "MJPEG_TAGS",
-           "MPEG4_TAGS", "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
+__all__ = ["AviFile", "AviWriter", "ASV_TAGS", "FLV1_TAGS", "H263_TAGS",
+           "HUFFYUV_TAGS", "MAGICYUV_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
+           "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
            "UTVIDEO_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
 MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
@@ -75,6 +81,14 @@ UTVIDEO_TAGS = {"ULRA", "ULRG", "ULY0", "ULY2", "ULY4", "ULH0", "ULH2",
                 "ULH4", "UQY0", "UQY2", "UQY4", "UQRA", "UQRG", "UMY2",
                 "UMH2", "UMY4", "UMH4", "UMRA", "UMRG"}
 PNG_TAGS = {"MPNG", "PNG1", "PNG "}
+# riff.c's tags of magicyuv (its layout is in each packet: the M0**/M2**
+# tags name 10- and 12-bit layouts, which the decoder refuses), flv and
+# asv1/asv2, matched without regard to case
+MAGICYUV_TAGS = {"MAGY", "M8RG", "M8RA", "M8G0", "M8Y0", "M8Y2", "M8Y4",
+                 "M8YA", "M0RA", "M0RG", "M0G0", "M0Y0", "M0Y2", "M0Y4",
+                 "M2RA", "M2RG"}
+FLV1_TAGS = {"FLV1"}
+ASV_TAGS = {"ASV1", "ASV2"}
 VP8_TAGS = {"VP80"}
 VP9_TAGS = {"VP90"}
 FFV1_TAGS = {"FFV1"}
@@ -90,10 +104,8 @@ H263_TAGS = {"H263", "X263", "T263", "L263", "VX1K", "M263", "LSVM", "U263",
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
           "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
-          "M8Y0": "MagicYUV", "M8RG": "MagicYUV", "MAGY": "MagicYUV",
-          "FLV1": "Sorenson H.263", "MP42": "MS-MPEG4 v2",
-          "DIV3": "MS-MPEG4 v3", "MP43": "MS-MPEG4 v3", "WMV1": "WMV7",
-          "WMV2": "WMV8", "ASV1": "ASUS V1", "ASV2": "ASUS V2",
+          "MP42": "MS-MPEG4 v2", "DIV3": "MS-MPEG4 v3",
+          "MP43": "MS-MPEG4 v3", "WMV1": "WMV7", "WMV2": "WMV8",
           "SNOW": "Snow", "drac": "Dirac"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
@@ -212,9 +224,9 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs, H.263 I-pictures, FFV1 or VP8 key frames; all raw and
-        Motion JPEG frames are."""
-        if self.codec not in ("mpeg4", "vp8", "h263", "ffv1"):
+        MPEG-4 I-VOPs, H.263 or Sorenson I-pictures, FFV1 or VP8 key
+        frames; all raw, intra-only and Motion JPEG frames are."""
+        if self.codec not in ("mpeg4", "vp8", "h263", "flv1", "ffv1"):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -228,6 +240,8 @@ class AviFile:
                     head = f.read(min(self.sizes[i], 4096))
                     if (_is_ivop(head) if self.codec == "mpeg4" else
                             is_h263_intra(head) if self.codec == "h263" else
+                            is_h263_intra(head, sorenson=True)
+                            if self.codec == "flv1" else
                             ffv1_is_keyframe(head) if self.codec == "ffv1"
                             else is_keyframe(head)):
                         keys.append(i)
@@ -252,8 +266,9 @@ class AviFile:
 def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
-    ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``ffv1``,
-    ``huffyuv``, ``utvideo`` or ``png``; anything else raises
+    ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
+    ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv`` or ``png``;
+    anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -279,12 +294,18 @@ def codec_of(tag: str, what: str) -> str:
         return "utvideo"
     if tag.upper() in PNG_TAGS:
         return "png"
+    if tag.upper() in MAGICYUV_TAGS:
+        return "magicyuv"
+    if tag.upper() in FLV1_TAGS:
+        return "flv1"
+    if tag.upper() in ASV_TAGS:
+        return "asv"
     name = _NAMES.get(tag, f"the {tag!r} codec")
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
-                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, FFV1, "
-                      f"HuffYUV, FFVHuff, Ut Video, PNG, Motion JPEG, raw "
-                      f"I420, YV12, Y800 and RGBA, VP8 and VP9 only "
-                      f"({ITEM_8})")
+                      f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
+                      f"H.263, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
+                      f"ASUS V1/V2, PNG, Motion JPEG, raw I420, YV12, Y800 "
+                      f"and RGBA, VP8 and VP9 only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

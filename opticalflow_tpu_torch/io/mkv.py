@@ -25,9 +25,10 @@ needed.  The codecs, by ``CodecID``:
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
     ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
-    ``io/avi``'s fourcc rules (H.263 under ``H263``, HuffYUV, FFVHuff, Ut
-    Video and PNG under ``HFYU``, ``FFVH``, ``UL**`` and ``MPNG``, as
-    ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
+    ``io/avi``'s fourcc rules (H.263 under ``H263``, Sorenson H.263 under
+    ``FLV1``, HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2 and PNG
+    under ``HFYU``, ``FFVH``, ``UL**``, ``M8Y0``, ``ASV1``/``ASV2`` and
+    ``MPNG``, as ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
     ``bpc``.
 
 Other codecs (H.264, HEVC, AV1, ...), zlib-compressed

@@ -21,8 +21,10 @@ entry with its ``glbl`` box (the extradata), what it writes for fourcc
 (Motion JPEG, what it writes for ``MJPG`` into ``.mov``), ``png `` (PNG,
 also ``mp4v`` with objectTypeIndication 0x6D in ``.mp4``), ``RGBA`` (raw),
 and the AVI fourccs FFmpeg's mov demuxer takes from riff.c: ``HFYU``,
-``FFVH`` and ``UL**`` with their ``glbl`` extradata and the entry's depth
-as ``bpc`` (HuffYUV, FFVHuff, Ut Video).  Other codecs' sample entries
+``FFVH``, ``UL**``, ``M8**``, ``ASV1`` and ``ASV2`` with their ``glbl``
+extradata and the entry's depth as ``bpc`` (HuffYUV, FFVHuff, Ut Video,
+MagicYUV, ASUS V1/V2), and ``FLV1`` (Sorenson H.263, keyframes from
+``stss``).  Other codecs' sample entries
 (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming ROADMAP Queue 1
 item 8.
 
@@ -39,7 +41,8 @@ import os
 import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
-from opticalflow_tpu_torch.io.avi import HUFFYUV_TAGS, UTVIDEO_TAGS
+from opticalflow_tpu_torch.io.avi import (ASV_TAGS, FLV1_TAGS, HUFFYUV_TAGS,
+                                          MAGICYUV_TAGS, UTVIDEO_TAGS)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
@@ -62,7 +65,11 @@ _OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6D: "png", 0x6A: "mpeg12",
 # (the AVI fourccs the mov demuxer looks up in riff.c's table too)
 _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
                   **{t: "huffyuv" for t in HUFFYUV_TAGS},
-                  **{t: "utvideo" for t in UTVIDEO_TAGS}}
+                  **{t: "utvideo" for t in UTVIDEO_TAGS},
+                  **{t: "magicyuv" for t in MAGICYUV_TAGS},
+                  **{t: "asv" for t in ASV_TAGS}}
+# riff.c's tags the mov demuxer takes for inter codecs: Sorenson H.263
+_RIFF_ENTRIES = {t: "flv1" for t in FLV1_TAGS}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -283,19 +290,22 @@ class Mp4File:
         entry = b[12:4 + size]
         self.tag = fourcc
         if (fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES
-                and fourcc not in _INTRA_ENTRIES):
+                and fourcc not in _INTRA_ENTRIES
+                and fourcc.upper() not in _RIFF_ENTRIES):
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
                               f"{fourcc!r}): the port decodes the mp4v "
                               f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG, "
                               f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
-                              f"jpeg, png, RGBA, HFYU, FFVH and UL** only "
-                              f"({ITEM_8})")
+                              f"FLV1 (Sorenson H.263), jpeg, png, RGBA, HFYU, "
+                              f"FFVH, UL**, M8** (MagicYUV) and ASV1/ASV2 "
+                              f"only ({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.bpc = struct.unpack(">H", entry[74:76])[0]
         self.codec = ("vp9" if fourcc == "vp09" else
                       "ffv1" if fourcc == "FFV1" else
                       "h263" if fourcc in H263_ENTRIES else
+                      _RIFF_ENTRIES.get(fourcc.upper()) or
                       _INTRA_ENTRIES.get(fourcc, "mpeg4"))
         self.dsi = b""
         pos = 78   # VisualSampleEntry fields

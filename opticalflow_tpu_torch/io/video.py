@@ -1,6 +1,6 @@
 """Video frames in and out without OpenCV: ``.mp4``, ``.mov``, ``.3gp``,
-``.avi``, ``.mkv``, ``.webm``, ``.mpg``, ``.ts``, ``.m2v``, ``.h263``,
-``.y4m``, image sequences and frame directories.
+``.avi``, ``.mkv``, ``.webm``, ``.flv``, ``.mpg``, ``.ts``, ``.m2v``,
+``.h263``, ``.y4m``, image sequences and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -30,6 +30,15 @@ muxers and codecs and reads what those read, frame for frame:
     and clocks, Annexes D, F, I, J, K, S and T, as libavcodec's ``h263p``
     writes them), decoded by ``runtime/h263`` bit-exactly to FFmpeg;
     Annexes E, G, M, N, O, P, Q and R raise, naming item 8;
+  * **Sorenson H.263** (``FLV1``: Flash video's codec, what
+    ``cv2.VideoWriter`` writes for fourcc ``FLV1``) in **FLV** (``.flv``;
+    ``io/flv``, read, not written), AVI, Matroska (``V_MS/VFW/FOURCC``)
+    and QuickTime, decoded by ``runtime/h263``'s Sorenson reading
+    bit-exactly to FFmpeg (versions 0 and 1, disposable pictures, which
+    FFmpeg skips before its first reference picture in a capture just
+    opened and not after a seek); other FLV codecs raise, and so does a
+    seek in an FLV whose timestamps OpenCV numbers otherwise than its
+    frames, naming item 8;
   * a picture of another size than its stream's first (a VP9 frame that
     changed size, a VP8 key frame, an H.263 picture header) is scaled back
     to the first size through swscale's bicubic scaler, as
@@ -67,10 +76,14 @@ muxers and codecs and reads what those read, frame for frame:
     JPEG** in QuickTime (the ``jpeg`` entry); **raw** ``Y800``/``GREY``
     (rows 4-byte aligned where the packet allows, as FFmpeg's rawvideo
     decoder reads them), ``YV12`` and ``RGBA`` in AVI and Matroska,
-    ``RGBA`` in QuickTime and 32-bit ``BI_RGB`` (bottom-up) in AVI.
-    MagicYUV, Sorenson H.263, MS-MPEG4, WMV7/8, ASUS V1/V2, Snow, Dirac,
-    Ut Video's 10-bit and packed families, FFVHuff above 8 bits, APNG-style
-    packets and 24-bit BI_RGB raise, naming item 8;
+    ``RGBA`` in QuickTime and 32-bit ``BI_RGB`` (bottom-up) in AVI;
+    **MagicYUV** (``M8Y0``, ``M8RG``, ``MAGY``, ...; ``runtime/magicyuv``:
+    its 8-bit GBRP, GBRAP, 4:4:4, 4:2:2, 4:2:0, YUVA 4:4:4 and grey
+    layouts, every predictor, slices, the header's matrix and range) and
+    **ASUS V1/V2** (``ASV1``, ``ASV2``; ``runtime/asv``: intra DCT,
+    yuv420p).  MS-MPEG4, WMV7/8, Snow, Dirac, MagicYUV above 8 bits or
+    interlaced, Ut Video's 10-bit and packed families, FFVHuff above 8
+    bits, APNG-style packets and 24-bit BI_RGB raise, naming item 8;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
     as ``cv2.VideoCapture`` opens them: JPEG through the FFmpeg flavour,
@@ -105,6 +118,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, AviFile, AviWriter
+from opticalflow_tpu_torch.io.flv import EXTENSIONS as _FLV_EXTS
+from opticalflow_tpu_torch.io.flv import FlvFile
 from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
@@ -117,12 +132,15 @@ from opticalflow_tpu_torch.io.mpegps import MpegPsFile
 from opticalflow_tpu_torch.io.mpegts import EXTENSIONS as _TS_EXTS
 from opticalflow_tpu_torch.io.mpegts import MpegTsFile
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
+from opticalflow_tpu_torch.runtime.asv import Decoder as AsvDecoder
 from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
 from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
+from opticalflow_tpu_torch.runtime.magicyuv import Decoder as MagicyuvDecoder
+from opticalflow_tpu_torch.runtime.magicyuv import frame_size as magy_size
 from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
@@ -146,9 +164,10 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "is_sequence", "ffmpeg_threads"]
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
-           "Part 2, MPEG-1, MPEG-2, H.263, VP8, VP9, FFV1, HuffYUV, FFVHuff, "
-           "Ut Video, PNG or Motion JPEG; raw I420, YV12, Y800 and RGBA in "
-           ".avi and .mkv), an MPEG program stream (.mpg, .mpeg, "
+           "Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, VP8, VP9, FFV1, "
+           "HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG or Motion "
+           "JPEG; raw I420, YV12, Y800 and RGBA in .avi and .mkv), an .flv "
+           "file (Sorenson H.263), an MPEG program stream (.mpg, .mpeg, "
            ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
            "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
            ".h263, .263), a .y4m "
@@ -169,7 +188,7 @@ _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 _ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS
-_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es")
+_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
@@ -193,7 +212,7 @@ def _unsupported(path: str) -> ValueError:
     return ValueError(
         f"cannot read or write {path!r}: the port handles {FORMATS}; other "
         f"containers and codecs are {ITEM_8} (convert elsewhere, e.g. "
-        "`ffmpeg -i in.flv -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.flv "
+        "`ffmpeg -i in.wmv -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.wmv "
         "-pix_fmt yuv420p out.y4m`)")
 
 
@@ -225,6 +244,12 @@ def _kind(path: str, writing: bool = False) -> str:
                 raise ValueError(f"cannot write {path!r}: the port writes "
                                  f"{WRITES}, not {what}")
             return kind
+    if low.endswith(_FLV_EXTS):
+        if writing:
+            raise ValueError(
+                f"cannot write {path!r}: FLV holds Sorenson H.263, which the "
+                "port does not encode; write .mkv, .mp4 or .avi")
+        return "flv"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
             raise ValueError(
@@ -341,8 +366,9 @@ class Y4MFile:
 # --------------------------------------------------------------- mp4 / avi
 
 class EncodedVideo:
-    """The video track of an ``.mp4``, ``.avi``, ``.mkv`` or ``.webm``
-    file, an MPEG program or transport stream or an elementary stream: its
+    """The video track of an ``.mp4``, ``.avi``, ``.mkv``, ``.webm`` or
+    ``.flv`` file, an MPEG program or transport stream or an elementary
+    stream: its
     size, fps and frame count as
     ``cv2.VideoCapture`` reports them, and its frames (in display order:
     an MPEG-1/2 stream's pictures come out reordered, as FFmpeg hands them
@@ -362,7 +388,7 @@ class EncodedVideo:
         kind = _kind(path)
         self.box = box = {"mp4": Mp4File, "mkv": MkvFile, "mpg": MpegPsFile,
                           "ts": MpegTsFile, "es": ElementaryFile,
-                          "avi": AviFile}[kind](path)
+                          "avi": AviFile, "flv": FlvFile}[kind](path)
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
         # the samples decoding walks: all of them, as cv2.VideoCapture.read
@@ -391,12 +417,21 @@ class EncodedVideo:
             self.width, self.height = size
         elif box.codec == "mpeg12":
             self._mpeg12_layout()
-        elif box.codec == "h263":
+        elif box.codec in ("h263", "flv1"):
+            sorenson = box.codec == "flv1"
             with open(path, "rb") as f:
-                size = h263_size(box.sample(f, self.keyframes[0]))
+                size = h263_size(box.sample(f, self.keyframes[0]), sorenson)
             if size is None:
-                raise ValueError(f"{path}: the first H.263 keyframe has no "
-                                 "picture header")
+                raise ValueError(f"{path}: the first "
+                                 f"{'Sorenson ' if sorenson else ''}H.263 "
+                                 "keyframe has no picture header")
+            self.width, self.height = size
+        elif box.codec == "magicyuv":
+            with open(path, "rb") as f:
+                size = magy_size(box.sample(f, 0))
+            if size is None:
+                raise ValueError(f"{path}: the first MagicYUV packet has no "
+                                 "frame header")
             self.width, self.height = size
         elif box.codec == "mjpeg":
             with open(path, "rb") as f:
@@ -422,6 +457,7 @@ class EncodedVideo:
         self.full_range = box.codec != "vp8" and getattr(box, "full_range",
                                                          False)
         self.matrix = "bt601"
+        self.shifts, self.alpha = (1, 1), False     # 4:2:0, no alpha plane
         self.threads = ffmpeg_threads()
         self._gen = None
         self._next = 0      # a capture just opened reads frame 0 unsought
@@ -477,13 +513,21 @@ class EncodedVideo:
         over (one late, without B-pictures to reorder around), every seek
         from frame 2 on lands one frame early; in a program or transport
         stream the seek follows FFmpeg's search (:meth:`_pes_seek`); in an
-        elementary stream ``ElementaryFile.seek_target``'s rule.  Other
-        codecs and containers seek exactly.  ``capture`` is the index
+        elementary stream ``ElementaryFile.seek_target``'s rule; in an FLV
+        exactly where OpenCV numbers its frames by their indices
+        (``FlvFile.numbered``; after the seek FFmpeg's Sorenson decoder
+        skips no disposable picture, ``h263.Decoder(after_seek=True)``).
+        Other codecs and containers seek exactly.  ``capture`` is the index
         FFmpeg's transport stream demuxer keeps through one capture's seeks
         (:meth:`read` passes its own; None: a capture just opened)."""
         box = self.box
         if isinstance(box, ElementaryFile):
             return box.seek_target(index)
+        if isinstance(box, FlvFile) and not box.numbered:
+            raise Unsupported(
+                f"{self.path}: a seek to frame {index} in an FLV whose "
+                f"timestamps OpenCV numbers otherwise than the frames' "
+                f"indices; not reproduced by the port ({ITEM_8})")
         if isinstance(box, (MpegPsFile, MpegTsFile)):
             return self._pes_seek(min(index, self.frames),
                                   {} if capture is None else capture)
@@ -576,15 +620,22 @@ class EncodedVideo:
                 continue
             return pick(target - got)
 
-    def _decoder(self):
+    def _decoder(self, seeking: bool = False):
         if self.box.codec == "mpeg12":
             return Mpeg12Decoder(what=self.path, extradata=self.box.dsi)
         if self.box.codec == "vp8":
             return Vp8Decoder(what=self.path)
         if self.box.codec == "vp9":
             return Vp9Decoder(what=self.path)
-        if self.box.codec == "h263":
-            return H263Decoder(what=self.path)
+        if self.box.codec in ("h263", "flv1"):
+            return H263Decoder(what=self.path,
+                               sorenson=self.box.codec == "flv1",
+                               after_seek=seeking)
+        if self.box.codec == "magicyuv":
+            return MagicyuvDecoder(what=self.path)
+        if self.box.codec == "asv":
+            return AsvDecoder(self.width, self.height, self.box.tag,
+                              self.box.dsi, what=self.path)
         if self.box.codec == "ffv1":
             return Ffv1Decoder(self.width, self.height, self.box.dsi,
                                what=self.path)
@@ -637,11 +688,14 @@ class EncodedVideo:
         return np.ascontiguousarray(
             rows[::-1] if getattr(self.box, "bottom_up", False) else rows)
 
-    def planes(self, start: int = 0) -> Iterator[Tuple[int, tuple]]:
+    def planes(self, start: int = 0, seeking: bool = False
+               ) -> Iterator[Tuple[int, tuple]]:
         """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, H.263,
         VP8, VP9 or raw stream from frame ``start`` on; a sample that
         yields no picture (a not-coded VOP, a VP8 frame not shown) is
-        passed over, as ``cv2.VideoCapture.read`` passes over it."""
+        passed over, as ``cv2.VideoCapture.read`` passes over it.
+        ``seeking``: the decoder starts as FFmpeg's after OpenCV's seek
+        (a Sorenson stream's disposable pictures are then all shown)."""
         if not 0 <= start < self.samples:
             raise IndexError(f"frame {start} of {self.path}, which has "
                              f"{self.samples}")
@@ -654,12 +708,7 @@ class EncodedVideo:
                 for i in range(start, self.samples):
                     yield i, self._raw(self.box.sample(f, i))
                 return
-            dec = self._decoder()
-            # how the frames convert: the chroma subsampling, an alpha
-            # plane, and Ut Video's matrix
-            self.shifts = getattr(dec, "shifts", (1, 1))
-            self.alpha = getattr(dec, "alpha", False)
-            self.matrix = getattr(dec, "matrix", self.matrix)
+            dec = self._decoder(seeking)
             ranges = [False] * self.threads
             for i in range(k, self.samples):
                 sample = self.box.sample(f, i)
@@ -673,6 +722,11 @@ class EncodedVideo:
                             yield i, p
                     continue
                 p = dec.decode(sample)
+                # how the frame converts, where its decoder says: the chroma
+                # subsampling, an alpha plane, the matrix and the range
+                # (MagicYUV's packet header names all four)
+                for name in ("shifts", "alpha", "matrix", "full_range"):
+                    setattr(self, name, getattr(dec, name, getattr(self, name)))
                 if self.box.codec == "vp8":
                     # FFmpeg's frame threads each keep the clamping_type
                     # (full-range) bit of the last key frame they decoded
@@ -719,15 +773,15 @@ class EncodedVideo:
             raise ValueError(f"{self.path}: the decoder never handed over "
                              f"picture {k + left} of decode order")
 
-    def _decoded(self, start: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
+    def _decoded(self, start: int = 0, seeking: bool = False
+                 ) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, BGR frame) of each picture from frame ``start`` on.  A
         picture of another size than the stream's (a VP9 frame that changed
         size, a VP8 key frame, an H.263 picture header) is scaled to it, as
         cv2 hands every frame to swscale at its stream's size."""
         if self.box.codec not in ("mjpeg", "png"):
             size = (self.width, self.height)
-            self.shifts, self.alpha = (1, 1), False
-            for i, p in self.planes(start):
+            for i, p in self.planes(start, seeking):
                 if isinstance(p, np.ndarray):
                     # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
                     # swscale)
@@ -781,7 +835,7 @@ class EncodedVideo:
         if target is None:
             raise ValueError(f"{self.path}: a seek to frame {index} reads no "
                              "frame (OpenCV's VideoCapture reads none either)")
-        with closing(self._decoded(target)) as it:
+        with closing(self._decoded(target, seeking=True)) as it:
             for _, frame in it:
                 return frame
         raise ValueError(f"{self.path}: frame {index} did not decode")
@@ -801,15 +855,16 @@ class EncodedVideo:
             if target is None:
                 raise ValueError(f"{self.path}: a seek to frame {index} reads "
                                  "no frame (OpenCV's VideoCapture reads none either)")
-            self._gen = self._decoded(target)
+            self._gen = self._decoded(target, seeking=True)
         try:
-            i, frame = next(self._gen)
+            _, frame = next(self._gen)
         except StopIteration:
             self._gen = None
             raise ValueError(f"{self.path}: frame {index} did not decode")
-        # cv2 counts on from the index it was asked for, whatever frame a
-        # quirky MPEG-1/2 seek returned (seek_target)
-        self._next = (index if self.box.codec == "mpeg12" else i) + 1
+        # cv2 counts on from the index it was asked for, whatever packet
+        # the frame came from (a quirky MPEG-1/2 seek, a packet that showed
+        # no picture: a Sorenson disposable picture FFmpeg skipped)
+        self._next = index + 1
         return frame
 
     def close(self) -> None:

@@ -42,6 +42,17 @@
 //   * Annex T, modified quantisation: DQUANT through FFmpeg's table or a
 //     5-bit value, the chroma QP table, the extended coefficient range.
 //
+// Sorenson H.263 (FLV1: Flash video and what FFmpeg's flv encoder writes)
+// is read as FFmpeg's flvdec.c and its h263_flv branches read it: the
+// 17-bit start code with a 5-bit version (0: H.263's escape; 1: a bit that
+// selects a 7- or 11-bit level), an 8-bit TR, the 3-bit size code with
+// 8- or 16-bit custom sizes, the picture type (I, P, disposable P), the
+// ignored deblocking flag, a 5-bit quantiser, PEI, and no GOB headers.  A
+// disposable picture is shown and not kept as a reference; FFmpeg skips one
+// while it holds no last picture (right after a stream's first key frame),
+// and so does the port; after OpenCV's seek it holds the pictures of the
+// capture's first read, and skips none (h263_dec_after_seek).
+//
 // Syntax-based arithmetic coding (Annex E), PB-frames (Annexes G and M),
 // B- and EI/EP-pictures (Annex O), reference picture selection (Annex N),
 // reference picture resampling (Annex P), reduced-resolution update
@@ -77,6 +88,9 @@ enum Feature {
     F_UMV, F_UMV_LONG, F_UMV_STUFFING, F_AIC, F_AIC_VERTICAL, F_AIC_HORIZONTAL,
     F_LOOP_FILTER, F_SLICES, F_ALT_INTER_VLC, F_ALT_INTER_RETRY, F_MODIFIED_QUANT,
     F_DQUANT_ESCAPE,
+    // Sorenson H.263
+    F_FLV_VERSION_0, F_FLV_VERSION_1, F_FLV_CUSTOM_SIZE, F_FLV_DISPOSABLE, F_FLV_DROPPED,
+    F_FLV_ESCAPE_11,
 };
 
 // ff_h263_format: the source formats' sizes (0 forbidden, 6 and 7 are
@@ -219,13 +233,25 @@ class Decoder {
     int mb_x = 0, mb_y = 0;
     int64_t last_resync = 0;
     int64_t features = 0;
+    // Sorenson: the stream's (set by the caller), the picture's version
+    // (FFmpeg's h263_flv - 1) and disposable flag, the reference pictures
+    // decoded (FFmpeg's last_pic is set from the second on), and whether
+    // the picture shown is ``cur`` (a disposable one) or ``ref``
+    bool flv = false, droppable = false, show_cur = false;
+    int flv_version = 0, refs = 0;
 
     void feature(int f) { features |= (int64_t)1 << f; }
 
     // one packet: its picture (H263_OK, planes in ``ref``)
     int decode(const uint8_t* d, int64_t n) {
         br.reset(d, n);
-        picture_header();
+        droppable = false;
+        if (flv) flv_picture_header();
+        else picture_header();
+        if (droppable && refs < 2) {   // FFmpeg holds no last_pic yet: skipped
+            feature(F_FLV_DROPPED);
+            return H263_NO_FRAME;
+        }
         if (inter && !have_ref) CORRUPT("a P-picture without a reference picture");
         mvp.init_mv(mb_w, mb_h);   // FFmpeg zeroes motion_val every picture
         intra_mb.assign((size_t)mb_w * mb_h, 0);
@@ -241,9 +267,51 @@ class Decoder {
                         mb_y * mb_w + mb_x - 1);
             slice();
         }
-        std::swap(cur, ref);
-        have_ref = true;
+        show_cur = droppable;
+        if (!droppable) {
+            std::swap(cur, ref);
+            have_ref = true;
+            refs++;
+        }
         return H263_OK;
+    }
+
+    // ff_flv_decode_picture_header
+    void flv_picture_header() {
+        if (br.get(17) != 1) CORRUPT("bad Sorenson picture start code");
+        const int version = (int)br.get(5);
+        if (version > 1) CORRUPT("bad Sorenson version %d", version);
+        flv_version = version;
+        feature(version ? F_FLV_VERSION_1 : F_FLV_VERSION_0);
+        br.skip(8);   // TR
+        int w = 0, h = 0;
+        switch (br.get(3)) {
+            case 0: w = (int)br.get(8); h = (int)br.get(8); feature(F_FLV_CUSTOM_SIZE); break;
+            case 1: w = (int)br.get(16); h = (int)br.get(16); feature(F_FLV_CUSTOM_SIZE); break;
+            case 2: w = 352; h = 288; break;
+            case 3: w = 176; h = 144; break;
+            case 4: w = 128; h = 96; break;
+            case 5: w = 320; h = 240; break;
+            case 6: w = 160; h = 120; break;
+            default: break;
+        }
+        if (w <= 0 || h <= 0) CORRUPT("a Sorenson picture of size %dx%d", w, h);
+        const int type = (int)br.get(2);
+        inter = type != 0;
+        droppable = type > 1;
+        if (droppable) feature(F_FLV_DISPOSABLE);
+        br.skip(1);   // deblocking flag: FFmpeg reads no more of it
+        qscale = (int)br.get(5);
+        plus = umv = aic = loop = slices = alt_vlc = modified_quant = chroma_table = false;
+        obmc = no_rnd = false;
+        while (br.get1()) {   // PEI, PSUPP
+            feature(F_PEI);
+            br.skip(8);
+            if (br.left() <= 0) CORRUPT("truncated PSUPP");
+        }
+        set_size(w, h);
+        br.check();
+        if (inter) feature(F_P_PICTURES);
     }
 
     // ff_h263_decode_picture_header
@@ -379,7 +447,10 @@ class Decoder {
 
     void set_size(int w, int h) {
         if (w == width && h == height) return;
-        if (width) feature(F_SIZE_CHANGE);
+        if (width) {
+            feature(F_SIZE_CHANGE);
+            refs = 0;   // FFmpeg drops its pictures at a new size
+        }
         width = w;
         height = h;
         mb_w = (w + 15) / 16;
@@ -633,7 +704,15 @@ class Decoder {
         while (true) {
             const int idx = br.vlc(rl->vlc);
             int run, level;
-            if (idx == 102) {   // escape: LAST, RUN, LEVEL
+            if (idx == 102 && flv && flv_version == 1) {   // IS11, LAST, RUN, LEVEL
+                feature(F_ESCAPE);
+                const int is11 = br.get1();
+                if (is11) feature(F_FLV_ESCAPE_11);
+                run = (int)br.get(7) + 1;
+                const int nbits = is11 ? 11 : 7;
+                const int v = (int)br.get(nbits);
+                level = v >= 1 << (nbits - 1) ? v - (1 << nbits) : v;
+            } else if (idx == 102) {   // escape: LAST, RUN, LEVEL
                 feature(F_ESCAPE);
                 run = (int)br.get(7) + 1;   // LAST lands at bit 6: run + 64
                 level = (int8_t)br.get(8);
@@ -978,11 +1057,12 @@ class Decoder {
     }
 
     void output(uint8_t* y, uint8_t* u, uint8_t* v) const {
+        const Picture& pic = show_cur ? cur : ref;
         const int w = width, h = height, cw = (w + 1) / 2, ch = (h + 1) / 2;
-        for (int r = 0; r < h; r++) memcpy(y + (size_t)r * w, ref.p[0].at(0, r), w);
+        for (int r = 0; r < h; r++) memcpy(y + (size_t)r * w, pic.p[0].at(0, r), w);
         for (int r = 0; r < ch; r++) {
-            memcpy(u + (size_t)r * cw, ref.p[1].at(0, r), cw);
-            memcpy(v + (size_t)r * cw, ref.p[2].at(0, r), cw);
+            memcpy(u + (size_t)r * cw, pic.p[1].at(0, r), cw);
+            memcpy(v + (size_t)r * cw, pic.p[2].at(0, r), cw);
         }
     }
 };
@@ -993,12 +1073,19 @@ class Decoder {
 
 extern "C" {
 
-void* h263_dec_new() {
+// a decoder of H.263 and H.263+ (flv 0) or of Sorenson H.263 (flv 1)
+void* h263_dec_new(int64_t flv) {
     tables();
-    return new Decoder();
+    Decoder* d = new Decoder();
+    d->flv = flv != 0;
+    return d;
 }
 
 void h263_dec_free(void* h) { delete (Decoder*)h; }
+
+// a decoder that starts where OpenCV's seek leaves FFmpeg's: holding the
+// pictures its first read decoded, so no disposable picture is skipped
+void h263_dec_after_seek(void* h) { ((Decoder*)h)->refs = 2; }
 
 // Decode one packet.  On H263_OK the picture's size is in wh[0..1];
 // h263_dec_output copies its I420 planes out.

@@ -14,10 +14,15 @@ Annexes D (unrestricted vectors), F, I (advanced intra coding), J
 and T (modified quantisation).  The library is built with ``g++`` at first
 use into ``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a
 failed build raises with the compiler's output.  Its calls release the
-GIL.  Damaged data raises ``ValueError``; syntax-based arithmetic coding
-(Annex E), PB-frames (Annexes G and M), B-pictures (Annex O), Annexes N,
-P, Q and R, rectangular or unordered slices and unrestricted vectors
-outside PLUSPTYPE raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
+GIL.  ``sorenson=True`` reads Sorenson H.263 (fourcc ``FLV1``: Flash
+video's codec 2, what ``cv2.VideoWriter`` writes for ``FLV1`` into
+``.flv``, ``.avi``, ``.mkv`` and ``.mov``), bit-exact to FFmpeg's ``flv``
+decoder: its own picture header (:func:`sorenson_header`), version 1's
+escape, disposable pictures.  Damaged data raises ``ValueError``;
+syntax-based arithmetic coding (Annex E), PB-frames (Annexes G and M),
+B-pictures (Annex O), Annexes N, P, Q and R, rectangular or unordered
+slices and unrestricted vectors outside PLUSPTYPE raise ``Unsupported``,
+naming ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ import numpy as np
 from opticalflow_tpu_torch.runtime._native import build_and_load
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["Decoder", "FEATURES", "SIZES", "picture_size", "is_intra",
-           "load"]
+__all__ = ["Decoder", "FEATURES", "SIZES", "SORENSON_FEATURES",
+           "picture_size", "is_intra", "sorenson_header", "load"]
 
 _SRC = Path(__file__).resolve().parent / "h263.cpp"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -60,6 +65,9 @@ FEATURES = ("sub_qcif", "qcif", "cif", "4cif", "16cif", "p_pictures",
             "aic", "aic_vertical", "aic_horizontal", "loop_filter",
             "slices", "alt_inter_vlc", "alt_inter_retry", "modified_quant",
             "dquant_escape")
+# the Sorenson header's and escape's bits, after FEATURES' (h263.cpp)
+SORENSON_FEATURES = ("flv_version_0", "flv_version_1", "flv_custom_size",
+                     "flv_disposable", "flv_dropped", "flv_escape_11")
 
 # the source formats' sizes (PTYPE bits 6-8 or OPPTYPE bits 1-3; 6 is the
 # custom format, 7 in PTYPE PLUSPTYPE)
@@ -75,8 +83,9 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = build_and_load(_SRC, _FLAGS, "the H.263 decoder")
         sig = {
-            "h263_dec_new": (_P, []),
+            "h263_dec_new": (_P, [_I64]),
             "h263_dec_free": (None, [_P]),
+            "h263_dec_after_seek": (None, [_P]),
             "h263_dec_decode": (ctypes.c_int, [_P, ctypes.c_char_p, _I64,
                                                _I64P, ctypes.c_char_p, _I64]),
             "h263_dec_output": (None, [_P, _P, _P, _P]),
@@ -138,26 +147,71 @@ def _header(packet: bytes) -> Optional[dict]:
     return {"intra": ptype in (0, 7), "size": size}
 
 
-def picture_size(packet: bytes) -> Optional[Tuple[int, int]]:
-    """The (width, height) a packet's picture header names; None without a
-    picture header or where a PLUSPTYPE header does not name one."""
-    head = _header(packet)
+# Sorenson's size codes 2-6 (0 and 1: custom sizes of 8 or 16 bits)
+SORENSON_SIZES = {2: (352, 288), 3: (176, 144), 4: (128, 96), 5: (320, 240),
+                  6: (160, 120)}
+
+
+def sorenson_header(packet: bytes) -> Optional[dict]:
+    """What a Sorenson H.263 picture header (at the packet's start, as
+    FFmpeg's ``ff_flv_decode_picture_header`` reads it) says: {"version":
+    0 or 1, "intra": bool, "disposable": bool, "size": (width, height) or
+    None for a size code FFmpeg refuses}; None where the packet does not
+    start with the 17-bit start code and a version of 0 or 1.  H.263's
+    22-bit picture start code is no guide here: a version-1 header never
+    matches it."""
+    if len(packet) < 9:
+        return None
+    try:
+        b = _Bits(packet[:12], 0)
+        if b.get(17) != 1:
+            return None
+        version = b.get(5)
+        if version > 1:
+            return None
+        b.get(8)                                # TR
+        code = b.get(3)
+        size = ((b.get(8), b.get(8)) if code == 0 else
+                (b.get(16), b.get(16)) if code == 1 else
+                SORENSON_SIZES.get(code))
+        kind = b.get(2)
+    except ValueError:
+        return None
+    if size is not None and 0 in size:
+        size = None
+    return {"version": version, "intra": kind == 0, "disposable": kind > 1,
+            "size": size}
+
+
+def picture_size(packet: bytes, sorenson: bool = False
+                 ) -> Optional[Tuple[int, int]]:
+    """The (width, height) a packet's picture header names (a Sorenson
+    header where ``sorenson``); None without a picture header or where a
+    PLUSPTYPE header does not name one."""
+    head = sorenson_header(packet) if sorenson else _header(packet)
     return None if head is None else head["size"]
 
 
-def is_intra(packet: bytes) -> bool:
+def is_intra(packet: bytes, sorenson: bool = False) -> bool:
     """Whether a packet holds an I-picture (a seek can start there)."""
-    head = _header(packet)
+    head = sorenson_header(packet) if sorenson else _header(packet)
     return head is not None and head["intra"]
 
 
 class Decoder:
-    """One stream's decoder; ``what`` names the source in errors."""
+    """One stream's decoder (Sorenson H.263 where ``sorenson``); ``what``
+    names the source in errors.  ``after_seek``: the decoder starts as
+    FFmpeg's does after OpenCV's seek, holding the pictures of the
+    capture's first read, so it skips no disposable picture (a capture
+    just opened skips one that comes before any last picture)."""
 
-    def __init__(self, what: str = "video"):
+    def __init__(self, what: str = "video", sorenson: bool = False,
+                 after_seek: bool = False):
         self._lib = load()
-        self._h = self._lib.h263_dec_new()
-        self.what = what
+        self._h = self._lib.h263_dec_new(int(sorenson))
+        if after_seek:
+            self._lib.h263_dec_after_seek(self._h)
+        self.what, self.sorenson = what, sorenson
         self.width = self.height = 0
 
     def __del__(self):
@@ -167,7 +221,8 @@ class Decoder:
 
     def decode(self, packet: bytes) -> Optional[Planes]:
         """One packet → its picture's (Y, U, V) planes, as FFmpeg hands
-        them over (the H.263 decoder has no delay)."""
+        them over (the H.263 decoder has no delay); None for a Sorenson
+        disposable picture FFmpeg skips."""
         wh = (_I64 * 2)()
         msg = ctypes.create_string_buffer(_MSG)
         packet = bytes(packet)
@@ -182,7 +237,8 @@ class Decoder:
         if rc == _NO_FRAME:
             return None
         if rc != _OK:
-            raise ValueError(f"{self.what}: corrupt H.263 stream: {text}")
+            name = "Sorenson H.263" if self.sorenson else "H.263"
+            raise ValueError(f"{self.what}: corrupt {name} stream: {text}")
         w, h = int(wh[0]), int(wh[1])
         self.width, self.height = w, h
         cw, ch = (w + 1) // 2, (h + 1) // 2
@@ -199,3 +255,10 @@ class Decoder:
         far, by name (``FEATURES``)."""
         bits = int(self._lib.h263_dec_features(self._h))
         return [name for i, name in enumerate(FEATURES) if bits >> i & 1]
+
+    @property
+    def sorenson_features(self) -> List[str]:
+        """The Sorenson header features and escapes of the pictures decoded
+        so far, by name (``SORENSON_FEATURES``)."""
+        bits = int(self._lib.h263_dec_features(self._h)) >> len(FEATURES)
+        return [n for i, n in enumerate(SORENSON_FEATURES) if bits >> i & 1]

@@ -1,5 +1,5 @@
-// What the port's HuffYUV and Ut Video decoders (huffyuv.cpp, utvideo.cpp)
-// share: their failures, the MSB-first bit reader over a packet's 32-bit
+// What the port's HuffYUV, Ut Video and MagicYUV decoders (huffyuv.cpp,
+// utvideo.cpp, magicyuv.cpp) share, and asv.cpp with them: their failures, the MSB-first bit reader over a packet's 32-bit
 // little-endian words (FFmpeg's bswap_buf, then get_bits), a prefix code
 // read symbol by symbol from (code, length, symbol) triples (what
 // vlc_init builds), and lossless_videodsp's median prediction.

@@ -137,12 +137,20 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
   * 16-bit colour PNG sequences by ``cv2.imwrite`` (``png16_fixtures``:
     ``png16_rgb_53x37_%d.png``, ``png16_rgba_53x37_%d.png`` and
     ``png16_triples_256x256_%d.png``, 65,536 random triples), one manifest
-    entry a pattern.
+    entry a pattern;
+  * lossless intra video (``lossless_fixtures``: HuffYUV, FFVHuff, Ut
+    Video, PNG, raw layouts; ``hfyu_*``, ``ffvh_*``, ``ut_*``, ``png_*``,
+    ``raw_*``);
+  * MagicYUV (``magicyuv_fixtures``, ``magy_*``), Sorenson H.263
+    (``sorenson_fixtures``, ``flv_*``, in ``.flv`` by ``flv_mux``) and ASUS
+    V1/V2 (``asv_fixtures``, ``asv_*``), each with the Sintel pair at
+    436x1024, which the card run decodes.
 
 Each VP8 file's manifest entry lists the header features and coding modes
 the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
 each VP9 and MPEG-1/2 file's likewise (``vp9_features``,
-``mpeg12_features``, ``h263_features``), and each MPEG-1/2, H.263,
+``mpeg12_features``, ``h263_features``; ``magicyuv_features``,
+``flv_features``, ``asv_features``), and each MPEG-1/2, H.263,
 ``.3gp`` and size-changing file's the frame a ``CAP_PROP_POS_FRAMES`` seek
 to each index reads (``seeks``: an index into its sequential frames, or
 null where cv2 reads none).  Every entry names the fixture function that
@@ -1665,6 +1673,17 @@ def _h263_features(path: str) -> tuple:
     return dec.features, None
 
 
+def _cv2_seek_frame(path: str, t: int) -> np.ndarray:
+    """The frame a CAP_PROP_POS_FRAMES seek to ``t`` reads."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_POS_FRAMES, t)
+    ok, f = cap.read()
+    cap.release()
+    assert ok, (path, t)
+    return f
+
+
 def _cv2_seeks(path: str, frames: list) -> dict:
     """{index: the decoded frame (its index in ``frames``) a
     CAP_PROP_POS_FRAMES seek to it reads, or None}, for every index."""
@@ -2141,7 +2160,8 @@ LOSSLESS = ("hfyu_", "ffvh_", "ut_", "png_", "raw_", "mjpg_96x64")
 
 
 def _lossless_features(path: str) -> list:
-    """The port's HuffYUV or Ut Video decoder's features over the file."""
+    """The port's HuffYUV, Ut Video, MagicYUV or ASV decoder's features over
+    the file."""
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import EncodedVideo
     v = EncodedVideo(path)
@@ -2477,6 +2497,284 @@ def lossless_fixtures() -> None:
     _cv2_write(out("ut_sintel_436x1024.avi"), pair, "ULY0")
 
 
+# ------------------------------------- MagicYUV, Sorenson H.263, ASUS V1/V2
+
+def _magy_slices(packet: bytes) -> tuple:
+    """(header size, slice count, planes, [[slice start] for each plane]) of
+    a MagicYUV packet, the starts absolute, as FFmpeg's decoder reads its
+    header."""
+    header, = struct.unpack("<I", packet[4:8])
+    height, sh = struct.unpack("<II", packet[20:24] + packet[28:32])
+    n = (height + sh - 1) // sh
+    planes = {0x65: 3, 0x66: 4, 0x67: 3, 0x68: 3, 0x69: 3, 0x6a: 4,
+              0x6b: 1}[packet[9]]
+    offs = struct.unpack(f"<{n * planes}I", packet[36:36 + 4 * n * planes])
+    return header, n, planes, [[header + offs[p * n + j] for j in range(n)]
+                               for p in range(planes)]
+
+
+def magy_with(packet: bytes, matrix=None, flags=None, pred=None) -> bytes:
+    """A MagicYUV packet with its header's colour matrix byte (1 BT.601, 2
+    BT.709), its flags byte (4: full range; 2: interlaced) or every slice's
+    predictor byte set (0: none, which FFmpeg leaves as residuals)."""
+    data = bytearray(packet)
+    if matrix is not None:
+        data[11] = matrix
+    if flags is not None:
+        data[12] = flags
+    if pred is not None:
+        for starts in _magy_slices(packet)[3]:
+            for start in starts:
+                data[start + 1] = pred
+    return bytes(data)
+
+
+def magy_raw_plane(packet: bytes, plane: np.ndarray) -> bytes:
+    """A one-slice, left-predicted MagicYUV packet with its first plane's
+    slice replaced by a raw one (flags byte 1): ``plane``'s left residuals
+    (each line's first sample from the one above) as bytes, which FFmpeg's
+    decoder copies and then restores as any residuals."""
+    header, n, planes, starts = _magy_slices(packet)
+    assert n == 1 and packet[starts[0][0] + 1] == 1
+    p = plane.astype(np.int16)
+    res = np.empty_like(p)
+    res[:, 1:] = p[:, 1:] - p[:, :-1]
+    res[0, 0] = p[0, 0]
+    res[1:, 0] = p[1:, 0] - p[:-1, 0]
+    raw = bytes([1, 1]) + (res & 0xFF).astype(np.uint8).tobytes()
+    a, b = starts[0][0], starts[1][0]
+    data = bytearray(packet[:a] + raw + packet[b:])
+    for k in range(1, planes):
+        off = struct.unpack("<I", data[36 + 4 * k:40 + 4 * k])[0]
+        data[36 + 4 * k:40 + 4 * k] = struct.pack("<I",
+                                                  off + len(raw) - (b - a))
+    return bytes(data)
+
+
+def flv_mux(path: str, packets: list, w: int, h: int, fps: int = 25,
+            kinds=None) -> None:
+    """Sorenson H.263 packets (key frames by their picture headers) → an
+    FLV as FFmpeg's muxer writes one: the header, an onMetaData script tag
+    (duration, width, height, framerate, videocodecid 2), one video tag a
+    packet at its millisecond time (frame type 1 key, 2 inter, or
+    ``kinds[i]``), each tag closed by its size."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.runtime.h263 import is_intra
+
+    def num(key, v):
+        return struct.pack(">H", len(key)) + key + b"\0" + struct.pack(">d", v)
+
+    step = round(1000 / fps)
+    meta = (b"\x02" + struct.pack(">H", 10) + b"onMetaData" + b"\x08"
+            + struct.pack(">I", 5) + num(b"duration", len(packets) * step
+                                          / 1000)
+            + num(b"width", w) + num(b"height", h) + num(b"framerate", fps)
+            + num(b"videocodecid", 2) + b"\0\0\x09")
+
+    def tag(kind, stamp, body):
+        head = bytes([kind]) + len(body).to_bytes(3, "big") + (
+            stamp & 0xFFFFFF).to_bytes(3, "big") + bytes([stamp >> 24]) \
+            + b"\0\0\0"
+        return head + body + struct.pack(">I", 11 + len(body))
+
+    out = b"FLV\x01\x01" + struct.pack(">I", 9) + b"\0\0\0\0" + tag(18, 0,
+                                                                    meta)
+    for i, data in enumerate(packets):
+        kind = kinds[i] if kinds else (1 if is_intra(data, True) else 2)
+        out += tag(9, i * step, bytes([kind << 4 | 2]) + data)
+    with open(path, "wb") as f:
+        f.write(out)
+
+
+def _sorenson_type_bit(bits: str) -> int:
+    """The bit at which a Sorenson picture header's 2-bit type starts."""
+    code = int(bits[30:33], 2)
+    return 33 + (16 if code == 0 else 32 if code == 1 else 0)
+
+
+def sorenson_with(packet: bytes, kind=None, deblock=None) -> bytes:
+    """A Sorenson picture with its header's type (0 I, 1 P, 2 disposable P)
+    or deblocking flag rewritten."""
+    bits = _bits(packet)
+    at = _sorenson_type_bit(bits)
+    if kind is not None:
+        bits = bits[:at] + format(kind, "02b") + bits[at + 2:]
+    if deblock is not None:
+        bits = bits[:at + 2] + str(deblock) + bits[at + 3:]
+    return _bytes(bits)[:len(packet)]
+
+
+# H.263's source format → Sorenson's size code
+_SORENSON_CODE = {1: 4, 2: 3, 3: 2}
+
+
+def sorenson_from_h263(packet: bytes) -> bytes:
+    """A baseline H.263 picture (no PLUSPTYPE, no CPM, no PEI) re-headed as
+    a Sorenson version-0 picture: the same macroblock layer, which version
+    0 reads with H.263's escape."""
+    bits = _bits(packet)
+    assert bits[:22] == "0" * 16 + "100000" and bits[49:51] == "00"
+    tr, fmt, inter = bits[22:30], int(bits[35:38], 2), bits[38]
+    quant = bits[43:48]
+    head = ("0" * 16 + "1" + "00000" + tr + format(_SORENSON_CODE[fmt], "03b")
+            + "0" + inter + "0" + quant + "0")
+    return _bytes(head + bits[50:])
+
+
+def _flv_features(path: str) -> list:
+    """The port's H.263 decoder's features and Sorenson features over a
+    Sorenson file."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    with open(path, "rb") as f:
+        for i in range(v.samples):
+            dec.decode(v.box.sample(f, i))
+    return dec.features + dec.sorenson_features
+
+
+def magicyuv_fixtures() -> None:
+    """MagicYUV as cv2 writes and reads it (``M8Y0`` in .avi, .mkv and
+    .mov: 4:2:0, left prediction), and from libavcodec's encoder
+    (``Lavc.encode_intra``) what cv2's writer leaves out: each 8-bit layout
+    (GBRP, GBRAP, 4:4:4, 4:2:2, 4:2:0, YUVA 4:4:4, grey) with each
+    predictor, slices at odd sizes, headers rewritten to BT.709 and full
+    range (``magy_with``), residuals left unpredicted, a raw slice
+    (``magy_raw_plane``); and the Sintel pair at 436x1024 (cv2's writer),
+    which the card run decodes."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 3, seed=31)
+    for ext in ("avi", "mkv", "mov"):
+        _cv2_write(out(f"magy_96x64.{ext}"), clip, "M8Y0")
+    lavc = Lavc()
+    tiny = moving_clip(32, 48, 2, seed=32)
+    for pix in ("gbrp", "gbrap", "yuv444p", "yuv422p", "yuv420p",
+                "yuva444p", "gray"):
+        for pred in ("left", "gradient", "median"):
+            _, pk = lavc.encode_intra(tiny, "magicyuv", pix, pred=pred)
+            lossless_avi(out(f"magy_{pix}_{pred}_48x32.avi"),
+                         [p for p, _ in pk], 48, 32, "M8Y0")
+    odd = moving_clip(37, 53, 2, seed=33)
+    for pix, slices in (("gbrp", 3), ("yuv444p", 4), ("yuv422p", 3),
+                        ("yuv420p", 5), ("gray", 2)):
+        _, pk = lavc.encode_intra(odd, "magicyuv", pix, pred="median",
+                                  slices=slices)
+        lossless_avi(out(f"magy_{pix}_median_slices{slices}_53x37.avi"),
+                     [p for p, _ in pk], 53, 37, "M8Y0")
+    for pix, kw, stem in (("yuv422p", {"matrix": 2}, "bt709"),
+                          ("yuv444p", {"flags": 4}, "full"),
+                          ("yuv420p", {"matrix": 2, "flags": 4},
+                           "bt709_full"),
+                          ("yuv420p", {"pred": 0}, "nopred"),
+                          ("gray", {"flags": 4}, "full")):
+        _, pk = lavc.encode_intra(tiny, "magicyuv", pix, pred="left")
+        lossless_avi(out(f"magy_{stem}_{pix}_48x32.avi"),
+                     [magy_with(p, **kw) for p, _ in pk], 48, 32, "M8Y0")
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.runtime.magicyuv import Decoder
+    _, pk = lavc.encode_intra(tiny, "magicyuv", "yuv444p", pred="left")
+    dec = Decoder()
+    lossless_avi(out("magy_raw_slice_yuv444p_48x32.avi"),
+                 [magy_raw_plane(p, dec.decode(p)[0]) for p, _ in pk], 48, 32,
+                 "M8Y0")
+    _cv2_write(out("magy_sintel_436x1024.avi"), sintel_pair(), "M8Y0")
+
+
+def sorenson_fixtures() -> None:
+    """Sorenson H.263 (fourcc ``FLV1``) as cv2 writes and reads it in .flv,
+    .avi, .mkv and .mov (14 frames, key frames at 0 and 12), and from
+    libavcodec's ``flv`` encoder muxed by ``flv_mux``: quantiser 1 over
+    hard edges (11-bit escapes), an odd size, 176x144 (a standard size
+    code) and the Sintel pair's 13 frames at 436x1024 (16-bit size
+    fields), which the card run reads; version 0 (``h263`` pictures with
+    8x8 vectors re-headed, ``sorenson_from_h263``: H.263's escapes);
+    disposable pictures with the deblocking flag set, mid GOP and right
+    after the key frames (FFmpeg skips the one after the first key frame
+    in a capture just opened, and none after a seek: the manifest's
+    ``seek_sha256`` holds the frame a seek to it reads), and right after
+    the later key frame alone (a seek to it reads it)."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 14, seed=34)
+    for ext in ("flv", "avi", "mkv", "mov"):
+        _cv2_write(out(f"flv_96x64.{ext}"), clip, "FLV1")
+    lavc = Lavc()
+
+    def flv(frames, **opts):
+        return [d for d, _, _ in lavc.encode([bgr_i420(f) for f in frames],
+                                             codec="flv", **opts)]
+    # hard edges at quantiser 1: levels past version 1's 7-bit escape and,
+    # in H.263 pictures re-headed as version 0 (at 128x96, a size H.263
+    # names), 8x8 vectors
+    rng = np.random.default_rng(40)
+    cells = (rng.integers(0, 2, (12, 16, 3)) * 255).astype(np.uint8)
+    edges = cells.repeat(8, 0).repeat(8, 1)
+    sharp = [np.roll(edges, 3 * i, axis=1) for i in range(4)]
+    flv_mux(out("flv_q1_128x96.flv"), flv(sharp, qmin=1, qmax=1), 128, 96)
+    h263 = [d for d, _, _ in lavc.encode([bgr_i420(f) for f in sharp],
+                                         codec="h263", qmin=1, qmax=1,
+                                         flags="+mv4")]
+    flv_mux(out("flv_v0_128x96.flv"), [sorenson_from_h263(p) for p in h263],
+            128, 96)
+    flv_mux(out("flv_176x144.flv"),
+            flv(moving_clip(144, 176, 4, seed=35, speed=3.0)), 176, 144)
+    flv_mux(out("flv_53x37.flv"), flv(moving_clip(37, 53, 14, seed=36)),
+            53, 37)
+    base = flv(clip)
+    mid = [sorenson_with(p, kind=2 if i in (5, 9) else None, deblock=1)
+           for i, p in enumerate(base)]
+    flv_mux(out("flv_disposable_96x64.flv"), mid, 96, 64,
+            kinds=[1 if i in (0, 12) else 3 if i in (5, 9) else 2
+                   for i in range(len(mid))])
+    near = [sorenson_with(p, kind=2) if i in (1, 13) else p
+            for i, p in enumerate(base)]
+    flv_mux(out("flv_disposable_key_96x64.flv"), near, 96, 64,
+            kinds=[1 if i in (0, 12) else 3 if i in (1, 13) else 2
+                   for i in range(len(near))])
+    # one right after the later key frame alone: the sequential read shows
+    # it, and the seek to it decodes it right after that key frame
+    later = [sorenson_with(p, kind=2) if i == 13 else p
+             for i, p in enumerate(base)]
+    flv_mux(out("flv_disposable_later_key_96x64.flv"), later, 96, 64,
+            kinds=[1 if i in (0, 12) else 3 if i == 13 else 2
+                   for i in range(len(later))])
+    im1, im2 = sintel_pair()
+    flv_mux(out("flv_sintel_436x1024.flv"),
+            flv([im1 if i % 2 == 0 else im2 for i in range(13)], b=300000,
+                qmin=8), 1024, 436)
+
+
+def asv_fixtures() -> None:
+    """ASUS V1 and V2 as cv2 writes and reads them (``ASV1``, ``ASV2`` in
+    .avi, .mkv and .mov), and from libavcodec's ``asv1``/``asv2`` encoders
+    at sizes that are not a multiple of 16 (partial macroblocks) and three
+    quantisers, one muxed without extradata (FFmpeg's default inverse
+    quantiser); and the Sintel pair at 436x1024 in ASV2 (cv2's writer),
+    which the card run decodes."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 3, seed=37)
+    for fcc in ("ASV1", "ASV2"):
+        for ext in ("avi", "mkv", "mov"):
+            _cv2_write(out(f"asv_{fcc.lower()}_96x64.{ext}"), clip, fcc)
+    lavc = Lavc()
+    odd = moving_clip(37, 53, 2, seed=38)
+    for codec in ("asv1", "asv2"):
+        for q in (1, 4, 12):
+            ext, pk = lavc.encode_intra(odd, codec, "yuv420p",
+                                        global_quality=118 * q,
+                                        flags="+qscale")
+            lossless_avi(out(f"asv_{codec}_q{q}_53x37.avi"),
+                         [p for p, _ in pk], 53, 37, codec.upper(), ext)
+        ext, pk = lavc.encode_intra(moving_clip(40, 72, 2, seed=39), codec,
+                                    "yuv420p")
+        lossless_avi(out(f"asv_{codec}_noext_72x40.avi"), [p for p, _ in pk],
+                     72, 40, codec.upper())
+    _cv2_write(out("asv_sintel_436x1024.avi"), sintel_pair(), "ASV2")
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -2656,9 +2954,24 @@ def write_manifest(keep: bool = False) -> None:
         if name.startswith("ut_"):
             manifest["files"][name]["utvideo_features"] = \
                 _lossless_features(path)
-        if (name.startswith(("h263_", "ffv1_", "mpeg4_") + LOSSLESS)
+        for prefix, key in (("magy_", "magicyuv_features"),
+                            ("asv_", "asv_features")):
+            if name.startswith(prefix):
+                manifest["files"][name][key] = _lossless_features(path)
+        if name.startswith("flv_"):
+            manifest["files"][name]["flv_features"] = _flv_features(path)
+        if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
+                             "asv_") + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
+            # a seek that reads a frame the sequential read never shows
+            # (a Sorenson disposable picture FFmpeg skips there): its digest
+            odd = [t for t, hit in manifest["files"][name]["seeks"].items()
+                   if hit == -1]
+            if odd:
+                manifest["files"][name]["seek_sha256"] = {
+                    t: frame_digest(_cv2_seek_frame(path, int(t)))
+                    for t in odd}
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import ffmpeg_threads
     from opticalflow_tpu_torch.runtime.vp9 import FEATURES
@@ -2685,6 +2998,14 @@ def write_manifest(keep: bool = False) -> None:
     reached = {f for e in manifest["files"].values()
                for f in e.get("utvideo_features", [])}
     manifest["utvideo_unreached"] = [f for f in UT if f not in reached]
+    from opticalflow_tpu_torch.runtime.asv import FEATURES as ASV
+    from opticalflow_tpu_torch.runtime.h263 import SORENSON_FEATURES
+    from opticalflow_tpu_torch.runtime.magicyuv import FEATURES as MAGY
+    for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
+                       ("asv", ASV)):
+        reached = {f for e in manifest["files"].values()
+                   for f in e.get(f"{key}_features", [])}
+        manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()
@@ -2703,7 +3024,8 @@ def write_manifest(keep: bool = False) -> None:
 GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
-          lossless_fixtures)
+          lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
+          asv_fixtures)
 
 
 if __name__ == "__main__":

@@ -347,7 +347,7 @@ def test_utvideo_damaged_packets_raise_value_error():
 def test_apng_style_packets_and_other_codecs_raise_naming_item_8(tmp_path):
     """A packet of APNG frame chunks without a PNG signature, 24-bit
     BI_RGB, raw video in QuickTime (cv2 reads none of it) and the codecs
-    queued behind this slice (cv2 writes and reads them)."""
+    still queued (cv2 writes and reads them)."""
     v, packets = _stream("png_96x64.avi")
     apng = tmp_path / "apng.avi"
     body = packets[0][8:]
@@ -365,11 +365,12 @@ def test_apng_style_packets_and_other_codecs_raise_naming_item_8(tmp_path):
         list(vio.read_frames(str(dib)))
     frames = _make().moving_clip(32, 48, 2, seed=6)
     for fourcc, ext, what in (("I420", "mov", "'raw '"),
-                              ("M8Y0", "avi", "MagicYUV"),
-                              ("FLV1", "avi", "Sorenson"),
                               ("MP42", "avi", "MS-MPEG4 v2"),
                               ("WMV2", "avi", "WMV8"),
-                              ("ASV1", "avi", "ASUS V1")):
+                              ("DIV3", "avi", "MS-MPEG4 v3"),
+                              ("WMV1", "avi", "WMV7"),
+                              ("SNOW", "avi", "Snow"),
+                              ("drac", "avi", "Dirac")):
         path = str(tmp_path / f"{fourcc}.{ext}")
         _make()._cv2_write(path, frames, fourcc)
         with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):

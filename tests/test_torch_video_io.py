@@ -243,9 +243,13 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
                                     "frames": 2}
     flv = tmp_path / "clip.flv"
     flv.write_bytes(b"FLV\x01")
-    with pytest.raises(ValueError, match=r"\.mp4.*\.mkv.*\.y4m.*PNG.*item 8"):
+    with pytest.raises(ValueError, match="truncated"):
         vio.video_info(str(flv))
-    # an MPEG-2 program stream, once refused as the .flv is, reads as cv2
+    asf = tmp_path / "clip.asf"
+    asf.write_bytes(b"FLV\x01")
+    with pytest.raises(ValueError, match=r"\.mp4.*\.mkv.*\.y4m.*PNG.*item 8"):
+        vio.video_info(str(asf))
+    # an MPEG-2 program stream, once refused as the .asf is, reads as cv2
     # reads it; under a transport or elementary stream's name it is
     # refused
     mpg = os.path.join(fixtures, "mpeg2_176x144.mpg")
