@@ -320,7 +320,21 @@ non-zero, and no result line is printed):
      ``.flv``: K1 and B1 5 a step; (d) host ms to decode and to convert a 436x1024 frame of
      MagicYUV, Sorenson and ASV2 beside Ut Video and H.263+; (e) no cv2,
      PIL or jax in ``sys.modules``;
- 27. one JSON line listing every kernel with its launches on its path,
+ 27. MS-MPEG4 v2/v3 and WMV7/WMV8 (host C++ ``runtime/msmpeg4.cpp``
+     behind ``io/asf.py`` and the AVI, Matroska and QuickTime demuxers;
+     ``phase_msmpeg4``): (a) every fixture of the ``msmpeg4`` group (cv2's
+     writer: MP42, DIV3, WMV1 and WMV2 in .avi/.mkv/.mov/.wmv and .asf,
+     ASF at 30000/1001, 24 and 15 fps; libavcodec's four encoders at four
+     quantisers, odd sizes, a low rate, hard edges; v3 recoded in DC and
+     MV table 0) decodes to its manifest's cv2 digests, fps, size and
+     count, every recorded seek reads cv2's frame, and crafted headers of
+     what is left out raise naming item 8; (b) ``cli/extract_video --mode
+     arrows --batch 4 --dtype bfloat16`` over the 13-frame 436x1024 WMV8
+     ``.wmv``: K1 15; (c) ``cli/train --regime pseudo`` for 3 steps over
+     the same ``.wmv``: K1 and B1 5 a step; (d) host ms to decode a
+     436x1024 frame of v2, v3, WMV7 and WMV8 beside H.263+ and Sorenson,
+     and to convert it; (e) no cv2, PIL or jax in ``sys.modules``;
+ 28. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -336,8 +350,9 @@ phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
 paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
 phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
 phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
-phase 25's lossless paths and phase 26's MagicYUV, Sorenson and ASV paths
-(K1 in the video CLI's runs, K1 and B1 in the pseudo steps).
+phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths
+and phase 27's MS-MPEG4/WMV paths (K1 in the video CLI's runs, K1 and B1
+in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -5694,6 +5709,207 @@ def phase_magy_flv_asv(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# phase 27: MS-MPEG4 v2/v3 and WMV7/WMV8 in AVI, Matroska, QuickTime, ASF
+MSM_CLIP = "msm_sintel_436x1024.wmv"     # libavcodec's wmv2, 13 frames
+MSM_FRAMES = 13
+# three frames of the pair in each other codec (libavcodec, in AVI)
+MSM_HOST = {"msmpeg4v2": "msm_sintel_msmpeg4v2_436x1024.avi",
+            "msmpeg4v3": "msm_sintel_msmpeg4_436x1024.avi",
+            "wmv1": "msm_sintel_wmv1_436x1024.avi", "wmv2": MSM_CLIP}
+
+
+def msmpeg4_refusals() -> list:
+    """Crafted headers of what this slice leaves out, each of which must
+    raise Unsupported naming ROADMAP Queue 1 item 8: MS-MPEG4 v1's fourcc,
+    WMV8 J-pictures, mspel motion and ABT blocks (the picture header's
+    bits rewritten), its loop filter (an extradata bit), compressed ASF
+    payloads and an ASF broadcast (whose count FFmpeg guesses).  Returns
+    what each refusal named."""
+    import struct
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.asf import FILE_PROPERTIES
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime import msmpeg4
+    from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+
+    def bit(data, at, value):
+        b = bytearray(data)
+        mask = 0x80 >> (at & 7)
+        b[at >> 3] = b[at >> 3] | mask if value else b[at >> 3] & ~mask
+        return bytes(b)
+
+    wmv2 = vio.EncodedVideo(os.path.join(MP4_DIR, "msm_wmv2_96x64.avi"))
+    with open(wmv2.path, "rb") as f:
+        i_pic, p_pic = wmv2.box.sample(f, 0), wmv2.box.sample(f, 1)
+    ext = wmv2.box.dsi
+
+    def decode(*packets):
+        dec = msmpeg4.Decoder("wmv2", 96, 64, ext, what="crafted")
+        for q in packets:
+            dec.decode(q)
+
+    cases = [("J-pictures", lambda: decode(bit(i_pic, 13, 1))),
+             ("mspel", lambda: decode(i_pic, bit(p_pic, 9, 1))),
+             ("per macroblock", lambda: decode(i_pic, bit(p_pic, 10, 0))),
+             ("other than 8x8",
+              lambda: decode(i_pic, bit(bit(p_pic, 11, 1), 12, 0))),
+             ("loop filter",
+              lambda: msmpeg4.Decoder("wmv2", 96, 64, bit(ext, 17, 1)))]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v1.avi")
+        mux = AviWriter(path, (48, 32), (25, 1), fourcc="MPG4")
+        mux.write(bytes(64), True)
+        mux.release()
+        cases.append(("MS-MPEG4 v1", lambda q=path: vio.EncodedVideo(q)))
+        src = os.path.join(MP4_DIR, "msm_wmv2_96x64.wmv")
+        box = vio.EncodedVideo(src).box
+        with open(src, "rb") as f:
+            data = f.read()
+        at = box.pieces[0][0][0] - 11      # replicated data's length
+        path = os.path.join(tmp, "compressed.wmv")
+        with open(path, "wb") as f:
+            f.write(data[:at] + b"\x01" + data[at + 1:])
+        cases.append(("compressed ASF", lambda q=path: vio.EncodedVideo(q)))
+        flags = data.find(FILE_PROPERTIES) + 24 + 64
+        path = os.path.join(tmp, "broadcast.wmv")
+        with open(path, "wb") as f:
+            f.write(data[:flags] + struct.pack("<I", 3) + data[flags + 4:])
+        cases.append(("play duration", lambda q=path: vio.EncodedVideo(q)))
+        named = []
+        for what, make in cases:
+            try:
+                make()
+            except Unsupported as e:
+                assert what in str(e) and ITEM_8 in str(e), (what, str(e))
+                named.append(what)
+                continue
+            raise AssertionError(f"{what} was read")
+    return named
+
+
+def phase_msmpeg4(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """MS-MPEG4 v2/v3 and WMV7/WMV8 through the port's entry points on the
+    card machine (host C++ ``runtime/msmpeg4.cpp`` behind ``io/asf.py``
+    and the AVI, Matroska and MP4 demuxers): (a) every fixture of the
+    ``msmpeg4`` group equals cv2's digests, fps, size and count, each
+    recorded seek reads cv2's frame, and crafted headers of what is left
+    out raise; (b) the video CLI over the 436x1024 WMV8 .wmv, K1 on the
+    card, bf16; (c) the pseudo regime over the same .wmv (K1 and B1); (d)
+    host ms to decode and to convert a 436x1024 frame of v2, v3, WMV7 and
+    WMV8, beside H.263+ and Sorenson; (e) no cv2, PIL or jax imported.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime import h263, msmpeg4
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "msmpeg4")
+    checked = check_fixtures(new)
+    assert not checked["refused"] and not checked["seeks_none"], checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    features = sorted({f for w in new.values()
+                       for f in w.get("msmpeg4_features", [])})
+    unreached = [f for f in msmpeg4.FEATURES if f not in features]
+    assert unreached == manifest["msmpeg4_unreached"], unreached
+    refused = msmpeg4_refusals()
+    log(f"[27] (a) {len(new)} fixtures (MP42, DIV3, WMV1 and WMV2 in "
+        f".avi/.mkv/.mov/.wmv/.asf; libavcodec's streams) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count, {n_seeks} seeks to the frames cv2's read in "
+        f"{time.perf_counter() - t0:.2f} s; crafted headers refused: "
+        f"{refused}; features reached {len(features)} of "
+        f"{len(msmpeg4.FEATURES)} (none of the fixtures: {unreached}); "
+        f"{card}")
+
+    # (b) the video CLI over the 436x1024 WMV8 .wmv
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, MSM_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_wmv.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    MSM_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(MSM_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows == 15, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[27] (b) extract_video --mode arrows B={VIDEO_B} bf16, WMV8 .wmv "
+        f"({MSM_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps over "
+        f"the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode "
+        f"thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} windows, K1 {launched} "
+        f"launches; {card}")
+
+    # (c) the pseudo regime over the .wmv (pairs read in any order: seeks)
+    out_dir = os.path.join(tmp, "wmv_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", clip, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (MSM_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[27] (c) cli/train --regime pseudo over the WMV8 .wmv "
+        f"({MSM_FRAMES} frames {FULL_H}x{FULL_W} -> 384x512), {steps} steps "
+        f"at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; K1/B1 "
+        f"launches {launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s "
+        f"wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: decode, then convert to
+    # BGR; the four codecs beside H.263+ and Sorenson of the same pair
+    host = {}
+    for codec, name in (*MSM_HOST.items(), ("sorenson", FLV_CLIP),
+                        ("h263p", PLUS_CLIP)):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        box = video.box
+        with open(video.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(len(box.sizes))]
+        make = ((lambda b=box: msmpeg4.Decoder(b.codec, FULL_W, FULL_H,
+                                               b.dsi))
+                if codec in MSM_HOST else
+                (lambda: h263.Decoder(sorenson=True)) if codec == "sorenson"
+                else h263.Decoder)
+        ms, got = host_decode(make, samples)
+        host[codec] = {"decode_ms": ms, "convert_ms": convert_ms(got),
+                       "bytes_a_frame": sum(map(len, samples)) / len(samples),
+                       "frames": len(samples)}
+    log("[27] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (decode, convert to BGR): " + "; ".join(
+            f"{k} {v['decode_ms']!r} + {v['convert_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame, {v['frames']} frames)"
+            for k, v in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[27] (e) cv2, PIL, jax not imported; phase 27 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "frames": n_frames, "seeks": n_seeks,
+            "refused": refused, "features": features,
+            "unreached": unreached, "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5927,6 +6143,16 @@ def main() -> int:
     assert magy_flv_asv_launches == correlation_cuda.launches > 0
     assert mfa["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()            # the MS-MPEG4 / WMV / ASF paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        msm = phase_msmpeg4(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                            card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    msmpeg4_launches = msm["launches"]["cli"] + \
+        msm["launches"]["pseudo"]["correlation_fwd"]
+    assert msmpeg4_launches == correlation_cuda.launches > 0
+    assert msm["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -6002,7 +6228,10 @@ def main() -> int:
          # phase 26: the video CLI over the 436x1024 Sorenson .flv, and the
          # pseudo steps over the same .flv (5 a window, 5 a step)
          "launches_magy_flv_asv": magy_flv_asv_launches,
-         "magy_flv_asv": mfa},
+         "magy_flv_asv": mfa,
+         # phase 27: the video CLI over the 436x1024 WMV8 .wmv, and the
+         # pseudo steps over the same .wmv (5 a window, 5 a step)
+         "launches_msmpeg4": msmpeg4_launches, "msmpeg4": msm},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -6051,7 +6280,9 @@ def main() -> int:
              lossless["launches"]["pseudo"]["correlation_bwd"],
          # phase 26: the pseudo regime's steps over a Sorenson .flv
          "launches_magy_flv_asv":
-             mfa["launches"]["pseudo"]["correlation_bwd"]},
+             mfa["launches"]["pseudo"]["correlation_bwd"],
+         # phase 27: the pseudo regime's steps over a WMV8 .wmv
+         "launches_msmpeg4": msm["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -33,6 +33,12 @@ codec:
     Sorenson H.263 (``FLV1``): ``runtime/h263``'s Sorenson reading,
     keyframes from ``idx1``; ASUS V1/V2 (``ASV1``, ``ASV2``):
     ``runtime/asv``, its quantiser in the extradata;
+  * MS-MPEG4 v2 (``MP42``, ``DIV2``), v3 (``DIV3``, ``MP43``, ``MPG3``,
+    ``DIV4``-``DIV6``, ``DVX3``, ``AP41``, ``COL0``, ``COL1``), WMV7
+    (``WMV1``) and WMV8 (``WMV2``, ``GXVE``; its 4 bytes of extradata
+    after the BITMAPINFOHEADER), in any case (``MSMPEG4_TAGS``): decoded
+    by ``runtime/msmpeg4`` at the header's size, keyframes from ``idx1``;
+    v1's ``MPG4`` and ``MP41`` raise;
   * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
     swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
     FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
@@ -59,10 +65,14 @@ from typing import BinaryIO, List, Optional, Tuple
 from opticalflow_tpu_torch.runtime.ffv1 import is_keyframe as ffv1_is_keyframe
 from opticalflow_tpu_torch.runtime.h263 import is_intra as is_h263_intra
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+from opticalflow_tpu_torch.runtime.msmpeg4 import VERSIONS as _MSMPEG4
+from opticalflow_tpu_torch.runtime.msmpeg4 import \
+    is_keyframe as msmpeg4_is_keyframe
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
 __all__ = ["AviFile", "AviWriter", "ASV_TAGS", "FLV1_TAGS", "H263_TAGS",
            "HUFFYUV_TAGS", "MAGICYUV_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
+           "MSMPEG4_TAGS",
            "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
            "UTVIDEO_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
@@ -101,11 +111,18 @@ MPEG12_TAGS = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2", "VCR2",
 # carry data FFmpeg reads past, which the port does not)
 H263_TAGS = {"H263", "X263", "T263", "L263", "VX1K", "M263", "LSVM", "U263",
              "VSM4"}
+# riff.c's tags of msmpeg4v2, msmpeg4v3, wmv1 and wmv2, matched without
+# regard to case (each checked with cv2 on a rewritten fixture); v1's
+# MPG4 and MP41 are refused
+MSMPEG4_TAGS = {"MP42": "msmpeg4v2", "DIV2": "msmpeg4v2",
+                **{t: "msmpeg4v3" for t in ("DIV3", "MP43", "MPG3", "DIV4",
+                                            "DIV5", "DIV6", "DVX3", "AP41",
+                                            "COL0", "COL1")},
+                "WMV1": "wmv1", "WMV2": "wmv2", "GXVE": "wmv2"}
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
           "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
-          "MP42": "MS-MPEG4 v2", "DIV3": "MS-MPEG4 v3",
-          "MP43": "MS-MPEG4 v3", "WMV1": "WMV7", "WMV2": "WMV8",
+          "MPG4": "MS-MPEG4 v1", "MP41": "MS-MPEG4 v1", "WMV3": "WMV9",
           "SNOW": "Snow", "drac": "Dirac"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
@@ -224,9 +241,11 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs, H.263 or Sorenson I-pictures, FFV1 or VP8 key
-        frames; all raw, intra-only and Motion JPEG frames are."""
-        if self.codec not in ("mpeg4", "vp8", "h263", "flv1", "ffv1"):
+        MPEG-4 I-VOPs, H.263, Sorenson or MS-MPEG4/WMV I-pictures, FFV1
+        or VP8 key frames; all raw, intra-only and Motion JPEG frames
+        are."""
+        if self.codec not in ("mpeg4", "vp8", "h263", "flv1",
+                              "ffv1") + tuple(_MSMPEG4):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -243,6 +262,8 @@ class AviFile:
                             is_h263_intra(head, sorenson=True)
                             if self.codec == "flv1" else
                             ffv1_is_keyframe(head) if self.codec == "ffv1"
+                            else msmpeg4_is_keyframe(head, self.codec)
+                            if self.codec in _MSMPEG4
                             else is_keyframe(head)):
                         keys.append(i)
         return keys or [0]
@@ -267,8 +288,8 @@ def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
     ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
-    ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv`` or ``png``;
-    anything else raises
+    ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png`` or
+    one of ``MSMPEG4_TAGS``' codecs; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -300,12 +321,15 @@ def codec_of(tag: str, what: str) -> str:
         return "flv1"
     if tag.upper() in ASV_TAGS:
         return "asv"
-    name = _NAMES.get(tag, f"the {tag!r} codec")
+    if tag.upper() in MSMPEG4_TAGS:
+        return MSMPEG4_TAGS[tag.upper()]
+    name = _NAMES.get(tag.upper(), _NAMES.get(tag, f"the {tag!r} codec"))
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
-                      f"H.263, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
-                      f"ASUS V1/V2, PNG, Motion JPEG, raw I420, YV12, Y800 "
-                      f"and RGBA, VP8 and VP9 only ({ITEM_8})")
+                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, FFV1, HuffYUV, "
+                      f"FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
+                      f"JPEG, raw I420, YV12, Y800 and RGBA, VP8 and VP9 "
+                      f"only ({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

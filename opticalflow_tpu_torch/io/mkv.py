@@ -22,13 +22,15 @@ needed.  The codecs, by ``CodecID``:
     ``CodecPrivate``;
   * ``V_MJPEG``: ``runtime/jpeg``'s FFmpeg flavour;
   * ``V_FFV1``: ``runtime/ffv1``, ``CodecPrivate`` as its extradata;
+  * ``V_MPEG4/MS/V3``: ``runtime/msmpeg4`` (MS-MPEG4 v3, what
+    ``cv2.VideoWriter`` writes for ``DIV3`` into ``.mkv``);
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
     ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
     ``io/avi``'s fourcc rules (H.263 under ``H263``, Sorenson H.263 under
-    ``FLV1``, HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2 and PNG
-    under ``HFYU``, ``FFVH``, ``UL**``, ``M8Y0``, ``ASV1``/``ASV2`` and
-    ``MPNG``, as ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
+    ``FLV1``, HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG,
+    MS-MPEG4 v2 and WMV7/8 under ``HFYU``, ``FFVH``, ``UL**``, ``M8Y0``,
+    ``ASV1``/``ASV2``, ``MPNG``, ``MP42``, ``WMV1`` and ``WMV2``, as ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
     ``bpc``.
 
 Other codecs (H.264, HEVC, AV1, ...), zlib-compressed
@@ -360,6 +362,8 @@ class MkvFile:
             self.codec, self.tag = "mjpeg", "MJPG"
         elif codec == "V_FFV1":
             self.codec, self.tag = "ffv1", "FFV1"
+        elif codec == "V_MPEG4/MS/V3":
+            self.codec, self.tag = "msmpeg4v3", "DIV3"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
             if self.tag in ("I420", "IYUV"):
@@ -385,7 +389,8 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, MPEG-1, MPEG-2, FFV1, Motion JPEG, "
+                              f"Part 2, MS-MPEG4 v3, MPEG-1, MPEG-2, FFV1, "
+                              f"Motion JPEG, "
                               f"raw video "
                               f"and the AVI fourccs of V_MS/VFW/FOURCC "
                               f"(H.263, ...) in Matroska only ({ITEM_8})")

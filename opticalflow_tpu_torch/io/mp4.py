@@ -23,8 +23,10 @@ also ``mp4v`` with objectTypeIndication 0x6D in ``.mp4``), ``RGBA`` (raw),
 and the AVI fourccs FFmpeg's mov demuxer takes from riff.c: ``HFYU``,
 ``FFVH``, ``UL**``, ``M8**``, ``ASV1`` and ``ASV2`` with their ``glbl``
 extradata and the entry's depth as ``bpc`` (HuffYUV, FFVHuff, Ut Video,
-MagicYUV, ASUS V1/V2), and ``FLV1`` (Sorenson H.263, keyframes from
-``stss``).  Other codecs' sample entries
+MagicYUV, ASUS V1/V2), ``FLV1`` (Sorenson H.263, keyframes from
+``stss``), ``MP42``, ``WMV1`` and ``WMV2`` (MS-MPEG4 v2, WMV7/8; WMV8's
+extradata in ``glbl``) and isom.c's ``3IVD`` (MS-MPEG4 v3, the entry
+cv2's mov muxer falls back to for ``DIV3``).  Other codecs' sample entries
 (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming ROADMAP Queue 1
 item 8.
 
@@ -42,7 +44,8 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import (ASV_TAGS, FLV1_TAGS, HUFFYUV_TAGS,
-                                          MAGICYUV_TAGS, UTVIDEO_TAGS)
+                                          MAGICYUV_TAGS, MSMPEG4_TAGS,
+                                          UTVIDEO_TAGS)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
@@ -68,8 +71,11 @@ _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
                   **{t: "utvideo" for t in UTVIDEO_TAGS},
                   **{t: "magicyuv" for t in MAGICYUV_TAGS},
                   **{t: "asv" for t in ASV_TAGS}}
-# riff.c's tags the mov demuxer takes for inter codecs: Sorenson H.263
-_RIFF_ENTRIES = {t: "flv1" for t in FLV1_TAGS}
+# riff.c's tags the mov demuxer takes for inter codecs (Sorenson H.263,
+# MS-MPEG4 v2/v3, WMV7/8), and isom.c's 3IVD, MS-MPEG4 v3's entry where
+# cv2's mov muxer falls back to it
+_RIFF_ENTRIES = {**{t: "flv1" for t in FLV1_TAGS}, **MSMPEG4_TAGS,
+                 "3IVD": "msmpeg4v3"}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -298,8 +304,8 @@ class Mp4File:
                               f"entry (MPEG-4 Part 2, MPEG-1/2, Motion JPEG, "
                               f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
                               f"FLV1 (Sorenson H.263), jpeg, png, RGBA, HFYU, "
-                              f"FFVH, UL**, M8** (MagicYUV) and ASV1/ASV2 "
-                              f"only ({ITEM_8})")
+                              f"FFVH, UL**, M8** (MagicYUV), ASV1/ASV2, MP42, "
+                              f"DIV3/3IVD and WMV1/WMV2 only ({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.bpc = struct.unpack(">H", entry[74:76])[0]
         self.codec = ("vp9" if fourcc == "vp09" else

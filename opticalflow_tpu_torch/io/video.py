@@ -1,6 +1,7 @@
 """Video frames in and out without OpenCV: ``.mp4``, ``.mov``, ``.3gp``,
-``.avi``, ``.mkv``, ``.webm``, ``.flv``, ``.mpg``, ``.ts``, ``.m2v``,
-``.h263``, ``.y4m``, image sequences and frame directories.
+``.avi``, ``.mkv``, ``.webm``, ``.flv``, ``.wmv``, ``.asf``, ``.mpg``,
+``.ts``, ``.m2v``, ``.h263``, ``.y4m``, image sequences and frame
+directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -39,6 +40,16 @@ muxers and codecs and reads what those read, frame for frame:
     opened and not after a seek); other FLV codecs raise, and so does a
     seek in an FLV whose timestamps OpenCV numbers otherwise than its
     frames, naming item 8;
+  * **MS-MPEG4 v2** (``MP42``, ``DIV2``), **v3** ("DivX 3": ``DIV3``,
+    ``MP43`` and their aliases, ``3IVD`` in QuickTime), **WMV7** (``WMV1``)
+    and **WMV8** (``WMV2``) in AVI, Matroska (``V_MS/VFW/FOURCC``),
+    QuickTime and **ASF** (``.wmv``, ``.asf``; ``io/asf``, read, not
+    written): what ``cv2.VideoWriter`` writes for these fourccs, decoded by
+    ``runtime/msmpeg4`` bit-exactly to FFmpeg at the container's size;
+    ASF's fps is the rate FFmpeg's probe fits to its millisecond times
+    (29.97 as 30000/1001).  MS-MPEG4 v1, WMV8's J-pictures, mspel, ABT
+    blocks other than 8x8 and loop filter, and ASF files whose fps or count
+    FFmpeg guesses otherwise, raise naming item 8;
   * a picture of another size than its stream's first (a VP9 frame that
     changed size, a VP8 key frame, an H.263 picture header) is scaled back
     to the first size through swscale's bicubic scaler, as
@@ -117,6 +128,8 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from opticalflow_tpu_torch.io.asf import EXTENSIONS as _ASF_EXTS
+from opticalflow_tpu_torch.io.asf import AsfFile
 from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, AviFile, AviWriter
 from opticalflow_tpu_torch.io.flv import EXTENSIONS as _FLV_EXTS
 from opticalflow_tpu_torch.io.flv import FlvFile
@@ -146,6 +159,8 @@ from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Unsupported, i420_to_bgr,
                                                   rgb48_to_bgr, to_i420,
                                                   yuv_to_bgr)
+from opticalflow_tpu_torch.runtime.msmpeg4 import VERSIONS as MSMPEG4
+from opticalflow_tpu_torch.runtime.msmpeg4 import Decoder as Msmpeg4Decoder
 from opticalflow_tpu_torch.runtime.mpeg12 import CHROMA_SITE as MPEG12_SITE
 from opticalflow_tpu_torch.runtime.mpeg12 import Decoder as Mpeg12Decoder
 from opticalflow_tpu_torch.runtime.mpeg12 import (display_order, output_order,
@@ -164,10 +179,12 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "is_sequence", "ffmpeg_threads"]
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
-           "Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, VP8, VP9, FFV1, "
-           "HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG or Motion "
-           "JPEG; raw I420, YV12, Y800 and RGBA in .avi and .mkv), an .flv "
-           "file (Sorenson H.263), an MPEG program stream (.mpg, .mpeg, "
+           "Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 v2/v3, "
+           "WMV7/8, VP8, VP9, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
+           "ASUS V1/V2, PNG or Motion JPEG; raw I420, YV12, Y800 and RGBA in "
+           ".avi and .mkv), an .flv file (Sorenson H.263), a .wmv or .asf "
+           "file (MS-MPEG4 v2/v3, WMV7/8), an MPEG program stream (.mpg, "
+           ".mpeg, "
            ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
            "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
            ".h263, .263), a .y4m "
@@ -188,7 +205,7 @@ _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 _ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS
-_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv")
+_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv", "asf")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
@@ -212,7 +229,7 @@ def _unsupported(path: str) -> ValueError:
     return ValueError(
         f"cannot read or write {path!r}: the port handles {FORMATS}; other "
         f"containers and codecs are {ITEM_8} (convert elsewhere, e.g. "
-        "`ffmpeg -i in.wmv -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.wmv "
+        "`ffmpeg -i in.rm -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.rm "
         "-pix_fmt yuv420p out.y4m`)")
 
 
@@ -250,6 +267,13 @@ def _kind(path: str, writing: bool = False) -> str:
                 f"cannot write {path!r}: FLV holds Sorenson H.263, which the "
                 "port does not encode; write .mkv, .mp4 or .avi")
         return "flv"
+    if low.endswith(_ASF_EXTS):
+        if writing:
+            raise ValueError(
+                f"cannot write {path!r}: the port reads ASF (MS-MPEG4 and "
+                "WMV7/8), which it does not encode; write .mkv, .mp4 or "
+                ".avi")
+        return "asf"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
             raise ValueError(
@@ -366,9 +390,9 @@ class Y4MFile:
 # --------------------------------------------------------------- mp4 / avi
 
 class EncodedVideo:
-    """The video track of an ``.mp4``, ``.avi``, ``.mkv``, ``.webm`` or
-    ``.flv`` file, an MPEG program or transport stream or an elementary
-    stream: its
+    """The video track of an ``.mp4``, ``.avi``, ``.mkv``, ``.webm``,
+    ``.flv``, ``.wmv`` or ``.asf`` file, an MPEG program or transport stream
+    or an elementary stream: its
     size, fps and frame count as
     ``cv2.VideoCapture`` reports them, and its frames (in display order:
     an MPEG-1/2 stream's pictures come out reordered, as FFmpeg hands them
@@ -388,7 +412,8 @@ class EncodedVideo:
         kind = _kind(path)
         self.box = box = {"mp4": Mp4File, "mkv": MkvFile, "mpg": MpegPsFile,
                           "ts": MpegTsFile, "es": ElementaryFile,
-                          "avi": AviFile, "flv": FlvFile}[kind](path)
+                          "avi": AviFile, "flv": FlvFile,
+                          "asf": AsfFile}[kind](path)
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
         # the samples decoding walks: all of them, as cv2.VideoCapture.read
@@ -516,16 +541,16 @@ class EncodedVideo:
         elementary stream ``ElementaryFile.seek_target``'s rule; in an FLV
         exactly where OpenCV numbers its frames by their indices
         (``FlvFile.numbered``; after the seek FFmpeg's Sorenson decoder
-        skips no disposable picture, ``h263.Decoder(after_seek=True)``).
-        Other codecs and containers seek exactly.  ``capture`` is the index
+        skips no disposable picture, ``h263.Decoder(after_seek=True)``);
+        in ASF likewise (``AsfFile.numbered``).  Other codecs and containers seek exactly.  ``capture`` is the index
         FFmpeg's transport stream demuxer keeps through one capture's seeks
         (:meth:`read` passes its own; None: a capture just opened)."""
         box = self.box
         if isinstance(box, ElementaryFile):
             return box.seek_target(index)
-        if isinstance(box, FlvFile) and not box.numbered:
+        if isinstance(box, (FlvFile, AsfFile)) and not box.numbered:
             raise Unsupported(
-                f"{self.path}: a seek to frame {index} in an FLV whose "
+                f"{self.path}: a seek to frame {index} in an FLV or ASF whose "
                 f"timestamps OpenCV numbers otherwise than the frames' "
                 f"indices; not reproduced by the port ({ITEM_8})")
         if isinstance(box, (MpegPsFile, MpegTsFile)):
@@ -633,6 +658,9 @@ class EncodedVideo:
                                after_seek=seeking)
         if self.box.codec == "magicyuv":
             return MagicyuvDecoder(what=self.path)
+        if self.box.codec in MSMPEG4:   # the size comes from the container
+            return Msmpeg4Decoder(self.box.codec, self.width, self.height,
+                                  self.box.dsi, what=self.path)
         if self.box.codec == "asv":
             return AsvDecoder(self.width, self.height, self.box.tag,
                               self.box.dsi, what=self.path)

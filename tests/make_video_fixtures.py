@@ -2160,8 +2160,8 @@ LOSSLESS = ("hfyu_", "ffvh_", "ut_", "png_", "raw_", "mjpg_96x64")
 
 
 def _lossless_features(path: str) -> list:
-    """The port's HuffYUV, Ut Video, MagicYUV or ASV decoder's features over
-    the file."""
+    """The port's HuffYUV, Ut Video, MagicYUV, ASV or MS-MPEG4/WMV
+    decoder's features over the file."""
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import EncodedVideo
     v = EncodedVideo(path)
@@ -2775,6 +2775,416 @@ def asv_fixtures() -> None:
     _cv2_write(out("asv_sintel_436x1024.avi"), sintel_pair(), "ASV2")
 
 
+# ------------------------------------------------------- MS-MPEG4 / WMV
+
+def _guid(text: str) -> bytes:
+    import uuid
+    return uuid.UUID(text).bytes_le
+
+
+def _asf_object(g: str, body: bytes) -> bytes:
+    return _guid(g) + struct.pack("<Q", 24 + len(body)) + body
+
+
+def asf_mux(path: str, packets: list, w: int, h: int, fourcc: str,
+            extradata: bytes = b"", fps=25, packet_size: int = 3200,
+            multiple: bool = True, ec: bool = True,
+            preroll: int = 3100) -> None:
+    """MS-MPEG4/WMV packets (key frames by their picture headers) → an ASF
+    file laid out as FFmpeg's asf muxer lays one out: the Header Object
+    (File Properties: ``packet_size``-byte data packets, the play duration
+    and ``preroll``; Stream Properties: stream 1, video, the
+    BITMAPINFOHEADER with ``extradata``), the Data Object (each packet
+    error correction data where ``ec``, WORD padding, then several payloads
+    where ``multiple``, else one; each payload's replicated data the media
+    object's size and presentation time, ms from ``preroll``; a picture
+    split over as many packets as it needs), and a Simple Index Object (a
+    second an entry: the packet where the last key frame at or before it
+    starts)."""
+    from fractions import Fraction
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import codec_of
+    from opticalflow_tpu_torch.runtime.msmpeg4 import is_keyframe
+    codec = codec_of(fourcc, path)
+    rate = Fraction(fps).limit_denominator(1001)
+    stamps = [int(i / rate * 1000 + Fraction(1, 2))
+              for i in range(len(packets) + 1)]
+    head = (b"\x82\0\0" if ec else b"") + bytes([0x11 if multiple else 0x10,
+                                                0x5D])
+    fixed = len(head) + 2 + 4 + 2 + (1 if multiple else 0)
+    per = 17 if multiple else 15
+    out, cur, starts = [], [], []   # data packets, payloads, (ms, packet)
+
+    def flush():
+        body = b"".join(cur)
+        pad = packet_size - fixed - len(body)
+        send = struct.unpack("<I", cur[0][11:15])[0] if cur else 0
+        data = head + struct.pack("<HIH", pad, send, 0)
+        if multiple:
+            data += bytes([0x80 | len(cur)])
+        out.append(data + body + b"\0" * pad)
+        cur.clear()
+
+    for i, data in enumerate(packets):
+        key = is_keyframe(data, codec)
+        if key:
+            starts.append((stamps[i], len(out)))
+        off = 0
+        while off < len(data):
+            used = fixed + sum(len(c) for c in cur)
+            room = packet_size - used - per
+            if room <= 0 or (cur and not multiple):
+                flush()
+                continue
+            chunk = data[off:off + room]
+            pl = (bytes([0x81 if key else 0x01, (i + 1) & 0xFF])
+                  + struct.pack("<IBII", off, 8, len(data),
+                                stamps[i] + preroll))
+            if multiple:
+                pl += struct.pack("<H", len(chunk))
+            cur.append(pl + chunk)
+            off += len(chunk)
+            if not multiple:
+                flush()
+    if cur:
+        flush()
+    play = (stamps[-1] + preroll) * 10000
+    file_id = bytes(range(16))
+    bmp = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, 24,
+                      fourcc.encode("latin1"), w * h * 3, 0, 0, 0, 0)
+    tsd = struct.pack("<IIBH", w, h, 2, len(bmp) + len(extradata)) + bmp \
+        + extradata
+    stream = (_guid("BC19EFC0-5B4D-11CF-A8FD-00805F5C442B")
+              + _guid("20FB5700-5B55-11CF-A8FD-00805F5C442B")
+              + struct.pack("<QIIHI", 0, len(tsd), 0, 1, 0) + tsd)
+    index_n = play // 10_000_000 + 1
+    entries = b""
+    for k in range(index_n):
+        t = max(k * 1000 - preroll, 0)
+        at = [n for ms, n in starts if ms <= t] or [starts[0][1]]
+        entries += struct.pack("<IH", at[-1], 1)
+    index = _asf_object("33000890-E5B1-11CF-89F4-00A0C90349CB",
+                        file_id + struct.pack("<QII", 10_000_000, 1, index_n)
+                        + entries)
+    data_obj = _asf_object("75B22636-668E-11CF-A6D9-00AA0062CE6C",
+                           file_id + struct.pack("<QH", len(out), 0x101)
+                           + b"".join(out))
+
+    def header(total: int) -> bytes:
+        props = file_id + struct.pack(
+            "<QQQQQQIIII", total, 0, len(out), play, play - preroll * 10000,
+            preroll, 2, packet_size, packet_size, 1000000)
+        objs = [_asf_object("8CABDCA1-A947-11CF-8EE4-00C00C205365", props),
+                _asf_object("B7DC0791-A9B7-11CF-8EE6-00C00C205365", stream)]
+        return _asf_object("75B22630-668E-11CF-A6D9-00AA0062CE6C",
+                           struct.pack("<IBB", len(objs), 1, 2)
+                           + b"".join(objs))
+
+    total = len(header(0)) + len(data_obj) + len(index)
+    with open(path, "wb") as f:
+        f.write(header(total) + data_obj + index)
+
+
+def msmpeg4_avi(path: str, packets: list, w: int, h: int, fourcc: str,
+                extradata: bytes = b"") -> None:
+    """MS-MPEG4/WMV packets → an AVI by the port's muxer, its key frames
+    (the I-pictures) flagged in ``idx1``."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter, codec_of
+    from opticalflow_tpu_torch.runtime.msmpeg4 import is_keyframe
+    codec = codec_of(fourcc, path)
+    mux = AviWriter(path, (w, h), (25, 1), fourcc=fourcc,
+                    extradata=extradata)
+    for data in packets:
+        mux.write(data, is_keyframe(data, codec))
+    mux.release()
+
+
+def _msm_codes(name: str) -> list:
+    """(code, length) pairs of one of ``msmpeg4_tables.h``'s tables."""
+    v = _cpp_table(name, "msmpeg4_tables.h")
+    return list(zip(v[::2], v[1::2]))
+
+
+class _MsmWalker:
+    """MS-MPEG4 v3 pictures walked syntax element by element in Python, for
+    ``msmpeg4_retable``: each picture rebuilt with its DC differences and
+    motion vectors coded in other tables than libavcodec's encoder picks
+    (it always takes DC and MV table 1), every other bit copied."""
+
+    def __init__(self):
+        def vlc(pairs, syms=None):
+            return {format(c, f"0{n}b"): (syms[i] if syms else i)
+                    for i, (c, n) in enumerate(pairs)}
+        self.mb_i = vlc(_msm_codes("kMbI"))
+        self.cbp = vlc(_msm_codes("kCbp3"))
+        self.dcs = [[_msm_codes(f"kDc{t}{c}") for c in "LC"] for t in (0, 1)]
+        self.mv = []
+        for t in (0, 1):
+            lens = _cpp_table(f"kMv{t}Lens", "msmpeg4_tables.h")
+            syms = _cpp_table(f"kMv{t}Syms", "msmpeg4_tables.h")
+            code, pairs = 0, []
+            for n in lens:                 # ff_vlc_init_from_lengths' codes
+                pairs.append((code >> (32 - n), n))
+                code += 1 << (32 - n)
+            self.mv.append((pairs, syms))
+        # ff_rl_table: (codes with the escape last, the first ending code)
+        self.rl = []
+        for name, last in (("kRl0", 85), ("kRl185", 119), (None, 67),
+                           ("kRl1", 81), ("kRl168", 99), ("mpeg_inter", 58)):
+            if name is None:
+                pairs = _msm_common("kIntraTcoef")
+            elif name == "mpeg_inter":
+                pairs = _msm_common("kInterTcoef")
+            else:
+                pairs = _msm_codes(f"{name}Codes")
+            self.rl.append((vlc(pairs), len(pairs) - 1, last))
+
+    def read(self, codes: dict) -> int:
+        for n in range(1, 27):
+            w = self.bits[self.pos:self.pos + n]
+            if w in codes:
+                self.pos += n
+                return codes[w]
+        raise ValueError(f"no code at bit {self.pos}")
+
+    def take(self, n: int) -> str:
+        self.pos += n
+        return self.bits[self.pos - n:self.pos]
+
+    def copy(self, n: int) -> None:
+        self.out.append(self.take(n))
+
+    def code012(self) -> int:
+        b = self.take(1)
+        self.out.append(b)
+        if b == "0":
+            return 0
+        b = self.take(1)
+        self.out.append(b)
+        return 1 + int(b)
+
+    def block_ac(self, rl: int) -> None:
+        codes, esc, last_at = self.rl[rl]
+        while True:
+            start = self.pos
+            sym = self.read(codes)
+            if sym != esc:
+                last = sym >= last_at
+                self.pos += 1
+            elif self.bits[self.pos] == "1" or self.bits[self.pos + 1] == "1":
+                self.pos += 1 if self.bits[self.pos] == "1" else 2
+                sym = self.read(codes)
+                last = sym >= last_at
+                self.pos += 1
+            else:
+                self.pos += 2
+                last = self.bits[self.pos] == "1"
+                self.pos += 15
+            self.out.append(self.bits[start:self.pos])
+            if last:
+                return
+
+    def dc(self, chroma: bool) -> None:
+        pairs = self.dcs[self.src_dc][chroma]
+        sym = self.read({format(c, f"0{n}b"): i
+                         for i, (c, n) in enumerate(pairs)})
+        c, n = self.dcs[self.dst_dc][chroma][sym]
+        self.out.append(format(c, f"0{n}b"))
+        if sym == 119:
+            self.copy(9)
+        elif sym:
+            self.copy(1)
+
+    def motion(self) -> None:
+        pairs, syms = self.mv[self.src_mv]
+        sym = self.read({format(c, f"0{n}b"): syms[i]
+                         for i, (c, n) in enumerate(pairs)})
+        if not sym:
+            sym = int(self.take(6), 2) << 8 | int(self.take(6), 2)
+        pairs, syms = self.mv[self.dst_mv]
+        if sym in syms:
+            c, n = pairs[syms.index(sym)]
+            self.out.append(format(c, f"0{n}b"))
+        else:
+            c, n = pairs[syms.index(0)]
+            self.out.append(format(c, f"0{n}b")
+                            + format(sym >> 8, "06b") + format(sym & 63,
+                                                               "06b"))
+
+    def picture(self, data: bytes, mb_w: int, mb_h: int, dc_table: int,
+                mv_table: int) -> bytes:
+        self.bits = "".join(format(b, "08b") for b in data)
+        self.pos, self.out = 0, []
+        intra = self.bits[:2] == "00"
+        self.copy(7)                               # type, quantiser
+        if intra:
+            self.copy(5)                           # slice code
+            rl_chroma, rl = self.code012(), self.code012()
+            self.src_dc, self.src_mv = int(self.take(1)), 1
+            self.out.append(str(dc_table))
+            coded = {}
+        else:
+            skip = self.take(1)
+            self.out.append(skip)
+            rl = rl_chroma = self.code012()
+            self.src_dc, self.src_mv = int(self.take(1)), int(self.take(1))
+            self.out.append(f"{dc_table}{mv_table}")
+        self.dst_dc, self.dst_mv = dc_table, mv_table
+        for y in range(mb_h):
+            for x in range(mb_w):
+                if intra:
+                    start = self.pos
+                    code = self.read(self.mb_i)
+                    self.out.append(self.bits[start:self.pos])
+                    cbp = 0
+                    for i in range(6):
+                        val = code >> (5 - i) & 1
+                        if i < 4:      # ff_msmpeg4_coded_block_pred
+                            bx, by = 2 * x + (i & 1), 2 * y + (i >> 1)
+                            a = coded.get((bx - 1, by), 0)
+                            b = coded.get((bx - 1, by - 1), 0)
+                            c = coded.get((bx, by - 1), 0)
+                            val ^= a if b == c else c
+                            coded[bx, by] = val
+                        cbp |= val << (5 - i)
+                    mb_intra = True
+                else:
+                    if skip == "1":
+                        self.copy(1)
+                        if self.bits[self.pos - 1] == "1":
+                            continue
+                    start = self.pos
+                    code = self.read(self.cbp)
+                    self.out.append(self.bits[start:self.pos])
+                    mb_intra, cbp = not code & 0x40, code & 0x3F
+                    if not mb_intra:
+                        self.motion()
+                if mb_intra:
+                    self.copy(1)                   # ac_pred
+                for i in range(6):
+                    if mb_intra:
+                        self.dc(i >= 4)
+                    if cbp >> (5 - i) & 1:
+                        self.block_ac(rl if mb_intra and i < 4 else
+                                      3 + rl_chroma if mb_intra else 3 + rl)
+        rest = self.bits[self.pos:]
+        if intra:                                  # the extension header
+            rest = rest[:17]
+        out = "".join(self.out) + rest
+        out += "0" * (-len(out) % 8)
+        return bytes(int(out[i:i + 8], 2) for i in range(0, len(out), 8))
+
+
+def _msm_common(name: str) -> list:
+    v = _cpp_table(name, "mpeg_common.h")
+    return list(zip(v[::2], v[1::2]))
+
+
+def msmpeg4_retable(packets: list, w: int, h: int, dc_table: int,
+                    mv_table: int) -> list:
+    """MS-MPEG4 v3 packets with every DC difference and motion vector coded
+    in DC table ``dc_table`` and MV table ``mv_table`` (a vector table 0
+    does not hold goes through its escape)."""
+    walker = _MsmWalker()
+    return [walker.picture(p, (w + 15) // 16, (h + 15) // 16, dc_table,
+                           mv_table) for p in packets]
+
+
+def _avi(path: str):
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviFile
+    return AviFile(path)
+
+
+MSMPEG4_FOURCCS = {"msmpeg4v2": "MP42", "msmpeg4": "DIV3", "wmv1": "WMV1",
+                   "wmv2": "WMV2"}
+
+
+def msmpeg4_fixtures() -> None:
+    """MS-MPEG4 v2 (``MP42``), v3 (``DIV3``), WMV7 (``WMV1``) and WMV8
+    (``WMV2``) as cv2 writes and reads them: 30 frames (key frames at 0, 12
+    and 24) in .avi, .mkv, .mov and .wmv (and .asf for DIV3 and WMV2), and
+    a 53x37 input in .avi (cv2 writes 52x36); WMV8 in .wmv at 30000/1001
+    (45 frames: FFmpeg's probe reads 41) and 24 fps, DIV3 at 15 fps.  From
+    libavcodec's four encoders (``Lavc.encode_intra``) at fixed quantisers
+    1, 4, 12 and 31 (every RL table and escape the encoders write; WMV8's
+    three coded-block tables), v2 and v3 at 53x37 (the encoders that take
+    an odd size), WMV7 at 64 kb/s (its inter-intra prediction), hard
+    edges at quantiser 1 (DC escapes), muxed by ``msmpeg4_avi``; cv2's
+    DIV3 and the v3 hard edges recoded in DC and MV table 0
+    (``msmpeg4_retable``: libavcodec always picks table 1); WMV7 in an ASF of 256-byte packets with one payload
+    each and no error correction data (``asf_mux``); and the Sintel pair's
+    13 frames at 436x1024 in WMV8 at 300 kb/s (``asf_mux``: pictures split
+    over many packets), which the card run reads, with three frames of it
+    in each other codec (in .avi) for its host decode times."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 30, seed=50)
+    for fcc in ("MP42", "DIV3", "WMV1", "WMV2"):
+        exts = ("avi", "mkv", "mov", "wmv") + (
+            ("asf",) if fcc in ("DIV3", "WMV2") else ())
+        for ext in exts:
+            _cv2_write(out(f"msm_{fcc.lower()}_96x64.{ext}"), clip, fcc)
+        _cv2_write(out(f"msm_{fcc.lower()}_52x36.avi"),
+                   moving_clip(37, 53, 14, seed=51), fcc)
+    _cv2_write(out("msm_wmv2_2997_96x64.wmv"),
+               moving_clip(64, 96, 45, seed=52), "WMV2", fps=30000 / 1001)
+    _cv2_write(out("msm_wmv2_24fps_96x64.wmv"), clip[:14], "WMV2", fps=24)
+    _cv2_write(out("msm_div3_15fps_96x64.wmv"), clip[:14], "DIV3", fps=15)
+    lavc = Lavc()
+
+    def lavc_avi(name, codec, frames, **opts):
+        h, w = frames[0].shape[:2]
+        ext, pk = lavc.encode_intra(frames, codec, "yuv420p", g=12, **opts)
+        msmpeg4_avi(out(name), [p for p, _ in pk], w, h,
+                    MSMPEG4_FOURCCS[codec], ext)
+
+    small = moving_clip(36, 52, 14, seed=53, speed=3.0)
+    for codec in MSMPEG4_FOURCCS:
+        for q in (1, 4, 12, 31):
+            lavc_avi(f"msm_lavc_{codec}_q{q}_52x36.avi", codec, small,
+                     qmin=q, qmax=q)
+    odd = moving_clip(37, 53, 14, seed=54, speed=3.0)
+    for codec in ("msmpeg4v2", "msmpeg4"):
+        lavc_avi(f"msm_lavc_{codec}_53x37.avi", codec, odd, qmin=3, qmax=3)
+    lavc_avi("msm_lavc_wmv1_64k_96x64.avi", "wmv1", clip[:14], b=64000)
+    # hard edges at quantiser 1: DC differences past the DC tables (their
+    # escape) and all three coefficient escapes
+    rng = np.random.default_rng(55)
+    cells = (rng.integers(0, 2, (8, 12, 3)) * 255).astype(np.uint8)
+    edges = cells.repeat(8, 0).repeat(8, 1)
+    sharp = [np.roll(edges, 3 * i, axis=1) for i in range(4)]
+    for codec in ("msmpeg4", "wmv1", "wmv2"):
+        lavc_avi(f"msm_lavc_{codec}_edges_96x64.avi", codec, sharp, qmin=1,
+                 qmax=1)
+    # DC and MV table 0, which libavcodec's encoder never picks: cv2's DIV3
+    # and the hard edges recoded (msmpeg4_retable)
+    for src, dst in (("msm_div3_96x64.avi", "msm_retable_div3_96x64.avi"),
+                     ("msm_lavc_msmpeg4_edges_96x64.avi",
+                      "msm_retable_edges_96x64.avi")):
+        box = _avi(out(src))
+        with open(out(src), "rb") as f:
+            pk = [box.sample(f, i) for i in range(len(box.sizes))]
+        msmpeg4_avi(out(dst), msmpeg4_retable(pk, 96, 64, 0, 0), 96, 64,
+                    "DIV3")
+    ext, pk = lavc.encode_intra(clip[:14], "wmv1", "yuv420p", g=12, qmin=2,
+                                qmax=2)
+    asf_mux(out("msm_asf_single_wmv1_96x64.asf"), [p for p, _ in pk], 96, 64,
+            "WMV1", ext, packet_size=256, multiple=False, ec=False)
+    im1, im2 = sintel_pair()
+    ext, pk = lavc.encode_intra([im1 if i % 2 == 0 else im2
+                                 for i in range(13)], "wmv2", "yuv420p",
+                                g=12, b=300000, qmin=8)
+    asf_mux(out("msm_sintel_436x1024.wmv"), [p for p, _ in pk], 1024, 436,
+            "WMV2", ext)
+    # three frames of the pair in each other codec: the card run's host
+    # decode times at the full width
+    for codec in ("msmpeg4v2", "msmpeg4", "wmv1"):
+        lavc_avi(f"msm_sintel_{codec}_436x1024.avi", codec, [im1, im2, im1],
+                 b=300000, qmin=8)
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -2960,8 +3370,11 @@ def write_manifest(keep: bool = False) -> None:
                 manifest["files"][name][key] = _lossless_features(path)
         if name.startswith("flv_"):
             manifest["files"][name]["flv_features"] = _flv_features(path)
+        if name.startswith("msm_"):
+            manifest["files"][name]["msmpeg4_features"] = \
+                _lossless_features(path)
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
-                             "asv_") + LOSSLESS)
+                             "asv_", "msm_") + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
             # a seek that reads a frame the sequential read never shows
@@ -3001,8 +3414,9 @@ def write_manifest(keep: bool = False) -> None:
     from opticalflow_tpu_torch.runtime.asv import FEATURES as ASV
     from opticalflow_tpu_torch.runtime.h263 import SORENSON_FEATURES
     from opticalflow_tpu_torch.runtime.magicyuv import FEATURES as MAGY
+    from opticalflow_tpu_torch.runtime.msmpeg4 import FEATURES as MSMP4
     for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
-                       ("asv", ASV)):
+                       ("asv", ASV), ("msmpeg4", MSMP4)):
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
@@ -3025,7 +3439,7 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
-          asv_fixtures)
+          asv_fixtures, msmpeg4_fixtures)
 
 
 if __name__ == "__main__":

@@ -245,11 +245,11 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
     flv.write_bytes(b"FLV\x01")
     with pytest.raises(ValueError, match="truncated"):
         vio.video_info(str(flv))
-    asf = tmp_path / "clip.asf"
-    asf.write_bytes(b"FLV\x01")
+    rm = tmp_path / "clip.rm"
+    rm.write_bytes(b"FLV\x01")
     with pytest.raises(ValueError, match=r"\.mp4.*\.mkv.*\.y4m.*PNG.*item 8"):
-        vio.video_info(str(asf))
-    # an MPEG-2 program stream, once refused as the .asf is, reads as cv2
+        vio.video_info(str(rm))
+    # an MPEG-2 program stream, once refused as the .rm is, reads as cv2
     # reads it; under a transport or elementary stream's name it is
     # refused
     mpg = os.path.join(fixtures, "mpeg2_176x144.mpg")
