@@ -334,7 +334,21 @@ non-zero, and no result line is printed):
      the same ``.wmv``: K1 and B1 5 a step; (d) host ms to decode a
      436x1024 frame of v2, v3, WMV7 and WMV8 beside H.263+ and Sorenson,
      and to convert it; (e) no cv2, PIL or jax in ``sys.modules``;
- 28. one JSON line listing every kernel with its launches on its path,
+ 28. Snow (host C++ ``runtime/snow.cpp`` behind the AVI, Matroska,
+     QuickTime and ASF demuxers; ``phase_snow``): (a) every fixture of the
+     ``snow`` group (cv2's writer: SNOW in .avi/.mkv/.mov/.wmv, 52x36, 24
+     fps; libavcodec's 5/3 wavelet, lossless, qpel, mv4, three references,
+     iterative search, key frames only, yuv410p/yuv444p/gray, a quantiser
+     ladder, an odd 53x37) decodes to its manifest's cv2 digests, fps, size
+     and count, every recorded seek reads cv2's frame, the crafted headers
+     of what is left out raise naming item 8, and ``memc_only``'s key
+     frames, which FFmpeg refuses, raise; (b) ``cli/extract_video --mode
+     arrows --batch 4 --dtype bfloat16`` over the 13-frame 436x1024 Snow
+     AVI: K1 15; (c) ``cli/train --regime pseudo`` for 3 steps over the
+     same AVI: K1 and B1 5 a step; (d) host ms to decode and to convert a
+     436x1024 Snow frame beside MS-MPEG4 v3 and H.263+; (e) no cv2, PIL
+     or jax in ``sys.modules``;
+ 29. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -350,9 +364,9 @@ phase 17's MPEG-4 paths, phase 18's Motion JPEG and image-sequence
 paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
 phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
 phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
-phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths
-and phase 27's MS-MPEG4/WMV paths (K1 in the video CLI's runs, K1 and B1
-in the pseudo steps).
+phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
+phase 27's MS-MPEG4/WMV paths and phase 28's Snow paths (K1 in the video
+CLI's runs, K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -5910,6 +5924,146 @@ def phase_msmpeg4(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# phase 28: Snow in AVI, Matroska, QuickTime and ASF
+SNOW_CLIP = "snow_sintel_436x1024.avi"   # cv2's writer, 13 frames
+SNOW_FRAMES = 13
+SNOW_MEMC = "snow_lavc_memc_only_64x48.avi"   # FFmpeg refuses its frames
+
+
+def phase_snow(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """Snow through the port's entry points on the card machine (host C++
+    ``runtime/snow.cpp`` behind the AVI, Matroska, QuickTime and ASF
+    demuxers): (a) every fixture of the ``snow`` group equals cv2's
+    digests, fps, size and count, each recorded seek reads cv2's frame, the
+    crafted headers of what is left out raise naming item 8, and the
+    ``memc_only`` stream, of which cv2 reads no frame, raises; (b) the
+    video CLI over the 436x1024 Snow AVI, K1 on the card, bf16; (c) the
+    pseudo regime over the same AVI (K1 and B1); (d) host ms to decode and
+    to convert a 436x1024 Snow frame, beside MS-MPEG4 v3 and H.263+; (e)
+    no cv2, PIL or jax imported.  Returns its results, each path's K1 (and
+    B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime import h263, msmpeg4, snow
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "snow")
+    memc = new.pop(SNOW_MEMC)
+    assert memc["decoded"] == 0 and "port_refuses" in memc, memc
+    try:
+        list(vio.read_frames(os.path.join(MP4_DIR, SNOW_MEMC)))
+    except ValueError as e:
+        assert "block tree" in str(e), str(e)
+    else:
+        raise AssertionError(f"{SNOW_MEMC} was read")
+    checked = check_fixtures(new)
+    assert not checked["seeks_none"], checked
+    refused = checked["refused"]
+    assert refused == sorted(n for n in new if n.startswith("snow_craft_")
+                             and n != "snow_craft_default_64x48.avi"), refused
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    features = sorted({f for w in new.values()
+                       for f in w.get("snow_features", [])})
+    unreached = [f for f in snow.FEATURES if f not in features]
+    assert unreached == manifest["snow_unreached"], unreached
+    log(f"[28] (a) {len(new)} fixtures (SNOW in .avi/.mkv/.mov/.wmv; "
+        f"libavcodec's tools, pixel formats and quantisers) decoded to "
+        f"cv2.VideoCapture's {n_frames} frame digests and its "
+        f"fps/size/count, {n_seeks} seeks to the frames cv2's read in "
+        f"{time.perf_counter() - t0:.2f} s; crafted headers refused: "
+        f"{len(refused)}; memc_only refused as FFmpeg refuses it; features "
+        f"reached {len(features)} of {len(snow.FEATURES)} (none of the "
+        f"fixtures: {unreached}); {card}")
+
+    # (b) the video CLI over the 436x1024 Snow AVI
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, SNOW_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_snow.y4m"), "--ckpt", ckpt,
+                     "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    SNOW_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(SNOW_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows == 15, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[28] (b) extract_video --mode arrows B={VIDEO_B} bf16, Snow .avi "
+        f"({SNOW_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps over "
+        f"the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode "
+        f"thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} windows, K1 {launched} "
+        f"launches; {card}")
+
+    # (c) the pseudo regime over the AVI (pairs read in any order: seeks)
+    out_dir = os.path.join(tmp, "snow_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", clip, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (SNOW_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[28] (c) cli/train --regime pseudo over the Snow .avi "
+        f"({SNOW_FRAMES} frames {FULL_H}x{FULL_W} -> 384x512), {steps} "
+        f"steps at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; "
+        f"K1/B1 launches {launches['pseudo']} (5 and 5 a step); "
+        f"{wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: decode, then convert to
+    # BGR; Snow beside MS-MPEG4 v3 and H.263+ of the same pair
+    host = {}
+    for codec, name in (("snow", SNOW_CLIP),
+                        ("msmpeg4v3", MSM_HOST["msmpeg4v3"]),
+                        ("h263p", PLUS_CLIP)):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        box = video.box
+        with open(video.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(len(box.sizes))]
+        make = ((lambda: snow.Decoder(FULL_W, FULL_H)) if codec == "snow"
+                else (lambda b=box: msmpeg4.Decoder(b.codec, FULL_W, FULL_H,
+                                                    b.dsi))
+                if codec == "msmpeg4v3" else h263.Decoder)
+        ms, got = host_decode(make, samples)
+        host[codec] = {"decode_ms": ms, "convert_ms": convert_ms(got),
+                       "bytes_a_frame": sum(map(len, samples)) / len(samples),
+                       "frames": len(samples)}
+    log("[28] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (decode, convert to BGR): " + "; ".join(
+            f"{k} {v['decode_ms']!r} + {v['convert_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame, {v['frames']} frames)"
+            for k, v in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[28] (e) cv2, PIL, jax not imported; phase 28 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new) + 1, "frames": n_frames, "seeks": n_seeks,
+            "refused": refused + [SNOW_MEMC], "features": features,
+            "unreached": unreached, "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6153,6 +6307,16 @@ def main() -> int:
     assert msmpeg4_launches == correlation_cuda.launches > 0
     assert msm["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the Snow paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        snw = phase_snow(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                         card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    snow_launches = snw["launches"]["cli"] + \
+        snw["launches"]["pseudo"]["correlation_fwd"]
+    assert snow_launches == correlation_cuda.launches > 0
+    assert snw["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -6231,7 +6395,10 @@ def main() -> int:
          "magy_flv_asv": mfa,
          # phase 27: the video CLI over the 436x1024 WMV8 .wmv, and the
          # pseudo steps over the same .wmv (5 a window, 5 a step)
-         "launches_msmpeg4": msmpeg4_launches, "msmpeg4": msm},
+         "launches_msmpeg4": msmpeg4_launches, "msmpeg4": msm,
+         # phase 28: the video CLI over the 436x1024 Snow AVI, and the
+         # pseudo steps over the same AVI (5 a window, 5 a step)
+         "launches_snow": snow_launches, "snow": snw},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -6282,7 +6449,9 @@ def main() -> int:
          "launches_magy_flv_asv":
              mfa["launches"]["pseudo"]["correlation_bwd"],
          # phase 27: the pseudo regime's steps over a WMV8 .wmv
-         "launches_msmpeg4": msm["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_msmpeg4": msm["launches"]["pseudo"]["correlation_bwd"],
+         # phase 28: the pseudo regime's steps over a Snow .avi
+         "launches_snow": snw["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -1,5 +1,5 @@
 """Advanced Systems Format (``.asf``, ``.wmv``): the demuxer of the port's
-MS-MPEG4/WMV path, in Python (no FFmpeg), read only.
+MS-MPEG4/WMV and Snow path, in Python (no FFmpeg), read only.
 
 :class:`AsfFile` reads what FFmpeg's asf demuxer (``asfdec_f.c``) reads of
 a file for ``cv2.VideoCapture``:

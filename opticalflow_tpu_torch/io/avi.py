@@ -39,6 +39,8 @@ codec:
     after the BITMAPINFOHEADER), in any case (``MSMPEG4_TAGS``): decoded
     by ``runtime/msmpeg4`` at the header's size, keyframes from ``idx1``;
     v1's ``MPG4`` and ``MP41`` raise;
+  * Snow (``SNOW``, in any case): decoded by ``runtime/snow`` at the
+    header's size, keyframes from ``idx1``;
   * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
     swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
     FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
@@ -68,11 +70,12 @@ from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.msmpeg4 import VERSIONS as _MSMPEG4
 from opticalflow_tpu_torch.runtime.msmpeg4 import \
     is_keyframe as msmpeg4_is_keyframe
+from opticalflow_tpu_torch.runtime.snow import is_keyframe as snow_is_keyframe
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
 __all__ = ["AviFile", "AviWriter", "ASV_TAGS", "FLV1_TAGS", "H263_TAGS",
            "HUFFYUV_TAGS", "MAGICYUV_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
-           "MSMPEG4_TAGS",
+           "MSMPEG4_TAGS", "SNOW_TAGS",
            "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
            "UTVIDEO_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
@@ -119,11 +122,13 @@ MSMPEG4_TAGS = {"MP42": "msmpeg4v2", "DIV2": "msmpeg4v2",
                                             "DIV5", "DIV6", "DVX3", "AP41",
                                             "COL0", "COL1")},
                 "WMV1": "wmv1", "WMV2": "wmv2", "GXVE": "wmv2"}
+# riff.c's tag of snow, matched without regard to case
+SNOW_TAGS = {"SNOW"}
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
           "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
           "MPG4": "MS-MPEG4 v1", "MP41": "MS-MPEG4 v1", "WMV3": "WMV9",
-          "SNOW": "Snow", "drac": "Dirac"}
+          "drac": "Dirac"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
 
@@ -241,11 +246,11 @@ class AviFile:
     def _keys(self, idx1) -> List[int]:
         """Indices of the keyframes: idx1's flags for the frames it covers;
         frames past it (AVIX parts) count as keyframes when they are
-        MPEG-4 I-VOPs, H.263, Sorenson or MS-MPEG4/WMV I-pictures, FFV1
-        or VP8 key frames; all raw, intra-only and Motion JPEG frames
+        MPEG-4 I-VOPs, H.263, Sorenson or MS-MPEG4/WMV I-pictures, FFV1,
+        Snow or VP8 key frames; all raw, intra-only and Motion JPEG frames
         are."""
-        if self.codec not in ("mpeg4", "vp8", "h263", "flv1",
-                              "ffv1") + tuple(_MSMPEG4):
+        if self.codec not in ("mpeg4", "vp8", "h263", "flv1", "ffv1",
+                              "snow") + tuple(_MSMPEG4):
             return list(range(len(self.sizes)))
         want = b"%02d" % self._stream
         flags = [fl for fcc, fl, _, _ in idx1
@@ -262,6 +267,8 @@ class AviFile:
                             is_h263_intra(head, sorenson=True)
                             if self.codec == "flv1" else
                             ffv1_is_keyframe(head) if self.codec == "ffv1"
+                            else snow_is_keyframe(head)
+                            if self.codec == "snow"
                             else msmpeg4_is_keyframe(head, self.codec)
                             if self.codec in _MSMPEG4
                             else is_keyframe(head)):
@@ -288,8 +295,8 @@ def codec_of(tag: str, what: str) -> str:
     """The codec FFmpeg picks for a BITMAPINFOHEADER's ``biCompression``:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
     ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
-    ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png`` or
-    one of ``MSMPEG4_TAGS``' codecs; anything else raises
+    ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png``,
+    ``snow`` or one of ``MSMPEG4_TAGS``' codecs; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -323,10 +330,12 @@ def codec_of(tag: str, what: str) -> str:
         return "asv"
     if tag.upper() in MSMPEG4_TAGS:
         return MSMPEG4_TAGS[tag.upper()]
+    if tag.upper() in SNOW_TAGS:
+        return "snow"
     name = _NAMES.get(tag.upper(), _NAMES.get(tag, f"the {tag!r} codec"))
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
-                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, FFV1, HuffYUV, "
+                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, FFV1, HuffYUV, "
                       f"FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
                       f"JPEG, raw I420, YV12, Y800 and RGBA, VP8 and VP9 "
                       f"only ({ITEM_8})")

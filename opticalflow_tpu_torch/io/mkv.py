@@ -24,6 +24,8 @@ needed.  The codecs, by ``CodecID``:
   * ``V_FFV1``: ``runtime/ffv1``, ``CodecPrivate`` as its extradata;
   * ``V_MPEG4/MS/V3``: ``runtime/msmpeg4`` (MS-MPEG4 v3, what
     ``cv2.VideoWriter`` writes for ``DIV3`` into ``.mkv``);
+  * ``V_SNOW``: ``runtime/snow`` (what ``cv2.VideoWriter`` writes for
+    ``SNOW`` into ``.mkv``);
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
     ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
@@ -364,6 +366,8 @@ class MkvFile:
             self.codec, self.tag = "ffv1", "FFV1"
         elif codec == "V_MPEG4/MS/V3":
             self.codec, self.tag = "msmpeg4v3", "DIV3"
+        elif codec == "V_SNOW":
+            self.codec, self.tag = "snow", "SNOW"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
             if self.tag in ("I420", "IYUV"):
@@ -389,7 +393,8 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, MS-MPEG4 v3, MPEG-1, MPEG-2, FFV1, "
+                              f"Part 2, MS-MPEG4 v3, Snow, MPEG-1, MPEG-2, "
+                              f"FFV1, "
                               f"Motion JPEG, "
                               f"raw video "
                               f"and the AVI fourccs of V_MS/VFW/FOURCC "

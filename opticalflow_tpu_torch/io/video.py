@@ -50,6 +50,16 @@ muxers and codecs and reads what those read, frame for frame:
     (29.97 as 30000/1001).  MS-MPEG4 v1, WMV8's J-pictures, mspel, ABT
     blocks other than 8x8 and loop filter, and ASF files whose fps or count
     FFmpeg guesses otherwise, raise naming item 8;
+  * **Snow** (``SNOW`` in AVI and ASF, ``V_SNOW`` in Matroska, the
+    ``SNOW`` entry in QuickTime: what ``cv2.VideoWriter`` writes for
+    fourcc ``SNOW``), decoded by ``runtime/snow`` bit-exactly to FFmpeg at
+    the container's size: the 9/7 and 5/3 wavelets, lossless coding,
+    overlapped block motion compensation at half and quarter pel, blocks
+    split one level, several references, in yuv420p, yuv410p, yuv444p or
+    gray (converted as swscale converts each).  What libavcodec's encoder
+    never writes (an MC filter other than its default, a temporal
+    decomposition, spatial scalability, ``always_reset``, other colour
+    spaces) raises naming item 8;
   * a picture of another size than its stream's first (a VP9 frame that
     changed size, a VP8 key frame, an H.263 picture header) is scaled back
     to the first size through swscale's bicubic scaler, as
@@ -92,8 +102,7 @@ muxers and codecs and reads what those read, frame for frame:
     its 8-bit GBRP, GBRAP, 4:4:4, 4:2:2, 4:2:0, YUVA 4:4:4 and grey
     layouts, every predictor, slices, the header's matrix and range) and
     **ASUS V1/V2** (``ASV1``, ``ASV2``; ``runtime/asv``: intra DCT,
-    yuv420p).  MS-MPEG4, WMV7/8, Snow, Dirac, MagicYUV above 8 bits or
-    interlaced, Ut Video's 10-bit and packed families, FFVHuff above 8
+    yuv420p).  Dirac, MagicYUV above 8 bits or interlaced, Ut Video's 10-bit and packed families, FFVHuff above 8
     bits, APNG-style packets and 24-bit BI_RGB raise, naming item 8;
   * **image sequences** (:class:`ImageSequence`): a printf pattern such as
     ``frames/%06d.jpg``, or one image file, read by FFmpeg's image2 rules
@@ -161,6 +170,7 @@ from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   yuv_to_bgr)
 from opticalflow_tpu_torch.runtime.msmpeg4 import VERSIONS as MSMPEG4
 from opticalflow_tpu_torch.runtime.msmpeg4 import Decoder as Msmpeg4Decoder
+from opticalflow_tpu_torch.runtime.snow import Decoder as SnowDecoder
 from opticalflow_tpu_torch.runtime.mpeg12 import CHROMA_SITE as MPEG12_SITE
 from opticalflow_tpu_torch.runtime.mpeg12 import Decoder as Mpeg12Decoder
 from opticalflow_tpu_torch.runtime.mpeg12 import (display_order, output_order,
@@ -180,10 +190,11 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
            "Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 v2/v3, "
-           "WMV7/8, VP8, VP9, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
-           "ASUS V1/V2, PNG or Motion JPEG; raw I420, YV12, Y800 and RGBA in "
-           ".avi and .mkv), an .flv file (Sorenson H.263), a .wmv or .asf "
-           "file (MS-MPEG4 v2/v3, WMV7/8), an MPEG program stream (.mpg, "
+           "WMV7/8, Snow, VP8, VP9, FFV1, HuffYUV, FFVHuff, Ut Video, "
+           "MagicYUV, ASUS V1/V2, PNG or Motion JPEG; raw I420, YV12, Y800 "
+           "and RGBA in .avi and .mkv), an .flv file (Sorenson H.263), a "
+           ".wmv or .asf file (MS-MPEG4 v2/v3, WMV7/8, Snow), an MPEG "
+           "program stream (.mpg, "
            ".mpeg, "
            ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
            "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
@@ -228,7 +239,8 @@ def ffmpeg_threads() -> int:
 def _unsupported(path: str) -> ValueError:
     return ValueError(
         f"cannot read or write {path!r}: the port handles {FORMATS}; other "
-        f"containers and codecs are {ITEM_8} (convert elsewhere, e.g. "
+        f"containers (FFmpeg's .nut among them) and codecs are {ITEM_8} "
+        "(convert elsewhere, e.g. "
         "`ffmpeg -i in.rm -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.rm "
         "-pix_fmt yuv420p out.y4m`)")
 
@@ -270,9 +282,9 @@ def _kind(path: str, writing: bool = False) -> str:
     if low.endswith(_ASF_EXTS):
         if writing:
             raise ValueError(
-                f"cannot write {path!r}: the port reads ASF (MS-MPEG4 and "
-                "WMV7/8), which it does not encode; write .mkv, .mp4 or "
-                ".avi")
+                f"cannot write {path!r}: the port reads ASF (MS-MPEG4, "
+                "WMV7/8 and Snow), which it does not encode; write .mkv, "
+                ".mp4 or .avi")
         return "asf"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
@@ -661,6 +673,8 @@ class EncodedVideo:
         if self.box.codec in MSMPEG4:   # the size comes from the container
             return Msmpeg4Decoder(self.box.codec, self.width, self.height,
                                   self.box.dsi, what=self.path)
+        if self.box.codec == "snow":    # the size comes from the container
+            return SnowDecoder(self.width, self.height, what=self.path)
         if self.box.codec == "asv":
             return AsvDecoder(self.width, self.height, self.box.tag,
                               self.box.dsi, what=self.path)

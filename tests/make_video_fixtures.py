@@ -144,13 +144,18 @@ are seeded blurred noise, panned a few pixels a frame (``moving_clip``):
   * MagicYUV (``magicyuv_fixtures``, ``magy_*``), Sorenson H.263
     (``sorenson_fixtures``, ``flv_*``, in ``.flv`` by ``flv_mux``) and ASUS
     V1/V2 (``asv_fixtures``, ``asv_*``), each with the Sintel pair at
-    436x1024, which the card run decodes.
+    436x1024, which the card run decodes;
+  * MS-MPEG4 and WMV7/8 (``msmpeg4_fixtures``, ``msm_*``) and Snow
+    (``snow_fixtures``, ``snow_*``: cv2's writer in .avi, .mkv, .mov and
+    .wmv, libavcodec's encoder with each of its tools, the crafted headers
+    of ``SnowCraft``), with the Sintel pair at 436x1024 too.
 
 Each VP8 file's manifest entry lists the header features and coding modes
 the port's decoder met in it (``vp8_features``, ``runtime/vp8.FEATURES``);
 each VP9 and MPEG-1/2 file's likewise (``vp9_features``,
 ``mpeg12_features``, ``h263_features``; ``magicyuv_features``,
-``flv_features``, ``asv_features``), and each MPEG-1/2, H.263,
+``flv_features``, ``asv_features``, ``msmpeg4_features``,
+``snow_features``), and each MPEG-1/2, H.263,
 ``.3gp`` and size-changing file's the frame a ``CAP_PROP_POS_FRAMES`` seek
 to each index reads (``seeks``: an index into its sequential frames, or
 null where cv2 reads none).  Every entry names the fixture function that
@@ -1302,12 +1307,14 @@ class Lavc:
         return self.encode_intra(frames, "ffv1", pix, g=gop, **opts)
 
     def encode_intra(self, frames: list, codec: str, pix: str,
-                     **opts) -> tuple:
+                     quality=None, **opts) -> tuple:
         """BGR frames → (extradata, [(packet, keyframe)]) from libavcodec's
         encoder ``codec`` (``ffv1``, ``huffyuv``, ``ffvhuff``, ``utvideo``,
         ...) in pixel format ``pix`` (``lavc_planes``' formats); ``opts``
         are its options (``pred``, ``context``, ``slices``, ``flags``,
-        ...), set on the context before it opens."""
+        ...), set on the context before it opens; ``quality`` each frame's
+        AVFrame.quality (a lambda: the quantiser times FF_QP2LAMBDA, 118),
+        which ``flags=+qscale`` encoders such as ``snow`` code at."""
         c, a, u = self.ct, self.a, self.u
         u.av_get_pix_fmt.restype, u.av_get_pix_fmt.argtypes = c.c_int, [
             c.c_char_p]
@@ -1350,6 +1357,8 @@ class Lavc:
                     c.memmove(ptrs[k] + r * strides[k], pl[r].ctypes.data,
                               pl[r].nbytes)
             c.c_int64.from_address(frame + 136).value = n
+            if quality is not None:
+                c.c_int.from_address(frame + 160).value = quality
             assert a.avcodec_send_frame(ctx, frame) >= 0
             drain()
         a.avcodec_send_frame(ctx, None)
@@ -3185,6 +3194,259 @@ def msmpeg4_fixtures() -> None:
                  b=300000, qmin=8)
 
 
+def snow_avi(path: str, packets: list, w: int, h: int, fps=(25, 1)) -> None:
+    """Snow packets → an AVI by the port's muxer, its key frames flagged
+    in ``idx1``."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime.snow import is_keyframe
+    mux = AviWriter(path, (w, h), fps, fourcc="SNOW")
+    for data in packets:
+        mux.write(data, is_keyframe(data))
+    mux.release()
+
+
+def _rac_states() -> tuple:
+    """(zero, one): the state transitions of ff_build_rac_states(c, 0.05 *
+    2^32, 256 - 8)."""
+    one64, factor, max_p = 1 << 32, int(0.05 * (1 << 32)), 256 - 8
+    zero, one = [0] * 256, [0] * 256
+    last, p = 0, one64 // 2
+    for _ in range(128):
+        p8 = (256 * p + one64 // 2) >> 32
+        p8 = max(p8, last + 1)
+        if last and last < 256 and p8 <= max_p:
+            one[last] = p8
+        p += ((one64 - p) * factor + one64 // 2) >> 32
+        last = p8
+    for i in range(256 - max_p, max_p + 1):
+        if not one[i]:
+            p = (i * one64 + 128) >> 8
+            p += ((one64 - p) * factor + one64 // 2) >> 32
+            one[i] = min(max((256 * p + one64 // 2) >> 32, i + 1), max_p)
+    for i in range(1, 255):
+        zero[i] = 256 - one[256 - i]
+    return zero, one
+
+
+class RacWriter:
+    """FFmpeg's range encoder (rangecoder.h's put_rac and renorm_encoder,
+    ff_rac_terminate) and snow.h's put_symbol, for crafted Snow headers;
+    a state is a list and an index into it."""
+
+    STATES = None
+
+    def __init__(self):
+        if RacWriter.STATES is None:
+            RacWriter.STATES = _rac_states()
+        self.low, self.range, self.byte, self.count = 0, 0xFF00, -1, 0
+        self.out = bytearray()
+
+    def _renorm(self) -> None:
+        while self.range < 0x100:
+            if self.byte < 0:
+                self.byte = self.low >> 8
+            elif self.low <= 0xFF00:
+                self.out += bytes([self.byte]) + b"\xff" * self.count
+                self.count, self.byte = 0, self.low >> 8
+            elif self.low >= 0x10000:
+                self.out += bytes([self.byte + 1]) + b"\0" * self.count
+                self.count, self.byte = 0, (self.low >> 8) - 0x100
+            else:
+                self.count += 1
+            self.low = (self.low & 0xFF) << 8
+            self.range <<= 8
+
+    def rac(self, st: list, i: int, bit: int) -> None:
+        zero, one = self.STATES
+        r1 = (self.range * st[i]) >> 8
+        if not bit:
+            self.range -= r1
+            st[i] = zero[st[i]]
+        else:
+            self.low += self.range - r1
+            self.range = r1
+            st[i] = one[st[i]]
+        self._renorm()
+
+    def symbol(self, st: list, i: int, v: int, signed: bool = False) -> None:
+        if not v:
+            self.rac(st, i, 1)
+            return
+        a = abs(v)
+        e = a.bit_length() - 1
+        self.rac(st, i, 0)
+        for k in range(e):
+            self.rac(st, i + 1 + min(k, 9), 1)
+        self.rac(st, i + 1 + min(e, 9), 0)
+        for k in range(e - 1, -1, -1):
+            self.rac(st, i + 22 + min(k, 9), (a >> k) & 1)
+        if signed:
+            self.rac(st, i + 11 + min(e, 10), int(v < 0))
+
+    def terminate(self) -> bytes:
+        self.range = 0xFF
+        self.low += 0xFF
+        self._renorm()
+        self.range = 0xFF
+        self._renorm()
+        return bytes(self.out)
+
+
+class SnowCraft:
+    """Snow frames written syntax element by element, each a flat grey
+    picture (every coefficient zero; an inter frame's blocks inter blocks
+    with zero vectors), carrying header values libavcodec's encoder never
+    writes.  The contexts carry over from frame to frame as the decoder's
+    do (reset at a key frame)."""
+
+    def __init__(self, w: int, h: int, count: int = 3):
+        self.w, self.h, self.count = w, h, count
+        self.planes = 3
+        self.header = [128] * 32
+
+    def _bands(self, r: RacWriter) -> None:
+        # each band: runs = 0 (get_symbol2's first bit, state[30][4]), and
+        # no coefficient at all
+        for p in range(self.planes):
+            for level in range(self.count):
+                for o in range(0 if level == 0 else 1, 4):
+                    r.rac(self.band[p, level, o], 30 * 32 + 4, 0)
+
+    def key(self, always_reset=0, ttype=0, tcount=0, colorspace=0,
+            shifts=(1, 1), scalability=0, pad: int = 64) -> bytes:
+        r = RacWriter()
+        self.header = hs = [128] * 32
+        self.block = [128] * (128 + 32 * 128)
+        self.band = {(p, lv, o): [128] * 32 * 32 for p in range(3)
+                     for lv in range(8) for o in range(4)}
+        r.rac([128] * 32, 0, 1)                    # key frame
+        r.symbol(hs, 0, 0)                         # version
+        r.rac(hs, 0, always_reset)
+        r.symbol(hs, 0, ttype)
+        r.symbol(hs, 0, tcount)
+        r.symbol(hs, 0, self.count)
+        r.symbol(hs, 0, colorspace)
+        if colorspace == 0:
+            r.symbol(hs, 0, shifts[0])
+            r.symbol(hs, 0, shifts[1])
+        self.planes = 1 if colorspace == 1 else 3
+        r.rac(hs, 0, scalability)
+        r.symbol(hs, 0, 0)                         # max_ref_frames - 1
+        for p in range(min(self.planes, 2)):       # the quantiser logs
+            for level in range(self.count):
+                for o in range(0 if level == 0 else 1, 4):
+                    if o != 2:
+                        r.symbol(hs, 0, 0, True)
+        for delta in (0, 0, 4, 0, 0):   # type, qlog, mv_scale, qbias, depth
+            r.symbol(hs, 0, delta, True)
+        self._bands(r)
+        return r.terminate() + b"\0" * pad
+
+    def inter(self, diag_mc=1, htaps=6, hcoeff=(-10, 2, 0),
+              pad: int = 64) -> bytes:
+        """An inter frame that sends an MC filter (update_mc): diag_mc,
+        htaps and hcoeff[1..htaps/2] (libavcodec's defaults: 1, 6,
+        -10/2/0)."""
+        r = RacWriter()
+        hs = self.header
+        r.rac([128] * 32, 0, 0)
+        r.rac(hs, 0, 1)                            # update_mc
+        for _ in range(min(self.planes, 2)):
+            r.rac(hs, 0, diag_mc)
+            r.symbol(hs, 0, htaps // 2 - 1)
+            for i in range(htaps // 2, 0, -1):
+                r.symbol(hs, 0, abs(hcoeff[i - 1]))
+        r.rac(hs, 0, 0)                            # no new decomposition
+        for _ in range(5):
+            r.symbol(hs, 0, 0, True)
+        for _ in range(-(-self.w // 16) * -(-self.h // 16)):
+            r.rac(self.block, 1, 0)                # an inter block
+            r.symbol(self.block, 128, 0, True)     # mx, my: 0
+            r.symbol(self.block, 128, 0, True)
+        self._bands(r)
+        return r.terminate() + b"\0" * pad
+
+
+def snow_crafted() -> dict:
+    """{name: the packets} of the crafted Snow streams at 64x48: the
+    defaults (which both readers decode, grey), then one header value
+    libavcodec's encoder never writes in each."""
+    def craft(first=None, second=None):
+        c = SnowCraft(64, 48)
+        return [c.key(**(first or {})),
+                c.inter(**second) if second is not None else c.key(
+                    **(first or {}))]
+    return {"default": craft(second={}),
+            "always_reset": craft({"always_reset": 1}),
+            "temporal_type": craft({"ttype": 1}),
+            "temporal_count": craft({"tcount": 2}),
+            "scalability": craft({"scalability": 1}),
+            "colorspace2": craft({"colorspace": 2}),
+            "shifts10": craft({"shifts": (1, 0)}),
+            "shifts33": craft({"shifts": (3, 3)}),
+            "htaps4": craft(second={"htaps": 4, "hcoeff": (-6, 2)}),
+            "diag_mc0": craft(second={"diag_mc": 0})}
+
+
+def snow_fixtures() -> None:
+    """Snow (fourcc ``SNOW``) as cv2 writes and reads it: 25 frames of the
+    moving clip (key frames at 0, 12 and 24) in .avi, .mkv, .mov and .wmv,
+    a 53x37 input in .avi, .wmv at 24 fps, and the Sintel pair's 13 frames
+    at 436x1024 in .avi, which the card run reads.  From libavcodec's
+    ``snow`` encoder (``Lavc.encode_intra``), muxed by ``snow_avi``: a
+    53x37 picture (odd planes), the 5/3 wavelet, lossless, quarter-pel vectors, blocks split (``+mv4``),
+    three references, iterative motion search, ``memc_only`` (key frames
+    without coefficients, which FFmpeg refuses: cv2 reads no frame), key
+    frames only, yuv410p, yuv444p and gray, a quantiser ladder through
+    ``+qscale`` (frame qualities 1, 4, 12, 31), and qpel, mv4, two
+    references and iterative search together.  And the crafted streams
+    of ``snow_crafted`` (``SnowCraft``): each header value the encoder
+    never writes, and the defaults."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 25, seed=60, speed=3.0)
+    for ext in ("avi", "mkv", "mov", "wmv"):
+        _cv2_write(out(f"snow_96x64.{ext}"), clip, "SNOW")
+    _cv2_write(out("snow_53x37.avi"), moving_clip(37, 53, 14, seed=61),
+               "SNOW")
+    _cv2_write(out("snow_24fps_96x64.wmv"), clip[:14], "SNOW", fps=24)
+    im1, im2 = sintel_pair()
+    _cv2_write(out("snow_sintel_436x1024.avi"),
+               [im1 if i % 2 == 0 else im2 for i in range(13)], "SNOW")
+    lavc = Lavc()
+
+    def lavc_avi(name, frames, pix="yuv420p", quality=None, **opts):
+        h, w = frames[0].shape[:2]
+        _, pk = lavc.encode_intra(frames, "snow", pix, quality=quality,
+                                  **{"g": 12, **opts})
+        snow_avi(out(name), [p for p, _ in pk], w, h)
+
+    small = moving_clip(48, 64, 14, seed=62, speed=3.0)
+    # odd planes: 53x37 luma, 27x19 chroma
+    lavc_avi("snow_lavc_53x37.avi", moving_clip(37, 53, 14, seed=61))
+    lavc_avi("snow_lavc_dwt53_64x48.avi", small, pred="dwt53")
+    lavc_avi("snow_lavc_lossless_64x48.avi", small, pred="dwt53",
+             flags="+qscale", global_quality=0)
+    lavc_avi("snow_lavc_qpel_64x48.avi", small, flags="+qpel")
+    lavc_avi("snow_lavc_mv4_64x48.avi", small, flags="+mv4")
+    lavc_avi("snow_lavc_refs3_64x48.avi", small, refs=3)
+    lavc_avi("snow_lavc_iter_64x48.avi", small, motion_est="iter")
+    lavc_avi("snow_lavc_memc_only_64x48.avi", small[:4], memc_only=1)
+    lavc_avi("snow_lavc_g1_64x48.avi", small[:4], g=1)
+    for pix in ("yuv410p", "yuv444p", "gray"):
+        lavc_avi(f"snow_lavc_{pix}_64x48.avi", small, pix=pix)
+    for q in (1, 4, 12, 31):
+        lavc_avi(f"snow_lavc_q{q}_64x48.avi", small, quality=q * 118,
+                 flags="+qscale", global_quality=q * 118)
+    # (at 53x37 libavcodec's encoder crashes with these options)
+    lavc_avi("snow_lavc_combo_64x48.avi", moving_clip(48, 64, 14, seed=63,
+                                                      speed=4.0),
+             flags="+qpel+mv4", refs=2, motion_est="iter")
+    for name, packets in snow_crafted().items():
+        snow_avi(out(f"snow_craft_{name}_64x48.avi"), packets, 64, 48)
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -3373,8 +3635,15 @@ def write_manifest(keep: bool = False) -> None:
         if name.startswith("msm_"):
             manifest["files"][name]["msmpeg4_features"] = \
                 _lossless_features(path)
+        if name.startswith("snow_"):
+            try:
+                manifest["files"][name]["snow_features"] = \
+                    _lossless_features(path)
+            except ValueError as e:     # Unsupported, or refused by FFmpeg
+                manifest["files"][name]["port_refuses"] = \
+                    str(e).split(": ", 1)[1]
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
-                             "asv_", "msm_") + LOSSLESS)
+                             "asv_", "msm_", "snow_") + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
             # a seek that reads a frame the sequential read never shows
@@ -3415,8 +3684,9 @@ def write_manifest(keep: bool = False) -> None:
     from opticalflow_tpu_torch.runtime.h263 import SORENSON_FEATURES
     from opticalflow_tpu_torch.runtime.magicyuv import FEATURES as MAGY
     from opticalflow_tpu_torch.runtime.msmpeg4 import FEATURES as MSMP4
+    from opticalflow_tpu_torch.runtime.snow import FEATURES as SNOW
     for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
-                       ("asv", ASV), ("msmpeg4", MSMP4)):
+                       ("asv", ASV), ("msmpeg4", MSMP4), ("snow", SNOW)):
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
@@ -3439,7 +3709,7 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
-          asv_fixtures, msmpeg4_fixtures)
+          asv_fixtures, msmpeg4_fixtures, snow_fixtures)
 
 
 if __name__ == "__main__":
