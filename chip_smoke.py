@@ -348,7 +348,25 @@ non-zero, and no result line is printed):
      same AVI: K1 and B1 5 a step; (d) host ms to decode and to convert a
      436x1024 Snow frame beside MS-MPEG4 v3 and H.263+; (e) no cv2, PIL
      or jax in ``sys.modules``;
- 29. one JSON line listing every kernel with its launches on its path,
+ 29. NUT and Dirac/VC-2 (``io/nut.py`` and host C++
+     ``runtime/dirac.cpp`` behind it and the .drc, AVI, ASF, Matroska,
+     QuickTime/MP4 and transport stream demuxers; ``phase_nut_dirac``):
+     (a) every fixture of the ``nut`` and ``dirac`` groups (cv2's writer:
+     every fourcc the port decodes in .nut, an odd size, 29.97 fps, cv2's
+     .nut bytes cut or damaged; drac in .drc/.avi/.mkv/.mov/.mp4/.ts/.nut/
+     .wmv, 52x36; libavcodec's vc2 encoder's wavelets, depths, slices,
+     matrices, rates, full range, 4:2:2, 4:4:4) decodes to its manifest's
+     cv2 digests, fps, size and count, every recorded seek reads cv2's
+     frame or, where cv2's reads nothing (a Dirac .nut), raises, and what
+     cv2 refuses or the port leaves out raises; (b) ``cli/extract_video
+     --mode arrows --batch 4 --dtype bfloat16`` over the 13-frame 436x1024
+     VC-2 ``.nut``: K1 15; (c) ``cli/train --regime pseudo`` for 3 steps
+     over its packets remuxed into AVI (the .nut itself cannot be sought,
+     in cv2 either): K1 and B1 5 a step; (d) host ms to decode and to
+     convert a 436x1024 VC-2 frame beside Snow and MS-MPEG4 v3, and NUT's
+     demux ms a packet beside AVI's; (e) no cv2, PIL or jax in
+     ``sys.modules``;
+ 30. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -365,8 +383,9 @@ paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
 phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
 phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
 phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
-phase 27's MS-MPEG4/WMV paths and phase 28's Snow paths (K1 in the video
-CLI's runs, K1 and B1 in the pseudo steps).
+phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths and phase 29's NUT
+and Dirac paths (K1 in the video CLI's runs, K1 and B1 in the pseudo
+steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -6064,6 +6083,193 @@ def phase_snow(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+DIRAC_CLIP = "dirac_sintel_436x1024.nut"   # cv2's writer, 13 frames
+DIRAC_FRAMES = 13
+# what the port refuses with ValueError, as FFmpeg refuses it: a main
+# header that fails its checksum (cv2 opens nothing), field coding (cv2
+# reads no frame)
+NUT_DIRAC_INVALID = {"nut_craft_badmain_96x64.nut": "main header",
+                     "dirac_lavc_interlaced_64x48.avi": "field coding"}
+
+
+def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """NUT and Dirac/VC-2 through the port's entry points on the card
+    machine (``io/nut.py``; host C++ ``runtime/dirac.cpp`` behind it and
+    the .drc, AVI, ASF, Matroska, QuickTime/MP4 and transport stream
+    demuxers): (a) every fixture of the ``nut`` and ``dirac`` groups
+    equals cv2's digests, fps, size and count, each recorded seek reads
+    cv2's frame or, where cv2's reads nothing, raises, and what cv2
+    refuses or the port leaves out raises; (b) the video CLI over the
+    436x1024 VC-2 .nut, K1 on the card, bf16; (c) the pseudo regime over
+    its packets remuxed into AVI by the port's muxer (K1 and B1): the .nut
+    flags no key frame, so no seek in it reads a frame, in cv2 either;
+    (d) host ms to decode and to convert a 436x1024 VC-2 frame, beside
+    Snow and MS-MPEG4 v3, and NUT's demux ms a packet beside AVI's; (e) no
+    cv2, PIL or jax imported.  Returns its results, each path's K1 (and
+    B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.avi import AviFile, AviWriter
+    from opticalflow_tpu_torch.io.nut import FEATURES as NUT_FEATURES
+    from opticalflow_tpu_torch.io.nut import NutFile
+    from opticalflow_tpu_torch.runtime import dirac, msmpeg4, snow
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "nut", "dirac")
+    for name, what in NUT_DIRAC_INVALID.items():
+        want = new.pop(name)
+        assert want["decoded"] == 0 and what in want["port_refuses"], want
+        try:
+            list(vio.read_frames(os.path.join(MP4_DIR, name)))
+        except ValueError as e:
+            assert what in str(e), str(e)
+        else:
+            raise AssertionError(f"{name} was read")
+    checked = check_fixtures(new)
+    refused = checked["refused"]
+    assert refused == ["dirac_lavc_yuv420p10_64x48.avi",
+                       "nut_craft_truncated_96x64.nut"], refused
+    # a Dirac .nut: cv2's read after every seek finds nothing
+    assert checked["seeks_none"] == 25 + DIRAC_FRAMES, checked
+    n_frames, n_seeks = checked["frames"], checked["seeks"]
+    reached = {}
+    for key, names in (("dirac", dirac.FEATURES), ("nut", NUT_FEATURES)):
+        got = {f for w in new.values() for f in w.get(f"{key}_features", [])}
+        reached[key] = [f for f in names if f in got]
+        unreached = [f for f in names if f not in got]
+        assert unreached == manifest[f"{key}_unreached"], (key, unreached)
+    log(f"[29] (a) {len(new)} fixtures (every fourcc in .nut, cut and "
+        f"damaged .nut; drac in .drc/.avi/.mkv/.mov/.mp4/.ts/.nut/.wmv, "
+        f"libavcodec's vc2 settings) decoded to cv2.VideoCapture's "
+        f"{n_frames} frame digests and its fps/size/count, {n_seeks} seeks "
+        f"to the frames cv2's read ({checked['seeks_none']} reading none, as "
+        f"cv2's) in {time.perf_counter() - t0:.2f} s; refused: "
+        f"{refused + sorted(NUT_DIRAC_INVALID)}; Dirac features "
+        f"{len(reached['dirac'])} of {len(dirac.FEATURES)}, NUT's "
+        f"{len(reached['nut'])} of {len(NUT_FEATURES)}; {card}")
+
+    # (b) the video CLI over the 436x1024 VC-2 .nut
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, DIRAC_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_dirac.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    DIRAC_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(DIRAC_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows == 15, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[29] (b) extract_video --mode arrows B={VIDEO_B} bf16, VC-2 .nut "
+        f"({DIRAC_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+        f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); "
+        f"decode thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} windows, K1 {launched} "
+        f"launches; {card}")
+
+    # (c) the pseudo regime over the same packets in AVI (pairs read in any
+    # order: seeks, which read nothing in the .nut)
+    nut = vio.EncodedVideo(clip)
+    assert nut.seek_target(3) is None
+    avi = os.path.join(tmp, "dirac_sintel_436x1024.avi")
+    mux = AviWriter(avi, (FULL_W, FULL_H), (25, 1), fourcc="drac")
+    with open(clip, "rb") as f:
+        packets = [nut.box.sample(f, i) for i in range(nut.samples)]
+    for data in packets:
+        mux.write(data, True)
+    mux.release()
+    assert [pixel_digest(fr) for fr in vio.read_frames(avi)] == \
+        manifest["files"][DIRAC_CLIP]["sha256"]
+    out_dir = os.path.join(tmp, "dirac_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", avi, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (DIRAC_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert [r["step"] for r in recs] == list(range(1, steps + 1)), recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[29] (c) cli/train --regime pseudo over the VC-2 packets in AVI "
+        f"({DIRAC_FRAMES} frames {FULL_H}x{FULL_W} -> 384x512), {steps} "
+        f"steps at batch {TRAIN_B}: losses {[r['loss'] for r in recs]}; "
+        f"K1/B1 launches {launches['pseudo']} (5 and 5 a step); "
+        f"{wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: decode, then convert to
+    # BGR (VC-2 at BT.709, as its sequence header names); VC-2 beside Snow
+    # and MS-MPEG4 v3 of the same pair; then a packet's demux, NUT and AVI
+    host = {}
+    for codec, name in (("dirac", DIRAC_CLIP), ("snow", SNOW_CLIP),
+                        ("msmpeg4v3", MSM_HOST["msmpeg4v3"])):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        box = video.box
+        with open(video.path, "rb") as f:
+            samples = [box.sample(f, i) for i in range(len(box.sizes))]
+        make = (dirac.Decoder if codec == "dirac" else
+                (lambda: snow.Decoder(FULL_W, FULL_H)) if codec == "snow"
+                else (lambda b=box: msmpeg4.Decoder(b.codec, FULL_W, FULL_H,
+                                                    b.dsi)))
+        ms, got = host_decode(make, samples)
+        if codec == "dirac":
+            t0 = time.perf_counter()
+            for _ in range(HOST_TIMED):
+                for p in got:
+                    i420_to_bgr(*p, matrix="bt709")
+            cms = (time.perf_counter() - t0) / HOST_TIMED / len(got) * 1e3
+        else:
+            cms = convert_ms(got)
+        host[codec] = {"decode_ms": ms, "convert_ms": cms,
+                       "bytes_a_frame": sum(map(len, samples)) / len(samples),
+                       "frames": len(samples)}
+    demux = {}
+    for kind, path, opener in (("nut", clip, NutFile), ("avi", avi, AviFile)):
+        t0 = time.perf_counter()
+        for _ in range(HOST_TIMED):
+            box = opener(path)
+            with open(path, "rb") as f:
+                got = [box.sample(f, i) for i in range(len(box.sizes))]
+        demux[kind] = (time.perf_counter() - t0) / HOST_TIMED / len(got) * 1e3
+        assert got == packets, kind
+    log("[29] (d) host ms a " + f"{FULL_H}x{FULL_W}" + " frame on one "
+        "thread (decode, convert to BGR): " + "; ".join(
+            f"{k} {v['decode_ms']!r} + {v['convert_ms']!r} "
+            f"({v['bytes_a_frame']:.0f} bytes a frame, {v['frames']} frames)"
+            for k, v in host.items()) + "; demux (open, parse, read) a "
+        f"packet: NUT {demux['nut']!r} ms, AVI {demux['avi']!r} ms; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[29] (e) cv2, PIL, jax not imported; phase 29 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new) + len(NUT_DIRAC_INVALID),
+            "frames": n_frames, "seeks": n_seeks,
+            "seeks_none": checked["seeks_none"],
+            "refused": refused + sorted(NUT_DIRAC_INVALID),
+            "features": reached, "cli": row, "host_decode": host,
+            "demux_ms": demux, "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6317,6 +6523,16 @@ def main() -> int:
     assert snow_launches == correlation_cuda.launches > 0
     assert snw["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the NUT / Dirac paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        nd = phase_nut_dirac(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                             card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    nut_dirac_launches = nd["launches"]["cli"] + \
+        nd["launches"]["pseudo"]["correlation_fwd"]
+    assert nut_dirac_launches == correlation_cuda.launches > 0
+    assert nd["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -6398,7 +6614,10 @@ def main() -> int:
          "launches_msmpeg4": msmpeg4_launches, "msmpeg4": msm,
          # phase 28: the video CLI over the 436x1024 Snow AVI, and the
          # pseudo steps over the same AVI (5 a window, 5 a step)
-         "launches_snow": snow_launches, "snow": snw},
+         "launches_snow": snow_launches, "snow": snw,
+         # phase 29: the video CLI over the 436x1024 VC-2 .nut, and the
+         # pseudo steps over its packets in AVI (5 a window, 5 a step)
+         "launches_nut_dirac": nut_dirac_launches, "nut_dirac": nd},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -6451,7 +6670,10 @@ def main() -> int:
          # phase 27: the pseudo regime's steps over a WMV8 .wmv
          "launches_msmpeg4": msm["launches"]["pseudo"]["correlation_bwd"],
          # phase 28: the pseudo regime's steps over a Snow .avi
-         "launches_snow": snw["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_snow": snw["launches"]["pseudo"]["correlation_bwd"],
+         # phase 29: the pseudo regime's steps over VC-2 packets in AVI
+         "launches_nut_dirac":
+             nd["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -1,13 +1,14 @@
 """Grab frame N of a video as a PNG (a fixture generator: the reference's
 ``capture_frame.py`` capability), without OpenCV.
 
-Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is an
-``.mp4``, ``.avi``, ``.mkv`` or ``.webm`` file (MPEG-4 Part 2, MPEG-1/2,
-VP8, VP9 or FFV1, decoded from the keyframe before the frame, as FFmpeg's
-seek does; Motion JPEG), an MPEG program or transport stream (``.mpg``,
-``.mpeg``, ``.vob``, ``.ts``, ``.m2ts``, ``.mts``: the frame OpenCV's seek
-reads, its quirks included; a seek that reads nothing exits 1, as the JAX
-CLI does), an elementary stream (``.m2v``, ``.h263``, ...), a ``.y4m`` file, an
+Counterpart of ``opticalflow_tpu.cli.capture_frame``: the video is any
+file ``io/video.py`` reads (``.mp4``, ``.avi``, ``.mkv``, ``.webm``,
+``.nut``, ``.wmv``, ... of the codecs it decodes, from the keyframe before
+the frame, as FFmpeg's seek does), an MPEG program or transport stream
+(``.mpg``, ``.mpeg``, ``.vob``, ``.ts``, ``.m2ts``, ``.mts``: the frame
+OpenCV's seek reads, its quirks included; a seek that reads nothing, as
+after any seek in a Dirac ``.nut``, exits 1, as the JAX CLI does), an
+elementary stream (``.m2v``, ``.h263``, ``.drc``, ...), a ``.y4m`` file, an
 image
 sequence named by a pattern (``frames/%06d.jpg``, read as
 ``cv2.VideoCapture`` reads it) or a directory of PNG or JPEG frames
@@ -25,9 +26,9 @@ import sys
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Save one video frame as PNG")
-    p.add_argument("video", help=".mp4, .avi, .mkv, .webm (MPEG-4 Part 2, "
-                                 "MPEG-1/2, VP8, VP9, FFV1 or Motion JPEG), "
-                                 ".mpg/.ts/.m2ts/.m2v/.h263 or .y4m file, "
+    p.add_argument("video", help=".mp4, .avi, .mkv, .webm, .nut, .wmv, "
+                                 "... (the codecs io/video.py reads), "
+                                 ".mpg/.ts/.m2ts/.m2v/.h263/.drc or .y4m file, "
                                  "image "
                                  "sequence pattern "
                                  "(frames/%%06d.jpg) or PNG/JPEG frame "

@@ -41,6 +41,9 @@ codec:
     v1's ``MPG4`` and ``MP41`` raise;
   * Snow (``SNOW``, in any case): decoded by ``runtime/snow`` at the
     header's size, keyframes from ``idx1``;
+  * Dirac/VC-2 (``drac``, in any case: what ``cv2.VideoWriter`` writes for
+    it): decoded by ``runtime/dirac``, every picture intra, so every frame
+    a keyframe;
   * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
     swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
     FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
@@ -124,11 +127,12 @@ MSMPEG4_TAGS = {"MP42": "msmpeg4v2", "DIV2": "msmpeg4v2",
                 "WMV1": "wmv1", "WMV2": "wmv2", "GXVE": "wmv2"}
 # riff.c's tag of snow, matched without regard to case
 SNOW_TAGS = {"SNOW"}
+# riff.c's tag of dirac, matched without regard to case
+DIRAC_TAGS = {"DRAC"}
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
           "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
           "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
-          "MPG4": "MS-MPEG4 v1", "MP41": "MS-MPEG4 v1", "WMV3": "WMV9",
-          "drac": "Dirac"}
+          "MPG4": "MS-MPEG4 v1", "MP41": "MS-MPEG4 v1", "WMV3": "WMV9"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
 
@@ -332,11 +336,13 @@ def codec_of(tag: str, what: str) -> str:
         return MSMPEG4_TAGS[tag.upper()]
     if tag.upper() in SNOW_TAGS:
         return "snow"
+    if tag.upper() in DIRAC_TAGS:
+        return "dirac"
     name = _NAMES.get(tag.upper(), _NAMES.get(tag, f"the {tag!r} codec"))
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
-                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, FFV1, HuffYUV, "
-                      f"FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
+                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, Dirac, FFV1, "
+                      f"HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
                       f"JPEG, raw I420, YV12, Y800 and RGBA, VP8 and VP9 "
                       f"only ({ITEM_8})")
 

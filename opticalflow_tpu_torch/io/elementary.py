@@ -1,6 +1,7 @@
 """Elementary video streams: raw MPEG-1/2 video (``.m1v``, ``.m2v``,
-``.mpv``) and raw H.263 (``.h263``, ``.263``), read as FFmpeg's
-``mpegvideo`` and ``h263`` raw demuxers read them for
+``.mpv``), raw H.263 (``.h263``, ``.263``) and raw Dirac/VC-2 (``.drc``,
+what ``cv2.VideoWriter`` writes for fourcc ``drac`` there), read as
+FFmpeg's ``mpegvideo``, ``h263`` and ``dirac`` raw demuxers read them for
 ``cv2.VideoCapture``, in Python (no FFmpeg).
 
 The file is one stream without timestamps, split into pictures by
@@ -9,7 +10,8 @@ the raw demuxers' settings:
 
   * fps is 25 whatever the stream says: the raw demuxers set the stream's
     ``avg_frame_rate`` from their ``framerate`` option, 25 by default, and
-    OpenCV reports ``avg_frame_rate`` (H.263 at 29.97 Hz reads at 25);
+    OpenCV reports ``avg_frame_rate`` (H.263 at 29.97 Hz reads at 25, so
+    does Dirac at any rate its sequence header names);
   * the frame count is OpenCV's ``duration × fps``, rounded down after
     adding 0.5.  FFmpeg knows no duration for MPEG-2 or H.263 here
     (``AV_NOPTS_VALUE``, INT64_MIN ticks of 1/1200000 s), which OpenCV
@@ -21,7 +23,8 @@ the raw demuxers' settings:
     (constant bit rate; cv2's writer's is VBR);
   * a ``CAP_PROP_POS_FRAMES`` seek is clamped to that count: at a count
     under 2 OpenCV asks FFmpeg for no seek, so a capture just opened reads
-    frame 0 (frame 1 after a seek to 1 or more at a count of 1).
+    frame 0 (frame 1 after a seek to 1 or more at a count of 1): every
+    seek in a ``.drc`` reads its frame 0.
     FFmpeg's generic index seek, which a count of 2 or more starts (from a
     start time it does not know), is not reproduced: such a seek raises
     ``Unsupported``.
@@ -35,15 +38,18 @@ from typing import Optional
 
 from opticalflow_tpu_torch.io.mpegpes import Pes, PesVideo
 from opticalflow_tpu_torch.io.mpegps import video_codec
+from opticalflow_tpu_torch.runtime.dirac import \
+    sequence_info as dirac_sequence
 from opticalflow_tpu_torch.runtime.h263 import picture_size
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
 __all__ = ["ElementaryFile", "MPEG_EXTENSIONS", "H263_EXTENSIONS",
-           "RAW_FPS", "nopts_count"]
+           "DIRAC_EXTENSIONS", "RAW_FPS", "nopts_count"]
 
 MPEG_EXTENSIONS = (".m1v", ".m2v", ".mpv")
 H263_EXTENSIONS = (".h263", ".263")
+DIRAC_EXTENSIONS = (".drc",)
 RAW_FPS = 25                    # the raw demuxers' framerate option
 RAW_TIME_BASE = 1200000         # their time base: 1/1200000 s
 _INT64_MIN = -(1 << 63)         # AV_NOPTS_VALUE
@@ -82,7 +88,8 @@ def _bit_rate(sample: bytes, mpeg2: bool) -> int:
 
 
 class ElementaryFile(PesVideo):
-    """An elementary MPEG-1/2 or H.263 stream: one sample a picture."""
+    """An elementary MPEG-1/2, H.263 or Dirac stream: one sample a
+    picture."""
 
     def __init__(self, path: str):
         super().__init__(path)
@@ -100,6 +107,8 @@ class ElementaryFile(PesVideo):
                                  "rename it .mpg")
             if path.lower().endswith(H263_EXTENSIONS):
                 self.codec = "h263"
+            elif path.lower().endswith(DIRAC_EXTENSIONS):
+                self.codec = "dirac"
             else:
                 self.codec = video_codec(head, path)
                 if self.codec != "mpeg12":
@@ -111,12 +120,17 @@ class ElementaryFile(PesVideo):
                 raise ValueError(f"{path}: no picture in the stream")
             first = self.sample(f, 0)
         self.bit_rate = 0
-        if self.codec == "h263":
+        self.mpeg2 = False
+        if self.codec == "dirac":
+            info = dirac_sequence(first, path)
+            if info is None:
+                raise ValueError(f"{path}: no Dirac sequence header")
+            self.width, self.height = info.width, info.height
+        elif self.codec == "h263":
             size = picture_size(first)
             if size is None:
                 raise ValueError(f"{path}: no H.263 picture header")
             self.width, self.height = size
-            self.mpeg2 = False
         else:
             seq = sequence_info(first, path)
             if seq is None:

@@ -26,6 +26,8 @@ needed.  The codecs, by ``CodecID``:
     ``cv2.VideoWriter`` writes for ``DIV3`` into ``.mkv``);
   * ``V_SNOW``: ``runtime/snow`` (what ``cv2.VideoWriter`` writes for
     ``SNOW`` into ``.mkv``);
+  * ``V_DIRAC``: ``runtime/dirac`` (Dirac/VC-2, what ``cv2.VideoWriter``
+    writes for ``drac`` into ``.mkv``);
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
     ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
@@ -258,6 +260,10 @@ class MkvFile:
             raise ValueError(f"{path}: no video track")
         if not self.sizes:
             raise ValueError(f"{path}: no video frames (truncated file?)")
+        # FFmpeg indexes key-flagged blocks (with or without Cues); a track
+        # with none (cv2's writer flags no Dirac packet a key frame) has no
+        # index, and its seeks go through FFmpeg's generic search
+        self.indexed = bool(self.keyframes)
         self.keyframes = self.keyframes or [0]
 
     # ------------------------------------------------------------ parsing
@@ -368,6 +374,8 @@ class MkvFile:
             self.codec, self.tag = "msmpeg4v3", "DIV3"
         elif codec == "V_SNOW":
             self.codec, self.tag = "snow", "SNOW"
+        elif codec == "V_DIRAC":
+            self.codec, self.tag = "dirac", "drac"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
             if self.tag in ("I420", "IYUV"):
@@ -393,7 +401,8 @@ class MkvFile:
             name = _NAMES.get(codec, f"the {codec!r} codec")
             raise Unsupported(f"{self.path}: {name} video (CodecID "
                               f"{codec!r}): the port reads VP8, VP9, MPEG-4 "
-                              f"Part 2, MS-MPEG4 v3, Snow, MPEG-1, MPEG-2, "
+                              f"Part 2, MS-MPEG4 v3, Snow, Dirac, MPEG-1, "
+                              f"MPEG-2, "
                               f"FFV1, "
                               f"Motion JPEG, "
                               f"raw video "
@@ -514,6 +523,25 @@ class MkvFile:
             return len(self.sizes)
         us = int(self.duration * self.timescale * 1000 / 1_000_000)
         return int(us / 1_000_000 * self.fps + 0.5)
+
+    def number(self, i: int) -> int:
+        """OpenCV's frame number of block ``i`` (``dts_to_frame_number``)."""
+        tb = self.timescale / 1e9
+        return int(self.fps * ((self.times[i] - self.times[0]) * tb) + 0.5)
+
+    def ticks(self, frame: int) -> int:
+        """The time OpenCV's seek asks FFmpeg for at frame ``frame``."""
+        return self.times[0] + int(frame / self.fps / (self.timescale / 1e9)
+                                   + 0.5)
+
+    def landing(self, ts: int) -> Optional[int]:
+        """The block reading resumes at after FFmpeg's seek to ``ts`` in a
+        track without an index (``seek_frame_generic``): it reads from the
+        first Cluster to the first block after ``ts`` (FFmpeg's parser
+        flags every Dirac picture a key frame) and stops past it."""
+        later = [i for i, t in enumerate(self.times) if t > ts]
+        return later[0] + 1 if later and later[0] + 1 < len(self.sizes) \
+            else None
 
     def sample(self, f: BinaryIO, i: int) -> bytes:
         f.seek(self.offsets[i])

@@ -25,8 +25,10 @@ and the AVI fourccs FFmpeg's mov demuxer takes from riff.c: ``HFYU``,
 extradata and the entry's depth as ``bpc`` (HuffYUV, FFVHuff, Ut Video,
 MagicYUV, ASUS V1/V2), ``FLV1`` (Sorenson H.263, keyframes from
 ``stss``), ``MP42``, ``WMV1`` and ``WMV2`` (MS-MPEG4 v2, WMV7/8; WMV8's
-extradata in ``glbl``), ``SNOW`` (Snow, keyframes from ``stss``) and isom.c's ``3IVD`` (MS-MPEG4 v3, the entry
-cv2's mov muxer falls back to for ``DIV3``).  Other codecs' sample entries
+extradata in ``glbl``), ``SNOW`` (Snow, keyframes from ``stss``),
+isom.c's ``3IVD`` (MS-MPEG4 v3, the entry cv2's mov muxer falls back to
+for ``DIV3``) and ``drac`` (Dirac/VC-2, every picture intra, what it
+writes for ``drac`` into ``.mp4`` and ``.mov``).  Other codecs' sample entries
 (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming ROADMAP Queue 1
 item 8.
 
@@ -43,9 +45,10 @@ import os
 import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
-from opticalflow_tpu_torch.io.avi import (ASV_TAGS, FLV1_TAGS, HUFFYUV_TAGS,
-                                          MAGICYUV_TAGS, MSMPEG4_TAGS,
-                                          SNOW_TAGS, UTVIDEO_TAGS)
+from opticalflow_tpu_torch.io.avi import (ASV_TAGS, DIRAC_TAGS, FLV1_TAGS,
+                                          HUFFYUV_TAGS, MAGICYUV_TAGS,
+                                          MSMPEG4_TAGS, SNOW_TAGS,
+                                          UTVIDEO_TAGS)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
@@ -72,10 +75,11 @@ _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
                   **{t: "magicyuv" for t in MAGICYUV_TAGS},
                   **{t: "asv" for t in ASV_TAGS}}
 # riff.c's tags the mov demuxer takes for inter codecs (Sorenson H.263,
-# MS-MPEG4 v2/v3, WMV7/8, Snow), and isom.c's 3IVD, MS-MPEG4 v3's entry
+# MS-MPEG4 v2/v3, WMV7/8, Snow, Dirac), and isom.c's 3IVD, MS-MPEG4 v3's entry
 # where cv2's mov muxer falls back to it
 _RIFF_ENTRIES = {**{t: "flv1" for t in FLV1_TAGS}, **MSMPEG4_TAGS,
-                 **{t: "snow" for t in SNOW_TAGS}, "3IVD": "msmpeg4v3"}
+                 **{t: "snow" for t in SNOW_TAGS}, "3IVD": "msmpeg4v3",
+                 **{t: "dirac" for t in DIRAC_TAGS}}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -305,7 +309,8 @@ class Mp4File:
                               f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
                               f"FLV1 (Sorenson H.263), jpeg, png, RGBA, HFYU, "
                               f"FFVH, UL**, M8** (MagicYUV), ASV1/ASV2, MP42, "
-                              f"DIV3/3IVD, WMV1/WMV2 and SNOW only "
+                              f"DIV3/3IVD, WMV1/WMV2, SNOW and drac (Dirac) "
+                              f"only "
                               f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.bpc = struct.unpack(">H", entry[74:76])[0]

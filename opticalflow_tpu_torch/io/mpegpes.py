@@ -14,7 +14,10 @@ stream into one sample a picture as FFmpeg's parsers split it for
     frame runs from its VOP start code to the next start code, the headers
     before a VOP going with it;
   * H.263 (``h263`` parser): a picture starts at each byte-aligned picture
-    start code.
+    start code;
+  * Dirac/VC-2 (``dirac`` parser): parse units followed through their
+    next-unit offsets, a picture's sequence header and auxiliary data going
+    with it (``runtime/dirac.split_units``).
 
 A PES packet's timestamps belong to the first picture whose start code
 lies in it (``ff_fetch_timestamp``).  The duration estimate is FFmpeg's
@@ -30,6 +33,7 @@ from bisect import bisect_right
 from fractions import Fraction
 from typing import BinaryIO, List, Optional, Sequence, Tuple
 
+from opticalflow_tpu_torch.runtime.dirac import split_units
 from opticalflow_tpu_torch.runtime.h263 import is_intra as h263_is_intra
 from opticalflow_tpu_torch.runtime.mpeg12 import picture_types
 
@@ -98,8 +102,15 @@ def _codes(data: bytes):
 def split_starts(chunks, codec: str) -> Tuple[List[int], List[int], int]:
     """Split a stream given as (stream offset, bytes) chunks in order into
     pictures as FFmpeg's parser for ``codec`` (``mpeg12``, ``mpeg4``,
-    ``h263``) splits it: (each sample's start offset, each sample's picture
-    or VOP start code offset, the stream's length)."""
+    ``h263``, ``dirac``) splits it: (each sample's start offset, each
+    sample's picture or VOP start code offset, the stream's length)."""
+    if codec == "dirac":
+        chunks = list(chunks)
+        base = chunks[0][0] if chunks else 0
+        data = b"".join(c for _, c in chunks)
+        starts, pictures, _ = split_units(data)
+        return ([base + o for o in starts], [base + o for o in pictures],
+                base + len(data))
     starts: List[int] = []
     pictures: List[int] = []
     cur, tail, total, base = 0, b"", 0, 0
@@ -254,6 +265,9 @@ class PesVideo:
                 self.types.append(t[0] if t else 0)
             elif self.codec == "mpeg4":
                 self.types.append(1 if mpeg4_vop_type(head) == 0 else 2)
+            elif self.codec == "dirac":     # no reference: intra
+                self.types.append(1 if len(head) > 4 and head[4] & 3 == 0
+                                  else 2)
             else:
                 self.types.append(1 if h263_is_intra(head) else 2)
             j = bisect_right(es_starts, o) - 1

@@ -10,7 +10,10 @@ demuxer reads it for ``cv2.VideoCapture``:
   * adaptation fields and stuffing, the PAT, the first program's PMT and
     the first elementary stream whose ``stream_type`` is video: 0x01 and
     0x02 (MPEG-1/2 video; FFmpeg reads MPEG-1 under either) decoded by
-    ``runtime/mpeg12``, 0x10 (MPEG-4 Part 2) by ``runtime/mpeg4``.  Other
+    ``runtime/mpeg12``, 0x10 (MPEG-4 Part 2) by ``runtime/mpeg4``, 0xD1
+    (Dirac/VC-2, what FFmpeg's muxer writes with a ``drac`` registration
+    descriptor) by ``runtime/dirac``, its PES payloads split at parse
+    units and its rate the sequence header's.  Other
     video (H.264 0x1B, HEVC 0x24, ...) raises ``Unsupported`` naming its
     type; a stream with no video (H.263 or FFV1 muxed as private data,
     0x06, which cv2 does not open either) raises too;
@@ -47,6 +50,8 @@ from typing import Dict, Optional, Tuple
 from opticalflow_tpu_torch.io.mpegpes import (TIME_BASE, Pes, PesVideo,
                                               duration_frames,
                                               mpeg4_vol_rate, timestamp)
+from opticalflow_tpu_torch.runtime.dirac import \
+    sequence_info as dirac_sequence
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
@@ -55,7 +60,7 @@ __all__ = ["MpegTsFile", "EXTENSIONS", "TIME_BASE", "packet_size"]
 EXTENSIONS = (".ts", ".m2ts", ".mts", ".m2t")
 _SYNC, _PACKET = 0x47, 188
 _PROBE, _MARGIN = 8192, 8            # PROBE_PACKET_MAX_BUF, _MARGIN
-_VIDEO = {0x01: "mpeg12", 0x02: "mpeg12", 0x10: "mpeg4"}
+_VIDEO = {0x01: "mpeg12", 0x02: "mpeg12", 0x10: "mpeg4", 0xD1: "dirac"}
 _OTHER_VIDEO = {0x1B: "H.264", 0x20: "H.264 (MVC)", 0x24: "HEVC",
                 0x33: "VVC", 0x21: "JPEG 2000", 0x42: "CAVS",
                 0xD1: "Dirac", 0xD2: "AVS2", 0xD4: "AVS3", 0xEA: "VC-1"}
@@ -132,6 +137,13 @@ class MpegTsFile(PesVideo):
             self.width, self.height, self.mpeg2 = (seq.width, seq.height,
                                                    seq.mpeg2)
             self.rate = seq.fps
+        elif self.codec == "dirac":
+            info = dirac_sequence(sample, path)
+            if info is None:
+                raise ValueError(f"{path}: Dirac video without a sequence "
+                                 "header")
+            self.width, self.height, self.mpeg2 = info.width, info.height, False
+            self.rate = Fraction(*info.rate)
         else:
             self.mpeg2 = False
             self.width = self.height = 0       # the decoder reads the VOL

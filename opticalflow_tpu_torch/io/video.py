@@ -1,7 +1,7 @@
 """Video frames in and out without OpenCV: ``.mp4``, ``.mov``, ``.3gp``,
-``.avi``, ``.mkv``, ``.webm``, ``.flv``, ``.wmv``, ``.asf``, ``.mpg``,
-``.ts``, ``.m2v``, ``.h263``, ``.y4m``, image sequences and frame
-directories.
+``.avi``, ``.mkv``, ``.webm``, ``.flv``, ``.wmv``, ``.asf``, ``.nut``,
+``.mpg``, ``.ts``, ``.m2v``, ``.h263``, ``.drc``, ``.y4m``, image sequences
+and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
@@ -60,6 +60,21 @@ muxers and codecs and reads what those read, frame for frame:
     never writes (an MC filter other than its default, a temporal
     decomposition, spatial scalability, ``always_reset``, other colour
     spaces) raises naming item 8;
+  * **Dirac/VC-2** (``drac`` in AVI, ASF and QuickTime/MP4, ``V_DIRAC`` in
+    Matroska, stream type 0xD1 in transport streams, raw ``.drc``, and
+    NUT: what ``cv2.VideoWriter`` writes for fourcc ``drac`` through
+    libavcodec's ``vc2`` encoder), decoded by ``runtime/dirac`` bit-exactly
+    to FFmpeg: HQ pictures over the (9,7), (5,3) and both Haar wavelets at
+    depths 1-5, 8-bit 4:2:0, 4:2:2 and 4:4:4, converted at the range and
+    matrix its sequence header names (BT.709 as the vc2 encoder writes
+    it).  Core-syntax and low-delay pictures, the other wavelets and
+    samples above 8 bits raise naming item 8; field coding, which FFmpeg
+    refuses, raises ``ValueError``;
+  * **NUT** (``.nut``; ``io/nut``, read, not written), FFmpeg's own
+    container, with every codec above that ``cv2.VideoWriter`` writes into
+    it, at cv2's fps, its count (one short of the frames where the last
+    frame's start ends the duration) and its seeks over NUT's index (none
+    lands on a Dirac frame: cv2's writer flags none a key frame);
   * a picture of another size than its stream's first (a VP9 frame that
     changed size, a VP8 key frame, an H.263 picture header) is scaled back
     to the first size through swscale's bicubic scaler, as
@@ -146,15 +161,21 @@ from opticalflow_tpu_torch.io.images import (decode_bytes, decode_png,
                                              encode_png, rgb8, unread_format)
 from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
-from opticalflow_tpu_torch.io.elementary import (H263_EXTENSIONS,
+from opticalflow_tpu_torch.io.elementary import (DIRAC_EXTENSIONS,
+                                                 H263_EXTENSIONS,
                                                  MPEG_EXTENSIONS,
                                                  ElementaryFile)
 from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
 from opticalflow_tpu_torch.io.mpegps import MpegPsFile
 from opticalflow_tpu_torch.io.mpegts import EXTENSIONS as _TS_EXTS
 from opticalflow_tpu_torch.io.mpegts import MpegTsFile
+from opticalflow_tpu_torch.io.nut import EXTENSIONS as _NUT_EXTS
+from opticalflow_tpu_torch.io.nut import NutFile
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
 from opticalflow_tpu_torch.runtime.asv import Decoder as AsvDecoder
+from opticalflow_tpu_torch.runtime.dirac import Decoder as DiracDecoder
+from opticalflow_tpu_torch.runtime.dirac import \
+    sequence_info as dirac_sequence
 from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
@@ -188,17 +209,16 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
            "Y4MWriter", "PngDirWriter", "FORMATS", "frame_filename",
            "is_sequence", "ffmpeg_threads"]
 
-FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv or .webm file (MPEG-4 "
-           "Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 v2/v3, "
-           "WMV7/8, Snow, VP8, VP9, FFV1, HuffYUV, FFVHuff, Ut Video, "
-           "MagicYUV, ASUS V1/V2, PNG or Motion JPEG; raw I420, YV12, Y800 "
-           "and RGBA in .avi and .mkv), an .flv file (Sorenson H.263), a "
-           ".wmv or .asf file (MS-MPEG4 v2/v3, WMV7/8, Snow), an MPEG "
-           "program stream (.mpg, "
-           ".mpeg, "
-           ".vob) or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2 "
-           "or MPEG-4 Part 2), an elementary stream (.m1v, .m2v, .mpv, "
-           ".h263, .263), a .y4m "
+FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv, .webm or .nut file "
+           "(MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 "
+           "v2/v3, WMV7/8, Snow, Dirac/VC-2, VP8, VP9, FFV1, HuffYUV, "
+           "FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG or Motion JPEG; raw "
+           "I420, YV12, Y800 and RGBA in .avi and .mkv, I420 in .nut), an "
+           ".flv file (Sorenson H.263), a .wmv or .asf file (MS-MPEG4 v2/v3, "
+           "WMV7/8, Snow, Dirac), an MPEG program stream (.mpg, .mpeg, .vob) "
+           "or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2, "
+           "MPEG-4 Part 2 or Dirac), an elementary stream (.m1v, .m2v, .mpv, "
+           ".h263, .263, .drc), a .y4m "
            "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
            "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
            "directory of PNG or JPEG frames")
@@ -215,8 +235,8 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
 _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-_ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS
-_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv", "asf")
+_ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS + DIRAC_EXTENSIONS
+_ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv", "asf", "nut")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
 
@@ -239,7 +259,7 @@ def ffmpeg_threads() -> int:
 def _unsupported(path: str) -> ValueError:
     return ValueError(
         f"cannot read or write {path!r}: the port handles {FORMATS}; other "
-        f"containers (FFmpeg's .nut among them) and codecs are {ITEM_8} "
+        f"containers and codecs are {ITEM_8} "
         "(convert elsewhere, e.g. "
         "`ffmpeg -i in.rm -c:v mpeg4 -q:v 3 out.mkv` or `ffmpeg -i in.rm "
         "-pix_fmt yuv420p out.y4m`)")
@@ -286,6 +306,12 @@ def _kind(path: str, writing: bool = False) -> str:
                 "WMV7/8 and Snow), which it does not encode; write .mkv, "
                 ".mp4 or .avi")
         return "asf"
+    if low.endswith(_NUT_EXTS):
+        if writing:
+            raise ValueError(
+                f"cannot write {path!r}: the port reads NUT, which it does "
+                "not write; write .mkv, .mp4 or .avi")
+        return "nut"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
             raise ValueError(
@@ -403,8 +429,8 @@ class Y4MFile:
 
 class EncodedVideo:
     """The video track of an ``.mp4``, ``.avi``, ``.mkv``, ``.webm``,
-    ``.flv``, ``.wmv`` or ``.asf`` file, an MPEG program or transport stream
-    or an elementary stream: its
+    ``.flv``, ``.wmv``, ``.asf`` or ``.nut`` file, an MPEG program or
+    transport stream or an elementary stream: its
     size, fps and frame count as
     ``cv2.VideoCapture`` reports them, and its frames (in display order:
     an MPEG-1/2 stream's pictures come out reordered, as FFmpeg hands them
@@ -425,7 +451,7 @@ class EncodedVideo:
         self.box = box = {"mp4": Mp4File, "mkv": MkvFile, "mpg": MpegPsFile,
                           "ts": MpegTsFile, "es": ElementaryFile,
                           "avi": AviFile, "flv": FlvFile,
-                          "asf": AsfFile}[kind](path)
+                          "asf": AsfFile, "nut": NutFile}[kind](path)
         self.fps, self.frames, self.keyframes = (box.fps, box.frames,
                                                  box.keyframes)
         # the samples decoding walks: all of them, as cv2.VideoCapture.read
@@ -463,6 +489,13 @@ class EncodedVideo:
                                  f"{'Sorenson ' if sorenson else ''}H.263 "
                                  "keyframe has no picture header")
             self.width, self.height = size
+        elif box.codec == "dirac":
+            with open(path, "rb") as f:
+                info = dirac_sequence(box.sample(f, 0), path)
+            if info is None:
+                raise ValueError(f"{path}: the first Dirac packet has no "
+                                 "sequence header")
+            self.width, self.height = info.width, info.height
         elif box.codec == "magicyuv":
             with open(path, "rb") as f:
                 size = magy_size(box.sample(f, 0))
@@ -544,37 +577,60 @@ class EncodedVideo:
     def seek_target(self, index: int, capture: Optional[dict] = None
                     ) -> Optional[int]:
         """The frame ``cv2.VideoCapture`` returns after a
+        ``CAP_PROP_POS_FRAMES`` seek to ``index`` (:meth:`_seek`)."""
+        return self._seek(index, capture)[0]
+
+    def _seek(self, index: int, capture: Optional[dict] = None
+              ) -> Tuple[Optional[int], Optional[int]]:
+        """The frame ``cv2.VideoCapture`` returns after a
         ``CAP_PROP_POS_FRAMES`` seek to ``index`` on a capture just opened:
         OpenCV clamps the index to its frame count; in AVI, where FFmpeg
         stamps an MPEG-1/2 I- or P-picture with the packet that hands it
         over (one late, without B-pictures to reorder around), every seek
         from frame 2 on lands one frame early; in a program or transport
-        stream the seek follows FFmpeg's search (:meth:`_pes_seek`); in an
+        stream the seek follows FFmpeg's search (:meth:`_opencv_seek`); in an
         elementary stream ``ElementaryFile.seek_target``'s rule; in an FLV
         exactly where OpenCV numbers its frames by their indices
         (``FlvFile.numbered``; after the seek FFmpeg's Sorenson decoder
         skips no disposable picture, ``h263.Decoder(after_seek=True)``);
-        in ASF likewise (``AsfFile.numbered``).  Other codecs and containers seek exactly.  ``capture`` is the index
-        FFmpeg's transport stream demuxer keeps through one capture's seeks
-        (:meth:`read` passes its own; None: a capture just opened)."""
+        in ASF likewise (``AsfFile.numbered``); in NUT, and in Matroska
+        without a key-flagged block, where FFmpeg's seek lands
+        (:meth:`_opencv_seek`).  Other codecs and containers seek exactly.
+        ``capture`` is the index FFmpeg's transport stream demuxer keeps
+        through one capture's seeks (:meth:`read` passes its own; None: a
+        capture just opened).
+
+        (that frame, the sample FFmpeg's decoder starts from after the seek
+        where it matters: a Dirac decoder keeps its coefficient planes from
+        picture to picture, and what libavcodec's SIMD steps leave before
+        them shows in later pictures, so OpenCV's frame is decoded from the
+        frame FFmpeg lands on, not only from a key frame; None elsewhere:
+        the last key frame at or before the frame)."""
         box = self.box
         if isinstance(box, ElementaryFile):
-            return box.seek_target(index)
+            return box.seek_target(index), None
         if isinstance(box, (FlvFile, AsfFile)) and not box.numbered:
             raise Unsupported(
                 f"{self.path}: a seek to frame {index} in an FLV or ASF whose "
                 f"timestamps OpenCV numbers otherwise than the frames' "
                 f"indices; not reproduced by the port ({ITEM_8})")
-        if isinstance(box, (MpegPsFile, MpegTsFile)):
-            return self._pes_seek(min(index, self.frames),
-                                  {} if capture is None else capture)
+        if isinstance(box, (MpegPsFile, MpegTsFile, NutFile)) or (
+                isinstance(box, MkvFile) and not box.indexed):
+            return self._opencv_seek(min(index, self.frames),
+                                     {} if capture is None else capture)
+        if box.codec == "dirac":
+            # OpenCV asks for 16 frames before the target and reads on; the
+            # seek lands on the last key frame at or before that time
+            ask = max(index - 16, 0) if index >= 2 else 0
+            return index, self.keyframes[
+                max(bisect_right(self.keyframes, ask) - 1, 0)]
         if box.codec != "mpeg12":
-            return index
+            return index, None
         index = min(index, self.frames)
         if (isinstance(box, AviFile) and index >= 2
                 and 3 not in self.types):
             index -= 1
-        return index
+        return index, None
 
     def _landing(self, ts: int, index: dict) -> Optional[int]:
         """The stream offset FFmpeg reads from after seeking to the 90 kHz
@@ -588,44 +644,62 @@ class EncodedVideo:
         j = bisect_right([d for d, _ in stamps], ts) - 1
         return stamps[j][1] if j >= 0 else 0
 
-    def _pes_seek(self, target: int, index: dict) -> Optional[int]:
+    def _opencv_seek(self, target: int, index: dict
+                     ) -> Tuple[Optional[int], Optional[int]]:
         """OpenCV's seek (``CvCapture_FFMPEG::seek``) in a program or
-        transport stream: it asks FFmpeg for the time ``delta`` frames
-        before the target (16, then more while it lands past it); FFmpeg
-        lands (:meth:`_landing`) and its decoder, flushed, drops what it
-        cannot decode until an I-picture or GOP header; OpenCV numbers the
-        first picture that comes out by its time (at its fps: an MPEG-1
-        transport stream's 50 makes two numbers a picture) and reads on,
-        one picture at a time, to the target.  None where the read after
-        the seek finds no picture.  MPEG-4 pictures decoded after landing
-        on a P-VOP and before the next I-VOP, which FFmpeg decodes over a
-        grey picture, are not reproduced: a seek that reads one raises
-        ``Unsupported``."""
+        transport stream, a NUT file or Matroska without an index: it asks
+        FFmpeg for the time ``delta`` frames before the target (16, then
+        more while it lands past it); FFmpeg lands (a PES stream's
+        :meth:`_landing`, else the container's ``landing``: NUT's index or
+        syncpoint search, Matroska's generic seek) and its decoder, flushed,
+        drops what it cannot decode until an I-picture or GOP header;
+        OpenCV numbers the first picture that comes out by its time (at its
+        fps: an MPEG-1 transport stream's 50 makes two numbers a picture)
+        and reads on, one picture at a time, to the target: (that picture,
+        None where the read after the seek finds none, as after any seek
+        in a Dirac NUT, which flags no key frame; the sample reading
+        restarts at, for a Dirac stream).  MPEG-4 pictures decoded after
+        landing on a P-VOP and before the next I-VOP, which FFmpeg decodes
+        over a grey picture, are not reproduced: a seek that reads one
+        raises ``Unsupported``."""
         box = self.box
-        start = box.start_time or 0
-        ts_box = isinstance(box, MpegTsFile)
+        pes = isinstance(box, (MpegPsFile, MpegTsFile))
+        if not pes and self.frames < 2:
+            raise Unsupported(f"{self.path}: a seek in a file of "
+                              f"{self.frames} frames by OpenCV's count, which "
+                              f"OpenCV makes without FFmpeg's seek; not "
+                              f"reproduced by the port ({ITEM_8})")
+        start = (box.start_time or 0) if pes else 0
         mpeg12 = box.codec == "mpeg12"
         samples = ({d: i for i, d in enumerate(self.display) if d is not None}
                    if mpeg12 else None)
 
         def number(d: int) -> int:
             """OpenCV's dts_to_frame_number of display frame ``d``."""
-            pts = box.pts[samples[d] if mpeg12 else d]
-            if not ts_box or pts is None:
+            i = samples[d] if mpeg12 else d
+            if not pes:
+                return box.number(i)
+            if not isinstance(box, MpegTsFile) or box.pts[i] is None:
                 return d
-            return int(box.fps * ((pts - start) * (1.0 / 90000)) + 0.5)
+            return int(box.fps * ((box.pts[i] - start) * (1.0 / 90000))
+                       + 0.5)
 
         first = number(0)
         delta = 16
         while True:
             temp = max(target - delta, 0)
-            ts = start + int(temp / box.fps / (1.0 / 90000) + 0.5)
-            land = self._landing(ts, index)
-            if land is None:
-                return None
-            s0 = bisect_left(box.pictures, land)
+            if pes:
+                ts = start + int(temp / box.fps / (1.0 / 90000) + 0.5)
+                land = self._landing(ts, index)
+                s0 = None if land is None else bisect_left(box.pictures, land)
+            else:
+                land = None
+                s0 = box.landing(box.ticks(temp))
+            if s0 is None:
+                return None, None
             if mpeg12:
-                closed = [c if box.starts[i] >= land else None
+                closed = [c if land is None or box.starts[i] >= land
+                          else None
                           for i, c in enumerate(self.closed[s0:], s0)]
                 out = [self.display[s0 + i] for i in output_order(
                     self.types[s0:], closed, self.low_delay,
@@ -634,18 +708,19 @@ class EncodedVideo:
                 out = list(range(s0, self.samples))
             # MPEG-4 from a P-VOP: FFmpeg decodes over a grey picture until
             # the next I-VOP, frames the port does not reproduce
-            grey = (0 if mpeg12 else
+            grey = (0 if mpeg12 or not pes else
                     next((i for i in range(s0, self.samples)
                           if box.types[i] == 1), self.samples) - s0)
+            restart = s0 if box.codec == "dirac" else None
 
-            def pick(n: int) -> Optional[int]:
+            def pick(n: int) -> Tuple[Optional[int], Optional[int]]:
                 if n < grey:
                     raise Unsupported(
                         f"{self.path}: a seek to frame {target} reads a "
                         f"picture FFmpeg decodes from a P-VOP over a grey "
                         f"one (after landing on picture {s0}); not "
                         f"reproduced by the port ({ITEM_8})")
-                return out[n] if n < len(out) else None
+                return (out[n] if n < len(out) else None), restart
 
             if target < 2 or not out:
                 return pick(target)
@@ -675,6 +750,8 @@ class EncodedVideo:
                                   self.box.dsi, what=self.path)
         if self.box.codec == "snow":    # the size comes from the container
             return SnowDecoder(self.width, self.height, what=self.path)
+        if self.box.codec == "dirac":
+            return DiracDecoder(what=self.path)
         if self.box.codec == "asv":
             return AsvDecoder(self.width, self.height, self.box.tag,
                               self.box.dsi, what=self.path)
@@ -730,7 +807,8 @@ class EncodedVideo:
         return np.ascontiguousarray(
             rows[::-1] if getattr(self.box, "bottom_up", False) else rows)
 
-    def planes(self, start: int = 0, seeking: bool = False
+    def planes(self, start: int = 0, seeking: bool = False,
+               restart: Optional[int] = None
                ) -> Iterator[Tuple[int, tuple]]:
         """(index, (Y, U, V)) of each picture of an MPEG-4 Part 2, H.263,
         VP8, VP9 or raw stream from frame ``start`` on; a sample that
@@ -744,7 +822,8 @@ class EncodedVideo:
         if self.box.codec == "mpeg12":
             yield from self._mpeg12_planes(start)
             return
-        k = self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)]
+        k = (restart if restart is not None else
+             self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)])
         with open(self.path, "rb") as f:
             if self.box.codec in ("i420", "raw"):
                 for i in range(start, self.samples):
@@ -815,7 +894,8 @@ class EncodedVideo:
             raise ValueError(f"{self.path}: the decoder never handed over "
                              f"picture {k + left} of decode order")
 
-    def _decoded(self, start: int = 0, seeking: bool = False
+    def _decoded(self, start: int = 0, seeking: bool = False,
+                 restart: Optional[int] = None
                  ) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, BGR frame) of each picture from frame ``start`` on.  A
         picture of another size than the stream's (a VP9 frame that changed
@@ -823,7 +903,7 @@ class EncodedVideo:
         cv2 hands every frame to swscale at its stream's size."""
         if self.box.codec not in ("mjpeg", "png"):
             size = (self.width, self.height)
-            for i, p in self.planes(start, seeking):
+            for i, p in self.planes(start, seeking, restart):
                 if isinstance(p, np.ndarray):
                     # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
                     # swscale)
@@ -873,11 +953,11 @@ class EncodedVideo:
         """BGR frame ``index``, decoded from the keyframe before it: the
         frame a ``CAP_PROP_POS_FRAMES`` seek to ``index`` reads
         (:meth:`seek_target`)."""
-        target = self.seek_target(index)
+        target, restart = self._seek(index)
         if target is None:
             raise ValueError(f"{self.path}: a seek to frame {index} reads no "
                              "frame (OpenCV's VideoCapture reads none either)")
-        with closing(self._decoded(target, seeking=True)) as it:
+        with closing(self._decoded(target, True, restart)) as it:
             for _, frame in it:
                 return frame
         raise ValueError(f"{self.path}: frame {index} did not decode")
@@ -893,11 +973,11 @@ class EncodedVideo:
             if self._gen is not None:
                 self._gen.close()
                 self._gen = None
-            target = self.seek_target(index, self._index)
+            target, restart = self._seek(index, self._index)
             if target is None:
                 raise ValueError(f"{self.path}: a seek to frame {index} reads "
                                  "no frame (OpenCV's VideoCapture reads none either)")
-            self._gen = self._decoded(target, seeking=True)
+            self._gen = self._decoded(target, True, restart)
         try:
             _, frame = next(self._gen)
         except StopIteration:

@@ -1249,14 +1249,17 @@ class Lavc:
             fn.restype, fn.argtypes = res, args
 
     def encode(self, planes: list, codec: str = "mpeg2video",
-               fps=25, **opts) -> list:
-        """I420 planes → (packet, pts, dts) in frames, in decode order;
-        ``fps`` a number or a time base's reciprocal as ``"30000/1001"``."""
+               fps=25, pix: str = "yuv420p", **opts) -> list:
+        """Planes of pixel format ``pix`` (I420 by default; ``lavc_planes``'
+        formats) → (packet, pts, dts) in frames, in decode order; ``fps`` a
+        number or a time base's reciprocal as ``"30000/1001"``."""
         c, a, u = self.ct, self.a, self.u
         h, w = planes[0][0].shape
+        u.av_get_pix_fmt.restype, u.av_get_pix_fmt.argtypes = c.c_int, [
+            c.c_char_p]
         enc = a.avcodec_find_encoder_by_name(codec.encode())
         ctx = a.avcodec_alloc_context3(enc)
-        for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", "yuv420p"),
+        for k, v in (("video_size", f"{w}x{h}"), ("pixel_format", pix),
                      ("time_base", "/".join(str(fps).split("/")[::-1])
                       if "/" in str(fps) else f"1/{fps}"),
                      ("g", "12"), ("b", "1000000"),
@@ -1268,7 +1271,8 @@ class Lavc:
         assert a.avcodec_open2(ctx, enc, c.byref(d)) >= 0, opts
         frame, pkt = u.av_frame_alloc(), a.av_packet_alloc()
         ints = (c.c_int * 30).from_address(frame)
-        ints[26], ints[27], ints[29] = w, h, 0      # width, height, format
+        # width, height, format
+        ints[26], ints[27], ints[29] = w, h, u.av_get_pix_fmt(pix.encode())
         assert u.av_frame_get_buffer(frame, 0) >= 0
         out = []
 
@@ -1289,7 +1293,7 @@ class Lavc:
                 p = np.ascontiguousarray(p)
                 for r in range(p.shape[0]):
                     c.memmove(ptrs[k] + r * strides[k], p[r].ctypes.data,
-                              p.shape[1])
+                              p[r].nbytes)
             c.c_int64.from_address(frame + 136).value = n   # pts
             assert a.avcodec_send_frame(ctx, frame) >= 0
             drain()
@@ -1364,6 +1368,59 @@ class Lavc:
         a.avcodec_send_frame(ctx, None)
         drain()
         return ext, out
+
+
+class Lavf:
+    """cv2's bundled libavformat through ctypes: a file's video packets as
+    FFmpeg's demuxer hands them to its decoder (``av_read_frame`` after
+    ``avformat_find_stream_info``): (bytes, pts, key flag) each, the pts in
+    the stream's time base, by AVPacket's public offsets."""
+
+    def __init__(self):
+        import ctypes
+        import glob
+        import cv2
+        libs = os.path.join(os.path.dirname(cv2.__file__), os.pardir,
+                            "opencv_python.libs")
+        lib = lambda n: sorted(glob.glob(os.path.join(libs, f"lib{n}-*")))[0]  # noqa: E731
+        self.ct = c = ctypes
+        u = c.CDLL(lib("avutil"), mode=c.RTLD_GLOBAL)
+        self.a = c.CDLL(lib("avcodec"), mode=c.RTLD_GLOBAL)
+        self.f = c.CDLL(lib("avformat"))
+        P = c.c_void_p
+        for L, name, res, args in (
+                (self.f, "avformat_open_input", c.c_int,
+                 [c.POINTER(P), c.c_char_p, P, P]),
+                (self.f, "avformat_find_stream_info", c.c_int, [P, P]),
+                (self.f, "av_read_frame", c.c_int, [P, P]),
+                (self.f, "avformat_close_input", None, [c.POINTER(P)]),
+                (self.a, "av_packet_alloc", P, []),
+                (self.a, "av_packet_free", None, [c.POINTER(P)]),
+                (self.a, "av_packet_unref", None, [P]),
+                (u, "av_log_set_level", None, [c.c_int])):
+            fn = getattr(L, name)
+            fn.restype, fn.argtypes = res, args
+        u.av_log_set_level(-8)              # quiet
+
+    def packets(self, path: str) -> list:
+        c, f, a = self.ct, self.f, self.a
+        ctx = c.c_void_p()
+        assert f.avformat_open_input(c.byref(ctx), path.encode(), None,
+                                     None) == 0, path
+        f.avformat_find_stream_info(ctx, None)
+        pkt = c.c_void_p(a.av_packet_alloc())
+        out = []
+        while f.av_read_frame(ctx, pkt) == 0:
+            p = pkt.value
+            pts = c.c_int64.from_address(p + 8).value
+            data = c.c_void_p.from_address(p + 24).value
+            size = c.c_int.from_address(p + 32).value
+            key = bool(c.c_int.from_address(p + 40).value & 1)
+            out.append((c.string_at(data, size), pts, key))
+            a.av_packet_unref(p)
+        a.av_packet_free(c.byref(pkt))
+        f.avformat_close_input(c.byref(ctx))
+        return out
 
 
 # the chroma subsampling (horizontal, vertical shift) of lavc_planes' YUV
@@ -3446,6 +3503,121 @@ def snow_fixtures() -> None:
     for name, packets in snow_crafted().items():
         snow_avi(out(f"snow_craft_{name}_64x48.avi"), packets, 64, 48)
 
+NUT_FOURCCS = ("mp4v", "XVID", "MJPG", "mpg2", "FLV1", "MP42", "DIV3", "WMV1",
+               "WMV2", "SNOW", "VP80", "VP90", "FFV1", "HFYU", "FFVH", "ULY0",
+               "M8Y0", "MPNG", "ASV1", "ASV2", "Y800", "I420")
+# lossless and raw: 6 frames, to keep the group small
+NUT_SHORT = ("FFV1", "HFYU", "FFVH", "ULY0", "M8Y0", "MPNG", "Y800", "I420")
+
+
+def nut_crafted(src: str) -> dict:
+    """cv2's own ``.nut`` bytes cut or damaged: {name: bytes}: cut before
+    its index packet, its second syncpoint's checksum flipped, its main
+    header's checksum flipped, and its last frame cut in half."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.nut import (INDEX, MAIN, SYNCPOINT,
+                                              NutFile, _Reader)
+    with open(src, "rb") as f:
+        data = f.read()
+    nut = NutFile(src)
+
+    def flipped(code: int, at: int) -> bytes:
+        end = nut._packet(_Reader(data, at + 8), code)
+        out = bytearray(data)
+        out[end - 1] ^= 0x5A          # the packet's CRC-32
+        return bytes(out)
+
+    last = nut.frames_[-1]
+    return {"noindex": data[:data.rfind(INDEX.to_bytes(8, "big"))],
+            "badsyncpoint": flipped(SYNCPOINT, nut.syncpoints[1][0]),
+            "badmain": flipped(MAIN, data.find(MAIN.to_bytes(8, "big"))),
+            "truncated": data[:last.offset + last.size // 2]}
+
+
+def nut_fixtures() -> None:
+    """NUT as cv2 writes and reads it: every fourcc the port decodes at
+    96x64 over the moving clip (25 frames, key frames every 12 where the
+    codec has inter frames; the lossless and raw ones at 6 frames),
+    ``H263`` at 128x96, fourcc 0 (cv2 writes raw I420), a 53x37 ``mp4v``
+    (cv2 writes 52x36) and one at 30000/1001 fps; and ``nut_crafted``'s
+    damage to the ``mp4v`` file (Dirac in NUT is in ``dirac_fixtures``)."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 25, seed=60, speed=3.0)
+    for fourcc in NUT_FOURCCS:
+        _cv2_write(out(f"nut_{fourcc}_96x64.nut"),
+                   clip[:6] if fourcc in NUT_SHORT else clip, fourcc)
+    _cv2_write(out("nut_H263_128x96.nut"),
+               moving_clip(96, 128, 25, seed=60, speed=3.0), "H263")
+    import cv2
+    h, w = clip[0].shape[:2]
+    wr = cv2.VideoWriter(out("nut_raw_96x64.nut"), 0, 25.0, (w, h))
+    for f in clip[:6]:
+        wr.write(f)
+    wr.release()
+    _cv2_write(out("nut_odd_53x37.nut"),
+               moving_clip(37, 53, 14, seed=61, speed=5.0), "mp4v")
+    _cv2_write(out("nut_ntsc_96x64.nut"), clip, "mp4v", fps=30000 / 1001)
+    for name, data in nut_crafted(out("nut_mp4v_96x64.nut")).items():
+        with open(out(f"nut_craft_{name}_96x64.nut"), "wb") as f:
+            f.write(data)
+
+
+def dirac_fixtures() -> None:
+    """Dirac/VC-2 (fourcc ``drac``: libavcodec's ``vc2`` encoder, HQ
+    profile, intra only) as cv2 writes and reads it: 25 frames of the
+    moving clip in .drc, .avi, .mkv, .mov, .mp4, .ts, .nut and .wmv (cv2
+    writes no .flv or .webm of it), a 53x37 input in .avi (cv2 writes
+    52x36) and the Sintel pair's 13 frames at 436x1024 in .nut, which the
+    card run reads.  From ``Lavc.encode`` (4 frames, muxed by
+    ``lossless_avi`` under ``drac``): the (5,3), Haar and Haar-without-shift wavelets,
+    depths 1, 2, 3 and 5, 64x64 slices, the flat and colour quantisation
+    matrices, a low and a high bit rate, full range, field coding (which
+    FFmpeg refuses: cv2 reads no frame), yuv422p, yuv444p (also at 53x37)
+    and yuv420p10 (which the port refuses)."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 25, seed=70, speed=3.0)
+    for ext in ("drc", "avi", "mkv", "mov", "mp4", "ts", "nut", "wmv"):
+        _cv2_write(out(f"dirac_96x64.{ext}"), clip, "drac")
+    _cv2_write(out("dirac_53x37.avi"), moving_clip(37, 53, 14, seed=71,
+                                                   speed=5.0), "drac")
+    im1, im2 = sintel_pair()
+    _cv2_write(out("dirac_sintel_436x1024.nut"),
+               [im1 if i % 2 == 0 else im2 for i in range(13)], "drac")
+    lavc = Lavc()
+
+    def lavc_avi(name, frames, pix="yuv420p", **opts):
+        h, w = frames[0].shape[:2]
+        planes = [lavc_planes(f, pix) for f in frames]
+        if pix.endswith("10"):          # 10-bit samples, from the 8-bit ones
+            planes = [[p.astype(np.uint16) << 2 for p in pl]
+                      for pl in planes]
+        pk = lavc.encode(planes, "vc2", pix=pix, **opts)
+        lossless_avi(out(name), [p for p, _, _ in pk], w, h, "drac")
+
+    small = moving_clip(48, 64, 4, seed=72, speed=3.0)
+    for wavelet in ("5_3", "haar", "haar_noshift"):
+        lavc_avi(f"dirac_lavc_{wavelet}_64x48.avi", small,
+                 wavelet_type=wavelet)
+    for depth in (1, 2, 3, 5):
+        lavc_avi(f"dirac_lavc_depth{depth}_64x48.avi", small,
+                 wavelet_depth=depth)
+    lavc_avi("dirac_lavc_slices64_128x128.avi",
+             moving_clip(128, 128, 4, seed=73, speed=3.0),
+             slice_width=64, slice_height=64)
+    for qm in ("flat", "color"):
+        lavc_avi(f"dirac_lavc_qm_{qm}_64x48.avi", small, qm=qm)
+    lavc_avi("dirac_lavc_b100k_64x48.avi", small, b=100000)
+    lavc_avi("dirac_lavc_b50m_64x48.avi", small[:3], b=50000000)
+    lavc_avi("dirac_lavc_fullrange_64x48.avi", small, color_range="pc")
+    lavc_avi("dirac_lavc_interlaced_64x48.avi", small[:2], field_order="tt")
+    for pix in ("yuv422p", "yuv444p", "yuv420p10"):
+        lavc_avi(f"dirac_lavc_{pix}_64x48.avi", small, pix=pix)
+    lavc_avi("dirac_lavc_yuv444p_53x37.avi", moving_clip(37, 53, 4, seed=71,
+                                                         speed=5.0),
+             pix="yuv444p")
+
 
 def sintel_pair() -> list:
     import cv2
@@ -3642,8 +3814,29 @@ def write_manifest(keep: bool = False) -> None:
             except ValueError as e:     # Unsupported, or refused by FFmpeg
                 manifest["files"][name]["port_refuses"] = \
                     str(e).split(": ", 1)[1]
+        if name.startswith(("nut_", "dirac_")):
+            sys.path.insert(0, os.path.dirname(HERE))
+            from opticalflow_tpu_torch.io.nut import NutFile
+            if name.endswith(".nut"):
+                try:
+                    nut = NutFile(path)
+                    manifest["files"][name]["nut_features"] = nut.features
+                    with open(path, "rb") as f:
+                        for i in range(len(nut.sizes)):
+                            nut.sample(f, i)
+                except ValueError as e:
+                    manifest["files"][name]["port_refuses"] = \
+                        str(e).split(": ", 1)[1]
+            if name.startswith("dirac_"):
+                try:
+                    manifest["files"][name]["dirac_features"] = \
+                        _lossless_features(path)
+                except ValueError as e:     # Unsupported, or refused by FFmpeg
+                    manifest["files"][name]["port_refuses"] = \
+                        str(e).split(": ", 1)[1]
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
-                             "asv_", "msm_", "snow_") + LOSSLESS)
+                             "asv_", "msm_", "snow_", "nut_", "dirac_")
+                            + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
             # a seek that reads a frame the sequential read never shows
@@ -3685,8 +3878,11 @@ def write_manifest(keep: bool = False) -> None:
     from opticalflow_tpu_torch.runtime.magicyuv import FEATURES as MAGY
     from opticalflow_tpu_torch.runtime.msmpeg4 import FEATURES as MSMP4
     from opticalflow_tpu_torch.runtime.snow import FEATURES as SNOW
+    from opticalflow_tpu_torch.runtime.dirac import FEATURES as DIRAC
+    from opticalflow_tpu_torch.io.nut import FEATURES as NUT
     for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
-                       ("asv", ASV), ("msmpeg4", MSMP4), ("snow", SNOW)):
+                       ("asv", ASV), ("msmpeg4", MSMP4), ("snow", SNOW),
+                       ("dirac", DIRAC), ("nut", NUT)):
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
@@ -3709,7 +3905,8 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           mpeg12_fixtures, resize_fixtures, h263_fixtures, stream_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
-          asv_fixtures, msmpeg4_fixtures, snow_fixtures)
+          asv_fixtures, msmpeg4_fixtures, snow_fixtures, nut_fixtures,
+          dirac_fixtures)
 
 
 if __name__ == "__main__":

@@ -48,6 +48,10 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
 DECODED = sorted(n for n in MANIFEST if n != "mjpg.avi"
                  and not n.startswith(("vp8_", "mkv_", "mpeg1_", "mpeg2_"))
                  and "port_refuses" not in MANIFEST[n])
+# NUT and Dirac, where a seek of cv2's may read nothing (a NUT stream
+# without a key frame, one resynced past a damaged syncpoint): every seek
+# cv2 makes is held in test_torch_nut.py and test_torch_dirac.py
+SOUGHT = [n for n in DECODED if not n.startswith(("nut_", "dirac_"))]
 MOVING = os.path.join(FIXTURES, "moving_176x144.mp4")
 
 
@@ -94,7 +98,7 @@ def test_fixture_frames_equal_cv2_and_the_manifest(name):
         MANIFEST[name]["sha256"]
 
 
-@pytest.mark.parametrize("name", DECODED)
+@pytest.mark.parametrize("name", SOUGHT)
 def test_fixture_info_and_seeks_equal_cv2(name):
     path = os.path.join(FIXTURES, name)
     assert vio.video_info(path) == _cv2_info(path)
