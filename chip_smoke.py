@@ -366,7 +366,22 @@ non-zero, and no result line is printed):
      convert a 436x1024 VC-2 frame beside Snow and MS-MPEG4 v3, and NUT's
      demux ms a packet beside AVI's; (e) no cv2, PIL or jax in
      ``sys.modules``;
- 30. one JSON line listing every kernel with its launches on its path,
+ 30. the writer's containers and the repaired fixtures
+     (``io/mp4.py``, ``io/nut.py``, ``io/asf.py``, ``io/mpegps.py``,
+     ``io/mpegts.py`` behind ``AsyncVideoWriter``; ``phase_containers``):
+     (a) the fixtures the port once refused and cv2 reads (10- and 12-bit
+     VC-2, an I-VOP cut short in .nut, Snow's header fields and MC
+     filters) decode to their manifest's cv2 digests, fps, size, count and
+     seeks, a P-VOP cut short raises naming item 8; the 13-frame 436x1024
+     Sintel clip written through ``AsyncVideoWriter`` into each container
+     cv2's mp4v writer opens (.mov, .m4v, .3gp, .3g2, .nut, .wmv, .asf,
+     .mpg, .mpeg, .vob, .ts, .mts, .m2t, .m2ts) reads back through the
+     port's reader to the encoder's reconstruction, with the encode and
+     each container's mux timed apart; no cv2, PIL or jax in
+     ``sys.modules``; (b) ``cli/extract_video --mode arrows --batch 4
+     --dtype bfloat16`` over that clip into .mov and into .ts: K1 15 each,
+     fps and the encode thread's ms a frame beside phase 17's .mp4;
+ 31. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -383,9 +398,9 @@ paths, phase 19's VP8 and Matroska paths, phase 20's VP9 paths,
 phase 21's MPEG-1/2 paths, phase 22's H.263 and size-change paths,
 phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
 phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
-phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths and phase 29's NUT
+phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths, phase 29's NUT
 and Dirac paths (K1 in the video CLI's runs, K1 and B1 in the pseudo
-steps).
+steps) and phase 30's writer paths (K1 in the video CLI's runs).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -5984,8 +5999,10 @@ def phase_snow(sd, tmp, corr_fwd, corr_bwd, card: str):
     checked = check_fixtures(new)
     assert not checked["seeks_none"], checked
     refused = checked["refused"]
+    # the crafted colour spaces and chroma shifts FFmpeg refuses (cv2 reads
+    # no frame); every other crafted header decodes (phase 30)
     assert refused == sorted(n for n in new if n.startswith("snow_craft_")
-                             and n != "snow_craft_default_64x48.avi"), refused
+                             and new[n]["decoded"] == 0), refused
     n_frames, n_seeks = checked["frames"], checked["seeks"]
     features = sorted({f for w in new.values()
                        for f in w.get("snow_features", [])})
@@ -6134,8 +6151,9 @@ def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
             raise AssertionError(f"{name} was read")
     checked = check_fixtures(new)
     refused = checked["refused"]
-    assert refused == ["dirac_lavc_yuv420p10_64x48.avi",
-                       "nut_craft_truncated_96x64.nut"], refused
+    # a P-VOP cut short: FFmpeg conceals it with the vectors it guesses,
+    # which the port does not reproduce (phase 30 reads the rest)
+    assert refused == ["nut_craft_truncated_pvop_96x64.nut"], refused
     # a Dirac .nut: cv2's read after every seek finds nothing
     assert checked["seeks_none"] == 25 + DIRAC_FRAMES, checked
     n_frames, n_seeks = checked["frames"], checked["seeks"]
@@ -6267,6 +6285,169 @@ def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
             "refused": refused + sorted(NUT_DIRAC_INVALID),
             "features": reached, "cli": row, "host_decode": host,
             "demux_ms": demux, "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+# ------------------------------------------------------------ phase 30
+
+# the fixtures the port once refused and cv2 reads
+REPAIRED = ["dirac_lavc_yuv420p10_64x48.avi", "nut_craft_truncated_96x64.nut",
+            *(f"snow_craft_{n}_64x48.avi" for n in (
+                "always_reset", "temporal_type", "temporal_count",
+                "scalability", "htaps4", "diag_mc0"))]
+# the fixtures that hold those repairs further: VC-2 at 10 and 12 bits
+# with every bit used, Snow's MC filters on non-zero vectors, a P-VOP cut
+# short
+DEEP_AND_TEXTURED = [
+    *(f"dirac_lavc_{p}_fine_64x48.avi" for p in (
+        "yuv420p10", "yuv422p10", "yuv444p10", "yuv420p12")),
+    "dirac_lavc_yuv444p10_53x37.avi",
+    *(f"snow_craft_textured_{f}_64x48.avi" for f in (
+        "default", "htaps4", "htaps6", "diag_mc0")),
+    "nut_craft_truncated_pvop_96x64.nut"]
+# every extension cv2's mp4v writer opens beyond .mp4, .avi and .mkv
+NEW_CONTAINERS = (".mov", ".m4v", ".3gp", ".3g2", ".nut", ".wmv", ".asf",
+                  ".mpg", ".mpeg", ".vob", ".ts", ".mts", ".m2t", ".m2ts")
+
+
+def phase_containers(sd, tmp, corr_fwd, card: str, mp4_rows: dict):
+    """The writer's containers and the repaired fixtures on the card machine
+    (``AsyncVideoWriter`` into ``io/mp4``, ``io/nut``, ``io/asf``,
+    ``io/mpegps`` and ``io/mpegts``): (a) the repaired and new fixtures
+    against cv2's digests and seeks (a P-VOP cut short raises naming item
+    8); the 436x1024 Sintel clip through ``AsyncVideoWriter`` into each
+    new container, read back by the port's reader to the encoder's
+    reconstruction; the encode and each container's mux timed apart (host
+    ms a frame, one thread); no cv2, PIL or jax imported; (b) the video
+    CLI over that clip into .mov and .ts, K1 on the card, bf16, beside
+    phase 17's .mp4 run.  Returns its results, each CLI run's K1 launches
+    among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime.mpeg4 import (Encoder, Unsupported,
+                                                      i420_to_bgr)
+    from opticalflow_tpu_torch.io.yuv import i420_planes
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the repaired fixtures and those that hold the repairs
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    fixtures = {n: manifest["files"][n] for n in REPAIRED + DEEP_AND_TEXTURED}
+    assert not any("port_refuses" in fixtures[n] for n in REPAIRED)
+    checked = check_fixtures(fixtures)
+    assert checked["refused"] == ["nut_craft_truncated_pvop_96x64.nut"], \
+        checked
+    try:
+        list(vio.read_frames(os.path.join(
+            MP4_DIR, "nut_craft_truncated_pvop_96x64.nut")))
+    except Unsupported as e:
+        assert "P-VOP cut short" in str(e) and "item 8" in str(e), str(e)
+    log(f"[30] (a) {len(fixtures)} fixtures (the {len(REPAIRED)} the port "
+        f"refused and cv2 reads: 10-bit VC-2, an I-VOP cut short in .nut, "
+        f"Snow's always_reset, temporal fields, scalability and MC filters; "
+        f"VC-2 at 10/12 bits 4:2:0/4:2:2/4:4:4, Snow's filters on non-zero "
+        f"vectors) decoded to cv2.VideoCapture's {checked['frames']} frame "
+        f"digests and its fps/size/count, {checked['seeks']} seeks to the "
+        f"frames cv2's read, in {time.perf_counter() - t0:.2f} s; refused: "
+        f"{checked['refused']} (a P-VOP cut short, item 8); {card}")
+
+    # the clip, its reconstruction, and the encode alone
+    clip = os.path.join(MP4_DIR, DIRAC_CLIP)
+    frames = list(vio.read_frames(clip))
+    assert len(frames) == DIRAC_FRAMES
+    size = (FULL_W, FULL_H)
+    ref = vio.Mpeg4Writer(os.path.join(tmp, "recon.mp4"), 25.0, size,
+                          keep_recon=True)
+    for fr in frames:
+        ref.write(fr)
+    ref.release()
+    recon = [i420_to_bgr(*r) for r in ref.recon]
+    encoded, encode_ms = {}, {}
+    for inband in (False, True):
+        t0 = time.perf_counter()
+        enc = Encoder(FULL_W, FULL_H, 25, 1, inband=inband)
+        out = [enc.encode(*i420_planes(vio.to_i420(fr))) for fr in frames]
+        encode_ms["inband" if inband else "global"] = \
+            (time.perf_counter() - t0) / len(frames) * 1e3
+        encoded[inband] = (out, enc.headers)
+    rows = {}
+    for ext in NEW_CONTAINERS:
+        path = os.path.join(tmp, f"sintel{ext}")
+        t0 = time.perf_counter()
+        wr = vio.AsyncVideoWriter(path, 25.0, size)
+        for fr in frames:
+            wr.write(fr)
+        wr.release()
+        write_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+        got = list(vio.read_frames(path))
+        assert len(got) == len(recon), (ext, len(got))
+        for k, (a, b) in enumerate(zip(got, recon)):
+            assert np.array_equal(a, b), (ext, k)
+        info = vio.video_info(path)
+        assert (info["width"], info["height"]) == size, (ext, info)
+        # the mux alone, over the pictures encoded above
+        kind = vio._kind(path, writing=True)
+        samples, headers = encoded[kind in vio._INBAND]
+        rate = vio._opencv_rate(25.0) if kind == "mpg" else vio._rate(25.0)
+        mux_path = os.path.join(tmp, f"mux{ext}")
+        t0 = time.perf_counter()
+        for _ in range(HOST_TIMED):
+            mux = vio._muxer(mux_path, kind, size, rate, headers)
+            for sample, key in samples:
+                mux.write(sample, key)
+            mux.release()
+        mux_ms = (time.perf_counter() - t0) / HOST_TIMED / len(frames) * 1e3
+        with open(path, "rb") as a, open(mux_path, "rb") as b:
+            assert a.read() == b.read(), ext
+        rows[ext] = {"mux_ms": mux_ms, "writer_ms": write_ms,
+                     "bytes": os.path.getsize(path),
+                     "frames_reported": info["frames"], "fps": info["fps"]}
+    log(f"[30] (a) {len(NEW_CONTAINERS)} containers, the {DIRAC_FRAMES}-frame "
+        f"{FULL_H}x{FULL_W} clip through AsyncVideoWriter, read back to the "
+        f"encoder's reconstruction; host ms a frame, one thread: encode "
+        f"{encode_ms['global']!r} (VOL in the header), {encode_ms['inband']!r}"
+        f" (VOL in band); mux " + ", ".join(
+            f"{e} {r['mux_ms']!r}" for e, r in rows.items()) + f"; {card}")
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+
+    # (b) the video CLI over the clip into .mov and .ts
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    cli_rows = {}
+    for ext in (".mov", ".ts"):
+        out = os.path.join(tmp, f"out_sintel{ext}")
+        k0 = corr_fwd.launches
+        row = video_cli([clip, out, "--ckpt", ckpt, "--mode", "arrows",
+                         "--batch", str(VIDEO_B), "--dtype", "bfloat16",
+                         "--device", "cuda"], DIRAC_FRAMES, FULL_H, FULL_W)
+        row["k1_launches"] = launched = corr_fwd.launches - k0
+        windows = row.pop("windows")
+        assert windows == -(-(DIRAC_FRAMES - 1) // VIDEO_B), windows
+        assert launched == 5 * windows == 15, (launched, windows)
+        del row["runner"], row["bytes_uploaded"]
+        back = list(vio.read_frames(out))
+        assert len(back) == DIRAC_FRAMES - 1 and all(
+            f.shape == (FULL_H, FULL_W, 3) for f in back), len(back)
+        cli_rows[ext] = row
+        launches[ext] = launched
+        mp4 = mp4_rows["mp4"]
+        log(f"[30] (b) extract_video --mode arrows B={VIDEO_B} bf16 into "
+            f"{ext} ({DIRAC_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r}"
+            f" fps over the run ({row['run_s']!r} s), encode thread busy "
+            f"{row['encode_ms']!r} ms a frame ({row['encode_share']:.1%}); "
+            f"phase 17's .mp4 ({VIDEO_H}x{VIDEO_W}): {mp4['fps']!r} fps, "
+            f"encode {mp4['encode_ms']!r} ms a frame; {windows} windows, K1 "
+            f"{launched} launches; read back {len(back)} frames; {card}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[30] phase 30 took {phase_s:.1f} s; {card}")
+    return {"fixtures": len(fixtures), "frames": checked["frames"],
+            "seeks": checked["seeks"], "refused": checked["refused"],
+            "encode_ms": encode_ms, "containers": rows, "cli": cli_rows,
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
@@ -6533,6 +6714,15 @@ def main() -> int:
     assert nut_dirac_launches == correlation_cuda.launches > 0
     assert nd["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the writer's container paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        cont = phase_containers(sd, tmp, correlation_cuda, card_line(),
+                                mp4["cli"])
+    # ... and end here: the video CLI's two runs
+    containers_launches = sum(cont["launches"].values())
+    assert containers_launches == correlation_cuda.launches == 30, \
+        containers_launches
+    assert correlation_bwd_cuda.launches == 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -6617,7 +6807,10 @@ def main() -> int:
          "launches_snow": snow_launches, "snow": snw,
          # phase 29: the video CLI over the 436x1024 VC-2 .nut, and the
          # pseudo steps over its packets in AVI (5 a window, 5 a step)
-         "launches_nut_dirac": nut_dirac_launches, "nut_dirac": nd},
+         "launches_nut_dirac": nut_dirac_launches, "nut_dirac": nd,
+         # phase 30: the video CLI over the 436x1024 clip into .mov and .ts
+         # (5 a window, 15 a run)
+         "launches_containers": containers_launches, "containers": cont},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax

@@ -57,9 +57,12 @@ def build_parser():
                                  "image sequence pattern "
                                  "(frames/%%06d.jpg) or PNG/JPEG frame "
                                  "directory")
-    p.add_argument("out", help="output video path (.mp4, .avi, .mkv or "
-                               ".y4m) or "
-                               "PNG frame directory")
+    p.add_argument("out", help="output video path: MPEG-4 Part 2 in "
+                               ".mp4, .mov, .m4v, .3gp, .3g2, .avi, .mkv, "
+                               ".nut, .wmv, .asf, .mpg, .mpeg, .vob, .ts, "
+                               ".mts, .m2t or .m2ts (where OpenCV's mp4v "
+                               "writer opens; elsewhere the port raises), "
+                               "a .y4m file, or a PNG frame directory")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--variant", choices=("new", "old"), default="new")
     p.add_argument("--mode", default="arrows",

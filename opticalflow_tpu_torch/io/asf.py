@@ -1,5 +1,6 @@
 """Advanced Systems Format (``.asf``, ``.wmv``): the demuxer of the port's
-MS-MPEG4/WMV and Snow path, in Python (no FFmpeg), read only.
+MS-MPEG4/WMV and Snow path, and the muxer of its MPEG-4 Part 2 output
+(:class:`AsfWriter`), in Python (no FFmpeg).
 
 :class:`AsfFile` reads what FFmpeg's asf demuxer (``asfdec_f.c``) reads of
 a file for ``cv2.VideoCapture``:
@@ -42,13 +43,14 @@ from __future__ import annotations
 import os
 import struct
 import uuid
-from typing import BinaryIO, List, Tuple
+from fractions import Fraction
+from typing import BinaryIO, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import codec_of
 from opticalflow_tpu_torch.io.mkv import _rfps
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["AsfFile", "EXTENSIONS", "guid"]
+__all__ = ["AsfFile", "AsfWriter", "EXTENSIONS", "guid"]
 
 EXTENSIONS = (".asf", ".wmv")
 
@@ -64,6 +66,9 @@ SIMPLE_INDEX = guid("33000890-E5B1-11CF-89F4-00A0C90349CB")
 FILE_PROPERTIES = guid("8CABDCA1-A947-11CF-8EE4-00C00C205365")
 STREAM_PROPERTIES = guid("B7DC0791-A9B7-11CF-8EE6-00C00C205365")
 VIDEO_MEDIA = guid("BC19EFC0-5B4D-11CF-A8FD-00805F5C442B")
+NO_CONCEALMENT = guid("20FB5700-5B55-11CF-A8FD-00805F5C442B")
+HEADER_EXTENSION = guid("5FBF03B5-A92E-11CF-8EE3-00C00C205365")
+RESERVED_1 = guid("ABD3D211-A9BA-11CF-8EE6-00C00C205365")
 
 
 def _sized(kind: int, data: bytes, pos: int, default: int = 0
@@ -308,3 +313,176 @@ class AsfFile:
         if len(data) != self.sizes[i]:
             raise ValueError(f"{self.path}: frame {i} is truncated")
         return data
+
+
+# ----------------------------------------------------------------- writer
+
+def _object(g: bytes, body: bytes) -> bytes:
+    return g + struct.pack("<Q", 24 + len(body)) + body
+
+
+# asfenc.c's sizes: the data packet, the preroll (ms), the payload parsing
+# information without its padding field, a payload's header in a packet
+# of one payload and of several, and the index's interval (100 ns)
+PACKET_SIZE = 3200
+PREROLL = 3100
+_PPI = 11
+_SINGLE, _MULTIPLE = 15, 17
+_PER_PACKET = 63
+_INTERVAL = 10_000_000
+# 1970-01-01 as a FILETIME, the creation date the muxer writes without one
+_EPOCH = 116444736000000000
+
+
+class AsfWriter:
+    """MPEG-4 Part 2 samples → a ``.wmv``/``.asf`` file laid out as
+    FFmpeg's asf muxer (``asfenc.c``) lays out ``cv2.VideoWriter``'s
+    ``mp4v`` stream: the Header Object (File Properties: 3200-byte data
+    packets, the play duration, preroll 3100 ms, seekable; an empty Header
+    Extension; Stream Properties: stream 1, video, a BITMAPINFOHEADER with
+    fourcc ``mp4v`` and the VOS/VOL headers as its extradata), the Data
+    Object and a Simple Index Object.  Each picture goes into the packets
+    as ``put_frame`` puts it: payloads after one another while a packet
+    has room (several a packet, each with its replicated size and
+    presentation time, ms after the preroll), a picture that does not fit
+    split over the next, a packet that opens on a picture as large as a
+    packet holding that one payload alone; each packet's send time and
+    duration span its pictures' times.  The index has an entry a second
+    (``update_index``): the packet where the last key frame at or before
+    that time starts."""
+
+    def __init__(self, path: str, size: Tuple[int, int],
+                 rate: Tuple[int, int], dsi: bytes):
+        self.w, self.h = size
+        self.rate = Fraction(*rate)
+        self.dsi = dsi
+        self.n = 0
+        self.duration = 0                 # 100 ns
+        self.packets: List[bytes] = []
+        self._payloads: List[bytes] = []
+        self._left = PACKET_SIZE
+        self._multi = True
+        self._start = self._end = -1
+        # update_index's state
+        self.index: List[Tuple[int, int]] = []
+        self._next = (0, 0)
+        self._next_sec = 0
+        self._end_sec = 0
+        self._max = 0
+        self.sizes: List[int] = []
+        self._f: Optional[BinaryIO] = open(path, "wb")
+
+    def _ms(self, i: int) -> int:
+        """Frame i's time in ms, ``av_rescale_q`` rounding half up."""
+        return int(i / self.rate * 1000 + Fraction(1, 2))
+
+    def _flush(self) -> None:
+        pad = self._left - _PPI - self._multi
+        flags = 0x01 if self._multi else 0
+        field = b""
+        if pad > 0:
+            if pad < 256:
+                flags |= 0x08
+                field = bytes((pad - 1,))
+            else:
+                flags |= 0x10
+                field = struct.pack("<H", pad - 2)
+        head = (b"\x82\0\0" + bytes((flags, 0x5D)) + field
+                + struct.pack("<IH", self._start, self._end - self._start))
+        if self._multi:
+            head += bytes((0x80 | len(self._payloads),))
+        body = b"".join(self._payloads)
+        self.packets.append(head + body
+                            + bytes(PACKET_SIZE - len(head) - len(body)))
+        self._payloads = []
+        self._left = PACKET_SIZE
+        self._start = self._end = -1
+
+    def write(self, sample: bytes, key: bool) -> None:
+        ms = self._ms(self.n)
+        self.duration = max(self.duration,
+                            10000 * (ms + self._ms(1)))
+        first = len(self.packets)
+        off, size = 0, len(sample)
+        while off < size:
+            n = size - off
+            if self._start == -1:
+                self._multi = n < PACKET_SIZE - (_PPI + 1 + 2 * _MULTIPLE)
+                room = (PACKET_SIZE - (_PPI + 1 + 2 * _MULTIPLE) - 1
+                        if self._multi else PACKET_SIZE - _PPI - _SINGLE)
+                self._start = ms
+            else:
+                room = self._left - _MULTIPLE - _PPI - 1
+            if room > 0:
+                if n > room:
+                    n = room
+                elif n == room - 1:
+                    n = room - 2
+                head = (bytes((0x81 if key else 0x01, (self.n + 1) & 0xFF))
+                        + struct.pack("<IBII", off, 8, size, ms + PREROLL))
+                if self._multi:
+                    head += struct.pack("<H", n)
+                self._payloads.append(head + sample[off:off + n])
+                self._left -= n + (_MULTIPLE if self._multi else _SINGLE)
+                self._end = ms
+            else:
+                n = 0
+            off += n
+            if (not self._multi or self._left <= _MULTIPLE + _PPI + 1
+                    or len(self._payloads) == _PER_PACKET):
+                self._flush()
+        self.sizes.append(size)
+        sec = -(-(PREROLL * 10000 + ms * 10000) // _INTERVAL)
+        if key:
+            self._update_index(sec, first, len(self.packets) - first)
+        self._end_sec = sec
+        self.n += 1
+
+    def _update_index(self, sec: int, number: int, count: int) -> None:
+        if sec > self._next_sec:
+            if not self._next_sec:
+                self._next = (number, count)
+            self.index += [self._next] * (sec - self._next_sec)
+        self._max = max(self._max, count)
+        self._next = (number, count)
+        self._next_sec = sec
+
+    def _header(self, file_size: int) -> bytes:
+        bmp = struct.pack("<IiiHH4sIiiII", 40 + len(self.dsi), self.w,
+                          self.h, 1, 24, b"mp4v", self.w * self.h * 3, 0, 0,
+                          0, 0) + self.dsi
+        tsd = struct.pack("<IIBH", self.w, self.h, 2, len(bmp)) + bmp
+        stream = (VIDEO_MEDIA + NO_CONCEALMENT
+                  + struct.pack("<QIIHI", 0, len(tsd), 0, 1, 0) + tsd)
+        play = self.duration + PREROLL * 10000
+        seconds = max(self.duration / 1e7, 1e-3)
+        rate = int(sum(self.sizes) * 8 / seconds)
+        props = bytes(16) + struct.pack(
+            "<QQQQQQIIII", file_size, _EPOCH, len(self.packets), play,
+            self.duration, PREROLL, 2, PACKET_SIZE, PACKET_SIZE, rate)
+        objs = [_object(FILE_PROPERTIES, props),
+                _object(HEADER_EXTENSION, RESERVED_1 + struct.pack("<HI", 6,
+                                                                   0)),
+                _object(STREAM_PROPERTIES, stream)]
+        return _object(HEADER, struct.pack("<IBB", len(objs), 1, 2)
+                       + b"".join(objs))
+
+    def release(self) -> None:
+        f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            if self._payloads:
+                self._flush()
+            data = _object(DATA, bytes(16) + struct.pack(
+                "<QH", len(self.packets), 0x101) + b"".join(self.packets))
+            index = b""
+            if self._next_sec:
+                self._update_index(self._end_sec + 1, 0, 0)
+                index = _object(SIMPLE_INDEX, bytes(16) + struct.pack(
+                    "<QII", _INTERVAL, self._max, len(self.index)) + b"".join(
+                        struct.pack("<IH", *e) for e in self.index))
+            size = len(self._header(0)) + len(data) + len(index)
+            f.write(self._header(size) + data + index)
+        finally:
+            f.close()

@@ -36,7 +36,13 @@ item 8.
 ``ftyp``, ``mdat``, and at :meth:`~Mp4Writer.release` a ``moov`` with
 ``mvhd``, ``tkhd``, ``mdhd``, ``hdlr vide``, ``vmhd``, ``dinf``,
 ``stsd mp4v + esds``, ``stts``, ``stss``, ``stsc``, ``stsz`` and
-``stco`` (``co64`` past 4 GiB).
+``stco`` (``co64`` past 4 GiB).  The brand follows the extension as the
+muxer's does (:data:`BRANDS`: ``isom`` for ``.mp4``, ``M4V `` for ``.m4v``,
+``3gp4``, ``3g2a``; ``qt  `` for ``.mov``), and in QuickTime mode the
+boxes take QuickTime's forms: ``wide`` before ``mdat``, the ``mdhd``
+language 0x7FFF, the ``hdlr`` boxes' component types (``mhlr vide`` in
+``mdia``, ``dhlr url `` in ``minf``) with counted names, and the sample
+entry's vendor ``FFMP`` and temporal and spatial qualities.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ from opticalflow_tpu_torch.io.avi import (ASV_TAGS, DIRAC_TAGS, FLV1_TAGS,
                                           UTVIDEO_TAGS)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS"]
+__all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS", "BRANDS"]
 
 # sample entries of other video codecs, by what they are
 VIDEO_CODECS = {
@@ -433,11 +439,20 @@ def _desc(tag: int, body: bytes) -> bytes:
 
 
 _MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+# the ftyp the mov muxer writes for each extension: (major brand, minor
+# version, compatible brands); .mov is QuickTime mode
+BRANDS = {".mp4": (b"isom", 0x200, b"isomiso2mp41"),
+          ".m4v": (b"M4V ", 0x200, b"M4V isomiso2"),
+          ".3gp": (b"3gp4", 0x200, b"3gp4isomiso2"),
+          ".3g2": (b"3g2a", 0x10000, b"3g2aisomiso2"),
+          ".mov": (b"qt  ", 0x200, b"qt  ")}
 
 
 class Mp4Writer:
-    """MPEG-4 Part 2 samples → an ``.mp4`` file.  ``rate`` is the frame
-    rate as (numerator, denominator); ``dsi`` the VOS/VO/VOL headers."""
+    """MPEG-4 Part 2 samples → an ``.mp4``, ``.m4v``, ``.3gp``, ``.3g2``
+    or ``.mov`` file (the brand by the extension, :data:`BRANDS`).
+    ``rate`` is the frame rate as (numerator, denominator); ``dsi`` the
+    VOS/VO/VOL headers."""
 
     def __init__(self, path: str, size: Tuple[int, int], rate: Tuple[int, int],
                  dsi: bytes):
@@ -447,13 +462,20 @@ class Mp4Writer:
         self.dsi = dsi
         self.sizes: List[int] = []
         self.keys: List[int] = []
+        ext = os.path.splitext(path)[1].lower()
+        if ext not in BRANDS:
+            raise ValueError(f"cannot write {path!r} as ISO BMFF: the "
+                             f"extension names none of {sorted(BRANDS)}")
+        major, minor, compatible = BRANDS[ext]
+        self.qt = major == b"qt  "
         self._f: Optional[BinaryIO] = open(path, "wb")
-        ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200),
-                    b"isomiso2mp41")
+        ftyp = _box(b"ftyp", major, struct.pack(">I", minor), compatible)
         self._f.write(ftyp)
         self._mdat = len(ftyp)
-        # "free" then a 32-bit mdat header; a 64-bit mdat takes both
-        self._f.write(_box(b"free") + struct.pack(">I4s", 0, b"mdat"))
+        # "free" ("wide" in QuickTime) then a 32-bit mdat header; a 64-bit
+        # mdat takes both
+        self._f.write(_box(b"wide" if self.qt else b"free")
+                      + struct.pack(">I4s", 0, b"mdat"))
         self._data = self._mdat + 16
 
     def write(self, sample: bytes, key: bool) -> None:
@@ -471,7 +493,8 @@ class Mp4Writer:
             n = end - self._mdat - 8
             f.seek(self._mdat)
             if n < 1 << 32:
-                f.write(_box(b"free") + struct.pack(">I4s", n, b"mdat"))
+                f.write(_box(b"wide" if self.qt else b"free")
+                        + struct.pack(">I4s", n, b"mdat"))
             else:
                 f.write(struct.pack(">I4sQ", 1, b"mdat", end - self._mdat))
             f.seek(end)
@@ -489,10 +512,17 @@ class Mp4Writer:
         tkhd = _fullbox(b"tkhd", 0, 3, struct.pack(
             ">IIIII8xhhH2x", 0, 0, 1, 0, ms, 0, 0, 0), _MATRIX,
             struct.pack(">II", self.w << 16, self.h << 16))
-        mdhd = _fullbox(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, ts, dur,
-                                                   0x55C4, 0))
-        hdlr = _fullbox(b"hdlr", 0, 0, struct.pack(">I4s12x", 0, b"vide"),
-                        b"VideoHandler\0")
+        mdhd = _fullbox(b"mdhd", 0, 0, struct.pack(
+            ">IIIIHH", 0, 0, ts, dur, 0x7FFF if self.qt else 0x55C4, 0))
+        if self.qt:
+            hdlr = _fullbox(b"hdlr", 0, 0, b"mhlrvide", b"\0" * 12,
+                            b"\x0cVideoHandler")
+            dhlr = _fullbox(b"hdlr", 0, 0, b"dhlrurl ", b"\0" * 12,
+                            b"\x0bDataHandler")
+        else:
+            hdlr = _fullbox(b"hdlr", 0, 0, struct.pack(">I4s12x", 0, b"vide"),
+                            b"VideoHandler\0")
+            dhlr = b""
         vmhd = _fullbox(b"vmhd", 0, 1, b"\0" * 8)
         dinf = _box(b"dinf", _fullbox(b"dref", 0, 0, struct.pack(">I", 1),
                                       _fullbox(b"url ", 0, 1)))
@@ -503,7 +533,9 @@ class Mp4Writer:
         esd = _desc(3, struct.pack(">HB", 1, 0) + _desc(4, dcd)
                     + _desc(6, b"\x02"))
         esds = _fullbox(b"esds", 0, 0, esd)
-        entry = _box(b"mp4v", b"\0" * 6, struct.pack(">H", 1), b"\0" * 16,
+        entry = _box(b"mp4v", b"\0" * 6, struct.pack(">H", 1),
+                     struct.pack(">4x4sII", b"FFMP", 0x200, 0x200) if self.qt
+                     else b"\0" * 16,
                      struct.pack(">HHIIIH", self.w, self.h, 0x480000,
                                  0x480000, 0, 1), b"\0" * 32,
                      struct.pack(">Hh", 0x18, -1), esds)
@@ -519,6 +551,6 @@ class Mp4Writer:
         else:
             stco = _fullbox(b"co64", 0, 0, struct.pack(">IQ", 1, self._data))
         stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
-        minf = _box(b"minf", vmhd, dinf, stbl)
+        minf = _box(b"minf", vmhd, dhlr, dinf, stbl)
         mdia = _box(b"mdia", mdhd, hdlr, minf)
         return _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))

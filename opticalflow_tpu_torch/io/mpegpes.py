@@ -44,6 +44,13 @@ TIME_BASE = 90000           # PTS and DTS tick 90 kHz
 _PICTURE, _SEQUENCE_END, _VOP = 0x00, 0xB7, 0xB6
 
 
+def put_timestamp(prefix: int, t: int) -> bytes:
+    """``put_timestamp``: a 33-bit PTS or DTS in its 5 bytes, ``prefix``
+    in the top 4 bits (2: PTS alone, 3: PTS then DTS, 1: the DTS)."""
+    return bytes((prefix << 4 | (t >> 29 & 0xE) | 1, t >> 22 & 0xFF,
+                  (t >> 14 & 0xFE) | 1, t >> 7 & 0xFF, (t << 1 & 0xFE) | 1))
+
+
 def timestamp(b: bytes, at: int) -> int:
     """A 33-bit PTS or DTS from its five bytes (with marker bits)."""
     return ((b[at] >> 1 & 7) << 30 | b[at + 1] << 22 | (b[at + 2] >> 1) << 15

@@ -1,5 +1,6 @@
 """MPEG program streams (``.mpg``, ``.mpeg``, ``.vob``): the demuxer of the
-port's video path, in Python (no FFmpeg).
+port's video path, and the muxer of its MPEG-4 Part 2 output
+(:class:`PsWriter`), in Python (no FFmpeg).
 
 :class:`MpegPsFile` reads MPEG-1 and MPEG-2 pack headers, the system
 header and PES packets with their PTS and DTS, as FFmpeg's ``mpegps``
@@ -31,16 +32,19 @@ from __future__ import annotations
 
 import mmap
 import os
+import struct
 from fractions import Fraction
-from typing import Optional, Tuple
+from typing import BinaryIO, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.mpegpes import (TIME_BASE, Pes, PesVideo,
                                               duration_frames,
-                                              mpeg4_vol_rate, timestamp)
+                                              mpeg4_vol_rate, put_timestamp,
+                                              timestamp)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
-__all__ = ["MpegPsFile", "EXTENSIONS", "TIME_BASE", "video_codec"]
+__all__ = ["MpegPsFile", "PsWriter", "EXTENSIONS", "TIME_BASE",
+           "video_codec"]
 
 EXTENSIONS = (".mpg", ".mpeg", ".vob")
 _PACK, _SYSTEM, _END = 0xBA, 0xBB, 0xB9
@@ -222,3 +226,239 @@ class MpegPsFile(PesVideo):
         return duration_frames(self.start_time,
                                [p.pts for p in self.pes if p.pts is not None],
                                self.r_frame_rate, self.fps)
+
+
+# ----------------------------------------------------------------- writer
+
+class _Unit:
+    """A picture in the muxer's queue (mpegenc.c's ``PacketDesc``)."""
+    __slots__ = ("pts", "size", "unwritten")
+
+    def __init__(self, pts: int, size: int):
+        self.pts, self.size, self.unwritten = pts, size, size
+
+
+_PACK_SIZE = 2048
+_BUFFER = 230 * 1024           # the video buffer the muxer assumes
+_PRELOAD = 45000               # 0.5 s, in 90 kHz ticks
+_MAX_DELAY = 63000             # 0.7 s
+_STREAM = 0xE0
+# the mux rate the muxer derives where the stream states no bit rate, in
+# units of 50 bytes a second
+_RATE = (lambda b: (b + b // 20 + 10000 + 399) // 400)((1 << 21) * 8 * 50)
+
+
+class PsWriter:
+    """MPEG-4 Part 2 samples (VOL headers in band) → an MPEG program stream
+    laid out as FFmpeg's ``mpeg`` muxer (``mpegenc.c``) lays out
+    ``cv2.VideoWriter``'s stream: MPEG-1 packs (``.mpg``, ``.mpeg``) or,
+    as the ``svcd`` muxer cv2 picks for ``.vob``, MPEG-2 packs whose first
+    holds only the system header and padding.  The pictures' bytes go out
+    in 2048-byte packs as the muxer's queue fills (``output_packet``): a
+    pack header with its SCR (the system header in the first, and every
+    40th in MPEG-2), one PES packet of stream 0xE0 that carries the PTS of
+    the first picture starting in it (0.5 s on, as the muxer's preload),
+    a padding packet where the PES packet runs short; the SCR advances a
+    pack at the mux rate and is bumped past the decode time of the oldest
+    buffered picture when the next picture would be due more than 0.7 s
+    after it.  Like the muxer, it writes no end code."""
+
+    def __init__(self, path: str, rate: Tuple[int, int], mpeg2: bool = False):
+        self.num, self.den = rate
+        self.mpeg2 = mpeg2
+        self.n = 0
+        self.fifo = bytearray()
+        self.queue: List[_Unit] = []      # premux onward, by position
+        self.premux = 0                   # the first not wholly written
+        self.predecode = 0                # the first still in the buffer
+        self.buffer_index = 0
+        self.last_scr = 0
+        self.packs = 0                    # packs written
+        self.stream_packs = 0             # packs holding the stream's data
+        self.header_freq = 1 if mpeg2 else max(
+            1, 2 * (_RATE * 400) // _PACK_SIZE // 8)
+        self.system_freq = self.header_freq * (40 if mpeg2 else 5)
+        self._f: Optional[BinaryIO] = open(path, "wb")
+
+    # --- headers
+    def _pack_header(self, scr: int) -> bytes:
+        if self.mpeg2:
+            bits = (0b01 << 46 | (scr >> 30 & 7) << 43 | 1 << 42
+                    | (scr >> 15 & 0x7FFF) << 27 | 1 << 26
+                    | (scr & 0x7FFF) << 11 | 1 << 10 | 1)
+            return (b"\0\0\1\xba" + bits.to_bytes(6, "big")
+                    + (_RATE << 2 | 3).to_bytes(3, "big") + b"\xf8")
+        bits = (0b0010 << 36 | (scr >> 30 & 7) << 33 | 1 << 32
+                | (scr >> 15 & 0x7FFF) << 17 | 1 << 16
+                | (scr & 0x7FFF) << 1 | 1)
+        return (b"\0\0\1\xba" + bits.to_bytes(5, "big")
+                + (1 << 23 | _RATE << 1 | 1).to_bytes(3, "big"))
+
+    @staticmethod
+    def _system_header() -> bytes:
+        body = ((1 << 23 | _RATE << 1 | 1).to_bytes(3, "big")
+                + bytes((0, 0x21, 0xFF, _STREAM,
+                         0xE0 | (_BUFFER // 1024) >> 8, (_BUFFER // 1024)
+                         & 0xFF)))
+        return b"\0\0\1\xbb" + struct.pack(">H", len(body)) + body
+
+    def _padding(self, n: int) -> bytes:
+        head = b"\0\0\1\xbe" + struct.pack(">H", n - 6)
+        if self.mpeg2:
+            return head + b"\xff" * (n - 6)
+        return head + b"\x0f" + b"\xff" * (n - 7)
+
+    # --- mpegenc.c's flush_packet and output_packet
+    def _flush_packet(self, pts: Optional[int], scr: int,
+                      trailer: int) -> int:
+        out = bytearray()
+        if self.packs % self.header_freq == 0 or self.last_scr != scr:
+            out += self._pack_header(scr)
+            self.last_scr = scr
+            if self.packs % self.system_freq == 0:
+                out += self._system_header()
+        packet_size = _PACK_SIZE - len(out)
+        pad = 0
+        general = False
+        if self.mpeg2 and self.packs == 0:
+            general = True                # svcd: the first pack is empty
+            pad = packet_size
+        packet_size -= pad
+        payload = stuffing = 0
+        if packet_size > 0:
+            packet_size -= 6
+            if self.mpeg2:
+                header_len = 3 + (3 if self.stream_packs == 0 else 0) + 1
+            else:
+                header_len = 0
+            if pts is not None:
+                header_len += 5
+            elif not self.mpeg2:
+                header_len += 1
+            payload = packet_size - header_len
+            stuffing = payload - len(self.fifo)
+            if payload <= trailer and pts is not None:
+                pts = None
+                cut = 5 if self.mpeg2 else 4
+                header_len -= cut
+                payload += cut
+                stuffing += cut
+                if payload > trailer:
+                    stuffing += payload - trailer
+            if 0 < pad <= 7:
+                packet_size += pad
+                payload += pad
+                stuffing = pad if stuffing < 0 else stuffing + pad
+                pad = 0
+            stuffing = max(stuffing, 0)
+            if stuffing > 16:
+                pad += stuffing
+                packet_size -= stuffing
+                payload -= stuffing
+                stuffing = 0
+            out += b"\0\0\1" + bytes((_STREAM,)) + struct.pack(
+                ">H", packet_size)
+            if self.mpeg2:
+                flags = (0x80 if pts is not None else 0) | (
+                    1 if self.stream_packs == 0 else 0)
+                out += bytes((0x80, flags, header_len - 3 + stuffing))
+                if pts is not None:
+                    out += put_timestamp(2, pts)
+                if flags & 1:
+                    out += b"\x10" + struct.pack(">H", 0x6000
+                                                   | _BUFFER // 1024)
+                out += b"\xff" * (1 + stuffing)
+            else:
+                out += b"\xff" * stuffing
+                out += put_timestamp(2, pts) if pts is not None else b"\x0f"
+            n = payload - stuffing
+            out += self.fifo[:n]
+            del self.fifo[:n]
+        if pad > 0:
+            out += self._padding(pad)
+        self._f.write(out)
+        self.packs += 1
+        if not general:
+            self.stream_packs += 1
+        return payload - stuffing if packet_size > 0 else 0
+
+    def _remove_decoded(self, scr: int) -> None:
+        while self.predecode < len(self.queue) and \
+                scr > self.queue[self.predecode].pts:
+            unit = self.queue[self.predecode]
+            if self.buffer_index < unit.size or self.predecode == self.premux:
+                break
+            self.buffer_index -= unit.size
+            self.predecode += 1
+
+    def _output_packet(self, flush: bool) -> bool:
+        scr = self.last_scr
+        ignore_constraints = ignore_delay = False
+        while True:
+            if _PACK_SIZE > len(self.fifo) and not flush:
+                return False
+            ready = bool(self.fifo)
+            if ready and _BUFFER - self.buffer_index < _PACK_SIZE \
+                    and not ignore_constraints:
+                ready = False
+            nxt = (self.queue[self.premux] if self.premux < len(self.queue)
+                   else None)
+            if ready and nxt and nxt.pts - scr > _MAX_DELAY \
+                    and not ignore_delay:
+                ready = False
+            if ready:
+                break
+            if self.predecode < len(self.queue):
+                best = self.queue[self.predecode].pts
+                if scr >= best + 1 and not ignore_constraints:
+                    ignore_constraints = True
+                scr = max(best + 1, scr)
+                self._remove_decoded(scr)
+            elif nxt is not None and flush:
+                ignore_delay = ignore_constraints = True
+            else:
+                return False
+        first = self.queue[self.premux]
+        if first.unwritten == first.size:
+            trailer, stamp = 0, first
+        else:
+            trailer = first.unwritten
+            stamp = (self.queue[self.premux + 1]
+                     if self.premux + 1 < len(self.queue) else None)
+        size = self._flush_packet(stamp.pts if stamp else None, scr, trailer)
+        self.buffer_index += size
+        self.last_scr += _PACK_SIZE * 90000 // (_RATE * 50)
+        while self.premux < len(self.queue) and \
+                self.queue[self.premux].unwritten <= size:
+            size -= self.queue[self.premux].unwritten
+            self.premux += 1
+        if size:
+            self.queue[self.premux].unwritten -= size
+        self._remove_decoded(self.last_scr)
+        # drop what neither list needs
+        done = min(self.premux, self.predecode)
+        if done > 64:
+            del self.queue[:done]
+            self.premux -= done
+            self.predecode -= done
+        return True
+
+    def write(self, sample: bytes, key: bool) -> None:
+        pts = _PRELOAD + (self.n * 90000 * self.den * 2 + self.num) // (
+            2 * self.num)
+        self.queue.append(_Unit(pts, len(sample)))
+        self.fifo += sample
+        self.n += 1
+        while self._output_packet(False):
+            pass
+
+    def release(self) -> None:
+        f = self._f
+        if f is None:
+            return
+        try:
+            while self._output_packet(True):
+                pass
+        finally:
+            self._f = None
+            f.close()

@@ -1,5 +1,6 @@
 """MPEG transport streams (``.ts``, ``.m2ts``, ``.mts``, ``.m2t``): the
-demuxer of the port's video path, in Python (no FFmpeg).
+demuxer of the port's video path, and the muxer of its MPEG-4 Part 2
+output (:class:`TsWriter`), in Python (no FFmpeg).
 
 :class:`MpegTsFile` reads a transport stream as FFmpeg's ``mpegts``
 demuxer reads it for ``cv2.VideoCapture``:
@@ -43,19 +44,24 @@ from __future__ import annotations
 
 import mmap
 import os
+import struct
 from bisect import bisect_left, bisect_right
 from fractions import Fraction
-from typing import Dict, Optional, Tuple
+from typing import BinaryIO, Dict, Optional, Tuple
 
 from opticalflow_tpu_torch.io.mpegpes import (TIME_BASE, Pes, PesVideo,
                                               duration_frames,
-                                              mpeg4_vol_rate, timestamp)
+                                              mpeg4_vol_rate, put_timestamp,
+                                              timestamp)
+from opticalflow_tpu_torch.io.mkv import _N_STD, _rfps, std_rate
+from opticalflow_tpu_torch.io.nut import crc
 from opticalflow_tpu_torch.runtime.dirac import \
     sequence_info as dirac_sequence
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
-__all__ = ["MpegTsFile", "EXTENSIONS", "TIME_BASE", "packet_size"]
+__all__ = ["MpegTsFile", "TsWriter", "EXTENSIONS", "TIME_BASE",
+           "packet_size"]
 
 EXTENSIONS = (".ts", ".m2ts", ".mts", ".m2t")
 _SYNC, _PACKET = 0x47, 188
@@ -326,12 +332,38 @@ class MpegTsFile(PesVideo):
             fields = 2 * self.rate
             if 5 <= fields < 101:
                 return fields
+        if self._fitted is not None:
+            return self._fitted[0]
         return Fraction(self.rate)
+
+    @property
+    def _fitted(self) -> Optional[Tuple[Fraction, Fraction]]:
+        """(r_frame_rate, avg_frame_rate) FFmpeg fits to the PES packets'
+        PTS where an MPEG-4 VOL gives a rate it does not trust (a VOL
+        without a fixed VOP rate gives its time resolution a second, as
+        FFmpeg's and the port's encoders write at 30000/1001); None where
+        it trusts the VOL's."""
+        if self.codec != "mpeg4" or 5 <= self.rate < 101:
+            return None
+        times = [p.pts for p in self.pes if p.pts is not None]
+        fit = _rfps(times, 1 / TIME_BASE)
+        if fit is None or times[-1] <= times[0]:
+            return None
+        avg = Fraction(len(times) - 1) * TIME_BASE / (times[-1] - times[0])
+        best, err = avg, 0.01
+        for j in range(_N_STD):
+            std = Fraction(std_rate(j), 12 * 1001)
+            e = abs(float(avg / std) - 1)
+            if e < err:
+                best, err = std, e
+        return Fraction(*fit), best
 
     @property
     def fps(self) -> float:
         """``CAP_PROP_FPS``: ``avg_frame_rate`` where FFmpeg analysed the
         stream (an unreliable time base), else ``r_frame_rate``."""
+        if self._fitted is not None:
+            return float(self._fitted[1])
         return float(self.r_frame_rate)
 
     @property
@@ -467,3 +499,157 @@ class MpegTsFile(PesVideo):
         skips to the next PES header)."""
         j = bisect_left([p.pos for p in self.pes], pos)
         return self.pes[j].es if j < len(self.pes) else self.ends[-1]
+
+
+# ----------------------------------------------------------------- writer
+
+_PCR_HZ = 27_000_000
+_DELAY = 63000                 # max_delay, 0.7 s in 90 kHz ticks
+_PAT_PERIOD = _PCR_HZ // 10    # 0.1 s
+
+
+def _section(table_id: int, ext: int, body: bytes) -> bytes:
+    """``mpegts_write_section1``: a PSI section (version 0, current) and
+    its CRC-32 (``av_crc`` from all ones)."""
+    sec = bytes((table_id,)) + struct.pack(">HH", 0xB000 | len(body) + 9,
+                                           ext) + b"\xc1\0\0" + body
+    return sec + struct.pack(">I", crc(sec, 0xFFFFFFFF))
+
+
+class TsWriter:
+    """MPEG-4 Part 2 samples (VOL headers in band) → an MPEG transport
+    stream laid out as FFmpeg's ``mpegts`` muxer (``mpegtsenc.c``, VBR)
+    lays out ``cv2.VideoWriter``'s stream: the PAT and PMT (program 1,
+    ``stream_type`` 0x10) before the first picture, again where 0.1 s of
+    PCR has passed and before a key frame that follows another picture;
+    one unbounded PES packet (stream 0xE0, its PTS 1.4 s on) a picture,
+    split over 188-byte packets, the last padded by adaptation-field
+    stuffing; a PCR (0.7 s behind the picture's time) on each key frame
+    and wherever the largest whole number of frame periods under 0.1 s
+    has passed, and the random access flag on key frames.  ``m2ts`` writes
+    192-byte packets (the 4-byte arrival time FFmpeg derives from the byte
+    position) with the PMT on PID 0x100, the video on PID 0x1011 and the
+    ``HDMV`` registration, padded with null packets to a multiple of 32 as
+    the muxer pads them; the stream type stays 0x10 (FFmpeg's muxer marks
+    MPEG-4 private data in M2TS and its demuxer then probes the payload).
+    FFmpeg's SDT (its own provider and service names) is left out."""
+
+    def __init__(self, path: str, rate: Tuple[int, int], m2ts: bool = False):
+        self.num, self.den = rate
+        self.m2ts = m2ts
+        self.pmt_pid, self.pid = (0x100, 0x1011) if m2ts else (0x1000,
+                                                               0x100)
+        self.cc: Dict[int, int] = {}
+        self.n = 0
+        frame = -(-self.den * _PCR_HZ // self.num)
+        self.pcr_period = (frame * (_PCR_HZ // 10 // frame)
+                           if frame <= _PCR_HZ // 10 else 1)
+        self.first_pcr = _DELAY * 300
+        self.last_pcr = self.first_pcr - self.pcr_period
+        self.last_pat: Optional[int] = None
+        self.prev_key = False
+        self.pos = 0
+        self._f: Optional[BinaryIO] = open(path, "wb")
+
+    def _packet(self, pkt: bytes) -> None:
+        if self.m2ts:
+            # get_pcr at VBR's mux rate of 1 bit a second, modulo 2^30 - 1
+            at = (self.pos + 11) * 8 * _PCR_HZ + self.first_pcr
+            pkt = struct.pack(">I", at % 0x3FFFFFFF) + pkt
+        self._f.write(pkt)
+        self.pos += len(pkt)
+
+    def _counter(self, pid: int) -> int:
+        self.cc[pid] = (self.cc.get(pid, 15) + 1) & 15
+        return self.cc[pid]
+
+    def _write_section(self, pid: int, sec: bytes) -> None:
+        first = True
+        while sec:
+            head = bytes((0x47, (0x40 if first else 0) | pid >> 8, pid & 0xFF,
+                          0x10 | self._counter(pid))) + (b"\0" if first
+                                                          else b"")
+            n = 188 - len(head)
+            self._packet((head + sec[:n]).ljust(188, b"\xff"))
+            sec = sec[n:]
+            first = False
+
+    def _psi(self) -> None:
+        self._write_section(0, _section(0, 1, struct.pack(
+            ">HH", 1, 0xE000 | self.pmt_pid)))
+        info = b"\x05\x04HDMV\x88\x04\x0f\xff\xfc\xfc" if self.m2ts else b""
+        self._write_section(self.pmt_pid, _section(2, 1, struct.pack(
+            ">HH", 0xE000 | self.pid, 0xF000 | len(info)) + info + bytes(
+                (0x10,)) + struct.pack(">HH", 0xE000 | self.pid, 0xF000)))
+
+    def write(self, sample: bytes, key: bool) -> None:
+        dts = 2 * _DELAY + (self.n * 90000 * self.den * 2 + self.num) // (
+            2 * self.num)
+        pcr = (dts - _DELAY) * 300
+        force_pat = key and not self.prev_key
+        payload = sample
+        start = True
+        while payload:
+            if self.last_pat is None or pcr - self.last_pat >= _PAT_PERIOD \
+                    or force_pat:
+                self.last_pat = pcr if self.last_pat is None else max(
+                    pcr, self.last_pat)
+                self._psi()
+            force_pat = False
+            write_pcr = False
+            if start and pcr - self.last_pcr >= self.pcr_period:
+                self.last_pcr = max(pcr - self.pcr_period,
+                                    self.last_pcr + self.pcr_period)
+                write_pcr = True
+            af_flags = 0
+            if key and start:
+                write_pcr = True
+                af_flags |= 0x40
+            af = b""
+            if write_pcr:
+                high, low = divmod(pcr, 300)
+                af = bytes((high >> 25 & 0xFF, high >> 17 & 0xFF,
+                            high >> 9 & 0xFF, high >> 1 & 0xFF,
+                            (high << 7 & 0x80) | low >> 8 | 0x7E,
+                            low & 0xFF))
+                af_flags |= 0x10
+            head = b""
+            if start:
+                head = (b"\0\0\1\xe0\0\0\x80\x80\x05"
+                        + put_timestamp(2, dts))
+            room = 184 - head.__len__() - (2 + len(af) if af_flags else 0)
+            n = min(room, len(payload))
+            stuffing = room - n
+            if af_flags or stuffing:
+                field = bytes((af_flags,)) + af if af_flags else (
+                    b"\0" if stuffing >= 2 else b"")
+                if af_flags:
+                    field += b"\xff" * stuffing
+                elif stuffing >= 2:
+                    field += b"\xff" * (stuffing - 2)
+                adapt = bytes((len(field),)) + field
+                afc = 0x30
+            else:
+                adapt, afc = b"", 0x10
+            pid = self.pid
+            pkt = bytes((0x47, (0x40 if start else 0) | pid >> 8, pid & 0xFF,
+                         afc | self._counter(pid))) + adapt + head + \
+                payload[:n]
+            assert len(pkt) == 188, len(pkt)
+            self._packet(pkt)
+            payload = payload[n:]
+            start = False
+        self.prev_key = key
+        self.n += 1
+
+    def release(self) -> None:
+        f = self._f
+        if f is None:
+            return
+        try:
+            if self.m2ts:
+                for _ in range(self.pos // 192 % 32, 32):
+                    self._packet(b"\x47\x1f\xff\x10" + b"\xff" * 184)
+        finally:
+            self._f = None
+            f.close()

@@ -1,5 +1,6 @@
 """NUT (``.nut``), FFmpeg's own container: the demuxer of the port's video
-path, in Python (no FFmpeg), read only.
+path, and the muxer of its MPEG-4 Part 2 output (:class:`NutWriter`), in
+Python (no FFmpeg).
 
 :class:`NutFile` reads what FFmpeg's nut demuxer (``nutdec.c``, ``nut.c``)
 reads of a file for ``cv2.VideoCapture``:
@@ -29,9 +30,9 @@ reads of a file for ``cv2.VideoCapture``:
     syncpoint or header that fails its checksum, or a frame header FFmpeg
     refuses, is resynced over as FFmpeg resyncs: at the next startcode
     after the last syncpoint; a frame cut short by the end of the file is
-    handed over short, as FFmpeg hands it to its decoder, whose error
-    concealment the port does not reproduce (reading it raises
-    ``Unsupported``);
+    handed over short, as FFmpeg hands it to its decoder
+    (:meth:`NutFile.is_cut` marks it: the MPEG-4 Part 2 decoder conceals
+    what is missing as FFmpeg's error resilience does);
   * the index at the end (``index_ptr`` in the last 12 bytes): ``max_pts``,
     the syncpoint positions and the key-frame runs of each stream, which
     FFmpeg turns into its seek index one syncpoint behind (the key frame
@@ -68,8 +69,8 @@ from opticalflow_tpu_torch.io.avi import codec_of
 from opticalflow_tpu_torch.io.mkv import _N_STD, av_reduce, std_rate
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
-__all__ = ["NutFile", "EXTENSIONS", "FEATURES", "ID_STRING", "crc",
-           "STARTCODES"]
+__all__ = ["NutFile", "NutWriter", "EXTENSIONS", "FEATURES", "ID_STRING",
+           "crc", "STARTCODES"]
 
 EXTENSIONS = (".nut",)
 ID_STRING = b"nut/multimedia container\x00"
@@ -759,10 +760,241 @@ class NutFile:
         return [name for name in FEATURES if name in self.reached]
 
     def sample(self, f: BinaryIO, i: int) -> bytes:
+        """Frame ``i``'s bytes; a frame cut short by the end of the file
+        as far as it goes (:meth:`is_cut`), as FFmpeg hands it over."""
         fr = self.frames_[i]
-        if fr.cut:
-            raise Unsupported(f"{self.path}: frame {i} is cut short by the "
-                              f"end of the file; FFmpeg decodes what is there "
-                              f"with its error concealment, which the port "
-                              f"does not reproduce ({ITEM_8})")
         return fr.head + self.data[fr.offset:fr.offset + fr.size]
+
+    def is_cut(self, i: int) -> bool:
+        """Whether the end of the file fell inside frame ``i``."""
+        return self.frames_[i].cut
+
+
+# ----------------------------------------------------------------- writer
+
+def _v(val: int) -> bytes:
+    """``put_v``: 7 bits a byte, most significant first, the top bit set
+    on all but the last."""
+    out = [val & 127]
+    val >>= 7
+    while val:
+        out.append(128 | (val & 127))
+        val >>= 7
+    return bytes(reversed(out))
+
+
+def _s(val: int) -> bytes:
+    """``put_s``: 0, 1, -1, 2, -2, ... as 0, 1, 2, 3, 4, ..."""
+    return _v(2 * abs(val) - (val > 0))
+
+
+def _vstr(text: bytes) -> bytes:
+    return _v(len(text)) + text
+
+
+def _packet(startcode: int, body: bytes) -> bytes:
+    """``put_packet``: the startcode, the forward pointer (with its own
+    CRC past 4096 bytes), the body and its CRC-32."""
+    head = struct.pack(">Q", startcode) + _v(len(body) + 4)
+    if len(body) + 4 > 4096:
+        head += struct.pack(">I", crc(head))
+    return head + body + struct.pack(">I", crc(body))
+
+
+# nutenc.c's MAX_DISTANCE, and the elision headers build_elision_headers
+# lists (the muxer never elides a video frame's bytes with them)
+_WRITE_DISTANCE = 1024 * 32 - 1
+_ELISION = (b"\x00\x00\x01", b"\x00\x00\x01\xb6", b"\xff\xfa", b"\xff\xfb",
+            b"\xff\xfc", b"\xff\xfd")
+
+
+def _choose_timebase(num: int, den: int, precision: int = 48000
+                     ) -> Tuple[int, int]:
+    """``ff_choose_timebase(s, st, 48000)`` on the stream's time base
+    num/den (the frame period): drop small factors of the numerator, then
+    double the denominator, until it counts ``precision`` ticks a
+    second."""
+    j = 2
+    while j < 14:
+        while den // num < precision and num % j == 0:
+            num //= j
+        j += 1 + (j > 2)
+    while den // num < precision and den < 1 << 24:
+        den <<= 1
+    return num, den
+
+
+class NutWriter:
+    """MPEG-4 Part 2 samples → a ``.nut`` file laid out as FFmpeg's nut
+    muxer (``nutenc.c``) lays out one video stream for ``cv2.VideoWriter``:
+    the file ID string; the main header (version 3, ``max_distance``
+    32767, the time base ``ff_choose_timebase`` picks from the frame
+    period, the frame-code table ``build_frame_code`` makes for a video
+    stream whose frames last a whole number of ticks, the six elision
+    headers); the stream header (fourcc ``mp4v``, ``msb_pts_shift`` 14,
+    the VOS/VOL headers as the codec-specific data); the stream's info
+    packet with its ``r_frame_rate``; a syncpoint before each key frame
+    that follows another frame and wherever the next frame would end
+    ``max_distance`` past the last one, its back pointer to the syncpoint
+    the stream's last key frame before it follows; each frame under code 1
+    with its flags, pts and size coded (a checksum past twice
+    ``max_distance``); and at :meth:`release` the index packet
+    (``write_index``: ``max_pts``, the syncpoints, the key frames' runs
+    one syncpoint behind) and its pointer."""
+
+    def __init__(self, path: str, size: Tuple[int, int],
+                 rate: Tuple[int, int], dsi: bytes):
+        self.w, self.h = size
+        num, den = rate                       # frames a second, num/den
+        self.tb = _choose_timebase(den, num)
+        self.step = den * self.tb[1] // (num * self.tb[0])
+        if self.step * num * self.tb[0] != den * self.tb[1]:
+            raise ValueError(f"frame rate {num}/{den} has no whole tick "
+                             "count in its NUT time base")
+        self.rate = rate
+        self.n = 0
+        self.max_pts = 0
+        self.syncpoints: List[int] = []       # their positions
+        self.key_index: List[Tuple[int, int]] = []  # (pts, syncpoint pos)
+        self.key_pts: dict = {}               # syncpoint number -> pts
+        self.last_key = False
+        self.last_pts = 0
+        self._f: Optional[BinaryIO] = open(path, "wb")
+        self._f.write(ID_STRING + self._headers(dsi))
+        self.pos = self._f.tell()
+
+    def _codes(self) -> List[Tuple[int, int, int, int, int]]:
+        """``build_frame_code`` for one video stream: (flags, pts_delta,
+        size_mul, size_lsb, stream id) of the 256 codes."""
+        codes = [(FLAG_INVALID, 0, 0, 0, 0), (FLAG_CODED, 1, 1, 0, 0),
+                 (FLAG_SIZE_MSB | FLAG_CODED_PTS, 0, 1, 0, 0),
+                 (FLAG_KEY | FLAG_SIZE_MSB | FLAG_CODED_PTS, 0, 1, 0, 0),
+                 (FLAG_KEY | FLAG_SIZE_MSB, self.step, 1, 0, 0)]
+        codes += [(FLAG_SIZE_MSB, self.step, 249, k, 0) for k in range(249)]
+        codes.insert(ord("N"), (FLAG_INVALID, 0, 0, 0, 0))
+        return codes + [(FLAG_INVALID, 0, 0, 0, 0)]
+
+    def _main_body(self) -> bytes:
+        out = bytearray(_v(3) + _v(1) + _v(_WRITE_DISTANCE) + _v(1)
+                        + _v(self.tb[0]) + _v(self.tb[1]))
+        codes = self._codes()
+        pts, mul, stream, lsb = 0, 1, 0, 0
+        i = 0
+        while i < 256:
+            flags_i, pts_i, mul_i, lsb_i, stream_i = codes[i]
+            fields = 0
+            if pts != pts_i:
+                fields = 1
+            if mul_i != mul:
+                fields = 2
+            if stream_i != stream:
+                fields = 3
+            if lsb_i != 0:
+                fields = 4
+            pts, flags, stream, mul, lsb = pts_i, flags_i, stream_i, mul_i, \
+                lsb_i
+            j = 0
+            while i < 256:
+                if i == ord("N"):
+                    i += 1
+                    continue
+                if codes[i] != (flags, pts, mul, lsb + j, stream):
+                    break
+                i += 1
+                j += 1
+            if j != mul - lsb:
+                fields = 6
+            out += _v(flags) + _v(fields)
+            for k, val in enumerate((_s(pts), _v(mul), _v(stream), _v(lsb),
+                                     _v(0), _v(j))):
+                if fields > k:
+                    out += val
+        out += _v(len(_ELISION))
+        for head in _ELISION:
+            out += _vstr(head)
+        return bytes(out)
+
+    def _headers(self, dsi: bytes) -> bytes:
+        stream = (_v(0) + _v(0) + _vstr(b"mp4v") + _v(0) + _v(14)
+                  + _v(max(self.tb) // self.tb[0]) + _v(0) + b"\0"
+                  + _vstr(dsi) + _v(self.w) + _v(self.h) + _v(0) + _v(0)
+                  + _v(0))
+        rate = f"{self.rate[0]}/{self.rate[1]}".encode()
+        info = (_v(1) + _v(0) + _v(0) + _v(0) + _v(1)
+                + _vstr(b"r_frame_rate") + _s(-1) + _vstr(rate))
+        return (_packet(MAIN, self._main_body()) + _packet(STREAM, stream)
+                + _packet(INFO, info))
+
+    def write(self, sample: bytes, key: bool) -> None:
+        pts = self.n * self.step
+        if (key and not self.last_key) or not self.syncpoints or (
+                len(sample) + 30 + self.pos
+                >= self.syncpoints[-1] + _WRITE_DISTANCE):
+            earlier = [at for t, at in self.key_index if t <= pts]
+            back = (self.pos - earlier[-1]) >> 4 if earlier else 0
+            self.syncpoints.append(self.pos)
+            self._put(_packet(SYNCPOINT, _v(pts) + _v(back)))
+            self.last_pts = pts                 # ff_nut_reset_ts
+        flags = FLAG_SIZE_MSB | FLAG_CODED_PTS | (FLAG_KEY if key else 0)
+        if len(sample) > 2 * _WRITE_DISTANCE or \
+                abs(pts - self.last_pts) > max(self.tb) // self.tb[0]:
+            flags |= FLAG_CHECKSUM
+        # the pts's 14 low bits, or the pts plus 2^14 where ff_lsb2full
+        # would read those bits as another pts
+        mask = (1 << 14) - 1
+        delta = self.last_pts - mask // 2
+        coded = pts & mask
+        if ((coded - delta) & mask) + delta != pts:
+            coded = pts + (1 << 14)
+        head = bytes((1,)) + _v(flags) + _v(coded) + _v(len(sample))
+        if flags & FLAG_CHECKSUM:
+            head += struct.pack(">I", crc(head))
+        self._put(head + sample)
+        if key:
+            self.key_index.append((pts, self.syncpoints[-1]))
+            self.key_pts.setdefault(len(self.syncpoints), pts)
+        self.last_key = key
+        self.last_pts = self.max_pts = pts
+        self.n += 1
+
+    def _put(self, data: bytes) -> None:
+        self._f.write(data)
+        self.pos += len(data)
+
+    def _index(self) -> bytes:
+        """``write_index``'s body."""
+        count = len(self.syncpoints)
+        out = bytearray(_v(self.max_pts) + _v(count))
+        last = 0
+        for at in self.syncpoints:
+            out += _v((at >> 4) - (last >> 4))
+            last = at
+        keys = [self.key_pts.get(j) for j in range(count)]
+        last_pts, j = -1, 0
+        while j < count:
+            flag = (keys[j] is not None) ^ (j + 1 == count)
+            n = 0
+            while j < count and (keys[j] is not None) == flag:
+                n += 1
+                j += 1
+            out += _v(1 + 2 * flag + 4 * n)
+            for k in range(j - n, min(j + 1, count)):
+                if keys[k] is None:
+                    continue
+                out += _v(keys[k] - last_pts)
+                last_pts = keys[k]
+            j += 1
+        size = len(out) + 8 + 4
+        out += struct.pack(">Q", 8 + size + (size.bit_length() - 1) // 7
+                           + 1 + 4 * (size > 4096))
+        return bytes(out)
+
+    def release(self) -> None:
+        f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            if self.syncpoints:
+                f.write(_packet(INDEX, self._index()))
+        finally:
+            f.close()

@@ -153,7 +153,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from opticalflow_tpu_torch.io.asf import EXTENSIONS as _ASF_EXTS
-from opticalflow_tpu_torch.io.asf import AsfFile
+from opticalflow_tpu_torch.io.asf import AsfFile, AsfWriter
 from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, AviFile, AviWriter
 from opticalflow_tpu_torch.io.flv import EXTENSIONS as _FLV_EXTS
 from opticalflow_tpu_torch.io.flv import FlvFile
@@ -166,11 +166,11 @@ from opticalflow_tpu_torch.io.elementary import (DIRAC_EXTENSIONS,
                                                  MPEG_EXTENSIONS,
                                                  ElementaryFile)
 from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
-from opticalflow_tpu_torch.io.mpegps import MpegPsFile
+from opticalflow_tpu_torch.io.mpegps import MpegPsFile, PsWriter
 from opticalflow_tpu_torch.io.mpegts import EXTENSIONS as _TS_EXTS
-from opticalflow_tpu_torch.io.mpegts import MpegTsFile
+from opticalflow_tpu_torch.io.mpegts import MpegTsFile, TsWriter
 from opticalflow_tpu_torch.io.nut import EXTENSIONS as _NUT_EXTS
-from opticalflow_tpu_torch.io.nut import NutFile
+from opticalflow_tpu_torch.io.nut import NutFile, NutWriter
 from opticalflow_tpu_torch.io.yuv import i420_planes, pad_to_even
 from opticalflow_tpu_torch.runtime.asv import Decoder as AsvDecoder
 from opticalflow_tpu_torch.runtime.dirac import Decoder as DiracDecoder
@@ -188,7 +188,7 @@ from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES, ITEM_8,
                                                   Decoder, Encoder,
                                                   Unsupported, i420_to_bgr,
                                                   rgb48_to_bgr, to_i420,
-                                                  yuv_to_bgr)
+                                                  yuv16_to_bgr, yuv_to_bgr)
 from opticalflow_tpu_torch.runtime.msmpeg4 import VERSIONS as MSMPEG4
 from opticalflow_tpu_torch.runtime.msmpeg4 import Decoder as Msmpeg4Decoder
 from opticalflow_tpu_torch.runtime.snow import Decoder as SnowDecoder
@@ -222,8 +222,10 @@ FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv, .webm or .nut file "
            "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
            "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
            "directory of PNG or JPEG frames")
-WRITES = (".mp4, .avi or .mkv (MPEG-4 Part 2), .y4m, or a directory of PNG "
-          "frames")
+WRITES = (".mp4, .mov, .m4v, .3gp, .3g2, .avi, .mkv, .nut, .wmv, .asf, .mpg, "
+          ".mpeg, .vob, .ts, .mts, .m2t or .m2ts (MPEG-4 Part 2, the "
+          "containers OpenCV's mp4v writer opens), .y4m, or a directory of "
+          "PNG frames")
 _Y4M_MAGIC = b"YUV4MPEG2"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _420_TAGS = ("420jpeg", "420mpeg2", "420paldv", "420")
@@ -273,6 +275,12 @@ def is_sequence(path: str) -> bool:
         frame_filename(path, 0) is not None or os.path.isfile(path))
 
 
+def _refuse_writing(path: str, why: str) -> ValueError:
+    return ValueError(f"cannot write {path!r}: {why}, and OpenCV's mp4v "
+                      f"writer does not open on it either; the port writes "
+                      f"{WRITES}")
+
+
 def _kind(path: str, writing: bool = False) -> str:
     low = path.lower()
     if not writing and is_sequence(path):
@@ -280,48 +288,37 @@ def _kind(path: str, writing: bool = False) -> str:
     if low.endswith(".y4m"):
         return "y4m"
     if low.endswith(_MP4_EXTS):
-        if writing and not low.endswith(".mp4"):
-            raise _unsupported(path)
         return "mp4"
     if low.endswith(".avi"):
         return "avi"
-    for exts, kind, what in ((_MPG_EXTS, "mpg", "MPEG program streams"),
-                             (_TS_EXTS, "ts", "MPEG transport streams"),
-                             (_ES_EXTS, "es", "elementary streams")):
+    for exts, kind in ((_MPG_EXTS, "mpg"), (_TS_EXTS, "ts")):
         if low.endswith(exts):
-            if writing:
-                raise ValueError(f"cannot write {path!r}: the port writes "
-                                 f"{WRITES}, not {what}")
             return kind
+    if low.endswith(_ES_EXTS):
+        if writing:
+            raise _refuse_writing(path, "an elementary stream holds MPEG-1/2,"
+                                        " H.263 or Dirac, which the port does "
+                                        "not encode")
+        return "es"
     if low.endswith(_FLV_EXTS):
         if writing:
-            raise ValueError(
-                f"cannot write {path!r}: FLV holds Sorenson H.263, which the "
-                "port does not encode; write .mkv, .mp4 or .avi")
+            raise _refuse_writing(path, "FLV holds Sorenson H.263, which the "
+                                        "port does not encode")
         return "flv"
     if low.endswith(_ASF_EXTS):
-        if writing:
-            raise ValueError(
-                f"cannot write {path!r}: the port reads ASF (MS-MPEG4, "
-                "WMV7/8 and Snow), which it does not encode; write .mkv, "
-                ".mp4 or .avi")
         return "asf"
     if low.endswith(_NUT_EXTS):
-        if writing:
-            raise ValueError(
-                f"cannot write {path!r}: the port reads NUT, which it does "
-                "not write; write .mkv, .mp4 or .avi")
         return "nut"
     if low.endswith(_MKV_EXTS):
         if writing and low.endswith(".webm"):
-            raise ValueError(
-                f"cannot write {path!r}: WebM holds VP8, VP9 or AV1, which "
-                "the port does not encode (OpenCV's mp4v writer does not "
-                "open on .webm either); write .mkv, .mp4 or .avi")
+            raise _refuse_writing(path, "WebM holds VP8, VP9 or AV1, which "
+                                        "the port does not encode")
         return "mkv"
     if os.path.isdir(path) or (writing and not os.path.splitext(path)[1]):
         return "png"
-    if not writing and not os.path.exists(path):
+    if writing:
+        raise _refuse_writing(path, "the port writes no such container")
+    if not os.path.exists(path):
         raise FileNotFoundError(path)
     raise _unsupported(path)
 
@@ -528,6 +525,7 @@ class EncodedVideo:
                                                          False)
         self.matrix = "bt601"
         self.shifts, self.alpha = (1, 1), False     # 4:2:0, no alpha plane
+        self.bits = 8
         self.threads = ffmpeg_threads()
         self._gen = None
         self._next = 0      # a capture just opened reads frame 0 unsought
@@ -732,6 +730,12 @@ class EncodedVideo:
                 continue
             return pick(target - got)
 
+    def _cut(self, i: int) -> bool:
+        """Whether the container cut sample ``i`` short (NUT's last frame
+        where the end of the file fell inside it)."""
+        is_cut = getattr(self.box, "is_cut", None)
+        return bool(is_cut and is_cut(i))
+
     def _decoder(self, seeking: bool = False):
         if self.box.codec == "mpeg12":
             return Mpeg12Decoder(what=self.path, extradata=self.box.dsi)
@@ -822,8 +826,12 @@ class EncodedVideo:
         if self.box.codec == "mpeg12":
             yield from self._mpeg12_planes(start)
             return
-        k = (restart if restart is not None else
-             self.keyframes[max(bisect_right(self.keyframes, start) - 1, 0)])
+        j = max(bisect_right(self.keyframes, start) - 1, 0)
+        if j and self._cut(self.keyframes[j]):
+            # FFmpeg conceals a cut I-VOP from the picture before it, which
+            # OpenCV's seek (landing at least one frame early) has decoded
+            j -= 1
+        k = restart if restart is not None else self.keyframes[j]
         with open(self.path, "rb") as f:
             if self.box.codec in ("i420", "raw"):
                 for i in range(start, self.samples):
@@ -842,11 +850,21 @@ class EncodedVideo:
                         if i >= start:
                             yield i, p
                     continue
-                p = dec.decode(sample)
+                if self._cut(i):
+                    if self.box.codec != "mpeg4":
+                        raise Unsupported(
+                            f"{self.path}: frame {i} is cut short by the end "
+                            f"of the file; FFmpeg decodes what is there with "
+                            f"its error concealment, which the port "
+                            f"reproduces for MPEG-4 Part 2 only ({ITEM_8})")
+                    p = dec.decode(sample, cut=True)
+                else:
+                    p = dec.decode(sample)
                 # how the frame converts, where its decoder says: the chroma
                 # subsampling, an alpha plane, the matrix and the range
                 # (MagicYUV's packet header names all four)
-                for name in ("shifts", "alpha", "matrix", "full_range"):
+                for name in ("shifts", "alpha", "matrix", "full_range",
+                             "bits"):
                     setattr(self, name, getattr(dec, name, getattr(self, name)))
                 if self.box.codec == "vp8":
                     # FFmpeg's frame threads each keep the clamping_type
@@ -908,6 +926,10 @@ class EncodedVideo:
                     # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
                     # swscale)
                     yield i, p
+                elif p[0].dtype == np.uint16:   # 10 or 12 bits (Dirac)
+                    yield i, yuv16_to_bgr(*p, self.bits, self.shifts,
+                                          self.full_range, self.matrix,
+                                          self.chroma)
                 elif len(p) == 1:               # grey, replicated
                     yield i, np.repeat(p[0][..., None], 3, axis=2)
                 elif self.shifts != (1, 1) or self.alpha:
@@ -1251,11 +1273,55 @@ def _rate(fps: float) -> Tuple[int, int]:
     return rate.numerator, rate.denominator
 
 
+def _muxer(path: str, kind: str, size: Tuple[int, int],
+           rate: Tuple[int, int], headers: bytes):
+    """The container writer for ``path``, laid out as the FFmpeg muxer
+    cv2's writer picks for its extension lays out its ``mp4v`` stream."""
+    low = path.lower()
+    if kind == "avi":
+        return AviWriter(path, size, rate)
+    if kind == "mkv":
+        return MkvWriter(path, size, rate, headers)
+    if kind == "mp4":
+        return Mp4Writer(path, size, rate, headers)
+    if kind == "nut":
+        return NutWriter(path, size, rate, headers)
+    if kind == "asf":
+        return AsfWriter(path, size, rate, headers)
+    if kind == "mpg":                   # cv2 takes the svcd muxer for .vob
+        return PsWriter(path, rate, mpeg2=low.endswith(".vob"))
+    return TsWriter(path, rate, m2ts=low.endswith(".m2ts"))
+
+
+# the containers whose muxer takes no global header: the VOS/VOL headers
+# go in band, before each I-VOP
+_INBAND = ("avi", "mpg", "ts")
+
+
+def _opencv_rate(fps: float) -> Tuple[int, int]:
+    """fps as ``cv2.VideoWriter`` turns it into its codec's time base (a
+    power of ten under the rate, 29.97 as 2997/100): the rate a program
+    stream's MPEG-4 takes, since FFmpeg reports its VOL's time resolution
+    as the frame rate there."""
+    if not fps > 0:
+        raise ValueError(f"frame rate {fps} (must be > 0)")
+    num, den = int(fps + 0.5), 1
+    while abs(num / den - fps) > 0.001:
+        den *= 10
+        num = int(fps * den + 0.5)
+    if num > 65535:
+        return _rate(fps)
+    return num, den
+
+
 class Mpeg4Writer:
-    """BGR frames → MPEG-4 Part 2 Simple Profile in ``.mp4``, ``.avi`` or
-    ``.mkv``
+    """BGR frames → MPEG-4 Part 2 Simple Profile in any container of
+    :data:`WRITES` (ISO BMFF flavours, AVI, Matroska, NUT, ASF, program and
+    transport streams; ``_muxer``)
     (``runtime/mpeg4``'s encoder: an I-VOP every 12 frames, P-VOPs between,
-    quantiser 3, as ``cv2.VideoWriter`` with fourcc ``mp4v`` writes).
+    quantiser 3, as ``cv2.VideoWriter`` with fourcc ``mp4v`` writes; the
+    VOL headers in band where the container has no global header, as in
+    cv2's AVI, program and transport streams).
     An odd side is cropped to even (its last column or row dropped), as
     cv2's writer crops it.  Frames go to I420 in ``io/yuv.rgb_to_i420``'s
     arithmetic (in C, ``runtime/mpeg4.to_i420``).
@@ -1268,15 +1334,11 @@ class Mpeg4Writer:
         self.w, self.h = self.in_w & ~1, self.in_h & ~1
         if self.w < 2 or self.h < 2:
             raise ValueError(f"frame size {frame_size} is too small to encode")
-        rate = _rate(fps)
         kind = _kind(path, writing=True)
-        avi = kind == "avi"
-        self.enc = Encoder(self.w, self.h, *rate, inband=avi)
-        size = (self.w, self.h)
-        self.mux = (AviWriter(path, size, rate) if avi else
-                    MkvWriter(path, size, rate, self.enc.headers)
-                    if kind == "mkv" else
-                    Mp4Writer(path, size, rate, self.enc.headers))
+        rate = _opencv_rate(fps) if kind == "mpg" else _rate(fps)
+        self.enc = Encoder(self.w, self.h, *rate, inband=kind in _INBAND)
+        self.mux = _muxer(path, kind, (self.w, self.h), rate,
+                          self.enc.headers)
         self.recon = [] if keep_recon else None
 
     def write(self, frame: np.ndarray) -> None:
@@ -1312,9 +1374,15 @@ class PngDirWriter:
 class AsyncVideoWriter:
     """A video writer behind a background encode thread.
 
-    ``path`` ending in ``.mp4``, ``.avi`` or ``.mkv`` writes MPEG-4 Part 2
-    (:class:`Mpeg4Writer`), ``.y4m`` YUV4MPEG2, a directory (or a path
-    without extension) PNG frames; anything else (``.webm`` too) raises.
+    ``path`` ending in any extension cv2's ``mp4v`` writer opens (``.mp4``,
+    ``.mov``, ``.m4v``, ``.3gp``, ``.3g2``, ``.avi``, ``.mkv``, ``.nut``,
+    ``.wmv``, ``.asf``, ``.mpg``, ``.mpeg``, ``.vob``, ``.ts``, ``.mts``,
+    ``.m2t``, ``.m2ts``) writes MPEG-4 Part 2 (:class:`Mpeg4Writer`) into
+    the container its FFmpeg muxer writes; ``.y4m`` YUV4MPEG2; a directory
+    (or a path without extension) PNG frames.  Anything else (``.webm``,
+    ``.flv``, ``.mxf``, ``.ogv``, elementary streams) raises
+    ``ValueError``: cv2's writer does not open on those, and where it does
+    not, the JAX CLI runs on and writes nothing.
     ``write`` enqueues, blocking only when ``queue_size`` frames are
     already pending; ``release`` drains the queue, closes the file and
     re-raises any encoder error.

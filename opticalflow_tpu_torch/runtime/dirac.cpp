@@ -30,13 +30,21 @@
 //     of 8 pairs) in 16-bit lanes, the rest in C's int arithmetic, each
 //     result stored back into 16 bits;
 //   * the output: coefficients + 128 clipped to 8 bits
-//     (put_signed_rect_clamped), cropped to the picture.
+//     (put_signed_rect_clamped), cropped to the picture;
+//   * 10- and 12-bit samples (pshift): coefficients in 32 bits throughout
+//     (ff_dirac_golomb_read_32bit, the int32 dequantisation), the inverse
+//     wavelet in C's int arithmetic alone (libavcodec has SIMD steps for
+//     8 bits only: dirac_dwt_template.c at int32_t), the output plus
+//     1 << (bits - 1) clipped to the depth into 16-bit samples, as the
+//     yuv4xxp10/12 formats hold them.
 //
 // The planes come out as the decoder's pixel format lays them (yuv420p,
-// yuv422p or yuv444p; the range and matrix by dirac_seq_info). What no
+// yuv422p or yuv444p, or their 10- and 12-bit forms; the range and matrix
+// by dirac_seq_info). What no
 // encoder here writes (core-syntax and low-delay pictures, the wavelets
-// DD (13,7), Fidelity and Daubechies (9,7), more than 8 bits a sample, a
-// later major version's transform parameters) raises DIRAC_UNSUPPORTED
+// DD (13,7), Fidelity and Daubechies (9,7), depths other than 8, 10 and
+// 12 bits, a later major version's transform parameters) raises
+// DIRAC_UNSUPPORTED
 // with a message naming it; damaged data and what FFmpeg's decoder
 // refuses (field coding among it) raise DIRAC_CORRUPT.
 //
@@ -69,7 +77,8 @@ struct Failure {
 enum Feature {
     F_HQ = 0, F_DD97, F_LEGALL53, F_HAAR0, F_HAAR1, F_DEPTH1, F_DEPTH2, F_DEPTH3, F_DEPTH4,
     F_DEPTH5, F_CUSTOM_QM, F_YUV420, F_YUV422, F_YUV444, F_LIMITED_RANGE, F_FULL_RANGE,
-    F_CUSTOM_SIZE, F_SLICES, F_PREFIX_BYTES, F_SIZE_SCALER, F_CUT_COEFFS, F_REFERENCE,
+    F_CUSTOM_SIZE, F_SLICES, F_PREFIX_BYTES, F_SIZE_SCALER, F_CUT_COEFFS, F_REFERENCE, F_10BIT,
+    F_12BIT,
 };
 
 // ---------------------------------------------------------------- tables
@@ -309,15 +318,18 @@ inline int16_t s_dd97iH0(int16_t b0, int16_t b1, int16_t b2, int16_t b3, int16_t
 
 enum Wavelet { DD97 = 0, LEGALL53 = 1, DD137 = 2, HAAR0 = 3, HAAR1 = 4 };
 
+// T: the coefficients' type (int16_t at 8 bits, int32_t above); Simd: the
+// x86 steps cv2's libavcodec runs (at 8 bits), else C's alone
+template <typename T, bool Simd>
 struct Dwt {
     int type;
-    int16_t* buf;
+    T* buf;
     int width, height;       // padded plane
     int stride;              // samples
-    std::vector<int16_t> temp_store;
-    int16_t* temp;
+    std::vector<T> temp_store;
+    T* temp;
 
-    Dwt(int t, int16_t* b, int w, int h, int s) : type(t), buf(b), width(w), height(h), stride(s) {
+    Dwt(int t, T* b, int w, int h, int s) : type(t), buf(b), width(w), height(h), stride(s) {
         temp_store.assign(size_t(w) + 64, 0);
         temp = temp_store.data() + 8;
     }
@@ -328,28 +340,32 @@ struct Dwt {
     // start: the end of the line above in the buffer (or the padding
     // before the plane), which cv2's libavcodec changes there too
     static int simd_from(int w) { return (w & ~7) ? 0 : -8; }
-    void v_53iL0(int16_t* b0, int16_t* b1, int16_t* b2, int w) {
-        const int a = w & ~7;
-        for (int i = a; i < w; i++) b1[i] = w16(c_53iL0(b0[i], b1[i], b2[i]));
-        for (int i = simd_from(w); i < a; i++) b1[i] = s_53iL0(b0[i], b1[i], b2[i]);
+    // the first sample SIMD steps cover and the end of their run (none
+    // without Simd)
+    static int simd_start(int w) { return Simd ? simd_from(w) : 0; }
+    static int simd_end(int w) { return Simd ? w & ~7 : 0; }
+    void v_53iL0(T* b0, T* b1, T* b2, int w) {
+        const int a = simd_end(w);
+        for (int i = a; i < w; i++) b1[i] = T(c_53iL0(b0[i], b1[i], b2[i]));
+        for (int i = simd_start(w); i < a; i++) b1[i] = s_53iL0(b0[i], b1[i], b2[i]);
     }
-    void v_d53iH0(int16_t* b0, int16_t* b1, int16_t* b2, int w) {
-        const int a = w & ~7;
-        for (int i = a; i < w; i++) b1[i] = w16(c_d53iH0(b0[i], b1[i], b2[i]));
-        for (int i = simd_from(w); i < a; i++) b1[i] = s_d53iH0(b0[i], b1[i], b2[i]);
+    void v_d53iH0(T* b0, T* b1, T* b2, int w) {
+        const int a = simd_end(w);
+        for (int i = a; i < w; i++) b1[i] = T(c_d53iH0(b0[i], b1[i], b2[i]));
+        for (int i = simd_start(w); i < a; i++) b1[i] = s_d53iH0(b0[i], b1[i], b2[i]);
     }
-    void v_dd97iH0(int16_t* b0, int16_t* b1, int16_t* b2, int16_t* b3, int16_t* b4, int w) {
-        const int a = w & ~7;
-        for (int i = a; i < w; i++) b2[i] = w16(c_dd97iH0(b0[i], b1[i], b2[i], b3[i], b4[i]));
-        for (int i = simd_from(w); i < a; i++) b2[i] = s_dd97iH0(b0[i], b1[i], b2[i], b3[i], b4[i]);
+    void v_dd97iH0(T* b0, T* b1, T* b2, T* b3, T* b4, int w) {
+        const int a = simd_end(w);
+        for (int i = a; i < w; i++) b2[i] = T(c_dd97iH0(b0[i], b1[i], b2[i], b3[i], b4[i]));
+        for (int i = simd_start(w); i < a; i++) b2[i] = s_dd97iH0(b0[i], b1[i], b2[i], b3[i], b4[i]);
     }
-    void v_haar(int16_t* b0, int16_t* b1, int w) {
-        const int a = w & ~7;
+    void v_haar(T* b0, T* b1, int w) {
+        const int a = simd_end(w);
         for (int i = a; i < w; i++) {
-            b0[i] = w16(c_haarL0(b0[i], b1[i]));
-            b1[i] = w16(c_haarH0(b1[i], b0[i]));
+            b0[i] = T(c_haarL0(b0[i], b1[i]));
+            b1[i] = T(c_haarH0(b1[i], b0[i]));
         }
-        for (int i = simd_from(w); i < a; i++) {
+        for (int i = simd_start(w); i < a; i++) {
             b0[i] = w16(b0[i] - (w16(b1[i] + 1) >> 1));
             b1[i] = w16(b1[i] + b0[i]);
         }
@@ -357,45 +373,47 @@ struct Dwt {
 
     // horizontal steps: low half [0, w/2) and high half [w/2, w) of a line
     // composed and interleaved
-    void h_dd97(int16_t* b, int w) {   // SSSE3's lowpass, then its highpass
+    void h_dd97(T* b, int w) {   // SSSE3's lowpass, then its highpass (or C's)
         const int w2 = w >> 1;
-        int16_t* tmp = temp;
-        tmp[0] = s_53iL0(b[w2], b[0], b[w2]);
-        for (int x = 1; x < w2; x++) tmp[x] = s_53iL0(b[x + w2 - 1], b[x], b[x + w2]);
+        T* tmp = temp;
+        auto low = [&](int b0, int b1, int b2) { return Simd ? T(s_53iL0(b0, b1, b2)) : T(c_53iL0(b0, b1, b2)); };
+        tmp[0] = low(b[w2], b[0], b[w2]);
+        for (int x = 1; x < w2; x++) tmp[x] = low(b[x + w2 - 1], b[x], b[x + w2]);
         tmp[-1] = tmp[0];
         tmp[w2 + 1] = tmp[w2] = tmp[w2 - 1];
-        const int a = w2 >= 8 ? w2 & ~7 : 0;
-        std::vector<int16_t> hi(b + w2, b + w);   // the high half, read before the writes
+        const int a = Simd && w2 >= 8 ? w2 & ~7 : 0;
+        std::vector<T> hi(b + w2, b + w);   // the high half, read before the writes
         for (int x = 0; x < a; x++) {
             const int16_t h = s_dd97iH0(tmp[x - 1], tmp[x], hi[x], tmp[x + 1], tmp[x + 2]);
             b[2 * x] = w16(w16(tmp[x] + 1) >> 1);
             b[2 * x + 1] = w16(w16(h + 1) >> 1);
         }
         for (int x = a; x < w2; x++) {
-            b[2 * x] = w16((tmp[x] + 1) >> 1);
-            b[2 * x + 1] = w16((int(w16(c_dd97iH0(tmp[x - 1], tmp[x], hi[x], tmp[x + 1], tmp[x + 2]))) + 1) >> 1);
+            b[2 * x] = T((tmp[x] + 1) >> 1);
+            b[2 * x + 1] = T((int(T(c_dd97iH0(tmp[x - 1], tmp[x], hi[x], tmp[x + 1], tmp[x + 2]))) + 1) >> 1);
         }
     }
-    void h_d53(int16_t* b, int w) {    // C only
+    void h_d53(T* b, int w) {    // C only
         const int w2 = w >> 1;
-        int16_t* t = temp;
-        t[0] = w16(c_53iL0(b[w2], b[0], b[w2]));
+        T* t = temp;
+        t[0] = T(c_53iL0(b[w2], b[0], b[w2]));
         for (int x = 1; x < w2; x++) {
-            t[x] = w16(c_53iL0(b[x + w2 - 1], b[x], b[x + w2]));
-            t[x + w2 - 1] = w16(c_d53iH0(t[x - 1], b[x + w2 - 1], t[x]));
+            t[x] = T(c_53iL0(b[x + w2 - 1], b[x], b[x + w2]));
+            t[x + w2 - 1] = T(c_d53iH0(t[x - 1], b[x + w2 - 1], t[x]));
         }
-        t[w - 1] = w16(c_d53iH0(t[w2 - 1], b[w - 1], t[w2 - 1]));
+        t[w - 1] = T(c_d53iH0(t[w2 - 1], b[w - 1], t[w2 - 1]));
         for (int i = 0; i < w2; i++) {
-            b[2 * i] = w16((t[i] + 1) >> 1);
-            b[2 * i + 1] = w16((t[i + w2] + 1) >> 1);
+            b[2 * i] = T((t[i] + 1) >> 1);
+            b[2 * i + 1] = T((t[i + w2] + 1) >> 1);
         }
     }
-    void h_haar(int16_t* b, int w, int shift) {   // SSE2's lowpass, its highpass, C's tail
+    void h_haar(T* b, int w, int shift) {   // SSE2's lowpass, its highpass, C's tail
         const int w2 = w >> 1;
-        int16_t* t = temp;
-        for (int x = 0; x < w2; x++) t[x] = w16(b[x] - (w16(b[x + w2] + 1) >> 1));
-        const int a = w2 >= 8 ? w2 & ~7 : 0;
-        std::vector<int16_t> hi(b + w2, b + w);
+        T* t = temp;
+        for (int x = 0; x < w2; x++)
+            t[x] = Simd ? T(w16(b[x] - (w16(b[x + w2] + 1) >> 1))) : T(c_haarL0(b[x], b[x + w2]));
+        const int a = Simd && w2 >= 8 ? w2 & ~7 : 0;
+        std::vector<T> hi(b + w2, b + w);
         for (int x = 0; x < a; x++) {
             int16_t lo = t[x], h = w16(hi[x] + t[x]);
             if (shift) {
@@ -407,11 +425,11 @@ struct Dwt {
         }
         for (int x = a; x < w2; x++) {
             const int h = c_haarH0(hi[x], t[x]);
-            b[2 * x] = shift ? w16((t[x] + 1) >> 1) : t[x];
-            b[2 * x + 1] = w16(shift ? (h + 1) >> 1 : h);
+            b[2 * x] = shift ? T((t[x] + 1) >> 1) : t[x];
+            b[2 * x + 1] = T(shift ? (h + 1) >> 1 : h);
         }
     }
-    void horizontal(int16_t* b, int w) {
+    void horizontal(T* b, int w) {
         if (type == DD97) h_dd97(b, w);
         else if (type == LEGALL53) h_d53(b, w);
         else h_haar(b, w, type == HAAR1);
@@ -480,7 +498,10 @@ struct Plane {
     int pw = 0, ph = 0, stride = 0; // the padded transform's
     std::vector<int16_t> store;     // kFront samples, then the lines
     int16_t* coef = nullptr;
+    std::vector<int32_t> store32;   // above 8 bits
+    int32_t* coef32 = nullptr;
     std::vector<uint8_t> out;
+    std::vector<uint16_t> out16;    // above 8 bits
 };
 
 struct Decoder {
@@ -516,8 +537,16 @@ struct Decoder {
         auto pad = [](int v) { return ((v + 31) >> 5) << 5; };
         for (int c = 0; c < 3; c++) {
             const int w = seq.width >> (c ? xs : 0), h = seq.height >> (c ? ys : 0);
-            plane[c].store.assign(kFront + size_t((pad(w) + 7) & ~7) * pad(h), 0);
-            plane[c].coef = plane[c].store.data() + kFront;
+            const size_t n = kFront + size_t((pad(w) + 7) & ~7) * pad(h);
+            if (seq.bit_depth > 8) {
+                plane[c].store32.assign(n, 0);
+                plane[c].coef32 = plane[c].store32.data() + kFront;
+                std::vector<int16_t>().swap(plane[c].store);
+            } else {
+                plane[c].store.assign(n, 0);
+                plane[c].coef = plane[c].store.data() + kFront;
+                std::vector<int32_t>().swap(plane[c].store32);
+            }
         }
     }
 
@@ -536,7 +565,8 @@ struct Decoder {
         if (ld) unsupported("low-delay pictures");
         if (!hq) corrupt("parse code " + std::to_string(code));
         if (num_refs) unsupported("HQ pictures with references");
-        if (seq.bit_depth > 8) unsupported(std::to_string(seq.bit_depth) + "-bit samples");
+        if (seq.bit_depth != 8 && seq.bit_depth != 10 && seq.bit_depth != 12)
+            unsupported(std::to_string(seq.bit_depth) + "-bit samples");
         if (seq.major >= 3) unsupported("major version " + std::to_string(seq.major) + " transform parameters");
         Bits gb(data, n);
         const int64_t number = gb.get(32);
@@ -589,12 +619,26 @@ struct Decoder {
         if (num_x * num_y > 1) mark(F_SLICES);
         if (prefix_bytes) mark(F_PREFIX_BYTES);
         if (size_scaler > 1) mark(F_SIZE_SCALER);
+        if (seq.bit_depth > 8) mark(seq.bit_depth == 10 ? F_10BIT : F_12BIT);
         init_planes();
         gb.align();
-        slices(data + gb.pos / 8, n - gb.pos / 8);
+        const bool deep = seq.bit_depth > 8;
+        if (deep) slices<int32_t>(data + gb.pos / 8, n - gb.pos / 8);
+        else slices<int16_t>(data + gb.pos / 8, n - gb.pos / 8);
+        const int top = (1 << seq.bit_depth) - 1, mid = 1 << (seq.bit_depth - 1);
         for (int c = 0; c < 3; c++) {
             Plane& p = plane[c];
-            Dwt(wavelet, p.coef, p.pw, p.ph, p.stride).run(depth);
+            if (deep) {
+                Dwt<int32_t, false>(wavelet, p.coef32, p.pw, p.ph, p.stride).run(depth);
+                p.out16.resize(size_t(p.width) * p.height);
+                for (int y = 0; y < p.height; y++)
+                    for (int x = 0; x < p.width; x++) {
+                        const int v = p.coef32[size_t(y) * p.stride + x] + mid;
+                        p.out16[size_t(y) * p.width + x] = uint16_t(std::min(top, std::max(0, v)));
+                    }
+                continue;
+            }
+            Dwt<int16_t, true>(wavelet, p.coef, p.pw, p.ph, p.stride).run(depth);
             p.out.resize(size_t(p.width) * p.height);
             for (int y = 0; y < p.height; y++)
                 for (int x = 0; x < p.width; x++) {
@@ -635,9 +679,10 @@ struct Decoder {
         return b;
     }
 
+    template <typename T>
     void slices(const uint8_t* buf, int64_t avail) {
         int64_t bufsize = avail * 8;
-        std::vector<int16_t> tmp;
+        std::vector<T> tmp;
         for (int sy = 0; sy < num_y; sy++)
             for (int sx = 0; sx < num_x; sx++) {
                 if (bufsize <= 0) corrupt("too few slices");
@@ -654,7 +699,11 @@ struct Decoder {
             }
     }
 
-    void slice(int sx, int sy, const uint8_t* buf, int64_t bits, std::vector<int16_t>& tmp) {
+    template <typename T>
+    T* coefs(int c) { return reinterpret_cast<T*>(sizeof(T) == 2 ? (void*)plane[c].coef : (void*)plane[c].coef32); }
+
+    template <typename T>
+    void slice(int sx, int sy, const uint8_t* buf, int64_t bits, std::vector<T>& tmp) {
         Bits gb(buf, bits / 8);
         gb.pos += 8 * prefix_bytes;
         const int qi = gb.get(8);
@@ -688,13 +737,13 @@ struct Decoder {
             for (int l = 0; l < depth; l++)
                 for (int o = l ? 1 : 0; o < 4; o++) {
                     const Band b = band(c, l, o);
-                    int16_t* base = plane[c].coef + b.origin + top[l] * b.step + left[l];
+                    T* base = coefs<T>(c) + b.origin + top[l] * b.step + left[l];
                     for (int y = 0; y < th[l]; y++)
                         for (int x = 0; x < tw[l]; x++) {
                             const int v = tmp[size_t(off++)];
-                            int16_t r = 0;
-                            if (v < 0) r = w16(-int((uint32_t(-v) * qf[l][o] + qo[l][o]) >> 2));
-                            else if (v > 0) r = w16(int((uint32_t(v) * qf[l][o] + qo[l][o]) >> 2));
+                            T r = 0;
+                            if (v < 0) r = T(-int((uint32_t(-v) * qf[l][o] + qo[l][o]) >> 2));
+                            else if (v > 0) r = T(int((uint32_t(v) * qf[l][o] + qo[l][o]) >> 2));
                             base[y * b.step + x] = r;
                         }
                 }
@@ -702,9 +751,11 @@ struct Decoder {
         }
     }
 
-    // ff_dirac_golomb_read_16bit: the interleaved signed exp-Golomb values
-    // wholly inside `bytes` bytes, up to out.size() of them, as int16
-    static int64_t golomb(const uint8_t* p, int64_t bytes, std::vector<int16_t>& out) {
+    // ff_dirac_golomb_read_16bit (and _32bit): the interleaved signed
+    // exp-Golomb values wholly inside `bytes` bytes, up to out.size() of
+    // them, as T
+    template <typename T>
+    static int64_t golomb(const uint8_t* p, int64_t bytes, std::vector<T>& out) {
         Bits gb(p, bytes);
         const int64_t want = int64_t(out.size());
         int64_t k = 0;
@@ -725,7 +776,7 @@ struct Decoder {
                 if (gb.pos >= gb.n) break;      // the sign bit is past the end
                 if (gb.bit()) m = -m;
             }
-            out[size_t(k++)] = int16_t(uint16_t(m));
+            out[size_t(k++)] = T(m);
         }
         return k;
     }
@@ -787,7 +838,7 @@ int dirac_dec_decode(void* h, const uint8_t* data, int64_t n, char* msg, int64_t
 }
 
 // the last picture's layout: width, height, chroma shifts, full range,
-// matrix (0 BT.709, 1 BT.601)
+// matrix (0 BT.709, 1 BT.601), bits a sample
 void dirac_dec_layout(void* h, int64_t* out) {
     Decoder* d = (Decoder*)h;
     out[0] = d->seq.width;
@@ -796,12 +847,18 @@ void dirac_dec_layout(void* h, int64_t* out) {
     out[3] = d->ys;
     out[4] = d->seq.full_range;
     out[5] = d->seq.matrix;
+    out[6] = d->seq.bit_depth;
 }
 
-void dirac_dec_output(void* h, uint8_t* y, uint8_t* u, uint8_t* v) {
+// the planes: 8-bit samples, or 16-bit ones (native order) above 8 bits
+void dirac_dec_output(void* h, void* y, void* u, void* v) {
     Decoder* d = (Decoder*)h;
-    uint8_t* dst[3] = {y, u, v};
-    for (int p = 0; p < 3; p++) std::memcpy(dst[p], d->plane[p].out.data(), d->plane[p].out.size());
+    void* dst[3] = {y, u, v};
+    for (int p = 0; p < 3; p++) {
+        const Plane& pl = d->plane[p];
+        if (d->seq.bit_depth > 8) std::memcpy(dst[p], pl.out16.data(), pl.out16.size() * 2);
+        else std::memcpy(dst[p], pl.out.data(), pl.out.size());
+    }
 }
 
 int64_t dirac_dec_features(void* h) { return ((Decoder*)h)->features; }
@@ -810,7 +867,12 @@ int64_t dirac_dec_features(void* h) { return ((Decoder*)h)->features; }
 // buffer with kFront samples before its first line (w and h multiples of
 // 1 << depth): what picture() runs on each plane
 void dirac_idwt(int16_t* buf, int64_t w, int64_t h, int64_t stride, int64_t wavelet, int64_t depth) {
-    Dwt(int(wavelet), buf + kFront, int(w), int(h), int(stride)).run(int(depth));
+    Dwt<int16_t, true>(int(wavelet), buf + kFront, int(w), int(h), int(stride)).run(int(depth));
+}
+
+// the same over 32-bit coefficients, C's steps alone (above 8 bits)
+void dirac_idwt32(int32_t* buf, int64_t w, int64_t h, int64_t stride, int64_t wavelet, int64_t depth) {
+    Dwt<int32_t, false>(int(wavelet), buf + kFront, int(w), int(h), int(stride)).run(int(depth));
 }
 
 // the first sequence header of a packet or stream: width, height, frame

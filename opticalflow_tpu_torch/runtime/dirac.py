@@ -7,16 +7,19 @@ into planes, bit-exact to FFmpeg's ``dirac`` decoder, which
 ``cv2.VideoCapture`` runs: VC-2 HQ pictures (slices of interleaved
 exp-Golomb coefficients) over the Deslauriers-Dubuc (9,7), LeGall (5,3) and
 both Haar wavelets at depths 1-5, with the default or a custom quantisation
-matrix, in 8-bit 4:2:0, 4:2:2 or 4:4:4 at full or limited range.  After
-each decode, :attr:`Decoder.shifts`, :attr:`Decoder.full_range` and
-:attr:`Decoder.matrix` tell ``EncodedVideo`` how swscale converts the
+matrix, in 4:2:0, 4:2:2 or 4:4:4 at full or limited range, 8 bits a
+sample (uint8 planes) or 10 or 12 (uint16 planes, as libavcodec's
+yuv4xxp10/12 formats hold them).  After each decode,
+:attr:`Decoder.shifts`, :attr:`Decoder.full_range`, :attr:`Decoder.matrix`
+and :attr:`Decoder.bits` tell ``EncodedVideo`` how swscale converts the
 planes.  The library is built with ``g++`` at first use into
 ``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a failed build
 raises with the compiler's output.  Its calls release the GIL.  Damaged
 data, and what FFmpeg's decoder refuses (field coding among it), raises
 ``ValueError``; what no encoder here writes (core-syntax and low-delay
-pictures, the wavelets DD (13,7), Fidelity and Daubechies (9,7), samples
-of more than 8 bits) raises ``Unsupported``, naming ROADMAP Queue 1 item 8.
+pictures, the wavelets DD (13,7), Fidelity and Daubechies (9,7), depths
+other than 8, 10 and 12 bits) raises ``Unsupported``, naming ROADMAP
+Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ FEATURES = ("hq_pictures", "dd97", "legall53", "haar0", "haar1", "depth1",
             "depth2", "depth3", "depth4", "depth5", "custom_qm", "yuv420p",
             "yuv422p", "yuv444p", "limited_range", "full_range",
             "custom_size", "slices", "prefix_bytes", "size_scaler",
-            "cut_coeffs", "reference_pictures")
+            "cut_coeffs", "reference_pictures", "10bit", "12bit")
 _MATRICES = ("bt709", "bt601")
 # the wavelet indices the decoder reads: Deslauriers-Dubuc (9,7), LeGall
 # (5,3), Haar without and with shift
@@ -78,6 +81,7 @@ def load() -> ctypes.CDLL:
                                               ctypes.POINTER(_I64),
                                               ctypes.c_char_p, _I64]),
             "dirac_idwt": (None, [_P, _I64, _I64, _I64, _I64, _I64]),
+            "dirac_idwt32": (None, [_P, _I64, _I64, _I64, _I64, _I64]),
         }
         for name, (res, args) in sig.items():
             fn = getattr(lib, name)
@@ -124,15 +128,17 @@ def idwt(coeffs: np.ndarray, wavelet: str, depth: int) -> np.ndarray:
     """The decoder's inverse wavelet over (H, W) int16 coefficients laid
     out as the decoder lays them (each level's low half of a line before
     its high half, its low lines on the even lines of its grid); H and W
-    multiples of ``1 << depth``."""
+    multiples of ``1 << depth``.  int32 coefficients (what the decoder
+    keeps above 8 bits a sample) go through C's steps alone, in 32 bits."""
     h, w = coeffs.shape
     if h % (1 << depth) or w % (1 << depth):
         raise ValueError(f"a {w}x{h} plane is not padded to 1 << {depth}")
     stride = (w + 7) & ~7
-    buf = np.zeros(_FRONT + stride * h, np.int16)
+    kind = np.int32 if coeffs.dtype == np.int32 else np.int16
+    buf = np.zeros(_FRONT + stride * h, kind)
     buf[_FRONT:].reshape(h, stride)[:, :w] = coeffs
-    load().dirac_idwt(buf.ctypes.data, w, h, stride, WAVELETS[wavelet],
-                      depth)
+    run = load().dirac_idwt32 if kind == np.int32 else load().dirac_idwt
+    run(buf.ctypes.data, w, h, stride, WAVELETS[wavelet], depth)
     return buf[_FRONT:].reshape(h, stride)[:, :w].copy()
 
 
@@ -182,6 +188,7 @@ class Decoder:
         self.shifts = (1, 1)
         self.full_range = False
         self.matrix = "bt709"
+        self.bits = 8
         self._h = self._lib.dirac_dec_new()
 
     def __del__(self):
@@ -200,15 +207,17 @@ class Decoder:
             return None
         if rc != _OK:
             _fail(rc, msg.value.decode("utf-8", "replace"), self.what)
-        out = (_I64 * 6)()
+        out = (_I64 * 7)()
         self._lib.dirac_dec_layout(self._h, out)
-        w, h, xs, ys, full, matrix = list(out)
+        w, h, xs, ys, full, matrix, bits = list(out)
         self.shifts = (xs, ys)
         self.full_range = bool(full)
         self.matrix = _MATRICES[matrix]
-        planes = [np.empty((h, w), np.uint8),
-                  np.empty((h >> ys, w >> xs), np.uint8),
-                  np.empty((h >> ys, w >> xs), np.uint8)]
+        self.bits = bits
+        kind = np.uint8 if bits == 8 else np.uint16
+        planes = [np.empty((h, w), kind),
+                  np.empty((h >> ys, w >> xs), kind),
+                  np.empty((h >> ys, w >> xs), kind)]
         self._lib.dirac_dec_output(self._h, *[p.ctypes.data for p in planes])
         return tuple(planes)
 

@@ -17,7 +17,9 @@
 //     converts a picture of another size than its stream's first;
 //   * rgb48_to_bgr: swscale's conversion of 16-bit RGB (rgb48be, and
 //     rgba64be with its alpha dropped: FFmpeg's PNG decoder's 16-bit
-//     colour) to BGR24, through its internal video-range YUV.
+//     colour) to BGR24, through its internal video-range YUV;
+//   * scale_to_bgr over 10- and 12-bit planes (yuv4xxp10/12, which swscale
+//     converts through its scaler alone, reading them with hScale16To15).
 //
 // Header only; each including source is one shared library.
 
@@ -367,14 +369,17 @@ inline Filter init_filter(int xInc, int srcW, int dstW, int filterAlign, int one
     return out;
 }
 
-// hScale8To15: one row of 8-bit samples -> 15-bit
-inline void hscale8to15(const uint8_t* src, int srcW, const Filter& f, int dstW, int16_t* dst) {
+// hScale8To15 (8-bit samples) or hScale16To15 (9 to 14 bits: the sum
+// shifted by the depth less one): one row -> 15-bit
+template <typename T>
+inline void hscale_to15(const T* src, int srcW, const Filter& f, int dstW, int16_t* dst, int bits = 8) {
+    const int sh = bits == 8 ? 7 : bits - 1;
     for (int i = 0; i < dstW; i++) {
         int val = 0;
         const int* c = f.coef.data() + (size_t)i * f.size;
         for (int j = 0; j < f.size; j++)
             if (f.pos[i] + j < srcW) val += (int)src[f.pos[i] + j] * c[j];
-        dst[i] = (int16_t)std::min(val >> 7, (1 << 15) - 1);
+        dst[i] = (int16_t)std::min(val >> sh, (1 << 15) - 1);
     }
 }
 
@@ -471,9 +476,12 @@ inline int local_pos(int pos, int subsample) {
 // yuv2packedX.  Returns false where swscale would take yuv2packed2 (two
 // blending luma taps, which no bicubic filter between two real sizes has),
 // which this header does not reproduce.
-inline bool scale_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const uint8_t* v,
+// ``bits``: the samples' depth (T uint16_t above 8: yuv4xxp10/12, which
+// swscale reads through hScale16To15 and converts through the same path).
+template <typename T>
+inline bool scale_to_bgr(const T* y, int ystride, const T* u, const T* v,
                          int cstride, int sw, int sh, int hshift, int vshift, const YuvCoeffs& k,
-                         uint8_t* bgr, int dw, int dh, int hpos = -1, int vpos = -1) {
+                         uint8_t* bgr, int dw, int dh, int hpos = -1, int vpos = -1, int bits = 8) {
     const int w = dw, h = dh;
     const bool full = (w & 1) || (hshift == 0 && vshift == 0);
     const int csw = (sw + (1 << hshift) - 1) >> hshift, csh = (sh + (1 << vshift) - 1) >> vshift;
@@ -493,10 +501,11 @@ inline bool scale_to_bgr(const uint8_t* y, int ystride, const uint8_t* u, const 
         return true;
     }();
     std::vector<int16_t> y15((size_t)sh * w), u15((size_t)csh * cdw), v15((size_t)csh * cdw);
-    for (int r = 0; r < sh; r++) hscale8to15(y + (size_t)r * ystride, sw, lhf, w, y15.data() + (size_t)r * w);
+    for (int r = 0; r < sh; r++)
+        hscale_to15(y + (size_t)r * ystride, sw, lhf, w, y15.data() + (size_t)r * w, bits);
     for (int r = 0; r < csh; r++) {
-        hscale8to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw);
-        hscale8to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw);
+        hscale_to15(u + (size_t)r * cstride, csw, hf, cdw, u15.data() + (size_t)r * cdw, bits);
+        hscale_to15(v + (size_t)r * cstride, csw, hf, cdw, v15.data() + (size_t)r * cdw, bits);
     }
     const RgbTables& tab = rgb_tables(k.yoff != 0, k.matrix);
     std::vector<int> U(cdw), V(cdw), Y(w);

@@ -37,6 +37,7 @@
 // Built by runtime/_native.py with g++ at first use; called through ctypes.
 
 #include <algorithm>
+#include <climits>
 #include <cmath>
 #include <cstdarg>
 #include <cstdint>
@@ -368,6 +369,18 @@ class Decoder {
     // decodes Xvid's streams with its Xvid IDCT, which this file lacks
     bool xvid_tag = false;
     int xvid = -1, divx = -1, lavc = -1;
+    // a sample the container cut short (the end of the file fell inside
+    // it): decoded as far as it goes, the rest concealed (``conceal``)
+    bool cut = false;
+    // the macroblock the VOP's data failed at (-1: none), its packets'
+    // first macroblocks, and what error resilience reads of the pictures:
+    // each 8x8 block's vector (this VOP's and the last's), each
+    // macroblock's intra flag
+    int error_mb = -1;
+    std::vector<int> packets;
+    std::vector<int16_t> mv8, last_mv8;
+    std::vector<uint8_t> intra;
+    bool have_last_mv8 = false;
 
     void set_vol(const Vol& v) {
         bool same = vol.valid && v.width == vol.width && v.height == vol.height;
@@ -376,7 +389,11 @@ class Decoder {
             cur.alloc(v.mb_w, v.mb_h);
             ref.alloc(v.mb_w, v.mb_h);
             have_ref = false;
+            have_last_mv8 = false;
             pred.init(v.mb_w, v.mb_h);
+            mv8.assign((size_t)v.mb_num * 8, 0);
+            last_mv8.assign((size_t)v.mb_num * 8, 0);
+            intra.assign((size_t)v.mb_num, 0);
         }
     }
 
@@ -397,6 +414,7 @@ class Decoder {
                 set_vol(parse_vol(br));
             } else if (code == 0xb6) {
                 br.reset(d + s + 4, n - s - 4);   // a VOP runs to the end
+                br.zeros_past_end = cut;
                 vop = true;
                 break;
             } else if (code == 0xb2) {
@@ -427,6 +445,18 @@ class Decoder {
     }
 
     int decode_vop() {
+        if (!cut) return decode_vop_data();
+        // a cut VOP whose header fails is dropped, as FFmpeg drops it
+        try {
+            return decode_vop_data();
+        } catch (const Failure& f) {
+            if (f.kind != kCorrupt || error_mb >= 0) throw;
+            return OM4_NO_FRAME;
+        }
+    }
+
+    int decode_vop_data() {
+        error_mb = -1;
         int type = (int)br.get(2);
         if (type == 2) UNSUPPORTED("B-VOPs (Advanced Simple Profile)");
         if (type == 3) UNSUPPORTED("S-VOPs (sprites / global motion compensation)");
@@ -452,8 +482,11 @@ class Decoder {
         }
         br.check();
         decode_mbs();
+        keep_vectors();
+        if (error_mb >= 0) conceal();
         std::swap(cur, ref);
-        have_ref = true;
+        std::swap(mv8, last_mv8);
+        have_ref = have_last_mv8 = true;
         return OM4_OK;   // the picture is in ``ref`` now
     }
 
@@ -514,10 +547,25 @@ class Decoder {
         pred.start_packet(0, 0);
         MbData mb;
         int mbn = 0;
+        packets.assign(1, 0);
         while (mbn < vol.mb_num) {
             int x = mbn % vol.mb_w, y = mbn / vol.mb_w;
             pred.next_mb(x, y);
-            decode_mb(mb, x, y);
+            if (cut) {
+                // FFmpeg's decode_slice: the first macroblock that fails
+                // ends the VOP's decoding (its error concealment takes
+                // over); what is unsupported stays so
+                try {
+                    decode_mb(mb, x, y);
+                } catch (const Failure& f) {
+                    if (f.kind != kCorrupt) throw;
+                    error_mb = mbn;
+                    return;
+                }
+            } else {
+                decode_mb(mb, x, y);
+            }
+            intra[mbn] = mb.intra;
             reconstruct(mb, x, y);
             mbn++;
             if (mbn < vol.mb_num) {
@@ -526,6 +574,7 @@ class Decoder {
                 if (next > 0) {
                     if (next != mbn) CORRUPT("video packet at macroblock %d after %d", next, mbn);
                     packet_header();
+                    packets.push_back(mbn);
                     pred.start_packet(x == vol.mb_w - 1 ? 0 : x + 1,
                                       x == vol.mb_w - 1 ? y + 1 : y);
                 }
@@ -797,6 +846,333 @@ class Decoder {
             sumy += mb.mv[i][1];
         }
         chroma_4mv_motion(ref, e, x, y, sumx, sumy, no_rnd, du, dv, cs);
+    }
+
+    // ---- error resilience: error_resilience.c as FFmpeg runs it for
+    // MPEG-4 Part 2 (error_concealment 3: guess vectors, deblock) over a
+    // VOP whose data failed at ``error_mb``
+
+    enum { kAcError = 2, kDcError = 4, kMvError = 8, kAcEnd = 16, kDcEnd = 32, kMvEnd = 64,
+           kMbError = kAcError | kDcError | kMvError, kMbEnd = kAcEnd | kDcEnd | kMvEnd, kVpStart = 1 };
+
+    // each 8x8 block's vector in this VOP (update_motion_val's): the
+    // decoded macroblocks', zero in intra and skipped ones and from the
+    // failed macroblock on (FFmpeg's tables start zeroed)
+    void keep_vectors() {
+        std::fill(mv8.begin(), mv8.end(), 0);
+        const int last = error_mb < 0 ? vol.mb_num : error_mb;
+        for (int m = 0; m < last; m++) {
+            const int x = m % vol.mb_w, y = m / vol.mb_w;
+            for (int n = 0; n < 4; n++) {
+                const int16_t* v = pred.mv_at(n, x, y);
+                int16_t* o = &mv8[blk8(x * 2 + (n & 1), y * 2 + (n >> 1)) * 2];
+                o[0] = intra[m] || pict_type == 1 ? 0 : v[0];
+                o[1] = intra[m] || pict_type == 1 ? 0 : v[1];
+            }
+        }
+    }
+    size_t blk8(int bx, int by) const { return (size_t)by * 2 * vol.mb_w + bx; }
+
+    void conceal() {
+        if (pict_type != 1)
+            UNSUPPORTED("error concealment of a P-VOP cut short (FFmpeg's vectors of its failed and "
+                        "undecoded macroblocks)");
+        const int mw = vol.mb_w, mh = vol.mb_h, num = vol.mb_num;
+        // ff_er_frame_start and ff_er_add_slice: each packet decoded whole
+        // ends (its last macroblock ER_MB_END), the failed one's error at
+        // its macroblock, the macroblocks after it untouched
+        std::vector<uint8_t> st((size_t)num, kMbError | kVpStart | kMbEnd);
+        for (size_t k = 0; k < packets.size(); k++) {
+            const int start = packets[k];
+            const bool last = k + 1 == packets.size();
+            const int end = last ? error_mb : packets[k + 1] - 1;
+            for (int m = start; m < end; m++) st[m] = 0;
+            st[end] = last ? kMbError : kMbEnd;
+            st[start] |= kVpStart;
+        }
+        // overlapping slices
+        for (int type = 1; type <= 3; type++) {
+            bool end_ok = false;
+            for (int m = num - 1; m >= 0; m--) {
+                const int e = st[m];
+                if (e & (1 << type)) end_ok = true;
+                if (e & (8 << type)) end_ok = true;
+                if (!end_ok) st[m] |= 1 << type;
+                if (e & kVpStart) end_ok = false;
+            }
+        }
+        // backward: the 50 macroblocks before an error share it (an I-VOP
+        // skips none, which would not count)
+        for (int type = 1; type <= 3; type++) {
+            int distance = 9999999;
+            for (int m = num - 1; m >= 0; m--) {
+                const int e = st[m];
+                distance++;
+                if (e & (1 << type)) distance = 0;
+                if (distance < 50) st[m] |= 1 << type;
+                if (e & kVpStart) distance = 9999999;
+            }
+        }
+        // forward within a packet, then all or nothing (no partitions)
+        int err = 0;
+        for (int m = 0; m < num; m++) {
+            if (st[m] & kVpStart) err = st[m] & kMbError;
+            else {
+                err |= st[m] & kMbError;
+                st[m] |= err;
+            }
+        }
+        for (auto& e : st)
+            if (e & kMbError) e |= kMbError;
+        // the damaged macroblocks' kind (is_intra_more_likely), inter with
+        // a reference picture only
+        std::vector<uint8_t> is_intra((size_t)num);
+        for (int m = 0; m < num; m++) is_intra[m] = m < error_mb && intra[m];
+        const bool intra_likely = intra_more_likely(st);
+        for (int m = 0; m < num; m++)
+            if ((st[m] & kDcError) && (st[m] & kMvError)) is_intra[m] = intra_likely;
+        if (!have_ref)
+            for (auto& t : is_intra) t = 1;
+        guess_vectors(st, is_intra);
+        // every macroblock's DCs from its pixels (8x the mean)
+        std::vector<int> dc0((size_t)4 * num), dc1((size_t)num), dc2((size_t)num);
+        for (int m = 0; m < num; m++) {
+            const int x = m % mw, y = m / mw;
+            for (int n = 0; n < 4; n++) {
+                int sum = 0;
+                const uint8_t* p = cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8);
+                for (int r = 0; r < 8; r++)
+                    for (int c = 0; c < 8; c++) sum += p[r * cur.p[0].w + c];
+                dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))] = (sum + 4) >> 3;
+            }
+            int su = 0, sv = 0;
+            for (int r = 0; r < 8; r++)
+                for (int c = 0; c < 8; c++) {
+                    su += cur.p[1].at(x * 8, y * 8)[r * cur.p[1].w + c];
+                    sv += cur.p[2].at(x * 8, y * 8)[r * cur.p[2].w + c];
+                }
+            dc1[m] = (su + 4) >> 3;
+            dc2[m] = (sv + 4) >> 3;
+        }
+        guess_dc(dc0, 2 * mw, 2 * mh, true, st, is_intra);
+        guess_dc(dc1, mw, mh, false, st, is_intra);
+        guess_dc(dc2, mw, mh, false, st, is_intra);
+        filter181(dc0, 2 * mw, 2 * mh);
+        // intra macroblocks with damaged AC: their DCs alone
+        for (int m = 0; m < num; m++) {
+            if (!is_intra[m] || !(st[m] & kAcError)) continue;
+            const int x = m % mw, y = m / mw;
+            for (int n = 0; n < 4; n++) {
+                const int d = std::min(std::max(dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))], 0), 2040) / 8;
+                for (int r = 0; r < 8; r++)
+                    memset(cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8 + r), d, 8);
+            }
+            const int du = std::min(std::max(dc1[m], 0), 2040) / 8;
+            const int dv = std::min(std::max(dc2[m], 0), 2040) / 8;
+            for (int r = 0; r < 8; r++) {
+                memset(cur.p[1].at(x * 8, y * 8 + r), du, 8);
+                memset(cur.p[2].at(x * 8, y * 8 + r), dv, 8);
+            }
+        }
+        for (int pi = 0; pi < 3; pi++) {
+            block_filter(cur.p[pi], pi == 0, true, st, is_intra);
+            block_filter(cur.p[pi], pi == 0, false, st, is_intra);
+        }
+    }
+
+    // is_intra_more_likely for an I-VOP: the undamaged macroblocks' SAD
+    // against the last picture beside the last picture's against itself a
+    // row of macroblocks down
+    bool intra_more_likely(const std::vector<uint8_t>& st) const {
+        if (!have_ref) return true;   // no previous picture: spatial
+        const int num = vol.mb_num;
+        int undamaged = 0;
+        for (int m = 0; m < num; m++)
+            if (!((st[m] & kDcError) && (st[m] & kMvError))) undamaged++;
+        if (undamaged < 5) return false;   // almost all damaged: temporal
+        const int skip_amount = std::max(undamaged / 50, 1);
+        int score = 0, j = 0;
+        for (int y = 0; y < vol.mb_h - 1; y++)
+            for (int x = 0; x < vol.mb_w; x++) {
+                const int m = y * vol.mb_w + x;
+                if ((st[m] & kDcError) && (st[m] & kMvError)) continue;
+                j++;
+                if (j % skip_amount) continue;
+                const Plane &c = cur.p[0], &l = ref.p[0];
+                for (int r = 0; r < 16; r++)
+                    for (int k = 0; k < 16; k++) {
+                        score += std::abs(l.at(x * 16, y * 16 + r)[k] - c.at(x * 16, y * 16 + r)[k]);
+                        score -= std::abs(l.at(x * 16, y * 16 + r)[k] - l.at(x * 16, y * 16 + 16 + r)[k]);
+                    }
+            }
+        return score > 0;
+    }
+
+    // guess_mv: the last picture's vector into each damaged inter
+    // macroblock's first block, then each such macroblock predicted from
+    // the last picture with a zero vector, as FFmpeg does where few
+    // macroblocks keep their vectors; its full search is not reproduced
+    void guess_vectors(const std::vector<uint8_t>& st, const std::vector<uint8_t>& is_intra) {
+        const int num = vol.mb_num;
+        int avail = 0;
+        for (int m = 0; m < num; m++) {
+            const bool frozen = is_intra[m] || !(st[m] & kMvError);
+            if (frozen) {
+                avail++;
+            } else if (have_ref && have_last_mv8) {
+                const int x = m % vol.mb_w, y = m / vol.mb_w;
+                const size_t b = blk8(2 * x, 2 * y) * 2;
+                mv8[b] = last_mv8[b];
+                mv8[b + 1] = last_mv8[b + 1];
+            }
+        }
+        if (avail > std::max(vol.mb_w, vol.mb_h) / 2)
+            UNSUPPORTED("error concealment that guesses motion vectors (a cut VOP that keeps %d "
+                        "macroblocks' vectors)", avail);
+        for (int m = 0; m < num; m++) {
+            if (is_intra[m] || !(st[m] & kMvError)) continue;
+            const int x = m % vol.mb_w, y = m / vol.mb_w;
+            for (int r = 0; r < 16; r++) memcpy(cur.p[0].at(x * 16, y * 16 + r), ref.p[0].at(x * 16, y * 16 + r), 16);
+            for (int pi = 1; pi < 3; pi++)
+                for (int r = 0; r < 8; r++) memcpy(cur.p[pi].at(x * 8, y * 8 + r), ref.p[pi].at(x * 8, y * 8 + r), 8);
+        }
+    }
+
+    // guess_dc: a damaged intra block's DC from the nearest undamaged
+    // block (or inter one) in each direction, weighted by 1/distance
+    void guess_dc(std::vector<int>& dc, int w, int h, bool luma, const std::vector<uint8_t>& st,
+                  const std::vector<uint8_t>& is_intra) const {
+        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * vol.mb_w + (bx >> 1) : by * vol.mb_w + bx; };
+        auto source = [&](int m) { return !is_intra[m] || !(st[m] & kDcError); };
+        std::vector<int> col((size_t)w * h * 4);
+        std::vector<int64_t> dist((size_t)w * h * 4);
+        for (int by = 0; by < h; by++) {
+            int color = 1024, d = -1;
+            for (int bx = 0; bx < w; bx++) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = bx;
+                }
+                col[((size_t)by * w + bx) * 4 + 1] = color;
+                dist[((size_t)by * w + bx) * 4 + 1] = d >= 0 ? bx - d : 9999;
+            }
+            color = 1024;
+            d = -1;
+            for (int bx = w - 1; bx >= 0; bx--) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = bx;
+                }
+                col[((size_t)by * w + bx) * 4 + 0] = color;
+                dist[((size_t)by * w + bx) * 4 + 0] = d >= 0 ? d - bx : 9999;
+            }
+        }
+        for (int bx = 0; bx < w; bx++) {
+            int color = 1024, d = -1;
+            for (int by = 0; by < h; by++) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = by;
+                }
+                col[((size_t)by * w + bx) * 4 + 3] = color;
+                dist[((size_t)by * w + bx) * 4 + 3] = d >= 0 ? by - d : 9999;
+            }
+            color = 1024;
+            d = -1;
+            for (int by = h - 1; by >= 0; by--) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = by;
+                }
+                col[((size_t)by * w + bx) * 4 + 2] = color;
+                dist[((size_t)by * w + bx) * 4 + 2] = d >= 0 ? d - by : 9999;
+            }
+        }
+        for (int by = 0; by < h; by++)
+            for (int bx = 0; bx < w; bx++) {
+                const int m = mb_of(bx, by);
+                if (!is_intra[m] || !(st[m] & kDcError)) continue;
+                int64_t guess = 0, weight_sum = 0;
+                for (int j = 0; j < 4; j++) {
+                    const size_t i = ((size_t)by * w + bx) * 4 + j;
+                    const int64_t weight = 256LL * 256 * 256 * 16 / std::max<int64_t>(dist[i], 1);
+                    guess += weight * col[i];
+                    weight_sum += weight;
+                }
+                dc[(size_t)by * w + bx] = int((guess + weight_sum / 2) / weight_sum);
+            }
+    }
+
+    // filter181: the luma DCs smoothed (-1, 8, -1)/6, rows then columns
+    static void filter181(std::vector<int>& d, int w, int h) {
+        auto f = [](int prev, int c, int next) {
+            int dc = -prev + c * 8 - next;
+            dc = std::min(std::max(dc, INT_MIN / 10923), INT_MAX / 10923 - 32768);
+            return (dc * 10923 + 32768) >> 16;
+        };
+        for (int y = 1; y < h - 1; y++) {
+            int prev = d[(size_t)y * w];
+            for (int x = 1; x < w - 1; x++) {
+                const int c = d[(size_t)y * w + x];
+                d[(size_t)y * w + x] = f(prev, c, d[(size_t)y * w + x + 1]);
+                prev = c;
+            }
+        }
+        for (int x = 1; x < w - 1; x++) {
+            int prev = d[x];
+            for (int y = 1; y < h - 1; y++) {
+                const int c = d[(size_t)y * w + x];
+                d[(size_t)y * w + x] = f(prev, c, d[(size_t)(y + 1) * w + x]);
+                prev = c;
+            }
+        }
+    }
+
+    // h_block_filter (``across``: the vertical edges between blocks side
+    // by side) or v_block_filter: the edges of damaged blocks smoothed,
+    // where both sides are inter with vectors that nearly agree (FFmpeg
+    // adds the vertical components) excepted
+    void block_filter(Plane& p, bool luma, bool across, const std::vector<uint8_t>& st,
+                      const std::vector<uint8_t>& is_intra) const {
+        const int w = luma ? 2 * vol.mb_w : vol.mb_w, h = luma ? 2 * vol.mb_h : vol.mb_h;
+        const int ls = p.w;
+        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * vol.mb_w + (bx >> 1) : by * vol.mb_w + bx; };
+        auto mv = [&](int bx, int by) { return &mv8[(luma ? blk8(bx, by) : blk8(2 * bx, 2 * by)) * 2]; };
+        for (int by = 0; by < h - (across ? 0 : 1); by++)
+            for (int bx = 0; bx < w - (across ? 1 : 0); bx++) {
+                const int bx2 = across ? bx + 1 : bx, by2 = across ? by : by + 1;
+                const int m1 = mb_of(bx, by), m2 = mb_of(bx2, by2);
+                const bool dmg1 = st[m1] & kMbError, dmg2 = st[m2] & kMbError;
+                if (!dmg1 && !dmg2) continue;
+                const int16_t *v1 = mv(bx, by), *v2 = mv(bx2, by2);
+                if (!is_intra[m1] && !is_intra[m2] && std::abs(v1[0] - v2[0]) + std::abs(v1[1] + v2[1]) < 2)
+                    continue;
+                uint8_t* base = p.d.data() + (size_t)by * 8 * ls + bx * 8;
+                const int step = across ? 1 : ls, line = across ? ls : 1;
+                for (int k = 0; k < 8; k++) {
+                    uint8_t* q = base + (size_t)k * line;
+                    const int a = q[7 * step] - q[6 * step];
+                    const int b = q[8 * step] - q[7 * step];
+                    const int c = q[9 * step] - q[8 * step];
+                    int d = std::max(std::abs(b) - ((std::abs(a) + std::abs(c) + 1) >> 1), 0);
+                    if (b < 0) d = -d;
+                    if (!d) continue;
+                    if (!(dmg1 && dmg2)) d = d * 16 / 9;
+                    auto put = [&](int i, int v) { q[i * step] = (uint8_t)std::min(std::max(v, 0), 255); };
+                    if (dmg1) {
+                        put(7, q[7 * step] + ((d * 7) >> 4));
+                        put(6, q[6 * step] + ((d * 5) >> 4));
+                        put(5, q[5 * step] + ((d * 3) >> 4));
+                        put(4, q[4 * step] + ((d * 1) >> 4));
+                    }
+                    if (dmg2) {
+                        put(8, q[8 * step] - ((d * 7) >> 4));
+                        put(9, q[9 * step] - ((d * 5) >> 4));
+                        put(10, q[10 * step] - ((d * 3) >> 4));
+                        put(11, q[11 * step] - ((d * 1) >> 4));
+                    }
+                }
+            }
     }
 
     // the last decoded picture's planes at the display size
@@ -1532,8 +1908,9 @@ int om4_dec_headers(void* h, const uint8_t* data, int64_t n, int64_t* wh,
 // Decode one sample.  On OM4_OK the picture's display size is in
 // wh[0..1]; om4_dec_output copies its I420 planes out.
 int om4_dec_decode(void* h, const uint8_t* data, int64_t n, int64_t* wh,
-                   char* msg, int64_t cap) {
+                   char* msg, int64_t cap, int cut) {
     Decoder* d = (Decoder*)h;
+    d->cut = cut != 0;
     try {
         int rc = d->decode(data, n);
         if (rc != OM4_OK) return rc;
@@ -1583,6 +1960,15 @@ void om4_yuv_to_bgr(const uint8_t* y, const uint8_t* u, const uint8_t* v, int w,
         ffdsp::scale_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, w, h, hpos, vpos);
     else
         ffdsp::yuv_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, hpos, vpos);
+}
+
+// 10- or 12-bit planes (native 16-bit samples; yuv4xxp10/12) -> BGR24 at
+// the same size, as swscale converts them: always through its scaler
+void om4_yuv16_to_bgr(const uint16_t* y, const uint16_t* u, const uint16_t* v, int w, int h,
+                      int ystride, int cstride, int hshift, int vshift, int bits, int full, int hpos,
+                      int vpos, int matrix, uint8_t* bgr) {
+    const ffdsp::YuvCoeffs k = ffdsp::yuv_coeffs(matrix, full != 0);
+    ffdsp::scale_to_bgr(y, ystride, u, v, cstride, w, h, hshift, vshift, k, bgr, w, h, hpos, vpos, bits);
 }
 
 // The same planes (sw x sh) -> BGR24 at dw x dh, scaled as swscale scales

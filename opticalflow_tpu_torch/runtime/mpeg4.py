@@ -65,7 +65,8 @@ def load() -> ctypes.CDLL:
             "om4_dec_headers": (ctypes.c_int, [_P, ctypes.c_char_p, _I64, _I64P,
                                                ctypes.c_char_p, _I64]),
             "om4_dec_decode": (ctypes.c_int, [_P, ctypes.c_char_p, _I64, _I64P,
-                                              ctypes.c_char_p, _I64]),
+                                              ctypes.c_char_p, _I64,
+                                              ctypes.c_int]),
             "om4_dec_output": (None, [_P, _P, _P, _P]),
             "om4_yuv420_scale_to_bgr": (ctypes.c_int, [_P, _P, _P]
                                         + [ctypes.c_int] * 10 + [_P]),
@@ -74,6 +75,8 @@ def load() -> ctypes.CDLL:
             "om4_yuv_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 11
                                + [_P]),
             "om4_rgb48_to_bgr": (None, [_P, ctypes.c_int, _I64, _P]),
+            "om4_yuv16_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 11
+                                 + [_P]),
             "om4_to_i420": (None, [_P, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P, _P, _P]),
             "om4_enc_new": (_P, [_I64P, ctypes.c_char_p, ctypes.c_char_p, _I64]),
@@ -95,6 +98,9 @@ def load() -> ctypes.CDLL:
 def _raise(rc: int, msg, what: str):
     text = msg.value.decode("utf-8", "replace")
     if rc == _UNSUPPORTED:
+        if text.startswith("error concealment"):
+            raise Unsupported(f"{what}: {text}, not reproduced by the port "
+                              f"({ITEM_8})")
         raise Unsupported(f"{what}: {text}: the port decodes MPEG-4 Part 2 "
                           f"Simple Profile only ({ITEM_8})")
     raise ValueError(f"{what}: corrupt MPEG-4 Part 2 stream: {text}")
@@ -137,15 +143,19 @@ class Decoder:
             _raise(rc, msg, self.what)
         self.width, self.height = int(wh[0]), int(wh[1])
 
-    def decode(self, sample: bytes) -> Optional[Planes]:
+    def decode(self, sample: bytes, cut: bool = False) -> Optional[Planes]:
         """One sample → its picture's (Y, U, V) planes at the display size,
         or None for a sample that yields no picture (a not-coded VOP, or
-        headers alone), as FFmpeg hands them over."""
+        headers alone), as FFmpeg hands them over.  ``cut``: the container
+        cut the sample short (the end of the file fell inside it); its VOP
+        is decoded up to the first macroblock that fails and the rest
+        concealed as FFmpeg's error resilience conceals it (a damaged
+        region taken from the last picture, or from its DCs, deblocked)."""
         wh = (_I64 * 2)()
         msg = ctypes.create_string_buffer(_MSG)
         sample = bytes(sample)
         rc = self._lib.om4_dec_decode(self._h, sample, len(sample), wh, msg,
-                                      _MSG)
+                                      _MSG, int(cut))
         if rc == _NO_FRAME:
             return None
         if rc != _OK:
@@ -204,6 +214,32 @@ def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         raise Unsupported(f"a {w}x{h} picture scaled to {dw}x{dh} through "
                           "swscale's two-tap luma path, not read by the port "
                           f"({ITEM_8})")
+    return out
+
+
+def yuv16_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, bits: int,
+                 shifts: Tuple[int, int], full_range: bool = False,
+                 matrix: str = "bt601",
+                 chroma: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """(H, W) Y and subsampled U, V planes of 10- or 12-bit samples
+    (uint16, as FFmpeg's yuv4xxp10/12 hold them) → (H, W, 3) BGR as
+    swscale converts them for ``cv2.VideoCapture``: always its bicubic
+    scaler (no unscaled path takes them), each row read at 15 bits by
+    hScale16To15, then what :func:`yuv_to_bgr` does for 8-bit planes."""
+    if bits not in (10, 12):
+        raise ValueError(f"{bits}-bit samples (10 or 12)")
+    h, w = y.shape
+    hs, vs = shifts
+    ys, us, vs_ = (np.ascontiguousarray(p, np.uint16) for p in (y, u, v))
+    want = (-(-h >> vs), -(-w >> hs))
+    if us.shape != want or vs_.shape != want:
+        raise ValueError(f"chroma planes {us.shape}, {vs_.shape} do not match "
+                         f"a {h}x{w} luma plane subsampled by {shifts}")
+    hpos, vpos = chroma or (-1, -1)
+    out = np.empty((h, w, 3), np.uint8)
+    load().om4_yuv16_to_bgr(_ptr(ys), _ptr(us), _ptr(vs_), w, h, w, want[1],
+                            hs, vs, bits, int(full_range), hpos, vpos,
+                            MATRICES.index(matrix), _ptr(out))
     return out
 
 

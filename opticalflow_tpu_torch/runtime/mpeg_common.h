@@ -105,11 +105,15 @@ struct Vlc {
 struct BitReader {
     std::vector<uint8_t> buf;   // the data and 8 zero bytes
     int64_t size = 0, pos = 0;  // in bits
+    // past the end, read zeros instead of failing (FFmpeg's padded reader
+    // on a packet cut short; its decoder fails only on what it decodes)
+    bool zeros_past_end = false;
     void reset(const uint8_t* d, int64_t n) {
         buf.assign(d, d + n);
         buf.resize(n + 8, 0);
         size = n * 8;
         pos = 0;
+        zeros_past_end = false;
     }
     uint32_t peek32() const {
         if (pos >= size) return 0;
@@ -128,12 +132,12 @@ struct BitReader {
     int get1() { return (int)get(1); }
     int64_t left() const { return size - pos; }
     void check() const {
-        if (pos > size) CORRUPT("bitstream overread (truncated picture)");
+        if (pos > size && !zeros_past_end) CORRUPT("bitstream overread (truncated picture)");
     }
     int vlc(const Vlc& v) {
         int i = (int)show(v.bits);
         int s = v.sym[i];
-        if (s < 0 || pos >= size) CORRUPT("invalid VLC at bit %lld", (long long)pos);
+        if (s < 0 || (pos >= size && !zeros_past_end)) CORRUPT("invalid VLC at bit %lld", (long long)pos);
         pos += v.len[i];
         return s;
     }

@@ -80,7 +80,16 @@ using RangeCoder = rangecoder::Coder<symbol_overlong>;
 enum Feature {
     F_KEY, F_INTER, F_DWT97, F_DWT53, F_LOSSLESS, F_YUV420, F_YUV410, F_YUV444, F_GRAY,
     F_HPEL, F_QPEL, F_SPLIT, F_INTRA_BLOCK, F_REFS, F_REF_INDEX, F_MC_H264, F_MC_BLOCK,
-    F_MC_BILINEAR, F_EDGE, F_QBIAS, F_COUNT_UPDATE, F_QLOG_DELTA,
+    F_MC_BILINEAR, F_EDGE, F_QBIAS, F_COUNT_UPDATE, F_QLOG_DELTA, F_ALWAYS_RESET, F_TEMPORAL,
+    F_SCALABILITY, F_MC_FILTER, F_NO_DIAG_MC,
+};
+
+// a plane's half-pel filter (update_mc): ff_snow_common_init's defaults,
+// the fast_mc filter (H.264's 6 taps: 40/-10/2) with diagonal positions
+struct McFilter {
+    int diag_mc = 1, htaps = 6;
+    int hcoeff[4] = {40, -10, 2, 0};
+    bool fast = true;
 };
 
 std::string fmt(const char* f, long long a, long long b = 0) {
@@ -318,46 +327,52 @@ void h264_qpel(uint8_t* dst, int ds, const uint8_t* src, int ss, int n, int qx, 
     }
 }
 
-// snow.c's mc_block with the default filter (fast_mc: h264's 6 taps):
+// the half-pel filter over the 8 samples a[0..7] a step apart, centred
+// between a[3] and a[4]: H.264's 6 taps (fast_mc), else the plane's
+template <typename T>
+int hpel_taps(const T* a, int step, const McFilter& f) {
+    if (f.fast) return 20 * (a[3 * step] + a[4 * step]) - 5 * (a[2 * step] + a[5 * step]) + (a[step] + a[6 * step]);
+    return f.hcoeff[0] * (a[3 * step] + a[4 * step]) + f.hcoeff[1] * (a[2 * step] + a[5 * step]) +
+           f.hcoeff[2] * (a[step] + a[6 * step]) + f.hcoeff[3] * (a[0] + a[7 * step]);
+}
+
+// snow.c's mc_block with the plane's filter (its 6-tap fast_mc form, or
+// the general one FFmpeg takes when fast_mc is off; without diag_mc every
+// position is bilinear between the half-pel planes):
 // src is the window's corner, 3 pixels above and left of the block
-int mc_block(uint8_t* dst, int ds, const uint8_t* src, int ss, int b_w, int b_h, int dx, int dy) {
+int mc_block(uint8_t* dst, int ds, const uint8_t* src, int ss, int b_w, int b_h, int dx, int dy, const McFilter& f) {
     using namespace snow_tables;
     int16_t tmpIt[64 * (32 + kHTapsMax)];
     uint8_t tmp2t[3][64 * (32 + kHTapsMax)];
     const uint8_t* hpel[11] = {};
     const int r = kBrane[dx + 16 * dy] & 15;
     const int l = kBrane[dx + 16 * dy] >> 4;
-    const int b = kNeeds[l] | kNeeds[r];
+    const int b = f.diag_mc ? kNeeds[l] | kNeeds[r] : 15;
+    // fast_mc rounds the 6 taps' sum of 32 by 5 bits, the general filter
+    // its sum of 64 by 6
+    const int sh = f.fast ? 5 : 6;
     if (b & 5) {
         const uint8_t* s = src;
         for (int y = 0; y < b_h + kHTapsMax - 1; y++, s += ss) {
             for (int x = 0; x < b_w; x++) {
-                const uint8_t* a = s + x;
-                int am = 20 * (a[3] + a[4]) - 5 * (a[2] + a[5]) + (a[1] + a[6]);
+                const int am = hpel_taps(s + x, 1, f);
                 tmpIt[y * 64 + x] = int16_t(am);
-                tmp2t[0][y * 64 + x] = clip8((am + 16) >> 5);
+                tmp2t[0][y * 64 + x] = clip8((am + (1 << (sh - 1))) >> sh);
             }
         }
     }
     const uint8_t* s = src + kHTapsMax / 2 - 1;
     if (b & 2) {
-        for (int y = 0; y < b_h; y++) {
-            for (int x = 0; x < b_w + 1; x++) {
-                const uint8_t* a = s + y * ss + x;
-                tmp2t[1][y * 64 + x] =
-                    clip8((20 * (a[3 * ss] + a[4 * ss]) - 5 * (a[2 * ss] + a[5 * ss]) + (a[ss] + a[6 * ss]) + 16) >> 5);
-            }
-        }
+        for (int y = 0; y < b_h; y++)
+            for (int x = 0; x < b_w + 1; x++)
+                tmp2t[1][y * 64 + x] = clip8((hpel_taps(s + y * ss + x, ss, f) + (1 << (sh - 1))) >> sh);
     }
     s += ss * (kHTapsMax / 2 - 1);
     if (b & 4) {
-        for (int y = 0; y < b_h; y++) {
-            for (int x = 0; x < b_w; x++) {
-                const int16_t* a = tmpIt + y * 64 + x;
+        for (int y = 0; y < b_h; y++)
+            for (int x = 0; x < b_w; x++)
                 tmp2t[2][y * 64 + x] =
-                    clip8((20 * (a[3 * 64] + a[4 * 64]) - 5 * (a[2 * 64] + a[5 * 64]) + (a[64] + a[6 * 64]) + 512) >> 10);
-            }
-        }
+                    clip8((hpel_taps(tmpIt + y * 64 + x, 64, f) + (1 << (2 * sh - 1))) >> (2 * sh));
     }
     hpel[0] = s;
     hpel[1] = tmp2t[0] + 64 * (kHTapsMax / 2 - 1);
@@ -447,6 +462,7 @@ struct Decoder {
     int b_width = 0, b_height = 0;
     std::vector<Block> blocks;
     Plane plane[3];
+    McFilter mc[3];
     Picture last[kMaxRefFrames];
     Picture cur;
     std::vector<int16_t> idwt, temp;
@@ -480,25 +496,37 @@ struct Decoder {
                 }
     }
 
-    // update_mc: each plane's diag_mc, htaps and hcoeff, which libavcodec's
-    // encoder sends once, with the defaults ff_snow_common_init sets (the
-    // fast_mc filter: diag_mc, 6 taps, 40/-10/2); others are refused
+    // update_mc: the first two planes' diag_mc, htaps and hcoeff (each
+    // coefficient from htaps/2 down to 1; the one at 0 makes their sum 32;
+    // those above htaps/2 keep their values), the third plane's copied from
+    // the second's, as snowdec.c's decode_header reads them
     void read_mc() {
         for (int pi = 0; pi < std::min(nb_planes, 2); pi++) {
-            const int diag_mc = c.bit(header_state);
+            McFilter& f = mc[pi];
+            f.diag_mc = c.bit(header_state);
             const int sym = c.symbol(header_state, false);
             if ((unsigned)sym >= kHTapsMax / 2 - 1) corrupt(fmt("htaps %lld", 2 * sym + 2));
-            const int htaps = sym * 2 + 2;
-            int hcoeff[kHTapsMax / 2] = {0, 0, 0, 0}, sum = 0;
-            for (int i = htaps / 2; i; i--) {
+            f.htaps = sym * 2 + 2;
+            int sum = 0;
+            for (int i = f.htaps / 2; i; i--) {
                 const unsigned v = unsigned(c.symbol(header_state, false));
                 if (v > 127) corrupt(fmt("hcoeff %lld", v));
-                hcoeff[i] = int(v) * (1 - 2 * (i & 1));
-                sum += hcoeff[i];
+                f.hcoeff[i] = int(v) * (1 - 2 * (i & 1));
+                sum += f.hcoeff[i];
             }
-            hcoeff[0] = 32 - sum;
-            if (!diag_mc || htaps != 6 || hcoeff[0] != 40 || hcoeff[1] != -10 || hcoeff[2] != 2 || hcoeff[3])
-                unsupported(fmt("an MC filter other than the default (diag_mc %lld, htaps %lld, ...)", diag_mc, htaps));
+            f.hcoeff[0] = 32 - sum;
+        }
+        mc[2].diag_mc = mc[1].diag_mc;
+        mc[2].htaps = mc[1].htaps;
+        std::memcpy(mc[2].hcoeff, mc[1].hcoeff, sizeof mc[2].hcoeff);
+    }
+
+    // decode_frame: each plane's fast_mc, whatever its fourth coefficient
+    void set_fast_mc() {
+        for (auto& f : mc) {
+            f.fast = f.diag_mc && f.htaps == 6 && f.hcoeff[0] == 40 && f.hcoeff[1] == -10 && f.hcoeff[2] == 2;
+            if (!f.fast) mark(F_MC_FILTER);
+            if (!f.diag_mc) mark(F_NO_DIAG_MC);
         }
     }
 
@@ -545,9 +573,11 @@ struct Decoder {
             vshift = vs;
             max_ref_frames = refs + 1;
             decode_qlogs();
-            if (always_reset) unsupported("always_reset");
-            if (ttype || tcount) unsupported(fmt("a temporal decomposition (type %lld, count %lld)", ttype, tcount));
-            if (scalability) unsupported("spatial_scalability");
+            // FFmpeg reads the temporal decomposition and spatial
+            // scalability and acts on neither
+            if (always_reset) mark(F_ALWAYS_RESET);
+            if (ttype || tcount) mark(F_TEMPORAL);
+            if (scalability) mark(F_SCALABILITY);
             have_key = true;
         }
         if (!have_key) corrupt("an inter frame before the first key frame");
@@ -905,8 +935,8 @@ struct Decoder {
             for (int x = 0; x < ww; x++) win[y * kWin + x] = row[std::clamp(sx + x, 0, w - 1)];
         }
         if ((dx & 3) || (dy & 3) || !(b_w == b_h || 2 * b_w == b_h || b_w == 2 * b_h) || (b_w & (b_w - 1)) ||
-            b_w == 1 || b_h == 1) {
-            mark(mc_block(dst, ds, win, kWin, b_w, b_h, dx, dy));
+            b_w == 1 || b_h == 1 || !mc[pi].fast) {
+            mark(mc_block(dst, ds, win, kWin, b_w, b_h, dx, dy, mc[pi]));
             return;
         }
         mark(F_MC_H264);
@@ -1038,6 +1068,7 @@ struct Decoder {
         c.init(buf, n);
         decode_header();
         init_bands();
+        set_fast_mc();
         b_width = (width + kMbSize - 1) >> 4;
         b_height = (height + kMbSize - 1) >> 4;
         blocks.assign(size_t(b_width * b_height) << (2 * block_max_depth), Block());

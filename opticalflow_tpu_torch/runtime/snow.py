@@ -47,7 +47,9 @@ FEATURES = ("key_frames", "inter_frames", "dwt97", "dwt53", "lossless",
             "yuv420p", "yuv410p", "yuv444p", "gray", "hpel_vectors",
             "qpel_vectors", "split_blocks", "intra_blocks", "several_refs",
             "ref_index", "mc_h264_qpel", "mc_block", "mc_bilinear",
-            "edge_replicated", "qbias", "count_update", "qlog_delta")
+            "edge_replicated", "qbias", "count_update", "qlog_delta",
+            "always_reset", "temporal_decomposition", "spatial_scalability",
+            "mc_filter", "no_diag_mc")
 
 
 def load() -> ctypes.CDLL:

@@ -1234,6 +1234,10 @@ class Lavc:
         P, I = c.c_void_p, c.c_int
         for L, name, res, args in (
                 (self.a, "avcodec_find_encoder_by_name", P, [c.c_char_p]),
+                (self.a, "avcodec_find_decoder_by_name", P, [c.c_char_p]),
+                (self.a, "avcodec_send_packet", I, [P, P]),
+                (self.a, "avcodec_receive_frame", I, [P, P]),
+                (self.a, "av_new_packet", I, [P, I]),
                 (self.a, "avcodec_alloc_context3", P, [P]),
                 (self.a, "avcodec_open2", I, [P, P, P]),
                 (self.a, "avcodec_send_frame", I, [P, P]),
@@ -1301,6 +1305,47 @@ class Lavc:
         drain()
         return out
 
+
+    def decode(self, packets: list, codec: str, shifts=(1, 1),
+               dtype=np.uint8) -> list:
+        """Packets → the (Y, U, V) planes libavcodec's ``codec`` decoder
+        hands over (its pixel format's: ``shifts`` the chroma subsampling,
+        ``dtype`` uint16 for samples deeper than 8 bits), read at AVFrame's
+        data (0), linesize (64), width and height (104, 108)."""
+        c, a, u = self.ct, self.a, self.u
+        ctx = a.avcodec_alloc_context3(None)
+        dec = a.avcodec_find_decoder_by_name(codec.encode())
+        assert a.avcodec_open2(ctx, dec, None) >= 0, codec
+        frame, pkt = u.av_frame_alloc(), a.av_packet_alloc()
+        out = []
+
+        def drain():
+            while a.avcodec_receive_frame(ctx, frame) == 0:
+                ints = (c.c_int * 30).from_address(frame)
+                w, h = ints[26], ints[27]
+                ptrs = (c.c_void_p * 8).from_address(frame)
+                strides = (c.c_int * 8).from_address(frame + 64)
+                planes = []
+                for k in range(3):
+                    pw = w if not k else -(-w >> shifts[0])
+                    ph = h if not k else -(-h >> shifts[1])
+                    rows = [np.frombuffer(c.string_at(
+                        ptrs[k] + r * strides[k],
+                        pw * np.dtype(dtype).itemsize), dtype)
+                        for r in range(ph)]
+                    planes.append(np.stack(rows))
+                out.append(tuple(planes))
+
+        for data in packets:
+            assert a.av_new_packet(pkt, len(data)) >= 0
+            c.memmove(c.c_void_p.from_address(pkt + 24).value, data,
+                      len(data))
+            assert a.avcodec_send_packet(ctx, pkt) >= 0
+            a.av_packet_unref(pkt)
+            drain()
+        a.avcodec_send_packet(ctx, None)
+        drain()
+        return out
 
     def encode_ffv1(self, frames: list, pix: str = "bgr0", gop: int = 12,
                     **opts) -> tuple:
@@ -3351,11 +3396,13 @@ class RacWriter:
 
 
 class SnowCraft:
-    """Snow frames written syntax element by element, each a flat grey
-    picture (every coefficient zero; an inter frame's blocks inter blocks
-    with zero vectors), carrying header values libavcodec's encoder never
-    writes.  The contexts carry over from frame to frame as the decoder's
-    do (reset at a key frame)."""
+    """Snow frames written syntax element by element, carrying header
+    values libavcodec's encoder never writes: every coefficient zero, so a
+    key frame is flat grey and an inter frame is its blocks' prediction
+    (by default inter blocks with zero vectors; ``blocks`` gives intra
+    blocks of their own colours, which make a textured picture, and inter
+    blocks with vectors into it).  The contexts carry over from frame to
+    frame as the decoder's do (reset at a key frame)."""
 
     def __init__(self, w: int, h: int, count: int = 3):
         self.w, self.h, self.count = w, h, count
@@ -3371,7 +3418,8 @@ class SnowCraft:
                     r.rac(self.band[p, level, o], 30 * 32 + 4, 0)
 
     def key(self, always_reset=0, ttype=0, tcount=0, colorspace=0,
-            shifts=(1, 1), scalability=0, pad: int = 64) -> bytes:
+            shifts=(1, 1), scalability=0, mv_scale: int = 4,
+            pad: int = 64) -> bytes:
         r = RacWriter()
         self.header = hs = [128] * 32
         self.block = [128] * (128 + 32 * 128)
@@ -3395,32 +3443,67 @@ class SnowCraft:
                 for o in range(0 if level == 0 else 1, 4):
                     if o != 2:
                         r.symbol(hs, 0, 0, True)
-        for delta in (0, 0, 4, 0, 0):   # type, qlog, mv_scale, qbias, depth
+        # type, qlog, mv_scale, qbias, depth
+        for delta in (0, 0, mv_scale, 0, 0):
             r.symbol(hs, 0, delta, True)
         self._bands(r)
+        self.nodes: dict = {}
         return r.terminate() + b"\0" * pad
 
+    def _blocks(self, r: RacWriter, blocks: list) -> None:
+        """decode_q_branch's syntax at block_max_depth 0, in raster order:
+        ("intra", (y, cb, cr)) codes the colours against the left block's,
+        ("inter", (mx, my)) the vector against pred_mv's median, each in
+        the contexts its left and top neighbours give."""
+        def av_log2(v):
+            return max(v.bit_length() - 1, 0)
+
+        null = {"type": 0, "mx": 0, "my": 0, "color": (128, 128, 128)}
+        bw = -(-self.w // 16)
+        for k, (kind, val) in enumerate(blocks):
+            x, y = k % bw, k // bw
+            left = self.nodes[x - 1, y] if x else null
+            top = self.nodes[x, y - 1] if y else null
+            tl = self.nodes[x - 1, y - 1] if x and y else left
+            tr = self.nodes[x + 1, y - 1] if y and x + 1 < bw else tl
+            pmx, pmy = (sorted((left[c], top[c], top[c] + tr[c] - left[c]))[1]
+                        for c in ("mx", "my"))
+            intra = kind == "intra"
+            r.rac(self.block, 1 + left["type"] + top["type"], int(intra))
+            if intra:
+                for j, at in enumerate((32, 64, 96)[:self.planes]):
+                    r.symbol(self.block, at, val[j] - left["color"][j], True)
+                self.nodes[x, y] = {"type": 1, "mx": pmx, "my": pmy,
+                                    "color": tuple(val)}
+            else:
+                cx = av_log2(2 * abs(left["mx"] - top["mx"]))
+                cy = av_log2(2 * abs(left["my"] - top["my"]))
+                r.symbol(self.block, 128 + 32 * cx, val[0] - pmx, True)
+                r.symbol(self.block, 128 + 32 * cy, val[1] - pmy, True)
+                self.nodes[x, y] = {"type": 0, "mx": val[0], "my": val[1],
+                                    "color": left["color"]}
+
     def inter(self, diag_mc=1, htaps=6, hcoeff=(-10, 2, 0),
-              pad: int = 64) -> bytes:
-        """An inter frame that sends an MC filter (update_mc): diag_mc,
-        htaps and hcoeff[1..htaps/2] (libavcodec's defaults: 1, 6,
-        -10/2/0)."""
+              blocks=None, update_mc: bool = True, pad: int = 64) -> bytes:
+        """An inter frame that sends an MC filter (update_mc, unless
+        ``update_mc`` is false): diag_mc, htaps and hcoeff[1..htaps/2]
+        (libavcodec's defaults: 1, 6, -10/2/0); its blocks as ``_blocks``
+        codes them (inter, zero vectors by default)."""
         r = RacWriter()
         hs = self.header
         r.rac([128] * 32, 0, 0)
-        r.rac(hs, 0, 1)                            # update_mc
-        for _ in range(min(self.planes, 2)):
-            r.rac(hs, 0, diag_mc)
-            r.symbol(hs, 0, htaps // 2 - 1)
-            for i in range(htaps // 2, 0, -1):
-                r.symbol(hs, 0, abs(hcoeff[i - 1]))
+        r.rac(hs, 0, int(update_mc))
+        if update_mc:
+            for _ in range(min(self.planes, 2)):
+                r.rac(hs, 0, diag_mc)
+                r.symbol(hs, 0, htaps // 2 - 1)
+                for i in range(htaps // 2, 0, -1):
+                    r.symbol(hs, 0, abs(hcoeff[i - 1]))
         r.rac(hs, 0, 0)                            # no new decomposition
         for _ in range(5):
             r.symbol(hs, 0, 0, True)
-        for _ in range(-(-self.w // 16) * -(-self.h // 16)):
-            r.rac(self.block, 1, 0)                # an inter block
-            r.symbol(self.block, 128, 0, True)     # mx, my: 0
-            r.symbol(self.block, 128, 0, True)
+        n = -(-self.w // 16) * -(-self.h // 16)
+        self._blocks(r, blocks or [("inter", (0, 0))] * n)
         self._bands(r)
         return r.terminate() + b"\0" * pad
 
@@ -3434,6 +3517,20 @@ def snow_crafted() -> dict:
         return [c.key(**(first or {})),
                 c.inter(**second) if second is not None else c.key(
                     **(first or {}))]
+    def textured(**mc):
+        # intra blocks of random colours, then inter blocks whose vectors
+        # (eighth-pel luma at mv_scale 1) reach every sub-pel position the
+        # filter makes, some past the picture's edges
+        rng = np.random.default_rng(26)
+        c = SnowCraft(64, 48)
+        n = 4 * 3
+        colours = [("intra", tuple(int(v) for v in rng.integers(0, 256, 3)))
+                   for _ in range(n)]
+        moves = [("inter", tuple(int(v) for v in rng.integers(-40, 41, 2)))
+                 for _ in range(n)]
+        return [c.key(mv_scale=1), c.inter(blocks=colours, **mc),
+                c.inter(blocks=moves, update_mc=False)]
+
     return {"default": craft(second={}),
             "always_reset": craft({"always_reset": 1}),
             "temporal_type": craft({"ttype": 1}),
@@ -3443,7 +3540,11 @@ def snow_crafted() -> dict:
             "shifts10": craft({"shifts": (1, 0)}),
             "shifts33": craft({"shifts": (3, 3)}),
             "htaps4": craft(second={"htaps": 4, "hcoeff": (-6, 2)}),
-            "diag_mc0": craft(second={"diag_mc": 0})}
+            "diag_mc0": craft(second={"diag_mc": 0}),
+            "textured_htaps4": textured(htaps=4, hcoeff=(-6, 2)),
+            "textured_htaps6": textured(hcoeff=(-12, 4, -1)),
+            "textured_diag_mc0": textured(diag_mc=0),
+            "textured_default": textured()}
 
 
 def snow_fixtures() -> None:
@@ -3513,7 +3614,8 @@ NUT_SHORT = ("FFV1", "HFYU", "FFVH", "ULY0", "M8Y0", "MPNG", "Y800", "I420")
 def nut_crafted(src: str) -> dict:
     """cv2's own ``.nut`` bytes cut or damaged: {name: bytes}: cut before
     its index packet, its second syncpoint's checksum flipped, its main
-    header's checksum flipped, and its last frame cut in half."""
+    header's checksum flipped, its last frame (an I-VOP) cut in half, and
+    the file cut in half inside the P-VOP before it."""
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.nut import (INDEX, MAIN, SYNCPOINT,
                                               NutFile, _Reader)
@@ -3527,11 +3629,12 @@ def nut_crafted(src: str) -> dict:
         out[end - 1] ^= 0x5A          # the packet's CRC-32
         return bytes(out)
 
-    last = nut.frames_[-1]
+    last, pvop = nut.frames_[-1], nut.frames_[-2]
     return {"noindex": data[:data.rfind(INDEX.to_bytes(8, "big"))],
             "badsyncpoint": flipped(SYNCPOINT, nut.syncpoints[1][0]),
             "badmain": flipped(MAIN, data.find(MAIN.to_bytes(8, "big"))),
-            "truncated": data[:last.offset + last.size // 2]}
+            "truncated": data[:last.offset + last.size // 2],
+            "truncated_pvop": data[:pvop.offset + pvop.size // 2]}
 
 
 def nut_fixtures() -> None:
@@ -3574,7 +3677,9 @@ def dirac_fixtures() -> None:
     depths 1, 2, 3 and 5, 64x64 slices, the flat and colour quantisation
     matrices, a low and a high bit rate, full range, field coding (which
     FFmpeg refuses: cv2 reads no frame), yuv422p, yuv444p (also at 53x37)
-    and yuv420p10 (which the port refuses)."""
+    and yuv420p10 (its samples the 8-bit ones shifted); with every bit of
+    the deeper samples used, yuv420p10, yuv422p10, yuv444p10 (also at
+    53x37) and yuv420p12."""
     def out(name):
         return os.path.join(OUT, name)
     clip = moving_clip(64, 96, 25, seed=70, speed=3.0)
@@ -3587,12 +3692,17 @@ def dirac_fixtures() -> None:
                [im1 if i % 2 == 0 else im2 for i in range(13)], "drac")
     lavc = Lavc()
 
-    def lavc_avi(name, frames, pix="yuv420p", **opts):
+    def lavc_avi(name, frames, pix="yuv420p", fine=False, **opts):
         h, w = frames[0].shape[:2]
-        planes = [lavc_planes(f, pix) for f in frames]
-        if pix.endswith("10"):          # 10-bit samples, from the 8-bit ones
-            planes = [[p.astype(np.uint16) << 2 for p in pl]
-                      for pl in planes]
+        # a deeper format's planes are its 8-bit layout's, scaled up
+        planes = [lavc_planes(f, pix.rstrip("0123456789")) for f in frames]
+        if pix.endswith(("10", "12")):  # deeper samples, from the 8-bit ones
+            shift = int(pix[-2:]) - 8
+            rng = np.random.default_rng(74)
+            # ``fine``: the bits below the 8-bit ones random too
+            planes = [[(p.astype(np.uint16) << shift) + (
+                rng.integers(0, 1 << shift, p.shape, np.uint16) if fine
+                else 0) for p in pl] for pl in planes]
         pk = lavc.encode(planes, "vc2", pix=pix, **opts)
         lossless_avi(out(name), [p for p, _, _ in pk], w, h, "drac")
 
@@ -3617,6 +3727,15 @@ def dirac_fixtures() -> None:
     lavc_avi("dirac_lavc_yuv444p_53x37.avi", moving_clip(37, 53, 4, seed=71,
                                                          speed=5.0),
              pix="yuv444p")
+    # deeper samples with every bit used: 4:2:0, 4:2:2 and 4:4:4 at 10
+    # bits, 4:2:0 at 12, and an odd size (the encoder writes video range
+    # alone above 8 bits)
+    for pix in ("yuv420p10", "yuv422p10", "yuv444p10", "yuv420p12"):
+        lavc_avi(f"dirac_lavc_{pix}_fine_64x48.avi", small, pix=pix,
+                 fine=True)
+    lavc_avi("dirac_lavc_yuv444p10_53x37.avi",
+             moving_clip(37, 53, 4, seed=71, speed=5.0), pix="yuv444p10",
+             fine=True)
 
 
 def sintel_pair() -> list:
@@ -3728,6 +3847,17 @@ def vp8_fixtures() -> None:
                moving_clip(48, 64, 4, seed=4), "I420")
 
 
+# cv2 reads frames of this MPEG-2 file, but swscale refuses each one
+# ("Cannot convert interlaced to progressive frames or vice versa") and
+# cv2 hands over a buffer swscale never wrote: its digests (one for all
+# four frames, another in each process) are not a picture to match, so a
+# regeneration keeps the recorded ones and the port's refusal stands
+INTERLACED = "mpeg2_interlaced.mpg"
+INTERLACED_OUTPUT = ("unconverted: swscale logs 'Cannot convert interlaced "
+                     "to progressive frames or vice versa' for every frame "
+                     "and cv2 returns a buffer it never wrote")
+
+
 def _port_refuses(path: str):
     """What the port raises opening ``path`` (None where it opens it)."""
     sys.path.insert(0, os.path.dirname(HERE))
@@ -3744,7 +3874,7 @@ def write_manifest(keep: bool = False) -> None:
     and adds the new files' alone."""
     import cv2
     manifest = {"opencv": cv2.__version__, "files": {}}
-    old, groups = os.path.join(OUT, "manifest.json"), {}
+    old, groups, files = os.path.join(OUT, "manifest.json"), {}, {}
     if os.path.exists(old):
         with open(old) as f:
             files = json.load(f)["files"]
@@ -3764,6 +3894,10 @@ def write_manifest(keep: bool = False) -> None:
             "group": WRITTEN.get(name, groups.get(name)),
         }
         assert manifest["files"][name]["group"], f"{name}: no group wrote it"
+        if name == INTERLACED:
+            manifest["files"][name]["cv2_output"] = INTERLACED_OUTPUT
+            if name in files:
+                manifest["files"][name]["sha256"] = files[name]["sha256"]
         refused = _port_refuses(path) if name.startswith("ts_") else None
         if refused:
             manifest["files"][name]["port_refuses"] = refused
@@ -3824,6 +3958,11 @@ def write_manifest(keep: bool = False) -> None:
                     with open(path, "rb") as f:
                         for i in range(len(nut.sizes)):
                             nut.sample(f, i)
+                    if nut.is_cut(len(nut.sizes) - 1):
+                        # the port conceals a cut I-VOP, refuses a P-VOP
+                        from opticalflow_tpu_torch.io.video import \
+                            EncodedVideo
+                        list(EncodedVideo(path))
                 except ValueError as e:
                     manifest["files"][name]["port_refuses"] = \
                         str(e).split(": ", 1)[1]

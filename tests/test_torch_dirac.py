@@ -29,7 +29,7 @@ import cv2
 import numpy as np
 import pytest
 
-from make_video_fixtures import Lavf
+from make_video_fixtures import Lavc, Lavf
 from opticalflow_tpu import video as jvideo
 from opticalflow_tpu.cli import capture_frame as jcapture
 from opticalflow_tpu.data import datasets as jdatasets
@@ -57,6 +57,10 @@ READ = [n for n in DIRAC if "port_refuses" not in MANIFEST[n]]
 SINTEL = "dirac_sintel_436x1024.nut"
 FIELDS = "dirac_lavc_interlaced_64x48.avi"
 TEN_BIT = "dirac_lavc_yuv420p10_64x48.avi"
+# 10- and 12-bit samples with every bit used, and at an odd size
+DEEP = [f"dirac_lavc_{p}_fine_64x48.avi" for p in (
+    "yuv420p10", "yuv422p10", "yuv444p10", "yuv420p12")] + [
+    "dirac_lavc_yuv444p10_53x37.avi"]
 CONTAINERS = ("drc", "avi", "mkv", "mov", "mp4", "ts", "nut", "wmv")
 
 
@@ -119,6 +123,7 @@ def test_fixtures_cover_what_cv2_writes_and_reads():
         "depth5", "qm_flat", "qm_color", "b100k", "b50m", "fullrange",
         "interlaced", "yuv422p", "yuv444p", "yuv420p10")}
     need |= {"dirac_lavc_slices64_128x128.avi", "dirac_lavc_yuv444p_53x37.avi"}
+    need |= set(DEEP)
     assert need == set(DIRAC)
     assert MANIFEST[SINTEL]["decoded"] == 13
     assert (MANIFEST[SINTEL]["width"], MANIFEST[SINTEL]["height"]) == (1024,
@@ -421,11 +426,35 @@ def test_what_no_encoder_here_writes_raises_naming_item_8(what, kw):
 
 
 def test_ten_bit_samples_raise_naming_item_8_where_cv2_decodes_them():
+    """10-bit samples, which cv2 decodes and the port once refused, decode
+    into 16-bit planes and convert to cv2's frames: the manifest records
+    no refusal, every frame equals cv2's digest."""
     assert MANIFEST[TEN_BIT]["decoded"] == 4
-    assert "10-bit samples" in MANIFEST[TEN_BIT]["port_refuses"]
+    assert "port_refuses" not in MANIFEST[TEN_BIT]
     assert dirac.sequence_info(_video(TEN_BIT)[1][0]).bit_depth == 10
-    with pytest.raises(Unsupported, match=f"10-bit.*{ITEM_8}"):
-        list(vio.read_frames(_path(TEN_BIT)))
+    dec = dirac.Decoder()
+    planes = dec.decode(_video(TEN_BIT)[1][0])
+    assert dec.bits == 10 and all(p.dtype == np.uint16 for p in planes)
+    assert "10bit" in MANIFEST[TEN_BIT]["dirac_features"]
+    assert [hashlib.sha256(f.tobytes()).hexdigest()
+            for f in vio.read_frames(_path(TEN_BIT))] == \
+        MANIFEST[TEN_BIT]["sha256"]
+
+
+@pytest.mark.parametrize("name", DEEP + [TEN_BIT])
+def test_deep_samples_equal_libavcodecs_planes(name):
+    """Tolerance 0: each 10- or 12-bit picture's planes equal those cv2's
+    bundled libavcodec's dirac decoder hands over (ctypes, ``Lavc.decode``),
+    samples below 1 << bits; the frames then equal cv2's (above)."""
+    _, packets = _video(name)
+    dec = dirac.Decoder()
+    mine = [dec.decode(p) for p in packets]
+    ref = Lavc().decode(packets, "dirac", dec.shifts, np.uint16)
+    assert len(ref) == len(mine) == MANIFEST[name]["decoded"]
+    for got, want in zip(mine, ref):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+            assert int(a.max()) < 1 << dec.bits
 
 
 def test_field_coding_is_refused_as_ffmpeg_refuses_it():

@@ -450,11 +450,6 @@ def test_container_tags_name_mpeg12():
                                     f"mpeg{v}_176x144.mp4")).codec == "mpeg12"
 
 
-def test_program_streams_are_not_written():
-    with pytest.raises(ValueError, match="not MPEG program streams"):
-        vio.AsyncVideoWriter("/nonexistent/out.mpg", 25.0, (64, 48))
-
-
 # ------------------------------------------------------- the JAX package
 
 @pytest.mark.parametrize("name", ["mpeg2_176x144.mpg", "mpeg1_176x144.avi",

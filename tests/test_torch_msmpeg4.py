@@ -379,11 +379,6 @@ def test_keyframes_are_the_i_pictures(name):
     assert keys[0] == 0 and all(b - a == 12 for a, b in zip(keys, keys[1:]))
 
 
-def test_writing_wmv_raises():
-    with pytest.raises(ValueError, match="does not encode"):
-        vio.AsyncVideoWriter("x.wmv", 25.0, (16, 16))
-
-
 def test_reading_needs_no_opencv():
     """The port reads a .wmv and a DIV3 .avi with cv2 never imported."""
     code = ("import sys\n"

@@ -45,7 +45,9 @@ MANIFEST = _MANIFEST["files"]
 NUT = sorted(n for n in MANIFEST if n.endswith(".nut"))
 OPENED = [n for n in NUT if "nut_features" in MANIFEST[n]]
 TRUNCATED = "nut_craft_truncated_96x64.nut"
-READ = [n for n in OPENED if n != TRUNCATED]
+# cut inside a P-VOP: FFmpeg conceals it with the vectors it guessed
+PVOP = "nut_craft_truncated_pvop_96x64.nut"
+READ = [n for n in OPENED if n != PVOP]
 
 
 def _path(name):
@@ -95,7 +97,8 @@ def test_fixtures_cover_every_fourcc_the_port_reads():
              "nut_ntsc_96x64.nut", "dirac_96x64.nut",
              "dirac_sintel_436x1024.nut"}
     need |= {f"nut_craft_{c}_96x64.nut" for c in (
-        "noindex", "badsyncpoint", "badmain", "truncated")}
+        "noindex", "badsyncpoint", "badmain", "truncated",
+        "truncated_pvop")}
     assert need == set(NUT)
     codecs = {NutFile(_path(n)).codec for n in OPENED}
     assert codecs == {"mpeg4", "mjpeg", "mpeg12", "flv1", "msmpeg4v2",
@@ -177,7 +180,7 @@ def test_every_seek_reads_the_frame_cv2_reads(name):
     assert sorted(want["seeks"], key=int) == [
         str(t) for t in range(want["decoded"])]
     for t, hit in want["seeks"].items():
-        if name == TRUNCATED and hit == 24:
+        if name == PVOP and hit == 23:
             with pytest.raises(Unsupported, match=ITEM_8):
                 video.frame(int(t))
             continue
@@ -212,7 +215,8 @@ def test_what_each_fixture_reaches_and_what_none_does():
             "dirac_96x64.nut": {"no_key_frames", "index_without_entries"},
             "nut_craft_noindex_96x64.nut": {"no_index"},
             "nut_craft_badsyncpoint_96x64.nut": {"resync", "index"},
-            TRUNCATED: {"truncated_frame", "no_index"}}
+            TRUNCATED: {"truncated_frame", "no_index"},
+            PVOP: {"truncated_frame", "no_index"}}
     for name, feats in need.items():
         assert feats <= set(MANIFEST[name]["nut_features"]), name
     reached = {f for n in OPENED for f in MANIFEST[n]["nut_features"]}
@@ -253,16 +257,24 @@ def test_a_syncpoint_that_fails_its_checksum_is_resynced_over():
 
 def test_a_frame_cut_short_reads_up_to_it_then_raises_naming_item_8():
     """FFmpeg hands the decoder what is left of the last frame and conceals
-    the rest (cv2 reads 25 frames); the port reads the 24 before it and
-    refuses the cut one."""
-    path = _path(TRUNCATED)
-    want = MANIFEST[TRUNCATED]["sha256"]
+    the rest.  An I-VOP cut in half (its data fails at macroblock 11 of 24,
+    so all 24 are damaged and almost none undamaged: FFmpeg takes them from
+    the picture before, then deblocks their edges by the vectors it copied)
+    reads all 25 frames, equal to cv2's; a P-VOP cut in half (concealed
+    with FFmpeg's vectors of its failed and undecoded macroblocks, not
+    reproduced) reads the 23 before it and raises naming item 8."""
     assert MANIFEST[TRUNCATED]["decoded"] == 25
+    assert "port_refuses" not in MANIFEST[TRUNCATED]
+    assert [_digest(f) for f in vio.read_frames(_path(TRUNCATED))] == \
+        MANIFEST[TRUNCATED]["sha256"]
+    want = MANIFEST[PVOP]["sha256"]
+    assert MANIFEST[PVOP]["decoded"] == 24
+    assert "P-VOP" in MANIFEST[PVOP]["port_refuses"]
     got = []
-    with pytest.raises(Unsupported, match=f"cut short.*{ITEM_8}"):
-        for frame in vio.read_frames(path):
+    with pytest.raises(Unsupported, match=f"P-VOP cut short.*{ITEM_8}"):
+        for frame in vio.read_frames(_path(PVOP)):
             got.append(_digest(frame))
-    assert got == want[:24]
+    assert got == want[:23]
 
 
 def _v(n):
@@ -380,11 +392,6 @@ def test_crc_is_ffmpegs_av_crc_ieee():
     final inversion; from all ones, CRC-32/MPEG-2."""
     assert nutmod.crc(b"123456789") == 0x765E7680 ^ 0xFFFFFFFF
     assert nutmod.crc(b"123456789", 0xFFFFFFFF) == 0x0376E6E7
-
-
-def test_nut_is_read_not_written(tmp_path):
-    with pytest.raises(ValueError, match="reads NUT"):
-        vio.AsyncVideoWriter(str(tmp_path / "out.nut"), 25.0, (64, 48))
 
 
 # ---------------------------------------------------- without OpenCV

@@ -245,36 +245,53 @@ def test_qexp_and_mc_tables():
 
 # what cv2 reads of each crafted stream: FFmpeg ignores the temporal
 # fields and spatial scalability and decodes always_reset and any MC
-# filter; it refuses other colour spaces and chroma shifts
+# filter (the textured streams: intra blocks' colours, then vectors into
+# them through each filter); it refuses other colour spaces and chroma
+# shifts, and so does the port
 CV2_DECODES = {"default": 2, "always_reset": 2, "temporal_type": 2,
                "temporal_count": 2, "scalability": 2, "htaps4": 2,
-               "diag_mc0": 2, "colorspace2": 0, "shifts10": 0, "shifts33": 0}
-REFUSED = {"always_reset": "always_reset",
-           "temporal_type": "temporal decomposition",
-           "temporal_count": "temporal decomposition",
-           "scalability": "spatial_scalability",
-           "colorspace2": "colorspace_type 2", "shifts10": "chroma shifts 1,0",
-           "shifts33": "chroma shifts 3,3",
-           "htaps4": "MC filter other than the default",
-           "diag_mc0": "MC filter other than the default"}
+               "diag_mc0": 2, "colorspace2": 0, "shifts10": 0, "shifts33": 0,
+               "textured_default": 3, "textured_htaps4": 3,
+               "textured_htaps6": 3, "textured_diag_mc0": 3}
+REFUSED = {"colorspace2": "colorspace_type 2",
+           "shifts10": "chroma shifts 1,0", "shifts33": "chroma shifts 3,3"}
+# the header fields and filters each crafted stream reaches
+REACHES = {"always_reset": {"always_reset"},
+           "temporal_type": {"temporal_decomposition"},
+           "temporal_count": {"temporal_decomposition"},
+           "scalability": {"spatial_scalability"},
+           "htaps4": {"mc_filter"}, "diag_mc0": {"mc_filter", "no_diag_mc"},
+           "textured_htaps4": {"mc_filter", "intra_blocks", "mc_block"},
+           "textured_htaps6": {"mc_filter", "intra_blocks", "mc_block"},
+           "textured_diag_mc0": {"mc_filter", "no_diag_mc", "mc_bilinear"},
+           "textured_default": {"intra_blocks", "mc_block"}}
 
 
 @pytest.mark.parametrize("name", CRAFTED)
 def test_crafted_headers_raise_naming_item_8(name):
-    """Each header value libavcodec's encoder never writes raises
-    Unsupported naming item 8, in the stream the fixtures hold and in the
-    packets ``SnowCraft`` writes now; the defaults decode to cv2's grey
-    frames.  The manifest records what cv2 reads of each."""
+    """A colour space or chroma shifts FFmpeg refuses (cv2 reads no frame)
+    raise Unsupported naming item 8, in the stream the fixtures hold and in
+    the packets ``SnowCraft`` writes now.  Every other header value
+    libavcodec's encoder never writes decodes as FFmpeg decodes it: the
+    grey streams to cv2's grey frames, the textured ones (a non-default
+    filter on non-zero vectors) to cv2's digests.  The manifest records
+    what cv2 reads of each and what each reaches."""
     fixture = f"snow_craft_{name}_64x48.avi"
     assert MANIFEST[fixture]["decoded"] == CV2_DECODES[name]
     packets = snow_crafted()[name]
     assert packets == _video(fixture)[1]
     dec = snow.Decoder(64, 48)
-    if name == "default":
+    if name not in REFUSED:
         assert "port_refuses" not in MANIFEST[fixture]
-        for p in packets:
-            y, u, v = dec.decode(p)
-            assert (y == 128).all() and (u == 128).all() and (v == 128).all()
+        frames = [dec.decode(p) for p in packets]
+        if not name.startswith("textured"):
+            for y, u, v in frames:
+                assert (y == 128).all() and (u == 128).all() and \
+                    (v == 128).all()
+        assert REACHES.get(name, set()) <= set(dec.features)
+        assert [hashlib.sha256(f.tobytes()).hexdigest()
+                for f in vio.read_frames(_path(fixture))] == \
+            MANIFEST[fixture]["sha256"]
         return
     assert ITEM_8 in MANIFEST[fixture]["port_refuses"]
     with pytest.raises(Unsupported, match=f"{REFUSED[name]}.*{ITEM_8}"):

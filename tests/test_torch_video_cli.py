@@ -183,10 +183,10 @@ def test_what_is_not_ported_raises(setup, monkeypatch):
                         (ts, "private data.*item 8")):
         with pytest.raises(ValueError, match=match):
             extract_video.main([path] + base[1:])
-    # MPEG-2 in a program stream, once refused, is read; the CLI does not
-    # write one
-    with pytest.raises(ValueError, match="not MPEG program streams"):
-        extract_video.main([setup["clip"], str(setup["tmp"] / "o.mpg")]
+    # MPEG-2 in a program stream, once refused, is read; the CLI writes
+    # MPEG-4 Part 2 where cv2's mp4v writer opens, and refuses the rest
+    with pytest.raises(ValueError, match="mp4v writer does not open"):
+        extract_video.main([setup["clip"], str(setup["tmp"] / "o.mxf")]
                            + base[2:])
     import opticalflow_tpu_torch.video as tvideo
     mjpg, seen = os.path.join(fixtures, "mjpg.avi"), []
