@@ -370,9 +370,9 @@ non-zero, and no result line is printed):
      (``io/mp4.py``, ``io/nut.py``, ``io/asf.py``, ``io/mpegps.py``,
      ``io/mpegts.py`` behind ``AsyncVideoWriter``; ``phase_containers``):
      (a) the fixtures the port once refused and cv2 reads (10- and 12-bit
-     VC-2, an I-VOP cut short in .nut, Snow's header fields and MC
-     filters) decode to their manifest's cv2 digests, fps, size, count and
-     seeks, a P-VOP cut short raises naming item 8; the 13-frame 436x1024
+     VC-2, an I-VOP and a P-VOP cut short in .nut, Snow's header fields
+     and MC filters) decode to their manifest's cv2 digests, fps, size,
+     count and seeks (the cut P-VOP: cv2's 24 frames); the 13-frame 436x1024
      Sintel clip written through ``AsyncVideoWriter`` into each container
      cv2's mp4v writer opens (.mov, .m4v, .3gp, .3g2, .nut, .wmv, .asf,
      .mpg, .mpeg, .vob, .ts, .mts, .m2t, .m2ts) reads back through the
@@ -381,7 +381,25 @@ non-zero, and no result line is printed):
      ``sys.modules``; (b) ``cli/extract_video --mode arrows --batch 4
      --dtype bfloat16`` over that clip into .mov and into .ts: K1 15 each,
      fps and the encode thread's ms a frame beside phase 17's .mp4;
- 31. one JSON line listing every kernel with its launches on its path,
+ 31. JPEG 2000, the tags and raw layouts cv2's writer uses, and P-VOPs cut
+     short (``runtime/jpeg2000.cpp`` and ``runtime/mpeg4.cpp``'s error
+     concealment behind ``io/video.py``; ``phase_jpeg2000``): (a) every
+     fixture of the ``jpeg2000``, ``tag`` and ``cut_vop`` groups (cv2's
+     MJ2C writer in .avi/.mkv/.mov/.mp4/.nut/.wmv at 96x64 and 52x36;
+     libavcodec's jpeg2000 encoder's 5/3, progression orders, tiles,
+     SOP/EPH, layers, codestreams and pixel formats (8-16 bits, alpha,
+     palettes); crafted ICT, RCT, POC/COC/QCC and tile-parts; 3IV2,
+     LJPG, XVID/DIVX/m1v/m2v1 in QuickTime, raw NV12/Y41B/Y8 and yuv4;
+     cut VOPs through guess_mv's search and the spatial path) decodes to
+     its manifest's cv2 digests,
+     fps, size, count and seeks; (b) ``cli/extract_video --mode arrows
+     --batch 4 --dtype bfloat16`` over the 5-frame 436x1024 JPEG 2000 AVI:
+     K1 5; (c) ``cli/train --regime pseudo`` for 3 steps over its packets
+     cycled to 13 frames in AVI: K1 and B1 5 a step; (d) host ms to decode
+     a 436x1024 JPEG 2000 frame (tier 1, the inverse DWT, the output) and
+     to convert it, beside VC-2; (e) no cv2, PIL or jax in
+     ``sys.modules``;
+ 32. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -400,7 +418,9 @@ phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
 phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
 phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths, phase 29's NUT
 and Dirac paths (K1 in the video CLI's runs, K1 and B1 in the pseudo
-steps) and phase 30's writer paths (K1 in the video CLI's runs).
+steps), phase 30's writer paths (K1 in the video CLI's runs) and phase
+31's JPEG 2000 paths (K1 in the video CLI's run, K1 and B1 in the pseudo
+steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -6107,6 +6127,8 @@ DIRAC_FRAMES = 13
 # reads no frame)
 NUT_DIRAC_INVALID = {"nut_craft_badmain_96x64.nut": "main header",
                      "dirac_lavc_interlaced_64x48.avi": "field coding"}
+# a P-VOP cut short (FFmpeg's guess_mv search conceals it)
+PVOP_CUT = "nut_craft_truncated_pvop_96x64.nut"
 
 
 def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
@@ -6151,9 +6173,10 @@ def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
             raise AssertionError(f"{name} was read")
     checked = check_fixtures(new)
     refused = checked["refused"]
-    # a P-VOP cut short: FFmpeg conceals it with the vectors it guesses,
-    # which the port does not reproduce (phase 30 reads the rest)
-    assert refused == ["nut_craft_truncated_pvop_96x64.nut"], refused
+    # a P-VOP cut short reads cv2's 24 frames, the concealed one included
+    assert refused == [], refused
+    assert new[PVOP_CUT]["decoded"] == 24 and "port_refuses" not in \
+        new[PVOP_CUT]
     # a Dirac .nut: cv2's read after every seek finds nothing
     assert checked["seeks_none"] == 25 + DIRAC_FRAMES, checked
     n_frames, n_seeks = checked["frames"], checked["seeks"]
@@ -6290,21 +6313,20 @@ def phase_nut_dirac(sd, tmp, corr_fwd, corr_bwd, card: str):
 
 # ------------------------------------------------------------ phase 30
 
-# the fixtures the port once refused and cv2 reads
+# the fixtures the port once refused and cv2 reads (a P-VOP cut short
+# among them: FFmpeg's guess_mv search conceals it)
 REPAIRED = ["dirac_lavc_yuv420p10_64x48.avi", "nut_craft_truncated_96x64.nut",
             *(f"snow_craft_{n}_64x48.avi" for n in (
                 "always_reset", "temporal_type", "temporal_count",
-                "scalability", "htaps4", "diag_mc0"))]
+                "scalability", "htaps4", "diag_mc0")), PVOP_CUT]
 # the fixtures that hold those repairs further: VC-2 at 10 and 12 bits
-# with every bit used, Snow's MC filters on non-zero vectors, a P-VOP cut
-# short
+# with every bit used, Snow's MC filters on non-zero vectors
 DEEP_AND_TEXTURED = [
     *(f"dirac_lavc_{p}_fine_64x48.avi" for p in (
         "yuv420p10", "yuv422p10", "yuv444p10", "yuv420p12")),
     "dirac_lavc_yuv444p10_53x37.avi",
     *(f"snow_craft_textured_{f}_64x48.avi" for f in (
-        "default", "htaps4", "htaps6", "diag_mc0")),
-    "nut_craft_truncated_pvop_96x64.nut"]
+        "default", "htaps4", "htaps6", "diag_mc0"))]
 # every extension cv2's mp4v writer opens beyond .mp4, .avi and .mkv
 NEW_CONTAINERS = (".mov", ".m4v", ".3gp", ".3g2", ".nut", ".wmv", ".asf",
                   ".mpg", ".mpeg", ".vob", ".ts", ".mts", ".m2t", ".m2ts")
@@ -6314,8 +6336,8 @@ def phase_containers(sd, tmp, corr_fwd, card: str, mp4_rows: dict):
     """The writer's containers and the repaired fixtures on the card machine
     (``AsyncVideoWriter`` into ``io/mp4``, ``io/nut``, ``io/asf``,
     ``io/mpegps`` and ``io/mpegts``): (a) the repaired and new fixtures
-    against cv2's digests and seeks (a P-VOP cut short raises naming item
-    8); the 436x1024 Sintel clip through ``AsyncVideoWriter`` into each
+    against cv2's digests and seeks (a P-VOP cut short reads cv2's 24
+    frames); the 436x1024 Sintel clip through ``AsyncVideoWriter`` into each
     new container, read back by the port's reader to the encoder's
     reconstruction; the encode and each container's mux timed apart (host
     ms a frame, one thread); no cv2, PIL or jax imported; (b) the video
@@ -6325,8 +6347,7 @@ def phase_containers(sd, tmp, corr_fwd, card: str, mp4_rows: dict):
     import numpy as np
     import torch
     from opticalflow_tpu_torch.io import video as vio
-    from opticalflow_tpu_torch.runtime.mpeg4 import (Encoder, Unsupported,
-                                                      i420_to_bgr)
+    from opticalflow_tpu_torch.runtime.mpeg4 import Encoder, i420_to_bgr
     from opticalflow_tpu_torch.io.yuv import i420_planes
 
     t_phase = time.perf_counter()
@@ -6338,21 +6359,17 @@ def phase_containers(sd, tmp, corr_fwd, card: str, mp4_rows: dict):
     fixtures = {n: manifest["files"][n] for n in REPAIRED + DEEP_AND_TEXTURED}
     assert not any("port_refuses" in fixtures[n] for n in REPAIRED)
     checked = check_fixtures(fixtures)
-    assert checked["refused"] == ["nut_craft_truncated_pvop_96x64.nut"], \
-        checked
-    try:
-        list(vio.read_frames(os.path.join(
-            MP4_DIR, "nut_craft_truncated_pvop_96x64.nut")))
-    except Unsupported as e:
-        assert "P-VOP cut short" in str(e) and "item 8" in str(e), str(e)
+    assert checked["refused"] == [], checked
+    assert len(list(vio.read_frames(os.path.join(MP4_DIR, PVOP_CUT)))) == 24
     log(f"[30] (a) {len(fixtures)} fixtures (the {len(REPAIRED)} the port "
-        f"refused and cv2 reads: 10-bit VC-2, an I-VOP cut short in .nut, "
-        f"Snow's always_reset, temporal fields, scalability and MC filters; "
-        f"VC-2 at 10/12 bits 4:2:0/4:2:2/4:4:4, Snow's filters on non-zero "
-        f"vectors) decoded to cv2.VideoCapture's {checked['frames']} frame "
-        f"digests and its fps/size/count, {checked['seeks']} seeks to the "
-        f"frames cv2's read, in {time.perf_counter() - t0:.2f} s; refused: "
-        f"{checked['refused']} (a P-VOP cut short, item 8); {card}")
+        f"refused and cv2 reads: 10-bit VC-2, an I-VOP and a P-VOP cut "
+        f"short in .nut, Snow's always_reset, temporal fields, scalability "
+        f"and MC filters; VC-2 at 10/12 bits 4:2:0/4:2:2/4:4:4, Snow's "
+        f"filters on non-zero vectors) decoded to cv2.VideoCapture's "
+        f"{checked['frames']} frame digests and its fps/size/count, "
+        f"{checked['seeks']} seeks to the frames cv2's read, in "
+        f"{time.perf_counter() - t0:.2f} s; refused: {checked['refused']}; "
+        f"{card}")
 
     # the clip, its reconstruction, and the encode alone
     clip = os.path.join(MP4_DIR, DIRAC_CLIP)
@@ -6448,6 +6465,181 @@ def phase_containers(sd, tmp, corr_fwd, card: str, mp4_rows: dict):
     return {"fixtures": len(fixtures), "frames": checked["frames"],
             "seeks": checked["seeks"], "refused": checked["refused"],
             "encode_ms": encode_ms, "containers": rows, "cli": cli_rows,
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+# ------------------------------------------------------------ phase 31
+
+J2K_CLIP = "j2k_sintel_436x1024.avi"   # cv2's writer (MJ2C), 5 frames
+J2K_FRAMES = 5
+PSEUDO_FRAMES = 13                    # its packets cycled, for 3 steps
+
+
+def phase_jpeg2000(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """JPEG 2000, the tags and raw layouts cv2's writer uses, and P-VOPs cut
+    short, through the port's entry points on the card machine (host C++
+    ``runtime/jpeg2000.cpp`` and ``runtime/mpeg4.cpp``'s error
+    concealment behind ``io/video.py`` and the AVI, Matroska,
+    QuickTime/MP4, NUT and ASF demuxers): (a) every fixture of the
+    ``jpeg2000``, ``tag`` and ``cut_vop`` groups equals cv2's digests, fps,
+    size and count, and each recorded seek reads cv2's frame; the cut
+    P-VOP of phase 29 reads cv2's 24 frames; the decoder's features
+    against the manifest's unreached list; (b) the video CLI over the
+    436x1024 JPEG 2000 AVI, K1 on the card, bf16; (c) the pseudo regime
+    over its packets cycled to 13 frames in AVI, 3 steps (K1 and B1); (d)
+    host ms to decode a 436x1024 JPEG 2000 frame, split into tier 1 (with
+    the dequantisation), the inverse DWT and the output, and swscale's
+    conversion, beside phase 29's VC-2; (e) no cv2, PIL or jax imported.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.avi import AviWriter
+    from opticalflow_tpu_torch.runtime import dirac, jpeg2000
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "jpeg2000", "tag", "cut_vop")
+    groups = {g: sum(w["group"] == g for w in new.values())
+              for g in ("jpeg2000", "tag", "cut_vop")}
+    assert all(groups.values()), groups
+    checked = check_fixtures(new)
+    assert checked["refused"] == [], checked
+    assert len(list(vio.read_frames(os.path.join(MP4_DIR, PVOP_CUT)))) == 24
+    got = {f for n, w in new.items() for f in w.get("jpeg2000_features", [])}
+    unreached = [f for f in jpeg2000.FEATURES if f not in got]
+    assert unreached == manifest["jpeg2000_unreached"], unreached
+    paths = {n: w["mpeg4_concealment"] for n, w in new.items()
+             if "mpeg4_concealment" in w}
+    assert any(c["searched"] for c in paths.values()) and any(
+        c["spatial"] for c in paths.values()), paths
+    log(f"[31] (a) {len(new)} fixtures ({groups['jpeg2000']} JPEG 2000: "
+        f"cv2's writer in .avi/.mkv/.mov/.mp4/.nut/.wmv at 96x64 and 52x36, "
+        f"libavcodec's 5/3, progression orders, tiles, SOP/EPH, layers, "
+        f"codestreams, every layout the encoder writes (8-16 bits, alpha, "
+        f"palettes), crafted ICT, RCT, POC/COC/QCC, tile-parts; "
+        f"{groups['tag']} tags and raw layouts; "
+        f"{groups['cut_vop']} VOPs cut short: guess_mv's search and the "
+        f"spatial path) decoded to cv2.VideoCapture's {checked['frames']} "
+        f"frame digests and its fps/size/count, {checked['seeks']} seeks to "
+        f"the frames cv2's read, in {time.perf_counter() - t0:.2f} s; the cut "
+        f"P-VOP of phase 29 reads 24 frames; JPEG 2000 features "
+        f"{len(jpeg2000.FEATURES) - len(unreached)} of "
+        f"{len(jpeg2000.FEATURES)}; {card}")
+
+    # (b) the video CLI over the 436x1024 JPEG 2000 AVI
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    clip = os.path.join(MP4_DIR, J2K_CLIP)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_j2k.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    J2K_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(J2K_FRAMES - 1) // VIDEO_B) == 1, windows
+    assert launched == 5 * windows, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[31] (b) extract_video --mode arrows B={VIDEO_B} bf16, JPEG 2000 "
+        f".avi ({J2K_FRAMES} frames {FULL_H}x{FULL_W}): {row['fps']!r} fps "
+        f"over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} s); "
+        f"decode thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} window, K1 {launched} "
+        f"launches; {card}")
+
+    # (c) the pseudo regime over the clip's packets cycled to 13 frames
+    video = vio.EncodedVideo(clip)
+    with open(clip, "rb") as f:
+        packets = [video.box.sample(f, i) for i in range(video.samples)]
+    avi = os.path.join(tmp, "j2k_sintel_13.avi")
+    mux = AviWriter(avi, (FULL_W, FULL_H), (25, 1), fourcc="MJ2C")
+    for i in range(PSEUDO_FRAMES):
+        mux.write(packets[i % J2K_FRAMES], True)
+    mux.release()
+    want = manifest["files"][J2K_CLIP]["sha256"]
+    assert [pixel_digest(fr) for fr in vio.read_frames(avi)] == [
+        want[i % J2K_FRAMES] for i in range(PSEUDO_FRAMES)]
+    out_dir = os.path.join(tmp, "j2k_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", avi, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (PSEUDO_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert steps == 3 and [r["step"] for r in recs] == [1, 2, 3], recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[31] (c) cli/train --regime pseudo over the JPEG 2000 packets "
+        f"cycled to {PSEUDO_FRAMES} frames in AVI ({FULL_H}x{FULL_W} -> "
+        f"384x512), {steps} steps at batch {TRAIN_B}: losses "
+        f"{[r['loss'] for r in recs]}; K1/B1 launches {launches['pseudo']} "
+        f"(5 and 5 a step); {wall_t:.2f} s wall; {card}")
+
+    # (d) host ms a 436x1024 frame on one thread: JPEG 2000's decode split
+    # by stage, its conversion (yuv420p, swscale's x86 yuv2rgb), beside
+    # VC-2's
+    dec = jpeg2000.Decoder()
+    dec.decode(packets[0])
+    base = dec.times
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        planes = [dec.decode(p) for p in packets]
+    j2k_ms = (time.perf_counter() - t0) / HOST_TIMED / len(packets) * 1e3
+    stage = [(b - a) / HOST_TIMED / len(packets)
+             for a, b in zip(base, dec.times)]
+    assert dec.layout == "yuv420p", dec.layout
+    assert [pixel_digest(i420_to_bgr(*p)) for p in planes] == want
+    host = {"jpeg2000": {"decode_ms": j2k_ms, "tier1_ms": stage[0],
+                         "dwt_ms": stage[1], "output_ms": stage[2],
+                         "convert_ms": convert_ms(planes),
+                         "bytes_a_frame": sum(map(len, packets))
+                         / len(packets), "frames": len(packets)}}
+    nut = vio.EncodedVideo(os.path.join(MP4_DIR, DIRAC_CLIP))
+    with open(nut.path, "rb") as f:
+        samples = [nut.box.sample(f, i) for i in range(nut.samples)]
+    ms, got = host_decode(dirac.Decoder, samples)
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED):
+        for p in got:
+            i420_to_bgr(*p, matrix="bt709")
+    host["dirac"] = {"decode_ms": ms, "convert_ms": (
+        time.perf_counter() - t0) / HOST_TIMED / len(got) * 1e3,
+        "bytes_a_frame": sum(map(len, samples)) / len(samples),
+        "frames": len(samples)}
+    j = host["jpeg2000"]
+    log(f"[31] (d) host ms a {FULL_H}x{FULL_W} frame on one thread: JPEG "
+        f"2000 decode {j['decode_ms']!r} (tier 1 and dequantisation "
+        f"{j['tier1_ms']!r}, inverse 9/7 DWT {j['dwt_ms']!r}, level shift "
+        f"and output {j['output_ms']!r}) + convert {j['convert_ms']!r} "
+        f"({j['bytes_a_frame']:.0f} bytes a frame); VC-2 "
+        f"{host['dirac']['decode_ms']!r} + {host['dirac']['convert_ms']!r} "
+        f"({host['dirac']['bytes_a_frame']:.0f} bytes a frame); {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[31] (e) cv2, PIL, jax not imported; phase 31 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "groups": groups,
+            "frames": checked["frames"], "seeks": checked["seeks"],
+            "unreached": unreached, "concealment": paths, "cli": row,
+            "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
@@ -6723,6 +6915,16 @@ def main() -> int:
     assert containers_launches == correlation_cuda.launches == 30, \
         containers_launches
     assert correlation_bwd_cuda.launches == 0
+    zero_counts()                # the JPEG 2000 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        j2k = phase_jpeg2000(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                             card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    jpeg2000_launches = j2k["launches"]["cli"] + \
+        j2k["launches"]["pseudo"]["correlation_fwd"]
+    assert jpeg2000_launches == correlation_cuda.launches > 0
+    assert j2k["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -6810,7 +7012,11 @@ def main() -> int:
          "launches_nut_dirac": nut_dirac_launches, "nut_dirac": nd,
          # phase 30: the video CLI over the 436x1024 clip into .mov and .ts
          # (5 a window, 15 a run)
-         "launches_containers": containers_launches, "containers": cont},
+         "launches_containers": containers_launches, "containers": cont,
+         # phase 31: the video CLI over the 436x1024 JPEG 2000 AVI, and the
+         # pseudo steps over its packets cycled in AVI (5 a window, 5 a
+         # step)
+         "launches_jpeg2000": jpeg2000_launches, "jpeg2000": j2k},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -6866,7 +7072,9 @@ def main() -> int:
          "launches_snow": snw["launches"]["pseudo"]["correlation_bwd"],
          # phase 29: the pseudo regime's steps over VC-2 packets in AVI
          "launches_nut_dirac":
-             nd["launches"]["pseudo"]["correlation_bwd"]},
+             nd["launches"]["pseudo"]["correlation_bwd"],
+         # phase 31: the pseudo regime's steps over JPEG 2000 packets
+         "launches_jpeg2000": j2k["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

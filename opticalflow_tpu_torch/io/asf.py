@@ -97,7 +97,7 @@ class AsfFile:
         self.packet_size = self.play_duration = self.preroll = 0
         self.broadcast = False
         self.file_size = 0
-        self.tag, self.dsi = "", b""
+        self.tag, self.dsi, self.bpc = "", b"", 0
         self.width = self.height = 0
         self.data_offset = self.packets = 0
         size = os.path.getsize(path)
@@ -184,6 +184,7 @@ class AsfFile:
         bmp = tsd[11:11 + fmt_len]
         bi_size, self.width, h = struct.unpack("<Iii", bmp[:12])
         self.height = abs(h)
+        self.bpc = struct.unpack("<H", bmp[14:16])[0]     # biBitCount
         self.tag = bmp[16:20].decode("latin1")
         self.dsi = bmp[40:max(bi_size, 40)] if bi_size > 40 else bmp[40:]
 

@@ -9,9 +9,9 @@ flags.  It knows these payloads, by ``biCompression`` as FFmpeg picks the
 codec:
 
   * MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``, ``DX50``, ``mp4v``,
-    ``MP4V``): decoded by ``runtime/mpeg4``;
-  * Motion JPEG (``MJPG``, ``mjpg``): one JPEG a chunk, every frame a
-    keyframe, decoded by ``runtime/jpeg``'s FFmpeg flavour;
+    ``MP4V``, ``3IV2``): decoded by ``runtime/mpeg4``;
+  * Motion JPEG (``MJPG``, ``mjpg``, ``LJPG``): one JPEG a chunk, every
+    frame a keyframe, decoded by ``runtime/jpeg``'s FFmpeg flavour;
   * raw I420 (``I420``, ``IYUV``): Y, U and V planes;
   * VP8 (``VP80``): decoded by ``runtime/vp8``, a key frame a keyframe;
   * MPEG-1 and MPEG-2 (``PIM1``, ``mpg1``, ``mpg2``, ``MPEG``, ...: the
@@ -44,10 +44,13 @@ codec:
   * Dirac/VC-2 (``drac``, in any case: what ``cv2.VideoWriter`` writes for
     it): decoded by ``runtime/dirac``, every picture intra, so every frame
     a keyframe;
-  * raw ``Y800``/``GREY`` (grey), ``YV12`` (I420 with its chroma planes
-    swapped), ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as
-    FFmpeg's rawvideo decoder reads them (codec ``raw``, the layout in
-    ``tag``).
+  * JPEG 2000 (``MJ2C``, ``mjp2``, ``LJ2C``, ``LJ2K``, ``IPJ2``,
+    ``AVj2``, in any case): decoded by ``runtime/jpeg2000``, every frame a
+    keyframe; libavcodec's packed 4:2:0 ``yuv4`` (codec ``yuv4``);
+  * raw ``Y800``/``GREY``/``Y8  `` (grey), ``YV12`` (I420 with its chroma
+    planes swapped), ``NV12`` (interleaved chroma), ``Y41B`` (yuv411p),
+    ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as FFmpeg's
+    rawvideo decoder reads them (codec ``raw``, the layout in ``tag``).
 
 Anything else (``H264``, Matrox's intra-only ``M701``-``M705``,
 ``slif``, ...) raises ``Unsupported``, naming ROADMAP
@@ -78,18 +81,25 @@ from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
 __all__ = ["AviFile", "AviWriter", "ASV_TAGS", "FLV1_TAGS", "H263_TAGS",
            "HUFFYUV_TAGS", "MAGICYUV_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
-           "MSMPEG4_TAGS", "SNOW_TAGS",
+           "MSMPEG4_TAGS", "SNOW_TAGS", "JPEG2000_TAGS", "YUV4_TAGS",
            "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
            "UTVIDEO_TAGS", "VP8_TAGS", "VP9_TAGS", "codec_of"]
 
-MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V"}
-MJPEG_TAGS = {"MJPG", "mjpg", "JPEG", "jpeg"}
+MPEG4_TAGS = {"FMP4", "XVID", "xvid", "DIVX", "divx", "DX50", "mp4v", "MP4V",
+              "3IV2", "3iv2"}
+MJPEG_TAGS = {"MJPG", "mjpg", "JPEG", "jpeg", "LJPG"}
 RAW_TAGS = {"I420", "IYUV"}
 # the other rawvideo layouts cv2's writer names (riff.c's tags, raw.c's
-# pixel formats): grey, I420 with V before U, and RGBA; and BI_RGB (tag 0;
-# 32 bits, BGR0, bottom-up where biHeight is positive; 24 bits refused)
-RAW_LAYOUTS = {"Y800": "gray", "GREY": "gray", "YV12": "yv12",
+# pixel formats): grey, I420 with V before U, NV12 (interleaved chroma),
+# yuv411p and RGBA; and BI_RGB (tag 0; 32 bits, BGR0, bottom-up where
+# biHeight is positive; 24 bits refused)
+RAW_LAYOUTS = {"Y800": "gray", "GREY": "gray", "Y8  ": "gray",
+               "YV12": "yv12", "NV12": "nv12", "Y41B": "yuv411p",
                "RGBA": "rgba", "\0\0\0\0": "dib"}
+# riff.c's tags of jpeg2000 and of yuv4 (libavcodec's packed 4:2:0),
+# matched without regard to case
+JPEG2000_TAGS = {"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}
+YUV4_TAGS = {"YUV4"}
 # riff.c's tags of huffyuv/ffvhuff, utvideo and png, matched without
 # regard to case (Ut Video's decoder takes its own tags in upper case)
 HUFFYUV_TAGS = {"HFYU", "FFVH"}
@@ -300,7 +310,8 @@ def codec_of(tag: str, what: str) -> str:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
     ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
     ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png``,
-    ``snow`` or one of ``MSMPEG4_TAGS``' codecs; anything else raises
+    ``snow``, ``dirac``, ``jpeg2000``, ``yuv4`` or one of
+    ``MSMPEG4_TAGS``' codecs; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
         return "mpeg4"
@@ -338,13 +349,18 @@ def codec_of(tag: str, what: str) -> str:
         return "snow"
     if tag.upper() in DIRAC_TAGS:
         return "dirac"
+    if tag.upper() in JPEG2000_TAGS:
+        return "jpeg2000"
+    if tag.upper() in YUV4_TAGS:
+        return "yuv4"
     name = _NAMES.get(tag.upper(), _NAMES.get(tag, f"the {tag!r} codec"))
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
-                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, Dirac, FFV1, "
-                      f"HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
-                      f"JPEG, raw I420, YV12, Y800 and RGBA, VP8 and VP9 "
-                      f"only ({ITEM_8})")
+                      f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, Dirac, JPEG "
+                      f"2000, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
+                      f"ASUS V1/V2, PNG, Motion JPEG, yuv4, raw I420, YV12, "
+                      f"NV12, Y41B, Y800 and RGBA, VP8 and VP9 only "
+                      f"({ITEM_8})")
 
 
 def _is_ivop(head: bytes) -> bool:

@@ -29,12 +29,15 @@ needed.  The codecs, by ``CodecID``:
   * ``V_DIRAC``: ``runtime/dirac`` (Dirac/VC-2, what ``cv2.VideoWriter``
     writes for ``drac`` into ``.mkv``);
   * ``V_UNCOMPRESSED`` with the FourCC ``I420``: raw planes; ``Y800``,
-    ``GREY``, ``YV12`` and ``RGBA``: ``io/avi``'s ``RAW_LAYOUTS``;
+    ``GREY``, ``Y8  ``, ``YV12``, ``NV12``, ``Y41B`` and ``RGBA``:
+    ``io/avi``'s ``RAW_LAYOUTS``;
   * ``V_MS/VFW/FOURCC``: the BITMAPINFOHEADER in ``CodecPrivate``, read by
     ``io/avi``'s fourcc rules (H.263 under ``H263``, Sorenson H.263 under
     ``FLV1``, HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG,
     MS-MPEG4 v2 and WMV7/8 under ``HFYU``, ``FFVH``, ``UL**``, ``M8Y0``,
-    ``ASV1``/``ASV2``, ``MPNG``, ``MP42``, ``WMV1`` and ``WMV2``, as ``cv2.VideoWriter`` writes them into ``.mkv``), its ``biBitCount`` as
+    ``ASV1``/``ASV2``, ``MPNG``, ``MP42``, ``WMV1`` and ``WMV2``, as ``cv2.VideoWriter`` writes them into ``.mkv``;
+    JPEG 2000 under ``MJ2C``/``mjp2``, Motion JPEG under ``LJPG``,
+    MPEG-4 Part 2 under ``3IV2``, ``yuv4``), its ``biBitCount`` as
     ``bpc``.
 
 Other codecs (H.264, HEVC, AV1, ...), zlib-compressed
@@ -385,8 +388,8 @@ class MkvFile:
             else:
                 raise Unsupported(f"{self.path}: uncompressed video with "
                                   f"FourCC {self.tag!r}: the port reads raw "
-                                  f"I420, YV12, Y800, GREY and RGBA only "
-                                  f"({ITEM_8})")
+                                  f"I420, YV12, NV12, Y41B, Y800, GREY, "
+                                  f"'Y8  ' and RGBA only ({ITEM_8})")
         elif codec == "V_MS/VFW/FOURCC":
             if len(self.dsi) < 40:
                 raise ValueError(f"{self.path}: V_MS/VFW/FOURCC without a "

@@ -28,7 +28,12 @@ MagicYUV, ASUS V1/V2), ``FLV1`` (Sorenson H.263, keyframes from
 extradata in ``glbl``), ``SNOW`` (Snow, keyframes from ``stss``),
 isom.c's ``3IVD`` (MS-MPEG4 v3, the entry cv2's mov muxer falls back to
 for ``DIV3``) and ``drac`` (Dirac/VC-2, every picture intra, what it
-writes for ``drac`` into ``.mp4`` and ``.mov``).  Other codecs' sample entries
+writes for ``drac`` into ``.mp4`` and ``.mov``); ``mjp2`` and riff.c's
+``MJ2C`` (JPEG 2000, every picture intra; in ``.mp4`` the ``mp4v`` entry
+with objectTypeIndication 0x6E), ``yuv4`` (libavcodec's packed 4:2:0),
+isom.c's ``3IV2``, ``XVID`` and ``DIVX`` (MPEG-4 Part 2, the VOL in
+``glbl``), ``m1v `` and ``m2v1`` (MPEG-1/2, what it falls back to for
+``mpg1``, ``PIM1``, ``MPEG``, ``mpg2`` and ``PIM2``).  Other codecs' sample entries
 (``avc1``, ``hev1``, ...) raise ``Unsupported``, naming ROADMAP Queue 1
 item 8.
 
@@ -52,6 +57,7 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import (ASV_TAGS, DIRAC_TAGS, FLV1_TAGS,
+                                          JPEG2000_TAGS,
                                           HUFFYUV_TAGS, MAGICYUV_TAGS,
                                           MSMPEG4_TAGS, SNOW_TAGS,
                                           UTVIDEO_TAGS)
@@ -72,10 +78,12 @@ H263_ENTRIES = ("s263", "h263", "H263")
 # objectTypeIndication: MPEG-4 Visual, Motion JPEG, PNG, MPEG-1 Visual and
 # the MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
 _OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6D: "png", 0x6A: "mpeg12",
+               0x6E: "jpeg2000",
                **{oti: "mpeg12" for oti in range(0x60, 0x66)}}
 # QuickTime sample entries of intra-only codecs: the entry → the codec
 # (the AVI fourccs the mov demuxer looks up in riff.c's table too)
 _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
+                  "mjp2": "jpeg2000", "yuv4": "yuv4",
                   **{t: "huffyuv" for t in HUFFYUV_TAGS},
                   **{t: "utvideo" for t in UTVIDEO_TAGS},
                   **{t: "magicyuv" for t in MAGICYUV_TAGS},
@@ -85,7 +93,13 @@ _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
 # where cv2's mov muxer falls back to it
 _RIFF_ENTRIES = {**{t: "flv1" for t in FLV1_TAGS}, **MSMPEG4_TAGS,
                  **{t: "snow" for t in SNOW_TAGS}, "3IVD": "msmpeg4v3",
-                 **{t: "dirac" for t in DIRAC_TAGS}}
+                 **{t: "dirac" for t in DIRAC_TAGS},
+                 **{t: "jpeg2000" for t in JPEG2000_TAGS}}
+# isom.c's entries of MPEG-4 Part 2 (besides mp4v: what cv2's mov muxer
+# writes for 3IV2, XVID and DIVX, the VOL in a glbl box) and of MPEG-1/2
+# (what it falls back to for mpg1, PIM1, MPEG, mpg2 and PIM2)
+_ISOM_ENTRIES = {"3IV2": "mpeg4", "XVID": "mpeg4", "DIVX": "mpeg4",
+                 "m1v ": "mpeg12", "m2v1": "mpeg12"}
 
 
 def _boxes(f: BinaryIO, start: int, end: int, what: str):
@@ -159,7 +173,8 @@ def _esds(body: bytes, what: str) -> Tuple[str, bytes]:
         raise Unsupported(f"{what}: mp4v track of objectTypeIndication "
                           f"0x{oti:02x}: the port decodes MPEG-4 Part 2 "
                           f"(0x20), MPEG-2 (0x60-0x65), MPEG-1 (0x6a), "
-                          f"Motion JPEG (0x6c) and PNG (0x6d) only "
+                          f"Motion JPEG (0x6c), PNG (0x6d) and JPEG 2000 "
+                          f"(0x6e) only "
                           f"({ITEM_8})")
     p += 13
     if p < dend:
@@ -307,6 +322,7 @@ class Mp4File:
         self.tag = fourcc
         if (fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES
                 and fourcc not in _INTRA_ENTRIES
+                and fourcc not in _ISOM_ENTRIES
                 and fourcc.upper() not in _RIFF_ENTRIES):
             name = VIDEO_CODECS.get(fourcc, f"the {fourcc!r} codec")
             raise Unsupported(f"{self.path}: {name} video (sample entry "
@@ -315,14 +331,16 @@ class Mp4File:
                               f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
                               f"FLV1 (Sorenson H.263), jpeg, png, RGBA, HFYU, "
                               f"FFVH, UL**, M8** (MagicYUV), ASV1/ASV2, MP42, "
-                              f"DIV3/3IVD, WMV1/WMV2, SNOW and drac (Dirac) "
-                              f"only "
+                              f"DIV3/3IVD, WMV1/WMV2, SNOW, drac (Dirac), "
+                              f"mjp2/MJ2C (JPEG 2000), yuv4, 3IV2/XVID/DIVX "
+                              f"(MPEG-4 Part 2) and m1v /m2v1 (MPEG-1/2) only "
                               f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.bpc = struct.unpack(">H", entry[74:76])[0]
         self.codec = ("vp9" if fourcc == "vp09" else
                       "ffv1" if fourcc == "FFV1" else
                       "h263" if fourcc in H263_ENTRIES else
+                      _ISOM_ENTRIES.get(fourcc) or
                       _RIFF_ENTRIES.get(fourcc.upper()) or
                       _INTRA_ENTRIES.get(fourcc, "mpeg4"))
         self.dsi = b""

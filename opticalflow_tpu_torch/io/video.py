@@ -70,6 +70,20 @@ muxers and codecs and reads what those read, frame for frame:
     it).  Core-syntax and low-delay pictures, the other wavelets and
     samples above 8 bits raise naming item 8; field coding, which FFmpeg
     refuses, raises ``ValueError``;
+  * **JPEG 2000** (``MJ2C``/``mjp2`` in AVI, Matroska, NUT and ASF, the
+    ``mjp2`` entry in QuickTime, ``mp4v`` with objectTypeIndication 0x6E
+    in MP4: what ``cv2.VideoWriter`` writes for fourcc ``MJ2C`` through
+    libavcodec's ``jpeg2000`` encoder), decoded by ``runtime/jpeg2000``
+    bit-exactly to FFmpeg: JP2 files or codestreams, tiles, tile-parts,
+    the five progression orders, layers, SOP/EPH, the 9/7 and 5/3
+    wavelets, every layout libavcodec's encoder writes (RGB, grey and YUV
+    at 8 to 16 bits, with alpha, palettes; converted as swscale converts
+    each), every frame a key frame.  Image offsets, ROI shifts, packed
+    headers and HTJ2K raise naming item 8; **yuv4** (libavcodec's packed
+    4:2:0, ``yuv4`` in AVI, Matroska, NUT, ASF and QuickTime) and raw
+    ``NV12`` (through swscale's
+    scaler, as its interleaved chroma goes), ``Y41B`` (yuv411p) and
+    ``Y8  `` (grey) in AVI, Matroska, NUT and ASF;
   * **NUT** (``.nut``; ``io/nut``, read, not written), FFmpeg's own
     container, with every codec above that ``cv2.VideoWriter`` writes into
     it, at cv2's fps, its count (one short of the frames where the last
@@ -180,6 +194,8 @@ from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
 from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
+from opticalflow_tpu_torch.runtime.jpeg2000 import Decoder as J2kDecoder
+from opticalflow_tpu_torch.runtime.jpeg2000 import probe as j2k_size
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
 from opticalflow_tpu_torch.runtime.magicyuv import Decoder as MagicyuvDecoder
@@ -211,11 +227,13 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv, .webm or .nut file "
            "(MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 "
-           "v2/v3, WMV7/8, Snow, Dirac/VC-2, VP8, VP9, FFV1, HuffYUV, "
-           "FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG or Motion JPEG; raw "
-           "I420, YV12, Y800 and RGBA in .avi and .mkv, I420 in .nut), an "
+           "v2/v3, WMV7/8, Snow, Dirac/VC-2, JPEG 2000, VP8, VP9, FFV1, "
+           "HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
+           "JPEG or yuv4; raw I420, YV12, NV12, Y41B, Y800 and RGBA in .avi, "
+           ".mkv and .nut), an "
            ".flv file (Sorenson H.263), a .wmv or .asf file (MS-MPEG4 v2/v3, "
-           "WMV7/8, Snow, Dirac), an MPEG program stream (.mpg, .mpeg, .vob) "
+           "WMV7/8, Snow, Dirac, JPEG 2000 and the AVI fourccs above), an "
+           "MPEG program stream (.mpg, .mpeg, .vob) "
            "or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2, "
            "MPEG-4 Part 2 or Dirac), an elementary stream (.m1v, .m2v, .mpv, "
            ".h263, .263, .drc), a .y4m "
@@ -493,6 +511,13 @@ class EncodedVideo:
                 raise ValueError(f"{path}: the first Dirac packet has no "
                                  "sequence header")
             self.width, self.height = info.width, info.height
+        elif box.codec == "jpeg2000":
+            with open(path, "rb") as f:
+                size = j2k_size(box.sample(f, 0), path)
+            if size is None:
+                raise ValueError(f"{path}: the first JPEG 2000 packet has no "
+                                 "SIZ marker")
+            self.width, self.height = size
         elif box.codec == "magicyuv":
             with open(path, "rb") as f:
                 size = magy_size(box.sample(f, 0))
@@ -526,6 +551,12 @@ class EncodedVideo:
         self.matrix = "bt601"
         self.shifts, self.alpha = (1, 1), False     # 4:2:0, no alpha plane
         self.bits = 8
+        # swscale's scaler even where its unscaled yuv2rgb would take the
+        # layout (NV12's interleaved chroma)
+        layout = RAW_LAYOUTS.get(box.tag) if box.codec == "raw" else None
+        self.scaler = layout == "nv12"
+        if layout == "yuv411p":
+            self.shifts = (2, 0)
         self.threads = ffmpeg_threads()
         self._gen = None
         self._next = 0      # a capture just opened reads frame 0 unsought
@@ -756,6 +787,8 @@ class EncodedVideo:
             return SnowDecoder(self.width, self.height, what=self.path)
         if self.box.codec == "dirac":
             return DiracDecoder(what=self.path)
+        if self.box.codec == "jpeg2000":
+            return J2kDecoder(what=self.path)
         if self.box.codec == "asv":
             return AsvDecoder(self.width, self.height, self.box.tag,
                               self.box.dsi, what=self.path)
@@ -772,15 +805,28 @@ class EncodedVideo:
 
     def _raw(self, data: bytes):
         """One raw frame as FFmpeg's rawvideo decoder lays it out: I420
-        (and YV12, V before U) as its three planes; grey (``Y800``,
-        ``GREY``) as its plane, its rows 4-byte aligned where the packet
-        holds that many (cv2 writes I420-sized packets under ``Y800``);
-        RGBA, and AVI's 32-bit ``BI_RGB`` (BGR0, bottom-up where the
-        height is positive), as packed BGR."""
+        (and YV12, V before U; NV12, its chroma interleaved; Y41B, yuv411p)
+        as its three planes; grey (``Y800``, ``GREY``, ``Y8  ``) as its
+        plane, its rows 4-byte aligned where the packet holds that many
+        (cv2 writes I420-sized packets under ``Y800``); RGBA, and AVI's
+        32-bit ``BI_RGB`` (BGR0, bottom-up where the height is positive),
+        as packed BGR; a ``yuv4`` packet (yuv4dec.c: U, V and the four Y
+        of each 2x2 block, chroma stored ``^ 0x80``) as yuv420p planes."""
         w, h = self.width, self.height
+        a = np.frombuffer(data, np.uint8)
+        if self.box.codec == "yuv4":
+            cw, ch = (w + 1) // 2, (h + 1) // 2
+            if len(a) < 6 * cw * ch:
+                raise ValueError(f"{self.path}: a yuv4 packet of {len(a)} "
+                                 f"bytes, {w}x{h} needs {6 * cw * ch}")
+            blocks = a[:6 * cw * ch].reshape(ch, cw, 6)
+            y = np.empty((2 * ch, 2 * cw), np.uint8)
+            y[0::2, 0::2], y[0::2, 1::2] = blocks[..., 2], blocks[..., 3]
+            y[1::2, 0::2], y[1::2, 1::2] = blocks[..., 4], blocks[..., 5]
+            return (np.ascontiguousarray(y[:h, :w]), blocks[..., 0] ^ 0x80,
+                    blocks[..., 1] ^ 0x80)
         layout = ("i420" if self.box.codec == "i420"
                   else RAW_LAYOUTS[self.box.tag])
-        a = np.frombuffer(data, np.uint8)
         if layout == "dib":
             # BI_RGB at 32 bits (BGR0); OpenCV 5.0 aborts on the 24-bit kind
             if self.box.bpc != 32:
@@ -792,17 +838,24 @@ class EncodedVideo:
             need = w * h
         elif layout == "rgba":
             need = 4 * w * h
+        elif layout == "yuv411p":
+            cw, ch = (w + 3) // 4, h
+            need = w * h + 2 * cw * ch
         else:
             cw, ch = (w + 1) // 2, (h + 1) // 2
             need = w * h + 2 * cw * ch
         if len(a) < need:
             raise ValueError(f"{self.path}: a raw {self.box.tag} frame of "
                              f"{len(a)} bytes, {w}x{h} needs {need}")
-        if layout in ("i420", "yv12"):
+        if layout == "nv12":
+            y = a[:w * h].reshape(h, w)
+            uv = a[w * h:w * h + 2 * cw * ch].reshape(ch, cw, 2)
+            return y, uv[..., 0], uv[..., 1]
+        if layout in ("i420", "yv12", "yuv411p"):
             y = a[:w * h].reshape(h, w)
             c1 = a[w * h:w * h + cw * ch].reshape(ch, cw)
             c2 = a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
-            return (y, c1, c2) if layout == "i420" else (y, c2, c1)
+            return (y, c2, c1) if layout == "yv12" else (y, c1, c2)
         if layout == "gray":
             return (np.lib.stride_tricks.as_strided(a, (h, w), (line, 1)),)
         if layout == "rgba":
@@ -833,7 +886,7 @@ class EncodedVideo:
             j -= 1
         k = restart if restart is not None else self.keyframes[j]
         with open(self.path, "rb") as f:
-            if self.box.codec in ("i420", "raw"):
+            if self.box.codec in ("i420", "raw", "yuv4"):
                 for i in range(start, self.samples):
                     yield i, self._raw(self.box.sample(f, i))
                 return
@@ -926,15 +979,20 @@ class EncodedVideo:
                     # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
                     # swscale)
                     yield i, p
-                elif p[0].dtype == np.uint16:   # 10 or 12 bits (Dirac)
+                elif len(p) == 1:   # grey, replicated (16 bits rounded)
+                    g = p[0]
+                    if g.dtype == np.uint16:
+                        g = np.minimum((g.astype(np.uint32) + 128) >> 8,
+                                       255).astype(np.uint8)
+                    yield i, np.repeat(g[..., None], 3, axis=2)
+                elif p[0].dtype == np.uint16:   # 9-16 bits (Dirac, JPEG 2000)
                     yield i, yuv16_to_bgr(*p, self.bits, self.shifts,
                                           self.full_range, self.matrix,
                                           self.chroma)
-                elif len(p) == 1:               # grey, replicated
-                    yield i, np.repeat(p[0][..., None], 3, axis=2)
-                elif self.shifts != (1, 1) or self.alpha:
+                elif self.shifts != (1, 1) or self.alpha or self.scaler:
                     yield i, yuv_to_bgr(*p, self.shifts, self.full_range,
-                                        self.matrix, self.chroma, self.alpha)
+                                        self.matrix, self.chroma, self.alpha,
+                                        self.scaler)
                 else:
                     yield i, i420_to_bgr(*p, self.full_range, self.chroma,
                                          self.matrix, size)

@@ -377,10 +377,21 @@ class Decoder {
     // each 8x8 block's vector (this VOP's and the last's), each
     // macroblock's intra flag
     int error_mb = -1;
+    bool slice_ended = false;   // error_mb is the first missing one, not a failed one
+    // the last concealment: its VOP type, error_mb, slice_ended, the
+    // macroblocks that kept their vectors, whether guess_mv searched, and
+    // whether the damaged macroblocks were taken as intra
+    int64_t concealed[6] = {0, -1, 0, 0, 0, 0};
     std::vector<int> packets;
     std::vector<int16_t> mv8, last_mv8;
-    std::vector<uint8_t> intra;
+    std::vector<uint8_t> intra, skipped;
     bool have_last_mv8 = false;
+    // what FFmpeg's context holds when a macroblock fails, which
+    // ff_h263_update_motion_val writes for it: s->mb_intra and s->mv[0][0]
+    // (both carry over from the macroblocks before), whether its mv_type
+    // became 8x8 and how many of its four vectors were read
+    bool er_intra = false, er_mv4 = false;
+    int er_mv[2] = {0, 0}, er_mv4_read = 0;
 
     void set_vol(const Vol& v) {
         bool same = vol.valid && v.width == vol.width && v.height == vol.height;
@@ -394,6 +405,7 @@ class Decoder {
             mv8.assign((size_t)v.mb_num * 8, 0);
             last_mv8.assign((size_t)v.mb_num * 8, 0);
             intra.assign((size_t)v.mb_num, 0);
+            skipped.assign((size_t)v.mb_num, 0);
         }
     }
 
@@ -446,17 +458,22 @@ class Decoder {
 
     int decode_vop() {
         if (!cut) return decode_vop_data();
-        // a cut VOP whose header fails is dropped, as FFmpeg drops it
+        // a cut VOP whose header or first macroblock fails is dropped, as
+        // FFmpeg drops it; one cut right after its start code FFmpeg reads
+        // from its padding (and hands over the picture before again),
+        // which the port does not follow
         try {
             return decode_vop_data();
         } catch (const Failure& f) {
             if (f.kind != kCorrupt || error_mb >= 0) throw;
+            if (!br.size) UNSUPPORTED("error concealment of a VOP cut right after its start code");
             return OM4_NO_FRAME;
         }
     }
 
     int decode_vop_data() {
         error_mb = -1;
+        slice_ended = false;
         int type = (int)br.get(2);
         if (type == 2) UNSUPPORTED("B-VOPs (Advanced Simple Profile)");
         if (type == 3) UNSUPPORTED("S-VOPs (sprites / global motion compensation)");
@@ -504,15 +521,20 @@ class Decoder {
         int64_t bits = br.pos;
         static const uint16_t prefix[8] = {0x7f00, 0x7e00, 0x7c00, 0x7800,
                                            0x7000, 0x6000, 0x4000, 0x0000};
-        int result = 0;   // also at the VOP's closing stuffing
-        if (bits + 8 < br.size && v == prefix[bits & 7]) {
+        int result = 0;
+        if (bits + 8 >= br.size) {
+            // the data's last byte: its stuffing, or (where the container
+            // cut the VOP) the end of what is there, ends the slice
+            if (((v >> 8) | (0x7f >> (7 - (bits & 7)))) == 0x7f) result = vol.mb_num;
+        } else if (v == prefix[bits & 7]) {
             br.skip(1);
             br.align();
             int len = 0;
             while (len < 32 && !br.get1()) len++;
             int mb_bits = bits_for(vol.mb_num);
             int mb = (int)br.get(mb_bits);
-            if (len >= prefix_len()) result = (!mb || mb > vol.mb_num) ? -1 : mb;
+            if (len >= prefix_len())
+                result = (!mb || mb > vol.mb_num || br.pos + 6 > br.size) ? -1 : mb;
         }
         br.pos = bits;   // the stuffing is consumed either way
         return result;
@@ -559,6 +581,7 @@ class Decoder {
                     decode_mb(mb, x, y);
                 } catch (const Failure& f) {
                     if (f.kind != kCorrupt) throw;
+                    if (!mbn) throw;   // no picture (decode_vop)
                     error_mb = mbn;
                     return;
                 }
@@ -566,10 +589,20 @@ class Decoder {
                 decode_mb(mb, x, y);
             }
             intra[mbn] = mb.intra;
+            skipped[mbn] = mb.skip;
             reconstruct(mb, x, y);
             mbn++;
             if (mbn < vol.mb_num) {
                 int next = is_resync();
+                if (next == vol.mb_num || (cut && next < 0)) {
+                    // FFmpeg's slice ends here (SLICE_END: the data's last
+                    // byte reads as stuffing, or a cut VOP's padding as a
+                    // bad packet header) and no packet header follows: the
+                    // macroblocks from here on are missing
+                    error_mb = mbn;
+                    slice_ended = true;
+                    return;
+                }
                 if (next < 0) CORRUPT("bad video packet header");
                 if (next > 0) {
                     if (next != mbn) CORRUPT("video packet at macroblock %d after %d", next, mbn);
@@ -588,10 +621,14 @@ class Decoder {
     void decode_mb(MbData& mb, int x, int y) {
         const Tables& t = tables();
         mb.skip = mb.intra = mb.ac_pred = mb.mv4 = false;
+        er_mv4 = false;
+        er_mv4_read = 0;
         int cbpc, dquant;
         if (pict_type == 2) {
             while (true) {
                 if (br.get1()) {   // not_coded
+                    er_intra = false;
+                    er_mv[0] = er_mv[1] = 0;
                     mb.skip = true;
                     mb.q = qscale;
                     mb.cbp = 0;
@@ -607,9 +644,12 @@ class Decoder {
             }
             dquant = cbpc & 8;
             mb.intra = (cbpc & 4) != 0;
+            er_intra = mb.intra;
             if (!mb.intra) {
-                int cbpy = br.vlc(t.cbpy) ^ 0xf;
-                mb.cbp = (cbpc & 3) | (cbpy << 2);
+                // FFmpeg does not check this code: an invalid one reads as
+                // -1, whose cbp codes no luma block
+                int cbpy = br.vlc_or_invalid(t.cbpy) ^ 0xf;
+                mb.cbp = (cbpc & 3) | (cbpy * 4);
                 if (dquant) set_q(qscale + kDquant[br.get(2)]);
                 mb.q = qscale;
                 if (!(cbpc & 16)) {
@@ -617,9 +657,11 @@ class Decoder {
                     pred.pred_mv(0, x, y, &px, &py);
                     mb.mv[0][0] = read_mv(px);
                     mb.mv[0][1] = read_mv(py);
+                    er_mv[0] = mb.mv[0][0];
+                    er_mv[1] = mb.mv[0][1];
                     pred.set_mv16(x, y, mb.mv[0][0], mb.mv[0][1]);
                 } else {
-                    mb.mv4 = true;
+                    mb.mv4 = er_mv4 = true;
                     for (int n = 0; n < 4; n++) {
                         int px, py;
                         pred.pred_mv(n, x, y, &px, &py);
@@ -628,6 +670,11 @@ class Decoder {
                         int16_t* m = pred.mv_at(n, x, y);
                         m[0] = (int16_t)mb.mv[n][0];
                         m[1] = (int16_t)mb.mv[n][1];
+                        if (!n) {
+                            er_mv[0] = mb.mv[0][0];
+                            er_mv[1] = mb.mv[0][1];
+                        }
+                        er_mv4_read = n + 1;
                     }
                 }
                 pred.qs[(size_t)y * vol.mb_w + x] = (uint8_t)qscale;
@@ -642,7 +689,7 @@ class Decoder {
                 cbpc = br.vlc(t.intra_mcbpc);
             } while (cbpc == 8);
             dquant = cbpc & 4;
-            mb.intra = true;
+            mb.intra = er_intra = true;
         }
         // intra
         mb.ac_pred = br.get1();
@@ -856,8 +903,11 @@ class Decoder {
            kMbError = kAcError | kDcError | kMvError, kMbEnd = kAcEnd | kDcEnd | kMvEnd, kVpStart = 1 };
 
     // each 8x8 block's vector in this VOP (update_motion_val's): the
-    // decoded macroblocks', zero in intra and skipped ones and from the
-    // failed macroblock on (FFmpeg's tables start zeroed)
+    // decoded macroblocks', zero in intra and skipped ones; the failed
+    // macroblock's what ff_h263_update_motion_val writes from the context
+    // its decoding left (an 8x8 macroblock's vectors as far as they were
+    // read, else s->mv[0][0] unless s->mb_intra); zero after it (FFmpeg's
+    // tables start zeroed)
     void keep_vectors() {
         std::fill(mv8.begin(), mv8.end(), 0);
         const int last = error_mb < 0 ? vol.mb_num : error_mb;
@@ -870,13 +920,23 @@ class Decoder {
                 o[1] = intra[m] || pict_type == 1 ? 0 : v[1];
             }
         }
+        if (error_mb < 0 || slice_ended) return;
+        const int x = error_mb % vol.mb_w, y = error_mb / vol.mb_w;
+        for (int n = 0; n < 4; n++) {
+            int16_t* o = &mv8[blk8(x * 2 + (n & 1), y * 2 + (n >> 1)) * 2];
+            if (er_mv4) {
+                const int16_t* v = pred.mv_at(n, x, y);
+                o[0] = n < er_mv4_read ? v[0] : 0;
+                o[1] = n < er_mv4_read ? v[1] : 0;
+            } else {
+                o[0] = er_intra ? 0 : (int16_t)er_mv[0];
+                o[1] = er_intra ? 0 : (int16_t)er_mv[1];
+            }
+        }
     }
     size_t blk8(int bx, int by) const { return (size_t)by * 2 * vol.mb_w + bx; }
 
     void conceal() {
-        if (pict_type != 1)
-            UNSUPPORTED("error concealment of a P-VOP cut short (FFmpeg's vectors of its failed and "
-                        "undecoded macroblocks)");
         const int mw = vol.mb_w, mh = vol.mb_h, num = vol.mb_num;
         // ff_er_frame_start and ff_er_add_slice: each packet decoded whole
         // ends (its last macroblock ER_MB_END), the failed one's error at
@@ -885,9 +945,13 @@ class Decoder {
         for (size_t k = 0; k < packets.size(); k++) {
             const int start = packets[k];
             const bool last = k + 1 == packets.size();
-            const int end = last ? error_mb : packets[k + 1] - 1;
+            // a packet ends at its last macroblock (ER_MB_END), the last one
+            // at the macroblock that failed (ER_MB_ERROR) or, where its slice
+            // ended early, at the one before the missing ones
+            const bool failed = last && !slice_ended;
+            const int end = !last ? packets[k + 1] - 1 : failed ? error_mb : error_mb - 1;
             for (int m = start; m < end; m++) st[m] = 0;
-            st[end] = last ? kMbError : kMbEnd;
+            st[end] = failed ? kMbError : kMbEnd;
             st[start] |= kVpStart;
         }
         // overlapping slices
@@ -901,13 +965,13 @@ class Decoder {
                 if (e & kVpStart) end_ok = false;
             }
         }
-        // backward: the 50 macroblocks before an error share it (an I-VOP
-        // skips none, which would not count)
+        // backward: the 50 macroblocks before an error share it (a
+        // skipped macroblock does not count)
         for (int type = 1; type <= 3; type++) {
             int distance = 9999999;
             for (int m = num - 1; m >= 0; m--) {
                 const int e = st[m];
-                distance++;
+                if (!(m < error_mb && skipped[m])) distance++;
                 if (e & (1 << type)) distance = 0;
                 if (distance < 50) st[m] |= 1 << type;
                 if (e & kVpStart) distance = 9999999;
@@ -928,7 +992,11 @@ class Decoder {
         // a reference picture only
         std::vector<uint8_t> is_intra((size_t)num);
         for (int m = 0; m < num; m++) is_intra[m] = m < error_mb && intra[m];
-        const bool intra_likely = intra_more_likely(st);
+        const bool intra_likely = intra_more_likely(st, is_intra);
+        concealed[0] = pict_type;
+        concealed[1] = error_mb;
+        concealed[2] = slice_ended;
+        concealed[5] = intra_likely;
         for (int m = 0; m < num; m++)
             if ((st[m] & kDcError) && (st[m] & kMvError)) is_intra[m] = intra_likely;
         if (!have_ref)
@@ -980,10 +1048,12 @@ class Decoder {
         }
     }
 
-    // is_intra_more_likely for an I-VOP: the undamaged macroblocks' SAD
+    // is_intra_more_likely: over the undamaged macroblocks (every
+    // ``skip_amount``-th, the last row left out), in an I-VOP their SAD
     // against the last picture beside the last picture's against itself a
-    // row of macroblocks down
-    bool intra_more_likely(const std::vector<uint8_t>& st) const {
+    // row of macroblocks down, in a P-VOP their intra count less their
+    // inter count
+    bool intra_more_likely(const std::vector<uint8_t>& st, const std::vector<uint8_t>& is_intra) const {
         if (!have_ref) return true;   // no previous picture: spatial
         const int num = vol.mb_num;
         int undamaged = 0;
@@ -998,6 +1068,10 @@ class Decoder {
                 if ((st[m] & kDcError) && (st[m] & kMvError)) continue;
                 j++;
                 if (j % skip_amount) continue;
+                if (pict_type == 2) {
+                    score += is_intra[m] ? 1 : -1;
+                    continue;
+                }
                 const Plane &c = cur.p[0], &l = ref.p[0];
                 for (int r = 0; r < 16; r++)
                     for (int k = 0; k < 16; k++) {
@@ -1009,32 +1083,175 @@ class Decoder {
     }
 
     // guess_mv: the last picture's vector into each damaged inter
-    // macroblock's first block, then each such macroblock predicted from
-    // the last picture with a zero vector, as FFmpeg does where few
-    // macroblocks keep their vectors; its full search is not reproduced
+    // macroblock's first block; where few macroblocks keep their vectors
+    // (no more than half the longer side's count), each damaged inter
+    // macroblock predicted from the last picture with a zero vector; else
+    // FFmpeg's search, outwards from the macroblocks that keep theirs:
+    // each candidate (the neighbours' vectors, their mean and median, zero,
+    // the last vector) rendered and scored by the steps at the borders it
+    // shares with settled neighbours, the best kept, for up to 10 passes a
+    // ring while any vector changes
+    enum { kMvFrozen = 8, kMvChanged = 4, kMvUnchanged = 2, kMvListed = 1 };
+
+    void render16(int x, int y, int mx, int my) {
+        MbData mb;
+        mb.mv[0][0] = mx;
+        mb.mv[0][1] = my;
+        motion(mb, x, y, cur.p[0].at(x * 16, y * 16), cur.p[1].at(x * 8, y * 8), cur.p[2].at(x * 8, y * 8));
+    }
+
     void guess_vectors(const std::vector<uint8_t>& st, const std::vector<uint8_t>& is_intra) {
-        const int num = vol.mb_num;
+        const int mw = vol.mb_w, mh = vol.mb_h, num = vol.mb_num;
+        std::vector<uint8_t> fixed((size_t)num);
         int avail = 0;
         for (int m = 0; m < num; m++) {
-            const bool frozen = is_intra[m] || !(st[m] & kMvError);
-            if (frozen) {
+            int f = 0;
+            if (is_intra[m] || !(st[m] & kMvError)) f = kMvFrozen;
+            fixed[m] = (uint8_t)f;
+            if (f == kMvFrozen) {
                 avail++;
             } else if (have_ref && have_last_mv8) {
-                const int x = m % vol.mb_w, y = m / vol.mb_w;
+                const int x = m % mw, y = m / mw;
                 const size_t b = blk8(2 * x, 2 * y) * 2;
                 mv8[b] = last_mv8[b];
                 mv8[b + 1] = last_mv8[b + 1];
             }
         }
-        if (avail > std::max(vol.mb_w, vol.mb_h) / 2)
-            UNSUPPORTED("error concealment that guesses motion vectors (a cut VOP that keeps %d "
-                        "macroblocks' vectors)", avail);
-        for (int m = 0; m < num; m++) {
-            if (is_intra[m] || !(st[m] & kMvError)) continue;
-            const int x = m % vol.mb_w, y = m / vol.mb_w;
-            for (int r = 0; r < 16; r++) memcpy(cur.p[0].at(x * 16, y * 16 + r), ref.p[0].at(x * 16, y * 16 + r), 16);
-            for (int pi = 1; pi < 3; pi++)
-                for (int r = 0; r < 8; r++) memcpy(cur.p[pi].at(x * 8, y * 8 + r), ref.p[pi].at(x * 8, y * 8 + r), 8);
+        concealed[3] = avail;
+        concealed[4] = avail > std::max(mw, mh) / 2;
+        if (!concealed[4]) {
+            for (int m = 0; m < num; m++) {
+                if (is_intra[m] || !(st[m] & kMvError)) continue;
+                render16(m % mw, m / mw, 0, 0);
+            }
+            return;
+        }
+        std::vector<std::pair<int, int>> list, next;
+        auto add = [&](std::vector<std::pair<int, int>>& l, int x, int y) {
+            uint8_t& f = fixed[(size_t)y * mw + x];
+            if (f) return;
+            f = kMvListed;
+            l.emplace_back(x, y);
+        };
+        // a settled macroblock's unsettled neighbours: left, up, right, down
+        auto neighbours = [&](std::vector<std::pair<int, int>>& l, int x, int y) {
+            if (x) add(l, x - 1, y);
+            if (y) add(l, x, y - 1);
+            if (x + 1 < mw) add(l, x + 1, y);
+            if (y + 1 < mh) add(l, x, y + 1);
+        };
+        for (int y = 0; y < mh; y++)
+            for (int x = 0; x < mw; x++)
+                if (fixed[(size_t)y * mw + x] == kMvFrozen) neighbours(list, x, y);
+        const Plane& lp = cur.p[0];
+        const int ls = lp.w;
+        for (;;) {
+            bool none_left = true;
+            int changed = 1;
+            for (int pass = 0; (changed || pass < 2) && pass < 10; pass++) {
+                changed = 0;
+                for (const auto& xy : list) {
+                    const int x = xy.first, y = xy.second, m = y * mw + x;
+                    if ((x ^ y ^ pass) & 1) continue;
+                    int j = 0;
+                    if (x > 0) j |= fixed[m - 1];
+                    if (x + 1 < mw) j |= fixed[m + 1];
+                    if (y > 0) j |= fixed[m - mw];
+                    if (y + 1 < mh) j |= fixed[m + mw];
+                    if (!(j & kMvChanged) && pass > 1) continue;
+                    none_left = false;
+                    int pv[8][2], pc = 0;
+                    auto take = [&](int bx, int by) {
+                        const size_t b = blk8(bx, by) * 2;
+                        pv[pc][0] = mv8[b];
+                        pv[pc][1] = mv8[b + 1];
+                        pc++;
+                    };
+                    if (x > 0 && fixed[m - 1] > 1) take(2 * x - 2, 2 * y);
+                    if (x + 1 < mw && fixed[m + 1] > 1) take(2 * x + 2, 2 * y);
+                    if (y > 0 && fixed[m - mw] > 1) take(2 * x, 2 * y - 2);
+                    if (y + 1 < mh && fixed[m + mw] > 1) take(2 * x, 2 * y + 2);
+                    if (pc == 0) continue;
+                    if (pc > 1) {
+                        int sum_x = 0, sum_y = 0;
+                        for (int k = 0; k < pc; k++) {
+                            sum_x += pv[k][0];
+                            sum_y += pv[k][1];
+                        }
+                        pv[pc][0] = sum_x / pc;   // the mean
+                        pv[pc][1] = sum_y / pc;
+                        int min_x, min_y, max_x, max_y;
+                        if (pc >= 3) {
+                            min_x = min_y = 99999;
+                            max_x = max_y = -99999;
+                        } else {
+                            min_x = min_y = max_x = max_y = 0;
+                        }
+                        for (int k = 0; k < pc; k++) {
+                            max_x = std::max(max_x, pv[k][0]);
+                            max_y = std::max(max_y, pv[k][1]);
+                            min_x = std::min(min_x, pv[k][0]);
+                            min_y = std::min(min_y, pv[k][1]);
+                        }
+                        pv[pc + 1][0] = sum_x - max_x - min_x;   // the median
+                        pv[pc + 1][1] = sum_y - max_y - min_y;
+                        if (pc == 4) {
+                            pv[pc + 1][0] /= 2;
+                            pv[pc + 1][1] /= 2;
+                        }
+                        pc += 2;
+                    }
+                    pv[pc][0] = pv[pc][1] = 0;   // zero
+                    pc++;
+                    const size_t b0 = blk8(2 * x, 2 * y) * 2;
+                    const int prev_x = mv8[b0], prev_y = mv8[b0 + 1];
+                    pv[pc][0] = prev_x;   // the last vector
+                    pv[pc][1] = prev_y;
+                    pc++;
+                    int best = 0, best_score = 256 * 256 * 256 * 64;
+                    const uint8_t* src = lp.at(x * 16, y * 16);
+                    for (int k = 0; k < pc; k++) {
+                        mv8[b0] = (int16_t)pv[k][0];
+                        mv8[b0 + 1] = (int16_t)pv[k][1];
+                        render16(x, y, pv[k][0], pv[k][1]);
+                        int score = 0;
+                        if (x > 0 && fixed[m - 1] > 1)
+                            for (int r = 0; r < 16; r++) score += std::abs(src[r * ls - 1] - src[r * ls]);
+                        if (x + 1 < mw && fixed[m + 1] > 1)
+                            for (int r = 0; r < 16; r++) score += std::abs(src[r * ls + 15] - src[r * ls + 16]);
+                        if (y > 0 && fixed[m - mw] > 1)
+                            for (int c = 0; c < 16; c++) score += std::abs(src[c - ls] - src[c]);
+                        if (y + 1 < mh && fixed[m + mw] > 1)
+                            for (int c = 0; c < 16; c++) score += std::abs(src[c + ls * 15] - src[c + ls * 16]);
+                        if (score <= best_score) {   // <= favours the last vector
+                            best_score = score;
+                            best = k;
+                        }
+                    }
+                    for (int n = 0; n < 4; n++) {
+                        const size_t b = blk8(2 * x + (n & 1), 2 * y + (n >> 1)) * 2;
+                        mv8[b] = (int16_t)pv[best][0];
+                        mv8[b + 1] = (int16_t)pv[best][1];
+                    }
+                    render16(x, y, pv[best][0], pv[best][1]);
+                    if (pv[best][0] != prev_x || pv[best][1] != prev_y) {
+                        fixed[m] = kMvChanged;
+                        changed++;
+                    } else {
+                        fixed[m] = kMvUnchanged;
+                    }
+                }
+            }
+            if (none_left) return;
+            next.clear();
+            for (const auto& xy : list) {
+                const int x = xy.first, y = xy.second, m = y * mw + x;
+                if (fixed[m] & (kMvChanged | kMvUnchanged | kMvFrozen)) {
+                    fixed[m] = kMvFrozen;
+                    neighbours(next, x, y);
+                }
+            }
+            std::swap(list, next);
         }
     }
 
@@ -1921,6 +2138,14 @@ int om4_dec_decode(void* h, const uint8_t* data, int64_t n, int64_t* wh,
         put_msg(msg, cap, f.msg);
         return f.kind;
     }
+}
+
+// the last concealment (Decoder::concealed): VOP type (1 I, 2 P; 0 none
+// yet), the macroblock that failed or the first missing one, whether the
+// slice ended before it, the macroblocks that kept their vectors, whether
+// guess_mv searched, whether the damaged ones were taken as intra
+void om4_dec_concealment(void* h, int64_t* out) {
+    for (int i = 0; i < 6; i++) out[i] = ((Decoder*)h)->concealed[i];
 }
 
 void om4_dec_output(void* h, uint8_t* y, uint8_t* u, uint8_t* v) {

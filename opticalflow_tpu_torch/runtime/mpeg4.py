@@ -68,6 +68,7 @@ def load() -> ctypes.CDLL:
                                               ctypes.c_char_p, _I64,
                                               ctypes.c_int]),
             "om4_dec_output": (None, [_P, _P, _P, _P]),
+            "om4_dec_concealment": (None, [_P, _I64P]),
             "om4_yuv420_scale_to_bgr": (ctypes.c_int, [_P, _P, _P]
                                         + [ctypes.c_int] * 10 + [_P]),
             "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
@@ -148,9 +149,10 @@ class Decoder:
         or None for a sample that yields no picture (a not-coded VOP, or
         headers alone), as FFmpeg hands them over.  ``cut``: the container
         cut the sample short (the end of the file fell inside it); its VOP
-        is decoded up to the first macroblock that fails and the rest
-        concealed as FFmpeg's error resilience conceals it (a damaged
-        region taken from the last picture, or from its DCs, deblocked)."""
+        is decoded up to the first macroblock that fails (or where the data
+        ends its slice) and the rest concealed as FFmpeg's error resilience
+        conceals it (:attr:`concealment`: a damaged region taken from the
+        last picture with guessed vectors, or from its DCs, deblocked)."""
         wh = (_I64 * 2)()
         msg = ctypes.create_string_buffer(_MSG)
         sample = bytes(sample)
@@ -168,6 +170,24 @@ class Decoder:
         v = np.empty((ch, cw), np.uint8)
         self._lib.om4_dec_output(self._h, _ptr(y), _ptr(u), _ptr(v))
         return y, u, v
+
+    @property
+    def concealment(self) -> Optional[dict]:
+        """The last VOP FFmpeg's error resilience concealed (None before
+        one): its ``type`` ("I" or "P"), the macroblock whose data failed or
+        the first one missing after its slice ended (``slice_ended``),
+        the macroblocks that kept their vectors (``kept``), whether
+        guess_mv searched for the damaged ones' vectors (``searched``: more
+        than half the longer side's count kept theirs) and whether they
+        were taken as intra (``spatial``: is_intra_more_likely)."""
+        out = (_I64 * 6)()
+        self._lib.om4_dec_concealment(self._h, out)
+        kind, mb, ended, kept, searched, spatial = (int(v) for v in out)
+        if not kind:
+            return None
+        return {"type": "IP"[kind - 1], "macroblock": mb,
+                "slice_ended": bool(ended), "kept": kept,
+                "searched": bool(searched), "spatial": bool(spatial)}
 
 
 # FFmpeg's chroma locations as swscale sites (x, y) in 1/256 of a luma
@@ -221,13 +241,13 @@ def yuv16_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, bits: int,
                  shifts: Tuple[int, int], full_range: bool = False,
                  matrix: str = "bt601",
                  chroma: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """(H, W) Y and subsampled U, V planes of 10- or 12-bit samples
-    (uint16, as FFmpeg's yuv4xxp10/12 hold them) → (H, W, 3) BGR as
+    """(H, W) Y and subsampled U, V planes of 9- to 16-bit samples
+    (uint16, as FFmpeg's yuv4xxp9-16 hold them) → (H, W, 3) BGR as
     swscale converts them for ``cv2.VideoCapture``: always its bicubic
     scaler (no unscaled path takes them), each row read at 15 bits by
     hScale16To15, then what :func:`yuv_to_bgr` does for 8-bit planes."""
-    if bits not in (10, 12):
-        raise ValueError(f"{bits}-bit samples (10 or 12)")
+    if not 9 <= bits <= 16:
+        raise ValueError(f"{bits}-bit samples (9 to 16)")
     h, w = y.shape
     hs, vs = shifts
     ys, us, vs_ = (np.ascontiguousarray(p, np.uint16) for p in (y, u, v))
@@ -247,7 +267,7 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                shifts: Tuple[int, int], full_range: bool = False,
                matrix: str = "bt601",
                chroma: Optional[Tuple[int, int]] = None,
-               alpha: bool = False) -> np.ndarray:
+               alpha: bool = False, scaler: bool = False) -> np.ndarray:
     """(H, W) Y and (⌈H >> vshift⌉, ⌈W >> hshift⌉) U, V uint8 planes, the
     chroma subsampled by ``shifts`` (hshift, vshift: 4:4:4 (0, 0), 4:2:2
     (1, 0), 4:2:0 (1, 1), 4:1:1 (2, 0), 4:4:0 (0, 1), 4:1:0 (2, 2)), →
@@ -257,7 +277,9 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     and range the decoder reports and ``chroma``'s site as in
     :func:`i420_to_bgr`.  ``alpha``: the planes come from a format with
     an alpha plane (dropped), which swscale's unscaled yuv2rgb takes only at
-    4:2:0 (yuva422p goes through its scaler)."""
+    4:2:0 (yuva422p goes through its scaler); ``scaler``: through the
+    scaler whatever the layout (what swscale does with NV12's interleaved
+    chroma)."""
     h, w = y.shape
     hs, vs = shifts
     ys, us, vs_ = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
@@ -270,7 +292,8 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     load().om4_yuv_to_bgr(_ptr(ys), _ptr(us), _ptr(vs_), w, h, w, want[1],
                           hs, vs, int(full_range), hpos, vpos,
                           MATRICES.index(matrix),
-                          int(alpha and shifts != (1, 1)), _ptr(out))
+                          int(scaler or (alpha and shifts != (1, 1))),
+                          _ptr(out))
     return out
 
 

@@ -141,6 +141,15 @@ struct BitReader {
         pos += v.len[i];
         return s;
     }
+    // get_vlc2 unchecked, as FFmpeg reads some codes: -1 for an invalid
+    // code, which consumes no bits
+    int vlc_or_invalid(const Vlc& v) {
+        if (pos >= size && !zeros_past_end) CORRUPT("invalid VLC at bit %lld", (long long)pos);
+        int i = (int)show(v.bits);
+        int s = v.sym[i];
+        if (s >= 0) pos += v.len[i];
+        return s;
+    }
     void align() { pos = (pos + 7) & ~(int64_t)7; }
     void marker(const char* what) {
         if (!get1()) CORRUPT("missing marker bit %s", what);

@@ -168,6 +168,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import struct
 import sys
 
@@ -3738,6 +3739,294 @@ def dirac_fixtures() -> None:
              fine=True)
 
 
+def _nut_cut(src: str, dst: str, frac: float) -> None:
+    """``src``'s bytes cut ``frac`` of the way into its last frame."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.nut import NutFile
+    with open(src, "rb") as f:
+        data = f.read()
+    last = NutFile(src).frames_[-1]
+    with open(dst, "wb") as f:
+        f.write(data[:last.offset + int(last.size * frac)])
+
+
+def mpeg4_concealment(path: str) -> dict:
+    """The port's MPEG-4 decoder's account of the cut last frame of a
+    ``.nut`` (``runtime/mpeg4.Decoder.concealment``)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.nut import NutFile
+    from opticalflow_tpu_torch.runtime.mpeg4 import Decoder
+    nut = NutFile(path)
+    dec = Decoder(nut.dsi, tag=nut.tag)
+    with open(path, "rb") as f:
+        for i in range(len(nut.sizes)):
+            dec.decode(nut.sample(f, i), cut=nut.is_cut(i))
+    return dec.concealment
+
+
+def cut_vop_fixtures() -> None:
+    """MPEG-4 VOPs cut short, which FFmpeg's error resilience conceals:
+    cv2's mp4v writer over 15 frames of the moving clip at 176x144 in
+    ``.nut`` (I-VOPs at 0 and 12: a syncpoint before the cut, which sets
+    cv2's count), its last P-VOP cut at 35% (the data ends its slice
+    early: the rest missing, guess_mv searches from the macroblocks kept)
+    and at 80% (a macroblock fails: its vector is what its decoding left,
+    guess_mv searches); libavcodec's mpeg4 (I-VOPs every 4) over 6 frames
+    of it and a picture of flat 16x16 blocks (its macroblocks coded
+    intra), muxed by the port's NUT writer and cut at 85% (the damaged
+    macroblocks taken as intra: guess_dc's spatial concealment); and an
+    I-VOP (cv2's writer, 13 frames) cut at 85% with enough macroblocks
+    undamaged that is_intra_more_likely weighs their SAD against the
+    picture before: the clip going on (temporal) and a cut to the flat
+    picture there (spatial).  Each file's ``mpeg4_concealment`` in the
+    manifest is what the port did."""
+    def out(name):
+        return os.path.join(OUT, name)
+    src = os.path.join(OUT, "cut_vop_source.nut")
+    _cv2_write(src, moving_clip(144, 176, 15, seed=90, speed=2.5), "mp4v")
+    _nut_cut(src, out("pvop_ended_176x144.nut"), 0.35)
+    _nut_cut(src, out("pvop_search_176x144.nut"), 0.8)
+    clip = moving_clip(144, 176, 6, seed=90, speed=2.5)
+    rng = np.random.default_rng(5)
+    flat = np.kron(rng.integers(0, 256, (9, 11, 3)),
+                   np.ones((16, 16, 1))).astype(np.uint8)
+    pk = Lavc().encode([bgr_i420(f) for f in clip + [flat]], "mpeg4",
+                       pix="yuv420p", sc_threshold=1000000000, bf=0, g=4)
+    vop = pk[0][0].find(b"\x00\x00\x01\xb6")
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.nut import NutWriter
+    wr = NutWriter(src, (176, 144), (25, 1), pk[0][0][:vop])
+    for i, (data, _, _) in enumerate(pk):
+        wr.write(data[vop:] if i == 0 else data, i % 4 == 0)
+    wr.release()
+    _nut_cut(src, out("pvop_spatial_176x144.nut"), 0.85)
+    clip = moving_clip(144, 176, 13, seed=90, speed=2.5)
+    for name, frames in (("temporal", clip), ("spatial", clip[:12] + [flat])):
+        _cv2_write(src, frames, "mp4v")
+        _nut_cut(src, out(f"ivop_sad_{name}_176x144.nut"), 0.85)
+    os.remove(src)
+
+
+def j2k_segments(cs: bytes) -> tuple:
+    """A JPEG 2000 codestream's main header: ([marker segment, ...] after
+    SOC, each with its marker and length, up to the first SOT; the rest
+    from that SOT on)."""
+    assert cs[:2] == b"\xff\x4f", "not a codestream"
+    pos, segs = 2, []
+    while cs[pos:pos + 2] != b"\xff\x90":
+        n = int.from_bytes(cs[pos + 2:pos + 4], "big")
+        segs.append(cs[pos:pos + 2 + n])
+        pos += 2 + n
+    return segs, cs[pos:]
+
+
+def j2k_with(cs: bytes, mct=None, poc: bool = False, coc: bool = False,
+             qcc: bool = False) -> bytes:
+    """A codestream with its main header rewritten: COD's multiple
+    component transform byte set to ``mct``; a POC marker naming the
+    progression COD names over every layer, level and component (the
+    same packet order); a COC for component 0 and a QCC for component 1
+    repeating COD's and QCD's parameters (the same decoding)."""
+    segs, rest = j2k_segments(cs)
+    out = []
+    for seg in segs:
+        if seg[:2] == b"\xff\x52":
+            cod = bytearray(seg)
+            if mct is not None:
+                cod[8] = mct
+            out.append(bytes(cod))
+            siz = next(x for x in segs if x[:2] == b"\xff\x51")
+            ncomp = int.from_bytes(siz[38:40], "big")
+            if poc:
+                body = bytes([0, 0]) + cod[6:8] + bytes([cod[9] + 1, ncomp,
+                                                         cod[5]])
+                out.append(b"\xff\x5f" + (2 + len(body)).to_bytes(2, "big")
+                           + body)
+            if coc:
+                body = bytes([0, cod[4] & 1]) + bytes(cod[9:])
+                out.append(b"\xff\x53" + (2 + len(body)).to_bytes(2, "big")
+                           + body)
+        elif seg[:2] == b"\xff\x5c" and qcc:
+            out.append(seg)
+            body = bytes([1]) + seg[4:]
+            out.append(b"\xff\x5d" + (2 + len(body)).to_bytes(2, "big")
+                       + body)
+        else:
+            out.append(seg)
+    return b"\xff\x4f" + b"".join(out) + rest
+
+
+def j2k_tile_parts(cs: bytes) -> bytes:
+    """A codestream whose every tile (its packets led by SOP markers) is
+    split into two tile-parts at a packet in its middle, the first parts
+    of all tiles before the second ones, as Part 1 allows."""
+    segs, rest = j2k_segments(cs)
+    tiles = []
+    while rest[:2] == b"\xff\x90":
+        isot = int.from_bytes(rest[4:6], "big")
+        psot = int.from_bytes(rest[6:10], "big")
+        body = rest[14:psot]            # after SOT and SOD
+        assert rest[12:14] == b"\xff\x93"
+        sops = [i for i in range(len(body) - 3)
+                if body[i:i + 4] == b"\xff\x91\x00\x04"]
+        cut = sops[len(sops) // 2]
+        tiles.append((isot, body[:cut], body[cut:]))
+        rest = rest[psot:]
+
+    def part(isot, k, data):
+        return (b"\xff\x90\x00\x0a" + isot.to_bytes(2, "big")
+                + (14 + len(data)).to_bytes(4, "big") + bytes([k, 2])
+                + b"\xff\x93" + data)
+    parts = [part(i, 0, a) for i, a, _ in tiles]
+    parts += [part(i, 1, b) for i, _, b in tiles]
+    return b"\xff\x4f" + b"".join(segs) + b"".join(parts) + rest
+
+
+def jpeg2000_fixtures() -> None:
+    """JPEG 2000 (fourcc ``MJ2C``: libavcodec's ``jpeg2000`` encoder, a
+    JP2 file a frame) as cv2 writes and reads it: 12 frames of the moving
+    clip at 96x64 and 6 at 53x37 in .avi, .mkv, .mov, .mp4, .nut and
+    .wmv, and 5 frames of the Sintel pair at 436x1024 in .avi, which the
+    card run reads.  From ``Lavc.encode_intra`` (4 frames at 96x64, muxed
+    by ``lossless_avi`` under ``MJ2C``): the reversible 5/3, every
+    progression order (with 32x32 tiles and two quality layers), tiles
+    smaller than the picture (also at 53x37), SOP and EPH markers (each
+    frame from a fresh encoder: the encoder's later frames with SOP are
+    damaged), quality layers, bare codestreams (``format=j2k``; 4:4:4 then
+    reads as RGB), and rgb24, yuv444p, yuv422p, yuv410p, yuv411p, yuv440p,
+    gray, rgba and yuva420p/422p/444p (4:4:4 with alpha also as a bare
+    codestream: rgba); above 8 bits, with grey's alpha and palettes,
+    ``jpeg2000_deep``'s. Crafted from codestreams: the ICT and the RCT (COD's transform byte
+    set over 4:4:4), a POC marker, COC and QCC markers, and tiles split
+    into tile-parts."""
+    def out(name):
+        return os.path.join(OUT, name)
+    clip = moving_clip(64, 96, 12, seed=80, speed=3.0)
+    odd = moving_clip(37, 53, 6, seed=81, speed=5.0)
+    for ext in ("avi", "mkv", "mov", "mp4", "nut", "wmv"):
+        _cv2_write(out(f"j2k_96x64.{ext}"), clip, "MJ2C")
+        _cv2_write(out(f"j2k_53x37.{ext}"), odd, "MJ2C")
+    im1, im2 = sintel_pair()
+    _cv2_write(out("j2k_sintel_436x1024.avi"), [im1, im2] * 2 + [im1],
+               "MJ2C")
+    lavc = Lavc()
+    small = clip[:4]
+
+    def lavc_avi(name, frames, pix="yuv420p", fresh=False, craft=None,
+                 **opts):
+        h, w = frames[0].shape[:2]
+        if fresh:
+            pk = [lavc.encode_intra([f], "jpeg2000", pix, **opts)[1][0][0]
+                  for f in frames]
+        else:
+            pk = [p for p, _ in lavc.encode_intra(frames, "jpeg2000", pix,
+                                                   **opts)[1]]
+        if craft is not None:
+            pk = [craft(p) for p in pk]
+        lossless_avi(out(name), pk, w, h, "MJ2C")
+
+    lavc_avi("j2k_lavc_dwt53_96x64.avi", small, pred="dwt53")
+    for prog in ("rlcp", "rpcl", "pcrl", "cprl"):
+        lavc_avi(f"j2k_lavc_{prog}_96x64.avi", small, prog=prog,
+                 tile_width=32, tile_height=32, layer_rates="30,10")
+    lavc_avi("j2k_lavc_tiles_96x64.avi", small, tile_width=32,
+             tile_height=16)
+    lavc_avi("j2k_lavc_tiles53_53x37.avi", odd[:4], pred="dwt53",
+             tile_width=16, tile_height=16)
+    lavc_avi("j2k_lavc_sop_eph_96x64.avi", small, fresh=True, sop=1, eph=1)
+    lavc_avi("j2k_lavc_layers_96x64.avi", small, layer_rates="40,20,5")
+    lavc_avi("j2k_lavc_codestream_96x64.avi", small, format="j2k")
+    for pix in ("rgb24", "yuv444p", "yuv422p", "yuv410p", "yuv411p",
+                "yuv440p", "gray", "rgba", "yuva420p", "yuva422p",
+                "yuva444p"):
+        lavc_avi(f"j2k_lavc_{pix}_96x64.avi", small, pix=pix)
+    lavc_avi("j2k_lavc_yuva444p_j2k_96x64.avi", small, pix="yuva444p",
+             format="j2k")
+    lavc_avi("j2k_lavc_gray53_96x64.avi", small, pix="gray", pred="dwt53")
+    lavc_avi("j2k_lavc_444j2k_53x37.avi", odd[:4], pix="yuv444p",
+             format="j2k")
+    lavc_avi("j2k_craft_ict_96x64.avi", small, pix="yuv444p", format="j2k",
+             craft=lambda p: j2k_with(p, mct=1))
+    lavc_avi("j2k_craft_rct_96x64.avi", small, pix="yuv444p", format="j2k",
+             pred="dwt53", craft=lambda p: j2k_with(p, mct=1))
+    lavc_avi("j2k_craft_poc_coc_qcc_96x64.avi", small, format="j2k",
+             layer_rates="30,10", prog="rlcp",
+             craft=lambda p: j2k_with(p, poc=True, coc=True, qcc=True))
+    lavc_avi("j2k_craft_tile_parts_96x64.avi", small, format="j2k",
+             fresh=True, sop=1, tile_width=48, tile_height=64,
+             craft=j2k_tile_parts)
+    jpeg2000_deep(lavc, small)
+
+
+# the layouts of jpeg2000_deep: (libavcodec's pixel format, the wrapper);
+# 4:4:4 as a bare codestream reads as rgb48 at 10 bits, as rgba with alpha
+J2K_DEEP = (("yuv420p9", "jp2"), ("yuv420p10", "jp2"), ("yuv422p10", "jp2"),
+            ("yuv444p12", "jp2"), ("yuv420p14", "jp2"), ("yuv420p16", "jp2"),
+            ("yuv444p10", "j2k"), ("gray12", "jp2"), ("gray16", "jp2"),
+            ("rgb48", "jp2"), ("yuva420p10", "jp2"), ("ya8", "jp2"),
+            ("ya16", "jp2"), ("rgba64", "jp2"), ("pal8", "jp2"))
+
+
+def jpeg2000_deep(lavc: "Lavc", frames: list) -> None:
+    """JPEG 2000 in the layouts ``lavc_planes`` does not make (group
+    jpeg2000): ``frames``' planes at each of ``J2K_DEEP``'s depths with
+    every bit used (the 8-bit samples shifted up, the bits below them
+    seeded noise; alpha from the red channel), grey with alpha, and 16
+    colours of a seeded palette, through libavcodec's encoder
+    (``Lavc.encode``), muxed by ``lossless_avi`` under ``MJ2C``."""
+    rng = np.random.default_rng(83)
+    h, w = frames[0].shape[:2]
+    for pix, wrap in J2K_DEEP:
+        base, bits = re.match(r"(yuva?4\d\dp|gray|rgba?|ya|pal)(\d+)",
+                              pix).groups()
+        bits = {"rgb": 16, "rgba": 16, "pal": 8}.get(base, int(bits))
+        planes = []
+        for f in frames:
+            if base == "pal":       # 16 indices, 256 seeded colours
+                planes.append([(f[..., 1] >> 4).astype(np.uint8),
+                               rng.integers(0, 256, (1, 1024), np.uint8)])
+                continue
+            pl = ([f[..., 1]] if base == "gray" else
+                  [np.stack([f[..., 1], f[..., 2]], -1).reshape(h, -1)]
+                  if base == "ya" else
+                  [np.ascontiguousarray(f[..., ::-1]).reshape(h, -1)]
+                  if base == "rgb" else
+                  [np.concatenate([f[..., ::-1], f[..., 2:]], -1).reshape(h, -1)]
+                  if base == "rgba" else lavc_planes(f, base))
+            planes.append([p if bits == 8 else (p.astype(np.uint16) << (
+                bits - 8)) + rng.integers(0, 1 << (bits - 8), p.shape,
+                                          np.uint16) for p in pl])
+        fmt = pix + ("le" if bits > 8 else "")
+        pk = lavc.encode(planes, "jpeg2000", pix=fmt, format=wrap)
+        name = f"j2k_lavc_{pix}{'_j2k' if wrap == 'j2k' else ''}_{w}x{h}.avi"
+        lossless_avi(os.path.join(OUT, name), [p for p, _, _ in pk], w, h,
+                     "MJ2C")
+
+
+def tag_fixtures() -> None:
+    """The fourccs and sample entries cv2's writer uses for codecs the port
+    reads under other tags: MPEG-4 Part 2 under ``3IV2`` (.avi, .mov,
+    .nut, .wmv), ``XVID`` and ``DIVX`` (.mov), Motion JPEG under ``LJPG``
+    (.avi, .nut, .wmv), MPEG-1/2 under ``mpg1`` and ``mpg2`` (.mov: the
+    ``m1v `` and ``m2v1`` entries), raw ``NV12``, ``Y41B`` and ``Y8  ``
+    (.avi, .mkv, .nut, .wmv) and libavcodec's ``yuv4`` (.avi, .mkv, .mov,
+    .nut, .wmv); 6 frames of the moving clip at 64x48 each (the raw ones
+    and yuv4 4)."""
+    clip = moving_clip(48, 64, 6, seed=85, speed=3.0)
+    plan = [("3IV2", ("avi", "mov", "nut", "wmv")), ("XVID", ("mov",)),
+            ("DIVX", ("mov",)), ("LJPG", ("avi", "nut", "wmv")),
+            ("mpg1", ("mov",)), ("mpg2", ("mov",)),
+            ("NV12", ("avi", "mkv", "nut", "wmv")),
+            ("Y41B", ("avi", "mkv", "nut", "wmv")),
+            ("Y8  ", ("avi", "mkv", "nut", "wmv")),
+            ("yuv4", ("avi", "mkv", "mov", "nut", "wmv"))]
+    for fourcc, exts in plan:
+        short = fourcc in ("NV12", "Y41B", "Y8  ", "yuv4")
+        for ext in exts:
+            _cv2_write(os.path.join(OUT, f"tag_{fourcc.strip()}_64x48.{ext}"),
+                       clip[:4] if short else clip, fourcc)
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -3973,8 +4262,22 @@ def write_manifest(keep: bool = False) -> None:
                 except ValueError as e:     # Unsupported, or refused by FFmpeg
                     manifest["files"][name]["port_refuses"] = \
                         str(e).split(": ", 1)[1]
+        if name.startswith(("pvop_", "ivop_")):
+            sys.path.insert(0, os.path.dirname(HERE))
+            from opticalflow_tpu_torch.io.nut import NutFile
+            manifest["files"][name]["nut_features"] = NutFile(path).features
+            manifest["files"][name]["mpeg4_concealment"] = \
+                mpeg4_concealment(path)
+        if name.startswith("j2k_"):
+            try:
+                manifest["files"][name]["jpeg2000_features"] = \
+                    _lossless_features(path)
+            except ValueError as e:     # Unsupported, or refused by FFmpeg
+                manifest["files"][name]["port_refuses"] = \
+                    str(e).split(": ", 1)[1]
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
-                             "asv_", "msm_", "snow_", "nut_", "dirac_")
+                             "asv_", "msm_", "snow_", "nut_", "dirac_",
+                             "pvop_", "ivop_", "j2k_", "tag_")
                             + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
@@ -4019,9 +4322,10 @@ def write_manifest(keep: bool = False) -> None:
     from opticalflow_tpu_torch.runtime.snow import FEATURES as SNOW
     from opticalflow_tpu_torch.runtime.dirac import FEATURES as DIRAC
     from opticalflow_tpu_torch.io.nut import FEATURES as NUT
+    from opticalflow_tpu_torch.runtime.jpeg2000 import FEATURES as J2K
     for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
                        ("asv", ASV), ("msmpeg4", MSMP4), ("snow", SNOW),
-                       ("dirac", DIRAC), ("nut", NUT)):
+                       ("dirac", DIRAC), ("nut", NUT), ("jpeg2000", J2K)):
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
@@ -4045,7 +4349,7 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
           asv_fixtures, msmpeg4_fixtures, snow_fixtures, nut_fixtures,
-          dirac_fixtures)
+          dirac_fixtures, cut_vop_fixtures, jpeg2000_fixtures, tag_fixtures)
 
 
 if __name__ == "__main__":

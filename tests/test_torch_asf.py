@@ -303,3 +303,19 @@ def test_a_seek_numbered_otherwise_raises_naming_item_8(tmp_path):
     video = vio.EncodedVideo(path)
     with pytest.raises(Unsupported, match=f"FLV or ASF.*{ITEM_8}"):
         video.frame(20)
+
+
+def test_huffyuv_in_asf_takes_its_bit_count(tmp_path):
+    """HuffYUV and FFVHuff read their version from the BITMAPINFOHEADER's
+    bit count, which ASF carries too (found by the census: the port once
+    had none for ASF)."""
+    for fourcc in ("HFYU", "FFVH"):
+        path = str(tmp_path / f"{fourcc}.wmv")
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 25.0,
+                             (96, 64))
+        for f in _make().moving_clip(64, 96, 3, seed=31):
+            wr.write(f)
+        wr.release()
+        box = AsfFile(path)
+        assert box.codec == "huffyuv" and box.bpc in (12, 16, 24, 32)
+        _same(list(vio.read_frames(path)), _cv2_frames(path))

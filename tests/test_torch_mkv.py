@@ -441,3 +441,16 @@ def test_h263_under_vfw_fourcc_reads_as_cv2():
     for t, hit in want["seeks"].items():
         assert hashlib.sha256(video.frame(int(t)).tobytes()).hexdigest() == \
             want["sha256"][hit], t
+
+
+@pytest.mark.parametrize("fourcc", ["NV12", "Y41B", "Y8", "yuv4"])
+def test_raw_layouts_and_yuv4_read_as_cv2_reads_them(fourcc):
+    """cv2's Matroska of raw NV12, Y41B and ``Y8  `` (V_UNCOMPRESSED with
+    that FourCC) and of libavcodec's yuv4 (V_MS/VFW/FOURCC): NV12 goes
+    through swscale's scaler as its interleaved chroma does, Y41B is
+    yuv411p."""
+    path = os.path.join(os.path.dirname(__file__), "goldens", "video",
+                        f"tag_{fourcc}_64x48.mkv")
+    box = mkv.MkvFile(path)
+    assert box.codec == ("yuv4" if fourcc == "yuv4" else "raw")
+    _same(list(vio.read_frames(path)), _cv2_frames(path))

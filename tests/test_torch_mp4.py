@@ -575,3 +575,19 @@ def test_vol_of_another_size_is_scaled_back_as_cv2_does():
     assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] == \
         MANIFEST[name]["sha256"]
     _manifest_seeks(path, name)
+
+
+@pytest.mark.parametrize("entry,codec", [
+    ("3IV2", "mpeg4"), ("XVID", "mpeg4"), ("DIVX", "mpeg4"),
+    ("mpg1", "mpeg12"), ("mpg2", "mpeg12"), ("yuv4", "yuv4")])
+def test_quicktime_entries_cv2_writes_read_as_cv2_reads_them(entry, codec):
+    """The sample entries cv2's mov muxer writes for these fourccs (isom.c's
+    3IV2, XVID and DIVX with the VOL in glbl; its m1v and m2v1 fallbacks
+    for MPEG-1/2; yuv4): the codec FFmpeg's mov demuxer picks, and the
+    frames cv2 reads."""
+    name = f"tag_{entry}_64x48.mov"
+    path = os.path.join(FIXTURES, name)
+    box = Mp4File(path)
+    assert box.codec == codec
+    assert box.tag == {"mpg1": "m1v ", "mpg2": "m2v1"}.get(entry, entry)
+    _same(list(vio.read_frames(path)), _cv2_frames(path))

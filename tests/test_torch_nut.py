@@ -41,13 +41,21 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "goldens", "video")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     _MANIFEST = json.load(_f)
 MANIFEST = _MANIFEST["files"]
-# every .nut fixture: group nut, and Dirac's (group dirac)
-NUT = sorted(n for n in MANIFEST if n.endswith(".nut"))
+# every .nut fixture of group nut, Dirac's (group dirac) and the cut
+# VOPs' (group cut_vop); the other codecs' groups hold .nut files of their
+# own, tested with their codec
+NUT = sorted(n for n in MANIFEST if n.endswith(".nut")
+             and MANIFEST[n]["group"] in ("nut", "dirac", "cut_vop"))
 OPENED = [n for n in NUT if "nut_features" in MANIFEST[n]]
 TRUNCATED = "nut_craft_truncated_96x64.nut"
 # cut inside a P-VOP: FFmpeg conceals it with the vectors it guessed
 PVOP = "nut_craft_truncated_pvop_96x64.nut"
-READ = [n for n in OPENED if n != PVOP]
+# VOPs cut short at 176x144: P-VOPs through guess_mv's search from a slice
+# that ended early and from a failed macroblock, and guess_dc's spatial
+# concealment; I-VOPs whose undamaged macroblocks' SAD chooses the
+# temporal and the spatial path
+CUT_VOPS = sorted(n for n, e in MANIFEST.items() if e["group"] == "cut_vop")
+READ = OPENED
 
 
 def _path(name):
@@ -99,6 +107,8 @@ def test_fixtures_cover_every_fourcc_the_port_reads():
     need |= {f"nut_craft_{c}_96x64.nut" for c in (
         "noindex", "badsyncpoint", "badmain", "truncated",
         "truncated_pvop")}
+    need |= {f"pvop_{c}_176x144.nut" for c in ("ended", "search", "spatial")}
+    need |= {f"ivop_sad_{c}_176x144.nut" for c in ("temporal", "spatial")}
     assert need == set(NUT)
     codecs = {NutFile(_path(n)).codec for n in OPENED}
     assert codecs == {"mpeg4", "mjpeg", "mpeg12", "flv1", "msmpeg4v2",
@@ -260,21 +270,76 @@ def test_a_frame_cut_short_reads_up_to_it_then_raises_naming_item_8():
     the rest.  An I-VOP cut in half (its data fails at macroblock 11 of 24,
     so all 24 are damaged and almost none undamaged: FFmpeg takes them from
     the picture before, then deblocks their edges by the vectors it copied)
-    reads all 25 frames, equal to cv2's; a P-VOP cut in half (concealed
-    with FFmpeg's vectors of its failed and undecoded macroblocks, not
-    reproduced) reads the 23 before it and raises naming item 8."""
+    reads all 25 frames, equal to cv2's; a P-VOP cut in half (the data ends
+    its slice after macroblock 15, whose 16 keep their vectors: guess_mv
+    searches for the 8 missing ones' vectors, rendering each candidate from
+    the last picture) reads cv2's 24 frames, the concealed one included."""
     assert MANIFEST[TRUNCATED]["decoded"] == 25
     assert "port_refuses" not in MANIFEST[TRUNCATED]
     assert [_digest(f) for f in vio.read_frames(_path(TRUNCATED))] == \
         MANIFEST[TRUNCATED]["sha256"]
-    want = MANIFEST[PVOP]["sha256"]
     assert MANIFEST[PVOP]["decoded"] == 24
-    assert "P-VOP" in MANIFEST[PVOP]["port_refuses"]
-    got = []
-    with pytest.raises(Unsupported, match=f"P-VOP cut short.*{ITEM_8}"):
-        for frame in vio.read_frames(_path(PVOP)):
-            got.append(_digest(frame))
-    assert got == want[:23]
+    assert "port_refuses" not in MANIFEST[PVOP]
+    assert [_digest(f) for f in vio.read_frames(_path(PVOP))] == \
+        MANIFEST[PVOP]["sha256"]
+    video = vio.EncodedVideo(_path(PVOP))
+    dec = video._decoder()
+    with open(video.path, "rb") as f:
+        for i in range(video.samples):
+            dec.decode(video.box.sample(f, i), cut=video._cut(i))
+    assert dec.concealment == {"type": "P", "macroblock": 16,
+                               "slice_ended": True, "kept": 16,
+                               "searched": True, "spatial": False}
+
+
+@pytest.mark.parametrize("name", CUT_VOPS)
+def test_cut_vops_conceal_as_ffmpeg_conceals_them(name):
+    """Each cut VOP reads to cv2's frames, the concealed last one
+    included, along the path its manifest entry records: guess_mv's search
+    where more than half the longer side's count of macroblocks keep their
+    vectors (from a slice the data ended early, and from a macroblock that
+    failed: its vector what its decoding left), and guess_dc's spatial
+    concealment where the kept macroblocks of a P-VOP are mostly intra, or
+    an I-VOP's undamaged ones differ from the picture before more than
+    that picture from itself a row down (their SAD)."""
+    want = MANIFEST[name]
+    assert [_digest(f) for f in vio.read_frames(_path(name))] == \
+        want["sha256"]
+    video = vio.EncodedVideo(_path(name))
+    dec = video._decoder()
+    with open(video.path, "rb") as f:
+        for i in range(video.samples):
+            dec.decode(video.box.sample(f, i), cut=video._cut(i))
+    assert dec.concealment == want["mpeg4_concealment"]
+    assert dec.concealment["searched"]
+    paths = {n: MANIFEST[n]["mpeg4_concealment"] for n in CUT_VOPS}
+    assert [(p["type"], p["slice_ended"], p["spatial"])
+            for p in paths.values()] == [
+        ("I", False, True), ("I", False, False), ("P", True, False),
+        ("P", False, False), ("P", False, True)]
+
+
+def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
+    """Cut so early that the VOP's header or its first macroblock fails,
+    FFmpeg hands over no picture for it (cv2 reads one frame fewer), nor
+    does the port; cut right after its start code, FFmpeg reads its
+    padding and hands over the picture before again, which the port does
+    not follow: it raises naming item 8 (ROADMAP's open fidelity list)."""
+    data = open(_path("nut_mp4v_96x64.nut"), "rb").read()
+    pvop = NutFile(_path("nut_mp4v_96x64.nut")).frames_[-2]
+    for keep in (5, 6, 7, 8):           # the header's, the macroblock's
+        path = str(tmp_path / f"cut{keep}.nut")
+        with open(path, "wb") as f:
+            f.write(data[:pvop.offset + keep])
+        _same(list(vio.read_frames(path)), _cv2_frames(path))
+        assert len(_cv2_frames(path)) == 23
+    path = str(tmp_path / "cut4.nut")
+    with open(path, "wb") as f:
+        f.write(data[:pvop.offset + 4])
+    assert len(_cv2_frames(path)) == 24
+    with pytest.raises(Unsupported, match=f"right after its start code.*"
+                                          f"{ITEM_8}"):
+        list(vio.read_frames(path))
 
 
 def _v(n):
