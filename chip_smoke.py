@@ -399,7 +399,20 @@ non-zero, and no result line is printed):
      a 436x1024 JPEG 2000 frame (tier 1, the inverse DWT, the output) and
      to convert it, beside VC-2; (e) no cv2, PIL or jax in
      ``sys.modules``;
- 32. one JSON line listing every kernel with its launches on its path,
+ 32. H.264 (``runtime/h264.cpp`` behind ``io/video.py``; ``phase_h264``):
+     (a) every fixture of the ``h264`` group (the syntax writer's streams,
+     each in CAVLC and in CABAC, muxed by libavformat into .mp4, .mov,
+     .mkv, .avi, .ts, .h264, .nut and .wmv) decodes to its manifest's cv2
+     digests, fps, size, count, seeks and libavcodec's planes, and the
+     MPEG-4 VOP cut right after its start code to cv2's 24 frames; (b)
+     ``cli/extract_video --mode arrows --batch 4 --dtype bfloat16`` over a
+     13-frame 436x1024 H.264 .mp4 written at run time (real_im1 in I_PCM,
+     then a pan of P_L0_16x16, CABAC): K1 15; (c) ``cli/train --regime
+     pseudo`` for 3 steps over it: K1 and B1 5 a step; (d) host ms to
+     decode a 436x1024 frame, I and P apart, CAVLC beside CABAC, beside
+     MPEG-4 Part 2 on the same frames, and to convert it; (e) no cv2, PIL
+     or jax in ``sys.modules``;
+ 33. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -418,9 +431,9 @@ phase 23's transport stream and FFV1 paths, phase 24's H.263+ paths,
 phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
 phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths, phase 29's NUT
 and Dirac paths (K1 in the video CLI's runs, K1 and B1 in the pseudo
-steps), phase 30's writer paths (K1 in the video CLI's runs) and phase
-31's JPEG 2000 paths (K1 in the video CLI's run, K1 and B1 in the pseudo
-steps).
+steps), phase 30's writer paths (K1 in the video CLI's runs), phase
+31's JPEG 2000 paths and phase 32's H.264 paths (K1 in the video CLI's
+run, K1 and B1 in the pseudo steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -5570,8 +5583,8 @@ FLV_FRAMES = 13
 def magy_flv_refusals() -> list:
     """Crafted headers of what this slice leaves out, each of which must
     raise Unsupported naming ROADMAP Queue 1 item 8: MagicYUV at 10, 12
-    and 14 bits and interlaced, FLV video of another codec (H.264) or
-    with an enhanced-FLV header, an FLV whose metadata lacks its frame
+    and 14 bits and interlaced, FLV video of another codec (VP6; H.264
+    is read since phase 32's slice) or with an enhanced-FLV header, an FLV whose metadata lacks its frame
     rate or duration, and a seek in an FLV whose timestamps OpenCV numbers
     otherwise than its frames.  Returns what each refusal named."""
     import struct
@@ -5589,7 +5602,7 @@ def magy_flv_refusals() -> list:
                              ("interlaced", p[:12] + bytes([p[12] | 2])
                               + p[13:]))]
     with tempfile.TemporaryDirectory() as tmp:
-        for what, flags in (("H.264", 0x17), ("enhanced FLV", 0x90)):
+        for what, flags in (("VP6", 0x14), ("enhanced FLV", 0x90)):
             path = os.path.join(tmp, f"{flags}.flv")
             body = bytes([flags]) + bytes(8)
             tag = bytes([9]) + len(body).to_bytes(3, "big") + bytes(7) + body
@@ -6643,6 +6656,253 @@ def phase_jpeg2000(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# ------------------------------------------------------------ phase 32
+
+H264_FRAMES = 13                      # the CLI clip: IDR then 12 P
+H264_PAN = (12, -6)                   # its global vector (quarter samples)
+
+
+def h264_clip(cabac: bool):
+    """The 436x1024 H.264 clip the card run decodes, from the syntax
+    writer (``tests/h264_syntax.py``): an IDR picture holding
+    ``tests/goldens/real_im1.png`` (nearest-neighbour scaled to 436x1024)
+    in I_PCM, then P pictures of P_L0_16x16
+    macroblocks that all move by ``H264_PAN`` with no residual (a pan),
+    High profile, coded 448 rows cropped to 436.  (SPS, PPS, access
+    units, key flags)."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import h264_syntax as hs
+    from opticalflow_tpu_torch.io.images import load_image
+    from opticalflow_tpu_torch.io.yuv import i420_planes
+    from opticalflow_tpu_torch.runtime.mpeg4 import to_i420
+    img = load_image(os.path.join(GOLD, "real_im1.png"))
+    # nearest-neighbour up to the clip's size
+    rgb = img[np.arange(FULL_H) * img.shape[0] // FULL_H][
+        :, np.arange(FULL_W) * img.shape[1] // FULL_W]
+    y, u, v = i420_planes(to_i420(np.ascontiguousarray(rgb[..., ::-1])))
+    pad = 448 - FULL_H
+    planes = (np.pad(y, ((0, pad), (0, 0)), mode="edge"),
+              np.pad(u, ((0, pad // 2), (0, 0)), mode="edge"),
+              np.pad(v, ((0, pad // 2), (0, 0)), mode="edge"))
+    sps = [hs.Sps(profile=100, level=40, mb_w=FULL_W // 16, mb_h=28,
+                  crop=(0, 0, 0, pad), max_num_ref_frames=1)]
+    pps = [hs.Pps(cabac=cabac, transform_8x8=True)]
+    pics = [hs.Pic(idr=True, mb_types=("PCM",), pcm=planes)] + [
+        hs.Pic(kind="P", global_mv=H264_PAN)
+        for _ in range(H264_FRAMES - 1)]
+    aus = hs.write_stream(32, sps, pps, pics)
+    return sps, pps, aus, [p.idr for p in pics]
+
+
+def phase_h264(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """H.264 through the port's entry points on the card machine (host C++
+    ``runtime/h264.cpp`` behind ``io/video.py`` and the MP4, QuickTime,
+    Matroska, AVI, MPEG-TS, NUT, ASF and raw demuxers): (a) every fixture of
+    the ``h264`` group (CAVLC and CABAC) equals cv2's digests, fps, size
+    and count, each recorded seek reads cv2's frame, each picture's planes
+    equal the digests of libavcodec's, the decoder's features against the
+    manifest's unreached list; the VOP cut right after its start code reads
+    cv2's 24 frames; (b) the video CLI over the 13-frame 436x1024 H.264
+    .mp4 (``h264_clip``, CABAC), K1 on the card, bf16; (c) the pseudo
+    regime over that .mp4, 3 steps (K1 and B1); (d) host ms to decode a
+    436x1024 frame, I and P apart, CAVLC beside CABAC, for the CLI clip and
+    for pictures of random intra and inter macroblocks, beside MPEG-4 Part
+    2 on the same frames, and swscale's conversion; (e) no cv2, PIL or jax
+    imported.  Returns its results, each path's K1 (and B1) launches among
+    them."""
+    import hashlib
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import h264_syntax as hs
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.nut import NutFile
+    from opticalflow_tpu_torch.io.yuv import i420_planes
+    from opticalflow_tpu_torch.runtime import h264, mpeg4
+    from opticalflow_tpu_torch.runtime.mpeg4 import i420_to_bgr
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures, and the VOP cut right after its start code
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "h264")
+    coders = {c: sum(f"_{c}" in n for n in new) for c in ("cavlc", "cabac")}
+    assert coders["cavlc"] == coders["cabac"] > 0, coders
+    checked = check_fixtures(new)
+    assert checked["refused"] == [], checked
+    planes = 0
+    for name, want in sorted(new.items()):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        got = [hashlib.sha256(b"".join(np.ascontiguousarray(q).tobytes()
+                                       for q in p)).hexdigest()
+               for _, p in video.planes(0)]
+        assert got == want["h264_planes"], name
+        planes += len(got)
+    reached = {f for w in new.values() for f in w["h264_features"]}
+    unreached = [f for f in h264.FEATURES + h264.MODES if f not in reached]
+    assert unreached == manifest["h264_unreached"], unreached
+    src = os.path.join(MP4_DIR, "nut_mp4v_96x64.nut")
+    data = open(src, "rb").read()
+    pvop = [x for x in NutFile(src).frames_ if not x.key][-1]
+    cut = os.path.join(tmp, "cut4.nut")
+    with open(cut, "wb") as f:
+        f.write(data[:pvop.offset + 4])
+    cut_frames = len(list(vio.read_frames(cut)))
+    assert cut_frames == 24, cut_frames
+    log(f"[32] (a) {len(new)} fixtures ({coders['cavlc']} CAVLC, "
+        f"{coders['cabac']} CABAC: the syntax writer's streams muxed by "
+        f"libavformat into .mp4/.mov/.mkv/.avi/.ts/.h264/.nut/.wmv/.flv; "
+        f"I_PCM, "
+        f"every intra mode, every P partition, long-term references and "
+        f"MMCO, weights, scaling lists, QP 0-51, deblocking modes, slices, "
+        f"POC types 0-2, VUI, crops, a recovery point) decoded to "
+        f"cv2.VideoCapture's {checked['frames']} frame digests and its "
+        f"fps/size/count, {checked['seeks']} seeks to the frames cv2 read, "
+        f"{planes} pictures' planes to libavcodec's, in "
+        f"{time.perf_counter() - t0:.2f} s; features "
+        f"{len(reached)} of {len(h264.FEATURES) + len(h264.MODES)} (the "
+        f"rest no edge block can use); the VOP cut after its start code "
+        f"reads {cut_frames} frames; {card}")
+
+    # (b) the video CLI over the 436x1024 H.264 .mp4 (CABAC)
+    t0 = time.perf_counter()
+    sps, pps, aus, keys = h264_clip(True)
+    clip = os.path.join(tmp, "h264_pan_436x1024.mp4")
+    hs.write_mp4(clip, [hs.length_prefixed(a) for a in aus], keys,
+                 hs.avcc(sps, pps), FULL_W, FULL_H)
+    write_s = time.perf_counter() - t0
+    shown = list(vio.read_frames(clip))
+    assert len(shown) == H264_FRAMES and shown[0].shape == (FULL_H, FULL_W,
+                                                             3)
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_h264.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    H264_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(H264_FRAMES - 1) // VIDEO_B) == 3, windows
+    assert launched == 5 * windows, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[32] (b) extract_video --mode arrows B={VIDEO_B} bf16, H.264 CABAC "
+        f".mp4 ({H264_FRAMES} frames {FULL_H}x{FULL_W}: real_im1 in I_PCM, "
+        f"then a pan of {H264_PAN} quarter samples a frame; written in "
+        f"{write_s:.2f} s): {row['fps']!r} fps over the run "
+        f"({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode thread "
+        f"busy {row['decode_ms']!r} ms a frame ({row['decode_share']:.1%}); "
+        f"{windows} windows, K1 {launched} launches; {card}")
+
+    # (c) the pseudo regime over the .mp4
+    out_dir = os.path.join(tmp, "h264_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", clip, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (H264_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert steps == 3 and [r["step"] for r in recs] == [1, 2, 3], recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[32] (c) cli/train --regime pseudo over the H.264 .mp4 "
+        f"({FULL_H}x{FULL_W} -> 384x512), {steps} steps at batch {TRAIN_B}: "
+        f"losses {[r['loss'] for r in recs]}; K1/B1 launches "
+        f"{launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s wall; "
+        f"{card}")
+
+    # (d) host ms a 436x1024 frame on one thread, I and P apart, CAVLC
+    # beside CABAC: the CLI clip (I_PCM, then motion alone) and pictures of
+    # random macroblocks (intra modes with residual; P partitions, skips
+    # and intra), beside MPEG-4 Part 2 on the same frames
+    def timed(units):
+        d = h264.Decoder()
+        [d.decode(u) for u in units]
+        d.flush()
+        per = [0.0] * len(units)
+        for _ in range(HOST_TIMED):
+            d = h264.Decoder()
+            got = []
+            for i, u in enumerate(units):
+                t = time.perf_counter()
+                got += d.decode(u)
+                per[i] += time.perf_counter() - t
+            got += d.flush()
+        assert len(got) == len(units), (len(got), len(units))
+        per = [p / HOST_TIMED * 1e3 for p in per]
+        return per, got
+
+    host = {}
+    mixed_sps = [hs.Sps(profile=100, level=40, mb_w=FULL_W // 16, mb_h=28,
+                        crop=(0, 0, 0, 448 - FULL_H), max_num_ref_frames=1)]
+    mixed_pics = [hs.Pic(idr=True, mb_types=("I4", "I8", "I16"),
+                         density=0.15),
+                  hs.Pic(kind="P", mb_types=("P", "SKIP", "I4", "I16"),
+                         density=0.1)]
+    frames = None
+    for cabac in (False, True):
+        tag = "cabac" if cabac else "cavlc"
+        cs, cp, caus, _ = h264_clip(cabac)
+        per, _ = timed(caus)
+        host[f"clip_{tag}"] = {"i_ms": per[0],
+                               "p_ms": sum(per[1:]) / len(per[1:]),
+                               "bytes_i": len(caus[0]),
+                               "bytes_p": sum(map(len, caus[1:]))
+                               / len(caus[1:])}
+        maus = hs.write_stream(33, mixed_sps,
+                               [hs.Pps(cabac=cabac, transform_8x8=True)],
+                               mixed_pics)
+        per, got = timed(maus)
+        host[f"mixed_{tag}"] = {"i_ms": per[0], "p_ms": per[1],
+                                "bytes_i": len(maus[0]),
+                                "bytes_p": len(maus[1])}
+        pics = [i420_to_bgr(*p) for p in got]
+        if frames is None:
+            frames = pics
+        else:   # the same macroblocks in either coder
+            assert all(np.array_equal(a, b) for a, b in zip(frames, pics))
+    host["convert_ms"] = convert_ms(got)
+    enc = mpeg4.Encoder(FULL_W, FULL_H, 25, 1)
+    samples = [enc.encode(*i420_planes(mpeg4.to_i420(f)))[0] for f in frames]
+    ms, _ = host_decode(lambda: mpeg4.Decoder(enc.headers), samples)
+    host["mpeg4_ms"] = ms
+    c, m = host["clip_cabac"], host["mixed_cabac"]
+    log(f"[32] (d) host ms a {FULL_H}x{FULL_W} frame on one thread: CLI "
+        f"clip I_PCM {host['clip_cavlc']['i_ms']!r} (CAVLC) / "
+        f"{c['i_ms']!r} (CABAC), pan P {host['clip_cavlc']['p_ms']!r} / "
+        f"{c['p_ms']!r}; random macroblocks I "
+        f"{host['mixed_cavlc']['i_ms']!r} / {m['i_ms']!r} "
+        f"({host['mixed_cavlc']['bytes_i']} / {m['bytes_i']} bytes), P "
+        f"{host['mixed_cavlc']['p_ms']!r} / {m['p_ms']!r} "
+        f"({host['mixed_cavlc']['bytes_p']} / {m['bytes_p']} bytes); "
+        f"MPEG-4 Part 2 on the same frames {ms!r}; convert "
+        f"{host['convert_ms']!r}; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[32] (e) cv2, PIL, jax not imported; phase 32 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "coders": coders,
+            "frames": checked["frames"], "seeks": checked["seeks"],
+            "planes": planes, "unreached": unreached,
+            "cut_vop_frames": cut_frames, "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6925,6 +7185,16 @@ def main() -> int:
     assert jpeg2000_launches == correlation_cuda.launches > 0
     assert j2k["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the H.264 paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        avc = phase_h264(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                         card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    h264_launches = avc["launches"]["cli"] + \
+        avc["launches"]["pseudo"]["correlation_fwd"]
+    assert h264_launches == correlation_cuda.launches > 0
+    assert avc["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -7016,7 +7286,10 @@ def main() -> int:
          # phase 31: the video CLI over the 436x1024 JPEG 2000 AVI, and the
          # pseudo steps over its packets cycled in AVI (5 a window, 5 a
          # step)
-         "launches_jpeg2000": jpeg2000_launches, "jpeg2000": j2k},
+         "launches_jpeg2000": jpeg2000_launches, "jpeg2000": j2k,
+         # phase 32: the video CLI over the 436x1024 H.264 .mp4, and the
+         # pseudo steps over it (5 a window, 5 a step)
+         "launches_h264": h264_launches, "h264": avc},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -7074,7 +7347,9 @@ def main() -> int:
          "launches_nut_dirac":
              nd["launches"]["pseudo"]["correlation_bwd"],
          # phase 31: the pseudo regime's steps over JPEG 2000 packets
-         "launches_jpeg2000": j2k["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_jpeg2000": j2k["launches"]["pseudo"]["correlation_bwd"],
+         # phase 32: the pseudo regime's steps over the H.264 .mp4
+         "launches_h264": avc["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

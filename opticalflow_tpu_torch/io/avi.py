@@ -80,6 +80,7 @@ from opticalflow_tpu_torch.runtime.snow import is_keyframe as snow_is_keyframe
 from opticalflow_tpu_torch.runtime.vp8 import is_keyframe
 
 __all__ = ["AviFile", "AviWriter", "ASV_TAGS", "FLV1_TAGS", "H263_TAGS",
+           "H264_TAGS",
            "HUFFYUV_TAGS", "MAGICYUV_TAGS", "MJPEG_TAGS", "MPEG4_TAGS",
            "MSMPEG4_TAGS", "SNOW_TAGS", "JPEG2000_TAGS", "YUV4_TAGS",
            "MPEG12_TAGS", "PNG_TAGS", "RAW_LAYOUTS", "RAW_TAGS",
@@ -139,9 +140,12 @@ MSMPEG4_TAGS = {"MP42": "msmpeg4v2", "DIV2": "msmpeg4v2",
 SNOW_TAGS = {"SNOW"}
 # riff.c's tag of dirac, matched without regard to case
 DIRAC_TAGS = {"DRAC"}
+# riff.c's tags of h264, matched without regard to case: Annex B packets,
+# the parameter sets in the extradata or in band
+H264_TAGS = {"H264", "X264", "AVC1", "DAVC", "SMV2", "VSSH", "Q264", "V264",
+             "GAVC", "UMSV", "TSHD", "INMC"}
 _NAMES = {"ZyGo": "ZyGo H.263", "I263": "Intel H.263",
-          "H264": "H.264", "h264": "H.264", "X264": "H.264", "x264": "H.264",
-          "avc1": "H.264", "HEVC": "HEVC", "hev1": "HEVC",
+          "HEVC": "HEVC", "hev1": "HEVC",
           "MPG4": "MS-MPEG4 v1", "MP41": "MS-MPEG4 v1", "WMV3": "WMV9"}
 _KEYFRAME = 0x10   # AVIIF_KEYFRAME
 _RIFF_MAX = (1 << 32) - 1
@@ -310,7 +314,7 @@ def codec_of(tag: str, what: str) -> str:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
     ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
     ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png``,
-    ``snow``, ``dirac``, ``jpeg2000``, ``yuv4`` or one of
+    ``snow``, ``dirac``, ``jpeg2000``, ``yuv4``, ``h264`` or one of
     ``MSMPEG4_TAGS``' codecs; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
@@ -343,6 +347,8 @@ def codec_of(tag: str, what: str) -> str:
         return "flv1"
     if tag.upper() in ASV_TAGS:
         return "asv"
+    if tag.upper() in H264_TAGS:
+        return "h264"
     if tag.upper() in MSMPEG4_TAGS:
         return MSMPEG4_TAGS[tag.upper()]
     if tag.upper() in SNOW_TAGS:

@@ -1,7 +1,8 @@
 """Elementary video streams: raw MPEG-1/2 video (``.m1v``, ``.m2v``,
-``.mpv``), raw H.263 (``.h263``, ``.263``) and raw Dirac/VC-2 (``.drc``,
-what ``cv2.VideoWriter`` writes for fourcc ``drac`` there), read as
-FFmpeg's ``mpegvideo``, ``h263`` and ``dirac`` raw demuxers read them for
+``.mpv``), raw H.263 (``.h263``, ``.263``), raw Dirac/VC-2 (``.drc``,
+what ``cv2.VideoWriter`` writes for fourcc ``drac`` there) and raw H.264
+(``.h264``, ``.264``, ``.avc``, ``.h26l``, Annex B), read as FFmpeg's
+``mpegvideo``, ``h263``, ``dirac`` and ``h264`` raw demuxers read them for
 ``cv2.VideoCapture``, in Python (no FFmpeg).
 
 The file is one stream without timestamps, split into pictures by
@@ -11,11 +12,13 @@ the raw demuxers' settings:
   * fps is 25 whatever the stream says: the raw demuxers set the stream's
     ``avg_frame_rate`` from their ``framerate`` option, 25 by default, and
     OpenCV reports ``avg_frame_rate`` (H.263 at 29.97 Hz reads at 25, so
-    does Dirac at any rate its sequence header names);
+    does Dirac at any rate its sequence header names, and H.264 at any rate
+    its VUI names);
   * the frame count is OpenCV's ``duration × fps``, rounded down after
     adding 0.5.  FFmpeg knows no duration for MPEG-2 or H.263 here
     (``AV_NOPTS_VALUE``, INT64_MIN ticks of 1/1200000 s), which OpenCV
-    turns into -192153584101141 at 25 fps.  Where a bit rate is known it
+    turns into -192153584101141 at 25 fps (H.264 too).  Where a bit rate
+    is known it
     estimates one from it (``estimate_timings_from_bit_rate``: the file's
     bits over the rate): MPEG-1's is 400 × bit_rate_value, 104857600 b/s
     for the VBR marker cv2's writer leaves, so a small file counts 0;
@@ -41,13 +44,16 @@ from opticalflow_tpu_torch.io.mpegps import video_codec
 from opticalflow_tpu_torch.runtime.dirac import \
     sequence_info as dirac_sequence
 from opticalflow_tpu_torch.runtime.h263 import picture_size
+from opticalflow_tpu_torch.runtime.h264 import probe as h264_probe
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
 __all__ = ["ElementaryFile", "MPEG_EXTENSIONS", "H263_EXTENSIONS",
+           "H264_EXTENSIONS",
            "DIRAC_EXTENSIONS", "RAW_FPS", "nopts_count"]
 
 MPEG_EXTENSIONS = (".m1v", ".m2v", ".mpv")
+H264_EXTENSIONS = (".h264", ".264", ".avc", ".h26l")
 H263_EXTENSIONS = (".h263", ".263")
 DIRAC_EXTENSIONS = (".drc",)
 RAW_FPS = 25                    # the raw demuxers' framerate option
@@ -88,8 +94,8 @@ def _bit_rate(sample: bytes, mpeg2: bool) -> int:
 
 
 class ElementaryFile(PesVideo):
-    """An elementary MPEG-1/2, H.263 or Dirac stream: one sample a
-    picture."""
+    """An elementary MPEG-1/2, H.263, Dirac or H.264 stream: one sample a
+    picture (an access unit)."""
 
     def __init__(self, path: str):
         super().__init__(path)
@@ -109,6 +115,8 @@ class ElementaryFile(PesVideo):
                 self.codec = "h263"
             elif path.lower().endswith(DIRAC_EXTENSIONS):
                 self.codec = "dirac"
+            elif path.lower().endswith(H264_EXTENSIONS):
+                self.codec = "h264"
             else:
                 self.codec = video_codec(head, path)
                 if self.codec != "mpeg12":
@@ -121,7 +129,13 @@ class ElementaryFile(PesVideo):
             first = self.sample(f, 0)
         self.bit_rate = 0
         self.mpeg2 = False
-        if self.codec == "dirac":
+        if self.codec == "h264":
+            info = h264_probe(first, path)
+            if info is None:
+                raise ValueError(f"{path}: H.264 video without an SPS before "
+                                 "its first picture")
+            self.width, self.height = info.width, info.height
+        elif self.codec == "dirac":
             info = dirac_sequence(first, path)
             if info is None:
                 raise ValueError(f"{path}: no Dirac sequence header")

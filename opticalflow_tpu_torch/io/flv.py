@@ -10,9 +10,11 @@ type (1: key frame, 2: inter, 3: disposable inter; 5, a video info or
 command frame, is passed over as FFmpeg passes it over) and its
 millisecond timestamp; audio and other tags are skipped.  Video of codec
 id 2 (Sorenson H.263, what FFmpeg's flv muxer writes for
-``cv2.VideoWriter``'s fourcc ``FLV1``) is read; other codecs (Screen
-video, VP6, H.264, the enhanced-FLV codecs) raise ``Unsupported``, naming
-ROADMAP Queue 1 item 8.
+``cv2.VideoWriter``'s fourcc ``FLV1``) is read, and codec id 7 (H.264:
+AVCPacketType 0, the sequence header, is its avcC; type 1 holds
+length-prefixed NAL units; the composition time is passed over, as I and
+P pictures have none); other codecs (Screen video, VP6, the enhanced-FLV
+codecs) raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
 
 What cv2 reports follows FFmpeg: fps is the metadata's ``framerate`` as
 ``av_d2q(framerate, 1000)`` makes it the stream's ``avg_frame_rate``; the
@@ -39,6 +41,7 @@ __all__ = ["FlvFile", "EXTENSIONS", "av_d2q"]
 
 EXTENSIONS = (".flv",)
 SORENSON = 2            # the video tag's codec id of Sorenson H.263
+AVC = 7                 # and of H.264
 _CODECS = {1: "JPEG video", 3: "Screen video", 4: "On2 VP6",
            5: "On2 VP6 with alpha", 6: "Screen video version 2",
            7: "H.264", 12: "HEVC", 13: "AV1", 14: "VP9"}
@@ -101,10 +104,10 @@ def _amf_value(b: bytes, pos: int, depth: int = 0):
 class FlvFile:
     """The video of an FLV file."""
 
-    codec, tag = "flv1", "FLV1"
-
     def __init__(self, path: str):
         self.path = path
+        self.codec, self.tag = "flv1", "FLV1"
+        self.dsi = b""          # H.264's avcC (its sequence header tag)
         self.offsets: List[int] = []
         self.sizes: List[int] = []
         self.stamps: List[int] = []        # ms
@@ -132,10 +135,13 @@ class FlvFile:
                     self._script(f.read(n))
                 elif kind == 9 and n:
                     flags = f.read(1)[0]
-                    self._video(flags, pos + 12, n - 1, stamp)
+                    self._video(f, flags, pos + 12, n - 1, stamp)
                 pos += 11 + n + 4
         if not self.sizes:
             raise ValueError(f"{path}: no video frames (truncated file?)")
+        if self.codec == "h264" and not self.dsi:
+            raise ValueError(f"{path}: H.264 in FLV without its sequence "
+                             "header (avcC)")
         self.keyframes = [i for i, t in enumerate(self.frame_types)
                           if t == _KEY] or [0]
         self.start_time = self.stamps[0]
@@ -158,18 +164,34 @@ class FlvFile:
         except (ValueError, IndexError, struct.error):
             pass                      # FFmpeg reads past a damaged script tag
 
-    def _video(self, flags: int, offset: int, n: int, stamp: int) -> None:
+    def _video(self, f: BinaryIO, flags: int, offset: int, n: int,
+               stamp: int) -> None:
         if flags & 0x80:
             raise Unsupported(f"{self.path}: enhanced FLV video (an extended "
                               f"tag header), not read by the port ({ITEM_8})")
         codec, frame_type = flags & 0x0F, flags >> 4
-        if codec != SORENSON:
+        if codec not in (SORENSON, AVC) or (self.sizes and codec != (
+                AVC if self.codec == "h264" else SORENSON)):
             name = _CODECS.get(codec, f"codec id {codec}")
             raise Unsupported(f"{self.path}: {name} video in FLV: the port "
-                              f"reads Sorenson H.263 (codec id 2) only "
-                              f"({ITEM_8})")
+                              f"reads Sorenson H.263 (codec id 2) and H.264 "
+                              f"(codec id 7) only ({ITEM_8})")
         if frame_type == _INFO:
             return
+        if codec == AVC:
+            # AVCPacketType and the composition time, then the avcC
+            # (sequence header) or length-prefixed NAL units
+            self.codec, self.tag = "h264", "avc1"
+            if n < 4:
+                raise ValueError(f"{self.path}: a truncated AVC video tag")
+            kind = f.read(4)[0]
+            offset, n = offset + 4, n - 4
+            if kind == 0:
+                if not self.dsi:
+                    self.dsi = f.read(n)
+                return
+            if kind != 1 or not n:
+                return
         self.offsets.append(offset)
         self.sizes.append(n)
         self.stamps.append(stamp)

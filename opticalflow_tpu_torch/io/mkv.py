@@ -94,8 +94,7 @@ LANGUAGE = 0x22B59C
 # the Segment's children: where an unknown-size Cluster ends
 _TOP = {SEEKHEAD, INFO, TRACKS, CLUSTER, CUES, TAGS, CHAPTERS, ATTACHMENTS}
 _MPEG4_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
-_NAMES = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
-          "V_MPEGH/ISO/HEVC": "HEVC", "V_THEORA": "Theora", "V_PRORES": "ProRes",
+_NAMES = {"V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_REAL/RV40": "RealVideo"}
 
 
@@ -379,6 +378,12 @@ class MkvFile:
             self.codec, self.tag = "snow", "SNOW"
         elif codec == "V_DIRAC":
             self.codec, self.tag = "dirac", "drac"
+        elif codec == "V_MPEG4/ISO/AVC":
+            # CodecPrivate is the avcC record (its NAL length size)
+            if not self.dsi:
+                raise ValueError(f"{self.path}: V_MPEG4/ISO/AVC without its "
+                                 "avcC CodecPrivate")
+            self.codec, self.tag = "h264", "avc1"
         elif codec == "V_UNCOMPRESSED":
             self.tag = video.get(COLOUR_SPACE, b"").decode("latin1")
             if self.tag in ("I420", "IYUV"):

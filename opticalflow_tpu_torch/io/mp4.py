@@ -74,6 +74,9 @@ VIDEO_CODECS = {
 }
 # the mov demuxer's sample entries of FFmpeg's h263 decoder
 H263_ENTRIES = ("s263", "h263", "H263")
+# isom.c's H.264 sample entries: the parameter sets in the avcC (avc1) or
+# in band (avc3), the NAL unit lengths' size in the avcC either way
+H264_ENTRIES = ("avc1", "avc3")
 # esds objectTypeIndication → the codec it names
 # objectTypeIndication: MPEG-4 Visual, Motion JPEG, PNG, MPEG-1 Visual and
 # the MPEG-2 Visual profiles (simple, main, SNR, spatial, high, 4:2:2)
@@ -320,7 +323,7 @@ class Mp4File:
         fourcc = fourcc.decode("latin1")
         entry = b[12:4 + size]
         self.tag = fourcc
-        if (fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES
+        if (fourcc not in ("mp4v", "vp09", "FFV1") + H263_ENTRIES + H264_ENTRIES
                 and fourcc not in _INTRA_ENTRIES
                 and fourcc not in _ISOM_ENTRIES
                 and fourcc.upper() not in _RIFF_ENTRIES):
@@ -331,6 +334,7 @@ class Mp4File:
                               f"PNG), vp09 (VP9), FFV1, s263/h263 (H.263), "
                               f"FLV1 (Sorenson H.263), jpeg, png, RGBA, HFYU, "
                               f"FFVH, UL**, M8** (MagicYUV), ASV1/ASV2, MP42, "
+                              f"avc1/avc3 (H.264), "
                               f"DIV3/3IVD, WMV1/WMV2, SNOW, drac (Dirac), "
                               f"mjp2/MJ2C (JPEG 2000), yuv4, 3IV2/XVID/DIVX "
                               f"(MPEG-4 Part 2) and m1v /m2v1 (MPEG-1/2) only "
@@ -338,6 +342,7 @@ class Mp4File:
         self.width, self.height = struct.unpack(">HH", entry[24:28])
         self.bpc = struct.unpack(">H", entry[74:76])[0]
         self.codec = ("vp9" if fourcc == "vp09" else
+                      "h264" if fourcc in H264_ENTRIES else
                       "ffv1" if fourcc == "FFV1" else
                       "h263" if fourcc in H263_ENTRIES else
                       _ISOM_ENTRIES.get(fourcc) or
@@ -349,14 +354,24 @@ class Mp4File:
             n, t = struct.unpack(">I4s", entry[pos:pos + 8])
             if n < 8:
                 break
-            if t == b"esds" and fourcc == "mp4v":
+            if t == b"esds" and (fourcc == "mp4v" or self.codec == "h264"):
+                # mov_read_esds: the objectTypeIndication names the codec,
+                # whatever the entry's fourcc
                 self.codec, self.dsi = _esds(entry[pos + 8:pos + n],
                                              self.path)
             elif t == b"glbl" and fourcc != "mp4v":   # the extradata
                 self.dsi = entry[pos + 8:pos + n]
             elif t == b"vpcC":
                 self._vpcc(entry[pos + 8:pos + n])
+            elif t == b"avcC" and fourcc in H264_ENTRIES and \
+                    self.codec == "h264":
+                self.dsi = entry[pos + 8:pos + n]
             pos += n
+        if self.codec == "h264" and not self.dsi:
+            # FFmpeg's h264 decoder cannot split the samples' NAL units
+            # without the avcC's length size: cv2 reads no frame
+            raise ValueError(f"{self.path}: an {fourcc!r} sample entry "
+                             "without its avcC box")
 
     def _vpcc(self, body: bytes) -> None:
         """VP9's codec configuration (version 1): its profile, bit depth

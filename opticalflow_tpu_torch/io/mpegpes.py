@@ -109,13 +109,14 @@ def _codes(data: bytes):
 def split_starts(chunks, codec: str) -> Tuple[List[int], List[int], int]:
     """Split a stream given as (stream offset, bytes) chunks in order into
     pictures as FFmpeg's parser for ``codec`` (``mpeg12``, ``mpeg4``,
-    ``h263``, ``dirac``) splits it: (each sample's start offset, each
+    ``h263``, ``dirac``, ``h264``) splits it: (each sample's start offset, each
     sample's picture or VOP start code offset, the stream's length)."""
-    if codec == "dirac":
+    if codec in ("dirac", "h264"):
         chunks = list(chunks)
         base = chunks[0][0] if chunks else 0
         data = b"".join(c for _, c in chunks)
-        starts, pictures, _ = split_units(data)
+        starts, pictures = (split_h264(data) if codec == "h264"
+                            else split_units(data)[:2])
         return ([base + o for o in starts], [base + o for o in pictures],
                 base + len(data))
     starts: List[int] = []
@@ -164,6 +165,68 @@ def split_starts(chunks, codec: str) -> Tuple[List[int], List[int], int]:
         starts.append(cur)
     # a picture start code of a sample that never closed has no sample
     return starts, pictures[:len(starts)], total
+
+
+def _ue_pair(data: bytes, i: int) -> Optional[Tuple[int, int]]:
+    """The first two exp-Golomb values after the NAL header byte at ``i``
+    (a slice's first_mb_in_slice and slice_type; emulation prevention
+    ignored as FFmpeg's parser ignores it), None where the data ends
+    first."""
+    b = _Bits(data, i + 1)
+    out = []
+    for _ in range(2):
+        lz = 0
+        while lz < 32 and not b.get(1):
+            lz += 1
+            if b.pos > 8 * len(data):
+                return None
+        out.append((1 << lz) - 1 + b.get(lz))
+    return (out[0], out[1]) if b.pos <= 8 * len(data) else None
+
+
+def split_h264(data: bytes) -> Tuple[List[int], List[int]]:
+    """FFmpeg's h264 parser (``h264_find_frame_end``) over an Annex B
+    stream: an access unit ends before an SEI, SPS, PPS or AUD that follows
+    a slice of it, or before a slice whose first_mb_in_slice is not past the
+    last slice's; its boundary takes a leading zero of a 4-byte start code.
+    (each access unit's start, its first slice's start code)."""
+    starts: List[int] = []
+    slices: List[int] = []
+    found, last_mb, cur = False, -1, 0
+    i = data.find(b"\x00\x00\x01")
+    while 0 <= i and i + 3 < len(data):
+        t = data[i + 3] & 31
+        at = i - 1 if i and data[i - 1] == 0 else i
+        if t in (6, 7, 8, 9):
+            if found:
+                starts.append(cur)
+                cur, found = at, False
+        elif t in (1, 2, 5):
+            head = _ue_pair(data, i + 3)
+            if head is not None:
+                if found and head[0] <= last_mb:
+                    starts.append(cur)
+                    cur = at
+                    slices.append(i)
+                elif not found:
+                    found = True
+                    slices.append(i)
+                last_mb = head[0]
+        i = data.find(b"\x00\x00\x01", i + 3)
+    if found:
+        starts.append(cur)
+    return starts, slices[:len(starts)]
+
+
+def h264_slice_type(head: bytes) -> int:
+    """1 where the slice whose start code begins ``head`` is an IDR or I
+    slice, else 2."""
+    if len(head) < 4:
+        return 2
+    if head[3] & 31 == 5:
+        return 1
+    pair = _ue_pair(head, 3)
+    return 1 if pair is not None and pair[1] % 5 == 2 else 2
 
 
 def mpeg4_vop_type(sample: bytes) -> Optional[int]:
@@ -272,6 +335,9 @@ class PesVideo:
                 self.types.append(t[0] if t else 0)
             elif self.codec == "mpeg4":
                 self.types.append(1 if mpeg4_vop_type(head) == 0 else 2)
+            elif self.codec == "h264":
+                head = self._es(f, o, 16)
+                self.types.append(h264_slice_type(head))
             elif self.codec == "dirac":     # no reference: intra
                 self.types.append(1 if len(head) > 4 and head[4] & 3 == 0
                                   else 2)

@@ -14,8 +14,10 @@ demuxer reads it for ``cv2.VideoCapture``:
     ``runtime/mpeg12``, 0x10 (MPEG-4 Part 2) by ``runtime/mpeg4``, 0xD1
     (Dirac/VC-2, what FFmpeg's muxer writes with a ``drac`` registration
     descriptor) by ``runtime/dirac``, its PES payloads split at parse
-    units and its rate the sequence header's.  Other
-    video (H.264 0x1B, HEVC 0x24, ...) raises ``Unsupported`` naming its
+    units and its rate the sequence header's, 0x1B (H.264) by
+    ``runtime/h264``, split into access units as FFmpeg's h264 parser
+    splits them, its rate the VUI's timing (else fitted to the PTS).  Other
+    video (HEVC 0x24, ...) raises ``Unsupported`` naming its
     type; a stream with no video (H.263 or FFV1 muxed as private data,
     0x06, which cv2 does not open either) raises too;
   * PES packets reassembled over ``payload_unit_start_indicator``, bounded
@@ -57,6 +59,7 @@ from opticalflow_tpu_torch.io.mkv import _N_STD, _rfps, std_rate
 from opticalflow_tpu_torch.io.nut import crc
 from opticalflow_tpu_torch.runtime.dirac import \
     sequence_info as dirac_sequence
+from opticalflow_tpu_torch.runtime.h264 import probe as h264_probe
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import sequence_info
 
@@ -66,8 +69,9 @@ __all__ = ["MpegTsFile", "TsWriter", "EXTENSIONS", "TIME_BASE",
 EXTENSIONS = (".ts", ".m2ts", ".mts", ".m2t")
 _SYNC, _PACKET = 0x47, 188
 _PROBE, _MARGIN = 8192, 8            # PROBE_PACKET_MAX_BUF, _MARGIN
-_VIDEO = {0x01: "mpeg12", 0x02: "mpeg12", 0x10: "mpeg4", 0xD1: "dirac"}
-_OTHER_VIDEO = {0x1B: "H.264", 0x20: "H.264 (MVC)", 0x24: "HEVC",
+_VIDEO = {0x01: "mpeg12", 0x02: "mpeg12", 0x10: "mpeg4", 0xD1: "dirac",
+          0x1B: "h264"}
+_OTHER_VIDEO = {0x20: "H.264 (MVC)", 0x24: "HEVC",
                 0x33: "VVC", 0x21: "JPEG 2000", 0x42: "CAVS",
                 0xD1: "Dirac", 0xD2: "AVS2", 0xD4: "AVS3", 0xEA: "VC-1"}
 _NOT_SEEN = -1
@@ -150,6 +154,15 @@ class MpegTsFile(PesVideo):
                                  "header")
             self.width, self.height, self.mpeg2 = info.width, info.height, False
             self.rate = Fraction(*info.rate)
+        elif self.codec == "h264":
+            info = h264_probe(sample, path)
+            if info is None:
+                raise ValueError(f"{path}: H.264 video without an SPS before "
+                                 "its first picture")
+            self.width, self.height, self.mpeg2 = info.width, info.height, False
+            # the VUI's timing where it has one, else none (fitted)
+            self.rate = info.fps or Fraction(0)
+            self.reorder = info.reorder or 0
         else:
             self.mpeg2 = False
             self.width = self.height = 0       # the decoder reads the VOL
@@ -161,6 +174,7 @@ class MpegTsFile(PesVideo):
         # compute_pkt_fields' delay: the decoder's has_b_frames (MPEG-1/2:
         # the sequence is not low delay; MPEG-4: the parser saw a B-VOP)
         self.delay = (not seq.low_delay if self.codec == "mpeg12"
+                      else self.reorder > 0 if self.codec == "h264"
                       else 3 in self.types)
         # the parsed packets mpegts_get_dts reads, in file order: (pos of
         # the PES packet the picture starts in, PTS, DTS, B-picture)
@@ -343,7 +357,7 @@ class MpegTsFile(PesVideo):
         without a fixed VOP rate gives its time resolution a second, as
         FFmpeg's and the port's encoders write at 30000/1001); None where
         it trusts the VOL's."""
-        if self.codec != "mpeg4" or 5 <= self.rate < 101:
+        if self.codec not in ("mpeg4", "h264") or 5 <= self.rate < 101:
             return None
         times = [p.pts for p in self.pes if p.pts is not None]
         fit = _rfps(times, 1 / TIME_BASE)

@@ -22,8 +22,15 @@ muxers and codecs and reads what those read, frame for frame:
     in MP4), decoded by ``runtime/jpeg``'s FFmpeg flavour; raw I420 in AVI
     and Matroska too.  Written as MPEG-4 Part 2 (an I-VOP every 12 frames,
     as cv2's writer does; an odd side cropped to even, as it does),
-    ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  H.264, HEVC, AV1,
-    VP9 profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
+    ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  HEVC, AV1, VP9
+    profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
+  * **H.264** (``runtime/h264``): progressive 8-bit 4:2:0 I and P slices,
+    CAVLC and CABAC, in MP4/QuickTime (``avc1``/``avc3`` with the avcC),
+    Matroska (``V_MPEG4/ISO/AVC``), AVI, NUT and ASF (riff.c's tags),
+    FLV (codec id 7), MPEG-TS (0x1B) and raw ``.h264``/``.264``/``.avc``;
+    the size is the SPS's crop, key frames the IDR and I pictures, frames
+    counted in the order FFmpeg's decoder hands them over; B slices,
+    field coding and other layouts raise naming item 8;
   * **H.263** baseline with Annex F (``H263``, ``U263``, ... in AVI,
     ``s263``/``h263`` in ``.3gp``, ``.3g2`` and ``.mov``, ``H263`` under
     ``V_MS/VFW/FOURCC`` in Matroska: what ``cv2.VideoWriter`` writes for
@@ -177,6 +184,7 @@ from opticalflow_tpu_torch.io.mkv import MkvFile, MkvWriter
 from opticalflow_tpu_torch.io.mp4 import Mp4File, Mp4Writer
 from opticalflow_tpu_torch.io.elementary import (DIRAC_EXTENSIONS,
                                                  H263_EXTENSIONS,
+                                                 H264_EXTENSIONS,
                                                  MPEG_EXTENSIONS,
                                                  ElementaryFile)
 from opticalflow_tpu_torch.io.mpegps import EXTENSIONS as _MPG_EXTS
@@ -193,6 +201,9 @@ from opticalflow_tpu_torch.runtime.dirac import \
 from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
+from opticalflow_tpu_torch.runtime.h264 import Decoder as H264Decoder
+from opticalflow_tpu_torch.runtime.h264 import is_keyframe as h264_is_idr
+from opticalflow_tpu_torch.runtime.h264 import probe as h264_probe
 from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import Decoder as J2kDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import probe as j2k_size
@@ -227,16 +238,18 @@ __all__ = ["read_frames", "read_frame", "video_info", "AsyncVideoWriter",
 
 FORMATS = ("an .mp4, .mov, .3gp, .3g2, .avi, .mkv, .webm or .nut file "
            "(MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson H.263, MS-MPEG4 "
-           "v2/v3, WMV7/8, Snow, Dirac/VC-2, JPEG 2000, VP8, VP9, FFV1, "
+           "v2/v3, WMV7/8, Snow, Dirac/VC-2, JPEG 2000, H.264, VP8, VP9, "
+           "FFV1, "
            "HuffYUV, FFVHuff, Ut Video, MagicYUV, ASUS V1/V2, PNG, Motion "
            "JPEG or yuv4; raw I420, YV12, NV12, Y41B, Y800 and RGBA in .avi, "
            ".mkv and .nut), an "
-           ".flv file (Sorenson H.263), a .wmv or .asf file (MS-MPEG4 v2/v3, "
-           "WMV7/8, Snow, Dirac, JPEG 2000 and the AVI fourccs above), an "
+           ".flv file (Sorenson H.263, H.264), a .wmv or .asf file (MS-MPEG4 "
+           "v2/v3, WMV7/8, Snow, Dirac, JPEG 2000 and the AVI fourccs above), "
+           "an "
            "MPEG program stream (.mpg, .mpeg, .vob) "
            "or transport stream (.ts, .m2ts, .mts, .m2t: MPEG-1, MPEG-2, "
-           "MPEG-4 Part 2 or Dirac), an elementary stream (.m1v, .m2v, .mpv, "
-           ".h263, .263, .drc), a .y4m "
+           "MPEG-4 Part 2, Dirac or H.264), an elementary stream (.m1v, .m2v, "
+           ".mpv, .h263, .263, .drc, .h264, .264, .avc), a .y4m "
            "file (YUV4MPEG2, 8-bit 4:2:0), an image sequence named by a "
            "pattern (frames/%06d.jpg; JPEG or PNG) or one image file, or a "
            "directory of PNG or JPEG frames")
@@ -255,7 +268,8 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
 _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-_ES_EXTS = MPEG_EXTENSIONS + H263_EXTENSIONS + DIRAC_EXTENSIONS
+_ES_EXTS = (MPEG_EXTENSIONS + H263_EXTENSIONS + DIRAC_EXTENSIONS
+            + H264_EXTENSIONS)
 _ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv", "asf", "nut")
 DEFAULT_FPS = 30.0     # a frame directory's, as the JAX package's
 Y4M_FPS = 25.0         # FFmpeg's yuv4mpeg demuxer without an F tag
@@ -315,8 +329,8 @@ def _kind(path: str, writing: bool = False) -> str:
     if low.endswith(_ES_EXTS):
         if writing:
             raise _refuse_writing(path, "an elementary stream holds MPEG-1/2,"
-                                        " H.263 or Dirac, which the port does "
-                                        "not encode")
+                                        " H.263, Dirac or H.264, which the "
+                                        "port does not encode")
         return "es"
     if low.endswith(_FLV_EXTS):
         if writing:
@@ -495,6 +509,8 @@ class EncodedVideo:
             self.width, self.height = size
         elif box.codec == "mpeg12":
             self._mpeg12_layout()
+        elif box.codec == "h264":
+            self._h264_layout()
         elif box.codec in ("h263", "flv1"):
             sorenson = box.codec == "flv1"
             with open(path, "rb") as f:
@@ -549,6 +565,9 @@ class EncodedVideo:
         self.full_range = box.codec != "vp8" and getattr(box, "full_range",
                                                          False)
         self.matrix = "bt601"
+        if box.codec == "h264":   # FFmpeg's frames carry the SPS's VUI
+            self.chroma, self.full_range, self.matrix = (
+                self.h264.chroma, self.h264.full_range, self.h264.matrix)
         self.shifts, self.alpha = (1, 1), False     # 4:2:0, no alpha plane
         self.bits = 8
         # swscale's scaler even where its unscaled yuv2rgb would take the
@@ -602,6 +621,42 @@ class EncodedVideo:
         self.keyframes = [i for i, t in enumerate(types)
                           if t == 1 and self.display[i] is not None] or [0]
         self._key_display = [self.display[i] for i in self.keyframes]
+
+    def _h264_layout(self) -> None:
+        """An H.264 stream's size (its first SPS, the crop applied), and the
+        samples a decoder can start from: the container's key frames that
+        hold an IDR or I slice (FFmpeg's decoder, flushed, hands over no
+        picture before one)."""
+        box = self.box
+        with open(self.path, "rb") as f:
+            # the avcC's SPS, else (Annex B) the first key frame's
+            info = h264_probe(box.dsi or box.sample(f, self.keyframes[0]),
+                              self.path)
+            if info is None:
+                raise ValueError(f"{self.path}: H.264 video without an SPS")
+            keys = [i for i in self.keyframes
+                    if h264_is_idr(box.sample(f, i), self._length_size)]
+            self.keyframes = keys or self.keyframes
+        self.h264 = info
+        self.width, self.height = info.width, info.height
+
+    @property
+    def h264_types(self) -> list:
+        """1 where a sample holds an IDR or I slice, else 2 (read once, at
+        the first seek that needs them: every sample is read)."""
+        if getattr(self, "_h264_types", None) is None:
+            with open(self.path, "rb") as f:
+                self._h264_types = [
+                    1 if h264_is_idr(self.box.sample(f, i),
+                                     self._length_size) else 2
+                    for i in range(self.samples)]
+        return self._h264_types
+
+    @property
+    def _length_size(self) -> int:
+        """The NAL length prefix of an avcC's samples, 0 for Annex B."""
+        dsi = self.box.dsi
+        return (dsi[4] & 3) + 1 if len(dsi) > 4 and dsi[0] == 1 else 0
 
     def seek_target(self, index: int, capture: Optional[dict] = None
                     ) -> Optional[int]:
@@ -733,11 +788,17 @@ class EncodedVideo:
                 out = [self.display[s0 + i] for i in output_order(
                     self.types[s0:], closed, self.low_delay,
                     [r - s0 for r in self.resets if r > s0])]
+            elif box.codec == "h264":
+                # FFmpeg's decoder, flushed, hands over nothing before an I
+                # picture recovers it
+                first_i = next((i for i in range(s0, self.samples)
+                                if self.h264_types[i] == 1), self.samples)
+                out = list(range(first_i, self.samples))
             else:
                 out = list(range(s0, self.samples))
             # MPEG-4 from a P-VOP: FFmpeg decodes over a grey picture until
             # the next I-VOP, frames the port does not reproduce
-            grey = (0 if mpeg12 or not pes else
+            grey = (0 if mpeg12 or not pes or box.codec == "h264" else
                     next((i for i in range(s0, self.samples)
                           if box.types[i] == 1), self.samples) - s0)
             restart = s0 if box.codec == "dirac" else None
@@ -770,6 +831,8 @@ class EncodedVideo:
     def _decoder(self, seeking: bool = False):
         if self.box.codec == "mpeg12":
             return Mpeg12Decoder(what=self.path, extradata=self.box.dsi)
+        if self.box.codec == "h264":
+            return H264Decoder(what=self.path, extradata=self.box.dsi)
         if self.box.codec == "vp8":
             return Vp8Decoder(what=self.path)
         if self.box.codec == "vp9":
@@ -879,6 +942,9 @@ class EncodedVideo:
         if self.box.codec == "mpeg12":
             yield from self._mpeg12_planes(start)
             return
+        if self.box.codec == "h264":
+            yield from self._h264_planes(start, restart)
+            return
         j = max(bisect_right(self.keyframes, start) - 1, 0)
         if j and self._cut(self.keyframes[j]):
             # FFmpeg conceals a cut I-VOP from the picture before it, which
@@ -928,6 +994,35 @@ class EncodedVideo:
                     self.full_range = ranges[slot]
                 if p is not None and i >= start:
                     yield i, p
+            if self.box.codec == "mpeg4":
+                p = dec.flush()
+                if p is not None and self.samples - 1 >= start:
+                    yield self.samples - 1, p
+
+    def _h264_planes(self, start: int, restart: Optional[int] = None
+                     ) -> Iterator[Tuple[int, tuple]]:
+        """(display index, planes) of an H.264 stream's pictures from frame
+        ``start`` on, decoded from the key frame before it (or ``restart``),
+        as FFmpeg's decoder hands them over: through its reorder buffer (P
+        pictures may come out in another order than their packets, as their
+        POCs say) and the flush at the end.  A key frame shows as many
+        pictures before it as packets (an IDR picture or recovery point
+        hands over all the decoder holds first), so its n-th picture handed
+        over is frame k + n, as cv2 counts frames."""
+        if not 0 <= start < self.samples:
+            raise IndexError(f"frame {start} of {self.path}, which has "
+                             f"{self.samples}")
+        j = max(bisect_right(self.keyframes, start) - 1, 0)
+        k = restart if restart is not None else self.keyframes[j]
+        dec = self._decoder()
+        n = k
+        with open(self.path, "rb") as f:
+            for i in range(k, self.samples + 1):
+                for p in (dec.decode(self.box.sample(f, i))
+                          if i < self.samples else dec.flush()):
+                    if n >= start:
+                        yield n, p
+                    n += 1
 
     def _mpeg12_planes(self, start: int) -> Iterator[Tuple[int, tuple]]:
         """(display index, planes) of an MPEG-1/2 stream from display index

@@ -1,0 +1,277 @@
+"""ctypes binding of the port's H.264 decoder (``h264.cpp``).
+
+:class:`Decoder` turns H.264 packets (an access unit each, Annex B or with
+the NAL length prefix of the container's ``avcC`` record) into yuv420p
+planes, bit-exact to FFmpeg's ``h264`` decoder, which ``cv2.VideoCapture``
+runs, and hands them over as FFmpeg does: through its reorder buffer, none
+before the first IDR picture or recovery point, the rest at
+:meth:`Decoder.flush`, cropped as FFmpeg crops them.  Progressive 8-bit
+4:2:0 I and P slices are read, in CAVLC and CABAC, with the 8x8 transform,
+scaling matrices, weighted prediction, long-term references and several
+slices a picture.  The library is built with ``g++`` at first use into
+``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a failed build
+raises with the compiler's output.  Its calls release the GIL.  Damaged
+data raises ``ValueError``; B, SP and SI slices, field pictures and MBAFF,
+other than 8-bit 4:2:0, lossless coding, slice groups, data partitioning,
+redundant pictures, a gap in frame_num and whatever FFmpeg would conceal
+raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from fractions import Fraction
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from opticalflow_tpu_torch.runtime._native import build_and_load
+from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+from opticalflow_tpu_torch.runtime.mpeg12 import matrix
+
+__all__ = ["Decoder", "FEATURES", "MODES", "StreamInfo", "probe",
+           "chroma_site", "is_keyframe", "nal_units", "load"]
+
+_SRC = Path(__file__).resolve().parent / "h264.cpp"
+_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I64P = ctypes.POINTER(_I64)
+_MSG = 400
+_OK, _NO_FRAME, _UNSUPPORTED = 0, 1, 2
+
+Planes = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+# the decoder's feature bits (h264.cpp's Feature), in order
+FEATURES = (
+    "cavlc", "cabac", "annexb", "avcc", "i_pcm", "i4x4", "i8x8", "i16x16",
+    "p_16x16", "p_16x8", "p_8x16", "p_8x8", "p_8x8ref0", "sub_8x8",
+    "sub_8x4", "sub_4x8", "sub_4x4", "p_skip", "multi_ref", "list_mod",
+    "long_term_list_mod", "long_term", "mmco1", "mmco2", "mmco3", "mmco4",
+    "mmco5", "mmco6", "sliding_window", "weighted", "sps_scaling",
+    "pps_scaling", "fallback_a", "fallback_b", "default_list",
+    "chroma_qp_offset", "second_chroma_qp_offset", "qp_delta", "qp_wrap",
+    "deblock_off", "deblock_slice_edges", "deblock_offsets", "multi_slice",
+    "poc0", "poc1", "poc2", "vui", "reorder", "full_range",
+    "colour_description", "chroma_loc", "cropping", "left_crop_dropped",
+    "recovery_point", "mid_idr", "non_idr_i", "constrained_intra",
+    "transform_8x8", "level_escape", "non_ref", "edge_mv",
+    "reorder_guessed", "params_resent")
+
+# the intra modes reached (h264.cpp's second word): each 4x4, 8x8, 16x16
+# and chroma mode, and each again where the block lacked its top or left
+# neighbours (a picture or slice edge)
+_BASE = ([f"i4x4_{m}" for m in range(9)] + [f"i8x8_{m}" for m in range(9)]
+         + [f"i16x16_{m}" for m in range(4)]
+         + [f"chroma_{m}" for m in range(4)])
+MODES = tuple(_BASE + [f"{n}_edge" for n in _BASE])
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library; raises if it cannot."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = build_and_load(_SRC, _FLAGS, "the H.264 decoder")
+        sig = {
+            "h264_dec_new": (_P, []),
+            "h264_dec_free": (None, [_P]),
+            "h264_dec_extradata": (ctypes.c_int, [_P, ctypes.c_char_p, _I64,
+                                                  ctypes.c_char_p, _I64]),
+            "h264_dec_decode": (ctypes.c_int, [_P, ctypes.c_char_p, _I64,
+                                               ctypes.c_int, _I64P,
+                                               ctypes.c_char_p, _I64]),
+            "h264_dec_output": (None, [_P, _I64, _P, _P, _P]),
+            "h264_dec_features": (ctypes.c_uint64, [_P]),
+            "h264_dec_modes": (ctypes.c_uint64, [_P]),
+            "h264_probe": (ctypes.c_int, [ctypes.c_char_p, _I64, _I64P,
+                                          ctypes.c_char_p, _I64]),
+        }
+        for name, (res, args) in sig.items():
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+        _lib = lib
+        return lib
+
+
+def _raise(rc: int, msg, what: str):
+    text = msg.value.decode("utf-8", "replace")
+    if rc == _UNSUPPORTED:
+        raise Unsupported(f"{what}: H.264 with {text}, not read by the port "
+                          f"({ITEM_8})")
+    raise ValueError(f"{what}: corrupt H.264 video: {text}")
+
+
+# the chroma site FFmpeg reports for a VUI's chroma_sample_loc_type (left
+# where the VUI names none), as swscale's (x, y) position in 1/256 samples
+_SITES = {-1: (0, 128), 0: (0, 128), 1: (128, 128), 2: (0, 0), 3: (128, 0),
+          4: (0, 256), 5: (128, 256)}
+
+
+def chroma_site(loc: int) -> Tuple[int, int]:
+    """swscale's chroma position for chroma_sample_loc_type ``loc`` (-1:
+    none sent)."""
+    return _SITES.get(loc, _SITES[-1])
+
+
+class StreamInfo:
+    """An SPS's picture size (its crop applied: the size cv2 reports and
+    scales every frame to), range, swscale matrix, chroma site (an (x, y)
+    position, ``chroma_site``), frame rate from its VUI timing (None without
+    one), reorder frames (None without a bitstream restriction) and
+    profile."""
+
+    def __init__(self, info):
+        self.width, self.height = int(info[0]), int(info[1])
+        self.full_range = bool(info[2])
+        self.matrix = matrix(int(info[3]))
+        self.chroma = chroma_site(int(info[4]))
+        tick, scale = int(info[5]), int(info[6])
+        self.fps = Fraction(scale, 2 * tick) if tick and scale else None
+        self.reorder = None if info[7] < 0 else int(info[7])
+        self.profile = int(info[8])
+
+
+def probe(data: bytes, what: str = "video") -> Optional[StreamInfo]:
+    """The first SPS in ``data`` (Annex B, or an ``avcC`` record), or None
+    where there is none."""
+    info = (_I64 * 9)()
+    msg = ctypes.create_string_buffer(_MSG)
+    data = bytes(data)
+    rc = load().h264_probe(data, len(data), info, msg, _MSG)
+    if rc == _NO_FRAME:
+        return None
+    if rc != _OK:
+        _raise(rc, msg, what)
+    return StreamInfo(info)
+
+
+def nal_units(data: bytes, length_size: int = 0) -> List[bytes]:
+    """The NAL units of a packet: Annex B (``length_size`` 0) or each
+    behind its big-endian length."""
+    out = []
+    if not length_size:
+        i = data.find(b"\0\0\1")
+        while i >= 0:
+            j = data.find(b"\0\0\1", i + 3)
+            end = len(data) if j < 0 else j
+            out.append(data[i + 3:end].rstrip(b"\0"))
+            i = j
+        return [n for n in out if n]
+    p = 0
+    while p + length_size <= len(data):
+        n = int.from_bytes(data[p:p + length_size], "big")
+        out.append(data[p + length_size:p + length_size + n])
+        p += length_size + n
+    return [n for n in out if n]
+
+
+def _slice_type(unit: bytes) -> Optional[int]:
+    """slice_type % 5 of a slice NAL unit (its second exp-Golomb value; the
+    first bytes' emulation prevention ignored), None where it ends first."""
+    bits = int.from_bytes(unit[1:9].ljust(8, b"\0"), "big")
+    pos, vals = 0, []
+    for _ in range(2):
+        lz = 0
+        while lz < 31 and not bits >> (63 - pos - lz) & 1:
+            lz += 1
+        pos += lz + 1
+        if pos + lz > 64:
+            return None
+        vals.append((1 << lz) - 1 + ((bits >> (64 - pos - lz)) & ((1 << lz) - 1)
+                                     if lz else 0))
+        pos += lz
+    return vals[1] % 5
+
+
+def is_keyframe(data: bytes, length_size: int = 0) -> bool:
+    """Whether a packet holds an IDR slice or an I slice: a picture
+    FFmpeg's decoder, flushed, starts handing over from."""
+    return any(n[0] & 31 == 5 or (n[0] & 31 == 1 and _slice_type(n) == 2)
+               for n in nal_units(data, length_size))
+
+
+class Decoder:
+    """One stream's decoder; ``what`` names the source in errors,
+    ``extradata`` is the container's ``avcC`` record or Annex B parameter
+    sets.  After a call, ``width`` and ``height`` are the planes' (FFmpeg's
+    frame: a left crop that would unalign them is not applied),
+    ``full_range``, ``matrix`` (swscale's) and ``chroma`` (its chroma site)
+    the stream's, and ``serials`` gives,
+    for each picture handed over, the packet it came in (0 for the
+    decoder's first)."""
+
+    def __init__(self, what: str = "video", extradata: bytes = b""):
+        self._lib = load()
+        self._h = self._lib.h264_dec_new()
+        self.what = what
+        self.width = self.height = 0
+        self.full_range = False
+        self.matrix = "bt601"
+        self.chroma = chroma_site(-1)
+        self.serials: List[int] = []
+        if extradata:
+            msg = ctypes.create_string_buffer(_MSG)
+            data = bytes(extradata)
+            rc = self._lib.h264_dec_extradata(self._h, data, len(data), msg,
+                                              _MSG)
+            if rc != _OK:
+                _raise(rc, msg, what)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.h264_dec_free(h)
+
+    def _call(self, data: bytes, end: bool) -> List[Planes]:
+        info = (_I64 * 40)()
+        msg = ctypes.create_string_buffer(_MSG)
+        rc = self._lib.h264_dec_decode(self._h, data, len(data), int(end),
+                                       info, msg, _MSG)
+        if rc not in (_OK, _NO_FRAME):
+            _raise(rc, msg, self.what)
+        if rc == _NO_FRAME:
+            self.serials = []
+            return []
+        self.width, self.height = int(info[1]), int(info[2])
+        self.full_range = bool(info[3])
+        self.matrix = matrix(int(info[4]))
+        self.chroma = chroma_site(int(info[5]))
+        w, h = self.width, self.height
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        out = []
+        for i in range(int(info[0])):
+            y = np.empty((h, w), np.uint8)
+            u = np.empty((ch, cw), np.uint8)
+            v = np.empty((ch, cw), np.uint8)
+            self._lib.h264_dec_output(self._h, i, y.ctypes.data,
+                                      u.ctypes.data, v.ctypes.data)
+            out.append((y, u, v))
+        self.serials = [int(info[6 + i]) for i in range(len(out))]
+        return out
+
+    def decode(self, packet: bytes) -> List[Planes]:
+        """One packet → the planes of the pictures it hands over (none or
+        one)."""
+        return self._call(bytes(packet), False)
+
+    def flush(self) -> List[Planes]:
+        """The end of the stream → the pictures still held for reordering,
+        in FFmpeg's order."""
+        return self._call(b"", True)
+
+    @property
+    def features(self) -> List[str]:
+        """The syntax and tools of the pictures decoded so far, by name
+        (``FEATURES``, then ``MODES``)."""
+        bits = int(self._lib.h264_dec_features(self._h))
+        modes = int(self._lib.h264_dec_modes(self._h))
+        return ([n for i, n in enumerate(FEATURES) if bits >> i & 1]
+                + [n for i, n in enumerate(MODES) if modes >> i & 1])

@@ -385,6 +385,10 @@ class Decoder {
     std::vector<int> packets;
     std::vector<int16_t> mv8, last_mv8;
     std::vector<uint8_t> intra, skipped;
+    // the last VOP was not coded: at the end of the stream FFmpeg hands
+    // over the last picture again (h263dec.c's flush of a stream that
+    // ended with an N-VOP)
+    bool skipped_last = false;
     bool have_last_mv8 = false;
     // what FFmpeg's context holds when a macroblock fails, which
     // ff_h263_update_motion_val writes for it: s->mb_intra and s->mv[0][0]
@@ -457,16 +461,20 @@ class Decoder {
     }
 
     int decode_vop() {
+        skipped_last = false;
         if (!cut) return decode_vop_data();
         // a cut VOP whose header or first macroblock fails is dropped, as
-        // FFmpeg drops it; one cut right after its start code FFmpeg reads
-        // from its padding (and hands over the picture before again),
-        // which the port does not follow
+        // FFmpeg drops it.  One cut right after its start code FFmpeg
+        // parses from the packet's zero padding: a VOP whose vop_coded bit
+        // is 0 (see ``skipped_last``)
+        if (!br.size) {
+            skipped_last = true;
+            return OM4_NO_FRAME;
+        }
         try {
             return decode_vop_data();
         } catch (const Failure& f) {
             if (f.kind != kCorrupt || error_mb >= 0) throw;
-            if (!br.size) UNSUPPORTED("error concealment of a VOP cut right after its start code");
             return OM4_NO_FRAME;
         }
     }
@@ -480,10 +488,28 @@ class Decoder {
         while (br.get1()) {
             if (br.left() <= 0) CORRUPT("truncated VOP header");
         }
-        br.marker("before vop_time_increment");
-        br.skip(vol.time_bits);
-        br.marker("after vop_time_increment");
+        if (cut) {
+            // a cut VOP's header runs into the packet's zero padding:
+            // FFmpeg only warns of a bad marker, and where the bit after
+            // the time increment is no marker it guesses time_increment_bits
+            // (decode_vop_header's search), then reads on
+            br.skip(1);
+            if (!(br.show(vol.time_bits + 1) & 1)) {
+                int bits = 1;
+                for (; bits < 16; bits++)
+                    if (type == 1 ? (br.show(bits + 6) & 0x37) == 0x30
+                                  : (br.show(bits + 5) & 0x1f) == 0x18)
+                        break;
+                vol.time_bits = bits;
+            }
+            br.skip(vol.time_bits + 1);
+        } else {
+            br.marker("before vop_time_increment");
+            br.skip(vol.time_bits);
+            br.marker("after vop_time_increment");
+        }
         if (!br.get1()) {   // vop_coded = 0: FFmpeg outputs no picture
+            skipped_last = true;
             br.check();
             return OM4_NO_FRAME;
         }
@@ -2138,6 +2164,17 @@ int om4_dec_decode(void* h, const uint8_t* data, int64_t n, int64_t* wh,
         put_msg(msg, cap, f.msg);
         return f.kind;
     }
+}
+
+// The end of the stream: OM4_OK (the last picture again, its size in
+// wh[0..1]) where the last VOP was not coded, else OM4_NO_FRAME.
+int om4_dec_flush(void* h, int64_t* wh) {
+    Decoder* d = (Decoder*)h;
+    if (!d->skipped_last || !d->have_ref) return OM4_NO_FRAME;
+    d->skipped_last = false;
+    wh[0] = d->vol.width;
+    wh[1] = d->vol.height;
+    return OM4_OK;
 }
 
 // the last concealment (Decoder::concealed): VOP type (1 I, 2 P; 0 none

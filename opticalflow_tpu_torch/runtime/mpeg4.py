@@ -69,6 +69,7 @@ def load() -> ctypes.CDLL:
                                               ctypes.c_int]),
             "om4_dec_output": (None, [_P, _P, _P, _P]),
             "om4_dec_concealment": (None, [_P, _I64P]),
+            "om4_dec_flush": (ctypes.c_int, [_P, _I64P]),
             "om4_yuv420_scale_to_bgr": (ctypes.c_int, [_P, _P, _P]
                                         + [ctypes.c_int] * 10 + [_P]),
             "om4_yuv420_to_bgr": (None, [_P, _P, _P] + [ctypes.c_int] * 8
@@ -162,6 +163,18 @@ class Decoder:
             return None
         if rc != _OK:
             _raise(rc, msg, self.what)
+        return self._output(wh)
+
+    def flush(self) -> Optional[Planes]:
+        """The end of the stream: the last picture again where the last VOP
+        was not coded (FFmpeg's flush after an N-VOP, also one read from a
+        cut VOP's padding), else None."""
+        wh = (_I64 * 2)()
+        if self._lib.om4_dec_flush(self._h, wh) != _OK:
+            return None
+        return self._output(wh)
+
+    def _output(self, wh) -> Planes:
         w, h = int(wh[0]), int(wh[1])
         self.width, self.height = w, h
         cw, ch = (w + 1) // 2, (h + 1) // 2

@@ -44,6 +44,7 @@
 #include <utility>
 #include <vector>
 
+#include "h264_qpel.h"
 #include "rangecoder.h"
 #include "snow_tables.h"
 
@@ -248,84 +249,6 @@ void spatial_idwt(int16_t* buf, int16_t* temp, int width, int height, int stride
 }
 
 // ------------------------------------------------------------ motion compensation
-
-// h264qpel_template.c at 8 bits: put_h264_qpel<size>_mc<x><y>, with the
-// destination's stride apart from the source's
-void h264_lowpass_h(uint8_t* dst, int ds, const uint8_t* s, int ss, int n) {
-    for (int y = 0; y < n; y++, dst += ds, s += ss)
-        for (int x = 0; x < n; x++)
-            dst[x] = clip8((20 * (s[x] + s[x + 1]) - 5 * (s[x - 1] + s[x + 2]) + (s[x - 2] + s[x + 3]) + 16) >> 5);
-}
-
-void h264_lowpass_v(uint8_t* dst, int ds, const uint8_t* s, int ss, int n) {
-    for (int y = 0; y < n; y++, dst += ds, s += ss)
-        for (int x = 0; x < n; x++)
-            dst[x] = clip8((20 * (s[x] + s[x + ss]) - 5 * (s[x - ss] + s[x + 2 * ss]) + (s[x - 2 * ss] + s[x + 3 * ss]) +
-                            16) >> 5);
-}
-
-void h264_lowpass_hv(uint8_t* dst, int ds, const uint8_t* s, int ss, int n) {
-    int16_t tmp[(16 + 5) * 16];
-    for (int y = -2; y < n + 3; y++) {
-        const uint8_t* r = s + y * ss;
-        for (int x = 0; x < n; x++)
-            tmp[(y + 2) * 16 + x] = int16_t(20 * (r[x] + r[x + 1]) - 5 * (r[x - 1] + r[x + 2]) + (r[x - 2] + r[x + 3]));
-    }
-    for (int y = 0; y < n; y++, dst += ds) {
-        const int16_t* t = tmp + (y + 2) * 16;
-        for (int x = 0; x < n; x++)
-            dst[x] = clip8((20 * (t[x] + t[x + 16]) - 5 * (t[x - 16] + t[x + 32]) + (t[x - 32] + t[x + 48]) + 512) >>
-                           10);
-    }
-}
-
-void avg2(uint8_t* dst, int ds, const uint8_t* a, int as, const uint8_t* b, int bs, int n) {
-    for (int y = 0; y < n; y++, dst += ds, a += as, b += bs)
-        for (int x = 0; x < n; x++) dst[x] = uint8_t((a[x] + b[x] + 1) >> 1);
-}
-
-// put_h264_qpel_pixels_tab[size][qx + 4 * qy] on an n x n block
-void h264_qpel(uint8_t* dst, int ds, const uint8_t* src, int ss, int n, int qx, int qy) {
-    uint8_t h[16 * 16], v[16 * 16], hv[16 * 16];
-    const int m = qx + 4 * qy;
-    switch (m) {
-    case 0:
-        for (int y = 0; y < n; y++) std::memcpy(dst + y * ds, src + y * ss, n);
-        return;
-    case 2: h264_lowpass_h(dst, ds, src, ss, n); return;
-    case 8: h264_lowpass_v(dst, ds, src, ss, n); return;
-    case 10: h264_lowpass_hv(dst, ds, src, ss, n); return;
-    case 1:
-    case 3:
-        h264_lowpass_h(h, 16, src, ss, n);
-        avg2(dst, ds, src + (m == 3), ss, h, 16, n);
-        return;
-    case 4:
-    case 12:
-        h264_lowpass_v(v, 16, src, ss, n);
-        avg2(dst, ds, src + (m == 12 ? ss : 0), ss, v, 16, n);
-        return;
-    case 5:
-    case 7:
-    case 13:
-    case 15:
-        h264_lowpass_h(h, 16, src + (qy == 3 ? ss : 0), ss, n);
-        h264_lowpass_v(v, 16, src + (qx == 3), ss, n);
-        avg2(dst, ds, h, 16, v, 16, n);
-        return;
-    case 6:
-    case 14:
-        h264_lowpass_h(h, 16, src + (qy == 3 ? ss : 0), ss, n);
-        h264_lowpass_hv(hv, 16, src, ss, n);
-        avg2(dst, ds, h, 16, hv, 16, n);
-        return;
-    default:   // 9, 11
-        h264_lowpass_v(v, 16, src + (qx == 3), ss, n);
-        h264_lowpass_hv(hv, 16, src, ss, n);
-        avg2(dst, ds, v, 16, hv, 16, n);
-        return;
-    }
-}
 
 // the half-pel filter over the 8 samples a[0..7] a step apart, centred
 // between a[3] and a[4]: H.264's 6 taps (fast_mc), else the plane's
@@ -943,13 +866,13 @@ struct Decoder {
         const uint8_t* s = win + 3 + 3 * kWin;
         const int qx = dx >> 2, qy = dy >> 2;
         if (b_w == b_h) {
-            h264_qpel(dst, ds, s, kWin, b_w, qx, qy);
+            h264qpel::put(dst, ds, s, kWin, b_w, qx, qy);
         } else if (b_w == 2 * b_h) {
-            h264_qpel(dst, ds, s, kWin, b_h, qx, qy);
-            h264_qpel(dst + b_h, ds, s + b_h, kWin, b_h, qx, qy);
+            h264qpel::put(dst, ds, s, kWin, b_h, qx, qy);
+            h264qpel::put(dst + b_h, ds, s + b_h, kWin, b_h, qx, qy);
         } else {
-            h264_qpel(dst, ds, s, kWin, b_w, qx, qy);
-            h264_qpel(dst + b_w * ds, ds, s + b_w * kWin, kWin, b_w, qx, qy);
+            h264qpel::put(dst, ds, s, kWin, b_w, qx, qy);
+            h264qpel::put(dst + b_w * ds, ds, s + b_w * kWin, kWin, b_w, qx, qy);
         }
     }
 

@@ -172,6 +172,8 @@ import re
 import struct
 import sys
 
+from typing import Optional
+
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1308,13 +1310,26 @@ class Lavc:
 
 
     def decode(self, packets: list, codec: str, shifts=(1, 1),
-               dtype=np.uint8) -> list:
+               dtype=np.uint8, extradata: bytes = b"") -> list:
         """Packets → the (Y, U, V) planes libavcodec's ``codec`` decoder
         hands over (its pixel format's: ``shifts`` the chroma subsampling,
         ``dtype`` uint16 for samples deeper than 8 bits), read at AVFrame's
-        data (0), linesize (64), width and height (104, 108)."""
+        data (0), linesize (64), width and height (104, 108); ``extradata``
+        goes in through AVCodecParameters (offsets 16 and 24)."""
         c, a, u = self.ct, self.a, self.u
         ctx = a.avcodec_alloc_context3(None)
+        if extradata:
+            a.avcodec_parameters_alloc.restype = c.c_void_p
+            a.avcodec_parameters_to_context.argtypes = [c.c_void_p,
+                                                        c.c_void_p]
+            u.av_mallocz.restype = c.c_void_p
+            u.av_mallocz.argtypes = [c.c_size_t]
+            par = a.avcodec_parameters_alloc()
+            buf = u.av_mallocz(len(extradata) + 64)
+            c.memmove(buf, extradata, len(extradata))
+            c.c_void_p.from_address(par + 16).value = buf
+            c.c_int.from_address(par + 24).value = len(extradata)
+            assert a.avcodec_parameters_to_context(ctx, par) >= 0
         dec = a.avcodec_find_decoder_by_name(codec.encode())
         assert a.avcodec_open2(ctx, dec, None) >= 0, codec
         frame, pkt = u.av_frame_alloc(), a.av_packet_alloc()
@@ -1447,6 +1462,69 @@ class Lavf:
             fn = getattr(L, name)
             fn.restype, fn.argtypes = res, args
         u.av_log_set_level(-8)              # quiet
+        self.u = u
+        for L, name, res, args in (
+                (self.f, "avformat_alloc_output_context2", c.c_int,
+                 [c.POINTER(P), P, c.c_char_p, c.c_char_p]),
+                (self.f, "avformat_new_stream", P, [P, P]),
+                (self.f, "avio_open", c.c_int, [P, c.c_char_p, c.c_int]),
+                (self.f, "avio_closep", c.c_int, [P]),
+                (self.f, "avformat_write_header", c.c_int, [P, P]),
+                (self.f, "av_interleaved_write_frame", c.c_int, [P, P]),
+                (self.f, "av_write_trailer", c.c_int, [P]),
+                (self.f, "avformat_free_context", None, [P]),
+                (self.a, "av_new_packet", c.c_int, [P, c.c_int]),
+                (u, "av_mallocz", P, [c.c_size_t])):
+            fn = getattr(L, name)
+            fn.restype, fn.argtypes = res, args
+
+    def mux(self, path: str, packets: list, extradata: bytes, width: int,
+            height: int, fps: int = 25, fmt: Optional[str] = None,
+            codec_id: int = 27) -> None:
+        """(bytes, key) packets of one video stream (``codec_id``: 27,
+        AV_CODEC_ID_H264) → ``path`` by libavformat's muxer for its
+        extension (or ``fmt``): the stream's codecpar (type, codec, size,
+        yuv420p, ``extradata``) at AVCodecParameters' offsets, pts = dts =
+        the packet's index at ``fps``, through av_interleaved_write_frame."""
+        c, f, a, u = self.ct, self.f, self.a, self.u
+        ctx = c.c_void_p()
+        assert f.avformat_alloc_output_context2(
+            c.byref(ctx), None, fmt.encode() if fmt else None,
+            path.encode()) >= 0, path
+        st = f.avformat_new_stream(ctx, None)
+        par = c.c_void_p.from_address(st + 16).value
+        c.c_int.from_address(par).value = 0                 # video
+        c.c_int.from_address(par + 4).value = codec_id
+        c.c_int.from_address(par + 44).value = 0            # yuv420p
+        c.c_int.from_address(par + 72).value = width
+        c.c_int.from_address(par + 76).value = height
+        if extradata:
+            buf = u.av_mallocz(len(extradata) + 64)
+            c.memmove(buf, extradata, len(extradata))
+            c.c_void_p.from_address(par + 16).value = buf
+            c.c_int.from_address(par + 24).value = len(extradata)
+        for off, v in ((32, (1, fps)), (88, (fps, 1))):     # time_base, fps
+            c.c_int.from_address(st + off).value = v[0]
+            c.c_int.from_address(st + off + 4).value = v[1]
+        pb = ctx.value + 32
+        assert f.avio_open(pb, path.encode(), 2) >= 0, path
+        assert f.avformat_write_header(ctx, None) >= 0, path
+        num, den = (c.c_int.from_address(st + 32).value,
+                    c.c_int.from_address(st + 36).value)
+        step = den // (fps * num)
+        pkt = a.av_packet_alloc()
+        for i, (data, key) in enumerate(packets):
+            assert a.av_new_packet(pkt, len(data)) >= 0
+            c.memmove(c.c_void_p.from_address(pkt + 24).value, data, len(data))
+            c.c_int64.from_address(pkt + 8).value = i * step    # pts
+            c.c_int64.from_address(pkt + 16).value = i * step   # dts
+            c.c_int.from_address(pkt + 36).value = 0            # stream
+            c.c_int.from_address(pkt + 40).value = int(key)     # flags
+            c.c_int64.from_address(pkt + 64).value = step       # duration
+            assert f.av_interleaved_write_frame(ctx, pkt) >= 0, (path, i)
+        assert f.av_write_trailer(ctx) >= 0
+        f.avio_closep(pb)
+        f.avformat_free_context(ctx)
 
     def packets(self, path: str) -> list:
         c, f, a = self.ct, self.f, self.a
@@ -4268,6 +4346,10 @@ def write_manifest(keep: bool = False) -> None:
             manifest["files"][name]["nut_features"] = NutFile(path).features
             manifest["files"][name]["mpeg4_concealment"] = \
                 mpeg4_concealment(path)
+        if name.startswith("h264_"):
+            manifest["files"][name]["h264_features"] = _h264_features(path)
+            manifest["files"][name]["h264_planes"] = [
+                plane_digest(p) for p in h264_lavc_planes(path)]
         if name.startswith("j2k_"):
             try:
                 manifest["files"][name]["jpeg2000_features"] = \
@@ -4277,7 +4359,7 @@ def write_manifest(keep: bool = False) -> None:
                     str(e).split(": ", 1)[1]
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
                              "asv_", "msm_", "snow_", "nut_", "dirac_",
-                             "pvop_", "ivop_", "j2k_", "tag_")
+                             "pvop_", "ivop_", "j2k_", "tag_", "h264_")
                             + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
@@ -4323,9 +4405,12 @@ def write_manifest(keep: bool = False) -> None:
     from opticalflow_tpu_torch.runtime.dirac import FEATURES as DIRAC
     from opticalflow_tpu_torch.io.nut import FEATURES as NUT
     from opticalflow_tpu_torch.runtime.jpeg2000 import FEATURES as J2K
+    from opticalflow_tpu_torch.runtime.h264 import FEATURES as H264
+    from opticalflow_tpu_torch.runtime.h264 import MODES as H264_MODES
     for key, names in (("magicyuv", MAGY), ("flv", SORENSON_FEATURES),
                        ("asv", ASV), ("msmpeg4", MSMP4), ("snow", SNOW),
-                       ("dirac", DIRAC), ("nut", NUT), ("jpeg2000", J2K)):
+                       ("dirac", DIRAC), ("nut", NUT), ("jpeg2000", J2K),
+                       ("h264", H264 + H264_MODES)):
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
@@ -4342,6 +4427,244 @@ def write_manifest(keep: bool = False) -> None:
     print(f"wrote {len(manifest['files'])} files, {total} bytes, to {OUT}")
 
 
+def _h264_features(path: str) -> list:
+    """The port's H.264 decoder's features over the file (flushed)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    v = EncodedVideo(path)
+    dec = v._decoder()
+    with open(path, "rb") as f:
+        for i in range(v.samples):
+            dec.decode(v.box.sample(f, i))
+    dec.flush()
+    return dec.features
+
+
+def h264_lavc_planes(path: str) -> list:
+    """libavcodec's h264 decoder's planes of a file's packets (as FFmpeg's
+    demuxer hands them over; the avcC or Annex B extradata first)."""
+    packets = [p for p, _, _ in Lavf().packets(path)]
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.io.video import EncodedVideo
+    return Lavc().decode(packets, "h264",
+                         extradata=EncodedVideo(path).box.dsi)
+
+
+def plane_digest(planes) -> str:
+    return hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes()
+                                   for p in planes)).hexdigest()
+
+
+def h264_write(path: str, sps: list, pps: list, pics: list,
+               seed: int) -> None:
+    """The syntax writer's stream (``tests/h264_syntax.py``) muxed by
+    libavformat for ``path``'s extension: length-prefixed samples with
+    the avcC in .mp4/.mov/.mkv/.flv, Annex B with the parameter sets as
+    extradata in .avi, .ts, .nut and .wmv, the bare stream in .h264; key
+    frames at the IDR pictures (and at an I picture with a recovery
+    point)."""
+    import h264_syntax as hs
+    aus = hs.write_stream(seed, sps, pps, pics)
+    keys = [p.idr or p.recovery_point is not None for p in pics]
+    s = sps[0]
+    w = 16 * s.mb_w - s.crop[0] - s.crop[1]
+    h = 16 * s.mb_h - s.crop[2] - s.crop[3]
+    ext = os.path.splitext(path)[1]
+    if ext == ".h264":
+        with open(path, "wb") as f:
+            f.write(b"".join(aus))
+    elif ext in (".mp4", ".mov", ".mkv", ".flv"):
+        Lavf().mux(path, [(hs.length_prefixed(a), k)
+                          for a, k in zip(aus, keys)], hs.avcc(sps, pps),
+                   w, h)
+    else:
+        Lavf().mux(path, list(zip(aus, keys)),
+                   b"".join(b"\0\0\0\1" + n
+                            for n in hs.parameter_sets(sps, pps)), w, h)
+
+
+def h264_field_mp4(path: str) -> bytes:
+    """An .mp4 of H.264 the port does not read (frame pictures of a stream
+    with frame_mbs_only_flag 0, which cv2 reads): its bytes."""
+    import h264_syntax as hs
+    h264_write(path, [hs.Sps(frame_mbs_only=False)], [hs.Pps()],
+               [hs.Pic(idr=True, mb_types=("I16",))], seed=3)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def h264_specs() -> dict:
+    """The group's streams: name → (SPS list, PPS list, pictures, file
+    extension), each written once in CAVLC and once in CABAC (the PPS's
+    entropy_coding_mode_flag set by ``h264_fixtures``)."""
+    import h264_syntax as hs
+    I, P, SL = hs.Pic, hs.Pps, hs.SliceSpec
+    mix = ("P", "SKIP", "I4", "I8", "I16", "PCM")
+    intra = ("I4", "I8", "I16", "PCM")
+
+    def p(n, **kw):
+        return [I(kind="P", mb_types=kw.pop("mb_types", mix), **kw)
+                for _ in range(n)]
+    rng = np.random.default_rng(280)
+    lst4 = [int(v) for v in rng.integers(4, 64, 16)]
+    lst4b = [int(v) for v in rng.integers(4, 64, 16)]
+    lst8 = [int(v) for v in rng.integers(4, 64, 64)]
+    S96 = dict(mb_w=6, mb_h=4)
+    slices3 = [SL(0, 7, qp_delta=3, deblock=0, alpha=2, beta=-3,
+                  cabac_init_idc=1),
+               SL(7, 9, qp_delta=-4, deblock=2, alpha=-4, beta=5,
+                  cabac_init_idc=2),
+               SL(16, 8, deblock=1)]
+    return {
+        "pcm_96x64": ([hs.Sps(**S96)], [P()],
+                      [I(idr=True, mb_types=("PCM",)),
+                       I(mb_types=("PCM",))], ".mp4"),
+        "intra_96x64": ([hs.Sps(**S96, max_num_ref_frames=1)],
+                        [P(transform_8x8=True)],
+                        [I(idr=True, mb_types=intra),
+                         I(mb_types=intra, slices=slices3),
+                         I(idr=True, mb_types=("I4",),
+                           slices=[SL(0, 5), SL(5, 13), SL(18, 6)]),
+                         I(mb_types=("I8",)), I(mb_types=("I16",))],
+                        ".mkv"),
+        "p_176x144": ([hs.Sps(mb_w=11, mb_h=9, max_num_ref_frames=1)],
+                      [P(transform_8x8=True)],
+                      [I(idr=True, mb_types=("I16", "I4"))]
+                      + p(3) + p(2, mb_types=("P", "SKIP"), t8=True)
+                      + p(2, mb_types=("P",), p_parts=(3, 4))
+                      + p(1, mb_types=("P",), p_parts=(1, 2)), ".avi"),
+        "multiref_96x64": ([hs.Sps(**S96, max_num_ref_frames=4)], [P()],
+                           [I(idr=True, mb_types=("I16",))] + p(1)
+                           + [I(kind="P", mb_types=mix, num_ref_idx=2),
+                              I(kind="P", mb_types=mix, num_ref_idx=3,
+                                list_mods=[(0, 1), (1, 0)]),
+                              I(kind="P", mb_types=mix, num_ref_idx=4,
+                                ref_idc=0),
+                              I(kind="P", mb_types=mix, num_ref_idx=4,
+                                list_mods=[(0, 3)]),
+                              I(kind="P", mb_types=mix, num_ref_idx=4)],
+                           ".mp4"),
+        "longterm_96x64": ([hs.Sps(**S96, max_num_ref_frames=4)], [P()],
+                           [I(idr=True, mb_types=("I16",)),
+                            I(kind="P", mb_types=mix, mmco=[(4, 2), (6, 0)]),
+                            I(kind="P", mb_types=mix, num_ref_idx=2),
+                            I(kind="P", mb_types=mix, num_ref_idx=3,
+                              mmco=[(3, 0, 1)]),
+                            I(kind="P", mb_types=mix, num_ref_idx=3,
+                              list_mods=[(2, 1), (2, 0)]),
+                            I(kind="P", mb_types=mix, num_ref_idx=3,
+                              mmco=[(2, 0), (1, 0)]),
+                            I(kind="P", mb_types=mix, num_ref_idx=2,
+                              mmco=[(5,)]),
+                            I(kind="P", mb_types=mix, num_ref_idx=1),
+                            I(idr=True, mb_types=("I4",),
+                              long_term_reference=True),
+                            I(kind="P", mb_types=mix, num_ref_idx=1)],
+                           ".mkv"),
+        "weighted_96x64": ([hs.Sps(**S96, max_num_ref_frames=2)],
+                           [P(weighted_pred=True)],
+                           [I(idr=True, mb_types=("I16", "I4"))]
+                           + p(2, weights=dict(
+                               luma_log2=5, chroma_log2=3,
+                               luma={0: (40, -10)},
+                               chroma={0: [(6, 3), (12, -20)]}))
+                           + p(2, num_ref_idx=2, weights=dict(
+                               luma_log2=0, chroma_log2=1,
+                               luma={0: (2, -100), 1: (1, 20)},
+                               chroma={1: [(1, 50), (3, -100)]})), ".mov"),
+        "scaling_sps_96x64": ([hs.Sps(**S96, scaling=[
+            lst4, None, "default", lst4b, None, None, lst8, None])],
+            [P(transform_8x8=True, scaling=[
+                None, lst4b, None, None, "default", None, None, lst8])],
+            [I(idr=True, mb_types=intra)] + p(3, density=0.15), ".mp4"),
+        "scaling_pps_96x64": ([hs.Sps(**S96)],
+                              [P(transform_8x8=True, scaling=[
+                                  lst4, None, lst4b, None, "default", None,
+                                  None, lst8])],
+                              [I(idr=True, mb_types=intra)]
+                              + p(3, density=0.15), ".mkv"),
+        "qp_96x64": ([hs.Sps(**S96)],
+                     [P(chroma_qp_offset=-7, second_chroma_qp_offset=9,
+                        init_qp=48),
+                      P(id=1, init_qp=2, transform_8x8=True)],
+                     [I(idr=True, mb_types=intra, qp_deltas=0.7)]
+                     + p(2, qp_deltas=0.7)
+                     + p(3, pps=1, big_levels=0.3, density=0.4),
+                     ".avi"),
+        "deblock_96x64": ([hs.Sps(**S96)], [P(transform_8x8=True)],
+                          [I(idr=True, mb_types=intra, slices=slices3)]
+                          + p(3, slices=slices3), ".ts"),
+        "poc1_96x64": ([hs.Sps(**S96, poc_type=1, max_num_ref_frames=2,
+                               offset_for_ref_frame=(2, 4),
+                               offset_for_non_ref_pic=-1)], [P()],
+                       [I(idr=True, mb_types=("I16",))]
+                       + [I(kind="P", mb_types=mix, ref_idc=int(k % 3 != 2))
+                          for k in range(5)], ".mkv"),
+        "poc2_96x64": ([hs.Sps(**S96, poc_type=2, max_num_ref_frames=2)],
+                       [P()],
+                       [I(idr=True, mb_types=("I16",))]
+                       + [I(kind="P", mb_types=mix, ref_idc=int(k % 3 != 2))
+                          for k in range(5)], ".h264"),
+        "vui_96x64": ([hs.Sps(**S96, vui=dict(
+            full_range=True, matrix=1, chroma_loc=2, fps=(30000, 1001),
+            reorder=1))], [P()],
+            [I(idr=True, mb_types=("I16", "I4"))] + p(4), ".mp4"),
+        "guess_96x64": ([hs.Sps(**S96)], [P()],
+                        [I(idr=True, mb_types=("I16", "I4"), poc_step=4)]
+                        + p(4, poc_step=4)
+                        + [I(idr=True, mb_types=("I16",), poc_step=4)]
+                        + p(2, poc_step=4), ".mkv"),
+        "crop_54x38": ([hs.Sps(mb_w=4, mb_h=3, crop=(0, 10, 0, 10),
+                               vui=dict(chroma_loc=1))], [P()],
+                       [I(idr=True, mb_types=intra)] + p(3), ".mp4"),
+        "leftcrop_86x56": ([hs.Sps(**S96, crop=(2, 8, 2, 6),
+                                   vui=dict(chroma_loc=0))], [P()],
+                           [I(idr=True, mb_types=intra)] + p(3), ".avi"),
+        "recovery_96x64": ([hs.Sps(**S96)], [P()],
+                           [I(mb_types=("I16",), recovery_point=0,
+                              frame_num=3)] + p(3)
+                           + [I(idr=True, mb_types=("I16",))] + p(2),
+                           ".ts"),
+        "cip_96x64": ([hs.Sps(**S96)],
+                      [P(constrained_intra=True, transform_8x8=True)],
+                      [I(idr=True, mb_types=intra)] + p(4), ".mkv"),
+        "farmv_96x64": ([hs.Sps(**S96)], [P()],
+                        [I(idr=True, mb_types=("I16",))]
+                        + p(4, mb_types=("P",), far_mv=0.4), ".avi"),
+    }
+
+
+# the containers every stream of h264_clip is muxed into
+H264_CONTAINERS = (".mp4", ".mov", ".mkv", ".avi", ".ts", ".h264", ".nut",
+                   ".wmv", ".flv")
+
+
+def h264_fixtures() -> None:
+    """H.264 from the seeded syntax writer (``tests/h264_syntax.py``; no
+    encoder of it is bundled), muxed by cv2's libavformat: each stream of
+    ``h264_specs`` once in CAVLC and once in CABAC from the same seed (the
+    same macroblocks, modes, vectors and levels), and a 12-frame clip at
+    96x64 (two IDR pictures) in every container of ``H264_CONTAINERS``."""
+    import h264_syntax as hs
+    for k, (name, (sps, pps, pics, ext)) in enumerate(h264_specs().items()):
+        for cabac in (False, True):
+            pp = [hs.Pps(**{**x.__dict__, "cabac": cabac}) for x in pps]
+            tag = "cabac" if cabac else "cavlc"
+            h264_write(os.path.join(OUT, f"h264_{name}_{tag}{ext}"), sps, pp,
+                       pics, seed=2800 + k)
+    sps = [hs.Sps(mb_w=6, mb_h=4, max_num_ref_frames=2)]
+    mix = ("P", "SKIP", "I4", "I16")
+    pics = ([hs.Pic(idr=True, mb_types=("I16", "I4"))]
+            + [hs.Pic(kind="P", mb_types=mix) for _ in range(5)]
+            + [hs.Pic(idr=True, mb_types=("I16",))]
+            + [hs.Pic(kind="P", mb_types=mix) for _ in range(5)])
+    for cabac in (False, True):
+        tag = "cabac" if cabac else "cavlc"
+        for ext in H264_CONTAINERS:
+            h264_write(os.path.join(OUT, f"h264_clip_{tag}{ext}"), sps,
+                       [hs.Pps(cabac=cabac)], pics, seed=2900)
+
+
 # the fixture functions in the order they write (later ones read files
 # that earlier ones wrote)
 GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
@@ -4349,7 +4672,8 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           h263p_fixtures, pts_only_fixtures, png16_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
           asv_fixtures, msmpeg4_fixtures, snow_fixtures, nut_fixtures,
-          dirac_fixtures, cut_vop_fixtures, jpeg2000_fixtures, tag_fixtures)
+          dirac_fixtures, cut_vop_fixtures, jpeg2000_fixtures, tag_fixtures,
+          h264_fixtures)
 
 
 if __name__ == "__main__":

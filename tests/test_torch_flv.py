@@ -325,8 +325,18 @@ def _flv(tag_flags: bytes, body: bytes = b"\0" * 8) -> bytes:
     (b"\x17", "H.264"), (b"\x14", "VP6"), (b"\x13", "Screen video"),
     (b"\x90", "enhanced FLV")])
 def test_other_flv_codecs_raise_naming_item_8(tmp_path, flags, what):
+    """VP6, Screen video and enhanced FLV raise naming item 8.  H.264 (codec
+    id 7) is read now (tests/test_torch_h264.py): a tag of a sequence
+    header alone, of which cv2 reads no frame, raises ``ValueError`` (no
+    video frame)."""
     path = tmp_path / "other.flv"
     path.write_bytes(_flv(flags))
+    if what == "H.264":
+        assert _cv2_frames(str(path)) == []
+        with pytest.raises(ValueError, match="no video frames") as err:
+            vio.EncodedVideo(str(path))
+        assert not isinstance(err.value, Unsupported)
+        return
     with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):
         vio.EncodedVideo(str(path))
 

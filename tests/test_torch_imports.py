@@ -31,7 +31,7 @@ def test_every_module_imports_without_jax():
               "runtime.dis", "viz.farneback", "runtime.mpeg4", "io.mp4",
               "io.avi", "runtime.vp8", "io.mkv", "runtime.vp9",
               "runtime.mpeg12", "io.mpegps", "runtime.h263", "runtime.ffv1",
-              "io.mpegpes", "io.mpegts", "io.elementary"):
+              "io.mpegpes", "io.mpegts", "io.elementary", "runtime.h264"):
         assert f"opticalflow_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -115,8 +115,9 @@ def test_package_data_holds_every_file_the_port_opens():
     sources and headers), ``runtime/flowviz.py``, ``runtime/jpeg.py`` and
     ``runtime/dis.py``, ``runtime/vp8.py`` and ``runtime/vp9.py`` (their
     C++ sources, and VP9's table header),
-    ``runtime/mpeg4.py`` and ``runtime/mpeg12.py`` (with ``jpeg.py``, the
-    headers they include), ``runtime/ffv1.py`` (its C++ source),
+    ``runtime/mpeg4.py``, ``runtime/mpeg12.py`` and ``runtime/h264.py``
+    (with ``jpeg.py``, the headers they include), ``runtime/ffv1.py`` (its
+    C++ source),
     ``viz/text.py`` (the glyph atlas) and ``viz/colorwheel.py`` (the magma
     table) read is matched by a ``package-data`` pattern of
     ``pyproject.toml``."""
@@ -124,7 +125,7 @@ def test_package_data_holds_every_file_the_port_opens():
     import tomllib
     from opticalflow_tpu_torch.ops import _build
     from opticalflow_tpu_torch.runtime import _native, dis, ffv1, flowviz, \
-        jpeg, mpeg4, mpeg12, vp8, vp9
+        h264, jpeg, mpeg4, mpeg12, vp8, vp9
     from opticalflow_tpu_torch.viz import colorwheel, text
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
@@ -134,8 +135,10 @@ def test_package_data_holds_every_file_the_port_opens():
                str(ffv1._SRC),
                text.ATLAS_PATH, colorwheel.MAGMA_PATH]
     opened += sorted({str(p) for src in (jpeg._SRC, mpeg4._SRC, vp9._SRC,
-                                         mpeg12._SRC)
+                                         mpeg12._SRC, h264._SRC)
                       for p in _native.sources(src)})
+    assert any(p.endswith("h264_tables.h") for p in opened)
+    assert any(p.endswith("h264_qpel.h") for p in opened)
     assert any(p.endswith("vp9_tables.h") for p in opened)
     assert any(p.endswith("mpeg12.cpp") for p in opened)
     assert any(p.endswith("mpeg_common.h") for p in opened)

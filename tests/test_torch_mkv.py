@@ -258,7 +258,9 @@ def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
     once among them, reads: test_mpeg1_and_mpeg2_in_matroska_read; so does
     FFV1 (``V_FFV1``, tests/test_torch_ffv1.py): its track here opens, and
     its VP8 payloads raise as a corrupt FFV1 stream, not as a codec the
-    port does not read."""
+    port does not read.  H.264 (``V_MPEG4/ISO/AVC``) is read now
+    (tests/test_torch_h264.py); a track of it without its avcC
+    CodecPrivate, which cv2 reads no frame of, raises ``ValueError``."""
     frames = _webm_frames(2)
     if codec == b"V_VP9":
         head = int("10" "01" "0010" + format(0x498342, "024b") + "0" * 8, 2)
@@ -266,6 +268,12 @@ def test_other_codecs_raise_naming_item_8(tmp_path, codec, name):
     path = str(tmp_path / "x.mkv")
     with open(path, "wb") as f:
         f.write(_build(codec, frames))
+    if codec == b"V_MPEG4/ISO/AVC":
+        assert _cv2_frames(path) == []
+        with pytest.raises(ValueError, match="without its avcC") as err:
+            list(vio.read_frames(path))
+        assert not isinstance(err.value, Unsupported)
+        return
     if codec == b"V_FFV1":
         assert mkv.MkvFile(path).codec == "ffv1"
         with pytest.raises(ValueError, match="corrupt FFV1") as err:

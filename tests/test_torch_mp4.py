@@ -389,14 +389,29 @@ def test_mp4_layouts_equal_cv2(moov_first, chunk, co64, tmp_path):
 # --------------------------------------------------------------- refusals
 
 def test_other_codecs_raise_naming_item_8(tmp_path):
-    """H.264 raises naming ROADMAP item 8 from every entry point; Motion
-    JPEG in AVI, once refused, reads as cv2.VideoCapture reads it."""
-    h264 = tmp_path / "h264.mp4"
-    h264.write_bytes(open(MOVING, "rb").read().replace(b"mp4v", b"avc1"))
+    """H.264 is read now (tests/test_torch_h264.py).  An ``avc1`` entry
+    over MPEG-4 Part 2 samples, its esds kept, reads as cv2.VideoCapture
+    reads it (the esds's objectTypeIndication names the codec, as in
+    FFmpeg's mov demuxer); H.264 the port does not read (field coding, from
+    the syntax writer, muxed by libavformat) raises naming ROADMAP item 8
+    from every entry point; Motion JPEG in AVI, once refused, reads as
+    cv2.VideoCapture reads it."""
+    import h264_syntax as hs
+    from make_video_fixtures import h264_write
+    renamed = tmp_path / "h264.mp4"
+    renamed.write_bytes(open(MOVING, "rb").read().replace(b"mp4v", b"avc1"))
+    ref = _cv2_frames(str(renamed))
+    assert len(ref) == 26
+    _same(list(vio.read_frames(str(renamed))), ref)
+    field = str(tmp_path / "field.mp4")
+    h264_write(field, [hs.Sps(frame_mbs_only=False)], [hs.Pps()],
+               [hs.Pic(idr=True, mb_types=("I16",))], seed=3)
+    assert len(_cv2_frames(field)) == 1
     for fn in (lambda p: list(vio.read_frames(p)), vio.video_info,
                lambda p: vio.read_frame(p, 0), datasets.ConsecutiveFrames):
-        with pytest.raises(mpeg4.Unsupported, match="H.264.*Queue 1 item 8"):
-            fn(str(h264))
+        with pytest.raises(mpeg4.Unsupported,
+                           match="H.264.*frame_mbs_only.*Queue 1 item 8"):
+            fn(field)
     mjpg = os.path.join(FIXTURES, "mjpg.avi")
     ref = _cv2_frames(mjpg)
     assert len(ref) == 2

@@ -323,8 +323,8 @@ def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
     """Cut so early that the VOP's header or its first macroblock fails,
     FFmpeg hands over no picture for it (cv2 reads one frame fewer), nor
     does the port; cut right after its start code, FFmpeg reads its
-    padding and hands over the picture before again, which the port does
-    not follow: it raises naming item 8 (ROADMAP's open fidelity list)."""
+    padding (an I-VOP that is not coded) and hands over the picture before
+    again, and so does the port (cv2's 24 frames)."""
     data = open(_path("nut_mp4v_96x64.nut"), "rb").read()
     pvop = NutFile(_path("nut_mp4v_96x64.nut")).frames_[-2]
     for keep in (5, 6, 7, 8):           # the header's, the macroblock's
@@ -337,9 +337,29 @@ def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
     with open(path, "wb") as f:
         f.write(data[:pvop.offset + 4])
     assert len(_cv2_frames(path)) == 24
-    with pytest.raises(Unsupported, match=f"right after its start code.*"
-                                          f"{ITEM_8}"):
-        list(vio.read_frames(path))
+    _same(list(vio.read_frames(path)), _cv2_frames(path))
+
+
+# the MPEG-4 clips whose last P-VOP is cut at every position (cv2's
+# writer at 25 and at 29.97 fps: a time increment of 5 and of 15 bits)
+SWEPT = ["nut_mp4v_96x64.nut", "nut_ntsc_96x64.nut"]
+
+
+@pytest.mark.parametrize("name", SWEPT)
+def test_every_cut_of_the_last_pvop_reads_as_cv2_reads_it(name, tmp_path):
+    """The file cut at every byte of its last P-VOP, from right after the
+    start code to one byte short of its end: each reads cv2's frames (the
+    picture before handed over again, the VOP dropped, or the VOP
+    concealed, as FFmpeg does at that position)."""
+    data = open(_path(name), "rb").read()
+    frames = NutFile(_path(name)).frames_
+    pvop = [x for x in frames if not x.key][-1]
+    assert pvop.size > 20
+    for keep in range(4, pvop.size):
+        path = str(tmp_path / f"cut{keep}.nut")
+        with open(path, "wb") as f:
+            f.write(data[:pvop.offset + keep])
+        _same(list(vio.read_frames(path)), _cv2_frames(path))
 
 
 def _v(n):
@@ -407,8 +427,10 @@ def _main_body(data, version=None, streams=None, flags=None,
 def test_what_cv2s_writer_never_writes_raises_naming_item_8(tmp_path):
     """Two streams, broadcast mode (a version 4 header's flag), side or
     meta data on every frame, a stream of another class than video and a
-    fourcc the port does not read each raise ``Unsupported`` naming item
-    8; the headers rewritten keep their checksums."""
+    fourcc the port does not read (HEVC) each raise ``Unsupported`` naming
+    item 8; the headers rewritten keep their checksums.  ``H264`` is read
+    now: over MPEG-4 Part 2 samples, of which cv2 reads no frame, it
+    raises ``ValueError`` as a corrupt H.264 stream."""
     with open(_path("nut_mp4v_96x64.nut"), "rb") as f:
         data = f.read()
     # the rewriter writes the header back as it was
@@ -422,13 +444,20 @@ def test_what_cv2s_writer_never_writes_raises_naming_item_8(tmp_path):
         "side or meta data": _repacket(data, MAIN, _main_body(
             data, code_flags=nutmod.FLAG_SM_DATA)),
         "class 1": _repacket(data, STREAM, stream[:1] + _v(1) + stream[2:]),
-        "H.264": _repacket(data, STREAM, stream.replace(b"mp4v", b"H264")),
+        "HEVC": _repacket(data, STREAM, stream.replace(b"mp4v", b"HEVC")),
     }
     for what, body in cases.items():
         path = tmp_path / "x.nut"
         path.write_bytes(body)
         with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):
             list(vio.read_frames(str(path)))
+    path = tmp_path / "h264.nut"
+    path.write_bytes(_repacket(data, STREAM, stream.replace(b"mp4v",
+                                                           b"H264")))
+    assert _cv2_frames(str(path)) == []
+    with pytest.raises(ValueError, match="corrupt H.264") as err:
+        list(vio.read_frames(str(path)))
+    assert not isinstance(err.value, Unsupported)
 
 
 def test_damaged_files_raise_value_error_or_resync_and_never_crash(tmp_path):

@@ -26,6 +26,7 @@ from opticalflow_tpu.data import datasets as jdatasets
 from opticalflow_tpu.data import loader as jloader
 from opticalflow_tpu.models.pwcnet import PWCDCNet as JaxPWCDCNet
 from opticalflow_tpu.train import trainer as JT
+from make_video_fixtures import h264_field_mp4
 from opticalflow_tpu_torch.cli import train as cli
 from opticalflow_tpu_torch.data import datasets, loader
 from opticalflow_tpu_torch.models.pwcnet import PWCDCNet
@@ -269,7 +270,7 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
     any connection (no coordinator, no launch variables; a coordinator
     without the world size; --dist-* without --distributed; --val-frac
     with --distributed, as in the JAX CLI).  A video the port does not
-    decode (H.264 in MP4) names ROADMAP item 8, and a truncated one says
+    decode (field-coded H.264 in MP4) names ROADMAP item 8, and a truncated one says
     so; Motion JPEG in AVI, once refused, makes the pseudo regime's
     dataset, whose pair is the JAX class's (cv2.VideoCapture's frames)."""
     for extra, match in (
@@ -285,8 +286,8 @@ def test_train_cli_refuses_what_is_not_ported(kitti12, tmp_path):
     mp4 = open(os.path.join(VIDEO_FIXTURES, "moving_176x144.mp4"),
                "rb").read()
     for name, data, match in (
-            ("h264.mp4", mp4.replace(b"mp4v", b"avc1"),
-             "H.264.*Queue 1 item 8"),
+            ("h264.mp4", h264_field_mp4(str(tmp_path / "field.mp4")),
+             "H.264.*frame_mbs_only.*Queue 1 item 8"),
             ("cut.mp4", mp4[:2000], "truncated")):
         video = tmp_path / name
         video.write_bytes(data)

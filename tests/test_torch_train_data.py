@@ -21,6 +21,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from make_video_fixtures import h264_field_mp4
 from opticalflow_tpu.data import datasets as jdatasets
 from opticalflow_tpu.data import loader as jloader
 from opticalflow_tpu.io import images as jimages
@@ -242,16 +243,16 @@ def test_consecutive_frames_match_jax(tmp_path, stride):
 
 
 def test_consecutive_frames_refuses_video_files_and_missing_sources(tmp_path):
-    """H.264 in MP4 names ROADMAP item 8, a truncated MP4 says so, an
-    MPEG-4 Part 2 .mp4 is read, and Motion JPEG in AVI (once refused) gives
-    the JAX class's pair, read through cv2.VideoCapture there; a missing
-    source or too few frames raise FileNotFoundError."""
+    """Field-coded H.264 in MP4 names ROADMAP item 8, a truncated MP4 says
+    so, an MPEG-4 Part 2 .mp4 is read, and Motion JPEG in AVI (once
+    refused) gives the JAX class's pair, read through cv2.VideoCapture
+    there; a missing source or too few frames raise FileNotFoundError."""
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
     h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
-    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    h264.write_bytes(h264_field_mp4(str(tmp_path / "field.mp4")))
     cut.write_bytes(mp4[:len(mp4) - 50])
-    for path, match in ((h264, "H.264.*Queue 1 item 8"),
+    for path, match in ((h264, "H.264.*frame_mbs_only.*Queue 1 item 8"),
                         (cut, "truncated")):
         with pytest.raises(ValueError, match=match):
             datasets.ConsecutiveFrames(str(path))

@@ -26,6 +26,7 @@ import torch
 
 cv2 = pytest.importorskip("cv2")
 
+from make_video_fixtures import h264_field_mp4  # noqa: E402
 from opticalflow_tpu import video as jvideo  # noqa: E402
 from opticalflow_tpu.models.pwcnet import PWCDCNet as JaxPWCDCNet  # noqa
 from opticalflow_tpu.models.torch_import import import_state_dict  # noqa
@@ -161,7 +162,7 @@ def test_i420_upload_close_to_bgr_upload(setup):
 
 def test_what_is_not_ported_raises(setup, monkeypatch):
     """Compare mode, once not ported, writes frames twice the clip's
-    width; H.264 in MP4 and H.263 muxed into an MPEG transport stream
+    width; field-coded H.264 in MP4 and H.263 muxed into an MPEG transport stream
     (which cv2 does not open either) are refused naming ROADMAP item 8, a
     truncated MP4 saying so, an .mpg output naming what
     the port writes; Motion JPEG in AVI, once refused, runs: the frames
@@ -175,10 +176,10 @@ def test_what_is_not_ported_raises(setup, monkeypatch):
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
     h264, cut = setup["tmp"] / "h264.mp4", setup["tmp"] / "cut.mp4"
-    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    h264.write_bytes(h264_field_mp4(str(setup["tmp"] / "field.mp4")))
     cut.write_bytes(mp4[:len(mp4) - 50])
     ts = os.path.join(fixtures, "ts_h263_128x96.ts")
-    for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
+    for path, match in ((str(h264), "H.264.*frame_mbs_only.*Queue 1 item 8"),
                         (str(cut), "truncated"),
                         (ts, "private data.*item 8")):
         with pytest.raises(ValueError, match=match):

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 
+from make_video_fixtures import h264_field_mp4
 from opticalflow_tpu.data import datasets as jdatasets
 from opticalflow_tpu_torch.data import datasets
 from opticalflow_tpu_torch.io import video as vio
@@ -212,7 +213,7 @@ def test_async_writer_encoder_error_surfaces_not_deadlocks(tmp_path):
 
 
 def test_other_containers_raise_naming_the_two_formats(tmp_path):
-    """H.264 in MP4 raises naming ROADMAP item 8; a truncated MP4 says so;
+    """Field-coded H.264 in MP4 raises naming ROADMAP item 8; a truncated MP4 says so;
     Motion JPEG in AVI and MPEG-2 in a program stream, once refused, read
     as cv2.VideoCapture reads them; an unknown extension (.flv) names the
     formats the port handles; a program stream's bytes under a transport
@@ -223,9 +224,9 @@ def test_other_containers_raise_naming_the_two_formats(tmp_path):
     fixtures = os.path.join(os.path.dirname(__file__), "goldens", "video")
     mp4 = open(os.path.join(fixtures, "moving_176x144.mp4"), "rb").read()
     h264, cut = tmp_path / "h264.mp4", tmp_path / "cut.mp4"
-    h264.write_bytes(mp4.replace(b"mp4v", b"avc1"))
+    h264.write_bytes(h264_field_mp4(str(tmp_path / "field.mp4")))
     cut.write_bytes(mp4[:len(mp4) - 50])
-    for path, match in ((str(h264), "H.264.*Queue 1 item 8"),
+    for path, match in ((str(h264), "H.264.*frame_mbs_only.*Queue 1 item 8"),
                         (str(cut), "truncated")):
         for fn in (lambda: list(vio.read_frames(path)),
                    lambda: vio.video_info(path)):
