@@ -412,7 +412,23 @@ non-zero, and no result line is printed):
      decode a 436x1024 frame, I and P apart, CAVLC beside CABAC, beside
      MPEG-4 Part 2 on the same frames, and to convert it; (e) no cv2, PIL
      or jax in ``sys.modules``;
- 33. one JSON line listing every kernel with its launches on its path,
+ 33. H.264 B pictures and rotated tracks (``runtime/h264.cpp``'s B slices,
+     ``io/orientation.py``; ``phase_h264_b``): (a) every fixture of the
+     ``h264_b`` group (B pyramids, spatial and temporal direct, every B
+     type, the three bi-prediction modes, CAVLC and CABAC, in the nine
+     containers), of the ``rotation`` group and MPEG-2 under stream type
+     0x1B (``relabel``) decodes to its manifest's
+     cv2 digests, fps, size, count, seeks and libavcodec's planes; (b)
+     ``cli/extract_video --mode arrows --batch 4 --dtype bfloat16`` over a
+     13-frame 436x1024 H.264 .mp4 with B pictures written at run time
+     (real_im1 in I_PCM, a P picture every third frame panning, B_Skip
+     pictures between in temporal direct mode, ``ctts`` and ``elst``): K1
+     15; (c) ``cli/train --regime pseudo`` for 3 steps over it: K1 and B1
+     5 a step; (d) host ms to decode a 436x1024 B picture (all-skipped
+     temporal and spatial, random B macroblocks), CAVLC beside CABAC,
+     beside the P pictures, and to convert it; (e) no cv2, PIL or jax in
+     ``sys.modules``;
+ 34. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -6662,6 +6678,23 @@ H264_FRAMES = 13                      # the CLI clip: IDR then 12 P
 H264_PAN = (12, -6)                   # its global vector (quarter samples)
 
 
+def real_im1_planes():
+    """``tests/goldens/real_im1.png`` nearest-neighbour scaled to 436x1024,
+    as the I420 planes of 448 coded rows (edge-padded)."""
+    import numpy as np
+    from opticalflow_tpu_torch.io.images import load_image
+    from opticalflow_tpu_torch.io.yuv import i420_planes
+    from opticalflow_tpu_torch.runtime.mpeg4 import to_i420
+    img = load_image(os.path.join(GOLD, "real_im1.png"))
+    rgb = img[np.arange(FULL_H) * img.shape[0] // FULL_H][
+        :, np.arange(FULL_W) * img.shape[1] // FULL_W]
+    y, u, v = i420_planes(to_i420(np.ascontiguousarray(rgb[..., ::-1])))
+    pad = 448 - FULL_H
+    return (np.pad(y, ((0, pad), (0, 0)), mode="edge"),
+            np.pad(u, ((0, pad // 2), (0, 0)), mode="edge"),
+            np.pad(v, ((0, pad // 2), (0, 0)), mode="edge"))
+
+
 def h264_clip(cabac: bool):
     """The 436x1024 H.264 clip the card run decodes, from the syntax
     writer (``tests/h264_syntax.py``): an IDR picture holding
@@ -6670,21 +6703,10 @@ def h264_clip(cabac: bool):
     macroblocks that all move by ``H264_PAN`` with no residual (a pan),
     High profile, coded 448 rows cropped to 436.  (SPS, PPS, access
     units, key flags)."""
-    import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import h264_syntax as hs
-    from opticalflow_tpu_torch.io.images import load_image
-    from opticalflow_tpu_torch.io.yuv import i420_planes
-    from opticalflow_tpu_torch.runtime.mpeg4 import to_i420
-    img = load_image(os.path.join(GOLD, "real_im1.png"))
-    # nearest-neighbour up to the clip's size
-    rgb = img[np.arange(FULL_H) * img.shape[0] // FULL_H][
-        :, np.arange(FULL_W) * img.shape[1] // FULL_W]
-    y, u, v = i420_planes(to_i420(np.ascontiguousarray(rgb[..., ::-1])))
+    planes = real_im1_planes()
     pad = 448 - FULL_H
-    planes = (np.pad(y, ((0, pad), (0, 0)), mode="edge"),
-              np.pad(u, ((0, pad // 2), (0, 0)), mode="edge"),
-              np.pad(v, ((0, pad // 2), (0, 0)), mode="edge"))
     sps = [hs.Sps(profile=100, level=40, mb_w=FULL_W // 16, mb_h=28,
                   crop=(0, 0, 0, pad), max_num_ref_frames=1)]
     pps = [hs.Pps(cabac=cabac, transform_8x8=True)]
@@ -6899,6 +6921,249 @@ def phase_h264(sd, tmp, corr_fwd, corr_bwd, card: str):
             "frames": checked["frames"], "seeks": checked["seeks"],
             "planes": planes, "unreached": unreached,
             "cut_vop_frames": cut_frames, "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
+H264_B_GOP = 3                        # the B clip: P every third frame
+
+
+def h264_b_clip(cabac: bool, spatial: bool = False, mixed: bool = False):
+    """The 436x1024 H.264 clip with B pictures: the IDR picture of
+    ``h264_clip`` (real_im1 in I_PCM), then a P picture every third frame
+    whose P_L0_16x16 macroblocks all move by three times ``H264_PAN`` from
+    the P before, and the two pictures between as non-reference B pictures
+    of B_Skip alone, in temporal direct mode (each interpolates the pan by
+    its POC distance: the motion the model sees) or spatial (``spatial``),
+    or of random B macroblocks (``mixed``); 13 frames, High profile.
+    (SPS, PPS, access units, key flags, each sample's display index)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import h264_syntax as hs
+    pad = 448 - FULL_H
+    sps = [hs.Sps(profile=100, level=40, mb_w=FULL_W // 16, mb_h=28,
+                  crop=(0, 0, 0, pad), max_num_ref_frames=2)]
+    pps = [hs.Pps(cabac=cabac, transform_8x8=True)]
+    pan = (H264_PAN[0] * H264_B_GOP, H264_PAN[1] * H264_B_GOP)
+    b_kw = (dict(mb_types=("B", "SKIP", "I16"), density=0.1, mv_range=8)
+            if mixed else dict(mb_types=("SKIP",), skips=1.0))
+    pics = [hs.Pic(idr=True, mb_types=("PCM",), pcm=real_im1_planes(),
+                   poc=0)]
+    for g in range(H264_FRAMES // H264_B_GOP):
+        p = H264_B_GOP * (g + 1)
+        pics.append(hs.Pic(kind="P", global_mv=pan, poc=2 * p))
+        pics += [hs.Pic(kind="B", ref_idc=0, poc=2 * (p - H264_B_GOP + k),
+                        direct_spatial=spatial, num_ref_idx1=1, **b_kw)
+                 for k in range(1, H264_B_GOP)]
+    aus = hs.write_stream(33, sps, pps, pics)
+    shown, _ = hs.display_order(pics)
+    return sps, pps, aus, [p.idr for p in pics], shown
+
+
+def phase_h264_b(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """H.264 B pictures and rotated tracks through the port's entry points
+    on the card machine (host C++ ``runtime/h264.cpp`` behind
+    ``io/video.py``): (a) every fixture of the ``h264_b`` group (CAVLC and
+    CABAC: B pyramids in spatial and temporal direct mode, every B type,
+    the three bi-prediction modes, in the nine containers) and of the
+    ``rotation`` group (display matrices cv2 turns frames by) equals cv2's
+    digests, fps, size, count and recorded seeks, each picture's planes
+    libavcodec's digests, and the B features reached against the
+    manifest, and MPEG-2 under transport stream type 0x1B (group
+    ``relabel``: cv2's 30 frames, the first 12 concealed by the MPEG-2
+    decoder); (b) the video CLI over the 13-frame 436x1024 .mp4 with B
+    pictures (``h264_b_clip``, CABAC, ``ctts`` and ``elst``), K1 on the
+    card, bf16; (c) the pseudo regime over it, 3 steps (K1 and B1); (d)
+    host ms to decode a 436x1024 B picture, all-skipped temporal and
+    spatial and of random B macroblocks, CAVLC beside CABAC, beside phase
+    32's P picture on the same frames, and swscale's conversion; (e) no
+    cv2, PIL or jax imported.  Returns its results, each path's K1 (and
+    B1) launches among them."""
+    import hashlib
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import h264_syntax as hs
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.runtime import h264
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    new = fixtures_of(manifest, "h264_b")
+    turned = fixtures_of(manifest, "rotation")
+    relabelled = fixtures_of(manifest, "relabel")
+    coders = {c: sum(f"_{c}" in n for n in new) for c in ("cavlc", "cabac")}
+    assert coders["cavlc"] == coders["cabac"] > 0, coders
+    assert [w["decoded"] for w in relabelled.values()] == [30], relabelled
+    checked = check_fixtures({**new, **turned, **relabelled})
+    assert checked["refused"] == [], checked
+    planes = 0
+    for name, want in sorted(new.items()):
+        video = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+        got = [hashlib.sha256(b"".join(np.ascontiguousarray(q).tobytes()
+                                       for q in p)).hexdigest()
+               for _, p in video.planes(0)]
+        assert got == want["h264_planes"], name
+        planes += len(got)
+    reached = {f for w in new.values() for f in w["h264_features"]}
+    unreached = [f for f in h264.B_FEATURES if f not in reached]
+    assert unreached == manifest["h264_b_unreached"] == [], unreached
+    angles = sorted({vio.EncodedVideo(os.path.join(MP4_DIR, n)).rotation
+                     for n in turned})
+    assert angles == [45, 90, 180, 270], angles
+    log(f"[33] (a) {len(new)} B fixtures ({coders['cavlc']} CAVLC, "
+        f"{coders['cabac']} CABAC: B pyramids, spatial and temporal direct "
+        f"with direct_8x8_inference 1 and 0, every B type and sub type, "
+        f"implicit and explicit bi-prediction, list 1's modification and "
+        f"swap, long-term and MMCO-marked references, slices; the pyramid "
+        f"clip in .mp4/.mov/.mkv/.avi/.ts/.h264/.nut/.wmv/.flv) and "
+        f"{len(turned)} rotated tracks (angles {angles}) and MPEG-2 under "
+        f"stream_type 0x1B (30 frames, 12 concealed) decoded to "
+        f"cv2.VideoCapture's {checked['frames']} frame digests and its "
+        f"fps/size/count, {checked['seeks']} seeks ({checked['seeks_none']} "
+        f"reading nothing, as cv2's), {planes} pictures' planes to "
+        f"libavcodec's, in {time.perf_counter() - t0:.2f} s; B features "
+        f"{len(reached & set(h264.B_FEATURES))} of {len(h264.B_FEATURES)}; "
+        f"{card}")
+
+    # (b) the video CLI over the 436x1024 .mp4 with B pictures (CABAC)
+    t0 = time.perf_counter()
+    sps, pps, aus, keys, shown = h264_b_clip(True)
+    clip = os.path.join(tmp, "h264_b_pan_436x1024.mp4")
+    hs.write_mp4(clip, [hs.length_prefixed(a) for a in aus], keys,
+                 hs.avcc(sps, pps), FULL_W, FULL_H, shown=shown)
+    write_s = time.perf_counter() - t0
+    video = vio.EncodedVideo(clip)
+    frames = list(vio.read_frames(clip))
+    assert len(frames) == H264_FRAMES and video.h264_delay == 1, \
+        (len(frames), video.h264_delay)
+    assert frames[0].shape == (FULL_H, FULL_W, 3)
+    # the B pictures interpolate the pan: each frame moves by H264_PAN
+    # (quarter samples) from the one before, up to the picture's edges
+    dx, dy = H264_PAN[0] // 4, H264_PAN[1] // 4
+    inner = (slice(32, FULL_H - 32), slice(64, FULL_W - 64))
+    for k in range(1, H264_FRAMES):
+        a = frames[k][inner].astype(np.int16)
+        b = np.roll(frames[k - 1], (-dy, -dx), (0, 1))[inner].astype(np.int16)
+        assert np.abs(a - b).mean() < 4.0, (k, np.abs(a - b).mean())
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    k0 = corr_fwd.launches
+    row = video_cli([clip, os.path.join(tmp, "out_h264_b.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    H264_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(H264_FRAMES - 1) // VIDEO_B) == 3, windows
+    assert launched == 5 * windows, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[33] (b) extract_video --mode arrows B={VIDEO_B} bf16, H.264 CABAC "
+        f".mp4 with B pictures ({H264_FRAMES} frames {FULL_H}x{FULL_W}: "
+        f"real_im1 in I_PCM, a P picture every {H264_B_GOP} frames panning "
+        f"{H264_PAN} quarter samples a frame, two B_Skip pictures between "
+        f"in temporal direct mode; ctts and elst; written in "
+        f"{write_s:.2f} s): {row['fps']!r} fps over the run "
+        f"({row['run_s']!r} s, fill {row['fill_s']:.2f} s); decode thread "
+        f"busy {row['decode_ms']!r} ms a frame ({row['decode_share']:.1%}); "
+        f"{windows} windows, K1 {launched} launches; {card}")
+
+    # (c) the pseudo regime over the .mp4
+    out_dir = os.path.join(tmp, "h264_b_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", clip, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (H264_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert steps == 3 and [r["step"] for r in recs] == [1, 2, 3], recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[33] (c) cli/train --regime pseudo over the .mp4 with B pictures "
+        f"({FULL_H}x{FULL_W} -> 384x512), {steps} steps at batch {TRAIN_B}: "
+        f"losses {[r['loss'] for r in recs]}; K1/B1 launches "
+        f"{launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s wall; "
+        f"{card}")
+
+    # (d) host ms a 436x1024 B picture on one thread, CAVLC beside CABAC:
+    # all-skipped temporal and spatial, random B macroblocks; beside the
+    # P pictures of the same clips and phase 32's pan P picture
+    def timed(units, b_at):
+        d = h264.Decoder(delay=1)
+        [d.decode(u) for u in units]
+        d.flush()
+        per = [0.0] * len(units)
+        for _ in range(HOST_TIMED):
+            d = h264.Decoder(delay=1)
+            got = []
+            for i, u in enumerate(units):
+                t = time.perf_counter()
+                got += d.decode(u)
+                per[i] += time.perf_counter() - t
+            got += d.flush()
+        assert len(got) == len(units), (len(got), len(units))
+        per = [p / HOST_TIMED * 1e3 for p in per]
+        b = [per[i] for i in b_at]
+        p = [per[i] for i in range(1, len(units)) if i not in b_at]
+        return sum(b) / len(b), sum(p) / len(p), got
+
+    host = {}
+    for cabac in (False, True):
+        tag = "cabac" if cabac else "cavlc"
+        for kind, kw in (("temporal", {}), ("spatial", {"spatial": True}),
+                         ("mixed", {"mixed": True})):
+            _, _, baus, _, _ = h264_b_clip(cabac, **kw)
+            b_at = [i for i in range(1, len(baus)) if i % H264_B_GOP]
+            b_ms, p_ms, got = timed(baus, b_at)
+            host[f"{kind}_{tag}"] = {
+                "b_ms": b_ms, "p_ms": p_ms,
+                "bytes_b": sum(len(baus[i]) for i in b_at) / len(b_at)}
+        _, _, paus, _ = h264_clip(cabac)
+        d = h264.Decoder()
+        [d.decode(u) for u in paus]
+        t = time.perf_counter()
+        for _ in range(HOST_TIMED):
+            d = h264.Decoder()
+            for u in paus:
+                d.decode(u)
+            d.flush()
+        host[f"clip_p_{tag}"] = (time.perf_counter() - t) / HOST_TIMED \
+            / len(paus) * 1e3
+    host["convert_ms"] = convert_ms(got)
+    t, s_, m = (host["temporal_cabac"], host["spatial_cabac"],
+                host["mixed_cabac"])
+    log(f"[33] (d) host ms a {FULL_H}x{FULL_W} B picture on one thread, "
+        f"CAVLC / CABAC: all B_Skip temporal "
+        f"{host['temporal_cavlc']['b_ms']!r} / {t['b_ms']!r}, spatial "
+        f"{host['spatial_cavlc']['b_ms']!r} / {s_['b_ms']!r}; random B "
+        f"macroblocks {host['mixed_cavlc']['b_ms']!r} / {m['b_ms']!r} "
+        f"({host['mixed_cavlc']['bytes_b']:.0f} / {m['bytes_b']:.0f} bytes); "
+        f"the clip's P pictures {host['temporal_cavlc']['p_ms']!r} / "
+        f"{t['p_ms']!r}; phase 32's clip a frame "
+        f"{host['clip_p_cavlc']!r} / {host['clip_p_cabac']!r}; convert "
+        f"{host['convert_ms']!r}; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[33] (e) cv2, PIL, jax not imported; phase 33 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "rotated": len(turned), "coders": coders,
+            "frames": checked["frames"], "seeks": checked["seeks"],
+            "seeks_none": checked["seeks_none"], "planes": planes,
+            "unreached": unreached, "cli": row, "host_decode": host,
             "pseudo_losses": [r["loss"] for r in recs],
             "launches": launches, "phase_s": phase_s, "card": card}
 
@@ -7195,6 +7460,16 @@ def main() -> int:
     assert h264_launches == correlation_cuda.launches > 0
     assert avc["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the H.264 B picture paths start here
+    with tempfile.TemporaryDirectory() as tmp:
+        avc_b = phase_h264_b(sd, tmp, correlation_cuda, correlation_bwd_cuda,
+                             card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    h264_b_launches = avc_b["launches"]["cli"] + \
+        avc_b["launches"]["pseudo"]["correlation_fwd"]
+    assert h264_b_launches == correlation_cuda.launches > 0
+    assert avc_b["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -7289,7 +7564,10 @@ def main() -> int:
          "launches_jpeg2000": jpeg2000_launches, "jpeg2000": j2k,
          # phase 32: the video CLI over the 436x1024 H.264 .mp4, and the
          # pseudo steps over it (5 a window, 5 a step)
-         "launches_h264": h264_launches, "h264": avc},
+         "launches_h264": h264_launches, "h264": avc,
+         # phase 33: the video CLI over the 436x1024 H.264 .mp4 with B
+         # pictures, and the pseudo steps over it (5 a window, 5 a step)
+         "launches_h264_b": h264_b_launches, "h264_b": avc_b},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -7349,7 +7627,10 @@ def main() -> int:
          # phase 31: the pseudo regime's steps over JPEG 2000 packets
          "launches_jpeg2000": j2k["launches"]["pseudo"]["correlation_bwd"],
          # phase 32: the pseudo regime's steps over the H.264 .mp4
-         "launches_h264": avc["launches"]["pseudo"]["correlation_bwd"]},
+         "launches_h264": avc["launches"]["pseudo"]["correlation_bwd"],
+         # phase 33: the pseudo regime's steps over the B picture .mp4
+         "launches_h264_b":
+             avc_b["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

@@ -65,6 +65,8 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, codec_of
+from opticalflow_tpu_torch.io.orientation import (matrix_angle,
+                                                  projection_matrix)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["MkvFile", "MkvWriter", "av_reduce", "std_rate"]
@@ -80,6 +82,8 @@ TRACK_ENTRY, TRACK_NUMBER, TRACK_UID, TRACK_TYPE = 0xAE, 0xD7, 0x73C5, 0x83
 CODEC_ID, CODEC_PRIVATE, DEFAULT_DURATION, FLAG_LACING = (0x86, 0x63A2,
                                                           0x23E383, 0x9C)
 VIDEO, PIXEL_WIDTH, PIXEL_HEIGHT, COLOUR_SPACE = 0xE0, 0xB0, 0xBA, 0x2EB524
+PROJECTION, PROJECTION_TYPE = 0x7670, 0x7671
+POSE_YAW, POSE_PITCH, POSE_ROLL = 0x7673, 0x7674, 0x7675
 COLOUR, RANGE, CHROMA_SITING_HORZ, CHROMA_SITING_VERT = (0x55B0, 0x55B9,
                                                          0x55B7, 0x55B8)
 CONTENT_ENCODINGS, CONTENT_ENCODING = 0x6D80, 0x6240
@@ -245,6 +249,7 @@ class MkvFile:
         self.width = self.height = 0
         self.full_range = False
         self.chroma_site: Optional[Tuple[int, int]] = None
+        self.rotation = 0       # cv2's orientation (io/orientation)
         self.timescale = 1_000_000
         self.duration: Optional[float] = None
         self.default_duration = 0
@@ -358,6 +363,13 @@ class MkvFile:
         self.width = _uint(video.get(PIXEL_WIDTH, b""))
         self.height = _uint(video.get(PIXEL_HEIGHT, b""))
         self._colour(self._children_bytes(video.get(COLOUR, b"")))
+        # a rectangular Projection's pose: the display matrix FFmpeg gives
+        # the track (io/orientation)
+        proj = self._children_bytes(video.get(PROJECTION, b""))
+        if proj and _uint(proj.get(PROJECTION_TYPE, b"")) == 0:
+            self.rotation = matrix_angle(projection_matrix(
+                *(_float(proj[k]) if k in proj else 0.0
+                  for k in (POSE_YAW, POSE_PITCH, POSE_ROLL))))
         if CONTENT_ENCODINGS in kids:
             self._encodings(kids[CONTENT_ENCODINGS])
         if codec == "V_VP8":

@@ -61,6 +61,7 @@ from opticalflow_tpu_torch.io.avi import (ASV_TAGS, DIRAC_TAGS, FLV1_TAGS,
                                           HUFFYUV_TAGS, MAGICYUV_TAGS,
                                           MSMPEG4_TAGS, SNOW_TAGS,
                                           UTVIDEO_TAGS)
+from opticalflow_tpu_torch.io.orientation import matrix_angle
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
 __all__ = ["Mp4File", "Mp4Writer", "VIDEO_CODECS", "BRANDS"]
@@ -205,6 +206,7 @@ class Mp4File:
                 raise ValueError(f"{path}: no moov box (not an MP4 file, or "
                                  "a truncated one)")
             try:
+                self._movie_matrix(f, *moov)
                 self._read_trak(f, self._video_trak(f, *moov))
             except (struct.error, KeyError, IndexError) as e:
                 raise ValueError(f"{path}: malformed MP4 track ({e!r})") \
@@ -238,8 +240,33 @@ class Mp4File:
                 return b, e
         raise ValueError(f"{self.path}: no video track")
 
+    def _movie_matrix(self, f, body, end) -> None:
+        """mvhd's matrix (identity without one)."""
+        self._mvhd = [0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 1 << 30]
+        mvhd = self._children(f, body, end).get("mvhd")
+        if mvhd:
+            ver, b = _full(self._read(f, mvhd))
+            off = (28 if ver else 16) + 4 + 2 + 10   # past times, rate, volume
+            self._mvhd = list(struct.unpack(">9i", b[off:off + 36]))
+
+    def _orientation(self, tkhd: bytes) -> None:
+        """mov_read_tkhd: the track's matrix times the movie's, the display
+        matrix where it is not the identity; cv2's angle of it
+        (``io/orientation``)."""
+        ver, b = _full(tkhd)
+        off = (32 if ver else 20) + 16        # past times, id, duration, ...
+        m = struct.unpack(">9i", b[off:off + 36])
+        sh = (16, 16, 30)
+        res = [sum((m[3 * i + e] * self._mvhd[3 * e + j]) >> sh[e]
+                   for e in range(3)) for i in range(3) for j in range(3)]
+        ident = [0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 1 << 30]
+        self.rotation = matrix_angle(None if res == ident else res)
+
     def _read_trak(self, f, trak) -> None:
         kids = self._children(f, *trak)
+        self.rotation = 0       # cv2's orientation (io/orientation)
+        if "tkhd" in kids:
+            self._orientation(self._read(f, kids["tkhd"]))
         mdia = self._children(f, *kids["mdia"])
         ver, mdhd = _full(self._read(f, mdia["mdhd"]))
         self.timescale = struct.unpack(">I", mdhd[16:20] if ver else
@@ -275,30 +302,51 @@ class Mp4File:
                 i - 1 for i in struct.unpack(f">{cnt}I", b[4:4 + 4 * cnt]))
         else:
             self.keyframes = list(range(n))
+        # each sample's composition offset (``ctts``, version 0 or 1: signed)
+        self.ctts = [0] * n
+        if "ctts" in stbl:
+            _, b = _full(self._read(f, stbl["ctts"]))
+            cnt = struct.unpack(">I", b[:4])[0]
+            k = 0
+            for j in range(cnt):
+                run, off = struct.unpack(">Ii", b[4 + 8 * j:12 + 8 * j])
+                for _ in range(run):
+                    if k < n:
+                        self.ctts[k] = off
+                    k += 1
         if elst:
-            self._check_edits(self._read(f, elst),
-                              self._first_shown(f, stbl.get("ctts")))
+            self._check_edits(self._read(f, elst), self._first_shown())
 
-    def _first_shown(self, f, ctts) -> int:
+    def _first_shown(self) -> int:
         """The composition time of the first picture shown (0 without a
         ``ctts``): where the mov muxer's edit list starts a track whose
-        pictures are reordered or delayed (MPEG-1/2)."""
-        if not ctts:
-            return 0
-        _, b = _full(self._read(f, ctts))
-        cnt = struct.unpack(">I", b[:4])[0]
+        pictures are reordered or delayed (MPEG-1/2, H.264 with B
+        pictures)."""
         dts, best = 0, None
-        k = 0
-        for j in range(cnt):
-            run, off = struct.unpack(">Ii", b[4 + 8 * j:12 + 8 * j])
-            for _ in range(run):
-                if k >= len(self.durations):
-                    break
-                t = dts + off
-                best = t if best is None else min(best, t)
-                dts += self.durations[k]
-                k += 1
+        for d, off in zip(self.durations, self.ctts):
+            best = dts + off if best is None else min(best, dts + off)
+            dts += d
         return best or 0
+
+    @property
+    def video_delay(self) -> int:
+        """mov.c's mov_estimate_video_delay for H.264: the most places a
+        sample's composition time moves back past those decoded before it
+        (within a window of 17), 0 without a ``ctts``."""
+        if self.codec != "h264" or not any(self.ctts):
+            return 0
+        buf, delay, dts = [], 0, 0
+        for d, off in zip(self.durations, self.ctts):
+            buf = (buf + [dts + off])[-17:]
+            j = len(buf) - 1
+            swaps = 0
+            while j > 0 and buf[j] < buf[j - 1]:
+                buf[j], buf[j - 1] = buf[j - 1], buf[j]
+                swaps += 1
+                j -= 1
+            delay = max(delay, swaps)
+            dts += d
+        return delay
 
     def _check_edits(self, body: bytes, shown: int = 0) -> None:
         ver, b = _full(body)
@@ -309,7 +357,7 @@ class Mp4File:
                  for i in range(cnt)]
         # an edit that starts at the first picture shown changes no frame
         if len([m for m in media if m != -1]) > 1 or any(
-                m > 0 and not (self.codec == "mpeg12" and m == shown)
+                m > 0 and not (self.codec in ("mpeg12", "h264") and m == shown)
                 for m in media):
             raise Unsupported(f"{self.path}: an edit list that starts the "
                               "track past its first sample or splices it; "

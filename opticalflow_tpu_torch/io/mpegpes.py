@@ -121,9 +121,11 @@ def split_starts(chunks, codec: str) -> Tuple[List[int], List[int], int]:
                 base + len(data))
     starts: List[int] = []
     pictures: List[int] = []
-    cur, tail, total, base = 0, b"", 0, 0
+    cur, tail, total, base = None, b"", 0, 0
     in_slices = have = False
     for off, chunk in chunks:
+        if cur is None:     # the first sample starts with the stream
+            cur = off
         data = tail + chunk
         base = off - len(tail)
         total = off + len(chunk)
@@ -190,6 +192,25 @@ def split_h264(data: bytes) -> Tuple[List[int], List[int]]:
     a slice of it, or before a slice whose first_mb_in_slice is not past the
     last slice's; its boundary takes a leading zero of a 4-byte start code.
     (each access unit's start, its first slice's start code)."""
+    starts, slices, cur, found = _scan_h264(data)
+    if found:
+        starts.append(cur)
+    return starts, slices[:len(starts)]
+
+
+def h264_parser_units(data: bytes) -> List[Tuple[int, int]]:
+    """(start, end) of each access unit FFmpeg's h264 parser hands over from
+    ``data`` before what it still holds back (an access unit whose end it
+    has not seen), whatever the data: FFmpeg's transport stream demuxer
+    runs it over the first PES packets of a stream labelled H.264 (0x1B)
+    before its probe finds the payload is MPEG-2 video."""
+    starts, _, cur, _ = _scan_h264(data)
+    return list(zip(starts, starts[1:] + [cur]))
+
+
+def _scan_h264(data: bytes):
+    """split_h264's walk: the access units closed, their first slices, where
+    the one it holds starts, and whether that one has a slice."""
     starts: List[int] = []
     slices: List[int] = []
     found, last_mb, cur = False, -1, 0
@@ -213,9 +234,7 @@ def split_h264(data: bytes) -> Tuple[List[int], List[int]]:
                     slices.append(i)
                 last_mb = head[0]
         i = data.find(b"\x00\x00\x01", i + 3)
-    if found:
-        starts.append(cur)
-    return starts, slices[:len(starts)]
+    return starts, slices, cur, found
 
 
 def h264_slice_type(head: bytes) -> int:
@@ -315,12 +334,33 @@ class PesVideo:
 
     # ----------------------------------------------------------- pictures
 
+    # PES packets an H.264-labelled MPEG-2 stream's first samples come from
+    # (the H.264 parser's split; set by the transport stream demuxer)
+    h264_head = 0
+
     def _split(self, f: BinaryIO) -> None:
         """One sample a picture (see the module's notes): sample i is the
-        stream's bytes [starts[i], ends[i])."""
+        stream's bytes [starts[i], ends[i]).  With ``h264_head``, the first
+        PES packets come as FFmpeg's h264 parser split them (slices without a
+        picture header among them, which FFmpeg's MPEG-2 decoder passes
+        over) and what it held back is lost; its timestamps stamp the
+        samples that start in their PES packets."""
+        head = self.pes[:self.h264_head]
         self.starts, self.pictures, total = split_starts(
-            ((p.es, p.read(f)) for p in self.pes), self.codec)
+            ((p.es, p.read(f)) for p in self.pes[len(head):]), self.codec)
         self.ends = self.starts[1:] + [total]
+        stamp_at = list(self.pictures)
+        if head:
+            base = head[0].es
+            data = b"".join(p.read(f) for p in head)
+            units = h264_parser_units(data)
+            codes = [base + i for i, c in _codes(data) if c == _PICTURE]
+            pics = [next((o for o in codes if base + a <= o < base + b),
+                         base + a) for a, b in units]
+            self.starts = [base + a for a, _ in units] + self.starts
+            self.ends = [base + b for _, b in units] + self.ends
+            self.pictures = pics + self.pictures
+            stamp_at = self.starts[:len(units)] + stamp_at
         self.sizes = [e - s for s, e in zip(self.starts, self.ends)]
         self._es_starts = es_starts = [p.es for p in self.pes]
         used = set()
@@ -328,7 +368,7 @@ class PesVideo:
         self.pts: List[Optional[int]] = []
         self.dts: List[Optional[int]] = []
         self.owner: List[Optional[int]] = []    # the PES each stamp came from
-        for o in self.pictures:
+        for o, at in zip(self.pictures, stamp_at):
             head = self._es(f, o, 12 if self.codec == "h263" else 6)
             if self.codec == "mpeg12":
                 t = picture_types(head)
@@ -343,7 +383,7 @@ class PesVideo:
                                   else 2)
             else:
                 self.types.append(1 if h263_is_intra(head) else 2)
-            j = bisect_right(es_starts, o) - 1
+            j = bisect_right(es_starts, at) - 1
             pes = self.pes[j]
             if pes.pts is not None and j not in used:
                 used.add(j)

@@ -16,7 +16,10 @@ demuxer reads it for ``cv2.VideoCapture``:
     descriptor) by ``runtime/dirac``, its PES payloads split at parse
     units and its rate the sequence header's, 0x1B (H.264) by
     ``runtime/h264``, split into access units as FFmpeg's h264 parser
-    splits them, its rate the VUI's timing (else fitted to the PTS).  Other
+    splits them, its rate the VUI's timing (else fitted to the DTS); an
+    MPEG-2 payload under 0x1B as FFmpeg's probe reads it
+    (``MpegTsFile._probe_payload``: the first two PES packets through the
+    h264 parser, then MPEG-2, its decoder concealing what they cut).  Other
     video (HEVC 0x24, ...) raises ``Unsupported`` naming its
     type; a stream with no video (H.263 or FFV1 muxed as private data,
     0x06, which cv2 does not open either) raises too;
@@ -134,6 +137,8 @@ class MpegTsFile(PesVideo):
                     raise ValueError(f"{path}: no PES packet of the video "
                                      f"stream (PID 0x{self.pid:x})")
                 self.codec = _VIDEO[self.stream_type]
+                if self.codec == "h264":
+                    self._probe_payload(mm)
                 self._split(mm)
             if not self.starts:
                 raise ValueError(f"{path}: no picture in its video stream "
@@ -185,6 +190,34 @@ class MpegTsFile(PesVideo):
              self.pts[i], self.dts[i], self.types[i] == 3)
             for i, j in enumerate(self.owner)]
         self._seek_pos = [p for p, _, _, _ in self._parsed]
+
+    def _probe_payload(self, mm) -> None:
+        """FFmpeg's probe of a stream labelled H.264 (0x1B) whose payload is
+        MPEG-2 video (a sequence header and its extension first, which
+        h264_probe refuses and mpegvideo's accepts): FFmpeg runs its h264
+        parser over the first two PES packets, then switches the stream to
+        MPEG-2 and its parser (``PesVideo.h264_head``); the pictures the
+        first packets held come to its MPEG-2 decoder cut up, which conceals
+        them.  Shown where each of the first two PES packets carries a DTS
+        other than its PTS; where one does not (a low-delay stream, PTS
+        alone, a packet without timestamps) FFmpeg switches nothing and cv2
+        reads no frame, and the port, decoding H.264, raises.  MPEG-1 and
+        MPEG-4 payloads under 0x1B are refused."""
+        if len(self.pes) < 2 or any(p.dts is None or p.dts == p.pts
+                                    for p in self.pes[:2]):
+            return
+        data = self.pes[0].read(mm, 0, 64).lstrip(b"\0")
+        if not data.startswith(b"\x00\x00\x01\xb3") and not data.startswith(
+                b"\x01\xb3"):
+            return
+        i = data.find(b"\x00\x00\x01\xb5")
+        if i < 0 or i + 4 >= len(data) or data[i + 4] >> 4 != 1:
+            raise Unsupported(
+                f"{self.path}: MPEG-1 video under stream_type 0x1b (H.264), "
+                f"which FFmpeg's probe reads as MPEG video; not read by the "
+                f"port ({ITEM_8})")
+        self.codec = "mpeg12"
+        self.h264_head = 2
 
     # ------------------------------------------------------------ packets
 
@@ -359,7 +392,9 @@ class MpegTsFile(PesVideo):
         it trusts the VOL's."""
         if self.codec not in ("mpeg4", "h264") or 5 <= self.rate < 101:
             return None
-        times = [p.pts for p in self.pes if p.pts is not None]
+        # ff_rfps_add_frame and the average read decode times (B pictures'
+        # presentation times go back and forth)
+        times = [p.dts for p in self.pes if p.dts is not None]
         fit = _rfps(times, 1 / TIME_BASE)
         if fit is None or times[-1] <= times[0]:
             return None

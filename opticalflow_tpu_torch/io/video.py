@@ -5,7 +5,10 @@ and frame directories.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` and
 ``cv2.VideoWriter`` (FFmpeg underneath); the port has its own demuxers,
-muxers and codecs and reads what those read, frame for frame:
+muxers and codecs and reads what those read, frame for frame, each turned
+as cv2 turns it by an MP4/QuickTime ``tkhd`` matrix or a Matroska
+``Projection`` (``io/orientation``: at 90, 180 and 270 degrees, the width
+and height swapped at 90 and 270):
 
   * **MP4** (``.mp4``, ``.m4v``, ``.mov``; ``io/mp4``), **AVI**
     (``.avi``; ``io/avi``) and **Matroska/WebM** (``.mkv``, ``.webm``;
@@ -24,13 +27,16 @@ muxers and codecs and reads what those read, frame for frame:
     as cv2's writer does; an odd side cropped to even, as it does),
     ``.mp4``, ``.avi`` (fourcc ``FMP4``) or ``.mkv``.  HEVC, AV1, VP9
     profiles 1-3 and the like raise, naming ROADMAP Queue 1 item 8;
-  * **H.264** (``runtime/h264``): progressive 8-bit 4:2:0 I and P slices,
-    CAVLC and CABAC, in MP4/QuickTime (``avc1``/``avc3`` with the avcC),
-    Matroska (``V_MPEG4/ISO/AVC``), AVI, NUT and ASF (riff.c's tags),
-    FLV (codec id 7), MPEG-TS (0x1B) and raw ``.h264``/``.264``/``.avc``;
-    the size is the SPS's crop, key frames the IDR and I pictures, frames
-    counted in the order FFmpeg's decoder hands them over; B slices,
-    field coding and other layouts raise naming item 8;
+  * **H.264** (``runtime/h264``): progressive 8-bit 4:2:0 I, P and B
+    slices, CAVLC and CABAC, in MP4/QuickTime (``avc1``/``avc3`` with the
+    avcC; ``ctts`` and the ``elst`` that starts the track at its first
+    picture shown), Matroska (``V_MPEG4/ISO/AVC``), AVI, NUT and ASF
+    (riff.c's tags), FLV (codec id 7), MPEG-TS (0x1B) and raw
+    ``.h264``/``.264``/``.avc``; the size is the SPS's crop, key frames the
+    IDR and I pictures, frames counted in the order FFmpeg's decoder hands
+    them over, its reorder depth starting where FFmpeg's probe left it
+    (``EncodedVideo.h264_delay``); field coding and other layouts raise
+    naming item 8;
   * **H.263** baseline with Annex F (``H263``, ``U263``, ... in AVI,
     ``s263``/``h263`` in ``.3gp``, ``.3g2`` and ``.mov``, ``H263`` under
     ``V_MS/VFW/FOURCC`` in Matroska: what ``cv2.VideoWriter`` writes for
@@ -201,9 +207,11 @@ from opticalflow_tpu_torch.runtime.dirac import \
 from opticalflow_tpu_torch.runtime.ffv1 import Decoder as Ffv1Decoder
 from opticalflow_tpu_torch.runtime.h263 import Decoder as H263Decoder
 from opticalflow_tpu_torch.runtime.h263 import picture_size as h263_size
+from opticalflow_tpu_torch.io.orientation import display_size, rotate
 from opticalflow_tpu_torch.runtime.h264 import Decoder as H264Decoder
 from opticalflow_tpu_torch.runtime.h264 import is_keyframe as h264_is_idr
 from opticalflow_tpu_torch.runtime.h264 import probe as h264_probe
+from opticalflow_tpu_torch.runtime.h264 import probe_delay as h264_probe_delay
 from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import Decoder as J2kDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import probe as j2k_size
@@ -577,6 +585,7 @@ class EncodedVideo:
         if layout == "yuv411p":
             self.shifts = (2, 0)
         self.threads = ffmpeg_threads()
+        self.rotation = getattr(box, "rotation", 0)
         self._gen = None
         self._next = 0      # a capture just opened reads frame 0 unsought
         self._index: dict = {}      # FFmpeg's seek index in a capture
@@ -639,6 +648,19 @@ class EncodedVideo:
             self.keyframes = keys or self.keyframes
         self.h264 = info
         self.width, self.height = info.width, info.height
+
+    @property
+    def h264_delay(self) -> int:
+        """The reorder depth cv2's H.264 decoder starts from: FFmpeg's probe
+        over the first packets (``h264.probe_delay``), from the demuxer's
+        estimate (MP4's ``ctts``)."""
+        if getattr(self, "_h264_delay", None) is None:
+            with open(self.path, "rb") as f:
+                self._h264_delay = h264_probe_delay(
+                    (self.box.sample(f, i) for i in range(self.samples)),
+                    self.box.dsi, getattr(self.box, "video_delay", 0),
+                    self.path)
+        return self._h264_delay
 
     @property
     def h264_types(self) -> list:
@@ -832,7 +854,8 @@ class EncodedVideo:
         if self.box.codec == "mpeg12":
             return Mpeg12Decoder(what=self.path, extradata=self.box.dsi)
         if self.box.codec == "h264":
-            return H264Decoder(what=self.path, extradata=self.box.dsi)
+            return H264Decoder(what=self.path, extradata=self.box.dsi,
+                               delay=self.h264_delay)
         if self.box.codec == "vp8":
             return Vp8Decoder(what=self.path)
         if self.box.codec == "vp9":
@@ -1063,6 +1086,22 @@ class EncodedVideo:
     def _decoded(self, start: int = 0, seeking: bool = False,
                  restart: Optional[int] = None
                  ) -> Iterator[Tuple[int, np.ndarray]]:
+        """(index, BGR frame) of each picture from frame ``start`` on, turned
+        as cv2 turns it by the container's display matrix
+        (``io/orientation``: an MP4/QuickTime ``tkhd``, a Matroska
+        ``Projection``)."""
+        for i, frame in self._unturned(start, seeking, restart):
+            yield i, rotate(frame, self.rotation)
+
+    @property
+    def display_size(self) -> Tuple[int, int]:
+        """(``CAP_PROP_FRAME_WIDTH``, ``CAP_PROP_FRAME_HEIGHT``): the
+        stream's size, swapped where cv2 turns its frames a quarter."""
+        return display_size(self.width, self.height, self.rotation)
+
+    def _unturned(self, start: int = 0, seeking: bool = False,
+                  restart: Optional[int] = None
+                  ) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, BGR frame) of each picture from frame ``start`` on.  A
         picture of another size than the stream's (a VP9 frame that changed
         size, a VP8 key frame, an H.263 picture header) is scaled to it, as
@@ -1368,8 +1407,8 @@ def video_info(path: str) -> Dict[str, float]:
     kind = _kind(path)
     if kind in _ENCODED:
         v = EncodedVideo(path)
-        return {"fps": v.fps, "width": v.width, "height": v.height,
-                "frames": v.frames}
+        w, h = v.display_size
+        return {"fps": v.fps, "width": w, "height": h, "frames": v.frames}
     if kind == "sequence":
         seq = ImageSequence(path)
         return {"fps": seq.fps, "width": seq.width, "height": seq.height,

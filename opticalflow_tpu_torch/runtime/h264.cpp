@@ -16,32 +16,46 @@
 //     restriction) and PPS (the 8x8 transform, its scaling lists with rule
 //     A or B, both chroma QP offsets, explicit weighted prediction), each by
 //     id, re-sent at will;
-//   * I and P slices, several a picture, in CAVLC or CABAC: I_NxN with the
-//     4x4 or 8x8 transform, I_16x16, I_PCM; P_L0_16x16, 16x8, 8x16, P_8x8
-//     and P_8x8ref0 with their sub-partitions, P_Skip;
+//   * I, P and B slices, several a picture, in CAVLC or CABAC: I_NxN with
+//     the 4x4 or 8x8 transform, I_16x16, I_PCM; P_L0_16x16, 16x8, 8x16,
+//     P_8x8 and P_8x8ref0 with their sub-partitions, P_Skip; every B
+//     mb_type and sub_mb_type, B_Skip and B_Direct (h264_direct.c: spatial
+//     direct with colZeroFlag, temporal direct with the co-located
+//     picture's references mapped onto list 0 by frame_num as fill_colmap
+//     maps them, from its last slice's lists, an unmapped one to list 0's
+//     first; direct_8x8_inference_flag 0 and 1);
 //   * reconstruction: intra 4x4, 8x8 (filtered references) and 16x16
 //     prediction, chroma prediction, constrained intra prediction; the
 //     dequantisation with the scaling matrices, the 4x4 and 8x8 inverse
 //     transforms, the luma DC Hadamard and the chroma 2x2 DC; median and
-//     directional motion vector prediction, P_Skip; quarter-sample luma
-//     (h264_qpel.h) and eighth-sample chroma over edge-replicated
-//     references; explicit weights;
+//     directional motion vector prediction for each list, P_Skip;
+//     quarter-sample luma (h264_qpel.h) and eighth-sample chroma over
+//     edge-replicated references; explicit weights, bi-prediction averaged,
+//     explicitly weighted or implicitly by POC distance (with the 32/32
+//     fall-back);
 //   * the deblocking filter (bS 0-4, alpha/beta/tC0 with the slice
-//     offsets, disable_deblocking_filter_idc 0-2, chroma QP per Cb and Cr);
-//   * reference lists with their modification, the sliding window and MMCO
-//     1-6 with long-term references;
+//     offsets, disable_deblocking_filter_idc 0-2, chroma QP per Cb and Cr;
+//     bS 1 by both lists' pictures and vectors, paired either way round, as
+//     check_mv compares them);
+//   * reference lists (list 1 and list 0 of a B slice by POC, list 1's
+//     first two swapped where it equals list 0) with their modification,
+//     the sliding window and MMCO 1-6 with long-term references, B
+//     pictures as references;
 //   * the output: h264_select_output_frame's reorder buffer (the delay from
-//     max_num_reorder_frames, or FFmpeg's guess raised as the POCs show),
-//     no picture before an IDR or recovery point, the flush at the end,
-//     and the crop as av_frame_apply_cropping applies it (a left crop that
-//     would unalign the planes is dropped).
+//     max_num_reorder_frames, or FFmpeg's guess raised as the POCs and B
+//     slices show, from the depth the caller starts it at: cv2's decoder
+//     starts from the depth FFmpeg's probe found), no picture before an
+//     IDR or recovery point, the flush at the end, and the crop as
+//     av_frame_apply_cropping applies it (a left crop that would unalign
+//     the planes is dropped).
 //
-// Refused with H264_UNSUPPORTED and a message naming it: B, SP and SI
-// slices; field pictures and MBAFF; other than 8-bit 4:2:0;
+// Refused with H264_UNSUPPORTED and a message naming it: SP and SI slices;
+// field pictures and MBAFF; other than 8-bit 4:2:0;
 // qpprime_y_zero_transform_bypass; FMO, data partitioning and redundant
-// pictures; a gap in frame_num; and whatever FFmpeg would conceal (a
-// missing reference, a picture with missing macroblocks, two pictures in
-// one packet).  Damaged data raises H264_CORRUPT; nothing crashes.
+// pictures; a gap in frame_num; more than 16 references a list; and
+// whatever FFmpeg would conceal (a missing reference, a picture with
+// missing macroblocks, two pictures in one packet).  Damaged data raises
+// H264_CORRUPT; nothing crashes.
 //
 // Built by runtime/_native.py with g++ at first use; called through ctypes.
 
@@ -101,6 +115,15 @@ enum Feature {
     F_COUNT
 };
 static_assert(F_COUNT <= 64, "feature bits");
+
+// what B slices reached (third word, h264.py's B_FEATURES): each mb_type
+// 0-22 of Table 7-14, each sub_mb_type 0-12 of Table 7-18, then the rest
+enum FeatureB {
+    FB_MB = 0, FB_SUB = 23, FB_SKIP = 36, FB_SPATIAL, FB_TEMPORAL, FB_INFERENCE, FB_DIRECT_4X4, FB_COL_ZERO,
+    FB_COL_INTRA, FB_COL_L1, FB_IMPLICIT, FB_IMPLICIT_FALLBACK, FB_EXPLICIT, FB_LIST1_MOD, FB_LIST1_SWAP,
+    FB_B_REFERENCE, FB_LONG_TERM_L1, FB_B_INTRA, FB_COL_UNMAPPED, FB_COUNT
+};
+static_assert(FB_COUNT <= 64, "B feature bits");
 
 // the intra modes reached (second word): 4x4 0-8, 8x8 0-8, 16x16 0-3,
 // chroma 0-3, then the same where the block lacks its top or left
@@ -543,9 +566,19 @@ struct Picture {
     int frame_num = 0, poc = 0;
     int long_term_idx = -1;
     bool short_ref = false, long_ref = false;
-    bool key = false, mmco_reset = false, recovered = false;
+    bool key = false, mmco_reset = false, recovered = false, is_b = false;
     int serial = 0;
     int64_t id = 0;
+    // what a later B picture's direct prediction reads of it, as it stands
+    // co-located (list 1's first picture): per macroblock whether intra,
+    // per 8x8 each list's reference index, per 4x4 each list's vector, and
+    // (as FFmpeg keeps them, from its last slice) the frame_num of each
+    // list's entries
+    std::vector<uint8_t> col_intra;
+    std::vector<int8_t> col_ref[2];
+    std::vector<int16_t> col_mv[2];
+    int ref_count[2] = {0, 0};
+    int ref_fn[2][32];
 };
 using PicPtr = std::shared_ptr<Picture>;
 
@@ -564,16 +597,19 @@ struct MbInfo {
     uint8_t nnz[16];      // raster 4x4: total_coeff (CAVLC), coefficients or not (CABAC)
     uint8_t nnzc[2][4];   // chroma AC, raster 2x2
     uint8_t nzd[16];      // deblocking: coefficients in the 4x4 (or its 8x8) block
-    int8_t ref[4];        // per 8x8 (raster), -1 intra
-    int64_t ref_id[4];    // the picture each refers to
-    int16_t mv[16][2];
-    uint8_t mvd[16][2];   // CABAC: |mvd| capped at 70
+    int8_t ref[2][4];     // per list, per 8x8 (raster): -1 intra or unused
+    int64_t ref_id[2][4]; // the picture each refers to, -1 none
+    int16_t mv[2][16][2];
+    uint8_t mvd[2][16][2];   // CABAC: |mvd| capped at 70
+    uint8_t direct8 = 0;  // the 8x8 blocks predicted as direct (or skipped)
+    bool direct16 = false;   // B_Skip or B_Direct_16x16
     bool intra() const { return kind <= MB_PCM; }
 };
 
 struct SliceParams {
     int disable_deblock = 0, alpha_off = 0, beta_off = 0;
     int chroma_qp_offset[2] = {0, 0};
+    bool b = false;
 };
 
 struct RefEntry {
@@ -698,11 +734,13 @@ void refuse(const SpsRefusal& r) {
 struct SliceHeader {
     int first_mb = 0, type = 0, pps_id = 0, frame_num = 0;
     int poc_lsb = 0, delta_poc_bottom = 0, delta_poc[2] = {0, 0};
-    int num_ref_idx = 0;
-    std::vector<std::pair<int, int>> mods;
+    int num_ref_idx = 0, num_ref_idx1 = 0;
+    bool direct_spatial = false;
+    std::vector<std::pair<int, int>> mods, mods1;
     int luma_log2 = 0, chroma_log2 = 0;
-    int lw[32] = {}, lo[32] = {}, cw[32][2] = {}, co[32][2] = {};
-    bool lflag[32] = {}, cflag[32] = {};
+    // pred_weight_table, per list
+    int lw[2][32] = {}, lo[2][32] = {}, cw[2][32][2] = {}, co[2][32][2] = {};
+    bool lflag[2][32] = {}, cflag[2][32] = {};
     bool long_term_reference = false, adaptive = false;
     std::vector<Mmco> mmco;
     int cabac_init_idc = 0, qp_delta = 0;
@@ -754,20 +792,25 @@ struct Decoder {
     int64_t next_id = 1;
     int serial = -1;
     int pictures = 0;
-    uint64_t features = 0, modes = 0;
+    uint64_t features = 0, modes = 0, features_b = 0;
 
     // the slice being decoded
     Bits br;
     Cabac cab;
     bool is_cabac = false;
     int slice_idx = 0, slice_type = 0, qp = 0, last_qp_delta = 0;
-    RefEntry list[33];
-    int num_ref_idx = 0;
+    RefEntry list[2][33];
+    int nref[2] = {0, 0};
     int luma_log2 = 0, chroma_log2 = 0;
-    bool weighted = false;
+    int wmode = 0;   // 0 none, 1 explicit, 2 implicit (B)
+    int implicit_w[16][16];   // implicit bi-prediction: list 0's weight
+    bool implicit_fb[16][16];   // ... 32 by the fall-back rule
+    bool direct_spatial = false;
+    int map_col[2][32];   // temporal direct: the co-located's index → list 0's, -1 none
+    int dsf[16];          // temporal direct: DistScaleFactor of each list 0 entry
     int cqp_off[2] = {0, 0};
     int mb_x = 0, mb_y = 0, mb_addr = 0;
-    bool assigned[16];
+    bool assigned[2][16];
     std::vector<uint8_t> rbsp;
 
     Decoder() {
@@ -776,6 +819,7 @@ struct Decoder {
     }
 
     void feat(int f) { features |= uint64_t(1) << f; }
+    void featb(int f) { features_b |= uint64_t(1) << f; }
 
     // ------------------------------------------------------------ NAL units
 
@@ -967,7 +1011,6 @@ struct Decoder {
         h.first_mb = (int)br.ue();
         int t = (int)br.ue_max(9, "slice_type");
         h.type = t % 5;
-        if (h.type == 1) UNSUPPORTED("B slices");
         if (h.type == 3 || h.type == 4) UNSUPPORTED("SP and SI slices");
         h.pps_id = (int)br.ue_max(255, "pic_parameter_set_id");
         if (!pps[h.pps_id].valid) CORRUPT("slice refers to PPS %d, which was not sent", h.pps_id);
@@ -987,39 +1030,51 @@ struct Decoder {
             int rpc = (int)br.ue_max(127, "redundant_pic_cnt");
             if (rpc) UNSUPPORTED("redundant pictures (redundant_pic_cnt %d)", rpc);
         }
-        h.num_ref_idx = 0;
-        if (h.type == 0) {
+        h.num_ref_idx = h.num_ref_idx1 = 0;
+        if (h.type == 1) h.direct_spatial = br.get1();
+        if (h.type != 2) {
             h.num_ref_idx = p.num_ref_idx_default[0];
-            if (br.get1()) h.num_ref_idx = (int)br.ue_max(31, "num_ref_idx_l0_active_minus1") + 1;
-            if (br.get1()) {   // ref_pic_list_modification_flag_l0
+            if (h.type == 1) h.num_ref_idx1 = p.num_ref_idx_default[1];
+            if (br.get1()) {   // num_ref_idx_active_override_flag
+                h.num_ref_idx = (int)br.ue_max(31, "num_ref_idx_l0_active_minus1") + 1;
+                if (h.type == 1) h.num_ref_idx1 = (int)br.ue_max(31, "num_ref_idx_l1_active_minus1") + 1;
+            }
+            // h264_parse_ref_count: a frame holds at most 16 a list; FFmpeg
+            // drops the slice and conceals it
+            if (h.num_ref_idx > 16 || h.num_ref_idx1 > 16)
+                UNSUPPORTED("more than 16 reference indices in a frame's list (FFmpeg conceals the slice)");
+            for (int l = 0; l < (h.type == 1 ? 2 : 1); l++) {
+                if (!br.get1()) continue;   // ref_pic_list_modification_flag_lX
+                auto& mods = l ? h.mods1 : h.mods;
                 for (int k = 0;; k++) {
                     if (k > 32) CORRUPT("too many reference list modifications");
                     int idc = (int)br.ue_max(3, "modification_of_pic_nums_idc");
                     if (idc == 3) break;
-                    h.mods.emplace_back(idc, (int)br.ue());
+                    mods.emplace_back(idc, (int)br.ue());
                 }
             }
-            if (p.weighted_pred) {
+            if ((p.weighted_pred && h.type == 0) || (p.weighted_bipred_idc == 1 && h.type == 1)) {
                 h.luma_log2 = (int)br.ue_max(7, "luma_log2_weight_denom");
                 h.chroma_log2 = (int)br.ue_max(7, "chroma_log2_weight_denom");
-                for (int i = 0; i < h.num_ref_idx; i++) {
-                    h.lflag[i] = br.get1();
-                    h.lw[i] = 1 << h.luma_log2;
-                    h.lo[i] = 0;
-                    if (h.lflag[i]) {
-                        h.lw[i] = br.se_range(-128, 127, "luma_weight_l0");
-                        h.lo[i] = br.se_range(-128, 127, "luma_offset_l0");
-                    }
-                    h.cflag[i] = br.get1();
-                    for (int j = 0; j < 2; j++) {
-                        h.cw[i][j] = 1 << h.chroma_log2;
-                        h.co[i][j] = 0;
-                        if (h.cflag[i]) {
-                            h.cw[i][j] = br.se_range(-128, 127, "chroma_weight_l0");
-                            h.co[i][j] = br.se_range(-128, 127, "chroma_offset_l0");
+                for (int l = 0; l < (h.type == 1 ? 2 : 1); l++)
+                    for (int i = 0; i < (l ? h.num_ref_idx1 : h.num_ref_idx); i++) {
+                        h.lflag[l][i] = br.get1();
+                        h.lw[l][i] = 1 << h.luma_log2;
+                        h.lo[l][i] = 0;
+                        if (h.lflag[l][i]) {
+                            h.lw[l][i] = br.se_range(-128, 127, "luma_weight");
+                            h.lo[l][i] = br.se_range(-128, 127, "luma_offset");
+                        }
+                        h.cflag[l][i] = br.get1();
+                        for (int j = 0; j < 2; j++) {
+                            h.cw[l][i][j] = 1 << h.chroma_log2;
+                            h.co[l][i][j] = 0;
+                            if (h.cflag[l][i]) {
+                                h.cw[l][i][j] = br.se_range(-128, 127, "chroma_weight");
+                                h.co[l][i][j] = br.se_range(-128, 127, "chroma_offset");
+                            }
                         }
                     }
-                }
             }
         }
         if (ref_idc) {
@@ -1188,6 +1243,7 @@ struct Decoder {
         cur->frame_num = h.frame_num;
         cur->poc = poc;
         cur->key = idr;
+        cur->is_b = h.type == 1;
         cur->serial = serial;
         cur->id = next_id++;
         mbs.assign((size_t)mb_w * mb_h, MbInfo());
@@ -1230,15 +1286,17 @@ struct Decoder {
             }
         }
         int out_of_order = 16 - i;
-        if (last_pocs[14] > INT_MIN && (int64_t)last_pocs[15] - last_pocs[14] > 2)
+        if (cur->is_b || (last_pocs[14] > INT_MIN && (int64_t)last_pocs[15] - last_pocs[14] > 2))
             out_of_order = std::max(out_of_order, 1);
         if (out_of_order == 16) {
             for (int k = 1; k < 16; k++) last_pocs[k] = INT_MIN;
             last_pocs[0] = cur->poc;
             cur->mmco_reset = true;
-        } else if (has_b_frames < out_of_order && !S->bitstream_restriction) {
-            has_b_frames = out_of_order;
+        } else if (out_of_order && !S->bitstream_restriction) {
+            // the POCs show reordering (whether or not the depth the decoder
+            // started from already covers it)
             feat(F_REORDER_GUESSED);
+            has_b_frames = std::max(has_b_frames, out_of_order);
         }
         delayed.push_back(cur);
         int pics = (int)delayed.size();
@@ -1287,7 +1345,23 @@ struct Decoder {
             UNSUPPORTED("a picture with %d of its %d macroblocks missing, which FFmpeg conceals",
                         mb_w * mb_h - mbs_done, mb_w * mb_h);
         deblock();
+        // what a B picture reads of this one where it lies co-located
+        const int n = mb_w * mb_h;
+        cur->col_intra.resize(n);
+        for (int l = 0; l < 2; l++) {
+            cur->col_ref[l].resize(4 * n);
+            cur->col_mv[l].resize(32 * n);
+        }
+        for (int a = 0; a < n; a++) {
+            const MbInfo& m = mbs[a];
+            cur->col_intra[a] = m.intra();
+            for (int l = 0; l < 2; l++) {
+                std::memcpy(&cur->col_ref[l][4 * a], m.ref[l], 4);
+                std::memcpy(&cur->col_mv[l][32 * a], m.mv[l], 64);
+            }
+        }
         if (cur_ref_idc) {
+            if (cur->is_b) featb(FB_B_REFERENCE);
             mark_references();
             prev_poc_msb = poc_msb;
             prev_poc_lsb = first.poc_lsb;
@@ -1408,74 +1482,189 @@ struct Decoder {
 
     // ------------------------------------------------------------ reference list
 
-    void build_list(const SliceHeader& h) {
+    // h264_refs.c's add_sorted: the short-term references on one side of
+    // ``limit`` by POC, nearest first (``dir`` 1: at or below it)
+    static std::vector<PicPtr> add_sorted(const std::vector<PicPtr>& src, int limit, int dir) {
+        std::vector<PicPtr> out;
+        for (;;) {
+            int best = dir ? INT_MIN : INT_MAX;
+            PicPtr pick;
+            for (auto& r : src) {
+                int poc = r->poc;
+                if (((poc > limit) ^ dir) && ((poc < best) ^ dir)) {
+                    best = poc;
+                    pick = r;
+                }
+            }
+            if (!pick) return out;
+            out.push_back(pick);
+            limit = pick->poc - dir;
+        }
+    }
+
+    // 8.2.4: both lists (list 1 for B), their modification and weights,
+    // and what direct prediction and implicit weights take from them
+    void build_lists(const SliceHeader& h) {
         const int max_frame_num = 1 << S->log2_max_frame_num;
-        num_ref_idx = h.num_ref_idx;
-        if (num_ref_idx > 1) feat(F_MULTI_REF);
+        const bool b = h.type == 1;
+        nref[0] = h.num_ref_idx;
+        nref[1] = b ? h.num_ref_idx1 : 0;
+        if (nref[0] > 1) feat(F_MULTI_REF);
         std::vector<PicPtr> shorts, longs;
         for (auto& r : refs) (r->short_ref ? shorts : longs).push_back(r);
+        // FFmpeg's short_ref array holds the newest first
+        std::reverse(shorts.begin(), shorts.end());
         auto wrap = [&](const PicPtr& r) {
             return r->frame_num > h.frame_num ? r->frame_num - max_frame_num : r->frame_num;
         };
-        std::stable_sort(shorts.begin(), shorts.end(),
-                         [&](const PicPtr& a, const PicPtr& b) { return wrap(a) > wrap(b); });
         std::stable_sort(longs.begin(), longs.end(),
                          [](const PicPtr& a, const PicPtr& b) { return a->long_term_idx < b->long_term_idx; });
-        std::vector<PicPtr> init = shorts;
-        init.insert(init.end(), longs.begin(), longs.end());
-        std::vector<PicPtr> l(num_ref_idx + 1);
-        for (int i = 0; i < num_ref_idx && i < (int)init.size(); i++) l[i] = init[i];
-        // 8.2.4.3
-        int pred = h.frame_num, idx = 0;
-        for (auto& m : h.mods) {
-            if (idx >= num_ref_idx) CORRUPT("more reference list modifications than entries");
-            PicPtr pic;
-            if (m.first < 2) {
-                feat(F_LIST_MOD);
-                int d = m.second + 1;
-                if (d > max_frame_num) CORRUPT("abs_diff_pic_num_minus1 %d out of range", m.second);
-                int no_wrap = m.first == 0 ? pred - d : pred + d;
-                if (no_wrap < 0) no_wrap += max_frame_num;
-                if (no_wrap >= max_frame_num) no_wrap -= max_frame_num;
-                pred = no_wrap;
-                int num = no_wrap > h.frame_num ? no_wrap - max_frame_num : no_wrap;
-                for (auto& r : shorts)
-                    if (wrap(r) == num) pic = r;
-                if (!pic) UNSUPPORTED("a list modification naming picture %d, which is not held (FFmpeg conceals it)", num);
-                for (int c = num_ref_idx; c > idx; c--) l[c] = l[c - 1];
-                l[idx++] = pic;
-                int n = idx;
-                for (int c = idx; c <= num_ref_idx; c++)
-                    if (!(l[c] && l[c]->short_ref && wrap(l[c]) == num)) l[n++] = l[c];
-            } else {
-                feat(F_LONG_TERM_LIST_MOD);
-                for (auto& r : longs)
-                    if (r->long_term_idx == m.second) pic = r;
-                if (!pic) UNSUPPORTED("a list modification naming long-term picture %d, which is not held", m.second);
-                for (int c = num_ref_idx; c > idx; c--) l[c] = l[c - 1];
-                l[idx++] = pic;
-                int n = idx;
-                for (int c = idx; c <= num_ref_idx; c++)
-                    if (!(l[c] && l[c]->long_ref && l[c]->long_term_idx == m.second)) l[n++] = l[c];
+        std::vector<PicPtr> init[2];
+        if (!b) {
+            init[0] = shorts;
+            std::stable_sort(init[0].begin(), init[0].end(),
+                             [&](const PicPtr& a, const PicPtr& b) { return wrap(a) > wrap(b); });
+            init[0].insert(init[0].end(), longs.begin(), longs.end());
+        } else {
+            for (int l = 0; l < 2; l++) {
+                init[l] = add_sorted(shorts, cur->poc, 1 ^ l);
+                auto more = add_sorted(shorts, cur->poc, l);
+                init[l].insert(init[l].end(), more.begin(), more.end());
+                init[l].insert(init[l].end(), longs.begin(), longs.end());
+            }
+            if (init[0].size() == init[1].size() && init[1].size() > 1 && init[0] == init[1]) {
+                std::swap(init[1][0], init[1][1]);
+                featb(FB_LIST1_SWAP);
             }
         }
-        for (int i = 0; i < num_ref_idx; i++) {
-            if (!l[i]) UNSUPPORTED("reference index %d names no picture (FFmpeg substitutes another)", i);
-            list[i] = RefEntry();
-            list[i].pic = l[i];
-            if (P->weighted_pred) {
-                list[i].w[0] = h.lw[i];
-                list[i].o[0] = h.lo[i];
-                for (int j = 0; j < 2; j++) {
-                    list[i].w[1 + j] = h.cw[i][j];
-                    list[i].o[1 + j] = h.co[i][j];
+        for (int L = 0; L < (b ? 2 : 1); L++) {
+            const int n = nref[L];
+            std::vector<PicPtr> l(n + 1);
+            for (int i = 0; i < n && i < (int)init[L].size(); i++) l[i] = init[L][i];
+            // 8.2.4.3
+            int pred = h.frame_num, idx = 0;
+            for (auto& m : L ? h.mods1 : h.mods) {
+                if (idx >= n) CORRUPT("more reference list modifications than entries");
+                PicPtr pic;
+                if (m.first < 2) {
+                    feat(F_LIST_MOD);
+                    if (L) featb(FB_LIST1_MOD);
+                    int d = m.second + 1;
+                    if (d > max_frame_num) CORRUPT("abs_diff_pic_num_minus1 %d out of range", m.second);
+                    int no_wrap = m.first == 0 ? pred - d : pred + d;
+                    if (no_wrap < 0) no_wrap += max_frame_num;
+                    if (no_wrap >= max_frame_num) no_wrap -= max_frame_num;
+                    pred = no_wrap;
+                    int num = no_wrap > h.frame_num ? no_wrap - max_frame_num : no_wrap;
+                    for (auto& r : shorts)
+                        if (wrap(r) == num) pic = r;
+                    if (!pic) UNSUPPORTED("a list modification naming picture %d, which is not held (FFmpeg conceals it)", num);
+                    for (int c = n; c > idx; c--) l[c] = l[c - 1];
+                    l[idx++] = pic;
+                    int k = idx;
+                    for (int c = idx; c <= n; c++)
+                        if (!(l[c] && l[c]->short_ref && wrap(l[c]) == num)) l[k++] = l[c];
+                } else {
+                    feat(F_LONG_TERM_LIST_MOD);
+                    if (L) featb(FB_LIST1_MOD);
+                    for (auto& r : longs)
+                        if (r->long_term_idx == m.second) pic = r;
+                    if (!pic) UNSUPPORTED("a list modification naming long-term picture %d, which is not held", m.second);
+                    for (int c = n; c > idx; c--) l[c] = l[c - 1];
+                    l[idx++] = pic;
+                    int k = idx;
+                    for (int c = idx; c <= n; c++)
+                        if (!(l[c] && l[c]->long_ref && l[c]->long_term_idx == m.second)) l[k++] = l[c];
                 }
-                if (h.lflag[i] || h.cflag[i]) feat(F_WEIGHTED);
+            }
+            for (int i = 0; i < n; i++) {
+                if (!l[i]) UNSUPPORTED("reference index %d names no picture (FFmpeg substitutes another)", i);
+                RefEntry& e = list[L][i];
+                e = RefEntry();
+                e.pic = l[i];
+                if ((P->weighted_pred && !b) || (P->weighted_bipred_idc == 1 && b)) {
+                    e.w[0] = h.lw[L][i];
+                    e.o[0] = h.lo[L][i];
+                    for (int j = 0; j < 2; j++) {
+                        e.w[1 + j] = h.cw[L][i][j];
+                        e.o[1 + j] = h.co[L][i][j];
+                    }
+                    if (h.lflag[L][i] || h.cflag[L][i]) feat(F_WEIGHTED);
+                }
             }
         }
-        weighted = P->weighted_pred;
+        wmode = (!b && P->weighted_pred) || (b && P->weighted_bipred_idc == 1) ? 1
+                : b && P->weighted_bipred_idc == 2 ? 2 : 0;
         luma_log2 = h.luma_log2;
         chroma_log2 = h.chroma_log2;
+        // ff_h264_direct_ref_list_init: the picture keeps its lists' frame
+        // numbers, from its last slice, for the B pictures that find it
+        // co-located
+        for (int L = 0; L < (b ? 2 : 1); L++) {
+            cur->ref_count[L] = nref[L];
+            for (int i = 0; i < nref[L]; i++) cur->ref_fn[L][i] = list[L][i].pic->frame_num;
+        }
+        if (!b) return;
+        for (int i = 0; i < nref[1]; i++)
+            if (list[1][i].pic->long_ref) featb(FB_LONG_TERM_L1);
+        direct_spatial = h.direct_spatial;
+        featb(direct_spatial ? FB_SPATIAL : FB_TEMPORAL);
+        const Picture& col = *list[1][0].pic;
+        if (!direct_spatial) {
+            // fill_colmap: each of the co-located's entries → the first of
+            // list 0 with its frame_num
+            for (int L = 0; L < 2; L++)
+                for (int k = 0; k < 32; k++) {
+                    map_col[L][k] = -1;
+                    if (k >= col.ref_count[L]) continue;
+                    for (int j = 0; j < nref[0]; j++)
+                        if (list[0][j].pic->frame_num == col.ref_fn[L][k]) {
+                            map_col[L][k] = j;
+                            break;
+                        }
+                }
+            // get_scale_factor
+            for (int i = 0; i < nref[0]; i++) {
+                const Picture& r = *list[0][i].pic;
+                int td = clip3(-128, 127, col.poc - r.poc);
+                if (!td || r.long_ref) {
+                    dsf[i] = 256;
+                } else {
+                    int tb = clip3(-128, 127, cur->poc - r.poc);
+                    int tx = (16384 + (std::abs(td) >> 1)) / td;
+                    dsf[i] = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+                }
+            }
+        }
+        if (wmode == 2) {
+            // implicit_weight_table: both lists of one picture each, as far
+            // before as after: default averaging
+            if (nref[0] == 1 && nref[1] == 1 &&
+                (int64_t)list[0][0].pic->poc + list[1][0].pic->poc == 2LL * cur->poc) {
+                wmode = 0;
+                return;
+            }
+            luma_log2 = chroma_log2 = 5;
+            for (int i0 = 0; i0 < nref[0]; i0++)
+                for (int i1 = 0; i1 < nref[1]; i1++) {
+                    int w = 32;
+                    implicit_fb[i0][i1] = true;
+                    const Picture &r0 = *list[0][i0].pic, &r1 = *list[1][i1].pic;
+                    if (!r0.long_ref && !r1.long_ref) {
+                        int td = clip3(-128, 127, r1.poc - r0.poc);
+                        if (td) {
+                            int tb = clip3(-128, 127, cur->poc - r0.poc);
+                            int tx = (16384 + (std::abs(td) >> 1)) / td;
+                            int d = (tb * tx + 32) >> 8;
+                            if (d >= -64 && d <= 128) {
+                                w = 64 - d;
+                                implicit_fb[i0][i1] = false;
+                            }
+                        }
+                    }
+                    implicit_w[i0][i1] = w;
+                }
+        }
     }
 
     // ------------------------------------------------------------ slice data
@@ -1523,8 +1712,9 @@ struct Decoder {
         cqp_off[0] = p.chroma_qp_offset[0];
         cqp_off[1] = p.chroma_qp_offset[1];
         dequant_tables();
-        if (h.type == 0) build_list(h);
-        else num_ref_idx = 0;
+        slices.back().b = h.type == 1;
+        if (h.type != 2) build_lists(h);
+        else nref[0] = nref[1] = 0;
         const int total = mb_w * mb_h;
         mb_addr = h.first_mb;
         if (is_cabac) {
@@ -1537,7 +1727,7 @@ struct Decoder {
             for (;;) {
                 if (mb_addr >= total) CORRUPT("slice runs past the last macroblock");
                 start_mb();
-                if (h.type == 0 && cabac_skip_flag()) decode_skip();
+                if (h.type != 2 && cabac_skip_flag()) decode_skip();
                 else macroblock();
                 mb_addr++;
                 if (cab.terminate()) break;
@@ -1546,7 +1736,7 @@ struct Decoder {
         }
         const int64_t stop = br.stop_bit();
         for (;;) {
-            if (h.type == 0) {
+            if (h.type != 2) {
                 uint32_t run = br.ue_max((uint32_t)total, "mb_skip_run");
                 for (uint32_t k = 0; k < run; k++) {
                     if (mb_addr >= total) CORRUPT("mb_skip_run runs past the last macroblock");
@@ -1577,7 +1767,8 @@ struct Decoder {
         std::memset(m.nnzc, 0, sizeof m.nnzc);
         std::memset(m.nzd, 0, sizeof m.nzd);
         std::memset(m.ref, -1, sizeof m.ref);
-        std::memset(m.ref_id, 0, sizeof m.ref_id);
+        for (int l = 0; l < 2; l++)
+            for (int i = 0; i < 4; i++) m.ref_id[l][i] = -1;
         std::memset(m.mv, 0, sizeof m.mv);
         std::memset(m.mvd, 0, sizeof m.mvd);
         std::memset(assigned, 0, sizeof assigned);
@@ -1591,26 +1782,30 @@ struct Decoder {
         int ref;
         int mv[2];
     };
-    Nb neighbour(int x, int y) {
+    // list l's reference and vector at luma (x, y) relative to the
+    // macroblock: unavailable (a block of the current macroblock not yet
+    // reached in list l's order counts so), or ref -1 for intra or a block
+    // that predicts not from list l
+    Nb neighbour(int l, int x, int y) {
         Nb n{false, -1, {0, 0}};
         int blk = 0;
         int a = locate(x, y, blk);
         if (a == -1) return n;
-        if (a == -2 && !assigned[blk]) return n;
+        if (a == -2 && !assigned[l][blk]) return n;
         const MbInfo& m = info(a);
         n.avail = true;
         if (m.intra()) return n;
-        n.ref = m.ref[(blk >> 3) * 2 + ((blk & 3) >> 1)];
-        n.mv[0] = m.mv[blk][0];
-        n.mv[1] = m.mv[blk][1];
+        n.ref = m.ref[l][(blk >> 3) * 2 + ((blk & 3) >> 1)];
+        n.mv[0] = m.mv[l][blk][0];
+        n.mv[1] = m.mv[l][blk][1];
         return n;
     }
     static int median(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
 
     // 8.4.1.3; shape 0 plain, 1/2 the upper/lower 16x8, 3/4 the left/right 8x16
-    void mv_pred(int x, int y, int w, int ref, int shape, int out[2]) {
-        Nb A = neighbour(x - 1, y), B = neighbour(x, y - 1), C = neighbour(x + w, y - 1);
-        if (!C.avail) C = neighbour(x - 1, y - 1);
+    void mv_pred(int l, int x, int y, int w, int ref, int shape, int out[2]) {
+        Nb A = neighbour(l, x - 1, y), B = neighbour(l, x, y - 1), C = neighbour(l, x + w, y - 1);
+        if (!C.avail) C = neighbour(l, x - 1, y - 1);
         const Nb* pick = nullptr;
         if (shape == 1 && B.ref == ref) pick = &B;
         else if (shape == 2 && A.ref == ref) pick = &A;
@@ -1630,32 +1825,37 @@ struct Decoder {
         }
     }
 
-    void assign(int x, int y, int w, int h, const int mv[2], int mvdx, int mvdy) {
+    void assign(int l, int x, int y, int w, int h, const int mv[2], int mvdx, int mvdy) {
         MbInfo& m = mbs[mb_addr];
         if (mv[0] < -32768 || mv[0] > 32767 || mv[1] < -32768 || mv[1] > 32767)
             CORRUPT("motion vector out of range");
         for (int j = y / 4; j < (y + h) / 4; j++)
             for (int i = x / 4; i < (x + w) / 4; i++) {
                 int b = j * 4 + i;
-                m.mv[b][0] = int16_t(mv[0]);
-                m.mv[b][1] = int16_t(mv[1]);
-                m.mvd[b][0] = uint8_t(std::min(std::abs(mvdx), 70));
-                m.mvd[b][1] = uint8_t(std::min(std::abs(mvdy), 70));
-                assigned[b] = true;
+                m.mv[l][b][0] = int16_t(mv[0]);
+                m.mv[l][b][1] = int16_t(mv[1]);
+                m.mvd[l][b][0] = uint8_t(std::min(std::abs(mvdx), 70));
+                m.mvd[l][b][1] = uint8_t(std::min(std::abs(mvdy), 70));
+                assigned[l][b] = true;
             }
     }
 
     void decode_skip() {
-        feat(F_PSKIP);
         MbInfo& m = mbs[mb_addr];
         m.kind = MB_SKIP;
         m.qp = qp;
+        m.direct8 = 15;
         last_qp_delta = 0;
-        if (num_ref_idx < 1) CORRUPT("P_Skip with no reference picture");
-        for (int i = 0; i < 4; i++) {
-            m.ref[i] = 0;
-            m.ref_id[i] = list[0].pic->id;
+        if (slice_type == 1) {
+            featb(FB_SKIP);
+            m.direct16 = true;
+            direct(15);
+            predict_mb();
+            return;
         }
+        feat(F_PSKIP);
+        if (nref[0] < 1) CORRUPT("P_Skip with no reference picture");
+        for (int i = 0; i < 4; i++) set_ref(0, i, 0);
         int mv[2] = {0, 0};
         int ba = 0, bb = 0;
         int a = locate(-1, 0, ba), b = locate(0, -1, bb);
@@ -1663,20 +1863,132 @@ struct Decoder {
         if (!zero) {
             const MbInfo& ma = mbs[a];
             const MbInfo& mb = mbs[b];
-            if (!ma.intra() && ma.ref[(ba >> 3) * 2 + ((ba & 3) >> 1)] == 0 && !ma.mv[ba][0] && !ma.mv[ba][1])
+            if (!ma.intra() && ma.ref[0][(ba >> 3) * 2 + ((ba & 3) >> 1)] == 0 && !ma.mv[0][ba][0] &&
+                !ma.mv[0][ba][1])
                 zero = true;
-            if (!mb.intra() && mb.ref[(bb >> 3) * 2 + ((bb & 3) >> 1)] == 0 && !mb.mv[bb][0] && !mb.mv[bb][1])
+            if (!mb.intra() && mb.ref[0][(bb >> 3) * 2 + ((bb & 3) >> 1)] == 0 && !mb.mv[0][bb][0] &&
+                !mb.mv[0][bb][1])
                 zero = true;
         }
-        if (!zero) mv_pred(0, 0, 16, 0, 0, mv);
-        assign(0, 0, 16, 16, mv, 0, 0);
-        predict_inter(0, 0, 16, 16, 0, mv);
+        if (!zero) mv_pred(0, 0, 0, 16, 0, 0, mv);
+        assign(0, 0, 0, 16, 16, mv, 0, 0);
+        predict_mb();
+    }
+
+    // ------------------------------------------------------------ direct prediction (8.4.1.2)
+
+    // the derived references and vectors, applied to the macroblock where
+    // each 8x8 block's turn comes (direct_ref/direct_mv, per list)
+    int8_t direct_ref[2][4];
+    int16_t direct_mv[2][16][2];
+
+    // h264_direct.c: the 8x8 blocks of ``mask`` predicted directly, spatial
+    // or temporal, into direct_ref/direct_mv; B_Skip and B_Direct_16x16
+    // (mask 15) are applied at once
+    void direct(int mask) {
+        const Picture& col = *list[1][0].pic;
+        if ((int)col.col_intra.size() != mb_w * mb_h) UNSUPPORTED("a co-located picture of another size");
+        const bool col_intra = col.col_intra[mb_addr];
+        if (col_intra) featb(FB_COL_INTRA);
+        const int8_t* cref[2] = {&col.col_ref[0][mb_addr * 4], &col.col_ref[1][mb_addr * 4]};
+        const int16_t* cmv[2] = {&col.col_mv[0][mb_addr * 32], &col.col_mv[1][mb_addr * 32]};
+        const bool inference = S->direct_8x8;
+        featb(inference ? FB_INFERENCE : FB_DIRECT_4X4);
+        static const int kCorner[4] = {0, 3, 12, 15};
+        auto col_blk = [&](int b8, int blk) { return inference ? kCorner[b8] : blk; };
+        if (direct_spatial) {
+            int ref[2], mv[2][2];
+            for (int l = 0; l < 2; l++) {
+                Nb A = neighbour(l, -1, 0), B = neighbour(l, 0, -1), C = neighbour(l, 16, -1);
+                if (!C.avail) C = neighbour(l, -1, -1);
+                unsigned r = std::min(std::min((unsigned)A.ref, (unsigned)B.ref), (unsigned)C.ref);
+                ref[l] = r > 31 ? -1 : (int)r;
+                mv[l][0] = mv[l][1] = 0;
+                if (ref[l] < 0) continue;
+                int match = (A.ref == ref[l]) + (B.ref == ref[l]) + (C.ref == ref[l]);
+                const Nb& one = A.ref == ref[l] ? A : B.ref == ref[l] ? B : C;
+                mv[l][0] = match > 1 ? median(A.mv[0], B.mv[0], C.mv[0]) : one.mv[0];
+                mv[l][1] = match > 1 ? median(A.mv[1], B.mv[1], C.mv[1]) : one.mv[1];
+            }
+            const bool none = ref[0] < 0 && ref[1] < 0;
+            if (none) ref[0] = ref[1] = 0;
+            // colZeroFlag: list 1's first picture short-term, its block's
+            // reference 0 and vector within one quarter sample
+            const bool col_ok = !col_intra && !list[1][0].pic->long_ref;
+            for (int b8 = 0; b8 < 4; b8++) {
+                if (!(mask >> b8 & 1)) continue;
+                int cl = cref[0][b8] == 0 ? 0 : (cref[0][b8] < 0 && cref[1][b8] == 0) ? 1 : -1;
+                for (int l = 0; l < 2; l++) direct_ref[l][b8] = int8_t(ref[l]);
+                for (int k = 0; k < 4; k++) {
+                    int blk = ((b8 >> 1) * 2 + (k >> 1)) * 4 + (b8 & 1) * 2 + (k & 1);
+                    bool zero = false;
+                    if (!none && col_ok && cl >= 0) {
+                        const int16_t* v = &cmv[cl][col_blk(b8, blk) * 2];
+                        zero = std::abs(v[0]) <= 1 && std::abs(v[1]) <= 1;
+                        if (cl) featb(FB_COL_L1);
+                    }
+                    for (int l = 0; l < 2; l++) {
+                        bool z = zero && ref[l] == 0;
+                        if (z) featb(FB_COL_ZERO);
+                        direct_mv[l][blk][0] = int16_t(z ? 0 : mv[l][0]);
+                        direct_mv[l][blk][1] = int16_t(z ? 0 : mv[l][1]);
+                    }
+                }
+            }
+        } else {
+            for (int b8 = 0; b8 < 4; b8++) {
+                if (!(mask >> b8 & 1)) continue;
+                direct_ref[1][b8] = 0;
+                if (col_intra) {
+                    direct_ref[0][b8] = 0;
+                    for (int k = 0; k < 4; k++) {
+                        int blk = ((b8 >> 1) * 2 + (k >> 1)) * 4 + (b8 & 1) * 2 + (k & 1);
+                        for (int l = 0; l < 2; l++) direct_mv[l][blk][0] = direct_mv[l][blk][1] = 0;
+                    }
+                    continue;
+                }
+                int cl = cref[0][b8] >= 0 ? 0 : 1;
+                if (cl) featb(FB_COL_L1);
+                int rc = cref[cl][b8];
+                if (rc < 0 || rc >= col.ref_count[cl]) CORRUPT("a co-located block with no reference");
+                // fill_colmap leaves a picture list 0 does not hold at entry 0
+                int r0 = map_col[cl][rc];
+                if (r0 < 0) {
+                    featb(FB_COL_UNMAPPED);
+                    r0 = 0;
+                }
+                direct_ref[0][b8] = int8_t(r0);
+                for (int k = 0; k < 4; k++) {
+                    int blk = ((b8 >> 1) * 2 + (k >> 1)) * 4 + (b8 & 1) * 2 + (k & 1);
+                    const int16_t* v = &cmv[cl][col_blk(b8, blk) * 2];
+                    int mx = (dsf[r0] * v[0] + 128) >> 8, my = (dsf[r0] * v[1] + 128) >> 8;
+                    direct_mv[0][blk][0] = int16_t(mx);
+                    direct_mv[0][blk][1] = int16_t(my);
+                    direct_mv[1][blk][0] = int16_t(mx - v[0]);
+                    direct_mv[1][blk][1] = int16_t(my - v[1]);
+                }
+            }
+        }
+        if (mask == 15)
+            for (int l = 0; l < 2; l++)
+                for (int b8 = 0; b8 < 4; b8++) apply_direct(l, b8);
+    }
+
+    // list l of direct 8x8 block b8 into the macroblock
+    void apply_direct(int l, int b8) {
+        set_ref(l, b8, direct_ref[l][b8]);
+        int x0 = (b8 & 1) * 2, y0 = (b8 >> 1) * 2;
+        for (int j = y0; j < y0 + 2; j++)
+            for (int i = x0; i < x0 + 2; i++) {
+                int v[2] = {direct_mv[l][j * 4 + i][0], direct_mv[l][j * 4 + i][1]};
+                assign(l, 4 * i, 4 * j, 4, 4, v, 0, 0);
+            }
     }
 
     // ------------------------------------------------------------ CABAC syntax elements
 
     bool cabac_skip_flag() {
-        int ctx = 11;
+        int ctx = slice_type == 1 ? 24 : 11;
         if (avail(addr_a()) && mbs[addr_a()].kind != MB_SKIP) ctx++;
         if (avail(addr_b()) && mbs[addr_b()].kind != MB_SKIP) ctx++;
         return cab.decision(ctx);
@@ -1762,17 +2074,16 @@ struct Decoder {
         return (v & 1) ? (v + 1) >> 1 : -((v + 1) >> 1);
     }
 
-    int cabac_ref(int x, int y) {
+    // ref_idx_lX: refIdxZeroFlag counts a neighbour predicted directly (or
+    // skipped) as reference 0
+    int cabac_ref(int l, int x, int y) {
         int ctx = 0, blk = 0;
-        int a = locate(x - 1, y, blk);
-        if (a != -1) {
+        for (int k = 0; k < 2; k++) {
+            int a = k ? locate(x, y - 1, blk) : locate(x - 1, y, blk);
+            if (a == -1) continue;
             const MbInfo& m = info(a);
-            if (!m.intra() && m.kind != MB_SKIP && m.ref[(blk >> 3) * 2 + ((blk & 3) >> 1)] > 0) ctx++;
-        }
-        int b = locate(x, y - 1, blk);
-        if (b != -1) {
-            const MbInfo& m = info(b);
-            if (!m.intra() && m.kind != MB_SKIP && m.ref[(blk >> 3) * 2 + ((blk & 3) >> 1)] > 0) ctx += 2;
+            int b8 = (blk >> 3) * 2 + ((blk & 3) >> 1);
+            if (!m.intra() && !(m.direct8 >> b8 & 1) && m.ref[l][b8] > 0) ctx += 1 << k;
         }
         int ref = 0;
         while (cab.decision(54 + ctx)) {
@@ -1783,12 +2094,12 @@ struct Decoder {
         return ref;
     }
 
-    int cabac_mvd(int x, int y, int comp) {
+    int cabac_mvd(int l, int x, int y, int comp) {
         int amvd = 0, blk = 0;
         int a = locate(x - 1, y, blk);
-        if (a != -1) amvd += info(a).mvd[blk][comp];
+        if (a != -1) amvd += info(a).mvd[l][blk][comp];
         int b = locate(x, y - 1, blk);
-        if (b != -1) amvd += info(b).mvd[blk][comp];
+        if (b != -1) amvd += info(b).mvd[l][blk][comp];
         int base = comp ? 47 : 40;
         int inc = amvd < 3 ? 0 : amvd <= 32 ? 1 : 2;
         if (!cab.decision(base + inc)) return 0;
@@ -1806,6 +2117,38 @@ struct Decoder {
             while (k--) mvd += cab.bypass() << k;
         }
         return cab.bypass() ? -mvd : mvd;
+    }
+
+    // decode_cabac_mb_type_b: 0-22, or 23 + the intra type
+    int cabac_b_type() {
+        int ctx = 0, a = addr_a(), b = addr_b();
+        if (avail(a) && !mbs[a].direct16) ctx++;
+        if (avail(b) && !mbs[b].direct16) ctx++;
+        if (!cab.decision(27 + ctx)) return 0;
+        if (!cab.decision(27 + 3)) return 1 + cab.decision(27 + 5);
+        int bits = cab.decision(27 + 4) << 3;
+        bits |= cab.decision(27 + 5) << 2;
+        bits |= cab.decision(27 + 5) << 1;
+        bits |= cab.decision(27 + 5);
+        if (bits < 8) return bits + 3;
+        if (bits == 13) return 23 + cabac_intra_type(32, false);
+        if (bits == 14) return 11;
+        if (bits == 15) return 22;
+        bits = (bits << 1) | cab.decision(27 + 5);
+        return bits - 4;
+    }
+
+    int cabac_b_sub_type() {
+        if (!cab.decision(36)) return 0;
+        if (!cab.decision(37)) return 1 + cab.decision(39);
+        int t = 3;
+        if (cab.decision(38)) {
+            if (cab.decision(39)) return 11 + cab.decision(39);
+            t += 4;
+        }
+        t += 2 * cab.decision(39);
+        t += cab.decision(39);
+        return t;
     }
 
     // coded_block_flag's condTermFlagN for a luma 4x4 block (raster x4, y4)
@@ -2011,8 +2354,13 @@ struct Decoder {
         std::memset(d.dc, 0, sizeof d.dc);
         std::memset(d.cdc, 0, sizeof d.cdc);
         std::memset(d.cac, 0, sizeof d.cac);
-        int type;   // 0-4 P types, 5 + intra type
-        if (is_cabac) {
+        int type;   // 0-4 P types, 5 + intra type, -1 B inter (btype)
+        int btype = -1;
+        if (slice_type == 1) {
+            btype = is_cabac ? cabac_b_type() : (int)br.ue_max(48, "mb_type");
+            if (btype >= 23) featb(FB_B_INTRA);
+            type = btype >= 23 ? 5 + btype - 23 : -1;
+        } else if (is_cabac) {
             if (slice_type == 2) {
                 type = 5 + cabac_intra_type(3, true);
             } else if (!cab.decision(14)) {
@@ -2072,12 +2420,11 @@ struct Decoder {
             d.chroma_mode = is_cabac ? cabac_chroma_mode() : (int)br.ue_max(3, "intra_chroma_pred_mode");
             m.chroma_mode = d.chroma_mode;
         } else {
-            inter(d, type);
+            // transform_size_8x8_flag: no partition below 8x8, a direct one
+            // counting so only under direct_8x8_inference_flag
+            bool t8_ok = type >= 0 ? inter(d, type) : b_inter(d, btype);
             cbp = is_cabac ? cabac_cbp() : kGolombToInterCbp[br.ue_max(47, "coded_block_pattern")];
-            bool small = false;
-            if (d.part >= 3)
-                for (int i = 0; i < 4; i++) small |= d.sub[i] != 0;
-            if ((cbp & 15) && P->transform_8x8 && !small) {
+            if ((cbp & 15) && P->transform_8x8 && t8_ok) {
                 d.t8 = is_cabac ? cab.decision(399 + t8_ctx()) : br.get1();
                 m.t8 = d.t8;
             }
@@ -2141,57 +2488,65 @@ struct Decoder {
                             8);
     }
 
-    int read_ref(int x, int y) {
-        if (num_ref_idx <= 1) return 0;
-        if (is_cabac) return cabac_ref(x, y);
-        if (num_ref_idx == 2) return !br.get1();
-        return (int)br.ue_max((uint32_t)num_ref_idx - 1, "ref_idx_l0");
+    int read_ref(int l, int x, int y) {
+        if (nref[l] <= 1) return 0;
+        if (is_cabac) return cabac_ref(l, x, y);
+        if (nref[l] == 2) return !br.get1();
+        return (int)br.ue_max((uint32_t)nref[l] - 1, "ref_idx");
     }
 
-    void set_ref(int b8, int ref) {
-        if (ref >= num_ref_idx) CORRUPT("ref_idx %d of %d", ref, num_ref_idx);
+    // list l's reference of 8x8 block b8 (-1: not predicted from list l)
+    void set_ref(int l, int b8, int ref) {
+        if (ref >= nref[l]) CORRUPT("ref_idx %d of %d", ref, nref[l]);
         MbInfo& m = mbs[mb_addr];
-        m.ref[b8] = int8_t(ref);
-        m.ref_id[b8] = list[ref].pic->id;
+        m.ref[l][b8] = int8_t(ref);
+        m.ref_id[l][b8] = ref < 0 ? -1 : list[l][ref].pic->id;
     }
 
-    void part_mv(int x, int y, int w, int h, int ref, int shape) {
+    void part_mv(int l, int x, int y, int w, int h, int ref, int shape) {
         int mvd[2];
-        for (int c = 0; c < 2; c++) mvd[c] = is_cabac ? cabac_mvd(x, y, c) : br.se();
+        for (int c = 0; c < 2; c++) mvd[c] = is_cabac ? cabac_mvd(l, x, y, c) : br.se();
         int mv[2];
-        mv_pred(x, y, w, ref, shape, mv);
+        mv_pred(l, x, y, w, ref, shape, mv);
         mv[0] += mvd[0];
         mv[1] += mvd[1];
-        assign(x, y, w, h, mv, mvd[0], mvd[1]);
-        predict_inter(x, y, w, h, ref, mv);
+        assign(l, x, y, w, h, mv, mvd[0], mvd[1]);
     }
 
-    void inter(MbData& d, int type) {
+    // a list a partition does not predict from: vector 0, reference -1
+    void unused(int l, int x, int y, int w, int h) {
+        static const int zero[2] = {0, 0};
+        assign(l, x, y, w, h, zero, 0, 0);
+    }
+
+    // P_L0_16x16 ... P_8x8ref0; whether the 8x8 transform may follow
+    bool inter(MbData& d, int type) {
         MbInfo& m = mbs[mb_addr];
         m.kind = MB_P;
         d.kind = MB_P;
         d.part = type;
         static const int kFeat[5] = {F_P16X16, F_P16X8, F_P8X16, F_P8X8, F_P8X8REF0};
         feat(kFeat[type]);
-        if (num_ref_idx < 1) CORRUPT("a P macroblock with no reference picture");
+        if (nref[0] < 1) CORRUPT("a P macroblock with no reference picture");
+        bool small = false;
         if (type == 0) {
-            set_ref(0, read_ref(0, 0));
-            for (int i = 1; i < 4; i++) set_ref(i, m.ref[0]);
-            part_mv(0, 0, 16, 16, m.ref[0], 0);
+            set_ref(0, 0, read_ref(0, 0, 0));
+            for (int i = 1; i < 4; i++) set_ref(0, i, m.ref[0][0]);
+            part_mv(0, 0, 0, 16, 16, m.ref[0][0], 0);
         } else if (type == 1) {
-            set_ref(0, read_ref(0, 0));
-            set_ref(1, m.ref[0]);
-            set_ref(2, read_ref(0, 8));
-            set_ref(3, m.ref[2]);
-            part_mv(0, 0, 16, 8, m.ref[0], 1);
-            part_mv(0, 8, 16, 8, m.ref[2], 2);
+            set_ref(0, 0, read_ref(0, 0, 0));
+            set_ref(0, 1, m.ref[0][0]);
+            set_ref(0, 2, read_ref(0, 0, 8));
+            set_ref(0, 3, m.ref[0][2]);
+            part_mv(0, 0, 0, 16, 8, m.ref[0][0], 1);
+            part_mv(0, 0, 8, 16, 8, m.ref[0][2], 2);
         } else if (type == 2) {
-            set_ref(0, read_ref(0, 0));
-            set_ref(2, m.ref[0]);
-            set_ref(1, read_ref(8, 0));
-            set_ref(3, m.ref[1]);
-            part_mv(0, 0, 8, 16, m.ref[0], 3);
-            part_mv(8, 0, 8, 16, m.ref[1], 4);
+            set_ref(0, 0, read_ref(0, 0, 0));
+            set_ref(0, 2, m.ref[0][0]);
+            set_ref(0, 1, read_ref(0, 8, 0));
+            set_ref(0, 3, m.ref[0][1]);
+            part_mv(0, 0, 0, 8, 16, m.ref[0][0], 3);
+            part_mv(0, 8, 0, 8, 16, m.ref[0][1], 4);
         } else {
             for (int i = 0; i < 4; i++) {
                 d.sub[i] = is_cabac ? [&] {
@@ -2202,29 +2557,118 @@ struct Decoder {
                                     : (int)br.ue_max(3, "sub_mb_type");
                 static const int kSubFeat[4] = {F_SUB8X8, F_SUB8X4, F_SUB4X8, F_SUB4X4};
                 feat(kSubFeat[d.sub[i]]);
+                small |= d.sub[i] != 0;
             }
-            for (int i = 0; i < 4; i++) set_ref(i, type == 4 ? 0 : read_ref((i & 1) * 8, (i >> 1) * 8));
-            for (int i = 0; i < 4; i++) {
-                int x0 = (i & 1) * 8, y0 = (i >> 1) * 8, r = m.ref[i];
-                switch (d.sub[i]) {
-                case 0: part_mv(x0, y0, 8, 8, r, 0); break;
-                case 1:
-                    part_mv(x0, y0, 8, 4, r, 0);
-                    part_mv(x0, y0 + 4, 8, 4, r, 0);
-                    break;
-                case 2:
-                    part_mv(x0, y0, 4, 8, r, 0);
-                    part_mv(x0 + 4, y0, 4, 8, r, 0);
-                    break;
-                default:
-                    part_mv(x0, y0, 4, 4, r, 0);
-                    part_mv(x0 + 4, y0, 4, 4, r, 0);
-                    part_mv(x0, y0 + 4, 4, 4, r, 0);
-                    part_mv(x0 + 4, y0 + 4, 4, 4, r, 0);
-                    break;
-                }
-            }
+            for (int i = 0; i < 4; i++) set_ref(0, i, type == 4 ? 0 : read_ref(0, (i & 1) * 8, (i >> 1) * 8));
+            for (int i = 0; i < 4; i++) sub_mvs(0, i, d.sub[i], m.ref[0][i]);
         }
+        predict_mb();
+        return !small;
+    }
+
+    // the partitions of sub-macroblock i (shape 0 8x8, 1 8x4, 2 4x8, 3 4x4)
+    void sub_mvs(int l, int i, int shape, int r) {
+        int x0 = (i & 1) * 8, y0 = (i >> 1) * 8;
+        switch (shape) {
+        case 0: part_mv(l, x0, y0, 8, 8, r, 0); break;
+        case 1:
+            part_mv(l, x0, y0, 8, 4, r, 0);
+            part_mv(l, x0, y0 + 4, 8, 4, r, 0);
+            break;
+        case 2:
+            part_mv(l, x0, y0, 4, 8, r, 0);
+            part_mv(l, x0 + 4, y0, 4, 8, r, 0);
+            break;
+        default:
+            part_mv(l, x0, y0, 4, 4, r, 0);
+            part_mv(l, x0 + 4, y0, 4, 4, r, 0);
+            part_mv(l, x0, y0 + 4, 4, 4, r, 0);
+            part_mv(l, x0 + 4, y0 + 4, 4, 4, r, 0);
+            break;
+        }
+    }
+
+    // B_Direct_16x16 ... B_8x8 (Table 7-14, 7-18); whether the 8x8
+    // transform may follow
+    bool b_inter(MbData& d, int type) {
+        // each type's partition shape (0 16x16, 1 16x8, 2 8x16, 3 8x8) and
+        // each partition's lists (1 L0, 2 L1, 3 both)
+        static const uint8_t kShape[23] = {0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 3};
+        static const uint8_t kPred[23][2] = {{0, 0}, {1, 0}, {2, 0}, {3, 0}, {1, 1}, {1, 1}, {2, 2}, {2, 2},
+                                             {1, 2}, {1, 2}, {2, 1}, {2, 1}, {1, 3}, {1, 3}, {2, 3}, {2, 3},
+                                             {3, 1}, {3, 1}, {3, 2}, {3, 2}, {3, 3}, {3, 3}, {0, 0}};
+        // sub_mb_type: shape (-1 direct), lists
+        static const int8_t kSub[13][2] = {{-1, 0}, {0, 1}, {0, 2}, {0, 3}, {1, 1}, {2, 1}, {1, 2},
+                                           {2, 2},  {1, 3}, {2, 3}, {3, 1}, {3, 2}, {3, 3}};
+        MbInfo& m = mbs[mb_addr];
+        m.kind = MB_P;
+        d.kind = MB_P;
+        featb(FB_MB + type);
+        if (nref[0] < 1 || nref[1] < 1) CORRUPT("a B macroblock with an empty list");
+        if (type == 0) {
+            m.direct16 = true;
+            m.direct8 = 15;
+            direct(15);
+            predict_mb();
+            return S->direct_8x8;
+        }
+        const int shape = kShape[type];
+        if (shape == 0) {
+            for (int l = 0; l < 2; l++) {
+                int r = kPred[type][0] >> l & 1 ? read_ref(l, 0, 0) : -1;
+                for (int i = 0; i < 4; i++) set_ref(l, i, r);
+            }
+            for (int l = 0; l < 2; l++) {
+                if (kPred[type][0] >> l & 1) part_mv(l, 0, 0, 16, 16, m.ref[l][0], 0);
+                else unused(l, 0, 0, 16, 16);
+            }
+        } else if (shape < 3) {
+            // partition p: 16x8 rows or 8x16 columns
+            for (int l = 0; l < 2; l++)
+                for (int p = 0; p < 2; p++) {
+                    int r = kPred[type][p] >> l & 1 ? read_ref(l, shape == 2 ? 8 * p : 0, shape == 1 ? 8 * p : 0) : -1;
+                    if (shape == 1) {
+                        set_ref(l, 2 * p, r);
+                        set_ref(l, 2 * p + 1, r);
+                    } else {
+                        set_ref(l, p, r);
+                        set_ref(l, p + 2, r);
+                    }
+                }
+            for (int l = 0; l < 2; l++)
+                for (int p = 0; p < 2; p++) {
+                    int x = shape == 2 ? 8 * p : 0, y = shape == 1 ? 8 * p : 0;
+                    int w = shape == 2 ? 8 : 16, h = shape == 1 ? 8 : 16;
+                    if (kPred[type][p] >> l & 1) part_mv(l, x, y, w, h, m.ref[l][shape == 1 ? 2 * p : p], shape == 1 ? 1 + p : 3 + p);
+                    else unused(l, x, y, w, h);
+                }
+        } else {
+            int sub[4], dmask = 0;
+            bool ok = true;
+            for (int i = 0; i < 4; i++) {
+                sub[i] = is_cabac ? cabac_b_sub_type() : (int)br.ue_max(12, "sub_mb_type");
+                featb(FB_SUB + sub[i]);
+                if (!sub[i]) dmask |= 1 << i;
+                ok &= sub[i] ? kSub[sub[i]][0] == 0 : S->direct_8x8;
+            }
+            m.direct8 = uint8_t(dmask);
+            if (dmask) direct(dmask);
+            for (int l = 0; l < 2; l++)
+                for (int i = 0; i < 4; i++) {
+                    if (!sub[i]) continue;
+                    set_ref(l, i, kSub[sub[i]][1] >> l & 1 ? read_ref(l, (i & 1) * 8, (i >> 1) * 8) : -1);
+                }
+            for (int l = 0; l < 2; l++)
+                for (int i = 0; i < 4; i++) {
+                    if (!sub[i]) apply_direct(l, i);
+                    else if (kSub[sub[i]][1] >> l & 1) sub_mvs(l, i, kSub[sub[i]][0], m.ref[l][i]);
+                    else unused(l, (i & 1) * 8, (i >> 1) * 8, 8, 8);
+                }
+            predict_mb();
+            return ok;
+        }
+        predict_mb();
+        return true;
     }
 
     void residual(MbData& d, MbInfo& m) {
@@ -2779,47 +3223,129 @@ struct Decoder {
 
     // ------------------------------------------------------------ inter prediction
 
-    void predict_inter(int x, int y, int w, int h, int ref, const int mv[2]) {
-        const RefEntry& r = list[ref];
-        const Picture& R = *r.pic;
-        const int px = mb_x * 16 + x, py = mb_y * 16 + y;
-        uint8_t* dst = &cur->y[py * width + px];
+    // one list's prediction of a w x h block at (px, py) from R: quarter-
+    // sample luma into ly (stride lys), eighth-sample chroma into lu, lv
+    // (stride cs), over edge-replicated references
+    void mc(const Picture& R, int px, int py, int w, int h, const int16_t* mv, uint8_t* ly, int lys, uint8_t* lu,
+            uint8_t* lv, int cs) {
         int xi = px + (mv[0] >> 2) - 2, yi = py + (mv[1] >> 2) - 2;
         int fx = mv[0] & 3, fy = mv[1] & 3;
         if (px + (mv[0] >> 2) < 0 || py + (mv[1] >> 2) < 0 || px + (mv[0] >> 2) + w > width ||
             py + (mv[1] >> 2) + h > height)
             feat(F_EDGE_MV);
         if (xi >= 0 && yi >= 0 && xi + w + 5 <= width && yi + h + 5 <= height) {
-            h264qpel::put_block(dst, width, &R.y[(yi + 2) * width + xi + 2], width, w, h, fx, fy);
+            h264qpel::put_block(ly, lys, &R.y[(yi + 2) * width + xi + 2], width, w, h, fx, fy);
         } else {
             uint8_t tmp[21 * 21];
             for (int j = 0; j < h + 5; j++)
                 for (int i = 0; i < w + 5; i++)
                     tmp[j * 21 + i] = R.y[clip3(0, height - 1, yi + j) * width + clip3(0, width - 1, xi + i)];
-            h264qpel::put_block(dst, width, tmp + 2 * 21 + 2, 21, w, h, fx, fy);
+            h264qpel::put_block(ly, lys, tmp + 2 * 21 + 2, 21, w, h, fx, fy);
         }
         const int cw = width / 2, ch = height / 2;
+        int cxi = px / 2 + (mv[0] >> 3), cyi = py / 2 + (mv[1] >> 3);
+        int cfx = mv[0] & 7, cfy = mv[1] & 7;
+        int wa = (8 - cfx) * (8 - cfy), wb = cfx * (8 - cfy), wc = (8 - cfx) * cfy, wd = cfx * cfy;
         for (int k = 0; k < 2; k++) {
             const std::vector<uint8_t>& src = k ? R.v : R.u;
-            uint8_t* cd = &(k ? cur->v : cur->u)[(py / 2) * cw + px / 2];
-            int cxi = px / 2 + (mv[0] >> 3), cyi = py / 2 + (mv[1] >> 3);
-            int cfx = mv[0] & 7, cfy = mv[1] & 7;
-            int wa = (8 - cfx) * (8 - cfy), wb = cfx * (8 - cfy), wc = (8 - cfx) * cfy, wd = cfx * cfy;
+            uint8_t* cd = k ? lv : lu;
             for (int j = 0; j < h / 2; j++) {
                 int y0 = clip3(0, ch - 1, cyi + j), y1 = clip3(0, ch - 1, cyi + j + 1);
                 for (int i = 0; i < w / 2; i++) {
                     int x0 = clip3(0, cw - 1, cxi + i), x1 = clip3(0, cw - 1, cxi + i + 1);
-                    cd[j * cw + i] = uint8_t((wa * src[y0 * cw + x0] + wb * src[y0 * cw + x1] +
+                    cd[j * cs + i] = uint8_t((wa * src[y0 * cw + x0] + wb * src[y0 * cw + x1] +
                                               wc * src[y1 * cw + x0] + wd * src[y1 * cw + x1] + 32) >> 6);
                 }
             }
         }
-        if (weighted) {
-            weight(dst, width, w, h, luma_log2, r.w[0], r.o[0]);
-            for (int k = 0; k < 2; k++)
-                weight(&(k ? cur->v : cur->u)[(py / 2) * cw + px / 2], cw, w / 2, h / 2, chroma_log2, r.w[1 + k],
-                       r.o[1 + k]);
+    }
+
+    // 8.4.2.2-3: the block at (x, y) of the macroblock from its 8x8 block's
+    // references and its top-left 4x4's vectors, each list alone, or both
+    // averaged or weighted (explicitly, or implicitly by POC distance)
+    void predict(int x, int y, int w, int h) {
+        const MbInfo& m = mbs[mb_addr];
+        const int b8 = (y >> 3) * 2 + (x >> 3), blk = (y >> 2) * 4 + (x >> 2);
+        const int r0 = m.ref[0][b8], r1 = m.ref[1][b8];
+        const int px = mb_x * 16 + x, py = mb_y * 16 + y, cw = width / 2;
+        uint8_t* dy = &cur->y[py * width + px];
+        uint8_t* du = &cur->u[(py / 2) * cw + px / 2];
+        uint8_t* dv = &cur->v[(py / 2) * cw + px / 2];
+        if (r0 < 0 && r1 < 0) CORRUPT("an inter block with no reference");
+        if (r0 >= 0 && r1 >= 0) {
+            mc(*list[0][r0].pic, px, py, w, h, m.mv[0][blk], dy, width, du, dv, cw);
+            uint8_t ty[256], tu[64], tv[64];
+            mc(*list[1][r1].pic, px, py, w, h, m.mv[1][blk], ty, 16, tu, tv, 8);
+            if (wmode == 1) {
+                featb(FB_EXPLICIT);
+                const RefEntry &e0 = list[0][r0], &e1 = list[1][r1];
+                biweight(dy, width, ty, 16, w, h, luma_log2, e0.w[0], e1.w[0], e0.o[0] + e1.o[0]);
+                biweight(du, cw, tu, 8, w / 2, h / 2, chroma_log2, e0.w[1], e1.w[1], e0.o[1] + e1.o[1]);
+                biweight(dv, cw, tv, 8, w / 2, h / 2, chroma_log2, e0.w[2], e1.w[2], e0.o[2] + e1.o[2]);
+            } else if (wmode == 2 && implicit_w[r0][r1] != 32) {
+                featb(FB_IMPLICIT);
+                int w0 = implicit_w[r0][r1];
+                biweight(dy, width, ty, 16, w, h, 5, w0, 64 - w0, 0);
+                biweight(du, cw, tu, 8, w / 2, h / 2, 5, w0, 64 - w0, 0);
+                biweight(dv, cw, tv, 8, w / 2, h / 2, 5, w0, 64 - w0, 0);
+            } else {
+                if (wmode == 2) featb(implicit_fb[r0][r1] ? FB_IMPLICIT_FALLBACK : FB_IMPLICIT);
+                average(dy, width, ty, 16, w, h);
+                average(du, cw, tu, 8, w / 2, h / 2);
+                average(dv, cw, tv, 8, w / 2, h / 2);
+            }
+            return;
         }
+        const int l = r0 >= 0 ? 0 : 1;
+        const RefEntry& r = list[l][l ? r1 : r0];
+        mc(*r.pic, px, py, w, h, m.mv[l][blk], dy, width, du, dv, cw);
+        if (wmode == 1) {
+            weight(dy, width, w, h, luma_log2, r.w[0], r.o[0]);
+            weight(du, cw, w / 2, h / 2, chroma_log2, r.w[1], r.o[1]);
+            weight(dv, cw, w / 2, h / 2, chroma_log2, r.w[2], r.o[2]);
+        }
+    }
+
+    // the macroblock's inter prediction, in the largest blocks of one
+    // motion (the samples do not depend on how a block is split)
+    void predict_mb() {
+        const MbInfo& m = mbs[mb_addr];
+        auto same = [&](int a, int b) {
+            for (int l = 0; l < 2; l++)
+                if (m.mv[l][a][0] != m.mv[l][b][0] || m.mv[l][a][1] != m.mv[l][b][1]) return false;
+            return true;
+        };
+        bool whole = true;
+        for (int l = 0; l < 2; l++)
+            for (int i = 1; i < 4; i++) whole &= m.ref[l][i] == m.ref[l][0];
+        for (int b = 1; b < 16 && whole; b++) whole &= same(0, b);
+        if (whole) {
+            predict(0, 0, 16, 16);
+            return;
+        }
+        for (int b8 = 0; b8 < 4; b8++) {
+            int x = (b8 & 1) * 8, y = (b8 >> 1) * 8, b = (y / 4) * 4 + x / 4;
+            if (same(b, b + 1) && same(b, b + 4) && same(b, b + 5)) {
+                predict(x, y, 8, 8);
+                continue;
+            }
+            for (int k = 0; k < 4; k++) predict(x + (k & 1) * 4, y + (k >> 1) * 4, 4, 4);
+        }
+    }
+
+    // (p0 + p1 + 1) >> 1
+    static void average(uint8_t* d, int ds, const uint8_t* s, int ss, int w, int h) {
+        for (int j = 0; j < h; j++)
+            for (int i = 0; i < w; i++) d[j * ds + i] = uint8_t((d[j * ds + i] + s[j * ss + i] + 1) >> 1);
+    }
+
+    // h264_biweight: ((p0 w0 + p1 w1 + 2^lg) >> (lg + 1)) + ((o0 + o1 + 1) >> 1)
+    static void biweight(uint8_t* d, int ds, const uint8_t* s, int ss, int w, int h, int lg, int w0, int w1,
+                         int o) {
+        int off = ((o + 1) | 1) * (1 << lg);
+        for (int j = 0; j < h; j++)
+            for (int i = 0; i < w; i++)
+                d[j * ds + i] = clip1((d[j * ds + i] * w0 + s[j * ss + i] * w1 + off) >> (lg + 1));
     }
 
     static void weight(uint8_t* p, int ds, int w, int h, int lg, int wt, int o) {
@@ -2832,13 +3358,23 @@ struct Decoder {
 
     // ------------------------------------------------------------ deblocking (8.7)
 
-    static int bs_of(const MbInfo& p, int bp, const MbInfo& q, int bq, bool mb_edge) {
+    // h264_loopfilter.c's check_mv: the references (as pictures) and
+    // vectors of both lists (of list 0 in a P slice), the pairings compared
+    // either way round
+    static int bs_of(const MbInfo& p, int bp, const MbInfo& q, int bq, bool mb_edge, bool two) {
         if (p.intra() || q.intra()) return mb_edge ? 4 : 3;
         if (p.nzd[bp] || q.nzd[bq]) return 2;
         int rp = (bp >> 3) * 2 + ((bp & 3) >> 1), rq = (bq >> 3) * 2 + ((bq & 3) >> 1);
-        if (p.ref_id[rp] != q.ref_id[rq]) return 1;
-        if (std::abs(p.mv[bp][0] - q.mv[bq][0]) >= 4 || std::abs(p.mv[bp][1] - q.mv[bq][1]) >= 4) return 1;
-        return 0;
+        auto far = [&](int lp, int lq) {
+            return std::abs(p.mv[lp][bp][0] - q.mv[lq][bq][0]) >= 4 || std::abs(p.mv[lp][bp][1] - q.mv[lq][bq][1]) >= 4;
+        };
+        bool v = p.ref_id[0][rp] != q.ref_id[0][rq];
+        if (!v && p.ref_id[0][rp] != -1) v = far(0, 0);
+        if (!two) return v;
+        if (!v) v = p.ref_id[1][rp] != q.ref_id[1][rq] || far(1, 1);
+        if (!v) return 0;
+        if (p.ref_id[0][rp] != q.ref_id[1][rq] || p.ref_id[1][rp] != q.ref_id[0][rq]) return 1;
+        return far(0, 1) || far(1, 0);
     }
 
     static void filter_luma(uint8_t* pix, int xs, int ys, const int* bs, int qpav, int aoff, int boff) {
@@ -2925,11 +3461,11 @@ struct Decoder {
                         int bq = dir ? e * 4 + s : s * 4 + e;
                         if (e) {
                             int bp = dir ? (e - 1) * 4 + s : s * 4 + e - 1;
-                            b = bs_of(q, bp, q, bq, false);
+                            b = bs_of(q, bp, q, bq, false, sp.b);
                         } else {
                             const MbInfo& p = mbs[dir ? addr - mb_w : addr - 1];
                             int bp = dir ? 12 + s : s * 4 + 3;
-                            b = bs_of(p, bp, q, bq, true);
+                            b = bs_of(p, bp, q, bq, true, sp.b);
                         }
                     }
             uint8_t* Y = &cur->y[(my * 16) * width + mx * 16];
@@ -3060,6 +3596,17 @@ uint64_t h264_dec_features(void* h) { return ((Decoder*)h)->features; }
 
 uint64_t h264_dec_modes(void* h) { return ((Decoder*)h)->modes; }
 
+uint64_t h264_dec_features_b(void* h) { return ((Decoder*)h)->features_b; }
+
+// the reorder depth (AVCodecContext.has_b_frames): set before the first
+// packet to the depth FFmpeg's probe left in the stream's parameters
+// (video_delay), read after any
+int h264_dec_delay(void* h, int set) {
+    Decoder* d = (Decoder*)h;
+    if (set >= 0) d->has_b_frames = std::min(set, 16);
+    return d->has_b_frames;
+}
+
 // The first SPS in ``d`` (Annex B, or an avcC record where it starts with
 // 1), refused (H264_UNSUPPORTED) where it is of what the port does not
 // read: info[0..1] the cropped size, [2] full range, [3] matrix, [4] chroma
@@ -3084,6 +3631,9 @@ int h264_probe(const uint8_t* d, int64_t n, int64_t* info, char* msg, int64_t ca
             info[6] = s.time_scale;
             info[7] = s.bitstream_restriction ? s.num_reorder_frames : -1;
             info[8] = s.profile;
+            info[9] = s.level;
+            info[10] = s.mb_w * s.mb_h;
+            info[11] = s.max_num_ref_frames;
             return kOk;
         }
         return kNoFrame;

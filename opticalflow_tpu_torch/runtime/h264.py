@@ -6,12 +6,15 @@ planes, bit-exact to FFmpeg's ``h264`` decoder, which ``cv2.VideoCapture``
 runs, and hands them over as FFmpeg does: through its reorder buffer, none
 before the first IDR picture or recovery point, the rest at
 :meth:`Decoder.flush`, cropped as FFmpeg crops them.  Progressive 8-bit
-4:2:0 I and P slices are read, in CAVLC and CABAC, with the 8x8 transform,
-scaling matrices, weighted prediction, long-term references and several
-slices a picture.  The library is built with ``g++`` at first use into
+4:2:0 I, P and B slices are read, in CAVLC and CABAC, with the 8x8
+transform, scaling matrices, weighted and bi-prediction (explicit and
+implicit), spatial and temporal direct prediction, long-term references,
+B pictures as references and several slices a picture; the reorder depth
+the decoder starts from is the one FFmpeg's probe leaves for cv2
+(:func:`probe_delay`).  The library is built with ``g++`` at first use into
 ``opticalflow_tpu_torch/_build/`` by ``runtime/_native.py``; a failed build
 raises with the compiler's output.  Its calls release the GIL.  Damaged
-data raises ``ValueError``; B, SP and SI slices, field pictures and MBAFF,
+data raises ``ValueError``; SP and SI slices, field pictures and MBAFF,
 other than 8-bit 4:2:0, lossless coding, slice groups, data partitioning,
 redundant pictures, a gap in frame_num and whatever FFmpeg would conceal
 raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
@@ -23,7 +26,7 @@ import ctypes
 import threading
 from fractions import Fraction
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -31,7 +34,8 @@ from opticalflow_tpu_torch.runtime._native import build_and_load
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 from opticalflow_tpu_torch.runtime.mpeg12 import matrix
 
-__all__ = ["Decoder", "FEATURES", "MODES", "StreamInfo", "probe",
+__all__ = ["Decoder", "FEATURES", "B_FEATURES", "MODES", "StreamInfo", "probe",
+           "probe_delay",
            "chroma_site", "is_keyframe", "nal_units", "load"]
 
 _SRC = Path(__file__).resolve().parent / "h264.cpp"
@@ -63,6 +67,30 @@ FEATURES = (
     "transform_8x8", "level_escape", "non_ref", "edge_mv",
     "reorder_guessed", "params_resent")
 
+# what B slices reached (h264.cpp's FeatureB): each mb_type of Table 7-14,
+# each sub_mb_type of Table 7-18, B_Skip, the two direct modes with
+# direct_8x8_inference_flag 1 and 0, colZeroFlag's zero vectors, an intra
+# co-located block and one that predicted from list 1 only, implicit
+# weights (and their 32/32 fall-back), explicit weights on both lists,
+# list 1's modification and its first two entries swapped, a B picture
+# used as a reference, a long-term picture in list 1, an intra macroblock
+# in a B slice, a temporal direct block whose co-located reference list 0
+# no longer holds (FFmpeg's fill_colmap takes list 0's first entry)
+B_FEATURES = (
+    "b_direct_16x16", "b_l0_16x16", "b_l1_16x16", "b_bi_16x16",
+    "b_l0_l0_16x8", "b_l0_l0_8x16", "b_l1_l1_16x8", "b_l1_l1_8x16",
+    "b_l0_l1_16x8", "b_l0_l1_8x16", "b_l1_l0_16x8", "b_l1_l0_8x16",
+    "b_l0_bi_16x8", "b_l0_bi_8x16", "b_l1_bi_16x8", "b_l1_bi_8x16",
+    "b_bi_l0_16x8", "b_bi_l0_8x16", "b_bi_l1_16x8", "b_bi_l1_8x16",
+    "b_bi_bi_16x8", "b_bi_bi_8x16", "b_8x8",
+    "b_direct_8x8", "b_l0_8x8", "b_l1_8x8", "b_bi_8x8", "b_l0_8x4",
+    "b_l0_4x8", "b_l1_8x4", "b_l1_4x8", "b_bi_8x4", "b_bi_4x8", "b_l0_4x4",
+    "b_l1_4x4", "b_bi_4x4",
+    "b_skip", "direct_spatial", "direct_temporal", "direct_8x8_inference",
+    "direct_4x4", "col_zero", "col_intra", "col_l1", "implicit_weights",
+    "implicit_fallback", "explicit_bipred", "list1_mod", "list1_swap",
+    "b_reference", "long_term_l1", "b_intra", "col_unmapped")
+
 # the intra modes reached (h264.cpp's second word): each 4x4, 8x8, 16x16
 # and chroma mode, and each again where the block lacked its top or left
 # neighbours (a picture or slice edge)
@@ -90,6 +118,8 @@ def load() -> ctypes.CDLL:
             "h264_dec_output": (None, [_P, _I64, _P, _P, _P]),
             "h264_dec_features": (ctypes.c_uint64, [_P]),
             "h264_dec_modes": (ctypes.c_uint64, [_P]),
+            "h264_dec_features_b": (ctypes.c_uint64, [_P]),
+            "h264_dec_delay": (ctypes.c_int, [_P, ctypes.c_int]),
             "h264_probe": (ctypes.c_int, [ctypes.c_char_p, _I64, _I64P,
                                           ctypes.c_char_p, _I64]),
         }
@@ -137,12 +167,25 @@ class StreamInfo:
         self.fps = Fraction(scale, 2 * tick) if tick and scale else None
         self.reorder = None if info[7] < 0 else int(info[7])
         self.profile = int(info[8])
+        # h264_ps.c's num_reorder_frames without a bitstream restriction:
+        # the level's DPB size in pictures (of references), at most 15
+        self.dpb_reorder = self.reorder
+        if self.reorder is None and info[11]:
+            mbs = _LEVEL_DPB_MBS.get(int(info[9]))
+            self.dpb_reorder = 15 if mbs is None else min(mbs // int(info[10]),
+                                                          15)
+
+
+# h264_ps.c's level_max_dpb_mbs: MaxDpbMbs by level_idc
+_LEVEL_DPB_MBS = {10: 396, 11: 900, 12: 2376, 13: 2376, 20: 2376, 21: 4752,
+                  22: 8100, 30: 8100, 31: 18000, 32: 20480, 40: 32768,
+                  41: 32768, 42: 34816, 50: 110400, 51: 184320, 52: 184320}
 
 
 def probe(data: bytes, what: str = "video") -> Optional[StreamInfo]:
     """The first SPS in ``data`` (Annex B, or an ``avcC`` record), or None
     where there is none."""
-    info = (_I64 * 9)()
+    info = (_I64 * 12)()
     msg = ctypes.create_string_buffer(_MSG)
     data = bytes(data)
     rc = load().h264_probe(data, len(data), info, msg, _MSG)
@@ -151,6 +194,30 @@ def probe(data: bytes, what: str = "video") -> Optional[StreamInfo]:
     if rc != _OK:
         _raise(rc, msg, what)
     return StreamInfo(info)
+
+
+def probe_delay(packets: Iterable[bytes], extradata: bytes = b"",
+                start: int = 0, what: str = "video") -> int:
+    """The reorder depth ``cv2.VideoCapture``'s decoder starts from: the
+    ``video_delay`` FFmpeg's probe (``avformat_find_stream_info``) leaves in
+    the stream's parameters.  The probe decodes from the demuxer's estimate
+    ``start`` until its decoder has handed over 7 pictures (18 from a depth
+    of 3, 20 from 4; ``has_decode_delay_been_guessed``), or its depth is the
+    SPS's reorder frames (``dpb_reorder``), or the packets run out, and
+    keeps the depth its decoder reached."""
+    dec = Decoder(what, extradata, start)
+    info = probe(extradata) if extradata else None
+    handed = 0
+    for p in packets:
+        d = dec.delay
+        if info is None:
+            info = probe(p)
+        if d and info is not None and info.dpb_reorder == d:
+            break
+        if handed >= (7 if d < 3 else 18 if d < 4 else 20):
+            break
+        handed += len(dec.decode(p))
+    return dec.delay
 
 
 def nal_units(data: bytes, length_size: int = 0) -> List[bytes]:
@@ -201,16 +268,19 @@ def is_keyframe(data: bytes, length_size: int = 0) -> bool:
 class Decoder:
     """One stream's decoder; ``what`` names the source in errors,
     ``extradata`` is the container's ``avcC`` record or Annex B parameter
-    sets.  After a call, ``width`` and ``height`` are the planes' (FFmpeg's
+    sets, ``delay`` the reorder depth it starts from (cv2's decoder starts
+    from the one FFmpeg's probe found: :func:`probe_delay`).  After a call, ``width`` and ``height`` are the planes' (FFmpeg's
     frame: a left crop that would unalign them is not applied),
     ``full_range``, ``matrix`` (swscale's) and ``chroma`` (its chroma site)
     the stream's, and ``serials`` gives,
     for each picture handed over, the packet it came in (0 for the
     decoder's first)."""
 
-    def __init__(self, what: str = "video", extradata: bytes = b""):
+    def __init__(self, what: str = "video", extradata: bytes = b"",
+                 delay: int = 0):
         self._lib = load()
         self._h = self._lib.h264_dec_new()
+        self._lib.h264_dec_delay(self._h, int(delay))
         self.what = what
         self.width = self.height = 0
         self.full_range = False
@@ -273,5 +343,14 @@ class Decoder:
         (``FEATURES``, then ``MODES``)."""
         bits = int(self._lib.h264_dec_features(self._h))
         modes = int(self._lib.h264_dec_modes(self._h))
+        b = int(self._lib.h264_dec_features_b(self._h))
         return ([n for i, n in enumerate(FEATURES) if bits >> i & 1]
+                + [n for i, n in enumerate(B_FEATURES) if b >> i & 1]
                 + [n for i, n in enumerate(MODES) if modes >> i & 1])
+
+    @property
+    def delay(self) -> int:
+        """The reorder depth (FFmpeg's ``has_b_frames``) the decoder holds
+        pictures back by now: the starting ``delay``, raised as POCs, a B
+        slice or the VUI show more."""
+        return int(self._lib.h264_dec_delay(self._h, -1))

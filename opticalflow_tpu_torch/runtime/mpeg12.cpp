@@ -24,7 +24,12 @@
 //     P-picture when the next one arrives, the last at the end of the
 //     stream; a P-picture without a reference and before any sync point,
 //     and a B-picture without a forward reference in an open GOP, are
-//     dropped as FFmpeg drops them after a seek.
+//     dropped as FFmpeg drops them after a seek;
+//   * a picture its packet ends before its last slice (slice_end at the
+//     packet's end; a slice whose end-of-slice code lies past the data
+//     fails): an I- or P-picture concealed as error_resilience.c conceals
+//     it (mpegc::ErrorResilience); slices before any picture header in a
+//     packet passed over.
 //
 // Interlaced coding (field pictures, interlaced frames, field and
 // dual-prime prediction, field DCT), 4:2:2 and 4:4:4, D-pictures, scalable
@@ -244,6 +249,13 @@ struct Decoder {
     int mv_dir = 0;             // FWD | BWD of the last coded macroblock
     bool prev_intra = false;
     std::vector<uint8_t> decoded;   // macroblocks of the picture decoded
+    std::vector<uint8_t> mb_intra;  // ... each intra or not
+    // mbskip_table as FFmpeg keeps it from picture to picture: 1 for a
+    // skipped macroblock or any of a B-picture (not a reference)
+    std::vector<uint8_t> mbskip;
+    // the slices decoded: (first macroblock, last), or (first, -1 - the one
+    // after the last) for a slice that failed
+    std::vector<std::pair<int, int>> slices_done;
     int16_t blk[6][64];
 
     void feature(Feature f) { features |= 1ull << f; }
@@ -683,6 +695,7 @@ struct Decoder {
     }
 
     void reconstruct(int mbx, int mby, bool intra, int cbp_mask) {
+        mb_intra[(size_t)mby * seq.mb_w + mbx] = intra;
         Picture& p = *cur;
         uint8_t* dst[3] = {p.p[0].at(mbx * 16, mby * 16), p.p[1].at(mbx * 8, mby * 8),
                            p.p[2].at(mbx * 8, mby * 8)};
@@ -820,6 +833,7 @@ struct Decoder {
             }
         }
         if (mb_x >= seq.mb_w) CORRUPT("initial skip overflow");
+        const int first = mb_y * seq.mb_w + mb_x;
         int skip_run = 0;
         for (;;) {
             int mb_xy = mb_y * seq.mb_w + mb_x;
@@ -831,17 +845,26 @@ struct Decoder {
                 skip_run = -1;
             }
             decoded[mb_xy] = 1;
+            mbskip[mb_xy] = skip_run >= 0 || ph.type == 3;
             if (++mb_x >= seq.mb_w) {
                 mb_x = 0;
                 if (++mb_y >= seq.mb_h) {
                     int64_t left = br.left();
                     if (left < 0 || (left && br.show((int)std::min<int64_t>(left, 23))))
                         CORRUPT("end mismatch at the last macroblock");
+                    slices_done.emplace_back(first, mb_xy);
                     return;
                 }
             }
             if (skip_run == -1) {
                 skip_run = 0;
+                if (br.left() <= 0) {
+                    // the packet ends with the slice: FFmpeg reads the
+                    // end-of-slice code past the data ("overread") and
+                    // adds the slice as failed before the next macroblock
+                    slices_done.emplace_back(first, -1 - (mb_y * seq.mb_w + mb_x));
+                    return;
+                }
                 for (;;) {
                     int c = br.vlc(t.incr);
                     if (c >= 33) {
@@ -851,7 +874,10 @@ struct Decoder {
                         } else if (c == 35) {
                             if (skip_run || br.show(15))
                                 CORRUPT("slice mismatch");
-                            return;             // end of slice
+                            // end of slice; read past the data, it failed
+                            slices_done.emplace_back(
+                                first, br.left() < 0 ? -1 - (mb_y * seq.mb_w + mb_x) : mb_xy);
+                            return;
                         } else {
                             feature(F_MB_STUFFING);
                         }
@@ -903,13 +929,49 @@ struct Decoder {
             for (auto& pl : next_ref->p) std::fill(pl.d.begin(), pl.d.end(), 0x80);
         }
         decoded.assign((size_t)seq.mb_w * seq.mb_h, 0);
+        mb_intra.assign(decoded.size(), 0);
+        if (mbskip.size() != decoded.size()) mbskip.assign(decoded.size(), 0);
+        slices_done.clear();
         return true;
     }
 
+    // slice_end's ff_er_frame_end over a picture whose packet ended before
+    // its last slice (the slices it holds decoded, each ended whole): an I-
+    // or P-picture concealed as FFmpeg conceals it (mpegc::ErrorResilience;
+    // MPEG-1/2 pictures keep no vectors, so every vector FFmpeg's guess can
+    // take is zero: a damaged inter macroblock is the last picture's)
+    void conceal() {
+        if (ph.type == 3) UNSUPPORTED("a B-picture with missing slices, which FFmpeg conceals");
+        const int num = seq.mb_w * seq.mb_h;
+        ErrorResilience er;
+        er.start(seq.mb_w, seq.mb_h);
+        for (auto& sl : slices_done) {
+            if (sl.second >= 0) er.add_slice(sl.first, sl.second);
+            else er.add_error(sl.first, -1 - sl.second);
+        }
+        std::vector<uint8_t> counted((size_t)num);
+        for (int m = 0; m < num; m++) counted[m] = !mbskip[m];
+        er.spread(counted);
+        for (int m = 0; m < num; m++) er.is_intra[m] = decoded[m] && mb_intra[m];
+        const bool intra_likely = er.intra_more_likely(*cur, last.get(), ph.type);
+        for (int m = 0; m < num; m++)
+            if (er.damaged(m)) er.is_intra[m] = intra_likely;
+        if (last)
+            for (int m = 0; m < num; m++) {
+                if (er.is_intra[m] || !(er.st[m] & ErrorResilience::kMvError)) continue;
+                const int x = m % seq.mb_w, y = m / seq.mb_w;
+                for (int r = 0; r < 16; r++) memcpy(cur->p[0].at(16 * x, 16 * y + r), last->p[0].at(16 * x, 16 * y + r), 16);
+                for (int k = 1; k < 3; k++)
+                    for (int r = 0; r < 8; r++) memcpy(cur->p[k].at(8 * x, 8 * y + r), last->p[k].at(8 * x, 8 * y + r), 8);
+            }
+        er.finish(*cur);
+    }
+
     void end_picture() {
-        for (size_t i = 0; i < decoded.size(); i++)
-            if (!decoded[i])
-                CORRUPT("macroblock %d of the picture is missing (FFmpeg conceals it)", (int)i);
+        bool damaged = false;
+        for (size_t i = 0; i < decoded.size(); i++) damaged |= !decoded[i];
+        for (auto& sl : slices_done) damaged |= sl.second < 0;
+        if (damaged) conceal();
         if (ph.type == 3 || seq.low_delay) out.push_back(cur);
         else if (last && !last_dummy) out.push_back(last);
         cur.reset();

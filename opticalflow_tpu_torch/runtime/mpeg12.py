@@ -261,6 +261,8 @@ def output_order(types: List[int], closed: List[Optional[bool]],
     for i, (t, c) in enumerate(zip(types, closed)):
         if i in resets:
             refs, prev = 0, None
+        if not t:       # slices without a picture header: skipped
+            continue
         if c is not None:
             gop_closed, synced = c, True
         if t == 1:

@@ -463,8 +463,10 @@ class Decoder {
     int decode_vop() {
         skipped_last = false;
         if (!cut) return decode_vop_data();
-        // a cut VOP whose header or first macroblock fails is dropped, as
-        // FFmpeg drops it.  One cut right after its start code FFmpeg
+        // a cut VOP whose header fails, or which holds fewer bits after
+        // it than half its macroblocks, is dropped, as FFmpeg drops it; one
+        // whose first macroblock fails is concealed.  One cut right after
+        // its start code FFmpeg
         // parses from the packet's zero padding: a VOP whose vop_coded bit
         // is 0 (see ``skipped_last``)
         if (!br.size) {
@@ -524,6 +526,12 @@ class Decoder {
             if (!have_ref) CORRUPT("P-VOP without a reference picture");
         }
         br.check();
+        // FFmpeg decodes no VOP with fewer bits after its header than half
+        // its macroblocks (what a VOP the container cut short runs into)
+        if (vol.mb_num / 2 > br.left()) {
+            if (cut) return OM4_NO_FRAME;
+            CORRUPT("a VOP of %lld bits for %d macroblocks", (long long)br.left(), vol.mb_num);
+        }
         decode_mbs();
         keep_vectors();
         if (error_mb >= 0) conceal();
@@ -607,7 +615,6 @@ class Decoder {
                     decode_mb(mb, x, y);
                 } catch (const Failure& f) {
                     if (f.kind != kCorrupt) throw;
-                    if (!mbn) throw;   // no picture (decode_vop)
                     error_mb = mbn;
                     return;
                 }
@@ -967,7 +974,9 @@ class Decoder {
         // ff_er_frame_start and ff_er_add_slice: each packet decoded whole
         // ends (its last macroblock ER_MB_END), the failed one's error at
         // its macroblock, the macroblocks after it untouched
-        std::vector<uint8_t> st((size_t)num, kMbError | kVpStart | kMbEnd);
+        ErrorResilience er;
+        er.start(mw, mh);
+        std::vector<uint8_t>& st = er.st;
         for (size_t k = 0; k < packets.size(); k++) {
             const int start = packets[k];
             const bool last = k + 1 == packets.size();
@@ -980,132 +989,27 @@ class Decoder {
             st[end] = failed ? kMbError : kMbEnd;
             st[start] |= kVpStart;
         }
-        // overlapping slices
-        for (int type = 1; type <= 3; type++) {
-            bool end_ok = false;
-            for (int m = num - 1; m >= 0; m--) {
-                const int e = st[m];
-                if (e & (1 << type)) end_ok = true;
-                if (e & (8 << type)) end_ok = true;
-                if (!end_ok) st[m] |= 1 << type;
-                if (e & kVpStart) end_ok = false;
-            }
-        }
-        // backward: the 50 macroblocks before an error share it (a
-        // skipped macroblock does not count)
-        for (int type = 1; type <= 3; type++) {
-            int distance = 9999999;
-            for (int m = num - 1; m >= 0; m--) {
-                const int e = st[m];
-                if (!(m < error_mb && skipped[m])) distance++;
-                if (e & (1 << type)) distance = 0;
-                if (distance < 50) st[m] |= 1 << type;
-                if (e & kVpStart) distance = 9999999;
-            }
-        }
-        // forward within a packet, then all or nothing (no partitions)
-        int err = 0;
-        for (int m = 0; m < num; m++) {
-            if (st[m] & kVpStart) err = st[m] & kMbError;
-            else {
-                err |= st[m] & kMbError;
-                st[m] |= err;
-            }
-        }
-        for (auto& e : st)
-            if (e & kMbError) e |= kMbError;
+        // a skipped macroblock before the error does not count towards the
+        // 50 that share it
+        std::vector<uint8_t> counted((size_t)num);
+        for (int m = 0; m < num; m++) counted[m] = !(m < error_mb && skipped[m]);
+        er.spread(counted);
         // the damaged macroblocks' kind (is_intra_more_likely), inter with
         // a reference picture only
-        std::vector<uint8_t> is_intra((size_t)num);
+        std::vector<uint8_t>& is_intra = er.is_intra;
         for (int m = 0; m < num; m++) is_intra[m] = m < error_mb && intra[m];
-        const bool intra_likely = intra_more_likely(st, is_intra);
+        const bool intra_likely = er.intra_more_likely(cur, have_ref ? &ref : nullptr, pict_type);
         concealed[0] = pict_type;
         concealed[1] = error_mb;
         concealed[2] = slice_ended;
         concealed[5] = intra_likely;
         for (int m = 0; m < num; m++)
-            if ((st[m] & kDcError) && (st[m] & kMvError)) is_intra[m] = intra_likely;
+            if (er.damaged(m)) is_intra[m] = intra_likely;
         if (!have_ref)
             for (auto& t : is_intra) t = 1;
         guess_vectors(st, is_intra);
-        // every macroblock's DCs from its pixels (8x the mean)
-        std::vector<int> dc0((size_t)4 * num), dc1((size_t)num), dc2((size_t)num);
-        for (int m = 0; m < num; m++) {
-            const int x = m % mw, y = m / mw;
-            for (int n = 0; n < 4; n++) {
-                int sum = 0;
-                const uint8_t* p = cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8);
-                for (int r = 0; r < 8; r++)
-                    for (int c = 0; c < 8; c++) sum += p[r * cur.p[0].w + c];
-                dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))] = (sum + 4) >> 3;
-            }
-            int su = 0, sv = 0;
-            for (int r = 0; r < 8; r++)
-                for (int c = 0; c < 8; c++) {
-                    su += cur.p[1].at(x * 8, y * 8)[r * cur.p[1].w + c];
-                    sv += cur.p[2].at(x * 8, y * 8)[r * cur.p[2].w + c];
-                }
-            dc1[m] = (su + 4) >> 3;
-            dc2[m] = (sv + 4) >> 3;
-        }
-        guess_dc(dc0, 2 * mw, 2 * mh, true, st, is_intra);
-        guess_dc(dc1, mw, mh, false, st, is_intra);
-        guess_dc(dc2, mw, mh, false, st, is_intra);
-        filter181(dc0, 2 * mw, 2 * mh);
-        // intra macroblocks with damaged AC: their DCs alone
-        for (int m = 0; m < num; m++) {
-            if (!is_intra[m] || !(st[m] & kAcError)) continue;
-            const int x = m % mw, y = m / mw;
-            for (int n = 0; n < 4; n++) {
-                const int d = std::min(std::max(dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))], 0), 2040) / 8;
-                for (int r = 0; r < 8; r++)
-                    memset(cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8 + r), d, 8);
-            }
-            const int du = std::min(std::max(dc1[m], 0), 2040) / 8;
-            const int dv = std::min(std::max(dc2[m], 0), 2040) / 8;
-            for (int r = 0; r < 8; r++) {
-                memset(cur.p[1].at(x * 8, y * 8 + r), du, 8);
-                memset(cur.p[2].at(x * 8, y * 8 + r), dv, 8);
-            }
-        }
-        for (int pi = 0; pi < 3; pi++) {
-            block_filter(cur.p[pi], pi == 0, true, st, is_intra);
-            block_filter(cur.p[pi], pi == 0, false, st, is_intra);
-        }
-    }
-
-    // is_intra_more_likely: over the undamaged macroblocks (every
-    // ``skip_amount``-th, the last row left out), in an I-VOP their SAD
-    // against the last picture beside the last picture's against itself a
-    // row of macroblocks down, in a P-VOP their intra count less their
-    // inter count
-    bool intra_more_likely(const std::vector<uint8_t>& st, const std::vector<uint8_t>& is_intra) const {
-        if (!have_ref) return true;   // no previous picture: spatial
-        const int num = vol.mb_num;
-        int undamaged = 0;
-        for (int m = 0; m < num; m++)
-            if (!((st[m] & kDcError) && (st[m] & kMvError))) undamaged++;
-        if (undamaged < 5) return false;   // almost all damaged: temporal
-        const int skip_amount = std::max(undamaged / 50, 1);
-        int score = 0, j = 0;
-        for (int y = 0; y < vol.mb_h - 1; y++)
-            for (int x = 0; x < vol.mb_w; x++) {
-                const int m = y * vol.mb_w + x;
-                if ((st[m] & kDcError) && (st[m] & kMvError)) continue;
-                j++;
-                if (j % skip_amount) continue;
-                if (pict_type == 2) {
-                    score += is_intra[m] ? 1 : -1;
-                    continue;
-                }
-                const Plane &c = cur.p[0], &l = ref.p[0];
-                for (int r = 0; r < 16; r++)
-                    for (int k = 0; k < 16; k++) {
-                        score += std::abs(l.at(x * 16, y * 16 + r)[k] - c.at(x * 16, y * 16 + r)[k]);
-                        score -= std::abs(l.at(x * 16, y * 16 + r)[k] - l.at(x * 16, y * 16 + 16 + r)[k]);
-                    }
-            }
-        return score > 0;
+        er.mv8 = mv8;
+        er.finish(cur);
     }
 
     // guess_mv: the last picture's vector into each damaged inter
@@ -1279,143 +1183,6 @@ class Decoder {
             }
             std::swap(list, next);
         }
-    }
-
-    // guess_dc: a damaged intra block's DC from the nearest undamaged
-    // block (or inter one) in each direction, weighted by 1/distance
-    void guess_dc(std::vector<int>& dc, int w, int h, bool luma, const std::vector<uint8_t>& st,
-                  const std::vector<uint8_t>& is_intra) const {
-        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * vol.mb_w + (bx >> 1) : by * vol.mb_w + bx; };
-        auto source = [&](int m) { return !is_intra[m] || !(st[m] & kDcError); };
-        std::vector<int> col((size_t)w * h * 4);
-        std::vector<int64_t> dist((size_t)w * h * 4);
-        for (int by = 0; by < h; by++) {
-            int color = 1024, d = -1;
-            for (int bx = 0; bx < w; bx++) {
-                if (source(mb_of(bx, by))) {
-                    color = dc[(size_t)by * w + bx];
-                    d = bx;
-                }
-                col[((size_t)by * w + bx) * 4 + 1] = color;
-                dist[((size_t)by * w + bx) * 4 + 1] = d >= 0 ? bx - d : 9999;
-            }
-            color = 1024;
-            d = -1;
-            for (int bx = w - 1; bx >= 0; bx--) {
-                if (source(mb_of(bx, by))) {
-                    color = dc[(size_t)by * w + bx];
-                    d = bx;
-                }
-                col[((size_t)by * w + bx) * 4 + 0] = color;
-                dist[((size_t)by * w + bx) * 4 + 0] = d >= 0 ? d - bx : 9999;
-            }
-        }
-        for (int bx = 0; bx < w; bx++) {
-            int color = 1024, d = -1;
-            for (int by = 0; by < h; by++) {
-                if (source(mb_of(bx, by))) {
-                    color = dc[(size_t)by * w + bx];
-                    d = by;
-                }
-                col[((size_t)by * w + bx) * 4 + 3] = color;
-                dist[((size_t)by * w + bx) * 4 + 3] = d >= 0 ? by - d : 9999;
-            }
-            color = 1024;
-            d = -1;
-            for (int by = h - 1; by >= 0; by--) {
-                if (source(mb_of(bx, by))) {
-                    color = dc[(size_t)by * w + bx];
-                    d = by;
-                }
-                col[((size_t)by * w + bx) * 4 + 2] = color;
-                dist[((size_t)by * w + bx) * 4 + 2] = d >= 0 ? d - by : 9999;
-            }
-        }
-        for (int by = 0; by < h; by++)
-            for (int bx = 0; bx < w; bx++) {
-                const int m = mb_of(bx, by);
-                if (!is_intra[m] || !(st[m] & kDcError)) continue;
-                int64_t guess = 0, weight_sum = 0;
-                for (int j = 0; j < 4; j++) {
-                    const size_t i = ((size_t)by * w + bx) * 4 + j;
-                    const int64_t weight = 256LL * 256 * 256 * 16 / std::max<int64_t>(dist[i], 1);
-                    guess += weight * col[i];
-                    weight_sum += weight;
-                }
-                dc[(size_t)by * w + bx] = int((guess + weight_sum / 2) / weight_sum);
-            }
-    }
-
-    // filter181: the luma DCs smoothed (-1, 8, -1)/6, rows then columns
-    static void filter181(std::vector<int>& d, int w, int h) {
-        auto f = [](int prev, int c, int next) {
-            int dc = -prev + c * 8 - next;
-            dc = std::min(std::max(dc, INT_MIN / 10923), INT_MAX / 10923 - 32768);
-            return (dc * 10923 + 32768) >> 16;
-        };
-        for (int y = 1; y < h - 1; y++) {
-            int prev = d[(size_t)y * w];
-            for (int x = 1; x < w - 1; x++) {
-                const int c = d[(size_t)y * w + x];
-                d[(size_t)y * w + x] = f(prev, c, d[(size_t)y * w + x + 1]);
-                prev = c;
-            }
-        }
-        for (int x = 1; x < w - 1; x++) {
-            int prev = d[x];
-            for (int y = 1; y < h - 1; y++) {
-                const int c = d[(size_t)y * w + x];
-                d[(size_t)y * w + x] = f(prev, c, d[(size_t)(y + 1) * w + x]);
-                prev = c;
-            }
-        }
-    }
-
-    // h_block_filter (``across``: the vertical edges between blocks side
-    // by side) or v_block_filter: the edges of damaged blocks smoothed,
-    // where both sides are inter with vectors that nearly agree (FFmpeg
-    // adds the vertical components) excepted
-    void block_filter(Plane& p, bool luma, bool across, const std::vector<uint8_t>& st,
-                      const std::vector<uint8_t>& is_intra) const {
-        const int w = luma ? 2 * vol.mb_w : vol.mb_w, h = luma ? 2 * vol.mb_h : vol.mb_h;
-        const int ls = p.w;
-        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * vol.mb_w + (bx >> 1) : by * vol.mb_w + bx; };
-        auto mv = [&](int bx, int by) { return &mv8[(luma ? blk8(bx, by) : blk8(2 * bx, 2 * by)) * 2]; };
-        for (int by = 0; by < h - (across ? 0 : 1); by++)
-            for (int bx = 0; bx < w - (across ? 1 : 0); bx++) {
-                const int bx2 = across ? bx + 1 : bx, by2 = across ? by : by + 1;
-                const int m1 = mb_of(bx, by), m2 = mb_of(bx2, by2);
-                const bool dmg1 = st[m1] & kMbError, dmg2 = st[m2] & kMbError;
-                if (!dmg1 && !dmg2) continue;
-                const int16_t *v1 = mv(bx, by), *v2 = mv(bx2, by2);
-                if (!is_intra[m1] && !is_intra[m2] && std::abs(v1[0] - v2[0]) + std::abs(v1[1] + v2[1]) < 2)
-                    continue;
-                uint8_t* base = p.d.data() + (size_t)by * 8 * ls + bx * 8;
-                const int step = across ? 1 : ls, line = across ? ls : 1;
-                for (int k = 0; k < 8; k++) {
-                    uint8_t* q = base + (size_t)k * line;
-                    const int a = q[7 * step] - q[6 * step];
-                    const int b = q[8 * step] - q[7 * step];
-                    const int c = q[9 * step] - q[8 * step];
-                    int d = std::max(std::abs(b) - ((std::abs(a) + std::abs(c) + 1) >> 1), 0);
-                    if (b < 0) d = -d;
-                    if (!d) continue;
-                    if (!(dmg1 && dmg2)) d = d * 16 / 9;
-                    auto put = [&](int i, int v) { q[i * step] = (uint8_t)std::min(std::max(v, 0), 255); };
-                    if (dmg1) {
-                        put(7, q[7 * step] + ((d * 7) >> 4));
-                        put(6, q[6 * step] + ((d * 5) >> 4));
-                        put(5, q[5 * step] + ((d * 3) >> 4));
-                        put(4, q[4 * step] + ((d * 1) >> 4));
-                    }
-                    if (dmg2) {
-                        put(8, q[8 * step] - ((d * 7) >> 4));
-                        put(9, q[9 * step] - ((d * 5) >> 4));
-                        put(10, q[10 * step] - ((d * 3) >> 4));
-                        put(11, q[11 * step] - ((d * 1) >> 4));
-                    }
-                }
-            }
     }
 
     // the last decoded picture's planes at the display size

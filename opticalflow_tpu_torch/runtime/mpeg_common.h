@@ -12,6 +12,7 @@
 #pragma once
 
 #include <algorithm>
+#include <climits>
 #include <cstdarg>
 #include <cstdint>
 #include <cstdio>
@@ -515,5 +516,309 @@ inline void chroma_4mv_motion(const Picture& ref, const Edges& e, int x, int y, 
     mc_block(ref.p[1], e.ew >> 1, e.eh >> 1, sx, sy, dxy, 8, 8, no_rnd, du, cs);
     mc_block(ref.p[2], e.ew >> 1, e.eh >> 1, sx, sy, dxy, 8, 8, no_rnd, dv, cs);
 }
+
+// ---- error resilience: error_resilience.c's ff_er_frame_end as FFmpeg
+// runs it for the MPEG video decoders (error_concealment 3: guess
+// vectors, deblock), over one status a macroblock (raster order, no
+// stride) that the decoder filled as ff_er_add_slice fills it.  The
+// codec's own steps (where the status comes from, the guessed vectors and
+// how a vector is rendered) stay with the decoder.
+struct ErrorResilience {
+    enum { kAcError = 2, kDcError = 4, kMvError = 8, kAcEnd = 16, kDcEnd = 32, kMvEnd = 64,
+           kMbError = kAcError | kDcError | kMvError, kMbEnd = kAcEnd | kDcEnd | kMvEnd, kVpStart = 1 };
+
+    int mb_w = 0, mb_h = 0;
+    std::vector<uint8_t> st;       // the status table
+    std::vector<uint8_t> is_intra; // each macroblock's kind as the concealment takes it
+    std::vector<int16_t> mv8;      // each 8x8 block's vector (2 a block, row of 2*mb_w)
+
+    size_t blk8(int bx, int by) const { return (size_t)by * 2 * mb_w + bx; }
+
+    // ff_er_frame_start: every macroblock damaged, a packet of its own
+    void start(int w, int h) {
+        mb_w = w;
+        mb_h = h;
+        st.assign((size_t)w * h, kMbError | kVpStart | kMbEnd);
+        is_intra.assign((size_t)w * h, 0);
+        mv8.assign((size_t)w * h * 8, 0);
+    }
+
+    // ff_er_add_slice for a slice decoded whole from macroblock ``first``
+    // to ``last``
+    void add_slice(int first, int last) {
+        for (int m = first; m < last; m++) st[m] = 0;
+        st[last] = kMbEnd;
+        st[first] |= kVpStart;
+    }
+
+    // ff_er_add_slice for a slice that failed before macroblock ``end``
+    // (the one after the last it decoded): its macroblocks cleared, the
+    // error at ``end``
+    void add_error(int first, int end) {
+        const int num = mb_w * mb_h;
+        for (int m = first; m < end && m < num; m++) st[m] = 0;
+        if (end < num) st[end] = kMbError;
+        st[first] |= kVpStart;
+    }
+
+    // the passes over the table: overlapping slices; the 50 macroblocks
+    // before an error share it (``counted[m]`` 0: a skipped macroblock,
+    // which does not count); forward within a slice; then all or nothing
+    // (no partitions)
+    void spread(const std::vector<uint8_t>& counted) {
+        const int num = mb_w * mb_h;
+        for (int type = 1; type <= 3; type++) {
+            bool end_ok = false;
+            for (int m = num - 1; m >= 0; m--) {
+                const int e = st[m];
+                if (e & (1 << type)) end_ok = true;
+                if (e & (8 << type)) end_ok = true;
+                if (!end_ok) st[m] |= 1 << type;
+                if (e & kVpStart) end_ok = false;
+            }
+        }
+        for (int type = 1; type <= 3; type++) {
+            int distance = 9999999;
+            for (int m = num - 1; m >= 0; m--) {
+                const int e = st[m];
+                if (counted[m]) distance++;
+                if (e & (1 << type)) distance = 0;
+                if (distance < 50) st[m] |= 1 << type;
+                if (e & kVpStart) distance = 9999999;
+            }
+        }
+        int err = 0;
+        for (int m = 0; m < num; m++) {
+            if (st[m] & kVpStart) err = st[m] & kMbError;
+            else {
+                err |= st[m] & kMbError;
+                st[m] |= err;
+            }
+        }
+        for (auto& e : st)
+            if (e & kMbError) e |= kMbError;
+    }
+
+    bool damaged(int m) const { return (st[m] & kDcError) && (st[m] & kMvError); }
+
+    // is_intra_more_likely: over the undamaged macroblocks (every
+    // ``skip_amount``-th, the last row left out), in an I picture their SAD
+    // against the last picture beside the last picture's against itself a
+    // row of macroblocks down, in a P picture their intra count less their
+    // inter count (is_intra holds the decoded macroblocks' kinds)
+    bool intra_more_likely(const Picture& cur, const Picture* ref, int pict_type) const {
+        if (!ref) return true;   // no previous picture: spatial
+        const int num = mb_w * mb_h;
+        int undamaged = 0;
+        for (int m = 0; m < num; m++)
+            if (!damaged(m)) undamaged++;
+        if (undamaged < 5) return false;   // almost all damaged: temporal
+        const int skip_amount = std::max(undamaged / 50, 1);
+        int score = 0, j = 0;
+        for (int y = 0; y < mb_h - 1; y++)
+            for (int x = 0; x < mb_w; x++) {
+                const int m = y * mb_w + x;
+                if (damaged(m)) continue;
+                j++;
+                if (j % skip_amount) continue;
+                if (pict_type == 2) {
+                    score += is_intra[m] ? 1 : -1;
+                    continue;
+                }
+                const Plane &c = cur.p[0], &l = ref->p[0];
+                for (int r = 0; r < 16; r++)
+                    for (int k = 0; k < 16; k++) {
+                        score += std::abs(l.at(x * 16, y * 16 + r)[k] - c.at(x * 16, y * 16 + r)[k]);
+                        score -= std::abs(l.at(x * 16, y * 16 + r)[k] - l.at(x * 16, y * 16 + 16 + r)[k]);
+                    }
+            }
+        return score > 0;
+    }
+
+    // the steps after the vectors: every macroblock's DCs from its pixels
+    // (8x the mean), the damaged intra ones' guessed, the luma DCs
+    // smoothed, intra macroblocks with damaged AC rendered from their DCs
+    // alone, and the edges of damaged blocks filtered
+    void finish(Picture& cur) const {
+        const int mw = mb_w, mh = mb_h, num = mw * mh;
+        std::vector<int> dc0((size_t)4 * num), dc1((size_t)num), dc2((size_t)num);
+        for (int m = 0; m < num; m++) {
+            const int x = m % mw, y = m / mw;
+            for (int n = 0; n < 4; n++) {
+                int sum = 0;
+                const uint8_t* p = cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8);
+                for (int r = 0; r < 8; r++)
+                    for (int c = 0; c < 8; c++) sum += p[r * cur.p[0].w + c];
+                dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))] = (sum + 4) >> 3;
+            }
+            int su = 0, sv = 0;
+            for (int r = 0; r < 8; r++)
+                for (int c = 0; c < 8; c++) {
+                    su += cur.p[1].at(x * 8, y * 8)[r * cur.p[1].w + c];
+                    sv += cur.p[2].at(x * 8, y * 8)[r * cur.p[2].w + c];
+                }
+            dc1[m] = (su + 4) >> 3;
+            dc2[m] = (sv + 4) >> 3;
+        }
+        guess_dc(dc0, 2 * mw, 2 * mh, true);
+        guess_dc(dc1, mw, mh, false);
+        guess_dc(dc2, mw, mh, false);
+        filter181(dc0, 2 * mw, 2 * mh);
+        for (int m = 0; m < num; m++) {
+            if (!is_intra[m] || !(st[m] & kAcError)) continue;
+            const int x = m % mw, y = m / mw;
+            for (int n = 0; n < 4; n++) {
+                const int d = std::min(std::max(dc0[blk8(x * 2 + (n & 1), y * 2 + (n >> 1))], 0), 2040) / 8;
+                for (int r = 0; r < 8; r++)
+                    memset(cur.p[0].at(x * 16 + (n & 1) * 8, y * 16 + (n >> 1) * 8 + r), d, 8);
+            }
+            const int du = std::min(std::max(dc1[m], 0), 2040) / 8;
+            const int dv = std::min(std::max(dc2[m], 0), 2040) / 8;
+            for (int r = 0; r < 8; r++) {
+                memset(cur.p[1].at(x * 8, y * 8 + r), du, 8);
+                memset(cur.p[2].at(x * 8, y * 8 + r), dv, 8);
+            }
+        }
+        for (int pi = 0; pi < 3; pi++) {
+            block_filter(cur.p[pi], pi == 0, true);
+            block_filter(cur.p[pi], pi == 0, false);
+        }
+    }
+
+    // guess_dc: a damaged intra block's DC from the nearest undamaged
+    // block (or inter one) in each direction, weighted by 1/distance
+    void guess_dc(std::vector<int>& dc, int w, int h, bool luma) const {
+        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * mb_w + (bx >> 1) : by * mb_w + bx; };
+        auto source = [&](int m) { return !is_intra[m] || !(st[m] & kDcError); };
+        std::vector<int> col((size_t)w * h * 4);
+        std::vector<int64_t> dist((size_t)w * h * 4);
+        for (int by = 0; by < h; by++) {
+            int color = 1024, d = -1;
+            for (int bx = 0; bx < w; bx++) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = bx;
+                }
+                col[((size_t)by * w + bx) * 4 + 1] = color;
+                dist[((size_t)by * w + bx) * 4 + 1] = d >= 0 ? bx - d : 9999;
+            }
+            color = 1024;
+            d = -1;
+            for (int bx = w - 1; bx >= 0; bx--) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = bx;
+                }
+                col[((size_t)by * w + bx) * 4 + 0] = color;
+                dist[((size_t)by * w + bx) * 4 + 0] = d >= 0 ? d - bx : 9999;
+            }
+        }
+        for (int bx = 0; bx < w; bx++) {
+            int color = 1024, d = -1;
+            for (int by = 0; by < h; by++) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = by;
+                }
+                col[((size_t)by * w + bx) * 4 + 3] = color;
+                dist[((size_t)by * w + bx) * 4 + 3] = d >= 0 ? by - d : 9999;
+            }
+            color = 1024;
+            d = -1;
+            for (int by = h - 1; by >= 0; by--) {
+                if (source(mb_of(bx, by))) {
+                    color = dc[(size_t)by * w + bx];
+                    d = by;
+                }
+                col[((size_t)by * w + bx) * 4 + 2] = color;
+                dist[((size_t)by * w + bx) * 4 + 2] = d >= 0 ? d - by : 9999;
+            }
+        }
+        for (int by = 0; by < h; by++)
+            for (int bx = 0; bx < w; bx++) {
+                const int m = mb_of(bx, by);
+                if (!is_intra[m] || !(st[m] & kDcError)) continue;
+                int64_t guess = 0, weight_sum = 0;
+                for (int j = 0; j < 4; j++) {
+                    const size_t i = ((size_t)by * w + bx) * 4 + j;
+                    const int64_t weight = 256LL * 256 * 256 * 16 / std::max<int64_t>(dist[i], 1);
+                    guess += weight * col[i];
+                    weight_sum += weight;
+                }
+                dc[(size_t)by * w + bx] = int((guess + weight_sum / 2) / weight_sum);
+            }
+    }
+
+    // filter181: the luma DCs smoothed (-1, 8, -1)/6, rows then columns
+    static void filter181(std::vector<int>& d, int w, int h) {
+        auto f = [](int prev, int c, int next) {
+            int dc = -prev + c * 8 - next;
+            dc = std::min(std::max(dc, INT_MIN / 10923), INT_MAX / 10923 - 32768);
+            return (dc * 10923 + 32768) >> 16;
+        };
+        for (int y = 1; y < h - 1; y++) {
+            int prev = d[(size_t)y * w];
+            for (int x = 1; x < w - 1; x++) {
+                const int c = d[(size_t)y * w + x];
+                d[(size_t)y * w + x] = f(prev, c, d[(size_t)y * w + x + 1]);
+                prev = c;
+            }
+        }
+        for (int x = 1; x < w - 1; x++) {
+            int prev = d[x];
+            for (int y = 1; y < h - 1; y++) {
+                const int c = d[(size_t)y * w + x];
+                d[(size_t)y * w + x] = f(prev, c, d[(size_t)(y + 1) * w + x]);
+                prev = c;
+            }
+        }
+    }
+
+    // h_block_filter (``across``: the vertical edges between blocks side
+    // by side) or v_block_filter: the edges of damaged blocks smoothed,
+    // where both sides are inter with vectors that nearly agree (FFmpeg
+    // adds the vertical components) excepted
+    void block_filter(Plane& p, bool luma, bool across) const {
+        const int w = luma ? 2 * mb_w : mb_w, h = luma ? 2 * mb_h : mb_h;
+        const int ls = p.w;
+        auto mb_of = [&](int bx, int by) { return luma ? (by >> 1) * mb_w + (bx >> 1) : by * mb_w + bx; };
+        auto mv = [&](int bx, int by) { return &mv8[(luma ? blk8(bx, by) : blk8(2 * bx, 2 * by)) * 2]; };
+        for (int by = 0; by < h - (across ? 0 : 1); by++)
+            for (int bx = 0; bx < w - (across ? 1 : 0); bx++) {
+                const int bx2 = across ? bx + 1 : bx, by2 = across ? by : by + 1;
+                const int m1 = mb_of(bx, by), m2 = mb_of(bx2, by2);
+                const bool dmg1 = st[m1] & kMbError, dmg2 = st[m2] & kMbError;
+                if (!dmg1 && !dmg2) continue;
+                const int16_t *v1 = mv(bx, by), *v2 = mv(bx2, by2);
+                if (!is_intra[m1] && !is_intra[m2] && std::abs(v1[0] - v2[0]) + std::abs(v1[1] + v2[1]) < 2)
+                    continue;
+                uint8_t* base = p.d.data() + (size_t)by * 8 * ls + bx * 8;
+                const int step = across ? 1 : ls, line = across ? ls : 1;
+                for (int k = 0; k < 8; k++) {
+                    uint8_t* q = base + (size_t)k * line;
+                    const int a = q[7 * step] - q[6 * step];
+                    const int b = q[8 * step] - q[7 * step];
+                    const int c = q[9 * step] - q[8 * step];
+                    int d = std::max(std::abs(b) - ((std::abs(a) + std::abs(c) + 1) >> 1), 0);
+                    if (b < 0) d = -d;
+                    if (!d) continue;
+                    if (!(dmg1 && dmg2)) d = d * 16 / 9;
+                    auto put = [&](int i, int v) { q[i * step] = (uint8_t)std::min(std::max(v, 0), 255); };
+                    if (dmg1) {
+                        put(7, q[7 * step] + ((d * 7) >> 4));
+                        put(6, q[6 * step] + ((d * 5) >> 4));
+                        put(5, q[5 * step] + ((d * 3) >> 4));
+                        put(4, q[4 * step] + ((d * 1) >> 4));
+                    }
+                    if (dmg2) {
+                        put(8, q[8 * step] - ((d * 7) >> 4));
+                        put(9, q[9 * step] - ((d * 5) >> 4));
+                        put(10, q[10 * step] - ((d * 3) >> 4));
+                        put(11, q[11 * step] - ((d * 1) >> 4));
+                    }
+                }
+            }
+    }
+};
 
 }  // namespace mpegc

@@ -9,6 +9,7 @@ import os
 
 import cv2
 import numpy as np
+import pytest
 
 from make_video_fixtures import h264_lavc_planes, plane_digest
 from opticalflow_tpu_torch.io import video as vio
@@ -20,6 +21,10 @@ MANIFEST = MANIFEST_ALL["files"]
 H264 = sorted(n for n, e in MANIFEST.items() if e["group"] == "h264")
 CAVLC = [n for n in H264 if "_cavlc" in n]
 CABAC = [n for n in H264 if "_cabac" in n]
+# the B picture fixtures (group h264_b)
+H264_B = sorted(n for n, e in MANIFEST.items() if e["group"] == "h264_b")
+B_CAVLC = [n for n in H264_B if "_cavlc" in n]
+B_CABAC = [n for n in H264_B if "_cabac" in n]
 
 
 def path(name):
@@ -70,15 +75,21 @@ def video_info_equals_cv2(name):
         k: MANIFEST[name][k] for k in ("fps", "width", "height", "frames")}
 
 
-def every_seek_reads_cv2s_frame(name):
+def every_seek_reads_cv2s_frame(name, none_read=False):
     """Each recorded seek (an index cv2 read after CAP_PROP_POS_FRAMES)
     reads cv2's frame through ``frame`` and through ``read`` after a
-    close."""
+    close; where cv2 read no frame (``none_read``: B pictures in a
+    transport stream, whose seek FFmpeg lands where its decoder finds no
+    co-located picture), the port reads none either and says so."""
     want = MANIFEST[name]
     video = vio.EncodedVideo(path(name))
     assert sorted(want["seeks"], key=int) == [
         str(t) for t in range(want["decoded"])]
     for t, hit in want["seeks"].items():
+        if hit is None and none_read:
+            with pytest.raises(ValueError, match="reads no frame"):
+                video.frame(int(t))
+            continue
         assert hit is not None and hit >= 0, t
         assert digest(video.frame(int(t))) == want["sha256"][hit], t
         if t != "0":

@@ -240,6 +240,7 @@ class Sps:
     max_num_ref_frames: int = 1
     gaps: bool = False
     frame_mbs_only: bool = True
+    direct_8x8_inference: bool = True
     crop: Tuple[int, int, int, int] = (0, 0, 0, 0)   # left right top bottom
     vui: Optional[dict] = None
 
@@ -250,7 +251,9 @@ class Pps:
     sps_id: int = 0
     cabac: bool = False
     num_ref_idx_default: int = 1
+    num_ref_idx_default1: int = 1
     weighted_pred: bool = False
+    weighted_bipred_idc: int = 0
     init_qp: int = 26
     chroma_qp_offset: int = 0
     second_chroma_qp_offset: Optional[int] = None
@@ -275,25 +278,34 @@ class SliceSpec:
 
 @dataclass
 class Pic:
-    kind: str = "I"             # I or P (B only for the refusal tests)
+    kind: str = "I"             # I, P or B
     idr: bool = False
     ref_idc: int = 1
     sps: int = 0
     pps: int = 0
     slices: Optional[List[SliceSpec]] = None   # None: one slice
-    num_ref_idx: Optional[int] = None          # override
+    num_ref_idx: Optional[object] = None       # override ("all": all held)
+    num_ref_idx1: Optional[object] = None      # list 1's (B)
     list_mods: Sequence[Tuple[int, int]] = ()  # (idc, value), raw syntax
+    list_mods1: Sequence[Tuple[int, int]] = ()
+    direct_spatial: bool = True                # B: direct_spatial_mv_pred_flag
+    poc: Optional[int] = None                  # else counted (poc_step)
     mmco: Sequence[Tuple[int, ...]] = ()       # (op, args...)
     long_term_reference: bool = False          # IDR
-    weights: Optional[dict] = None             # pred_weight_table
+    # pred_weight_table: luma_log2, chroma_log2, and list 0's (luma,
+    # chroma) and list 1's (luma1, chroma1) weights by reference index
+    weights: Optional[dict] = None
     recovery_point: Optional[int] = None       # SEI recovery_frame_cnt
     redundant_pic_cnt: int = 0
     frame_num: Optional[int] = None            # else counted
     poc_step: int = 2
     delta_poc: int = 0                          # POC type 1
-    # what its macroblocks may be: any of I4 I8 I16 PCM P SKIP; and how
+    # what its macroblocks may be: any of I4 I8 I16 PCM P B SKIP; and how
     mb_types: Sequence[str] = ("I4", "I16", "PCM")
     p_parts: Sequence[int] = (0, 1, 2, 3, 4)
+    b_types: Sequence[int] = tuple(range(23))   # B mb_type (Table 7-14)
+    b_subs: Sequence[int] = tuple(range(13))    # B sub_mb_type (7-18)
+    skips: float = 0.2          # the share of skipped macroblocks
     density: float = 0.25       # the share of nonzero coefficients
     big_levels: float = 0.02    # the share of escape-sized levels
     qp_deltas: float = 0.2      # the share of macroblocks with a delta
@@ -310,7 +322,7 @@ class Pic:
 
 class _Mb:
     __slots__ = ("slice", "kind", "t8", "cbp", "cbf_dc", "chroma", "ipred",
-                 "nnz", "nnzc", "ref", "mvd", "intra")
+                 "nnz", "nnzc", "ref", "mvd", "intra", "direct8", "direct16")
 
     def __init__(self, slice_):
         self.slice = slice_
@@ -322,9 +334,11 @@ class _Mb:
         self.ipred = [-1] * 16
         self.nnz = [0] * 16
         self.nnzc = [[0] * 4, [0] * 4]
-        self.ref = [-1] * 4
-        self.mvd = [[0, 0] for _ in range(16)]
+        self.ref = [[-1] * 4, [-1] * 4]     # per list
+        self.mvd = [[[0, 0] for _ in range(16)] for _ in range(2)]
         self.intra = False
+        self.direct8 = 0        # 8x8 blocks skipped or predicted directly
+        self.direct16 = False   # B_Skip, B_Direct_16x16
 
 
 def _scaling(bw: BitWriter, lists, sizes):
@@ -379,7 +393,7 @@ def sps_nal(s: Sps) -> bytes:
     bw.u(1, int(s.frame_mbs_only))
     if not s.frame_mbs_only:
         bw.u(1, 0)
-    bw.u(1, 1)   # direct_8x8_inference_flag
+    bw.u(1, int(s.direct_8x8_inference))
     cy = 2 if s.frame_mbs_only else 4
     if any(s.crop):
         bw.u(1, 1)
@@ -445,9 +459,9 @@ def pps_nal(p: Pps, s: Sps) -> bytes:
         for i in range(n):
             bw.u(bits, (i % s.mb_w) % p.slice_groups)
     bw.ue(p.num_ref_idx_default - 1)
-    bw.ue(0)
+    bw.ue(p.num_ref_idx_default1 - 1)
     bw.u(1, int(p.weighted_pred))
-    bw.u(2, 0)
+    bw.u(2, p.weighted_bipred_idc)
     bw.se(p.init_qp - 26)
     bw.se(0)
     bw.se(p.chroma_qp_offset)
@@ -569,6 +583,8 @@ class Writer:
             self.poc = 0
         fn = pic.frame_num if pic.frame_num is not None else self.frame_num
         self.cur_fn = fn
+        if pic.poc is not None:
+            self.poc = pic.poc
         out = bytearray(pic.prefix)
         if pic.recovery_point is not None:
             out += b"\0\0\0\1" + sei_recovery(pic.recovery_point)
@@ -604,42 +620,52 @@ class Writer:
         if pps.redundant_pic_cnt_present:
             bw.ue(pic.redundant_pic_cnt)
         if pic.kind == "B":
-            bw.u(1, 1)   # direct_spatial_mv_pred_flag
-        nref = 0
+            bw.u(1, int(pic.direct_spatial))
+        nref = nref1 = 0
         if pic.kind in "PB":
-            nref = pic.num_ref_idx or pps.num_ref_idx_default
-            if nref != pps.num_ref_idx_default:
+            held = len(self.refs)   # "all": every reference held
+            nref = (held if pic.num_ref_idx == "all" else
+                    pic.num_ref_idx or pps.num_ref_idx_default)
+            nref1 = 0
+            if pic.kind == "B":
+                nref1 = (held if pic.num_ref_idx1 == "all" else
+                         pic.num_ref_idx1 or pps.num_ref_idx_default1)
+            if nref != pps.num_ref_idx_default or (
+                    pic.kind == "B" and nref1 != pps.num_ref_idx_default1):
                 bw.u(1, 1)
                 bw.ue(nref - 1)
                 if pic.kind == "B":
-                    bw.ue(0)
+                    bw.ue(nref1 - 1)
             else:
                 bw.u(1, 0)
-            bw.u(1, int(bool(pic.list_mods)))
-            for idc, v in pic.list_mods:
-                bw.ue(idc)
-                bw.ue(v)
-            if pic.list_mods:
-                bw.ue(3)
-            if pic.kind == "B":
-                bw.u(1, 0)
-            if pps.weighted_pred and pic.kind == "P":
+            for mods in ((pic.list_mods, pic.list_mods1) if pic.kind == "B"
+                         else (pic.list_mods,)):
+                bw.u(1, int(bool(mods)))
+                for idc, v in mods:
+                    bw.ue(idc)
+                    bw.ue(v)
+                if mods:
+                    bw.ue(3)
+            if (pps.weighted_pred and pic.kind == "P") or (
+                    pps.weighted_bipred_idc == 1 and pic.kind == "B"):
                 w = pic.weights or {}
                 bw.ue(w.get("luma_log2", 5))
                 bw.ue(w.get("chroma_log2", 5))
-                for i in range(nref):
-                    lw = w.get("luma", {}).get(i)
-                    bw.u(1, int(lw is not None))
-                    if lw is not None:
-                        bw.se(lw[0])
-                        bw.se(lw[1])
-                    cw = w.get("chroma", {}).get(i)
-                    bw.u(1, int(cw is not None))
-                    if cw is not None:
-                        for wt, off in cw:
-                            bw.se(wt)
-                            bw.se(off)
+                for k, n in enumerate((nref, nref1)):
+                    for i in range(n):
+                        lw = w.get("luma1" if k else "luma", {}).get(i)
+                        bw.u(1, int(lw is not None))
+                        if lw is not None:
+                            bw.se(lw[0])
+                            bw.se(lw[1])
+                        cw = w.get("chroma1" if k else "chroma", {}).get(i)
+                        bw.u(1, int(cw is not None))
+                        if cw is not None:
+                            for wt, off in cw:
+                                bw.se(wt)
+                                bw.se(off)
         self.nref = nref
+        self.nrefs = (nref, nref1)
         if pic.ref_idc:
             if pic.idr:
                 bw.u(1, 0)
@@ -677,10 +703,8 @@ class Writer:
             mb = _Mb(k)
             self.mbs[addr] = mb
             self.cur = mb
-            skip = pic.kind == "P" and "SKIP" in pic.mb_types and \
-                self.rng.random() < 0.2 and pic.global_mv is None
-            if pic.kind == "B":
-                skip = True
+            skip = pic.kind in "PB" and "SKIP" in pic.mb_types and \
+                self.rng.random() < pic.skips and pic.global_mv is None
             if pps.cabac:
                 if pic.kind in "PB":
                     self._skip_flag(skip)
@@ -694,7 +718,7 @@ class Writer:
                     run += 1
                     self._skip_mb()
                     continue
-                if pic.kind == "P":
+                if pic.kind in "PB":
                     bw.ue(run)
                     run = 0
                 self._mb()
@@ -750,7 +774,7 @@ class Writer:
     # ---------------------------------------------------------- syntax pieces
 
     def _skip_flag(self, skip):
-        ctx = 11
+        ctx = 24 if self.pic.kind == "B" else 11
         for a in (self.addr_a(), self.addr_b()):
             if self.avail(a) and self.mbs[a].kind != "SKIP":
                 ctx += 1
@@ -758,7 +782,9 @@ class Writer:
 
     def _skip_mb(self):
         self.cur.kind = "SKIP"
-        self.cur.ref = [0] * 4
+        self.cur.ref[0] = [0] * 4
+        self.cur.direct8 = 15
+        self.cur.direct16 = self.pic.kind == "B"
         self.last_qpd = 0
 
     def _pred_mode(self, x, y):
@@ -798,7 +824,7 @@ class Writer:
         p = self.pic
         t = 0 if kind in ("I4", "I8") else 25 if kind == "PCM" else i16
         if not self.pps_cur.cabac:
-            self.bw.ue(t + (5 if p.kind == "P" else 0))
+            self.bw.ue(t + {"P": 5, "B": 23, "I": 0}[p.kind])
             return
         cab = self.cab
         if p.kind == "I":
@@ -812,8 +838,13 @@ class Writer:
                 return
             st += 2
         else:
-            cab.bin(14, 1)
-            st, intra_slice = 17, 0
+            if p.kind == "P":
+                cab.bin(14, 1)
+                st = 17
+            else:   # B: mb_type's prefix 1101
+                self._b_type_prefix(0b1101)
+                st = 32
+            intra_slice = 0
             cab.bin(st, int(t != 0))
             if not t:
                 return
@@ -1209,12 +1240,14 @@ class Writer:
             return self._pcm()
         kinds = [k for k in pic.mb_types if k != "SKIP"]
         if pic.kind == "I":
-            kinds = [k for k in kinds if k != "P"]
+            kinds = [k for k in kinds if k not in "PB"]
         if "I8" in kinds and not self.pps_cur.transform_8x8:
             kinds.remove("I8")
         kind = str(rng.choice(kinds))
         if kind == "P":
             return self._inter(int(rng.choice(list(pic.p_parts))))
+        if kind == "B":
+            return self._b_inter(int(rng.choice(list(pic.b_types))))
         if kind == "PCM":
             return self._pcm()
         m.intra = True
@@ -1316,11 +1349,14 @@ class Writer:
         if self.pps_cur.cabac:
             self.cab.start()
 
-    def _ref(self, x, y, ref):
-        if self.nref <= 1:
+    def _ref(self, lst, x, y, ref):
+        """ref_idx_lX: te(v) in CAVLC; in CABAC refIdxZeroFlag counts a
+        skipped or direct neighbour as reference 0."""
+        n = self.nrefs[lst]
+        if n <= 1:
             return
         if not self.pps_cur.cabac:
-            self.bw.te(self.nref - 1, ref)
+            self.bw.te(n - 1, ref)
             return
         ctx = 0
         for k, (dx, dy) in enumerate(((-1, 0), (0, -1))):
@@ -1328,15 +1364,15 @@ class Writer:
             if l is None:
                 continue
             o, b = l
-            if not o.intra and o.kind != "SKIP" and \
-                    o.ref[(b >> 3) * 2 + ((b & 3) >> 1)] > 0:
+            b8 = (b >> 3) * 2 + ((b & 3) >> 1)
+            if not o.intra and not o.direct8 >> b8 & 1 and o.ref[lst][b8] > 0:
                 ctx += 1 << k
         for _ in range(ref):
             self.cab.bin(54 + ctx, 1)
             ctx = (ctx >> 2) + 4
         self.cab.bin(54 + ctx, 0)
 
-    def _mvd(self, x, y, w, h, mvd):
+    def _mvd(self, lst, x, y, w, h, mvd):
         m = self.cur
         for comp in range(2):
             v = mvd[comp]
@@ -1347,7 +1383,7 @@ class Writer:
             for dx, dy in ((-1, 0), (0, -1)):
                 l = self.locate(x + dx, y + dy)
                 if l is not None:
-                    amvd += l[0].mvd[l[1]][comp]
+                    amvd += l[0].mvd[lst][l[1]][comp]
             base = 47 if comp else 40
             inc = 0 if amvd < 3 else 1 if amvd <= 32 else 2
             a = abs(v)
@@ -1367,7 +1403,8 @@ class Writer:
                 self.cab.bypass(int(v < 0))
         for j in range(y // 4, (y + h) // 4):
             for i in range(x // 4, (x + w) // 4):
-                m.mvd[j * 4 + i] = [min(abs(mvd[0]), 70), min(abs(mvd[1]), 70)]
+                m.mvd[lst][j * 4 + i] = [min(abs(mvd[0]), 70),
+                                         min(abs(mvd[1]), 70)]
 
     def _rand_mvd(self):
         rng, r = self.rng, self.pic.mv_range
@@ -1400,20 +1437,20 @@ class Writer:
         subs = [0] * 4
         if part == 0:
             refs = [rref()]
-            m.ref = refs * 4
-            self._ref(0, 0, refs[0])
+            m.ref[0] = refs * 4
+            self._ref(0, 0, 0, refs[0])
             parts = [(0, 0, 16, 16)]
         elif part == 1:
             refs = [rref(), rref()]
-            m.ref = [refs[0], refs[0], refs[1], refs[1]]
-            self._ref(0, 0, refs[0])
-            self._ref(0, 8, refs[1])
+            m.ref[0] = [refs[0], refs[0], refs[1], refs[1]]
+            self._ref(0, 0, 0, refs[0])
+            self._ref(0, 0, 8, refs[1])
             parts = [(0, 0, 16, 8), (0, 8, 16, 8)]
         elif part == 2:
             refs = [rref(), rref()]
-            m.ref = [refs[0], refs[1], refs[0], refs[1]]
-            self._ref(0, 0, refs[0])
-            self._ref(8, 0, refs[1])
+            m.ref[0] = [refs[0], refs[1], refs[0], refs[1]]
+            self._ref(0, 0, 0, refs[0])
+            self._ref(0, 8, 0, refs[1])
             parts = [(0, 0, 8, 16), (8, 0, 8, 16)]
         else:
             subs = [int(rng.integers(0, 4)) for _ in range(4)]
@@ -1430,10 +1467,10 @@ class Writer:
             # drawn either way, so that a CABAC twin (which codes
             # P_8x8ref0 as P_8x8) draws as its CAVLC stream does
             drawn = [rref() for _ in range(4)]
-            m.ref = [0] * 4 if part == 4 else drawn
+            m.ref[0] = [0] * 4 if part == 4 else drawn
             if part == 3:
                 for i in range(4):
-                    self._ref((i & 1) * 8, (i >> 1) * 8, m.ref[i])
+                    self._ref(0, (i & 1) * 8, (i >> 1) * 8, m.ref[0][i])
             parts = []
             for i in range(4):
                 x0, y0 = (i & 1) * 8, (i >> 1) * 8
@@ -1452,7 +1489,7 @@ class Writer:
                 mvd = list(mvds[0]) if self.addr == 0 else [0, 0]
             else:
                 mvd = self._rand_mvd()
-            self._mvd(x, y, w, h, mvd)
+            self._mvd(0, x, y, w, h, mvd)
         if self.pic.global_mv is not None:
             cbp = 0
         else:
@@ -1473,6 +1510,166 @@ class Writer:
             self.last_qpd = 0
 
 
+    # ---------------------------------------------------------- B macroblocks
+
+    # each B mb_type's partition shape (0 16x16, 1 16x8, 2 8x16, 3 8x8) and
+    # its partitions' lists (1 L0, 2 L1, 3 both), Table 7-14
+    B_SHAPE = (0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2,
+               1, 2, 3)
+    B_PRED = ((0, 0), (1, 0), (2, 0), (3, 0), (1, 1), (1, 1), (2, 2), (2, 2),
+              (1, 2), (1, 2), (2, 1), (2, 1), (1, 3), (1, 3), (2, 3), (2, 3),
+              (3, 1), (3, 1), (3, 2), (3, 2), (3, 3), (3, 3), (0, 0))
+    # each B sub_mb_type's shape (-1 direct, 0 8x8, 1 8x4, 2 4x8, 3 4x4)
+    # and lists, Table 7-18
+    B_SUB = ((-1, 0), (0, 1), (0, 2), (0, 3), (1, 1), (2, 1), (1, 2), (2, 2),
+             (1, 3), (2, 3), (3, 1), (3, 2), (3, 3))
+
+    def _b_type_prefix(self, bits):
+        """CABAC's B mb_type bins up to the four bits ``bits`` (past the
+        first two)."""
+        ctx = sum(1 for a in (self.addr_a(), self.addr_b())
+                  if self.avail(a) and not self.mbs[a].direct16)
+        c = self.cab
+        c.bin(27 + ctx, 1)
+        c.bin(30, 1)
+        c.bin(31, bits >> 3 & 1)
+        for k in (2, 1, 0):
+            c.bin(32, bits >> k & 1)
+
+    def _b_type(self, t):
+        if not self.pps_cur.cabac:
+            self.bw.ue(t)
+            return
+        c = self.cab
+        if t == 0:
+            ctx = sum(1 for a in (self.addr_a(), self.addr_b())
+                      if self.avail(a) and not self.mbs[a].direct16)
+            c.bin(27 + ctx, 0)
+        elif t <= 2:
+            ctx = sum(1 for a in (self.addr_a(), self.addr_b())
+                      if self.avail(a) and not self.mbs[a].direct16)
+            c.bin(27 + ctx, 1)
+            c.bin(30, 0)
+            c.bin(32, t - 1)
+        elif t <= 10:
+            self._b_type_prefix(t - 3)
+        elif t == 11:
+            self._b_type_prefix(14)
+        elif t == 22:
+            self._b_type_prefix(15)
+        else:
+            self._b_type_prefix((t + 4) >> 1)
+            c.bin(32, (t + 4) & 1)
+
+    def _b_sub(self, t):
+        if not self.pps_cur.cabac:
+            self.bw.ue(t)
+            return
+        c = self.cab
+        c.bin(36, int(t > 0))
+        if not t:
+            return
+        c.bin(37, int(t > 2))
+        if t <= 2:
+            c.bin(39, t - 1)
+            return
+        if t >= 11:
+            c.bin(38, 1)
+            c.bin(39, 1)
+            c.bin(39, t - 11)
+            return
+        c.bin(38, int(t >= 7))
+        if t >= 7:
+            c.bin(39, 0)
+        v = t - (7 if t >= 7 else 3)
+        c.bin(39, v >> 1)
+        c.bin(39, v & 1)
+
+    def _b_inter(self, t):
+        """A B macroblock of mb_type ``t`` (0-22): its references and
+        vector differences at random, each list in turn as the syntax
+        orders them; what direct prediction derives is left to the decoder
+        (no context depends on it)."""
+        m, rng = self.cur, self.rng
+        m.kind, m.intra = "B", False
+        self._b_type(t)
+        t8_ok = True
+        inference = self.sps_cur.direct_8x8_inference
+
+        def rref(lst):
+            return int(rng.integers(0, self.nrefs[lst]))
+        parts = [[], []]      # per list: (x, y, w, h)
+        if t == 0:
+            m.direct8, m.direct16 = 15, True
+            t8_ok = inference
+        elif t < 22:
+            shape, pred = self.B_SHAPE[t], self.B_PRED[t]
+            boxes = ([(0, 0, 16, 16)] if shape == 0 else
+                     [(0, 0, 16, 8), (0, 8, 16, 8)] if shape == 1 else
+                     [(0, 0, 8, 16), (8, 0, 8, 16)])
+            for lst in range(2):
+                for p, (x, y, w, h) in enumerate(boxes):
+                    if not pred[p] >> lst & 1:
+                        continue
+                    r = rref(lst)
+                    for b8 in range(4):
+                        bx, by = (b8 & 1) * 8, (b8 >> 1) * 8
+                        if x <= bx < x + w and y <= by < y + h:
+                            m.ref[lst][b8] = r
+                    self._ref(lst, x, y, r)
+                    parts[lst].append((x, y, w, h))
+        else:
+            subs = [int(rng.choice(list(self.pic.b_subs))) for _ in range(4)]
+            for i, st in enumerate(subs):
+                self._b_sub(st)
+                if st == 0:
+                    m.direct8 |= 1 << i
+                    t8_ok &= inference
+                else:
+                    t8_ok &= self.B_SUB[st][0] == 0
+            for lst in range(2):
+                for i, st in enumerate(subs):
+                    if st and self.B_SUB[st][1] >> lst & 1:
+                        r = rref(lst)
+                        m.ref[lst][i] = r
+                        self._ref(lst, (i & 1) * 8, (i >> 1) * 8, r)
+            for lst in range(2):
+                for i, st in enumerate(subs):
+                    if not st or not self.B_SUB[st][1] >> lst & 1:
+                        continue
+                    x0, y0 = (i & 1) * 8, (i >> 1) * 8
+                    sh = self.B_SUB[st][0]
+                    parts[lst] += (
+                        [(x0, y0, 8, 8)] if sh == 0 else
+                        [(x0, y0, 8, 4), (x0, y0 + 4, 8, 4)] if sh == 1 else
+                        [(x0, y0, 4, 8), (x0 + 4, y0, 4, 8)] if sh == 2 else
+                        [(x0, y0, 4, 4), (x0 + 4, y0, 4, 4),
+                         (x0, y0 + 4, 4, 4), (x0 + 4, y0 + 4, 4, 4)])
+        if t < 22:
+            for lst in range(2):
+                for x, y, w, h in parts[lst]:
+                    self._mvd(lst, x, y, w, h, self._rand_mvd())
+        else:
+            # the syntax orders them list by list, sub-macroblock by
+            # sub-macroblock: parts[] is built in that order
+            for lst in range(2):
+                for x, y, w, h in parts[lst]:
+                    self._mvd(lst, x, y, w, h, self._rand_mvd())
+        cbp = self._rand_cbp()
+        self._cbp(cbp, False)
+        m.cbp = cbp
+        t8 = False
+        if (cbp & 15) and self.pps_cur.transform_8x8 and t8_ok:
+            t8 = bool(rng.random() < 0.5) if self.pic.t8 is None else \
+                self.pic.t8
+            self._t8_flag(t8)
+        m.t8 = t8
+        if cbp:
+            self._qp_delta(self._dq())
+            self._residual("P", cbp, t8)
+        else:
+            self.last_qpd = 0
+
 def write_stream(seed: int, sps: Sequence[Sps], pps: Sequence[Pps],
                  pics: Sequence[Pic], headers_each_idr: bool = True
                  ) -> List[bytes]:
@@ -1488,6 +1685,27 @@ def write_stream(seed: int, sps: Sequence[Sps], pps: Sequence[Pps],
             au = hdr + au
         out.append(au)
     return out
+
+
+def display_order(pics: Sequence[Pic]) -> Tuple[List[int], int]:
+    """Each picture's display index (by POC within each run from an IDR
+    picture; decode order where no picture names its POC) and the reorder
+    depth (the most places a picture moves back past those decoded before
+    it)."""
+    if all(p.poc is None for p in pics):
+        return list(range(len(pics))), 0
+    shown, seg, depth = [0] * len(pics), [], 0
+    for i, p in enumerate(list(pics) + [Pic(idr=True)]):
+        if p.idr and seg:
+            base = seg[0]
+            for r, j in enumerate(sorted(seg, key=lambda j: pics[j].poc)):
+                shown[j] = base + r
+            seg = []
+        if i < len(pics):
+            seg.append(i)
+    for i, d in enumerate(shown):
+        depth = max(depth, sum(1 for e in shown[:i] if e > d))
+    return shown, depth
 
 
 def parameter_sets(sps: Sequence[Sps], pps: Sequence[Pps]) -> List[bytes]:
@@ -1551,11 +1769,17 @@ def _full(kind: bytes, *parts: bytes) -> bytes:
 
 
 def write_mp4(path: str, samples: Sequence[bytes], keys: Sequence[bool],
-              record: bytes, width: int, height: int, fps: int = 25) -> None:
+              record: bytes, width: int, height: int, fps: int = 25,
+              shown: Optional[Sequence[int]] = None) -> None:
     """A minimal ISO base media file of one ``avc1`` track: length-prefixed
     ``samples`` (one a frame at ``fps``), ``record`` its avcC, ``keys`` its
-    sync samples; where no libavformat is at hand (the card machine)."""
+    sync samples; where no libavformat is at hand (the card machine).
+    ``shown``: each sample's display index (B pictures), written as the
+    mov muxer writes an encoder's B-frames: a ``ctts`` of each sample's
+    display index less its decode index plus the reorder depth, and an
+    ``elst`` that starts the track at the first picture shown."""
     n = len(samples)
+    delay = max([i - d for i, d in enumerate(shown)] + [0]) if shown else 0
     u32 = lambda v: int(v).to_bytes(4, "big")  # noqa: E731
     u16 = lambda v: int(v).to_bytes(2, "big")  # noqa: E731
     matrix = b"".join(u32(v) for v in (0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
@@ -1576,6 +1800,9 @@ def write_mp4(path: str, samples: Sequence[bytes], keys: Sequence[bool],
         _full(b"stts", u32(1), u32(n), u32(1)),
         _full(b"stss", u32(sum(keys)),
               *(u32(i + 1) for i, k in enumerate(keys) if k)),
+        *([_full(b"ctts", u32(n), *(u32(1) + u32(d - i + delay)
+                                    for i, d in enumerate(shown)))]
+          if shown else []),
         _full(b"stsc", u32(1), u32(1), u32(1), u32(1)),
         _full(b"stsz", u32(0), u32(n), *(u32(len(s)) for s in samples)),
         _full(b"stco", u32(n), *(u32(o) for o in offsets)))
@@ -1593,6 +1820,8 @@ def write_mp4(path: str, samples: Sequence[bytes], keys: Sequence[bool],
     mvhd = _full(b"mvhd", u32(0), u32(0), u32(1000), u32(n * 1000 // fps),
                  u32(0x10000), u16(0x100), bytes(10), matrix, bytes(24),
                  u32(2))
-    moov = _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))
+    edts = [_box(b"edts", _full(b"elst", u32(1), u32(n * 1000 // fps),
+                                u32(delay), u32(0x10000)))] if shown else []
+    moov = _box(b"moov", mvhd, _box(b"trak", tkhd, *edts, mdia))
     with open(path, "wb") as f:
         f.write(ftyp + mdat + moov)

@@ -169,6 +169,7 @@ import hashlib
 import json
 import os
 import re
+import math
 import struct
 import sys
 
@@ -1310,15 +1311,18 @@ class Lavc:
 
 
     def decode(self, packets: list, codec: str, shifts=(1, 1),
-               dtype=np.uint8, extradata: bytes = b"") -> list:
+               dtype=np.uint8, extradata: bytes = b"",
+               video_delay: int = 0) -> list:
         """Packets → the (Y, U, V) planes libavcodec's ``codec`` decoder
         hands over (its pixel format's: ``shifts`` the chroma subsampling,
         ``dtype`` uint16 for samples deeper than 8 bits), read at AVFrame's
         data (0), linesize (64), width and height (104, 108); ``extradata``
-        goes in through AVCodecParameters (offsets 16 and 24)."""
+        goes in through AVCodecParameters (offsets 16 and 24), and
+        ``video_delay`` (at 120: the decoder's starting has_b_frames, as
+        FFmpeg's probe leaves it for cv2)."""
         c, a, u = self.ct, self.a, self.u
         ctx = a.avcodec_alloc_context3(None)
-        if extradata:
+        if extradata or video_delay:
             a.avcodec_parameters_alloc.restype = c.c_void_p
             a.avcodec_parameters_to_context.argtypes = [c.c_void_p,
                                                         c.c_void_p]
@@ -1329,6 +1333,8 @@ class Lavc:
             c.memmove(buf, extradata, len(extradata))
             c.c_void_p.from_address(par + 16).value = buf
             c.c_int.from_address(par + 24).value = len(extradata)
+            c.c_int.from_address(par + 0).value = 0     # video
+            c.c_int.from_address(par + 120).value = video_delay
             assert a.avcodec_parameters_to_context(ctx, par) >= 0
         dec = a.avcodec_find_decoder_by_name(codec.encode())
         assert a.avcodec_open2(ctx, dec, None) >= 0, codec
@@ -1480,12 +1486,20 @@ class Lavf:
 
     def mux(self, path: str, packets: list, extradata: bytes, width: int,
             height: int, fps: int = 25, fmt: Optional[str] = None,
-            codec_id: int = 27) -> None:
+            codec_id: int = 27, video_delay: int = 0,
+            display_matrix: Optional[list] = None) -> None:
         """(bytes, key) packets of one video stream (``codec_id``: 27,
         AV_CODEC_ID_H264) → ``path`` by libavformat's muxer for its
         extension (or ``fmt``): the stream's codecpar (type, codec, size,
-        yuv420p, ``extradata``) at AVCodecParameters' offsets, pts = dts =
-        the packet's index at ``fps``, through av_interleaved_write_frame."""
+        yuv420p, ``extradata``, ``video_delay`` at 120: the reorder depth an
+        encoder's B-frames give, from which the muxers write composition
+        offsets, edit lists, PES PTS and DTS, FLV composition times) at
+        AVCodecParameters' offsets, pts = dts = the packet's index at
+        ``fps`` (or (bytes, key, pts, dts) in frame periods), through
+        av_interleaved_write_frame; ``display_matrix`` (nine integers) as
+        the stream's AV_PKT_DATA_DISPLAYMATRIX side data, which the mov
+        muxer writes into ``tkhd`` and the Matroska one as a
+        ``Projection``'s pose."""
         c, f, a, u = self.ct, self.f, self.a, self.u
         ctx = c.c_void_p()
         assert f.avformat_alloc_output_context2(
@@ -1498,6 +1512,16 @@ class Lavf:
         c.c_int.from_address(par + 44).value = 0            # yuv420p
         c.c_int.from_address(par + 72).value = width
         c.c_int.from_address(par + 76).value = height
+        c.c_int.from_address(par + 120).value = video_delay
+        if display_matrix is not None:
+            new = self.a.av_packet_side_data_new
+            new.restype = c.c_void_p
+            new.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_size_t,
+                            c.c_int]
+            sd = new(par + 32, par + 40, 5, 36, 0)   # DISPLAYMATRIX
+            data = c.c_void_p.from_address(sd).value
+            for k, v in enumerate(display_matrix):
+                c.c_int32.from_address(data + 4 * k).value = v
         if extradata:
             buf = u.av_mallocz(len(extradata) + 64)
             c.memmove(buf, extradata, len(extradata))
@@ -1513,11 +1537,12 @@ class Lavf:
                     c.c_int.from_address(st + 36).value)
         step = den // (fps * num)
         pkt = a.av_packet_alloc()
-        for i, (data, key) in enumerate(packets):
+        for i, (data, key, *stamps) in enumerate(packets):
+            pts, dts = stamps or (i, i)
             assert a.av_new_packet(pkt, len(data)) >= 0
             c.memmove(c.c_void_p.from_address(pkt + 24).value, data, len(data))
-            c.c_int64.from_address(pkt + 8).value = i * step    # pts
-            c.c_int64.from_address(pkt + 16).value = i * step   # dts
+            c.c_int64.from_address(pkt + 8).value = pts * step
+            c.c_int64.from_address(pkt + 16).value = dts * step
             c.c_int.from_address(pkt + 36).value = 0            # stream
             c.c_int.from_address(pkt + 40).value = int(key)     # flags
             c.c_int64.from_address(pkt + 64).value = step       # duration
@@ -1525,6 +1550,22 @@ class Lavf:
         assert f.av_write_trailer(ctx) >= 0
         f.avio_closep(pb)
         f.avformat_free_context(ctx)
+
+    def video_delay(self, path: str) -> int:
+        """The first stream's ``video_delay`` (AVCodecParameters offset 120)
+        after ``avformat_find_stream_info``: the reorder depth FFmpeg's
+        probe found, which cv2's decoder starts from."""
+        c, f = self.ct, self.f
+        ctx = c.c_void_p()
+        assert f.avformat_open_input(c.byref(ctx), path.encode(), None,
+                                     None) == 0, path
+        f.avformat_find_stream_info(ctx, None)
+        st = c.c_void_p.from_address(
+            c.c_void_p.from_address(ctx.value + 48).value).value
+        delay = c.c_int.from_address(
+            c.c_void_p.from_address(st + 16).value + 120).value
+        f.avformat_close_input(c.byref(ctx))
+        return delay
 
     def packets(self, path: str) -> list:
         c, f, a = self.ct, self.f, self.a
@@ -4359,7 +4400,8 @@ def write_manifest(keep: bool = False) -> None:
                     str(e).split(": ", 1)[1]
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
                              "asv_", "msm_", "snow_", "nut_", "dirac_",
-                             "pvop_", "ivop_", "j2k_", "tag_", "h264_")
+                             "pvop_", "ivop_", "j2k_", "tag_", "h264_",
+                             "rot_", "ts_mpeg2_")
                             + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
@@ -4414,6 +4456,12 @@ def write_manifest(keep: bool = False) -> None:
         reached = {f for e in manifest["files"].values()
                    for f in e.get(f"{key}_features", [])}
         manifest[f"{key}_unreached"] = [f for f in names if f not in reached]
+    from opticalflow_tpu_torch.runtime.h264 import B_FEATURES
+    reached = {f for n, e in manifest["files"].items()
+               if e.get("group") == "h264_b"
+               for f in e.get("h264_features", [])}
+    manifest["h264_b_unreached"] = [f for f in B_FEATURES
+                                    if f not in reached]
     # cv2's decoder threads: vp8_clamping.webm's digests depend on them
     manifest["ffmpeg_threads"] = ffmpeg_threads()
     build = cv2.getBuildInformation()
@@ -4442,12 +4490,14 @@ def _h264_features(path: str) -> list:
 
 def h264_lavc_planes(path: str) -> list:
     """libavcodec's h264 decoder's planes of a file's packets (as FFmpeg's
-    demuxer hands them over; the avcC or Annex B extradata first)."""
+    demuxer hands them over; the avcC or Annex B extradata first), from
+    the reorder depth FFmpeg's probe leaves for cv2 (``Lavf.video_delay``)."""
     packets = [p for p, _, _ in Lavf().packets(path)]
     sys.path.insert(0, os.path.dirname(HERE))
     from opticalflow_tpu_torch.io.video import EncodedVideo
     return Lavc().decode(packets, "h264",
-                         extradata=EncodedVideo(path).box.dsi)
+                         extradata=EncodedVideo(path).box.dsi,
+                         video_delay=Lavf().video_delay(path))
 
 
 def plane_digest(planes) -> str:
@@ -4470,17 +4520,23 @@ def h264_write(path: str, sps: list, pps: list, pics: list,
     w = 16 * s.mb_w - s.crop[0] - s.crop[1]
     h = 16 * s.mb_h - s.crop[2] - s.crop[3]
     ext = os.path.splitext(path)[1]
+    # pictures with their own POCs (B pictures) are stamped as an encoder
+    # stamps them: pts their display index, dts the decode index less the
+    # reorder depth, which the stream's video_delay states
+    shown, delay = hs.display_order(pics)
+    stamps = [(d, i - delay) for i, d in enumerate(shown)]
     if ext == ".h264":
         with open(path, "wb") as f:
             f.write(b"".join(aus))
     elif ext in (".mp4", ".mov", ".mkv", ".flv"):
-        Lavf().mux(path, [(hs.length_prefixed(a), k)
-                          for a, k in zip(aus, keys)], hs.avcc(sps, pps),
-                   w, h)
+        Lavf().mux(path, [(hs.length_prefixed(a), k, *t)
+                          for a, k, t in zip(aus, keys, stamps)],
+                   hs.avcc(sps, pps), w, h, video_delay=delay)
     else:
-        Lavf().mux(path, list(zip(aus, keys)),
+        Lavf().mux(path, [(a, k, *t) for a, k, t in zip(aus, keys, stamps)],
                    b"".join(b"\0\0\0\1" + n
-                            for n in hs.parameter_sets(sps, pps)), w, h)
+                            for n in hs.parameter_sets(sps, pps)), w, h,
+                   video_delay=delay)
 
 
 def h264_field_mp4(path: str) -> bytes:
@@ -4665,6 +4721,225 @@ def h264_fixtures() -> None:
                        [hs.Pps(cabac=cabac)], pics, seed=2900)
 
 
+def h264_b_specs() -> dict:
+    """The ``h264_b`` group's streams (as ``h264_specs``: each written once
+    in CAVLC and once in CABAC): B pictures in pyramids (a reference B
+    picture between each pair of P pictures, two non-reference ones
+    around it), in spatial and temporal direct mode, with
+    direct_8x8_inference_flag 1 and 0, each bi-prediction mode, list 1's
+    modification and swap, long-term references, MMCO on a B reference,
+    several slices, far vectors, VUI with and without the reorder depth,
+    176x144 and the 54x38 crop."""
+    import h264_syntax as hs
+    I, P, SL = hs.Pic, hs.Pps, hs.SliceSpec
+    bmix = ("B", "SKIP", "I4", "I16")
+    pmix = ("P", "SKIP", "I16")
+
+    def gops(n, first=0, step=2, spatial=True, p_kw=None, b_kw=None,
+             bref_kw=None):
+        """n pyramids after the picture of POC ``first``: P, then the
+        reference B between, then the two non-reference Bs."""
+        out = []
+        for g in range(n):
+            b = first + 4 * step * g
+            out += [I(kind="P", mb_types=pmix, poc=b + 4 * step,
+                      mv_range=2, **(p_kw or {})),
+                    I(kind="B", mb_types=bmix, poc=b + 2 * step,
+                      direct_spatial=spatial, num_ref_idx="all",
+                      **{**(b_kw or {}), **(bref_kw or {})}),
+                    I(kind="B", mb_types=bmix, poc=b + step, ref_idc=0,
+                      direct_spatial=spatial, num_ref_idx="all",
+                      **(b_kw or {})),
+                    I(kind="B", mb_types=bmix, poc=b + 3 * step, ref_idc=0,
+                      direct_spatial=spatial, num_ref_idx="all",
+                      **(b_kw or {}))]
+        return out
+    idr = I(idr=True, mb_types=("I4", "I16"), poc=0)
+    S96 = dict(mb_w=6, mb_h=4, max_num_ref_frames=4)
+    P3 = dict(num_ref_idx_default1=2, transform_8x8=True)
+    slices3 = [SL(0, 30, qp_delta=3, alpha=2, beta=-3, cabac_init_idc=1),
+               SL(30, 40, qp_delta=-4, deblock=2, cabac_init_idc=2),
+               SL(70, 29, deblock=0, alpha=-2, beta=3)]
+    w = dict(luma_log2=5, chroma_log2=3, luma={0: (40, -10), 1: (20, 6)},
+             chroma={0: [(6, 3), (12, -20)]}, luma1={0: (28, 9)},
+             chroma1={0: [(9, -4), (5, 2)], 1: [(8, 1), (7, 7)]})
+    return {
+        "spatial_96x64": ([hs.Sps(**S96)], [P(**P3)],
+                          [idr] + gops(3), ".mp4"),
+        "temporal_96x64": ([hs.Sps(**S96)], [P(**P3)],
+                           [idr] + gops(3, spatial=False), ".mkv"),
+        "inference0_96x64": ([hs.Sps(**S96, direct_8x8_inference=False)],
+                             [P(**P3)],
+                             [idr] + gops(1) + gops(1, 8, spatial=False)
+                             + gops(1, 16), ".avi"),
+        "implicit_96x64": ([hs.Sps(mb_w=6, mb_h=4, max_num_ref_frames=5)],
+                           [P(**P3, weighted_bipred_idc=2)],
+                           [I(idr=True, mb_types=("I16",), poc=0,
+                              long_term_reference=True)]
+                           + gops(2, b_kw=dict(num_ref_idx1="all"))
+                           + gops(1, 16, spatial=False,
+                                  b_kw=dict(num_ref_idx1="all")), ".mov"),
+        "explicit_96x64": ([hs.Sps(**S96)],
+                           [P(**P3, weighted_bipred_idc=1)],
+                           [idr] + gops(2, b_kw=dict(weights=w,
+                                                     num_ref_idx1=2)),
+                           ".ts"),
+        "listmod_96x64": ([hs.Sps(**S96)], [P(**P3)],
+                          [idr, I(kind="P", mb_types=pmix, poc=4),
+                           # after every reference: list 1 equals list 0,
+                           # its first two swapped
+                           I(kind="B", mb_types=bmix, poc=8, ref_idc=0,
+                             num_ref_idx1=2),
+                           I(kind="P", mb_types=pmix, poc=16),
+                           I(kind="B", mb_types=bmix, poc=12,
+                             num_ref_idx1=3, list_mods1=[(0, 1), (1, 0)]),
+                           I(kind="B", mb_types=bmix, poc=10, ref_idc=0,
+                             num_ref_idx1="all", list_mods1=[(0, 2)],
+                             direct_spatial=False, num_ref_idx="all"),
+                           # list 0 the reference B alone: the co-located
+                           # P picture's reference is not in it
+                           I(kind="B", mb_types=bmix, poc=14, ref_idc=0,
+                             direct_spatial=False, num_ref_idx=1,
+                             list_mods=[(0, 0)])],
+                          ".mp4"),
+        "mmco_96x64": ([hs.Sps(**S96)], [P(**P3)],
+                       [idr] + gops(1) + gops(1, 8, bref_kw=dict(
+                           mmco=[(1, 1)])) + gops(1, 16, bref_kw=dict(
+                               mmco=[(1, 2), (4, 1), (6, 0)])), ".nut"),
+        "slices_176x144": ([hs.Sps(mb_w=11, mb_h=9, max_num_ref_frames=4,
+                                   vui=dict(reorder=2))],
+                           [P(**P3)],
+                           [I(idr=True, mb_types=("I16",), poc=0)]
+                           + gops(2, b_kw=dict(slices=slices3, far_mv=0.3),
+                                  p_kw=dict(slices=slices3)), ".mkv"),
+        "crop_54x38": ([hs.Sps(mb_w=4, mb_h=3, max_num_ref_frames=4,
+                               crop=(0, 10, 0, 10), vui=dict(chroma_loc=1))],
+                       [P(**P3)], [idr] + gops(2), ".wmv"),
+    }
+
+
+def h264_b_fixtures() -> None:
+    """H.264 with B pictures from the seeded syntax writer: each stream of
+    ``h264_b_specs`` in CAVLC and CABAC (seeds 2950 on), and a 13-frame
+    pyramid clip at 96x64 in every container of ``H264_CONTAINERS``,
+    stamped as an encoder stamps B-frames (``h264_write``)."""
+    import h264_syntax as hs
+    for k, (name, (sps, pps, pics, ext)) in enumerate(h264_b_specs().items()):
+        for cabac in (False, True):
+            pp = [hs.Pps(**{**x.__dict__, "cabac": cabac}) for x in pps]
+            tag = "cabac" if cabac else "cavlc"
+            h264_write(os.path.join(OUT, f"h264_b_{name}_{tag}{ext}"), sps,
+                       pp, pics, seed=2950 + k)
+    sps = [hs.Sps(mb_w=6, mb_h=4, max_num_ref_frames=4)]
+    pics = [hs.Pic(idr=True, mb_types=("I16", "I4"), poc=0)]
+    for g in range(3):
+        b = 8 * g
+        pics += [hs.Pic(kind="P", mb_types=("P", "SKIP"), poc=b + 8),
+                 hs.Pic(kind="B", mb_types=("B", "SKIP"), poc=b + 4,
+                        num_ref_idx="all"),
+                 hs.Pic(kind="B", mb_types=("B", "SKIP"), poc=b + 2,
+                        ref_idc=0, num_ref_idx="all"),
+                 hs.Pic(kind="B", mb_types=("B", "SKIP"), poc=b + 6,
+                        ref_idc=0, num_ref_idx="all")]
+    for cabac in (False, True):
+        tag = "cabac" if cabac else "cavlc"
+        for ext in H264_CONTAINERS:
+            h264_write(os.path.join(OUT, f"h264_b_clip_{tag}{ext}"), sps,
+                       [hs.Pps(cabac=cabac)], pics, seed=2990)
+
+
+def with_stream_type(src: str, dst: str, st: int) -> None:
+    """Transport stream ``src`` with its PMT's first stream_type set to
+    ``st`` (CRC fixed)."""
+    data = bytearray(open(src, "rb").read())
+    for k in range(0, len(data), 188):
+        pid = (data[k + 1] & 0x1F) << 8 | data[k + 2]
+        if pid == 0x1000:
+            sec = k + 5
+            n = (data[sec + 1] & 0x0F) << 8 | data[sec + 2]
+            pil = (data[sec + 10] & 0x0F) << 8 | data[sec + 11]
+            data[sec + 12 + pil] = st
+            crc = 0xFFFFFFFF
+            for b in data[sec:sec + 3 + n - 4]:
+                crc ^= b << 24
+                for _ in range(8):
+                    crc = (crc << 1 ^ (0x04C11DB7 if crc & 0x80000000 else 0)
+                           ) & 0xFFFFFFFF
+            data[sec + 3 + n - 4:sec + 3 + n] = struct.pack(">I", crc)
+            break
+    with open(dst, "wb") as f:
+        f.write(bytes(data))
+
+
+def relabel_fixtures() -> None:
+    """An MPEG-2 transport stream relabelled H.264 (stream_type 0x1B), which
+    FFmpeg's probe reads as MPEG-2 after its h264 parser has cut up the
+    first two PES packets (cv2's first 12 frames concealed)."""
+    with_stream_type(os.path.join(OUT, "mpeg2_176x144.ts"),
+                     os.path.join(OUT, "ts_mpeg2_type1b_176x144.ts"), 0x1B)
+
+
+def rotation_matrix(degrees: float, mirror: bool = False) -> list:
+    """A ``tkhd``-style display matrix turning by ``degrees`` (cv2's
+    orientation angle: atan2(b, a)), its first column negated where
+    ``mirror``."""
+    t = math.radians(degrees)
+    a, b, c, d = math.cos(t), math.sin(t), -math.sin(t), math.cos(t)
+    if mirror:
+        a, c = -a, -c
+    fx = lambda v: int(round(v * 65536))  # noqa: E731
+    return [fx(a), fx(b), 0, fx(c), fx(d), 0, 0, 0, 1 << 30]
+
+
+def patch_tkhd(src: str, dst: str, matrix: list) -> None:
+    """``src`` with its (first) ``tkhd``'s matrix replaced."""
+    with open(src, "rb") as f:
+        data = bytearray(f.read())
+    i = data.find(b"tkhd")
+    off = i + 4 + 4 + (32 if data[i + 4] else 20) + 16
+    struct.pack_into(">9i", data, off, *matrix)
+    with open(dst, "wb") as f:
+        f.write(data)
+
+
+# the angles and mirrors the rotation group patches in: cv2 turns its
+# frames at 90, 180 and 270 (a mirror by its angle alone), not at 45
+ROTATIONS = {"90": (90, False), "180": (180, False), "270": (270, False),
+             "mirror": (0, True), "mirror90": (90, True), "45": (45, False)}
+
+
+def rotation_fixtures() -> None:
+    """Display matrices cv2 turns frames by: ``tkhd`` patched into committed
+    MPEG-4 Part 2 (53x37) and H.264 .mp4 files (one with B pictures, whose
+    ``elst`` shifts the track), an H.264 .mov and an H.263 .mov; and
+    Matroska Projections (the mkv muxer's, from display matrix side
+    data: a quarter turn each way, a flipped one)."""
+    import h264_syntax as hs
+    for src, tag in (("odd_53x37.mp4", "mpeg4"),
+                     ("h264_clip_cavlc.mp4", "h264"),
+                     ("h264_b_clip_cabac.mp4", "h264b"),
+                     ("h264_clip_cabac.mov", "h264"),
+                     ("h263_176x144.mov", "h263")):
+        ext = os.path.splitext(src)[1]
+        for name, (deg, mirror) in ROTATIONS.items():
+            if tag == "h263" and name not in ("90", "270"):
+                continue
+            patch_tkhd(os.path.join(OUT, src),
+                       os.path.join(OUT, f"rot_{tag}_{name}{ext}"),
+                       rotation_matrix(deg, mirror))
+    sps = [hs.Sps(mb_w=6, mb_h=4, max_num_ref_frames=1)]
+    pps = [hs.Pps(cabac=True)]
+    pics = [hs.Pic(idr=True, mb_types=("I16", "I4"))] + [
+        hs.Pic(kind="P", mb_types=("P", "SKIP")) for _ in range(5)]
+    aus = hs.write_stream(31, sps, pps, pics)
+    flipped = rotation_matrix(90, True)
+    for name, m in (("90", rotation_matrix(90)), ("270", rotation_matrix(270)),
+                    ("mirror90", flipped)):
+        Lavf().mux(os.path.join(OUT, f"rot_h264_{name}.mkv"),
+                   [(hs.length_prefixed(a), i == 0) for i, a in enumerate(aus)],
+                   hs.avcc(sps, pps), 96, 64, display_matrix=m)
+
+
 # the fixture functions in the order they write (later ones read files
 # that earlier ones wrote)
 GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
@@ -4673,7 +4948,8 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           lossless_fixtures, magicyuv_fixtures, sorenson_fixtures,
           asv_fixtures, msmpeg4_fixtures, snow_fixtures, nut_fixtures,
           dirac_fixtures, cut_vop_fixtures, jpeg2000_fixtures, tag_fixtures,
-          h264_fixtures)
+          h264_fixtures, h264_b_fixtures, rotation_fixtures,
+          relabel_fixtures)
 
 
 if __name__ == "__main__":

@@ -239,11 +239,19 @@ def _refused(sps, pps, pics, match, cv2_reads=None, tmp=None, prefix=b""):
             list(vio.read_frames(p))
 
 
-def test_b_slices_raise_naming_item_8(tmp_path):
-    """All-skipped B slices, which cv2 decodes: the port's next slice."""
-    _refused([hs.Sps(max_num_ref_frames=1)], [hs.Pps()],
-             [hs.Pic(idr=True, mb_types=("I16",)),
-              hs.Pic(kind="B", ref_idc=0)], "B slices", 2, tmp_path)
+def test_all_skipped_b_slices_read_as_cv2_reads_them(tmp_path):
+    """All-skipped B slices (B pictures are read since they were refused
+    here): cv2's 2 frames, bit for bit."""
+    aus = hs.write_stream(5, [hs.Sps(max_num_ref_frames=1)], [hs.Pps()],
+                          [hs.Pic(idr=True, mb_types=("I16",)),
+                           hs.Pic(kind="B", ref_idc=0, mb_types=("SKIP",),
+                                  skips=1.0)])
+    p = str(tmp_path / "b.h264")
+    with open(p, "wb") as f:
+        f.write(b"".join(aus))
+    want = hc.cv2_frames(p)
+    assert len(want) == 2
+    hc.same(list(vio.read_frames(p)), want)
 
 
 @pytest.mark.parametrize("slice_type", [3, 4, 8, 9])

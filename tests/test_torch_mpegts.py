@@ -37,7 +37,8 @@ from opticalflow_tpu_torch.io.images import decode_png
 from opticalflow_tpu_torch.io.mpegpes import mpeg4_vol_rate, split_starts
 from opticalflow_tpu_torch.io.mpegps import MpegPsFile
 from opticalflow_tpu_torch.io.mpegts import MpegTsFile, packet_size
-from opticalflow_tpu_torch.runtime.mpeg4 import Unsupported
+from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
+from make_video_fixtures import Lavf, with_stream_type
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "goldens", "video")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
@@ -223,26 +224,7 @@ def test_unbounded_pes_starts_at_the_pusi():
             b"\x00\x00\x01"
 
 
-def _with_stream_type(src: str, dst: str, st: int) -> None:
-    """``src`` with the PMT's first stream_type set to ``st`` (CRC fixed)."""
-    data = bytearray(open(src, "rb").read())
-    for k in range(0, len(data), 188):
-        pid = (data[k + 1] & 0x1F) << 8 | data[k + 2]
-        if pid == 0x1000:
-            sec = k + 5
-            n = (data[sec + 1] & 0x0F) << 8 | data[sec + 2]
-            pil = (data[sec + 10] & 0x0F) << 8 | data[sec + 11]
-            data[sec + 12 + pil] = st
-            crc = 0xFFFFFFFF
-            for b in data[sec:sec + 3 + n - 4]:
-                crc ^= b << 24
-                for _ in range(8):
-                    crc = (crc << 1 ^ (0x04C11DB7 if crc & 0x80000000 else 0)
-                           ) & 0xFFFFFFFF
-            data[sec + 3 + n - 4:sec + 3 + n] = struct.pack(">I", crc)
-            break
-    with open(dst, "wb") as f:
-        f.write(bytes(data))
+_with_stream_type = with_stream_type
 
 
 @pytest.mark.parametrize("st,name", [(0x1B, "H.264"), (0x24, "HEVC"),
@@ -250,17 +232,71 @@ def _with_stream_type(src: str, dst: str, st: int) -> None:
 def test_other_video_in_a_transport_stream_raises_naming_it(tmp_path, st,
                                                              name):
     """HEVC and VC-1 raise naming their type and item 8.  H.264 (0x1B) is
-    read now: the MPEG-2 payload relabelled so is no H.264, and raises
-    ``ValueError`` as a corrupt stream (FFmpeg's probe of the payload reads
-    it as MPEG-2, which the port does not follow: ROADMAP Queue 3)."""
+    read: the MPEG-2 payload relabelled so reads as FFmpeg's probe reads it
+    (the first two PES packets split by the h264 parser, then MPEG-2; the
+    pictures they held concealed by the MPEG-2 decoder): cv2's 30 frames,
+    bit for bit, and its fps, size and count."""
     path = str(tmp_path / "other.ts")
     _with_stream_type(TS2, path, st)
     if st == 0x1B:
-        with pytest.raises(ValueError, match="corrupt H.264") as err:
-            list(vio.read_frames(path))
-        assert not isinstance(err.value, Unsupported)
+        want = _cv2_frames(path)
+        assert len(want) == 30
+        _same(list(vio.read_frames(path)), want)
+        assert vio.video_info(path) == _cv2_info(path)
         return
     with pytest.raises(Unsupported, match=f"{name}.*0x{st:02x}.*item 8"):
+        vio.EncodedVideo(path)
+
+
+@pytest.mark.parametrize("name,frames", [
+    ("mpeg2_176x144.ts", 30), ("mpeg2_sintel_436x1024.ts", 13),
+    ("mpeg2_pts_only_176x144.ts", 0),
+    ("mpeg2_sintel_low_delay_436x1024.ts", 0),
+    ("mpeg2_split_gaps_176x144.ts", 0)])
+def test_mpeg2_under_the_h264_type_reads_as_ffmpegs_probe_reads_it(
+        tmp_path, name, frames):
+    """MPEG-2 relabelled 0x1B (H.264).  Where each of the first two PES
+    packets carries a DTS other than its PTS, FFmpeg's h264 parser splits
+    them (slices without a picture header among the packets, which its
+    MPEG-2 decoder passes over; what the parser held back is lost) and its
+    probe switches the stream to MPEG-2: the port hands its decoder
+    libavformat's packets and reads cv2's frames (those from the cut
+    pictures concealed as error_resilience.c conceals them), fps, size,
+    count and every seek.  Elsewhere nothing switches: cv2 reads no frame
+    and the port raises ``ValueError`` (no H.264 there)."""
+    path = str(tmp_path / "relabelled.ts")
+    _with_stream_type(_path(name), path, 0x1B)
+    want = _cv2_frames(path)
+    assert len(want) == frames
+    if not frames:
+        with pytest.raises(ValueError):
+            list(vio.read_frames(path))
+        return
+    video = vio.EncodedVideo(path)
+    with open(path, "rb") as f:
+        mine = [video.box.sample(f, i) for i in range(video.samples)]
+    assert mine == [p for p, _, _ in Lavf().packets(path)]
+    _same(list(vio.read_frames(path)), want)
+    assert vio.video_info(path) == _cv2_info(path)
+    for t in range(frames):
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, t)
+        ok, frame = cap.read()
+        cap.release()
+        if not ok:
+            with pytest.raises(ValueError, match="reads no frame"):
+                video.frame(t)
+            continue
+        np.testing.assert_array_equal(video.frame(t), frame, err_msg=f"{t}")
+
+
+def test_mpeg1_under_the_h264_type_raises_naming_item_8(tmp_path):
+    """MPEG-1 relabelled 0x1B: FFmpeg's probe reads it as MPEG video too
+    (cv2 reads 29 frames); the port refuses it."""
+    path = str(tmp_path / "relabelled.ts")
+    _with_stream_type(_path("mpeg1_176x144.ts"), path, 0x1B)
+    assert len(_cv2_frames(path)) == 29
+    with pytest.raises(Unsupported, match=f"MPEG-1 video under.*{ITEM_8}"):
         vio.EncodedVideo(path)
 
 

@@ -320,9 +320,10 @@ def test_cut_vops_conceal_as_ffmpeg_conceals_them(name):
 
 
 def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
-    """Cut so early that the VOP's header or its first macroblock fails,
-    FFmpeg hands over no picture for it (cv2 reads one frame fewer), nor
-    does the port; cut right after its start code, FFmpeg reads its
+    """Cut so early that fewer bits follow the VOP's header than half its
+    macroblocks (here inside the header or the first macroblock), FFmpeg
+    hands over no picture for it (cv2 reads one frame fewer), nor does the
+    port; cut right after its start code, FFmpeg reads its
     padding (an I-VOP that is not coded) and hands over the picture before
     again, and so does the port (cv2's 24 frames)."""
     data = open(_path("nut_mp4v_96x64.nut"), "rb").read()
@@ -341,8 +342,13 @@ def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
 
 
 # the MPEG-4 clips whose last P-VOP is cut at every position (cv2's
-# writer at 25 and at 29.97 fps: a time increment of 5 and of 15 bits)
-SWEPT = ["nut_mp4v_96x64.nut", "nut_ntsc_96x64.nut"]
+# writer at 25 and at 29.97 fps: a time increment of 5 and of 15 bits; at
+# 64x48 under 3IV2; the port's encoder at 176x144 with a VOP that ends in
+# stuffing and one whose concealment searches vectors): a VOP with fewer
+# bits after its header than half its macroblocks dropped, one whose first
+# macroblock fails concealed
+SWEPT = ["nut_mp4v_96x64.nut", "nut_ntsc_96x64.nut", "tag_3IV2_64x48.nut",
+         "pvop_ended_176x144.nut", "pvop_search_176x144.nut"]
 
 
 @pytest.mark.parametrize("name", SWEPT)
