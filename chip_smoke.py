@@ -428,7 +428,21 @@ non-zero, and no result line is printed):
      temporal and spatial, random B macroblocks), CAVLC beside CABAC,
      beside the P pictures, and to convert it; (e) no cv2, PIL or jax in
      ``sys.modules``;
- 34. one JSON line listing every kernel with its launches on its path,
+ 34. TIFF, JPEG-LS, SpeedHQ and VP9 in enhanced FLV, the census's last
+     pairs (``runtime/tiff.cpp``, ``runtime/jpegls.cpp``,
+     ``runtime/speedhq.cpp``, ``io/flv.py``; ``phase_census``): (a) every
+     fixture of the ``tiff``, ``tiff_seq`` (``%d.tif`` sequences),
+     ``jpegls``, ``speedhq`` and ``flv_vp9`` groups decodes to its
+     manifest's cv2 digests, fps, size, count and seeks, JPEG-LS to the
+     frames written and SpeedHQ to libavcodec's planes; (b)
+     ``cli/extract_video --mode arrows --batch 4 --dtype bfloat16`` over a
+     ``%06d.tif`` pattern of 13 uncompressed 436x1024 frames written at run
+     time from the real pair: K1 15; (c) ``cli/train --regime pseudo`` for
+     3 steps over the pattern: K1 and B1 5 a step; (d) host ms to decode a
+     436x1024 frame of each new codec (TIFF uncompressed RGB and PackBits
+     YCbCr 4:2:0, JPEG-LS, SpeedHQ) and to convert it; (e) no cv2, PIL or
+     jax in ``sys.modules``;
+ 35. one JSON line listing every kernel with its launches on its path,
      error, times and bound; the card's name and power limit; the result
      line.
 
@@ -448,8 +462,9 @@ phase 25's lossless paths, phase 26's MagicYUV, Sorenson and ASV paths,
 phase 27's MS-MPEG4/WMV paths, phase 28's Snow paths, phase 29's NUT
 and Dirac paths (K1 in the video CLI's runs, K1 and B1 in the pseudo
 steps), phase 30's writer paths (K1 in the video CLI's runs), phase
-31's JPEG 2000 paths and phase 32's H.264 paths (K1 in the video CLI's
-run, K1 and B1 in the pseudo steps).
+31's JPEG 2000 paths, phase 32's and 33's H.264 paths and phase 34's
+TIFF pattern paths (K1 in the video CLI's run, K1 and B1 in the pseudo
+steps).
 The weights are random: ``tests/oracles/torch_pwcnet.py``'s ``OraclePWC``
 from ``torch.manual_seed(0)``, ×0.5 (the recipe the goldens were made with).
 The script imports nothing of JAX or of the JAX package.
@@ -3913,7 +3928,9 @@ def check_fixtures(fixtures: dict, seek_refused=()) -> dict:
         assert [pixel_digest(fr) for fr in got] == want["sha256"], name
         assert vio.video_info(path) == {k: want[k] for k in (
             "fps", "width", "height", "frames")}, name
-        video = vio.EncodedVideo(path) if "seeks" in want else None
+        video = None if "seeks" not in want else (
+            vio.ImageSequence(path) if vio.is_sequence(path) else
+            vio.EncodedVideo(path))
         for t, hit in want.get("seeks", {}).items():
             seeks += 1
             if hit is None or name in seek_refused:
@@ -7168,6 +7185,262 @@ def phase_h264_b(sd, tmp, corr_fwd, corr_bwd, card: str):
             "launches": launches, "phase_s": phase_s, "card": card}
 
 
+# ------------------------------------------------------------ phase 34
+
+CENSUS_FRAMES = 13                     # the CLI's %06d.tif pattern: 3 steps
+CENSUS_RPS = 16                        # its files' RowsPerStrip
+JLS_CLIP = "jpegls_sintel_436x1024.avi"    # cv2's writer (MJLS), 1 frame
+SHQ_CLIP = "speedhq_sintel_436x1024.avi"   # cv2's writer (SHQ0), 2 frames
+
+
+def real_pair_bgr():
+    """``tests/goldens/real_im1.png`` and ``real_im2.png`` nearest-neighbour
+    scaled to 436x1024, BGR."""
+    import numpy as np
+    from opticalflow_tpu_torch.io.images import load_image
+    out = []
+    for k in (1, 2):
+        img = load_image(os.path.join(GOLD, f"real_im{k}.png"))
+        rgb = img[np.arange(FULL_H) * img.shape[0] // FULL_H][
+            :, np.arange(FULL_W) * img.shape[1] // FULL_W]
+        out.append(np.ascontiguousarray(rgb[..., ::-1]))
+    return out
+
+
+def packbits(row: bytes) -> bytes:
+    """One row in PackBits: literal runs of up to 128 bytes."""
+    out = bytearray()
+    for i in range(0, len(row), 128):
+        chunk = row[i:i + 128]
+        out.append(len(chunk) - 1)
+        out += chunk
+    return bytes(out)
+
+
+def tiff_file(width: int, height: int, rows: list, rps: int,
+              compression: int = 1, ycbcr: bool = False) -> bytes:
+    """A little-endian TIFF of 8-bit RGB rows (``ycbcr``: rows of 2x2 YCbCr
+    groups, photometric 6 at subsampling 2x2, as libavcodec's encoder
+    writes it), ``rps`` picture rows a strip, uncompressed or PackBits
+    (32773), every strip's rows coded one by one."""
+    import struct
+    per = rps // 2 if ycbcr else rps
+    strips = [b"".join(packbits(r) if compression == 32773 else r
+                       for r in rows[i:i + per])
+              for i in range(0, len(rows), per)]
+    n = len(strips)
+    tags = [(256, 4, 1, width), (257, 4, 1, height), (258, 3, 3, None),
+            (259, 3, 1, compression), (262, 3, 1, 6 if ycbcr else 2),
+            (273, 4, n, None), (277, 3, 1, 3), (278, 4, 1, rps),
+            (279, 4, n, None)] + ([(530, 3, 2, 2 | 2 << 16)] if ycbcr else [])
+    extra = 8 + 2 + 12 * len(tags) + 4
+    bps_at, offs_at = extra, extra + 6
+    sizes_at = offs_at + 4 * n
+    data_at = sizes_at + 4 * n
+    offsets, at = [], data_at
+    for s in strips:
+        offsets.append(at)
+        at += len(s)
+    out = bytearray(b"II*\0" + struct.pack("<IH", 8, len(tags)))
+    for tag, typ, count, value in tags:
+        if tag == 258:
+            value = bps_at
+        elif tag in (273, 279):
+            value = (offsets[0] if tag == 273 else len(strips[0])) \
+                if n == 1 else (offs_at if tag == 273 else sizes_at)
+        packed = (struct.pack("<HH", value, 0) if typ == 3 and count == 1
+                  else struct.pack("<I", value))
+        out += struct.pack("<HHI", tag, typ, count) + packed
+    out += struct.pack("<I", 0) + struct.pack("<3H", 8, 8, 8)
+    out += struct.pack(f"<{n}I", *offsets) + struct.pack(
+        f"<{n}I", *map(len, strips))
+    return bytes(out) + b"".join(strips)
+
+
+def phase_census(sd, tmp, corr_fwd, corr_bwd, card: str):
+    """TIFF, JPEG-LS, SpeedHQ and VP9 in enhanced FLV, the census's last
+    pairs, through the port's entry points on the card machine (host C++
+    ``runtime/tiff.cpp``, ``runtime/jpegls.cpp``, ``runtime/speedhq.cpp``
+    and ``io/flv.py``'s extended tag header behind ``io/video.py``): (a)
+    every fixture of the ``tiff`` (cv2's writer in .avi, .mkv, .mov,
+    .nut), ``tiff_seq`` (PIL's ``%d.tif`` sequences: every compression,
+    Predictor 2, grey 8 and 16, big-endian), ``jpegls``, ``speedhq`` and
+    ``flv_vp9`` groups equals cv2's digests, fps, size, count and recorded
+    seeks, JPEG-LS's the frames written, SpeedHQ's planes libavcodec's;
+    (b) the video CLI over a ``%06d.tif`` pattern of 13 uncompressed
+    436x1024 frames written here from the goldens' real pair, K1 on the
+    card, bf16; (c) the pseudo regime over the pattern, 3 steps (K1 and
+    B1); (d) host ms to decode a 436x1024 frame: TIFF uncompressed RGB
+    and PackBits YCbCr 4:2:0 (what cv2's writer makes), JPEG-LS, SpeedHQ,
+    each with swscale's conversion; (e) no cv2, PIL or jax imported.
+    Returns its results, each path's K1 (and B1) launches among them."""
+    import hashlib
+    import numpy as np
+    import torch
+    from opticalflow_tpu_torch.io import video as vio
+    from opticalflow_tpu_torch.io.yuv import i420_planes
+    from opticalflow_tpu_torch.runtime import jpegls, speedhq, tiff
+    from opticalflow_tpu_torch.runtime.mpeg4 import (CHROMA_SITES,
+                                                     i420_to_bgr, to_i420)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the fixtures
+    t0 = time.perf_counter()
+    manifest = video_manifest()
+    names = ("tiff", "tiff_seq", "jpegls", "speedhq", "flv_vp9")
+    new = fixtures_of(manifest, *names)
+    groups = {g: sum(w["group"] == g for w in new.values()) for g in names}
+    assert all(groups.values()), groups
+    checked = check_fixtures(new)
+    assert checked["refused"] == [] and checked["seeks_none"] == 0, checked
+    for name, want in new.items():
+        if "written_sha256" in want:
+            assert want["written_sha256"] == want["sha256"], name
+        if "speedhq_planes" in want:
+            v = vio.EncodedVideo(os.path.join(MP4_DIR, name))
+            dec = v._decoder()
+            with open(v.path, "rb") as f:
+                got = [hashlib.sha256(b"".join(
+                    np.ascontiguousarray(p).tobytes() for p in dec.decode(
+                        v.box.sample(f, i)))).hexdigest()
+                    for i in range(v.samples)]
+            assert got == want["speedhq_planes"], name
+    reached = {k: {f for w in new.values() for f in w.get(f"{k}_features",
+                                                          [])}
+               for k in ("tiff", "jpegls", "speedhq")}
+    for k, mod in (("tiff", tiff), ("jpegls", jpegls), ("speedhq", speedhq)):
+        assert reached[k] == set(mod.FEATURES), (k, reached[k])
+    log(f"[34] (a) {len(new)} fixtures ({groups}: TIFF in .avi/.mkv/.mov/"
+        f".nut and as %d.tif sequences in every compression, JPEG-LS "
+        f"(colour, grey, LSE), SpeedHQ, VP9 in enhanced FLV) decoded to "
+        f"cv2.VideoCapture's {checked['frames']} frame digests and its "
+        f"fps/size/count, {checked['seeks']} seeks to the frames cv2's "
+        f"read, JPEG-LS to the frames written, SpeedHQ to libavcodec's "
+        f"planes, every feature of the three decoders reached, in "
+        f"{time.perf_counter() - t0:.2f} s; {card}")
+
+    # (b) the video CLI over a %06d.tif pattern of the real pair
+    pair = real_pair_bgr()
+    seq_dir = os.path.join(tmp, "tif_frames")
+    os.makedirs(seq_dir)
+    for i in range(CENSUS_FRAMES):
+        rgb = pair[i % 2][..., ::-1]
+        with open(os.path.join(seq_dir, f"{i:06d}.tif"), "wb") as f:
+            f.write(tiff_file(FULL_W, FULL_H, [r.tobytes() for r in rgb],
+                              CENSUS_RPS))
+    pattern = os.path.join(seq_dir, "%06d.tif")
+    assert vio.video_info(pattern) == {"fps": 25.0, "width": FULL_W,
+                                       "height": FULL_H,
+                                       "frames": CENSUS_FRAMES}
+    for i in (0, 1, CENSUS_FRAMES - 1):
+        assert np.array_equal(vio.read_frame(pattern, i), pair[i % 2]), i
+    ckpt = os.path.join(tmp, "fake_pwc.pth.tar")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               ckpt)
+    k0 = corr_fwd.launches
+    row = video_cli([pattern, os.path.join(tmp, "out_tif.y4m"), "--ckpt",
+                     ckpt, "--mode", "arrows", "--batch", str(VIDEO_B),
+                     "--dtype", "bfloat16", "--device", "cuda"],
+                    CENSUS_FRAMES, FULL_H, FULL_W)
+    row["k1_launches"] = launched = corr_fwd.launches - k0
+    windows = row.pop("windows")
+    assert windows == -(-(CENSUS_FRAMES - 1) // VIDEO_B), windows
+    assert launched == 5 * windows, (launched, windows)
+    del row["runner"], row["bytes_uploaded"]
+    launches["cli"] = launched
+    log(f"[34] (b) extract_video --mode arrows B={VIDEO_B} bf16 over a "
+        f"%06d.tif pattern ({CENSUS_FRAMES} uncompressed frames "
+        f"{FULL_H}x{FULL_W}, strips of {CENSUS_RPS} rows): {row['fps']!r} "
+        f"fps over the run ({row['run_s']!r} s, fill {row['fill_s']:.2f} "
+        f"s); decode thread busy {row['decode_ms']!r} ms a frame "
+        f"({row['decode_share']:.1%}); {windows} windows, K1 {launched} "
+        f"launches (5 a window); {card}")
+
+    # (c) the pseudo regime over the pattern (436x1024 -> 384x512)
+    out_dir = os.path.join(tmp, "tif_pseudo")
+    k0, b0 = corr_fwd.launches, corr_bwd.launches
+    rc, _, wall_t = train_cli_run([
+        "--regime", "pseudo", "--data-root", pattern, "--pretrained", ckpt,
+        "--batch", str(TRAIN_B), "--epochs", "1", "--workers", "4",
+        "--log-every", "1", "--device", "cuda", "--out-dir", out_dir])
+    assert rc == 0, rc
+    steps = (CENSUS_FRAMES - 1) // TRAIN_B
+    recs = [r for r in jsonl(os.path.join(out_dir, "metrics.jsonl"))
+            if "step" in r]
+    launches["pseudo"] = {"correlation_fwd": corr_fwd.launches - k0,
+                          "correlation_bwd": corr_bwd.launches - b0}
+    assert steps == 3 and [r["step"] for r in recs] == [1, 2, 3], recs
+    assert all(np.isfinite(r["loss"]) for r in recs), recs
+    assert launches["pseudo"] == {"correlation_fwd": 5 * steps,
+                                  "correlation_bwd": 5 * steps}, launches
+    log(f"[34] (c) cli/train --regime pseudo over the %06d.tif pattern "
+        f"({FULL_H}x{FULL_W} -> 384x512), {steps} steps at batch {TRAIN_B}: "
+        f"losses {[r['loss'] for r in recs]}; K1/B1 launches "
+        f"{launches['pseudo']} (5 and 5 a step); {wall_t:.2f} s wall; "
+        f"{card}")
+
+    # (d) host ms a 436x1024 frame on one thread, decode and conversion
+    host = {}
+    raw = [open(os.path.join(seq_dir, f"{i:06d}.tif"), "rb").read()
+           for i in range(2)]
+    ms, got = host_decode(lambda: tiff.Decoder("raw"), raw)
+    assert [np.array_equal(g, p) for g, p in zip(got, pair)] == [True] * 2
+    host["tiff_raw_rgb"] = {"decode_ms": ms, "convert_ms": 0.0,
+                            "bytes_a_frame": sum(map(len, raw)) / 2}
+    ycc = []
+    for bgr in pair:
+        y, u, v = i420_planes(to_i420(bgr))
+        g = np.concatenate([
+            y.reshape(FULL_H // 2, 2, FULL_W // 2, 2).transpose(
+                0, 2, 1, 3).reshape(FULL_H // 2, FULL_W // 2, 4),
+            u[..., None], v[..., None]], axis=2)
+        ycc.append((tiff_file(FULL_W, FULL_H, [r.tobytes() for r in g], 56,
+                              32773, ycbcr=True), (y, u, v)))
+    ms, got = host_decode(lambda: tiff.Decoder("ycc"), [t for t, _ in ycc])
+    for p, (_, want) in zip(got, ycc):
+        assert all(np.array_equal(a, b) for a, b in zip(p, want))
+    host["tiff_packbits_ycbcr420"] = {
+        "decode_ms": ms, "convert_ms": convert_ms(got),
+        "bytes_a_frame": sum(len(t) for t, _ in ycc) / 2}
+    for key, clip, make in (
+            ("jpegls", JLS_CLIP, lambda: jpegls.Decoder("jls")),
+            ("speedhq", SHQ_CLIP,
+             lambda: speedhq.Decoder(FULL_W, FULL_H, what="shq"))):
+        v = vio.EncodedVideo(os.path.join(MP4_DIR, clip))
+        with open(v.path, "rb") as f:
+            samples = [v.box.sample(f, i) for i in range(v.samples)]
+        ms, got = host_decode(make, samples)
+        want = manifest["files"][clip]["sha256"]
+        if key == "jpegls":
+            assert [pixel_digest(g) for g in got] == want
+            conv = 0.0
+        else:
+            conv = convert_ms(got)
+            assert [pixel_digest(i420_to_bgr(
+                *g, chroma=CHROMA_SITES["center"])) for g in got] == want
+        host[key] = {"decode_ms": ms, "convert_ms": conv,
+                     "bytes_a_frame": sum(map(len, samples)) / len(samples)}
+    log(f"[34] (d) host ms a {FULL_H}x{FULL_W} frame on one thread (decode "
+        f"+ swscale's conversion): " + "; ".join(
+            f"{k} {h['decode_ms']!r} + {h['convert_ms']!r} "
+            f"({h['bytes_a_frame']:.0f} bytes a frame)"
+            for k, h in host.items()) + f"; {card}")
+
+    # (e) what the port imported
+    present = [m for m in ("cv2", "PIL", "jax") if m in sys.modules]
+    assert not present, f"imported: {present}"
+    phase_s = time.perf_counter() - t_phase
+    log(f"[34] (e) cv2, PIL, jax not imported; phase 34 took {phase_s:.1f} "
+        f"s; {card}")
+    return {"fixtures": len(new), "groups": groups,
+            "frames": checked["frames"], "seeks": checked["seeks"],
+            "cli": row, "host_decode": host,
+            "pseudo_losses": [r["loss"] for r in recs],
+            "launches": launches, "phase_s": phase_s, "card": card}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -7470,6 +7743,16 @@ def main() -> int:
     assert h264_b_launches == correlation_cuda.launches > 0
     assert avc_b["launches"]["pseudo"]["correlation_bwd"] == \
         correlation_bwd_cuda.launches > 0
+    zero_counts()                # the census's last codecs start here
+    with tempfile.TemporaryDirectory() as tmp:
+        census = phase_census(sd, tmp, correlation_cuda,
+                              correlation_bwd_cuda, card_line())
+    # ... and end here: the video CLI's run and the pseudo steps
+    census_launches = census["launches"]["cli"] + \
+        census["launches"]["pseudo"]["correlation_fwd"]
+    assert census_launches == correlation_cuda.launches > 0
+    assert census["launches"]["pseudo"]["correlation_bwd"] == \
+        correlation_bwd_cuda.launches > 0
 
     # one forward's worth: the levels of a 448x1024 pair, B=1, float32
     k1 = summed([r for r in k1_rows if r["batch"] == 1])
@@ -7567,7 +7850,10 @@ def main() -> int:
          "launches_h264": h264_launches, "h264": avc,
          # phase 33: the video CLI over the 436x1024 H.264 .mp4 with B
          # pictures, and the pseudo steps over it (5 a window, 5 a step)
-         "launches_h264_b": h264_b_launches, "h264_b": avc_b},
+         "launches_h264_b": h264_b_launches, "h264_b": avc_b,
+         # phase 34: the video CLI over a 436x1024 %06d.tif pattern, and
+         # the pseudo steps over it (5 a window, 5 a step)
+         "launches_census": census_launches, "census": census},
         {"name": "correlation_bwd", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/correlation_bwd.cu",
          # no TPU kernel: the JAX custom_vjp's backward is lax
@@ -7630,7 +7916,10 @@ def main() -> int:
          "launches_h264": avc["launches"]["pseudo"]["correlation_bwd"],
          # phase 33: the pseudo regime's steps over the B picture .mp4
          "launches_h264_b":
-             avc_b["launches"]["pseudo"]["correlation_bwd"]},
+             avc_b["launches"]["pseudo"]["correlation_bwd"],
+         # phase 34: the pseudo regime's steps over the %06d.tif pattern
+         "launches_census":
+             census["launches"]["pseudo"]["correlation_bwd"]},
         {"name": "fused_warp_corr", "route": "cuda",
          "source": "opticalflow_tpu_torch/csrc/fused_warp_corr.cu",
          "replaces": "scripts/probe_fused_warpcorr.py:80",

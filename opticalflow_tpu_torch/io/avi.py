@@ -46,7 +46,10 @@ codec:
     a keyframe;
   * JPEG 2000 (``MJ2C``, ``mjp2``, ``LJ2C``, ``LJ2K``, ``IPJ2``,
     ``AVj2``, in any case): decoded by ``runtime/jpeg2000``, every frame a
-    keyframe; libavcodec's packed 4:2:0 ``yuv4`` (codec ``yuv4``);
+    keyframe; libavcodec's packed 4:2:0 ``yuv4`` (codec ``yuv4``); TIFF
+    (``tiff``, in any case: riff.c's ``TIFF``): ``runtime/tiff``; JPEG-LS
+    (``MJLS``): ``runtime/jpegls``; SpeedHQ (``SHQ0``-``SHQ9``, in any
+    case): ``runtime/speedhq``; every frame of these a keyframe;
   * raw ``Y800``/``GREY``/``Y8  `` (grey), ``YV12`` (I420 with its chroma
     planes swapped), ``NV12`` (interleaved chroma), ``Y41B`` (yuv411p),
     ``RGBA`` and 32-bit ``BI_RGB`` (tag 0, bottom-up), read as FFmpeg's
@@ -100,6 +103,11 @@ RAW_LAYOUTS = {"Y800": "gray", "GREY": "gray", "Y8  ": "gray",
 # riff.c's tags of jpeg2000 and of yuv4 (libavcodec's packed 4:2:0),
 # matched without regard to case
 JPEG2000_TAGS = {"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}
+# riff.c's tags of tiff (cv2's writer falls back to "tiff" itself), of
+# jpegls and of speedhq (SHQ0-SHQ9: the layout in the tag's digit)
+TIFF_TAGS = {"TIFF"}
+JPEGLS_TAGS = {"MJLS"}
+SPEEDHQ_TAGS = {f"SHQ{k}" for k in range(10)}
 YUV4_TAGS = {"YUV4"}
 # riff.c's tags of huffyuv/ffvhuff, utvideo and png, matched without
 # regard to case (Ut Video's decoder takes its own tags in upper case)
@@ -314,7 +322,8 @@ def codec_of(tag: str, what: str) -> str:
     ``mpeg4``, ``mjpeg``, ``i420``, ``raw`` (the layout by
     ``RAW_LAYOUTS``), ``vp8``, ``vp9``, ``mpeg12``, ``h263``, ``flv1``,
     ``ffv1``, ``huffyuv``, ``utvideo``, ``magicyuv``, ``asv``, ``png``,
-    ``snow``, ``dirac``, ``jpeg2000``, ``yuv4``, ``h264`` or one of
+    ``snow``, ``dirac``, ``jpeg2000``, ``yuv4``, ``tiff``, ``jpegls``,
+    ``speedhq``, ``h264`` or one of
     ``MSMPEG4_TAGS``' codecs; anything else raises
     ``Unsupported`` naming ROADMAP Queue 1 item 8."""
     if tag in MPEG4_TAGS:
@@ -359,11 +368,17 @@ def codec_of(tag: str, what: str) -> str:
         return "jpeg2000"
     if tag.upper() in YUV4_TAGS:
         return "yuv4"
+    if tag.upper() in TIFF_TAGS:
+        return "tiff"
+    if tag.upper() in JPEGLS_TAGS:
+        return "jpegls"
+    if tag.upper() in SPEEDHQ_TAGS:
+        return "speedhq"
     name = _NAMES.get(tag.upper(), _NAMES.get(tag, f"the {tag!r} codec"))
     raise Unsupported(f"{what}: {name} video (fourcc {tag!r}): the port "
                       f"reads MPEG-4 Part 2, MPEG-1, MPEG-2, H.263, Sorenson "
                       f"H.263, MS-MPEG4 v2/v3, WMV7/8, Snow, Dirac, JPEG "
-                      f"2000, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
+                      f"2000, TIFF, JPEG-LS, SpeedHQ, FFV1, HuffYUV, FFVHuff, Ut Video, MagicYUV, "
                       f"ASUS V1/V2, PNG, Motion JPEG, yuv4, raw I420, YV12, "
                       f"NV12, Y41B, Y800 and RGBA, VP8 and VP9 only "
                       f"({ITEM_8})")

@@ -13,8 +13,11 @@ id 2 (Sorenson H.263, what FFmpeg's flv muxer writes for
 ``cv2.VideoWriter``'s fourcc ``FLV1``) is read, and codec id 7 (H.264:
 AVCPacketType 0, the sequence header, is its avcC; type 1 holds
 length-prefixed NAL units; the composition time is passed over, as I and
-P pictures have none); other codecs (Screen video, VP6, the enhanced-FLV
-codecs) raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
+P pictures have none), and, in enhanced FLV's extended tag header, VP9
+(FourCC ``vp09``: what FFmpeg's flv muxer writes for ``cv2.VideoWriter``'s
+fourccs ``VP90`` and ``VP09``; its SequenceStart packet is the ``vpcC``
+record); other codecs (Screen video, VP6, the other enhanced-FLV FourCCs:
+AV1, HEVC, H.264) raise ``Unsupported``, naming ROADMAP Queue 1 item 8.
 
 What cv2 reports follows FFmpeg: fps is the metadata's ``framerate`` as
 ``av_d2q(framerate, 1000)`` makes it the stream's ``avg_frame_rate``; the
@@ -46,6 +49,11 @@ _CODECS = {1: "JPEG video", 3: "Screen video", 4: "On2 VP6",
            5: "On2 VP6 with alpha", 6: "Screen video version 2",
            7: "H.264", 12: "HEVC", 13: "AV1", 14: "VP9"}
 _KEY, _INFO = 1, 5      # frame types: key frame, video info/command frame
+# enhanced FLV's packet types (the extended header's low 4 bits)
+(_SEQUENCE_START, _CODED_FRAMES, _SEQUENCE_END, _CODED_FRAMES_X, _METADATA,
+ _MPEG2TS_SEQUENCE_START, _MULTITRACK) = range(7)
+_FOURCCS = {b"vp09": "VP9", b"av01": "AV1", b"hvc1": "HEVC",
+            b"avc1": "H.264"}
 
 
 def av_d2q(d: float, limit: int):
@@ -164,14 +172,53 @@ class FlvFile:
         except (ValueError, IndexError, struct.error):
             pass                      # FFmpeg reads past a damaged script tag
 
+    def _enhanced(self, f: BinaryIO, flags: int, offset: int, n: int,
+                  stamp: int) -> None:
+        """An extended video tag header (enhanced FLV, as flvdec reads it):
+        the frame type in bits 4-6, the packet type in the low 4 bits, then
+        the FourCC.  VP9 (``vp09``) is read: SequenceStart holds its
+        ``vpcC`` record, CodedFrames and CodedFramesX a frame each (no
+        composition time: only AVC and HEVC carry one), SequenceEnd and
+        Metadata (``colorInfo``) no frame; a video info or command frame
+        is passed over, as FFmpeg passes it over."""
+        frame_type, kind = flags >> 4 & 7, flags & 0x0F
+        if kind == _MULTITRACK or n < 4:
+            what = ("a multitrack packet" if kind == _MULTITRACK else
+                    "an extended tag header without its FourCC")
+            raise Unsupported(f"{self.path}: enhanced FLV video ({what}), "
+                              f"not read by the port ({ITEM_8})")
+        if frame_type == _INFO and kind != _METADATA:
+            return
+        fourcc = f.read(4)
+        if fourcc != b"vp09" or (self.sizes and self.codec != "vp9"):
+            name = fourcc.decode("latin-1")
+            raise Unsupported(
+                f"{self.path}: enhanced FLV video of FourCC {name!r} "
+                f"({_FOURCCS.get(fourcc, 'an unknown codec')}): the port "
+                f"reads VP9 ('vp09') only of the enhanced FLV codecs "
+                f"({ITEM_8})")
+        self.codec, self.tag = "vp9", "VP90"
+        offset, n = offset + 4, n - 4
+        if kind == _SEQUENCE_START:
+            if not self.dsi:
+                self.dsi = f.read(n)
+            return
+        if kind not in (_CODED_FRAMES, _CODED_FRAMES_X) or not n:
+            return
+        self.offsets.append(offset)
+        self.sizes.append(n)
+        self.stamps.append(stamp)
+        self.frame_types.append(frame_type)
+
     def _video(self, f: BinaryIO, flags: int, offset: int, n: int,
                stamp: int) -> None:
         if flags & 0x80:
-            raise Unsupported(f"{self.path}: enhanced FLV video (an extended "
-                              f"tag header), not read by the port ({ITEM_8})")
+            self._enhanced(f, flags, offset, n, stamp)
+            return
         codec, frame_type = flags & 0x0F, flags >> 4
-        if codec not in (SORENSON, AVC) or (self.sizes and codec != (
-                AVC if self.codec == "h264" else SORENSON)):
+        if codec not in (SORENSON, AVC) or self.codec == "vp9" or (
+                self.sizes and codec != (
+                    AVC if self.codec == "h264" else SORENSON)):
             name = _CODECS.get(codec, f"codec id {codec}")
             raise Unsupported(f"{self.path}: {name} video in FLV: the port "
                               f"reads Sorenson H.263 (codec id 2) and H.264 "

@@ -38,7 +38,11 @@ needed.  The codecs, by ``CodecID``:
     ``ASV1``/``ASV2``, ``MPNG``, ``MP42``, ``WMV1`` and ``WMV2``, as ``cv2.VideoWriter`` writes them into ``.mkv``;
     JPEG 2000 under ``MJ2C``/``mjp2``, Motion JPEG under ``LJPG``,
     MPEG-4 Part 2 under ``3IV2``, ``yuv4``), its ``biBitCount`` as
-    ``bpc``.
+    ``bpc``;
+  * ``V_QUICKTIME``: a QuickTime sample description in ``CodecPrivate``,
+    its fourcc looked up as matroskadec's ``get_qt_codec`` looks it up
+    (``tiff``, what ``cv2.VideoWriter`` writes for it into ``.mkv``:
+    ``runtime/tiff``).
 
 Other codecs (H.264, HEVC, AV1, ...), zlib-compressed
 or encrypted tracks and laced video blocks raise ``Unsupported`` naming
@@ -65,6 +69,9 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import RAW_LAYOUTS, codec_of
+
+# the QuickTime sample entries read under V_QUICKTIME → their codecs
+QT_CODECS = {b"tiff": "tiff"}
 from opticalflow_tpu_torch.io.orientation import (matrix_angle,
                                                   projection_matrix)
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
@@ -407,6 +414,20 @@ class MkvFile:
                                   f"FourCC {self.tag!r}: the port reads raw "
                                   f"I420, YV12, NV12, Y41B, Y800, GREY, "
                                   f"'Y8  ' and RGBA only ({ITEM_8})")
+        elif codec == "V_QUICKTIME":
+            # CodecPrivate is a QuickTime sample description (its size,
+            # then the entry's fourcc; matroskadec's get_qt_codec shifts
+            # one that starts at the fourcc); the mov tags cv2's writer
+            # falls back to here: tiff
+            entry = self.dsi
+            if entry[:4] in QT_CODECS:
+                entry = len(entry).to_bytes(4, "big") + entry
+            self.tag = entry[4:8].decode("latin1")
+            if len(entry) < 21 or entry[4:8] not in QT_CODECS:
+                raise Unsupported(f"{self.path}: V_QUICKTIME video of fourcc "
+                                  f"{self.tag!r}: the port reads tiff only "
+                                  f"under V_QUICKTIME ({ITEM_8})")
+            self.codec = QT_CODECS[entry[4:8]]
         elif codec == "V_MS/VFW/FOURCC":
             if len(self.dsi) < 40:
                 raise ValueError(f"{self.path}: V_MS/VFW/FOURCC without a "

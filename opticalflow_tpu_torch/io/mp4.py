@@ -57,10 +57,10 @@ import struct
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from opticalflow_tpu_torch.io.avi import (ASV_TAGS, DIRAC_TAGS, FLV1_TAGS,
-                                          JPEG2000_TAGS,
+                                          JPEG2000_TAGS, JPEGLS_TAGS,
                                           HUFFYUV_TAGS, MAGICYUV_TAGS,
                                           MSMPEG4_TAGS, SNOW_TAGS,
-                                          UTVIDEO_TAGS)
+                                          SPEEDHQ_TAGS, UTVIDEO_TAGS)
 from opticalflow_tpu_torch.io.orientation import matrix_angle
 from opticalflow_tpu_torch.runtime.mpeg4 import ITEM_8, Unsupported
 
@@ -87,7 +87,7 @@ _OTI_CODECS = {0x20: "mpeg4", 0x6C: "mjpeg", 0x6D: "png", 0x6A: "mpeg12",
 # QuickTime sample entries of intra-only codecs: the entry → the codec
 # (the AVI fourccs the mov demuxer looks up in riff.c's table too)
 _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
-                  "mjp2": "jpeg2000", "yuv4": "yuv4",
+                  "mjp2": "jpeg2000", "yuv4": "yuv4", "tiff": "tiff",
                   **{t: "huffyuv" for t in HUFFYUV_TAGS},
                   **{t: "utvideo" for t in UTVIDEO_TAGS},
                   **{t: "magicyuv" for t in MAGICYUV_TAGS},
@@ -98,7 +98,9 @@ _INTRA_ENTRIES = {"jpeg": "mjpeg", "png ": "png", "RGBA": "raw",
 _RIFF_ENTRIES = {**{t: "flv1" for t in FLV1_TAGS}, **MSMPEG4_TAGS,
                  **{t: "snow" for t in SNOW_TAGS}, "3IVD": "msmpeg4v3",
                  **{t: "dirac" for t in DIRAC_TAGS},
-                 **{t: "jpeg2000" for t in JPEG2000_TAGS}}
+                 **{t: "jpeg2000" for t in JPEG2000_TAGS},
+                 **{t: "jpegls" for t in JPEGLS_TAGS},
+                 **{t: "speedhq" for t in SPEEDHQ_TAGS}}
 # isom.c's entries of MPEG-4 Part 2 (besides mp4v: what cv2's mov muxer
 # writes for 3IV2, XVID and DIVX, the VOL in a glbl box) and of MPEG-1/2
 # (what it falls back to for mpg1, PIM1, MPEG, mpg2 and PIM2)
@@ -384,7 +386,8 @@ class Mp4File:
                               f"FFVH, UL**, M8** (MagicYUV), ASV1/ASV2, MP42, "
                               f"avc1/avc3 (H.264), "
                               f"DIV3/3IVD, WMV1/WMV2, SNOW, drac (Dirac), "
-                              f"mjp2/MJ2C (JPEG 2000), yuv4, 3IV2/XVID/DIVX "
+                              f"mjp2/MJ2C (JPEG 2000), yuv4, tiff, MJLS (JPEG-LS), "
+                              f"SHQ0 (SpeedHQ), 3IV2/XVID/DIVX "
                               f"(MPEG-4 Part 2) and m1v /m2v1 (MPEG-1/2) only "
                               f"({ITEM_8})")
         self.width, self.height = struct.unpack(">HH", entry[24:28])

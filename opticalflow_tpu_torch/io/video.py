@@ -215,6 +215,11 @@ from opticalflow_tpu_torch.runtime.h264 import probe_delay as h264_probe_delay
 from opticalflow_tpu_torch.runtime.huffyuv import Decoder as HuffyuvDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import Decoder as J2kDecoder
 from opticalflow_tpu_torch.runtime.jpeg2000 import probe as j2k_size
+from opticalflow_tpu_torch.runtime.jpegls import Decoder as JplsDecoder
+from opticalflow_tpu_torch.runtime.speedhq import Decoder as ShqDecoder
+from opticalflow_tpu_torch.runtime.tiff import Decoder as TiffDecoder
+from opticalflow_tpu_torch.runtime.tiff import is_tiff
+from opticalflow_tpu_torch.runtime.tiff import probe as tiff_probe
 from opticalflow_tpu_torch.runtime.jpeg import (decode_jpeg_ffmpeg, is_jpeg,
                                                 jpeg_size)
 from opticalflow_tpu_torch.runtime.magicyuv import Decoder as MagicyuvDecoder
@@ -275,7 +280,7 @@ _Y4M_SITES = {"420jpeg": CHROMA_SITES["center"],
               "420paldv": CHROMA_SITES["topleft"]}
 _MP4_EXTS = (".mp4", ".m4v", ".mov", ".3gp", ".3g2")
 _MKV_EXTS = (".mkv", ".webm")
-_IMAGE_EXTS = (".jpg", ".jpeg", ".png")
+_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
 _ES_EXTS = (MPEG_EXTENSIONS + H263_EXTENSIONS + DIRAC_EXTENSIONS
             + H264_EXTENSIONS)
 _ENCODED = ("mp4", "avi", "mkv", "mpg", "ts", "es", "flv", "asf", "nut")
@@ -542,6 +547,14 @@ class EncodedVideo:
                 raise ValueError(f"{path}: the first JPEG 2000 packet has no "
                                  "SIZ marker")
             self.width, self.height = size
+        elif box.codec == "tiff":
+            with open(path, "rb") as f:
+                self.width, self.height, _ = tiff_probe(box.sample(f, 0),
+                                                        f"{path} frame 0")
+        elif box.codec == "jpegls":
+            with open(path, "rb") as f:
+                self.width, self.height = JplsDecoder(
+                    what=f"{path} frame 0").size(box.sample(f, 0))
         elif box.codec == "magicyuv":
             with open(path, "rb") as f:
                 size = magy_size(box.sample(f, 0))
@@ -570,6 +583,8 @@ class EncodedVideo:
         self.chroma = (CHROMA_SITES["left"] if box.codec == "mpeg4" else
                        MPEG12_SITE[self.mpeg2] if box.codec == "mpeg12" else
                        getattr(box, "chroma_site", None))
+        if box.codec == "speedhq":     # speedhqdec's chroma location
+            self.chroma = CHROMA_SITES["center"]
         self.full_range = box.codec != "vp8" and getattr(box, "full_range",
                                                          False)
         self.matrix = "bt601"
@@ -875,6 +890,13 @@ class EncodedVideo:
             return DiracDecoder(what=self.path)
         if self.box.codec == "jpeg2000":
             return J2kDecoder(what=self.path)
+        if self.box.codec == "tiff":
+            return TiffDecoder(what=self.path)
+        if self.box.codec == "jpegls":
+            return JplsDecoder(what=self.path)
+        if self.box.codec == "speedhq":  # the size comes from the container
+            return ShqDecoder(self.width, self.height, self.box.tag,
+                              what=self.path)
         if self.box.codec == "asv":
             return AsvDecoder(self.width, self.height, self.box.tag,
                               self.box.dsi, what=self.path)
@@ -1113,12 +1135,8 @@ class EncodedVideo:
                     # RGB comes packed (BGR0/GBRP → BGR24 is a copy in
                     # swscale)
                     yield i, p
-                elif len(p) == 1:   # grey, replicated (16 bits rounded)
-                    g = p[0]
-                    if g.dtype == np.uint16:
-                        g = np.minimum((g.astype(np.uint32) + 128) >> 8,
-                                       255).astype(np.uint8)
-                    yield i, np.repeat(g[..., None], 3, axis=2)
+                elif len(p) == 1:
+                    yield i, _grey_bgr(p[0])
                 elif p[0].dtype == np.uint16:   # 9-16 bits (Dirac, JPEG 2000)
                     yield i, yuv16_to_bgr(*p, self.bits, self.shifts,
                                           self.full_range, self.matrix,
@@ -1268,15 +1286,29 @@ def _image2_range(pattern: str) -> Tuple[int, int]:
         last += step
 
 
+def _grey_bgr(g: np.ndarray) -> np.ndarray:
+    """A grey plane as swscale's BGR24: replicated, a 16-bit sample rounded
+    to 8 bits."""
+    if g.dtype == np.uint16:
+        g = np.minimum((g.astype(np.uint32) + 128) >> 8, 255).astype(np.uint8)
+    return np.repeat(g[..., None], 3, axis=2)
+
+
 def _image_bgr(data: bytes, what: str) -> np.ndarray:
     """One image file's bytes → the BGR frame ``cv2.VideoCapture`` reads
     from it: JPEG through FFmpeg's decoder (``runtime/jpeg``'s FFmpeg
     flavour), PNG through ``io/images.decode_png`` and swscale's
     conversion to BGR24 (alpha dropped, grey replicated, a 16-bit grey
     sample rounded to 8 bits, 16-bit colour through swscale's YUV:
-    ``runtime/mpeg4.rgb48_to_bgr``)."""
+    ``runtime/mpeg4.rgb48_to_bgr``), TIFF through ``runtime/tiff`` and
+    the same conversions (its YCbCr as yuv420p at video range)."""
     if is_jpeg(data):
         return decode_jpeg_ffmpeg(data, what)
+    if is_tiff(data):
+        p = TiffDecoder(what).decode(data)
+        if isinstance(p, np.ndarray):
+            return p
+        return _grey_bgr(p[0]) if len(p) == 1 else i420_to_bgr(*p)
     img = decode_png(data)
     if img is None:
         raise Unsupported(f"{what}: {unread_format(data)}, which the port "

@@ -100,13 +100,6 @@ const Code kMotion[17] = {
     {0x4, 7},  {0x3, 7},  {0xb, 9},  {0xa, 9},  {0x9, 9},  {0x11, 10},
     {0x10, 10}, {0xf, 10}, {0xe, 10}, {0xd, 10}, {0xc, 10}};
 
-// dct_dc_size_luminance / _chrominance 0..11 (tables B-12, B-13)
-const Code kDcLuma[12] = {{0x4, 3}, {0x0, 2}, {0x1, 2}, {0x5, 3}, {0x6, 3}, {0xe, 4},
-                          {0x1e, 5}, {0x3e, 6}, {0x7e, 7}, {0xfe, 8}, {0x1fe, 9}, {0x1ff, 9}};
-const Code kDcChroma[12] = {{0x0, 2}, {0x1, 2}, {0x2, 2}, {0x6, 3}, {0xe, 4}, {0x1e, 5},
-                            {0x3e, 6}, {0x7e, 7}, {0xfe, 8}, {0x1fe, 9}, {0x3fe, 10},
-                            {0x3ff, 10}};
-
 // macroblock_type: flags of each code (tables B-2, B-3, B-4)
 enum MbFlags { QUANT = 1, FWD = 2, BWD = 4, PATTERN = 8, INTRA = 16 };
 const Code kMbTypeI[2] = {{0x1, 1}, {0x1, 2}};
@@ -161,12 +154,6 @@ const Code kCoefB15[113] = {
     {0x1b, 13}, {0x1f, 16}, {0x1e, 16}, {0x1d, 16}, {0x1c, 16}, {0x1b, 16}, {0x1, 6},
     {0x6, 4}};
 constexpr int kEscape = 111, kEob = 112;
-
-const uint8_t kDefaultIntra[64] = {
-    8,  16, 19, 22, 26, 27, 29, 34, 16, 16, 22, 24, 27, 29, 34, 37,
-    19, 22, 26, 27, 29, 34, 34, 38, 22, 22, 26, 27, 29, 34, 37, 40,
-    22, 26, 27, 29, 32, 35, 40, 48, 26, 27, 29, 32, 35, 40, 48, 58,
-    26, 27, 29, 34, 38, 46, 56, 69, 27, 29, 35, 38, 46, 56, 69, 83};
 
 // quantiser_scale for q_scale_type 1 (table 7-6)
 const int kNonLinearQ[32] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  10, 12,

@@ -136,6 +136,7 @@ struct Vol {
     int time_bits = 1;
     int time_res = 0;
     bool mpeg_quant = false;
+    bool resync_marker = true;   // !resync_marker_disable
     uint8_t intra_m[64], inter_m[64];   // raster order
 };
 
@@ -208,7 +209,9 @@ Vol parse_vol(BitReader& br) {
     }
     if (verid != 1 && br.get1()) UNSUPPORTED("quarter-pel motion compensation");
     if (!br.get1()) UNSUPPORTED("complexity estimation headers");
-    br.skip(1);   // resync_marker_disable: packets are found either way
+    // resync_marker_disable: packets are found either way; FFmpeg's
+    // no-padding workaround reads the flag
+    v.resync_marker = !br.get1();
     if (br.get1()) UNSUPPORTED("data partitioning / reversible VLC");
     if (verid != 1) {
         if (br.get1()) UNSUPPORTED("NEWPRED");
@@ -378,6 +381,13 @@ class Decoder {
     // macroblock's intra flag
     int error_mb = -1;
     bool slice_ended = false;   // error_mb is the first missing one, not a failed one
+    // every macroblock decoded, but the last video packet's end not
+    // reached (error_mb its first macroblock): no end is marked
+    bool slice_open = false;
+    // FFmpeg's padding-bug detection across the stream (decode_slice's
+    // padding_bug_score, and FF_BUG_NO_PADDING where it sets it)
+    int padding_score = 0;
+    bool no_padding = false;
     // the last concealment: its VOP type, error_mb, slice_ended, the
     // macroblocks that kept their vectors, whether guess_mv searched, and
     // whether the damaged macroblocks were taken as intra
@@ -483,7 +493,7 @@ class Decoder {
 
     int decode_vop_data() {
         error_mb = -1;
-        slice_ended = false;
+        slice_ended = slice_open = false;
         int type = (int)br.get(2);
         if (type == 2) UNSUPPORTED("B-VOPs (Advanced Simple Profile)");
         if (type == 3) UNSUPPORTED("S-VOPs (sprites / global motion compensation)");
@@ -546,6 +556,7 @@ class Decoder {
     // mpeg4_is_resync: the macroblock number of a video packet that starts
     // at the reader's position, 0 if none
     int is_resync() {
+        if (no_padding && !vol.resync_marker) return 0;
         int v = (int)br.show(16);
         while (v <= 0xff) {   // macroblock stuffing before the marker
             if ((v >> (8 - pict_type)) != 1) break;
@@ -632,12 +643,14 @@ class Decoder {
                     // byte reads as stuffing, or a cut VOP's padding as a
                     // bad packet header) and no packet header follows: the
                     // macroblocks from here on are missing
+                    padding_score--;
                     error_mb = mbn;
                     slice_ended = true;
                     return;
                 }
                 if (next < 0) CORRUPT("bad video packet header");
                 if (next > 0) {
+                    padding_score--;
                     if (next != mbn) CORRUPT("video packet at macroblock %d after %d", next, mbn);
                     packet_header();
                     packets.push_back(mbn);
@@ -646,7 +659,38 @@ class Decoder {
                 }
             }
         }
+        if (is_resync()) {
+            padding_score--;   // the last slice's SLICE_END
+        } else if (end_not_reached() && cut) {
+            // the last macroblock of a cut VOP read into the zero padding:
+            // FFmpeg's slice end is not reached ("slice end not reached
+            // but screenspace end", or "overreading"), no end is marked,
+            // and its error concealment takes the whole last video packet
+            error_mb = packets.back();
+            slice_open = true;
+            return;
+        }
         br.check();
+    }
+
+    // decode_slice after its last macroblock without a SLICE_END: the
+    // padding-bug score and FF_BUG_NO_PADDING updated from the bits left;
+    // whether the slice's end is not reached (none is marked)
+    bool end_not_reached() {
+        const int64_t left = br.size - br.pos;
+        if (left >= 48 && br.show(24) == 0x4010) padding_score += 32;
+        if (left >= 0 && left < 137) {
+            if (left == 0) {
+                padding_score += 16;
+            } else if (left != 1) {
+                const int v = (int)br.show(8) | (0x7f >> (7 - (br.pos & 7)));
+                if (v == 0x7f && left <= 8) padding_score--;
+                else if (v == 0x7f && ((br.pos + 8) & 8) && left <= 16) padding_score += 4;
+                else padding_score++;
+            }
+        }
+        no_padding = padding_score > -2;
+        return !no_padding || left < 0;
     }
 
     void set_q(int q) { qscale = std::min(std::max(q, 1), 31); }
@@ -791,6 +835,10 @@ class Decoder {
                 level = (v >> (size - 1)) ? v : v - (1 << size) + 1;
                 if (size > 8) br.skip(1);   // marker (FFmpeg does not insist)
             }
+            // mpeg4_decode_block takes a negative DC (the differential plus
+            // its prediction, before the scale) for decode_dc's error code:
+            // the macroblock fails, whatever err_recognition says
+            if (level + dcp < 0) CORRUPT("a negative intra DC (%d)", level + dcp);
             blk[0] = (int16_t)(level + dcp);
             i = 0;
         } else {
@@ -943,7 +991,7 @@ class Decoder {
     // tables start zeroed)
     void keep_vectors() {
         std::fill(mv8.begin(), mv8.end(), 0);
-        const int last = error_mb < 0 ? vol.mb_num : error_mb;
+        const int last = error_mb < 0 || slice_open ? vol.mb_num : error_mb;
         for (int m = 0; m < last; m++) {
             const int x = m % vol.mb_w, y = m / vol.mb_w;
             for (int n = 0; n < 4; n++) {
@@ -953,7 +1001,7 @@ class Decoder {
                 o[1] = intra[m] || pict_type == 1 ? 0 : v[1];
             }
         }
-        if (error_mb < 0 || slice_ended) return;
+        if (error_mb < 0 || slice_ended || slice_open) return;
         const int x = error_mb % vol.mb_w, y = error_mb / vol.mb_w;
         for (int n = 0; n < 4; n++) {
             int16_t* o = &mv8[blk8(x * 2 + (n & 1), y * 2 + (n >> 1)) * 2];
@@ -984,15 +1032,22 @@ class Decoder {
             // at the macroblock that failed (ER_MB_ERROR) or, where its slice
             // ended early, at the one before the missing ones
             const bool failed = last && !slice_ended;
+            if (last && slice_open) {
+                // its macroblocks cleared, none of them an end
+                for (int m = start; m < num; m++) st[m] = 0;
+                st[start] |= kVpStart;
+                continue;
+            }
             const int end = !last ? packets[k + 1] - 1 : failed ? error_mb : error_mb - 1;
             for (int m = start; m < end; m++) st[m] = 0;
             st[end] = failed ? kMbError : kMbEnd;
             st[start] |= kVpStart;
         }
-        // a skipped macroblock before the error does not count towards the
-        // 50 that share it
+        // a skipped macroblock decoded (before the error, or anywhere in a
+        // VOP decoded whole) does not count towards the 50 that share it
+        const int decoded = slice_open ? num : error_mb;
         std::vector<uint8_t> counted((size_t)num);
-        for (int m = 0; m < num; m++) counted[m] = !(m < error_mb && skipped[m]);
+        for (int m = 0; m < num; m++) counted[m] = !(m < decoded && skipped[m]);
         er.spread(counted);
         // the damaged macroblocks' kind (is_intra_more_likely), inter with
         // a reference picture only

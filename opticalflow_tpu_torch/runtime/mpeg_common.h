@@ -294,6 +294,22 @@ inline const int kInterMaxLevel1[] = {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
 
 
+// MPEG-1/2's dct_dc_size_luminance / _chrominance 0..11 (tables B-12,
+// B-13), which SpeedHQ reads too (from each byte's lowest bit)
+inline const Code kDcLuma[12] = {{0x4, 3}, {0x0, 2}, {0x1, 2}, {0x5, 3}, {0x6, 3}, {0xe, 4},
+                                 {0x1e, 5}, {0x3e, 6}, {0x7e, 7}, {0xfe, 8}, {0x1fe, 9}, {0x1ff, 9}};
+inline const Code kDcChroma[12] = {{0x0, 2}, {0x1, 2}, {0x2, 2}, {0x6, 3}, {0xe, 4}, {0x1e, 5},
+                                   {0x3e, 6}, {0x7e, 7}, {0xfe, 8}, {0x1fe, 9}, {0x3fe, 10},
+                                   {0x3ff, 10}};
+
+// MPEG-1's default intra matrix, raster order (SpeedHQ's, its first entry
+// 16: unscaled_quant_matrix)
+inline const uint8_t kDefaultIntra[64] = {
+    8,  16, 19, 22, 26, 27, 29, 34, 16, 16, 22, 24, 27, 29, 34, 37,
+    19, 22, 26, 27, 29, 34, 34, 38, 22, 22, 26, 27, 29, 34, 37, 40,
+    22, 26, 27, 29, 32, 35, 40, 48, 26, 27, 29, 32, 35, 40, 48, 58,
+    26, 27, 29, 34, 38, 46, 56, 69, 27, 29, 35, 38, 46, 56, 69, 83};
+
 // MPEG-4's DC size codes (MS-MPEG4 v2 reads them with every bit inverted)
 inline const Code kDcLum[13] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3},
                          {1, 4}, {1, 5}, {1, 6}, {1, 7}, {1, 8},

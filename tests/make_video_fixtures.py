@@ -1312,17 +1312,19 @@ class Lavc:
 
     def decode(self, packets: list, codec: str, shifts=(1, 1),
                dtype=np.uint8, extradata: bytes = b"",
-               video_delay: int = 0) -> list:
+               video_delay: int = 0, tag: str = "", size=None) -> list:
         """Packets → the (Y, U, V) planes libavcodec's ``codec`` decoder
         hands over (its pixel format's: ``shifts`` the chroma subsampling,
         ``dtype`` uint16 for samples deeper than 8 bits), read at AVFrame's
         data (0), linesize (64), width and height (104, 108); ``extradata``
         goes in through AVCodecParameters (offsets 16 and 24), and
         ``video_delay`` (at 120: the decoder's starting has_b_frames, as
-        FFmpeg's probe leaves it for cv2)."""
+        FFmpeg's probe leaves it for cv2), the fourcc ``tag`` (at 8) and
+        the container's (width, height) ``size`` (at 72, 76: SpeedHQ's
+        decoder takes both from its container)."""
         c, a, u = self.ct, self.a, self.u
         ctx = a.avcodec_alloc_context3(None)
-        if extradata or video_delay:
+        if extradata or video_delay or tag or size:
             a.avcodec_parameters_alloc.restype = c.c_void_p
             a.avcodec_parameters_to_context.argtypes = [c.c_void_p,
                                                         c.c_void_p]
@@ -1335,6 +1337,12 @@ class Lavc:
             c.c_int.from_address(par + 24).value = len(extradata)
             c.c_int.from_address(par + 0).value = 0     # video
             c.c_int.from_address(par + 120).value = video_delay
+            if tag:
+                c.c_uint32.from_address(par + 8).value = int.from_bytes(
+                    tag.encode("latin1"), "little")
+            if size:
+                c.c_int.from_address(par + 72).value = size[0]
+                c.c_int.from_address(par + 76).value = size[1]
             assert a.avcodec_parameters_to_context(ctx, par) >= 0
         dec = a.avcodec_find_decoder_by_name(codec.encode())
         assert a.avcodec_open2(ctx, dec, None) >= 0, codec
@@ -4146,6 +4154,152 @@ def tag_fixtures() -> None:
                        clip[:4] if short else clip, fourcc)
 
 
+def tiff_fixtures() -> None:
+    """TIFF as cv2 writes and reads it (fourcc ``tiff``: libavcodec's
+    encoder, PackBits, YCbCr 4:2:0, strips of 56 rows) in .avi, .mkv
+    (``V_QUICKTIME``), .mov and .nut, 6 frames of the moving clip at
+    96x64, and 3 at 53x37 in .avi (the odd size's last chroma row and
+    column)."""
+    clip = moving_clip(64, 96, 6, seed=310)
+    for ext in ("avi", "mkv", "mov", "nut"):
+        _cv2_write(os.path.join(OUT, f"tiff_96x64.{ext}"), clip, "tiff")
+    _cv2_write(os.path.join(OUT, "tiff_53x37.avi"),
+               moving_clip(37, 53, 3, seed=311), "tiff")
+
+
+# the TIFF sequences (image2 patterns) tiff_seq_fixtures writes: name →
+# (PIL mode, compression, extra TIFF tags, the Compression tag patched to)
+TIFF_SEQ = {
+    "tifseq_raw_rgb_53x37_%d.tif": ("RGB", "raw", {}, None),
+    "tifseq_packbits_rgb_53x37_%d.tif": ("RGB", "packbits", {}, None),
+    "tifseq_lzw_rgb_53x37_%d.tif": ("RGB", "tiff_lzw", {278: 8}, None),
+    "tifseq_deflate_rgb_53x37_%d.tif": ("RGB", "tiff_adobe_deflate", {},
+                                        None),
+    "tifseq_deflate32946_rgb_53x37_%d.tif": ("RGB", "tiff_adobe_deflate",
+                                             {}, 32946),
+    "tifseq_pred_rgb_53x37_%d.tif": ("RGB", "tiff_lzw", {317: 2}, None),
+    "tifseq_raw_gray_53x37_%d.tif": ("L", "raw", {}, None),
+    "tifseq_raw_gray16_53x37_%d.tif": ("I;16", "raw", {}, None),
+    "tifseq_pred_gray16_53x37_%d.tif": ("I;16", "tiff_adobe_deflate",
+                                        {317: 2}, None),
+    "tifseq_be_gray16_53x37_%d.tif": ("I;16B", "raw", {}, None),
+}
+
+
+def tiff_patch_compression(path: str, value: int) -> None:
+    """The Compression entry (259) of a little-endian TIFF's first IFD set
+    to ``value`` (Deflate's 8 and 32946 name the same coding)."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    off = struct.unpack("<I", data[4:8])[0]
+    for k in range(struct.unpack("<H", data[off:off + 2])[0]):
+        e = off + 2 + 12 * k
+        if struct.unpack("<H", data[e:e + 2])[0] == 259:
+            struct.pack_into("<H", data, e + 8, value)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def tiff_seq_fixtures() -> None:
+    """TIFF image sequences as PIL writes them (``%d.tif`` patterns, 3
+    frames at 53x37 each): RGB uncompressed, PackBits, LZW (strips of 8
+    rows), Deflate (Compression 8, and patched to 32946) and LZW with
+    Predictor 2; 8-bit grey; 16-bit grey uncompressed, Deflate with
+    Predictor 2, and big-endian (``I;16B``)."""
+    from PIL import Image
+    clip = moving_clip(37, 53, 3, seed=312)
+    rng = np.random.default_rng(313)
+    for pattern, (mode, comp, tags, patch) in TIFF_SEQ.items():
+        for i, f in enumerate(clip):
+            path = os.path.join(OUT, pattern % i)
+            if mode == "RGB":
+                im = Image.fromarray(np.ascontiguousarray(f[..., ::-1]))
+            elif mode == "L":
+                im = Image.fromarray(f[..., 1])
+            else:
+                g = (f[..., 1].astype(np.uint16) * 257
+                     + rng.integers(0, 256, f.shape[:2])).astype(np.uint16)
+                im = Image.frombytes(mode, (53, 37), g.astype(
+                    ">u2" if mode == "I;16B" else "<u2").tobytes())
+            im.save(path, compression=comp, tiffinfo=tags)
+            if patch:
+                tiff_patch_compression(path, patch)
+
+
+# the frames each JPEG-LS fixture was written from (lossless: the frames
+# read back equal them), by file; the manifest records their digests
+JPEGLS_WRITTEN: dict = {}
+
+
+def jpegls_lse(packet: bytes, params=(255, 3, 7, 21, 64)) -> bytes:
+    """A JPEG-LS picture with an LSE marker of type 1 (MAXVAL, T1, T2,
+    T3, RESET) before its scan: the defaults the coding used, restated
+    (libavcodec's encoder writes LSE only for parameters it never picks)."""
+    i = packet.find(b"\xff\xda")
+    return (packet[:i] + b"\xff\xf8" + struct.pack(">HB5H", 13, 1, *params)
+            + packet[i:])
+
+
+def jpegls_fixtures() -> None:
+    """JPEG-LS as cv2 writes and reads it (fourcc ``MJLS``: SOF55,
+    line-interleaved RGB, NEAR 0) in .avi, .mkv, .mov, .nut and .wmv, 6
+    frames of the moving clip at 96x64; from libavcodec's encoder through
+    ctypes one grey component (ILV 0) at 53x37, and the colour clip with
+    an LSE marker restating the default parameters, both in .avi; and the
+    first Sintel frame at 436x1024 (cv2's writer, .avi), which the card
+    run decodes."""
+    clip = moving_clip(64, 96, 6, seed=314)
+    for ext in ("avi", "mkv", "mov", "nut", "wmv"):
+        name = f"jpegls_96x64.{ext}"
+        _cv2_write(os.path.join(OUT, name), clip, "MJLS")
+        JPEGLS_WRITTEN[name] = clip
+    lavc = Lavc()
+    odd = moving_clip(37, 53, 3, seed=315)
+    _, pk = lavc.encode_intra(odd, "jpegls", "gray")
+    lossless_avi(os.path.join(OUT, "jpegls_gray_53x37.avi"),
+                 [p for p, _ in pk], 53, 37, "MJLS", bpc=8)
+    JPEGLS_WRITTEN["jpegls_gray_53x37.avi"] = [
+        np.repeat(f[..., 1:2], 3, axis=2) for f in odd]
+    _, pk = lavc.encode_intra(clip[:3], "jpegls", "rgb24")
+    lossless_avi(os.path.join(OUT, "jpegls_lse_96x64.avi"),
+                 [jpegls_lse(p) for p, _ in pk], 96, 64, "MJLS")
+    JPEGLS_WRITTEN["jpegls_lse_96x64.avi"] = clip[:3]
+    sintel = sintel_pair()[:1]
+    _cv2_write(os.path.join(OUT, "jpegls_sintel_436x1024.avi"), sintel, "MJLS")
+    JPEGLS_WRITTEN["jpegls_sintel_436x1024.avi"] = sintel
+
+
+def speedhq_fixtures() -> None:
+    """SpeedHQ as cv2 writes and reads it (fourcc ``SHQ0``: libavcodec's
+    encoder, 4:2:0) in .avi, .mkv, .mov, .nut and .wmv, 6 frames of the
+    moving clip at 96x64; in .avi 3 frames at 96x37 (a partial last
+    macroblock row) and of seeded noise at 176x144 (the escape codes); and
+    the Sintel pair at 436x1024, which the card run decodes."""
+    import cv2
+    clip = moving_clip(64, 96, 6, seed=316)
+    for ext in ("avi", "mkv", "mov", "nut", "wmv"):
+        _cv2_write(os.path.join(OUT, f"speedhq_96x64.{ext}"), clip, "SHQ0")
+    _cv2_write(os.path.join(OUT, "speedhq_96x37.avi"),
+               moving_clip(37, 96, 3, seed=317), "SHQ0")
+    rng = np.random.default_rng(318)
+    noise = [cv2.GaussianBlur(rng.integers(0, 256, (144, 176, 3), np.uint8),
+                              (0, 0), 0.6) for _ in range(3)]
+    _cv2_write(os.path.join(OUT, "speedhq_noise_176x144.avi"), noise, "SHQ0")
+    _cv2_write(os.path.join(OUT, "speedhq_sintel_436x1024.avi"),
+               sintel_pair(), "SHQ0")
+
+
+def flv_vp9_fixtures() -> None:
+    """VP9 in enhanced FLV as cv2 writes and reads it (fourccs ``VP90`` and
+    ``VP09``: FFmpeg's flv muxer falls back to the ``vp09`` FourCC of the
+    extended tag header), 12 frames of the moving clip at 96x64 and 6 at
+    53x37."""
+    _cv2_write(os.path.join(OUT, "flv_vp9_96x64.flv"),
+               moving_clip(64, 96, 12, seed=319), "VP90")
+    _cv2_write(os.path.join(OUT, "flv_vp9_vp09_53x37.flv"),
+               moving_clip(37, 53, 6, seed=320), "VP09")
+
+
 def sintel_pair() -> list:
     import cv2
     jpeg = os.path.join(HERE, "goldens", "jpeg")
@@ -4184,6 +4338,8 @@ def run_group(fn) -> None:
         if before.get(name) != t:
             if name.startswith("png16_"):
                 name = name.rsplit("_", 1)[0] + "_%d.png"
+            if name.startswith("tifseq_"):
+                name = name.rsplit("_", 1)[0] + "_%d.tif"
             WRITTEN[name] = fn.__name__.removesuffix("_fixtures")
 
 
@@ -4289,8 +4445,9 @@ def write_manifest(keep: bool = False) -> None:
         groups = {n: e["group"] for n, e in files.items()}
         if keep:
             manifest["files"] = files
-    names = [n for n in os.listdir(OUT) if not n.startswith("png16_")]
-    for name in sorted(names + list(PNG16)):
+    names = [n for n in os.listdir(OUT)
+             if not n.startswith(("png16_", "tifseq_"))]
+    for name in sorted(names + list(PNG16) + list(TIFF_SEQ)):
         if name == "manifest.json" or name in manifest["files"]:
             continue
         path = os.path.join(OUT, name)
@@ -4344,8 +4501,22 @@ def write_manifest(keep: bool = False) -> None:
                             ("asv_", "asv_features")):
             if name.startswith(prefix):
                 manifest["files"][name][key] = _lossless_features(path)
-        if name.startswith("flv_"):
+        if name.startswith("flv_") and not name.startswith("flv_vp9"):
             manifest["files"][name]["flv_features"] = _flv_features(path)
+        for prefix, key in (("tiff_", "tiff_features"),
+                            ("jpegls_", "jpegls_features"),
+                            ("speedhq_", "speedhq_features")):
+            if name.startswith(prefix):
+                manifest["files"][name][key] = _lossless_features(path)
+        if name.startswith("tifseq_"):
+            manifest["files"][name]["tiff_features"] = _tiff_seq_features(
+                path, len(frames))
+        if name in JPEGLS_WRITTEN:
+            manifest["files"][name]["written_sha256"] = [
+                frame_digest(f) for f in JPEGLS_WRITTEN[name]]
+        if name.startswith("speedhq_"):
+            manifest["files"][name]["speedhq_planes"] = [
+                plane_digest(p) for p in speedhq_lavc_planes(path)]
         if name.startswith("msm_"):
             manifest["files"][name]["msmpeg4_features"] = \
                 _lossless_features(path)
@@ -4401,7 +4572,8 @@ def write_manifest(keep: bool = False) -> None:
         if (name.startswith(("h263_", "ffv1_", "mpeg4_", "magy_", "flv_",
                              "asv_", "msm_", "snow_", "nut_", "dirac_",
                              "pvop_", "ivop_", "j2k_", "tag_", "h264_",
-                             "rot_", "ts_mpeg2_")
+                             "rot_", "ts_mpeg2_", "tiff_", "tifseq_",
+                             "jpegls_", "speedhq_")
                             + LOSSLESS)
                 or "resize" in name or name.endswith(".3gp")):
             manifest["files"][name]["seeks"] = _cv2_seeks(path, frames)
@@ -4498,6 +4670,26 @@ def h264_lavc_planes(path: str) -> list:
     return Lavc().decode(packets, "h264",
                          extradata=EncodedVideo(path).box.dsi,
                          video_delay=Lavf().video_delay(path))
+
+
+def speedhq_lavc_planes(path: str) -> list:
+    """libavcodec's speedhq decoder's planes of a file's packets, the
+    fourcc and size handed to it as FFmpeg's demuxer hands them over."""
+    import cv2
+    info = cv2_info(path)
+    return Lavc().decode([p for p, _, _ in Lavf().packets(path)], "speedhq",
+                         tag="SHQ0", size=(info["width"], info["height"]))
+
+
+def _tiff_seq_features(pattern: str, n: int) -> list:
+    """The port's TIFF decoder's features over a sequence's files."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from opticalflow_tpu_torch.runtime.tiff import Decoder
+    dec = Decoder()
+    for i in range(n):
+        with open(pattern % i, "rb") as f:
+            dec.decode(f.read())
+    return dec.features
 
 
 def plane_digest(planes) -> str:
@@ -4949,7 +5141,8 @@ GROUPS = (mpeg4_fixtures, mjpeg_fixtures, vp8_fixtures, vp9_fixtures,
           asv_fixtures, msmpeg4_fixtures, snow_fixtures, nut_fixtures,
           dirac_fixtures, cut_vop_fixtures, jpeg2000_fixtures, tag_fixtures,
           h264_fixtures, h264_b_fixtures, rotation_fixtures,
-          relabel_fixtures)
+          relabel_fixtures, tiff_fixtures, tiff_seq_fixtures,
+          jpegls_fixtures, speedhq_fixtures, flv_vp9_fixtures)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     _MANIFEST = json.load(_f)
 MANIFEST = _MANIFEST["files"]
 FLV = sorted(n for n, e in MANIFEST.items() if e["group"] == "sorenson")
+VP9 = sorted(n for n, e in MANIFEST.items() if e["group"] == "flv_vp9")
 # a disposable picture right after the first key frame: FFmpeg skips it
 # in a capture just opened, not after a seek
 NEAR_KEY = "flv_disposable_key_96x64.flv"
@@ -325,10 +326,11 @@ def _flv(tag_flags: bytes, body: bytes = b"\0" * 8) -> bytes:
     (b"\x17", "H.264"), (b"\x14", "VP6"), (b"\x13", "Screen video"),
     (b"\x90", "enhanced FLV")])
 def test_other_flv_codecs_raise_naming_item_8(tmp_path, flags, what):
-    """VP6, Screen video and enhanced FLV raise naming item 8.  H.264 (codec
-    id 7) is read now (tests/test_torch_h264.py): a tag of a sequence
-    header alone, of which cv2 reads no frame, raises ``ValueError`` (no
-    video frame)."""
+    """VP6, Screen video and an enhanced FLV tag of a FourCC the port does
+    not read (here four zero bytes, which cv2 opens nothing of) raise
+    naming item 8.  H.264 (codec id 7) is read now (tests/test_torch_h264.py):
+    a tag of a sequence header alone, of which cv2 reads no frame, raises
+    ``ValueError`` (no video frame)."""
     path = tmp_path / "other.flv"
     path.write_bytes(_flv(flags))
     if what == "H.264":
@@ -337,8 +339,12 @@ def test_other_flv_codecs_raise_naming_item_8(tmp_path, flags, what):
             vio.EncodedVideo(str(path))
         assert not isinstance(err.value, Unsupported)
         return
-    with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):
+    with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}") as err:
         vio.EncodedVideo(str(path))
+    if flags == b"\x90":
+        assert "FourCC '\\x00\\x00\\x00\\x00' (an unknown codec)" in str(
+            err.value)
+        assert not cv2.VideoCapture(str(path)).isOpened()
 
 
 def _rewritten(tmp_path, old: bytes, new: bytes, stamps=None) -> str:
@@ -355,6 +361,62 @@ def _rewritten(tmp_path, old: bytes, new: bytes, stamps=None) -> str:
     path = tmp_path / "rewritten.flv"
     path.write_bytes(bytes(data))
     return str(path)
+
+
+# ------------------------------------------------- VP9 in enhanced FLV
+
+@pytest.mark.parametrize("name", VP9)
+def test_vp9_in_enhanced_flv_reads_as_cv2_reads_it(name):
+    """cv2's writer's VP90 and VP09 (FFmpeg's flv muxer falls back to the
+    ``vp09`` FourCC of the extended tag header): frames, fps, count and
+    every seek as cv2's."""
+    path, want = _path(name), MANIFEST[name]
+    got = list(vio.read_frames(path))
+    _same(got, _cv2_frames(path))
+    assert [_digest(f) for f in got] == want["sha256"]
+    assert vio.video_info(path) == _cv2_info(path) == {
+        k: want[k] for k in ("fps", "width", "height", "frames")}
+    video = vio.EncodedVideo(path)
+    assert want["seeks"] == {str(t): t for t in range(want["decoded"])}
+    for t, hit in want["seeks"].items():
+        assert _digest(video.frame(int(t))) == want["sha256"][hit], t
+
+
+def test_the_extended_tag_header_as_flvdec_reads_it():
+    """SequenceStart carries the vpcC record and no frame, the Metadata
+    tag (colorInfo, frame type 5) none either; CodedFrames hold the VP9
+    frame right after the FourCC (no composition time: only AVC and HEVC
+    carry one); the key frames are the tags of frame type 1."""
+    box = FlvFile(_path("flv_vp9_96x64.flv"))
+    assert (box.codec, box.tag) == ("vp9", "VP90")
+    assert box.dsi[:4] == b"\x01\x00\x00\x00" and len(box.dsi) == 12
+    with open(box.path, "rb") as f:
+        first = box.sample(f, 0)
+    assert first[0] >> 6 == 2 and first[1:4] == b"\x49\x83\x42"
+    assert box.keyframes[0] == 0 and len(box.sizes) == 12
+
+
+@pytest.mark.parametrize("fourcc,what", [
+    (b"av01", "AV1"), (b"hvc1", "HEVC"), (b"avc1", "H.264")])
+def test_other_enhanced_flv_fourccs_raise_naming_item_8(tmp_path, fourcc,
+                                                        what):
+    data = bytearray(open(_path("flv_vp9_96x64.flv"), "rb").read())
+    assert data.count(b"vp09") == data.count(b"vp09")
+    data = data.replace(b"vp09", fourcc)
+    path = tmp_path / "other.flv"
+    path.write_bytes(bytes(data))
+    with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):
+        vio.EncodedVideo(str(path))
+
+
+def test_an_extended_header_without_its_fourcc_or_multitrack_raises(
+        tmp_path):
+    for flags, body, what in ((b"\x91", b"vp", "without its FourCC"),
+                              (b"\x96", b"\0" * 8, "multitrack")):
+        path = tmp_path / "short.flv"
+        path.write_bytes(_flv(flags, body))
+        with pytest.raises(Unsupported, match=f"{what}.*{ITEM_8}"):
+            vio.EncodedVideo(str(path))
 
 
 @pytest.mark.parametrize("key", ["framerate", "duration"])

@@ -279,6 +279,39 @@ def test_png_sequence_reads_as_videocapture(tmp_path, kind):
     assert vio.video_info(path) == _cv2_info(path)
 
 
+@pytest.mark.parametrize("kind,ext", [
+    ("RGB-raw", ".tif"), ("RGB-packbits", ".tiff"), ("RGB-tiff_lzw", ".tif"),
+    ("RGB-tiff_adobe_deflate", ".tif"), ("L-tiff_lzw", ".tif"),
+    ("I;16-packbits", ".tif"), ("I;16B-raw", ".tiff")])
+def test_tiff_sequence_reads_as_videocapture(tmp_path, kind, ext):
+    """A ``%06d.tif`` (or ``.tiff``) sequence as PIL writes it, in each
+    compression and layout (Predictor 2 and the committed sequences are in
+    tests/test_torch_tiff.py): FFmpeg's tiff decoder and swscale's BGR24
+    (RGB copied, grey replicated, 16-bit grey rounded) equal cv2's frames,
+    and image2's count and 25 fps."""
+    from PIL import Image
+    mode, comp = kind.split("-")
+    rng = np.random.default_rng(len(kind))
+    for i in range(3):
+        f = _textures(1, 29, 43)[0] if i else rng.integers(
+            0, 256, (29, 43, 3), np.uint8)
+        if mode == "RGB":
+            im = Image.fromarray(np.ascontiguousarray(f[..., ::-1]))
+        elif mode == "L":
+            im = Image.fromarray(np.ascontiguousarray(f[..., 0]))
+        else:
+            g = f[..., 0].astype(np.uint16) * 251 + i
+            im = Image.frombytes(mode, (43, 29), g.astype(
+                ">u2" if mode == "I;16B" else "<u2").tobytes())
+        im.save(str(tmp_path / f"{i:06d}{ext}"), compression=comp)
+    path = str(tmp_path / f"%06d{ext}")
+    want = _cv2_all(path)
+    assert len(want) == 3
+    _same(list(vio.read_frames(path)), want)
+    assert vio.video_info(path) == _cv2_info(path)
+    assert vio.is_sequence(path)
+
+
 # ------------------------------------------------------ image2's rules
 
 def test_image2_first_index_gap_padding_and_one_file(tmp_path):

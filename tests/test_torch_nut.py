@@ -343,12 +343,15 @@ def test_a_vop_cut_inside_its_header_or_first_macroblock(tmp_path):
 
 # the MPEG-4 clips whose last P-VOP is cut at every position (cv2's
 # writer at 25 and at 29.97 fps: a time increment of 5 and of 15 bits; at
-# 64x48 under 3IV2; the port's encoder at 176x144 with a VOP that ends in
-# stuffing and one whose concealment searches vectors): a VOP with fewer
-# bits after its header than half its macroblocks dropped, one whose first
-# macroblock fails concealed
+# 64x48 under 3IV2; at 53x37; the port's encoder at 176x144 with a VOP
+# that ends in stuffing, one whose concealment searches vectors, and one
+# concealed spatially): a VOP with fewer bits after its header than half
+# its macroblocks dropped, one whose first macroblock fails concealed, an
+# intra macroblock whose DC comes out negative failed, a VOP whose last
+# macroblock reads into the padding concealed from its last packet on
 SWEPT = ["nut_mp4v_96x64.nut", "nut_ntsc_96x64.nut", "tag_3IV2_64x48.nut",
-         "pvop_ended_176x144.nut", "pvop_search_176x144.nut"]
+         "pvop_ended_176x144.nut", "pvop_search_176x144.nut",
+         "pvop_spatial_176x144.nut", "nut_odd_53x37.nut"]
 
 
 @pytest.mark.parametrize("name", SWEPT)
